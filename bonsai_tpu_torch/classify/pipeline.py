@@ -35,8 +35,7 @@ import torch
 from .. import kernels
 from ..core.alphabet import DNA4
 from ..core.bitops import shr
-from ..core.encoder import BatchEncoder
-from ..core.spacer import Spacer
+from ..core.encoder import minimizers_plain
 from ..db import formats
 from ..db.table import ProbeArrays, probe_slots, unique_u64
 from ..io import fastx
@@ -124,7 +123,7 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
     dictionary index (``want_idx``) or the original taxid (high half);
     both are 0 where there is no hit."""
     codes = unpack_2bit(pcodes, nmask)[:, :lproc]
-    em = BatchEncoder(Spacer(k, k), canon).emissions(codes, lengths)
+    em = minimizers_plain(codes, lengths, k, 1, canon)
     packed, found, sel = probe_slots(em.values, arr, want_idx=True)
     hit = em.mask & found
     cidx = as_i32(torch.where(hit, packed, 0))

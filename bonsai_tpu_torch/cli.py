@@ -1,14 +1,23 @@
-"""Command line of the PyTorch/CUDA port: ``build`` and ``classify``.
+"""Command line of the PyTorch/CUDA port: ``build``, ``prebuild`` and
+``classify``.
 
 Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
 
-  build OUT GENOMES... -k K -T nodes.dmp -M nameidmap [-C] [-F paths]
+  build OUT GENOMES... -k K [-w W] -T nodes.dmp -M nameidmap [-C]
+        [-F paths] [--device-build] [--device cuda|cpu]
+  prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-C] [-t|-f]
+        [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
            [-c CHUNK] [--profile] [--device cuda|cpu]
 
-``classify`` runs on ``--device`` (default cuda, which must be present)
-and reads a BTPU1 database file or a probe-image directory.
+``classify`` and the ``--device-build`` builds run on ``--device``
+(default cuda, which must be present; cpu runs the kernels' plain torch
+versions).  ``classify`` reads a BTPU1 database file or a probe-image
+directory.  Options of ``bonsai_tpu`` that are not ported (spaced seeds,
+entropy scores, hash-scored phase 2, other file formats, sharded output,
+the uncanonical windowed discipline) exit non-zero with the ROADMAP item
+that holds them.
 """
 
 from __future__ import annotations
@@ -46,11 +55,70 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("out_path")
     p.add_argument("paths", nargs="*")
     p.add_argument("-k", type=int, default=31)
+    p.add_argument("-w", type=int, default=-1)
     p.add_argument("-T", "--tax-path", required=True, help="nodes.dmp")
     p.add_argument("-M", "--seq2tax", required=True, help="name<TAB>taxid map")
     p.add_argument("-F", "--paths-file", default=None)
     p.add_argument("-C", "--no-canon", action="store_true")
+    _device_args(p)
+    # not ported: each exits non-zero (_unported)
+    p.add_argument("-S", "--spacing", default="")
+    p.add_argument("-e", "--entropy", action="store_true")
+    p.add_argument("-t", "--tax-depth", action="store_true")
+    p.add_argument("-f", "--feature-count", action="store_true")
+    p.add_argument("--phase1-db", default=None)
+    p.add_argument("--bonsai-format", action="store_true")
+    p.add_argument("--shards", default="0")
+
+    p = sub.add_parser("prebuild", aliases=["p1", "phase1"],
+                       help="build a phase-1 score map")
+    p.add_argument("seq2tax")
+    p.add_argument("tax_path")
+    p.add_argument("out_path")
+    p.add_argument("paths", nargs="*")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-C", "--no-canon", action="store_true")
+    p.add_argument("-t", "--tax-depth", action="store_true")
+    p.add_argument("-f", "--feature-count", action="store_true")
+    p.add_argument("-F", "--paths-file", default=None)
+    _device_args(p)
+    p.add_argument("-S", "--spacing", default="")  # not ported
     return ap
+
+
+def _device_args(p) -> None:
+    p.add_argument("--device-build", action="store_true",
+                   help="run the k-mer fold on the device "
+                        "(db/build_device.py: kernels KB1-KB3)")
+    p.add_argument("--device", default="cuda",
+                   help="device of --device-build: cuda (kernels, default) "
+                        "or cpu (their plain torch versions)")
+
+
+_UNPORTED = {
+    "spacing": "spaced seeds (-S): ROADMAP queue A, item 8",
+    "entropy": "entropy scores (-e): ROADMAP queue A, item 8",
+    "tax_depth": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP queue A, "
+                 "item 9",
+    "feature_count": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP "
+                     "queue A, item 9",
+    "phase1_db": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP queue A, "
+                 "item 9",
+    "bonsai_format": "the reference khash format (--bonsai-format): ROADMAP "
+                     "queue A, item 10",
+    "shards": "sharded database directories (--shards): ROADMAP queue A, "
+              "item 10",
+}
+
+
+def _unported(args, names) -> str | None:
+    """The message for a given option of bonsai_tpu that the port lacks."""
+    for name in names:
+        if getattr(args, name) not in ("", "0", False, None):
+            return f"not ported: {_UNPORTED[name]}"
+    if args.k > 32:
+        return "not ported: 128-bit k-mers (k > 32): ROADMAP queue A, item 8"
+    return None
 
 
 def _paths(args) -> List[str]:
@@ -66,9 +134,19 @@ def main(argv=None) -> int:
     if args.cmd is None:
         ap.print_help()
         return 1
-    if args.cmd in ("build", "p2", "phase2"):
-        return _cmd_build(args)
-    return _cmd_classify(args)
+    if args.cmd == "classify":
+        return _cmd_classify(args)
+    build = args.cmd in ("build", "p2", "phase2")
+    # prebuild's -t/-f choose the phase-1 map; build's are not ported
+    msg = _unported(args, _UNPORTED if build else ("spacing",))
+    if msg is not None:
+        print(msg, file=sys.stderr)
+        return 2
+    try:
+        return _cmd_build(args) if build else _cmd_prebuild(args)
+    except NotImplementedError as e:  # a discipline the encoder lacks
+        print(f"not ported: {e}", file=sys.stderr)
+        return 2
 
 
 def _cmd_classify(args) -> int:
@@ -98,7 +176,6 @@ def _cmd_classify(args) -> int:
 
 def _cmd_build(args) -> int:
     from .core.spacer import Spacer
-    from .db.build import lca_map
     from .db.formats import Database, save_database
     from .taxonomy.tree import TaxTree
 
@@ -107,11 +184,54 @@ def _cmd_build(args) -> int:
         print("no input genomes", file=sys.stderr)
         return 1
     k = args.k
+    w = max(args.w, k)
+    sp = Spacer(k, w)
     tree = TaxTree.from_nodes_dmp(args.tax_path)
     canon = not args.no_canon
-    table = lca_map(paths, tree, args.seq2tax, Spacer(k, k), canon)
-    db = Database(table=table, k=k, w=k, gaps=[0] * (k - 1),
+    if args.device_build:
+        from .db.build_device import device_lca_map
+
+        table = device_lca_map(paths, tree, args.seq2tax, sp, canon,
+                               device=args.device)
+    else:
+        from .db.build import lca_map
+
+        table = lca_map(paths, tree, args.seq2tax, sp, canon)
+    db = Database(table=table, k=k, w=w, gaps=[0] * (k - 1),
                   canonicalize=canon, scheme="lex")
+    save_database(db, args.out_path)
+    print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
+    return 0
+
+
+def _cmd_prebuild(args) -> int:
+    from .core.spacer import Spacer
+    from .db.formats import Database, save_database
+    from .taxonomy.tree import TaxTree
+
+    k = args.k
+    sp = Spacer(k, k)
+    tree = TaxTree.from_nodes_dmp(args.tax_path)
+    paths = _paths(args)
+    canon = not args.no_canon
+    if args.device_build:
+        from functools import partial
+
+        from .db import build_device as bd
+
+        build_ftct = partial(bd.device_ftct_map, device=args.device)
+        build_td = partial(bd.device_taxdepth_map, device=args.device)
+    else:
+        from .db.build import ftct_map as build_ftct
+        from .db.build import taxdepth_map as build_td
+    if args.feature_count:
+        table = build_ftct(paths, tree, args.seq2tax, sp, canon)
+        scheme = "feature_count"
+    else:
+        table = build_td(paths, tree, args.seq2tax, sp, canon)
+        scheme = "tax_depth"
+    db = Database(table=table, k=k, w=k, gaps=[0] * (k - 1),
+                  canonicalize=canon, scheme=scheme)
     save_database(db, args.out_path)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
     return 0

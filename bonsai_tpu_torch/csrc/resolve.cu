@@ -8,7 +8,8 @@
 // labels the root-path weight of hit p is
 //     score(p) = #{hits q : tin[q] <= tin[p] <= tout[q]},
 // the tied set's LCA is LCA(first argmin tin, first argmax tin), and the
-// LCA is binary lifting with the 0-identity rules.  The dedup branch gives
+// LCA is binary lifting with the 0-identity rules (lca.cuh, shared with
+// KB3 merge_fold.cu).  The dedup branch gives
 // the same scores and tied set, so this one kernel serves all three.
 //
 // What bounds it on an H100: W^2 integer compares per read (74^2 for a
@@ -22,6 +23,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lca.cuh"
 
 namespace {
 
@@ -107,24 +110,8 @@ __global__ void resolve_kernel(
     taxon[r] = 0u;
     return;
   }
-  const int32_t a0 = crow[best.pmin];
-  const int32_t b0 = crow[best.pmax];
-  int32_t a = a0, b = b0;
-  int32_t da = depth[a], db = depth[b];
-  for (int j = levels - 1; j >= 0; --j) {
-    const int32_t step = 1 << j;
-    if (da - db >= step) { a = lift[(int64_t)j * n + a]; da -= step; }
-    if (db - da >= step) { b = lift[(int64_t)j * n + b]; db -= step; }
-  }
-  const bool neq = a != b;
-  for (int j = levels - 1; j >= 0; --j) {
-    const int32_t pa = lift[(int64_t)j * n + a];
-    const int32_t pb = lift[(int64_t)j * n + b];
-    if (neq && pa != pb) { a = pa; b = pb; }
-  }
-  int32_t res = neq ? parent[a] : a;
-  if (a0 == 0) res = b0;
-  if (b0 == 0) res = a0 == 0 ? 0 : a0;
+  const int32_t res = bk::lca_compact(crow[best.pmin], crow[best.pmax], depth,
+                                      parent, lift, levels, n);
   taxon[r] = tax_ids[res];
 }
 

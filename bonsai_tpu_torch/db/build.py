@@ -1,15 +1,23 @@
-"""Classify-database build (kmer -> LCA taxid), default discipline.
+"""Database builds on the host: the classify map (kmer -> LCA taxid) and
+the two phase-1 maps.
 
-Counterpart of ``bonsai_tpu/db/build.py`` ``lca_map`` for DNA,
-contiguous, unwindowed seeds with k <= 32, the discipline of ``build``
-without options: each genome's distinct canonical k-mers come from the
-shared C++ ``btpu_canon_kmer_set``, and genomes fold in with the shared
-k-way merge ``btpu_merge_fold_stats``, which emits per-key Euler-interval
-extrema that map to the LCA on the host.  LCA folding is associative and
-commutative, so the content is the JAX package's bit for bit.
+Counterpart of ``bonsai_tpu/db/build.py`` for DNA, contiguous seeds with
+k <= 32 and the lex scheme:
 
-Windowed, spaced, entropy and phase-1 (score-map) builds and the device
-build are not ported yet (ROADMAP queue A, DB build).
+* ``lca_map``, unwindowed: each genome's distinct (canonical) k-mers
+  come from the shared C++ ``btpu_canon_kmer_set``;
+* ``lca_map``, canonical windowed (``-w``): the plain torch encoder
+  (``core/encoder.py``) runs on halo-overlapped chunks of each contig, as
+  ``_contig_sets`` does (build.py:134-169);
+* ``taxdepth_map`` (TDencode(depth, lca)) and ``ftct_map``
+  ((n_genomes << 32) | lca), unwindowed (build.py:594,620).
+
+Genomes fold in with the shared k-way merge ``btpu_merge_fold_stats``,
+which emits per-key Euler-interval extrema (and the group size) that map
+to the LCA on the host.  LCA folding is associative and commutative, so
+the content is the JAX package's bit for bit.  The device build of the
+same maps is ``db/build_device.py``.  Spaced, entropy and hash-scored
+builds are not ported yet (ROADMAP queue A, item 9).
 """
 
 from __future__ import annotations
@@ -21,8 +29,10 @@ from collections import deque
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.alphabet import DNA4
+from ..core.encoder import BatchEncoder
 from ..core.spacer import Spacer
 from ..io import fastx
 from ..native import get_lib
@@ -30,30 +40,76 @@ from ..taxonomy.ncbi import parse_nameid_map, taxid_for_path
 from ..taxonomy.tree import TaxTree
 from .table import KmerTable, unique_u64
 
+TAX_T_MAX = 0xFFFFFFFF
+
+
+def TDencode(depth, taxid):
+    """Tax-depth value: ((~0 - depth) << 32) | taxid (feature_min.h:10-20)."""
+    return ((TAX_T_MAX - np.asarray(depth, dtype=np.uint64)) << np.uint64(32)
+            ) | np.asarray(taxid, dtype=np.uint64)
+
+
+def FMencode(count, taxid):
+    """Feature-count value: (count << 32) | taxid."""
+    return (np.asarray(count, dtype=np.uint64) << np.uint64(32)
+            ) | np.asarray(taxid, dtype=np.uint64)
+
+
 FOLD_EVERY = 8  # genomes buffered between folds (bounds host memory)
+BLOCK = 1 << 22  # windows per chunk of the windowed encoder (the JAX default)
 
 
-def genome_kmer_set(path: str, k: int, canonicalize: bool = True) -> np.ndarray:
-    """Sorted distinct (canonical) k-mers of one genome (fill_set_genome,
-    feature_min.h:67-82)."""
-    if not 1 <= k <= 32:
-        raise ValueError(f"k={k}: the build supports 1 <= k <= 32")
+def _check(sp: Spacer, canonicalize: bool) -> None:
+    if not 1 <= sp.k <= 32:
+        raise ValueError(f"k={sp.k}: the build supports 1 <= k <= 32")
+    # the encoder raises for every discipline that is not ported
+    BatchEncoder(sp, canonicalize)
+
+
+def genome_kmer_set(path: str, sp: Spacer,
+                    canonicalize: bool = True) -> np.ndarray:
+    """Sorted distinct emitted (canonical) k-mers or minimizers of one
+    genome (fill_set_genome, feature_min.h:67-82)."""
+    _check(sp, canonicalize)
     lib = get_lib()
     lut = np.ascontiguousarray(DNA4.lut, dtype=np.int8)
+    enc = None if sp.unwindowed() else BatchEncoder(sp, canonicalize)
     pieces = []
     for _, seq, _ in fastx.read_fastx(path):
-        if len(seq) < k:
+        if len(seq) < sp.c:
+            continue
+        if enc is not None:
+            pieces.extend(_contig_sets(enc, seq, lut, sp, BLOCK))
             continue
         buf = np.frombuffer(seq, dtype=np.uint8)
         out = np.empty(len(seq), dtype=np.uint64)
         m = lib.btpu_canon_kmer_set(buf.ctypes.data, len(seq), lut.ctypes.data,
-                                    k, int(canonicalize), out.ctypes.data)
+                                    sp.k, int(canonicalize), out.ctypes.data)
         if m < 0:
             raise ValueError("btpu_canon_kmer_set failed")
         pieces.append(out[:m])
     if not pieces:
         return np.zeros(0, dtype=np.uint64)
     return unique_u64(np.concatenate(pieces))
+
+
+def _contig_sets(enc: BatchEncoder, seq: bytes, lut, sp: Spacer,
+                 block: int) -> List[np.ndarray]:
+    """Emissions of one contig through the plain encoder, in chunks of
+    ``block`` windows that overlap by a w - 1 base halo."""
+    out = []
+    halo = sp.w - 1
+    start = 0
+    while start < len(seq):
+        end = min(start + block + halo, len(seq))
+        codes = torch.from_numpy(fastx.encode_contig(seq[start:end], lut))
+        em = enc.emissions(codes[None, :],
+                           torch.tensor([end - start], dtype=torch.int32))
+        out.append(em.values[em.mask].numpy().view(np.uint64))
+        if end >= len(seq):
+            break
+        start += block
+    return out
 
 
 def _fold_stats_to_taxa(tree: TaxTree, tmin, tmax, n_miss, n_nz, mmin, mmax):
@@ -96,9 +152,12 @@ def _fold_stats_to_taxa(tree: TaxTree, tmin, tmax, n_miss, n_nz, mmin, mmax):
 
 
 def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
-                  runs: List[Tuple[np.ndarray, int]], tree: TaxTree):
+                  runs: List[Tuple[np.ndarray, int]], tree: TaxTree,
+                  want_counts: bool = False):
     """Fold sorted-unique runs [(kset, taxid)] into the accumulated
-    (keys, taxa) state with one k-way merge; returns the new state."""
+    (keys, taxa) state with one k-way merge; returns the new state, and
+    with ``want_counts`` each key's group size (the number of runs, plus
+    the state, that hold it: the ftct genome count)."""
     n = tree.tin.shape[0]
     BIG = np.int32(2 * n + 4)
     key_arrs, tin_arrs, tval_arrs, tin_consts, tval_consts = [], [], [], [], []
@@ -124,7 +183,8 @@ def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
         tval_consts.append(int(taxid) & 0xFFFFFFFF)
     G = len(key_arrs)
     if G == 0:
-        return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
+        empty = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
+        return empty + ((np.zeros(0, np.int64),) if want_counts else ())
     N = sum(a.size for a in key_arrs)
     out_keys = np.empty(N, dtype=np.uint64)
     tmin = np.empty(N, dtype=np.int32)
@@ -146,26 +206,16 @@ def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
     )
     taxa = _fold_stats_to_taxa(tree, tmin[:m], tmax[:m], nmiss[:m], nnz[:m],
                                mmin[:m], mmax[:m])
+    if want_counts:
+        return out_keys[:m].copy(), taxa, count[:m].astype(np.int64)
     return out_keys[:m].copy(), taxa
 
 
-def lca_map(paths: Sequence[str], tree: TaxTree,
-            name_map: Dict[str, int] | str, sp: Spacer,
-            canonicalize: bool = True) -> KmerTable:
-    """Classify database: kmer -> LCA of the taxids of the genomes that
-    hold it (feature_min.h:178-183,205-228)."""
-    if not (sp.unspaced() and sp.unwindowed()):
-        raise NotImplementedError(
-            f"{sp!r}: only contiguous unwindowed builds are ported "
-            "(ROADMAP queue A, DB build)"
-        )
-    if isinstance(name_map, str):
-        name_map = parse_nameid_map(name_map)
-    keys = np.zeros(0, np.uint64)
-    taxa = np.zeros(0, np.uint32)
-    buf: List[Tuple[np.ndarray, int]] = []
-    # the k-mer extraction releases the GIL: a few genomes at a time in
-    # threads, folded in submission order, at most 2 * workers in flight
+def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
+                 name_map: Dict[str, int]):
+    """Yield (kset, taxid) per genome in order; the k-mer extraction
+    releases the GIL, so a few genomes run at a time in threads, at most
+    2 * workers in flight."""
     workers = min(4, max(len(paths), 1), os.cpu_count() or 1)
     with cf.ThreadPoolExecutor(workers) as pool:
         todo = deque(paths)
@@ -174,16 +224,70 @@ def lca_map(paths: Sequence[str], tree: TaxTree,
             while todo and len(inflight) < 2 * workers:
                 p = todo.popleft()
                 inflight.append(
-                    (p, pool.submit(genome_kmer_set, p, sp.k, canonicalize))
+                    (p, pool.submit(genome_kmer_set, p, sp, canonicalize))
                 )
             p, fut = inflight.popleft()
-            buf.append((fut.result(), taxid_for_path(p, name_map)))
-            if len(buf) >= FOLD_EVERY:
-                keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
-                buf = []
+            yield fut.result(), taxid_for_path(p, name_map)
+
+
+def lca_map(paths: Sequence[str], tree: TaxTree,
+            name_map: Dict[str, int] | str, sp: Spacer,
+            canonicalize: bool = True) -> KmerTable:
+    """Classify database: kmer -> LCA of the taxids of the genomes that
+    hold it (feature_min.h:178-183,205-228)."""
+    _check(sp, canonicalize)
+    if isinstance(name_map, str):
+        name_map = parse_nameid_map(name_map)
+    keys = np.zeros(0, np.uint64)
+    taxa = np.zeros(0, np.uint32)
+    buf: List[Tuple[np.ndarray, int]] = []
+    for run in _genome_sets(paths, sp, canonicalize, name_map):
+        buf.append(run)
+        if len(buf) >= FOLD_EVERY:
+            keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
+            buf = []
     if buf:
         keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
     return KmerTable(keys, taxa.astype(np.uint32))
+
+
+def _phase1_fold(paths, tree, name_map, sp, canonicalize, want_counts):
+    _check(sp, canonicalize)
+    if isinstance(name_map, str):
+        name_map = parse_nameid_map(name_map)
+    runs = list(_genome_sets(paths, sp, canonicalize, name_map))
+    return lca_fold_runs(np.zeros(0, np.uint64), np.zeros(0, np.uint32), runs,
+                         tree, want_counts=want_counts)
+
+
+def taxdepth_map(paths: Sequence[str], tree: TaxTree,
+                 name_map: Dict[str, int] | str, sp: Spacer,
+                 canonicalize: bool = True) -> KmerTable:
+    """Phase-1 map: kmer -> TDencode(depth, lca taxid); a poisoned
+    (0xFFFFFFFF) fold packs as 1 (feature_min.h:198-203,230-250)."""
+    k, v = _phase1_fold(paths, tree, name_map, sp, canonicalize, False)
+    return KmerTable(k, taxdepth_values(tree, v))
+
+
+def ftct_map(paths: Sequence[str], tree: TaxTree,
+             name_map: Dict[str, int] | str, sp: Spacer,
+             canonicalize: bool = True) -> KmerTable:
+    """Phase-1 feature-count map: kmer -> (n_genomes << 32) | lca taxid
+    (feature_min.h:192-197,251-265, as intended)."""
+    k, v, counts = _phase1_fold(paths, tree, name_map, sp, canonicalize, True)
+    return KmerTable(k, ftct_values(v, counts))
+
+
+def taxdepth_values(tree: TaxTree, taxa: np.ndarray) -> np.ndarray:
+    """Folded taxids -> tax-depth values (build.py:613-616)."""
+    packed = np.where(taxa == np.uint32(TAX_T_MAX), np.uint64(1),
+                      TDencode(tree.depth_of(taxa), taxa))
+    return packed.astype(np.uint64)
+
+
+def ftct_values(taxa: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Folded taxids and genome counts -> feature-count values."""
+    return FMencode(np.minimum(counts, TAX_T_MAX), taxa).astype(np.uint64)
 
 
 def content_digest(table: KmerTable) -> str:

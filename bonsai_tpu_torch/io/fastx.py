@@ -98,6 +98,17 @@ def _read_fastq(fh):
         yield hdr[1:].split(b" ", 1)[0], seq, qual
 
 
+def first_header(path: str) -> str:
+    """The first line of a file (a FASTA/FASTQ header), stripped."""
+    with _buffered(path) as fh:
+        return fh.readline().decode("utf-8", "replace").strip()
+
+
+def encode_contig(seq: bytes, lut: np.ndarray) -> np.ndarray:
+    """Bytes -> int8 codes through an alphabet's LUT (-1 = ambiguous)."""
+    return np.asarray(lut, dtype=np.int8)[np.frombuffer(seq, dtype=np.uint8)]
+
+
 def trim_readno(name: bytes) -> bytes:
     """Strip a '/<digit>' mate suffix (kseq_declare.h trim_readno)."""
     if len(name) > 2 and name[-2:-1] == b"/" and name[-1:].isdigit():

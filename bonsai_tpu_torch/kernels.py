@@ -3,14 +3,21 @@
 The kernels (``csrc/*.cu``) have a plain C interface and are compiled
 with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` of the
 checkout (git-ignored), on first use and again whenever a source is newer,
-then bound with ctypes.  Every pointer and the stream pass as
-``c_void_p``; each entry point returns ``cudaGetLastError()`` after its
-launch, and ``launch`` raises when that is not 0.
+then bound with ctypes.  Each ``.cu`` compiles to its own object in a
+separate ``nvcc`` process, all started together, and one link makes the
+library.  Every pointer and the stream pass as ``c_void_p``; each entry
+point returns ``cudaGetLastError()`` after its launch, and ``launch``
+raises when that is not 0.  The ``*_scratch`` functions are host-only:
+they give the bytes of device scratch an entry point needs, which the
+wrapper allocates.
 
-The wrappers that call these (``classify/pipeline.py`` ``encode_probe``
-and ``step_outputs``, ``classify/resolve.py`` ``resolve``) hold the plain
-torch version beside each kernel; the plain version serves CPU tensors
-only, and a CUDA tensor goes to the kernel or raises.
+The wrappers that call these hold the plain torch version beside each
+kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
+``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
+``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
+``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
+version serves CPU tensors only, and a CUDA tensor goes to the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -46,7 +53,22 @@ _SIGS = {
     # head_words, compact, cols, full, stream
     "bk_step_outputs": [P, P, P, P, P, I64, I64, I32, I32, I32, I32, I32, P,
                         I64, P, P],
+    # codes, lengths, B, L, k, W, canon, keys, emitted, stream
+    "bk_minimizers": [P, P, I64, I64, I32, I32, I32, P, P, P],
+    # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream
+    "bk_sort_unique": [P, P, I64, I64, P, P, P, P, P],
+    # keys, pad, node, orig, cnt, cap (state a), the same for state b,
+    # lift, levels, n, depth, parent, tax_ids, root1, sum_counts,
+    # out keys, pad, node, orig, cnt, n_out, scratch, stream
+    "bk_merge_fold": [P, P, P, P, P, I64, P, P, P, P, P, I64, P, I32, I32, P,
+                      P, P, I32, I32, P, P, P, P, P, P, P, P],
+    # tbl, idx, Q, C, out, stream
+    "bk_row_gather": [P, P, I64, I64, P, P],
+    # tab, idx, R, Ct, Q, Ci, axis, out, stream
+    "bk_take_along": [P, P, I64, I64, I64, I64, I32, P, P],
 }
+# host functions: bytes of device scratch for n elements
+_SCRATCH = ("bk_sort_unique_scratch", "bk_merge_fold_scratch")
 
 
 def _sources():
@@ -70,21 +92,39 @@ def _nvcc() -> str:
 def build() -> float:
     """Compile the kernels now; returns the seconds it took."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    srcs = [s for s in _sources() if s.endswith(".cu")]
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                   "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"kernel build failed ({' '.join(cmd)}):\n{err}")
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}"
-            )
+                f"kernel link failed ({' '.join(cmd)}):\n{proc.stderr}")
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in objs + [f"{LIB_PATH}.{tag}"]:
+            if os.path.exists(f):
+                os.unlink(f)
     return time.perf_counter() - t0
 
 
@@ -104,6 +144,10 @@ def get_lib():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = args
+            for name in _SCRATCH:
+                fn = getattr(lib, name)
+                fn.restype = I64
+                fn.argtypes = [I64]
             _lib = lib
     return _lib
 
@@ -116,6 +160,12 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def scratch(name: str, n: int, device: torch.device) -> torch.Tensor:
+    """Device scratch for entry point ``name`` over ``n`` elements."""
+    nbytes = getattr(get_lib(), f"{name}_scratch")(n)
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
 
 
 def ptr(t):

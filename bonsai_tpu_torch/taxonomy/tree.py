@@ -21,6 +21,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+TAX_MISSING = 0xFFFFFFFF  # reference lca() returns (tax_t)-1 on missing nodes
+
 
 class TaxTree:
     def __init__(self, parent_map: Dict[int, int]):
@@ -59,6 +61,10 @@ class TaxTree:
             bad = t[~(found | (t == 0))]
             raise KeyError(f"taxids not in taxonomy: {bad[:10]}")
         return np.where(found, i_c + 1, 0).astype(np.int32)
+
+    def depth_of(self, taxids) -> np.ndarray:
+        """node_depth of each taxid; 0 for a taxid absent from the tree."""
+        return self.depth[self.compact(taxids, missing_ok=True)]
 
     def tax_ids_compact(self) -> np.ndarray:
         """(N,) u32: the original taxid of each compact index."""

@@ -5,23 +5,40 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device      CUDA present; the card's name and power limit
-  2. build       the three kernels (csrc/*.cu) and the shared host C++
-  3. kernels     each kernel against its plain torch version on CPU
-                 copies of the same inputs, exact equality (integer work):
+  2. build       the eight kernels (csrc/*.cu, one nvcc per source, all
+                 started together) and the shared host C++
+  3. kernels     K1-K3 against their plain torch versions on CPU copies
+                 of the same inputs, exact equality (integer work):
                  HiSeq batches of 8192 reads against the ec k=31 table,
                  in-read Ns, reads shorter than k, paired rows, long reads
                  (P > 1024) for resolve, run-overflow rows and every
                  compact layout for step_outputs
-  4. database    the ec k=31 database built by the port; its content
-                 digest must equal the golden manifest's; upload
-  5. main path   Classifier.process_dataset on the HiSeq, MiSeq and
+  4. database    the ec k=31 database built by the port on the host; its
+                 content digest must equal the golden manifest's; upload
+  5. classify    Classifier.process_dataset on the HiSeq, MiSeq and
                  ec_k12 sets: sha256 of the Kraken text must equal the
-                 manifest's; every kernel launched; paired golden through
-                 the CLI on the lex_k25 database
-  6. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
+                 manifest's; K1-K3 launched; paired golden through the CLI
+                 on the lex_k25 database
+  6. numbers     HiSeq stream reads/s, K1-K3 and plain-version times
+  7. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
                  against the host probe on a 1M-query subsample
-  7. numbers     HiSeq stream reads/s, per-kernel and plain-version times,
-                 scale-probe queries/s, peak device memory
+  8. build kernels  KB1-KB3, G1 and G2 against their plain versions on
+                 CPU copies, exact equality: a 4M-base ec chunk at W = 1
+                 and 10, uncanonical, in-read Ns, k = 32 with bit 63 and
+                 real U64_MAX keys, rows shorter than k, P < W; chunks
+                 with duplicates, all pads, 4.2M keys; the eight lca()
+                 corners and 2^22 + 2^22 random states, both sum_counts;
+                 the gathers at the shapes of their TPU cases
+  9. device build   the port's --device-build: ec k=31 (digest = the
+                 manifest's) and k=31 w=40 (digest = the JAX package's),
+                 then the lex_k25, lex_k31_w40, lex_k25_nocanon builds and
+                 the prebuild -t/-f phase-1 maps of the goldens through the
+                 CLI; KB1-KB3 launched; seconds, k-mers/s against the host
+                 build, peak device memory, device busy share
+ 10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
+                 at variant F's shape and 32-B rows over 16 MiB..4 GiB
+                 tables, G2 at four shapes; G1 and G2 launched
+ 11. numbers     KB1-KB3 and plain-version times at the build's shapes
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
@@ -44,6 +61,37 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLD = os.path.join(DATA, "golden")
 SEED = 20261016
+# Content digest of the ec k=31 w=40 database (1,900,793 k-mers) as the JAX
+# package builds it on the host, from the repository root:
+#   JAX_PLATFORMS=cpu python -c "import json; from bonsai_tpu.core.spacer \
+#   import Spacer; from bonsai_tpu.db.build import lca_map; from \
+#   bonsai_tpu.taxonomy.tree import TaxTree; from bonsai_tpu_torch.db.build \
+#   import content_digest; g='tests/data/golden/'; kk=json.load(open(g + \
+#   'manifest.json'))['kraken']; print(content_digest(lca_map(['tests/data/ec/'\
+#   + x for x in kk['genomes']], TaxTree.from_nodes_dmp(g + kk['nodes']), g \
+#   + kk['nameid'], Spacer(31, 40))))"
+EC_W40_DIGEST = "02a018d96195a0762302fdb1ca403499790702e3ae67fbdff5a8ff512ccee936"
+
+
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "encode_probe": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                     "bonsai_tpu/db/table.py:370"),
+    "resolve": ("bonsai_tpu_torch/csrc/resolve.cu",
+                "bonsai_tpu/classify/resolve.py:57"),
+    "step_outputs": ("bonsai_tpu_torch/csrc/step_outputs.cu",
+                     "bonsai_tpu/classify/pipeline.py:124"),
+    "minimizers": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                   "bonsai_tpu/core/encoder.py:174"),
+    "sort_unique": ("bonsai_tpu_torch/csrc/sort_unique.cu",
+                    "bonsai_tpu/db/build_device.py:192"),
+    "merge_fold": ("bonsai_tpu_torch/csrc/merge_fold.cu",
+                   "bonsai_tpu/db/build_device.py:145"),
+    "row_gather": ("bonsai_tpu_torch/csrc/gather_bench.cu",
+                   "tools/probe_microbench.py:225"),
+    "take_along": ("bonsai_tpu_torch/csrc/gather_bench.cu",
+                   "tools/vmem_gather_bench2.py:35"),
+}
 
 
 def say(msg: str) -> None:
@@ -86,7 +134,7 @@ class KernelCheck:
     """Exact comparisons of each kernel with its plain version."""
 
     def __init__(self):
-        self.max_err = {"encode_probe": 0, "resolve": 0, "step_outputs": 0}
+        self.max_err = {k: 0 for k in KERNELS}
         self.cases = {k: 0 for k in self.max_err}
 
     def same(self, name, got, want, what):
@@ -234,12 +282,13 @@ def build_ec(tree_path, kk):
     genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
     table = lca_map(genomes, tree, os.path.join(GOLD, kk["nameid"]),
                     Spacer(kk["k"], kk["k"]))
+    secs = time.perf_counter() - t0
     digest = content_digest(table)
     say(f"# database: ec k={kk['k']}: {table.n} k-mers, nb=2^{table.lgnb} "
-        f"({table.nb * 32 / 2**20:.0f} MiB of slots), built in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"({table.nb * 32 / 2**20:.0f} MiB of slots), built on the host in "
+        f"{secs:.3f}s = {table.n / secs:.6g} k-mers/s")
     db = Database(table=table, k=kk["k"], w=kk["k"], gaps=[0] * (kk["k"] - 1))
-    return db, tree, digest
+    return db, tree, digest, secs
 
 
 def phase_main_path(clf, kk, dev):
@@ -442,6 +491,343 @@ def phase_numbers(dev, clf, hiseq_path):
     return times, rps
 
 
+def _ec_chunk(w):
+    """The first block + w - 1 bases of GCF_000005845.2 as (1, L) codes."""
+    import numpy as np
+
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.io import fastx
+
+    path = os.path.join(DATA, "ec", "GCF_000005845.2_ASM584v2_genomic.fna.gz")
+    seq = next(iter(fastx.read_fastx(path)))[1][: (1 << 22) + w - 1]
+    codes = fastx.encode_contig(seq, DNA4.lut)[None, :]
+    return codes, np.array([codes.shape[1]], dtype=np.int32)
+
+
+def _key_pool(rng, n):
+    """n distinct random u64 keys, sorted (bit 63 set in half of them)."""
+    import numpy as np
+
+    from bonsai_tpu_torch.db.table import unique_u64
+
+    return unique_u64(rng.integers(0, 2**64, n + n // 16, dtype=np.uint64))[:n]
+
+
+def _random_state(rng, pool, n, cap, taxa_pool, tree):
+    """Host arrays of a sorted-unique state: n keys of ``pool`` (two
+    states from one pool share about n^2 / len(pool) keys) with taxa from
+    ``taxa_pool``, padded to cap."""
+    import numpy as np
+
+    keys = np.sort(rng.choice(pool, n, replace=False))
+    taxa = rng.choice(taxa_pool, n).astype(np.uint32)
+    st = [np.full(cap, 2**64 - 1, np.uint64), np.ones(cap, np.uint8),
+          np.zeros(cap, np.int32), np.zeros(cap, np.uint32),
+          np.zeros(cap, np.uint32)]
+    for a, v in zip(st, (keys, 0, tree.compact(taxa, missing_ok=True), taxa,
+                         1)):
+        a[:n] = v
+    return st
+
+
+def phase_build_kernels(dev, chk, kk):
+    """KB1-KB3, G1, G2 on the card vs their plain versions on CPU copies."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools import gather_bench as gb
+
+    rng = np.random.default_rng(SEED + 2)
+
+    def kb1(codes, lengths, k, W, canon, tag):
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.minimizers(c.to(dev), ln.to(dev), k, W, canon)
+        chk.same("minimizers", got, enc.minimizers_plain(c, ln, k, W, canon),
+                 tag)
+        return got
+
+    def kb2(keys, emitted, tag):
+        got = bd.sort_unique(keys.to(dev), emitted.to(dev))
+        chk.same("sort_unique", got, bd.sort_unique_plain(
+            keys.cpu(), emitted.cpu(), got[0].shape[0]), tag)
+        return got
+
+    # KB1 and KB2 on one 4M-base ec chunk, as the k = 31 builds see it
+    for w, canon in ((31, True), (40, True), (31, False)):
+        codes, lengths = _ec_chunk(w)
+        em = kb1(codes, lengths, 31, w - 30, canon,
+                 f"ec chunk k=31 w={w} canon={canon}")
+        out = kb2(em.values[0], em.mask[0],
+                  f"ec chunk k=31 w={w} canon={canon}: {em.mask.sum()} keys")
+    say(f"# build kernels: ec chunk: {int(out[2])} distinct of "
+        f"{em.values.shape[1]} k-mers (k=31, uncanonical)")
+    # synthetic rows: in-read Ns, rows shorter than k, T runs (k = 32
+    # uncanonical k-mer U64_MAX), every base (bit 63 set)
+    codes = rng.integers(0, 4, (256, 1000)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.01] = -1
+    codes[:8, 100:200] = 3
+    lengths = rng.integers(900, 1001, 256).astype(np.int32)
+    lengths[8:40] = rng.integers(0, 32, 32)
+    codes[np.arange(1000)[None, :] >= lengths[:, None]] = -1
+    for k, W, canon in ((32, 1, False), (32, 1, True), (21, 1, True),
+                        (32, 10, True), (25, 13, True), (31, 32, True)):
+        em = kb1(codes, lengths, k, W, canon, f"rows k={k} W={W}")
+        out = kb2(em.values.reshape(-1), em.mask.reshape(-1),
+                  f"rows k={k} W={W}")
+        if (k, canon) == (32, False):
+            n = int(out[2])
+            require(int(out[0][n - 1]) == -1 and int(out[1][n - 1]) == 0,
+                    "KB2: a real U64_MAX key is missing or padded")
+    kb1(codes[:, :40].copy(), lengths, 31, 11, True, "P < W")
+    kb1(codes[:, :20].copy(), lengths, 21, 1, True, "L < k")
+    kb2(torch.zeros(5000, dtype=torch.int64), torch.zeros(5000, dtype=torch.bool),
+        "all pads")
+
+    # KB3: the eight lca() corners, then 2^22 + 2^22 random states
+    small = TaxTree({1: 0, 2: 1, 3: 1, 11: 2, 12: 2, 13: 3, 5: 0, 51: 5})
+    ta = {10: 11, 20: 11, 30: 11, 40: 999, 50: 999, 60: 11, 70: 0, 80: 12}
+    tb = {10: 12, 20: 13, 30: 0, 40: 999, 50: 11, 60: 51, 70: 0}
+
+    def corner_state(d):
+        n = len(d)
+        st = [np.full(8, 2**64 - 1, np.uint64), np.ones(8, np.uint8),
+              np.zeros(8, np.int32), np.zeros(8, np.uint32),
+              np.zeros(8, np.uint32)]
+        taxa = np.array([d[x] for x in sorted(d)], dtype=np.uint32)
+        for a, v in zip(st, (sorted(d), 0, small.compact(taxa, missing_ok=True),
+                             taxa, 1)):
+            a[:n] = v
+        return st, n
+
+    def kb3(a, na, b, nb, tree, sum_counts, tag):
+        root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+        got = bd.merge_fold(bd.State.from_numpy(*a, na, dev),
+                            bd.State.from_numpy(*b, nb, dev),
+                            tree.device_arrays(dev), root1, sum_counts)
+        want = bd.merge_fold_plain(bd.State.from_numpy(*a, na, "cpu"),
+                                   bd.State.from_numpy(*b, nb, "cpu"),
+                                   tree.device_arrays("cpu"), root1, sum_counts)
+        f = ("keys", "pad", "node", "orig", "cnt", "n")
+        chk.same("merge_fold", [getattr(got, x) for x in f],
+                 [getattr(want, x) for x in f], tag)
+        return got
+
+    ec_tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    pool = np.concatenate([ec_tree.tax_ids, [0, 999]]).astype(np.uint32)
+    for sc in (False, True):
+        got = kb3(*corner_state(ta), *corner_state(tb), small, sc,
+                  f"corners sum_counts={sc}")
+        keys, _, _, orig, cnt, n = got.numpy()
+        require(dict(zip(keys[:n].tolist(), orig[:n].tolist())) == {
+            10: 2, 20: 1, 30: 11, 40: 999, 50: 0xFFFFFFFF, 60: 1, 70: 0,
+            80: 12}, "KB3: an lca() corner case is wrong")
+        require(int(cnt[0]) == (2 if sc else 1), "KB3: counts")
+        n, keys = 3 << 20, _key_pool(rng, 5 << 20)
+        kb3(_random_state(rng, keys, n, 1 << 22, pool, ec_tree), n,
+            _random_state(rng, keys, n, 1 << 22, pool, ec_tree), n, ec_tree,
+            sc, f"random 2^22 + 2^22 sum_counts={sc}")
+
+    # G1 at variant F's shape and 32-B rows; G2 at its four shapes
+    tbl, idx = gb.f_case(dev, SEED)
+    chk.same("row_gather", [gb.row_gather(tbl, idx)],
+             [gb.row_gather_plain(tbl.cpu(), idx.cpu())], "variant F")
+    del tbl
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, (1 << 20, 8)
+                                        ).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 1 << 20, 1 << 20).astype(np.int32))
+    chk.same("row_gather", [gb.row_gather(tbl.to(dev), idx.to(dev))],
+             [gb.row_gather_plain(tbl, idx)], "32-B rows")
+    for name, tab, ix, axis in gb.take_cases(dev):
+        chk.same("take_along", [gb.take_along(tab, ix, axis)],
+                 [gb.take_along_plain(tab.cpu(), ix.cpu(), axis)], name)
+    torch.cuda.synchronize()
+    say(f"# build kernels: all equal to their plain versions: "
+        f"{ {k: chk.cases[k] for k in list(KERNELS)[3:]} } cases")
+
+
+def _device_busy(prof):
+    """(device-busy microseconds, top kernels) of a profiler trace."""
+    from torch.autograd import DeviceType
+
+    ev = [(e.key, getattr(e, "self_device_time_total", 0))
+          for e in prof.key_averages()
+          if getattr(e, "device_type", None) == DeviceType.CUDA]
+    ev = sorted((e for e in ev if e[1] > 0), key=lambda e: -e[1])
+    return sum(us for _, us in ev), ev
+
+
+def phase_device_build(dev, kk, host_secs):
+    """The slice's main path: build --device-build on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch.core.encoder import minimizers
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db.build import content_digest
+    from bonsai_tpu_torch.db.formats import load_database
+    from bonsai_tpu_torch.db.table import KmerTable
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+
+    wrappers = [minimizers, bd.sort_unique, bd.merge_fold]
+    for w in wrappers:
+        w.launches = 0
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+    nameid = os.path.join(GOLD, kk["nameid"])
+    nums = {}
+    for w, want in ((31, kk["db_digest"]), (40, EC_W40_DIGEST)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        table = bd.device_lca_map(genomes, tree, nameid, Spacer(31, w),
+                                  device=dev)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = content_digest(table)
+        say(f"# device build: ec k=31 w={w}: {table.n} k-mers in {secs:.3f}s "
+            f"= {table.n / secs:.6g} k-mers/s (first run); peak device memory "
+            f"{peak / 2**20:.1f} MiB; digest "
+            f"{'matches' if got == want else 'DIFFERS'}")
+        require(got == want, f"ec k=31 w={w} device build differs")
+        nums[w] = {"secs": secs, "n": table.n, "peak": peak}
+    # a second k = 31 build, by stage, with a profiler trace of the fold
+    sp = Spacer(31, 31)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        states, tax, root1 = bd._device_gather(genomes, tree, nameid, sp,
+                                               True, 1 << 22, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        keys, taxa = bd._finish_fold(states, tax, root1, False)
+        t2 = time.perf_counter()
+    del states
+    table = KmerTable(keys, taxa)
+    t3 = time.perf_counter()
+    busy, top = _device_busy(prof)
+    wall = (t2 - t0) * 1e6
+    require(content_digest(table) == kk["db_digest"], "second ec build differs")
+    say(f"# device build: ec k=31 again: genomes -> states {t1 - t0:.3f}s, "
+        f"tree fold + fetch {t2 - t1:.3f}s, table placement (host) "
+        f"{t3 - t2:.3f}s; total {t3 - t0:.3f}s = {table.n / (t3 - t0):.6g} "
+        f"k-mers/s; host build of the same corpus {host_secs:.3f}s = "
+        f"{table.n / host_secs:.6g} k-mers/s")
+    say(f"# trace: device busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms "
+        f"({100 * busy / wall:.2f}%) in genomes -> states + fold; top: "
+        + "; ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in top[:8]))
+    nums["again"] = {"secs": t3 - t0, "gather": t1 - t0, "fold": t2 - t1,
+                     "place": t3 - t2, "busy_ms": busy / 1e3,
+                     "wall_ms": wall / 1e3}
+    # the goldens through the CLI, on the card
+    m = json.load(open(os.path.join(GOLD, "manifest.json")))
+    gold = [os.path.join(GOLD, f) for f in ("g_phix.fa", "g_phixmut.fa",
+                                             "g_rand.fa")]
+    nodes, nmap = os.path.join(GOLD, "nodes.dmp"), os.path.join(GOLD,
+                                                                "nameidmap.txt")
+    dflags = ["--device-build", "--device", str(dev)]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for c in m["configs"]:
+            out = os.path.join(tmp, f"{c['name']}.btpu")
+            if c["name"] in ("lex_k25", "lex_k31_w40", "lex_k25_nocanon"):
+                argv = ["build", out, *gold, *c["flags"], "-T", nodes, "-M",
+                        nmap, *dflags]
+                want = c["db_digest"]
+            elif c["phase1"] in ("t", "f"):
+                argv = ["prebuild", nmap, nodes, out, *gold, "-k", "25",
+                        f"-{c['phase1']}", *dflags]
+                want = c["phase1_digest"]
+            else:
+                continue
+            require(cli.main(argv) == 0, f"port CLI {argv[0]} {c['name']} failed")
+            got = content_digest(load_database(out).table)
+            say(f"# device build: golden {argv[0]} {c['name']}: digest "
+                f"{'matches' if got == want else 'DIFFERS'}")
+            require(got == want, f"golden {c['name']} device build differs")
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    say(f"# device build: kernel launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched on the device build")
+    return launches, nums
+
+
+def phase_gather(dev):
+    """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
+    import torch
+
+    from bonsai_tpu_torch.tools import gather_bench as gb
+
+    wrappers = [gb.row_gather, gb.take_along]
+    for w in wrappers:
+        w.launches = 0
+    res = gb.run(dev, SEED, say=say)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    say(f"# gather: kernel launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched by the gather bench")
+    return launches, res
+
+
+def phase_build_numbers(dev, kk):
+    """KB1-KB3 vs their plain versions on the card, at the build's shapes."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+
+    times = {}
+
+    def pair(name, tag, kern, plain):
+        p1 = time_ms(plain, iters=5, warm=1)
+        k1 = time_ms(kern, iters=5, warm=1)
+        k2 = time_ms(kern, iters=5, warm=1)
+        p2 = time_ms(plain, iters=5, warm=1)
+        t = ((k1 + k2) / 2, (p1 + p2) / 2)
+        say(f"# time {name} {tag}: kernel {t[0]:.4f} ms, plain torch on the "
+            f"card {t[1]:.4f} ms")
+        return t
+
+    for w in (40, 31):  # the main path's k = 31 shape last: it is reported
+        codes, lengths = _ec_chunk(w)
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        W = w - 30
+        times["minimizers"] = pair(
+            "minimizers", f"ec chunk {codes.shape[1]} bases k=31 W={W}",
+            lambda: enc.minimizers(c, ln, 31, W, True),
+            lambda: enc.minimizers_plain(c, ln, 31, W, True))
+    em = enc.minimizers(c, ln, 31, 1, True)
+    keys, mask = em.values[0], em.mask[0]
+    times["sort_unique"] = pair(
+        "sort_unique", f"{keys.shape[0]} keys of the ec chunk",
+        lambda: bd.sort_unique(keys, mask),
+        lambda: bd.sort_unique_plain(keys, mask, 1 << 22))
+    rng = np.random.default_rng(SEED + 3)
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
+    n, keys = 3 << 20, _key_pool(rng, 5 << 20)
+    a = bd.State.from_numpy(*_random_state(rng, keys, n, 1 << 22, pool, tree),
+                            n, dev)
+    b = bd.State.from_numpy(*_random_state(rng, keys, n, 1 << 22, pool, tree),
+                            n, dev)
+    tax = tree.device_arrays(dev)
+    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+    times["merge_fold"] = pair(
+        "merge_fold", "2^22 + 2^22 states, 3M valid each, sum_counts",
+        lambda: bd.merge_fold(a, b, tax, root1, True),
+        lambda: bd.merge_fold_plain(a, b, tax, root1, True))
+    return times
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "bonsai_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -459,7 +845,7 @@ def main() -> int:
 
     phase_build()
     kk = json.load(open(os.path.join(GOLD, "manifest.json")))["kraken"]
-    db, tree, digest = build_ec(os.path.join(GOLD, kk["nodes"]), kk)
+    db, tree, digest, host_secs = build_ec(os.path.join(GOLD, kk["nodes"]), kk)
     torch.cuda.reset_peak_memory_stats()
     clf = Classifier(db, tree, emit_all=True, device=dev)
     chk = phase_kernels(dev, clf, DNA4.lut)
@@ -473,23 +859,28 @@ def main() -> int:
     del clf
     qps = phase_scale(dev)
     peak = torch.cuda.max_memory_allocated()
-    say(f"# peak device memory allocated: {peak / 2**20:.1f} MiB")
+    say(f"# peak device memory allocated (classify, scale): "
+        f"{peak / 2**20:.1f} MiB")
+    phase_build_kernels(dev, chk, kk)
+    build_launches, build_nums = phase_device_build(dev, kk, host_secs)
+    gather_launches, gres = phase_gather(dev)
+    times.update(phase_build_numbers(dev, kk))
+    times["row_gather"] = (gres["row_gather"]["ms"],
+                           gres["row_gather"]["plain_ms"])
+    first = next(iter(gres["take_along"].values()))
+    times["take_along"] = (first["ms"], first["plain_ms"])
+    launches.update(build_launches)
+    launches.update(gather_launches)
+    ec = build_nums[31]
     say(f"# {card}: HiSeq stream {rps:.6g} reads/s; scale probe "
-        f"{qps:.6g} queries/s; total {time.perf_counter() - t_all:.1f}s")
-    src = {
-        "encode_probe": ("bonsai_tpu_torch/csrc/encode_probe.cu",
-                         "bonsai_tpu/db/table.py:370"),
-        "resolve": ("bonsai_tpu_torch/csrc/resolve.cu",
-                    "bonsai_tpu/classify/resolve.py:57"),
-        "step_outputs": ("bonsai_tpu_torch/csrc/step_outputs.cu",
-                         "bonsai_tpu/classify/pipeline.py:124"),
-    }
+        f"{qps:.6g} queries/s; ec k=31 device build {ec['secs']:.3f}s "
+        f"(first), {build_nums['again']['secs']:.3f}s (again), host build "
+        f"{host_secs:.3f}s; total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src[name][0],
-         "replaces": src[name][1], "launches": launches[name],
-         "max_abs_err": chk.max_err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name in ("encode_probe", "resolve", "step_outputs")
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": chk.max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,8 +110,9 @@ def test_emissions_of_reads_shorter_than_k():
 
 
 def test_other_disciplines_raise():
+    BatchEncoder(Spacer(25, 37))  # canonical windowed: ported
     with pytest.raises(NotImplementedError):
-        BatchEncoder(Spacer(25, 37))  # windowed
+        BatchEncoder(Spacer(25, 37), canonicalize=False)  # uncanonical windowed
     with pytest.raises(NotImplementedError):
         BatchEncoder(Spacer(21, 21, "0x16,1x4"))  # spaced
     with pytest.raises(NotImplementedError):

@@ -8,9 +8,13 @@ imports jax, hence:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
 Inputs come from a numpy seed, at small shapes that still reach each
-kernel's edge cases (k = 32, in-read Ns, reads shorter than k, flat-mode
-tables, P > 1024, run overflow, every compact layout).  Tolerance: exact
-equality, since all of it is integer work.
+kernel's edge cases: for the classify kernels k = 32, in-read Ns, reads
+shorter than k, flat-mode tables, P > 1024, run overflow, every compact
+layout; for the build kernels windows of 1 to 32 k-mers, P < W, keys
+with bit 63 set and real U64_MAX keys, all-pad chunks, scans of several
+levels, every lca() corner case and both ``sum_counts``; for the gather
+microbenchmarks the four ``take_along_axis`` shapes and 32-B and 128-B
+rows.  Tolerance: exact equality, since all of it is integer work.
 """
 
 import numpy as np
@@ -19,8 +23,11 @@ import torch
 
 from bonsai_tpu_torch.classify import pipeline as pl
 from bonsai_tpu_torch.classify import resolve as res
+from bonsai_tpu_torch.core import encoder as enc
+from bonsai_tpu_torch.db import build_device as bd
 from bonsai_tpu_torch.db.table import KmerTable, ProbeArrays
 from bonsai_tpu_torch.taxonomy.tree import TaxTree
+from bonsai_tpu_torch.tools import gather_bench as gb
 
 torch.set_num_threads(1)
 
@@ -204,3 +211,169 @@ def test_step_outputs_kernel_matches_plain(cuda, dict_size, W, maxr):
     got = pl.step_outputs(*[a.to(cuda) for a in args], maxr, dict_size)
     assert pl.step_outputs.launches == before + 1
     _same(got, want)
+
+
+# -- KB1 minimizers ------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 32])
+@pytest.mark.parametrize("W,canon", [(1, True), (1, False), (2, True),
+                                     (10, True), (32, True)])
+def test_minimizers_kernel_matches_plain(cuda, k, W, canon):
+    rng = np.random.default_rng(k * 100 + W)
+    codes, lengths = _reads(rng, 64, 300, k)
+    codes[3, 40:60] = -1  # an N run longer than the window
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = enc.minimizers(c, ln, k, W, canon)
+    before = enc.minimizers.launches
+    got = enc.minimizers(c.to(cuda), ln.to(cuda), k, W, canon)
+    assert enc.minimizers.launches == before + 1
+    _same(got, want)
+    assert want.mask.any()
+
+
+@pytest.mark.cuda
+def test_minimizers_kernel_short_rows_and_wide_windows(cuda):
+    codes = np.random.default_rng(3).integers(0, 4, (4, 40)).astype(np.int8)
+    ln = torch.tensor([40, 35, 0, 20], dtype=torch.int32)
+    c = torch.from_numpy(codes)
+    # P = W, P < W (no slot), one slot per position at k = 32, L < k
+    for k, W, L in ((31, 10, 40), (31, 11, 40), (32, 1, 40), (21, 1, 20)):
+        want = enc.minimizers(c[:, :L].contiguous(), ln, k, W, True)
+        got = enc.minimizers(c[:, :L].contiguous().to(cuda), ln.to(cuda), k,
+                             W, True)
+        _same(got, want)
+    with pytest.raises(NotImplementedError):
+        enc.minimizers(c.to(cuda), ln.to(cuda), 21, 5, False)
+
+
+# -- KB2 sort_unique -----------------------------------------------------------
+
+def _i64(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64).view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,kind", [(0, "dups"), (7, "dups"), (5000, "dups"),
+                                    (300_000, "dups"), (70_000, "u64max"),
+                                    (9000, "allpad")])
+def test_sort_unique_kernel_matches_plain(cuda, E, kind):
+    rng = np.random.default_rng(E + len(kind))
+    keys = rng.integers(0, 2**64, size=E, dtype=np.uint64)
+    if E:
+        keys[rng.integers(0, E, E // 2)] = keys[rng.integers(0, E, E // 2)]
+    if kind == "u64max":  # k = 32 uncanonical: real U64_MAX keys
+        keys[rng.integers(0, E, 50)] = np.uint64(2**64 - 1)
+        keys[:: 3] &= np.uint64(2**63 - 1)
+    emitted = rng.random(E) < (0.0 if kind == "allpad" else 0.8)
+    k, e = _i64(keys), torch.from_numpy(emitted)
+    want = bd.sort_unique(k, e)
+    before = bd.sort_unique.launches
+    got = bd.sort_unique(k.to(cuda), e.to(cuda))
+    assert bd.sort_unique.launches == before + 1
+    _same(got, want)
+    if kind == "u64max":
+        n = int(want[2])
+        assert want[0][n - 1] == -1 and want[1][n - 1] == 0
+
+
+# -- KB3 merge_fold ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_tree():
+    # 1 -> {2, 3}; 2 -> {11, 12}; 3 -> {13}; a second root 5 -> {51}
+    return TaxTree({1: 0, 2: 1, 3: 1, 11: 2, 12: 2, 13: 3, 5: 0, 51: 5})
+
+
+def _random_state(rng, tree, n, cap, pool):
+    keys = np.sort(rng.choice(pool, n, replace=False).astype(np.uint64))
+    taxa = rng.choice(np.array([0, 999, 2**32 - 2, *tree.tax_ids[:6]],
+                               dtype=np.uint64), n).astype(np.uint32)
+    node = tree.compact(taxa, missing_ok=True)
+    st = [np.full(cap, 2**64 - 1, np.uint64), np.ones(cap, np.uint8),
+          np.zeros(cap, np.int32), np.zeros(cap, np.uint32),
+          np.zeros(cap, np.uint32)]
+    for a, v in zip(st, (keys, 0, node, taxa, rng.integers(1, 4, n))):
+        a[:n] = v
+    return st, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_counts", [False, True])
+@pytest.mark.parametrize("na,ca,nb,cb", [(0, 8, 0, 8), (5, 8, 9, 16),
+                                         (3000, 4096, 2500, 8192),
+                                         (40_000, 65536, 50_000, 65536)])
+def test_merge_fold_kernel_matches_plain(cuda, tree, sum_counts, na, ca, nb, cb):
+    rng = np.random.default_rng(na + nb + sum_counts)
+    pool = rng.integers(0, 2**64, 2 * (na + nb) + 4, dtype=np.uint64)
+    pool[:2] = [2**64 - 1, 2**63]  # a real U64_MAX key and bit 63
+    a, _ = _random_state(rng, tree, na, ca, pool)
+    b, _ = _random_state(rng, tree, nb, cb, pool)
+    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+    sa = bd.State.from_numpy(*a, na, "cpu")
+    sb = bd.State.from_numpy(*b, nb, "cpu")
+    want = bd.merge_fold(sa, sb, tree.device_arrays("cpu"), root1, sum_counts)
+    before = bd.merge_fold.launches
+    got = bd.merge_fold(bd.State.from_numpy(*a, na, cuda),
+                        bd.State.from_numpy(*b, nb, cuda),
+                        tree.device_arrays(cuda), root1, sum_counts)
+    assert bd.merge_fold.launches == before + 1
+    _same([got.keys, got.pad, got.node, got.orig, got.cnt, got.n],
+          [want.keys, want.pad, want.node, want.orig, want.cnt, want.n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_counts", [False, True])
+def test_merge_fold_kernel_lca_corners(cuda, small_tree, sum_counts):
+    """k1..k8: lca 2, lca 1, zero identity, all-same-missing, missing
+    poison, disjoint roots, 0 with 0, a key in one state only."""
+    ta = {10: 11, 20: 11, 30: 11, 40: 999, 50: 999, 60: 11, 70: 0, 80: 12}
+    tb = {10: 12, 20: 13, 30: 0, 40: 999, 50: 11, 60: 51, 70: 0}
+    root1 = int(small_tree.compact(np.array([1], dtype=np.uint32))[0])
+
+    def state(d, dev):
+        keys = np.array(sorted(d), dtype=np.uint64)
+        taxa = np.array([d[x] for x in sorted(d)], dtype=np.uint32)
+        cap = 8
+        pad = lambda a, v, dt: np.concatenate(  # noqa: E731
+            [a, np.full(cap - a.size, v, dt)]).astype(dt)
+        return bd.State.from_numpy(
+            pad(keys, 2**64 - 1, np.uint64), pad(np.zeros(keys.size), 1, np.uint8),
+            pad(small_tree.compact(taxa, missing_ok=True), 0, np.int32),
+            pad(taxa, 0, np.uint32), pad(np.ones(keys.size), 0, np.uint32),
+            keys.size, dev)
+
+    want = bd.merge_fold(state(ta, "cpu"), state(tb, "cpu"),
+                         small_tree.device_arrays("cpu"), root1, sum_counts)
+    got = bd.merge_fold(state(ta, cuda), state(tb, cuda),
+                        small_tree.device_arrays(cuda), root1, sum_counts)
+    _same([got.keys, got.pad, got.node, got.orig, got.cnt, got.n],
+          [want.keys, want.pad, want.node, want.orig, want.cnt, want.n])
+    keys, _, _, orig, _, n = got.numpy()
+    assert dict(zip(keys[:n].tolist(), orig[:n].tolist())) == {
+        10: 2, 20: 1, 30: 11, 40: 999, 50: 0xFFFFFFFF, 60: 1, 70: 0, 80: 12}
+
+
+# -- G1 row_gather, G2 take_along ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,Q", [(1 << 12, 32, 1 << 11), (1 << 14, 8, 5000),
+                                   (17, 4, 3)])
+def test_row_gather_kernel_matches_plain(cuda, R, C, Q):
+    rng = np.random.default_rng(R + C)
+    tbl = torch.from_numpy(rng.integers(-2**31, 2**31, (R, C)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, R, Q).astype(np.int32))
+    before = gb.row_gather.launches
+    got = gb.row_gather(tbl.to(cuda), idx.to(cuda))
+    assert gb.row_gather.launches == before + 1
+    _same([got], [gb.row_gather(tbl, idx)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(4))
+def test_take_along_kernel_matches_plain(cuda, case):
+    name, tab, idx, axis = gb.take_cases(cuda)[case]
+    before = gb.take_along.launches
+    got = gb.take_along(tab, idx, axis)
+    assert gb.take_along.launches == before + 1
+    _same([got], [gb.take_along(tab.cpu(), idx.cpu(), axis)])
