@@ -16,120 +16,122 @@
 // build_same_shape_ax0 / _ax1 / build_diff_rows / build_big_same
 // (:44,61,78,95): take_along_axis of a u32 table, kept in VMEM on the
 // TPU, on axis 0 (out[i, j] = tab[idx[i, j], j]) or axis 1 (out[i, j] =
-// tab[i, idx[i, j]]).  A 512 KiB or 4 MiB table does not fit one SM's
-// 227 KB of shared memory, so:
-//   axis 1: output row i needs only row i of tab, which the block stages
-//           in shared memory (C u32);
-//   axis 0: output column j needs only column j of tab; a block that owns
-//           32 columns stages that strip (R x 32 u32, 128 KB at R = 1024)
-//           when it fits in 128 KB, and otherwise (R = 8192: 1 MB) reads
-//           the table through L2, which holds all of it.
+// tab[i, idx[i, j]]).  The 512 KiB and 4 MiB tables sit in the 50 MB L2
+// and each table element is read about once, so staging in shared memory
+// buys no reuse; what bounds the kernel is the launch and one wave of
+// loads.  The design fills the card: a block of 32 x 4 threads covers 4
+// output rows, a thread 4 consecutive columns of one row, whose 4 indices
+// it loads as one 16-B vector and whose 4 values it stores as one; the
+// grid is 2-D (row blocks, column groups), so no thread divides.  On axis
+// 1 one warp covers one output row of 128 columns, and the 512-B table
+// row it reads sits in L1 after the first touch.
+//
+// Both kernels stop with __trap() on an index outside the table, as
+// torch.gather's device-side assert does: the launch fails and the CUDA
+// context is lost, and the next synchronising call reports it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kStrip = 32;                   // axis-0 columns per block
-constexpr int kRowsPerBlock = 256;           // axis-0 staged rows per block
-constexpr int64_t kStageBytes = 128 * 1024;  // axis-0 staging limit
+constexpr int kColThreads = 32;  // G2: threads along a row, 4 columns each
+constexpr int kRowsPerBlock = 4;  // G2: output rows per block
 
 __global__ void row_gather_kernel(const uint4* __restrict__ tbl,
-                                  const int32_t* __restrict__ idx, int64_t Q,
-                                  int vpr, uint4* __restrict__ out) {
+                                  const int32_t* __restrict__ idx, int64_t R,
+                                  int64_t Q, int vpr, uint4* __restrict__ out) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Q * vpr) return;
   const int64_t i = t / vpr;
   const int v = (int)(t - i * vpr);
-  out[t] = tbl[(int64_t)idx[i] * vpr + v];
+  const int32_t r = idx[i];
+  if (r < 0 || r >= R) __trap();
+  out[t] = tbl[(int64_t)r * vpr + v];
 }
 
-__global__ void take_ax1(const uint32_t* __restrict__ tab,
-                         const int32_t* __restrict__ idx, int64_t Ct,
-                         int64_t Ci, uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t row[];
-  const int64_t i = blockIdx.x;
-  for (int64_t c = threadIdx.x; c < Ct; c += blockDim.x)
-    row[c] = tab[i * Ct + c];
-  __syncthreads();
-  for (int64_t c = threadIdx.x; c < Ci; c += blockDim.x)
-    out[i * Ci + c] = row[idx[i * Ci + c]];
+// VEC: Ci % 4 == 0 and idx, out 16-byte aligned
+template <int AXIS, bool VEC>
+__global__ void __launch_bounds__(kColThreads * kRowsPerBlock)
+    take_kernel(const uint32_t* __restrict__ tab,
+                const int32_t* __restrict__ idx, int64_t R, int64_t Ct,
+                int64_t Q, int64_t Ci, uint32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.y;
+  const int64_t j = ((int64_t)blockIdx.y * kColThreads + threadIdx.x) * 4;
+  if (i >= Q || j >= Ci) return;
+  const int64_t lim = AXIS == 0 ? R : Ct;
+  const int32_t* ix = idx + i * Ci + j;
+  int32_t x[4];
+  if (VEC) {
+    const int4 v = *(const int4*)ix;
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = j + e < Ci ? ix[e] : 0;
+  }
+  uint32_t y[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (!VEC && j + e >= Ci) break;
+    if (x[e] < 0 || x[e] >= lim) __trap();
+    y[e] = AXIS == 0 ? tab[(int64_t)x[e] * Ct + j + e] : tab[i * Ct + x[e]];
+  }
+  uint32_t* o = out + i * Ci + j;
+  if (VEC) {
+    *(uint4*)o = make_uint4(y[0], y[1], y[2], y[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j + e < Ci) o[e] = y[e];
+  }
 }
 
-// block (strip, row chunk); 256 threads = 8 rows x 32 columns at a time
-__global__ void take_ax0_staged(const uint32_t* __restrict__ tab,
-                                const int32_t* __restrict__ idx, int64_t R,
-                                int64_t C, int64_t Q,
-                                uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t strip[];  // R x kStrip
-  const int64_t j0 = (int64_t)blockIdx.x * kStrip;
-  const int jj = threadIdx.x % kStrip;
-  const int r0 = threadIdx.x / kStrip;
-  const int rstep = blockDim.x / kStrip;
-  const bool col_ok = j0 + jj < C;
-  for (int64_t r = r0; r < R; r += rstep)
-    strip[r * kStrip + jj] = col_ok ? tab[r * C + j0 + jj] : 0u;
-  __syncthreads();
-  if (!col_ok) return;
-  const int64_t i_end = min((int64_t)(blockIdx.y + 1) * kRowsPerBlock, Q);
-  for (int64_t i = (int64_t)blockIdx.y * kRowsPerBlock + r0; i < i_end;
-       i += rstep)
-    out[i * C + j0 + jj] = strip[(int64_t)idx[i * C + j0 + jj] * kStrip + jj];
-}
-
-__global__ void take_ax0_l2(const uint32_t* __restrict__ tab,
-                            const int32_t* __restrict__ idx, int64_t C,
-                            int64_t n, uint32_t* __restrict__ out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) out[t] = tab[(int64_t)idx[t] * C + t % C];
+template <int AXIS>
+void take(bool vec, dim3 grid, cudaStream_t s, const uint32_t* tab,
+          const int32_t* idx, int64_t R, int64_t Ct, int64_t Q, int64_t Ci,
+          uint32_t* out) {
+  const dim3 block(kColThreads, kRowsPerBlock);
+  if (vec)
+    take_kernel<AXIS, true><<<grid, block, 0, s>>>(tab, idx, R, Ct, Q, Ci, out);
+  else
+    take_kernel<AXIS, false><<<grid, block, 0, s>>>(tab, idx, R, Ct, Q, Ci, out);
 }
 
 }  // namespace
 
-// tbl (R, C) u32 with C % 4 == 0, idx (Q,) int32 -> out (Q, C)
-extern "C" int bk_row_gather(const void* tbl, const void* idx, int64_t Q,
-                             int64_t C, void* out, void* stream) {
+// tbl (R, C) u32 with C % 4 == 0, idx (Q,) int32 in [0, R) -> out (Q, C)
+extern "C" int bk_row_gather(const void* tbl, const void* idx, int64_t R,
+                             int64_t Q, int64_t C, void* out, void* stream) {
   const int vpr = (int)(C / 4);
   const int64_t n = Q * vpr;
   if (n > 0)
     row_gather_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                         (cudaStream_t)stream>>>(
-        (const uint4*)tbl, (const int32_t*)idx, Q, vpr, (uint4*)out);
+        (const uint4*)tbl, (const int32_t*)idx, R, Q, vpr, (uint4*)out);
   return (int)cudaGetLastError();
 }
 
 // tab (R, Ct) u32, idx (Q, Ci) int32 -> out (Q, Ci); axis 0 needs
-// Ci == Ct, axis 1 needs Q == R.
+// Ci == Ct and indices in [0, R), axis 1 needs Q == R and indices in
+// [0, Ct).
 extern "C" int bk_take_along(const void* tab, const void* idx, int64_t R,
                              int64_t Ct, int64_t Q, int64_t Ci, int axis,
                              void* out, void* stream) {
+  if (Q == 0 || Ci == 0) return (int)cudaGetLastError();
+  const int64_t col_blocks = (Ci + 4 * kColThreads - 1) / (4 * kColThreads);
+  const int64_t row_blocks = (Q + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (col_blocks > 65535 || row_blocks > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)row_blocks, (unsigned)col_blocks);
+  const bool vec = Ci % 4 == 0 && (uintptr_t)idx % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* t = (const uint32_t*)tab;
   const int32_t* ix = (const int32_t*)idx;
   uint32_t* o = (uint32_t*)out;
-  if (Q == 0 || Ci == 0) return (int)cudaGetLastError();
-  if (axis == 1) {
-    const size_t smem = (size_t)Ct * 4;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          take_ax1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    take_ax1<<<(unsigned)Q, 256, smem, s>>>(t, ix, Ct, Ci, o);
-  } else if (R * kStrip * 4 <= kStageBytes) {
-    const size_t smem = (size_t)R * kStrip * 4;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          take_ax0_staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const dim3 grid((unsigned)((Ct + kStrip - 1) / kStrip),
-                    (unsigned)((Q + kRowsPerBlock - 1) / kRowsPerBlock));
-    take_ax0_staged<<<grid, 256, smem, s>>>(t, ix, R, Ct, Q, o);
-  } else {
-    const int64_t n = Q * Ci;
-    take_ax0_l2<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(t, ix, Ct, n, o);
-  }
+  if (axis == 0)
+    take<0>(vec, grid, s, t, ix, R, Ct, Q, Ci, o);
+  else
+    take<1>(vec, grid, s, t, ix, R, Ct, Q, Ci, o);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Device-wide exclusive prefix sum, written for the build kernels
-// (sort_unique.cu, merge_fold.cu): compaction offsets and radix-sort
-// bucket offsets.
+// Device-wide exclusive prefix sum, written for merge_fold.cu's
+// compaction offsets, and the scratch carver of the build kernels
+// (sort_unique.cu, merge_fold.cu).
 //
 // Tiles of 4096 elements are scanned by one block each (cub::BlockScan
 // over 8 items a thread); the tile totals are scanned the same way,

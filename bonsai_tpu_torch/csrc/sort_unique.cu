@@ -4,28 +4,53 @@
 // Replaces bonsai_tpu/db/build_device.py _dedup_chunk_impl (:192-208): a
 // two-key lax.sort of (key, pad), a drop of adjacent duplicates, a second
 // sort.  There a real U64_MAX key orders before the pads because pad is a
-// second sort key; here the same result comes without a 65-bit key:
-//   1. compact the emitted keys to the front (exclusive scan + scatter),
-//      so pads never enter the sort;
-//   2. LSD radix sort of the m compacted keys as unsigned 64-bit, 8 passes
-//      of 8-bit digits, each a stable scatter;
-//   3. flag the first key of each run of equal keys;
-//   4. scan the flags and scatter the firsts into the output;
-//   5. set slots [n, cap) to key U64_MAX, pad 1.
-// m and n stay on the card: every kernel reads them from device memory,
-// and grids are sized by E, so nothing waits for the host.
+// second sort key; here the same result comes without a 65-bit key, since
+// pads never enter the sort: the first radix pass ranks only the emitted
+// keys, and the pads are written after the distinct keys.
 //
-// What bounds it on an H100: device memory traffic of the 8 radix passes
-// (a pass reads the m keys twice and writes them once), about 24 B a key
-// a pass.  The design: a block of 256 threads owns a tile of 4096 keys.
-// A histogram kernel counts the tile's digits in shared memory; one
-// device-wide scan over (digit, tile) counts gives every tile its bucket
-// offsets.  The scatter kernel then sorts its tile by digit in shared
-// memory, stably: each warp ranks its 512 keys in order, 32 at a time, by
-// __match_any_sync against a warp-private running count per digit, and
-// the warps' counts and a block scan over the digits place every key.
-// The tile then leaves as runs of equal digits, so neighbouring threads
-// write neighbouring addresses.  Offsets and sizes are 64-bit.
+// What bounds it on an H100: the passes over device memory, and in each
+// pass the latency of a tile's steps in order (load, rank, look-back,
+// write) more than the bytes.  A least significant digit radix sort of
+// 64-bit keys in 8-bit digits moves every key 8 times; at 4M keys a pass
+// moves 67 MB, ~20 us at the card's bandwidth, and takes ~60 us, of which
+// the look-back is ~10 and the scattered writes ~17.  The design is
+// onesweep (Adinets & Merrill, 2022), one read and one write of the keys a
+// pass, 12 launches a call:
+//   1. memset of the counters and status words;
+//   2. digit_hist reads (keys, emitted) once and counts all 8 digit
+//      histograms of the emitted keys; its last block scans them into
+//      digit bases and decides on the card which passes run: a pass whose
+//      digit is the same for every key is the identity and is skipped
+//      (the top digit of k <= 28 keys), except pass 0, which also does
+//      the compaction.  It records each pass's source buffer, so no pass
+//      and no later kernel waits for the host;
+//   3. 8 onesweep_pass launches.  A block takes its tile of 4096 keys from
+//      an atomic counter, ranks the tile stably by digit in shared memory
+//      (each warp ranks its 512 keys in order, 32 at a time: the lanes
+//      that share a digit find each other with __match_any_sync, and the
+//      highest of them moves the warp's count of that digit), publishes
+//      its per-digit counts, finds its global offset per digit by
+//      decoupled look-back over the earlier tiles' status words, and
+//      writes the tile out in runs of equal digits.  Pass 0 reads
+//      (keys, emitted) directly and ranks only the emitted keys;
+//   4. dedup_runs flags the first key of each run of equal keys, finds
+//      each tile's output offset by the same look-back over flag counts,
+//      writes the distinct keys and n, all with coalesced accesses;
+//   5. fill_pads sets slots [n, cap) to key U64_MAX, pad 1.
+// Tile ids come from a counter, not blockIdx, so every tile a block waits
+// on belongs to a block that already runs: the look-back cannot deadlock.
+// A status word is 2 flag bits (aggregate, inclusive prefix) and a 30-bit
+// count, so a chunk holds fewer than 2^30 keys; global offsets are 64-bit.
+// A word carries its whole message and nothing else is published beside
+// it, so it is stored with st.release.gpu and read with relaxed loads,
+// kWindow earlier tiles at a time, all in flight together: acquire loads
+// would be ordered one after another, and the first wave of blocks all
+// reach the look-back at once (a walk of one acquire load a round trip was
+// a third of a pass's time; an acquire fence after the walk cost 4-7% of
+// the call on an H100).  A tile that finds an earlier word still empty
+// sleeps kBackoffNs before it reads again, so that spinning blocks do not
+// crowd out the blocks they wait on (without it, one configuration of 4
+// blocks an SM ran 10x slower).
 
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
@@ -35,154 +60,350 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block in the radix passes
+constexpr int kThreads = 256;   // threads per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kPerLane = 16;    // keys a lane holds in the scatter
+constexpr int kPerLane = 16;    // keys a thread holds
 constexpr int64_t kTile = (int64_t)kThreads * kPerLane;  // keys per tile
 constexpr int kBins = 256;
+constexpr int kPasses = 8;      // 8-bit digits of a 64-bit key
+constexpr int kMinBlocks = 3;   // resident pass blocks an SM: <= 80 registers
+constexpr int kWindow = 8;      // status words a look-back step reads
+constexpr int kBackoffNs = 50;  // sleep before reading an empty word again
+constexpr int kHistTiles = 2;   // tiles a histogram block reads
+constexpr uint32_t kAggregate = 1u << 30;  // status: this tile's count
+constexpr uint32_t kPrefix = 2u << 30;     // status: count of tiles <= this
+constexpr uint32_t kCount = kAggregate - 1;
+constexpr int64_t kMaxKeys = 1 << 30;
+static_assert(kThreads == kBins, "thread t owns digit t");
+static_assert(kPerLane % 2 == 0, "ranks are packed two to a word");
 
-__global__ void compact_emitted(const uint64_t* __restrict__ keys,
-                                const uint8_t* __restrict__ emitted,
-                                const int64_t* __restrict__ off, int64_t E,
-                                uint64_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < E && emitted[i]) out[off[i]] = keys[i];
+__device__ __forceinline__ uint32_t load_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
 }
 
-__global__ void radix_hist(const uint64_t* __restrict__ keys,
-                           const int64_t* __restrict__ m_ptr, int shift,
-                           int64_t ntiles, int32_t* __restrict__ counts) {
-  __shared__ int32_t c[kBins];
-  c[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t tile = blockIdx.x;
-  const int64_t base = tile * kTile;
-  const int64_t end = min(base + kTile, *m_ptr);
-  for (int64_t i = base + threadIdx.x; i < end; i += kThreads)
-    atomicAdd(&c[(keys[i] >> shift) & 0xFF], 1);
-  __syncthreads();
-  counts[(int64_t)threadIdx.x * ntiles + tile] = c[threadIdx.x];
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
 }
 
-__global__ void radix_scatter(const uint64_t* __restrict__ in,
-                              uint64_t* __restrict__ out,
-                              const int64_t* __restrict__ m_ptr, int shift,
-                              int64_t ntiles,
-                              const int64_t* __restrict__ offs) {
+// Status words: one per tile at status[tile * stride].  A tile publishes
+// its own count first, as soon as it knows it (tile 0's is already its
+// inclusive prefix) ...
+__device__ __forceinline__ void publish(uint32_t* status, int64_t tile,
+                                        int64_t stride, uint32_t count) {
+  store_release(status + tile * stride,
+                (tile == 0 ? kPrefix : kAggregate) | count);
+}
+
+// ... then sums the earlier tiles' words back to the first inclusive
+// prefix, kWindow words a round trip, reading again from a tile that has
+// published nothing yet, and publishes its own inclusive prefix.  Returns
+// the count of all earlier tiles.
+__device__ __forceinline__ uint32_t look_back(uint32_t* status, int64_t tile,
+                                              int64_t stride, uint32_t count) {
+  if (tile == 0) return 0;
+  uint32_t sum = 0;
+  int64_t j = tile - 1;  // the next tile to add; -1 once a prefix is added
+  while (j >= 0) {
+    uint32_t v[kWindow];
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q)
+      v[q] = j - q >= 0 ? load_relaxed(status + (j - q) * stride) : kPrefix;
+    bool stop = false;
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q)
+      if (!stop) {
+        if (v[q] == 0) {
+          stop = true;  // not published yet: read again from tile j
+          __nanosleep(kBackoffNs);
+        } else {
+          sum += v[q] & kCount;
+          --j;
+          if (v[q] & kPrefix) stop = true, j = -1;
+        }
+      }
+  }
+  store_release(status + tile * stride, kPrefix | (sum + count));
+  return sum;
+}
+
+// ctrl[p] for pass p >= 1: -1 skipped, else the buffer it reads (0 = a,
+// 1 = b) and writes the other; pass 0 reads the input and writes a;
+// ctrl[kPasses]: the buffer that holds the sorted keys.
+__global__ void __launch_bounds__(kThreads)
+    digit_hist(const uint64_t* __restrict__ keys,
+               const uint8_t* __restrict__ emitted, int64_t E,
+               uint32_t* __restrict__ hist, uint32_t* __restrict__ done,
+               int64_t* __restrict__ digit_base, int64_t* __restrict__ m_out,
+               int32_t* __restrict__ ctrl) {
+  using Scan = cub::BlockScan<int64_t, kThreads>;
+  __shared__ uint32_t h[kPasses][kBins];
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  for (int d = 0; d < kPasses; ++d) h[d][t] = 0;
+  __syncthreads();
+  for (int it = 0; it < kHistTiles; ++it) {
+    const int64_t base = ((int64_t)blockIdx.x * kHistTiles + it) * kTile;
+    bool e[kPerLane];
+    uint64_t k[kPerLane];
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) {  // keys and flags in one round trip
+      const int64_t i = base + r * kThreads + t;
+      e[r] = i < E && emitted[i];
+      k[r] = i < E ? keys[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r)
+      if (e[r])
+#pragma unroll
+        for (int d = 0; d < kPasses; ++d)
+          atomicAdd(&h[d][(k[r] >> (8 * d)) & 0xFF], 1u);
+  }
+  __syncthreads();
+  for (int d = 0; d < kPasses; ++d)
+    if (h[d][t]) atomicAdd(&hist[d * kBins + t], h[d][t]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: digit bases, m, and which passes run
+  __threadfence();
+  bool trivial[kPasses];
+  int64_t m = 0;
+  for (int d = 0; d < kPasses; ++d) {
+    const int64_t c = __ldcg(&hist[d * kBins + t]);
+    int64_t first;
+    Scan(tmp).ExclusiveSum(c, first, m);
+    digit_base[d * kBins + t] = first;
+    trivial[d] = __syncthreads_or(c == m);  // also the barrier for tmp
+  }
+  if (t == 0) {
+    *m_out = m;
+    int cur = 0;
+    ctrl[0] = 0;
+    for (int d = 1; d < kPasses; ++d) {
+      ctrl[d] = trivial[d] ? -1 : cur;
+      if (!trivial[d]) cur ^= 1;
+    }
+    ctrl[kPasses] = cur;
+  }
+}
+
+// One LSD pass over digit `pass`; FIRST: pass 0, which reads the input
+// keys and the emitted mask.
+template <bool FIRST>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    onesweep_pass(int pass, const uint64_t* __restrict__ keys,
+                  const uint8_t* __restrict__ emitted, int64_t E,
+                  uint64_t* a, uint64_t* b, const int64_t* __restrict__ m_ptr,
+                  const int32_t* __restrict__ ctrl,
+                  const int64_t* __restrict__ digit_base,
+                  uint32_t* __restrict__ tile_ctr, uint32_t* status) {
   using Scan = cub::BlockScan<int32_t, kThreads>;
   __shared__ uint64_t s_keys[kTile];
-  __shared__ int32_t s_cnt[kWarps][kBins];  // per warp: running, then prefix
-  __shared__ int32_t s_base[kBins];         // first slot of a digit in the tile
-  __shared__ int64_t s_out[kBins];          // global slot of that first one
+  __shared__ int32_t s_cnt[kWarps][kBins];  // per warp: running, then slot
+  __shared__ int64_t s_off[kBins];          // out index - tile slot, a digit
   __shared__ typename Scan::TempStorage tmp;
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t tile = blockIdx.x;
-  const int64_t base = tile * kTile;
-  const int64_t n = min(kTile, *m_ptr - base);
-  if (n <= 0) return;  // the whole block: n is the same for every thread
+  __shared__ uint32_t s_tile;
+  const int src = ctrl[pass];
+  if (src < 0) return;  // every key has the same digit: the identity
+  const int t = threadIdx.x;
+  if (t == 0) s_tile = atomicAdd(tile_ctr, 1u);
+  const int w = t / 32, lane = t % 32;
   for (int d = lane; d < kBins; d += 32) s_cnt[w][d] = 0;
-  s_out[threadIdx.x] = offs[(int64_t)threadIdx.x * ntiles + tile];
-  __syncwarp();
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * kTile;
+  const int64_t n = min(kTile, (FIRST ? E : *m_ptr) - base);
+  if (n <= 0) return;  // the whole block: no later tile has keys either
+  const uint64_t* in = FIRST ? keys : (src ? b : a);
+  uint64_t* out = FIRST || src ? a : b;
+  const int shift = 8 * pass;
   // 1. each warp ranks its 512 keys in order, 32 at a time
-  const unsigned below = (1u << lane) - 1;
+  const int64_t j0 = (int64_t)w * (32 * kPerLane) + lane;
+  uint32_t ok = 0;  // bit r: key r is a key of this pass
   uint64_t key[kPerLane];
-  int rank[kPerLane];
+  uint32_t rank[kPerLane / 2];  // warp-local ranks, two 16-bit halves
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {  // keys and flags in one round trip
+    const int64_t j = j0 + r * 32;
+    if (j < n && (!FIRST || emitted[base + j])) ok |= 1u << r;
+    key[r] = j < n ? in[base + j] : 0;
+  }
+  const unsigned below = (1u << lane) - 1;
 #pragma unroll
   for (int r = 0; r < kPerLane; ++r) {
-    const int64_t j = (int64_t)w * (32 * kPerLane) + r * 32 + lane;
-    const bool ok = j < n;
-    key[r] = ok ? in[base + j] : 0;
-    const int d = ok ? (int)((key[r] >> shift) & 0xFF) : kBins + lane;
+    const bool o = ok >> r & 1;
+    const int d = o ? (int)((key[r] >> shift) & 0xFF) : kBins + lane;
     const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    rank[r] = ok ? s_cnt[w][d] + __popc(peers & below) : 0;
+    const int leader = 31 - __clz(peers);
+    int c = 0;
+    if (o && lane == leader) {
+      c = s_cnt[w][d];
+      s_cnt[w][d] = c + __popc(peers);
+    }
     __syncwarp();
-    if (ok && lane == __ffs(peers) - 1) s_cnt[w][d] += __popc(peers);
-    __syncwarp();
+    c = __shfl_sync(0xFFFFFFFFu, c, leader) + __popc(peers & below);
+    if (r % 2 == 0)
+      rank[r / 2] = (uint32_t)c;
+    else
+      rank[r / 2] |= (uint32_t)c << 16;
   }
   __syncthreads();
-  // 2. thread t owns digit t: the warps' prefixes and the tile total
-  const int t = threadIdx.x;
-  int32_t total = 0;
+  // 2. thread t owns digit t: the tile's count, published at once so that
+  //    later tiles can go on, then the warps' slots
+  int32_t count = 0;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) count += s_cnt[v][t];
+  publish(status + t, tile, kBins, (uint32_t)count);
+  int32_t first, kept;
+  Scan(tmp).ExclusiveSum(count, first, kept);
+#pragma unroll
   for (int v = 0; v < kWarps; ++v) {
     const int32_t c = s_cnt[v][t];
-    s_cnt[v][t] = total;
-    total += c;
+    s_cnt[v][t] = first;
+    first += c;
   }
-  int32_t first;
-  Scan(tmp).ExclusiveSum(total, first);
-  s_base[t] = first;
   __syncthreads();
   // 3. the tile sorted by digit, stably, in shared memory
 #pragma unroll
-  for (int r = 0; r < kPerLane; ++r) {
-    const int64_t j = (int64_t)w * (32 * kPerLane) + r * 32 + lane;
-    if (j < n) {
+  for (int r = 0; r < kPerLane; ++r)
+    if (ok >> r & 1) {
       const int d = (int)((key[r] >> shift) & 0xFF);
-      s_keys[s_base[d] + s_cnt[w][d] + rank[r]] = key[r];
+      s_keys[s_cnt[w][d] + (rank[r / 2] >> (16 * (r % 2)) & 0xFFFF)] = key[r];
     }
+  // 4. the look-back: the count of digit t in all earlier tiles
+  const uint32_t before = look_back(status + t, tile, kBins, (uint32_t)count);
+  s_off[t] = digit_base[t + pass * kBins] + before - (first - count);
+  __syncthreads();
+  // 5. out in runs of equal digits
+#pragma unroll 4
+  for (int p = t; p < kept; p += kThreads) {
+    const uint64_t k = s_keys[p];
+    out[s_off[(k >> shift) & 0xFF] + p] = k;
+  }
+}
+
+// Thread t holds keys base + r * kThreads + t, r < kPerLane: loads and
+// stores are coalesced.  Distinct keys are written in (r, warp, lane)
+// order, which is index order.
+__global__ void __launch_bounds__(kThreads)
+    dedup_runs(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+               const int32_t* __restrict__ ctrl,
+               const int64_t* __restrict__ m_ptr,
+               uint32_t* __restrict__ tile_ctr, uint32_t* status,
+               uint64_t* __restrict__ out, int64_t* __restrict__ n_out) {
+  using Scan = cub::BlockScan<int32_t, kThreads>;
+  constexpr int kGroups = kPerLane * kWarps;  // (r, warp) groups of 32
+  static_assert(kGroups <= kThreads, "one group count a thread");
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ int32_t s_grp[kGroups];  // flags in a group, then its offset
+  __shared__ uint32_t s_tile, s_before;
+  const int t = threadIdx.x;
+  const int w = t / 32, lane = t % 32;
+  if (t == 0) s_tile = atomicAdd(tile_ctr, 1u);
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t m = *m_ptr;
+  const int64_t base = tile * kTile;
+  if (base >= m) {
+    if (tile == 0 && t == 0) *n_out = 0;  // no emitted key at all
+    return;
+  }
+  const uint64_t* k = ctrl[kPasses] ? b : a;
+  uint64_t key[kPerLane];
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {
+    const int64_t i = base + r * kThreads + t;
+    key[r] = i < m ? k[i] : 0;
+  }
+  unsigned bal[kPerLane];
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r) {
+    const int64_t i = base + r * kThreads + t;
+    uint64_t prev = __shfl_up_sync(0xFFFFFFFFu, key[r], 1);
+    if (lane == 0 && i > 0 && i < m) prev = k[i - 1];
+    const bool f = i < m && (i == 0 || key[r] != prev);
+    bal[r] = __ballot_sync(0xFFFFFFFFu, f);
+    if (lane == 0) s_grp[r * kWarps + w] = __popc(bal[r]);
   }
   __syncthreads();
-  // 4. out in runs of equal digits
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const uint64_t k = s_keys[p];
-    const int d = (int)((k >> shift) & 0xFF);
-    out[s_out[d] + (p - s_base[d])] = k;
+  int32_t off, kept;
+  Scan(tmp).ExclusiveSum(t < kGroups ? s_grp[t] : 0, off, kept);
+  __syncthreads();  // every group count is read before it is overwritten
+  if (t < kGroups) s_grp[t] = off;
+  if (t == 0) {
+    publish(status, tile, 1, (uint32_t)kept);
+    s_before = look_back(status, tile, 1, (uint32_t)kept);
   }
+  __syncthreads();
+  const int64_t before = s_before;
+  const unsigned lt = (1u << lane) - 1;
+#pragma unroll
+  for (int r = 0; r < kPerLane; ++r)
+    if (bal[r] >> lane & 1)
+      out[before + s_grp[r * kWarps + w] + __popc(bal[r] & lt)] = key[r];
+  if (t == 0 && base + kTile >= m) *n_out = before + kept;
 }
 
-__global__ void flag_first(const uint64_t* __restrict__ k,
-                           const int64_t* __restrict__ m_ptr, int64_t E,
-                           uint8_t* __restrict__ first) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  first[i] = i < *m_ptr && (i == 0 || k[i] != k[i - 1]);
-}
-
-__global__ void scatter_first(const uint64_t* __restrict__ k,
-                              const uint8_t* __restrict__ first,
-                              const int64_t* __restrict__ off, int64_t E,
-                              uint64_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < E && first[i]) out[off[i]] = k[i];
-}
-
+// A block of 256 threads covers 2048 slots: thread t the 8 pad bytes from
+// 8 t on (one 8-byte store), and the keys 256 e + t, e < 8 (coalesced).
+// cap is a multiple of 8 and pad 8-byte aligned.
 __global__ void fill_pads(uint64_t* __restrict__ keys,
                           uint8_t* __restrict__ pad,
                           const int64_t* __restrict__ n_ptr, int64_t cap) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const bool is_pad = i >= *n_ptr;
-  if (is_pad) keys[i] = ~0ull;
-  pad[i] = is_pad;
+  const int64_t base = (int64_t)blockIdx.x * 2048;
+  const int t = threadIdx.x;
+  const int64_t n = *n_ptr;
+  const int64_t i0 = base + 8 * t;
+  if (i0 < cap) {
+    uint32_t p[2] = {0, 0};  // the 8 pad bytes, little-endian
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (i0 + e >= n) p[e / 4] |= 1u << (8 * (e % 4));
+    *(uint2*)(pad + i0) = make_uint2(p[0], p[1]);
+  }
+  if (base + 2048 <= n) return;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int64_t i = base + 256 * e + t;
+    if (i >= n && i < cap) keys[i] = ~0ull;
+  }
 }
 
+// Scratch: a region cleared on every call (histograms, the last-block
+// counter, a tile counter per kernel, status words), then the digit bases,
+// m, the pass control words and the two key buffers.
 struct Buffers {
-  int64_t* off;
+  uint32_t* zero;
+  int64_t zero_words;
+  int64_t* digit_base;
+  int64_t* m;
+  int32_t* ctrl;
   uint64_t* a;
   uint64_t* b;
-  uint8_t* first;
-  int32_t* counts;
-  int64_t* offs;
-  int64_t* m;
-  int64_t* total;
-  int64_t* scan;
   int64_t used;
 };
 
+int64_t tiles_of(int64_t E) { return (E + kTile - 1) / kTile; }
+
 Buffers carve(char* p, int64_t E) {
-  const int64_t ntiles = (E + kTile - 1) / kTile;
-  const int64_t nh = (int64_t)kBins * ntiles;
+  const int64_t ntiles = tiles_of(E);
   bk::Carve c{p};
   Buffers b;
-  b.off = c.take<int64_t>(E);
+  b.zero_words = kPasses * kBins + 1 + (kPasses + 1) +
+                 ((int64_t)kPasses * kBins + 1) * ntiles;
+  b.zero = c.take<uint32_t>(b.zero_words);
+  b.digit_base = c.take<int64_t>(kPasses * kBins);
+  b.m = c.take<int64_t>(1);
+  b.ctrl = c.take<int32_t>(kPasses + 1);
   b.a = c.take<uint64_t>(E);
   b.b = c.take<uint64_t>(E);
-  b.first = c.take<uint8_t>(E);
-  b.counts = c.take<int32_t>(nh);
-  b.offs = c.take<int64_t>(nh);
-  b.m = c.take<int64_t>(1);
-  b.total = c.take<int64_t>(1);
-  b.scan = c.take<int64_t>(bk::scan_scratch_elems(E > nh ? E : nh));
   b.used = c.used;
   return b;
 }
@@ -196,41 +417,45 @@ extern "C" int64_t bk_sort_unique_scratch(int64_t E) {
 }
 
 // keys (E,) int64-held u64, emitted (E,) bool -> out_keys (cap,) int64,
-// out_pad (cap,) uint8, n_out int64 scalar; cap >= E.
+// out_pad (cap,) uint8, n_out int64 scalar; cap >= E, E < 2^30, cap a
+// multiple of 8.
 extern "C" int bk_sort_unique(const void* keys, const void* emitted,
                               int64_t E, int64_t cap, void* out_keys,
                               void* out_pad, void* n_out, void* scratch,
                               void* stream) {
+  if (E < 0 || E >= kMaxKeys || cap < E || cap % 8 ||
+      (uintptr_t)out_pad % 8)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const Buffers b = carve((char*)scratch, E);
   uint64_t* ok = (uint64_t*)out_keys;
   int64_t* n = (int64_t*)n_out;
-  bk::exclusive_scan<uint8_t>((const uint8_t*)emitted, E, b.off, b.m, b.scan,
-                              s);
   if (E > 0) {
-    compact_emitted<<<blocks(E), 256, 0, s>>>((const uint64_t*)keys,
-                                              (const uint8_t*)emitted, b.off,
-                                              E, b.a);
-    const int64_t ntiles = (E + kTile - 1) / kTile;
-    const unsigned grid = (unsigned)ntiles;
-    uint64_t* src = b.a;
-    uint64_t* dst = b.b;
-    for (int shift = 0; shift < 64; shift += 8) {
-      radix_hist<<<grid, kThreads, 0, s>>>(src, b.m, shift, ntiles, b.counts);
-      bk::exclusive_scan<int32_t>(b.counts, kBins * ntiles, b.offs, b.total,
-                                  b.scan, s);
-      radix_scatter<<<grid, kThreads, 0, s>>>(src, dst, b.m, shift, ntiles,
-                                              b.offs);
-      uint64_t* t = src;
-      src = dst;
-      dst = t;
+    const int64_t ntiles = tiles_of(E);
+    uint32_t* hist = b.zero;
+    uint32_t* done = hist + kPasses * kBins;
+    uint32_t* tile_ctr = done + 1;  // one per pass, then dedup_runs'
+    uint32_t* status = tile_ctr + kPasses + 1;
+    uint32_t* dedup_status = status + (int64_t)kPasses * kBins * ntiles;
+    cudaError_t e = cudaMemsetAsync(b.zero, 0, b.zero_words * 4, s);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t hist_blocks = (ntiles + kHistTiles - 1) / kHistTiles;
+    digit_hist<<<(unsigned)hist_blocks, kThreads, 0, s>>>(
+        (const uint64_t*)keys, (const uint8_t*)emitted, E, hist, done,
+        b.digit_base, b.m, b.ctrl);
+    for (int pass = 0; pass < kPasses; ++pass) {
+      auto* kern = pass ? onesweep_pass<false> : onesweep_pass<true>;
+      kern<<<(unsigned)ntiles, kThreads, 0, s>>>(
+          pass, (const uint64_t*)keys, (const uint8_t*)emitted, E, b.a, b.b,
+          b.m, b.ctrl, b.digit_base, tile_ctr + pass,
+          status + (int64_t)pass * kBins * ntiles);
     }
-    flag_first<<<blocks(E), 256, 0, s>>>(src, b.m, E, b.first);
-    bk::exclusive_scan<uint8_t>(b.first, E, b.off, n, b.scan, s);
-    scatter_first<<<blocks(E), 256, 0, s>>>(src, b.first, b.off, E, ok);
+    dedup_runs<<<(unsigned)ntiles, kThreads, 0, s>>>(
+        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, ok, n);
   } else {
-    cudaMemsetAsync(n, 0, sizeof(int64_t), s);
+    const cudaError_t e = cudaMemsetAsync(n, 0, sizeof(int64_t), s);
+    if (e != cudaSuccess) return (int)e;
   }
-  fill_pads<<<blocks(cap), 256, 0, s>>>(ok, (uint8_t*)out_pad, n, cap);
+  fill_pads<<<blocks(cap, 2048), 256, 0, s>>>(ok, (uint8_t*)out_pad, n, cap);
   return (int)cudaGetLastError();
 }

@@ -155,13 +155,16 @@ def sort_unique_plain(keys: torch.Tensor, emitted: torch.Tensor, cap: int):
 def sort_unique(keys: torch.Tensor, emitted: torch.Tensor):
     """KB2 (``csrc/sort_unique.cu``): see ``sort_unique_plain``, which
     serves CPU tensors.  keys (E,) int64, emitted (E,) bool; the capacity
-    is the smallest power of two >= max(E, 8)."""
+    is the smallest power of two >= max(E, 8).  The kernel takes fewer
+    than 2^30 keys (its tile counts are 30-bit)."""
     E = keys.shape[0]
     cap = _pow2(E)
     if keys.device.type == "cpu":
         return sort_unique_plain(keys, emitted, cap)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_unique: no kernel for device {keys.device}")
+    if E >= 1 << 30:
+        raise ValueError(f"sort_unique: {E} keys, the kernel takes < 2^30")
     dev = keys.device
     kernels.check(keys, "keys", torch.int64, dev, (E,))
     kernels.check(emitted, "emitted", torch.bool, dev, (E,))

@@ -62,8 +62,8 @@ _SIGS = {
     # out keys, pad, node, orig, cnt, n_out, scratch, stream
     "bk_merge_fold": [P, P, P, P, P, I64, P, P, P, P, P, I64, P, I32, I32, P,
                       P, P, I32, I32, P, P, P, P, P, P, P, P],
-    # tbl, idx, Q, C, out, stream
-    "bk_row_gather": [P, P, I64, I64, P, P],
+    # tbl, idx, R, Q, C, out, stream
+    "bk_row_gather": [P, P, I64, I64, I64, P, P],
     # tab, idx, R, Ct, Q, Ci, axis, out, stream
     "bk_take_along": [P, P, I64, I64, I64, I64, I32, P, P],
 }

@@ -12,8 +12,14 @@ kernels (``csrc/gather_bench.cu``), each with its plain torch version:
   the four shapes of ``tools/vmem_gather_bench2.py``.
 
 Every case is held against its plain version on the same tensors (exact
-equality) and timed beside it with CUDA events.  Indices must lie inside
-the table: the kernels do not check them.
+equality) and timed beside it.  G1 is timed with CUDA events around
+back-to-back calls.  A G2 call takes a few microseconds on the card, less
+than the host takes to enqueue it, so G2 and its plain version are timed
+by replaying a CUDA graph of ``GRAPH_CALLS`` captured calls between two
+events (``graph_ms``), with the event timing of back-to-back calls beside
+it.  An index outside the table stops either kernel with a trap, as
+``torch.gather``'s device-side assert does: the CUDA context is lost and
+the next synchronising call raises.
 
     python -m bonsai_tpu_torch.tools.gather_bench
 
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import json
 import sys
+from functools import partial
 
 import torch
 
@@ -33,6 +40,7 @@ from .. import kernels
 F_ROWS, F_QUERIES, F_LANES = 1 << 21, 1 << 19, 32
 CLIFF_MIB = (16, 128, 1024, 4096)
 CLIFF_QUERIES = 1 << 22
+GRAPH_CALLS = 100
 
 
 def row_gather_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -55,11 +63,11 @@ def row_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.dim() != 1:
         raise ValueError(f"idx: shape {tuple(idx.shape)}, need (Q,)")
     kernels.check(idx, "idx", torch.int32, dev)
-    Q, C = idx.shape[0], tbl.shape[1]
+    (R, C), Q = tbl.shape, idx.shape[0]
     out = torch.empty((Q, C), dtype=torch.int32, device=dev)
     if Q and C:
         kernels.launch("bk_row_gather", dev, tbl.data_ptr(), idx.data_ptr(),
-                       Q, C, out.data_ptr())
+                       R, Q, C, out.data_ptr())
         row_gather.launches += 1
     return out
 
@@ -147,13 +155,34 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def _pair(kern, plain, iters=20):
+def graph_ms(fn, calls: int = GRAPH_CALLS) -> float:
+    """Mean device milliseconds of fn() by CUDA-graph replay: ``calls``
+    calls captured once, the graph replayed between two events, so that
+    no host work sits between the launches."""
+    fn()  # first use outside the capture: loads the kernel library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / calls
+
+
+def _pair(kern, plain, timer=time_ms):
     """(kernel ms, plain ms), each the mean of two runs in the order
     plain, kernel, kernel, plain."""
-    p1 = time_ms(plain, iters)
-    k1 = time_ms(kern, iters)
-    k2 = time_ms(kern, iters)
-    p2 = time_ms(plain, iters)
+    p1 = timer(plain)
+    k1 = timer(kern)
+    k2 = timer(kern)
+    p2 = timer(plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -182,15 +211,20 @@ def run(device, seed: int = 0, say=print) -> dict:
     for name, tab, ix, axis in take_cases(dev):
         _same(take_along(tab, ix, axis), take_along_plain(tab, ix, axis),
               f"G2 {name}")
-        k, p = _pair(lambda: take_along(tab, ix, axis),
-                     lambda: take_along_plain(tab, ix, axis))
+        kern = partial(take_along, tab, ix, axis)
+        plain = partial(take_along_plain, tab, ix, axis)
+        k, p = _pair(kern, plain, graph_ms)
+        ke, pe = _pair(kern, plain)
         nq = ix.numel()
         res["take_along"][name] = {"ms": k, "plain_ms": p,
                                    "ns_per_query": k * 1e6 / nq,
-                                   "plain_ns_per_query": p * 1e6 / nq}
+                                   "plain_ns_per_query": p * 1e6 / nq,
+                                   "event_ms": ke, "plain_event_ms": pe}
         say(f"# G2 take_along {name} ({tuple(tab.shape)} table, idx "
-            f"{tuple(ix.shape)}): kernel {k:.4f} ms ({k * 1e6 / nq:.3f} "
-            f"ns/query), plain {p:.4f} ms ({p * 1e6 / nq:.3f} ns/query)")
+            f"{tuple(ix.shape)}), graph replay of {GRAPH_CALLS} calls: "
+            f"kernel {k * 1e3:.3f} us ({k * 1e6 / nq:.4f} ns/query), plain "
+            f"{p * 1e3:.3f} us ({p * 1e6 / nq:.4f} ns/query); events around "
+            f"back-to-back calls: kernel {ke:.4f} ms, plain {pe:.4f} ms")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     for mib in CLIFF_MIB:
         rows = mib * 2**20 // 32

@@ -26,9 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                  CPU copies, exact equality: a 4M-base ec chunk at W = 1
                  and 10, uncanonical, in-read Ns, k = 32 with bit 63 and
                  real U64_MAX keys, rows shorter than k, P < W; chunks
-                 with duplicates, all pads, 4.2M keys; the eight lca()
-                 corners and 2^22 + 2^22 random states, both sum_counts;
-                 the gathers at the shapes of their TPU cases
+                 with duplicates, all pads, 4.2M keys, KB2's radix edge
+                 cases (a skipped top digit, one run, one middle digit,
+                 one key, a ragged tile, 2^22 keys) and two calls in a
+                 row; the eight lca() corners and 2^22 + 2^22 random
+                 states, both sum_counts; the gathers at the shapes of
+                 their TPU cases, G2 also at a ragged Q and at axis 1
+                 with Ci != Ct
   9. device build   the port's --device-build: ec k=31 (digest = the
                  manifest's) and k=31 w=40 (digest = the JAX package's),
                  then the lex_k25, lex_k31_w40, lex_k25_nocanon builds and
@@ -37,8 +41,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  build, peak device memory, device busy share
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
-                 tables, G2 at four shapes; G1 and G2 launched
- 11. numbers     KB1-KB3 and plain-version times at the build's shapes
+                 tables, G2 at four shapes, timed by CUDA-graph replay;
+                 G1 and G2 launched
+ 11. numbers     KB1-KB3 and plain-version times at the build's shapes,
+                 KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1)
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
@@ -530,6 +536,29 @@ def _random_state(rng, pool, n, cap, taxa_pool, tree):
     return st
 
 
+def _kb2_case(rng, E, kind):
+    """(keys, emitted) CPU tensors of one KB2 case: duplicates, keys below
+    2^50 (the top digit's pass is skipped), every key equal, keys that
+    differ in one middle digit only, one emitted key."""
+    import numpy as np
+    import torch
+
+    keys = rng.integers(0, 2**64, E, dtype=np.uint64)
+    keys[rng.integers(0, E, E // 3)] = keys[rng.integers(0, E, E // 3)]
+    if kind == "below2^50":
+        keys >>= np.uint64(14)
+    elif kind == "allequal":
+        keys[:] = keys[0]
+    elif kind == "middledigit":
+        digit = np.uint64(0xFF << 24)
+        keys = (keys[0] & ~digit) | ((keys & np.uint64(0xFF)) << np.uint64(24))
+    emitted = rng.random(E) < 0.8
+    if kind == "oneemitted":
+        emitted[:] = False
+        emitted[E // 2] = True
+    return (torch.from_numpy(keys.view(np.int64)), torch.from_numpy(emitted))
+
+
 def phase_build_kernels(dev, chk, kk):
     """KB1-KB3, G1, G2 on the card vs their plain versions on CPU copies."""
     import numpy as np
@@ -585,6 +614,18 @@ def phase_build_kernels(dev, chk, kk):
     kb1(codes[:, :20].copy(), lengths, 21, 1, True, "L < k")
     kb2(torch.zeros(5000, dtype=torch.int64), torch.zeros(5000, dtype=torch.bool),
         "all pads")
+    # the radix passes' edge cases: skipped passes, one run, one key, a
+    # ragged last tile, ~1000 tiles of look-back; then two calls queued
+    # back to back, which must clear the counters and status words again
+    for E, kind in ((3 * 4096 + 1, "below2^50"), (3 * 4096 + 1, "dups"),
+                    (5000, "allequal"), (70_000, "middledigit"),
+                    (5000, "oneemitted"), (1 << 22, "dups")):
+        kb2(*_kb2_case(rng, E, kind), f"{E} keys, {kind}")
+    cases = [_kb2_case(rng, 1 << 18, kind) for kind in ("dups", "below2^50")]
+    got = [bd.sort_unique(k.to(dev), e.to(dev)) for k, e in cases]
+    for g, (k, e), kind in zip(got, cases, ("dups", "below2^50")):
+        chk.same("sort_unique", g, bd.sort_unique_plain(k, e, 1 << 18),
+                 f"two calls in a row: {kind}")
 
     # KB3: the eight lca() corners, then 2^22 + 2^22 random states
     small = TaxTree({1: 0, 2: 1, 3: 1, 11: 2, 12: 2, 13: 3, 5: 0, 51: 5})
@@ -643,6 +684,16 @@ def phase_build_kernels(dev, chk, kk):
     for name, tab, ix, axis in gb.take_cases(dev):
         chk.same("take_along", [gb.take_along(tab, ix, axis)],
                  [gb.take_along_plain(tab.cpu(), ix.cpu(), axis)], name)
+    # G2 at a ragged Q, at widths not a multiple of 4, at axis 1, Ci != Ct
+    for axis, R, Ct, Q, Ci in ((0, 1000, 128, 1001, 128), (0, 37, 6, 5, 6),
+                               (1, 77, 48, 77, 70), (1, 1024, 128, 1024, 64)):
+        tab = torch.from_numpy(rng.integers(-2**31, 2**31, (R, Ct)
+                                            ).astype(np.int32))
+        ix = torch.from_numpy(rng.integers(0, R if axis == 0 else Ct, (Q, Ci)
+                                           ).astype(np.int32))
+        chk.same("take_along", [gb.take_along(tab.to(dev), ix.to(dev), axis)],
+                 [gb.take_along_plain(tab, ix, axis)],
+                 f"axis {axis} ({R}, {Ct}) table, ({Q}, {Ci}) indices")
     torch.cuda.synchronize()
     say(f"# build kernels: all equal to their plain versions: "
         f"{ {k: chk.cases[k] for k in list(KERNELS)[3:]} } cases")
@@ -796,6 +847,7 @@ def phase_build_numbers(dev, kk):
             f"card {t[1]:.4f} ms")
         return t
 
+    chunks = {}  # KB2's inputs: KB1's output at three build shapes
     for w in (40, 31):  # the main path's k = 31 shape last: it is reported
         codes, lengths = _ec_chunk(w)
         c = torch.from_numpy(codes).to(dev)
@@ -805,12 +857,20 @@ def phase_build_numbers(dev, kk):
             "minimizers", f"ec chunk {codes.shape[1]} bases k=31 W={W}",
             lambda: enc.minimizers(c, ln, 31, W, True),
             lambda: enc.minimizers_plain(c, ln, 31, W, True))
-    em = enc.minimizers(c, ln, 31, 1, True)
-    keys, mask = em.values[0], em.mask[0]
-    times["sort_unique"] = pair(
-        "sort_unique", f"{keys.shape[0]} keys of the ec chunk",
-        lambda: bd.sort_unique(keys, mask),
-        lambda: bd.sort_unique_plain(keys, mask, 1 << 22))
+        chunks[f"k=31 W={W}"] = enc.minimizers(c, ln, 31, W, True)
+    codes, lengths = _ec_chunk(25)
+    chunks["k=25 W=1 (top digit's pass skipped)"] = enc.minimizers(
+        torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev),
+        25, 1, True)
+    for tag in ("k=31 W=10", "k=25 W=1 (top digit's pass skipped)",
+                "k=31 W=1"):  # the main path's k = 31 W = 1 last: reported
+        keys, mask = chunks[tag].values[0], chunks[tag].mask[0]
+        cap = 1 << (keys.shape[0] - 1).bit_length()
+        times["sort_unique"] = pair(
+            "sort_unique", f"ec chunk {tag}: {int(mask.sum())} keys of "
+            f"{keys.shape[0]} windows",
+            lambda: bd.sort_unique(keys, mask),
+            lambda: bd.sort_unique_plain(keys, mask, cap))
     rng = np.random.default_rng(SEED + 3)
     tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
     pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)

@@ -60,15 +60,31 @@ def _tables_equal(a, b):
 
 # -- KB2 plain vs _dedup_chunk_impl --------------------------------------------
 
-@pytest.mark.parametrize("kind", ["dups", "u64max", "allpad"])
+@pytest.mark.parametrize("kind", ["dups", "u64max", "allpad", "below2^50",
+                                  "allequal", "middledigit", "oneemitted",
+                                  "ragged"])
 def test_sort_unique_plain_matches_jax_dedup(kind):
+    """The cases the kernel's radix passes treat apart: keys below 2^50
+    (the top digit's pass is skipped), every key equal, keys that differ
+    in one middle digit only, one emitted key, a ragged last tile
+    (E = 3 * 4096 + 1)."""
     rng = np.random.default_rng(len(kind))
-    E = 4096
+    E = 3 * 4096 + 1 if kind == "ragged" else 4096
     keys = rng.integers(0, 2**64, E, dtype=np.uint64)
     keys[rng.integers(0, E, 2000)] = keys[rng.integers(0, E, 2000)]
     if kind == "u64max":  # real U64_MAX keys (k = 32, uncanonical)
         keys[rng.integers(0, E, 40)] = U64_MAX
+    elif kind == "below2^50":
+        keys >>= np.uint64(14)
+    elif kind == "allequal":
+        keys[:] = keys[0]
+    elif kind == "middledigit":
+        digit = np.uint64(0xFF << 24)
+        keys = (keys[0] & ~digit) | ((keys & np.uint64(0xFF)) << np.uint64(24))
     emitted = rng.random(E) < (0.0 if kind == "allpad" else 0.7)
+    if kind == "oneemitted":
+        emitted[:] = False
+        emitted[E // 2] = True
     jk, jp, jn = jbd._dedup_chunk_jit()(
         jnp.asarray(np.where(emitted, keys, U64_MAX)),
         jnp.asarray((~emitted).astype(np.uint8)))

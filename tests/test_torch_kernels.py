@@ -17,6 +17,10 @@ microbenchmarks the four ``take_along_axis`` shapes and 32-B and 128-B
 rows.  Tolerance: exact equality, since all of it is integer work.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -253,11 +257,11 @@ def _i64(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint64).view(np.int64))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("E,kind", [(0, "dups"), (7, "dups"), (5000, "dups"),
-                                    (300_000, "dups"), (70_000, "u64max"),
-                                    (9000, "allpad")])
-def test_sort_unique_kernel_matches_plain(cuda, E, kind):
+def _kb2_input(E, kind):
+    """(keys, emitted) CPU tensors of one KB2 edge case: duplicates, real
+    U64_MAX keys, keys below 2^50 (the top digit's pass is skipped), every
+    key equal, keys that differ in one middle digit only (every pass but
+    that one and pass 0 skipped), one emitted key, no emitted key."""
     rng = np.random.default_rng(E + len(kind))
     keys = rng.integers(0, 2**64, size=E, dtype=np.uint64)
     if E:
@@ -265,8 +269,29 @@ def test_sort_unique_kernel_matches_plain(cuda, E, kind):
     if kind == "u64max":  # k = 32 uncanonical: real U64_MAX keys
         keys[rng.integers(0, E, 50)] = np.uint64(2**64 - 1)
         keys[:: 3] &= np.uint64(2**63 - 1)
+    elif kind == "below2^50":
+        keys >>= np.uint64(14)
+    elif kind == "allequal":
+        keys[:] = keys[0]
+    elif kind == "middledigit":
+        digit = np.uint64(0xFF << 24)
+        keys = (keys[0] & ~digit) | ((keys & np.uint64(0xFF)) << np.uint64(24))
     emitted = rng.random(E) < (0.0 if kind == "allpad" else 0.8)
-    k, e = _i64(keys), torch.from_numpy(emitted)
+    if kind == "oneemitted":
+        emitted[:] = False
+        emitted[E // 2] = True
+    return _i64(keys), torch.from_numpy(emitted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,kind", [(0, "dups"), (7, "dups"), (5000, "dups"),
+                                    (300_000, "dups"), (70_000, "u64max"),
+                                    (9000, "allpad"), (3 * 4096 + 1, "dups"),
+                                    (3 * 4096 + 1, "below2^50"),
+                                    (5000, "allequal"), (70_000, "middledigit"),
+                                    (5000, "oneemitted"), (1 << 22, "dups")])
+def test_sort_unique_kernel_matches_plain(cuda, E, kind):
+    k, e = _kb2_input(E, kind)
     want = bd.sort_unique(k, e)
     before = bd.sort_unique.launches
     got = bd.sort_unique(k.to(cuda), e.to(cuda))
@@ -275,6 +300,16 @@ def test_sort_unique_kernel_matches_plain(cuda, E, kind):
     if kind == "u64max":
         n = int(want[2])
         assert want[0][n - 1] == -1 and want[1][n - 1] == 0
+
+
+@pytest.mark.cuda
+def test_sort_unique_kernel_twice_on_one_stream(cuda):
+    """Two calls queued back to back: the second reuses the first's
+    scratch, so its counters and status words must be cleared again."""
+    cases = [_kb2_input(1 << 18, kind) for kind in ("dups", "below2^50")]
+    got = [bd.sort_unique(k.to(cuda), e.to(cuda)) for k, e in cases]
+    for g, (k, e) in zip(got, cases):
+        _same(g, bd.sort_unique(k, e))
 
 
 # -- KB3 merge_fold ------------------------------------------------------------
@@ -377,3 +412,53 @@ def test_take_along_kernel_matches_plain(cuda, case):
     got = gb.take_along(tab, idx, axis)
     assert gb.take_along.launches == before + 1
     _same([got], [gb.take_along(tab.cpu(), idx.cpu(), axis)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,R,Ct,Q,Ci", [(0, 1000, 128, 1001, 128),
+                                            (0, 37, 6, 5, 6),
+                                            (1, 77, 48, 77, 70),
+                                            (1, 1024, 128, 1024, 64)])
+def test_take_along_kernel_ragged(cuda, axis, R, Ct, Q, Ci):
+    """A ragged Q, widths that are not a multiple of 4, and axis 1 with
+    Ci != Ct."""
+    rng = np.random.default_rng(R + Ci)
+    tab = torch.from_numpy(rng.integers(-2**31, 2**31, (R, Ct)).astype(np.int32))
+    hi = R if axis == 0 else Ct
+    idx = torch.from_numpy(rng.integers(0, hi, (Q, Ci)).astype(np.int32))
+    got = gb.take_along(tab.to(cuda), idx.to(cuda), axis)
+    _same([got], [gb.take_along(tab, idx, axis)])
+
+
+_BAD_GATHER = """
+import torch
+from bonsai_tpu_torch.tools import gather_bench as gb
+dev = torch.device("cuda", 0)
+tab = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+good = torch.zeros((64, 8), dtype=torch.int32, device=dev)
+bad = good.clone()
+bad[5, 0] = {bad}
+for idx in (good, bad):
+    if "{which}" == "row_gather":
+        gb.row_gather(tab, idx[:, 0].contiguous())
+    else:
+        gb.take_along(tab, idx, {axis})
+    torch.cuda.synchronize()
+    print("returned", flush=True)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,axis,bad", [("row_gather", 0, 64),
+                                            ("take_along", 0, -1),
+                                            ("take_along", 1, 8)])
+def test_gathers_trap_on_a_bad_index(cuda, which, axis, bad):
+    """An index outside the table stops G1 and G2 with a trap, which ends
+    the process's CUDA context, so each runs in a process of its own: the
+    good gather returns, the bad one fails at the next synchronisation."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _BAD_GATHER.format(which=which, axis=axis, bad=bad)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.stdout.count("returned") == 1, proc.stderr
+    assert proc.returncode != 0
