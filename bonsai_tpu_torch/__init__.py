@@ -3,7 +3,7 @@
 A Kraken-style k-mer classifier on one NVIDIA GPU, held against the JAX
 package ``bonsai_tpu`` (the reference, unchanged beside it).  The layout
 mirrors ``bonsai_tpu``: ``core`` (k-mer encoding), ``io`` (FASTA/FASTQ),
-``native`` (the host C++ shared with the JAX package), ``taxonomy``,
+``native`` (the port's own copy of the host C++), ``taxonomy``,
 ``db`` (table, files, build), ``classify`` (pipeline, resolve, output)
 and ``cli``.  The device step of ``classify`` runs three hand-written
 CUDA kernels (``csrc/``, built by ``kernels.py``); each has a plain torch

@@ -1,7 +1,7 @@
 """Classification output: Kraken-style text and FASTQ re-emission.
 
 Counterpart of ``bonsai_tpu/classify/output.py``, byte for byte
-(classifier.h:112-129,339-412).  Kraken records go through the shared C++
+(classifier.h:112-129,339-412).  Kraken records go through the host C++
 formatter (``kraken_out.cpp``); the ``-f`` FASTQ re-emission is formatted
 here.
 
@@ -60,7 +60,7 @@ def _u32(a) -> np.ndarray:
 
 
 def _format_kraken(res, comb_size: int, emit_all: bool) -> str:
-    """Kraken text of a batch through the shared C++ formatter."""
+    """Kraken text of a batch through the host C++ formatter."""
     lib = get_lib()
     n = len(res.names)
     if n == 0:

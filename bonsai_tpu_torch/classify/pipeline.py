@@ -413,7 +413,7 @@ class Classifier:
 
     # -- one batch -----------------------------------------------------------
     def _prepare_batch(self, batch: fastx.ReadBatch, paired: bool = False):
-        """Host half: 2-bit pack the batch through the shared C++ packer
+        """Host half: 2-bit pack the batch through the host C++ packer
         into (pinned, on CUDA) host tensors.  The processing width lproc
         is the batch's true max read length rounded to Lp/16 granularity
         (>= 8), so the probe runs at P = lproc - k + 1 positions."""

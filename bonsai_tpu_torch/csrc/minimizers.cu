@@ -16,13 +16,22 @@
 // The first base sits in the k-mer's high bits; all compares are unsigned
 // over 64 bits; a value is never a sentinel (the emitted flag says it).
 //
-// What bounds it on an H100: the output (9 B a slot) and the codes (1 B
-// a base); the work is k shift-ors and, with W > 1, W compares a slot.
-// The design: one block of 256 threads owns 256 consecutive slots of a
-// row; it stages the tile's codes plus the (k - 1) + (W - 1) halo in
-// shared memory, builds each position's k-mer, canonical form and score
-// once into shared memory, and each thread then scans its window there.
-// So every base is read from device memory once per tile.
+// What bounds it on an H100: the bytes, 1 B of codes a base in and 9 B a
+// slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the work
+// is a few integer ops a position once each k-mer is rolled, and with
+// W > 1 a few compares a slot.  The design: a block of 256 threads
+// owns kTile = 4096 slots of a row and stages their codes, with the
+// (k - 1) + (W - 1) halo, in shared memory by 16-B vector loads.  A thread
+// builds the k-mer of the first position of its run once and then rolls
+// it one base at a time, forward and reverse complement together; a
+// position is bad when the last N seen lies inside its k-mer.  For W = 1 a
+// thread's run is its own kRun slots.  For W > 1 the tile's kTile + W - 1
+// positions are split into equal runs, their (score, value) pairs go to
+// shared memory, and each thread takes the minima of its kRun windows
+// from blocks of W positions (van Herk / Gil-Werman), the same steps in
+// every lane (equal pairs carry equal values, so ties need no rule).
+// Keys go out as coalesced 16-B pairs and the emitted flags of a run as
+// one 16-B store, where the row's tile start is 16-B aligned.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,21 +39,27 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRun = 16;                // slots a thread owns
+constexpr int kTile = kThreads * kRun;  // slots a block owns
 
-constexpr uint64_t kM2 = 0x3333333333333333ull;
-constexpr uint64_t kM4 = 0x0F0F0F0F0F0F0F0Full;
-constexpr uint64_t kM8 = 0x00FF00FF00FF00FFull;
-constexpr uint64_t kM16 = 0x0000FFFF0000FFFFull;
+// Shared index of tile position p: one spare word every 16, so that the
+// threads of a warp, 16 positions apart, fall in distinct banks.
+__device__ __host__ __forceinline__ int sx(int p) { return p + (p >> 4); }
 
-__device__ __forceinline__ uint64_t canonical(uint64_t x, int k) {
-  uint64_t r = x;
-  r = ((r >> 2) & kM2) | ((r & kM2) << 2);
-  r = ((r >> 4) & kM4) | ((r & kM4) << 4);
-  r = ((r >> 8) & kM8) | ((r & kM8) << 8);
-  r = ((r >> 16) & kM16) | ((r & kM16) << 16);
-  r = (r >> 32) | (r << 32);
-  r = (~r) >> (64 - 2 * k);  // k = 32: shift 0
-  return r < x ? r : x;
+struct Layout {
+  int npos;       // positions whose k-mers the tile reads
+  int nsx;        // shared words of one position array
+  int code_off;   // byte offset of the staged codes (16-B aligned)
+  int bytes;      // dynamic shared memory in all
+};
+
+__device__ __host__ __forceinline__ Layout layout(int k, int W) {
+  Layout l;
+  l.npos = kTile + W - 1;
+  l.nsx = sx(l.npos - 1) + 1;
+  l.code_off = (l.nsx * 8 * (W > 1 ? 2 : 1) + 15) / 16 * 16;
+  l.bytes = l.code_off + (l.npos + k - 1 + 30) / 16 * 16;
+  return l;
 }
 
 __device__ __forceinline__ uint64_t frev64(uint64_t x) {
@@ -53,85 +68,193 @@ __device__ __forceinline__ uint64_t frev64(uint64_t x) {
   return x ^ 0x691A9D706391077Aull;
 }
 
-__global__ void minimizers_kernel(const int8_t* __restrict__ codes,
-                                  const int32_t* __restrict__ lengths,
-                                  int64_t L, int k, int W, int canon,
-                                  int64_t E, int64_t* __restrict__ keys,
-                                  bool* __restrict__ emitted) {
-  extern __shared__ uint64_t smem[];
-  const int npos = kThreads + W - 1;
-  uint64_t* s_val = smem;
-  uint64_t* s_score = smem + npos;
-  uint8_t* s_bad = (uint8_t*)(smem + 2 * npos);
-  int8_t* s_code = (int8_t*)(s_bad + npos);
-  const int64_t row = blockIdx.y;
-  const int64_t j0 = (int64_t)blockIdx.x * kThreads;
-  const int8_t* crow = codes + row * L;
+// (score, value) pair b orders at or before the best so far
+__device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
+                                             uint64_t bs, uint64_t bv) {
+  return s < bs || (s == bs && v <= bv);
+}
 
-  for (int t = threadIdx.x; t < npos + k - 1; t += kThreads) {
-    const int64_t c = j0 + t;
-    s_code[t] = c < L ? crow[c] : (int8_t)-1;
+__global__ void __launch_bounds__(kThreads)
+    minimizers_kernel(const int8_t* __restrict__ codes,
+                      const int32_t* __restrict__ lengths, int64_t L, int k,
+                      int W, int canon, int64_t E,
+                      int64_t* __restrict__ keys, bool* __restrict__ emitted) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = layout(k, W);
+  uint64_t* s_val = (uint64_t*)smem;
+  uint64_t* s_score = s_val + l.nsx;  // W > 1 only
+  int8_t* s_code = (int8_t*)(smem + l.code_off);
+  const int tid = threadIdx.x;
+  const int64_t row = blockIdx.y;
+  const int64_t j0 = (int64_t)blockIdx.x * kTile;
+
+  // 1. stage the tile's codes (-1 past the row) in 16-B chunks from the
+  //    aligned address at or below the tile's first code
+  const int need = l.npos + k - 1;
+  const int8_t* src = codes + row * L + j0;
+  const int64_t avail = min((int64_t)need, L - j0);
+  const int shift = (int)((uintptr_t)src & 15);
+  const int nchunk = (shift + need + 15) >> 4;
+  for (int q = tid; q < nchunk; q += kThreads) {
+    const int lo = q * 16 - shift;  // tile index of the chunk's first code
+    union {
+      int4 v;
+      int8_t b[16];
+    } u;
+    if (lo >= 0 && lo + 16 <= avail) {
+      u.v = *(const int4*)(src + lo);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        u.b[e] = lo + e >= 0 && lo + e < avail ? src[lo + e] : (int8_t)-1;
+    }
+    *(int4*)(s_code + q * 16) = u.v;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < npos; t += kThreads) {
-    uint64_t x = 0;
-    bool bad = false;
-    for (int q = 0; q < k; ++q) {
-      const int8_t c = s_code[t + q];
-      bad |= c < 0;
-      x = (x << 2) | (uint64_t)(c < 0 ? 0 : c);
-    }
-    uint64_t v = canon ? canonical(x, k) : x;
-    if (W > 1) {
-      v = bad ? 0 : v;
-      s_score[t] = frev64(v);
-    }
-    s_val[t] = v;
-    s_bad[t] = bad;
-  }
-  __syncthreads();
-  const int64_t j = j0 + threadIdx.x;
-  if (j >= E) return;
-  const int64_t n_push = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
-  uint64_t best_v = s_val[threadIdx.x];
-  bool emit;
-  if (W == 1) {
-    emit = j < n_push && !s_bad[threadIdx.x];
-  } else {
-    uint64_t best_s = s_score[threadIdx.x];
-    for (int q = 1; q < W; ++q) {
-      const uint64_t s = s_score[threadIdx.x + q];
-      const uint64_t v = s_val[threadIdx.x + q];
-      if (s < best_s || (s == best_s && v < best_v)) {
-        best_s = s;
-        best_v = v;
+
+  // 2. roll the k-mers of this thread's run of positions [p0, p1)
+  const int rt = W > 1 ? (l.npos + kThreads - 1) / kThreads : kRun;
+  const int p0 = tid * rt;
+  const int p1 = min(p0 + rt, l.npos);
+  const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
+  const int top = 2 * k - 2;
+  uint32_t bad = 0;  // W = 1: bit r, slot p0 + r holds an N
+  if (p0 < p1) {
+    const uint32_t* w32 = (const uint32_t*)s_code;
+    int ci = shift + p0;  // byte of the next code in s_code
+    uint32_t word = w32[ci >> 2] >> (8 * (ci & 3));
+    uint64_t fwd = 0, rc = 0;
+    int last_n = -1;  // run index of the last N read
+    for (int i = 0; i < p1 - p0 + k - 1; ++i, ++ci) {
+      if (i > 0 && (ci & 3) == 0) word = w32[ci >> 2];
+      int c = (int8_t)(word & 0xFF);
+      word >>= 8;
+      if (c < 0) {
+        last_n = i;
+        c = 0;
+      }
+      fwd = ((fwd << 2) | (uint64_t)c) & mask;
+      rc = (rc >> 2) | ((uint64_t)(3 - c) << top);
+      const int r = i - (k - 1);  // the position whose k-mer is complete
+      if (r < 0) continue;
+      const uint64_t v = canon && rc < fwd ? rc : fwd;
+      const bool n_in = last_n >= r;
+      if (W > 1) {
+        const uint64_t ck = n_in ? 0 : v;
+        s_val[sx(p0 + r)] = ck;
+        s_score[sx(p0 + r)] = frev64(ck);
+      } else {
+        s_val[sx(p0 + r)] = v;
+        bad |= (uint32_t)n_in << r;
       }
     }
-    emit = j + W <= n_push;
   }
-  keys[row * E + j] = (int64_t)best_v;
-  emitted[row * E + j] = emit;
+  __syncthreads();
+
+  // 3. W > 1: the window minima of this thread's slots (van Herk /
+  //    Gil-Werman).  Cut the positions from j on into blocks of W: the
+  //    window of slot j + r meets at most two blocks, so its minimum is
+  //    the lesser of the suffix minimum from j + r to the end of its block
+  //    and the prefix minimum from the start of the next block to
+  //    j + r + W - 1.  Two scans of about W + kRun positions, the same
+  //    steps in every lane.
+  const int j = tid * kRun;
+  if (W > 1) {
+    uint16_t suf[kRun];  // position of the suffix minimum from j + r
+    {
+      uint64_t bs = 0, bv = 0;
+      int bp = 0;
+      int q = W - 1;  // the next position's place in its block
+      for (int p = ((kRun - 1) / W + 1) * W - 1; p >= kRun; --p) {
+        const uint64_t s = s_score[sx(j + p)], v = s_val[sx(j + p)];
+        if (q == W - 1 || at_or_before(s, v, bs, bv)) bs = s, bv = v, bp = p;
+        q = q ? q - 1 : W - 1;
+      }
+#pragma unroll
+      for (int r = kRun - 1; r >= 0; --r) {
+        const uint64_t s = s_score[sx(j + r)], v = s_val[sx(j + r)];
+        if (q == W - 1 || at_or_before(s, v, bs, bv)) bs = s, bv = v, bp = r;
+        q = q ? q - 1 : W - 1;
+        suf[r] = (uint16_t)bp;
+      }
+    }
+    uint64_t best[kRun];
+    {
+      uint64_t bs = 0, bv = 0;
+      int q = 0;  // place of the next position in its block
+      for (int p = 0; p < W - 1; ++p) {
+        const uint64_t s = s_score[sx(j + p)], v = s_val[sx(j + p)];
+        if (q == 0 || at_or_before(s, v, bs, bv)) bs = s, bv = v;
+        q = q == W - 1 ? 0 : q + 1;
+      }
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        const int p = W - 1 + r;
+        const uint64_t s = s_score[sx(j + p)], v = s_val[sx(j + p)];
+        if (q == 0 || at_or_before(s, v, bs, bv)) bs = s, bv = v;
+        q = q == W - 1 ? 0 : q + 1;
+        const int x = sx(j + suf[r]);
+        best[r] = at_or_before(s_score[x], s_val[x], bs, bv) ? s_val[x] : bv;
+      }
+    }
+    __syncthreads();  // every window is read before the slots overwrite it
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) s_val[sx(j + r)] = best[r];
+  }
+  __syncthreads();
+
+  // 4. out: keys coalesced, the emitted flags of a run in one store
+  const int nslot = (int)min((int64_t)kTile, E - j0);
+  int64_t* krow = keys + row * E + j0;
+  if (((uintptr_t)krow & 15) == 0) {
+    for (int m = tid; 2 * m < nslot; m += kThreads) {
+      const int s0 = 2 * m;
+      if (s0 + 1 < nslot)
+        *(ulonglong2*)(krow + s0) =
+            make_ulonglong2(s_val[sx(s0)], s_val[sx(s0 + 1)]);
+      else
+        krow[s0] = (int64_t)s_val[sx(s0)];
+    }
+  } else {
+    for (int s0 = tid; s0 < nslot; s0 += kThreads)
+      krow[s0] = (int64_t)s_val[sx(s0)];
+  }
+  const int64_t n_push = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
+  bool* erow = emitted + row * E + j0 + j;
+  uint32_t f[kRun / 4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) {
+    const int64_t js = j0 + j + r;
+    const bool e = W > 1 ? js + W <= n_push : js < n_push && !(bad >> r & 1);
+    f[r / 4] |= (uint32_t)e << (8 * (r % 4));
+  }
+  if (j + kRun <= nslot && ((uintptr_t)erow & 15) == 0) {
+    *(uint4*)erow = make_uint4(f[0], f[1], f[2], f[3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRun; ++r)
+      if (j + r < nslot) erow[r] = (f[r / 4] >> (8 * (r % 4))) & 1;
+  }
 }
 
 }  // namespace
 
 // codes (B, L) int8, lengths (B,) int32 -> keys (B, E) int64-held u64,
 // emitted (B, E) bool, E = L - k - W + 2 > 0; 1 <= k <= 32, W > 1 only
-// with canon.
+// with canon; the tile's shared memory must fit (W <= 8192).
 extern "C" int bk_minimizers(const void* codes, const void* lengths,
                              int64_t B, int64_t L, int k, int W, int canon,
                              void* keys, void* emitted, void* stream) {
   const int64_t E = L - k - W + 2;
-  const int npos = kThreads + W - 1;
-  const size_t smem = (size_t)npos * 17 + npos + k;
-  if (smem > 48 * 1024) {
+  const Layout l = layout(k, W);
+  if (l.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         minimizers_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        l.bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), (unsigned)B);
-  minimizers_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
+  minimizers_kernel<<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
       (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
       (int64_t*)keys, (bool*)emitted);
   return (int)cudaGetLastError();

@@ -37,26 +37,15 @@
 //      each tile's output offset by the same look-back over flag counts,
 //      writes the distinct keys and n, all with coalesced accesses;
 //   5. fill_pads sets slots [n, cap) to key U64_MAX, pad 1.
-// Tile ids come from a counter, not blockIdx, so every tile a block waits
-// on belongs to a block that already runs: the look-back cannot deadlock.
-// A status word is 2 flag bits (aggregate, inclusive prefix) and a 30-bit
-// count, so a chunk holds fewer than 2^30 keys; global offsets are 64-bit.
-// A word carries its whole message and nothing else is published beside
-// it, so it is stored with st.release.gpu and read with relaxed loads,
-// kWindow earlier tiles at a time, all in flight together: acquire loads
-// would be ordered one after another, and the first wave of blocks all
-// reach the look-back at once (a walk of one acquire load a round trip was
-// a third of a pass's time; an acquire fence after the walk cost 4-7% of
-// the call on an H100).  A tile that finds an earlier word still empty
-// sleeps kBackoffNs before it reads again, so that spinning blocks do not
-// crowd out the blocks they wait on (without it, one configuration of 4
-// blocks an SM ran 10x slower).
+// Tile ids come from a counter, not blockIdx, and the status words, their
+// relaxed polling and the back-off are lookback.cuh's (shared with KB3), so
+// a chunk holds fewer than 2^30 keys; global offsets are 64-bit.
 
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 
-#include "scan.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -67,68 +56,12 @@ constexpr int64_t kTile = (int64_t)kThreads * kPerLane;  // keys per tile
 constexpr int kBins = 256;
 constexpr int kPasses = 8;      // 8-bit digits of a 64-bit key
 constexpr int kMinBlocks = 3;   // resident pass blocks an SM: <= 80 registers
-constexpr int kWindow = 8;      // status words a look-back step reads
-constexpr int kBackoffNs = 50;  // sleep before reading an empty word again
 constexpr int kHistTiles = 2;   // tiles a histogram block reads
-constexpr uint32_t kAggregate = 1u << 30;  // status: this tile's count
-constexpr uint32_t kPrefix = 2u << 30;     // status: count of tiles <= this
-constexpr uint32_t kCount = kAggregate - 1;
-constexpr int64_t kMaxKeys = 1 << 30;
 static_assert(kThreads == kBins, "thread t owns digit t");
 static_assert(kPerLane % 2 == 0, "ranks are packed two to a word");
 
-__device__ __forceinline__ uint32_t load_relaxed(const uint32_t* p) {
-  uint32_t v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Status words: one per tile at status[tile * stride].  A tile publishes
-// its own count first, as soon as it knows it (tile 0's is already its
-// inclusive prefix) ...
-__device__ __forceinline__ void publish(uint32_t* status, int64_t tile,
-                                        int64_t stride, uint32_t count) {
-  store_release(status + tile * stride,
-                (tile == 0 ? kPrefix : kAggregate) | count);
-}
-
-// ... then sums the earlier tiles' words back to the first inclusive
-// prefix, kWindow words a round trip, reading again from a tile that has
-// published nothing yet, and publishes its own inclusive prefix.  Returns
-// the count of all earlier tiles.
-__device__ __forceinline__ uint32_t look_back(uint32_t* status, int64_t tile,
-                                              int64_t stride, uint32_t count) {
-  if (tile == 0) return 0;
-  uint32_t sum = 0;
-  int64_t j = tile - 1;  // the next tile to add; -1 once a prefix is added
-  while (j >= 0) {
-    uint32_t v[kWindow];
-#pragma unroll
-    for (int q = 0; q < kWindow; ++q)
-      v[q] = j - q >= 0 ? load_relaxed(status + (j - q) * stride) : kPrefix;
-    bool stop = false;
-#pragma unroll
-    for (int q = 0; q < kWindow; ++q)
-      if (!stop) {
-        if (v[q] == 0) {
-          stop = true;  // not published yet: read again from tile j
-          __nanosleep(kBackoffNs);
-        } else {
-          sum += v[q] & kCount;
-          --j;
-          if (v[q] & kPrefix) stop = true, j = -1;
-        }
-      }
-  }
-  store_release(status + tile * stride, kPrefix | (sum + count));
-  return sum;
-}
+using bk::look_back;
+using bk::publish;
 
 // ctrl[p] for pass p >= 1: -1 skipped, else the buffer it reads (0 = a,
 // 1 = b) and writes the other; pass 0 reads the input and writes a;
@@ -423,7 +356,7 @@ extern "C" int bk_sort_unique(const void* keys, const void* emitted,
                               int64_t E, int64_t cap, void* out_keys,
                               void* out_pad, void* n_out, void* scratch,
                               void* stream) {
-  if (E < 0 || E >= kMaxKeys || cap < E || cap % 8 ||
+  if (E < 0 || E >= bk::kMaxCount || cap < E || cap % 8 ||
       (uintptr_t)out_pad % 8)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;

@@ -5,7 +5,7 @@ Counterpart of ``bonsai_tpu/db/build.py`` for DNA, contiguous seeds with
 k <= 32 and the lex scheme:
 
 * ``lca_map``, unwindowed: each genome's distinct (canonical) k-mers
-  come from the shared C++ ``btpu_canon_kmer_set``;
+  come from the host C++ ``btpu_canon_kmer_set``;
 * ``lca_map``, canonical windowed (``-w``): the plain torch encoder
   (``core/encoder.py``) runs on halo-overlapped chunks of each contig, as
   ``_contig_sets`` does (build.py:134-169);

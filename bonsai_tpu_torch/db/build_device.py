@@ -242,7 +242,8 @@ def merge_fold(a: State, b: State, tax: Dict[str, torch.Tensor], root1: int,
                sum_counts: bool) -> State:
     """KB3 (``csrc/merge_fold.cu``): see ``merge_fold_plain``, which
     serves CPU tensors.  ``tax`` is ``TaxTree.device_arrays`` on the
-    states' device; ``root1`` the compact index of taxid 1."""
+    states' device; ``root1`` the compact index of taxid 1.  The kernel
+    takes a combined capacity below 2^30 (its tile counts are 30-bit)."""
     dev = a.keys.device
     if dev.type == "cpu":
         return merge_fold_plain(a, b, tax, root1, sum_counts)
@@ -260,6 +261,8 @@ def merge_fold(a: State, b: State, tax: Dict[str, torch.Tensor], root1: int,
     levels = tax["lift"].shape[0]
     kernels.check(tax["lift"], "lift", torch.int32, dev, (levels, n))
     N = a.cap + b.cap
+    if N >= 1 << 30:
+        raise ValueError(f"merge_fold: capacity {N}, the kernel takes < 2^30")
     out = State(torch.empty(N, dtype=torch.int64, device=dev),
                 torch.empty(N, dtype=torch.uint8, device=dev),
                 *(torch.empty(N, dtype=torch.int32, device=dev)

@@ -13,7 +13,7 @@ in both.  A probe is two 32-byte row reads and one value read:
 * inline mode: val_idx indexes a small sorted unique-values array;
   flat mode: a parallel (nb, 4) value array, read at the matched slot.
 
-Placement is the shared C++ cuckoo placer (``btpu_cuckoo_place``).  On
+Placement is the host C++ cuckoo placer (``btpu_cuckoo_place``).  On
 the device the slot and value arrays are int64 tensors holding u64 bits.
 """
 
@@ -41,7 +41,7 @@ def _next_pow2(x: int) -> int:
 
 def unique_u64(a) -> np.ndarray:
     """Sorted distinct values of a non-negative integer array, as u64,
-    through the shared C++ radix sort-dedup (``np.unique`` of 6.7e7 u64
+    through the host C++ radix sort-dedup (``np.unique`` of 6.7e7 u64
     values took 200 s under numpy 2.3.5 on an H100 host, where the cuckoo
     placement of the same keys took 3 s)."""
     from ..native import get_lib

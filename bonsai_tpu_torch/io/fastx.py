@@ -2,7 +2,7 @@
 
 Counterpart of ``bonsai_tpu/io/fastx.py``.  ``read_fastx`` yields whole
 records (genome contigs for the database build); ``batch_reads`` yields
-``ReadBatch``es parsed by the shared C++ parser (``native/fastx.py``),
+``ReadBatch``es parsed by the port's C++ parser (``native/fastx.py``),
 which reads plain and gzip files.  Read length pads to a multiple of 32
 so that the 2-bit upload (16 codes per u32 word) tiles exactly.
 """

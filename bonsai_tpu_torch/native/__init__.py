@@ -1,10 +1,10 @@
-"""Host C++ runtime shared with the JAX package, loaded with ctypes.
+"""Host C++ runtime of the port, loaded with ctypes.
 
-The sources are ``bonsai_tpu/native/src/*.cpp`` (batch FASTA/FASTQ
+The sources are ``native/src/*.cpp`` of this package (batch FASTA/FASTQ
 parser, 2-bit batch packer, canonical k-mer sets, radix sort and
-merge-fold, cuckoo placer, Kraken formatter).  They use no JAX, so this
-package compiles the same files, read by path, into its own library under
-the git-ignored ``build/torch_native/`` of the checkout, at first use and
+merge-fold, cuckoo placer, Kraken formatter), the port's own copy of the
+JAX package's host runtime.  They compile into one library under the
+git-ignored ``build/torch_native/`` of the checkout, at first use and
 again whenever a source is newer.  There is no pure-Python fallback: a
 failed build raises.
 """
@@ -16,9 +16,10 @@ import os
 import subprocess
 import threading
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SRC_DIR = os.path.join(_REPO, "bonsai_tpu", "native", "src")
-BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_HERE, "src")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                         "torch_native")
 LIB_PATH = os.path.join(BUILD_DIR, "libbtpu_host.so")
 
 _lock = threading.Lock()

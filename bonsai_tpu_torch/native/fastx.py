@@ -1,6 +1,6 @@
-"""ctypes wrapper over the shared C++ FASTA/FASTQ batch parser
-(``bonsai_tpu/native/src/fastx.cpp``): parsing, LUT encoding and pad-fill
-of a batch in one C++ pass.  Same wrapper as ``bonsai_tpu/native/fastx.py``.
+"""ctypes wrapper over the port's C++ FASTA/FASTQ batch parser
+(``native/src/fastx.cpp``): parsing, LUT encoding and pad-fill of a batch
+in one C++ pass.  Same wrapper as ``bonsai_tpu/native/fastx.py``.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure raises and the script exits non-zero:
   1. device      CUDA present; the card's name and power limit
   2. build       the eight kernels (csrc/*.cu, one nvcc per source, all
-                 started together) and the shared host C++
+                 started together) and the port's host C++ (native/src)
   3. kernels     K1-K3 against their plain torch versions on CPU copies
                  of the same inputs, exact equality (integer work):
                  HiSeq batches of 8192 reads against the ec k=31 table,
@@ -29,8 +29,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                  with duplicates, all pads, 4.2M keys, KB2's radix edge
                  cases (a skipped top digit, one run, one middle digit,
                  one key, a ragged tile, 2^22 keys) and two calls in a
-                 row; the eight lca() corners and 2^22 + 2^22 random
-                 states, both sum_counts; the gathers at the shapes of
+                 row; KB1 with Ns at the ends of a thread's run and at tile
+                 edges, N runs longer than k, a ragged L, W = 2, 10, 17;
+                 the eight lca() corners, KB3 pairs across tile edges (the
+                 corners there, both state orders, a real U64_MAX pair),
+                 whole tiles of pairs, empty and tiny states, two calls in
+                 a row and 2^22 + 2^22 random states, both sum_counts;
+                 the gathers at the shapes of
                  their TPU cases, G2 also at a ragged Q and at axis 1
                  with Ci != Ct
   9. device build   the port's --device-build: ec k=31 (digest = the
@@ -44,9 +49,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                  tables, G2 at four shapes, timed by CUDA-graph replay;
                  G1 and G2 launched
  11. numbers     KB1-KB3 and plain-version times at the build's shapes,
-                 KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1)
+                 KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1) with
+                 torch.unique beside it; index_select and gather at G1's
+                 and G2's shapes; each kernel's bound (bytes over 3.35
+                 TB/s or int32 operations over 16.7 TOP/s, the larger)
 
-The line before the last is the kernels JSON; the last line is
+The line before the last is the kernels JSON (launches on the main paths,
+exactness, kernel, plain, bound and library times); the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
 the script exits non-zero and prints no result.
 """
@@ -98,6 +107,70 @@ KERNELS = {
     "take_along": ("bonsai_tpu_torch/csrc/gather_bench.cu",
                    "tools/vmem_gather_bench2.py:35"),
 }
+
+
+# The card's peaks behind each kernel's bound: HBM3 at 3.35 TB/s (NVIDIA
+# H100 SXM data sheet) and int32 ALU work at 132 SMs x 64 INT32 lanes x
+# 1.98 GHz = 16.7 TOP/s (Hopper architecture white paper); both at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes: int, ops: int = 0):
+    """(least ms, "bytes" or "operations", bytes ms, operations ms): the
+    larger of the bytes over the memory rate and the int32 operations over
+    the int32 peak, and both."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT32_OPS_PER_S * 1e3
+    return (max(tb, to), "bytes" if tb >= to else "operations", tb, to)
+
+
+def bound_text(b) -> str:
+    return (f"bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f} ms, int32 "
+            f"operations {b[3]:.4f} ms)")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# One bound a kernel, from the inputs and outputs of the call that is
+# timed: each input byte that the work needs read once, each output byte
+# written once; a u64 operation counts as two int32 operations.
+def bound_encode_probe(inputs, vals, out):
+    """K1: the packed reads, one 32-B slot row per probe that hits in its
+    first bucket at best and two per miss, the values, the outputs; two
+    splitmix64 hashes (~40 int32 ops) per valid position."""
+    hit, valid = out[0], out[1]
+    nv, nh = int(valid.sum()), int(hit.sum())
+    rows = 32 * nh + 64 * (nv - nh)
+    return bound(nbytes(*inputs, vals) + rows + nbytes(*out), 40 * nv)
+
+
+def bound_resolve(cidx, hit, tax, taxon):
+    """K2: the rows and the taxonomy arrays in, one taxon a read out; per
+    read of h hits, h^2 pairs of two compares and an add."""
+    import torch
+
+    h = hit.sum(-1, dtype=torch.int64)
+    return bound(nbytes(cidx, hit, taxon, *tax.values()),
+                 3 * int((h * h).sum()))
+
+
+def bound_minimizers(codes, lengths, em, W):
+    """KB1: codes in, keys and flags out; per position two rolled u64
+    k-mers and a canonical min (16 ops), with W > 1 a frev64 score and
+    about three (score, value) compares (24 more)."""
+    return bound(nbytes(codes, lengths, *em),
+                 codes.numel() * (16 + (24 if W > 1 else 0)))
+
+
+def bound_merge_fold(a, b, na, nb, tax, out):
+    """KB3: keys and pad of every input slot, node, orig, cnt of the valid
+    entries, the tree arrays, every output slot."""
+    return bound(9 * (a.cap + b.cap) + 12 * (na + nb) + nbytes(*tax.values())
+                 + nbytes(out.keys, out.pad, out.node, out.orig, out.cnt,
+                          out.n))
 
 
 def say(msg: str) -> None:
@@ -440,6 +513,12 @@ def phase_numbers(dev, clf, hiseq_path):
     taxon = rs.resolve(cidx, hit, clf.tax, clf._n_distinct)
     a2 = (cidx, hit, clf.tax, clf._n_distinct)
     a3 = (taxon, oidx, hit, valid, valid1, clf.max_runs, ds)
+    bounds = {
+        "encode_probe": bound_encode_probe((pc, nm, ln), clf.arr.vals,
+                                           (hit, valid, cidx, oidx)),
+        "resolve": bound_resolve(cidx, hit, clf.tax, taxon),
+        "step_outputs": bound(nbytes(*a3[:5], *pl.step_outputs(*a3))),
+    }
     times = {}
     for name, kern, plain, args in (
         ("encode_probe", pl.encode_probe, pl.encode_probe_plain, a1),
@@ -448,13 +527,13 @@ def phase_numbers(dev, clf, hiseq_path):
     ):
         # plain, kernel, kernel, plain: the mean of each pair
         p1 = time_ms(lambda: plain(*args))
-        k1 = time_ms(lambda: kern(*args))
-        k2 = time_ms(lambda: kern(*args))
+        k1 = time_ms(lambda: kern(*args), iters=100)
+        k2 = time_ms(lambda: kern(*args), iters=100)
         p2 = time_ms(lambda: plain(*args))
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         say(f"# time {name} at B=8192 reads, P={hit.shape[1]}: kernel "
             f"{times[name][0]:.4f} ms, plain torch on the card "
-            f"{times[name][1]:.4f} ms")
+            f"{times[name][1]:.4f} ms, {bound_text(bounds[name])}")
     # device busy share over one HiSeq pass, from a profiler trace
     from torch.profiler import ProfilerActivity, profile
 
@@ -485,16 +564,20 @@ def phase_numbers(dev, clf, hiseq_path):
             fh.write(data)
     clf.process_dataset(hiseq_path, sink, batch_size=8192)  # warm pass
     torch.cuda.synchronize()
+    wrappers = (pl.encode_probe, rs.resolve, pl.step_outputs)
+    before = [w.launches for w in wrappers]
     t0 = time.perf_counter()
     clf.process_dataset(path, sink, batch_size=8192, profile=True)
     secs = time.perf_counter() - t0
+    per_stream = {w.__name__: w.launches - n for w, n in zip(wrappers, before)}
     sink.close()
     os.unlink(path)
     rps = 200000 / secs
     say(f"# stream: 200000 HiSeq reads (batch 8192, emit-all text to "
         f"/dev/null) in {secs:.3f}s = {rps:.6g} reads/s; stages "
-        f"{ {k: round(v, 3) for k, v in clf.stage_seconds.items()} }")
-    return times, rps
+        f"{ {k: round(v, 3) for k, v in clf.stage_seconds.items()} }; kernel "
+        f"launches {per_stream}")
+    return times, bounds, rps
 
 
 def _ec_chunk(w):
@@ -559,6 +642,83 @@ def _kb2_case(rng, E, kind):
     return (torch.from_numpy(keys.view(np.int64)), torch.from_numpy(emitted))
 
 
+KB1_RUN, KB1_TILE = 16, 4096  # csrc/minimizers.cu: slots a thread, a block
+KB3_TILE = 2048  # csrc/merge_fold.cu: output slots a tile
+# (taxid in a, taxid in b) of the eight lca() corners of the small tree
+KB3_CORNERS = [(11, 12), (11, 13), (11, 0), (999, 999), (999, 11), (11, 51),
+               (0, 0), (12, 12)]
+
+
+def _kb1_edge_rows(rng, k, W):
+    """Rows with Ns at the first and last slot of a thread's run and at
+    tile edges, an N run longer than k across a tile edge, a row of T and
+    one of G/T bases (U64_MAX and bit 63 at k = 32), a row shorter than k;
+    L is not a multiple of the run and E is odd."""
+    import numpy as np
+
+    L = 2 * KB1_TILE + 37 + k + W
+    codes = rng.integers(0, 4, (5, L)).astype(np.int8)
+    for p in (0, KB1_RUN - 1, KB1_RUN, 2 * KB1_RUN - 1, KB1_TILE - 1, KB1_TILE,
+              KB1_TILE + KB1_RUN - 1, 2 * KB1_TILE + 5):
+        codes[0, p] = -1
+    codes[1, KB1_TILE - 20 : KB1_TILE + k + 20] = -1
+    codes[2] = 3
+    codes[2, 1000:1003] = 0
+    codes[3] = rng.integers(2, 4, L)
+    lengths = np.array([L, L - 3, L, L - KB1_TILE, k - 1], dtype=np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
+def _placed_states(rng, tree, pairs_at, n_after, corners=(), u64max=False):
+    """Host arrays of two states whose merged order holds a pair (a's entry
+    at slot p - 1, b's at p) for each p of ``pairs_at``, the pairs taking
+    the taxa of ``corners`` in turn; singles elsewhere, ``n_after`` after
+    the last pair; a real U64_MAX key in both last where ``u64max``.
+    Returns (a, na, b, nb)."""
+    import numpy as np
+
+    where, pos = [], 0  # per distinct key: "a", "b" or "ab"
+    for p in sorted(pairs_at):
+        while pos < p - 1:
+            where.append("ab"[rng.integers(0, 2)])
+            pos += 1
+        where.append("ab")
+        pos += 2
+    where += ["ab"[rng.integers(0, 2)] for _ in range(n_after)]
+    if u64max:
+        where.append("ab")
+    distinct = np.unique(rng.integers(0, 2**64 - 1, 2 * len(where) + 8,
+                                      dtype=np.uint64))
+    keys = np.sort(rng.choice(distinct, len(where), replace=False))
+    if u64max:
+        keys[-1] = np.uint64(2**64 - 1)
+    pool = np.array([0, 999, *tree.tax_ids], dtype=np.uint64)
+    cs = iter(corners)
+    kk = {"a": [], "b": []}
+    taxa = {"a": [], "b": []}
+    for key, w in zip(keys, where):
+        tx = next(cs, None) if w == "ab" else None
+        for s, t in zip("ab", tx or rng.choice(pool, 2)):
+            if s in w:
+                kk[s].append(key)
+                taxa[s].append(t)
+    out = []
+    for s in "ab":
+        n = len(kk[s])
+        cap = 1 << max(int(n - 1).bit_length(), 3)
+        t = np.array(taxa[s], dtype=np.uint32)
+        st = [np.full(cap, 2**64 - 1, np.uint64), np.ones(cap, np.uint8),
+              np.zeros(cap, np.int32), np.zeros(cap, np.uint32),
+              np.zeros(cap, np.uint32)]
+        for a, v in zip(st, (np.array(kk[s], dtype=np.uint64), 0,
+                             tree.compact(t, missing_ok=True), t,
+                             rng.integers(1, 4, n))):
+            a[:n] = v
+        out += [st, n]
+    return out
+
+
 def phase_build_kernels(dev, chk, kk):
     """KB1-KB3, G1, G2 on the card vs their plain versions on CPU copies."""
     import numpy as np
@@ -612,6 +772,13 @@ def phase_build_kernels(dev, chk, kk):
                     "KB2: a real U64_MAX key is missing or padded")
     kb1(codes[:, :40].copy(), lengths, 31, 11, True, "P < W")
     kb1(codes[:, :20].copy(), lengths, 21, 1, True, "L < k")
+    # Ns at the ends of a thread's run and at tile edges, N runs longer than
+    # k, k = 32 with bit 63 and U64_MAX, rows shorter than k, ragged L
+    for k, W, canon in ((32, 1, False), (32, 1, True), (31, 1, True),
+                        (31, 2, True), (31, 10, True), (21, 17, True),
+                        (32, 17, True)):
+        kb1(*_kb1_edge_rows(rng, k, W), k, W, canon,
+            f"run and tile edges k={k} W={W} canon={canon}")
     kb2(torch.zeros(5000, dtype=torch.int64), torch.zeros(5000, dtype=torch.bool),
         "all pads")
     # the radix passes' edge cases: skipped passes, one run, one key, a
@@ -670,6 +837,39 @@ def phase_build_kernels(dev, chk, kk):
         kb3(_random_state(rng, keys, n, 1 << 22, pool, ec_tree), n,
             _random_state(rng, keys, n, 1 << 22, pool, ec_tree), n, ec_tree,
             sc, f"random 2^22 + 2^22 sum_counts={sc}")
+        # pairs across tile edges with the lca() corners there, both state
+        # orders, and a real U64_MAX pair next to the pads; whole tiles of
+        # pairs from a tile edge and from one slot after it
+        edges = [KB3_TILE * (t + 1) for t in range(len(KB3_CORNERS))]
+        a, na, b, nb = _placed_states(rng, small, edges, 1000, KB3_CORNERS,
+                                      u64max=True)
+        kb3(a, na, b, nb, small, sc, f"pairs across tile edges sc={sc}")
+        kb3(b, nb, a, na, small, sc, f"pairs across tile edges, b first sc={sc}")
+        pairs = [KB3_TILE + 1 + 2 * i for i in range(KB3_TILE // 2)]
+        pairs += [3 * KB3_TILE + 2 + 2 * i for i in range(KB3_TILE // 2)]
+        kb3(*_placed_states(rng, small, pairs, 300), small, sc,
+            f"whole tiles of pairs sc={sc}")
+    # empty states and a state far smaller than a tile
+    for na, ca, nb, cb in ((0, 0, 0, 0), (0, 0, 5, 8), (3000, 4096, 0, 0),
+                           (3, 8, 50_000, 65536), (50_000, 65536, 1, 8)):
+        kb3(_random_state(rng, keys, na, ca, pool, ec_tree), na,
+            _random_state(rng, keys, nb, cb, pool, ec_tree), nb, ec_tree, True,
+            f"capacities {ca} + {cb}")
+    # two calls queued back to back: counters and status words cleared again
+    root1 = int(ec_tree.compact(np.array([1], dtype=np.uint32))[0])
+    cases = [[_random_state(rng, keys, n, cap, pool, ec_tree) for _ in "ab"]
+             + [n] for n, cap in ((40_000, 65536), (70_000, 131072))]
+    got = [bd.merge_fold(bd.State.from_numpy(*sa, n, dev),
+                         bd.State.from_numpy(*sb, n, dev),
+                         ec_tree.device_arrays(dev), root1, True)
+           for sa, sb, n in cases]
+    fields = ("keys", "pad", "node", "orig", "cnt", "n")
+    for g, (sa, sb, n) in zip(got, cases):
+        want = bd.merge_fold_plain(bd.State.from_numpy(*sa, n, "cpu"),
+                                   bd.State.from_numpy(*sb, n, "cpu"),
+                                   ec_tree.device_arrays("cpu"), root1, True)
+        chk.same("merge_fold", [getattr(g, f) for f in fields],
+                 [getattr(want, f) for f in fields], f"two calls in a row: {n}")
 
     # G1 at variant F's shape and 32-B rows; G2 at its four shapes
     tbl, idx = gb.f_case(dev, SEED)
@@ -746,6 +946,9 @@ def phase_device_build(dev, kk, host_secs):
             f"{'matches' if got == want else 'DIFFERS'}")
         require(got == want, f"ec k=31 w={w} device build differs")
         nums[w] = {"secs": secs, "n": table.n, "peak": peak}
+        if w == 31:
+            say(f"# device build: ec k=31: kernel launches "
+                f"{ {f.__name__: f.launches for f in wrappers} }")
     # a second k = 31 build, by stage, with a profiler trace of the fold
     sp = Spacer(31, 31)
     torch.cuda.synchronize()
@@ -826,8 +1029,34 @@ def phase_gather(dev):
     return launches, res
 
 
+def phase_gather_numbers(dev):
+    """Bounds of G1 and G2 at the shapes the gather bench times, and the
+    library call that computes each: index_select for G1 (CUDA events, as
+    G1), gather for G2 (CUDA-graph replay, as G2)."""
+    import torch
+
+    from bonsai_tpu_torch.tools import gather_bench as gb
+
+    bounds, library = {}, {}
+    tbl, idx = gb.f_case(dev, SEED)
+    out = gb.row_gather(tbl, idx)
+    bounds["row_gather"] = bound(nbytes(idx) + 2 * nbytes(out))
+    library["row_gather"] = time_ms(lambda: torch.index_select(tbl, 0, idx))
+    del tbl, out
+    name, tab, ix, axis = gb.take_cases(dev)[0]
+    ix64 = ix.to(torch.int64)
+    bounds["take_along"] = bound(nbytes(tab, ix, gb.take_along(tab, ix, axis)))
+    library["take_along"] = gb.graph_ms(lambda: torch.gather(tab, axis, ix64))
+    say(f"# time index_select at G1's variant F shape "
+        f"{library['row_gather']:.4f} ms (bound {bounds['row_gather'][0]:.4f}); "
+        f"gather at G2's {name} {library['take_along'] * 1e3:.3f} us under "
+        f"graph replay (bound {bounds['take_along'][0] * 1e3:.3f} us)")
+    return bounds, library
+
+
 def phase_build_numbers(dev, kk):
-    """KB1-KB3 vs their plain versions on the card, at the build's shapes."""
+    """KB1-KB3 vs their plain versions on the card, at the build's shapes,
+    with each kernel's bound and, for KB2, torch.unique's time."""
     import numpy as np
     import torch
 
@@ -835,16 +1064,18 @@ def phase_build_numbers(dev, kk):
     from bonsai_tpu_torch.db import build_device as bd
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
 
-    times = {}
+    times, bounds, library = {}, {}, {}
 
     def pair(name, tag, kern, plain):
+        # the kernels over 100 calls: 5 calls of a 30 us kernel time the
+        # card's clocks more than the kernel
         p1 = time_ms(plain, iters=5, warm=1)
-        k1 = time_ms(kern, iters=5, warm=1)
-        k2 = time_ms(kern, iters=5, warm=1)
+        k1 = time_ms(kern, iters=100)
+        k2 = time_ms(kern, iters=100)
         p2 = time_ms(plain, iters=5, warm=1)
         t = ((k1 + k2) / 2, (p1 + p2) / 2)
         say(f"# time {name} {tag}: kernel {t[0]:.4f} ms, plain torch on the "
-            f"card {t[1]:.4f} ms")
+            f"card {t[1]:.4f} ms, {bound_text(bounds[name])}")
         return t
 
     chunks = {}  # KB2's inputs: KB1's output at three build shapes
@@ -853,11 +1084,13 @@ def phase_build_numbers(dev, kk):
         c = torch.from_numpy(codes).to(dev)
         ln = torch.from_numpy(lengths).to(dev)
         W = w - 30
+        chunks[f"k=31 W={W}"] = enc.minimizers(c, ln, 31, W, True)
+        bounds["minimizers"] = bound_minimizers(c, ln, chunks[f"k=31 W={W}"],
+                                                W)
         times["minimizers"] = pair(
             "minimizers", f"ec chunk {codes.shape[1]} bases k=31 W={W}",
             lambda: enc.minimizers(c, ln, 31, W, True),
             lambda: enc.minimizers_plain(c, ln, 31, W, True))
-        chunks[f"k=31 W={W}"] = enc.minimizers(c, ln, 31, W, True)
     codes, lengths = _ec_chunk(25)
     chunks["k=25 W=1 (top digit's pass skipped)"] = enc.minimizers(
         torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev),
@@ -866,11 +1099,17 @@ def phase_build_numbers(dev, kk):
                 "k=31 W=1"):  # the main path's k = 31 W = 1 last: reported
         keys, mask = chunks[tag].values[0], chunks[tag].mask[0]
         cap = 1 << (keys.shape[0] - 1).bit_length()
+        bounds["sort_unique"] = bound(nbytes(keys, mask,
+                                             *bd.sort_unique(keys, mask)))
         times["sort_unique"] = pair(
             "sort_unique", f"ec chunk {tag}: {int(mask.sum())} keys of "
             f"{keys.shape[0]} windows",
             lambda: bd.sort_unique(keys, mask),
             lambda: bd.sort_unique_plain(keys, mask, cap))
+        library["sort_unique"] = time_ms(
+            lambda: torch.unique(keys, sorted=True), iters=100)
+        say(f"# time torch.unique of the same {keys.shape[0]} keys (no "
+            f"mask, signed order): {library['sort_unique']:.4f} ms")
     rng = np.random.default_rng(SEED + 3)
     tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
     pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
@@ -881,11 +1120,13 @@ def phase_build_numbers(dev, kk):
                             n, dev)
     tax = tree.device_arrays(dev)
     root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+    bounds["merge_fold"] = bound_merge_fold(
+        a, b, n, n, tax, bd.merge_fold(a, b, tax, root1, True))
     times["merge_fold"] = pair(
         "merge_fold", "2^22 + 2^22 states, 3M valid each, sum_counts",
         lambda: bd.merge_fold(a, b, tax, root1, True),
         lambda: bd.merge_fold_plain(a, b, tax, root1, True))
-    return times
+    return times, bounds, library
 
 
 def main() -> int:
@@ -915,7 +1156,7 @@ def main() -> int:
     require(digest == kk["db_digest"], "ec database content differs")
     launches = phase_main_path(clf, kk, dev)
     hiseq = os.path.join(DATA, kk["sets"]["HiSeq"]["reads"])
-    times, rps = phase_numbers(dev, clf, hiseq)
+    times, bounds, rps = phase_numbers(dev, clf, hiseq)
     del clf
     qps = phase_scale(dev)
     peak = torch.cuda.max_memory_allocated()
@@ -924,7 +1165,12 @@ def main() -> int:
     phase_build_kernels(dev, chk, kk)
     build_launches, build_nums = phase_device_build(dev, kk, host_secs)
     gather_launches, gres = phase_gather(dev)
-    times.update(phase_build_numbers(dev, kk))
+    build_times, build_bounds, library = phase_build_numbers(dev, kk)
+    times.update(build_times)
+    bounds.update(build_bounds)
+    gather_bounds, gather_library = phase_gather_numbers(dev)
+    bounds.update(gather_bounds)
+    library.update(gather_library)
     times["row_gather"] = (gres["row_gather"]["ms"],
                            gres["row_gather"]["plain_ms"])
     first = next(iter(gres["take_along"].values()))
@@ -939,7 +1185,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name)}
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

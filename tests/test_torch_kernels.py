@@ -11,10 +11,12 @@ Inputs come from a numpy seed, at small shapes that still reach each
 kernel's edge cases: for the classify kernels k = 32, in-read Ns, reads
 shorter than k, flat-mode tables, P > 1024, run overflow, every compact
 layout; for the build kernels windows of 1 to 32 k-mers, P < W, keys
-with bit 63 set and real U64_MAX keys, all-pad chunks, scans of several
-levels, every lca() corner case and both ``sum_counts``; for the gather
-microbenchmarks the four ``take_along_axis`` shapes and 32-B and 128-B
-rows.  Tolerance: exact equality, since all of it is integer work.
+with bit 63 set and real U64_MAX keys, Ns at the ends of KB1's thread
+runs and tiles, all-pad chunks, KB3 pairs across tile edges and whole
+tiles of pairs, empty states, every lca() corner case and both
+``sum_counts``; for the gather microbenchmarks the four
+``take_along_axis`` shapes and 32-B and 128-B rows.  Tolerance: exact
+equality, since all of it is integer work.
 """
 
 import os
@@ -251,6 +253,44 @@ def test_minimizers_kernel_short_rows_and_wide_windows(cuda):
         enc.minimizers(c.to(cuda), ln.to(cuda), 21, 5, False)
 
 
+KB1_RUN, KB1_TILE = 16, 4096  # csrc/minimizers.cu: slots a thread, a block
+
+
+def _kb1_edge_rows(rng, k, W):
+    """Rows that put Ns at the first and last slot of a thread's run and at
+    tile edges, a run of Ns longer than k across a tile edge, a row of T
+    (k = 32 uncanonical: U64_MAX) and of G/T bases (bit 63 set), and a row
+    shorter than k; L is not a multiple of the run and E is odd."""
+    L = 2 * KB1_TILE + 37 + k + W
+    codes = rng.integers(0, 4, (5, L)).astype(np.int8)
+    for p in (0, KB1_RUN - 1, KB1_RUN, 2 * KB1_RUN - 1, KB1_TILE - 1, KB1_TILE,
+              KB1_TILE + KB1_RUN - 1, 2 * KB1_TILE + 5):
+        codes[0, p] = -1
+    codes[1, KB1_TILE - 20 : KB1_TILE + k + 20] = -1
+    codes[2] = 3
+    codes[2, 1000:1003] = 0
+    codes[3] = rng.integers(2, 4, L)
+    lengths = np.array([L, L - 3, L, L - KB1_TILE, k - 1], dtype=np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,W,canon", [(32, 1, False), (32, 1, True),
+                                       (31, 1, True), (31, 2, True),
+                                       (31, 10, True), (21, 17, True),
+                                       (32, 17, True)])
+def test_minimizers_kernel_run_and_tile_edges(cuda, k, W, canon):
+    codes, lengths = _kb1_edge_rows(np.random.default_rng(k + W), k, W)
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = enc.minimizers(c, ln, k, W, canon)
+    assert want.values.shape[1] % 2 == 1
+    got = enc.minimizers(c.to(cuda), ln.to(cuda), k, W, canon)
+    _same(got, want)
+    if (k, canon) == (32, False):
+        assert (want.values[2][want.mask[2]] == -1).any()
+
+
 # -- KB2 sort_unique -----------------------------------------------------------
 
 def _i64(a):
@@ -387,6 +427,144 @@ def test_merge_fold_kernel_lca_corners(cuda, small_tree, sum_counts):
     keys, _, _, orig, _, n = got.numpy()
     assert dict(zip(keys[:n].tolist(), orig[:n].tolist())) == {
         10: 2, 20: 1, 30: 11, 40: 999, 50: 0xFFFFFFFF, 60: 1, 70: 0, 80: 12}
+
+
+KB3_TILE = 2048  # csrc/merge_fold.cu: output slots a tile
+# (taxid in a, taxid in b) of the eight lca() corners of the small tree
+KB3_CORNERS = [(11, 12), (11, 13), (11, 0), (999, 999), (999, 11), (11, 51),
+               (0, 0), (12, 12)]
+
+
+def _placed_states(rng, tree, pairs_at, n_after, corners=(), u64max=False):
+    """Host arrays of two states whose merged order holds a pair (a's entry
+    at slot p - 1, b's at p) for each p of ``pairs_at``, the pairs taking
+    the taxa of ``corners`` in turn; singles in a or b elsewhere, ``n_after``
+    of them after the last pair; a real U64_MAX key in both states last
+    where ``u64max``.  Returns (a, na, b, nb)."""
+    where = []  # per distinct key: "a", "b" or "ab"
+    pos = 0
+    for p in sorted(pairs_at):
+        while pos < p - 1:
+            where.append("ab"[rng.integers(0, 2)])
+            pos += 1
+        where.append("ab")
+        pos += 2
+    where += ["ab"[rng.integers(0, 2)] for _ in range(n_after)]
+    if u64max:
+        where.append("ab")
+    distinct = np.unique(rng.integers(0, 2**64 - 1, 2 * len(where) + 8,
+                                      dtype=np.uint64))
+    keys = np.sort(rng.choice(distinct, len(where), replace=False))
+    if u64max:
+        keys[-1] = np.uint64(2**64 - 1)
+    pool = np.array([0, 999, *tree.tax_ids], dtype=np.uint64)
+    cs = iter(corners)
+    taxa = {"a": [], "b": []}
+    kk = {"a": [], "b": []}
+    for key, w in zip(keys, where):
+        tx = next(cs, None) if w == "ab" else None
+        for s, t in zip("ab", tx or rng.choice(pool, 2)):
+            if s in w:
+                kk[s].append(key)
+                taxa[s].append(t)
+    out = []
+    for s in "ab":
+        n = len(kk[s])
+        cap = 1 << max(int(n - 1).bit_length(), 3)
+        t = np.array(taxa[s], dtype=np.uint32)
+        st = [np.full(cap, 2**64 - 1, np.uint64), np.ones(cap, np.uint8),
+              np.zeros(cap, np.int32), np.zeros(cap, np.uint32),
+              np.zeros(cap, np.uint32)]
+        for a, v in zip(st, (np.array(kk[s], dtype=np.uint64), 0,
+                             tree.compact(t, missing_ok=True), t,
+                             rng.integers(1, 4, n))):
+            a[:n] = v
+        out += [st, n]
+    return out
+
+
+def _kb3_same(cuda, tree, a, na, b, nb, sum_counts):
+    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+    want = bd.merge_fold(bd.State.from_numpy(*a, na, "cpu"),
+                         bd.State.from_numpy(*b, nb, "cpu"),
+                         tree.device_arrays("cpu"), root1, sum_counts)
+    before = bd.merge_fold.launches
+    got = bd.merge_fold(bd.State.from_numpy(*a, na, cuda),
+                        bd.State.from_numpy(*b, nb, cuda),
+                        tree.device_arrays(cuda), root1, sum_counts)
+    assert bd.merge_fold.launches == before + 1
+    f = ("keys", "pad", "node", "orig", "cnt", "n")
+    _same([getattr(got, x) for x in f], [getattr(want, x) for x in f])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_counts", [False, True])
+@pytest.mark.parametrize("swap", [False, True])
+def test_merge_fold_kernel_pairs_across_tile_edges(cuda, small_tree,
+                                                   sum_counts, swap):
+    """A pair's first entry the last slot of a tile and its second the
+    first of the next, at eight tile edges with the eight lca() corners,
+    and with the states' roles swapped; a real U64_MAX key next to the
+    pads."""
+    rng = np.random.default_rng(11 + swap)
+    edges = [KB3_TILE * (t + 1) for t in range(len(KB3_CORNERS))]
+    a, na, b, nb = _placed_states(rng, small_tree, edges, 1000,
+                                  KB3_CORNERS, u64max=True)
+    if swap:
+        a, na, b, nb = b, nb, a, na
+    want = _kb3_same(cuda, small_tree, a, na, b, nb, sum_counts)
+    assert int(want.n) == na + nb - len(edges) - 1
+    assert int(want.keys[int(want.n) - 1]) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_counts", [False, True])
+def test_merge_fold_kernel_tiles_of_pairs(cuda, small_tree, sum_counts):
+    """Whole tiles of pairs, starting at a tile edge and one slot after."""
+    rng = np.random.default_rng(12)
+    pairs = [KB3_TILE + 1 + 2 * i for i in range(KB3_TILE // 2)]
+    pairs += [3 * KB3_TILE + 2 + 2 * i for i in range(KB3_TILE // 2)]
+    a, na, b, nb = _placed_states(rng, small_tree, pairs, 300)
+    _kb3_same(cuda, small_tree, a, na, b, nb, sum_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,ca,nb,cb", [(0, 0, 0, 0), (0, 0, 5, 8),
+                                         (3000, 4096, 0, 0), (3, 8, 50_000, 65536),
+                                         (50_000, 65536, 1, 8),
+                                         (3 << 20, 1 << 22, 3 << 20, 1 << 22)])
+def test_merge_fold_kernel_capacities(cuda, tree, na, ca, nb, cb):
+    """An empty state, one state far smaller than a tile, and 2^22 + 2^22."""
+    rng = np.random.default_rng(na + 7 * nb)
+    pool = rng.integers(0, 2**64, 2 * (na + nb) + 4, dtype=np.uint64)
+    pool[:2] = [2**64 - 1, 2**63]
+    a, _ = _random_state(rng, tree, na, ca, pool)
+    b, _ = _random_state(rng, tree, nb, cb, pool)
+    _kb3_same(cuda, tree, a, na, b, nb, True)
+
+
+@pytest.mark.cuda
+def test_merge_fold_kernel_twice_on_one_stream(cuda, tree):
+    """Two calls queued back to back: the second's tile counter and status
+    words must start cleared again."""
+    rng = np.random.default_rng(13)
+    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+    cases = []
+    for n, cap in ((40_000, 65536), (70_000, 131072)):
+        pool = rng.integers(0, 2**64, 3 * n, dtype=np.uint64)
+        cases.append([_random_state(rng, tree, n, cap, pool)[0] for _ in "ab"]
+                     + [n])
+    got = [bd.merge_fold(bd.State.from_numpy(*a, n, cuda),
+                         bd.State.from_numpy(*b, n, cuda),
+                         tree.device_arrays(cuda), root1, True)
+           for a, b, n in cases]
+    f = ("keys", "pad", "node", "orig", "cnt", "n")
+    for g, (a, b, n) in zip(got, cases):
+        want = bd.merge_fold(bd.State.from_numpy(*a, n, "cpu"),
+                             bd.State.from_numpy(*b, n, "cpu"),
+                             tree.device_arrays("cpu"), root1, True)
+        _same([getattr(g, x) for x in f], [getattr(want, x) for x in f])
 
 
 # -- G1 row_gather, G2 take_along ------------------------------------------------

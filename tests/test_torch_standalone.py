@@ -1,0 +1,113 @@
+"""The port stands alone: a copy of ``bonsai_tpu_torch/`` without the rest
+of the repository imports every module, builds its host C++ library from
+its own ``native/src/`` and parses FASTA as the in-repo port does.
+
+The copy runs in a subprocess in which ``jax`` and ``bonsai_tpu`` cannot
+be imported, with the copy's parent as its only path into the repository.
+"""
+
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from bonsai_tpu_torch import native
+from bonsai_tpu_torch.core.alphabet import DNA4
+from bonsai_tpu_torch.io import fastx
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHIX = os.path.join(ROOT, "tests", "data", "phix.fa")
+
+_CHILD = """
+import sys
+sys.modules["jax"] = None
+sys.modules["bonsai_tpu"] = None
+import hashlib, importlib, json, os, pkgutil
+import bonsai_tpu_torch
+from bonsai_tpu_torch import native
+names = [m.name for m in pkgutil.walk_packages(bonsai_tpu_torch.__path__,
+                                                "bonsai_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for n in names:
+    importlib.import_module(n)
+lib = native.get_lib()
+from bonsai_tpu_torch.core.alphabet import DNA4
+from bonsai_tpu_torch.io import fastx
+h = hashlib.sha256()
+for b in fastx.batch_reads(sys.argv[1], DNA4.lut, batch_size=7):
+    h.update(b"".join(b.names) + b"".join(b.seqs))
+    h.update(b.codes.tobytes() + b.lengths.tobytes())
+print(json.dumps({
+    "package": os.path.dirname(bonsai_tpu_torch.__file__),
+    "modules": names,
+    "src_dir": native.SRC_DIR,
+    "lib_path": native.LIB_PATH,
+    "lib_exists": os.path.exists(native.LIB_PATH),
+    "loaded": [n for n in sys.modules if n.startswith(("jax", "bonsai_tpu."))
+               and sys.modules[n] is not None],
+    "phix": h.hexdigest(),
+}))
+"""
+
+
+def _digest(path):
+    h = hashlib.sha256()
+    for b in fastx.batch_reads(path, DNA4.lut, batch_size=7):
+        h.update(b"".join(b.names) + b"".join(b.seqs))
+        h.update(b.codes.tobytes() + b.lengths.tobytes())
+    return h.hexdigest()
+
+
+@pytest.fixture(scope="module")
+def copy_run(tmp_path_factory):
+    """The package copied alone into a temporary directory, and what the
+    child process reports from that copy."""
+    top = tmp_path_factory.mktemp("standalone")
+    pkg = top / "bonsai_tpu_torch"
+    shutil.copytree(os.path.join(ROOT, "bonsai_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _CHILD, PHIX], cwd=top,
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    return str(top), json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_copy_imports_every_module_without_jax(copy_run):
+    top, rep = copy_run
+    assert rep["package"] == os.path.join(top, "bonsai_tpu_torch")
+    assert rep["loaded"] == []
+    assert {"bonsai_tpu_torch.native", "bonsai_tpu_torch.kernels",
+            "bonsai_tpu_torch.db.build_device"} <= set(rep["modules"])
+
+
+def test_copy_builds_its_host_library_from_its_own_sources(copy_run):
+    top, rep = copy_run
+    assert rep["src_dir"] == os.path.join(top, "bonsai_tpu_torch", "native",
+                                          "src")
+    assert rep["lib_path"].startswith(os.path.join(top, "build") + os.sep)
+    assert rep["lib_exists"]
+
+
+def test_copy_parses_fasta_as_the_repo_port(copy_run):
+    _, rep = copy_run
+    assert rep["phix"] == _digest(PHIX)
+
+
+def test_host_sources_lie_inside_the_package():
+    pkg = os.path.dirname(os.path.abspath(native.__file__))
+    assert os.path.commonpath([native.SRC_DIR, pkg]) == pkg
+    srcs = sorted(f for f in os.listdir(native.SRC_DIR) if f.endswith(".cpp"))
+    assert srcs == ["fastx.cpp", "kmers.cpp", "kraken_out.cpp", "pack.cpp",
+                    "sortops.cpp"]
+    lib = native.get_lib()
+    assert os.path.commonpath([native.LIB_PATH, ROOT]) == ROOT
+    assert lib.btpu_sort_dedup_u64 is not None
+    keys = np.array([5, 3, 5, 2**64 - 1, 3], dtype=np.uint64)
+    n = lib.btpu_sort_dedup_u64(keys.ctypes.data, keys.size)
+    assert keys[:n].tolist() == [3, 5, 2**64 - 1]
