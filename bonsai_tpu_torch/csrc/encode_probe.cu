@@ -9,21 +9,36 @@
 // (core/hashes.py:84) and KmerTable._split (:101); and the hit / cidx /
 // oidx glue of _make_step (pipeline.py:441-463).
 //
-// What bounds it on an H100: two dependent 32-byte row reads per valid
-// (read, position) from a slot array of 128 MiB to 1 GiB, far past the
-// 50 MB L2, so each probe is two HBM round trips; the encode is a few
-// dozen integer ops per position out of L1-resident words.  The design:
-// one thread per (read, position); the k-mer never leaves registers (no
-// HBM round trip between encode and probe, which the JAX step pays); a
-// slot row is read as two 16-byte vector loads (sm_90 has no 32-byte
-// load); positions that are not valid skip the probe; the slot index is
-// 64-bit, so tables with nb * 4 >= 2^31 slots index correctly.
+// What bounds it on an H100: the slot rows, one 32-byte row per valid
+// (read, position) whose k-mer sits in its first bucket and two per miss,
+// read at random from a slot array of 128 MiB to 1 GiB.  Random 32-byte
+// rows come from such tables at about 22-25 G rows/s on an H100 80GB HBM3
+// (G1's cliff in chip_smoke.py); a batch of 8192 HiSeq reads on the ec
+// table reads ~1.0M rows in ~0.033 ms, ~30 G rows/s, where its bytes
+// alone would take 0.0117.  The encode is a few dozen integer ops a
+// position.  The design:
+// one thread per (read, position), as many threads in flight as the card
+// holds; a k-mer is built in O(1): a funnel-shifted 64-bit window of the
+// read's packed words holds its bases first-base-low, so the reverse
+// complement is that window complemented and masked, and the forward
+// k-mer is the window with its 2-bit groups reversed (__brevll and a swap
+// of the bits of each pair) shifted down; the N test is one funnel-shifted
+// window of the N mask.  The second bucket's row is read only when the
+// first has no match: reading both at once (one round trip instead of
+// two) gained at most 5% where most probes miss, since the rows' rate
+// and not their latency bounds the kernel, and it was a third slower at
+// the scale probe's shape, where half the probes hit.  Several positions
+// a thread did not help, and streaming (evict-first) row loads lost 5%
+// at the scale probe's shape.  A slot row is two 16-byte vector loads
+// (sm_90 has no 32-byte load); the slot index is 64-bit, so tables with
+// nb * 4 >= 2^31 slots index correctly.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 128;
 constexpr uint64_t kBSalt = 0xA24BAED4963EE407ULL;
 
 __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
@@ -33,52 +48,57 @@ __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
   return x ^ (x >> 31);
 }
 
-// kmerutil.h:83-90; exact at k = 32 (shift 0) and for any input bits
-__device__ __forceinline__ uint64_t reverse_complement(uint64_t x, int k) {
-  x = ((x >> 2) & 0x3333333333333333ULL) | ((x & 0x3333333333333333ULL) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0FULL) | ((x & 0x0F0F0F0F0F0F0F0FULL) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFULL) | ((x & 0x00FF00FF00FF00FFULL) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFULL) | ((x & 0x0000FFFF0000FFFFULL) << 16);
-  x = (x >> 32) | (x << 32);
-  return (~x) >> (64 - 2 * k);
+// the 2-bit groups of x in reverse order: group j -> group 31 - j
+__device__ __forceinline__ uint64_t reverse_groups(uint64_t x) {
+  x = __brevll(x);  // reverses the groups, and the two bits inside each
+  return ((x >> 1) & 0x5555555555555555ULL) |
+         ((x & 0x5555555555555555ULL) << 1);
 }
 
-__global__ void encode_probe_kernel(
+// bits [s, s + 64) of the little-endian 96-bit value (w2, w1, w0), s < 32
+__device__ __forceinline__ uint64_t window96(uint32_t w0, uint32_t w1,
+                                             uint32_t w2, int s) {
+  const uint64_t lo = ((uint64_t)w1 << 32) | w0;
+  // ((w2 << 32) << (32 - s)) is w2 << (64 - s), and 0 at s = 0
+  return (lo >> s) | (((uint64_t)w2 << 32) << (32 - s));
+}
+
+__global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint32_t* __restrict__ pcodes, int64_t w16,
     const uint32_t* __restrict__ nmask, int64_t nmw,
-    const int32_t* __restrict__ lengths, int64_t B, int64_t P, int k,
+    const int32_t* __restrict__ lengths, int64_t n, int64_t P, int k,
     int canon, const ulonglong2* __restrict__ slots, int lgnb, int vbits,
     const uint64_t* __restrict__ vals, int64_t n_vals, int is_inline,
     int want_idx, bool* __restrict__ hit, bool* __restrict__ valid,
     int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * P) return;
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
   const int64_t b = i / P;
   const int64_t p = i - b * P;
 
-  // codes sit little-endian in each word (code c at bits 2*(c & 15)); the
-  // k-mer puts the first base in its high bits
+  // bases p .. p + 31, base p in the low bits
   const uint32_t* pw = pcodes + b * w16;
-  uint64_t kmer = 0;
-  for (int j = 0; j < k; ++j) {
-    const int64_t c = p + j;
-    kmer = (kmer << 2) | ((__ldg(pw + (c >> 4)) >> ((c & 15) * 2)) & 3u);
+  const int64_t c = p >> 4;
+  const uint32_t w0 = __ldg(pw + c);
+  const uint32_t w1 = c + 1 < w16 ? __ldg(pw + c + 1) : 0u;
+  const uint32_t w2 = c + 2 < w16 ? __ldg(pw + c + 2) : 0u;
+  const uint64_t win = window96(w0, w1, w2, (int)(p & 15) * 2);
+  uint64_t kmer = reverse_groups(win) >> (64 - 2 * k);
+  if (canon) {
+    const uint64_t rc = ~win & (k < 32 ? (1ULL << (2 * k)) - 1 : ~0ULL);
+    kmer = rc < kmer ? rc : kmer;
   }
   bool bad = false;
   if (nmask != nullptr) {
     const uint32_t* nm = nmask + b * nmw;
-    for (int j = 0; j < k; ++j) {
-      const int64_t c = p + j;
-      bad |= (__ldg(nm + (c >> 5)) >> (c & 31)) & 1u;
-    }
+    const int64_t d = p >> 5;
+    const uint32_t m0 = __ldg(nm + d);
+    const uint32_t m1 = d + 1 < nmw ? __ldg(nm + d + 1) : 0u;
+    const uint64_t nbits = k < 32 ? (1ULL << k) - 1 : 0xFFFFFFFFULL;
+    bad = (((((uint64_t)m1 << 32) | m0) >> (p & 31)) & nbits) != 0;
   }
-  if (k < 32) kmer &= (1ULL << (2 * k)) - 1;
   // in-length validity: a read shorter than k has no valid position
   const bool v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
-  if (canon) {
-    const uint64_t rc = reverse_complement(kmer, k);
-    kmer = rc < kmer ? rc : kmer;
-  }
 
   bool found = false;
   uint32_t sel = 0;   // u32 value index (inline) or bucket*4+lane (flat)
@@ -88,11 +108,12 @@ __global__ void encode_probe_kernel(
     const uint64_t bmask = (1ULL << lgnb) - 1;
     const uint64_t b1 = h & bmask;
     const uint64_t q = h >> lgnb;
-    const uint64_t b2 = b1 ^ (splitmix64(q ^ kBSalt) & bmask);
     const uint64_t vmask = (1ULL << vbits) - 1;
     const uint64_t e1 = (1ULL << 63) | (q << vbits);
+    // the first bucket whose row matches; within it the sums over the
+    // matching lanes, as the plain version takes them
     for (int ch = 0; ch < 2 && !found; ++ch) {
-      const uint64_t bk = ch ? b2 : b1;
+      const uint64_t bk = ch ? b1 ^ (splitmix64(q ^ kBSalt) & bmask) : b1;
       const uint64_t e = ch ? (e1 | (1ULL << 62)) : e1;
       const ulonglong2 lo = slots[2 * bk];
       const ulonglong2 hi = slots[2 * bk + 1];
@@ -133,12 +154,11 @@ extern "C" int bk_encode_probe(
     const void* slots, int lgnb, int vbits, const void* vals, int64_t n_vals,
     int is_inline, int want_idx, void* hit, void* valid, void* cidx,
     void* oidx, void* stream) {
-  const int threads = 256;
   const int64_t n = B * P;
-  const int64_t blocks = (n + threads - 1) / threads;
-  encode_probe_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  encode_probe_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
-      (const int32_t*)lengths, B, P, k, canon, (const ulonglong2*)slots, lgnb,
+      (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots, lgnb,
       vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx, (bool*)hit,
       (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx);
   return (int)cudaGetLastError();

@@ -1,24 +1,50 @@
-"""Time the build kernels of an earlier revision against the current ones.
+"""Time the kernels of an earlier revision against the current ones.
 
-Compiles ``merge_fold.cu`` and ``minimizers.cu`` from a directory that
-holds an earlier revision's ``bonsai_tpu_torch/csrc/`` (unpacked with
-``git archive``, say) into a library of its own, binds ``bk_merge_fold``
-and ``bk_minimizers`` with ctypes, and on one CUDA card, at the shapes
-that ``chip_smoke.py`` times (the first 4M windows of a genome at k = 31,
-W = 1 and W = 10; two 2^22-slot states with 3M valid entries each,
-counts summed), checks that both revisions give the same output and times
-them in turns: parent, change, change, parent.  Then it lists each
-revision's kernels by device time from one ``torch.profiler`` window.
+Compiles some kernels' sources from a directory that holds an earlier
+revision's ``bonsai_tpu_torch/csrc/`` (unpacked with ``git archive``,
+say) into a library of its own, and calls the port's own wrappers on it
+(``using`` routes ``kernels.launch`` to that library), so both revisions
+take the same inputs and checks.  On one CUDA card, at the shapes that
+``chip_smoke.py`` times, it checks that both revisions give the same
+output and times them in turns: parent, change, change, parent.  Then it
+lists each revision's kernels by device time from one ``torch.profiler``
+window, as a second opinion.
 
     python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME NODES
 
-GENOME is a FASTA file, NODES a ``nodes.dmp`` whose taxids label the
-states.  It prints one line per case, then the results as one JSON
-object, and needs a CUDA card.
+KB1 ``minimizers`` (the first 4M windows of GENOME at k = 31, W = 1 and
+W = 10) and KB3 ``merge_fold`` (two 2^22-slot states with 3M valid
+entries each, counts summed; NODES is a ``nodes.dmp`` whose taxids label
+them), timed by CUDA events around 100 back-to-back calls.
+
+    python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
+        READS NODES NAMEID GENOME...
+
+K1 ``encode_probe``, K2 ``resolve`` and K3 ``step_outputs`` on the first
+8192 reads of READS against the k = 31 database of the GENOMEs, built on
+the host (NAMEID maps their sequence names to taxids), in dictionary
+mode as ``classify`` runs them; the outputs of one kernel feed the next.
+K1 runs twice more where its probes hit: the same batch on a table of
+its own k-mers, and the scale probe's shape of ``chip_smoke.py`` at 2^24
+keys.  A call takes tens of microseconds, about what the host takes to
+enqueue it, so these are timed by replaying a CUDA graph of 100 captured
+calls between two events (``gather_bench.graph_ms``); a yardstick, one
+elementwise torch pass over K3's output bytes, is timed the same way.
+From a checkout:
+
+    python -m bonsai_tpu_torch.tools.kernel_ab --classify \\
+        build/parent/bonsai_tpu_torch/csrc \\
+        tests/data/kraken_benchmarks/HiSeq_accuracy.fa \\
+        tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
+        tests/data/ec/*.fna.gz
+
+Each prints one line per case, then the results as one JSON object, and
+needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -35,19 +61,22 @@ from ..db import build_device as bd
 from ..db.table import unique_u64
 from ..io import fastx
 from ..taxonomy.tree import TaxTree
-from .gather_bench import time_ms
+from .gather_bench import graph_ms, time_ms
 
 SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
+BUILD_SOURCES = ("merge_fold", "minimizers")
+CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
+CLASSIFY_BATCH = 8192
 
 
-def build_parent(csrc: str) -> ctypes.CDLL:
-    """The parent's two kernels in one library, bound like ``kernels``."""
+def build_parent(csrc: str, names) -> ctypes.CDLL:
+    """The parent's ``names``.cu in one library, bound like ``kernels``."""
     os.makedirs(OUT_DIR, exist_ok=True)
     nvcc = kernels._nvcc()
     objs, procs = [], []
-    for name in ("merge_fold", "minimizers"):
+    for name in names:
         obj = os.path.join(OUT_DIR, f"parent_{name}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -62,53 +91,34 @@ def build_parent(csrc: str) -> ctypes.CDLL:
     subprocess.run([nvcc, *kernels.ARCH, "-shared", "-o", lib_path, *objs],
                    check=True, timeout=300)
     lib = ctypes.CDLL(lib_path)
-    for name in ("bk_merge_fold", "bk_minimizers"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = kernels._SIGS[name]
-    lib.bk_merge_fold_scratch.restype = ctypes.c_int64
-    lib.bk_merge_fold_scratch.argtypes = [ctypes.c_int64]
+    for name, args in kernels._SIGS.items():
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = args
+    for name in kernels._SCRATCH:
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_int64
+            getattr(lib, name).argtypes = [ctypes.c_int64]
     return lib
 
 
-def _call(fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent kernel: CUDA error {err} at launch")
+@contextlib.contextmanager
+def using(lib):
+    """Route the wrappers' ``kernels.launch`` to ``lib`` for the body."""
+    own = kernels.get_lib()
+    kernels._lib = lib
+    try:
+        yield
+    finally:
+        kernels._lib = own
 
 
-def parent_minimizers(lib, codes, lengths, k, W, canon):
-    B, L = codes.shape
-    E = L - k - W + 2
-    keys = torch.empty((B, E), dtype=torch.int64, device=codes.device)
-    emitted = torch.empty((B, E), dtype=torch.bool, device=codes.device)
-    _call(lib.bk_minimizers, codes.data_ptr(), lengths.data_ptr(), B, L, k, W,
-          int(canon), keys.data_ptr(), emitted.data_ptr())
-    return enc.Emissions(keys, emitted)
-
-
-def parent_merge_fold(lib, a, b, tax, root1, sum_counts):
-    dev = a.keys.device
-    N = a.cap + b.cap
-    out = bd.State(torch.empty(N, dtype=torch.int64, device=dev),
-                   torch.empty(N, dtype=torch.uint8, device=dev),
-                   *(torch.empty(N, dtype=torch.int32, device=dev)
-                     for _ in range(3)),
-                   torch.empty((), dtype=torch.int64, device=dev))
-    scratch = torch.empty(max(lib.bk_merge_fold_scratch(N), 1),
-                          dtype=torch.uint8, device=dev)
-    n = tax["depth"].shape[0]
-    _call(lib.bk_merge_fold,
-          *(t.data_ptr() for t in (a.keys, a.pad, a.node, a.orig, a.cnt)),
-          a.cap,
-          *(t.data_ptr() for t in (b.keys, b.pad, b.node, b.orig, b.cnt)),
-          b.cap, tax["lift"].data_ptr(), tax["lift"].shape[0], n,
-          tax["depth"].data_ptr(), tax["parent"].data_ptr(),
-          tax["tax_ids"].data_ptr(), root1, int(sum_counts),
-          *(t.data_ptr() for t in (out.keys, out.pad, out.node, out.orig,
-                                   out.cnt, out.n)),
-          scratch.data_ptr())
-    return out
+def on(lib, fn):
+    """fn, called with the wrappers routed to ``lib``."""
+    def call():
+        with using(lib):
+            return fn()
+    return call
 
 
 def _state(rng, pool, n, cap, taxa_pool, tree, dev):
@@ -121,6 +131,127 @@ def _state(rng, pool, n, cap, taxa_pool, tree, dev):
                            1)):
         arr[:n] = v
     return bd.State.from_numpy(*st, n, dev)
+
+
+def build_cases(genome: str, nodes: str, dev):
+    """(name, call, timer) of KB1 at W = 1 and 10 and of KB3."""
+    seq = next(iter(fastx.read_fastx(genome)))[1]
+    cases = []
+    for W in (1, 10):
+        codes = fastx.encode_contig(seq[: (1 << 22) + 30 + W - 1], DNA4.lut)
+        c = torch.from_numpy(codes[None, :]).to(dev)
+        ln = torch.tensor([codes.size], dtype=torch.int32, device=dev)
+        cases.append((f"minimizers k=31 W={W}",
+                      lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
+                      time_ms))
+    rng = np.random.default_rng(SEED)
+    tree = TaxTree.from_nodes_dmp(nodes)
+    taxa_pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
+    n = 3 << 20
+    pool = unique_u64(rng.integers(0, 2**64, (5 << 20) + (5 << 16),
+                                   dtype=np.uint64))[: 5 << 20]
+    a = _state(rng, pool, n, 1 << 22, taxa_pool, tree, dev)
+    b = _state(rng, pool, n, 1 << 22, taxa_pool, tree, dev)
+    tax = tree.device_arrays(dev)
+    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
+
+    def fold():
+        s = bd.merge_fold(a, b, tax, root1, True)
+        return [s.keys, s.pad, s.node, s.orig, s.cnt, s.n]
+
+    cases.append(("merge_fold 2^22 + 2^22, 3M valid each, sum_counts", fold,
+                  time_ms))
+    return cases
+
+
+def _inline_table(keys, rng, dev):
+    """A probe image of ``keys`` with 6 distinct values, on ``dev``."""
+    from ..db.table import KmerTable, ProbeArrays
+
+    v = rng.integers(0, 6, keys.size).astype(np.uint64)
+    table = KmerTable(keys, ((v + np.uint64(100)) << np.uint64(32)) | v)
+    slots, vals, inline = table.arrays_np()
+    return ProbeArrays.from_numpy(slots, vals, inline, table.lgnb,
+                                  table.vbits, dev)
+
+
+def probe_mix_cases(a1, dev):
+    """(name, call, timer) of K1 where the probes hit: the batch of ``a1``
+    against a table of its own canonical k-mers and 9M random keys (2^22
+    buckets, as the ec table), and ``chip_smoke.py``'s scale-probe shape
+    at 2^24 keys (2^23 reads of 32 bases, one k = 32 k-mer each, half of
+    them stored)."""
+    from ..classify import pipeline as pl
+
+    pc, nm, ln, lproc, k, canon, _, want_idx = a1
+    rng = np.random.default_rng(SEED + 1)
+    codes = pl.unpack_2bit(pc.cpu(), None if nm is None else nm.cpu())
+    em = enc.minimizers_plain(codes[:, :lproc], ln.cpu(), k, 1, canon)
+    own = em.values[em.mask].numpy().view(np.uint64)
+    arr = _inline_table(unique_u64(np.concatenate([
+        own, rng.integers(0, 2**64, 9_000_000, dtype=np.uint64)])), rng, dev)
+    n, Q = 1 << 24, 1 << 23
+    keys = unique_u64(rng.integers(0, 2**64, n + n // 64, dtype=np.uint64))[:n]
+    scale = _inline_table(keys, rng, dev)
+    q = np.concatenate([keys[rng.integers(0, n, Q // 2)],
+                        rng.integers(0, 2**64, Q // 2, dtype=np.uint64)])
+    shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))
+    codes = ((q[:, None] >> shifts) & np.uint64(3)).astype(np.uint32)
+    words = (codes.reshape(Q, 2, 16) << (np.arange(16, dtype=np.uint32) * 2)
+             ).sum(-1, dtype=np.uint32)
+    spc = torch.from_numpy(words.view(np.int32)).to(dev)
+    sln = torch.full((Q,), 32, dtype=torch.int32, device=dev)
+    return [
+        ("encode_probe, the same batch on a table of its own k-mers (hits)",
+         lambda: pl.encode_probe(pc, nm, ln, lproc, k, canon, arr, want_idx),
+         graph_ms),
+        (f"encode_probe, the scale shape: 2^24 keys, {Q} queries, half "
+         "stored", lambda: pl.encode_probe(spc, None, sln, 32, 32, False,
+                                           scale, False), graph_ms),
+    ]
+
+
+def yardstick_ms(dev) -> float:
+    """Graph-replayed ms of one elementwise torch pass (``add_``) over an
+    int32 matrix the size of K3's full output for 8192 HiSeq reads: what a
+    kernel that streams K3's bytes once takes on the card."""
+    t = torch.zeros((CLASSIFY_BATCH, 81), dtype=torch.int32, device=dev)
+    return graph_ms(lambda: t.add_(1))
+
+
+def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
+    """(name, call, timer) of K1, K2 and K3 on one HiSeq-sized batch, each
+    fed by the tree's own kernels' outputs."""
+    from ..classify import pipeline as pl
+    from ..classify import resolve as rs
+    from ..core.spacer import Spacer
+    from ..db.build import lca_map
+    from ..db.formats import Database
+
+    tree = TaxTree.from_nodes_dmp(nodes)
+    table = lca_map(list(genomes), tree, nameid, Spacer(31, 31))
+    db = Database(table=table, k=31, w=31, gaps=[0] * 30)
+    clf = pl.Classifier(db, tree, emit_all=True, device=dev)
+    batch = next(iter(fastx.batch_reads(reads, DNA4.lut,
+                                        batch_size=CLASSIFY_BATCH)))
+    pc, nm, ln, lproc = clf._prepare_batch(batch)
+    pc, ln = pc.to(dev), ln.to(dev)
+    nm = None if nm is None else nm.to(dev)
+    ds = len(clf._uniq_host)
+    a1 = (pc, nm, ln, lproc, clf.k, clf.canon, clf.arr, True)
+    hit, valid, cidx, oidx = pl.encode_probe(*a1)
+    valid1 = valid.sum(-1, dtype=torch.int32)
+    taxon = rs.resolve(cidx, hit, clf.tax, clf._n_distinct)
+    shape = f"B={hit.shape[0]}, P={hit.shape[1]}"
+    return [
+        (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
+        *probe_mix_cases(a1, dev),
+        (f"resolve {shape}",
+         lambda: [rs.resolve(cidx, hit, clf.tax, clf._n_distinct)], graph_ms),
+        (f"step_outputs {shape}, maxr={clf.max_runs}",
+         lambda: pl.step_outputs(taxon, oidx, hit, valid, valid1,
+                                 clf.max_runs, ds), graph_ms),
+    ]
 
 
 def _device_ms(fn, calls=5):
@@ -143,60 +274,42 @@ def _device_ms(fn, calls=5):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def run(parent_csrc: str, genome: str, nodes: str, say=print) -> dict:
-    dev = torch.device("cuda", 0)
-    lib = build_parent(parent_csrc)
+def run(parent_csrc: str, cases, names, say=print) -> dict:
+    """Check and time each (name, call, timer) of ``cases`` against the
+    parent's build of the sources ``names``."""
+    lib = build_parent(parent_csrc, names)
     res = {"cases": {}, "profile": {}}
-    seq = next(iter(fastx.read_fastx(genome)))[1]
-    cases = []
-    for W in (1, 10):
-        codes = fastx.encode_contig(seq[: (1 << 22) + 30 + W - 1], DNA4.lut)
-        c = torch.from_numpy(codes[None, :]).to(dev)
-        ln = torch.tensor([codes.size], dtype=torch.int32, device=dev)
-        cases.append((f"minimizers k=31 W={W}",
-                      lambda c=c, ln=ln, W=W: parent_minimizers(
-                          lib, c, ln, 31, W, True),
-                      lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W,
-                                                             True)))
-    rng = np.random.default_rng(SEED)
-    tree = TaxTree.from_nodes_dmp(nodes)
-    taxa_pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
-    n = 3 << 20
-    pool = unique_u64(rng.integers(0, 2**64, (5 << 20) + (5 << 16),
-                                   dtype=np.uint64))[: 5 << 20]
-    a = _state(rng, pool, n, 1 << 22, taxa_pool, tree, dev)
-    b = _state(rng, pool, n, 1 << 22, taxa_pool, tree, dev)
-    tax = tree.device_arrays(dev)
-    root1 = int(tree.compact(np.array([1], dtype=np.uint32))[0])
-    cases.append(("merge_fold 2^22 + 2^22, 3M valid each, sum_counts",
-                  lambda: parent_merge_fold(lib, a, b, tax, root1, True),
-                  lambda: bd.merge_fold(a, b, tax, root1, True)))
-    for name, parent, change in cases:
+    for name, change, timer in cases:
+        parent = on(lib, change)
         got, want = change(), parent()
-        if isinstance(got, bd.State):
-            got = [got.keys, got.pad, got.node, got.orig, got.cnt, got.n]
-            want = [want.keys, want.pad, want.node, want.orig, want.cnt,
-                    want.n]
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{name}: parent and change differ")
-        p1 = time_ms(parent, ITERS)
-        c1 = time_ms(change, ITERS)
-        c2 = time_ms(change, ITERS)
-        p2 = time_ms(parent, ITERS)
-        res["cases"][name] = {"parent_ms": [p1, p2], "change_ms": [c1, c2]}
+        p1 = timer(parent, ITERS)
+        c1 = timer(change, ITERS)
+        c2 = timer(change, ITERS)
+        p2 = timer(parent, ITERS)
+        res["cases"][name] = {"parent_ms": [p1, p2], "change_ms": [c1, c2],
+                              "timer": timer.__name__}
         say(f"# {name}: parent {p1:.4f} ms, change {c1:.4f} ms, change "
-            f"{c2:.4f} ms, parent {p2:.4f} ms (same output)")
+            f"{c2:.4f} ms, parent {p2:.4f} ms ({timer.__name__}; same output)")
         res["profile"][name] = {"parent": _device_ms(parent),
                                 "change": _device_ms(change)}
         say(f"#   by kernel, ms a call: {res['profile'][name]}")
     return res
 
 
+USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
+         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab --classify "
+         "PARENT_CSRC READS NODES NAMEID GENOME...")
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if len(args) != 3:
-        print("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC "
-              "GENOME NODES", file=sys.stderr)
+    classify = bool(args) and args[0] == "--classify"
+    if classify:
+        args = args[1:]
+    if (classify and len(args) < 5) or (not classify and len(args) != 3):
+        print(USAGE, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -206,7 +319,15 @@ def main(argv=None) -> int:
                          text=True, timeout=60)
     card = smi.stdout.strip()
     print(f"# {card}; torch {torch.__version__}")
-    res = run(*args)
+    dev = torch.device("cuda", 0)
+    if classify:
+        cases = classify_cases(*args[1:4], args[4:], dev)
+        res = run(args[0], cases, CLASSIFY_SOURCES)
+        res["yardstick_ms"] = yardstick_ms(dev)
+        print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
+              f"graph replay: {res['yardstick_ms']:.4f} ms")
+    else:
+        res = run(args[0], build_cases(*args[1:], dev), BUILD_SOURCES)
     res["card"] = card
     print(json.dumps(res))
     return 0

@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  ec_k12 sets: sha256 of the Kraken text must equal the
                  manifest's; K1-K3 launched; paired golden through the CLI
                  on the lex_k25 database
-  6. numbers     HiSeq stream reads/s, K1-K3 and plain-version times
+  6. numbers     HiSeq stream reads/s, K1-K3 and plain-version times by
+                 CUDA-graph replay of captured calls, with the event
+                 timing of back-to-back wrapper calls beside them
   7. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
                  against the host probe on a 1M-query subsample
   8. build kernels  KB1-KB3, G1 and G2 against their plain versions on
@@ -48,14 +50,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
                  G1 and G2 launched
- 11. numbers     KB1-KB3 and plain-version times at the build's shapes,
-                 KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1) with
+ 11. numbers     KB1-KB3 and plain-version times at the build's shapes
+                 (KB1 by CUDA-graph replay as well), KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1) with
                  torch.unique beside it; index_select and gather at G1's
                  and G2's shapes; each kernel's bound (bytes over 3.35
                  TB/s or int32 operations over 16.7 TOP/s, the larger)
 
 The line before the last is the kernels JSON (launches on the main paths,
-exactness, kernel, plain, bound and library times); the last line is
+exactness, kernel, plain, bound and library times; ``ms`` is graph-replayed
+for K1-K3, KB1 and G2, ``event_ms`` the event timing); the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
 the script exits non-zero and prints no result.
 """
@@ -495,12 +498,18 @@ def time_ms(fn, iters=20, warm=3):
 
 
 def phase_numbers(dev, clf, hiseq_path):
-    """Kernel vs plain times at the main path's shapes, stream reads/s."""
+    """Kernel vs plain times at the main path's shapes, stream reads/s.
+
+    A K1-K3 call takes tens of microseconds on the card, about what the
+    host takes to enqueue it, so each kernel and its plain version are
+    timed by CUDA-graph replay (``graph_ms``); the event timing of
+    back-to-back wrapper calls stands beside it as ``event_ms``."""
     import torch
 
     from bonsai_tpu_torch.classify import pipeline as pl
     from bonsai_tpu_torch.classify import resolve as rs
     from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.tools.gather_bench import graph_ms
 
     b = _batch(hiseq_path, 8192, DNA4.lut)
     pc, nm, ln, lproc = clf._prepare_batch(b)
@@ -526,14 +535,16 @@ def phase_numbers(dev, clf, hiseq_path):
         ("step_outputs", pl.step_outputs, pl.build_step_outputs, a3),
     ):
         # plain, kernel, kernel, plain: the mean of each pair
-        p1 = time_ms(lambda: plain(*args))
-        k1 = time_ms(lambda: kern(*args), iters=100)
-        k2 = time_ms(lambda: kern(*args), iters=100)
-        p2 = time_ms(lambda: plain(*args))
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        say(f"# time {name} at B=8192 reads, P={hit.shape[1]}: kernel "
-            f"{times[name][0]:.4f} ms, plain torch on the card "
-            f"{times[name][1]:.4f} ms, {bound_text(bounds[name])}")
+        p1 = graph_ms(lambda: plain(*args), calls=20)
+        k1 = graph_ms(lambda: kern(*args))
+        k2 = graph_ms(lambda: kern(*args))
+        p2 = graph_ms(lambda: plain(*args), calls=20)
+        ev = time_ms(lambda: kern(*args), iters=100)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, ev)
+        say(f"# time {name} at B=8192 reads, P={hit.shape[1]}, CUDA-graph "
+            f"replay: kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
+            f"{p1:.4f}, {p2:.4f} ms; events around back-to-back wrapper calls "
+            f"{ev:.4f} ms; {bound_text(bounds[name])}")
     # device busy share over one HiSeq pass, from a profiler trace
     from torch.profiler import ProfilerActivity, profile
 
@@ -1064,18 +1075,30 @@ def phase_build_numbers(dev, kk):
     from bonsai_tpu_torch.db import build_device as bd
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
 
+    from bonsai_tpu_torch.tools.gather_bench import graph_ms
+
     times, bounds, library = {}, {}, {}
 
-    def pair(name, tag, kern, plain):
+    def pair(name, tag, kern, plain, graph=False):
         # the kernels over 100 calls: 5 calls of a 30 us kernel time the
-        # card's clocks more than the kernel
-        p1 = time_ms(plain, iters=5, warm=1)
-        k1 = time_ms(kern, iters=100)
-        k2 = time_ms(kern, iters=100)
-        p2 = time_ms(plain, iters=5, warm=1)
-        t = ((k1 + k2) / 2, (p1 + p2) / 2)
-        say(f"# time {name} {tag}: kernel {t[0]:.4f} ms, plain torch on the "
-            f"card {t[1]:.4f} ms, {bound_text(bounds[name])}")
+        # card's clocks more than the kernel.  With ``graph`` (KB1, a few
+        # tens of us a call) both are timed by CUDA-graph replay and the
+        # events around back-to-back calls stand beside them
+        if graph:
+            p1 = graph_ms(plain, calls=5)
+            k1, k2 = graph_ms(kern), graph_ms(kern)
+            p2 = graph_ms(plain, calls=5)
+            ev = time_ms(kern, iters=100)
+        else:
+            p1 = time_ms(plain, iters=5, warm=1)
+            k1 = ev = time_ms(kern, iters=100)
+            k2 = time_ms(kern, iters=100)
+            p2 = time_ms(plain, iters=5, warm=1)
+        t = ((k1 + k2) / 2, (p1 + p2) / 2, ev)
+        say(f"# time {name} {tag}{', CUDA-graph replay' if graph else ''}: "
+            f"kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
+            f"{p1:.4f}, {p2:.4f} ms; events around back-to-back calls "
+            f"{ev:.4f} ms; {bound_text(bounds[name])}")
         return t
 
     chunks = {}  # KB2's inputs: KB1's output at three build shapes
@@ -1090,7 +1113,7 @@ def phase_build_numbers(dev, kk):
         times["minimizers"] = pair(
             "minimizers", f"ec chunk {codes.shape[1]} bases k=31 W={W}",
             lambda: enc.minimizers(c, ln, 31, W, True),
-            lambda: enc.minimizers_plain(c, ln, 31, W, True))
+            lambda: enc.minimizers_plain(c, ln, 31, W, True), graph=True)
     codes, lengths = _ec_chunk(25)
     chunks["k=25 W=1 (top digit's pass skipped)"] = enc.minimizers(
         torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev),
@@ -1172,9 +1195,10 @@ def main() -> int:
     bounds.update(gather_bounds)
     library.update(gather_library)
     times["row_gather"] = (gres["row_gather"]["ms"],
-                           gres["row_gather"]["plain_ms"])
+                           gres["row_gather"]["plain_ms"],
+                           gres["row_gather"]["ms"])
     first = next(iter(gres["take_along"].values()))
-    times["take_along"] = (first["ms"], first["plain_ms"])
+    times["take_along"] = (first["ms"], first["plain_ms"], first["event_ms"])
     launches.update(build_launches)
     launches.update(gather_launches)
     ec = build_nums[31]
@@ -1185,7 +1209,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1],
+         "ms": times[name][0], "event_ms": times[name][2],
+         "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name)}
         for name, (src, rep) in KERNELS.items()

@@ -129,6 +129,99 @@ def test_encode_probe_kernel_matches_plain(cuda, k, mode):
             assert want[0].any() and (~want[0] & want[1]).any()
 
 
+def _inline_arrays(keys, rng, device):
+    """An inline table of ``keys`` with 6 distinct values, on ``device``."""
+    v = rng.integers(0, 6, keys.size).astype(np.uint64)
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v)
+    slots, vals, inline = table.arrays_np()
+    return ProbeArrays.from_numpy(slots, vals, inline, table.lgnb, table.vbits,
+                                  device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 21, 31, 32])
+@pytest.mark.parametrize("lproc", [37, 100, 150])
+def test_encode_probe_kernel_word_edges(cuda, k, lproc):
+    """k-mer and N-mask windows across 16-base and 32-base word edges, an
+    N at the first and at the last base of a window, reads shorter than
+    k, and an lproc that is not a multiple of 16."""
+    rng = np.random.default_rng(1000 * k + lproc)
+    B, L = 96, 160
+    codes, lengths = _reads(rng, B, L, k)
+    lengths[:8] = lproc  # full-width reads, Ns only where set below
+    codes[:8, :lproc] = rng.integers(0, 4, (8, lproc))
+    for row, p in enumerate((15, 16, 31, 32, 47, 63, 64, lproc - 1)):
+        if p < lproc:
+            codes[row, p] = -1  # first base of window p, last of p - k + 1
+    lengths[8:16] = rng.integers(0, k, 8)  # shorter than k
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    kmers = _kmers(codes, lengths, k)
+    keys = np.unique(np.concatenate([
+        rng.choice(kmers, max(kmers.size // 2, 1)),
+        rng.integers(0, 4 ** k if k < 32 else 2**64, 500, dtype=np.uint64)]))
+    pc, nm = _pack(codes)
+    ln = torch.from_numpy(lengths)
+    cpu_arr = _inline_arrays(keys, rng, "cpu")
+    dev_arr = ProbeArrays(cpu_arr.slots.to(cuda), cpu_arr.vals.to(cuda),
+                          cpu_arr.inline, cpu_arr.lgnb, cpu_arr.vbits)
+    for canon in (True, False):
+        for m in (nm, None):
+            args = (lproc, k, canon)
+            want = pl.encode_probe(pc, m, ln, *args, cpu_arr, True)
+            got = pl.encode_probe(pc.to(cuda), None if m is None else m.to(cuda),
+                                  ln.to(cuda), *args, dev_arr, True)
+            _same(got, want)
+            assert want[1][:8].sum() < 8 * (lproc - k + 1) or m is None
+            assert not want[1][8:16].any()
+
+
+@pytest.mark.cuda
+def test_encode_probe_kernel_flat_table_of_2_31_slots(cuda):
+    """Flat mode over 2^29 buckets (2^31 slots, 16 GiB of slots and 16 GiB
+    of values) where the card has room, else 2^27: slot and value offsets
+    past 2^32 bytes, keys in their first and in their second bucket.  The
+    plain version runs on the same card tensors."""
+    from bonsai_tpu_torch.db.table import BSALT, splitmix64_np
+
+    free, _ = torch.cuda.mem_get_info(cuda)
+    lgnb = 29 if free >= 40 * 2**30 else 27
+    nb, vbits = 1 << lgnb, lgnb - 2
+    rng = np.random.default_rng(lgnb)
+    k = 31
+    codes, lengths = _reads(rng, 64, 120, k)
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    em = enc.minimizers(c, ln, k, 1, True)
+    kmers = np.unique(em.values[em.mask].numpy().view(np.uint64))
+    keys = rng.choice(kmers, kmers.size * 2 // 3, replace=False)
+    u = np.uint64
+    h = splitmix64_np(keys)
+    b1 = h & u(nb - 1)
+    q = h >> u(lgnb)
+    b2 = b1 ^ (splitmix64_np(q ^ u(BSALT)) & u(nb - 1))
+    second = rng.random(keys.size) < 0.4
+    bucket = np.where(second, b2, b1).astype(np.int64)
+    _, first = np.unique(bucket, return_index=True)  # one key a bucket
+    bucket, second, q = bucket[first], second[first], q[first]
+    lane = rng.integers(0, 4, bucket.size)
+    words = (u(1) << u(63)) | (second.astype(np.uint64) << u(62)) | (q << u(vbits))
+    slots = torch.zeros((nb, 4), dtype=torch.int64, device=cuda)
+    vals = torch.zeros((nb, 4), dtype=torch.int64, device=cuda)
+    pos = torch.from_numpy(bucket * 4 + lane).to(cuda)
+    slots.view(-1)[pos] = torch.from_numpy(words.view(np.int64)).to(cuda)
+    vals.view(-1)[pos] = torch.from_numpy(
+        rng.integers(-2**63, 2**63 - 1, bucket.size, dtype=np.int64)).to(cuda)
+    arr = ProbeArrays(slots, vals, False, lgnb, vbits)
+    pc, nm = _pack(codes)
+    args = (pc.to(cuda), nm.to(cuda), ln.to(cuda), 128, k, True, arr)
+    for want_idx in (True, False):
+        got = pl.encode_probe(*args, want_idx)
+        want = pl.encode_probe_plain(*args, want_idx)
+        _same([g.cpu() for g in got], [w.cpu() for w in want])
+        assert want[0].any() and (~want[0] & want[1]).any()
+    del slots, vals, arr
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_encode_probe_refuses_what_the_kernel_does_not_take(cuda):
     table = KmerTable(np.arange(1, 100, dtype=np.uint64),
@@ -216,6 +309,36 @@ def test_step_outputs_kernel_matches_plain(cuda, dict_size, W, maxr):
     before = pl.step_outputs.launches
     got = pl.step_outputs(*[a.to(cuda) for a in args], maxr, dict_size)
     assert pl.step_outputs.launches == before + 1
+    _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 31, 32, 33, 148])
+@pytest.mark.parametrize("dict_size", [6, None])
+@pytest.mark.parametrize("maxr", [1, 8, 4096])
+def test_step_outputs_kernel_chunk_edges(cuda, W, dict_size, maxr):
+    """Widths around one 32-lane chunk and a paired row (W = 2 x 74); runs
+    that cross chunk edges, a run carried over an all-miss chunk, rows
+    with more runs than maxr, all-miss rows, and maxr up to 4096 (one
+    read a block)."""
+    rng = np.random.default_rng(10 * W + maxr)
+    taxon, taxa, hit, valid, valid1 = _rows(rng, 40, W, dict_size)
+    t = taxa.numpy().view(np.uint32)
+    h = hit.numpy()
+    h[5:, 0] = True  # _rows leaves the last 3 columns invalid: W = 1 hits
+    if W > 64:  # row 30: one value at 10 and 100, nothing between
+        h[30] = False
+        h[30, [10, 100]] = True
+        t[30] = 0
+        t[30, [10, 100]] = 3
+        # row 31: a new run at every hit, across every chunk edge
+        h[31] = True
+        t[31] = np.arange(W) % 2 + 1
+    valid.numpy()[:] |= h
+    args = [taxon, torch.from_numpy(t.view(np.int32)), torch.from_numpy(h),
+            valid, valid1]
+    want = pl.step_outputs(*args, maxr, dict_size)
+    got = pl.step_outputs(*[a.to(cuda) for a in args], maxr, dict_size)
     _same(got, want)
 
 
