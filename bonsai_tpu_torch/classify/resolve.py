@@ -64,6 +64,16 @@ def _pick(score, t_in, mask, idx, tax, big, any_hit):
     return torch.where(any_hit, taxon, 0)
 
 
+def dedup_rule(n_distinct: Optional[int], P: int) -> bool:
+    """Whether ``resolve_batch`` takes its dedup branch for rows of width
+    ``P`` (``bonsai_tpu/classify/resolve.py:82-87``).  Its ties in tin go
+    to the smaller compact index; the dense and blockwise branches' to the
+    first position.  The two differ only where tin is not injective: the
+    nodes of a parent cycle, never visited, share the root's tin of 0."""
+    return (n_distinct is not None and n_distinct > 0 and P > 256
+            and min(n_distinct, P) <= P // 2)
+
+
 def resolve_batch(hit_idx: torch.Tensor, hit_mask: torch.Tensor,
                   tax: Dict[str, torch.Tensor], block: int = 1024,
                   n_distinct: Optional[int] = None) -> torch.Tensor:
@@ -76,8 +86,7 @@ def resolve_batch(hit_idx: torch.Tensor, hit_mask: torch.Tensor,
     B, P = hit_idx.shape
     big = tin.shape[0] + 2
     hit_idx = hit_idx.to(torch.int64)
-    if (n_distinct is not None and n_distinct > 0 and P > 256
-            and min(n_distinct, P) <= P // 2):
+    if dedup_rule(n_distinct, P):
         return _resolve_dedup(hit_idx, hit_mask, tax, min(int(n_distinct), P))
     t_in = torch.where(hit_mask, tin[hit_idx], big)
     t_out = torch.where(hit_mask, tout[hit_idx], -2)
@@ -135,7 +144,8 @@ def resolve(cidx: torch.Tensor, hit: torch.Tensor,
             tax: Dict[str, torch.Tensor],
             n_distinct: Optional[int] = None) -> torch.Tensor:
     """K2: the resolved original taxid of each read, (R,) int32 (u32 bits).
-    CPU tensors take ``resolve_plain``; CUDA tensors the kernel."""
+    CPU tensors take ``resolve_plain``; CUDA tensors the kernel, a warp a
+    read for W <= 1024 and a block a read past it."""
     if cidx.device.type == "cpu":
         return resolve_plain(cidx, hit, tax, n_distinct)
     if cidx.device.type != "cuda":
@@ -156,7 +166,7 @@ def resolve(cidx: torch.Tensor, hit: torch.Tensor,
             tax["tin"].data_ptr(), tax["tout"].data_ptr(),
             tax["depth"].data_ptr(), tax["parent"].data_ptr(),
             tax["lift"].data_ptr(), levels, n, tax["tax_ids"].data_ptr(),
-            taxon.data_ptr(),
+            taxon.data_ptr(), int(dedup_rule(n_distinct, W)),
         )
         resolve.launches += 1
     return taxon

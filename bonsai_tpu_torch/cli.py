@@ -4,7 +4,7 @@
 Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
 
-  build OUT GENOMES... -k K [-w W] -T nodes.dmp -M nameidmap [-C]
+  build OUT GENOMES... -k K [-w W] -T nodes.dmp -M nameidmap [-C] [-z]
         [-F paths] [--device-build] [--device cuda|cpu]
   prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-C] [-t|-f]
         [-F paths] [--device-build] [--device cuda|cpu]
@@ -14,10 +14,12 @@ subcommands, bin/bonsai.cpp) for the ported slice:
 ``classify`` and the ``--device-build`` builds run on ``--device``
 (default cuda, which must be present; cpu runs the kernels' plain torch
 versions).  ``classify`` reads a BTPU1 database file or a probe-image
-directory.  Options of ``bonsai_tpu`` that are not ported (spaced seeds,
-entropy scores, hash-scored phase 2, other file formats, sharded output,
-the uncanonical windowed discipline) exit non-zero with the ROADMAP item
-that holds them.
+directory, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
+gzips the BTPU1 file whatever its name, as the reference does.  Options
+of ``bonsai_tpu`` that are not ported (spaced seeds, entropy scores,
+hash-scored phase 2, other file formats, sharded output, the uncanonical
+windowed discipline) and inputs that the port refuses exit 2 with the
+ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-M", "--seq2tax", required=True, help="name<TAB>taxid map")
     p.add_argument("-F", "--paths-file", default=None)
     p.add_argument("-C", "--no-canon", action="store_true")
+    p.add_argument("-z", "--gzip", action="store_true",
+                   help="write the database gzipped")
     _device_args(p)
     # not ported: each exits non-zero (_unported)
     p.add_argument("-S", "--spacing", default="")
@@ -134,17 +138,18 @@ def main(argv=None) -> int:
     if args.cmd is None:
         ap.print_help()
         return 1
-    if args.cmd == "classify":
-        return _cmd_classify(args)
     build = args.cmd in ("build", "p2", "phase2")
-    # prebuild's -t/-f choose the phase-1 map; build's are not ported
-    msg = _unported(args, _UNPORTED if build else ("spacing",))
-    if msg is not None:
-        print(msg, file=sys.stderr)
-        return 2
+    if args.cmd != "classify":
+        # prebuild's -t/-f choose the phase-1 map; build's are not ported
+        msg = _unported(args, _UNPORTED if build else ("spacing",))
+        if msg is not None:
+            print(msg, file=sys.stderr)
+            return 2
     try:
+        if args.cmd == "classify":
+            return _cmd_classify(args)
         return _cmd_build(args) if build else _cmd_prebuild(args)
-    except NotImplementedError as e:  # a discipline the encoder lacks
+    except NotImplementedError as e:  # a discipline, database or input
         print(f"not ported: {e}", file=sys.stderr)
         return 2
 
@@ -199,7 +204,7 @@ def _cmd_build(args) -> int:
         table = lca_map(paths, tree, args.seq2tax, sp, canon)
     db = Database(table=table, k=k, w=w, gaps=[0] * (k - 1),
                   canonicalize=canon, scheme="lex")
-    save_database(db, args.out_path)
+    save_database(db, args.out_path, compress="gz" if args.gzip else None)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
     return 0
 

@@ -22,7 +22,7 @@ import json
 import os
 import struct
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -44,7 +44,9 @@ class Database:
     meta: dict = field(default_factory=dict)
 
 
-def save_database(db: Database, path: str):
+def save_database(db: Database, path: str, compress: Optional[str] = None):
+    """Write ``db`` as BTPU1, gzipped when ``compress == "gz"`` or the name
+    ends in .gz (``load_database`` reads gzip by the name alone)."""
     header = dict(
         k=db.k,
         w=db.w,
@@ -56,7 +58,7 @@ def save_database(db: Database, path: str):
         meta=db.meta,
     )
     hb = json.dumps(header).encode()
-    opener = gzip.open if path.endswith(".gz") else open
+    opener = gzip.open if compress == "gz" or path.endswith(".gz") else open
     vals = np.asarray(db.table.vals_sorted)
     with opener(path, "wb") as fh:
         fh.write(MAGIC)

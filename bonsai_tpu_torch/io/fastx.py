@@ -2,9 +2,12 @@
 
 Counterpart of ``bonsai_tpu/io/fastx.py``.  ``read_fastx`` yields whole
 records (genome contigs for the database build); ``batch_reads`` yields
-``ReadBatch``es parsed by the port's C++ parser (``native/fastx.py``),
-which reads plain and gzip files.  Read length pads to a multiple of 32
-so that the 2-bit upload (16 codes per u32 word) tiles exactly.
+``ReadBatch``es parsed by the port's C++ parser (``native/fastx.py``) for
+plain and gzip files, and by ``read_fastx`` through Python's
+decompressors for .xz, .bz2 and .zst (the zstd binary where it is on the
+path, else the zstandard module), as the reference reads them
+(encoder.h:510-530).  Read length pads to a multiple of 32 so that the
+2-bit upload (16 codes per u32 word) tiles exactly.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import bz2
 import gzip
 import io
 import lzma
+import shutil
+import subprocess
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
@@ -27,7 +32,18 @@ def open_maybe_compressed(path: str):
     if path.endswith(".bz2"):
         return bz2.open(path, "rb")
     if path.endswith(".zst"):
-        raise NotImplementedError(f"{path}: .zst input is not ported")
+        if shutil.which("zstd"):
+            proc = subprocess.Popen(["zstd", "-dc", path],
+                                    stdout=subprocess.PIPE)
+            return proc.stdout
+        try:
+            import zstandard  # type: ignore
+
+            return zstandard.open(path, "rb")
+        except ImportError as e:
+            raise RuntimeError(
+                "no zstd binary or zstandard module available for .zst input"
+            ) from e
     return open(path, "rb")
 
 
@@ -134,17 +150,62 @@ def bucket_len(n: int, min_len: int = 64) -> int:
     return (L + 31) & ~31
 
 
+def _native_ok(path: Optional[str]) -> bool:
+    """Whether the C++ parser reads ``path``: plain and .gz files."""
+    return path is None or not path.endswith((".xz", ".bz2", ".zst"))
+
+
 def batch_reads(path: str, lut: np.ndarray, batch_size: int = 4096,
                 mate_path: Optional[str] = None) -> Iterator[ReadBatch]:
     """Yield read batches; with ``mate_path`` the mates of a pair are
     adjacent rows (2i, 2i+1), as bseq_read lays out paired input."""
+    if _native_ok(path) and _native_ok(mate_path):
+        yield from _batch_reads_native(path, lut, batch_size, mate_path)
+    else:
+        yield from _batch_reads_python(path, lut, batch_size, mate_path)
+
+
+def _batch_reads_python(path, lut, batch_size, mate_path):
+    """The record reader's batches: ``batch_size`` records, mates
+    alternating (a pair never straddles batches when it is even)."""
+    it = read_fastx(path)
+    mate_it = read_fastx(mate_path) if mate_path else None
+
+    def records():
+        for r1 in it:
+            yield r1
+            if mate_it is not None:
+                yield next(mate_it)
+
+    names: List[bytes] = []
+    seqs: List[bytes] = []
+    quals: List[Optional[bytes]] = []
+    for name, seq, qual in records():
+        names.append(trim_readno(name))
+        seqs.append(seq)
+        quals.append(qual)
+        if len(names) >= batch_size:
+            yield _make_batch(names, seqs, quals, lut)
+            names, seqs, quals = [], [], []
+    if names:
+        yield _make_batch(names, seqs, quals, lut)
+
+
+def _make_batch(names, seqs, quals, lut) -> ReadBatch:
+    L = bucket_len(max((len(s) for s in seqs), default=1))
+    codes = np.full((len(seqs), L), -1, dtype=np.int8)
+    lengths = np.empty(len(seqs), dtype=np.int32)
+    lut = np.asarray(lut, dtype=np.int8)
+    for i, s in enumerate(seqs):
+        codes[i, : len(s)] = lut[np.frombuffer(s, dtype=np.uint8)]
+        lengths[i] = len(s)
+    return ReadBatch(names=names, seqs=seqs, codes=codes, lengths=lengths,
+                     quals=quals)
+
+
+def _batch_reads_native(path, lut, batch_size, mate_path):
     from ..native.fastx import NativeFastxReader
 
-    for p in (path, mate_path):
-        if p is not None and p.endswith((".xz", ".bz2", ".zst")):
-            raise NotImplementedError(
-                f"{p}: the batch parser reads plain and .gz input only"
-            )
     r1 = NativeFastxReader(path)
     r2 = NativeFastxReader(mate_path) if mate_path else None
     try:

@@ -47,8 +47,8 @@ _SIGS = {
     "bk_encode_probe": [P, I64, P, I64, P, I64, I64, I32, I32, P, I32, I32,
                         P, I64, I32, I32, P, P, P, P, P],
     # cidx, hit, R, W, tin, tout, depth, parent, lift, levels, n, tax_ids,
-    # taxon, stream
-    "bk_resolve": [P, P, I64, I64, P, P, P, P, P, I32, I32, P, P, P],
+    # taxon, dedup, stream
+    "bk_resolve": [P, P, I64, I64, P, P, P, P, P, I32, I32, P, P, I32, P],
     # taxon, taxa, hit, valid, valid1, R, W, maxr, layout, vb, lb,
     # head_words, compact, cols, full, stream
     "bk_step_outputs": [P, P, P, P, P, I64, I64, I32, I32, I32, I32, I32, P,

@@ -35,21 +35,18 @@ class TaxTree:
         n = len(self.tax_ids) + 1  # compact 0 = "no taxon"
         self._n = n
         parent = np.zeros(n, dtype=np.int32)
-        for tid, p in self.parent_map.items():
-            parent[self._compact_scalar(tid)] = self._compact_scalar(p) if p else 0
+        # one vectorised lookup: a searchsorted per entry with a Python int
+        # casts the whole id array each call, O(n^2) for NCBI's ~2.6M nodes
+        tids = np.fromiter(self.parent_map.keys(), dtype=np.int64,
+                           count=len(self.parent_map))
+        pids = np.fromiter(self.parent_map.values(), dtype=np.int64,
+                           count=len(self.parent_map))
+        parent[self.compact(tids)] = self.compact(pids)
         self.parent = parent
         self._build_depth_and_euler()
         self._build_lift()
 
     # -- compact index mapping -------------------------------------------
-    def _compact_scalar(self, tid: int) -> int:
-        if tid == 0:
-            return 0
-        i = int(np.searchsorted(self.tax_ids, tid))
-        if i >= len(self.tax_ids) or self.tax_ids[i] != tid:
-            raise KeyError(f"taxid {tid} not in taxonomy")
-        return i + 1
-
     def compact(self, taxids, missing_ok: bool = False) -> np.ndarray:
         """uint32 taxids -> compact indices; unknown ids -> 0 when
         missing_ok, else raise."""

@@ -26,9 +26,15 @@ the host (NAMEID maps their sequence names to taxids), in dictionary
 mode as ``classify`` runs them; the outputs of one kernel feed the next.
 K1 runs twice more where its probes hit: the same batch on a table of
 its own k-mers, and the scale probe's shape of ``chip_smoke.py`` at 2^24
-keys.  A call takes tens of microseconds, about what the host takes to
-enqueue it, so these are timed by replaying a CUDA graph of 100 captured
-calls between two events (``gather_bench.graph_ms``); a yardstick, one
+keys.  K2 runs three times more: on K1's output for that table (every
+position hits), on 8192 rows of width 74 over a synthetic taxonomy of
+2^21 nodes with lineages 25-40 deep (``synthetic.deep_tree`` and
+``deep_rows``: the reads tie two deep taxa, so their LCA is walked), and
+on 64 long reads of the first GENOME (P > 1024, ``synthetic.long_reads``);
+each K2 case prints its bound (``bounds.resolve_work``) first.  A call
+takes tens of microseconds, about what the host takes to enqueue it, so
+these are timed by replaying a CUDA graph of 100 captured calls between
+two events (``gather_bench.graph_ms``); a yardstick, one
 elementwise torch pass over K3's output bytes, is timed the same way.
 From a checkout:
 
@@ -61,7 +67,9 @@ from ..db import build_device as bd
 from ..db.table import unique_u64
 from ..io import fastx
 from ..taxonomy.tree import TaxTree
+from .bounds import resolve_bound_text
 from .gather_bench import graph_ms, time_ms
+from .synthetic import deep_rows, deep_tree, long_reads
 
 SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
@@ -175,21 +183,27 @@ def _inline_table(keys, rng, dev):
                                   table.vbits, dev)
 
 
-def probe_mix_cases(a1, dev):
-    """(name, call, timer) of K1 where the probes hit: the batch of ``a1``
-    against a table of its own canonical k-mers and 9M random keys (2^22
-    buckets, as the ec table), and ``chip_smoke.py``'s scale-probe shape
-    at 2^24 keys (2^23 reads of 32 bases, one k = 32 k-mer each, half of
-    them stored)."""
+def own_table(a1, rng, dev):
+    """A table of the canonical k-mers of the batch of ``a1`` and 9M random
+    keys (2^22 buckets, as the ec table), 6 values: every probe hits."""
     from ..classify import pipeline as pl
 
-    pc, nm, ln, lproc, k, canon, _, want_idx = a1
-    rng = np.random.default_rng(SEED + 1)
+    pc, nm, ln, lproc, k, canon = a1[:6]
     codes = pl.unpack_2bit(pc.cpu(), None if nm is None else nm.cpu())
     em = enc.minimizers_plain(codes[:, :lproc], ln.cpu(), k, 1, canon)
     own = em.values[em.mask].numpy().view(np.uint64)
-    arr = _inline_table(unique_u64(np.concatenate([
+    return _inline_table(unique_u64(np.concatenate([
         own, rng.integers(0, 2**64, 9_000_000, dtype=np.uint64)])), rng, dev)
+
+
+def probe_mix_cases(a1, arr, rng, dev):
+    """(name, call, timer) of K1 where the probes hit: the batch of ``a1``
+    against ``arr`` (``own_table``), and ``chip_smoke.py``'s scale-probe
+    shape at 2^24 keys (2^23 reads of 32 bases, one k = 32 k-mer each,
+    half of them stored)."""
+    from ..classify import pipeline as pl
+
+    pc, nm, ln, lproc, k, canon, _, want_idx = a1
     n, Q = 1 << 24, 1 << 23
     keys = unique_u64(rng.integers(0, 2**64, n + n // 64, dtype=np.uint64))[:n]
     scale = _inline_table(keys, rng, dev)
@@ -208,6 +222,40 @@ def probe_mix_cases(a1, dev):
         (f"encode_probe, the scale shape: 2^24 keys, {Q} queries, half "
          "stored", lambda: pl.encode_probe(spc, None, sln, 32, 32, False,
                                            scale, False), graph_ms),
+    ]
+
+
+def resolve_cases(clf, a1, own, genome: str, dev, say=print):
+    """(name, call, timer) of K2 where the ec batch does not reach: every
+    position hit (K1's output of the batch of ``a1`` on ``own``, a table
+    of its own k-mers), the deep tree, and long reads (P > 1024)."""
+    from ..classify import pipeline as pl
+    from ..classify import resolve as rs
+
+    hit, _, cidx, _ = pl.encode_probe(*a1[:6], own, True)
+    rng = np.random.default_rng(SEED + 2)
+    tree = deep_tree(rng)
+    dc, dh = deep_rows(rng, tree)
+    dtax = tree.device_arrays(dev)
+    dn = int(np.unique(dc[dh]).size)
+    dc, dh = torch.from_numpy(dc).to(dev), torch.from_numpy(dh).to(dev)
+    pc, nm, ln, lproc = clf._prepare_batch(long_reads(genome, DNA4.lut, rng))
+    lh, _, lc, _ = pl.encode_probe(pc.to(dev), None if nm is None else
+                                   nm.to(dev), ln.to(dev), lproc, clf.k,
+                                   clf.canon, clf.arr, True)
+    for what, c, h, t in (("ec batch, every position hit", cidx, hit, clf.tax),
+                          ("deep tree", dc, dh, dtax),
+                          ("long reads", lc, lh, clf.tax)):
+        say(f"# resolve, {what}: {int(h.sum())} hits in {h.shape[0]} rows of "
+            f"{h.shape[1]}; {resolve_bound_text(c, h, t)}")
+    return [
+        (f"resolve, every position hit B={hit.shape[0]}, P={hit.shape[1]}",
+         lambda: [rs.resolve(cidx, hit, clf.tax, 6)], graph_ms),
+        (f"resolve, deep tree ({tree.tin.size} nodes, {tree.lift.shape[0]} "
+         f"lift levels) B={dh.shape[0]}, P={dh.shape[1]}",
+         lambda: [rs.resolve(dc, dh, dtax, dn)], graph_ms),
+        (f"resolve, long reads B={lh.shape[0]}, P={lh.shape[1]}",
+         lambda: [rs.resolve(lc, lh, clf.tax, clf._n_distinct)], graph_ms),
     ]
 
 
@@ -243,11 +291,16 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     valid1 = valid.sum(-1, dtype=torch.int32)
     taxon = rs.resolve(cidx, hit, clf.tax, clf._n_distinct)
     shape = f"B={hit.shape[0]}, P={hit.shape[1]}"
+    print(f"# resolve, ec batch: {int(hit.sum())} hits in {hit.shape[0]} rows "
+          f"of {hit.shape[1]}; {resolve_bound_text(cidx, hit, clf.tax)}")
+    rng = np.random.default_rng(SEED + 1)
+    own = own_table(a1, rng, dev)
     return [
         (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
-        *probe_mix_cases(a1, dev),
+        *probe_mix_cases(a1, own, rng, dev),
         (f"resolve {shape}",
          lambda: [rs.resolve(cidx, hit, clf.tax, clf._n_distinct)], graph_ms),
+        *resolve_cases(clf, a1, own, genomes[0], dev),
         (f"step_outputs {shape}, maxr={clf.max_runs}",
          lambda: pl.step_outputs(taxon, oidx, hit, valid, valid1,
                                  clf.max_runs, ds), graph_ms),

@@ -11,8 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  of the same inputs, exact equality (integer work):
                  HiSeq batches of 8192 reads against the ec k=31 table,
                  in-read Ns, reads shorter than k, paired rows, long reads
-                 (P > 1024) for resolve, run-overflow rows and every
-                 compact layout for step_outputs
+                 (P > 1024: resolve's block-per-read kernel), run-overflow
+                 rows and every compact layout for step_outputs; resolve
+                 also on a taxonomy with a parent cycle under both tie
+                 rules, on a 2^21-node taxonomy with lineages 25-40 deep
+                 (tools/synthetic.py), and at 0, 1, 2 and one-taxon
+                 hits a row
   4. database    the ec k=31 database built by the port on the host; its
                  content digest must equal the golden manifest's; upload
   5. classify    Classifier.process_dataset on the HiSeq, MiSeq and
@@ -21,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  on the lex_k25 database
   6. numbers     HiSeq stream reads/s, K1-K3 and plain-version times by
                  CUDA-graph replay of captured calls, with the event
-                 timing of back-to-back wrapper calls beside them
+                 timing of back-to-back wrapper calls beside them; K2
+                 again on the deep tree's rows; after phase 10, K1's
+                 slot rows at G1's random 32-B row rate (a yardstick,
+                 not a bound: K1 reads its rows faster than G1)
   7. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
                  against the host probe on a 1M-query subsample
   8. build kernels  KB1-KB3, G1 and G2 against their plain versions on
@@ -53,8 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. numbers     KB1-KB3 and plain-version times at the build's shapes
                  (KB1 by CUDA-graph replay as well), KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1) with
                  torch.unique beside it; index_select and gather at G1's
-                 and G2's shapes; each kernel's bound (bytes over 3.35
-                 TB/s or int32 operations over 16.7 TOP/s, the larger)
+                 and G2's shapes; each kernel's bound (tools/bounds.py:
+                 bytes over 3.35 TB/s or int32 operations over 16.7
+                 TOP/s, the larger)
 
 The line before the last is the kernels JSON (launches on the main paths,
 exactness, kernel, plain, bound and library times; ``ms`` is graph-replayed
@@ -89,6 +97,7 @@ SEED = 20261016
 #   + x for x in kk['genomes']], TaxTree.from_nodes_dmp(g + kk['nodes']), g \
 #   + kk['nameid'], Spacer(31, 40))))"
 EC_W40_DIGEST = "02a018d96195a0762302fdb1ca403499790702e3ae67fbdff5a8ff512ccee936"
+EC_GENOME = os.path.join(DATA, "ec", "GCF_000005845.2_ASM584v2_genomic.fna.gz")
 
 
 # name -> (source, the TPU kernel it replaces)
@@ -110,70 +119,6 @@ KERNELS = {
     "take_along": ("bonsai_tpu_torch/csrc/gather_bench.cu",
                    "tools/vmem_gather_bench2.py:35"),
 }
-
-
-# The card's peaks behind each kernel's bound: HBM3 at 3.35 TB/s (NVIDIA
-# H100 SXM data sheet) and int32 ALU work at 132 SMs x 64 INT32 lanes x
-# 1.98 GHz = 16.7 TOP/s (Hopper architecture white paper); both at 700 W.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-
-
-def bound(nbytes: int, ops: int = 0):
-    """(least ms, "bytes" or "operations", bytes ms, operations ms): the
-    larger of the bytes over the memory rate and the int32 operations over
-    the int32 peak, and both."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT32_OPS_PER_S * 1e3
-    return (max(tb, to), "bytes" if tb >= to else "operations", tb, to)
-
-
-def bound_text(b) -> str:
-    return (f"bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f} ms, int32 "
-            f"operations {b[3]:.4f} ms)")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-# One bound a kernel, from the inputs and outputs of the call that is
-# timed: each input byte that the work needs read once, each output byte
-# written once; a u64 operation counts as two int32 operations.
-def bound_encode_probe(inputs, vals, out):
-    """K1: the packed reads, one 32-B slot row per probe that hits in its
-    first bucket at best and two per miss, the values, the outputs; two
-    splitmix64 hashes (~40 int32 ops) per valid position."""
-    hit, valid = out[0], out[1]
-    nv, nh = int(valid.sum()), int(hit.sum())
-    rows = 32 * nh + 64 * (nv - nh)
-    return bound(nbytes(*inputs, vals) + rows + nbytes(*out), 40 * nv)
-
-
-def bound_resolve(cidx, hit, tax, taxon):
-    """K2: the rows and the taxonomy arrays in, one taxon a read out; per
-    read of h hits, h^2 pairs of two compares and an add."""
-    import torch
-
-    h = hit.sum(-1, dtype=torch.int64)
-    return bound(nbytes(cidx, hit, taxon, *tax.values()),
-                 3 * int((h * h).sum()))
-
-
-def bound_minimizers(codes, lengths, em, W):
-    """KB1: codes in, keys and flags out; per position two rolled u64
-    k-mers and a canonical min (16 ops), with W > 1 a frev64 score and
-    about three (score, value) compares (24 more)."""
-    return bound(nbytes(codes, lengths, *em),
-                 codes.numel() * (16 + (24 if W > 1 else 0)))
-
-
-def bound_merge_fold(a, b, na, nb, tax, out):
-    """KB3: keys and pad of every input slot, node, orig, cnt of the valid
-    entries, the tree arrays, every output slot."""
-    return bound(9 * (a.cap + b.cap) + 12 * (na + nb) + nbytes(*tax.values())
-                 + nbytes(out.keys, out.pad, out.node, out.orig, out.cnt,
-                          out.n))
 
 
 def say(msg: str) -> None:
@@ -245,7 +190,7 @@ def _cpu(t):
     return None if t is None else t.cpu()
 
 
-def phase_kernels(dev, clf, lut):
+def phase_kernels(dev, clf, lut, deep):
     """K1, K2, K3 on the card vs their plain versions on CPU copies."""
     import numpy as np
     import torch
@@ -314,25 +259,11 @@ def phase_kernels(dev, clf, lut):
     miseq = os.path.join(DATA, "kraken_benchmarks", "MiSeq_accuracy.fa")
     out = k1(_batch(miseq, 4096, lut), "MiSeq 4096", paired=True)
     k2_k3(out, "MiSeq paired", paired=True, dsizes=(dict_size, None))
-    # long reads, P > 1024: resolve's any-W path (and dedup/blockwise plain)
-    from bonsai_tpu_torch.io import fastx
+    # long reads, P > 1024: resolve's block-per-read kernel (and the
+    # dedup/blockwise branches of its plain version)
+    from bonsai_tpu_torch.tools.synthetic import long_reads
 
-    genome = next(fastx.read_fastx(os.path.join(DATA, "ec", sorted(
-        os.listdir(os.path.join(DATA, "ec")))[0])))[1]
-    starts = rng.integers(0, len(genome) - 4000, 64)
-    lens = rng.integers(1100, 4000, 64)
-    seqs = [bytearray(genome[s : s + n]) for s, n in zip(starts, lens)]
-    for s in seqs:  # sprinkle errors so reads hit several taxa and misses
-        for j in rng.integers(0, len(s), len(s) // 50):
-            s[j] = b"ACGT"[rng.integers(0, 4)]
-    seqs = [bytes(s) for s in seqs]
-    L = fastx.bucket_len(max(lens))
-    lcodes = np.full((64, L), -1, dtype=np.int8)
-    for i, s in enumerate(seqs):
-        lcodes[i, : len(s)] = lut[np.frombuffer(s, dtype=np.uint8)]
-    lb = fastx.ReadBatch(names=[b"r"] * 64, seqs=seqs, codes=lcodes,
-                         lengths=lens.astype(np.int32), quals=[None] * 64)
-    out = k1(lb, "long reads")
+    out = k1(long_reads(EC_GENOME, lut, rng), "long reads")
     require(out[0].shape[1] > 1024, "long-read batch has P <= 1024")
     k2_k3(out, "long reads", dsizes=(dict_size, None))
     # run overflow (n_runs > maxr) and the wide layout (W >= 2^15)
@@ -348,9 +279,72 @@ def phase_kernels(dev, clf, lut):
             want = pl.build_step_outputs(taxon.cpu(), taxa.cpu(), hit.cpu(),
                                          valid.cpu(), valid1.cpu(), 8, ds)
             chk.same("step_outputs", got, want, f"overflow R={R} W={W} ds={ds}")
+    resolve_edges(dev, chk, clf, deep)
     torch.cuda.synchronize()
     say(f"# kernels: all equal to their plain versions: {chk.cases} cases")
     return chk
+
+
+def resolve_edges(dev, chk, clf, deep):
+    """K2 against resolve_plain where the read batches do not reach: a
+    taxonomy with a parent cycle under both tie rules, the deep tree
+    (n_distinct given and None; the dedup branch through both kernels),
+    rows of 0, 1 and 2 hits and rows whose hits all fall on one taxon,
+    at a width of the warp-per-read kernel and one of the block-per-read
+    kernel."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.synthetic import deep_rows
+
+    rng = np.random.default_rng(SEED + 4)
+
+    def k2(cidx, hit, tree, nd, tag):
+        c, h = torch.from_numpy(cidx), torch.from_numpy(hit)
+        got = rs.resolve(c.to(dev), h.to(dev), tree.device_arrays(dev), nd)
+        chk.same("resolve", [got], [rs.resolve_plain(
+            c, h, tree.device_arrays("cpu"), nd)], f"{tag} n_distinct={nd}")
+        return got.cpu().numpy().view(np.uint32)
+
+    def pool_rows(pool, R, W, p_hit=0.6):
+        hit = rng.random((R, W)) < p_hit
+        return np.where(hit, rng.choice(pool, (R, W)), 0).astype(np.int32), hit
+
+    # a parent cycle (5 <-> 6): its nodes keep tin = 0, the root's tin; the
+    # JAX package answers taxid 6 (first position) in its dense branch and
+    # taxid 1 (smaller compact index) in its dedup branch
+    cyc = TaxTree({1: 0, 2: 1, 3: 1, 5: 6, 6: 5})
+    for P in (300, 74):
+        cidx, hit = pool_rows(cyc.compact([1, 5, 6]), 64, P)
+        cidx[0], hit[0] = 0, False
+        cidx[0, 0], hit[0, 0] = cyc.compact([6])[0], True
+        cidx[0, 1:150], hit[0, 1:150] = cyc.compact([1])[0], True
+        for nd in (3, None):
+            got = k2(cidx, hit, cyc, nd, f"parent cycle P={P}")
+            want = 1 if rs.dedup_rule(nd, P) else 6
+            require(int(got[0]) == want, f"resolve: parent cycle P={P} "
+                    f"n_distinct={nd}: taxid {got[0]}, the JAX package's {want}")
+    # the deep tree: two deep taxa tied in every read; the dedup branch
+    # at a warp kernel's and a block kernel's width
+    cidx, hit = deep_rows(rng, deep)
+    for nd in (int(np.unique(cidx[hit]).size), None):
+        k2(cidx, hit, deep, nd, "deep tree")
+    pool = rng.choice(np.arange(1, deep.tin.size), 100, replace=False)
+    for R, W in ((512, 300), (64, 1500)):
+        k2(*pool_rows(pool, R, W), deep, 100, f"deep tree, 100 taxa, W={W}")
+    # rows of 0, 1 and 2 hits and rows all on one taxon, on the ec tree
+    pool = np.arange(1, min(clf.tax["tin"].shape[0], 7))
+    for W in (74, 1500):
+        cidx, hit = np.zeros((64, W), np.int32), np.zeros((64, W), bool)
+        for r in range(16, 48):
+            pos = rng.choice(W, 1 + (r >= 32), replace=False)
+            hit[r, pos], cidx[r, pos] = True, rng.choice(pool, pos.size)
+        hit[48:] = True
+        cidx[48:] = rng.choice(pool, (16, 1))
+        for nd in (pool.size, None):
+            k2(cidx, hit, clf.tree, nd, f"h = 0, 1, 2 and one taxon, W={W}")
 
 
 def build_ec(tree_path, kk):
@@ -497,19 +491,24 @@ def time_ms(fn, iters=20, warm=3):
     return a.elapsed_time(b) / iters
 
 
-def phase_numbers(dev, clf, hiseq_path):
+def phase_numbers(dev, clf, hiseq_path, deep):
     """Kernel vs plain times at the main path's shapes, stream reads/s.
 
     A K1-K3 call takes tens of microseconds on the card, about what the
     host takes to enqueue it, so each kernel and its plain version are
     timed by CUDA-graph replay (``graph_ms``); the event timing of
     back-to-back wrapper calls stands beside it as ``event_ms``."""
+    import numpy as np
     import torch
 
     from bonsai_tpu_torch.classify import pipeline as pl
     from bonsai_tpu_torch.classify import resolve as rs
     from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.tools.bounds import (bound, bound_encode_probe,
+                                               bound_resolve, bound_text,
+                                               k1_rows, nbytes)
     from bonsai_tpu_torch.tools.gather_bench import graph_ms
+    from bonsai_tpu_torch.tools.synthetic import deep_rows
 
     b = _batch(hiseq_path, 8192, DNA4.lut)
     pc, nm, ln, lproc = clf._prepare_batch(b)
@@ -525,13 +524,20 @@ def phase_numbers(dev, clf, hiseq_path):
     bounds = {
         "encode_probe": bound_encode_probe((pc, nm, ln), clf.arr.vals,
                                            (hit, valid, cidx, oidx)),
-        "resolve": bound_resolve(cidx, hit, clf.tax, taxon),
+        "resolve": bound_resolve(cidx, hit, clf.tax),
         "step_outputs": bound(nbytes(*a3[:5], *pl.step_outputs(*a3))),
     }
+    # K2 again on the deep tree (2^21 nodes, every read ties two deep taxa)
+    dc, dh = (torch.from_numpy(a).to(dev) for a in deep_rows(
+        np.random.default_rng(SEED + 5), deep))
+    dtax = deep.device_arrays(dev)
+    a2d = (dc, dh, dtax, None)
+    bounds["resolve deep"] = bound_resolve(dc, dh, dtax)
     times = {}
     for name, kern, plain, args in (
         ("encode_probe", pl.encode_probe, pl.encode_probe_plain, a1),
         ("resolve", rs.resolve, rs.resolve_plain, a2),
+        ("resolve deep", rs.resolve, rs.resolve_plain, a2d),
         ("step_outputs", pl.step_outputs, pl.build_step_outputs, a3),
     ):
         # plain, kernel, kernel, plain: the mean of each pair
@@ -541,7 +547,9 @@ def phase_numbers(dev, clf, hiseq_path):
         p2 = graph_ms(lambda: plain(*args), calls=20)
         ev = time_ms(lambda: kern(*args), iters=100)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, ev)
-        say(f"# time {name} at B=8192 reads, P={hit.shape[1]}, CUDA-graph "
+        where = ("the deep tree's rows" if name == "resolve deep" else
+                 f"B=8192 reads, P={hit.shape[1]}")
+        say(f"# time {name} at {where}, CUDA-graph "
             f"replay: kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
             f"{p1:.4f}, {p2:.4f} ms; events around back-to-back wrapper calls "
             f"{ev:.4f} ms; {bound_text(bounds[name])}")
@@ -588,7 +596,7 @@ def phase_numbers(dev, clf, hiseq_path):
         f"/dev/null) in {secs:.3f}s = {rps:.6g} reads/s; stages "
         f"{ {k: round(v, 3) for k, v in clf.stage_seconds.items()} }; kernel "
         f"launches {per_stream}")
-    return times, bounds, rps
+    return times, bounds, rps, k1_rows((hit, valid))
 
 
 def _ec_chunk(w):
@@ -1047,6 +1055,7 @@ def phase_gather_numbers(dev):
     import torch
 
     from bonsai_tpu_torch.tools import gather_bench as gb
+    from bonsai_tpu_torch.tools.bounds import bound, nbytes
 
     bounds, library = {}, {}
     tbl, idx = gb.f_case(dev, SEED)
@@ -1074,7 +1083,9 @@ def phase_build_numbers(dev, kk):
     from bonsai_tpu_torch.core import encoder as enc
     from bonsai_tpu_torch.db import build_device as bd
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
-
+    from bonsai_tpu_torch.tools.bounds import (bound, bound_merge_fold,
+                                               bound_minimizers, bound_text,
+                                               nbytes)
     from bonsai_tpu_torch.tools.gather_bench import graph_ms
 
     times, bounds, library = {}, {}, {}
@@ -1168,19 +1179,28 @@ def main() -> int:
     from bonsai_tpu_torch.core.alphabet import DNA4
 
     phase_build()
+    import numpy as np
+
+    from bonsai_tpu_torch.tools.synthetic import deep_tree
+
+    t0 = time.perf_counter()
+    deep = deep_tree(np.random.default_rng(SEED + 6))
+    say(f"# deep tree: {deep.tin.size} nodes, depth {deep.max_depth}, "
+        f"{deep.lift.shape[0]} lift levels, built in "
+        f"{time.perf_counter() - t0:.1f}s")
     kk = json.load(open(os.path.join(GOLD, "manifest.json")))["kraken"]
     db, tree, digest, host_secs = build_ec(os.path.join(GOLD, kk["nodes"]), kk)
     torch.cuda.reset_peak_memory_stats()
     clf = Classifier(db, tree, emit_all=True, device=dev)
-    chk = phase_kernels(dev, clf, DNA4.lut)
+    chk = phase_kernels(dev, clf, DNA4.lut, deep)
     say(f"# database: content sha256 {digest}: "
         f"{'matches' if digest == kk['db_digest'] else 'DIFFERS'}; on the "
         f"card as {clf.arr.slots.numel() * 8 / 2**20:.0f} MiB of slots")
     require(digest == kk["db_digest"], "ec database content differs")
     launches = phase_main_path(clf, kk, dev)
     hiseq = os.path.join(DATA, kk["sets"]["HiSeq"]["reads"])
-    times, bounds, rps = phase_numbers(dev, clf, hiseq)
-    del clf
+    times, bounds, rps, rows = phase_numbers(dev, clf, hiseq, deep)
+    del clf, deep
     qps = phase_scale(dev)
     peak = torch.cuda.max_memory_allocated()
     say(f"# peak device memory allocated (classify, scale): "
@@ -1201,6 +1221,14 @@ def main() -> int:
     times["take_along"] = (first["ms"], first["plain_ms"], first["event_ms"])
     launches.update(build_launches)
     launches.update(gather_launches)
+    # K1's slot rows at G1's random 32-B row rate from a table of the ec
+    # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
+    # rows faster than G1 does (why is not measured)
+    ns = next(c["ns_per_row"] for c in gres["cliff"] if c["table_MiB"] == 128)
+    say(f"# K1 at G1's row rate: {rows} slot rows at G1's {1 / ns:.4g} G rows/s "
+        f"(random 32-B rows, 128 MiB table) = {rows * ns / 1e6:.4f} ms; K1 "
+        f"{times['encode_probe'][0]:.4f} ms, "
+        f"{100 * rows * ns / 1e6 / times['encode_probe'][0]:.0f}% of it")
     ec = build_nums[31]
     say(f"# {card}: HiSeq stream {rps:.6g} reads/s; scale probe "
         f"{qps:.6g} queries/s; ec k=31 device build {ec['secs']:.3f}s "

@@ -276,6 +276,121 @@ def test_resolve_kernel_matches_plain(cuda, tree, P, n_distinct):
     assert (want[:4] == 0).all()
 
 
+def _k2_same(cuda, tree, cidx, hit, n_distinct, tax=None):
+    """K2 on the card against resolve_plain on the CPU; one launch."""
+    tax = tree.device_arrays("cpu") if tax is None else tax
+    want = res.resolve_plain(torch.from_numpy(cidx), torch.from_numpy(hit),
+                             tax, n_distinct)
+    before = res.resolve.launches
+    got = res.resolve(torch.from_numpy(cidx).to(cuda),
+                      torch.from_numpy(hit).to(cuda),
+                      {k: v.to(cuda) for k, v in tax.items()}, n_distinct)
+    assert res.resolve.launches == before + 1
+    _same([got], [want])
+    return want.numpy().view(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [74, 148, 1000, 1500])
+@pytest.mark.parametrize("n_distinct", [12, None])
+def test_resolve_kernel_hit_counts(cuda, tree, W, n_distinct):
+    """Rows of 0, 1 and 2 hits, rows whose hits all fall on one taxon, and
+    rows hit at every position; W = 1000 is the warp-per-read path with
+    more than 48 KB of shared memory a block, 1500 the block-per-read
+    path."""
+    rng = np.random.default_rng(W)
+    n = tree.tin.shape[0]
+    pool = rng.choice(np.arange(n), 12, replace=False)
+    cidx, hit = np.zeros((80, W), np.int32), np.zeros((80, W), bool)
+    for r in range(16, 48):
+        pos = rng.choice(W, 1 + (r >= 32), replace=False)
+        hit[r, pos], cidx[r, pos] = True, rng.choice(pool, pos.size)
+    hit[48:] = True
+    cidx[48:64] = rng.choice(pool, (16, 1))
+    cidx[64:] = rng.choice(pool, (16, W))
+    want = _k2_same(cuda, tree, cidx, hit, n_distinct)
+    assert (want[:16] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [300, 74])
+@pytest.mark.parametrize("n_distinct", [3, None])
+def test_resolve_kernel_parent_cycle(cuda, P, n_distinct):
+    """Nodes on a parent cycle keep the root's tin: the tie goes to the
+    first position in the dense branch (taxid 6) and to the smaller
+    compact index in the dedup branch (taxid 1), as in the JAX package."""
+    cyc = TaxTree({1: 0, 2: 1, 3: 1, 5: 6, 6: 5})
+    rng = np.random.default_rng(P)
+    hit = rng.random((64, P)) < 0.6
+    cidx = np.where(hit, rng.choice(cyc.compact([1, 5, 6]), (64, P)), 0)
+    cidx, hit[0] = cidx.astype(np.int32), False
+    cidx[0] = 0
+    cidx[0, 0], hit[0, 0] = cyc.compact([6])[0], True
+    cidx[0, 1:150], hit[0, 1:150] = cyc.compact([1])[0], True
+    want = _k2_same(cuda, cyc, cidx, hit, n_distinct)
+    assert want[0] == (1 if res.dedup_rule(n_distinct, P) else 6)
+
+
+@pytest.fixture(scope="module")
+def deep():
+    from bonsai_tpu_torch.tools.synthetic import deep_tree
+
+    t = deep_tree(np.random.default_rng(7), 1 << 16)
+    return t, t.device_arrays("cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_distinct", ["given", None])
+def test_resolve_kernel_deep_tree(cuda, deep, n_distinct):
+    """A 2^16-node tree with lineages 25-40 deep (6 lift levels); every
+    read ties two deep taxa, so the LCA is walked."""
+    from bonsai_tpu_torch.tools.synthetic import deep_rows
+
+    tree, tax = deep
+    assert tree.lift.shape[0] == 6
+    cidx, hit = deep_rows(np.random.default_rng(8), tree, R=512, split=12)
+    nd = int(np.unique(cidx[hit]).size) if n_distinct else None
+    _k2_same(cuda, tree, cidx, hit, nd, tax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W", [(256, 300), (32, 1500)])
+def test_resolve_kernel_deep_tree_dedup(cuda, deep, R, W):
+    """The dedup branch on the deep tree: 100 taxa, n_distinct = 100."""
+    tree, tax = deep
+    rng = np.random.default_rng(W)
+    pool = rng.choice(np.arange(1, tree.tin.size), 100, replace=False)
+    hit = rng.random((R, W)) < 0.6
+    cidx = np.where(hit, rng.choice(pool, (R, W)), 0).astype(np.int32)
+    assert res.dedup_rule(100, W)
+    _k2_same(cuda, tree, cidx, hit, 100, tax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_distinct", [12, None])
+def test_resolve_kernel_paired_rows(cuda, tree, n_distinct):
+    """Mates (2i, 2i+1) of width P = 150 as rows of width 2P = 300."""
+    rng = np.random.default_rng(11)
+    pool = rng.choice(np.arange(tree.tin.shape[0]), 12, replace=False)
+    hit = rng.random((128, 150)) < 0.6
+    cidx = np.where(hit, rng.choice(pool, (128, 150)), 0).astype(np.int32)
+    _k2_same(cuda, tree, cidx.reshape(64, 300), hit.reshape(64, 300),
+             n_distinct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,W", [(16, 1500), (4, 1 << 15)])
+@pytest.mark.parametrize("n_distinct", [82, None])
+def test_resolve_kernel_long_rows(cuda, tree, R, W, n_distinct):
+    """The block-per-read kernel: hits on every taxon of the tree, so that
+    few hits share a taxon within 32 positions."""
+    rng = np.random.default_rng(W + 2)
+    hit = rng.random((R, W)) < 0.6
+    hit[0] = False
+    cidx = np.where(hit, rng.integers(0, tree.tin.shape[0], (R, W)), 0)
+    _k2_same(cuda, tree, cidx.astype(np.int32), hit, n_distinct)
+
+
 # -- K3 step_outputs -----------------------------------------------------------
 
 def _rows(rng, R, W, dict_size):

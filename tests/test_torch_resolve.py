@@ -110,3 +110,96 @@ def test_resolve_paired_rows_match_jax(trees):
     got = res.resolve_batch(torch.from_numpy(cidx).view(32, 148),
                             torch.from_numpy(hit).view(32, 148), tax)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _cycle_rows(tree, P):
+    """64 rows over a taxonomy with a parent cycle: row 0 holds taxid 6
+    (on the cycle, tin 0) first and the root (tin 0) at 149 positions."""
+    rng = np.random.default_rng(P)
+    hit = rng.random((64, P)) < 0.6
+    cidx = np.where(hit, rng.choice(tree.compact([1, 5, 6]), (64, P)), 0)
+    cidx, hit[0] = cidx.astype(np.int32), False
+    cidx[0] = 0
+    cidx[0, 0], hit[0, 0] = tree.compact([6])[0], True
+    cidx[0, 1:150], hit[0, 1:150] = tree.compact([1])[0], True
+    return cidx, hit
+
+
+@pytest.mark.parametrize("P,n_distinct", [(300, 3), (300, None), (74, 3)],
+                         ids=["dedup", "dense-nd", "dense"])
+def test_resolve_batch_parent_cycle_matches_jax(P, n_distinct):
+    """Nodes on a parent cycle are never visited and keep the root's tin
+    of 0: the dense branch breaks the tie by first position (taxid 6), the
+    dedup branch by smaller compact index (taxid 1)."""
+    pm = {1: 0, 2: 1, 3: 1, 5: 6, 6: 5}
+    tt = TaxTree(pm)
+    jax_tax = JTree(pm).device_arrays()
+    tax = tt.device_arrays("cpu")
+    for name in ("tin", "tout", "depth", "parent", "lift"):
+        np.testing.assert_array_equal(tax[name].numpy(), np.asarray(jax_tax[name]))
+    cidx, hit = _cycle_rows(tt, P)
+    want = np.asarray(jres.resolve_batch(jnp.asarray(cidx), jnp.asarray(hit),
+                                         jax_tax, n_distinct=n_distinct))
+    got = res.resolve_batch(torch.from_numpy(cidx), torch.from_numpy(hit), tax,
+                            n_distinct=n_distinct)
+    np.testing.assert_array_equal(got.numpy(), want)
+    dedup = res.dedup_rule(n_distinct, P)
+    assert dedup == (P > 256 and n_distinct is not None)
+    assert tt.tax_ids_compact()[want[0]] == (1 if dedup else 6)
+
+
+@pytest.fixture(scope="module")
+def deep_trees():
+    from bonsai_tpu_torch.tools.synthetic import deep_tree
+
+    tt = deep_tree(np.random.default_rng(12), 4096, full=33)
+    jt = JTree(tt.parent_map)
+    return tt, tt.device_arrays("cpu"), jt.device_arrays()
+
+
+def test_deep_tree_arrays_equal_jax(deep_trees):
+    tt, tax, jax_tax = deep_trees
+    assert tt.lift.shape[0] == 6 and tt.max_depth >= 33
+    for name in ("parent", "depth", "tin", "tout", "lift"):
+        np.testing.assert_array_equal(tax[name].numpy(), np.asarray(jax_tax[name]))
+
+
+@pytest.mark.parametrize(
+    "B,P,n_distinct", [(64, 74, None), (16, 300, 40), (8, 1100, None)],
+    ids=["dense", "dedup", "blockwise"])
+def test_resolve_batch_deep_tree_matches_jax(deep_trees, B, P, n_distinct):
+    """Lineages 33-40 deep (6 lift levels), hits on 40 taxa of the tree."""
+    tt, tax, jax_tax = deep_trees
+    rng = np.random.default_rng(P + 3)
+    pool = rng.choice(np.arange(1, tt.tin.size), 40, replace=False)
+    cidx, hit = _hits(rng, B, P, pool)
+    want = np.asarray(jres.resolve_batch(jnp.asarray(cidx), jnp.asarray(hit),
+                                         jax_tax, n_distinct=n_distinct))
+    got = res.resolve_batch(torch.from_numpy(cidx), torch.from_numpy(hit), tax,
+                            n_distinct=n_distinct)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (tt.depth[want] > 1).any()  # some reads resolve below the root
+
+
+@pytest.mark.parametrize("p_hit,R", [(0.0, 32), (0.3, 32), (1.0, 2048)],
+                         ids=["no-hit", "some", "all-whole-arrays"])
+def test_resolve_work_counts_distinct_taxa(deep_trees, p_hit, R):
+    """K2's bound counts d^2 count-weighted pairs a read (d distinct hit
+    taxa, not its h hits), and the smaller of the whole taxonomy arrays and
+    the entries the work reads."""
+    from bonsai_tpu_torch.tools.bounds import resolve_work
+
+    tt, tax, _ = deep_trees
+    rng = np.random.default_rng(5)
+    W = 74
+    hit = rng.random((R, W)) < p_hit
+    cidx = np.where(hit, rng.choice(np.arange(1, 9), (R, W)), 0).astype(np.int32)
+    d = np.array([np.unique(c[h]).size for c, h in zip(cidx, hit)])
+    nb, ops, side = resolve_work(torch.from_numpy(cidx), torch.from_numpy(hit),
+                                 tax)
+    assert ops == 3 * int((d * d).sum())
+    whole = sum(t.numel() * t.element_size() for t in tax.values())
+    levels = tt.lift.shape[0]
+    entries = int(8 * d.sum() + (d > 0).sum() * (8 * (2 * levels + 1) + 4))
+    assert nb == R * W * 5 + 4 * R + min(entries, whole)
+    assert side == ("entries" if entries < whole else "whole arrays")
