@@ -9,7 +9,10 @@ kraken record:
     C|U \\t name \\t taxon \\t len \\t [M:missing \\t] [A:ambig \\t] runs\\n
 where runs are the run-length encoded hit taxids "tax:count" (0 -> 'U',
 0xFFFFFFFF -> 'A'), or "0:0" when unclassified.  The ambiguity count keeps
-the reference's u32 arithmetic, which wraps for reads shorter than k.
+the reference's u32 arithmetic, which wraps for reads shorter than the
+seed.  Every ``comb_size`` here is the seed's span c (the Spacer's comb
+size, k + the gaps), which a spaced seed makes larger than k; the
+classifier passes ``Spacer.c``.
 """
 
 from __future__ import annotations

@@ -15,13 +15,17 @@ capacity) and writes Kraken text.  In ``process_dataset`` a producer
 thread parses and packs, the main thread uploads and launches, and a
 writer thread fetches and formats, so host and device work overlap.
 
-Classification runs unwindowed with w = k (bin/bonsai.cpp:152),
-canonical by default.  u32 values (taxids, output words) travel in int32
-tensors with the same bits.
+Classification runs with w = k (bin/bonsai.cpp:152): contiguous seeds
+unwindowed and canonical by default; against a database built with a
+spaced seed (``-S``), that seed at W = 1, never canonical (the encoder's
+spaced branch).  The seed's span c sets the positions a read has,
+P = lproc - c + 1, and the output's ``A:`` counts.  u32 values (taxids,
+output words) travel in int32 tensors with the same bits.
 """
 
 from __future__ import annotations
 
+import ctypes
 import queue
 import sys
 import threading
@@ -36,6 +40,7 @@ from .. import kernels
 from ..core.alphabet import DNA4
 from ..core.bitops import shr
 from ..core.encoder import minimizers_plain
+from ..core.spacer import Spacer
 from ..db import formats
 from ..db.table import ProbeArrays, probe_slots, unique_u64
 from ..io import fastx
@@ -116,14 +121,16 @@ def unpack_2bit(pcodes: torch.Tensor, nmask: Optional[torch.Tensor] = None):
 
 
 def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
-                       canon: bool, arr: ProbeArrays, want_idx: bool):
-    """Plain torch K1: unpack_2bit -> lproc slice -> unwindowed emissions
-    -> probe_slots -> (hit, valid, cidx int32, oidx int32).  cidx is the
-    compact taxonomy index (low half of the packed value); oidx the
-    dictionary index (``want_idx``) or the original taxid (high half);
-    both are 0 where there is no hit."""
+                       canon: bool, arr: ProbeArrays, want_idx: bool,
+                       positions=None):
+    """Plain torch K1: unpack_2bit -> lproc slice -> emissions at W = 1
+    (unwindowed, or spaced at the k offsets ``positions``) -> probe_slots
+    -> (hit, valid, cidx int32, oidx int32).  cidx is the compact taxonomy
+    index (low half of the packed value); oidx the dictionary index
+    (``want_idx``) or the original taxid (high half); both are 0 where
+    there is no hit."""
     codes = unpack_2bit(pcodes, nmask)[:, :lproc]
-    em = minimizers_plain(codes, lengths, k, 1, canon)
+    em = minimizers_plain(codes, lengths, k, 1, canon, positions=positions)
     packed, found, sel = probe_slots(em.values, arr, want_idx=True)
     hit = em.mask & found
     cidx = as_i32(torch.where(hit, packed, 0))
@@ -132,13 +139,17 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
 
 
 def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
-                 arr: ProbeArrays, want_idx: bool):
+                 arr: ProbeArrays, want_idx: bool, positions=None):
     """K1 (``csrc/encode_probe.cu``): see ``encode_probe_plain``, which
     serves CPU tensors.  pcodes (B, w16) int32, nmask (B, nmw) int32 or
-    None, lengths (B,) int32; outputs (B, P) with P = lproc - k + 1."""
+    None, lengths (B,) int32; outputs (B, P) with P = lproc - c + 1, c the
+    seed's span (k when ``positions`` is None).  A spaced seed runs the
+    kernel's second entry point (counted in ``encode_probe.variants``)."""
+    if positions is not None and canon:
+        raise ValueError("a spaced seed is never canonicalized")
     if pcodes.device.type == "cpu":
         return encode_probe_plain(pcodes, nmask, lengths, lproc, k, canon,
-                                  arr, want_idx)
+                                  arr, want_idx, positions)
     if pcodes.device.type != "cuda":
         raise ValueError(f"encode_probe: no kernel for device {pcodes.device}")
     dev = pcodes.device
@@ -147,6 +158,12 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
     kernels.check(lengths, "lengths", torch.int32, dev, (B,))
     if not 1 <= k <= 32:
         raise ValueError(f"k={k}: the kernel takes 1 <= k <= 32")
+    if positions is not None and (
+            len(positions) != k or int(positions[0]) != 0
+            or any(y <= x for x, y in zip(positions, positions[1:]))):
+        raise ValueError(f"positions {list(positions)}: k={k} increasing "
+                         "offsets from 0 expected")
+    c = k if positions is None else int(positions[-1]) + 1
     if lproc > w16 * 16:
         raise ValueError(f"lproc={lproc} exceeds the {w16 * 16} packed codes")
     nmw = 0
@@ -163,25 +180,40 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         raise ValueError("slots must be 16-byte aligned")
     if not arr.inline and tuple(arr.vals.shape) != (nb, 4):
         raise ValueError(f"flat vals must be ({nb}, 4)")
-    P = max(lproc - k + 1, 0)
+    P = max(lproc - c + 1, 0)
     hit = torch.empty((B, P), dtype=torch.bool, device=dev)
     valid = torch.empty((B, P), dtype=torch.bool, device=dev)
     cidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     oidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     if B * P:
-        kernels.launch(
-            "bk_encode_probe", dev, pcodes.data_ptr(), w16,
-            kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k, int(canon),
-            arr.slots.data_ptr(), arr.lgnb, arr.vbits, arr.vals.data_ptr(),
-            arr.vals.numel(), int(arr.inline), int(want_idx),
-            hit.data_ptr(), valid.data_ptr(), cidx.data_ptr(),
-            oidx.data_ptr(),
-        )
+        if positions is None:
+            kernels.launch(
+                "bk_encode_probe", dev, pcodes.data_ptr(), w16,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                int(canon), arr.slots.data_ptr(), arr.lgnb, arr.vbits,
+                arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
+                int(want_idx), hit.data_ptr(), valid.data_ptr(),
+                cidx.data_ptr(), oidx.data_ptr(),
+            )
+        else:
+            kernels.launch(
+                "bk_encode_probe_spaced", dev, pcodes.data_ptr(), w16,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                (ctypes.c_int32 * 32)(*(int(x) for x in positions)),
+                arr.slots.data_ptr(), arr.lgnb, arr.vbits,
+                arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
+                int(want_idx), hit.data_ptr(), valid.data_ptr(),
+                cidx.data_ptr(), oidx.data_ptr(),
+            )
+        variant = "contiguous" if positions is None else "spaced"
         encode_probe.launches += 1
+        encode_probe.variants[variant] = encode_probe.variants.get(variant,
+                                                                   0) + 1
     return hit, valid, cidx, oidx
 
 
 encode_probe.launches = 0
+encode_probe.variants = {}
 
 
 # -- K3: step outputs ------------------------------------------------------------
@@ -335,32 +367,27 @@ class Classifier:
     def __init__(self, db: formats.Database, tree, canonicalize: bool = True,
                  emit_all: bool = False, emit_kraken: bool = True,
                  emit_fastq: bool = False, device="cuda", max_runs: int = 8):
-        if any(db.gaps):
-            raise NotImplementedError(
-                "spaced-seed databases are not ported (ROADMAP queue A, "
-                "encoders)"
-            )
         table = db.table
         slots, vals, inline = table.arrays_np(formats.packed_values(table, tree))
         n_distinct = int(unique_u64(
             tree.compact(table.vals_sorted, missing_ok=True)).size)
         self._setup(slots, vals, inline, table.lgnb, table.vbits, n_distinct,
                     db.k, canonicalize, tree, emit_all, emit_kraken,
-                    emit_fastq, device, max_runs)
+                    emit_fastq, device, max_runs, db.gaps)
 
     @classmethod
     def from_arrays(cls, slots, vals, inline: bool, lgnb: int, vbits: int,
                     n_distinct: int, k: int, tree, canonicalize: bool = True,
                     emit_all: bool = False, emit_kraken: bool = True,
                     emit_fastq: bool = False, device="cuda",
-                    max_runs: int = 8):
+                    max_runs: int = 8, gaps=None):
         """A classifier over a slot image held as numpy arrays: the
         ``_arrays``, ``_n_distinct`` and tree of a JAX ``Classifier``, or a
-        probe image."""
+        probe image; ``gaps`` are a spaced seed's k - 1 gaps."""
         self = cls.__new__(cls)
         self._setup(slots, vals, inline, lgnb, vbits, n_distinct, k,
                     canonicalize, tree, emit_all, emit_kraken, emit_fastq,
-                    device, max_runs)
+                    device, max_runs, gaps)
         return self
 
     @classmethod
@@ -375,20 +402,27 @@ class Classifier:
                 "probe image was built against a different taxonomy "
                 f"(digest {img.tree_digest})"
             )
-        if any(img.gaps):
-            raise NotImplementedError("spaced-seed probe images are not ported")
         return cls.from_arrays(
             img.slots, img.vals, img.inline, img.lgnb, img.vbits,
             img.n_distinct, img.k, tree, img.canonicalize, emit_all,
-            emit_kraken, emit_fastq, device, max_runs,
+            emit_kraken, emit_fastq, device, max_runs, img.gaps,
         )
 
     def _setup(self, slots, vals, inline, lgnb, vbits, n_distinct, k,
                canonicalize, tree, emit_all, emit_kraken, emit_fastq,
-               device, max_runs):
+               device, max_runs, gaps=None):
         self.device = _device(device)
-        self.k = int(k)
-        self.canon = bool(canonicalize)
+        if int(k) > 32:
+            raise NotImplementedError(
+                f"k={k} (128-bit k-mers) is not ported (ROADMAP queue A, "
+                "item 8.6)")
+        # classify always uses w = k (bin/bonsai.cpp:152); a spaced seed
+        # cannot canonicalize (encoder.h:148-150)
+        self.sp = Spacer(int(k), int(k), list(gaps) if gaps else None)
+        self.k = self.sp.k
+        self.canon = bool(canonicalize) and self.sp.unspaced()
+        self.positions = (None if self.sp.unspaced() else
+                          tuple(int(p) for p in self.sp.positions))
         self.tree = tree
         self.emit_all = emit_all
         self.emit_kraken = emit_kraken
@@ -460,6 +494,7 @@ class Classifier:
         hit, valid, cidx, oidx = encode_probe(
             up(pcodes), up(nmask), up(lengths), lproc, self.k, self.canon,
             self.arr, want_idx=dict_size is not None,
+            positions=self.positions,
         )
         valid1 = valid.sum(dim=-1, dtype=torch.int32)
         if paired:
@@ -502,7 +537,7 @@ class Classifier:
         overflow) into a BatchResult."""
         n = len(batch.names)
         R = n // 2 if paired else n
-        P = max(lproc - self.k + 1, 0)
+        P = max(lproc - self.sp.c + 1, 0)
         W = 2 * P if paired else P
         uniq = self._uniq_host
         kind, vb, lb, hw, _ = compact_layout(
@@ -565,7 +600,7 @@ class Classifier:
                    .astype(bool).reshape(R, hb * 32)[:, :W])
             # trim the length-padding columns (always misses) to the
             # batch's read width
-            Pt = max(batch.codes.shape[1] - self.k + 1, 0)
+            Pt = max(batch.codes.shape[1] - self.sp.c + 1, 0)
             if Pt < P:
                 if paired:
                     taxa = np.concatenate([taxa[:, :Pt], taxa[:, P : P + Pt]], 1)
@@ -711,7 +746,7 @@ class Classifier:
         res = self._finish_batch(batch, out, is_paired)
         t1 = time.perf_counter()
         out_fh.write(out_mod.format_batch(
-            res, self.k, emit_all=self.emit_all, emit_kraken=self.emit_kraken,
+            res, self.sp.c, emit_all=self.emit_all, emit_kraken=self.emit_kraken,
             emit_fastq=self.emit_fastq,
         ))
         stats["materialize"] += t1 - t0

@@ -4,22 +4,24 @@
 Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
 
-  build OUT GENOMES... -k K [-w W] -T nodes.dmp -M nameidmap [-C] [-z]
-        [-F paths] [--device-build] [--device cuda|cpu]
-  prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-C] [-t|-f]
-        [-F paths] [--device-build] [--device cuda|cpu]
+  build OUT GENOMES... -k K [-w W] [-S SPACING] [-e] -T nodes.dmp
+        -M nameidmap [-C] [-z] [-F paths] [--device-build]
+        [--device cuda|cpu]
+  prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-S SPACING] [-C]
+        [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
            [-c CHUNK] [--profile] [--device cuda|cpu]
 
 ``classify`` and the ``--device-build`` builds run on ``--device``
 (default cuda, which must be present; cpu runs the kernels' plain torch
-versions).  ``classify`` reads a BTPU1 database file or a probe-image
-directory, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
+versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
+(``-e``) and uncanonical windows (``-C -w``); ``classify`` reads a BTPU1
+database file or a probe-image directory, of a contiguous or a spaced
+seed, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
 gzips the BTPU1 file whatever its name, as the reference does.  Options
-of ``bonsai_tpu`` that are not ported (spaced seeds, entropy scores,
-hash-scored phase 2, other file formats, sharded output, the uncanonical
-windowed discipline) and inputs that the port refuses exit 2 with the
-ROADMAP item that holds them.
+of ``bonsai_tpu`` that are not ported (hash-scored phase 2, other file
+formats, sharded output, k > 32) and inputs that the port refuses exit 2
+with the ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -64,10 +66,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-C", "--no-canon", action="store_true")
     p.add_argument("-z", "--gzip", action="store_true",
                    help="write the database gzipped")
+    p.add_argument("-S", "--spacing", default="",
+                   help="spaced seed: k-1 gaps, e.g. 0x16,1x4")
+    p.add_argument("-e", "--entropy", action="store_true",
+                   help="entropy-file minimizer scores")
     _device_args(p)
     # not ported: each exits non-zero (_unported)
-    p.add_argument("-S", "--spacing", default="")
-    p.add_argument("-e", "--entropy", action="store_true")
     p.add_argument("-t", "--tax-depth", action="store_true")
     p.add_argument("-f", "--feature-count", action="store_true")
     p.add_argument("--phase1-db", default=None)
@@ -85,23 +89,22 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--tax-depth", action="store_true")
     p.add_argument("-f", "--feature-count", action="store_true")
     p.add_argument("-F", "--paths-file", default=None)
+    p.add_argument("-S", "--spacing", default="",
+                   help="spaced seed: k-1 gaps, e.g. 0x16,1x4")
     _device_args(p)
-    p.add_argument("-S", "--spacing", default="")  # not ported
     return ap
 
 
 def _device_args(p) -> None:
     p.add_argument("--device-build", action="store_true",
                    help="run the k-mer fold on the device "
-                        "(db/build_device.py: kernels KB1-KB3)")
+                        "(db/build_device.py: kernels KB1-KB4)")
     p.add_argument("--device", default="cuda",
                    help="device of --device-build: cuda (kernels, default) "
                         "or cpu (their plain torch versions)")
 
 
 _UNPORTED = {
-    "spacing": "spaced seeds (-S): ROADMAP queue A, item 8",
-    "entropy": "entropy scores (-e): ROADMAP queue A, item 8",
     "tax_depth": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP queue A, "
                  "item 9",
     "feature_count": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP "
@@ -121,7 +124,7 @@ def _unported(args, names) -> str | None:
         if getattr(args, name) not in ("", "0", False, None):
             return f"not ported: {_UNPORTED[name]}"
     if args.k > 32:
-        return "not ported: 128-bit k-mers (k > 32): ROADMAP queue A, item 8"
+        return "not ported: 128-bit k-mers (k > 32): ROADMAP queue A, item 8.6"
     return None
 
 
@@ -141,7 +144,7 @@ def main(argv=None) -> int:
     build = args.cmd in ("build", "p2", "phase2")
     if args.cmd != "classify":
         # prebuild's -t/-f choose the phase-1 map; build's are not ported
-        msg = _unported(args, _UNPORTED if build else ("spacing",))
+        msg = _unported(args, _UNPORTED if build else ())
         if msg is not None:
             print(msg, file=sys.stderr)
             return 2
@@ -180,7 +183,7 @@ def _cmd_classify(args) -> int:
 
 
 def _cmd_build(args) -> int:
-    from .core.spacer import Spacer
+    from .core.spacer import Spacer, parse_spacing
     from .db.formats import Database, save_database
     from .taxonomy.tree import TaxTree
 
@@ -190,32 +193,37 @@ def _cmd_build(args) -> int:
         return 1
     k = args.k
     w = max(args.w, k)
-    sp = Spacer(k, w)
+    gaps = parse_spacing(args.spacing, k)
+    sp = Spacer(k, w, gaps)
     tree = TaxTree.from_nodes_dmp(args.tax_path)
     canon = not args.no_canon
+    # `bonsai build -e` scores through the file overload's generic
+    # windowed loops (core/entropy.py)
+    scheme = "entropy-file" if args.entropy else "lex"
     if args.device_build:
         from .db.build_device import device_lca_map
 
-        table = device_lca_map(paths, tree, args.seq2tax, sp, canon,
+        table = device_lca_map(paths, tree, args.seq2tax, sp, canon, scheme,
                                device=args.device)
     else:
         from .db.build import lca_map
 
-        table = lca_map(paths, tree, args.seq2tax, sp, canon)
-    db = Database(table=table, k=k, w=w, gaps=[0] * (k - 1),
-                  canonicalize=canon, scheme="lex")
+        table = lca_map(paths, tree, args.seq2tax, sp, canon, scheme)
+    db = Database(table=table, k=k, w=w, gaps=gaps, canonicalize=canon,
+                  scheme=scheme)
     save_database(db, args.out_path, compress="gz" if args.gzip else None)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
     return 0
 
 
 def _cmd_prebuild(args) -> int:
-    from .core.spacer import Spacer
+    from .core.spacer import Spacer, parse_spacing
     from .db.formats import Database, save_database
     from .taxonomy.tree import TaxTree
 
     k = args.k
-    sp = Spacer(k, k)
+    gaps = parse_spacing(args.spacing, k)
+    sp = Spacer(k, k, gaps)
     tree = TaxTree.from_nodes_dmp(args.tax_path)
     paths = _paths(args)
     canon = not args.no_canon
@@ -235,8 +243,8 @@ def _cmd_prebuild(args) -> int:
     else:
         table = build_td(paths, tree, args.seq2tax, sp, canon)
         scheme = "tax_depth"
-    db = Database(table=table, k=k, w=k, gaps=[0] * (k - 1),
-                  canonicalize=canon, scheme=scheme)
+    db = Database(table=table, k=k, w=k, gaps=gaps, canonicalize=canon,
+                  scheme=scheme)
     save_database(db, args.out_path)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
     return 0

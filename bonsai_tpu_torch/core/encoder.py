@@ -1,39 +1,58 @@
-"""Batched encoder facade: the contiguous lex disciplines.
+"""Batched encoder facade: the DNA seed disciplines of ``build`` and
+``classify``.
 
 Counterpart of ``bonsai_tpu/core/encoder.py`` ``BatchEncoder.emissions``
-on two branches:
+(:130-220) for DNA seeds of k <= 32 and the schemes ``lex`` (score
+frev64) and ``entropy-file`` (score u64(kmer / (-1 + 1e-4)),
+``core/entropy.py``; ``build -e``):
 
-* unwindowed (encoder.py:141-153), the one ``classify`` runs (w = k,
+* unwindowed, contiguous (:141-153; ``classify`` runs it, w = k,
   bin/bonsai.cpp:152): encode every window, drop windows that hold an N
   or run past the read, canonicalize or not;
-* canonical windowed with scheme ``lex`` (:174-184): every in-length
-  position is pushed, an N window pushes canonical(OVERFLOW) == 0 (a real
-  key, not a pad), the score is ``frev64`` of the canonical k-mer, and
-  slot j emits the (score, kmer) minimum of positions [j, j + W - 1]
-  iff j + W <= max(len - (k - 1), 0).
+* canonical windowed, contiguous (:174-184): every in-length position is
+  pushed, an N window pushes canonical(OVERFLOW) == 0 (a real key, not a
+  pad), the score is that of the canonical k-mer, and slot j emits the
+  (score, kmer) minimum of positions [j, j + W - 1] iff
+  j + W <= max(len - (k - 1), 0);
+* spaced (:189-204; ``-S``, and ``classify`` against a spaced database at
+  W = 1): never canonical, every position pushed, an N seed pushes
+  U64_MAX (scored frev64(U64_MAX), or 0x8000000000000000 under
+  entropy-file), and an emission equal to U64_MAX is dropped;
+* uncanonical windowed, contiguous (:161-173, :185-188, :206-220;
+  ``-C -w``): only valid seeds are pushed, the window slides over the
+  subsequence of valid seeds, and a final partial window (0 < n_valid <
+  W) emits its best seed once, in column 0, so E = 1 + (P - W + 1).
 
 ``minimizers`` is the wrapper of the CUDA kernel KB1
-(``csrc/minimizers.cu``) that computes both; ``minimizers_plain`` is its
-plain torch version, which serves CPU tensors.  The uncanonical windowed,
-spaced, entropy and hash disciplines and non-DNA input raise
-``NotImplementedError`` (ROADMAP queue A, item 8).
+(``csrc/minimizers.cu``), which computes the first three;
+``compacted_minimizers`` that of KB4 (``csrc/compacted_minimizers.cu``),
+which computes the last.  ``minimizers_plain`` and
+``compacted_minimizers_plain`` are their plain torch versions, which
+serve CPU tensors.  The scheme ``entropy`` (item 8.3b), the scheme
+``hash`` (item 8.4), non-DNA input (item 8.5) and k > 32 (item 8.6)
+raise ``NotImplementedError`` with their ROADMAP queue A item.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from .. import kernels
 from . import encode
 from .alphabet import InputType
-from .bitops import canonical
+from .bitops import SIGN, canonical
+from .entropy import FILE_DENOM, file_scores
 from .hashes import frev64
-from .minimize import positional_minimizers
+from .minimize import compacted_minimizers as _compacted, positional_minimizers
 from .spacer import Spacer
 
-MAX_W = 8192  # KB1 stages a tile's W - 1 halo of scores in shared memory
+MAX_W = 8192  # KB1 and KB4 stage a tile's W - 1 halo in shared memory
+SMEM_BYTES = 232_448  # shared memory a block may take on an H100
+SCHEMES = ("lex", "entropy-file")
+U64_MAX = -1  # as int64
 
 
 class Emissions(NamedTuple):
@@ -49,99 +68,238 @@ def _empty(codes: torch.Tensor) -> Emissions:
     )
 
 
+def _scores(kmers: torch.Tensor, scheme: str) -> torch.Tensor:
+    return frev64(kmers) if scheme == "lex" else file_scores(kmers)
+
+
+def _span(k: int, positions: Optional[Sequence[int]]) -> int:
+    return k if positions is None else int(positions[-1]) + 1
+
+
 def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                     W: int, canon: bool) -> Emissions:
+                     W: int, canon: bool, scheme: str = "lex",
+                     positions: Optional[Sequence[int]] = None) -> Emissions:
     """Plain torch KB1: (B, L) int8 codes (-1 = N or pad), (B,) lengths ->
-    (B, E) emissions, E = L - k - W + 2.  W = 1 is the unwindowed
-    discipline; W > 1 needs ``canon``."""
-    if codes.shape[-1] < k:
+    (B, E) emissions, E = L - c - W + 2 with c the seed's span.
+    ``positions`` (the k offsets of a spaced seed, ``Spacer.positions``)
+    makes the spaced discipline, which takes no ``canon``; otherwise W = 1
+    is the unwindowed discipline and W > 1 needs ``canon``."""
+    c = _span(k, positions)
+    if codes.shape[-1] < c:
         return _empty(codes)
-    kmers, invalid = encode.pack_kmers(codes, k)
+    if positions is None:
+        kmers, invalid = encode.pack_kmers(codes, k)
+    else:
+        offsets = [int(b) - int(a) for a, b in zip(positions, positions[1:])]
+        kmers, invalid = encode.pack_spaced_kmers(codes, offsets)
     kmers = encode.apply_mask(kmers, k, InputType.DNA)
     P = kmers.shape[-1]
-    if W == 1:
+    n_push = torch.clamp(lengths.to(torch.int64) - (c - 1), min=0)
+    if positions is None and W == 1:
         valid = encode.position_validity(lengths, P, k) & ~invalid
         return Emissions(canonical(kmers, k) if canon else kmers, valid)
-    if not canon:
-        raise NotImplementedError(
-            "uncanonical windowed minimizers are not ported "
-            "(ROADMAP queue A, item 8)")
-    ck = torch.where(invalid, 0, canonical(kmers, k))
+    if positions is None:
+        if not canon:
+            raise ValueError("uncanonical contiguous windows are "
+                             "compacted_minimizers' discipline")
+        ck = torch.where(invalid, 0, canonical(kmers, k))
+        if P < W:
+            return _empty(codes)
+        return Emissions(*positional_minimizers(_scores(ck, scheme), ck, W,
+                                                n_push))
+    if canon:
+        raise ValueError("a spaced seed is never canonicalized")
+    ov = torch.where(invalid, U64_MAX, kmers)
+    scores = _scores(ov, scheme)
+    if scheme == "entropy-file":  # a partial tracker: NOT_FULL's quotient
+        scores = torch.where(invalid, SIGN, scores)
     if P < W:
         return _empty(codes)
-    n_push = torch.clamp(lengths.to(torch.int64) - (k - 1), min=0)
-    return Emissions(*positional_minimizers(frev64(ck), ck, W, n_push))
+    out_k, out_v = positional_minimizers(scores, ov, W, n_push)
+    return Emissions(out_k, out_v & (out_k != U64_MAX))
 
 
-def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
-               canon: bool) -> Emissions:
-    """KB1 (``csrc/minimizers.cu``): see ``minimizers_plain``, which serves
-    CPU tensors.  codes (B, L) int8, lengths (B,) int32 -> values (B, E)
-    int64 and an ``emitted`` mask (B, E) bool; a value is never a
-    sentinel (at k = 32 a real k-mer can be U64_MAX)."""
-    if codes.device.type == "cpu":
-        return minimizers_plain(codes, lengths, k, W, canon)
-    if codes.device.type != "cuda":
-        raise ValueError(f"minimizers: no kernel for device {codes.device}")
+def kb1_smem_bytes(span: int, W: int) -> int:
+    """KB1's shared memory for a seed of span c and a window of W
+    (``layout`` in csrc/minimizers.cu), with 512 B for the staged seed."""
+    npos = 4096 + W - 1
+    nsx = (npos - 1) + ((npos - 1) >> 4) + 1
+    code_off = (nsx * 8 * (2 if W > 1 else 1) + 15) // 16 * 16
+    return code_off + (npos + span - 1 + 30) // 16 * 16 + 512
+
+
+def _check_args(name, codes, lengths, k, W, scheme):
     dev = codes.device
     if codes.dim() != 2:
         raise ValueError(f"codes: shape {tuple(codes.shape)}, expected (B, L)")
-    B, L = codes.shape
+    B = codes.shape[0]
     kernels.check(codes, "codes", torch.int8, dev)
     kernels.check(lengths, "lengths", torch.int32, dev, (B,))
     if not 1 <= k <= 32:
         raise ValueError(f"k={k}: the kernel takes 1 <= k <= 32")
     if not 1 <= W <= MAX_W:
         raise ValueError(f"window of {W} k-mers: the kernel takes 1..{MAX_W}")
+    if scheme not in SCHEMES:
+        raise ValueError(f"{name}: scheme {scheme!r}, the kernel takes {SCHEMES}")
+
+
+def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
+               canon: bool, scheme: str = "lex",
+               positions: Optional[Sequence[int]] = None) -> Emissions:
+    """KB1 (``csrc/minimizers.cu``): see ``minimizers_plain``, which serves
+    CPU tensors.  codes (B, L) int8, lengths (B,) int32 -> values (B, E)
+    int64 and an ``emitted`` mask (B, E) bool; a value is never a
+    sentinel (at k = 32 a real k-mer can be U64_MAX).  Contiguous lex
+    seeds run the kernel's first entry point; spaced seeds and the
+    entropy-file score its second (counted in ``minimizers.variants``)."""
+    if codes.device.type == "cpu":
+        return minimizers_plain(codes, lengths, k, W, canon, scheme, positions)
+    if codes.device.type != "cuda":
+        raise ValueError(f"minimizers: no kernel for device {codes.device}")
+    dev = codes.device
+    _check_args("minimizers", codes, lengths, k, W, scheme)
+    B, L = codes.shape
     if B > 65535:
         raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
-    if W > 1 and not canon:
-        raise NotImplementedError(
-            "uncanonical windowed minimizers are not ported "
-            "(ROADMAP queue A, item 8)")
-    E = L - k - W + 2
+    c = _span(k, positions)
+    if positions is not None:
+        if len(positions) != k or int(positions[0]) != 0:
+            raise ValueError(f"positions {list(positions)}: k={k} offsets "
+                             "from 0 expected")
+        if canon:
+            raise ValueError("a spaced seed is never canonicalized")
+        if any(b <= a for a, b in zip(positions, positions[1:])):
+            raise ValueError(f"positions {list(positions)}: not increasing")
+        if kb1_smem_bytes(c, W) > SMEM_BYTES:
+            raise ValueError(f"seed span {c} with a window of {W}: the "
+                             "kernel's tile does not fit in shared memory")
+    elif W > 1 and not canon:
+        raise ValueError("uncanonical contiguous windows are "
+                         "compacted_minimizers' discipline")
+    E = L - c - W + 2
     if E <= 0 or B == 0:
         return _empty(codes)
     keys = torch.empty((B, E), dtype=torch.int64, device=dev)
     emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
-    kernels.launch("bk_minimizers", dev, codes.data_ptr(), lengths.data_ptr(),
-                   B, L, k, W, int(canon), keys.data_ptr(), emitted.data_ptr())
+    if positions is None and scheme == "lex":
+        kernels.launch("bk_minimizers", dev, codes.data_ptr(),
+                       lengths.data_ptr(), B, L, k, W, int(canon),
+                       keys.data_ptr(), emitted.data_ptr())
+        variant = "lex"
+    else:
+        pos = (ctypes.c_int32 * 32)(*(int(p) for p in (positions or ())))
+        entropy = scheme == "entropy-file"
+        kernels.launch("bk_minimizers_ext", dev, codes.data_ptr(),
+                       lengths.data_ptr(), B, L, k, W, int(canon),
+                       int(positions is not None), pos, c, int(entropy),
+                       FILE_DENOM, keys.data_ptr(), emitted.data_ptr())
+        variant = ("spaced" if positions is not None else "contiguous") + (
+            " entropy-file" if entropy else "")
     minimizers.launches += 1
+    minimizers.variants[variant] = minimizers.variants.get(variant, 0) + 1
     return Emissions(keys, emitted)
 
 
 minimizers.launches = 0
+minimizers.variants = {}
+
+
+def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
+                               k: int, W: int,
+                               scheme: str = "lex") -> Emissions:
+    """Plain torch KB4: (B, L) int8 codes, (B,) lengths -> (B, E)
+    emissions of the uncanonical contiguous windowed discipline,
+    E = 1 + max(P - W + 1, 0), P = L - k + 1 (none when L < k).  Column 0
+    is the trailing partial window: valid iff 0 < n_valid < W, and then
+    the minimum of the row's n_valid seeds; U64_MAX otherwise (the JAX
+    package leaves the minimum of every pushed seed there, a value no
+    mask lets out).  Column 1 + j is the minimum of compacted seeds
+    [j, j + W - 1], the sentinel U64_MAX standing in past n_valid; valid
+    iff j + W <= n_valid."""
+    if codes.shape[-1] < k:
+        return _empty(codes)
+    kmers, invalid = encode.pack_kmers(codes, k)
+    kmers = encode.apply_mask(kmers, k, InputType.DNA)
+    valid = encode.position_validity(lengths, kmers.shape[-1], k) & ~invalid
+    out_k, out_v, tail_k, tail_v = _compacted(_scores(kmers, scheme), kmers,
+                                              valid, W)
+    tail_k = torch.where(tail_v, tail_k, U64_MAX)
+    return Emissions(torch.cat([tail_k[:, None], out_k], dim=-1),
+                     torch.cat([tail_v[:, None], out_v], dim=-1))
+
+
+def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                         W: int, scheme: str = "lex") -> Emissions:
+    """KB4 (``csrc/compacted_minimizers.cu``): see
+    ``compacted_minimizers_plain``, which serves CPU tensors.  codes
+    (B, L) int8, lengths (B,) int32 -> values (B, E) int64, emitted
+    (B, E) bool."""
+    if codes.device.type == "cpu":
+        return compacted_minimizers_plain(codes, lengths, k, W, scheme)
+    if codes.device.type != "cuda":
+        raise ValueError(
+            f"compacted_minimizers: no kernel for device {codes.device}")
+    dev = codes.device
+    _check_args("compacted_minimizers", codes, lengths, k, W, scheme)
+    B, L = codes.shape
+    if B > 65535:
+        raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
+    if L - k + 1 >= 1 << 30:
+        raise ValueError(f"{L - k + 1} seeds a row: the kernel takes < 2^30")
+    if L < k or B == 0:
+        return _empty(codes)
+    P = L - k + 1
+    E = 1 + max(P - W + 1, 0)
+    keys = torch.empty((B, E), dtype=torch.int64, device=dev)
+    emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
+    scratch = kernels.scratch("bk_compacted_minimizers", (B, L), dev)
+    kernels.launch("bk_compacted_minimizers", dev, codes.data_ptr(),
+                   lengths.data_ptr(), B, L, k, W,
+                   int(scheme == "entropy-file"), FILE_DENOM, keys.data_ptr(),
+                   emitted.data_ptr(), scratch.data_ptr())
+    compacted_minimizers.launches += 1
+    return Emissions(keys, emitted)
+
+
+compacted_minimizers.launches = 0
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported (ROADMAP queue A, "
+                               f"item {item})")
 
 
 class BatchEncoder:
     def __init__(self, spacer: Spacer, canonicalize: bool = True,
                  scheme: str = "lex",
                  input_type: InputType = InputType.DNA):
-        if scheme != "lex":
-            raise NotImplementedError(
-                f"scheme {scheme!r}: only the lex disciplines are ported "
-                "(ROADMAP queue A, item 8)"
-            )
-        if not spacer.unspaced():
-            raise NotImplementedError(
-                f"{spacer!r}: spaced seeds are not ported "
-                "(ROADMAP queue A, item 8)"
-            )
+        if scheme not in ("lex", "entropy", "entropy-file", "hash"):
+            raise ValueError(f"unknown scheme {scheme}")
+        if scheme == "entropy":
+            raise _unported("the scheme 'entropy' (windowed Shannon "
+                            "entropy)", "8.3b")
+        if scheme == "hash":
+            raise _unported("the scheme 'hash' (phase-1 score lookup)", "8.4")
         if InputType(input_type) != InputType.DNA:
-            raise NotImplementedError(
-                f"input type {InputType(input_type).name}: only DNA is ported "
-                "(ROADMAP queue A, item 8)"
-            )
-        if not canonicalize and not spacer.unwindowed():
-            raise NotImplementedError(
-                f"{spacer!r} without canonicalization: the uncanonical "
-                "windowed discipline is not ported (ROADMAP queue A, item 8)"
-            )
+            raise _unported(f"input type {InputType(input_type).name}", "8.5")
+        if spacer.k > 32:
+            raise _unported(f"k={spacer.k} (128-bit k-mers)", "8.6")
         self.sp = spacer
         self.it = InputType(input_type)
-        self.canon = bool(canonicalize)
+        self.scheme = scheme
+        # spaced seeds cannot canonicalize (encoder.h:148-150)
+        self.canon = bool(canonicalize) and spacer.unspaced()
 
     def emissions(self, codes: torch.Tensor, lengths: torch.Tensor) -> Emissions:
         """codes: (B, L) int8 (pad with -1); lengths: (B,) int32."""
-        return minimizers(codes, lengths, self.sp.k, self.sp.window_kmers,
-                          self.canon)
+        sp = self.sp
+        if not sp.unspaced():
+            return minimizers(codes, lengths, sp.k, sp.window_kmers, False,
+                              self.scheme, tuple(int(p) for p in sp.positions))
+        if sp.unwindowed():  # no window: no score
+            return minimizers(codes, lengths, sp.k, 1, self.canon)
+        if self.canon:
+            return minimizers(codes, lengths, sp.k, sp.window_kmers, True,
+                              self.scheme)
+        return compacted_minimizers(codes, lengths, sp.k, sp.window_kmers,
+                                    self.scheme)

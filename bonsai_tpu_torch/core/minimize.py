@@ -1,13 +1,19 @@
 """Windowed minimizer selection as data-parallel sliding minimums.
 
-Counterpart of ``bonsai_tpu/core/minimize.py`` for the positional
-discipline (``_min2`` :35, ``sliding_min`` :41, ``positional_minimizers``
-:65): every seed position is pushed, and slot j emits the (score, kmer)
-minimum of the window [j, j + W - 1].  Scores and k-mers are u64 bits
-held in int64, so every compare is unsigned (bit 63 flipped before the
-signed compare).  The compacted discipline (``compact_valid``,
-``compacted_minimizers``) belongs to the uncanonical windowed encoder,
-which is not ported yet (ROADMAP queue A, item 8).
+Counterpart of ``bonsai_tpu/core/minimize.py`` (``_min2`` :35,
+``sliding_min`` :41, ``positional_minimizers`` :65, ``compact_valid``
+:84, ``compacted_minimizers`` :109).  Two disciplines:
+
+* positional (canonical and spaced seeds): every seed position is
+  pushed, and slot j emits the (score, kmer) minimum of the window
+  [j, j + W - 1];
+* compacted (uncanonical contiguous seeds): only valid seeds are pushed,
+  the window slides over the subsequence of valid seeds, and a final
+  partial window emits its best element once.
+
+Scores and k-mers are u64 bits held in int64, so every compare is
+unsigned (bit 63 flipped before the signed compare); the compaction's
+U64_MAX sentinel, int64 -1, therefore orders last.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from .bitops import SIGN
+
+SENTINEL = -1  # U64_MAX as int64: the compaction's score and k-mer pad
 
 
 def _min2(s1, k1, s2, k2):
@@ -53,3 +61,49 @@ def positional_minimizers(scores: torch.Tensor, kmers: torch.Tensor, W: int,
     idx = torch.arange(out_k.shape[-1], device=out_k.device)
     out_valid = idx[None, :] < (n_push[:, None].to(torch.int64) - (W - 1))
     return out_k, out_valid
+
+
+def compact_valid(scores: torch.Tensor, kmers: torch.Tensor,
+                  valid: torch.Tensor):
+    """Stable-compact each row's valid entries to its front; the tail
+    holds the sentinel (score = kmer = U64_MAX)."""
+    B, P = scores.shape
+    dest = valid.to(torch.int64).cumsum(-1) - 1
+    dest = torch.where(valid, dest, P)  # dropped into a spare column
+    out = []
+    for x in (scores, kmers):
+        c = torch.full((B, P + 1), SENTINEL, dtype=torch.int64,
+                       device=x.device)
+        c.scatter_(1, dest, torch.where(valid, x, SENTINEL))
+        out.append(c[:, :P])
+    return tuple(out)
+
+
+def row_min(scores: torch.Tensor, kmers: torch.Tensor):
+    """The unsigned (score, kmer) minimum of each row: (B, P) -> (B,)."""
+    s = (scores ^ SIGN).min(dim=-1).values ^ SIGN
+    k = torch.where(scores == s[:, None], kmers ^ SIGN, SENTINEL ^ SIGN)
+    return s, k.min(dim=-1).values ^ SIGN
+
+
+def compacted_minimizers(scores: torch.Tensor, kmers: torch.Tensor,
+                         valid: torch.Tensor, W: int):
+    """Only valid seeds pushed: (B, P) scores, k-mers and flags ->
+    (out_kmers (B, P - W + 1), out_valid, tail_kmer (B,), tail_valid):
+    slot j is the minimum of compacted seeds [j, j + W - 1], valid iff
+    j + W <= n_valid; the tail is the minimum of every pushed seed (the
+    sentinel when none is), valid iff 0 < n_valid < W."""
+    n_valid = valid.sum(dim=-1)
+    cs, ck = compact_valid(scores, kmers, valid)
+    P = cs.shape[-1]
+    if P >= W:
+        _, out_k = sliding_min(cs, ck, W)
+        idx = torch.arange(out_k.shape[-1], device=out_k.device)
+        out_valid = idx[None, :] < (n_valid[:, None] - (W - 1))
+    else:
+        out_k = torch.zeros((cs.shape[0], 0), dtype=torch.int64,
+                            device=cs.device)
+        out_valid = torch.zeros((cs.shape[0], 0), dtype=torch.bool,
+                                device=cs.device)
+    _, tail_k = row_min(cs, ck)
+    return out_k, out_valid, tail_k, (n_valid > 0) & (n_valid < W)

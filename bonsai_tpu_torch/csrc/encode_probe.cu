@@ -32,9 +32,26 @@
 // at the scale probe's shape.  A slot row is two 16-byte vector loads
 // (sm_90 has no 32-byte load); the slot index is 64-bit, so tables with
 // nb * 4 >= 2^31 slots index correctly.
+//
+// A spaced seed (classify against a database built with -S; the
+// encoder's spaced branch, core/encoder.py:189-204, at W = 1 with
+// pack_spaced_kmers, encode.py:59) is the template's other instantiation:
+// position p's k-mer folds, high-first, the 2-bit fields at
+// p + positions[i], i < k, and its N bits come from the N mask; it is
+// uncanonical, and it is valid iff p < len - c + 1 (c = positions[k - 1]
+// + 1), it holds no N, and the k-mer is not U64_MAX.  Where c <= 32 the
+// fields come run by run out of the same funnel-shifted window the
+// contiguous k-mer uses, its groups reversed (spacing.cuh); past that, one
+// field at a time from the packed words (a word is loaded again only when
+// the next field lies in another).  The probe is the same.  The offsets
+// pass by value in the kernel's parameters and are staged in shared
+// memory; the contiguous instantiation reads none of them, so it is the
+// kernel it was before the template.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "spacing.cuh"
 
 namespace {
 
@@ -63,6 +80,7 @@ __device__ __forceinline__ uint64_t window96(uint32_t w0, uint32_t w1,
   return (lo >> s) | (((uint64_t)w2 << 32) << (32 - s));
 }
 
+template <bool kSpaced>
 __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint32_t* __restrict__ pcodes, int64_t w16,
     const uint32_t* __restrict__ nmask, int64_t nmw,
@@ -70,35 +88,81 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     int canon, const ulonglong2* __restrict__ slots, int lgnb, int vbits,
     const uint64_t* __restrict__ vals, int64_t n_vals, int is_inline,
     int want_idx, bool* __restrict__ hit, bool* __restrict__ valid,
-    int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx) {
+    int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx,
+    bk::Spacing sp) {
+  const bk::Spacing* ss = nullptr;
+  if constexpr (kSpaced) {
+    __shared__ bk::Spacing s_sp;
+    bk::stage_spacing(sp, &s_sp, threadIdx.x);
+    __syncthreads();
+    ss = &s_sp;
+  }
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const int64_t b = i / P;
   const int64_t p = i - b * P;
-
-  // bases p .. p + 31, base p in the low bits
   const uint32_t* pw = pcodes + b * w16;
-  const int64_t c = p >> 4;
-  const uint32_t w0 = __ldg(pw + c);
-  const uint32_t w1 = c + 1 < w16 ? __ldg(pw + c + 1) : 0u;
-  const uint32_t w2 = c + 2 < w16 ? __ldg(pw + c + 2) : 0u;
-  const uint64_t win = window96(w0, w1, w2, (int)(p & 15) * 2);
-  uint64_t kmer = reverse_groups(win) >> (64 - 2 * k);
-  if (canon) {
-    const uint64_t rc = ~win & (k < 32 ? (1ULL << (2 * k)) - 1 : ~0ULL);
-    kmer = rc < kmer ? rc : kmer;
+  uint64_t kmer = 0;
+  bool v;
+  if constexpr (kSpaced) {
+    // the k 2-bit fields at p + pos[j] (all below lproc <= 16 * w16) and
+    // their N bits
+    const int span = ss->span;
+    bool bad = false;
+    if (span <= 32) {
+      const int64_t c = p >> 4;
+      const uint32_t w0 = __ldg(pw + c);
+      const uint32_t w1 = c + 1 < w16 ? __ldg(pw + c + 1) : 0u;
+      const uint32_t w2 = c + 2 < w16 ? __ldg(pw + c + 2) : 0u;
+      const uint64_t win = window96(w0, w1, w2, (int)(p & 15) * 2);
+      kmer = bk::fold_runs(reverse_groups(win) >> (64 - 2 * span), *ss);
+      if (nmask != nullptr) {
+        const uint32_t* nm = nmask + b * nmw;
+        const int64_t d = p >> 5;
+        const uint32_t m0 = __ldg(nm + d);
+        const uint32_t m1 = d + 1 < nmw ? __ldg(nm + d + 1) : 0u;
+        bad = (((((uint64_t)m1 << 32) | m0) >> (p & 31)) & ss->nbits_lo) != 0;
+      }
+    } else {
+      const uint32_t* nm = nmask + b * nmw;
+      int64_t cw = -1, cm = -1;
+      uint32_t word = 0, mword = 0;
+      for (int j = 0; j < k; ++j) {
+        const int64_t q = p + ss->pos[j];
+        if (q >> 4 != cw) cw = q >> 4, word = __ldg(pw + cw);
+        kmer = (kmer << 2) | ((word >> (2 * (q & 15))) & 3u);
+        if (nmask != nullptr) {
+          if (q >> 5 != cm) cm = q >> 5, mword = __ldg(nm + cm);
+          bad |= (mword >> (q & 31)) & 1u;
+        }
+      }
+    }
+    v = !bad && kmer != ~0ULL &&
+        p < (int64_t)__ldg(lengths + b) - (span - 1);
+  } else {
+    // bases p .. p + 31, base p in the low bits
+    const int64_t c = p >> 4;
+    const uint32_t w0 = __ldg(pw + c);
+    const uint32_t w1 = c + 1 < w16 ? __ldg(pw + c + 1) : 0u;
+    const uint32_t w2 = c + 2 < w16 ? __ldg(pw + c + 2) : 0u;
+    const uint64_t win = window96(w0, w1, w2, (int)(p & 15) * 2);
+    kmer = reverse_groups(win) >> (64 - 2 * k);
+    if (canon) {
+      const uint64_t rc = ~win & (k < 32 ? (1ULL << (2 * k)) - 1 : ~0ULL);
+      kmer = rc < kmer ? rc : kmer;
+    }
+    bool bad = false;
+    if (nmask != nullptr) {
+      const uint32_t* nm = nmask + b * nmw;
+      const int64_t d = p >> 5;
+      const uint32_t m0 = __ldg(nm + d);
+      const uint32_t m1 = d + 1 < nmw ? __ldg(nm + d + 1) : 0u;
+      const uint64_t nbits = k < 32 ? (1ULL << k) - 1 : 0xFFFFFFFFULL;
+      bad = (((((uint64_t)m1 << 32) | m0) >> (p & 31)) & nbits) != 0;
+    }
+    // in-length validity: a read shorter than k has no valid position
+    v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
   }
-  bool bad = false;
-  if (nmask != nullptr) {
-    const uint32_t* nm = nmask + b * nmw;
-    const int64_t d = p >> 5;
-    const uint32_t m0 = __ldg(nm + d);
-    const uint32_t m1 = d + 1 < nmw ? __ldg(nm + d + 1) : 0u;
-    const uint64_t nbits = k < 32 ? (1ULL << k) - 1 : 0xFFFFFFFFULL;
-    bad = (((((uint64_t)m1 << 32) | m0) >> (p & 31)) & nbits) != 0;
-  }
-  // in-length validity: a read shorter than k has no valid position
-  const bool v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
 
   bool found = false;
   uint32_t sel = 0;   // u32 value index (inline) or bucket*4+lane (flat)
@@ -146,6 +210,24 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
   oidx[i] = h ? (want_idx ? sel : (uint32_t)(val >> 32)) : 0u;
 }
 
+template <bool kSpaced>
+int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
+           const void* lengths, int64_t B, int64_t P, int k, int canon,
+           const void* slots, int lgnb, int vbits, const void* vals,
+           int64_t n_vals, int is_inline, int want_idx, void* hit,
+           void* valid, void* cidx, void* oidx, const bk::Spacing& sp,
+           void* stream) {
+  const int64_t n = B * P;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  encode_probe_kernel<kSpaced>
+      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
+          (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots,
+          lgnb, vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx,
+          (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int bk_encode_probe(
@@ -154,12 +236,21 @@ extern "C" int bk_encode_probe(
     const void* slots, int lgnb, int vbits, const void* vals, int64_t n_vals,
     int is_inline, int want_idx, void* hit, void* valid, void* cidx,
     void* oidx, void* stream) {
-  const int64_t n = B * P;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  encode_probe_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
-      (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots, lgnb,
-      vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx, (bool*)hit,
-      (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx);
-  return (int)cudaGetLastError();
+  return launch<false>(pcodes, w16, nmask, nmw, lengths, B, P, k, canon,
+                       slots, lgnb, vbits, vals, n_vals, is_inline, want_idx,
+                       hit, valid, cidx, oidx, bk::Spacing{}, stream);
+}
+
+// A spaced seed of k offsets ``positions`` (a host array, positions[0] =
+// 0); P = lproc - positions[k - 1], uncanonical.
+extern "C" int bk_encode_probe_spaced(
+    const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
+    const void* lengths, int64_t B, int64_t P, int k,
+    const int32_t* positions, const void* slots, int lgnb, int vbits,
+    const void* vals, int64_t n_vals, int is_inline, int want_idx, void* hit,
+    void* valid, void* cidx, void* oidx, void* stream) {
+  return launch<true>(pcodes, w16, nmask, nmw, lengths, B, P, k, 0, slots,
+                      lgnb, vbits, vals, n_vals, is_inline, want_idx, hit,
+                      valid, cidx, oidx, bk::make_spacing(positions, k),
+                      stream);
 }

@@ -1,40 +1,60 @@
-// KB1 minimizers: contiguous DNA k-mers of a batch of rows, canonical or
-// not, and for windows of W > 1 k-mers the lex minimizer of each window.
+// KB1 minimizers: the DNA k-mers of a batch of rows, contiguous or spaced,
+// canonical or not, and for windows of W > 1 k-mers the minimizer of each
+// window by the lex or the entropy-file score.
 //
 // Replaces the device path of bonsai_tpu/core/encoder.py
-// BatchEncoder.emissions on its unwindowed branch (:141-153) and its
-// canonical windowed lex branch (:174-184), with what they call:
-// encode._pack_contig_fast (:66), apply_mask (:163), position_validity
-// (:141), bitops.canonical (:52), hashes.frev64 (:39) and
-// minimize.sliding_min / positional_minimizers (:41,65).  Per slot j of
-// row b, with n_push = max(len - (k - 1), 0):
-//   W = 1: value = canonical or raw k-mer at j (an N reads as code 0),
-//          emitted = j < n_push and the window holds no N;
-//   W > 1: every position pushes ck = N window ? 0 : canonical k-mer,
-//          scored frev64(ck); value = ck of the unsigned (score, ck)
-//          minimum over positions [j, j + W - 1], emitted = j + W <= n_push.
+// BatchEncoder.emissions on its unwindowed branch (:141-153), its
+// canonical windowed branch (:174-184) and its spaced branch (:189-204),
+// with what they call: encode._pack_contig_fast (:66), pack_spaced_kmers
+// and _pack (:59,108), apply_mask (:163), position_validity (:141),
+// bitops.canonical (:52), hashes.frev64 (:39), entropy.entropy_scores and
+// f64_to_u64_x86 (:91,34; scores.cuh) and minimize.sliding_min /
+// positional_minimizers (:41,65).  Per slot j of row b, with c the seed's
+// span (k when contiguous) and n_push = max(len - (c - 1), 0):
+//   contiguous, W = 1: value = canonical or raw k-mer at j (an N reads as
+//          code 0), emitted = j < n_push and the window holds no N;
+//   contiguous, W > 1 (canonical): every position pushes ck = N window ?
+//          0 : canonical k-mer, scored frev64(ck) or entropy-file(ck);
+//          value = ck of the unsigned (score, ck) minimum over positions
+//          [j, j + W - 1], emitted = j + W <= n_push;
+//   spaced (never canonical): position p's k-mer folds the codes at
+//          p + positions[i], i < k; a seed with an N pushes ov = U64_MAX,
+//          scored frev64(U64_MAX) (lex) or 0x8000000000000000
+//          (entropy-file), any other ov = its k-mer; value = ov of the
+//          window minimum, emitted = j + W <= n_push and value != U64_MAX,
+//          at W = 1 too (where a contiguous real U64_MAX k-mer is kept).
 // The first base sits in the k-mer's high bits; all compares are unsigned
 // over 64 bits; a value is never a sentinel (the emitted flag says it).
 //
 // What bounds it on an H100: the bytes, 1 B of codes a base in and 9 B a
 // slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the work
-// is a few integer ops a position once each k-mer is rolled, and with
-// W > 1 a few compares a slot.  The design: a block of 256 threads
-// owns kTile = 4096 slots of a row and stages their codes, with the
-// (k - 1) + (W - 1) halo, in shared memory by 16-B vector loads.  A thread
-// builds the k-mer of the first position of its run once and then rolls
-// it one base at a time, forward and reverse complement together; a
-// position is bad when the last N seen lies inside its k-mer.  For W = 1 a
+// is a few integer ops a position once each k-mer is rolled (k shared
+// loads and shifts a position for a spaced seed, and a double divide for
+// the entropy-file score), and with W > 1 a few compares a slot.  The
+// design: a block of 256 threads owns kTile = 4096 slots of a row and
+// stages their codes, with the (c - 1) + (W - 1) halo, in shared memory by
+// 16-B vector loads.  A contiguous thread builds the k-mer of the first
+// position of its run once and then rolls it one base at a time, forward
+// and reverse complement together; a position is bad when the last N seen
+// lies inside its k-mer.  A spaced thread folds each position's k codes
+// out of a rolled window of its span (spacing.cuh), or gathers them from
+// the staged tile where the span exceeds 32 bases.  For W = 1 a
 // thread's run is its own kRun slots.  For W > 1 the tile's kTile + W - 1
 // positions are split into equal runs, their (score, value) pairs go to
 // shared memory, and each thread takes the minima of its kRun windows
 // from blocks of W positions (van Herk / Gil-Werman), the same steps in
 // every lane (equal pairs carry equal values, so ties need no rule).
 // Keys go out as coalesced 16-B pairs and the emitted flags of a run as
-// one 16-B store, where the row's tile start is 16-B aligned.
+// one 16-B store, where the row's tile start is 16-B aligned.  The encode
+// (contiguous | spaced) and the score (frev64 | entropy-file) are
+// template parameters, so the contiguous lex instantiation is the kernel
+// it was before them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "scores.cuh"
+#include "spacing.cuh"
 
 namespace {
 
@@ -53,19 +73,14 @@ struct Layout {
   int bytes;      // dynamic shared memory in all
 };
 
-__device__ __host__ __forceinline__ Layout layout(int k, int W) {
+// span: the seed's span c (k when contiguous)
+__device__ __host__ __forceinline__ Layout layout(int span, int W) {
   Layout l;
   l.npos = kTile + W - 1;
   l.nsx = sx(l.npos - 1) + 1;
   l.code_off = (l.nsx * 8 * (W > 1 ? 2 : 1) + 15) / 16 * 16;
-  l.bytes = l.code_off + (l.npos + k - 1 + 30) / 16 * 16;
+  l.bytes = l.code_off + (l.npos + span - 1 + 30) / 16 * 16;
   return l;
-}
-
-__device__ __forceinline__ uint64_t frev64(uint64_t x) {
-  x = (x ^ 0x533F8C2151B20F97ull) * 0x9A98567ED20C127Dull;
-  x = (x << 31) | (x >> 33);
-  return x ^ 0x691A9D706391077Aull;
 }
 
 // (score, value) pair b orders at or before the best so far
@@ -74,23 +89,33 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
   return s < bs || (s == bs && v <= bv);
 }
 
+// span = k for a contiguous seed; sp and denom are read only by the spaced
+// and entropy-file instantiations
+template <bool kSpaced, bool kEntropy>
 __global__ void __launch_bounds__(kThreads)
     minimizers_kernel(const int8_t* __restrict__ codes,
                       const int32_t* __restrict__ lengths, int64_t L, int k,
                       int W, int canon, int64_t E,
-                      int64_t* __restrict__ keys, bool* __restrict__ emitted) {
+                      int64_t* __restrict__ keys, bool* __restrict__ emitted,
+                      int span, bk::Spacing sp, double denom) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout l = layout(k, W);
+  const Layout l = layout(kSpaced ? span : k, W);
   uint64_t* s_val = (uint64_t*)smem;
   uint64_t* s_score = s_val + l.nsx;  // W > 1 only
   int8_t* s_code = (int8_t*)(smem + l.code_off);
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.y;
   const int64_t j0 = (int64_t)blockIdx.x * kTile;
+  const bk::Spacing* ss = nullptr;  // the seed, staged by step 1
+  if constexpr (kSpaced) {
+    __shared__ bk::Spacing s_sp;
+    bk::stage_spacing(sp, &s_sp, tid);
+    ss = &s_sp;
+  }
 
   // 1. stage the tile's codes (-1 past the row) in 16-B chunks from the
   //    aligned address at or below the tile's first code
-  const int need = l.npos + k - 1;
+  const int need = l.npos + (kSpaced ? span : k) - 1;
   const int8_t* src = codes + row * L + j0;
   const int64_t avail = min((int64_t)need, L - j0);
   const int shift = (int)((uintptr_t)src & 15);
@@ -112,14 +137,58 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // 2. roll the k-mers of this thread's run of positions [p0, p1)
+  // 2. the k-mers of this thread's run of positions [p0, p1): rolled, or
+  //    gathered for a spaced seed
   const int rt = W > 1 ? (l.npos + kThreads - 1) / kThreads : kRun;
   const int p0 = tid * rt;
   const int p1 = min(p0 + rt, l.npos);
   const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
   const int top = 2 * k - 2;
-  uint32_t bad = 0;  // W = 1: bit r, slot p0 + r holds an N
-  if (p0 < p1) {
+  uint32_t bad = 0;  // W = 1: bit r, slot p0 + r emits nothing
+  if constexpr (kSpaced) {
+    // the spaced k-mer (or U64_MAX) of position p, and its score
+    auto push = [&](int p, uint64_t v, bool n_in) {
+      const uint64_t ov = n_in ? ~0ull : v & mask;
+      s_val[sx(p)] = ov;
+      if (W > 1)
+        s_score[sx(p)] = !kEntropy ? bk::frev64(ov)
+                         : n_in    ? bk::kInt64MinU
+                                   : bk::entropy_file_score(ov, denom);
+      else
+        bad |= (uint32_t)(ov == ~0ull) << (p - p0);
+    };
+    if (span <= 32) {
+      // roll a window of the span's bases (first base high) and its N
+      // bits, and fold each position's runs out of it
+      const uint32_t* w32 = (const uint32_t*)s_code;
+      int ci = shift + p0;
+      uint32_t word = p0 < p1 ? w32[ci >> 2] >> (8 * (ci & 3)) : 0u;
+      uint64_t win = 0;
+      uint32_t nwin = 0;
+      for (int i = 0; i < p1 - p0 + span - 1; ++i, ++ci) {
+        if (i > 0 && (ci & 3) == 0) word = w32[ci >> 2];
+        const int c = (int8_t)(word & 0xFF);
+        word >>= 8;
+        win = (win << 2) | (uint64_t)(c & 3);
+        nwin = (nwin << 1) | (uint32_t)(c < 0);
+        const int r = i - (span - 1);
+        if (r >= 0)
+          push(p0 + r, bk::fold_runs(win, *ss), (nwin & ss->nbits_hi) != 0);
+      }
+    } else {
+      for (int p = p0; p < p1; ++p) {  // gather each position's k codes
+        const int8_t* cp = s_code + shift + p;
+        uint64_t v = 0;
+        bool n_in = false;
+        for (int i = 0; i < k; ++i) {
+          const int c = cp[ss->pos[i]];
+          n_in |= c < 0;
+          v = (v << 2) | (uint64_t)(c & 3);
+        }
+        push(p, v, n_in);
+      }
+    }
+  } else if (p0 < p1) {
     const uint32_t* w32 = (const uint32_t*)s_code;
     int ci = shift + p0;  // byte of the next code in s_code
     uint32_t word = w32[ci >> 2] >> (8 * (ci & 3));
@@ -142,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
       if (W > 1) {
         const uint64_t ck = n_in ? 0 : v;
         s_val[sx(p0 + r)] = ck;
-        s_score[sx(p0 + r)] = frev64(ck);
+        s_score[sx(p0 + r)] =
+            kEntropy ? bk::entropy_file_score(ck, denom) : bk::frev64(ck);
       } else {
         s_val[sx(p0 + r)] = v;
         bad |= (uint32_t)n_in << r;
@@ -219,13 +289,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int s0 = tid; s0 < nslot; s0 += kThreads)
       krow[s0] = (int64_t)s_val[sx(s0)];
   }
-  const int64_t n_push = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
+  const int64_t n_push =
+      max((int64_t)lengths[row] - ((kSpaced ? span : k) - 1), (int64_t)0);
   bool* erow = emitted + row * E + j0 + j;
   uint32_t f[kRun / 4] = {0, 0, 0, 0};
 #pragma unroll
   for (int r = 0; r < kRun; ++r) {
     const int64_t js = j0 + j + r;
-    const bool e = W > 1 ? js + W <= n_push : js < n_push && !(bad >> r & 1);
+    bool e = W > 1 ? js + W <= n_push : js < n_push && !(bad >> r & 1);
+    if (kSpaced && W > 1) e = e && s_val[sx(j + r)] != ~0ull;
     f[r / 4] |= (uint32_t)e << (8 * (r % 4));
   }
   if (j + kRun <= nslot && ((uintptr_t)erow & 15) == 0) {
@@ -237,25 +309,61 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kSpaced, bool kEntropy>
+int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
+           int k, int W, int canon, int span, const bk::Spacing& sp,
+           double denom,
+           void* keys, void* emitted, cudaStream_t stream) {
+  const int64_t E = L - span - W + 2;
+  const Layout l = layout(span, W);
+  if (l.bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        minimizers_kernel<kSpaced, kEntropy>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
+  minimizers_kernel<kSpaced, kEntropy><<<grid, kThreads, l.bytes, stream>>>(
+      (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
+      (int64_t*)keys, (bool*)emitted, span, sp, denom);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // codes (B, L) int8, lengths (B,) int32 -> keys (B, E) int64-held u64,
 // emitted (B, E) bool, E = L - k - W + 2 > 0; 1 <= k <= 32, W > 1 only
-// with canon; the tile's shared memory must fit (W <= 8192).
+// with canon; the tile's shared memory must fit (W <= 8192).  Contiguous
+// seeds, lex score.
 extern "C" int bk_minimizers(const void* codes, const void* lengths,
                              int64_t B, int64_t L, int k, int W, int canon,
                              void* keys, void* emitted, void* stream) {
-  const int64_t E = L - k - W + 2;
-  const Layout l = layout(k, W);
-  if (l.bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        minimizers_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        l.bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  minimizers_kernel<<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
-      (int64_t*)keys, (bool*)emitted);
-  return (int)cudaGetLastError();
+  return launch<false, false>(codes, lengths, B, L, k, W, canon, k,
+                              bk::Spacing{}, 0.0, keys, emitted,
+                              (cudaStream_t)stream);
+}
+
+// The other instantiations: with ``spaced`` the k offsets ``positions`` (a
+// host array, positions[0] = 0, span = positions[k - 1] + 1) and no canon;
+// with ``entropy`` the entropy-file score, quotient by ``denom``.
+// E = L - span - W + 2 > 0.
+extern "C" int bk_minimizers_ext(const void* codes, const void* lengths,
+                                 int64_t B, int64_t L, int k, int W,
+                                 int canon, int spaced, const int32_t* positions,
+                                 int span, int entropy, double denom,
+                                 void* keys, void* emitted, void* stream) {
+  const bk::Spacing sp = spaced ? bk::make_spacing(positions, k)
+                                : bk::Spacing{};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (spaced && entropy)
+    return launch<true, true>(codes, lengths, B, L, k, W, 0, span, sp, denom,
+                              keys, emitted, s);
+  if (spaced)
+    return launch<true, false>(codes, lengths, B, L, k, W, 0, span, sp, denom,
+                               keys, emitted, s);
+  if (entropy)
+    return launch<false, true>(codes, lengths, B, L, k, W, canon, k, sp,
+                               denom, keys, emitted, s);
+  return launch<false, false>(codes, lengths, B, L, k, W, canon, k, sp, denom,
+                              keys, emitted, s);
 }

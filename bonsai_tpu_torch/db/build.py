@@ -1,23 +1,25 @@
 """Database builds on the host: the classify map (kmer -> LCA taxid) and
 the two phase-1 maps.
 
-Counterpart of ``bonsai_tpu/db/build.py`` for DNA, contiguous seeds with
-k <= 32 and the lex scheme:
+Counterpart of ``bonsai_tpu/db/build.py`` for DNA seeds with k <= 32
+and the schemes lex and entropy-file (``build -e``):
 
-* ``lca_map``, unwindowed: each genome's distinct (canonical) k-mers
-  come from the host C++ ``btpu_canon_kmer_set``;
-* ``lca_map``, canonical windowed (``-w``): the plain torch encoder
-  (``core/encoder.py``) runs on halo-overlapped chunks of each contig, as
-  ``_contig_sets`` does (build.py:134-169);
+* ``lca_map``, contiguous and unwindowed: each genome's distinct
+  (canonical) k-mers come from the host C++ ``btpu_canon_kmer_set``;
+* ``lca_map``, every other discipline (``-w``, ``-C -w``, ``-S``,
+  ``-e``): the plain torch encoder (``core/encoder.py``) runs on
+  halo-overlapped chunks of each contig, as ``_contig_sets`` does
+  (build.py:134-169), the trailing partial window of a non-final chunk
+  dropped where the uncanonical windowed discipline makes one;
 * ``taxdepth_map`` (TDencode(depth, lca)) and ``ftct_map``
-  ((n_genomes << 32) | lca), unwindowed (build.py:594,620).
+  ((n_genomes << 32) | lca), lex scores (build.py:594,620).
 
 Genomes fold in with the shared k-way merge ``btpu_merge_fold_stats``,
 which emits per-key Euler-interval extrema (and the group size) that map
 to the LCA on the host.  LCA folding is associative and commutative, so
 the content is the JAX package's bit for bit.  The device build of the
-same maps is ``db/build_device.py``.  Spaced, entropy and hash-scored
-builds are not ported yet (ROADMAP queue A, item 9).
+same maps is ``db/build_device.py``.  Hash-scored builds are not ported
+yet (ROADMAP queue A, item 9).
 """
 
 from __future__ import annotations
@@ -59,21 +61,24 @@ FOLD_EVERY = 8  # genomes buffered between folds (bounds host memory)
 BLOCK = 1 << 22  # windows per chunk of the windowed encoder (the JAX default)
 
 
-def _check(sp: Spacer, canonicalize: bool) -> None:
+def _check(sp: Spacer, canonicalize: bool, scheme: str = "lex") -> None:
     if not 1 <= sp.k <= 32:
         raise ValueError(f"k={sp.k}: the build supports 1 <= k <= 32")
     # the encoder raises for every discipline that is not ported
-    BatchEncoder(sp, canonicalize)
+    BatchEncoder(sp, canonicalize, scheme)
 
 
-def genome_kmer_set(path: str, sp: Spacer,
-                    canonicalize: bool = True) -> np.ndarray:
+def genome_kmer_set(path: str, sp: Spacer, canonicalize: bool = True,
+                    scheme: str = "lex") -> np.ndarray:
     """Sorted distinct emitted (canonical) k-mers or minimizers of one
     genome (fill_set_genome, feature_min.h:67-82)."""
-    _check(sp, canonicalize)
+    _check(sp, canonicalize, scheme)
     lib = get_lib()
     lut = np.ascontiguousarray(DNA4.lut, dtype=np.int8)
-    enc = None if sp.unwindowed() else BatchEncoder(sp, canonicalize)
+    # only the contiguous unwindowed discipline takes the host C++ path
+    # (_native_kmer_fn, build.py:105-131)
+    native = sp.unspaced() and sp.unwindowed()
+    enc = None if native else BatchEncoder(sp, canonicalize, scheme)
     pieces = []
     for _, seq, _ in fastx.read_fastx(path):
         if len(seq) < sp.c:
@@ -93,6 +98,14 @@ def genome_kmer_set(path: str, sp: Spacer,
     return unique_u64(np.concatenate(pieces))
 
 
+def drops_partial_window(sp: Spacer, enc: BatchEncoder) -> bool:
+    """Whether a non-final chunk loses its column 0 (build.py:151-166):
+    the trailing partial window of the uncanonical windowed discipline
+    is not a real contig end there.  The rule is the JAX package's: it
+    holds wherever w > c and the seed is uncanonical, spaced seeds too."""
+    return sp.w > sp.c and not enc.canon
+
+
 def _contig_sets(enc: BatchEncoder, seq: bytes, lut, sp: Spacer,
                  block: int) -> List[np.ndarray]:
     """Emissions of one contig through the plain encoder, in chunks of
@@ -102,11 +115,16 @@ def _contig_sets(enc: BatchEncoder, seq: bytes, lut, sp: Spacer,
     start = 0
     while start < len(seq):
         end = min(start + block + halo, len(seq))
+        is_last = end >= len(seq)
         codes = torch.from_numpy(fastx.encode_contig(seq[start:end], lut))
         em = enc.emissions(codes[None, :],
                            torch.tensor([end - start], dtype=torch.int32))
-        out.append(em.values[em.mask].numpy().view(np.uint64))
-        if end >= len(seq):
+        mask = em.mask
+        if not is_last and drops_partial_window(sp, enc):
+            mask = mask.clone()
+            mask[:, 0] = False
+        out.append(em.values[mask].numpy().view(np.uint64))
+        if is_last:
             break
         start += block
     return out
@@ -212,7 +230,7 @@ def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
 
 
 def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
-                 name_map: Dict[str, int]):
+                 name_map: Dict[str, int], scheme: str = "lex"):
     """Yield (kset, taxid) per genome in order; the k-mer extraction
     releases the GIL, so a few genomes run at a time in threads, at most
     2 * workers in flight."""
@@ -224,7 +242,8 @@ def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
             while todo and len(inflight) < 2 * workers:
                 p = todo.popleft()
                 inflight.append(
-                    (p, pool.submit(genome_kmer_set, p, sp, canonicalize))
+                    (p, pool.submit(genome_kmer_set, p, sp, canonicalize,
+                                    scheme))
                 )
             p, fut = inflight.popleft()
             yield fut.result(), taxid_for_path(p, name_map)
@@ -232,16 +251,16 @@ def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
 
 def lca_map(paths: Sequence[str], tree: TaxTree,
             name_map: Dict[str, int] | str, sp: Spacer,
-            canonicalize: bool = True) -> KmerTable:
+            canonicalize: bool = True, scheme: str = "lex") -> KmerTable:
     """Classify database: kmer -> LCA of the taxids of the genomes that
     hold it (feature_min.h:178-183,205-228)."""
-    _check(sp, canonicalize)
+    _check(sp, canonicalize, scheme)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
     keys = np.zeros(0, np.uint64)
     taxa = np.zeros(0, np.uint32)
     buf: List[Tuple[np.ndarray, int]] = []
-    for run in _genome_sets(paths, sp, canonicalize, name_map):
+    for run in _genome_sets(paths, sp, canonicalize, name_map, scheme):
         buf.append(run)
         if len(buf) >= FOLD_EVERY:
             keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
@@ -252,6 +271,7 @@ def lca_map(paths: Sequence[str], tree: TaxTree,
 
 
 def _phase1_fold(paths, tree, name_map, sp, canonicalize, want_counts):
+    """The phase-1 fold, lex scores as in the JAX package (build.py:607)."""
     _check(sp, canonicalize)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)

@@ -1,9 +1,10 @@
 """Database build on the card: the sort-based deterministic LCA fold.
 
-Counterpart of ``bonsai_tpu/db/build_device.py`` for the lex disciplines
-the port's encoder takes (contiguous DNA, unwindowed or canonical
-windowed, k <= 32).  LCA merging is associative and commutative, so a
-build is a fold of per-genome distinct-minimizer sets:
+Counterpart of ``bonsai_tpu/db/build_device.py`` for the disciplines the
+port's encoder takes (DNA, k <= 32: contiguous unwindowed, canonical or
+uncanonical windowed, spaced; lex or entropy-file scores).  LCA merging
+is associative and commutative, so a build is a fold of per-genome
+distinct-minimizer sets:
 
 * a STATE is (keys, pad, node, orig, cnt) of some capacity, sorted by
   (unsigned key, pad) with pads (key U64_MAX, pad 1) last, so the valid
@@ -13,10 +14,13 @@ build is a fold of per-genome distinct-minimizer sets:
   holding the u32 genome count; ``n`` is the valid count, a 0-d int64
   tensor on the state's device.  Pads carry zero node, orig and cnt.
 * a genome streams through the encoder (KB1 ``core/encoder.py``
-  ``minimizers``) in chunks of ``block`` windows that overlap by a w - 1
-  base halo; KB2 ``sort_unique`` turns each chunk into a sorted-unique
-  key set, and KB3 ``merge_fold`` merges it into the genome's state
-  without summing counts (chunks of one genome repeat keys);
+  ``minimizers``, or KB4 ``compacted_minimizers`` for the uncanonical
+  windowed discipline) in chunks of ``block`` windows that overlap by a
+  w - 1 base halo, a non-final chunk's trailing partial window dropped
+  where that discipline makes one; KB2 ``sort_unique`` turns each chunk
+  into a sorted-unique key set, and KB3 ``merge_fold`` merges it into the
+  genome's state without summing counts (chunks of one genome repeat
+  keys);
 * genome states merge pairwise in a tree, summing counts, which gives
   the ftct genome count.
 
@@ -24,9 +28,11 @@ The JAX package pads every chunk to block + w - 1 bases so that jit sees
 one shape; the port runs eagerly, so the last chunk of a contig holds
 only its own bases.  The emissions are the same: padding emits nothing.
 
-Every function takes an explicit ``device``: on "cuda" the three
-kernels run, on "cpu" their plain torch versions (``sort_unique_plain``,
-``merge_fold_plain``, ``minimizers_plain``).  ``device_minimized_map``,
+Every function takes an explicit ``device``: on "cuda" the kernels run,
+on "cpu" their plain torch versions (``sort_unique_plain``,
+``merge_fold_plain``, ``minimizers_plain``,
+``compacted_minimizers_plain``).  The phase-1 maps score lex, as the JAX
+package's do.  ``device_minimized_map``,
 ``ShardedLCAFold`` and ``sharded_lca_map`` are not ported yet (ROADMAP
 queue A, items 9 and 11).
 """
@@ -47,7 +53,7 @@ from ..core.spacer import Spacer
 from ..io import fastx
 from ..taxonomy.ncbi import parse_nameid_map, taxid_for_path
 from ..taxonomy.tree import TAX_MISSING, TaxTree
-from .build import _check, ftct_values, taxdepth_values
+from .build import _check, drops_partial_window, ftct_values, taxdepth_values
 from .table import KmerTable
 
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -303,6 +309,7 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
     """One genome -> its folded state (distinct emitted minimizers with the
     genome's taxid).  Contigs shorter than the seed span are skipped."""
     halo = sp.w - 1
+    drop0 = drops_partial_window(sp, enc)
     acc = State.empty(device)
     for _, seq, _ in fastx.read_fastx(path):
         if len(seq) < sp.c:
@@ -310,6 +317,7 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
         start = 0
         while start < len(seq):
             end = min(start + block + halo, len(seq))
+            is_last = end >= len(seq)
             codes = torch.from_numpy(fastx.encode_contig(seq[start:end],
                                                          DNA4.lut))
             # The trim reads the previous merge's n on the host one chunk
@@ -318,10 +326,14 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
             acc = acc.trimmed()
             lengths = torch.tensor([end - start], dtype=torch.int32)
             em = enc.emissions(codes[None, :].to(device), lengths.to(device))
-            dk, dp, dn = sort_unique(em.values[0], em.mask[0])
+            mask = em.mask[0]
+            if drop0 and not is_last:  # not a real contig end
+                mask = mask.clone()
+                mask[0] = False
+            dk, dp, dn = sort_unique(em.values[0], mask)
             st = State.from_sorted_keys(dk, dp, dn, node, taxid)
             acc = merge_fold(acc, st, tax, root1, sum_counts=False)
-            if end >= len(seq):
+            if is_last:
                 break
             start += block
     return acc.trimmed()
@@ -373,12 +385,13 @@ def device_fold_runs(runs: Sequence[Tuple[np.ndarray, int]], tree: TaxTree,
 
 
 def _device_gather(paths: Sequence[str], tree: TaxTree, name_map,
-                   sp: Spacer, canonicalize: bool, block: int, device):
-    _check(sp, canonicalize)
+                   sp: Spacer, canonicalize: bool, block: int, device,
+                   scheme: str = "lex"):
+    _check(sp, canonicalize, scheme)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
     dev = as_device(device)
-    enc = BatchEncoder(sp, canonicalize)
+    enc = BatchEncoder(sp, canonicalize, scheme)
     tax, root1 = _tree_device(tree, dev)
     states = []
     for p in paths:
@@ -391,12 +404,15 @@ def _device_gather(paths: Sequence[str], tree: TaxTree, name_map,
 
 def device_lca_map(paths: Sequence[str], tree: TaxTree,
                    name_map: Dict[str, int] | str, sp: Spacer,
-                   canonicalize: bool = True, block: int = 1 << 22,
-                   device="cuda") -> KmerTable:
+                   canonicalize: bool = True, scheme: str = "lex",
+                   block: int = 1 << 22, device="cuda") -> KmerTable:
     """Classify database built on the card; content-identical to
-    ``db/build.lca_map`` (feature_min.h:178-183,205-228)."""
+    ``db/build.lca_map`` (feature_min.h:178-183,205-228).  As in the JAX
+    package, the uncanonical windowed discipline (-C with w > k) equals
+    the host build only at equal ``block``: a window that straddles a
+    chunk edge next to an N can select another minimizer."""
     states, tax, root1 = _device_gather(paths, tree, name_map, sp,
-                                        canonicalize, block, device)
+                                        canonicalize, block, device, scheme)
     keys, taxa = _finish_fold(states, tax, root1, want_counts=False)
     return KmerTable(keys, taxa)
 

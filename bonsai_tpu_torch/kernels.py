@@ -13,8 +13,8 @@ wrapper allocates.
 
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
-``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
-``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
+``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``
+and ``compacted_minimizers``, ``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
 ``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
 version serves CPU tensors only, and a CUDA tensor goes to the kernel or
 raises.
@@ -40,12 +40,17 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _lock = threading.Lock()
 _lib = None
 
-P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 _SIGS = {
     # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, slots, lgnb, vbits,
     # vals, n_vals, inline, want_idx, hit, valid, cidx, oidx, stream
     "bk_encode_probe": [P, I64, P, I64, P, I64, I64, I32, I32, P, I32, I32,
                         P, I64, I32, I32, P, P, P, P, P],
+    # the same with a spaced seed: pcodes, w16, nmask, nmw, lengths, B, P,
+    # k, positions (host int32[32]), slots, lgnb, vbits, vals, n_vals,
+    # inline, want_idx, hit, valid, cidx, oidx, stream
+    "bk_encode_probe_spaced": [P, I64, P, I64, P, I64, I64, I32, P, P, I32,
+                               I32, P, I64, I32, I32, P, P, P, P, P],
     # cidx, hit, R, W, tin, tout, depth, parent, lift, levels, n, tax_ids,
     # taxon, dedup, stream
     "bk_resolve": [P, P, I64, I64, P, P, P, P, P, I32, I32, P, P, I32, P],
@@ -55,6 +60,14 @@ _SIGS = {
                         I64, P, P],
     # codes, lengths, B, L, k, W, canon, keys, emitted, stream
     "bk_minimizers": [P, P, I64, I64, I32, I32, I32, P, P, P],
+    # codes, lengths, B, L, k, W, canon, spaced, positions (host
+    # int32[32]), span, entropy, denom, keys, emitted, stream
+    "bk_minimizers_ext": [P, P, I64, I64, I32, I32, I32, I32, P, I32, I32,
+                          F64, P, P, P],
+    # codes, lengths, B, L, k, W, entropy, denom, keys, emitted, scratch,
+    # stream
+    "bk_compacted_minimizers": [P, P, I64, I64, I32, I32, I32, F64, P, P, P,
+                                P],
     # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream
     "bk_sort_unique": [P, P, I64, I64, P, P, P, P, P],
     # keys, pad, node, orig, cnt, cap (state a), the same for state b,
@@ -67,8 +80,9 @@ _SIGS = {
     # tab, idx, R, Ct, Q, Ci, axis, out, stream
     "bk_take_along": [P, P, I64, I64, I64, I64, I32, P, P],
 }
-# host functions: bytes of device scratch for n elements
-_SCRATCH = ("bk_sort_unique_scratch", "bk_merge_fold_scratch")
+# host functions: bytes of device scratch for the sizes of a call
+_SCRATCH = {"bk_sort_unique_scratch": 1, "bk_merge_fold_scratch": 1,
+            "bk_compacted_minimizers_scratch": 2}
 
 
 def _sources():
@@ -144,10 +158,10 @@ def get_lib():
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = args
-            for name in _SCRATCH:
+            for name, nargs in _SCRATCH.items():
                 fn = getattr(lib, name)
                 fn.restype = I64
-                fn.argtypes = [I64]
+                fn.argtypes = [I64] * nargs
             _lib = lib
     return _lib
 
@@ -162,9 +176,11 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def scratch(name: str, n: int, device: torch.device) -> torch.Tensor:
-    """Device scratch for entry point ``name`` over ``n`` elements."""
-    nbytes = getattr(get_lib(), f"{name}_scratch")(n)
+def scratch(name: str, n, device: torch.device) -> torch.Tensor:
+    """Device scratch for entry point ``name`` over ``n`` elements (or the
+    tuple of sizes its scratch function takes)."""
+    nbytes = getattr(get_lib(), f"{name}_scratch")(
+        *(n if isinstance(n, tuple) else (n,)))
     return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
 
 

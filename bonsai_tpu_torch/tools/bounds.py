@@ -1,8 +1,10 @@
 """Each kernel's bound on an H100: the least time the card could take for
 the work of one call, the larger of the bytes the work must move (each
 input byte that it needs read once, each output byte written once) over
-the memory rate and its int32 operations over the int32 peak; a u64
-operation counts as two int32 operations.  ``chip_smoke.py`` and
+the memory rate and its operations over the peak rate of their type:
+int32 operations over the int32 peak (a u64 operation counts as two),
+and the entropy-file score's one double divide a seed over the FP64
+peak.  ``chip_smoke.py`` and
 ``kernel_ab`` take their bounds from here, from the inputs and outputs of
 the call that they time.
 """
@@ -16,19 +18,22 @@ import torch
 # white paper); both at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# FP64 outside the tensor cores, 34 TFLOP/s (NVIDIA H100 SXM data sheet)
+FP64_OPS_PER_S = 34e12
 
 
-def bound(nbytes: int, ops: int = 0):
+def bound(nbytes: int, ops: int = 0, fp64: int = 0):
     """(least ms, "bytes" or "operations", bytes ms, operations ms): the
-    larger of the bytes over the memory rate and the int32 operations over
-    the int32 peak, and both."""
+    larger of the bytes over the memory rate and the operations over
+    their peak (int32 operations over the int32 peak, or FP64 operations
+    over the FP64 peak, the larger), and both."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT32_OPS_PER_S * 1e3
+    to = max(ops / INT32_OPS_PER_S, fp64 / FP64_OPS_PER_S) * 1e3
     return (max(tb, to), "bytes" if tb >= to else "operations", tb, to)
 
 
 def bound_text(b) -> str:
-    return (f"bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f} ms, int32 "
+    return (f"bound {b[0]:.4f} ms ({b[1]}; bytes {b[2]:.4f} ms, "
             f"operations {b[3]:.4f} ms)")
 
 
@@ -44,12 +49,19 @@ def k1_rows(out) -> int:
     return nh + 2 * (nv - nh)
 
 
-def bound_encode_probe(inputs, vals, out):
+def spaced_runs(positions) -> int:
+    """Runs of consecutive offsets in a spaced seed (0x16,1x4: 5)."""
+    return 1 + sum(b != a + 1 for a, b in zip(positions, positions[1:]))
+
+
+def bound_encode_probe(inputs, vals, out, runs: int = 0):
     """K1: the packed reads, a 32-B slot row per ``k1_rows`` row, the
     values, the outputs; two splitmix64 hashes (~40 int32 ops) per valid
-    position."""
+    position, and for a spaced seed of ``runs`` runs of consecutive
+    offsets its fold out of the position's window (a u64 shift, mask and
+    or a run, 4 int32 ops at the least) at every position."""
     return bound(nbytes(*inputs, vals) + 32 * k1_rows(out) + nbytes(*out),
-                 40 * int(out[1].sum()))
+                 40 * int(out[1].sum()) + 4 * runs * out[1].numel())
 
 
 def resolve_work(cidx, hit, tax):
@@ -84,12 +96,27 @@ def resolve_bound_text(cidx, hit, tax) -> str:
     return f"{bound_text(bound(nb, ops))}, the taxonomy's {side}"
 
 
-def bound_minimizers(codes, lengths, em, W):
+def bound_minimizers(codes, lengths, em, W, runs: int = 0,
+                     entropy: bool = False):
     """KB1: codes in, keys and flags out; per position two rolled u64
-    k-mers and a canonical min (16 ops), with W > 1 a frev64 score and
-    about three (score, value) compares (24 more)."""
+    k-mers and a canonical min (16 ops), or for a spaced seed of ``runs``
+    runs of consecutive offsets a rolled window and its fold (8 ops and 4
+    a run); with W > 1 a score and about three (score, value) compares
+    (24 more), the score an FP64 divide a position under ``entropy``."""
+    per = 8 + 4 * runs if runs else 16
     return bound(nbytes(codes, lengths, *em),
-                 codes.numel() * (16 + (24 if W > 1 else 0)))
+                 codes.numel() * (per + (24 if W > 1 else 0)),
+                 codes.numel() if entropy and W > 1 else 0)
+
+
+def bound_compacted_minimizers(codes, lengths, em, W, entropy: bool = False):
+    """KB4: codes in, keys and flags out (the compacted stream the design
+    writes and reads back is not the function's); per position a rolled
+    u64 k-mer and its valid flag (8 ops) and with W > 1 a score and about
+    three compares (24 more), the score an FP64 divide under ``entropy``."""
+    return bound(nbytes(codes, lengths, *em),
+                 codes.numel() * (8 + (24 if W > 1 else 0)),
+                 codes.numel() if entropy and W > 1 else 0)
 
 
 def bound_merge_fold(a, b, na, nb, tax, out):

@@ -13,9 +13,13 @@ window, as a second opinion.
     python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME NODES
 
 KB1 ``minimizers`` (the first 4M windows of GENOME at k = 31, W = 1 and
-W = 10) and KB3 ``merge_fold`` (two 2^22-slot states with 3M valid
-entries each, counts summed; NODES is a ``nodes.dmp`` whose taxids label
-them), timed by CUDA events around 100 back-to-back calls.
+W = 10, and at the seed disciplines' shapes: -k 21 -S 0x16,1x4 at W = 1,
+-k 25 -w 37 -e at W = 13), KB4 ``compacted_minimizers`` (-C -k 31 -w 40
+at W = 10, -C -k 25 -w 37 -e at W = 13) and KB3 ``merge_fold`` (two
+2^22-slot states with 3M valid entries each, counts summed; NODES is a
+``nodes.dmp`` whose taxids label them), timed by CUDA events around 100
+back-to-back calls.  A case whose entry point the parent's library lacks
+is skipped, and says so.
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -24,6 +28,8 @@ K1 ``encode_probe``, K2 ``resolve`` and K3 ``step_outputs`` on the first
 8192 reads of READS against the k = 31 database of the GENOMEs, built on
 the host (NAMEID maps their sequence names to taxids), in dictionary
 mode as ``classify`` runs them; the outputs of one kernel feed the next.
+K1's spaced instantiation runs the same batch against the GENOMEs'
+-k 21 -S 0x16,1x4 database, built on the card.
 K1 runs twice more where its probes hit: the same batch on a table of
 its own k-mers, and the scale probe's shape of ``chip_smoke.py`` at 2^24
 keys.  K2 runs three times more: on K1's output for that table (every
@@ -74,7 +80,7 @@ from .synthetic import deep_rows, deep_tree, long_reads
 SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
-BUILD_SOURCES = ("merge_fold", "minimizers")
+BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 CLASSIFY_BATCH = 8192
 
@@ -85,6 +91,8 @@ def build_parent(csrc: str, names) -> ctypes.CDLL:
     nvcc = kernels._nvcc()
     objs, procs = [], []
     for name in names:
+        if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
+            continue  # a kernel the parent does not have
         obj = os.path.join(OUT_DIR, f"parent_{name}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -103,10 +111,10 @@ def build_parent(csrc: str, names) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = args
-    for name in kernels._SCRATCH:
+    for name, nargs in kernels._SCRATCH.items():
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int64
-            getattr(lib, name).argtypes = [ctypes.c_int64]
+            getattr(lib, name).argtypes = [ctypes.c_int64] * nargs
     return lib
 
 
@@ -142,16 +150,43 @@ def _state(rng, pool, n, cap, taxa_pool, tree, dev):
 
 
 def build_cases(genome: str, nodes: str, dev):
-    """(name, call, timer) of KB1 at W = 1 and 10 and of KB3."""
+    """(name, call, timer[, entry point]) of KB1 at W = 1 and 10 and at
+    the seed disciplines' shapes, of KB4 and of KB3."""
+    from ..core.spacer import Spacer
+
     seq = next(iter(fastx.read_fastx(genome)))[1]
     cases = []
+
+    def chunk(span, W):
+        codes = fastx.encode_contig(seq[: (1 << 22) + span - 1 + W - 1],
+                                    DNA4.lut)
+        return (torch.from_numpy(codes[None, :]).to(dev),
+                torch.tensor([codes.size], dtype=torch.int32, device=dev))
+
     for W in (1, 10):
-        codes = fastx.encode_contig(seq[: (1 << 22) + 30 + W - 1], DNA4.lut)
-        c = torch.from_numpy(codes[None, :]).to(dev)
-        ln = torch.tensor([codes.size], dtype=torch.int32, device=dev)
+        c, ln = chunk(31, W)
         cases.append((f"minimizers k=31 W={W}",
                       lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
                       time_ms))
+    pos = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
+    c, ln = chunk(25, 1)
+    cases.append(("minimizers -k 21 -S 0x16,1x4 W=1",
+                  lambda c=c, ln=ln: enc.minimizers(c, ln, 21, 1, False, "lex",
+                                                    pos),
+                  time_ms, "bk_minimizers_ext"))
+    c, ln = chunk(25, 13)
+    cases.append(("minimizers -k 25 -w 37 -e W=13",
+                  lambda c=c, ln=ln: enc.minimizers(c, ln, 25, 13, True,
+                                                    "entropy-file"),
+                  time_ms, "bk_minimizers_ext"))
+    cases.append(("compacted_minimizers -C -k 25 -w 37 -e W=13",
+                  lambda c=c, ln=ln: enc.compacted_minimizers(
+                      c, ln, 25, 13, "entropy-file"),
+                  time_ms, "bk_compacted_minimizers"))
+    c, ln = chunk(31, 10)
+    cases.append(("compacted_minimizers -C -k 31 -w 40 W=10",
+                  lambda c=c, ln=ln: enc.compacted_minimizers(c, ln, 31, 10),
+                  time_ms, "bk_compacted_minimizers"))
     rng = np.random.default_rng(SEED)
     tree = TaxTree.from_nodes_dmp(nodes)
     taxa_pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
@@ -295,8 +330,21 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
           f"of {hit.shape[1]}; {resolve_bound_text(cidx, hit, clf.tax)}")
     rng = np.random.default_rng(SEED + 1)
     own = own_table(a1, rng, dev)
+    # K1's spaced instantiation: the same batch against the -k 21 -S
+    # 0x16,1x4 database of the genomes, built on the card
+    from ..core.spacer import parse_spacing
+    from ..db.build_device import device_lca_map
+
+    gaps = parse_spacing("0x16,1x4", 21)
+    sdb = Database(table=device_lca_map(list(genomes), tree, nameid,
+                                        Spacer(21, 21, gaps), device=dev),
+                   k=21, w=21, gaps=gaps)
+    sclf = pl.Classifier(sdb, tree, emit_all=True, device=dev)
+    a1s = (pc, nm, ln, lproc, 21, False, sclf.arr, True, sclf.positions)
     return [
         (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
+        (f"encode_probe -k 21 -S 0x16,1x4 B={hit.shape[0]}, P={lproc - 24}",
+         lambda: pl.encode_probe(*a1s), graph_ms, "bk_encode_probe_spaced"),
         *probe_mix_cases(a1, own, rng, dev),
         (f"resolve {shape}",
          lambda: [rs.resolve(cidx, hit, clf.tax, clf._n_distinct)], graph_ms),
@@ -328,11 +376,15 @@ def _device_ms(fn, calls=5):
 
 
 def run(parent_csrc: str, cases, names, say=print) -> dict:
-    """Check and time each (name, call, timer) of ``cases`` against the
-    parent's build of the sources ``names``."""
+    """Check and time each (name, call, timer[, entry point]) of ``cases``
+    against the parent's build of the sources ``names``."""
     lib = build_parent(parent_csrc, names)
-    res = {"cases": {}, "profile": {}}
-    for name, change, timer in cases:
+    res = {"cases": {}, "profile": {}, "skipped": []}
+    for name, change, timer, *entry in cases:
+        if entry and not hasattr(lib, entry[0]):
+            say(f"# {name}: skipped, the parent has no {entry[0]}")
+            res["skipped"].append(name)
+            continue
         parent = on(lib, change)
         got, want = change(), parent()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):

@@ -5,8 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device      CUDA present; the card's name and power limit
-  2. build       the eight kernels (csrc/*.cu, one nvcc per source, all
-                 started together) and the port's host C++ (native/src)
+  2. build       the kernels (csrc/*.cu, one nvcc per source, all started
+                 together) and the port's host C++ (native/src)
   3. kernels     K1-K3 against their plain torch versions on CPU copies
                  of the same inputs, exact equality (integer work):
                  HiSeq batches of 8192 reads against the ec k=31 table,
@@ -46,27 +46,47 @@ Phases, in order; any failure raises and the script exits non-zero:
                  a row and 2^22 + 2^22 random states, both sum_counts;
                  the gathers at the shapes of
                  their TPU cases, G2 also at a ragged Q and at axis 1
-                 with Ci != Ct
+                 with Ci != Ct; the seed disciplines of -S, -e and -C -w:
+                 KB1's spaced and entropy-file instantiations and KB4 on
+                 4M-base ec chunks (-S at W = 1 and 16, -e at W = 13, -C
+                 at W = 10, -C -e at W = 13), on rows with in-read Ns, N
+                 runs longer than the span, all-N rows, rows shorter than
+                 the span, 0 < n_valid < W tails, k = 32 with bit 63 and
+                 real U64_MAX k-mers, at W = 1, 2, 13, 16, with Ns at tile
+                 edges, and KB4 on 3000 short rows and twice in a row
   9. device build   the port's --device-build: ec k=31 (digest = the
-                 manifest's) and k=31 w=40 (digest = the JAX package's),
-                 then the lex_k25, lex_k31_w40, lex_k25_nocanon builds and
-                 the prebuild -t/-f phase-1 maps of the goldens through the
-                 CLI; KB1-KB3 launched; seconds, k-mers/s against the host
-                 build, peak device memory, device busy share
+                 manifest's), k=31 w=40, -k 21 -S 0x16,1x4, -k 25 -w 37 -e
+                 and -C -k 31 -w 40 (digests = the JAX package's), then
+                 the lex_k25, lex_k31_w40, lex_k25_nocanon, spaced_k21,
+                 ent_k25_w37 builds, the prebuild -t/-f phase-1 maps of the
+                 goldens and, against the JAX package's digests, -C -w,
+                 -C -w -e, -S -w -e and prebuild -S -t through the CLI;
+                 KB1 (each instantiation), KB2-KB4 launched; seconds,
+                 k-mers/s against the host build, peak device memory,
+                 device busy share
+ 5b. spaced classify  after phase 9, K1's spaced instantiation against its
+                 plain version on HiSeq batches against the spaced ec
+                 database of phase 9 (in-read Ns, short reads, pairs), then
+                 Classifier.process_dataset of the HiSeq set against it:
+                 sha256 of the Kraken text = the JAX Classifier's; K1
+                 (spaced) launched; K1 spaced and plain timed
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
                  G1 and G2 launched
- 11. numbers     KB1-KB3 and plain-version times at the build's shapes
-                 (KB1 by CUDA-graph replay as well), KB2 at three chunks (k=31 W=10, k=25 W=1, k=31 W=1) with
-                 torch.unique beside it; index_select and gather at G1's
-                 and G2's shapes; each kernel's bound (tools/bounds.py:
-                 bytes over 3.35 TB/s or int32 operations over 16.7
-                 TOP/s, the larger)
+ 11. numbers     KB1-KB4 and plain-version times at the build's shapes
+                 (KB1 and KB4 by CUDA-graph replay as well, KB1 for each
+                 instantiation), KB2 at three chunks (k=31 W=10, k=25
+                 W=1, k=31 W=1) with torch.unique beside it; index_select
+                 and gather at G1's and G2's shapes; each kernel's bound
+                 (tools/bounds.py: bytes over 3.35 TB/s, or int32
+                 operations over 16.7 TOP/s and FP64 ones over 34 TFLOP/s,
+                 the larger)
 
 The line before the last is the kernels JSON (launches on the main paths,
 exactness, kernel, plain, bound and library times; ``ms`` is graph-replayed
-for K1-K3, KB1 and G2, ``event_ms`` the event timing); the last line is
+for K1-K3, KB1, KB4 and G2, ``event_ms`` the event timing; KB1 and K1 have
+a row for each instantiation); the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
 the script exits non-zero and prints no result.
 """
@@ -97,6 +117,40 @@ SEED = 20261016
 #   + x for x in kk['genomes']], TaxTree.from_nodes_dmp(g + kk['nodes']), g \
 #   + kk['nameid'], Spacer(31, 40))))"
 EC_W40_DIGEST = "02a018d96195a0762302fdb1ca403499790702e3ae67fbdff5a8ff512ccee936"
+# The same for the seed disciplines of -S, -e and -C -w: the command above
+# with lca_map(..., Spacer(k, w, parse_spacing(S, k)), canonicalize,
+# scheme), parse_spacing from bonsai_tpu.core.spacer.  Each row: the
+# build's flags, k, w, S, canonicalize, scheme, digest (k-mers).
+EC_DISCIPLINES = [
+    ("-k 21 -S 0x16,1x4", 21, 21, "0x16,1x4", True, "lex",  # 10,364,415
+     "5157c57f1b71dc11d4369160794389158ff4ba36d93a0d14443aecab7dcb8d5f"),
+    ("-k 25 -w 37 -e", 25, 37, "", True, "entropy-file",  # 1,499,039
+     "ecd6fe2a6cb126971729461a008cb76c03673c102f5271762380b327140e34c6"),
+    ("-C -k 31 -w 40", 31, 40, "", False, "lex",  # 2,060,460
+     "2b49cdd87ece50cbdf67401ecdd0bad99c52f117ff0c89f9087f15c237cc1500"),
+]
+# sha256 of the Kraken text (every read, -a) of the HiSeq set against the
+# -k 21 -S 0x16,1x4 ec database, as the JAX package's Classifier gives it
+# on the CPU: Classifier(Database(table=<that lca_map>, k=21, w=21,
+# gaps=parse_spacing("0x16,1x4", 21)), tree, emit_all=True)
+# .process_dataset(HiSeq_accuracy.fa, out, batch_size=8192)
+HISEQ_SPACED_SHA256 = (
+    "a12369f482cfbc432bf4beccf6d2784edddcd02ef8fae7e8944dad2eb76b97b5")
+# Content digests of the golden genomes' databases that no golden holds,
+# as the JAX package's CLI builds them (python -m bonsai_tpu build OUT
+# g_phix.fa g_phixmut.fa g_rand.fa FLAGS -T nodes.dmp -M nameidmap.txt;
+# prebuild nameidmap.txt nodes.dmp OUT <the genomes> FLAGS)
+GOLDEN_JAX_DIGESTS = {
+    ("build", "-C -k 25 -w 37"):
+        "a4da014a40a21374a994a8c003aae6e8aff43a0a994dd79cf09ed65ff406fcdf",
+    ("build", "-C -k 25 -w 37 -e"):
+        "3fbd800a20fd86c2378d8b08ae0dc84319a2b14de16ffccc2b8a1d3bc83285fe",
+    ("build", "-k 21 -S 0x16,1x4 -w 40 -e"):
+        "31c3569cbc4eb63418087e88f07239d99d5f67a4b50d9a157fcde5752acb1873",
+    ("prebuild", "-k 21 -S 0x16,1x4 -t"):
+        "4ec67ed322b52e16259f2e53266a951e3be36e771c7df3dbee6d5b2c37371200",
+}
+SPACING21 = "0x16,1x4"
 EC_GENOME = os.path.join(DATA, "ec", "GCF_000005845.2_ASM584v2_genomic.fna.gz")
 
 
@@ -110,6 +164,12 @@ KERNELS = {
                      "bonsai_tpu/classify/pipeline.py:124"),
     "minimizers": ("bonsai_tpu_torch/csrc/minimizers.cu",
                    "bonsai_tpu/core/encoder.py:174"),
+    "minimizers_spaced": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                          "bonsai_tpu/core/encode.py:108"),
+    "minimizers_entropy": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                           "bonsai_tpu/core/entropy.py:91"),
+    "compacted_minimizers": ("bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+                             "bonsai_tpu/core/minimize.py:109"),
     "sort_unique": ("bonsai_tpu_torch/csrc/sort_unique.cu",
                     "bonsai_tpu/db/build_device.py:192"),
     "merge_fold": ("bonsai_tpu_torch/csrc/merge_fold.cu",
@@ -118,7 +178,37 @@ KERNELS = {
                    "tools/probe_microbench.py:225"),
     "take_along": ("bonsai_tpu_torch/csrc/gather_bench.cu",
                    "tools/vmem_gather_bench2.py:35"),
+    "encode_probe_spaced": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                            "bonsai_tpu/core/encode.py:59"),
 }
+# the variants of one wrapper's launch counts (its ``variants`` dict) that
+# each kernel row counts
+VARIANTS = {
+    "minimizers": ("minimizers", ("lex",)),
+    "minimizers_spaced": ("minimizers", ("spaced", "spaced entropy-file")),
+    "minimizers_entropy": ("minimizers", ("contiguous entropy-file",)),
+    "encode_probe": ("encode_probe", ("contiguous",)),
+    "encode_probe_spaced": ("encode_probe", ("spaced",)),
+}
+
+
+def reset_counts(wrappers):
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "variants"):
+            w.variants = {}
+
+
+def read_counts(wrappers):
+    """{kernel row: launches} of these wrappers since ``reset_counts``."""
+    out = {}
+    for w in wrappers:
+        rows = [r for r, (fn, _) in VARIANTS.items() if fn == w.__name__]
+        for r in rows:
+            out[r] = sum(w.variants.get(v, 0) for v in VARIANTS[r][1])
+        if not rows:
+            out[w.__name__] = w.launches
+    return out
 
 
 def say(msg: str) -> None:
@@ -375,8 +465,7 @@ def phase_main_path(clf, kk, dev):
     from bonsai_tpu_torch.classify import resolve as rs
 
     wrappers = [pl.encode_probe, rs.resolve, pl.step_outputs]
-    for w in wrappers:
-        w.launches = 0
+    reset_counts(wrappers)
     for which in ("HiSeq", "MiSeq", "ec_k12"):
         s = kk["sets"][which]
         out = io.StringIO()
@@ -410,7 +499,8 @@ def phase_main_path(clf, kk, dev):
         with open(outp, "rb") as fh:
             require(fh.read() == want, "paired output differs from the golden")
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_counts(wrappers)
+    launches.pop("encode_probe_spaced")  # the spaced path is phase 5b's
     say(f"# main path: paired golden matches; kernel launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the main path")
@@ -913,9 +1003,124 @@ def phase_build_kernels(dev, chk, kk):
         chk.same("take_along", [gb.take_along(tab.to(dev), ix.to(dev), axis)],
                  [gb.take_along_plain(tab, ix, axis)],
                  f"axis {axis} ({R}, {Ct}) table, ({Q}, {Ci}) indices")
+    discipline_kernels(dev, chk)
     torch.cuda.synchronize()
     say(f"# build kernels: all equal to their plain versions: "
         f"{ {k: chk.cases[k] for k in list(KERNELS)[3:]} } cases")
+
+
+def _positions(k, spacing):
+    from bonsai_tpu_torch.core.spacer import Spacer
+
+    return tuple(int(p) for p in Spacer(k, k, spacing).positions)
+
+
+def _discipline_rows(rng, c, W, L=300, B=48):
+    """Rows with 2% Ns, an N run longer than the span, a row of T (k = 32:
+    U64_MAX), a row of G/T (bit 63 set), an all-N row, rows shorter than
+    the span, rows with 0 < n_valid < W, padded with -1."""
+    import numpy as np
+
+    codes = rng.integers(0, 4, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = -1
+    lengths = rng.integers(c, L + 1, B).astype(np.int32)
+    codes[0, 40 : 40 + c + 20] = -1
+    codes[1] = 3
+    lengths[1] = L
+    codes[2] = rng.integers(2, 4, L)
+    codes[3] = -1
+    lengths[4:8] = rng.integers(0, c, 4)
+    lengths[8:12] = c - 1 + rng.integers(1, W + 1, 4)
+    codes[8] = rng.integers(0, 4, L)  # one clean seed: n_valid = 1
+    lengths[8] = c
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
+def discipline_kernels(dev, chk):
+    """KB1's spaced and entropy-file instantiations and KB4 on the card
+    against their plain versions on CPU copies: 4M-base ec chunks at the
+    builds' shapes, then rows of every kind at W = 1, 2, 13, 16."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+
+    rng = np.random.default_rng(SEED + 7)
+    pos21 = _positions(21, SPACING21)
+    pos32 = _positions(32, "1x31")  # every other base: span 63
+
+    def kb1(codes, lengths, k, W, canon, scheme, pos, tag):
+        name = ("minimizers_spaced" if pos is not None else
+                "minimizers_entropy" if scheme != "lex" else "minimizers")
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.minimizers(c.to(dev), ln.to(dev), k, W, canon, scheme, pos)
+        chk.same(name, got, enc.minimizers_plain(c, ln, k, W, canon, scheme,
+                                                 pos), tag)
+        return got
+
+    def kb4(codes, lengths, k, W, scheme, tag):
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.compacted_minimizers(c.to(dev), ln.to(dev), k, W, scheme)
+        chk.same("compacted_minimizers", got,
+                 enc.compacted_minimizers_plain(c, ln, k, W, scheme), tag)
+        return got
+
+    # 4M-base ec chunks, as the -S, -S -e -w 40, -e, -C and -C -e builds
+    # see them
+    for w, run in ((25, lambda c, n: kb1(c, n, 21, 1, False, "lex", pos21,
+                                         "ec chunk -S")),
+                   (40, lambda c, n: kb1(c, n, 21, 16, False, "entropy-file",
+                                         pos21, "ec chunk -S -e -w 40")),
+                   (37, lambda c, n: kb1(c, n, 25, 13, True, "entropy-file",
+                                         None, "ec chunk -k 25 -w 37 -e")),
+                   (40, lambda c, n: kb4(c, n, 31, 10, "lex",
+                                         "ec chunk -C -k 31 -w 40")),
+                   (37, lambda c, n: kb4(c, n, 25, 13, "entropy-file",
+                                         "ec chunk -C -k 25 -w 37 -e"))):
+        em = run(*_ec_chunk(w))
+    say(f"# build kernels: ec chunk -C -e: {int(em.mask.sum())} minimizers "
+        f"of {em.values.shape[1]} slots")
+    # rows: Ns, N runs longer than the span, all-N rows, short rows,
+    # n_valid < W tails, k = 32 bit 63 and U64_MAX; then Ns at KB1's
+    # thread-run and tile edges
+    for W in (1, 2, 13, 16):
+        for scheme in ("lex", "entropy-file"):
+            for k, pos in ((21, pos21), (32, pos32)):
+                kb1(*_discipline_rows(rng, pos[-1] + 1, W), k, W, False,
+                    scheme, pos, f"rows -S k={k} W={W} {scheme}")
+            for k in (21, 31, 32):
+                kb4(*_discipline_rows(rng, k, W), k, W, scheme,
+                    f"rows -C k={k} W={W} {scheme}")
+            codes, lengths = _kb1_edge_rows(rng, 25, W)
+            kb1(codes, lengths, 21, W, False, scheme, pos21,
+                f"run and tile edges -S W={W} {scheme}")
+            codes[4, : 2 * KB1_TILE] = -1  # a tile with no valid seed
+            lengths[4] = codes.shape[1]
+            kb4(codes, lengths, 31, W, scheme,
+                f"run and tile edges -C W={W} {scheme}")
+        if W > 1:
+            for k in (25, 32):
+                kb1(*_discipline_rows(rng, k, W), k, W, True, "entropy-file",
+                    None, f"rows -e k={k} W={W}")
+                kb1(*_kb1_edge_rows(rng, k, W), k, W, True, "entropy-file",
+                    None, f"run and tile edges -e k={k} W={W}")
+    # KB4 on 3000 short rows (P < W: the tail column alone), then twice
+    # in a row on one stream
+    codes = rng.integers(0, 4, (3000, 40)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.05] = -1
+    lengths = rng.integers(0, 41, 3000).astype(np.int32)
+    codes[np.arange(40)[None, :] >= lengths[:, None]] = -1
+    kb4(codes, lengths, 21, 13, "lex", "3000 rows of 40")
+    kb4(codes, lengths, 31, 16, "entropy-file", "3000 rows of 40, P < W")
+    cases = [_discipline_rows(rng, 31, 10, L=9000, B=16) for _ in range(2)]
+    got = [enc.compacted_minimizers(torch.from_numpy(c).to(dev),
+                                    torch.from_numpy(n).to(dev), 31, 10)
+           for c, n in cases]
+    for g, (c, n) in zip(got, cases):
+        chk.same("compacted_minimizers", g, enc.compacted_minimizers_plain(
+            torch.from_numpy(c), torch.from_numpy(n), 31, 10),
+            "two calls in a row")
 
 
 def _device_busy(prof):
@@ -935,17 +1140,17 @@ def phase_device_build(dev, kk, host_secs):
     from torch.profiler import ProfilerActivity, profile
 
     from bonsai_tpu_torch import cli
-    from bonsai_tpu_torch.core.encoder import minimizers
-    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.core.encoder import compacted_minimizers, minimizers
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
     from bonsai_tpu_torch.db import build_device as bd
     from bonsai_tpu_torch.db.build import content_digest
     from bonsai_tpu_torch.db.formats import load_database
     from bonsai_tpu_torch.db.table import KmerTable
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
 
-    wrappers = [minimizers, bd.sort_unique, bd.merge_fold]
-    for w in wrappers:
-        w.launches = 0
+    wrappers = [minimizers, compacted_minimizers, bd.sort_unique,
+                bd.merge_fold]
+    reset_counts(wrappers)
     tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
     genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
     nameid = os.path.join(GOLD, kk["nameid"])
@@ -967,7 +1172,36 @@ def phase_device_build(dev, kk, host_secs):
         nums[w] = {"secs": secs, "n": table.n, "peak": peak}
         if w == 31:
             say(f"# device build: ec k=31: kernel launches "
-                f"{ {f.__name__: f.launches for f in wrappers} }")
+                f"{read_counts(wrappers)}")
+    # the seed disciplines of -S, -e and -C -w on the ec corpus, by stage
+    # (device_lca_map's own three steps)
+    spaced_table = None
+    for flags, k, w, spacing, canon, scheme, want in EC_DISCIPLINES:
+        sp = Spacer(k, w, parse_spacing(spacing, k))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        states, tax, root1 = bd._device_gather(genomes, tree, nameid, sp,
+                                               canon, 1 << 22, dev, scheme)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        keys, taxa = bd._finish_fold(states, tax, root1, False)
+        t2 = time.perf_counter()
+        del states
+        table = KmerTable(keys, taxa)
+        t3 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        got = content_digest(table)
+        say(f"# device build: ec {flags}: {table.n} k-mers in {t3 - t0:.3f}s "
+            f"= {table.n / (t3 - t0):.6g} k-mers/s (first run): genomes -> "
+            f"states {t1 - t0:.3f}s, tree fold + fetch {t2 - t1:.3f}s, table "
+            f"placement (host) {t3 - t2:.3f}s; peak device memory "
+            f"{peak / 2**20:.1f} MiB; digest "
+            f"{'matches' if got == want else 'DIFFERS'} the JAX package's")
+        require(got == want, f"ec {flags} device build differs")
+        nums[flags] = {"secs": t3 - t0, "n": table.n, "peak": peak}
+        if spacing:
+            spaced_table = table
     # a second k = 31 build, by stage, with a profiler trace of the fold
     sp = Spacer(31, 31)
     torch.cuda.synchronize()
@@ -1005,29 +1239,126 @@ def phase_device_build(dev, kk, host_secs):
                                                                 "nameidmap.txt")
     dflags = ["--device-build", "--device", str(dev)]
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        runs = []  # (what, argv, digest)
         for c in m["configs"]:
             out = os.path.join(tmp, f"{c['name']}.btpu")
-            if c["name"] in ("lex_k25", "lex_k31_w40", "lex_k25_nocanon"):
+            if c["phase1"] is None:
                 argv = ["build", out, *gold, *c["flags"], "-T", nodes, "-M",
                         nmap, *dflags]
-                want = c["db_digest"]
+                runs.append((f"golden {c['name']}", argv, c["db_digest"]))
             elif c["phase1"] in ("t", "f"):
                 argv = ["prebuild", nmap, nodes, out, *gold, "-k", "25",
                         f"-{c['phase1']}", *dflags]
-                want = c["phase1_digest"]
-            else:
-                continue
-            require(cli.main(argv) == 0, f"port CLI {argv[0]} {c['name']} failed")
-            got = content_digest(load_database(out).table)
-            say(f"# device build: golden {argv[0]} {c['name']}: digest "
+                runs.append((f"golden prebuild {c['name']}", argv,
+                             c["phase1_digest"]))
+        for (cmd, flags), want in GOLDEN_JAX_DIGESTS.items():
+            out = os.path.join(tmp, f"{len(runs)}.btpu")
+            argv = (["build", out, *gold, *flags.split(), "-T", nodes, "-M",
+                     nmap] if cmd == "build" else
+                    ["prebuild", nmap, nodes, out, *gold, *flags.split()])
+            runs.append((f"{cmd} {flags} (the JAX CLI's digest)",
+                         argv + dflags, want))
+        for what, argv, want in runs:
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, f"port CLI {what} failed")
+            secs = time.perf_counter() - t0
+            got = content_digest(load_database(argv[1 if argv[0] == "build"
+                                                    else 3]).table)
+            say(f"# device build: {what}: {secs:.3f}s; digest "
                 f"{'matches' if got == want else 'DIFFERS'}")
-            require(got == want, f"golden {c['name']} device build differs")
+            require(got == want, f"{what}: device build differs")
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_counts(wrappers)
     say(f"# device build: kernel launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the device build")
-    return launches, nums
+    return launches, nums, spaced_table
+
+
+def phase_spaced_classify(dev, chk, kk, table, hiseq):
+    """K1's spaced instantiation, then the HiSeq set against the spaced ec
+    database of phase 9 (-k 21 -S 0x16,1x4): Kraken text = the JAX
+    Classifier's."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.core.spacer import parse_spacing
+    from bonsai_tpu_torch.db.formats import Database
+    from bonsai_tpu_torch.db.table import ProbeArrays
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.bounds import (bound_encode_probe, bound_text,
+                                               spaced_runs)
+    from bonsai_tpu_torch.tools.gather_bench import graph_ms
+
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    db = Database(table=table, k=21, w=21, gaps=parse_spacing(SPACING21, 21))
+    clf = pl.Classifier(db, tree, emit_all=True, device=dev)
+    require(clf.positions is not None and clf.sp.c == 25 and not clf.canon,
+            "the spaced classifier's seed")
+    arr_cpu = ProbeArrays(clf.arr.slots.cpu(), clf.arr.vals.cpu(),
+                          clf.arr.inline, clf.arr.lgnb, clf.arr.vbits)
+    rng = np.random.default_rng(SEED + 8)
+
+    def k1(batch, tag, paired=False):
+        pc, nm, ln, lproc = clf._prepare_batch(batch, paired)
+        args = (lproc, clf.k, clf.canon)
+        got = pl.encode_probe(pc.to(dev), None if nm is None else nm.to(dev),
+                              ln.to(dev), *args, clf.arr, True, clf.positions)
+        chk.same("encode_probe_spaced", got, pl.encode_probe_plain(
+            _cpu(pc), _cpu(nm), _cpu(ln), *args, arr_cpu, True,
+            clf.positions), tag)
+
+    b = _batch(hiseq, 8192, DNA4.lut)
+    k1(b, "HiSeq 8192")
+    k1(b, "HiSeq paired", paired=True)
+    codes, lengths = b.codes.copy(), b.lengths.copy()
+    short = rng.choice(len(lengths), 512, replace=False)
+    lengths[short] = rng.integers(1, 25, size=short.size)
+    codes[np.arange(codes.shape[1])[None, :] >= lengths[:, None]] = -1
+    rows = rng.integers(0, len(lengths), 2000)
+    codes[rows, rng.integers(0, 101, rows.size)] = -1
+    k1(type(b)(names=b.names, seqs=b.seqs, codes=codes, lengths=lengths,
+               quals=b.quals), "HiSeq short+N")
+    # the path: HiSeq against the spaced database
+    wrappers = [pl.encode_probe, rs.resolve, pl.step_outputs]
+    reset_counts(wrappers)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    clf.process_dataset(hiseq, out, batch_size=8192)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = hashlib.sha256(out.getvalue().encode()).hexdigest()
+    launches = read_counts(wrappers)
+    say(f"# spaced classify: HiSeq against the ec -k 21 -S {SPACING21} "
+        f"database: {out.getvalue().count(chr(10))} lines in {secs:.3f}s, "
+        f"sha256 {'matches' if got == HISEQ_SPACED_SHA256 else 'DIFFERS'} "
+        f"the JAX Classifier's; kernel launches {launches}")
+    require(got == HISEQ_SPACED_SHA256,
+            "HiSeq against the spaced database differs from the JAX package")
+    require(launches["encode_probe_spaced"] > 0 and
+            launches["encode_probe"] == 0, "K1's spaced kernel was not the "
+            "one launched on the spaced path")
+    # K1 spaced and its plain version, CUDA-graph replay and events
+    pc, nm, ln, lproc = clf._prepare_batch(b)
+    a1 = (pc.to(dev), None if nm is None else nm.to(dev), ln.to(dev), lproc,
+          clf.k, clf.canon, clf.arr, True, clf.positions)
+    res = pl.encode_probe(*a1)
+    bnd = bound_encode_probe(a1[:3], clf.arr.vals, res,
+                             runs=spaced_runs(clf.positions))
+    p1 = graph_ms(lambda: pl.encode_probe_plain(*a1), calls=20)
+    t1, t2 = graph_ms(lambda: pl.encode_probe(*a1)), graph_ms(
+        lambda: pl.encode_probe(*a1))
+    p2 = graph_ms(lambda: pl.encode_probe_plain(*a1), calls=20)
+    ev = time_ms(lambda: pl.encode_probe(*a1), iters=100)
+    say(f"# time encode_probe_spaced at B=8192 reads, P={res[0].shape[1]}, "
+        f"CUDA-graph replay: kernel {t1:.4f}, {t2:.4f} ms, plain torch on the "
+        f"card {p1:.4f}, {p2:.4f} ms; events around back-to-back wrapper "
+        f"calls {ev:.4f} ms; {bound_text(bnd)}")
+    return ({"encode_probe_spaced": launches["encode_probe_spaced"]},
+            ((t1 + t2) / 2, (p1 + p2) / 2, ev), bnd)
 
 
 def phase_gather(dev):
@@ -1083,9 +1414,11 @@ def phase_build_numbers(dev, kk):
     from bonsai_tpu_torch.core import encoder as enc
     from bonsai_tpu_torch.db import build_device as bd
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
-    from bonsai_tpu_torch.tools.bounds import (bound, bound_merge_fold,
+    from bonsai_tpu_torch.tools.bounds import (bound,
+                                               bound_compacted_minimizers,
+                                               bound_merge_fold,
                                                bound_minimizers, bound_text,
-                                               nbytes)
+                                               nbytes, spaced_runs)
     from bonsai_tpu_torch.tools.gather_bench import graph_ms
 
     times, bounds, library = {}, {}, {}
@@ -1125,6 +1458,44 @@ def phase_build_numbers(dev, kk):
             "minimizers", f"ec chunk {codes.shape[1]} bases k=31 W={W}",
             lambda: enc.minimizers(c, ln, 31, W, True),
             lambda: enc.minimizers_plain(c, ln, 31, W, True), graph=True)
+    # KB1's other instantiations and KB4 at the ec builds' shapes
+    pos21 = _positions(21, SPACING21)
+    for name, w, tag, kern, plain, bnd in (
+        ("minimizers_spaced", 25, "-k 21 -S 0x16,1x4 (W = 1)",
+         lambda c, n: enc.minimizers(c, n, 21, 1, False, "lex", pos21),
+         lambda c, n: enc.minimizers_plain(c, n, 21, 1, False, "lex", pos21),
+         lambda c, n, em: bound_minimizers(c, n, em, 1,
+                                           runs=spaced_runs(pos21))),
+        ("minimizers_spaced -e", 40, "-k 21 -S 0x16,1x4 -w 40 -e (W = 16)",
+         lambda c, n: enc.minimizers(c, n, 21, 16, False, "entropy-file",
+                                     pos21),
+         lambda c, n: enc.minimizers_plain(c, n, 21, 16, False,
+                                           "entropy-file", pos21),
+         lambda c, n, em: bound_minimizers(c, n, em, 16,
+                                           runs=spaced_runs(pos21),
+                                           entropy=True)),
+        ("minimizers_entropy", 37, "-k 25 -w 37 -e (W = 13)",
+         lambda c, n: enc.minimizers(c, n, 25, 13, True, "entropy-file"),
+         lambda c, n: enc.minimizers_plain(c, n, 25, 13, True,
+                                           "entropy-file"),
+         lambda c, n, em: bound_minimizers(c, n, em, 13, entropy=True)),
+        ("compacted_minimizers -e", 37, "-C -k 25 -w 37 -e (W = 13)",
+         lambda c, n: enc.compacted_minimizers(c, n, 25, 13, "entropy-file"),
+         lambda c, n: enc.compacted_minimizers_plain(c, n, 25, 13,
+                                                     "entropy-file"),
+         lambda c, n, em: bound_compacted_minimizers(c, n, em, 13, True)),
+        ("compacted_minimizers", 40, "-C -k 31 -w 40 (W = 10)",
+         lambda c, n: enc.compacted_minimizers(c, n, 31, 10),
+         lambda c, n: enc.compacted_minimizers_plain(c, n, 31, 10),
+         lambda c, n, em: bound_compacted_minimizers(c, n, em, 10)),
+    ):
+        codes, lengths = _ec_chunk(w)
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        bounds[name] = bnd(c, ln, kern(c, ln))
+        times[name] = pair(name, f"ec chunk {codes.shape[1]} bases {tag}",
+                           lambda: kern(c, ln), lambda: plain(c, ln),
+                           graph=True)
     codes, lengths = _ec_chunk(25)
     chunks["k=25 W=1 (top digit's pass skipped)"] = enc.minimizers(
         torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev),
@@ -1206,7 +1577,12 @@ def main() -> int:
     say(f"# peak device memory allocated (classify, scale): "
         f"{peak / 2**20:.1f} MiB")
     phase_build_kernels(dev, chk, kk)
-    build_launches, build_nums = phase_device_build(dev, kk, host_secs)
+    build_launches, build_nums, spaced_table = phase_device_build(
+        dev, kk, host_secs)
+    spaced_launches, times["encode_probe_spaced"], bounds[
+        "encode_probe_spaced"] = phase_spaced_classify(dev, chk, kk,
+                                                       spaced_table, hiseq)
+    del spaced_table
     gather_launches, gres = phase_gather(dev)
     build_times, build_bounds, library = phase_build_numbers(dev, kk)
     times.update(build_times)
@@ -1220,6 +1596,7 @@ def main() -> int:
     first = next(iter(gres["take_along"].values()))
     times["take_along"] = (first["ms"], first["plain_ms"], first["event_ms"])
     launches.update(build_launches)
+    launches.update(spaced_launches)
     launches.update(gather_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its

@@ -5,9 +5,11 @@ are held against the JAX package's ``_dedup_chunk_impl`` and
 ``_merge_states_impl`` on the same numpy inputs (the valid prefix and its
 count n; the payload JAX leaves in pad slots is unspecified), the device
 folds and maps against ``bonsai_tpu.db.build_device`` and the host maps
-against ``bonsai_tpu.db.build``, all on the CPU.  The port CLI's
-``--device-build --device cpu`` builds reproduce the golden manifest's
-digests.  Tolerance: exact equality, since everything here is integer
+against ``bonsai_tpu.db.build``, all on the CPU, also across chunk edges
+for the uncanonical windowed, entropy-file and spaced disciplines.  The
+port CLI's ``--device-build --device cpu`` builds reproduce the golden
+manifest's digests, and the JAX CLI's where no golden holds the
+discipline (``-C -w``, ``-C -w -e``, ``-S -w``, ``prebuild -S``).  Tolerance: exact equality, since everything here is integer
 work.
 """
 
@@ -274,6 +276,7 @@ def _golden(name):
 
 
 @pytest.mark.parametrize("name", ["lex_k25", "lex_k31_w40", "lex_k25_nocanon",
+                                  "spaced_k21", "ent_k25_w37",
                                   "min_td_k25_w37", "min_fc_k25_w37"])
 def test_cli_device_build_matches_golden_digest(name, tmp_path):
     c = _golden(name)
@@ -296,10 +299,128 @@ def test_cli_device_build_matches_golden_digest(name, tmp_path):
     assert tbuild.content_digest(load_database(host).table) == want
 
 
-@pytest.mark.parametrize("extra", [["-S", "0x16,1x4"], ["-e"],
+@pytest.mark.parametrize("argv", [
+    ["build", "-C", "-k", "25", "-w", "37"],
+    ["build", "-C", "-k", "25", "-w", "37", "-e"],
+    ["build", "-k", "21", "-S", "0x16,1x4", "-w", "40"],
+    ["build", "-k", "21", "-S", "0x16,1x4", "-w", "40", "-e"],
+    ["prebuild", "-k", "21", "-S", "0x16,1x4", "-t"],
+    ["prebuild", "-k", "21", "-S", "0x16,1x4", "-f"],
+], ids=["uncanonical-w37", "uncanonical-w37-entropy", "spaced-w40",
+        "spaced-w40-entropy", "prebuild-spaced-t", "prebuild-spaced-f"])
+def test_cli_build_matches_jax_digest(argv, tmp_path):
+    """The disciplines no golden holds, against the JAX CLI's database:
+    the host build and --device-build --device cpu."""
+    from bonsai_tpu.cli import main as jmain
+
+    nodes = os.path.join(GOLD, "nodes.dmp")
+    nmap = os.path.join(GOLD, "nameidmap.txt")
+
+    def argv_for(out):
+        if argv[0] == "build":
+            return ["build", out, *GENOMES, *argv[1:], "-T", nodes, "-M", nmap]
+        return ["prebuild", nmap, nodes, out, *GENOMES, *argv[1:]]
+
+    jout = str(tmp_path / "jax.btpu")
+    assert jmain(argv_for(jout)) == 0
+    want = tbuild.content_digest(load_database(jout).table)
+    assert load_database(jout).table.n > 0
+    for tag, extra in (("host", []),
+                       ("device", ["--device-build", "--device", "cpu"])):
+        out = str(tmp_path / f"{tag}.btpu")
+        assert cli.main(argv_for(out) + extra) == 0
+        db = load_database(out)
+        assert tbuild.content_digest(db.table) == want, tag
+        assert db.gaps == load_database(jout).gaps
+        assert db.scheme == load_database(jout).scheme
+
+
+@pytest.mark.parametrize("k,w,gaps,canon,scheme", [
+    (25, 37, None, False, "lex"),
+    (25, 37, None, False, "entropy-file"),
+    (25, 37, None, True, "entropy-file"),
+    (21, 40, "0x16,1x4", False, "lex"),
+    (21, 25, "0x16,1x4", False, "entropy-file"),
+], ids=["uncanonical", "uncanonical-entropy", "canonical-entropy",
+        "spaced-w40", "spaced-entropy"])
+def test_device_lca_map_disciplines_match_jax(trees, genomes, k, w, gaps,
+                                              canon, scheme):
+    """Chunks of 1024 windows, so the contigs of 3000 and 1200 bases cross
+    chunk edges: a non-final chunk drops its column 0 where the JAX
+    package does (w > c, uncanonical), on the device path and the host
+    path alike."""
+    jt, tt = trees
+    paths, name_map = genomes
+    want = jbd.device_lca_map(paths, jt, name_map, JSpacer(k, w, gaps),
+                              canon, scheme, block=1 << 10)
+    got = bd.device_lca_map(paths, tt, name_map, Spacer(k, w, gaps), canon,
+                            scheme, block=1 << 10, device="cpu")
+    assert want.n > 0
+    _tables_equal(got, want)
+    from bonsai_tpu.core.alphabet import DNA4
+    from bonsai_tpu.core.encoder import BatchEncoder as JEncoder
+    from bonsai_tpu.io.fastx import read_fastx
+
+    from bonsai_tpu_torch.core.encoder import BatchEncoder
+
+    seq = next(iter(read_fastx(paths[0])))[1]
+    jsets = jbuild._contig_sets(JEncoder(JSpacer(k, w, gaps), canon, scheme),
+                                seq, DNA4.lut, JSpacer(k, w, gaps), 1 << 10,
+                                False)
+    tsets = tbuild._contig_sets(BatchEncoder(Spacer(k, w, gaps), canon,
+                                             scheme),
+                                seq, DNA4.lut, Spacer(k, w, gaps), 1 << 10)
+    assert len(tsets) == len(jsets) == 3
+    for g, j in zip(tsets, jsets):
+        np.testing.assert_array_equal(np.unique(g), j)
+
+
+def test_partial_window_of_a_non_final_chunk_is_dropped(trees, tmp_path):
+    """A contig whose second chunk (of 1024 windows) holds 4 valid seeds
+    amid Ns: there the uncanonical windowed discipline's tail fires, and
+    only that emission carries their minimum.  The JAX package drops it,
+    as a non-final chunk's, on both paths; so must the port."""
+    jt, tt = trees
+    rng = np.random.default_rng(11)
+    seq = bytearray(random_dna(rng, 3000, n_prob=0.0))
+    seq[1024:2100] = b"N" * 1076
+    seq[1500:1528] = random_dna(rng, 28, n_prob=0.0)  # 4 seeds of k = 25
+    path = str(tmp_path / "nrich.fa")
+    with open(path, "w") as fh:
+        fh.write(f">ACC_9_0 nrich\n{seq.decode()}\n")
+    name_map = {"ACC_9_0": 11}
+    sp, jsp = Spacer(25, 37), JSpacer(25, 37)
+    from bonsai_tpu_torch.core.encoder import BatchEncoder
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.io import fastx
+
+    codes = torch.from_numpy(fastx.encode_contig(bytes(seq[1024:2084]),
+                                                 DNA4.lut))
+    em = BatchEncoder(sp, False).emissions(
+        codes[None, :], torch.tensor([1060], dtype=torch.int32))
+    assert bool(em.mask[0, 0]) and int(em.mask.sum()) == 1  # the tail alone
+    want = jbd.device_lca_map([path], jt, name_map, jsp, False, "lex",
+                              block=1 << 10)
+    assert int(em.values[0, 0]) & (2**64 - 1) not in set(
+        want.keys_sorted.tolist())
+    _tables_equal(bd.device_lca_map([path], tt, name_map, sp, False, "lex",
+                                    block=1 << 10, device="cpu"), want)
+    from bonsai_tpu.core.encoder import BatchEncoder as JEncoder
+
+    jsets = jbuild._contig_sets(JEncoder(jsp, False), bytes(seq), DNA4.lut,
+                                jsp, 1 << 10, False)
+    tsets = tbuild._contig_sets(BatchEncoder(sp, False), bytes(seq), DNA4.lut,
+                                sp, 1 << 10)
+    assert len(tsets) == len(jsets) == 3
+    for g, j in zip(tsets, jsets):
+        np.testing.assert_array_equal(np.unique(g), j)
+
+
+@pytest.mark.parametrize("extra", [["-f", "--phase1-db", "p1.btpu"],
                                    ["-t", "--phase1-db", "p1.btpu"],
                                    ["--bonsai-format"], ["--shards", "2"],
-                                   ["-C", "-w", "40"], ["-k", "33"]])
+                                   ["-S", "0x16,1x4", "-k", "40"],
+                                   ["--bonsai-format", "-z"], ["-k", "33"]])
 def test_cli_refuses_what_is_not_ported(extra, tmp_path, capsys):
     argv = ["build", str(tmp_path / "x.btpu"), GENOMES[0], "-T",
             os.path.join(GOLD, "nodes.dmp"), "-M",

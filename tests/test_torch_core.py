@@ -111,12 +111,15 @@ def test_emissions_of_reads_shorter_than_k():
 
 def test_other_disciplines_raise():
     BatchEncoder(Spacer(25, 37))  # canonical windowed: ported
-    with pytest.raises(NotImplementedError):
-        BatchEncoder(Spacer(25, 37), canonicalize=False)  # uncanonical windowed
-    with pytest.raises(NotImplementedError):
-        BatchEncoder(Spacer(21, 21, "0x16,1x4"))  # spaced
+    BatchEncoder(Spacer(25, 37), canonicalize=False)  # uncanonical windowed
+    BatchEncoder(Spacer(21, 21, "0x16,1x4"))  # spaced
+    BatchEncoder(Spacer(25, 37), scheme="entropy-file")  # build -e
     with pytest.raises(NotImplementedError):
         BatchEncoder(Spacer(21, 21), scheme="entropy")
+    with pytest.raises(NotImplementedError):
+        BatchEncoder(Spacer(21, 21), scheme="hash")
+    with pytest.raises(NotImplementedError):
+        BatchEncoder(Spacer(33, 33))  # 128-bit k-mers
 
 
 @pytest.mark.parametrize("with_n", [True, False])

@@ -4,7 +4,8 @@
   the record reader, to the goldens' bytes and the JAX CLI's;
 * ``.zst`` goes through the zstd binary, else the zstandard module, else
   raises as the JAX package does;
-* ``classify`` of a database or input the port refuses exits 2;
+* ``classify`` of a database or input the port refuses (not BTPU1,
+  k > 32) exits 2;
 * ``build -z`` writes gzipped BTPU1 whatever the file's name, with the
   bytes of ``build`` inside and of the JAX CLI's ``build -z``.
 
@@ -116,19 +117,19 @@ def test_classify_zst_reads_with_zstd(lex_db, tmp_path):
     assert open(out, "rb").read() == _golden("classify_se.tsv.gz")
 
 
-def _spaced_db(lex_db, path):
+def _k33_db(lex_db, path):
     db = tformats.load_database(lex_db)
-    db.gaps = [1] + list(db.gaps[1:])
+    db.k, db.w, db.gaps = 33, 33, [0] * 32
     tformats.save_database(db, path)
 
 
-@pytest.mark.parametrize("which", ["not BTPU1", "spaced seeds"])
+@pytest.mark.parametrize("which", ["not BTPU1", "k > 32"])
 def test_classify_refused_database_exits_2(lex_db, tmp_path, capsys, which):
     db = str(tmp_path / "refused.db")
     if which == "not BTPU1":
         open(db, "wb").write(b"not a database\n")
     else:
-        _spaced_db(lex_db, db)
+        _k33_db(lex_db, db)
     rc = cli.main(["classify", db, NODES, os.path.join(GOLD, "reads.fa"),
                    "--device", "cpu", "-o", str(tmp_path / "out")])
     assert rc == 2

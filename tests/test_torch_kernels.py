@@ -14,9 +14,15 @@ layout; for the build kernels windows of 1 to 32 k-mers, P < W, keys
 with bit 63 set and real U64_MAX keys, Ns at the ends of KB1's thread
 runs and tiles, all-pad chunks, KB3 pairs across tile edges and whole
 tiles of pairs, empty states, every lca() corner case and both
-``sum_counts``; for the gather microbenchmarks the four
-``take_along_axis`` shapes and 32-B and 128-B rows.  Tolerance: exact
-equality, since all of it is integer work.
+``sum_counts``; for the seed disciplines of ``-S``, ``-e`` and ``-C -w``
+(KB1's spaced and entropy-file instantiations, KB4 and K1's spaced one)
+spaced seeds of spans 25 to 63, windows of 1, 2, 13 and 16, rows of
+every length from under the span to several tiles, all-N rows,
+0 < n_valid < W tails, k = 32 k-mers with bit 63 set and real U64_MAX
+k-mers; for the gather microbenchmarks the four ``take_along_axis``
+shapes and 32-B and 128-B rows.  Tolerance: exact equality, since all of
+it is integer work (the entropy-file score's one double divide is
+IEEE-rounded on both sides).
 """
 
 import os
@@ -487,7 +493,8 @@ def test_minimizers_kernel_short_rows_and_wide_windows(cuda):
         got = enc.minimizers(c[:, :L].contiguous().to(cuda), ln.to(cuda), k,
                              W, True)
         _same(got, want)
-    with pytest.raises(NotImplementedError):
+    # uncanonical contiguous windows are KB4's discipline
+    with pytest.raises(ValueError, match="compacted_minimizers"):
         enc.minimizers(c.to(cuda), ln.to(cuda), 21, 5, False)
 
 
@@ -878,3 +885,186 @@ def test_gathers_trap_on_a_bad_index(cuda, which, axis, bad):
                           capture_output=True, text=True, timeout=600)
     assert proc.stdout.count("returned") == 1, proc.stderr
     assert proc.returncode != 0
+
+
+# -- the seed disciplines of -S, -e and -C -w: KB1 spaced and entropy-file,
+# -- KB4, K1 spaced ------------------------------------------------------------
+
+SPACINGS = {  # k -> a spacing string of k - 1 gaps
+    21: "0x16,1x4",  # the spaced_k21 golden's: span 25
+    31: "0,2,0,1,3,0x10,5,0x14",  # irregular: span 42
+    32: "1x31",  # every other base: span 63
+}
+
+
+def _positions(k):
+    from bonsai_tpu_torch.core.spacer import Spacer
+
+    return tuple(int(p) for p in Spacer(k, k, SPACINGS[k]).positions)
+
+
+def _discipline_rows(rng, c, W, L=300, B=48):
+    """Rows with 2% Ns, an N run longer than the span, a row of T (k = 32:
+    U64_MAX), a row of G/T (bit 63 set), an all-N row, rows shorter than
+    the span, rows with fewer than W valid seeds, padded with -1."""
+    codes = rng.integers(0, 4, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = -1
+    lengths = rng.integers(c, L + 1, B).astype(np.int32)
+    codes[0, 40 : 40 + c + 20] = -1
+    codes[1] = 3
+    lengths[1] = L
+    codes[2] = rng.integers(2, 4, L)
+    codes[3] = -1
+    lengths[4:8] = rng.integers(0, c, 4)
+    lengths[8:12] = c + rng.integers(0, max(W - 1, 1), 4)  # n_valid < W
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
+def _run_kb1(cuda, codes, lengths, k, W, canon, scheme, positions):
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = enc.minimizers(c, ln, k, W, canon, scheme, positions)
+    before = enc.minimizers.launches
+    got = enc.minimizers(c.to(cuda), ln.to(cuda), k, W, canon, scheme,
+                         positions)
+    assert enc.minimizers.launches == before + 1
+    _same(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", sorted(SPACINGS))
+@pytest.mark.parametrize("W", [1, 2, 13, 16])
+@pytest.mark.parametrize("scheme", ["lex", "entropy-file"])
+def test_minimizers_spaced_kernel_matches_plain(cuda, k, W, scheme):
+    pos = _positions(k)
+    rng = np.random.default_rng(k * 7 + W)
+    codes, lengths = _discipline_rows(rng, pos[-1] + 1, W)
+    want = _run_kb1(cuda, codes, lengths, k, W, False, scheme, pos)
+    assert want.mask.any()
+    # Ns at thread-run and tile edges, an N run across a tile edge
+    codes, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
+    _run_kb1(cuda, codes, lengths, k, W, False, scheme, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 25, 32])
+@pytest.mark.parametrize("W", [2, 13, 16])
+def test_minimizers_entropy_kernel_matches_plain(cuda, k, W):
+    rng = np.random.default_rng(k * 11 + W)
+    codes, lengths = _discipline_rows(rng, k, W)
+    want = _run_kb1(cuda, codes, lengths, k, W, True, "entropy-file", None)
+    assert want.mask.any()
+    codes, lengths = _kb1_edge_rows(rng, k, W)
+    _run_kb1(cuda, codes, lengths, k, W, True, "entropy-file", None)
+
+
+def _run_kb4(cuda, codes, lengths, k, W, scheme):
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = enc.compacted_minimizers(c, ln, k, W, scheme)
+    before = enc.compacted_minimizers.launches
+    got = enc.compacted_minimizers(c.to(cuda), ln.to(cuda), k, W, scheme)
+    assert enc.compacted_minimizers.launches == before + 1
+    _same(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 21, 31, 32])
+@pytest.mark.parametrize("W", [1, 2, 13, 16])
+@pytest.mark.parametrize("scheme", ["lex", "entropy-file"])
+def test_compacted_minimizers_kernel_matches_plain(cuda, k, W, scheme):
+    rng = np.random.default_rng(k * 13 + W)
+    codes, lengths = _discipline_rows(rng, k, W)
+    want = _run_kb4(cuda, codes, lengths, k, W, scheme)
+    assert want.mask[:, 1:].any()
+    if W > 1:  # a trailing partial window in some row
+        assert want.mask[:, 0].any()
+    # rows of several tiles: the look-back between a row's tiles, Ns at
+    # tile edges, a tile with no valid seed
+    codes, lengths = _kb1_edge_rows(rng, k, W)
+    codes[4, : 2 * KB1_TILE] = -1
+    lengths[4] = codes.shape[1]
+    _run_kb4(cuda, codes, lengths, k, W, scheme)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,W", [(40, 13), (30, 16), (4, 2)])
+def test_compacted_minimizers_kernel_many_short_rows(cuda, L, W):
+    """Rows shorter than a window (P < W: the tail column alone) and
+    rows shorter than k, thousands of them."""
+    rng = np.random.default_rng(L + W)
+    codes = rng.integers(0, 4, (3000, L)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.05] = -1
+    lengths = rng.integers(0, L + 1, 3000).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    for k in (5, 21):
+        if L >= k:
+            _run_kb4(cuda, codes, lengths, k, W, "lex")
+
+
+@pytest.mark.cuda
+def test_compacted_minimizers_kernel_twice_on_one_stream(cuda):
+    """Two calls queued back to back: the status words and the tile
+    counter are cleared again."""
+    rng = np.random.default_rng(5)
+    cases = [_discipline_rows(rng, 31, 10, L=9000, B=16) for _ in range(2)]
+    got = [enc.compacted_minimizers(torch.from_numpy(c).to(cuda),
+                                    torch.from_numpy(n).to(cuda), 31, 10)
+           for c, n in cases]
+    for g, (c, n) in zip(got, cases):
+        _same(g, enc.compacted_minimizers(torch.from_numpy(c),
+                                          torch.from_numpy(n), 31, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", sorted(SPACINGS))
+@pytest.mark.parametrize("mode", ["dict", "flat"])
+def test_encode_probe_spaced_kernel_matches_plain(cuda, k, mode):
+    pos = _positions(k)
+    c = pos[-1] + 1
+    rng = np.random.default_rng(k + 1)
+    codes, lengths = _reads(rng, 256, 150, c)
+    codes[0, :] = 3  # k = 32: U64_MAX k-mers, never valid
+    lengths[0] = 150
+    cl, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    em = enc.minimizers(cl, ln, k, 1, False, "lex", pos)
+    kmers = em.values[em.mask].numpy().view(np.uint64)
+    extra = rng.integers(0, 2**64, 3000, dtype=np.uint64) | np.uint64(1 << 63)
+    keys = np.unique(np.concatenate([rng.choice(kmers, kmers.size // 2),
+                                     extra]))
+    v = (np.arange(keys.size, dtype=np.uint64) if mode == "flat" else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v)
+    slots, vals, inline = table.arrays_np()
+    arrs = [ProbeArrays.from_numpy(slots, vals, inline, table.lgnb,
+                                   table.vbits, d) for d in ("cpu", cuda)]
+    pc, nm = _pack(codes)
+    for lproc, with_n in ((160, True), (144, False)):
+        m = nm if with_n else None
+        args = (lproc, k, False)
+        want = pl.encode_probe(pc, m, ln, *args, arrs[0], mode == "dict",
+                               positions=pos)
+        assert want[0].shape[1] == lproc - c + 1
+        before = pl.encode_probe.variants.get("spaced", 0)
+        got = pl.encode_probe(pc.to(cuda), None if m is None else m.to(cuda),
+                              ln.to(cuda), *args, arrs[1], mode == "dict",
+                              positions=pos)
+        assert pl.encode_probe.variants["spaced"] == before + 1
+        _same(got, want)
+        assert want[0].any() and (~want[0] & want[1]).any()
+
+
+@pytest.mark.cuda
+def test_minimizers_spaced_kernel_refuses_what_it_does_not_take(cuda):
+    """A tile whose span and window do not fit in shared memory, offsets
+    that do not increase, a canonical spaced seed."""
+    c = torch.zeros((1, 20000), dtype=torch.int8, device=cuda)
+    ln = torch.tensor([20000], dtype=torch.int32, device=cuda)
+    wide = tuple(range(0, 31 * 600, 600)) + (18601,)
+    with pytest.raises(ValueError, match="shared memory"):
+        enc.minimizers(c, ln, 32, 8192, False, "lex", wide)
+    with pytest.raises(ValueError, match="increasing"):
+        enc.minimizers(c, ln, 3, 1, False, "lex", (0, 2, 2))
+    with pytest.raises(ValueError, match="canonicalized"):
+        enc.minimizers(c, ln, 3, 1, True, "lex", (0, 1, 3))

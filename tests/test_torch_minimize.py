@@ -147,16 +147,16 @@ def test_minimizers_at_w1_are_the_unwindowed_emissions():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: BatchEncoder(Spacer(25, 37), canonicalize=False),
-    lambda: BatchEncoder(Spacer(21, 21, "0x16,1x4")),
+    lambda: BatchEncoder(Spacer(33, 33)),
+    lambda: BatchEncoder(Spacer(21, 21, "0x16,1x4"), scheme="entropy"),
     lambda: BatchEncoder(Spacer(25, 37), scheme="entropy"),
-    lambda: BatchEncoder(Spacer(25, 37), scheme="entropy-file"),
+    lambda: BatchEncoder(Spacer(25, 37), canonicalize=False, scheme="entropy"),
     lambda: BatchEncoder(Spacer(25, 37), scheme="hash"),
     lambda: BatchEncoder(Spacer(7, 7), input_type=InputType.PROTEIN),
-    lambda: minimizers(torch.zeros((1, 50), dtype=torch.int8),
-                       torch.tensor([50], dtype=torch.int32), 21, 5, False),
-], ids=["uncanonical-windowed", "spaced", "entropy", "entropy-file", "hash",
-        "protein", "minimizers-uncanonical-windowed"])
+    lambda: BatchEncoder(Spacer(7, 7, "1x6"), canonicalize=False,
+                         input_type=InputType.PROTEIN),
+], ids=["k33", "spaced-entropy", "entropy", "uncanonical-windowed-entropy",
+        "hash", "protein", "spaced-protein"])
 def test_unported_disciplines_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
