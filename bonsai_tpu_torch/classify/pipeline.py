@@ -173,13 +173,7 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         if nmask.shape[0] != B or nmw * 32 < lproc:
             raise ValueError(f"nmask shape {tuple(nmask.shape)} does not "
                              f"cover ({B}, {lproc})")
-    nb = 1 << arr.lgnb
-    kernels.check(arr.slots, "slots", torch.int64, dev, (nb, 4))
-    kernels.check(arr.vals, "vals", torch.int64, dev)
-    if arr.slots.data_ptr() % 16:
-        raise ValueError("slots must be 16-byte aligned")
-    if not arr.inline and tuple(arr.vals.shape) != (nb, 4):
-        raise ValueError(f"flat vals must be ({nb}, 4)")
+    arr.check(dev)
     P = max(lproc - c + 1, 0)
     hit = torch.empty((B, P), dtype=torch.bool, device=dev)
     valid = torch.empty((B, P), dtype=torch.bool, device=dev)

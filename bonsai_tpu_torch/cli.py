@@ -5,8 +5,8 @@ Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
 
   build OUT GENOMES... -k K [-w W] [-S SPACING] [-e] -T nodes.dmp
-        -M nameidmap [-C] [-z] [-F paths] [--device-build]
-        [--device cuda|cpu]
+        -M nameidmap [-C] [-z] [-F paths] [-t|-f --phase1-db P1]
+        [--device-build] [--device cuda|cpu]
   prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-S SPACING] [-C]
         [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
@@ -15,13 +15,15 @@ subcommands, bin/bonsai.cpp) for the ported slice:
 ``classify`` and the ``--device-build`` builds run on ``--device``
 (default cuda, which must be present; cpu runs the kernels' plain torch
 versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
-(``-e``) and uncanonical windows (``-C -w``); ``classify`` reads a BTPU1
+(``-e``), uncanonical windows (``-C -w``) and the hash-scored phase 2
+(``-t|-f --phase1-db P1``: minimizers ordered by the phase-1 map that
+``prebuild -t|-f`` wrote); ``classify`` reads a BTPU1
 database file or a probe-image directory, of a contiguous or a spaced
 seed, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
 gzips the BTPU1 file whatever its name, as the reference does.  Options
-of ``bonsai_tpu`` that are not ported (hash-scored phase 2, other file
-formats, sharded output, k > 32) and inputs that the port refuses exit 2
-with the ROADMAP item that holds them.
+of ``bonsai_tpu`` that are not ported (other file formats, sharded
+output, k > 32) and inputs that the port refuses (a database or phase-1
+map that is not BTPU1) exit 2 with the ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -70,11 +72,14 @@ def _parser() -> argparse.ArgumentParser:
                    help="spaced seed: k-1 gaps, e.g. 0x16,1x4")
     p.add_argument("-e", "--entropy", action="store_true",
                    help="entropy-file minimizer scores")
+    p.add_argument("-t", "--tax-depth", action="store_true",
+                   help="phase 2: minimizers by the phase-1 map's values")
+    p.add_argument("-f", "--feature-count", action="store_true",
+                   help="phase 2, as -t (the phase-1 map decides the order)")
+    p.add_argument("--phase1-db", default=None,
+                   help="the phase-1 map of -t/-f (prebuild -t|-f)")
     _device_args(p)
     # not ported: each exits non-zero (_unported)
-    p.add_argument("-t", "--tax-depth", action="store_true")
-    p.add_argument("-f", "--feature-count", action="store_true")
-    p.add_argument("--phase1-db", default=None)
     p.add_argument("--bonsai-format", action="store_true")
     p.add_argument("--shards", default="0")
 
@@ -105,12 +110,6 @@ def _device_args(p) -> None:
 
 
 _UNPORTED = {
-    "tax_depth": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP queue A, "
-                 "item 9",
-    "feature_count": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP "
-                     "queue A, item 9",
-    "phase1_db": "hash-scored phase 2 (-t/-f, --phase1-db): ROADMAP queue A, "
-                 "item 9",
     "bonsai_format": "the reference khash format (--bonsai-format): ROADMAP "
                      "queue A, item 10",
     "shards": "sharded database directories (--shards): ROADMAP queue A, "
@@ -143,7 +142,6 @@ def main(argv=None) -> int:
         return 1
     build = args.cmd in ("build", "p2", "phase2")
     if args.cmd != "classify":
-        # prebuild's -t/-f choose the phase-1 map; build's are not ported
         msg = _unported(args, _UNPORTED if build else ())
         if msg is not None:
             print(msg, file=sys.stderr)
@@ -153,6 +151,7 @@ def main(argv=None) -> int:
             return _cmd_classify(args)
         return _cmd_build(args) if build else _cmd_prebuild(args)
     except NotImplementedError as e:  # a discipline, database or input
+        # (load_database names item 10 for a file that is not BTPU1)
         print(f"not ported: {e}", file=sys.stderr)
         return 2
 
@@ -184,7 +183,7 @@ def _cmd_classify(args) -> int:
 
 def _cmd_build(args) -> int:
     from .core.spacer import Spacer, parse_spacing
-    from .db.formats import Database, save_database
+    from .db.formats import Database, load_database, save_database
     from .taxonomy.tree import TaxTree
 
     paths = _paths(args)
@@ -197,18 +196,35 @@ def _cmd_build(args) -> int:
     sp = Spacer(k, w, gaps)
     tree = TaxTree.from_nodes_dmp(args.tax_path)
     canon = not args.no_canon
-    # `bonsai build -e` scores through the file overload's generic
-    # windowed loops (core/entropy.py)
-    scheme = "entropy-file" if args.entropy else "lex"
-    if args.device_build:
-        from .db.build_device import device_lca_map
+    if args.tax_depth or args.feature_count:
+        # phase 2: the phase-1 map orders the minimizers (-e is ignored)
+        if not args.phase1_db:
+            print("-t/-f build requires --phase1-db", file=sys.stderr)
+            return 1
+        p1 = load_database(args.phase1_db).table
+        scheme = "hash"
+        if args.device_build:
+            from .db.build_device import device_minimized_map
 
-        table = device_lca_map(paths, tree, args.seq2tax, sp, canon, scheme,
-                               device=args.device)
+            table = device_minimized_map(paths, p1, tree, args.seq2tax, sp,
+                                         canon, device=args.device)
+        else:
+            from .db.build import minimized_map
+
+            table = minimized_map(paths, p1, tree, args.seq2tax, sp, canon)
     else:
-        from .db.build import lca_map
+        # `bonsai build -e` scores through the file overload's generic
+        # windowed loops (core/entropy.py)
+        scheme = "entropy-file" if args.entropy else "lex"
+        if args.device_build:
+            from .db.build_device import device_lca_map
 
-        table = lca_map(paths, tree, args.seq2tax, sp, canon, scheme)
+            table = device_lca_map(paths, tree, args.seq2tax, sp, canon,
+                                   scheme, device=args.device)
+        else:
+            from .db.build import lca_map
+
+            table = lca_map(paths, tree, args.seq2tax, sp, canon, scheme)
     db = Database(table=table, k=k, w=w, gaps=gaps, canonicalize=canon,
                   scheme=scheme)
     save_database(db, args.out_path, compress="gz" if args.gzip else None)

@@ -3,21 +3,24 @@
 
 Counterpart of ``bonsai_tpu/core/encoder.py`` ``BatchEncoder.emissions``
 (:130-220) for DNA seeds of k <= 32 and the schemes ``lex`` (score
-frev64) and ``entropy-file`` (score u64(kmer / (-1 + 1e-4)),
-``core/entropy.py``; ``build -e``):
+frev64), ``entropy-file`` (score u64(kmer / (-1 + 1e-4)),
+``core/entropy.py``; ``build -e``) and ``hash`` (score: the k-mer's
+packed value in a phase-1 map, U64_MAX where the map lacks it,
+``db/table.py`` ``ScoreMap``; ``build -t|-f --phase1-db``):
 
 * unwindowed, contiguous (:141-153; ``classify`` runs it, w = k,
   bin/bonsai.cpp:152): encode every window, drop windows that hold an N
   or run past the read, canonicalize or not;
 * canonical windowed, contiguous (:174-184): every in-length position is
   pushed, an N window pushes canonical(OVERFLOW) == 0 (a real key, not a
-  pad), the score is that of the canonical k-mer, and slot j emits the
-  (score, kmer) minimum of positions [j, j + W - 1] iff
-  j + W <= max(len - (k - 1), 0);
+  pad, and under ``hash`` probed like any other), the score is that of
+  the canonical k-mer, and slot j emits the (score, kmer) minimum of
+  positions [j, j + W - 1] iff j + W <= max(len - (k - 1), 0);
 * spaced (:189-204; ``-S``, and ``classify`` against a spaced database at
   W = 1): never canonical, every position pushed, an N seed pushes
-  U64_MAX (scored frev64(U64_MAX), or 0x8000000000000000 under
-  entropy-file), and an emission equal to U64_MAX is dropped;
+  U64_MAX (scored frev64(U64_MAX), 0x8000000000000000 under
+  entropy-file, or probed under hash: at k = 32 a real all-T k-mer is
+  U64_MAX), and an emission equal to U64_MAX is dropped;
 * uncanonical windowed, contiguous (:161-173, :185-188, :206-220;
   ``-C -w``): only valid seeds are pushed, the window slides over the
   subsequence of valid seeds, and a final partial window (0 < n_valid <
@@ -26,10 +29,11 @@ frev64) and ``entropy-file`` (score u64(kmer / (-1 + 1e-4)),
 ``minimizers`` is the wrapper of the CUDA kernel KB1
 (``csrc/minimizers.cu``), which computes the first three;
 ``compacted_minimizers`` that of KB4 (``csrc/compacted_minimizers.cu``),
-which computes the last.  ``minimizers_plain`` and
+which computes the last; both probe the phase-1 image from inside the
+kernel under ``hash`` (``csrc/probe.cuh``).  ``minimizers_plain`` and
 ``compacted_minimizers_plain`` are their plain torch versions, which
-serve CPU tensors.  The scheme ``entropy`` (item 8.3b), the scheme
-``hash`` (item 8.4), non-DNA input (item 8.5) and k > 32 (item 8.6)
+serve CPU tensors.  Unwindowed seeds take no score.  The scheme
+``entropy`` (item 8.3b), non-DNA input (item 8.5) and k > 32 (item 8.6)
 raise ``NotImplementedError`` with their ROADMAP queue A item.
 """
 
@@ -41,6 +45,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .. import kernels
+from ..db.table import ScoreMap, lookup_scores_plain
 from . import encode
 from .alphabet import InputType
 from .bitops import SIGN, canonical
@@ -51,7 +56,7 @@ from .spacer import Spacer
 
 MAX_W = 8192  # KB1 and KB4 stage a tile's W - 1 halo in shared memory
 SMEM_BYTES = 232_448  # shared memory a block may take on an H100
-SCHEMES = ("lex", "entropy-file")
+SCHEMES = ("lex", "entropy-file", "hash")
 U64_MAX = -1  # as int64
 
 
@@ -68,8 +73,21 @@ def _empty(codes: torch.Tensor) -> Emissions:
     )
 
 
-def _scores(kmers: torch.Tensor, scheme: str) -> torch.Tensor:
-    return frev64(kmers) if scheme == "lex" else file_scores(kmers)
+def _scores(kmers: torch.Tensor, scheme: str,
+            score_map: Optional[ScoreMap]) -> torch.Tensor:
+    if scheme == "lex":
+        return frev64(kmers)
+    if scheme == "entropy-file":
+        return file_scores(kmers)
+    # ScoreMap.lookup_scores on a CPU tensor; plain torch on any device
+    return lookup_scores_plain(kmers, _score_map(score_map).arrays(
+        kmers.device))
+
+
+def _score_map(score_map: Optional[ScoreMap]) -> ScoreMap:
+    if score_map is None:
+        raise ValueError("the scheme 'hash' needs a score_map")
+    return score_map
 
 
 def _span(k: int, positions: Optional[Sequence[int]]) -> int:
@@ -78,13 +96,17 @@ def _span(k: int, positions: Optional[Sequence[int]]) -> int:
 
 def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
                      W: int, canon: bool, scheme: str = "lex",
-                     positions: Optional[Sequence[int]] = None) -> Emissions:
+                     positions: Optional[Sequence[int]] = None,
+                     score_map: Optional[ScoreMap] = None) -> Emissions:
     """Plain torch KB1: (B, L) int8 codes (-1 = N or pad), (B,) lengths ->
     (B, E) emissions, E = L - c - W + 2 with c the seed's span.
     ``positions`` (the k offsets of a spaced seed, ``Spacer.positions``)
     makes the spaced discipline, which takes no ``canon``; otherwise W = 1
-    is the unwindowed discipline and W > 1 needs ``canon``."""
+    is the unwindowed discipline and W > 1 needs ``canon``.  The scheme
+    ``hash`` scores through ``score_map``."""
     c = _span(k, positions)
+    if W == 1:  # a window of one seed: no score decides anything
+        scheme = "lex"
     if codes.shape[-1] < c:
         return _empty(codes)
     if positions is None:
@@ -105,12 +127,12 @@ def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
         ck = torch.where(invalid, 0, canonical(kmers, k))
         if P < W:
             return _empty(codes)
-        return Emissions(*positional_minimizers(_scores(ck, scheme), ck, W,
-                                                n_push))
+        return Emissions(*positional_minimizers(
+            _scores(ck, scheme, score_map), ck, W, n_push))
     if canon:
         raise ValueError("a spaced seed is never canonicalized")
     ov = torch.where(invalid, U64_MAX, kmers)
-    scores = _scores(ov, scheme)
+    scores = _scores(ov, scheme, score_map)
     if scheme == "entropy-file":  # a partial tracker: NOT_FULL's quotient
         scores = torch.where(invalid, SIGN, scores)
     if P < W:
@@ -145,19 +167,25 @@ def _check_args(name, codes, lengths, k, W, scheme):
 
 def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
                canon: bool, scheme: str = "lex",
-               positions: Optional[Sequence[int]] = None) -> Emissions:
+               positions: Optional[Sequence[int]] = None,
+               score_map: Optional[ScoreMap] = None) -> Emissions:
     """KB1 (``csrc/minimizers.cu``): see ``minimizers_plain``, which serves
     CPU tensors.  codes (B, L) int8, lengths (B,) int32 -> values (B, E)
     int64 and an ``emitted`` mask (B, E) bool; a value is never a
     sentinel (at k = 32 a real k-mer can be U64_MAX).  Contiguous lex
     seeds run the kernel's first entry point; spaced seeds and the
-    entropy-file score its second (counted in ``minimizers.variants``)."""
+    entropy-file score its second, the hash score its third, with the
+    phase-1 image of ``score_map`` on the codes' device (counted in
+    ``minimizers.variants``)."""
     if codes.device.type == "cpu":
-        return minimizers_plain(codes, lengths, k, W, canon, scheme, positions)
+        return minimizers_plain(codes, lengths, k, W, canon, scheme, positions,
+                                score_map)
     if codes.device.type != "cuda":
         raise ValueError(f"minimizers: no kernel for device {codes.device}")
     dev = codes.device
     _check_args("minimizers", codes, lengths, k, W, scheme)
+    if W == 1:  # a window of one seed: no score decides anything
+        scheme = "lex"
     B, L = codes.shape
     if B > 65535:
         raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
@@ -188,13 +216,22 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
         variant = "lex"
     else:
         pos = (ctypes.c_int32 * 32)(*(int(p) for p in (positions or ())))
-        entropy = scheme == "entropy-file"
-        kernels.launch("bk_minimizers_ext", dev, codes.data_ptr(),
-                       lengths.data_ptr(), B, L, k, W, int(canon),
-                       int(positions is not None), pos, c, int(entropy),
-                       FILE_DENOM, keys.data_ptr(), emitted.data_ptr())
-        variant = ("spaced" if positions is not None else "contiguous") + (
-            " entropy-file" if entropy else "")
+        spaced = positions is not None
+        if scheme == "hash":
+            arr = _score_map(score_map).arrays(dev)
+            arr.check(dev)
+            kernels.launch("bk_minimizers_hash", dev, codes.data_ptr(),
+                           lengths.data_ptr(), B, L, k, W, int(canon),
+                           int(spaced), pos, c, *arr.args(), keys.data_ptr(),
+                           emitted.data_ptr())
+            variant = "spaced hash" if spaced else "hash"
+        else:
+            kernels.launch("bk_minimizers_ext", dev, codes.data_ptr(),
+                           lengths.data_ptr(), B, L, k, W, int(canon),
+                           int(spaced), pos, c, int(scheme == "entropy-file"),
+                           FILE_DENOM, keys.data_ptr(), emitted.data_ptr())
+            variant = ("spaced" if spaced else "contiguous") + (
+                "" if scheme == "lex" else " entropy-file")
     minimizers.launches += 1
     minimizers.variants[variant] = minimizers.variants.get(variant, 0) + 1
     return Emissions(keys, emitted)
@@ -205,8 +242,9 @@ minimizers.variants = {}
 
 
 def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
-                               k: int, W: int,
-                               scheme: str = "lex") -> Emissions:
+                               k: int, W: int, scheme: str = "lex",
+                               score_map: Optional[ScoreMap] = None
+                               ) -> Emissions:
     """Plain torch KB4: (B, L) int8 codes, (B,) lengths -> (B, E)
     emissions of the uncanonical contiguous windowed discipline,
     E = 1 + max(P - W + 1, 0), P = L - k + 1 (none when L < k).  Column 0
@@ -215,27 +253,32 @@ def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
     package leaves the minimum of every pushed seed there, a value no
     mask lets out).  Column 1 + j is the minimum of compacted seeds
     [j, j + W - 1], the sentinel U64_MAX standing in past n_valid; valid
-    iff j + W <= n_valid."""
+    iff j + W <= n_valid.  The scheme ``hash`` scores through
+    ``score_map``."""
     if codes.shape[-1] < k:
         return _empty(codes)
     kmers, invalid = encode.pack_kmers(codes, k)
     kmers = encode.apply_mask(kmers, k, InputType.DNA)
     valid = encode.position_validity(lengths, kmers.shape[-1], k) & ~invalid
-    out_k, out_v, tail_k, tail_v = _compacted(_scores(kmers, scheme), kmers,
-                                              valid, W)
+    out_k, out_v, tail_k, tail_v = _compacted(
+        _scores(kmers, scheme, score_map), kmers, valid, W)
     tail_k = torch.where(tail_v, tail_k, U64_MAX)
     return Emissions(torch.cat([tail_k[:, None], out_k], dim=-1),
                      torch.cat([tail_v[:, None], out_v], dim=-1))
 
 
 def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
-                         W: int, scheme: str = "lex") -> Emissions:
+                         W: int, scheme: str = "lex",
+                         score_map: Optional[ScoreMap] = None) -> Emissions:
     """KB4 (``csrc/compacted_minimizers.cu``): see
     ``compacted_minimizers_plain``, which serves CPU tensors.  codes
     (B, L) int8, lengths (B,) int32 -> values (B, E) int64, emitted
-    (B, E) bool."""
+    (B, E) bool.  The hash score runs the kernel's second entry point,
+    with the phase-1 image of ``score_map`` on the codes' device (counted
+    in ``compacted_minimizers.variants``)."""
     if codes.device.type == "cpu":
-        return compacted_minimizers_plain(codes, lengths, k, W, scheme)
+        return compacted_minimizers_plain(codes, lengths, k, W, scheme,
+                                          score_map)
     if codes.device.type != "cuda":
         raise ValueError(
             f"compacted_minimizers: no kernel for device {codes.device}")
@@ -253,15 +296,25 @@ def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     keys = torch.empty((B, E), dtype=torch.int64, device=dev)
     emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
     scratch = kernels.scratch("bk_compacted_minimizers", (B, L), dev)
-    kernels.launch("bk_compacted_minimizers", dev, codes.data_ptr(),
-                   lengths.data_ptr(), B, L, k, W,
-                   int(scheme == "entropy-file"), FILE_DENOM, keys.data_ptr(),
-                   emitted.data_ptr(), scratch.data_ptr())
+    if scheme == "hash":
+        arr = _score_map(score_map).arrays(dev)
+        arr.check(dev)
+        kernels.launch("bk_compacted_minimizers_hash", dev, codes.data_ptr(),
+                       lengths.data_ptr(), B, L, k, W, *arr.args(),
+                       keys.data_ptr(), emitted.data_ptr(), scratch.data_ptr())
+    else:
+        kernels.launch("bk_compacted_minimizers", dev, codes.data_ptr(),
+                       lengths.data_ptr(), B, L, k, W,
+                       int(scheme == "entropy-file"), FILE_DENOM,
+                       keys.data_ptr(), emitted.data_ptr(), scratch.data_ptr())
     compacted_minimizers.launches += 1
+    v = compacted_minimizers.variants
+    v[scheme] = v.get(scheme, 0) + 1
     return Emissions(keys, emitted)
 
 
 compacted_minimizers.launches = 0
+compacted_minimizers.variants = {}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -272,14 +325,13 @@ def _unported(what: str, item: str) -> NotImplementedError:
 class BatchEncoder:
     def __init__(self, spacer: Spacer, canonicalize: bool = True,
                  scheme: str = "lex",
-                 input_type: InputType = InputType.DNA):
+                 input_type: InputType = InputType.DNA,
+                 score_map: Optional[ScoreMap] = None):
         if scheme not in ("lex", "entropy", "entropy-file", "hash"):
             raise ValueError(f"unknown scheme {scheme}")
         if scheme == "entropy":
             raise _unported("the scheme 'entropy' (windowed Shannon "
                             "entropy)", "8.3b")
-        if scheme == "hash":
-            raise _unported("the scheme 'hash' (phase-1 score lookup)", "8.4")
         if InputType(input_type) != InputType.DNA:
             raise _unported(f"input type {InputType(input_type).name}", "8.5")
         if spacer.k > 32:
@@ -287,6 +339,7 @@ class BatchEncoder:
         self.sp = spacer
         self.it = InputType(input_type)
         self.scheme = scheme
+        self.score_map = score_map  # the phase-1 map of the scheme 'hash'
         # spaced seeds cannot canonicalize (encoder.h:148-150)
         self.canon = bool(canonicalize) and spacer.unspaced()
 
@@ -295,11 +348,12 @@ class BatchEncoder:
         sp = self.sp
         if not sp.unspaced():
             return minimizers(codes, lengths, sp.k, sp.window_kmers, False,
-                              self.scheme, tuple(int(p) for p in sp.positions))
+                              self.scheme, tuple(int(p) for p in sp.positions),
+                              self.score_map)
         if sp.unwindowed():  # no window: no score
             return minimizers(codes, lengths, sp.k, 1, self.canon)
         if self.canon:
             return minimizers(codes, lengths, sp.k, sp.window_kmers, True,
-                              self.scheme)
+                              self.scheme, score_map=self.score_map)
         return compacted_minimizers(codes, lengths, sp.k, sp.window_kmers,
-                                    self.scheme)
+                                    self.scheme, self.score_map)

@@ -1,5 +1,6 @@
 // KB4 compacted_minimizers: the uncanonical windowed minimizers of
-// contiguous DNA k-mers (`build -C -w`), lex or entropy-file score.
+// contiguous DNA k-mers (`build -C -w`), lex, entropy-file or phase-1
+// (score::Hash, `build -C -w -t|-f --phase1-db`) score.
 //
 // Replaces the device path of bonsai_tpu/core/encoder.py
 // BatchEncoder.emissions on its uncanonical unspaced windowed branches
@@ -16,13 +17,17 @@
 //          n_valid seeds; U64_MAX when not emitted;
 //   column 1 + j, j < P - W + 1: the minimum of stream positions
 //          [j, j + W - 1], emitted iff j + W <= n_valid.
-// The score is frev64(kmer) or the entropy-file score (scores.cuh).
+// The score is frev64(kmer), the entropy-file score (scores.cuh) or the
+// k-mer's value in the phase-1 image, U64_MAX where it is missing
+// (probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501).
 //
 // What bounds it on an H100: the bytes, 1 B of codes a base in and 9 B a
 // slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the
 // compacted stream of this design adds 8 B a valid seed written and read
 // back, and the work is a few integer ops a position (a double divide
-// for the entropy-file score).  The design is two launches:
+// for the entropy-file score; under the hash score a phase-1 probe a
+// valid seed, one or two random 32-B rows, which then bound it).  The
+// design is two launches:
 //   1. compact: a block of 256 threads owns kTile = 4096 seed positions
 //      of a row, its tile id from an atomic counter over every row's
 //      tiles.  It stages the tile's codes and the k - 1 halo in shared
@@ -35,7 +40,9 @@
 //      writes n_valid.
 //   2. window: a block owns kTile window slots of a row, stages the
 //      stream's kTile + W - 1 positions with their scores (computed here,
-//      so the stream carries k-mers only), and takes each thread's kRun
+//      so the stream carries k-mers only; a position past n_valid is the
+//      sentinel and is never scored, so the hash score probes real seeds
+//      alone), and takes each thread's kRun
 //      window minima from blocks of W positions (van Herk / Gil-Werman,
 //      as KB1); the first block of a row also takes the tail, one warp
 //      reducing at most W - 1 seeds.
@@ -48,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
+#include "probe.cuh"
 #include "scores.cuh"
 
 namespace {
@@ -64,9 +72,15 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
   return s < bs || (s == bs && v <= bv);
 }
 
+// the lex or entropy-file score, or with kHash the phase-1 score
+template <bool kHash>
 __device__ __forceinline__ uint64_t score_of(uint64_t kmer, int entropy,
-                                             double denom) {
-  return entropy ? bk::entropy_file_score(kmer, denom) : bk::frev64(kmer);
+                                             double denom,
+                                             const bk::ProbeTable& tbl) {
+  if constexpr (kHash)
+    return bk::hash_score(tbl, kmer);
+  else
+    return entropy ? bk::entropy_file_score(kmer, denom) : bk::frev64(kmer);
 }
 
 // -- 1. compact ---------------------------------------------------------------
@@ -163,10 +177,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- 2. window minima -----------------------------------------------------------
 
+template <bool kHash>
 __global__ void __launch_bounds__(kThreads)
     window_kernel(const uint64_t* __restrict__ stream,
                   const int64_t* __restrict__ n_valid, int64_t P, int W,
-                  int64_t E, int entropy, double denom,
+                  int64_t E, int entropy, double denom, bk::ProbeTable tbl,
                   int64_t* __restrict__ keys, bool* __restrict__ emitted) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int npos = kTile + W - 1;
@@ -188,7 +203,8 @@ __global__ void __launch_bounds__(kThreads)
     const bool tail = nv > 0 && nv < W;
     if (tail)
       for (int64_t q = tid; q < nv; q += 32) {
-        const uint64_t v = srow[q], s = score_of(v, entropy, denom);
+        const uint64_t v = srow[q];
+        const uint64_t s = score_of<kHash>(v, entropy, denom, tbl);
         if (at_or_before(s, v, bs, bv)) bs = s, bv = v;
       }
 #pragma unroll
@@ -210,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     uint64_t v = kSentinel, s = kSentinel;
     if (q < nv) {
       v = srow[q];
-      s = score_of(v, entropy, denom);
+      s = score_of<kHash>(v, entropy, denom, tbl);
     }
     s_val[sx(p)] = v;
     s_score[sx(p)] = s;
@@ -306,6 +322,36 @@ Buffers carve(char* p, int64_t B, int64_t L) {
   return b;
 }
 
+template <bool kHash>
+int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
+        int W, int entropy, double denom, const bk::ProbeTable& tbl,
+        void* keys, void* emitted, void* scratch, void* stream) {
+  const int64_t P = L - k + 1;
+  if (B <= 0 || P <= 0 || P >= bk::kMaxCount || k < 1 || k > 32 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Buffers b = carve((char*)scratch, B, L);
+  cudaError_t e = cudaMemsetAsync(b.status, 0, b.zero_bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t T = tiles_of(P);
+  compact_kernel<<<(unsigned)(B * T), kThreads, 0, s>>>(
+      (const int8_t*)codes, (const int32_t*)lengths, L, k, P, T, b.tile_ctr,
+      b.status, b.stream, b.n_valid);
+  const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
+  const int smem = window_smem(W);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(window_kernel<kHash>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
+  window_kernel<kHash><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
+      b.stream, b.n_valid, P, W, E, entropy, denom, tbl, (int64_t*)keys,
+      (bool*)emitted);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int64_t bk_compacted_minimizers_scratch(int64_t B, int64_t L) {
@@ -321,28 +367,20 @@ extern "C" int bk_compacted_minimizers(const void* codes, const void* lengths,
                                        int entropy, double denom, void* keys,
                                        void* emitted, void* scratch,
                                        void* stream) {
-  const int64_t P = L - k + 1;
-  if (B <= 0 || P <= 0 || P >= bk::kMaxCount || k < 1 || k > 32 || W < 1)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const Buffers b = carve((char*)scratch, B, L);
-  cudaError_t e = cudaMemsetAsync(b.status, 0, b.zero_bytes, s);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t T = tiles_of(P);
-  compact_kernel<<<(unsigned)(B * T), kThreads, 0, s>>>(
-      (const int8_t*)codes, (const int32_t*)lengths, L, k, P, T, b.tile_ctr,
-      b.status, b.stream, b.n_valid);
-  const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
-  const int smem = window_smem(W);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(window_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
-  window_kernel<<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
-      b.stream, b.n_valid, P, W, E, entropy, denom, (int64_t*)keys,
-      (bool*)emitted);
-  return (int)cudaGetLastError();
+  return run<false>(codes, lengths, B, L, k, W, entropy, denom,
+                    bk::ProbeTable{}, keys, emitted, scratch, stream);
+}
+
+// The same under the score::Hash score: each valid seed scored by its
+// value in the phase-1 image (slots (nb, 4), lgnb, vbits, vals, n_vals,
+// inline: db/table.py ProbeArrays.args).
+extern "C" int bk_compacted_minimizers_hash(
+    const void* codes, const void* lengths, int64_t B, int64_t L, int k,
+    int W, const void* slots, int lgnb, int vbits, const void* vals,
+    int64_t n_vals, int is_inline, void* keys, void* emitted, void* scratch,
+    void* stream) {
+  const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
+                         n_vals, lgnb, vbits, is_inline};
+  return run<true>(codes, lengths, B, L, k, W, 0, 0.0, t, keys, emitted,
+                   scratch, stream);
 }

@@ -1,6 +1,6 @@
 // KB1 minimizers: the DNA k-mers of a batch of rows, contiguous or spaced,
 // canonical or not, and for windows of W > 1 k-mers the minimizer of each
-// window by the lex or the entropy-file score.
+// window by the lex, the entropy-file or the phase-1 (score::Hash) score.
 //
 // Replaces the device path of bonsai_tpu/core/encoder.py
 // BatchEncoder.emissions on its unwindowed branch (:141-153), its
@@ -8,19 +8,23 @@
 // with what they call: encode._pack_contig_fast (:66), pack_spaced_kmers
 // and _pack (:59,108), apply_mask (:163), position_validity (:141),
 // bitops.canonical (:52), hashes.frev64 (:39), entropy.entropy_scores and
-// f64_to_u64_x86 (:91,34; scores.cuh) and minimize.sliding_min /
+// f64_to_u64_x86 (:91,34; scores.cuh), ScoreMap.lookup_scores
+// (db/table.py:501; probe.cuh) and minimize.sliding_min /
 // positional_minimizers (:41,65).  Per slot j of row b, with c the seed's
 // span (k when contiguous) and n_push = max(len - (c - 1), 0):
 //   contiguous, W = 1: value = canonical or raw k-mer at j (an N reads as
 //          code 0), emitted = j < n_push and the window holds no N;
 //   contiguous, W > 1 (canonical): every position pushes ck = N window ?
-//          0 : canonical k-mer, scored frev64(ck) or entropy-file(ck);
+//          0 : canonical k-mer, scored frev64(ck), entropy-file(ck) or
+//          hash(ck), its phase-1 value or U64_MAX (ck = 0 is probed too:
+//          the poly-A k-mer can be in phase 1);
 //          value = ck of the unsigned (score, ck) minimum over positions
 //          [j, j + W - 1], emitted = j + W <= n_push;
 //   spaced (never canonical): position p's k-mer folds the codes at
 //          p + positions[i], i < k; a seed with an N pushes ov = U64_MAX,
-//          scored frev64(U64_MAX) (lex) or 0x8000000000000000
-//          (entropy-file), any other ov = its k-mer; value = ov of the
+//          scored frev64(U64_MAX) (lex), 0x8000000000000000
+//          (entropy-file) or hash(U64_MAX) (probed: at k = 32 a real
+//          all-T k-mer is U64_MAX), any other ov = its k-mer; value = ov of the
 //          window minimum, emitted = j + W <= n_push and value != U64_MAX,
 //          at W = 1 too (where a contiguous real U64_MAX k-mer is kept).
 // The first base sits in the k-mer's high bits; all compares are unsigned
@@ -30,7 +34,9 @@
 // slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the work
 // is a few integer ops a position once each k-mer is rolled (k shared
 // loads and shifts a position for a spaced seed, and a double divide for
-// the entropy-file score), and with W > 1 a few compares a slot.  The
+// the entropy-file score), and with W > 1 a few compares a slot; the hash
+// score adds a phase-1 probe a position, one or two random 32-B rows
+// (probe.cuh), which then bound it.  The
 // design: a block of 256 threads owns kTile = 4096 slots of a row and
 // stages their codes, with the (c - 1) + (W - 1) halo, in shared memory by
 // 16-B vector loads.  A contiguous thread builds the k-mer of the first
@@ -46,13 +52,15 @@
 // every lane (equal pairs carry equal values, so ties need no rule).
 // Keys go out as coalesced 16-B pairs and the emitted flags of a run as
 // one 16-B store, where the row's tile start is 16-B aligned.  The encode
-// (contiguous | spaced) and the score (frev64 | entropy-file) are
+// (contiguous | spaced) and the score (frev64 | entropy-file | hash) are
 // template parameters, so the contiguous lex instantiation is the kernel
-// it was before them.
+// it was before them.  The hash score probes from inside step 2, where
+// the k-mer is: its image adds kernel arguments, not shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe.cuh"
 #include "scores.cuh"
 #include "spacing.cuh"
 
@@ -83,21 +91,36 @@ __device__ __host__ __forceinline__ Layout layout(int span, int W) {
   return l;
 }
 
+// the score of a pushed k-mer or ov, by kind
+enum Score { kLex, kEntropy, kHash };
+
+template <int kScore>
+__device__ __forceinline__ uint64_t score_of(uint64_t v, double denom,
+                                             const bk::ProbeTable& tbl) {
+  if constexpr (kScore == kHash)
+    return bk::hash_score(tbl, v);
+  else if constexpr (kScore == kEntropy)
+    return bk::entropy_file_score(v, denom);
+  else
+    return bk::frev64(v);
+}
+
 // (score, value) pair b orders at or before the best so far
 __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
                                              uint64_t bs, uint64_t bv) {
   return s < bs || (s == bs && v <= bv);
 }
 
-// span = k for a contiguous seed; sp and denom are read only by the spaced
-// and entropy-file instantiations
-template <bool kSpaced, bool kEntropy>
+// span = k for a contiguous seed; sp, denom and tbl are read only by the
+// spaced, entropy-file and hash instantiations
+template <bool kSpaced, int kScore>
 __global__ void __launch_bounds__(kThreads)
     minimizers_kernel(const int8_t* __restrict__ codes,
                       const int32_t* __restrict__ lengths, int64_t L, int k,
                       int W, int canon, int64_t E,
                       int64_t* __restrict__ keys, bool* __restrict__ emitted,
-                      int span, bk::Spacing sp, double denom) {
+                      int span, bk::Spacing sp, double denom,
+                      bk::ProbeTable tbl) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(kSpaced ? span : k, W);
   uint64_t* s_val = (uint64_t*)smem;
@@ -151,9 +174,9 @@ __global__ void __launch_bounds__(kThreads)
       const uint64_t ov = n_in ? ~0ull : v & mask;
       s_val[sx(p)] = ov;
       if (W > 1)
-        s_score[sx(p)] = !kEntropy ? bk::frev64(ov)
-                         : n_in    ? bk::kInt64MinU
-                                   : bk::entropy_file_score(ov, denom);
+        s_score[sx(p)] = kScore == kEntropy && n_in
+                             ? bk::kInt64MinU
+                             : score_of<kScore>(ov, denom, tbl);
       else
         bad |= (uint32_t)(ov == ~0ull) << (p - p0);
     };
@@ -211,8 +234,7 @@ __global__ void __launch_bounds__(kThreads)
       if (W > 1) {
         const uint64_t ck = n_in ? 0 : v;
         s_val[sx(p0 + r)] = ck;
-        s_score[sx(p0 + r)] =
-            kEntropy ? bk::entropy_file_score(ck, denom) : bk::frev64(ck);
+        s_score[sx(p0 + r)] = score_of<kScore>(ck, denom, tbl);
       } else {
         s_val[sx(p0 + r)] = v;
         bad |= (uint32_t)n_in << r;
@@ -309,23 +331,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSpaced, bool kEntropy>
+template <bool kSpaced, int kScore>
 int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
            int k, int W, int canon, int span, const bk::Spacing& sp,
-           double denom,
+           double denom, const bk::ProbeTable& tbl,
            void* keys, void* emitted, cudaStream_t stream) {
   const int64_t E = L - span - W + 2;
   const Layout l = layout(span, W);
   if (l.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        minimizers_kernel<kSpaced, kEntropy>,
+        minimizers_kernel<kSpaced, kScore>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  minimizers_kernel<kSpaced, kEntropy><<<grid, kThreads, l.bytes, stream>>>(
+  minimizers_kernel<kSpaced, kScore><<<grid, kThreads, l.bytes, stream>>>(
       (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
-      (int64_t*)keys, (bool*)emitted, span, sp, denom);
+      (int64_t*)keys, (bool*)emitted, span, sp, denom, tbl);
   return (int)cudaGetLastError();
 }
 
@@ -338,9 +360,9 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
 extern "C" int bk_minimizers(const void* codes, const void* lengths,
                              int64_t B, int64_t L, int k, int W, int canon,
                              void* keys, void* emitted, void* stream) {
-  return launch<false, false>(codes, lengths, B, L, k, W, canon, k,
-                              bk::Spacing{}, 0.0, keys, emitted,
-                              (cudaStream_t)stream);
+  return launch<false, kLex>(codes, lengths, B, L, k, W, canon, k,
+                             bk::Spacing{}, 0.0, bk::ProbeTable{}, keys,
+                             emitted, (cudaStream_t)stream);
 }
 
 // The other instantiations: with ``spaced`` the k offsets ``positions`` (a
@@ -355,15 +377,40 @@ extern "C" int bk_minimizers_ext(const void* codes, const void* lengths,
   const bk::Spacing sp = spaced ? bk::make_spacing(positions, k)
                                 : bk::Spacing{};
   const cudaStream_t s = (cudaStream_t)stream;
+  const bk::ProbeTable t{};
   if (spaced && entropy)
-    return launch<true, true>(codes, lengths, B, L, k, W, 0, span, sp, denom,
-                              keys, emitted, s);
+    return launch<true, kEntropy>(codes, lengths, B, L, k, W, 0, span, sp,
+                                  denom, t, keys, emitted, s);
   if (spaced)
-    return launch<true, false>(codes, lengths, B, L, k, W, 0, span, sp, denom,
-                               keys, emitted, s);
+    return launch<true, kLex>(codes, lengths, B, L, k, W, 0, span, sp, denom,
+                              t, keys, emitted, s);
   if (entropy)
-    return launch<false, true>(codes, lengths, B, L, k, W, canon, k, sp,
-                               denom, keys, emitted, s);
-  return launch<false, false>(codes, lengths, B, L, k, W, canon, k, sp, denom,
-                              keys, emitted, s);
+    return launch<false, kEntropy>(codes, lengths, B, L, k, W, canon, k, sp,
+                                   denom, t, keys, emitted, s);
+  return launch<false, kLex>(codes, lengths, B, L, k, W, canon, k, sp, denom,
+                             t, keys, emitted, s);
+}
+
+// The score::Hash instantiations (build -t/-f --phase1-db), W > 1: the
+// canonical contiguous seed (canon = 1, spaced = 0) or a spaced one
+// (positions, span, as bk_minimizers_ext), each pushed k-mer scored by
+// its value in the phase-1 image (slots (nb, 4), lgnb, vbits, vals,
+// n_vals, inline: db/table.py ProbeArrays.args).
+extern "C" int bk_minimizers_hash(const void* codes, const void* lengths,
+                                  int64_t B, int64_t L, int k, int W,
+                                  int canon, int spaced,
+                                  const int32_t* positions, int span,
+                                  const void* slots, int lgnb, int vbits,
+                                  const void* vals, int64_t n_vals,
+                                  int is_inline, void* keys, void* emitted,
+                                  void* stream) {
+  const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
+                         n_vals, lgnb, vbits, is_inline};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (spaced)
+    return launch<true, kHash>(codes, lengths, B, L, k, W, 0, span,
+                               bk::make_spacing(positions, k), 0.0, t, keys,
+                               emitted, s);
+  return launch<false, kHash>(codes, lengths, B, L, k, W, canon, k,
+                              bk::Spacing{}, 0.0, t, keys, emitted, s);
 }

@@ -1,8 +1,9 @@
-"""Database builds on the host: the classify map (kmer -> LCA taxid) and
-the two phase-1 maps.
+"""Database builds on the host: the classify map (kmer -> LCA taxid), the
+two phase-1 maps and the hash-scored phase 2.
 
 Counterpart of ``bonsai_tpu/db/build.py`` for DNA seeds with k <= 32
-and the schemes lex and entropy-file (``build -e``):
+and the schemes lex, entropy-file (``build -e``) and hash (``build
+-t|-f --phase1-db``):
 
 * ``lca_map``, contiguous and unwindowed: each genome's distinct
   (canonical) k-mers come from the host C++ ``btpu_canon_kmer_set``;
@@ -12,14 +13,16 @@ and the schemes lex and entropy-file (``build -e``):
   (build.py:134-169), the trailing partial window of a non-final chunk
   dropped where the uncanonical windowed discipline makes one;
 * ``taxdepth_map`` (TDencode(depth, lca)) and ``ftct_map``
-  ((n_genomes << 32) | lca), lex scores (build.py:594,620).
+  ((n_genomes << 32) | lca), lex scores (build.py:594,620);
+* ``minimized_map`` (build.py:644): the genomes' minimizers under the
+  phase-1 map's score::Hash order, each kept with the low 32 bits
+  (the taxid) of its phase-1 value.
 
 Genomes fold in with the shared k-way merge ``btpu_merge_fold_stats``,
 which emits per-key Euler-interval extrema (and the group size) that map
 to the LCA on the host.  LCA folding is associative and commutative, so
 the content is the JAX package's bit for bit.  The device build of the
-same maps is ``db/build_device.py``.  Hash-scored builds are not ported
-yet (ROADMAP queue A, item 9).
+same maps is ``db/build_device.py``.
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ from ..io import fastx
 from ..native import get_lib
 from ..taxonomy.ncbi import parse_nameid_map, taxid_for_path
 from ..taxonomy.tree import TaxTree
-from .table import KmerTable, unique_u64
+from .table import KmerTable, ScoreMap, unique_u64
 
 TAX_T_MAX = 0xFFFFFFFF
+U64_MAX = (1 << 64) - 1
 
 
 def TDencode(depth, taxid):
@@ -61,24 +65,27 @@ FOLD_EVERY = 8  # genomes buffered between folds (bounds host memory)
 BLOCK = 1 << 22  # windows per chunk of the windowed encoder (the JAX default)
 
 
-def _check(sp: Spacer, canonicalize: bool, scheme: str = "lex") -> None:
+def _check(sp: Spacer, canonicalize: bool, scheme: str = "lex",
+           score_map: ScoreMap | None = None) -> None:
     if not 1 <= sp.k <= 32:
         raise ValueError(f"k={sp.k}: the build supports 1 <= k <= 32")
     # the encoder raises for every discipline that is not ported
-    BatchEncoder(sp, canonicalize, scheme)
+    BatchEncoder(sp, canonicalize, scheme, score_map=score_map)
 
 
 def genome_kmer_set(path: str, sp: Spacer, canonicalize: bool = True,
-                    scheme: str = "lex") -> np.ndarray:
+                    scheme: str = "lex",
+                    score_map: ScoreMap | None = None) -> np.ndarray:
     """Sorted distinct emitted (canonical) k-mers or minimizers of one
     genome (fill_set_genome, feature_min.h:67-82)."""
-    _check(sp, canonicalize, scheme)
+    _check(sp, canonicalize, scheme, score_map)
     lib = get_lib()
     lut = np.ascontiguousarray(DNA4.lut, dtype=np.int8)
     # only the contiguous unwindowed discipline takes the host C++ path
     # (_native_kmer_fn, build.py:105-131)
     native = sp.unspaced() and sp.unwindowed()
-    enc = None if native else BatchEncoder(sp, canonicalize, scheme)
+    enc = None if native else BatchEncoder(sp, canonicalize, scheme,
+                                           score_map=score_map)
     pieces = []
     for _, seq, _ in fastx.read_fastx(path):
         if len(seq) < sp.c:
@@ -230,7 +237,8 @@ def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
 
 
 def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
-                 name_map: Dict[str, int], scheme: str = "lex"):
+                 name_map: Dict[str, int], scheme: str = "lex",
+                 score_map: ScoreMap | None = None):
     """Yield (kset, taxid) per genome in order; the k-mer extraction
     releases the GIL, so a few genomes run at a time in threads, at most
     2 * workers in flight."""
@@ -243,7 +251,7 @@ def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
                 p = todo.popleft()
                 inflight.append(
                     (p, pool.submit(genome_kmer_set, p, sp, canonicalize,
-                                    scheme))
+                                    scheme, score_map))
                 )
             p, fut = inflight.popleft()
             yield fut.result(), taxid_for_path(p, name_map)
@@ -308,6 +316,45 @@ def taxdepth_values(tree: TaxTree, taxa: np.ndarray) -> np.ndarray:
 def ftct_values(taxa: np.ndarray, counts: np.ndarray) -> np.ndarray:
     """Folded taxids and genome counts -> feature-count values."""
     return FMencode(np.minimum(counts, TAX_T_MAX), taxa).astype(np.uint64)
+
+
+def phase2_content(keys: np.ndarray, phase1: KmerTable,
+                   scores: np.ndarray | None = None):
+    """The phase-2 map's content from its minimizers (build.py:663-672):
+    the distinct keys that phase 1 holds, each with the low 32 bits (the
+    taxid) of its phase-1 value, by a host probe of phase 1.  A key that
+    phase 1 lacks cannot be scored and is dropped: the canonical(OVERFLOW)
+    == 0 that an all-N window emits, where phase 1 holds no poly-A
+    (update_minimized_map, feature_min.h:274, as intended).  ``scores``,
+    where given, are the phase-1 scores of ``keys`` (sorted and distinct)
+    from the card (KB5): then only the keys that scored U64_MAX are probed
+    here, to tell a missing key from a stored U64_MAX value."""
+    if scores is None:
+        keys = unique_u64(keys)
+        vals, found = phase1.probe_np(keys)
+    else:
+        vals = scores
+        found = scores != np.uint64(U64_MAX)
+        miss = ~found
+        found[miss] = phase1.probe_np(keys[miss])[1]
+    return keys[found], (vals[found] & np.uint64(TAX_T_MAX)).astype(np.uint32)
+
+
+def minimized_map(paths: Sequence[str], phase1: KmerTable, tree: TaxTree,
+                  name_map: Dict[str, int] | str, sp: Spacer,
+                  canonicalize: bool = True) -> KmerTable:
+    """Phase 2 from phase 1: the genomes' minimizers under the score::Hash
+    order of ``phase1`` (each k-mer scored by its phase-1 value), kept
+    with the taxid of their phase-1 value (feature_min.h:185-190,267-281).
+    ``tree`` is not read; it keeps the JAX signature."""
+    smap = ScoreMap(phase1)
+    _check(sp, canonicalize, "hash", smap)
+    if isinstance(name_map, str):
+        name_map = parse_nameid_map(name_map)
+    sets = [kset for kset, _ in _genome_sets(paths, sp, canonicalize,
+                                              name_map, "hash", smap)]
+    keys = np.concatenate(sets) if sets else np.zeros(0, np.uint64)
+    return KmerTable(*phase2_content(keys, phase1))
 
 
 def content_digest(table: KmerTable) -> str:

@@ -2,9 +2,9 @@
 
 Counterpart of ``bonsai_tpu/db/build_device.py`` for the disciplines the
 port's encoder takes (DNA, k <= 32: contiguous unwindowed, canonical or
-uncanonical windowed, spaced; lex or entropy-file scores).  LCA merging
-is associative and commutative, so a build is a fold of per-genome
-distinct-minimizer sets:
+uncanonical windowed, spaced; lex, entropy-file or phase-1 hash scores).
+LCA merging is associative and commutative, so a build is a fold of
+per-genome distinct-minimizer sets:
 
 * a STATE is (keys, pad, node, orig, cnt) of some capacity, sorted by
   (unsigned key, pad) with pads (key U64_MAX, pad 1) last, so the valid
@@ -32,9 +32,9 @@ Every function takes an explicit ``device``: on "cuda" the kernels run,
 on "cpu" their plain torch versions (``sort_unique_plain``,
 ``merge_fold_plain``, ``minimizers_plain``,
 ``compacted_minimizers_plain``).  The phase-1 maps score lex, as the JAX
-package's do.  ``device_minimized_map``,
-``ShardedLCAFold`` and ``sharded_lca_map`` are not ported yet (ROADMAP
-queue A, items 9 and 11).
+package's do; ``device_minimized_map`` (phase 2) scores each k-mer by its
+phase-1 value, probed inside KB1 and KB4.  ``ShardedLCAFold`` and
+``sharded_lca_map`` are not ported yet (ROADMAP queue A, items 9 and 11).
 """
 
 from __future__ import annotations
@@ -53,8 +53,9 @@ from ..core.spacer import Spacer
 from ..io import fastx
 from ..taxonomy.ncbi import parse_nameid_map, taxid_for_path
 from ..taxonomy.tree import TAX_MISSING, TaxTree
-from .build import _check, drops_partial_window, ftct_values, taxdepth_values
-from .table import KmerTable
+from .build import (_check, drops_partial_window, ftct_values, phase2_content,
+                    taxdepth_values)
+from .table import KmerTable, ScoreMap
 
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -339,12 +340,8 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
     return acc.trimmed()
 
 
-def _finish_fold(states: List[State], tax, root1: int, want_counts: bool):
-    """Pairwise tree reduction of the states (counts summed) -> host
-    (keys u64, taxa u32[, counts int64])."""
-    if not states:
-        out = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
-        return out + ((np.zeros(0, np.int64),) if want_counts else ())
+def _tree_fold(states: List[State], tax, root1: int) -> State:
+    """Pairwise tree reduction of one or more states (counts summed)."""
     while len(states) > 1:
         nxt = [merge_fold(states[i], states[i + 1], tax, root1,
                           sum_counts=True).trimmed()
@@ -352,7 +349,16 @@ def _finish_fold(states: List[State], tax, root1: int, want_counts: bool):
         if len(states) % 2:
             nxt.append(states[-1])
         states = nxt
-    st = states[0]
+    return states[0]
+
+
+def _finish_fold(states: List[State], tax, root1: int, want_counts: bool):
+    """``_tree_fold`` of the states -> host (keys u64, taxa u32[, counts
+    int64])."""
+    if not states:
+        out = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
+        return out + ((np.zeros(0, np.int64),) if want_counts else ())
+    st = _tree_fold(states, tax, root1)
     n = int(st.n)  # fetch the valid prefix only
     out = (st.keys[:n].cpu().numpy().view(np.uint64),
            st.orig[:n].cpu().numpy().view(np.uint32))
@@ -386,12 +392,12 @@ def device_fold_runs(runs: Sequence[Tuple[np.ndarray, int]], tree: TaxTree,
 
 def _device_gather(paths: Sequence[str], tree: TaxTree, name_map,
                    sp: Spacer, canonicalize: bool, block: int, device,
-                   scheme: str = "lex"):
-    _check(sp, canonicalize, scheme)
+                   scheme: str = "lex", score_map: ScoreMap | None = None):
+    _check(sp, canonicalize, scheme, score_map)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
     dev = as_device(device)
-    enc = BatchEncoder(sp, canonicalize, scheme)
+    enc = BatchEncoder(sp, canonicalize, scheme, score_map=score_map)
     tax, root1 = _tree_device(tree, dev)
     states = []
     for p in paths:
@@ -439,3 +445,28 @@ def device_ftct_map(paths: Sequence[str], tree: TaxTree,
                                         canonicalize, block, device)
     keys, taxa, counts = _finish_fold(states, tax, root1, want_counts=True)
     return KmerTable(keys, ftct_values(taxa, counts))
+
+
+def device_minimized_map(paths: Sequence[str], phase1: KmerTable,
+                         tree: TaxTree, name_map: Dict[str, int] | str,
+                         sp: Spacer, canonicalize: bool = True,
+                         block: int = 1 << 22, device="cuda") -> KmerTable:
+    """Phase 2 on the card (build_device.py:758-784): the genomes'
+    minimizers under the score::Hash order of ``phase1`` (its probe image
+    uploaded once, probed inside KB1 and KB4), folded by KB2 and KB3 as
+    the JAX function folds them (the LCAs are then dropped); the folded
+    keys, sorted and distinct, are scored by KB5 ``lookup_scores`` before
+    they leave the card, and ``db/build.phase2_content`` keeps those that
+    phase 1 holds.  Content-identical to ``db/build.minimized_map``."""
+    smap = ScoreMap(phase1)
+    states, tax, root1 = _device_gather(paths, tree, name_map, sp,
+                                        canonicalize, block, device, "hash",
+                                        smap)
+    if not states:
+        return KmerTable(*phase2_content(np.zeros(0, np.uint64), phase1))
+    st = _tree_fold(states, tax, root1)
+    keys = st.keys[: int(st.n)]
+    scores = smap.lookup_scores(keys)
+    return KmerTable(*phase2_content(keys.cpu().numpy().view(np.uint64),
+                                     phase1,
+                                     scores.cpu().numpy().view(np.uint64)))

@@ -11,7 +11,7 @@ byte: a file written by either package loads in the other.
   load) + ``meta.json``.
 
 Sharded directories and the reference khash image are not ported yet
-(ROADMAP queue A, formats).
+(ROADMAP queue A, item 10).
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def load_database(path: str) -> Database:
     if got is None:
         raise NotImplementedError(
             f"{path}: not a BTPU1 file; the reference khash image is not "
-            "ported (ROADMAP queue A, formats)"
+            "ported (ROADMAP queue A, item 10)"
         )
     header, keys, vals = got
     return Database(

@@ -15,16 +15,23 @@ in both.  A probe is two 32-byte row reads and one value read:
 
 Placement is the host C++ cuckoo placer (``btpu_cuckoo_place``).  On
 the device the slot and value arrays are int64 tensors holding u64 bits.
+
+``ScoreMap`` is the score::Hash order of the hash-scored phase 2
+(``build -t/-f --phase1-db``): each k-mer's packed phase-1 value, probed
+by KB5 ``lookup_scores`` (``csrc/lookup_scores.cu``) on the card and by
+``lookup_scores_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core import hashes
 from ..core.bitops import SIGN, i64, shr
 
@@ -86,6 +93,7 @@ class KmerTable:
         while not self._place(nb):
             nb <<= 1
         self._h = None  # placement done; the slot words keep q
+        self._np_arrays = None  # arrays_np() of the table's own values
 
     def _place(self, nb: int, max_walk: int = 500) -> bool:
         from ..native import get_lib
@@ -119,7 +127,12 @@ class KmerTable:
         """(slots (nb, 4) u64, vals, inline) for values aligned to
         ``keys_sorted`` (default: the table's own values).  Inline mode
         when the distinct values fit the slot's index field: vals is the
-        sorted (u,) unique-values array; otherwise the flat (nb, 4) array."""
+        sorted (u,) unique-values array; otherwise the flat (nb, 4) array.
+        The image of the table's own values is made once and kept (as the
+        JAX package keeps it): a phase-1 map's is both uploaded and probed
+        on the host."""
+        if vals_aligned is None and self._np_arrays is not None:
+            return self._np_arrays
         v64 = np.asarray(
             self.vals_sorted if vals_aligned is None else vals_aligned
         ).astype(np.uint64)
@@ -129,11 +142,16 @@ class KmerTable:
         if inline:
             validx = np.searchsorted(uniq, v64[self._own]).astype(np.uint64)
             words[self._occ] = self._word | validx
-            return words.reshape(self.nb, SLOTS), uniq, True
-        words[self._occ] = self._word
-        flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
-        flat[self._occ] = v64[self._own]
-        return words.reshape(self.nb, SLOTS), flat.reshape(self.nb, SLOTS), False
+            out = (words.reshape(self.nb, SLOTS), uniq, True)
+        else:
+            words[self._occ] = self._word
+            flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
+            flat[self._occ] = v64[self._own]
+            out = (words.reshape(self.nb, SLOTS), flat.reshape(self.nb, SLOTS),
+                   False)
+        if vals_aligned is None:
+            self._np_arrays = out
+        return out
 
     def probe_np(self, queries: np.ndarray, arrays=None):
         """Host probe of u64 queries -> (vals in the table's dtype, found)."""
@@ -206,6 +224,22 @@ class ProbeArrays:
             raise ValueError(f"slots has {slots.shape[0]} rows, lgnb={lgnb}")
         return cls(up(slots), up(vals), bool(inline), int(lgnb), int(vbits))
 
+    def check(self, device) -> None:
+        """Raise unless the image is one a kernel on ``device`` can probe."""
+        nb = 1 << self.lgnb
+        kernels.check(self.slots, "slots", torch.int64, device, (nb, SLOTS))
+        kernels.check(self.vals, "vals", torch.int64, device)
+        if self.slots.data_ptr() % 16:
+            raise ValueError("slots must be 16-byte aligned")
+        if not self.inline and tuple(self.vals.shape) != (nb, SLOTS):
+            raise ValueError(f"flat vals must be ({nb}, {SLOTS})")
+
+    def args(self):
+        """The image as a kernel's arguments: slots, lgnb, vbits, vals,
+        n_vals, inline."""
+        return (self.slots.data_ptr(), self.lgnb, self.vbits,
+                self.vals.data_ptr(), self.vals.numel(), int(self.inline))
+
 
 def split(h: torch.Tensor, lgnb: int):
     """(b1, q, b2) for hashed keys (``KmerTable._split``)."""
@@ -253,3 +287,66 @@ def probe_slots(queries: torch.Tensor, arr: ProbeArrays,
     if want_idx:
         return val, found, torch.where(found, sel, 0)
     return val, found
+
+
+# -- KB5: the phase-1 score of each k-mer ---------------------------------------
+
+def lookup_scores_plain(kmers: torch.Tensor, arr: ProbeArrays) -> torch.Tensor:
+    """Plain torch KB5: (...,) int64-held u64 k-mers -> their packed
+    values in ``arr``, U64_MAX (int64 -1) where a k-mer is missing."""
+    val, found = probe_slots(kmers, arr)
+    return torch.where(found, val, -1)
+
+
+def lookup_scores(kmers: torch.Tensor, arr: ProbeArrays) -> torch.Tensor:
+    """KB5 (``csrc/lookup_scores.cu``): see ``lookup_scores_plain``, which
+    serves CPU tensors.  kmers int64 of any shape -> scores of that shape,
+    one probe a k-mer (``csrc/probe.cuh``)."""
+    if kmers.device.type == "cpu":
+        return lookup_scores_plain(kmers, arr)
+    if kmers.device.type != "cuda":
+        raise ValueError(f"lookup_scores: no kernel for device {kmers.device}")
+    dev = kmers.device
+    kernels.check(kmers, "kmers", torch.int64, dev)
+    arr.check(dev)
+    out = torch.empty_like(kmers)
+    if kmers.numel():
+        kernels.launch("bk_lookup_scores", dev, kmers.data_ptr(),
+                       kmers.numel(), *arr.args(), out.data_ptr())
+        lookup_scores.launches += 1
+    return out
+
+
+lookup_scores.launches = 0
+
+
+class ScoreMap:
+    """score::Hash adapter (``bonsai_tpu/db/table.py`` ``ScoreMap``): the
+    phase-1 map as a minimizer order.  A k-mer scores its packed phase-1
+    value, or U64_MAX when phase 1 lacks it, so that it never wins a
+    window against one that phase 1 holds (encoder.h:61-74 as intended)."""
+
+    def __init__(self, table: KmerTable):
+        self.table = table
+        self._arrays = {}  # torch.device -> ProbeArrays
+        self._lock = threading.Lock()
+
+    def arrays(self, device) -> ProbeArrays:
+        """The phase-1 probe image on ``device``, uploaded once."""
+        dev = torch.device(device)
+        with self._lock:
+            if dev not in self._arrays:
+                t = self.table
+                self._arrays[dev] = ProbeArrays.from_numpy(
+                    *t.arrays_np(), t.lgnb, t.vbits, dev)
+            return self._arrays[dev]
+
+    def lookup_scores(self, kmers):
+        """numpy u64 -> u64 scores (``probe_np``); an int64 tensor of u64
+        bits -> int64 scores (KB5 on the card, its plain version on the
+        CPU)."""
+        if isinstance(kmers, np.ndarray):
+            val, found = self.table.probe_np(kmers)
+            return np.where(found, val.astype(np.uint64),
+                            np.uint64((1 << 64) - 1))
+        return lookup_scores(kmers, self.arrays(kmers.device))

@@ -14,7 +14,8 @@ wrapper allocates.
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``
-and ``compacted_minimizers``, ``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
+and ``compacted_minimizers``, ``db/table.py`` ``lookup_scores``,
+``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
 ``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
 version serves CPU tensors only, and a CUDA tensor goes to the kernel or
 raises.
@@ -64,10 +65,22 @@ _SIGS = {
     # int32[32]), span, entropy, denom, keys, emitted, stream
     "bk_minimizers_ext": [P, P, I64, I64, I32, I32, I32, I32, P, I32, I32,
                           F64, P, P, P],
+    # codes, lengths, B, L, k, W, canon, spaced, positions (host
+    # int32[32]), span, then the phase-1 image: slots, lgnb, vbits, vals,
+    # n_vals, inline; keys, emitted, stream
+    "bk_minimizers_hash": [P, P, I64, I64, I32, I32, I32, I32, P, I32, P, I32,
+                           I32, P, I64, I32, P, P, P],
     # codes, lengths, B, L, k, W, entropy, denom, keys, emitted, scratch,
     # stream
     "bk_compacted_minimizers": [P, P, I64, I64, I32, I32, I32, F64, P, P, P,
                                 P],
+    # codes, lengths, B, L, k, W, the phase-1 image (slots, lgnb, vbits,
+    # vals, n_vals, inline), keys, emitted, scratch, stream
+    "bk_compacted_minimizers_hash": [P, P, I64, I64, I32, I32, P, I32, I32, P,
+                                     I64, I32, P, P, P, P],
+    # kmers, n, the phase-1 image (slots, lgnb, vbits, vals, n_vals,
+    # inline), out, stream
+    "bk_lookup_scores": [P, I64, P, I32, I32, P, I64, I32, P, P],
     # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream
     "bk_sort_unique": [P, P, I64, I64, P, P, P, P, P],
     # keys, pad, node, orig, cnt, cap (state a), the same for state b,

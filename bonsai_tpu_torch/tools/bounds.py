@@ -97,26 +97,89 @@ def resolve_bound_text(cidx, hit, tax) -> str:
 
 
 def bound_minimizers(codes, lengths, em, W, runs: int = 0,
-                     entropy: bool = False):
+                     entropy: bool = False, probes=None):
     """KB1: codes in, keys and flags out; per position two rolled u64
     k-mers and a canonical min (16 ops), or for a spaced seed of ``runs``
     runs of consecutive offsets a rolled window and its fold (8 ops and 4
     a run); with W > 1 a score and about three (score, value) compares
-    (24 more), the score an FP64 divide a position under ``entropy``."""
+    (24 more), the score an FP64 divide a position under ``entropy``, or
+    under the scheme ``hash`` the phase-1 probes ``probes`` (``probe_rows``
+    of ``hash_queries``: their rows and values, ~40 int32 ops each)."""
     per = 8 + 4 * runs if runs else 16
-    return bound(nbytes(codes, lengths, *em),
-                 codes.numel() * (per + (24 if W > 1 else 0)),
+    hb, ho = (probe_bytes(probes), 40 * probes[0]) if probes else (0, 0)
+    return bound(nbytes(codes, lengths, *em) + hb,
+                 codes.numel() * (per + (24 if W > 1 else 0)) + ho,
                  codes.numel() if entropy and W > 1 else 0)
 
 
-def bound_compacted_minimizers(codes, lengths, em, W, entropy: bool = False):
+def bound_compacted_minimizers(codes, lengths, em, W, entropy: bool = False,
+                               probes=None):
     """KB4: codes in, keys and flags out (the compacted stream the design
     writes and reads back is not the function's); per position a rolled
     u64 k-mer and its valid flag (8 ops) and with W > 1 a score and about
-    three compares (24 more), the score an FP64 divide under ``entropy``."""
-    return bound(nbytes(codes, lengths, *em),
-                 codes.numel() * (8 + (24 if W > 1 else 0)),
+    three compares (24 more), the score an FP64 divide under ``entropy``,
+    or under ``hash`` the phase-1 probes of the valid seeds, ``probes``."""
+    hb, ho = (probe_bytes(probes), 40 * probes[0]) if probes else (0, 0)
+    return bound(nbytes(codes, lengths, *em) + hb,
+                 codes.numel() * (8 + (24 if W > 1 else 0)) + ho,
                  codes.numel() if entropy and W > 1 else 0)
+
+
+def probe_rows(queries, arr):
+    """(probes, 32-B slot rows, values) that probing ``queries`` in the
+    slot image ``arr`` must read: one row where a query sits in its first
+    bucket, two for any other query (the second row is read only then),
+    and a value for each query found."""
+    from ..core.bitops import SIGN
+    from ..core.hashes import splitmix64
+    from ..db.table import probe_slots, split
+
+    q = queries.reshape(-1)
+    b1, quo, _ = split(splitmix64(q), arr.lgnb)
+    vmask = (1 << arr.vbits) - 1
+    first = ((arr.slots[b1] & ~vmask) ==
+             (SIGN | (quo << arr.vbits))[:, None]).any(-1)
+    found = probe_slots(q, arr)[1]
+    return q.numel(), 2 * q.numel() - int(first.sum()), int(found.sum())
+
+
+def probe_bytes(probes) -> int:
+    """The bytes of ``probe_rows``' rows and values."""
+    _, rows, found = probes
+    return 32 * rows + 8 * found
+
+
+def bound_lookup_scores(kmers, arr, out):
+    """KB5: the k-mers in, the scores out, the slot rows and values of
+    ``probe_rows``; two splitmix64 hashes (~40 int32 ops) a k-mer."""
+    probes = probe_rows(kmers, arr)
+    return bound(nbytes(kmers, out) + probe_bytes(probes), 40 * probes[0])
+
+
+def hash_queries(codes, lengths, k, canon, positions=None):
+    """The k-mers a windowed discipline of the scheme ``hash`` must probe:
+    the canonical k-mer (0 for an N window) or the spaced one (U64_MAX for
+    an N seed) of each position below max(len - (c - 1), 0), or with
+    ``canon`` None (the uncanonical ``-C -w``) each valid seed."""
+    from ..core import encode
+    from ..core.alphabet import InputType
+    from ..core.bitops import canonical
+
+    if positions is None:
+        kmers, invalid = encode.pack_kmers(codes, k)
+        c = k
+    else:
+        offsets = [int(b) - int(a) for a, b in zip(positions, positions[1:])]
+        kmers, invalid = encode.pack_spaced_kmers(codes, offsets)
+        c = int(positions[-1]) + 1
+    kmers = encode.apply_mask(kmers, k, InputType.DNA)
+    P = kmers.shape[-1]
+    pushed = encode.position_validity(lengths, P, c)
+    if canon is None:
+        return kmers[pushed & ~invalid]
+    if positions is None:
+        return torch.where(invalid, 0, canonical(kmers, k))[pushed]
+    return torch.where(invalid, -1, kmers)[pushed]
 
 
 def bound_merge_fold(a, b, na, nb, tax, out):

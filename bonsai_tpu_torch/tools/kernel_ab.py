@@ -14,12 +14,19 @@ window, as a second opinion.
 
 KB1 ``minimizers`` (the first 4M windows of GENOME at k = 31, W = 1 and
 W = 10, and at the seed disciplines' shapes: -k 21 -S 0x16,1x4 at W = 1,
--k 25 -w 37 -e at W = 13), KB4 ``compacted_minimizers`` (-C -k 31 -w 40
-at W = 10, -C -k 25 -w 37 -e at W = 13) and KB3 ``merge_fold`` (two
-2^22-slot states with 3M valid entries each, counts summed; NODES is a
-``nodes.dmp`` whose taxids label them), timed by CUDA events around 100
-back-to-back calls.  A case whose entry point the parent's library lacks
-is skipped, and says so.
+-k 25 -w 37 -e at W = 13, and the hash-scored phase 2's: -k 25 -w 37 -t
+at W = 13, -k 21 -S 0x16,1x4 -w 40 -t at W = 16), KB4
+``compacted_minimizers`` (-C -k 31 -w 40 at W = 10, -C -k 25 -w 37 -e
+and -C -k 25 -w 37 -t at W = 13), KB5 ``lookup_scores`` (2^22 k-mers,
+half stored) and KB3 ``merge_fold`` (two 2^22-slot states with 3M valid
+entries each, counts summed; NODES is a ``nodes.dmp`` whose taxids label
+them).  The phase-1 map of a hash case is the chunk's own seeds and
+random keys, 9.8M in all with 6 values (2^22 buckets, 128 MiB of slots,
+inline: the ec -k 25 -t map's size).  KB1, KB4 and KB5 are timed by
+replaying a CUDA graph of 100 captured calls between two events
+(``gather_bench.graph_ms``), KB3 by CUDA events around 100 back-to-back
+calls.  A case whose entry point the parent's library lacks is skipped,
+and says so.
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -80,7 +87,8 @@ from .synthetic import deep_rows, deep_tree, long_reads
 SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
-BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers")
+BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
+                 "lookup_scores")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 CLASSIFY_BATCH = 8192
 
@@ -149,13 +157,23 @@ def _state(rng, pool, n, cap, taxa_pool, tree, dev):
     return bd.State.from_numpy(*st, n, dev)
 
 
+def _phase1_like(seeds, rng):
+    """A phase-1 map of the distinct ``seeds`` (one chunk's) and random keys,
+    9.8M in all (the ec -k 25 -t map's size: 2^22 buckets), 6 values."""
+    return _inline_map(unique_u64(np.concatenate([
+        seeds, rng.integers(0, 2**64, 9_815_329 - seeds.size,
+                            dtype=np.uint64)])), rng)
+
+
 def build_cases(genome: str, nodes: str, dev):
     """(name, call, timer[, entry point]) of KB1 at W = 1 and 10 and at
-    the seed disciplines' shapes, of KB4 and of KB3."""
+    the seed disciplines' shapes, of KB4, KB5 and KB3."""
     from ..core.spacer import Spacer
+    from ..db.table import lookup_scores
 
     seq = next(iter(fastx.read_fastx(genome)))[1]
     cases = []
+    rng = np.random.default_rng(SEED)
 
     def chunk(span, W):
         codes = fastx.encode_contig(seq[: (1 << 22) + span - 1 + W - 1],
@@ -163,31 +181,60 @@ def build_cases(genome: str, nodes: str, dev):
         return (torch.from_numpy(codes[None, :]).to(dev),
                 torch.tensor([codes.size], dtype=torch.int32, device=dev))
 
+    def own(c, ln, k, canon, pos=None):
+        em = enc.minimizers(c, ln, k, 1, canon, "lex", pos)
+        return _phase1_like(em.values[em.mask].cpu().numpy().view(np.uint64),
+                            rng)
+
     for W in (1, 10):
         c, ln = chunk(31, W)
         cases.append((f"minimizers k=31 W={W}",
                       lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
-                      time_ms))
+                      graph_ms))
     pos = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
     c, ln = chunk(25, 1)
     cases.append(("minimizers -k 21 -S 0x16,1x4 W=1",
                   lambda c=c, ln=ln: enc.minimizers(c, ln, 21, 1, False, "lex",
                                                     pos),
-                  time_ms, "bk_minimizers_ext"))
+                  graph_ms, "bk_minimizers_ext"))
+    c, ln = chunk(25, 16)
+    smap = own(c, ln, 21, False, pos)
+    cases.append(("minimizers -k 21 -S 0x16,1x4 -w 40 -t W=16",
+                  lambda c=c, ln=ln, smap=smap: enc.minimizers(
+                      c, ln, 21, 16, False, "hash", pos, smap),
+                  graph_ms, "bk_minimizers_hash"))
     c, ln = chunk(25, 13)
     cases.append(("minimizers -k 25 -w 37 -e W=13",
                   lambda c=c, ln=ln: enc.minimizers(c, ln, 25, 13, True,
                                                     "entropy-file"),
-                  time_ms, "bk_minimizers_ext"))
+                  graph_ms, "bk_minimizers_ext"))
+    smap = own(c, ln, 25, True)
+    cases.append(("minimizers -k 25 -w 37 -t W=13",
+                  lambda c=c, ln=ln, smap=smap: enc.minimizers(
+                      c, ln, 25, 13, True, "hash", score_map=smap),
+                  graph_ms, "bk_minimizers_hash"))
+    arr = smap.arrays(dev)
+    keys = smap.table.keys_sorted
+    q = torch.from_numpy(np.concatenate([
+        rng.choice(keys, 1 << 21),
+        rng.integers(0, 2**64, 1 << 21, dtype=np.uint64)]).view(np.int64)
+    ).to(dev)
+    cases.append(("lookup_scores 2^22 k-mers, half stored",
+                  lambda: [lookup_scores(q, arr)], graph_ms,
+                  "bk_lookup_scores"))
     cases.append(("compacted_minimizers -C -k 25 -w 37 -e W=13",
                   lambda c=c, ln=ln: enc.compacted_minimizers(
                       c, ln, 25, 13, "entropy-file"),
-                  time_ms, "bk_compacted_minimizers"))
+                  graph_ms, "bk_compacted_minimizers"))
+    smap = own(c, ln, 25, False)
+    cases.append(("compacted_minimizers -C -k 25 -w 37 -t W=13",
+                  lambda c=c, ln=ln, smap=smap: enc.compacted_minimizers(
+                      c, ln, 25, 13, "hash", smap),
+                  graph_ms, "bk_compacted_minimizers_hash"))
     c, ln = chunk(31, 10)
     cases.append(("compacted_minimizers -C -k 31 -w 40 W=10",
                   lambda c=c, ln=ln: enc.compacted_minimizers(c, ln, 31, 10),
-                  time_ms, "bk_compacted_minimizers"))
-    rng = np.random.default_rng(SEED)
+                  graph_ms, "bk_compacted_minimizers"))
     tree = TaxTree.from_nodes_dmp(nodes)
     taxa_pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
     n = 3 << 20
@@ -207,15 +254,13 @@ def build_cases(genome: str, nodes: str, dev):
     return cases
 
 
-def _inline_table(keys, rng, dev):
-    """A probe image of ``keys`` with 6 distinct values, on ``dev``."""
-    from ..db.table import KmerTable, ProbeArrays
+def _inline_map(keys, rng):
+    """A map of the sorted distinct ``keys`` with 6 distinct values (its
+    probe image on a device: ``.arrays(dev)``)."""
+    from ..db.table import KmerTable, ScoreMap
 
     v = rng.integers(0, 6, keys.size).astype(np.uint64)
-    table = KmerTable(keys, ((v + np.uint64(100)) << np.uint64(32)) | v)
-    slots, vals, inline = table.arrays_np()
-    return ProbeArrays.from_numpy(slots, vals, inline, table.lgnb,
-                                  table.vbits, dev)
+    return ScoreMap(KmerTable(keys, ((v + np.uint64(100)) << np.uint64(32)) | v))
 
 
 def own_table(a1, rng, dev):
@@ -227,8 +272,9 @@ def own_table(a1, rng, dev):
     codes = pl.unpack_2bit(pc.cpu(), None if nm is None else nm.cpu())
     em = enc.minimizers_plain(codes[:, :lproc], ln.cpu(), k, 1, canon)
     own = em.values[em.mask].numpy().view(np.uint64)
-    return _inline_table(unique_u64(np.concatenate([
-        own, rng.integers(0, 2**64, 9_000_000, dtype=np.uint64)])), rng, dev)
+    return _inline_map(unique_u64(np.concatenate([
+        own, rng.integers(0, 2**64, 9_000_000, dtype=np.uint64)])),
+        rng).arrays(dev)
 
 
 def probe_mix_cases(a1, arr, rng, dev):
@@ -241,7 +287,7 @@ def probe_mix_cases(a1, arr, rng, dev):
     pc, nm, ln, lproc, k, canon, _, want_idx = a1
     n, Q = 1 << 24, 1 << 23
     keys = unique_u64(rng.integers(0, 2**64, n + n // 64, dtype=np.uint64))[:n]
-    scale = _inline_table(keys, rng, dev)
+    scale = _inline_map(keys, rng).arrays(dev)
     q = np.concatenate([keys[rng.integers(0, n, Q // 2)],
                         rng.integers(0, 2**64, Q // 2, dtype=np.uint64)])
     shifts = np.uint64(2) * (np.uint64(31) - np.arange(32, dtype=np.uint64))

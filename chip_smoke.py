@@ -70,6 +70,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  Classifier.process_dataset of the HiSeq set against it:
                  sha256 of the Kraken text = the JAX Classifier's; K1
                  (spaced) launched; K1 spaced and plain timed
+ 9c. hash-scored phase 2  after phase 5b: the ec phase-1 maps (-k 25 -t,
+                 -k 25 -f, -C -k 25 -t, -k 21 -S 0x16,1x4 -t) built on the
+                 card (digests = the JAX package's); KB5 lookup_scores and
+                 KB1's and KB4's score::Hash instantiations against their
+                 plain versions on CPU copies, exact: 2^22 k-mers half
+                 present (0 and U64_MAX among them) on the -t map and on a
+                 flat image, 4M-base ec chunks at the builds' shapes
+                 (-w 37 -t, -S -w 40 -t, -C -w 37 -t), rows with in-read
+                 Ns, a poly-A run, rows shorter than k, P < W, rows phase 1
+                 lacks, Ns at tile edges, k = 32 spaced with U64_MAX
+                 stored, 0 < n_valid < W tails, KB4 twice in a row; then
+                 the ec --device-build phase 2 of each map (digests = the
+                 JAX package's host minimized_map), one of them by stage
+                 (genomes -> states, tree fold, KB5 + fetch, the host
+                 probe, placement) under the profiler, min_td_k25_w37 and
+                 min_fc_k25_w37 through the CLI (the reference binary's
+                 db_digest) and -C -w -t, -S -w -t (the JAX CLI's); KB5,
+                 KB1 hash and spaced hash, KB4 hash launched; HiSeq
+                 against the ec -k 25 -w 37 -t database (sha256 = the JAX
+                 Classifier's); the four kernels and their plain versions
+                 timed by CUDA-graph replay at those shapes, with bounds
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -84,9 +105,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the larger)
 
 The line before the last is the kernels JSON (launches on the main paths,
-exactness, kernel, plain, bound and library times; ``ms`` is graph-replayed
-for K1-K3, KB1, KB4 and G2, ``event_ms`` the event timing; KB1 and K1 have
-a row for each instantiation); the last line is
+exactness, kernel, plain, bound and library times, and the share
+bound / kernel time; ``ms`` is graph-replayed
+for K1-K3, KB1, KB4, KB5 and G2, ``event_ms`` the event timing; KB1, KB4
+and K1 have a row for each instantiation); the last line is
 {"ok": true, "device": {...}}.  Without a card, or outside a checkout,
 the script exits non-zero and prints no result.
 """
@@ -150,6 +172,47 @@ GOLDEN_JAX_DIGESTS = {
     ("prebuild", "-k 21 -S 0x16,1x4 -t"):
         "4ec67ed322b52e16259f2e53266a951e3be36e771c7df3dbee6d5b2c37371200",
 }
+# The ec corpus's hash-scored phase 2 as the JAX package builds it on the
+# host: phase 1 = taxdepth_map (-t) or ftct_map (-f) of bonsai_tpu.db.build
+# (paths, tree, nameid as for EC_W40_DIGEST, Spacer(k, k, parse_spacing(S,
+# k)), canonicalize), then minimized_map(paths, <phase 1>, tree, nameid,
+# Spacer(k, w, parse_spacing(S, k)), canonicalize).  Each row: the build's
+# flags, k, w, S, canonicalize, the phase-1 flag, the phase-1 digest, the
+# phase-2 digest (k-mers of each).
+EC_PHASE2 = [
+    ("-k 25 -w 37 -t", 25, 37, "", True, "t",  # 9,815,329; 1,870,305
+     "0a7d297c5b53680057e3c3e137479aa28f491af9698bc4c8ae83571f2a0b94b1",
+     "114dad4ce5143b8175593775f941fffad150d0cc67473d115f1d32584e5bda05"),
+    ("-k 25 -w 37 -f", 25, 37, "", True, "f",  # 9,815,329; 2,063,661
+     "4a799ecb6bc06f264ae2e2ff71b67040ea8d6520152def32ea91d54ae1ad7592",
+     "3f47c8335ae5efc954f718b32781fb8a8c531b6bd1cac6d6192f63e236e2c2d6"),
+    ("-C -k 25 -w 37 -t", 25, 37, "", False, "t",  # 10,732,336; 2,011,057
+     "7e82398862be4e2d14bbd100cb5c67d58d701c366ff7d51b026da32584fc7b04",
+     "a87d9efac34ffb1c7a2de15d7d762b0ce8ffff363c70b551b9d15bfe327c58ad"),
+    ("-k 21 -S 0x16,1x4 -w 40 -t", 21, 40, "0x16,1x4", True, "t",
+     # 10,364,415; 1,681,037
+     "5d8ff555992f720f61f188565082275fbd94afbcbbec95f9ab2c0efbc3930ad2",
+     "03e528bd2cc00177048ec91b1f5228d20e55f545bcc9c8500c85c647dadafdb2"),
+]
+# sha256 of the Kraken text of the HiSeq set against the first of them, as
+# the JAX package's Classifier gives it on the CPU: Classifier(Database(
+# table=<that minimized_map>, k=25, w=37, gaps=parse_spacing("", 25),
+# scheme="hash"), tree, emit_all=True).process_dataset(HiSeq_accuracy.fa,
+# out, batch_size=8192)
+HISEQ_PHASE2_SHA256 = (
+    "196b0d714590122c08c744359a7fe94d0412af741c1abfa742e9ec2bfeba07ef")
+# The golden genomes' phase 2 that no golden holds, as the JAX CLI builds
+# it: prebuild nameidmap.txt nodes.dmp P1 <the genomes> PHASE1, then build
+# OUT <the genomes> FLAGS --phase1-db P1 -T nodes.dmp -M nameidmap.txt.
+# FLAGS -> (PHASE1, digest)
+GOLDEN_PHASE2_DIGESTS = {
+    "-C -k 25 -w 37 -t": (
+        "-C -k 25 -t",
+        "3fc544b5963fdc00a6f9c39b1329f57986c807a5367f23ca6cafbc7c2e1cdb80"),
+    "-k 21 -S 0x16,1x4 -w 40 -t": (
+        "-k 21 -S 0x16,1x4 -t",
+        "47267d9b6c51a03d6278c2bb2a2e6b1f1cccde3f1f9c58ae15187602287d3acf"),
+}
 SPACING21 = "0x16,1x4"
 EC_GENOME = os.path.join(DATA, "ec", "GCF_000005845.2_ASM584v2_genomic.fna.gz")
 
@@ -180,13 +243,29 @@ KERNELS = {
                    "tools/vmem_gather_bench2.py:35"),
     "encode_probe_spaced": ("bonsai_tpu_torch/csrc/encode_probe.cu",
                             "bonsai_tpu/core/encode.py:59"),
+    "minimizers_hash": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                        "bonsai_tpu/core/encoder.py:105"),
+    "minimizers_spaced_hash": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                               "bonsai_tpu/core/encoder.py:189"),
+    "compacted_minimizers_hash": (
+        "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+        "bonsai_tpu/core/encoder.py:206"),
+    "lookup_scores": ("bonsai_tpu_torch/csrc/lookup_scores.cu",
+                      "bonsai_tpu/db/table.py:501"),
 }
+# the rows of the hash-scored phase 2 (phase 9c)
+HASH_ROWS = ("minimizers_hash", "minimizers_spaced_hash",
+             "compacted_minimizers_hash", "lookup_scores")
 # the variants of one wrapper's launch counts (its ``variants`` dict) that
 # each kernel row counts
 VARIANTS = {
     "minimizers": ("minimizers", ("lex",)),
     "minimizers_spaced": ("minimizers", ("spaced", "spaced entropy-file")),
     "minimizers_entropy": ("minimizers", ("contiguous entropy-file",)),
+    "minimizers_hash": ("minimizers", ("hash",)),
+    "minimizers_spaced_hash": ("minimizers", ("spaced hash",)),
+    "compacted_minimizers": ("compacted_minimizers", ("lex", "entropy-file")),
+    "compacted_minimizers_hash": ("compacted_minimizers", ("hash",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
     "encode_probe_spaced": ("encode_probe", ("spaced",)),
 }
@@ -1037,6 +1116,17 @@ def _discipline_rows(rng, c, W, L=300, B=48):
     return codes, lengths
 
 
+def _short_rows(rng, B, L):
+    """B rows of at most L bases, 5% Ns: rows shorter than k and P < W."""
+    import numpy as np
+
+    codes = rng.integers(0, 4, (B, L)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.05] = -1
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
 def discipline_kernels(dev, chk):
     """KB1's spaced and entropy-file instantiations and KB4 on the card
     against their plain versions on CPU copies: 4M-base ec chunks at the
@@ -1107,10 +1197,7 @@ def discipline_kernels(dev, chk):
                     None, f"run and tile edges -e k={k} W={W}")
     # KB4 on 3000 short rows (P < W: the tail column alone), then twice
     # in a row on one stream
-    codes = rng.integers(0, 4, (3000, 40)).astype(np.int8)
-    codes[rng.random(codes.shape) < 0.05] = -1
-    lengths = rng.integers(0, 41, 3000).astype(np.int32)
-    codes[np.arange(40)[None, :] >= lengths[:, None]] = -1
+    codes, lengths = _short_rows(rng, 3000, 40)
     kb4(codes, lengths, 21, 13, "lex", "3000 rows of 40")
     kb4(codes, lengths, 31, 16, "entropy-file", "3000 rows of 40, P < W")
     cases = [_discipline_rows(rng, 31, 10, L=9000, B=16) for _ in range(2)]
@@ -1269,6 +1356,8 @@ def phase_device_build(dev, kk, host_secs):
             require(got == want, f"{what}: device build differs")
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
+    for r in HASH_ROWS:  # the hash-scored builds are phase 9c's
+        launches.pop(r, None)
     say(f"# device build: kernel launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the device build")
@@ -1361,6 +1450,362 @@ def phase_spaced_classify(dev, chk, kk, table, hiseq):
             ((t1 + t2) / 2, (p1 + p2) / 2, ev), bnd)
 
 
+def _rows_map(rng, codes, lengths, k, canon, pos, mode):
+    """A phase-1 map of half the seeds of rows ``codes`` (the last two rows
+    left out), 0 and U64_MAX: 6 packed values (inline) or one a key
+    (flat)."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db.table import KmerTable, ScoreMap
+
+    em = enc.minimizers_plain(torch.from_numpy(codes[:-2]),
+                              torch.from_numpy(lengths[:-2]), k, 1, canon,
+                              positions=pos)
+    seeds = np.unique(em.values[em.mask].numpy().view(np.uint64))
+    keys = np.unique(np.concatenate([
+        rng.choice(seeds, seeds.size // 2, replace=False),
+        np.array([0, 2**64 - 1], np.uint64)]))
+    v = (np.arange(keys.size, dtype=np.uint64) if mode == "flat" else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v,
+                      min_nb=0 if mode == "flat" else 1 << 10)
+    require(table.arrays_np()[2] == (mode == "inline"), f"{mode} image")
+    return ScoreMap(table)
+
+
+def _hash_rows(rng, c, W):
+    """``_discipline_rows`` with a poly-A run (the k-mer 0)."""
+    codes, lengths = _discipline_rows(rng, c, W)
+    codes[12, : c + 3 * W] = 0
+    lengths[12] = codes.shape[1]
+    return codes, lengths
+
+
+def hash_kernels(dev, chk, maps):
+    """KB5 and KB1's and KB4's score::Hash instantiations on the card
+    against their plain versions on CPU copies, exact."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db.table import (KmerTable, ScoreMap, lookup_scores,
+                                           lookup_scores_plain, unique_u64)
+
+    rng = np.random.default_rng(SEED + 9)
+    pos21 = _positions(21, SPACING21)
+    pos32 = _positions(32, "1x31")
+
+    def kb1(codes, lengths, k, W, canon, pos, smap, tag):
+        name = "minimizers_spaced_hash" if pos else "minimizers_hash"
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.minimizers(c.to(dev), ln.to(dev), k, W, canon, "hash", pos,
+                             smap)
+        chk.same(name, got, enc.minimizers_plain(c, ln, k, W, canon, "hash",
+                                                 pos, smap), tag)
+        return got
+
+    def kb4(codes, lengths, k, W, smap, tag):
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.compacted_minimizers(c.to(dev), ln.to(dev), k, W, "hash",
+                                       smap)
+        chk.same("compacted_minimizers_hash", got,
+                 enc.compacted_minimizers_plain(c, ln, k, W, "hash", smap),
+                 tag)
+        return got
+
+    # a flat image: the distinct canonical 25-mers of an ec chunk, one
+    # value each (more than the slot's index field holds)
+    codes37, len37 = _ec_chunk(37)
+    em = enc.minimizers_plain(torch.from_numpy(codes37),
+                              torch.from_numpy(len37), 25, 1, True)
+    keys = unique_u64(em.values[em.mask].numpy().view(np.uint64))
+    flat = ScoreMap(KmerTable(keys, (np.uint64(7) << np.uint64(32)) |
+                              np.arange(keys.size, dtype=np.uint64)))
+    require(not flat.arrays("cpu").inline, "the flat image is flat")
+    td = maps["-k 25 -w 37 -t"]
+    for smap, tag in ((td, "the ec -k 25 -t map (inline)"),
+                      (flat, "a flat image of an ec chunk's 25-mers")):
+        keys = smap.table.keys_sorted
+        q = np.concatenate([rng.choice(keys, 1 << 21),
+                            rng.integers(0, 2**64, (1 << 21) - 2,
+                                         dtype=np.uint64),
+                            np.array([0, 2**64 - 1], np.uint64)])
+        qt = torch.from_numpy(q.view(np.int64))
+        got = lookup_scores(qt.to(dev), smap.arrays(dev))
+        chk.same("lookup_scores", [got],
+                 [lookup_scores_plain(qt, smap.arrays("cpu"))],
+                 f"2^22 k-mers, half stored, {tag}")
+    # KB1, canonical: ec chunks, then rows of every kind against maps of
+    # their own seeds (0 stored), inline and flat
+    for smap, tag in ((td, "-k 25 -t map"), (flat, "flat image")):
+        kb1(codes37, len37, 25, 13, True, None, smap, f"ec chunk W=13, {tag}")
+    codes40, len40 = _ec_chunk(40)
+    kb1(codes40, len40, 21, 16, False, pos21, maps[EC_PHASE2[3][0]],
+        "ec chunk -k 21 -S 0x16,1x4 W=16, -S -t map")
+    em = kb4(codes37, len37, 25, 13, maps["-C -k 25 -w 37 -t"],
+             "ec chunk -C -k 25 W=13, -C -t map")
+    say(f"# hash kernels: ec chunk -C -t: {int(em.mask.sum())} minimizers "
+        f"of {em.values.shape[1]} slots")
+    for mode in ("inline", "flat"):
+        for W in (2, 13, 16):
+            for k in (25, 32):
+                codes, lengths = _hash_rows(rng, k, W)
+                smap = _rows_map(rng, codes, lengths, k, True, None, mode)
+                kb1(codes, lengths, k, W, True, None, smap,
+                    f"rows k={k} W={W} {mode}")
+                kb1(*_kb1_edge_rows(rng, k, W), k, W, True, None, smap,
+                    f"run and tile edges k={k} W={W} {mode}")
+                smap = _rows_map(rng, codes, lengths, k, False, None, mode)
+                kb4(codes, lengths, k, W, smap,
+                    f"rows -C k={k} W={W} {mode}")
+                codes, lengths = _kb1_edge_rows(rng, k, W)
+                codes[4, : 2 * KB1_TILE] = -1  # a tile with no valid seed
+                lengths[4] = codes.shape[1]
+                kb4(codes, lengths, k, W, smap,
+                    f"run and tile edges -C k={k} W={W} {mode}")
+            for k, pos in ((21, pos21), (32, pos32)):
+                codes, lengths = _hash_rows(rng, pos[-1] + 1, W)
+                smap = _rows_map(rng, codes, lengths, k, False, pos, mode)
+                kb1(codes, lengths, k, W, False, pos, smap,
+                    f"rows -S k={k} W={W} {mode} (U64_MAX stored)")
+                kb1(*_kb1_edge_rows(rng, pos[-1] + 1, W), k, W, False, pos,
+                    smap, f"run and tile edges -S k={k} W={W} {mode}")
+    # rows shorter than k and P < W; KB4 twice in a row
+    codes, lengths = _short_rows(rng, 3000, 45)
+    smap = _rows_map(rng, codes, lengths, 25, True, None, "inline")
+    kb1(codes, lengths, 25, 13, True, None, smap, "3000 rows of 45")
+    smap = _rows_map(rng, codes, lengths, 25, False, None, "inline")
+    kb4(codes, lengths, 25, 13, smap, "3000 rows of 45")
+    kb4(codes, lengths, 25, 16, smap, "3000 rows of 45, P < W")
+    cases = [_discipline_rows(rng, 25, 13, L=9000, B=16) for _ in range(2)]
+    got = [enc.compacted_minimizers(torch.from_numpy(c).to(dev),
+                                    torch.from_numpy(n).to(dev), 25, 13,
+                                    "hash", maps["-C -k 25 -w 37 -t"])
+           for c, n in cases]
+    for g, (c, n) in zip(got, cases):
+        chk.same("compacted_minimizers_hash", g,
+                 enc.compacted_minimizers_plain(
+                     torch.from_numpy(c), torch.from_numpy(n), 25, 13, "hash",
+                     maps["-C -k 25 -w 37 -t"]), "two calls in a row")
+    return flat
+
+
+def phase_hash(dev, chk, kk, hiseq):
+    """9c. The hash-scored phase 2 (build -t|-f --phase1-db) on the card:
+    phase-1 maps, the kernels against their plain versions, the ec builds
+    and the goldens, classify against a phase-2 database, the timings."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db.build import content_digest, phase2_content
+    from bonsai_tpu_torch.db.formats import Database, load_database
+    from bonsai_tpu_torch.db.table import (KmerTable, ScoreMap, lookup_scores,
+                                           lookup_scores_plain)
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.bounds import (bound_compacted_minimizers,
+                                               bound_lookup_scores,
+                                               bound_minimizers, hash_queries,
+                                               probe_rows, spaced_runs)
+
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+    nameid = os.path.join(GOLD, kk["nameid"])
+    # 1. the ec phase-1 maps, as prebuild --device-build builds them
+    maps = {}
+    for flags, k, _, spacing, canon, phase, want, _ in EC_PHASE2:
+        fn = bd.device_taxdepth_map if phase == "t" else bd.device_ftct_map
+        t0 = time.perf_counter()
+        p1 = fn(genomes, tree, nameid, Spacer(k, k, parse_spacing(spacing, k)),
+                canon, device=dev)
+        secs = time.perf_counter() - t0
+        got = content_digest(p1)
+        say(f"# hash: phase 1 of {flags}: {p1.n} k-mers, nb=2^{p1.lgnb} "
+            f"({p1.nb * 32 / 2**20:.0f} MiB of slots, "
+            f"{'inline' if p1.arrays_np()[2] else 'flat'}) in {secs:.3f}s; "
+            f"digest {'matches' if got == want else 'DIFFERS'} the JAX "
+            "package's")
+        require(got == want, f"phase 1 of {flags} differs")
+        maps[flags] = ScoreMap(p1)
+    # 2. the kernels against their plain versions
+    flat = hash_kernels(dev, chk, maps)
+    # 3. the path: the ec builds, the goldens through the CLI
+    wrappers = [enc.minimizers, enc.compacted_minimizers, lookup_scores,
+                bd.sort_unique, bd.merge_fold]
+    reset_counts(wrappers)
+    nums, tables = {}, {}
+    for flags, k, w, spacing, canon, _, _, want in EC_PHASE2:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        table = bd.device_minimized_map(
+            genomes, maps[flags].table, tree, nameid,
+            Spacer(k, w, parse_spacing(spacing, k)), canon, device=dev)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = content_digest(table)
+        say(f"# hash: ec {flags} --device-build: {table.n} k-mers in "
+            f"{secs:.3f}s = {table.n / secs:.6g} k-mers/s; peak device memory "
+            f"{peak / 2**20:.1f} MiB; digest "
+            f"{'matches' if got == want else 'DIFFERS'} the JAX package's")
+        require(got == want, f"ec {flags} phase-2 device build differs")
+        nums[flags] = {"secs": secs, "n": table.n, "peak": peak}
+        tables[flags] = table
+    # the first again by stage, under the profiler
+    flags, k, w = EC_PHASE2[0][:3]
+    p1 = maps[flags].table
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        smap = ScoreMap(p1)
+        states, tax, root1 = bd._device_gather(genomes, tree, nameid,
+                                               Spacer(k, w), True, 1 << 22,
+                                               dev, "hash", smap)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = bd._tree_fold(states, tax, root1)
+        n = int(st.n)
+        t2 = time.perf_counter()
+        keys = st.keys[:n]
+        scores = smap.lookup_scores(keys)
+        kh = keys.cpu().numpy().view(np.uint64)
+        sh = scores.cpu().numpy().view(np.uint64)
+        t3 = time.perf_counter()
+    del states, st, keys, scores
+    keys, vals = phase2_content(kh, p1, sh)
+    t4 = time.perf_counter()
+    table = KmerTable(keys, vals)
+    t5 = time.perf_counter()
+    require(content_digest(table) == EC_PHASE2[0][-1], "second build differs")
+    busy, top = _device_busy(prof)
+    wall = (t3 - t0) * 1e6
+    say(f"# hash: ec {flags} again: genomes -> states {t1 - t0:.3f}s, tree "
+        f"fold {t2 - t1:.3f}s, KB5 + fetch of {n} keys {t3 - t2:.3f}s, host "
+        f"probe of the U64_MAX scores {t4 - t3:.3f}s, table placement (host) "
+        f"{t5 - t4:.3f}s; total {t5 - t0:.3f}s")
+    say(f"# trace: device busy {busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms "
+        f"({100 * busy / wall:.2f}%) in genomes -> states + fold + KB5; top: "
+        + "; ".join(f"{k_[:40]} {us / 1e3:.3f} ms" for k_, us in top[:8]))
+    nums["again"] = {"gather": t1 - t0, "fold": t2 - t1, "probe": t3 - t2,
+                     "host": t4 - t3, "place": t5 - t4, "busy_ms": busy / 1e3,
+                     "wall_ms": wall / 1e3}
+    m = json.load(open(os.path.join(GOLD, "manifest.json")))
+    gold = [os.path.join(GOLD, f) for f in ("g_phix.fa", "g_phixmut.fa",
+                                             "g_rand.fa")]
+    nodes = os.path.join(GOLD, "nodes.dmp")
+    nmap = os.path.join(GOLD, "nameidmap.txt")
+    dflags = ["--device-build", "--device", str(dev)]
+    runs = [(f"golden {c['name']}", ["-k", "25", f"-{c['phase1']}"],
+             c["phase1_digest"], [*c["flags"], f"-{c['phase1']}"],
+             c["db_digest"]) for c in m["configs"] if c["phase1"]]
+    runs += [(f"{flags} (the JAX CLI's digest)", p1flags.split(), None,
+              flags.split(), want)
+             for flags, (p1flags, want) in GOLDEN_PHASE2_DIGESTS.items()]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for i, (what, p1flags, p1want, bflags, want) in enumerate(runs):
+            p1p, out = (os.path.join(tmp, f"{i}.{x}.btpu") for x in "pq")
+            t0 = time.perf_counter()
+            require(cli.main(["prebuild", nmap, nodes, p1p, *gold, *p1flags,
+                              *dflags]) == 0, f"port CLI prebuild {what}")
+            require(cli.main(["build", out, *gold, *bflags, "--phase1-db", p1p,
+                              "-T", nodes, "-M", nmap, *dflags]) == 0,
+                    f"port CLI build {what}")
+            secs = time.perf_counter() - t0
+            p1got = content_digest(load_database(p1p).table)
+            got = content_digest(load_database(out).table)
+            say(f"# hash: {what}: prebuild + build --device-build {secs:.3f}s;"
+                f" phase-1 digest {p1got[:12]}, phase-2 digest "
+                f"{'matches' if got == want else 'DIFFERS'}")
+            require(p1want is None or p1got == p1want, f"{what}: phase 1")
+            require(got == want, f"{what}: phase-2 device build differs")
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    say(f"# hash: kernel launches {counts}")
+    for name in (*HASH_ROWS, "sort_unique", "merge_fold"):
+        require(counts[name] > 0, f"kernel {name} never launched in phase 2")
+    launches = {r: counts[r] for r in HASH_ROWS}
+    # 4. classify against a phase-2 database
+    db = Database(table=tables[flags], k=k, w=w, gaps=parse_spacing("", k),
+                  scheme="hash")
+    clf = pl.Classifier(db, tree, emit_all=True, device=dev)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    clf.process_dataset(hiseq, out, batch_size=8192)
+    torch.cuda.synchronize()
+    got = hashlib.sha256(out.getvalue().encode()).hexdigest()
+    say(f"# hash: HiSeq against the ec {flags} database: "
+        f"{out.getvalue().count(chr(10))} lines in "
+        f"{time.perf_counter() - t0:.3f}s, sha256 "
+        f"{'matches' if got == HISEQ_PHASE2_SHA256 else 'DIFFERS'} the JAX "
+        "Classifier's")
+    require(got == HISEQ_PHASE2_SHA256, "HiSeq against the phase-2 database "
+            "differs from the JAX package")
+    del clf, db, tables
+    # 5. the four kernels and their plain versions at the builds' shapes
+    times, bounds = {}, {}
+    pos21 = _positions(21, SPACING21)
+    for name, w, k, W, canon, pos, key, tag in (
+        ("minimizers_hash", 37, 25, 13, True, None, "-k 25 -w 37 -t",
+         "-k 25 -w 37 -t (W = 13)"),
+        ("minimizers_spaced_hash", 40, 21, 16, False, pos21,
+         EC_PHASE2[3][0], "-k 21 -S 0x16,1x4 -w 40 -t (W = 16)"),
+        ("compacted_minimizers_hash", 37, 25, 13, None, None,
+         "-C -k 25 -w 37 -t", "-C -k 25 -w 37 -t (W = 13)"),
+    ):
+        codes, lengths = _ec_chunk(w)
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        smap = maps[key]
+        if canon is None:
+            def kern(c=c, ln=ln, k=k, W=W, smap=smap):
+                return enc.compacted_minimizers(c, ln, k, W, "hash", smap)
+
+            def plain(c=c, ln=ln, k=k, W=W, smap=smap):
+                return enc.compacted_minimizers_plain(c, ln, k, W, "hash",
+                                                      smap)
+        else:
+            def kern(c=c, ln=ln, k=k, W=W, canon=canon, pos=pos, smap=smap):
+                return enc.minimizers(c, ln, k, W, canon, "hash", pos, smap)
+
+            def plain(c=c, ln=ln, k=k, W=W, canon=canon, pos=pos, smap=smap):
+                return enc.minimizers_plain(c, ln, k, W, canon, "hash", pos,
+                                            smap)
+        probes = probe_rows(hash_queries(c, ln, k, canon, pos),
+                            smap.arrays(dev))
+        em = kern()
+        bounds[name] = (bound_compacted_minimizers(c, ln, em, W,
+                                                   probes=probes)
+                        if canon is None else
+                        bound_minimizers(c, ln, em, W, probes=probes,
+                                         runs=spaced_runs(pos) if pos else 0))
+        say(f"# hash: {name}: {probes[0]} probes read {probes[1]} slot rows "
+            f"({probes[1] / probes[0]:.3f} a probe), {probes[2]} found")
+        times[name] = time_pair(name, f"ec chunk {codes.shape[1]} bases {tag}",
+                                kern, plain, bounds[name], graph=True)
+    arr = maps["-k 25 -w 37 -t"].arrays(dev)
+    rng = np.random.default_rng(SEED + 10)
+    keys = maps["-k 25 -w 37 -t"].table.keys_sorted
+    q = np.concatenate([rng.choice(keys, 1 << 21),
+                        rng.integers(0, 2**64, 1 << 21, dtype=np.uint64)])
+    qt = torch.from_numpy(q.view(np.int64)).to(dev)
+    bounds["lookup_scores"] = bound_lookup_scores(qt, arr,
+                                                  lookup_scores(qt, arr))
+    times["lookup_scores"] = time_pair(
+        "lookup_scores", "2^22 k-mers, half stored, the ec -k 25 -t map",
+        lambda: lookup_scores(qt, arr), lambda: lookup_scores_plain(qt, arr),
+        bounds["lookup_scores"], graph=True)
+    del flat, maps
+    return launches, times, bounds, nums
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -1405,6 +1850,33 @@ def phase_gather_numbers(dev):
     return bounds, library
 
 
+def time_pair(name, tag, kern, plain, bnd, graph=False):
+    """(kernel ms, plain ms, event ms) of ``kern`` and its plain version,
+    in turns plain, kernel, kernel, plain, and a line with the bound
+    ``bnd``.  The kernels over 100 calls: 5 calls of a 30 us kernel time
+    the card's clocks more than the kernel.  With ``graph`` (a few tens of
+    us a call) both are timed by CUDA-graph replay and the events around
+    back-to-back calls stand beside them."""
+    from bonsai_tpu_torch.tools.bounds import bound_text
+    from bonsai_tpu_torch.tools.gather_bench import graph_ms
+
+    if graph:
+        p1 = graph_ms(plain, calls=5)
+        k1, k2 = graph_ms(kern), graph_ms(kern)
+        p2 = graph_ms(plain, calls=5)
+        ev = time_ms(kern, iters=100)
+    else:
+        p1 = time_ms(plain, iters=5, warm=1)
+        k1 = ev = time_ms(kern, iters=100)
+        k2 = time_ms(kern, iters=100)
+        p2 = time_ms(plain, iters=5, warm=1)
+    say(f"# time {name} {tag}{', CUDA-graph replay' if graph else ''}: "
+        f"kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
+        f"{p1:.4f}, {p2:.4f} ms; events around back-to-back calls "
+        f"{ev:.4f} ms; {bound_text(bnd)}")
+    return ((k1 + k2) / 2, (p1 + p2) / 2, ev)
+
+
 def phase_build_numbers(dev, kk):
     """KB1-KB3 vs their plain versions on the card, at the build's shapes,
     with each kernel's bound and, for KB2, torch.unique's time."""
@@ -1417,33 +1889,13 @@ def phase_build_numbers(dev, kk):
     from bonsai_tpu_torch.tools.bounds import (bound,
                                                bound_compacted_minimizers,
                                                bound_merge_fold,
-                                               bound_minimizers, bound_text,
-                                               nbytes, spaced_runs)
-    from bonsai_tpu_torch.tools.gather_bench import graph_ms
+                                               bound_minimizers, nbytes,
+                                               spaced_runs)
 
     times, bounds, library = {}, {}, {}
 
     def pair(name, tag, kern, plain, graph=False):
-        # the kernels over 100 calls: 5 calls of a 30 us kernel time the
-        # card's clocks more than the kernel.  With ``graph`` (KB1, a few
-        # tens of us a call) both are timed by CUDA-graph replay and the
-        # events around back-to-back calls stand beside them
-        if graph:
-            p1 = graph_ms(plain, calls=5)
-            k1, k2 = graph_ms(kern), graph_ms(kern)
-            p2 = graph_ms(plain, calls=5)
-            ev = time_ms(kern, iters=100)
-        else:
-            p1 = time_ms(plain, iters=5, warm=1)
-            k1 = ev = time_ms(kern, iters=100)
-            k2 = time_ms(kern, iters=100)
-            p2 = time_ms(plain, iters=5, warm=1)
-        t = ((k1 + k2) / 2, (p1 + p2) / 2, ev)
-        say(f"# time {name} {tag}{', CUDA-graph replay' if graph else ''}: "
-            f"kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
-            f"{p1:.4f}, {p2:.4f} ms; events around back-to-back calls "
-            f"{ev:.4f} ms; {bound_text(bounds[name])}")
-        return t
+        return time_pair(name, tag, kern, plain, bounds[name], graph)
 
     chunks = {}  # KB2's inputs: KB1's output at three build shapes
     for w in (40, 31):  # the main path's k = 31 shape last: it is reported
@@ -1583,6 +2035,10 @@ def main() -> int:
         "encode_probe_spaced"] = phase_spaced_classify(dev, chk, kk,
                                                        spaced_table, hiseq)
     del spaced_table
+    hash_launches, hash_times, hash_bounds, hash_nums = phase_hash(
+        dev, chk, kk, hiseq)
+    times.update(hash_times)
+    bounds.update(hash_bounds)
     gather_launches, gres = phase_gather(dev)
     build_times, build_bounds, library = phase_build_numbers(dev, kk)
     times.update(build_times)
@@ -1598,6 +2054,7 @@ def main() -> int:
     launches.update(build_launches)
     launches.update(spaced_launches)
     launches.update(gather_launches)
+    launches.update(hash_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -1610,13 +2067,16 @@ def main() -> int:
     say(f"# {card}: HiSeq stream {rps:.6g} reads/s; scale probe "
         f"{qps:.6g} queries/s; ec k=31 device build {ec['secs']:.3f}s "
         f"(first), {build_nums['again']['secs']:.3f}s (again), host build "
-        f"{host_secs:.3f}s; total {time.perf_counter() - t_all:.1f}s")
+        f"{host_secs:.3f}s; ec -k 25 -w 37 -t phase 2 "
+        f"{hash_nums[EC_PHASE2[0][0]]['secs']:.3f}s; total "
+        f"{time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_err[name],
          "ms": times[name][0], "event_ms": times[name][2],
          "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "share": bounds[name][0] / times[name][0],
          "library_ms": library.get(name)}
         for name, (src, rep) in KERNELS.items()
     ]}))

@@ -8,9 +8,11 @@ folds and maps against ``bonsai_tpu.db.build_device`` and the host maps
 against ``bonsai_tpu.db.build``, all on the CPU, also across chunk edges
 for the uncanonical windowed, entropy-file and spaced disciplines.  The
 port CLI's ``--device-build --device cpu`` builds reproduce the golden
-manifest's digests, and the JAX CLI's where no golden holds the
-discipline (``-C -w``, ``-C -w -e``, ``-S -w``, ``prebuild -S``).  Tolerance: exact equality, since everything here is integer
-work.
+manifest's digests (phase 2 of ``min_td_k25_w37`` and ``min_fc_k25_w37``
+too), and the JAX CLI's where no golden holds the discipline (``-C -w``,
+``-C -w -e``, ``-S -w``, ``prebuild -S``, and the phase 2 of ``-C -w -t``
+and ``-S -w -t``).  Tolerance: exact equality, since everything here is
+integer work.
 """
 
 import json
@@ -299,26 +301,37 @@ def test_cli_device_build_matches_golden_digest(name, tmp_path):
     assert tbuild.content_digest(load_database(host).table) == want
 
 
-@pytest.mark.parametrize("argv", [
-    ["build", "-C", "-k", "25", "-w", "37"],
-    ["build", "-C", "-k", "25", "-w", "37", "-e"],
-    ["build", "-k", "21", "-S", "0x16,1x4", "-w", "40"],
-    ["build", "-k", "21", "-S", "0x16,1x4", "-w", "40", "-e"],
-    ["prebuild", "-k", "21", "-S", "0x16,1x4", "-t"],
-    ["prebuild", "-k", "21", "-S", "0x16,1x4", "-f"],
+@pytest.mark.parametrize("argv,phase1", [
+    (["build", "-C", "-k", "25", "-w", "37"], None),
+    (["build", "-C", "-k", "25", "-w", "37", "-e"], None),
+    (["build", "-k", "21", "-S", "0x16,1x4", "-w", "40"], None),
+    (["build", "-k", "21", "-S", "0x16,1x4", "-w", "40", "-e"], None),
+    (["prebuild", "-k", "21", "-S", "0x16,1x4", "-t"], None),
+    (["prebuild", "-k", "21", "-S", "0x16,1x4", "-f"], None),
+    (["build", "-C", "-k", "25", "-w", "37", "-t"], ["-C", "-k", "25", "-t"]),
+    (["build", "-k", "21", "-S", "0x16,1x4", "-w", "40", "-t"],
+     ["-k", "21", "-S", "0x16,1x4", "-t"]),
 ], ids=["uncanonical-w37", "uncanonical-w37-entropy", "spaced-w40",
-        "spaced-w40-entropy", "prebuild-spaced-t", "prebuild-spaced-f"])
-def test_cli_build_matches_jax_digest(argv, tmp_path):
+        "spaced-w40-entropy", "prebuild-spaced-t", "prebuild-spaced-f",
+        "uncanonical-w37-phase2-t", "spaced-w40-phase2-t"])
+def test_cli_build_matches_jax_digest(argv, phase1, tmp_path):
     """The disciplines no golden holds, against the JAX CLI's database:
-    the host build and --device-build --device cpu."""
+    the host build and --device-build --device cpu.  A phase 2 takes the
+    phase-1 map that the JAX CLI's prebuild with ``phase1`` writes."""
     from bonsai_tpu.cli import main as jmain
 
     nodes = os.path.join(GOLD, "nodes.dmp")
     nmap = os.path.join(GOLD, "nameidmap.txt")
+    p1_args = []
+    if phase1 is not None:
+        p1 = str(tmp_path / "p1.btpu")
+        assert jmain(["prebuild", nmap, nodes, p1, *GENOMES, *phase1]) == 0
+        p1_args = ["--phase1-db", p1]
 
     def argv_for(out):
         if argv[0] == "build":
-            return ["build", out, *GENOMES, *argv[1:], "-T", nodes, "-M", nmap]
+            return ["build", out, *GENOMES, *argv[1:], *p1_args, "-T", nodes,
+                    "-M", nmap]
         return ["prebuild", nmap, nodes, out, *GENOMES, *argv[1:]]
 
     jout = str(tmp_path / "jax.btpu")
@@ -416,15 +429,48 @@ def test_partial_window_of_a_non_final_chunk_is_dropped(trees, tmp_path):
         np.testing.assert_array_equal(np.unique(g), j)
 
 
-@pytest.mark.parametrize("extra", [["-f", "--phase1-db", "p1.btpu"],
-                                   ["-t", "--phase1-db", "p1.btpu"],
+@pytest.mark.parametrize("extra", [["-t", "--phase1-db", GENOMES[0]],
                                    ["--bonsai-format"], ["--shards", "2"],
                                    ["-S", "0x16,1x4", "-k", "40"],
                                    ["--bonsai-format", "-z"], ["-k", "33"]])
 def test_cli_refuses_what_is_not_ported(extra, tmp_path, capsys):
+    """A --phase1-db that is not BTPU1 would reach the JAX package's
+    reference khash importer (queue A item 10), which is not ported."""
     argv = ["build", str(tmp_path / "x.btpu"), GENOMES[0], "-T",
             os.path.join(GOLD, "nodes.dmp"), "-M",
             os.path.join(GOLD, "nameidmap.txt"), *extra]
     assert cli.main(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x.btpu")
+
+
+@pytest.mark.parametrize("flag", ["-t", "-f"])
+def test_cli_phase2_needs_a_phase1_db(flag, tmp_path, capsys):
+    """As the JAX CLI: -t/-f without --phase1-db returns 1."""
+    out = tmp_path / "x.btpu"
+    assert cli.main(["build", str(out), GENOMES[0], "-k", "25", "-w", "37",
+                     flag, "-T", os.path.join(GOLD, "nodes.dmp"), "-M",
+                     os.path.join(GOLD, "nameidmap.txt")]) == 1
+    assert "-t/-f build requires --phase1-db" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("name", ["min_td_k25_w37", "min_fc_k25_w37"])
+@pytest.mark.parametrize("where", ["host", "device"])
+def test_cli_phase2_matches_golden_digest(name, where, tmp_path):
+    """build -t|-f --phase1-db after the port's own prebuild: the reference
+    binary's db_digest, on the host and with --device-build --device cpu
+    (-e beside -t/-f is ignored, as in the JAX CLI)."""
+    c = _golden(name)
+    nodes = os.path.join(GOLD, "nodes.dmp")
+    nmap = os.path.join(GOLD, "nameidmap.txt")
+    p1, out = str(tmp_path / "p1.btpu"), str(tmp_path / "p2.btpu")
+    assert cli.main(["prebuild", nmap, nodes, p1, *GENOMES, "-k", "25",
+                     f"-{c['phase1']}"]) == 0
+    dev = ["--device-build", "--device", "cpu"] if where == "device" else []
+    assert cli.main(["build", out, *GENOMES, *c["flags"], f"-{c['phase1']}",
+                     "--phase1-db", p1, "-e", "-T", nodes, "-M", nmap,
+                     *dev]) == 0
+    db = load_database(out)
+    assert tbuild.content_digest(db.table) == c["db_digest"]
+    assert db.scheme == "hash" and (db.k, db.w) == (25, 37)

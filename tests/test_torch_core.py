@@ -114,10 +114,9 @@ def test_other_disciplines_raise():
     BatchEncoder(Spacer(25, 37), canonicalize=False)  # uncanonical windowed
     BatchEncoder(Spacer(21, 21, "0x16,1x4"))  # spaced
     BatchEncoder(Spacer(25, 37), scheme="entropy-file")  # build -e
+    BatchEncoder(Spacer(25, 37), scheme="hash")  # build -t/-f --phase1-db
     with pytest.raises(NotImplementedError):
         BatchEncoder(Spacer(21, 21), scheme="entropy")
-    with pytest.raises(NotImplementedError):
-        BatchEncoder(Spacer(21, 21), scheme="hash")
     with pytest.raises(NotImplementedError):
         BatchEncoder(Spacer(33, 33))  # 128-bit k-mers
 

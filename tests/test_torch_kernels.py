@@ -19,8 +19,11 @@ tiles of pairs, empty states, every lca() corner case and both
 spaced seeds of spans 25 to 63, windows of 1, 2, 13 and 16, rows of
 every length from under the span to several tiles, all-N rows,
 0 < n_valid < W tails, k = 32 k-mers with bit 63 set and real U64_MAX
-k-mers; for the gather microbenchmarks the four ``take_along_axis``
-shapes and 32-B and 128-B rows.  Tolerance: exact equality, since all of
+k-mers; for the hash-scored phase 2 (KB5 and the score::Hash
+instantiations of KB1 and KB4) inline and flat phase-1 images, stored
+and missing k-mers, the poly-A k-mer 0 and U64_MAX stored, rows none of
+whose k-mers phase 1 holds, P < W; for the gather microbenchmarks the
+four ``take_along_axis`` shapes and 32-B and 128-B rows.  Tolerance: exact equality, since all of
 it is integer work (the entropy-file score's one double divide is
 IEEE-rounded on both sides).
 """
@@ -37,7 +40,8 @@ from bonsai_tpu_torch.classify import pipeline as pl
 from bonsai_tpu_torch.classify import resolve as res
 from bonsai_tpu_torch.core import encoder as enc
 from bonsai_tpu_torch.db import build_device as bd
-from bonsai_tpu_torch.db.table import KmerTable, ProbeArrays
+from bonsai_tpu_torch.db.table import (KmerTable, ProbeArrays, ScoreMap,
+                                       lookup_scores)
 from bonsai_tpu_torch.taxonomy.tree import TaxTree
 from bonsai_tpu_torch.tools import gather_bench as gb
 
@@ -921,12 +925,13 @@ def _discipline_rows(rng, c, W, L=300, B=48):
     return codes, lengths
 
 
-def _run_kb1(cuda, codes, lengths, k, W, canon, scheme, positions):
+def _run_kb1(cuda, codes, lengths, k, W, canon, scheme, positions,
+             score_map=None):
     c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
-    want = enc.minimizers(c, ln, k, W, canon, scheme, positions)
+    want = enc.minimizers(c, ln, k, W, canon, scheme, positions, score_map)
     before = enc.minimizers.launches
     got = enc.minimizers(c.to(cuda), ln.to(cuda), k, W, canon, scheme,
-                         positions)
+                         positions, score_map)
     assert enc.minimizers.launches == before + 1
     _same(got, want)
     return want
@@ -959,11 +964,12 @@ def test_minimizers_entropy_kernel_matches_plain(cuda, k, W):
     _run_kb1(cuda, codes, lengths, k, W, True, "entropy-file", None)
 
 
-def _run_kb4(cuda, codes, lengths, k, W, scheme):
+def _run_kb4(cuda, codes, lengths, k, W, scheme, score_map=None):
     c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
-    want = enc.compacted_minimizers(c, ln, k, W, scheme)
+    want = enc.compacted_minimizers(c, ln, k, W, scheme, score_map)
     before = enc.compacted_minimizers.launches
-    got = enc.compacted_minimizers(c.to(cuda), ln.to(cuda), k, W, scheme)
+    got = enc.compacted_minimizers(c.to(cuda), ln.to(cuda), k, W, scheme,
+                                   score_map)
     assert enc.compacted_minimizers.launches == before + 1
     _same(got, want)
     return want
@@ -1068,3 +1074,149 @@ def test_minimizers_spaced_kernel_refuses_what_it_does_not_take(cuda):
         enc.minimizers(c, ln, 3, 1, False, "lex", (0, 2, 2))
     with pytest.raises(ValueError, match="canonicalized"):
         enc.minimizers(c, ln, 3, 1, True, "lex", (0, 1, 3))
+
+
+# -- the hash-scored phase 2: KB5 and the score::Hash instantiations of KB1
+# -- and KB4 --------------------------------------------------------------------
+
+U64_MAX = np.uint64(2**64 - 1)
+
+
+def _score_map(rng, keys, mode):
+    """A phase-1 map of ``keys``: 6 packed values (inline) or one a key
+    (flat: more than the slot's index field holds)."""
+    keys = np.unique(np.asarray(keys, dtype=np.uint64))
+    v = (np.arange(keys.size, dtype=np.uint64) if mode == "flat" else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v,
+                      min_nb=0 if mode == "flat" else 1 << 10)
+    assert table.arrays_np()[2] == (mode == "inline")
+    return ScoreMap(table)
+
+
+def _hash_rows(rng, c, W, mode, k, canon, positions):
+    """``_discipline_rows`` with a poly-A run, and a phase-1 map of half
+    the seeds of every row but the last two (whose seeds are missing), and
+    of 0 and U64_MAX."""
+    codes, lengths = _discipline_rows(rng, c, W)
+    codes[12, : c + 3 * W] = 0
+    lengths[12] = codes.shape[1]
+    em = enc.minimizers(torch.from_numpy(codes[:-2]),
+                        torch.from_numpy(lengths[:-2]), k, 1, canon, "lex",
+                        positions)
+    seeds = np.unique(em.values[em.mask].numpy().view(np.uint64))
+    keep = rng.choice(seeds, seeds.size // 2, replace=False)
+    return codes, lengths, _score_map(
+        rng, np.concatenate([keep, np.array([0, U64_MAX], np.uint64)]), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+def test_lookup_scores_kernel_matches_plain(cuda, mode):
+    rng = np.random.default_rng(17)
+    stored = rng.integers(0, 2**64, 50_000, dtype=np.uint64)
+    smap = _score_map(rng, np.concatenate(
+        [stored, np.array([0, U64_MAX], np.uint64)]), mode)
+    q = np.concatenate([rng.choice(stored, 40_000),
+                        rng.integers(0, 2**64, 40_000, dtype=np.uint64),
+                        np.array([0, U64_MAX, 1], np.uint64)])
+    qt = torch.from_numpy(q.view(np.int64))
+    want = smap.lookup_scores(qt)
+    assert (want.numpy().view(np.uint64) == smap.lookup_scores(q)).all()
+    before = lookup_scores.launches
+    got = smap.lookup_scores(qt.to(cuda))
+    assert lookup_scores.launches == before + 1
+    _same([got], [want])
+    # a (rows, cols) batch, and the image passed by hand
+    _same([lookup_scores(qt[:-3].view(400, 200).to(cuda), smap.arrays(cuda))],
+          [want[:-3].view(400, 200)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+@pytest.mark.parametrize("W", [2, 13, 16])
+@pytest.mark.parametrize("k", [21, 25, 32])
+def test_minimizers_hash_kernel_matches_plain(cuda, k, W, mode):
+    """The canonical windowed discipline of build -t|-f: an N window pushes
+    0, which is probed (0 is stored)."""
+    rng = np.random.default_rng(k * 17 + W)
+    codes, lengths, smap = _hash_rows(rng, k, W, mode, k, True, None)
+    before = enc.minimizers.variants.get("hash", 0)
+    want = _run_kb1(cuda, codes, lengths, k, W, True, "hash", None, smap)
+    assert enc.minimizers.variants["hash"] == before + 1
+    assert want.mask.any()
+    codes, lengths = _kb1_edge_rows(rng, k, W)
+    _run_kb1(cuda, codes, lengths, k, W, True, "hash", None, smap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+@pytest.mark.parametrize("W", [2, 13, 16])
+@pytest.mark.parametrize("k", sorted(SPACINGS))
+def test_minimizers_spaced_hash_kernel_matches_plain(cuda, k, W, mode):
+    """The spaced windowed discipline of build -S -w -t|-f: an N seed
+    pushes U64_MAX, which is probed (U64_MAX is stored; at k = 32 it is
+    also a real all-T k-mer)."""
+    pos = _positions(k)
+    rng = np.random.default_rng(k * 19 + W)
+    codes, lengths, smap = _hash_rows(rng, pos[-1] + 1, W, mode, k, False,
+                                      pos)
+    before = enc.minimizers.variants.get("spaced hash", 0)
+    want = _run_kb1(cuda, codes, lengths, k, W, False, "hash", pos, smap)
+    assert enc.minimizers.variants["spaced hash"] == before + 1
+    assert want.mask.any()
+    codes, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
+    _run_kb1(cuda, codes, lengths, k, W, False, "hash", pos, smap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+@pytest.mark.parametrize("W", [2, 13, 16])
+@pytest.mark.parametrize("k", [21, 25, 32])
+def test_compacted_minimizers_hash_kernel_matches_plain(cuda, k, W, mode):
+    """The uncanonical windowed discipline of build -C -w -t|-f, with
+    0 < n_valid < W tails; then rows of several tiles."""
+    rng = np.random.default_rng(k * 23 + W)
+    codes, lengths, smap = _hash_rows(rng, k, W, mode, k, False, None)
+    before = enc.compacted_minimizers.variants.get("hash", 0)
+    want = _run_kb4(cuda, codes, lengths, k, W, "hash", smap)
+    assert enc.compacted_minimizers.variants["hash"] == before + 1
+    assert want.mask[:, 0].any() and want.mask[:, 1:].any()
+    codes, lengths = _kb1_edge_rows(rng, k, W)
+    codes[4, : 2 * KB1_TILE] = -1
+    lengths[4] = codes.shape[1]
+    _run_kb4(cuda, codes, lengths, k, W, "hash", smap)
+
+
+@pytest.mark.cuda
+def test_compacted_minimizers_hash_kernel_short_rows_twice(cuda):
+    """3000 rows of at most 40 bases (P < W: the tail alone), then two
+    calls back to back on one stream."""
+    rng = np.random.default_rng(29)
+    codes = rng.integers(0, 4, (3000, 40)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.05] = -1
+    lengths = rng.integers(0, 41, 3000).astype(np.int32)
+    codes[np.arange(40)[None, :] >= lengths[:, None]] = -1
+    em = enc.minimizers(torch.from_numpy(codes), torch.from_numpy(lengths),
+                        21, 1, False)
+    smap = _score_map(rng, em.values[em.mask].numpy().view(np.uint64)[::2],
+                      "inline")
+    _run_kb4(cuda, codes, lengths, 21, 13, "hash", smap)
+    cases = [_discipline_rows(rng, 25, 13, L=9000, B=16) for _ in range(2)]
+    got = [enc.compacted_minimizers(torch.from_numpy(c).to(cuda),
+                                    torch.from_numpy(n).to(cuda), 25, 13,
+                                    "hash", smap) for c, n in cases]
+    for g, (c, n) in zip(got, cases):
+        _same(g, enc.compacted_minimizers(torch.from_numpy(c),
+                                          torch.from_numpy(n), 25, 13,
+                                          "hash", smap))
+
+
+@pytest.mark.cuda
+def test_hash_kernels_need_a_score_map(cuda):
+    c = torch.zeros((1, 200), dtype=torch.int8, device=cuda)
+    ln = torch.tensor([200], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="score_map"):
+        enc.minimizers(c, ln, 21, 10, True, "hash")
+    with pytest.raises(ValueError, match="score_map"):
+        enc.compacted_minimizers(c, ln, 21, 10, "hash")

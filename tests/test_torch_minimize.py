@@ -151,12 +151,11 @@ def test_minimizers_at_w1_are_the_unwindowed_emissions():
     lambda: BatchEncoder(Spacer(21, 21, "0x16,1x4"), scheme="entropy"),
     lambda: BatchEncoder(Spacer(25, 37), scheme="entropy"),
     lambda: BatchEncoder(Spacer(25, 37), canonicalize=False, scheme="entropy"),
-    lambda: BatchEncoder(Spacer(25, 37), scheme="hash"),
     lambda: BatchEncoder(Spacer(7, 7), input_type=InputType.PROTEIN),
     lambda: BatchEncoder(Spacer(7, 7, "1x6"), canonicalize=False,
                          input_type=InputType.PROTEIN),
 ], ids=["k33", "spaced-entropy", "entropy", "uncanonical-windowed-entropy",
-        "hash", "protein", "spaced-protein"])
+        "protein", "spaced-protein"])
 def test_unported_disciplines_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
