@@ -1,27 +1,26 @@
-"""DNA k-mer packing: int8 codes -> int64-held u64 k-mers.
+"""k-mer packing: int8 codes -> int64-held u64 k-mers.
 
-Counterpart of ``bonsai_tpu/core/encode.py`` for 2-bit DNA
-(``pack_kmers``, ``pack_spaced_kmers`` and ``_pack`` :50-137,
-``position_validity``, ``apply_mask``): the codes at a seed's k included
-positions fold high-first, so the first base lands in the highest used
-bits (encoder.h:547), and a seed holding an ambiguous code (-1) is
-invalid.  Protein radixes are not ported (ROADMAP queue A, item 8.5).
+Counterpart of ``bonsai_tpu/core/encode.py`` (``pack_kmers``,
+``pack_spaced_kmers`` and ``_pack`` :50-137, ``position_validity``,
+``apply_mask`` :163-170): the codes at a seed's k included positions fold
+high-first, so the first character lands in the highest used bits
+(encoder.h:547), and a seed holding an ambiguous code (-1, folded as 0)
+is invalid.  A power-of-two radix folds with shift-or (DNA 2 bits,
+PROTEIN 8, PROTEIN_3BIT 3, DNA2 and DNAC 1) and is masked to its bits;
+any other radix (PROTEIN20, PROTEIN_14, PROTEIN_6) folds with
+multiply-add and takes the modulus radix**k.  Both folds wrap modulo
+2^64 as the JAX package's uint64 arithmetic does: PROTEIN_3BIT at k = 22
+folds 66 bits, and the top bits of the first residue fall off.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .alphabet import InputType, kmer_mask
-from .bitops import i64
+from .alphabet import InputType, bits_of, kmer_mask, radix_of
+from .bitops import SIGN, i64
 
-
-def _dna_only(it: InputType) -> None:
-    if InputType(it) != InputType.DNA:
-        raise NotImplementedError(
-            f"input type {InputType(it).name}: only DNA is ported "
-            "(ROADMAP queue A, item 8.5)"
-        )
+U64 = 1 << 64
 
 
 def pack_kmers(codes: torch.Tensor, k: int, it: InputType = InputType.DNA):
@@ -37,12 +36,12 @@ def pack_spaced_kmers(codes: torch.Tensor, offsets, it: InputType = InputType.DN
 
 def _pack(codes: torch.Tensor, offsets, it: InputType):
     """Fold the codes at positions 0, o1, o1 + o2, ... of each seed."""
-    _dna_only(it)
     L = codes.shape[-1]
     c = 1 + sum(offsets)
     if L < c:
         raise ValueError(f"sequence length {L} < seed span {c}")
     P = L - c + 1
+    bits, radix = bits_of(it), radix_of(it)
     bad = codes < 0
     v = torch.where(bad, 0, codes).to(torch.int64)
     kmer = v[..., 0:P]
@@ -50,7 +49,8 @@ def _pack(codes: torch.Tensor, offsets, it: InputType):
     pos = 0
     for off in offsets:
         pos += off
-        kmer = (kmer << 2) | v[..., pos : pos + P]
+        nxt = v[..., pos : pos + P]
+        kmer = (kmer << bits) | nxt if bits else kmer * radix + nxt
         invalid = invalid | bad[..., pos : pos + P]
     return kmer, invalid
 
@@ -62,7 +62,32 @@ def position_validity(lengths: torch.Tensor, P: int, span: int) -> torch.Tensor:
     return idx[None, :] < (lengths[:, None].to(torch.int64) - (span - 1))
 
 
+def check_k(it: InputType, k: int) -> None:
+    """Raise where the JAX package refuses (it, k): a modulus radix**k
+    that numpy's uint64 cannot hold (k past chars-per-u64 for PROTEIN20,
+    PROTEIN_14 and PROTEIN_6)."""
+    if bits_of(it) is None and kmer_mask(it, k) >= U64:
+        raise ValueError(
+            f"input type {InputType(it).name}: k={k} needs the modulus "
+            f"{radix_of(it)}**{k}, which exceeds 64 bits")
+
+
+def umod(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Unsigned ``x % m`` of int64-held u64 bits, 0 < m < 2^63: a value
+    with bit 63 set is 2^63 + (x & (2^63 - 1)), and the two residues are
+    added modulo m without leaving int64."""
+    if m >= 1 << 63:  # no radix**k of a modulus type lies there
+        raise ValueError(f"modulus {m} is not below 2^63")
+    lo = (x & ~SIGN) % m
+    hi = (1 << 63) % m
+    s = torch.where(lo >= m - hi, lo - (m - hi), lo + hi)
+    return torch.where(x < 0, s, lo)
+
+
 def apply_mask(kmers: torch.Tensor, k: int, it: InputType) -> torch.Tensor:
-    """Final per-type bit mask (rhtraits.h:51-68)."""
-    _dna_only(it)
-    return kmers & i64(kmer_mask(it, k))
+    """Final per-type bit mask or modulus (rhtraits.h:51-68)."""
+    check_k(it, k)
+    m = kmer_mask(it, k)
+    if bits_of(it) is not None:
+        return kmers & i64(m)
+    return umod(kmers, m)

@@ -1,40 +1,51 @@
-"""Batched encoder facade: the DNA seed disciplines of ``build`` and
-``classify``.
+"""Batched encoder facade: the seed disciplines of ``build``,
+``classify`` and the Python API.
 
 Counterpart of ``bonsai_tpu/core/encoder.py`` ``BatchEncoder.emissions``
-(:130-220) for DNA seeds of k <= 32 and the schemes ``lex`` (score
-frev64), ``entropy-file`` (score u64(kmer / (-1 + 1e-4)),
-``core/entropy.py``; ``build -e``) and ``hash`` (score: the k-mer's
-packed value in a phase-1 map, U64_MAX where the map lacks it,
-``db/table.py`` ``ScoreMap``; ``build -t|-f --phase1-db``):
+(:130-220) for seeds of k <= 32 of every input type, and the schemes
+``lex`` (score frev64), ``entropy`` (score u64(kmer / (H + eps)), H the
+windowed Shannon entropy of the seed's codes, ``core/entropy.py``; the
+Python API), ``entropy-file`` (score u64(kmer / (-1 + 1e-4)); ``build
+-e``) and ``hash`` (score: the k-mer's packed value in a phase-1 map,
+U64_MAX where the map lacks it, ``db/table.py`` ``ScoreMap``; ``build
+-t|-f --phase1-db``):
 
 * unwindowed, contiguous (:141-153; ``classify`` runs it, w = k,
-  bin/bonsai.cpp:152): encode every window, drop windows that hold an N
-  or run past the read, canonicalize or not;
+  bin/bonsai.cpp:152): encode every window, drop windows that hold an
+  ambiguous code or run past the read, canonicalize or not;
 * canonical windowed, contiguous (:174-184): every in-length position is
   pushed, an N window pushes canonical(OVERFLOW) == 0 (a real key, not a
   pad, and under ``hash`` probed like any other), the score is that of
   the canonical k-mer, and slot j emits the (score, kmer) minimum of
   positions [j, j + W - 1] iff j + W <= max(len - (k - 1), 0);
 * spaced (:189-204; ``-S``, and ``classify`` against a spaced database at
-  W = 1): never canonical, every position pushed, an N seed pushes
-  U64_MAX (scored frev64(U64_MAX), 0x8000000000000000 under
-  entropy-file, or probed under hash: at k = 32 a real all-T k-mer is
-  U64_MAX), and an emission equal to U64_MAX is dropped;
+  W = 1): never canonical, every position pushed, a seed with an
+  ambiguous code pushes U64_MAX (scored frev64(U64_MAX),
+  0x8000000000000000 under both entropy schemes, or probed under hash:
+  at k = 32 a real all-T k-mer is U64_MAX), and an emission equal to
+  U64_MAX is dropped;
 * uncanonical windowed, contiguous (:161-173, :185-188, :206-220;
   ``-C -w``): only valid seeds are pushed, the window slides over the
   subsequence of valid seeds, and a final partial window (0 < n_valid <
-  W) emits its best seed once, in column 0, so E = 1 + (P - W + 1).
+  W) emits its best seed once, in column 0, so E = 1 + (P - W + 1);
+* canonical windowed contiguous under ``entropy`` (:156-160): the
+  uncanonical discipline selects (eps = 1e-3, against 1e-4 on spaced
+  seeds), then the emitted values are canonicalized.
 
-``minimizers`` is the wrapper of the CUDA kernel KB1
-(``csrc/minimizers.cu``), which computes the first three;
-``compacted_minimizers`` that of KB4 (``csrc/compacted_minimizers.cu``),
-which computes the last; both probe the phase-1 image from inside the
-kernel under ``hash`` (``csrc/probe.cuh``).  ``minimizers_plain`` and
+Only DNA is ever canonical (encoder.h:419).  DNA folds 2 bits a base;
+the other input types fold their alphabet's codes with shift-or or
+multiply-add (``core/encode.py``).  ``minimizers`` is the wrapper of the
+CUDA kernel KB1 (``csrc/minimizers.cu``), which computes the first three
+disciplines; ``compacted_minimizers`` that of KB4
+(``csrc/compacted_minimizers.cu``), which computes the last two; both
+probe the phase-1 image from inside the kernel under ``hash``
+(``csrc/probe.cuh``) and score ``entropy`` where the seed's codes are
+(``csrc/scores.cuh``).  ``minimizers_plain`` and
 ``compacted_minimizers_plain`` are their plain torch versions, which
-serve CPU tensors.  Unwindowed seeds take no score.  The scheme
-``entropy`` (item 8.3b), non-DNA input (item 8.5) and k > 32 (item 8.6)
-raise ``NotImplementedError`` with their ROADMAP queue A item.
+serve CPU tensors.  Unwindowed seeds take no score.  k > 32 (item 8.6)
+and the scheme ``hash`` of another input type than DNA (item 8.4b, which
+no entry point reaches) raise ``NotImplementedError`` with their ROADMAP
+queue A item.
 """
 
 from __future__ import annotations
@@ -47,17 +58,25 @@ import torch
 from .. import kernels
 from ..db.table import ScoreMap, lookup_scores_plain
 from . import encode
-from .alphabet import InputType
+from .alphabet import InputType, bits_of, kmer_mask, radix_of
 from .bitops import SIGN, canonical
-from .entropy import FILE_DENOM, file_scores
+from .entropy import (FILE_DENOM, FILE_EPS, WINDOWED_EPS, file_scores,
+                      shannon_scores, terms_on)
 from .hashes import frev64
 from .minimize import compacted_minimizers as _compacted, positional_minimizers
 from .spacer import Spacer
 
 MAX_W = 8192  # KB1 and KB4 stage a tile's W - 1 halo in shared memory
 SMEM_BYTES = 232_448  # shared memory a block may take on an H100
-SCHEMES = ("lex", "entropy-file", "hash")
+SCHEMES = ("lex", "entropy", "entropy-file", "hash")
 U64_MAX = -1  # as int64
+DNA = InputType.DNA
+# the kernels' codes for a fold and a score (csrc/scores.cuh)
+FOLD_DNA, FOLD_SHIFT, FOLD_MULADD = 0, 1, 2
+SCORE_CODE = {"lex": 0, "entropy-file": 1, "hash": 2, "entropy": 3}
+# a variant's name in the wrappers' launch counts
+VARIANT = {"lex": "lex", "entropy-file": "entropy-file", "hash": "hash",
+           "entropy": "shannon"}
 
 
 class Emissions(NamedTuple):
@@ -74,11 +93,16 @@ def _empty(codes: torch.Tensor) -> Emissions:
 
 
 def _scores(kmers: torch.Tensor, scheme: str,
-            score_map: Optional[ScoreMap]) -> torch.Tensor:
+            score_map: Optional[ScoreMap], codes=None, k=0,
+            it: InputType = DNA, eps=FILE_EPS, positions=None) -> torch.Tensor:
+    """The score of each pushed k-mer; the scheme ``entropy`` reads the
+    seeds' ``codes`` (contiguous, or at ``positions``)."""
     if scheme == "lex":
         return frev64(kmers)
     if scheme == "entropy-file":
         return file_scores(kmers)
+    if scheme == "entropy":
+        return shannon_scores(kmers, codes, k, radix_of(it), eps, positions)
     # ScoreMap.lookup_scores on a CPU tensor; plain torch on any device
     return lookup_scores_plain(kmers, _score_map(score_map).arrays(
         kmers.device))
@@ -90,40 +114,60 @@ def _score_map(score_map: Optional[ScoreMap]) -> ScoreMap:
     return score_map
 
 
+def _check_scheme(scheme: str, it: InputType) -> None:
+    """Refuse the scheme ``hash`` of another input type than DNA, which no
+    entry point reaches (the API takes no phase-1 map, ``build`` no input
+    type)."""
+    if scheme == "hash" and it != DNA:
+        raise _unported(f"the scheme 'hash' of input type "
+                        f"{InputType(it).name}", "8.4b")
+
+
 def _span(k: int, positions: Optional[Sequence[int]]) -> int:
     return k if positions is None else int(positions[-1]) + 1
+
+
+def _pack(codes, k, positions, it):
+    """(kmers, invalid) of a contiguous or spaced seed, masked."""
+    if positions is None:
+        kmers, invalid = encode.pack_kmers(codes, k, it)
+    else:
+        offsets = [int(b) - int(a) for a, b in zip(positions, positions[1:])]
+        kmers, invalid = encode.pack_spaced_kmers(codes, offsets, it)
+    return encode.apply_mask(kmers, k, it), invalid
 
 
 def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
                      W: int, canon: bool, scheme: str = "lex",
                      positions: Optional[Sequence[int]] = None,
-                     score_map: Optional[ScoreMap] = None) -> Emissions:
-    """Plain torch KB1: (B, L) int8 codes (-1 = N or pad), (B,) lengths ->
-    (B, E) emissions, E = L - c - W + 2 with c the seed's span.
+                     score_map: Optional[ScoreMap] = None,
+                     it: InputType = DNA) -> Emissions:
+    """Plain torch KB1: (B, L) int8 codes (-1 = ambiguous or pad), (B,)
+    lengths -> (B, E) emissions, E = L - c - W + 2 with c the seed's span.
     ``positions`` (the k offsets of a spaced seed, ``Spacer.positions``)
     makes the spaced discipline, which takes no ``canon``; otherwise W = 1
-    is the unwindowed discipline and W > 1 needs ``canon``.  The scheme
-    ``hash`` scores through ``score_map``."""
+    is the unwindowed discipline and W > 1 needs ``canon`` (DNA only).
+    The scheme ``hash`` scores through ``score_map``; ``entropy`` takes a
+    spaced seed (contiguous seeds are ``compacted_minimizers``')."""
     c = _span(k, positions)
     if W == 1:  # a window of one seed: no score decides anything
         scheme = "lex"
+    _check_scheme(scheme, it)
+    if canon and it != DNA:
+        raise ValueError(f"input type {InputType(it).name} is never "
+                         "canonicalized")
     if codes.shape[-1] < c:
         return _empty(codes)
-    if positions is None:
-        kmers, invalid = encode.pack_kmers(codes, k)
-    else:
-        offsets = [int(b) - int(a) for a, b in zip(positions, positions[1:])]
-        kmers, invalid = encode.pack_spaced_kmers(codes, offsets)
-    kmers = encode.apply_mask(kmers, k, InputType.DNA)
+    kmers, invalid = _pack(codes, k, positions, it)
     P = kmers.shape[-1]
     n_push = torch.clamp(lengths.to(torch.int64) - (c - 1), min=0)
     if positions is None and W == 1:
         valid = encode.position_validity(lengths, P, k) & ~invalid
         return Emissions(canonical(kmers, k) if canon else kmers, valid)
     if positions is None:
-        if not canon:
-            raise ValueError("uncanonical contiguous windows are "
-                             "compacted_minimizers' discipline")
+        if not canon or scheme == "entropy":
+            raise ValueError("uncanonical contiguous windows and the scheme "
+                             "entropy are compacted_minimizers' discipline")
         ck = torch.where(invalid, 0, canonical(kmers, k))
         if P < W:
             return _empty(codes)
@@ -132,8 +176,8 @@ def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     if canon:
         raise ValueError("a spaced seed is never canonicalized")
     ov = torch.where(invalid, U64_MAX, kmers)
-    scores = _scores(ov, scheme, score_map)
-    if scheme == "entropy-file":  # a partial tracker: NOT_FULL's quotient
+    scores = _scores(ov, scheme, score_map, codes, k, it, FILE_EPS, positions)
+    if scheme in ("entropy", "entropy-file"):  # a partial tracker: NOT_FULL
         scores = torch.where(invalid, SIGN, scores)
     if P < W:
         return _empty(codes)
@@ -150,7 +194,7 @@ def kb1_smem_bytes(span: int, W: int) -> int:
     return code_off + (npos + span - 1 + 30) // 16 * 16 + 512
 
 
-def _check_args(name, codes, lengths, k, W, scheme):
+def _check_args(name, codes, lengths, k, W, scheme, it):
     dev = codes.device
     if codes.dim() != 2:
         raise ValueError(f"codes: shape {tuple(codes.shape)}, expected (B, L)")
@@ -163,29 +207,57 @@ def _check_args(name, codes, lengths, k, W, scheme):
         raise ValueError(f"window of {W} k-mers: the kernel takes 1..{MAX_W}")
     if scheme not in SCHEMES:
         raise ValueError(f"{name}: scheme {scheme!r}, the kernel takes {SCHEMES}")
+    encode.check_k(it, k)
+
+
+def _gen_args(k: int, it: InputType, scheme: str, dev, score_map, eps):
+    """The fold, score, phase-1 image and Shannon arguments that KB1's
+    and KB4's entry points take after the seed's."""
+    bits = bits_of(it)
+    if it == DNA:
+        fold = (FOLD_DNA, 2, 4, kmer_mask(it, k))
+    elif bits:
+        fold = (FOLD_SHIFT, bits, 1 << bits, kmer_mask(it, k))
+    else:
+        fold = (FOLD_MULADD, 0, radix_of(it), kmer_mask(it, k))
+    if scheme == "hash":
+        arr = _score_map(score_map).arrays(dev)
+        arr.check(dev)
+        image = arr.args()
+    else:
+        image = (None, 0, 0, None, 0, 0)
+    terms = terms_on(k, dev) if scheme == "entropy" else None
+    return (*fold, SCORE_CODE[scheme], FILE_DENOM, *image, kernels.ptr(terms),
+            radix_of(it), eps)
 
 
 def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
                canon: bool, scheme: str = "lex",
                positions: Optional[Sequence[int]] = None,
-               score_map: Optional[ScoreMap] = None) -> Emissions:
+               score_map: Optional[ScoreMap] = None,
+               it: InputType = DNA) -> Emissions:
     """KB1 (``csrc/minimizers.cu``): see ``minimizers_plain``, which serves
     CPU tensors.  codes (B, L) int8, lengths (B,) int32 -> values (B, E)
     int64 and an ``emitted`` mask (B, E) bool; a value is never a
-    sentinel (at k = 32 a real k-mer can be U64_MAX).  Contiguous lex
-    seeds run the kernel's first entry point; spaced seeds and the
-    entropy-file score its second, the hash score its third, with the
-    phase-1 image of ``score_map`` on the codes' device (counted in
-    ``minimizers.variants``)."""
+    sentinel (at k = 32 a real k-mer can be U64_MAX).  The kernel's one
+    entry point picks its instantiation from the seed, the fold and the
+    score: the hash score probes the phase-1 image of ``score_map`` on the
+    codes' device, and the other input types run their unwindowed seeds
+    as a spaced seed of positions 0..k-1.  Counted by instantiation in
+    ``minimizers.variants``."""
     if codes.device.type == "cpu":
         return minimizers_plain(codes, lengths, k, W, canon, scheme, positions,
-                                score_map)
+                                score_map, it)
     if codes.device.type != "cuda":
         raise ValueError(f"minimizers: no kernel for device {codes.device}")
     dev = codes.device
-    _check_args("minimizers", codes, lengths, k, W, scheme)
+    it = InputType(it)
+    _check_args("minimizers", codes, lengths, k, W, scheme, it)
     if W == 1:  # a window of one seed: no score decides anything
         scheme = "lex"
+    _check_scheme(scheme, it)
+    if canon and it != DNA:
+        raise ValueError(f"input type {it.name} is never canonicalized")
     B, L = codes.shape
     if B > 65535:
         raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
@@ -201,37 +273,28 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
         if kb1_smem_bytes(c, W) > SMEM_BYTES:
             raise ValueError(f"seed span {c} with a window of {W}: the "
                              "kernel's tile does not fit in shared memory")
-    elif W > 1 and not canon:
-        raise ValueError("uncanonical contiguous windows are "
-                         "compacted_minimizers' discipline")
+    elif W > 1 and (not canon or scheme == "entropy"):
+        raise ValueError("uncanonical contiguous windows and the scheme "
+                         "entropy are compacted_minimizers' discipline")
     E = L - c - W + 2
     if E <= 0 or B == 0:
         return _empty(codes)
     keys = torch.empty((B, E), dtype=torch.int64, device=dev)
     emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
-    if positions is None and scheme == "lex":
-        kernels.launch("bk_minimizers", dev, codes.data_ptr(),
-                       lengths.data_ptr(), B, L, k, W, int(canon),
-                       keys.data_ptr(), emitted.data_ptr())
-        variant = "lex"
+    spaced = positions is not None
+    pos = (ctypes.c_int32 * 32)(*(int(p) for p in (
+        positions or (range(k) if it != DNA else ()))))
+    kernels.launch("bk_minimizers_gen", dev, codes.data_ptr(),
+                   lengths.data_ptr(), B, L, k, W, int(canon), int(spaced),
+                   pos, c, int(not spaced),
+                   *_gen_args(k, it, scheme, dev, score_map, FILE_EPS),
+                   keys.data_ptr(), emitted.data_ptr())
+    suffix = "" if scheme == "lex" else " " + VARIANT[scheme]
+    if it != DNA or spaced:
+        variant = ("radix" if it != DNA else "spaced") + suffix
     else:
-        pos = (ctypes.c_int32 * 32)(*(int(p) for p in (positions or ())))
-        spaced = positions is not None
-        if scheme == "hash":
-            arr = _score_map(score_map).arrays(dev)
-            arr.check(dev)
-            kernels.launch("bk_minimizers_hash", dev, codes.data_ptr(),
-                           lengths.data_ptr(), B, L, k, W, int(canon),
-                           int(spaced), pos, c, *arr.args(), keys.data_ptr(),
-                           emitted.data_ptr())
-            variant = "spaced hash" if spaced else "hash"
-        else:
-            kernels.launch("bk_minimizers_ext", dev, codes.data_ptr(),
-                           lengths.data_ptr(), B, L, k, W, int(canon),
-                           int(spaced), pos, c, int(scheme == "entropy-file"),
-                           FILE_DENOM, keys.data_ptr(), emitted.data_ptr())
-            variant = ("spaced" if spaced else "contiguous") + (
-                "" if scheme == "lex" else " entropy-file")
+        variant = "lex" if scheme == "lex" else (
+            "hash" if scheme == "hash" else "contiguous" + suffix)
     minimizers.launches += 1
     minimizers.variants[variant] = minimizers.variants.get(variant, 0) + 1
     return Emissions(keys, emitted)
@@ -243,8 +306,9 @@ minimizers.variants = {}
 
 def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
                                k: int, W: int, scheme: str = "lex",
-                               score_map: Optional[ScoreMap] = None
-                               ) -> Emissions:
+                               score_map: Optional[ScoreMap] = None,
+                               it: InputType = DNA,
+                               canon: bool = False) -> Emissions:
     """Plain torch KB4: (B, L) int8 codes, (B,) lengths -> (B, E)
     emissions of the uncanonical contiguous windowed discipline,
     E = 1 + max(P - W + 1, 0), P = L - k + 1 (none when L < k).  Column 0
@@ -254,36 +318,52 @@ def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
     mask lets out).  Column 1 + j is the minimum of compacted seeds
     [j, j + W - 1], the sentinel U64_MAX standing in past n_valid; valid
     iff j + W <= n_valid.  The scheme ``hash`` scores through
-    ``score_map``."""
+    ``score_map``; ``entropy`` takes eps = 1e-3, and with ``canon`` (DNA)
+    canonicalizes each emitted value after the selection."""
+    _check_scheme(scheme, it)
+    if canon and (scheme != "entropy" or it != DNA):
+        raise ValueError("only the scheme entropy of DNA canonicalizes "
+                         "after an uncanonical selection")
     if codes.shape[-1] < k:
         return _empty(codes)
-    kmers, invalid = encode.pack_kmers(codes, k)
-    kmers = encode.apply_mask(kmers, k, InputType.DNA)
+    kmers, invalid = _pack(codes, k, None, it)
     valid = encode.position_validity(lengths, kmers.shape[-1], k) & ~invalid
     out_k, out_v, tail_k, tail_v = _compacted(
-        _scores(kmers, scheme, score_map), kmers, valid, W)
+        _scores(kmers, scheme, score_map, codes, k, it, WINDOWED_EPS), kmers,
+        valid, W)
     tail_k = torch.where(tail_v, tail_k, U64_MAX)
-    return Emissions(torch.cat([tail_k[:, None], out_k], dim=-1),
-                     torch.cat([tail_v[:, None], out_v], dim=-1))
+    values = torch.cat([tail_k[:, None], out_k], dim=-1)
+    mask = torch.cat([tail_v[:, None], out_v], dim=-1)
+    if canon:
+        values = torch.where(mask, canonical(values, k), values)
+    return Emissions(values, mask)
 
 
 def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
                          W: int, scheme: str = "lex",
-                         score_map: Optional[ScoreMap] = None) -> Emissions:
+                         score_map: Optional[ScoreMap] = None,
+                         it: InputType = DNA,
+                         canon: bool = False) -> Emissions:
     """KB4 (``csrc/compacted_minimizers.cu``): see
     ``compacted_minimizers_plain``, which serves CPU tensors.  codes
     (B, L) int8, lengths (B,) int32 -> values (B, E) int64, emitted
-    (B, E) bool.  The hash score runs the kernel's second entry point,
-    with the phase-1 image of ``score_map`` on the codes' device (counted
-    in ``compacted_minimizers.variants``)."""
+    (B, E) bool.  The kernel's one entry point picks its instantiation
+    from the fold and the score (the hash score with the phase-1 image of
+    ``score_map`` on the codes' device); counted by instantiation in
+    ``compacted_minimizers.variants``."""
     if codes.device.type == "cpu":
         return compacted_minimizers_plain(codes, lengths, k, W, scheme,
-                                          score_map)
+                                          score_map, it, canon)
     if codes.device.type != "cuda":
         raise ValueError(
             f"compacted_minimizers: no kernel for device {codes.device}")
     dev = codes.device
-    _check_args("compacted_minimizers", codes, lengths, k, W, scheme)
+    it = InputType(it)
+    _check_args("compacted_minimizers", codes, lengths, k, W, scheme, it)
+    _check_scheme(scheme, it)
+    if canon and (scheme != "entropy" or it != DNA):
+        raise ValueError("only the scheme entropy of DNA canonicalizes "
+                         "after an uncanonical selection")
     B, L = codes.shape
     if B > 65535:
         raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
@@ -295,21 +375,17 @@ def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     E = 1 + max(P - W + 1, 0)
     keys = torch.empty((B, E), dtype=torch.int64, device=dev)
     emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
-    scratch = kernels.scratch("bk_compacted_minimizers", (B, L), dev)
-    if scheme == "hash":
-        arr = _score_map(score_map).arrays(dev)
-        arr.check(dev)
-        kernels.launch("bk_compacted_minimizers_hash", dev, codes.data_ptr(),
-                       lengths.data_ptr(), B, L, k, W, *arr.args(),
-                       keys.data_ptr(), emitted.data_ptr(), scratch.data_ptr())
-    else:
-        kernels.launch("bk_compacted_minimizers", dev, codes.data_ptr(),
-                       lengths.data_ptr(), B, L, k, W,
-                       int(scheme == "entropy-file"), FILE_DENOM,
-                       keys.data_ptr(), emitted.data_ptr(), scratch.data_ptr())
-    compacted_minimizers.launches += 1
+    scratch = kernels.scratch("bk_compacted_minimizers_gen",
+                              (B, L, int(scheme == "entropy")), dev)
+    kernels.launch("bk_compacted_minimizers_gen", dev, codes.data_ptr(),
+                   lengths.data_ptr(), B, L, k, W,
+                   *_gen_args(k, it, scheme, dev, score_map, WINDOWED_EPS),
+                   int(canon), keys.data_ptr(), emitted.data_ptr(),
+                   scratch.data_ptr())
+    variant = ("radix " if it != DNA else "") + VARIANT[scheme]
     v = compacted_minimizers.variants
-    v[scheme] = v.get(scheme, 0) + 1
+    v[variant] = v.get(variant, 0) + 1
+    compacted_minimizers.launches += 1
     return Emissions(keys, emitted)
 
 
@@ -327,33 +403,34 @@ class BatchEncoder:
                  scheme: str = "lex",
                  input_type: InputType = InputType.DNA,
                  score_map: Optional[ScoreMap] = None):
-        if scheme not in ("lex", "entropy", "entropy-file", "hash"):
+        if scheme not in SCHEMES:
             raise ValueError(f"unknown scheme {scheme}")
-        if scheme == "entropy":
-            raise _unported("the scheme 'entropy' (windowed Shannon "
-                            "entropy)", "8.3b")
-        if InputType(input_type) != InputType.DNA:
-            raise _unported(f"input type {InputType(input_type).name}", "8.5")
         if spacer.k > 32:
             raise _unported(f"k={spacer.k} (128-bit k-mers)", "8.6")
-        self.sp = spacer
         self.it = InputType(input_type)
+        encode.check_k(self.it, spacer.k)
+        if not spacer.unwindowed():
+            _check_scheme(scheme, self.it)
+        self.sp = spacer
         self.scheme = scheme
         self.score_map = score_map  # the phase-1 map of the scheme 'hash'
-        # spaced seeds cannot canonicalize (encoder.h:148-150)
-        self.canon = bool(canonicalize) and spacer.unspaced()
+        # spaced seeds cannot canonicalize (encoder.h:148-150), and only
+        # DNA has a reverse complement (encoder.h:419)
+        self.canon = (bool(canonicalize) and spacer.unspaced()
+                      and self.it == DNA)
 
     def emissions(self, codes: torch.Tensor, lengths: torch.Tensor) -> Emissions:
         """codes: (B, L) int8 (pad with -1); lengths: (B,) int32."""
-        sp = self.sp
+        sp, it = self.sp, self.it
         if not sp.unspaced():
             return minimizers(codes, lengths, sp.k, sp.window_kmers, False,
                               self.scheme, tuple(int(p) for p in sp.positions),
-                              self.score_map)
+                              self.score_map, it)
         if sp.unwindowed():  # no window: no score
-            return minimizers(codes, lengths, sp.k, 1, self.canon)
-        if self.canon:
+            return minimizers(codes, lengths, sp.k, 1, self.canon, it=it)
+        if self.canon and self.scheme != "entropy":
             return minimizers(codes, lengths, sp.k, sp.window_kmers, True,
                               self.scheme, score_map=self.score_map)
         return compacted_minimizers(codes, lengths, sp.k, sp.window_kmers,
-                                    self.scheme, self.score_map)
+                                    self.scheme, self.score_map, it,
+                                    self.canon)

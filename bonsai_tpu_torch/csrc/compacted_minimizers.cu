@@ -1,11 +1,16 @@
 // KB4 compacted_minimizers: the uncanonical windowed minimizers of
-// contiguous DNA k-mers (`build -C -w`), lex, entropy-file or phase-1
-// (score::Hash, `build -C -w -t|-f --phase1-db`) score.
+// contiguous k-mers (`build -C -w`), lex, entropy-file, phase-1
+// (score::Hash, `build -C -w -t|-f --phase1-db`) or Shannon (the scheme
+// "entropy" of the Python API) score, of DNA or another alphabet's fold.
 //
 // Replaces the device path of bonsai_tpu/core/encoder.py
 // BatchEncoder.emissions on its uncanonical unspaced windowed branches
-// (:161-173 entropy-file, :185-188 -> _windowed_compacted :206-220 lex)
-// with minimize.compact_valid (:84) and compacted_minimizers (:109).
+// (:161-173 entropy-file, :185-188 -> _windowed_compacted :206-220 lex
+// and Shannon) and its canonical unspaced Shannon branch (:156-160:
+// select on the uncanonical k-mers, then canonicalize the emitted ones)
+// with minimize.compact_valid (:84) and compacted_minimizers (:109), and
+// for the other alphabets encode._pack (:108-137) and apply_mask
+// (:163-170).
 // Only valid seeds are pushed: with n_push = max(len - (k - 1), 0), the
 // seed at p is valid iff p < n_push and its k bases hold no N.  The valid
 // seeds of a row, in order, are its compacted stream, n_valid long; a
@@ -17,9 +22,12 @@
 //          n_valid seeds; U64_MAX when not emitted;
 //   column 1 + j, j < P - W + 1: the minimum of stream positions
 //          [j, j + W - 1], emitted iff j + W <= n_valid.
-// The score is frev64(kmer), the entropy-file score (scores.cuh) or the
-// k-mer's value in the phase-1 image, U64_MAX where it is missing
-// (probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501).
+// The score is frev64(kmer), the entropy-file score (scores.cuh), the
+// k-mer's value in the phase-1 image, U64_MAX where it is missing (DNA
+// only; probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501), or
+// the Shannon score of the seed's k codes with eps 1e-3 (scores.cuh);
+// with ``canon`` (DNA, Shannon) every emitted value is then replaced by
+// its canonical form.
 //
 // What bounds it on an H100: the bytes, 1 B of codes a base in and 9 B a
 // slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the
@@ -46,6 +54,13 @@
 //      window minima from blocks of W positions (van Herk / Gil-Werman,
 //      as KB1); the first block of a row also takes the tail, one warp
 //      reducing at most W - 1 seeds.
+// One entry point picks the instantiation from its arguments.  In the
+// kGen instantiations another alphabet folds each
+// position's k codes from the staged tile (k shared loads a position, the
+// simple way); the Shannon score needs the seed's codes, which only the
+// compaction launch holds, so there it scores each valid seed (k + 1
+// scans of its k codes at most, scores.cuh) and writes the scores as a
+// second stream beside the k-mers, which the window launch reads.
 // A row is one 4M-base chunk of a genome in the device build and a read
 // in the tests: rows of any length and any count up to the grid's 65535
 // work, since the compaction is row-wide across tiles.
@@ -72,12 +87,15 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
   return s < bs || (s == bs && v <= bv);
 }
 
-// the lex or entropy-file score, or with kHash the phase-1 score
-template <bool kHash>
+// the window launch's score: lex or entropy-file (runtime ``entropy``),
+// the phase-1 score, or the score the compaction stored
+enum WindowScore { kLexFile, kHash, kStored };
+
+template <int kWin>
 __device__ __forceinline__ uint64_t score_of(uint64_t kmer, int entropy,
                                              double denom,
                                              const bk::ProbeTable& tbl) {
-  if constexpr (kHash)
+  if constexpr (kWin == kHash)
     return bk::hash_score(tbl, kmer);
   else
     return entropy ? bk::entropy_file_score(kmer, denom) : bk::frev64(kmer);
@@ -85,12 +103,17 @@ __device__ __forceinline__ uint64_t score_of(uint64_t kmer, int entropy,
 
 // -- 1. compact ---------------------------------------------------------------
 
+// kGen: another alphabet's fold; kScored: the Shannon score of each
+// valid seed into ``sstream``
+template <bool kGen, bool kScored>
 __global__ void __launch_bounds__(kThreads)
     compact_kernel(const int8_t* __restrict__ codes,
                    const int32_t* __restrict__ lengths, int64_t L, int k,
                    int64_t P, int64_t T, uint32_t* __restrict__ tile_ctr,
                    uint32_t* status, uint64_t* __restrict__ stream,
-                   int64_t* __restrict__ n_valid) {
+                   int64_t* __restrict__ n_valid,
+                   uint64_t* __restrict__ sstream, bk::Fold fold,
+                   bk::Shannon sh) {
   using Scan = cub::BlockScan<int32_t, kThreads>;
   __shared__ __align__(16) int8_t s_code[kTile + 32 + 16 + 16];
   __shared__ uint64_t s_km[kTile];  // the tile's k-mers, then its valid ones
@@ -132,7 +155,20 @@ __global__ void __launch_bounds__(kThreads)
   const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
   const int r0 = tid * kRun;
   uint32_t ok = 0;
-  {
+  if constexpr (kGen) {
+    for (int r = 0; r < kRun; ++r) {
+      const int8_t* cp = s_code + shift + r0 + r;
+      uint64_t v = 0;
+      bool n_in = false;
+      for (int i = 0; i < k; ++i) {
+        const int c = cp[i];
+        n_in |= c < 0;
+        v = bk::fold_step(fold, v, c);
+      }
+      s_km[r0 + r] = bk::fold_finish(fold, v);
+      ok |= (uint32_t)(!n_in && p0 + r0 + r < n_push) << r;
+    }
+  } else {
     const uint32_t* w32 = (const uint32_t*)s_code;
     int ci = shift + r0;
     uint32_t word = w32[ci >> 2] >> (8 * (ci & 3));
@@ -158,8 +194,20 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t km[kRun];
 #pragma unroll
   for (int r = 0; r < kRun; ++r) km[r] = s_km[r0 + r];
+  uint64_t sc[kScored ? kRun : 1];
+  if constexpr (kScored) {
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      const int8_t* cp = s_code + shift + r0 + r;
+      sc[r] = ok >> r & 1 ? bk::shannon_score(
+                                km[r], [&](int i) { return (int)cp[i]; }, k,
+                                sh)
+                          : 0;
+    }
+  }
   int32_t off, cnt;
   Scan(tmp).ExclusiveSum(__popc(ok), off, cnt);
+  const int32_t off0 = off;
   __syncthreads();  // every thread holds its k-mers before any moves
 #pragma unroll
   for (int r = 0; r < kRun; ++r)
@@ -173,16 +221,29 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t* out = stream + row * P + before;
   for (int j = tid; j < cnt; j += kThreads) out[j] = s_km[j];
   if (tid == 0 && tile == T - 1) n_valid[row] = before + cnt;
+  if constexpr (kScored) {  // the scores, through s_km again
+    __syncthreads();
+    off = off0;
+#pragma unroll
+    for (int r = 0; r < kRun; ++r)
+      if (ok >> r & 1) s_km[off++] = sc[r];
+    __syncthreads();
+    uint64_t* sout = sstream + row * P + before;
+    for (int j = tid; j < cnt; j += kThreads) sout[j] = s_km[j];
+  }
 }
 
 // -- 2. window minima -----------------------------------------------------------
 
-template <bool kHash>
+// kStored reads the scores from ``sstream`` and, with ``canon``,
+// canonicalizes each emitted value (a DNA k-mer of k bases)
+template <int kWin>
 __global__ void __launch_bounds__(kThreads)
     window_kernel(const uint64_t* __restrict__ stream,
                   const int64_t* __restrict__ n_valid, int64_t P, int W,
                   int64_t E, int entropy, double denom, bk::ProbeTable tbl,
-                  int64_t* __restrict__ keys, bool* __restrict__ emitted) {
+                  int64_t* __restrict__ keys, bool* __restrict__ emitted,
+                  const uint64_t* __restrict__ sstream, int canon, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int npos = kTile + W - 1;
   const int nsx = sx(npos - 1) + 1;
@@ -194,6 +255,14 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t nv = n_valid[row];
   const int64_t ew = E - 1;  // window slots of the row
   const uint64_t* srow = stream + row * P;
+  const uint64_t* scrow = sstream + row * P;  // kStored
+  // the score of stream position q < nv
+  auto score = [&](int64_t q, uint64_t v) {
+    if constexpr (kWin == kStored)
+      return scrow[q];
+    else
+      return score_of<kWin>(v, entropy, denom, tbl);
+  };
   int64_t* krow = keys + row * E;
   bool* erow = emitted + row * E;
 
@@ -204,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tail)
       for (int64_t q = tid; q < nv; q += 32) {
         const uint64_t v = srow[q];
-        const uint64_t s = score_of<kHash>(v, entropy, denom, tbl);
+        const uint64_t s = score(q, v);
         if (at_or_before(s, v, bs, bv)) bs = s, bv = v;
       }
 #pragma unroll
@@ -214,6 +283,7 @@ __global__ void __launch_bounds__(kThreads)
       if (at_or_before(s, v, bs, bv)) bs = s, bv = v;
     }
     if (tid == 0) {
+      if (kWin == kStored && canon && tail) bv = bk::canonical(bv, k);
       krow[0] = (int64_t)(tail ? bv : kSentinel);
       erow[0] = tail;
     }
@@ -226,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
     uint64_t v = kSentinel, s = kSentinel;
     if (q < nv) {
       v = srow[q];
-      s = score_of<kHash>(v, entropy, denom, tbl);
+      s = score(q, v);
     }
     s_val[sx(p)] = v;
     s_score[sx(p)] = s;
@@ -285,8 +355,11 @@ __global__ void __launch_bounds__(kThreads)
   // out, coalesced: slot j0 + s goes to column 1 + j0 + s
   const int nslot = (int)min((int64_t)kTile, ew - j0);
   for (int s = tid; s < nslot; s += kThreads) {
-    krow[1 + j0 + s] = (int64_t)s_val[sx(s)];
-    erow[1 + j0 + s] = j0 + s + W <= nv;
+    uint64_t v = s_val[sx(s)];
+    const bool e = j0 + s + W <= nv;
+    if (kWin == kStored && canon && e) v = bk::canonical(v, k);
+    krow[1 + j0 + s] = (int64_t)v;
+    erow[1 + j0 + s] = e;
   }
 }
 
@@ -297,10 +370,11 @@ int window_smem(int W) {
   return (sx(npos - 1) + 1) * 16;
 }
 
-// Scratch: the compacted stream, the rows' n_valid, the tiles' status
-// words and the tile counter.
+// Scratch: the compacted stream (and with ``scored`` its scores), the
+// rows' n_valid, the tiles' status words and the tile counter.
 struct Buffers {
   uint64_t* stream;
+  uint64_t* sstream;
   int64_t* n_valid;
   uint32_t* status;
   uint32_t* tile_ctr;
@@ -308,11 +382,12 @@ struct Buffers {
   int64_t used;
 };
 
-Buffers carve(char* p, int64_t B, int64_t L) {
+Buffers carve(char* p, int64_t B, int64_t L, bool scored = false) {
   const int64_t P = L > 0 ? L : 1;  // at most L seeds a row
   bk::Carve c{p};
   Buffers b;
   b.stream = c.take<uint64_t>(B * P);
+  b.sstream = scored ? c.take<uint64_t>(B * P) : nullptr;
   b.n_valid = c.take<int64_t>(B);
   const int64_t before = c.used;
   b.status = c.take<uint32_t>(B * tiles_of(P));
@@ -322,65 +397,86 @@ Buffers carve(char* p, int64_t B, int64_t L) {
   return b;
 }
 
-template <bool kHash>
+template <bool kGen, int kWin>
 int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
         int W, int entropy, double denom, const bk::ProbeTable& tbl,
-        void* keys, void* emitted, void* scratch, void* stream) {
+        void* keys, void* emitted, void* scratch, void* stream,
+        const bk::Fold& fold = bk::Fold{}, const bk::Shannon& sh = {},
+        int canon = 0) {
+  constexpr bool kScored = kWin == kStored;
   const int64_t P = L - k + 1;
   if (B <= 0 || P <= 0 || P >= bk::kMaxCount || k < 1 || k > 32 || W < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Buffers b = carve((char*)scratch, B, L);
+  const Buffers b = carve((char*)scratch, B, L, kScored);
   cudaError_t e = cudaMemsetAsync(b.status, 0, b.zero_bytes, s);
   if (e != cudaSuccess) return (int)e;
   const int64_t T = tiles_of(P);
-  compact_kernel<<<(unsigned)(B * T), kThreads, 0, s>>>(
+  compact_kernel<kGen, kScored><<<(unsigned)(B * T), kThreads, 0, s>>>(
       (const int8_t*)codes, (const int32_t*)lengths, L, k, P, T, b.tile_ctr,
-      b.status, b.stream, b.n_valid);
+      b.status, b.stream, b.n_valid, b.sstream, fold, sh);
   const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
   const int smem = window_smem(W);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(window_kernel<kHash>,
+    e = cudaFuncSetAttribute(window_kernel<kWin>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
-  window_kernel<kHash><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
+  window_kernel<kWin><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
       b.stream, b.n_valid, P, W, E, entropy, denom, tbl, (int64_t*)keys,
-      (bool*)emitted);
+      (bool*)emitted, b.sstream, canon, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int64_t bk_compacted_minimizers_scratch(int64_t B, int64_t L) {
-  return carve(nullptr, B, L).used;
+// Bytes of scratch for a call on (B, L); ``scored`` for the Shannon
+// score, whose scores go to a second stream.
+extern "C" int64_t bk_compacted_minimizers_gen_scratch(int64_t B, int64_t L,
+                                                       int64_t scored) {
+  return carve(nullptr, B, L, scored != 0).used;
 }
 
-// codes (B, L) int8, lengths (B,) int32 -> keys (B, E) int64-held u64,
-// emitted (B, E) bool, E = 1 + max(P - W + 1, 0), P = L - k + 1 >= 1;
-// 1 <= k <= 32, 1 <= W <= 8192, P < 2^30; ``entropy`` picks the
-// entropy-file score, quotient by ``denom``.
-extern "C" int bk_compacted_minimizers(const void* codes, const void* lengths,
-                                       int64_t B, int64_t L, int k, int W,
-                                       int entropy, double denom, void* keys,
-                                       void* emitted, void* scratch,
-                                       void* stream) {
-  return run<false>(codes, lengths, B, L, k, W, entropy, denom,
-                    bk::ProbeTable{}, keys, emitted, scratch, stream);
-}
-
-// The same under the score::Hash score: each valid seed scored by its
-// value in the phase-1 image (slots (nb, 4), lgnb, vbits, vals, n_vals,
-// inline: db/table.py ProbeArrays.args).
-extern "C" int bk_compacted_minimizers_hash(
+// The one entry point.  codes (B, L) int8, lengths (B,) int32 -> keys
+// (B, E) int64-held u64, emitted (B, E) bool, E = 1 + max(P - W + 1, 0),
+// P = L - k + 1 >= 1; 1 <= k <= 32, 1 <= W <= 8192, P < 2^30.  ``fold``
+// 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask ``lim``, 2
+// multiply-add by ``radix`` with the modulus ``lim``; ``score`` 0 lex, 1
+// entropy-file (quotient by ``denom``), 2 hash (DNA: each valid seed
+// scored by its value in the phase-1 image, slots (nb, 4), lgnb, vbits,
+// vals, n_vals, inline, as db/table.py ProbeArrays.args), 3 Shannon
+// (``terms``: k + 1 doubles on the card, ``R`` codes in the alphabet,
+// ``eps``), which alone takes ``canon`` (DNA: each emitted value
+// canonicalized).  Scratch from bk_compacted_minimizers_gen_scratch.
+extern "C" int bk_compacted_minimizers_gen(
     const void* codes, const void* lengths, int64_t B, int64_t L, int k,
-    int W, const void* slots, int lgnb, int vbits, const void* vals,
-    int64_t n_vals, int is_inline, void* keys, void* emitted, void* scratch,
-    void* stream) {
+    int W, int fold, int bits, uint64_t radix, uint64_t lim, int score,
+    double denom, const void* slots, int lgnb, int vbits, const void* vals,
+    int64_t n_vals, int is_inline, const void* terms, int R, double eps,
+    int canon, void* keys, void* emitted, void* scratch, void* stream) {
   const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
                          n_vals, lgnb, vbits, is_inline};
-  return run<true>(codes, lengths, B, L, k, W, 0, 0.0, t, keys, emitted,
-                   scratch, stream);
+  const bk::Fold f{fold, bits, radix, lim};
+  const bk::Shannon sh{(const double*)terms, R, eps};
+  const bool gen = fold != bk::kFoldDna;
+  if ((canon && (gen || score != 3)) || (gen && score == 2))
+    return (int)cudaErrorInvalidValue;
+#define BK(kGen, kWin)                                                       \
+  return run<kGen, kWin>(codes, lengths, B, L, k, W, score == 1, denom, t,  \
+                         keys, emitted, scratch, stream, f, sh, canon)
+  switch (score) {
+    case 0:
+    case 1:
+      if (gen) BK(true, kLexFile);
+      BK(false, kLexFile);
+    case 2:
+      BK(false, kHash);
+    case 3:
+      if (gen) BK(true, kStored);
+      BK(false, kStored);
+  }
+#undef BK
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
-// KB1 minimizers: the DNA k-mers of a batch of rows, contiguous or spaced,
+// KB1 minimizers: the k-mers of a batch of rows, contiguous or spaced,
 // canonical or not, and for windows of W > 1 k-mers the minimizer of each
-// window by the lex, the entropy-file or the phase-1 (score::Hash) score.
+// window by the lex, the entropy-file, the phase-1 (score::Hash) or the
+// Shannon (scheme "entropy") score; DNA, or another alphabet's fold.
 //
 // Replaces the device path of bonsai_tpu/core/encoder.py
 // BatchEncoder.emissions on its unwindowed branch (:141-153), its
@@ -9,8 +10,9 @@
 // and _pack (:59,108), apply_mask (:163), position_validity (:141),
 // bitops.canonical (:52), hashes.frev64 (:39), entropy.entropy_scores and
 // f64_to_u64_x86 (:91,34; scores.cuh), ScoreMap.lookup_scores
-// (db/table.py:501; probe.cuh) and minimize.sliding_min /
-// positional_minimizers (:41,65).  Per slot j of row b, with c the seed's
+// (db/table.py:501; probe.cuh), window_code_counts, spaced_code_counts
+// and entropy_value (core/entropy.py:47,67,82; scores.cuh) and
+// minimize.sliding_min / positional_minimizers (:41,65).  Per slot j of row b, with c the seed's
 // span (k when contiguous) and n_push = max(len - (c - 1), 0):
 //   contiguous, W = 1: value = canonical or raw k-mer at j (an N reads as
 //          code 0), emitted = j < n_push and the window holds no N;
@@ -23,10 +25,20 @@
 //   spaced (never canonical): position p's k-mer folds the codes at
 //          p + positions[i], i < k; a seed with an N pushes ov = U64_MAX,
 //          scored frev64(U64_MAX) (lex), 0x8000000000000000
-//          (entropy-file) or hash(U64_MAX) (probed: at k = 32 a real
-//          all-T k-mer is U64_MAX), any other ov = its k-mer; value = ov of the
-//          window minimum, emitted = j + W <= n_push and value != U64_MAX,
-//          at W = 1 too (where a contiguous real U64_MAX k-mer is kept).
+//          (entropy-file, Shannon) or hash(U64_MAX) (probed: at k = 32 a
+//          real all-T k-mer is U64_MAX), any other ov = its k-mer scored
+//          (the Shannon score reads the seed's k codes, eps 1e-4); value
+//          = ov of the window minimum, emitted = j + W <= n_push and value
+//          != U64_MAX, at W = 1 too (where a contiguous real U64_MAX k-mer
+//          is kept);
+//   another alphabet (the kGen instantiations, core/encode.py :108-137,
+//          :163-170): the spaced discipline with the alphabet's fold
+//          (scores.cuh: shift-or and mask, or multiply-add and modulus,
+//          an ambiguous code folding as 0); its unwindowed contiguous
+//          seeds run as a spaced seed of positions 0..k-1 with
+//          ``unwindowed`` set: value = the k-mer, emitted = j < n_push and
+//          the seed holds no ambiguous code (PROTEIN_3BIT's k = 22 fold
+//          of 66 bits can be a real U64_MAX).
 // The first base sits in the k-mer's high bits; all compares are unsigned
 // over 64 bits; a value is never a sentinel (the emitted flag says it).
 //
@@ -54,8 +66,13 @@
 // one 16-B store, where the row's tile start is 16-B aligned.  The encode
 // (contiguous | spaced) and the score (frev64 | entropy-file | hash) are
 // template parameters, so the contiguous lex instantiation is the kernel
-// it was before them.  The hash score probes from inside step 2, where
-// the k-mer is: its image adds kernel arguments, not shared memory.
+// it was before them; one entry point picks the instantiation from its
+// arguments.  The hash score (DNA only) probes from inside step 2, where
+// the k-mer is: its image adds kernel arguments, not shared memory.  The
+// other alphabets fold each position's k codes from the staged tile (k
+// shared loads a position, the simple way), and the Shannon score scans
+// the seed's k codes in the tile once for each distinct code (at most
+// k + 1 scans) with the table of terms in global memory (L1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,7 +109,7 @@ __device__ __host__ __forceinline__ Layout layout(int span, int W) {
 }
 
 // the score of a pushed k-mer or ov, by kind
-enum Score { kLex, kEntropy, kHash };
+enum Score { kLex, kEntropy, kHash, kShannon };
 
 template <int kScore>
 __device__ __forceinline__ uint64_t score_of(uint64_t v, double denom,
@@ -111,16 +128,18 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
   return s < bs || (s == bs && v <= bv);
 }
 
-// span = k for a contiguous seed; sp, denom and tbl are read only by the
-// spaced, entropy-file and hash instantiations
-template <bool kSpaced, int kScore>
+// span = k for a contiguous seed; sp, denom, tbl, fold, sh and
+// unwindowed are read only by the spaced, entropy-file, hash, other
+// alphabets' (kGen: always spaced) and Shannon instantiations
+template <bool kSpaced, int kScore, bool kGen = false>
 __global__ void __launch_bounds__(kThreads)
     minimizers_kernel(const int8_t* __restrict__ codes,
                       const int32_t* __restrict__ lengths, int64_t L, int k,
                       int W, int canon, int64_t E,
                       int64_t* __restrict__ keys, bool* __restrict__ emitted,
                       int span, bk::Spacing sp, double denom,
-                      bk::ProbeTable tbl) {
+                      bk::ProbeTable tbl, bk::Fold fold, bk::Shannon sh,
+                      int unwindowed) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(kSpaced ? span : k, W);
   uint64_t* s_val = (uint64_t*)smem;
@@ -169,18 +188,31 @@ __global__ void __launch_bounds__(kThreads)
   const int top = 2 * k - 2;
   uint32_t bad = 0;  // W = 1: bit r, slot p0 + r emits nothing
   if constexpr (kSpaced) {
-    // the spaced k-mer (or U64_MAX) of position p, and its score
+    // the spaced k-mer (or U64_MAX) of position p, and its score; a kGen
+    // k-mer comes folded and masked
     auto push = [&](int p, uint64_t v, bool n_in) {
-      const uint64_t ov = n_in ? ~0ull : v & mask;
+      const uint64_t ov =
+          kGen ? (n_in && !unwindowed ? ~0ull : v) : (n_in ? ~0ull : v & mask);
       s_val[sx(p)] = ov;
-      if (W > 1)
-        s_score[sx(p)] = kScore == kEntropy && n_in
-                             ? bk::kInt64MinU
-                             : score_of<kScore>(ov, denom, tbl);
-      else
-        bad |= (uint32_t)(ov == ~0ull) << (p - p0);
+      if (W > 1) {
+        if constexpr (kScore == kShannon) {
+          const int8_t* cp = s_code + shift + p;
+          s_score[sx(p)] =
+              n_in ? bk::kInt64MinU
+                   : bk::shannon_score(
+                         ov, [&](int i) { return (int)cp[ss->pos[i]]; }, k,
+                         sh);
+        } else {
+          s_score[sx(p)] = kScore == kEntropy && n_in
+                               ? bk::kInt64MinU
+                               : score_of<kScore>(ov, denom, tbl);
+        }
+      } else {
+        bad |= (uint32_t)(kGen && unwindowed ? n_in : ov == ~0ull)
+               << (p - p0);
+      }
     };
-    if (span <= 32) {
+    if (!kGen && span <= 32) {
       // roll a window of the span's bases (first base high) and its N
       // bits, and fold each position's runs out of it
       const uint32_t* w32 = (const uint32_t*)s_code;
@@ -206,9 +238,9 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < k; ++i) {
           const int c = cp[ss->pos[i]];
           n_in |= c < 0;
-          v = (v << 2) | (uint64_t)(c & 3);
+          v = kGen ? bk::fold_step(fold, v, c) : (v << 2) | (uint64_t)(c & 3);
         }
-        push(p, v, n_in);
+        push(p, kGen ? bk::fold_finish(fold, v) : v, n_in);
       }
     }
   } else if (p0 < p1) {
@@ -331,86 +363,90 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSpaced, int kScore>
+template <bool kSpaced, int kScore, bool kGen = false>
 int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
            int k, int W, int canon, int span, const bk::Spacing& sp,
            double denom, const bk::ProbeTable& tbl,
-           void* keys, void* emitted, cudaStream_t stream) {
+           void* keys, void* emitted, cudaStream_t stream,
+           const bk::Fold& fold = bk::Fold{}, const bk::Shannon& sh = {},
+           int unwindowed = 0) {
   const int64_t E = L - span - W + 2;
   const Layout l = layout(span, W);
   if (l.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        minimizers_kernel<kSpaced, kScore>,
+        minimizers_kernel<kSpaced, kScore, kGen>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  minimizers_kernel<kSpaced, kScore><<<grid, kThreads, l.bytes, stream>>>(
-      (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
-      (int64_t*)keys, (bool*)emitted, span, sp, denom, tbl);
+  minimizers_kernel<kSpaced, kScore, kGen>
+      <<<grid, kThreads, l.bytes, stream>>>(
+          (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
+          (int64_t*)keys, (bool*)emitted, span, sp, denom, tbl, fold, sh,
+          unwindowed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// codes (B, L) int8, lengths (B,) int32 -> keys (B, E) int64-held u64,
-// emitted (B, E) bool, E = L - k - W + 2 > 0; 1 <= k <= 32, W > 1 only
-// with canon; the tile's shared memory must fit (W <= 8192).  Contiguous
-// seeds, lex score.
-extern "C" int bk_minimizers(const void* codes, const void* lengths,
-                             int64_t B, int64_t L, int k, int W, int canon,
-                             void* keys, void* emitted, void* stream) {
-  return launch<false, kLex>(codes, lengths, B, L, k, W, canon, k,
-                             bk::Spacing{}, 0.0, bk::ProbeTable{}, keys,
-                             emitted, (cudaStream_t)stream);
-}
-
-// The other instantiations: with ``spaced`` the k offsets ``positions`` (a
-// host array, positions[0] = 0, span = positions[k - 1] + 1) and no canon;
-// with ``entropy`` the entropy-file score, quotient by ``denom``.
-// E = L - span - W + 2 > 0.
-extern "C" int bk_minimizers_ext(const void* codes, const void* lengths,
+// The one entry point.  codes (B, L) int8, lengths (B,) int32 -> keys
+// (B, E) int64-held u64, emitted (B, E) bool, E = L - span - W + 2 > 0;
+// 1 <= k <= 32; the tile's shared memory must fit (W <= 8192).  With
+// ``spaced`` the seed is the k offsets ``positions`` (a host int32[32],
+// positions[0] = 0, span = positions[k - 1] + 1), never canonical;
+// otherwise it is contiguous (span = k), canonical with ``canon`` (DNA).
+// ``fold`` 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask
+// ``lim``, 2 multiply-add by ``radix`` with the modulus ``lim``: another
+// alphabet, never canonical, whose contiguous seeds pass 0..k-1 with
+// ``unwindowed`` at W = 1.  ``score`` 0 lex, 1 entropy-file (quotient by
+// ``denom``), 2 hash (DNA: the phase-1 image, slots (nb, 4), lgnb, vbits,
+// vals, n_vals, inline, as db/table.py ProbeArrays.args), 3 Shannon
+// (spaced seeds; ``terms``: k + 1 doubles on the card, ``R`` codes in the
+// alphabet, ``eps``).
+extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
                                  int64_t B, int64_t L, int k, int W,
-                                 int canon, int spaced, const int32_t* positions,
-                                 int span, int entropy, double denom,
-                                 void* keys, void* emitted, void* stream) {
-  const bk::Spacing sp = spaced ? bk::make_spacing(positions, k)
-                                : bk::Spacing{};
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bk::ProbeTable t{};
-  if (spaced && entropy)
-    return launch<true, kEntropy>(codes, lengths, B, L, k, W, 0, span, sp,
-                                  denom, t, keys, emitted, s);
-  if (spaced)
-    return launch<true, kLex>(codes, lengths, B, L, k, W, 0, span, sp, denom,
-                              t, keys, emitted, s);
-  if (entropy)
-    return launch<false, kEntropy>(codes, lengths, B, L, k, W, canon, k, sp,
-                                   denom, t, keys, emitted, s);
-  return launch<false, kLex>(codes, lengths, B, L, k, W, canon, k, sp, denom,
-                             t, keys, emitted, s);
-}
-
-// The score::Hash instantiations (build -t/-f --phase1-db), W > 1: the
-// canonical contiguous seed (canon = 1, spaced = 0) or a spaced one
-// (positions, span, as bk_minimizers_ext), each pushed k-mer scored by
-// its value in the phase-1 image (slots (nb, 4), lgnb, vbits, vals,
-// n_vals, inline: db/table.py ProbeArrays.args).
-extern "C" int bk_minimizers_hash(const void* codes, const void* lengths,
-                                  int64_t B, int64_t L, int k, int W,
-                                  int canon, int spaced,
-                                  const int32_t* positions, int span,
-                                  const void* slots, int lgnb, int vbits,
-                                  const void* vals, int64_t n_vals,
-                                  int is_inline, void* keys, void* emitted,
-                                  void* stream) {
+                                 int canon, int spaced,
+                                 const int32_t* positions, int span,
+                                 int unwindowed, int fold, int bits,
+                                 uint64_t radix, uint64_t lim, int score,
+                                 double denom, const void* slots, int lgnb,
+                                 int vbits, const void* vals, int64_t n_vals,
+                                 int is_inline, const void* terms, int R,
+                                 double eps, void* keys, void* emitted,
+                                 void* stream) {
   const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
                          n_vals, lgnb, vbits, is_inline};
+  const bk::Fold f{fold, bits, radix, lim};
+  const bk::Shannon sh{(const double*)terms, R, eps};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (spaced)
-    return launch<true, kHash>(codes, lengths, B, L, k, W, 0, span,
-                               bk::make_spacing(positions, k), 0.0, t, keys,
-                               emitted, s);
-  return launch<false, kHash>(codes, lengths, B, L, k, W, canon, k,
-                              bk::Spacing{}, 0.0, t, keys, emitted, s);
+  const bool gen = fold != bk::kFoldDna;
+  if (gen && (canon || score == kHash)) return (int)cudaErrorInvalidValue;
+  const bk::Spacing sp =
+      spaced || gen ? bk::make_spacing(positions, k) : bk::Spacing{};
+#define BK(kSpaced, kScore, kGen)                                            \
+  return launch<kSpaced, kScore, kGen>(                                      \
+      codes, lengths, B, L, k, W, kSpaced ? 0 : canon, kSpaced ? span : k,   \
+      sp, denom, t, keys, emitted, s, f, sh, kGen ? unwindowed : 0)
+  if (gen) {
+    switch (score) {
+      case kLex: BK(true, kLex, true);
+      case kEntropy: BK(true, kEntropy, true);
+      case kShannon: BK(true, kShannon, true);
+    }
+  } else if (spaced) {
+    switch (score) {
+      case kLex: BK(true, kLex, false);
+      case kEntropy: BK(true, kEntropy, false);
+      case kHash: BK(true, kHash, false);
+      case kShannon: BK(true, kShannon, false);
+    }
+  } else {
+    switch (score) {
+      case kLex: BK(false, kLex, false);
+      case kEntropy: BK(false, kEntropy, false);
+      case kHash: BK(false, kHash, false);
+    }
+  }
+#undef BK
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// Minimizer scores shared by KB1 (minimizers.cu) and KB4
-// (compacted_minimizers.cu).
+// Minimizer scores, and the fold of the other alphabets, shared by KB1
+// (minimizers.cu) and KB4 (compacted_minimizers.cu).
 //
 // frev64 is the lex score (bonsai_tpu/core/hashes.py:39): xor, multiply
 // mod 2^64, rotate left 31, xor.  entropy_file_score is the score of the
@@ -13,9 +13,28 @@
 // truncates toward zero.  The range is tested here, not left to the
 // saturation of __double2ll_rz, whose out-of-range result differs.  The
 // score is computed where the k-mer is, inside the kernels, so it never
-// makes a round trip through device memory.  Everything sits in an
-// anonymous namespace, so each source that includes this header owns its
-// copy.
+// makes a round trip through device memory.
+//
+// shannon_score is the score of the scheme "entropy" (the Python API):
+// u64(kmer / (H + eps)), H = sum_c p_c ln p_c over the codes of the seed,
+// p_c = count / k (bonsai_tpu/core/entropy.py window_code_counts :47,
+// spaced_code_counts :67, entropy_value :82).  A count is one of 0..k, so
+// the terms come from a table of k + 1 doubles made on the host with
+// numpy (core/entropy.py shannon_terms): the card computes no log.  The
+// terms are added in numpy's pairwise order over the R codes of the
+// alphabet (in order below 8; up to 128, eight accumulators by code mod 8
+// combined as ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)), then the
+// codes past the last multiple of 8 in order; R = 256 as two halves of
+// 128).  An absent code's term is an exact 0.0, which changes no partial
+// sum, so only the codes present are visited, in ascending order, each
+// into the accumulator numpy gives it: at most k codes a seed, not R.
+//
+// Fold: the k-mer of an alphabet other than DNA's 2 bits (core/encode.py
+// _pack :108-137, apply_mask :163-170): shift-or by the power-of-two
+// radix's bits and a bit mask, or multiply-add by the radix and the
+// modulus radix**k, both modulo 2^64.  An ambiguous code (< 0) folds as 0.
+// Everything sits in an anonymous namespace, so each source that
+// includes this header owns its copy.
 
 #pragma once
 
@@ -45,6 +64,102 @@ __device__ __forceinline__ uint64_t f64_to_u64_x86(double x) {
 __device__ __forceinline__ uint64_t entropy_file_score(uint64_t kmer,
                                                        double denom) {
   return f64_to_u64_x86(__ddiv_rn(__ull2double_rn(kmer), denom));
+}
+
+// the fold of an alphabet: kind 0 is DNA's (the kernels' own 2-bit code)
+enum FoldKind { kFoldDna = 0, kFoldShift = 1, kFoldMulAdd = 2 };
+
+struct Fold {
+  int kind;
+  int bits;       // kFoldShift
+  uint64_t radix; // kFoldMulAdd
+  uint64_t lim;   // the mask (kFoldShift) or the modulus (kFoldMulAdd)
+};
+
+__device__ __forceinline__ uint64_t fold_step(const Fold& f, uint64_t v,
+                                              int c) {
+  const uint64_t u = (uint64_t)(c < 0 ? 0 : c);
+  return f.kind == kFoldShift ? (v << f.bits) | u : v * f.radix + u;
+}
+
+__device__ __forceinline__ uint64_t fold_finish(const Fold& f, uint64_t v) {
+  if (f.kind == kFoldShift) return v & f.lim;
+  return v >= f.lim ? v % f.lim : v;
+}
+
+// The Shannon score's table and constants: terms[c] = p ln p of a count
+// c = 0..k, R codes in the alphabet, eps added to H.
+struct Shannon {
+  const double* terms;
+  int R;
+  double eps;
+};
+
+__device__ __forceinline__ double sum8(const double* r) {
+  return __dadd_rn(__dadd_rn(__dadd_rn(r[0], r[1]), __dadd_rn(r[2], r[3])),
+                   __dadd_rn(__dadd_rn(r[4], r[5]), __dadd_rn(r[6], r[7])));
+}
+
+__device__ __forceinline__ void add_at(double* r, int j, double t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i == j) r[i] = __dadd_rn(r[i], t);
+}
+
+// H of the k codes code(0..k-1), all >= 0: each pass finds the least code
+// above the last one and its count (at most k + 1 passes of k codes)
+template <class Code>
+__device__ __forceinline__ double shannon_h(Code code, int k,
+                                            const Shannon& sh) {
+  const int R = sh.R;
+  const int m8 = R <= 128 ? R - R % 8 : 128;  // first code past the r's
+  double a[8] = {0, 0, 0, 0, 0, 0, 0, 0}, b[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  double res = 0.0;
+  bool tail = false;  // 8 <= R <= 128: res holds sum8(a) and the tail
+  for (int prev = -1;;) {
+    int m = 1 << 30, cnt = 0;
+    for (int i = 0; i < k; ++i) {
+      const int c = code(i);
+      if (c > prev && c <= m) {
+        cnt = c == m ? cnt + 1 : 1;
+        m = c;
+      }
+    }
+    if (cnt == 0) break;
+    const double t = __ldg(sh.terms + cnt);
+    if (R < 8) {
+      res = __dadd_rn(res, t);
+    } else if (m < m8) {
+      add_at(a, m & 7, t);
+    } else if (R <= 128) {
+      if (!tail) res = sum8(a), tail = true;
+      res = __dadd_rn(res, t);
+    } else {
+      add_at(b, m & 7, t);
+    }
+    prev = m;
+  }
+  if (R < 8) return res;
+  if (R <= 128) return tail ? res : sum8(a);
+  return __dadd_rn(sum8(a), sum8(b));
+}
+
+template <class Code>
+__device__ __forceinline__ uint64_t shannon_score(uint64_t kmer, Code code,
+                                                  int k, const Shannon& sh) {
+  const double h = shannon_h(code, k, sh);
+  return f64_to_u64_x86(
+      __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
+}
+
+// min(kmer, reverse complement) of a 2-bit DNA k-mer (bitops.canonical,
+// bonsai_tpu/core/bitops.py:52): the complement, the 2-bit groups
+// reversed, the k groups shifted down
+__device__ __forceinline__ uint64_t canonical(uint64_t x, int k) {
+  uint64_t r = __brevll(~x);
+  r = ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
+  r = k == 32 ? r : r >> (64 - 2 * k);
+  return r < x ? r : x;
 }
 
 }  // namespace

@@ -14,7 +14,8 @@ wrapper allocates.
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``
-and ``compacted_minimizers``, ``db/table.py`` ``lookup_scores``,
+and ``compacted_minimizers``, ``core/rolling.py`` ``cyclic_hashes``,
+``db/table.py`` ``lookup_scores``,
 ``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
 ``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
 version serves CPU tensors only, and a CUDA tensor goes to the kernel or
@@ -42,6 +43,7 @@ _lock = threading.Lock()
 _lib = None
 
 P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+U64 = ctypes.c_uint64
 _SIGS = {
     # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, slots, lgnb, vbits,
     # vals, n_vals, inline, want_idx, hit, valid, cidx, oidx, stream
@@ -59,25 +61,23 @@ _SIGS = {
     # head_words, compact, cols, full, stream
     "bk_step_outputs": [P, P, P, P, P, I64, I64, I32, I32, I32, I32, I32, P,
                         I64, P, P],
-    # codes, lengths, B, L, k, W, canon, keys, emitted, stream
-    "bk_minimizers": [P, P, I64, I64, I32, I32, I32, P, P, P],
     # codes, lengths, B, L, k, W, canon, spaced, positions (host
-    # int32[32]), span, entropy, denom, keys, emitted, stream
-    "bk_minimizers_ext": [P, P, I64, I64, I32, I32, I32, I32, P, I32, I32,
-                          F64, P, P, P],
-    # codes, lengths, B, L, k, W, canon, spaced, positions (host
-    # int32[32]), span, then the phase-1 image: slots, lgnb, vbits, vals,
-    # n_vals, inline; keys, emitted, stream
-    "bk_minimizers_hash": [P, P, I64, I64, I32, I32, I32, I32, P, I32, P, I32,
-                           I32, P, I64, I32, P, P, P],
-    # codes, lengths, B, L, k, W, entropy, denom, keys, emitted, scratch,
+    # int32[32]), span, unwindowed, then the fold (kind, bits, radix, lim),
+    # the score (kind, denom), the phase-1 image (slots, lgnb, vbits, vals,
+    # n_vals, inline), the Shannon score (terms, R, eps); keys, emitted,
     # stream
-    "bk_compacted_minimizers": [P, P, I64, I64, I32, I32, I32, F64, P, P, P,
-                                P],
-    # codes, lengths, B, L, k, W, the phase-1 image (slots, lgnb, vbits,
-    # vals, n_vals, inline), keys, emitted, scratch, stream
-    "bk_compacted_minimizers_hash": [P, P, I64, I64, I32, I32, P, I32, I32, P,
-                                     I64, I32, P, P, P, P],
+    "bk_minimizers_gen": [P, P, I64, I64, I32, I32, I32, I32, P, I32, I32,
+                          I32, I32, U64, U64, I32, F64, P, I32, I32, P, I64,
+                          I32, P, I32, F64, P, P, P],
+    # codes, lengths, B, L, k, W, the fold, the score, the phase-1 image,
+    # the Shannon score (as bk_minimizers_gen), canon, keys, emitted,
+    # scratch, stream
+    "bk_compacted_minimizers_gen": [P, P, I64, I64, I32, I32, I32, I32, U64,
+                                    U64, I32, F64, P, I32, I32, P, I64, I32,
+                                    P, I32, F64, I32, P, P, P, P],
+    # codes, B, L, k, table_f, table_r (or null), n, values, invalid,
+    # stream
+    "bk_cyclic_hashes": [P, I64, I64, I32, P, P, I32, P, P, P],
     # kmers, n, the phase-1 image (slots, lgnb, vbits, vals, n_vals,
     # inline), out, stream
     "bk_lookup_scores": [P, I64, P, I32, I32, P, I64, I32, P, P],
@@ -95,7 +95,7 @@ _SIGS = {
 }
 # host functions: bytes of device scratch for the sizes of a call
 _SCRATCH = {"bk_sort_unique_scratch": 1, "bk_merge_fold_scratch": 1,
-            "bk_compacted_minimizers_scratch": 2}
+            "bk_compacted_minimizers_gen_scratch": 3}
 
 
 def _sources():

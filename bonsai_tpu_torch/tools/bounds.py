@@ -3,8 +3,9 @@ the work of one call, the larger of the bytes the work must move (each
 input byte that it needs read once, each output byte written once) over
 the memory rate and its operations over the peak rate of their type:
 int32 operations over the int32 peak (a u64 operation counts as two),
-and the entropy-file score's one double divide a seed over the FP64
-peak.  ``chip_smoke.py`` and
+and the entropy scores' double adds and divides over the FP64 peak (the
+entropy-file score's one divide a seed; the Shannon score's d terms of
+a seed of d distinct codes, H + eps and the divide).  ``chip_smoke.py`` and
 ``kernel_ab`` take their bounds from here, from the inputs and outputs of
 the call that they time.
 """
@@ -97,32 +98,65 @@ def resolve_bound_text(cidx, hit, tax) -> str:
 
 
 def bound_minimizers(codes, lengths, em, W, runs: int = 0,
-                     entropy: bool = False, probes=None):
+                     entropy: bool = False, probes=None, fp64: int = 0):
     """KB1: codes in, keys and flags out; per position two rolled u64
     k-mers and a canonical min (16 ops), or for a spaced seed of ``runs``
     runs of consecutive offsets a rolled window and its fold (8 ops and 4
     a run); with W > 1 a score and about three (score, value) compares
     (24 more), the score an FP64 divide a position under ``entropy``, or
     under the scheme ``hash`` the phase-1 probes ``probes`` (``probe_rows``
-    of ``hash_queries``: their rows and values, ~40 int32 ops each)."""
+    of ``hash_queries``: their rows and values, ~40 int32 ops each), or
+    the Shannon score's ``fp64`` (``shannon_fp64``).  Another alphabet's
+    fold counts as DNA's: a rolled multiply-add and modulus test are no
+    more int32 work than two rolled 2-bit k-mers and their minimum."""
     per = 8 + 4 * runs if runs else 16
     hb, ho = (probe_bytes(probes), 40 * probes[0]) if probes else (0, 0)
     return bound(nbytes(codes, lengths, *em) + hb,
                  codes.numel() * (per + (24 if W > 1 else 0)) + ho,
-                 codes.numel() if entropy and W > 1 else 0)
+                 (codes.numel() if entropy and W > 1 else 0) + fp64)
 
 
 def bound_compacted_minimizers(codes, lengths, em, W, entropy: bool = False,
-                               probes=None):
+                               probes=None, fp64: int = 0):
     """KB4: codes in, keys and flags out (the compacted stream the design
     writes and reads back is not the function's); per position a rolled
     u64 k-mer and its valid flag (8 ops) and with W > 1 a score and about
     three compares (24 more), the score an FP64 divide under ``entropy``,
-    or under ``hash`` the phase-1 probes of the valid seeds, ``probes``."""
+    or under ``hash`` the phase-1 probes of the valid seeds, ``probes``,
+    or the Shannon score's ``fp64`` (``shannon_fp64``)."""
     hb, ho = (probe_bytes(probes), 40 * probes[0]) if probes else (0, 0)
     return bound(nbytes(codes, lengths, *em) + hb,
                  codes.numel() * (8 + (24 if W > 1 else 0)) + ho,
-                 codes.numel() if entropy and W > 1 else 0)
+                 (codes.numel() if entropy and W > 1 else 0) + fp64)
+
+
+def shannon_fp64(codes, lengths, k, n_codes, positions=None) -> int:
+    """The FP64 operations of the Shannon scores of a row's seeds: per
+    seed without an ambiguous code inside the row, its d distinct codes'
+    terms added, H + eps and the divide (d + 2).  Counted from this call's
+    codes (``window_code_counts`` / ``spaced_code_counts``) in slices of
+    2^20 positions."""
+    from ..core.entropy import spaced_code_counts, window_code_counts
+
+    c = k if positions is None else int(positions[-1]) + 1
+    total = 0
+    for b in range(codes.shape[0]):
+        row = codes[b, : int(lengths[b])]
+        P = row.shape[-1] - c + 1
+        for s in range(0, max(P, 0), 1 << 20):
+            sl = row[s: s + (1 << 20) + c - 1]
+            cnt = (window_code_counts(sl, k, n_codes) if positions is None
+                   else spaced_code_counts(sl, positions, n_codes))
+            valid = cnt.sum(-1) == k
+            total += int(((cnt > 0).sum(-1) + 2)[valid].sum())
+    return total
+
+
+def bound_cyclic_hashes(codes, out, canon: bool):
+    """KR1: codes in, values and flags out; per window a rolled hash, two
+    64-bit rotates, two xors and two table reads (16 int32 ops), twice
+    with the reverse complement and their minimum (36)."""
+    return bound(nbytes(codes, *out), out[0].numel() * (36 if canon else 16))
 
 
 def probe_rows(queries, arr):

@@ -22,11 +22,17 @@ half stored) and KB3 ``merge_fold`` (two 2^22-slot states with 3M valid
 entries each, counts summed; NODES is a ``nodes.dmp`` whose taxids label
 them).  The phase-1 map of a hash case is the chunk's own seeds and
 random keys, 9.8M in all with 6 values (2^22 buckets, 128 MiB of slots,
-inline: the ec -k 25 -t map's size).  KB1, KB4 and KB5 are timed by
-replaying a CUDA graph of 100 captured calls between two events
-(``gather_bench.graph_ms``), KB3 by CUDA events around 100 back-to-back
-calls.  A case whose entry point the parent's library lacks is skipped,
-and says so.
+inline: the ec -k 25 -t map's size).  Then the Python API's kernels at
+the shapes of ``chip_smoke.py``'s phase 9d: KB1 -k 21 -S 0x16,1x4 -w 40
+and KB4 -k 31 -w 40 (canonical) and -k 13 -w 29 under the Shannon score,
+and on the forward frame 0 of GENOME's first record as protein
+(``synthetic.translate``): KB1 PROTEIN20 k = 7 unwindowed, PROTEIN_6
+-k 12 -S 1x11 -w 30 Shannon, KB4 PROTEIN_14 -k 10 -w 24 and PROTEIN20
+-k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical and 200.  KB1, KB4,
+KB5 and KR1 are timed by replaying a CUDA graph of 100 captured calls
+between two events (``gather_bench.graph_ms``), KB3 by CUDA events around
+100 back-to-back calls.  A case whose entry point the parent's library
+lacks is skipped, and says so.
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -88,9 +94,11 @@ SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
 BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
-                 "lookup_scores")
+                 "lookup_scores", "rolling")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 CLASSIFY_BATCH = 8192
+# KB1's and KB4's one entry point each
+KB1, KB4 = "bk_minimizers_gen", "bk_compacted_minimizers_gen"
 
 
 def build_parent(csrc: str, names) -> ctypes.CDLL:
@@ -190,29 +198,29 @@ def build_cases(genome: str, nodes: str, dev):
         c, ln = chunk(31, W)
         cases.append((f"minimizers k=31 W={W}",
                       lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
-                      graph_ms))
+                      graph_ms, KB1))
     pos = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
     c, ln = chunk(25, 1)
     cases.append(("minimizers -k 21 -S 0x16,1x4 W=1",
                   lambda c=c, ln=ln: enc.minimizers(c, ln, 21, 1, False, "lex",
                                                     pos),
-                  graph_ms, "bk_minimizers_ext"))
+                  graph_ms, KB1))
     c, ln = chunk(25, 16)
     smap = own(c, ln, 21, False, pos)
     cases.append(("minimizers -k 21 -S 0x16,1x4 -w 40 -t W=16",
                   lambda c=c, ln=ln, smap=smap: enc.minimizers(
                       c, ln, 21, 16, False, "hash", pos, smap),
-                  graph_ms, "bk_minimizers_hash"))
+                  graph_ms, KB1))
     c, ln = chunk(25, 13)
     cases.append(("minimizers -k 25 -w 37 -e W=13",
                   lambda c=c, ln=ln: enc.minimizers(c, ln, 25, 13, True,
                                                     "entropy-file"),
-                  graph_ms, "bk_minimizers_ext"))
+                  graph_ms, KB1))
     smap = own(c, ln, 25, True)
     cases.append(("minimizers -k 25 -w 37 -t W=13",
                   lambda c=c, ln=ln, smap=smap: enc.minimizers(
                       c, ln, 25, 13, True, "hash", score_map=smap),
-                  graph_ms, "bk_minimizers_hash"))
+                  graph_ms, KB1))
     arr = smap.arrays(dev)
     keys = smap.table.keys_sorted
     q = torch.from_numpy(np.concatenate([
@@ -225,16 +233,16 @@ def build_cases(genome: str, nodes: str, dev):
     cases.append(("compacted_minimizers -C -k 25 -w 37 -e W=13",
                   lambda c=c, ln=ln: enc.compacted_minimizers(
                       c, ln, 25, 13, "entropy-file"),
-                  graph_ms, "bk_compacted_minimizers"))
+                  graph_ms, KB4))
     smap = own(c, ln, 25, False)
     cases.append(("compacted_minimizers -C -k 25 -w 37 -t W=13",
                   lambda c=c, ln=ln, smap=smap: enc.compacted_minimizers(
                       c, ln, 25, 13, "hash", smap),
-                  graph_ms, "bk_compacted_minimizers_hash"))
+                  graph_ms, KB4))
     c, ln = chunk(31, 10)
     cases.append(("compacted_minimizers -C -k 31 -w 40 W=10",
                   lambda c=c, ln=ln: enc.compacted_minimizers(c, ln, 31, 10),
-                  graph_ms, "bk_compacted_minimizers"))
+                  graph_ms, KB4))
     tree = TaxTree.from_nodes_dmp(nodes)
     taxa_pool = np.concatenate([tree.tax_ids, [0]]).astype(np.uint32)
     n = 3 << 20
@@ -251,6 +259,61 @@ def build_cases(genome: str, nodes: str, dev):
 
     cases.append(("merge_fold 2^22 + 2^22, 3M valid each, sum_counts", fold,
                   time_ms))
+    return cases + api_cases(seq, dev)
+
+
+def api_cases(seq: bytes, dev):
+    """(name, call, timer, entry point) of the Python API's instantiations
+    of KB1 and KB4 and of KR1 on ``seq``'s first 4M bases (a row) or its
+    forward frame 0 as protein."""
+    from ..core.alphabet import InputType, alphabet_of
+    from ..core.rolling import RollingEncoder
+    from ..core.spacer import Spacer
+    from .synthetic import translate
+
+    def row(s, it=InputType.DNA):
+        codes = fastx.encode_contig(s, alphabet_of(it).lut)
+        return (torch.from_numpy(codes[None, :]).to(dev),
+                torch.tensor([codes.size], dtype=torch.int32, device=dev))
+
+    dna = row(seq[: 1 << 22])
+    prot = {it: row(translate(seq, 0), it) for it in (
+        InputType.PROTEIN20, InputType.PROTEIN_14, InputType.PROTEIN_6)}
+    pos21 = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
+    pos12 = tuple(int(p) for p in Spacer(12, 12, "1x11").positions)
+    p20, p14, p6 = (prot[t] for t in (InputType.PROTEIN20,
+                                      InputType.PROTEIN_14,
+                                      InputType.PROTEIN_6))
+    cases = [
+        ("minimizers -k 21 -S 0x16,1x4 -w 40 entropy W=16",
+         lambda: enc.minimizers(*dna, 21, 16, False, "entropy", pos21),
+         graph_ms, KB1),
+        ("compacted_minimizers -k 31 -w 40 entropy (canonical) W=10",
+         lambda: enc.compacted_minimizers(*dna, 31, 10, "entropy",
+                                          canon=True), graph_ms, KB4),
+        ("compacted_minimizers -k 13 -w 29 -C entropy W=17",
+         lambda: enc.compacted_minimizers(*dna, 13, 17, "entropy"),
+         graph_ms, KB4),
+        ("minimizers PROTEIN20 k=7 W=1",
+         lambda: enc.minimizers(*p20, 7, 1, False, it=InputType.PROTEIN20),
+         graph_ms, KB1),
+        ("minimizers PROTEIN_6 -k 12 -S 1x11 -w 30 entropy W=8",
+         lambda: enc.minimizers(*p6, 12, 8, False, "entropy", pos12,
+                                it=InputType.PROTEIN_6), graph_ms, KB1),
+        ("compacted_minimizers PROTEIN_14 -k 10 -w 24 W=15",
+         lambda: enc.compacted_minimizers(*p14, 10, 15,
+                                          it=InputType.PROTEIN_14),
+         graph_ms, KB4),
+        ("compacted_minimizers PROTEIN20 -k 7 -w 20 entropy W=14",
+         lambda: enc.compacted_minimizers(*p20, 7, 14, "entropy",
+                                          it=InputType.PROTEIN20),
+         graph_ms, KB4),
+    ]
+    for k, canon in ((31, True), (64, True), (200, False)):
+        renc = RollingEncoder(k, canon)
+        cases.append((f"cyclic_hashes k={k}{' canonical' if canon else ''}",
+                      lambda renc=renc: renc.hashes(dna[0]), graph_ms,
+                      "bk_cyclic_hashes"))
     return cases
 
 

@@ -1,8 +1,10 @@
 """Synthetic inputs for K2 ``resolve`` where the ec batch does not reach:
 a taxonomy of NCBI's size and depth (``deep_tree``), rows over it whose
 reads each walk a real LCA (``deep_rows``), and long reads (P > 1024,
-``long_reads``).  ``chip_smoke.py``, ``kernel_ab`` and the tests make
-them from a numpy seed.
+``long_reads``); and protein for the Python API's alphabets, the forward
+reading frames of a genome (``translate``).  ``chip_smoke.py``,
+``kernel_ab`` and the tests make them from a numpy seed or the repo's
+genomes.
 """
 
 from __future__ import annotations
@@ -117,3 +119,21 @@ def long_reads(genome: str, lut, rng, R: int = 64):
         codes[i, : len(s)] = lut[np.frombuffer(s, dtype=np.uint8)]
     return fastx.ReadBatch(names=[b"r"] * R, seqs=seqs, codes=codes,
                            lengths=lens.astype(np.int32), quals=[None] * R)
+
+
+# the standard genetic code, codons in TCAG order (NCBI translation table 1)
+CODE = b"FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+
+
+def translate(seq: bytes, frame: int) -> bytes:
+    """Reading frame ``frame`` (0-2) of a DNA sequence as one-letter
+    protein by the standard code: stops as '*', a codon with a base other
+    than ACGT as 'X'."""
+    idx = np.full(256, -1, np.int64)
+    for i, b in enumerate(b"TCAG"):
+        idx[b] = idx[b | 32] = i
+    c = idx[np.frombuffer(seq, np.uint8)[frame:]]
+    c = c[: c.size // 3 * 3].reshape(-1, 3)
+    code = np.frombuffer(CODE, np.uint8)
+    aa = code[(c[:, 0] * 16 + c[:, 1] * 4 + c[:, 2]) % 64]
+    return np.where((c < 0).any(1), ord("X"), aa).astype(np.uint8).tobytes()

@@ -91,6 +91,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  against the ec -k 25 -w 37 -t database (sha256 = the JAX
                  Classifier's); the four kernels and their plain versions
                  timed by CUDA-graph replay at those shapes, with bounds
+ 9d. Python API  after phase 9c: the Shannon terms made on this host
+                 (sha256 = the JAX package's host's); through
+                 bonsai_tpu_torch.api on the card, each sha256 = the JAX
+                 package's bonsai_tpu.api: seqdict over the 5 ec genomes at
+                 -k 31 -w 40, get_kmers of every ec record at -k 31 -w 40
+                 entropy (canonical; under the profiler: Mbases/s and the
+                 card's busy share) and -k 21 -S 0x16,1x4 -w 40 entropy
+                 (uncanonical), of the K-12 genome at -k 13 -w 29 entropy
+                 (both), of its three forward frames translated by the
+                 standard code as PROTEIN20 -k 7 and -k 7 -w 20 entropy,
+                 PROTEIN_14 -k 10 -w 24, PROTEIN_6 -k 12 -S 1x11 -w 30
+                 entropy, PROTEIN -k 8, PROTEIN_3BIT -k 22; rolling_hashes of
+                 K-12 at k = 31 and 64 canonical and 200; KB1's and KB4's
+                 Shannon and radix instantiations and KR1 launched; each
+                 against its plain version on CPU copies, exact: 1M-base
+                 slices at those shapes, rows of every kind and alphabet
+                 (Ns at tile edges, N runs longer than the span, all-N rows,
+                 rows shorter than the span, 0 < n_valid < W tails, bytes
+                 past 127, a real U64_MAX), KR1 at k = 1, 63, 64, 65, 1000;
+                 then each timed by CUDA-graph replay at the K-12 shape (a
+                 protein frame for the radix rows), with its bound
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -108,8 +129,10 @@ The line before the last is the kernels JSON (launches on the main paths,
 exactness, kernel, plain, bound and library times, and the share
 bound / kernel time; ``ms`` is graph-replayed
 for K1-K3, KB1, KB4, KB5 and G2, ``event_ms`` the event timing; KB1, KB4
-and K1 have a row for each instantiation); the last line is
-{"ok": true, "device": {...}}.  Without a card, or outside a checkout,
+and K1 have a row for each instantiation); each phase prints its wall
+seconds as it ends ("# phase ...") and all of them before the kernels
+line; the last line is {"ok": true, "device": {...}}.  Without a card,
+or outside a checkout,
 the script exits non-zero and prints no result.
 """
 
@@ -215,6 +238,69 @@ GOLDEN_PHASE2_DIGESTS = {
 }
 SPACING21 = "0x16,1x4"
 EC_GENOME = os.path.join(DATA, "ec", "GCF_000005845.2_ASM584v2_genomic.fna.gz")
+# Phase 9d, the Python API: sha256 (``_digest``) of what the JAX package's
+# bonsai_tpu.api returns on the CPU, from the repository root, with EC the
+# sorted tests/data/ec/*.fna.gz, RECORDS every (name, seq) of
+# bonsai_tpu.io.fastx.read_fastx over EC, K12 the sequence of EC_GENOME's
+# first record and FRAMES = [translate(K12, f) for f in range(3)]
+# (bonsai_tpu_torch.tools.synthetic, plain numpy):
+#   seqdict:  _digest((n, a) for p in EC for n, a in api.seqdict(p, k=31,
+#             w=40).items())
+#   RECORDS:  _digest((n, api.get_kmers(s, **KW)) for n, s in RECORDS)
+#   K-12:     _digest([(None, api.get_kmers(K12, **KW))])
+#   protein:  _digest((None, api.get_kmers(f, input_type=IT, **KW)) for f in
+#             FRAMES)
+#   rolling:  _digest([(None, api.rolling_hashes(K12, k, canonicalize))])
+# (JAX_PLATFORMS=cpu, numpy 2.0.2).  The Shannon score's terms
+# (bonsai_tpu_torch.core.entropy.shannon_terms(k), numpy's log) made there:
+API_TERMS = {
+    7: "d16ef9abc1a1483381b91556df7c06370e0317808080a766f27f60a71b110ca5",
+    12: "3372e43c750daad9e77c44b43d315898fa783e353175fe4b97a0c3320915ed96",
+    13: "3a82e604f1f4006b01df9651fd07dc3665f603fd0e1bac3448b2776892417ea4",
+    21: "e689120b557b9f5b12c3e7012383c793482a485a82d097196a7071e8bdfe5d49",
+    31: "c2436db6ac477a4ed2ec9601341c30264ed654005ee58d4d032dfcf1bb8ab390",
+}
+API_DIGESTS = {
+    "seqdict -k 31 -w 40":
+        "5465ce045d37912662e1b3814108c28ccc4bcbfa0eaac2eb17a8dbb701490641",
+    "-k 31 -w 40 entropy":
+        "211eeabdf03276932bde847ec9e4b459a6fe49b7707e28cc224beac5ece88901",
+    "-k 21 -S 0x16,1x4 -w 40 entropy -C":
+        "779f8d9da71b7bdc9076e926245af4f901d03a0736a68b6869876ae653de84ee",
+    "K-12 -k 13 -w 29 entropy":
+        "13b91a315d68f724185c812baa93e196e121cf6384ced339fbaee555ca331463",
+    "K-12 -k 13 -w 29 entropy -C":
+        "26e9e1e9bca24d7b1827764e82b84e74586e23e264b04422de940ae63375b2bf",
+    "PROTEIN20 -k 7":
+        "ffa33e6acf5c19539d35cdb9b555c609a082e46da1354b278edf856136bbc349",
+    "PROTEIN20 -k 7 -w 20 entropy":
+        "420aca424eff32a6a2c11c39a9c120d2b7f830aec5dc682a08182f297ddfaa90",
+    "PROTEIN_14 -k 10 -w 24":
+        "9e84858f5689dd185bfeba73ed24ae7d83b2d4f522e3b15711df29453ec9809f",
+    "PROTEIN_6 -k 12 -S 1x11 -w 30 entropy":
+        "ec5a2354ab17f57b3de02ae16077e68e00eee9e3072ddc3e58e1613f96194b08",
+    "PROTEIN -k 8":
+        "cd73b8e59789c830c3a397aa9feecac414341b707124b9b9a806eff9eadbf03c",
+    "PROTEIN_3BIT -k 22":
+        "d39940d9756a37a55977137dfe24a6a975c70dc120b8aa053c8f31c94f43701b",
+    "rolling k=31 canonical":
+        "141c489a3c3d39ea09600c46408e75d873ee90c153228adc735cd60de272611e",
+    "rolling k=64 canonical":
+        "a64054a5814b286735163ed6af013e24c41ed944cda5bcbf09e3cadd8b4d92fa",
+    "rolling k=200":
+        "b3026e42702752c2f7b0790ac8d2ed29eca24459bb87369140bfdbdb3d6fab03",
+}
+# the protein rows of API_DIGESTS: key, input type name, get_kmers' keywords
+API_PROTEIN = [
+    ("PROTEIN20 -k 7", "PROTEIN20", dict(k=7)),
+    ("PROTEIN20 -k 7 -w 20 entropy", "PROTEIN20",
+     dict(k=7, w=20, scheme="entropy")),
+    ("PROTEIN_14 -k 10 -w 24", "PROTEIN_14", dict(k=10, w=24)),
+    ("PROTEIN_6 -k 12 -S 1x11 -w 30 entropy", "PROTEIN_6",
+     dict(k=12, spacing="1x11", w=30, scheme="entropy")),
+    ("PROTEIN -k 8", "PROTEIN", dict(k=8)),
+    ("PROTEIN_3BIT -k 22", "PROTEIN_3BIT", dict(k=22)),
+]
 
 
 # name -> (source, the TPU kernel it replaces)
@@ -252,10 +338,32 @@ KERNELS = {
         "bonsai_tpu/core/encoder.py:206"),
     "lookup_scores": ("bonsai_tpu_torch/csrc/lookup_scores.cu",
                       "bonsai_tpu/db/table.py:501"),
+    "minimizers_spaced_shannon": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                                  "bonsai_tpu/core/entropy.py:67"),
+    "minimizers_radix": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                         "bonsai_tpu/core/encode.py:135"),
+    "minimizers_radix_shannon": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                                 "bonsai_tpu/core/entropy.py:82"),
+    "compacted_minimizers_shannon": (
+        "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+        "bonsai_tpu/core/entropy.py:47"),
+    "compacted_minimizers_radix": (
+        "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+        "bonsai_tpu/core/encode.py:163"),
+    "compacted_minimizers_radix_shannon": (
+        "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+        "bonsai_tpu/core/encoder.py:118"),
+    "cyclic_hashes": ("bonsai_tpu_torch/csrc/rolling.cu",
+                      "bonsai_tpu/core/rolling.py:91"),
 }
 # the rows of the hash-scored phase 2 (phase 9c)
 HASH_ROWS = ("minimizers_hash", "minimizers_spaced_hash",
              "compacted_minimizers_hash", "lookup_scores")
+# the rows of the Python API (phase 9d)
+API_ROWS = ("minimizers_spaced_shannon", "minimizers_radix",
+            "minimizers_radix_shannon", "compacted_minimizers_shannon",
+            "compacted_minimizers_radix", "compacted_minimizers_radix_shannon",
+            "cyclic_hashes")
 # the variants of one wrapper's launch counts (its ``variants`` dict) that
 # each kernel row counts
 VARIANTS = {
@@ -266,6 +374,14 @@ VARIANTS = {
     "minimizers_spaced_hash": ("minimizers", ("spaced hash",)),
     "compacted_minimizers": ("compacted_minimizers", ("lex", "entropy-file")),
     "compacted_minimizers_hash": ("compacted_minimizers", ("hash",)),
+    "minimizers_spaced_shannon": ("minimizers", ("spaced shannon",)),
+    "minimizers_radix": ("minimizers", ("radix", "radix entropy-file")),
+    "minimizers_radix_shannon": ("minimizers", ("radix shannon",)),
+    "compacted_minimizers_shannon": ("compacted_minimizers", ("shannon",)),
+    "compacted_minimizers_radix": ("compacted_minimizers", (
+        "radix lex", "radix entropy-file")),
+    "compacted_minimizers_radix_shannon": ("compacted_minimizers",
+                                           ("radix shannon",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
     "encode_probe_spaced": ("encode_probe", ("spaced",)),
 }
@@ -292,6 +408,18 @@ def read_counts(wrappers):
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECS = {}  # wall seconds of each phase of main, in order
+
+
+def phase(name, fn, *args):
+    """fn(*args), its wall seconds kept under ``name`` and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECS[name] = time.perf_counter() - t0
+    say(f"# phase {name}: {PHASE_SECS[name]:.1f}s")
+    return out
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1356,7 +1484,7 @@ def phase_device_build(dev, kk, host_secs):
             require(got == want, f"{what}: device build differs")
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
-    for r in HASH_ROWS:  # the hash-scored builds are phase 9c's
+    for r in HASH_ROWS + API_ROWS:  # phase 9c's and 9d's
         launches.pop(r, None)
     say(f"# device build: kernel launches {launches}")
     for name, n in launches.items():
@@ -1806,6 +1934,371 @@ def phase_hash(dev, chk, kk, hiseq):
     return launches, times, bounds, nums
 
 
+def _digest(parts):
+    """sha256 of (name + NUL, if any, then the uint64 bytes) of each part,
+    in order: the form of the API digests below."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name, a in parts:
+        if name is not None:
+            h.update(name + b"\0")
+        h.update(np.ascontiguousarray(a, np.uint64).tobytes())
+    return h.hexdigest()
+
+
+def _radix_codes(rng, codes4, it):
+    """DNA rows of ``_discipline_rows`` / ``_kb1_edge_rows`` as rows of the
+    type's codes: each base a random code, T the largest (a row of T folds
+    to the largest k-mer: PROTEIN_3BIT at k = 22 to U64_MAX), -1 kept;
+    PROTEIN (bytes) also gets bytes past 127 (negative int8, ambiguous)."""
+    import numpy as np
+
+    from bonsai_tpu_torch.core.alphabet import radix_of
+
+    hi = 128 if radix_of(it) == 256 else radix_of(it)
+    out = rng.integers(0, hi, codes4.shape).astype(np.int8)
+    out[codes4 == 3] = hi - 1
+    out[codes4 < 0] = -1
+    if hi == 128:
+        past = (rng.random(codes4.shape) < 0.01) & (codes4 >= 0)
+        out[past] = rng.integers(-128, 0, int(past.sum()))
+    return out
+
+
+def _rolling_rows(rng, L, n_chars=4):
+    """Rows with 3% Ns, Ns at thread-run and tile edges, an N run longer
+    than most k, an all-N row and a row of one code."""
+    import numpy as np
+
+    codes = rng.integers(0, n_chars, (6, L)).astype(np.int8)
+    codes[rng.random((6, L)) < 0.03] = -1
+    for p in (0, KB1_RUN - 1, KB1_RUN, KB1_TILE - 1, KB1_TILE,
+              KB1_TILE + KB1_RUN):
+        codes[1, p] = -1
+    codes[2, KB1_TILE - 300: KB1_TILE + 1200] = -1
+    codes[3] = -1
+    codes[4] = n_chars - 1
+    return codes
+
+
+def api_kernels(dev, chk, k12, frames):
+    """The Python API's instantiations of KB1 and KB4 and KR1 on the card
+    against their plain versions on CPU copies, exact: 1M-base slices of
+    the K-12 genome and of a protein frame at the API's shapes, then rows
+    of every kind (Ns at thread-run and tile edges, N runs longer than
+    the span, all-N rows, rows shorter than the span, 0 < n_valid < W
+    tails, bytes past 127, a real U64_MAX), KR1 at k = 1, 63, 64, 65 and
+    1000."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core import rolling
+    from bonsai_tpu_torch.core.alphabet import DNA4, InputType, alphabet_of
+    from bonsai_tpu_torch.io import fastx
+
+    rng = np.random.default_rng(SEED + 11)
+
+    def kb1(codes, lengths, k, W, scheme, it, pos, tag):
+        name = ("minimizers_spaced_shannon" if it == InputType.DNA else
+                "minimizers_radix_shannon" if scheme == "entropy" else
+                "minimizers_radix")
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.minimizers(c.to(dev), ln.to(dev), k, W, False, scheme, pos,
+                             it=it)
+        chk.same(name, got, enc.minimizers_plain(c, ln, k, W, False, scheme,
+                                                 pos, it=it), tag)
+
+    def kb4(codes, lengths, k, W, scheme, it, canon, tag):
+        name = ("compacted_minimizers_shannon" if it == InputType.DNA else
+                "compacted_minimizers_radix_shannon" if scheme == "entropy"
+                else "compacted_minimizers_radix")
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.compacted_minimizers(c.to(dev), ln.to(dev), k, W, scheme,
+                                       it=it, canon=canon)
+        chk.same(name, got, enc.compacted_minimizers_plain(
+            c, ln, k, W, scheme, it=it, canon=canon), tag)
+
+    # 1M-base slices at the API's shapes
+    dna = fastx.encode_contig(k12[1_000_000:2_000_000], DNA4.lut)[None, :]
+    one = np.array([dna.shape[1]], np.int32)
+    pos21, pos12 = _positions(21, SPACING21), _positions(12, "1x11")
+    kb4(dna, one, 31, 10, "entropy", InputType.DNA, True,
+        "K-12 1M bases -k 31 -w 40 entropy")
+    kb4(dna, one, 13, 17, "entropy", InputType.DNA, False,
+        "K-12 1M bases -k 13 -w 29 entropy -C")
+    kb1(dna, one, 21, 16, "entropy", InputType.DNA, pos21,
+        "K-12 1M bases -k 21 -S 0x16,1x4 -w 40 entropy")
+    for it, k, W, spacing, scheme in (
+            (InputType.PROTEIN20, 7, 1, "", "lex"),
+            (InputType.PROTEIN20, 7, 14, "", "entropy"),
+            (InputType.PROTEIN_14, 10, 15, "", "lex"),
+            (InputType.PROTEIN_6, 12, 8, "1x11", "entropy"),
+            (InputType.PROTEIN, 8, 1, "", "lex"),
+            (InputType.PROTEIN_3BIT, 22, 1, "", "lex")):
+        codes = fastx.encode_contig(frames[0][:1_000_000],
+                                    alphabet_of(it).lut)[None, :]
+        n = np.array([codes.shape[1]], np.int32)
+        tag = f"frame 0, 1M residues {it.name} -k {k} W={W} {scheme}"
+        if spacing or W == 1:
+            kb1(codes, n, k, W, scheme, it, pos12 if spacing else None, tag)
+        else:
+            kb4(codes, n, k, W, scheme, it, False, tag)
+    # rows of every kind
+    for k, pos in ((21, pos21), (32, _positions(32, "1x31"))):
+        for W in (2, 13, 16):
+            kb1(*_discipline_rows(rng, pos[-1] + 1, W), k, W, "entropy",
+                InputType.DNA, pos, f"rows -S k={k} W={W}")
+            kb1(*_kb1_edge_rows(rng, pos[-1] + 1, W), k, W, "entropy",
+                InputType.DNA, pos, f"run and tile edges -S k={k} W={W}")
+    for k in (13, 31, 32):
+        for W in (1, 2, 17):
+            for canon in (False, True):
+                kb4(*_discipline_rows(rng, k, W), k, W, "entropy",
+                    InputType.DNA, canon, f"rows k={k} W={W} canon={canon}")
+                codes, lengths = _kb1_edge_rows(rng, k, W)
+                codes[4, : 2 * KB1_TILE] = -1  # a tile with no valid seed
+                lengths[4] = codes.shape[1]
+                kb4(codes, lengths, k, W, "entropy", InputType.DNA, canon,
+                    f"run and tile edges k={k} W={W} canon={canon}")
+    for it in (t for t in InputType if t != InputType.DNA):
+        from bonsai_tpu_torch.core.alphabet import nper64
+
+        for k in (1, nper64(it)):
+            pos = tuple(range(0, 2 * k - 1, 2))
+            for rows in (_discipline_rows(rng, k, 13),
+                         _kb1_edge_rows(rng, k, 13)):
+                codes = _radix_codes(rng, rows[0], it)
+                kb1(codes, rows[1], k, 1, "lex", it, None,
+                    f"{it.name} unwindowed rows k={k}")
+                for scheme in ("lex", "entropy-file", "entropy"):
+                    kb4(codes, rows[1], k, 13, scheme, it, False,
+                        f"{it.name} rows k={k} W=13 {scheme}")
+            for rows in (_discipline_rows(rng, pos[-1] + 1, 13),
+                         _kb1_edge_rows(rng, pos[-1] + 1, 13)):
+                codes = _radix_codes(rng, rows[0], it)
+                for W in (1, 13):
+                    for scheme in ("lex", "entropy-file", "entropy"):
+                        kb1(codes, rows[1], k, W, scheme, it, pos,
+                            f"{it.name} spaced rows k={k} W={W} {scheme}")
+    codes = np.full((2, 200), 7, np.int8)  # PROTEIN_3BIT: U64_MAX k-mers
+    codes[1, 100] = -1
+    kb1(codes, np.array([200, 180], np.int32), 22, 1, "lex",
+        InputType.PROTEIN_3BIT, None, "22 residues of code 7: U64_MAX")
+    # KR1
+    c = torch.from_numpy(fastx.encode_contig(k12[:1_000_000], DNA4.lut)[None])
+    for k, canon in ((31, True), (64, True), (200, False)):
+        renc = rolling.RollingEncoder(k, canon)
+        chk.same("cyclic_hashes", renc.hashes(c.to(dev)), renc.hashes(c),
+                 f"K-12 1M bases k={k}")
+    for k in (1, 63, 64, 65, 1000):
+        codes = torch.from_numpy(_rolling_rows(rng, 2 * KB1_TILE + 37 + k))
+        for canon, nthash in ((False, False), (True, False), (True, True)):
+            renc = rolling.RollingEncoder(k, canon, nthash=nthash)
+            chk.same("cyclic_hashes", renc.hashes(codes.to(dev)),
+                     renc.hashes(codes), f"rows k={k} canon={canon} "
+                     f"nthash={nthash}")
+        short = codes[:2, :k].contiguous()  # P = 1
+        chk.same("cyclic_hashes", renc.hashes(short.to(dev)),
+                 renc.hashes(short), f"P = 1, k={k}")
+    codes = torch.from_numpy(_rolling_rows(rng, 9000, 20))
+    renc = rolling.RollingEncoder(21, n_chars=20)
+    chk.same("cyclic_hashes", renc.hashes(codes.to(dev)), renc.hashes(codes),
+             "20 characters k=21")
+    say(f"# api kernels: "
+        f"{ {n: chk.cases[n] for n in API_ROWS} } cases, each exact")
+
+
+def phase_api(dev, chk):
+    """9d. The Python API on the card: term tables, the digests of
+    get_kmers, seqdict and rolling_hashes against the JAX package's, the
+    new instantiations and KR1 against their plain versions, timings."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch import api
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core import rolling
+    from bonsai_tpu_torch.core.alphabet import DNA4, InputType, alphabet_of
+    from bonsai_tpu_torch.core.entropy import shannon_terms
+    from bonsai_tpu_torch.io import fastx
+    from bonsai_tpu_torch.tools.bounds import (bound_compacted_minimizers,
+                                               bound_cyclic_hashes,
+                                               bound_minimizers,
+                                               shannon_fp64, spaced_runs)
+    from bonsai_tpu_torch.tools.synthetic import translate
+
+    # 1. the Shannon terms: the card's host makes them with its numpy
+    for k, want in API_TERMS.items():
+        got = hashlib.sha256(shannon_terms(k).tobytes()).hexdigest()
+        say(f"# api: terms k={k} sha256 {got[:16]}, the JAX package's host "
+            f"{want[:16]}")
+        require(got == want, f"the Shannon terms of k={k} differ from the "
+                "ones the JAX package's digests were made with (numpy's log "
+                "on this host gives other bits): the digests below cannot "
+                "match")
+    ec = sorted(os.path.join(DATA, "ec", f) for f in os.listdir(
+        os.path.join(DATA, "ec")) if f.endswith(".fna.gz"))
+    t0 = time.perf_counter()
+    records = [(n, s) for p in ec for n, s, _ in fastx.read_fastx(p)]
+    k12 = next(iter(fastx.read_fastx(EC_GENOME)))[1]
+    frames = [translate(k12, f) for f in range(3)]
+    bases = sum(len(s) for _, s in records)
+    say(f"# api: {len(records)} records, {bases} bases, read in "
+        f"{time.perf_counter() - t0:.1f}s; K-12 frames "
+        f"{[len(f) for f in frames]} residues")
+
+    # 2. the main path: every call through the API, counted
+    wrappers = [enc.minimizers, enc.compacted_minimizers,
+                rolling.cyclic_hashes]
+    reset_counts(wrappers)
+    got, secs = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got[key] = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t
+
+    timed("seqdict -k 31 -w 40", lambda: _digest(
+        [(n, a) for p in ec for n, a in api.seqdict(p, k=31, w=40,
+                                                    device=dev).items()]))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed("-k 31 -w 40 entropy", lambda: _digest(
+            [(n, api.get_kmers(s, k=31, w=40, scheme="entropy", device=dev))
+             for n, s in records]))
+    busy, top = _device_busy(prof)
+    timed("-k 21 -S 0x16,1x4 -w 40 entropy -C", lambda: _digest(
+        [(n, api.get_kmers(s, k=21, spacing=SPACING21, w=40,
+                           scheme="entropy", canonicalize=False, device=dev))
+         for n, s in records]))
+    for key, canon in (("K-12 -k 13 -w 29 entropy", True),
+                       ("K-12 -k 13 -w 29 entropy -C", False)):
+        timed(key, lambda canon=canon: _digest([(None, api.get_kmers(
+            k12, k=13, w=29, scheme="entropy", canonicalize=canon,
+            device=dev))]))
+    for key, it, kw in API_PROTEIN:
+        timed(key, lambda it=it, kw=kw: _digest([(None, api.get_kmers(
+            f, input_type=InputType[it], device=dev, **kw)) for f in frames]))
+    for key, k, canon in (("rolling k=31 canonical", 31, True),
+                          ("rolling k=64 canonical", 64, True),
+                          ("rolling k=200", 200, False)):
+        timed(key, lambda k=k, canon=canon: _digest([(None, api.rolling_hashes(
+            k12, k, canon, device=dev))]))
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    launches = {r: counts[r] for r in API_ROWS}
+    for key, want in API_DIGESTS.items():
+        say(f"# api: {key}: sha256 {got[key][:16]} "
+            f"{'matches' if got[key] == want else 'DIFFERS'} ({secs[key]:.3f}s)")
+        require(got[key] == want, f"api {key} differs from the JAX package's")
+    say(f"# api: -k 31 -w 40 entropy over the ec corpus: {bases} bases in "
+        f"{secs['-k 31 -w 40 entropy']:.3f}s = "
+        f"{bases / secs['-k 31 -w 40 entropy'] / 1e6:.2f} Mbases/s; card busy "
+        f"{busy / 1e3:.1f} ms ({100 * busy / 1e6 / secs['-k 31 -w 40 entropy']:.2f}%)"
+        f": {[(n[:40], round(us / 1e3, 3)) for n, us in top[:4]]}; seqdict "
+        f"-k 31 -w 40 (lex) {bases / secs['seqdict -k 31 -w 40'] / 1e6:.2f} "
+        f"Mbases/s")
+    say(f"# api: kernel launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched by the API")
+
+    # 3. the kernels against their plain versions
+    t0 = time.perf_counter()
+    api_kernels(dev, chk, k12, frames)
+    say(f"# api: the kernels against their plain versions in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 4. timings at the K-12 shape (a protein frame for the radix rows)
+    t0 = time.perf_counter()
+    times, bounds = {}, {}
+
+    def row(s, it=InputType.DNA):
+        codes = fastx.encode_contig(s, alphabet_of(it).lut)[None, :]
+        return (torch.from_numpy(codes).to(dev),
+                torch.tensor([codes.shape[1]], dtype=torch.int32, device=dev))
+
+    dna = row(k12)
+    pos21, pos12 = _positions(21, SPACING21), _positions(12, "1x11")
+    p20 = row(frames[0], InputType.PROTEIN20)
+    p6 = row(frames[0], InputType.PROTEIN_6)
+    for name, tag, c, ln, kern, plain, bnd in (
+        ("compacted_minimizers_shannon", "K-12 -k 31 -w 40 entropy (W = 10)",
+         *dna,
+         lambda c, n: enc.compacted_minimizers(c, n, 31, 10, "entropy",
+                                               canon=True),
+         lambda c, n: enc.compacted_minimizers_plain(c, n, 31, 10, "entropy",
+                                                     canon=True),
+         lambda c, n, em: bound_compacted_minimizers(
+             c, n, em, 10, fp64=shannon_fp64(c, n, 31, 4))),
+        ("minimizers_spaced_shannon",
+         "K-12 -k 21 -S 0x16,1x4 -w 40 entropy (W = 16)", *dna,
+         lambda c, n: enc.minimizers(c, n, 21, 16, False, "entropy", pos21),
+         lambda c, n: enc.minimizers_plain(c, n, 21, 16, False, "entropy",
+                                           pos21),
+         lambda c, n, em: bound_minimizers(
+             c, n, em, 16, runs=spaced_runs(pos21),
+             fp64=shannon_fp64(c, n, 21, 4, pos21))),
+        ("minimizers_radix", "frame 0 PROTEIN20 -k 7 (W = 1)", *p20,
+         lambda c, n: enc.minimizers(c, n, 7, 1, False,
+                                     it=InputType.PROTEIN20),
+         lambda c, n: enc.minimizers_plain(c, n, 7, 1, False,
+                                           it=InputType.PROTEIN20),
+         lambda c, n, em: bound_minimizers(c, n, em, 1)),
+        ("minimizers_radix_shannon",
+         "frame 0 PROTEIN_6 -k 12 -S 1x11 -w 30 entropy (W = 8)", *p6,
+         lambda c, n: enc.minimizers(c, n, 12, 8, False, "entropy", pos12,
+                                     it=InputType.PROTEIN_6),
+         lambda c, n: enc.minimizers_plain(c, n, 12, 8, False, "entropy",
+                                           pos12, it=InputType.PROTEIN_6),
+         lambda c, n, em: bound_minimizers(
+             c, n, em, 8, runs=spaced_runs(pos12),
+             fp64=shannon_fp64(c, n, 12, 6, pos12))),
+        ("compacted_minimizers_radix", "frame 0 PROTEIN20 -k 7 -w 20 (W = 14)",
+         *p20,
+         lambda c, n: enc.compacted_minimizers(c, n, 7, 14,
+                                               it=InputType.PROTEIN20),
+         lambda c, n: enc.compacted_minimizers_plain(c, n, 7, 14,
+                                                     it=InputType.PROTEIN20),
+         lambda c, n, em: bound_compacted_minimizers(c, n, em, 14)),
+        ("compacted_minimizers_radix_shannon",
+         "frame 0 PROTEIN20 -k 7 -w 20 entropy (W = 14)", *p20,
+         lambda c, n: enc.compacted_minimizers(c, n, 7, 14, "entropy",
+                                               it=InputType.PROTEIN20),
+         lambda c, n: enc.compacted_minimizers_plain(
+             c, n, 7, 14, "entropy", it=InputType.PROTEIN20),
+         lambda c, n, em: bound_compacted_minimizers(
+             c, n, em, 14, fp64=shannon_fp64(c, n, 7, 20))),
+    ):
+        bounds[name] = bnd(c, ln, kern(c, ln))
+        times[name] = time_pair(name, tag, lambda: kern(c, ln),
+                                lambda: plain(c, ln), bounds[name],
+                                graph=True)
+    renc = rolling.RollingEncoder(31, True)
+    bounds["cyclic_hashes"] = bound_cyclic_hashes(dna[0], renc.hashes(dna[0]),
+                                                  True)
+    times["cyclic_hashes"] = time_pair(
+        "cyclic_hashes", "K-12 k=31 canonical", lambda: renc.hashes(dna[0]),
+        lambda: rolling.cyclic_hashes_plain(dna[0], 31,
+                                            *renc.tables(dev)),
+        bounds["cyclic_hashes"], graph=True)
+    for k, canon in ((64, True), (200, False)):
+        r2 = rolling.RollingEncoder(k, canon)
+        time_pair("cyclic_hashes", f"K-12 k={k}{' canonical' if canon else ''}",
+                  lambda r2=r2: r2.hashes(dna[0]),
+                  lambda r2=r2, k=k: rolling.cyclic_hashes_plain(
+                      dna[0], k, *r2.tables(dev)),
+                  bound_cyclic_hashes(dna[0], r2.hashes(dna[0]), canon),
+                  graph=True)
+    say(f"# api: timings in {time.perf_counter() - t0:.1f}s")
+    return launches, times, bounds, bases / secs["-k 31 -w 40 entropy"] / 1e6
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -1995,55 +2488,62 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     t_all = time.perf_counter()
-    dev, card = phase_device()
+    dev, card = phase("1 device", phase_device)
     import torch
 
     from bonsai_tpu_torch.classify.pipeline import Classifier
     from bonsai_tpu_torch.core.alphabet import DNA4
 
-    phase_build()
+    phase("2 build", phase_build)
     import numpy as np
 
     from bonsai_tpu_torch.tools.synthetic import deep_tree
 
-    t0 = time.perf_counter()
-    deep = deep_tree(np.random.default_rng(SEED + 6))
+    deep = phase("3 deep tree", deep_tree, np.random.default_rng(SEED + 6))
     say(f"# deep tree: {deep.tin.size} nodes, depth {deep.max_depth}, "
-        f"{deep.lift.shape[0]} lift levels, built in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{deep.lift.shape[0]} lift levels")
     kk = json.load(open(os.path.join(GOLD, "manifest.json")))["kraken"]
-    db, tree, digest, host_secs = build_ec(os.path.join(GOLD, kk["nodes"]), kk)
+    db, tree, digest, host_secs = phase("4 database", build_ec,
+                                        os.path.join(GOLD, kk["nodes"]), kk)
     torch.cuda.reset_peak_memory_stats()
     clf = Classifier(db, tree, emit_all=True, device=dev)
-    chk = phase_kernels(dev, clf, DNA4.lut, deep)
+    chk = phase("3 kernels", phase_kernels, dev, clf, DNA4.lut, deep)
     say(f"# database: content sha256 {digest}: "
         f"{'matches' if digest == kk['db_digest'] else 'DIFFERS'}; on the "
         f"card as {clf.arr.slots.numel() * 8 / 2**20:.0f} MiB of slots")
     require(digest == kk["db_digest"], "ec database content differs")
-    launches = phase_main_path(clf, kk, dev)
+    launches = phase("5 classify", phase_main_path, clf, kk, dev)
     hiseq = os.path.join(DATA, kk["sets"]["HiSeq"]["reads"])
-    times, bounds, rps, rows = phase_numbers(dev, clf, hiseq, deep)
+    times, bounds, rps, rows = phase("6 numbers", phase_numbers, dev, clf,
+                                     hiseq, deep)
     del clf, deep
-    qps = phase_scale(dev)
+    qps = phase("7 scale", phase_scale, dev)
     peak = torch.cuda.max_memory_allocated()
     say(f"# peak device memory allocated (classify, scale): "
         f"{peak / 2**20:.1f} MiB")
-    phase_build_kernels(dev, chk, kk)
-    build_launches, build_nums, spaced_table = phase_device_build(
-        dev, kk, host_secs)
+    phase("8 build kernels", phase_build_kernels, dev, chk, kk)
+    build_launches, build_nums, spaced_table = phase(
+        "9 device build", phase_device_build, dev, kk, host_secs)
     spaced_launches, times["encode_probe_spaced"], bounds[
-        "encode_probe_spaced"] = phase_spaced_classify(dev, chk, kk,
-                                                       spaced_table, hiseq)
+        "encode_probe_spaced"] = phase("5b spaced classify",
+                                       phase_spaced_classify, dev, chk, kk,
+                                       spaced_table, hiseq)
     del spaced_table
-    hash_launches, hash_times, hash_bounds, hash_nums = phase_hash(
-        dev, chk, kk, hiseq)
+    hash_launches, hash_times, hash_bounds, hash_nums = phase(
+        "9c hash-scored phase 2", phase_hash, dev, chk, kk, hiseq)
     times.update(hash_times)
     bounds.update(hash_bounds)
-    gather_launches, gres = phase_gather(dev)
-    build_times, build_bounds, library = phase_build_numbers(dev, kk)
+    api_launches, api_times, api_bounds, api_mbps = phase(
+        "9d Python API", phase_api, dev, chk)
+    times.update(api_times)
+    bounds.update(api_bounds)
+    gather_launches, gres = phase("10 gather", phase_gather, dev)
+    build_times, build_bounds, library = phase("11 numbers",
+                                               phase_build_numbers, dev, kk)
     times.update(build_times)
     bounds.update(build_bounds)
-    gather_bounds, gather_library = phase_gather_numbers(dev)
+    gather_bounds, gather_library = phase("11 gather numbers",
+                                          phase_gather_numbers, dev)
     bounds.update(gather_bounds)
     library.update(gather_library)
     times["row_gather"] = (gres["row_gather"]["ms"],
@@ -2055,6 +2555,7 @@ def main() -> int:
     launches.update(spaced_launches)
     launches.update(gather_launches)
     launches.update(hash_launches)
+    launches.update(api_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -2068,8 +2569,11 @@ def main() -> int:
         f"{qps:.6g} queries/s; ec k=31 device build {ec['secs']:.3f}s "
         f"(first), {build_nums['again']['secs']:.3f}s (again), host build "
         f"{host_secs:.3f}s; ec -k 25 -w 37 -t phase 2 "
-        f"{hash_nums[EC_PHASE2[0][0]]['secs']:.3f}s; total "
+        f"{hash_nums[EC_PHASE2[0][0]]['secs']:.3f}s; API get_kmers -k 31 -w 40 "
+        f"entropy over the ec corpus {api_mbps:.2f} Mbases/s; total "
         f"{time.perf_counter() - t_all:.1f}s")
+    say(f"# phases, wall seconds: "
+        f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": chk.max_err[name],

@@ -115,8 +115,7 @@ def test_other_disciplines_raise():
     BatchEncoder(Spacer(21, 21, "0x16,1x4"))  # spaced
     BatchEncoder(Spacer(25, 37), scheme="entropy-file")  # build -e
     BatchEncoder(Spacer(25, 37), scheme="hash")  # build -t/-f --phase1-db
-    with pytest.raises(NotImplementedError):
-        BatchEncoder(Spacer(21, 21), scheme="entropy")
+    BatchEncoder(Spacer(21, 21), scheme="entropy")  # the Python API
     with pytest.raises(NotImplementedError):
         BatchEncoder(Spacer(33, 33))  # 128-bit k-mers
 

@@ -1,0 +1,135 @@
+"""Port parity: the scheme ``entropy`` (windowed Shannon entropy).
+
+The same numpy-seeded inputs go through the JAX package's numpy path
+(``bonsai_tpu/core/entropy.py``, ``BatchEncoder`` on numpy codes, as its
+Python API runs it) and through ``bonsai_tpu_torch`` (int64 tensors
+holding u64 bits; on the CPU the encoder takes KB1's and KB4's plain
+torch versions).  Tolerance: exact equality, bit for bit: the counts are
+integers, and H is the same float64 terms added in numpy's order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+import bonsai_tpu  # noqa: F401  (enables jax x64)
+from bonsai_tpu.core import entropy as jent
+from bonsai_tpu.core.encoder import BatchEncoder as JEncoder
+from bonsai_tpu.core.spacer import Spacer as JSpacer
+
+from bonsai_tpu_torch.core import entropy
+from bonsai_tpu_torch.core.encoder import BatchEncoder
+from bonsai_tpu_torch.core.spacer import Spacer
+
+from conftest import random_dna
+from test_encode import batch_from_seqs
+
+RADIXES = (2, 4, 6, 8, 14, 20, 256)
+
+
+def u64(t):
+    return t.numpy().view(np.uint64)
+
+
+@pytest.mark.parametrize("R", RADIXES)
+@settings(max_examples=8, deadline=None, derandomize=True, database=None)
+@given(data=st.data())
+def test_counts_terms_and_h_match_numpy(R, data):
+    """window_code_counts, spaced_code_counts and entropy_value at every
+    radix of an input type, codes -1 among them.  R = 256 on one short
+    row, the API's shape: the JAX package takes 256 cumulative sums, and
+    numpy 2.0.2 crashes comparing a strided int8 view of several rows
+    with a code past 127."""
+    k = data.draw(st.integers(1, 8 if R == 256 else 32), label="k")
+    L = data.draw(st.integers(k, k + (40 if R == 256 else 300)), label="L")
+    seed = data.draw(st.integers(0, 2**32 - 1), label="seed")
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, R, (1 if R == 256 else 2, L))
+    # BYTES: codes past 127 are negative int8, ambiguous
+    codes = codes.astype(np.uint8 if R == 256 else np.int8).view(np.int8)
+    ct = torch.from_numpy(codes)
+    got = entropy.window_code_counts(ct, k, R)
+    want = jent.window_code_counts(codes, k, R)
+    np.testing.assert_array_equal(got.numpy(), want)
+    h = entropy.entropy_value(got, k)
+    np.testing.assert_array_equal(h.numpy(), jent.entropy_value(want, k))
+    gaps = rng.integers(0, 3, k - 1)
+    pos = np.concatenate([[0], np.cumsum(gaps + 1)]).astype(np.int32)
+    if pos[-1] < L:
+        got = entropy.spaced_code_counts(ct, pos, R)
+        want = jent.spaced_code_counts(codes, pos, R)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(entropy.entropy_value(got, k).numpy(),
+                                      jent.entropy_value(want, k))
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 13, 21, 31, 32])
+def test_shannon_terms_are_entropy_value_of_one_code(k):
+    """Term c is entropy_value of counts holding c for one code and 0
+    for the others: the table has entropy_value's bits."""
+    terms = entropy.shannon_terms(k)
+    assert terms[0] == 0.0 and terms[k] == 0.0
+    counts = np.zeros((k + 1, 4), np.int32)
+    counts[:, 2] = np.arange(k + 1)
+    np.testing.assert_array_equal(terms, jent.entropy_value(counts, k))
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 15, 16, 20, 127, 128, 129,
+                               200, 256, 300])
+def test_numpy_sum_is_numpy_order(n):
+    rng = np.random.default_rng(n)
+    a = -rng.random((500, n)) * rng.integers(0, 2, (500, n))
+    got = entropy.numpy_sum(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(0.0 + got, a.sum(axis=-1))
+
+
+# the modes of tests/test_encode.py:130-131,155, and the k = 31 w = 40
+# and -S 0x16,1x4 w = 40 disciplines
+MODES = [
+    (13, 29, "", True),
+    (13, 29, "", False),
+    (9, 30, "2x8", False),
+    (31, 40, "", True),
+    (31, 40, "", False),
+    (21, 40, "0x16,1x4", False),
+]
+
+
+@pytest.mark.parametrize("k,w,spacing,canon", MODES,
+                         ids=lambda m: str(m).replace(" ", ""))
+@pytest.mark.parametrize("n_prob", [0.0, 0.05])
+def test_encoder_entropy_matches_jax(k, w, spacing, canon, n_prob):
+    rng = np.random.default_rng(k * 100 + w)
+    seqs = [random_dna(rng, int(rng.integers(max(w, 20), 400)), n_prob)
+            for _ in range(8)]
+    seqs.append(b"A" * 300)  # H = 0: the largest quotients
+    codes, lengths = batch_from_seqs(seqs)
+    jem = JEncoder(JSpacer(k, w, spacing), canon, "entropy").emissions(
+        codes, lengths)
+    em = BatchEncoder(Spacer(k, w, spacing), canon, "entropy").emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    mask = np.asarray(jem.mask)
+    np.testing.assert_array_equal(em.mask.numpy(), mask)
+    np.testing.assert_array_equal(u64(em.values)[mask],
+                                  np.asarray(jem.values)[mask])
+
+
+def test_encoder_entropy_matches_jit():
+    """The case of tests/test_jit_parity.py:19 against the jnp path."""
+    rng = np.random.default_rng(11)
+    enc = JEncoder(JSpacer(13, 29), True, "entropy")
+    seqs = [random_dna(rng, int(rng.integers(34, 300)), 0.03)
+            for _ in range(5)]
+    codes, lengths = batch_from_seqs(seqs)
+    j_vals, j_mask = jax.jit(lambda c, n: tuple(enc.emissions(c, n)))(
+        jnp.asarray(codes), jnp.asarray(lengths))
+    em = BatchEncoder(Spacer(13, 29), True, "entropy").emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    mask = np.asarray(j_mask)
+    np.testing.assert_array_equal(em.mask.numpy(), mask)
+    np.testing.assert_array_equal(u64(em.values)[mask],
+                                  np.asarray(j_vals)[mask])

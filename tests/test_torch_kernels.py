@@ -23,9 +23,16 @@ k-mers; for the hash-scored phase 2 (KB5 and the score::Hash
 instantiations of KB1 and KB4) inline and flat phase-1 images, stored
 and missing k-mers, the poly-A k-mer 0 and U64_MAX stored, rows none of
 whose k-mers phase 1 holds, P < W; for the gather microbenchmarks the
-four ``take_along_axis`` shapes and 32-B and 128-B rows.  Tolerance: exact equality, since all of
-it is integer work (the entropy-file score's one double divide is
-IEEE-rounded on both sides).
+four ``take_along_axis`` shapes and 32-B and 128-B rows; for the Python
+API's disciplines (the Shannon score of KB1 spaced and KB4, canonical
+after selection or not, every other alphabet's fold in KB1 and KB4 under
+every score, KR1) the same rows with codes of each alphabet, bytes past
+127, a fold of 66 bits to a real U64_MAX, and for KR1 k = 1 to 1000 on
+rows of two tiles, an all-N row, N runs longer than k, P = 1 and 20
+characters.  Tolerance: exact equality, since all of it is integer work
+(the entropy-file score's one double divide is IEEE-rounded on both
+sides; the Shannon score's doubles are the same table's terms added in
+the same order, then one add and one divide).
 """
 
 import os
@@ -39,6 +46,8 @@ import torch
 from bonsai_tpu_torch.classify import pipeline as pl
 from bonsai_tpu_torch.classify import resolve as res
 from bonsai_tpu_torch.core import encoder as enc
+from bonsai_tpu_torch.core import rolling
+from bonsai_tpu_torch.core.alphabet import InputType, nper64, radix_of
 from bonsai_tpu_torch.db import build_device as bd
 from bonsai_tpu_torch.db.table import (KmerTable, ProbeArrays, ScoreMap,
                                        lookup_scores)
@@ -1220,3 +1229,220 @@ def test_hash_kernels_need_a_score_map(cuda):
         enc.minimizers(c, ln, 21, 10, True, "hash")
     with pytest.raises(ValueError, match="score_map"):
         enc.compacted_minimizers(c, ln, 21, 10, "hash")
+
+
+# -- the Python API's disciplines: the Shannon score (scheme entropy) and
+# -- the other alphabets' folds in KB1 and KB4, and KR1 cyclic_hashes ---------
+
+
+def _run_gen(cuda, kb, codes, lengths, k, W, scheme, it, positions=None,
+             score_map=None, canon=False):
+    """KB1 (``kb`` "kb1") or KB4 on the card against its plain version."""
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    if kb == "kb1":
+        def call(c, ln):
+            return enc.minimizers(c, ln, k, W, False, scheme, positions,
+                                  score_map, it)
+        wrapper = enc.minimizers
+    else:
+        def call(c, ln):
+            return enc.compacted_minimizers(c, ln, k, W, scheme, score_map,
+                                            it, canon)
+        wrapper = enc.compacted_minimizers
+    want = call(c, ln)
+    before = wrapper.launches
+    got = call(c.to(cuda), ln.to(cuda))
+    assert wrapper.launches == before + (1 if want.values.shape[1] else 0)
+    _same(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", sorted(SPACINGS))
+@pytest.mark.parametrize("W", [2, 13, 16])
+def test_minimizers_spaced_shannon_kernel_matches_plain(cuda, k, W):
+    """DNA spaced seeds under the Shannon score (eps 1e-4): an N seed
+    scores 0x8000000000000000, the counts run over the k included
+    bases."""
+    pos = _positions(k)
+    rng = np.random.default_rng(k * 31 + W)
+    codes, lengths = _discipline_rows(rng, pos[-1] + 1, W)
+    before = enc.minimizers.variants.get("spaced shannon", 0)
+    want = _run_gen(cuda, "kb1", codes, lengths, k, W, "entropy",
+                    InputType.DNA, pos)
+    assert enc.minimizers.variants["spaced shannon"] == before + 1
+    assert want.mask.any()
+    codes, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
+    _run_gen(cuda, "kb1", codes, lengths, k, W, "entropy", InputType.DNA, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 13, 31, 32])
+@pytest.mark.parametrize("W", [1, 2, 13, 16])
+@pytest.mark.parametrize("canon", [False, True])
+def test_compacted_minimizers_shannon_kernel_matches_plain(cuda, k, W, canon):
+    """DNA contiguous seeds under the Shannon score (eps 1e-3), selected
+    uncanonical, the emitted values canonicalized with ``canon``; rows of
+    several tiles, a tile with no valid seed."""
+    rng = np.random.default_rng(k * 37 + W + canon)
+    codes, lengths = _discipline_rows(rng, k, W)
+    want = _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy",
+                    InputType.DNA, canon=canon)
+    assert want.mask[:, 1:].any()
+    codes, lengths = _kb1_edge_rows(rng, k, W)
+    codes[4, : 2 * KB1_TILE] = -1
+    lengths[4] = codes.shape[1]
+    _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy", InputType.DNA,
+             canon=canon)
+
+
+RADIX_TYPES = [t for t in InputType if t != InputType.DNA]
+
+
+def _radix_codes(rng, codes4, it):
+    """DNA rows of ``_discipline_rows`` / ``_kb1_edge_rows`` as rows of
+    the type's codes: each base a random code, T the largest (a row of T
+    folds to the largest k-mer: PROTEIN_3BIT at k = 22 to U64_MAX), -1
+    kept; PROTEIN (bytes) also gets bytes past 127 (negative int8,
+    ambiguous)."""
+    hi = 128 if radix_of(it) == 256 else radix_of(it)
+    out = rng.integers(0, hi, codes4.shape).astype(np.int8)
+    out[codes4 == 3] = hi - 1
+    out[codes4 < 0] = -1
+    if hi == 128:
+        past = (rng.random(codes4.shape) < 0.01) & (codes4 >= 0)
+        out[past] = rng.integers(-128, 0, int(past.sum()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("it", RADIX_TYPES, ids=lambda t: t.name)
+@pytest.mark.parametrize("which", ["one", "mid", "nper64"])
+def test_radix_kernels_match_plain(cuda, it, which):
+    """Every other alphabet's fold (shift-or and mask, multiply-add and
+    modulus) in KB1 (unwindowed contiguous; spaced at W = 1 and 13) and
+    KB4 (W = 1 and 13), under lex, entropy-file and Shannon (the scheme
+    hash of these types is refused)."""
+    n = nper64(it)
+    k = {"one": 1, "mid": (n + 1) // 2, "nper64": n}[which]
+    rng = np.random.default_rng(int(it) * 41 + k)
+    pos = tuple(range(0, 2 * k - 1, 2))  # every other character
+    for spaced in (False, True):
+        c = pos[-1] + 1 if spaced else k
+        for rows in (_discipline_rows(rng, c, 13), _kb1_edge_rows(rng, c, 13)):
+            codes, lengths = _radix_codes(rng, rows[0], it), rows[1]
+            p = pos if spaced else None
+            want = _run_gen(cuda, "kb1", codes, lengths, k, 1, "lex", it, p)
+            assert want.mask.any()
+            for W in (1, 13):
+                for scheme in ("lex", "entropy-file", "entropy"):
+                    if spaced:
+                        _run_gen(cuda, "kb1", codes, lengths, k, W, scheme,
+                                 it, pos)
+                    else:
+                        _run_gen(cuda, "kb4", codes, lengths, k, W, scheme,
+                                 it)
+
+
+@pytest.mark.cuda
+def test_radix_kernels_keep_a_real_u64_max(cuda):
+    """PROTEIN_3BIT at k = 22 folds 66 bits: 22 residues of code 7 are
+    U64_MAX, emitted unwindowed (a valid seed) and dropped as a spaced
+    emission, as the plain versions do."""
+    it = InputType.PROTEIN_3BIT
+    codes = np.full((2, 200), 7, np.int8)
+    codes[1, 100] = -1
+    lengths = np.array([200, 180], np.int32)
+    want = _run_gen(cuda, "kb1", codes, lengths, 22, 1, "lex", it)
+    assert (want.values[want.mask] == -1).all() and want.mask.any()
+    want = _run_gen(cuda, "kb1", codes, lengths, 22, 1, "lex", it,
+                    tuple(range(0, 43, 2)))
+    assert not want.mask.any()
+
+
+def _rolling_rows(rng, L, n_chars=4):
+    """Rows with 3% Ns, Ns at thread-run and tile edges, an N run longer
+    than most k, an all-N row and a row of one code."""
+    codes = rng.integers(0, n_chars, (6, L)).astype(np.int8)
+    codes[rng.random((6, L)) < 0.03] = -1
+    for p in (0, KB1_RUN - 1, KB1_RUN, KB1_TILE - 1, KB1_TILE,
+              KB1_TILE + KB1_RUN):
+        codes[1, p] = -1
+    codes[2, KB1_TILE - 300: KB1_TILE + 1200] = -1
+    codes[3] = -1
+    codes[4] = n_chars - 1
+    return codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 63, 64, 65, 200, 1000])
+@pytest.mark.parametrize("mode", ["forward", "canon", "nthash"])
+def test_cyclic_hashes_kernel_matches_plain(cuda, k, mode):
+    rng = np.random.default_rng(k * 43 + len(mode))
+    codes = _rolling_rows(rng, 2 * KB1_TILE + 37 + k)
+    renc = rolling.RollingEncoder(k, mode != "forward", nthash=mode == "nthash")
+    c = torch.from_numpy(codes)
+    want = renc.hashes(c)
+    before = rolling.cyclic_hashes.launches
+    got = renc.hashes(c.to(cuda))
+    assert rolling.cyclic_hashes.launches == before + 1
+    _same(got, want)
+    assert want[1][3].all() and not want[1][4].any()  # all N; one code
+    # one row shorter than a tile, P = 1
+    _same(renc.hashes(c[:2, :k + 40].contiguous().to(cuda)),
+          renc.hashes(c[:2, :k + 40].contiguous()))
+    _same(renc.hashes(c[:2, :k].contiguous().to(cuda)),
+          renc.hashes(c[:2, :k].contiguous()))
+
+
+@pytest.mark.cuda
+def test_cyclic_hashes_kernel_twenty_characters(cuda):
+    rng = np.random.default_rng(20)
+    codes = torch.from_numpy(_rolling_rows(rng, 9000, 20))
+    for k in (1, 21, 65):
+        renc = rolling.RollingEncoder(k, n_chars=20)
+        _same(renc.hashes(codes.to(cuda)), renc.hashes(codes))
+    tf = torch.zeros(20, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="reverse complement takes 4"):
+        rolling.cyclic_hashes(codes.to(cuda), 5, tf, tf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 65])
+def test_cyclic_hashes_kernel_codes_past_the_table(cuda, k):
+    """A code at or past the table's length reads 0 on both strands, in
+    the kernel as in the plain version; an empty batch launches nothing."""
+    rng = np.random.default_rng(k + 128)
+    codes = _rolling_rows(rng, KB1_TILE + 37 + k)
+    renc = rolling.RollingEncoder(k, n_chars=2)  # DNA codes 2 and 3 past it
+    c = torch.from_numpy(codes)
+    _same(renc.hashes(c.to(cuda)), renc.hashes(c))
+    codes[rng.random(codes.shape) < 0.1] = 127
+    codes[0, :20] = 4
+    c = torch.from_numpy(codes)
+    renc = rolling.RollingEncoder(k, True)
+    _same(renc.hashes(c.to(cuda)), renc.hashes(c))
+    before = rolling.cyclic_hashes.launches
+    v, inv = renc.hashes(c[:0].to(cuda))
+    assert v.shape == (0, c.shape[1] - k + 1) and inv.shape == v.shape
+    assert rolling.cyclic_hashes.launches == before
+
+
+@pytest.mark.cuda
+def test_gen_kernels_refuse_what_they_do_not_take(cuda):
+    c = torch.zeros((1, 200), dtype=torch.int8, device=cuda)
+    ln = torch.tensor([200], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="compacted_minimizers"):
+        enc.minimizers(c, ln, 21, 10, True, "entropy")
+    with pytest.raises(ValueError, match="never canonicalized"):
+        enc.minimizers(c, ln, 7, 1, True, it=InputType.PROTEIN20)
+    with pytest.raises(ValueError, match="exceeds 64 bits"):
+        enc.compacted_minimizers(c, ln, 15, 10, it=InputType.PROTEIN20)
+    with pytest.raises(ValueError, match="canonicalizes"):
+        enc.compacted_minimizers(c, ln, 21, 10, "lex", canon=True)
+    with pytest.raises(NotImplementedError, match="8.4b"):
+        enc.compacted_minimizers(c, ln, 7, 10, "hash",
+                                 it=InputType.PROTEIN20)
+    with pytest.raises(NotImplementedError, match="8.4b"):
+        enc.minimizers(c, ln, 7, 10, False, "hash", tuple(range(7)),
+                       it=InputType.PROTEIN20)

@@ -146,16 +146,44 @@ def test_minimizers_at_w1_are_the_unwindowed_emissions():
     assert (u64(em.values)[em.mask.numpy()] == U64_MAX).any()  # row of T
 
 
-@pytest.mark.parametrize("make", [
-    lambda: BatchEncoder(Spacer(33, 33)),
-    lambda: BatchEncoder(Spacer(21, 21, "0x16,1x4"), scheme="entropy"),
-    lambda: BatchEncoder(Spacer(25, 37), scheme="entropy"),
-    lambda: BatchEncoder(Spacer(25, 37), canonicalize=False, scheme="entropy"),
-    lambda: BatchEncoder(Spacer(7, 7), input_type=InputType.PROTEIN),
-    lambda: BatchEncoder(Spacer(7, 7, "1x6"), canonicalize=False,
-                         input_type=InputType.PROTEIN),
-], ids=["k33", "spaced-entropy", "entropy", "uncanonical-windowed-entropy",
-        "protein", "spaced-protein"])
+@pytest.mark.parametrize("make", [lambda: BatchEncoder(Spacer(33, 33))],
+                         ids=["k33"])
 def test_unported_disciplines_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()
+
+
+def _rows(rng, B, L, alphabet):
+    """(B, L) codes of random characters of ``alphabet`` (bytes), with
+    lengths from L // 2 to L."""
+    seqs = rng.choice(np.frombuffer(alphabet, np.uint8), (B, L))
+    return seqs, rng.integers(L // 2, L + 1, B).astype(np.int32)
+
+
+@pytest.mark.parametrize("k,w,spacing,canon,scheme,it", [
+    (21, 0, "0x16,1x4", False, "entropy", InputType.DNA),
+    (25, 37, "", True, "entropy", InputType.DNA),
+    (25, 37, "", False, "entropy", InputType.DNA),
+    (7, 7, "", True, "lex", InputType.PROTEIN),
+    (7, 7, "1x6", False, "lex", InputType.PROTEIN),
+], ids=["spaced-entropy", "entropy", "uncanonical-windowed-entropy",
+        "protein", "spaced-protein"])
+def test_entropy_and_protein_disciplines_match_jax(k, w, spacing, canon,
+                                                   scheme, it):
+    """The disciplines that raised before the scheme entropy and the other
+    input types were ported: the same emissions as the JAX package."""
+    from bonsai_tpu.core.alphabet import alphabet_of
+
+    rng = np.random.default_rng(k + w)
+    seqs, lengths = _rows(rng, 6, 160, b"ACGTNacdefghiklmnpqrstvwy*X")
+    codes = alphabet_of(it).lut[seqs]
+    for b, n in enumerate(lengths):
+        codes[b, n:] = -1
+    jsp = JSpacer(k, w, spacing)
+    jem = JEncoder(jsp, canon, scheme, it).emissions(codes, lengths)
+    em = BatchEncoder(Spacer(k, w, spacing), canon, scheme, it).emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    mask = np.asarray(jem.mask)
+    np.testing.assert_array_equal(em.mask.numpy(), mask)
+    np.testing.assert_array_equal(u64(em.values)[mask],
+                                  np.asarray(jem.values)[mask])

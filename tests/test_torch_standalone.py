@@ -42,7 +42,12 @@ h = hashlib.sha256()
 for b in fastx.batch_reads(sys.argv[1], DNA4.lut, batch_size=7):
     h.update(b"".join(b.names) + b"".join(b.seqs))
     h.update(b.codes.tobytes() + b.lengths.tobytes())
+from bonsai_tpu_torch import api
+seq = b"ACGTTGCAAGGCTTAACGNNACGTACGGATCCATGCAAGT" * 3
+kmers = api.get_kmers(seq, k=13, w=29, scheme="entropy", device="cpu")
+hashes = api.rolling_hashes(seq, 21, True, device="cpu")
 print(json.dumps({
+    "api": [kmers.tolist(), hashes.tolist()],
     "package": os.path.dirname(bonsai_tpu_torch.__file__),
     "modules": names,
     "src_dir": native.SRC_DIR,
@@ -83,7 +88,22 @@ def test_copy_imports_every_module_without_jax(copy_run):
     assert rep["package"] == os.path.join(top, "bonsai_tpu_torch")
     assert rep["loaded"] == []
     assert {"bonsai_tpu_torch.native", "bonsai_tpu_torch.kernels",
-            "bonsai_tpu_torch.db.build_device"} <= set(rep["modules"])
+            "bonsai_tpu_torch.db.build_device", "bonsai_tpu_torch.api",
+            "bonsai_tpu_torch.core.rolling"} <= set(rep["modules"])
+
+
+def test_copy_runs_the_api_without_jax(copy_run):
+    """get_kmers (the scheme entropy) and rolling_hashes in the copy, on
+    the CPU, give what they give in the repository."""
+    from bonsai_tpu_torch import api
+
+    _, rep = copy_run
+    seq = b"ACGTTGCAAGGCTTAACGNNACGTACGGATCCATGCAAGT" * 3
+    assert rep["api"][0] == api.get_kmers(seq, k=13, w=29, scheme="entropy",
+                                          device="cpu").tolist()
+    assert rep["api"][1] == api.rolling_hashes(seq, 21, True,
+                                               device="cpu").tolist()
+    assert rep["api"][0] and rep["api"][1]
 
 
 def test_copy_builds_its_host_library_from_its_own_sources(copy_run):
