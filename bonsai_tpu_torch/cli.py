@@ -1,5 +1,5 @@
-"""Command line of the PyTorch/CUDA port: ``build``, ``prebuild`` and
-``classify``.
+"""Command line of the PyTorch/CUDA port: ``build``, ``prebuild``,
+``classify`` and the sketch front-ends.
 
 Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
@@ -11,19 +11,38 @@ subcommands, bin/bonsai.cpp) for the ported slice:
         [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
            [-c CHUNK] [--profile] [--device cuda|cpu]
+  kmercnt GENOMES... [-k KS] [-o PREFIX] [-C] [--shs-only|--bin-only]
+          [--nthash] [--device cuda|cpu]
+  rolling-multk GENOMES... [-k KS] [-C] [--device cuda|cpu]
+  rolling-multk-sketch GENOMES... [-k KS] [-z SIZE] [-C] [-o PREFIX]
+          [--device cuda|cpu]
+  setsketch GENOMES... [-k K] [-o OUT] [-z SIZE] [-C] [-s] [-S] [-Z] [-B]
+          [-F paths] [-c] [-P] [--device cuda|cpu]
+  distmat GENOMES... -k K -o PREFIX [--metric M] [--hll P] [-C]
+          [--device cuda|cpu]
+  cmpshs SHS... [-m METRIC] [-o OUT] [--device cuda|cpu]
 
-``classify`` and the ``--device-build`` builds run on ``--device``
-(default cuda, which must be present; cpu runs the kernels' plain torch
-versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
+``classify``, the ``--device-build`` builds and the sketch front-ends run
+on ``--device`` (default cuda, which must be present; cpu runs the
+kernels' plain torch versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
 (``-e``), uncanonical windows (``-C -w``) and the hash-scored phase 2
 (``-t|-f --phase1-db P1``: minimizers ordered by the phase-1 map that
 ``prebuild -t|-f`` wrote); ``classify`` reads a BTPU1
 database file or a probe-image directory, of a contiguous or a spaced
 seed, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
-gzips the BTPU1 file whatever its name, as the reference does.  Options
-of ``bonsai_tpu`` that are not ported (other file formats, sharded
-output, k > 32) and inputs that the port refuses (a database or phase-1
-map that is not BTPU1) exit 2 with the ROADMAP item that holds them.
+gzips the BTPU1 file whatever its name, as the reference does.  The
+sketch front-ends (``kmercnt``, ``rolling-multk``, ``rolling-multk-sketch``,
+``setsketch``, ``distmat``, ``cmpshs``) print and write what the JAX
+package's do, but for two of its faults: its ``MultiKCounter`` counts the
+windows of a long contig's chunk overlaps again for the smaller ks (here
+each window counts once, ``sketch/shs.py``), and its ``distmat --hll``
+merges its sketches in place, so that an entry (i, j) with j > i + 1
+estimates the union of sketches i..j (here each pair's union comes from
+the two sketches alone, ``HyperLogLog.union_estimate``).  Options of
+``bonsai_tpu`` that are not ported (other file formats, sharded output,
+k > 32 in the build), its other subcommands, and inputs that the port
+refuses (a database or phase-1 map that is not BTPU1) exit 2 with the
+ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -52,9 +71,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-C", "--no-canon", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall times to stderr")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (kernels, default) or cpu "
-                        "(their plain torch versions)")
+    _device_arg(p)
 
     p = sub.add_parser("build", aliases=["p2", "phase2"],
                        help="build the classify database")
@@ -97,16 +114,126 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-S", "--spacing", default="",
                    help="spaced seed: k-1 gaps, e.g. 0x16,1x4")
     _device_args(p)
+    _sketch_parsers(sub)
+    for name, (aliases, item) in UNPORTED_COMMANDS.items():
+        sub.add_parser(name, aliases=aliases,
+                       help=f"not ported (ROADMAP queue A, item {item})"
+                       ).set_defaults(unported=(name, item))
     return ap
+
+
+def _device_arg(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (kernels, default) or cpu "
+                        "(their plain torch versions)")
+
+
+def _sketch_parsers(sub) -> None:
+    p = sub.add_parser("kmercnt", help="multi-k kmer counting -> .shs/.bin "
+                                       "dumps (bin/kmercnt.cpp)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-k", "--ks", default="31", help="comma-separated k values")
+    p.add_argument("-o", "--out-prefix", default=None,
+                   help="default: input path")
+    p.add_argument("-C", "--canon", action="store_true")
+    p.add_argument("--shs-only", action="store_true")
+    p.add_argument("--bin-only", action="store_true")
+    p.add_argument("--nthash", action="store_true",
+                   help="ntHash NTC64 backend (reference kmercnt -htype 2)")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_kmercnt)
+
+    p = sub.add_parser("setsketch", aliases=["setsketcher"],
+                       help="per-file continuous SetSketch + union "
+                            "(bin/setsketcher.cpp)")
+    p.add_argument("paths", nargs="*")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-o", "--out", default="default.sketch")
+    p.add_argument("-z", "--sketch-size", type=int, default=4096)
+    p.add_argument("-C", "--no-canon", action="store_true")
+    p.add_argument("-s", "--save-kmer-counts", action="store_true")
+    p.add_argument("-S", "--save-kmers", action="store_true")
+    p.add_argument("-Z", "--no-per-file", action="store_true")
+    p.add_argument("-B", "--basename", action="store_true")
+    p.add_argument("-F", "--paths-file", default=None)
+    p.add_argument("-c", "--cyclic", action="store_true",
+                   help="rolling cyclic hash instead of 2-bit kmers")
+    p.add_argument("-P", "--protein", action="store_true",
+                   help="protein k-mers (implies cyclic hashing, "
+                        "setsketcher.cpp:125-128)")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_setsketch)
+
+    p = sub.add_parser("cmpshs",
+                       help="pairwise compare .shs dumps (bin/cmpshs.cpp)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-m", "--metric", default="jaccard",
+                   choices=["jaccard", "intersection", "union", "containment"])
+    p.add_argument("-o", "--out", default=None)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_cmpshs)
+
+    p = sub.add_parser("distmat",
+                       help="genomes -> pairwise distance matrix (.tsv + "
+                            ".npy), the run_dist.py + distmat2np.py "
+                            "workflow (python/run_dist.py)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-o", "--out", required=True,
+                   help="output prefix (writes PREFIX.tsv, PREFIX.npy, "
+                   "PREFIX.labels.txt)")
+    p.add_argument("--metric", default="jaccard",
+                   choices=["jaccard", "intersection", "union",
+                            "containment", "mash"])
+    p.add_argument("--hll", type=int, metavar="P", default=0,
+                   help="estimate with HyperLogLog(p=P) sketches instead "
+                   "of exact sets (run_dist's sketch mode)")
+    p.add_argument("-C", "--no-canon", action="store_true")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_distmat)
+
+    p = sub.add_parser("rolling-multk", aliases=["rolling_multk"],
+                       help="multi-k rolling-hash distinct counts "
+                            "(bin/rolling_multk.cpp)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-k", "--ks", default="17,21,25,29,31")
+    p.add_argument("-C", "--canon", action="store_true")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_rolling_multk)
+
+    p = sub.add_parser("rolling-multk-sketch",
+                       aliases=["rolling_multk_sketch"],
+                       help="per-k CSetSketch over a rolling multi-k ladder "
+                            "(bin/rolling_multk_sketch.cpp)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-k", "--ks", default="17,21,25,29,31")
+    p.add_argument("-z", "--sketch-size", type=int, default=1024)
+    p.add_argument("-C", "--canon", action="store_true")
+    p.add_argument("-o", "--out-prefix", default=None)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_rolling_multk_sketch)
+
+
+# the subcommands of bonsai_tpu that the port lacks: name -> (aliases,
+# the ROADMAP queue A item that holds it)
+UNPORTED_COMMANDS = {
+    "hist": ([], "12"), "lca": ([], "12"), "taxmap": ([], "12"),
+    "css2ss": ([], "12"), "shs2sketch": ([], "12"),
+    "ssi-build": (["setsketchindexer"], "12"),
+    "ssi-screen": (["setsketchscreener"], "12"),
+    "stdin2ss": ([], "12"), "genome2multiset": ([], "12"),
+    "fahist": ([], "12"), "kmeridx": ([], "12"),
+    "setsketchroller": ([], "12"), "errexp": ([], "12"),
+    "metatree": ([], "12"), "probe-image": ([], "10"),
+    "merge-parts": ([], "11"),
+}
 
 
 def _device_args(p) -> None:
     p.add_argument("--device-build", action="store_true",
                    help="run the k-mer fold on the device "
                         "(db/build_device.py: kernels KB1-KB4)")
-    p.add_argument("--device", default="cuda",
-                   help="device of --device-build: cuda (kernels, default) "
-                        "or cpu (their plain torch versions)")
+    _device_arg(p)
 
 
 _UNPORTED = {
@@ -136,10 +263,19 @@ def _paths(args) -> List[str]:
 
 def main(argv=None) -> int:
     ap = _parser()
-    args = ap.parse_args(argv)
+    args, extra = ap.parse_known_args(argv)
     if args.cmd is None:
         ap.print_help()
         return 1
+    if getattr(args, "unported", None):
+        name, item = args.unported
+        print(f"not ported: the subcommand {name} (ROADMAP queue A, item "
+              f"{item})", file=sys.stderr)
+        return 2
+    if extra:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    if hasattr(args, "run"):  # a sketch front-end
+        return args.run(args)
     build = args.cmd in ("build", "p2", "phase2")
     if args.cmd != "classify":
         msg = _unported(args, _UNPORTED if build else ())
@@ -263,4 +399,212 @@ def _cmd_prebuild(args) -> int:
                   scheme=scheme)
     save_database(db, args.out_path)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
+    return 0
+
+
+# -- sketch front-ends (bonsai_tpu/cli.py:678-842,1128-1156) -------------------
+
+def _cmd_kmercnt(args) -> int:
+    from .sketch import shs as shs_mod
+
+    ks = [int(x) for x in args.ks.split(",")]
+    flag = 0
+    if not args.bin_only:
+        flag |= shs_mod.WRITE_SHS
+    if not args.shs_only:
+        flag |= shs_mod.WRITE_KVMAP
+    for path in args.paths:
+        prefix = args.out_prefix or path
+        written = shs_mod.dump_maps(prefix, ks, path, canon=args.canon,
+                                    flag=flag, nthash=args.nthash,
+                                    device=args.device)
+        print("\n".join(written), file=sys.stderr)
+    return 0
+
+
+def _cmd_setsketch(args) -> int:
+    import os
+
+    import torch
+
+    from .core.alphabet import AMINO20, DNA4
+    from .core.encoder import BatchEncoder
+    from .core.spacer import Spacer
+    from .db.build_device import as_device
+    from .sketch.setsketch import CSetSketch
+    from .sketch.shs import _contig_code_batches
+
+    paths = list(args.paths)
+    if args.paths_file:
+        with open(args.paths_file) as fh:
+            paths += [line.strip() for line in fh if line.strip()]
+    if not paths:
+        print("no input files", file=sys.stderr)
+        return 1
+    dev = as_device(args.device)
+    k = args.k
+    z = args.sketch_size
+    canon = not args.no_canon
+    cyclic = args.cyclic or args.protein or k > 32
+    lut = AMINO20.lut if args.protein else DNA4.lut
+    save_kmers = args.save_kmers or args.save_kmer_counts
+    union = CSetSketch(z, save_kmers, args.save_kmer_counts, device=dev)
+    if cyclic:
+        from .core.rolling import RollingEncoder
+
+        n_chars = AMINO20.n_classes if args.protein else 4
+        renc = RollingEncoder(k, canon=canon and not args.protein,
+                              n_chars=n_chars)
+    else:
+        enc = BatchEncoder(Spacer(k, k), canon)
+    for path in paths:
+        s = CSetSketch(z, save_kmers, args.save_kmer_counts, device=dev)
+        for codes in _contig_code_batches(path, lut, overlap=k - 1):
+            if codes.size < k:
+                continue
+            row = torch.from_numpy(codes[None, :]).to(dev)
+            if cyclic:
+                vals, invalid = renc.hashes(row)
+                v = vals[0][~invalid[0]]
+            else:
+                em = enc.emissions(row, torch.tensor(
+                    [codes.size], dtype=torch.int32, device=dev))
+                v = em.values[0][em.mask[0]]
+            s.update(v)
+        card = s.cardinality()
+        print(f"{path}\t{card:.1f}. Total updates {s.total_updates()}",
+              file=sys.stderr)
+        base = os.path.basename(path) if args.basename else path
+        if not args.no_per_file:
+            s.write(f"{base}.{k}.{z}.ss")
+        if save_kmers:
+            s.ids().tofile(f"{base}.{k}.{z}.u64.kmers")
+            if args.save_kmer_counts:
+                s.idcounts().tofile(f"{base}.{k}.{z}.u32.kmercounts")
+        union.merge(s)
+    print(f"union cardinality: {union.cardinality():.1f}", file=sys.stderr)
+    union.write(args.out)
+    return 0
+
+
+def distance_matrix(sets, metric: str, k: int, hll: int, device):
+    """The (n, n) matrix of ``distmat`` over sorted distinct k-mer sets:
+    exact, or from HyperLogLog(p=hll) sketches, each pair's union estimated
+    from the two sketches alone (union_estimate)."""
+    import numpy as np
+
+    from .core.bitops import as_keys
+    from .sketch import compare
+    from .sketch.hll import HyperLogLog
+
+    n = len(sets)
+    want_j = metric in ("jaccard", "mash")
+    if hll:
+        hlls = []
+        for s in sets:
+            h = HyperLogLog(hll, device)
+            h.addh(s)
+            hlls.append(h)
+        card = np.array([h.report() for h in hlls])
+        mat = np.zeros((n, n), dtype=np.float64)
+        for i in range(n):
+            mat[i, i] = 1.0 if want_j else card[i]
+            for j in range(i + 1, n):
+                u = hlls[i].union_estimate(hlls[j])
+                inter = max(card[i] + card[j] - u, 0.0)
+                v = {
+                    "jaccard": inter / max(u, 1e-12),
+                    "mash": inter / max(u, 1e-12),
+                    "intersection": inter,
+                    "union": u,
+                    "containment": inter / max(card[i], 1e-12),
+                }[metric]
+                mat[i, j] = mat[j, i] = v
+    else:
+        mat = compare.pairwise_matrix([as_keys(s, device) for s in sets],
+                                      metric="jaccard" if want_j else metric)
+    if metric == "mash":
+        with np.errstate(divide="ignore"):
+            j = np.clip(mat, 1e-300, 1.0)
+            mat = -np.log(2.0 * j / (1.0 + j)) / k
+        np.fill_diagonal(mat, 0.0)
+    return mat
+
+
+def _cmd_distmat(args) -> int:
+    """The reference's distance-matrix workflow (python/run_dist.py,
+    distmat2np.py): PREFIX.tsv (labeled), PREFIX.npy and
+    PREFIX.labels.txt.  --metric mash converts Jaccard j to
+    -ln(2j/(1+j))/k; --hll P estimates from HyperLogLog sketches."""
+    import os
+
+    import numpy as np
+
+    from .core.spacer import Spacer
+    from .db.build import genome_kmer_set
+    from .db.build_device import as_device
+
+    dev = as_device(args.device)
+    sp = Spacer(args.k, args.k)
+    sets = [genome_kmer_set(p, sp, not args.no_canon) for p in args.paths]
+    n = len(sets)
+    mat = distance_matrix(sets, args.metric, args.k, args.hll, dev)
+    labels = [os.path.basename(p) for p in args.paths]
+    with open(args.out + ".tsv", "w") as fh:
+        fh.write("#genome\t" + "\t".join(labels) + "\n")
+        for i, lab in enumerate(labels):
+            fh.write(lab + "\t" + "\t".join(f"{v:.8g}" for v in mat[i]) + "\n")
+    np.save(args.out + ".npy", mat.astype(np.float32))
+    with open(args.out + ".labels.txt", "w") as fh:
+        fh.write("\n".join(labels) + "\n")
+    print(f"wrote {n}x{n} {args.metric} matrix to {args.out}.npy/.tsv",
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_cmpshs(args) -> int:
+    from .core.bitops import as_keys
+    from .db.build_device import as_device
+    from .sketch import compare, shs as shs_mod
+
+    dev = as_device(args.device)
+    sets = [as_keys(shs_mod.read_shs(p), dev) for p in args.paths]
+    mat = compare.pairwise_matrix(sets, metric=args.metric)
+    out = open(args.out, "w") if args.out else sys.stdout
+    out.write("#path\t" + "\t".join(args.paths) + "\n")
+    for i, p in enumerate(args.paths):
+        out.write(p + "\t" + "\t".join(f"{v:.8g}" for v in mat[i]) + "\n")
+    if args.out:
+        out.close()
+    return 0
+
+
+def _cmd_rolling_multk(args) -> int:
+    from .sketch.shs import MultiKCounter
+
+    ks = [int(x) for x in args.ks.split(",")]
+    for path in args.paths:
+        ctr = MultiKCounter(ks, canon=args.canon, device=args.device)
+        ctr.add_file(path)
+        for k, s in zip(ks, ctr.key_sets()):
+            print(f"{path}\tk={k}\t{s.numel()}")
+    return 0
+
+
+def _cmd_rolling_multk_sketch(args) -> int:
+    """rolling_multk_sketch (bin/rolling_multk_sketch.cpp): one rolling
+    pass per file, a CSetSketch per k."""
+    from .sketch.setsketch import CSetSketch
+    from .sketch.shs import MultiKCounter
+
+    ks = [int(x) for x in args.ks.split(",")]
+    for path in args.paths:
+        ctr = MultiKCounter(ks, canon=args.canon, device=args.device)
+        ctr.add_file(path)
+        for k, hashes_sorted in zip(ks, ctr.key_sets()):
+            cs = CSetSketch(args.sketch_size, device=args.device)
+            cs.update(hashes_sorted)
+            print(f"{path}\tk={k}\tcard~{cs.cardinality():.1f}")
+            if args.out_prefix:
+                cs.write(f"{args.out_prefix}.{k}.css")
     return 0

@@ -9,11 +9,19 @@ carried in an ``int64`` tensor with the same bits:
 * a right shift must be made logical (``shr``): the arithmetic shift
   copies bit 63 into the vacated high bits;
 * an unsigned order flips bit 63 before the signed compare (``umin``).
+
+``popcount64`` and ``nuccount`` (bitops.py:60,69 there) are wrappers of
+the CUDA kernel KS4 (``csrc/bitmix.cu``, one elementwise pass, which
+``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` share through
+``bitmix``); their plain torch versions serve CPU tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .. import kernels
 
 U64_MAX = (1 << 64) - 1
 SIGN = -(1 << 63)  # bit 63 as an int64 constant
@@ -28,6 +36,17 @@ def i64(c: int) -> int:
     """The int64 constant with the bits of the u64 constant ``c``."""
     c &= U64_MAX
     return c - (1 << 64) if c >> 63 else c
+
+
+def as_keys(values, device) -> torch.Tensor:
+    """u64 values (numpy, a sequence or an int64 tensor) as a contiguous
+    int64 tensor on ``device``."""
+    if isinstance(values, torch.Tensor):
+        if values.dtype != torch.int64:
+            raise TypeError(f"values: dtype {values.dtype}, expected int64")
+        return values.reshape(-1).contiguous().to(device)
+    a = np.ascontiguousarray(np.asarray(values, dtype=np.uint64).ravel())
+    return torch.from_numpy(a.view(np.int64)).to(device)
 
 
 def shr(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -58,3 +77,87 @@ def reverse_complement(kmer: torch.Tensor, k: int) -> torch.Tensor:
 def canonical(kmer: torch.Tensor, k: int) -> torch.Tensor:
     """Unsigned min(kmer, revcomp(kmer)) (kmerutil.h:137-140)."""
     return umin(kmer, reverse_complement(kmer, k))
+
+
+def kmer_mask_bits(k: int) -> int:
+    """(1 << 2k) - 1 as a python int (full mask for k == 32)."""
+    return U64_MAX if k >= 32 else (1 << (2 * k)) - 1
+
+
+# KS4's modes (csrc/bitmix.cu)
+BITMIX_MODES = {"wang_hash": 0, "khash_int64_hash": 1, "popcount64": 2}
+
+
+def bitmix(x: torch.Tensor, mode: str, plain) -> torch.Tensor:
+    """KS4 in ``mode`` on an int64 tensor of any shape, or ``plain(x)`` for
+    a CPU tensor."""
+    if x.device.type == "cpu":
+        return plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"{mode}: no kernel for device {x.device}")
+    kernels.check(x, "x", torch.int64, x.device)
+    out = torch.empty_like(x)
+    if x.numel():
+        kernels.launch("bk_bitmix", x.device, x.data_ptr(), x.numel(),
+                       BITMIX_MODES[mode], out.data_ptr())
+        bitmix.launches += 1
+        bitmix.variants[mode] = bitmix.variants.get(mode, 0) + 1
+    return out
+
+
+bitmix.launches = 0
+bitmix.variants = {}
+
+
+def popcount64_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch KS4 ``popcount64``: the branch-free popcount of
+    popcnt.h on int64-held u64 lanes."""
+    x = x - (shr(x, 1) & 0x5555555555555555)
+    x = (x & _M2) + (shr(x, 2) & _M2)
+    x = (x + shr(x, 4)) & _M4
+    return shr(x * 0x0101010101010101, 56)
+
+
+def popcount64(x: torch.Tensor) -> torch.Tensor:
+    """KS4 (``csrc/bitmix.cu``): see ``popcount64_plain``, which serves CPU
+    tensors."""
+    return bitmix(x, "popcount64", popcount64_plain)
+
+
+# the reference's c_table: code c matches where both bits of kmer ^ c0
+# are set (A: all ones, C: 0xaa.., G: 0x55.., T: 0)
+_NUC_CMP = (-1, i64(0xAAAAAAAAAAAAAAAA), 0x5555555555555555, 0)
+
+
+def nuccount_plain(kmer: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain torch KS4 ``nuccount``: (...,) packed 2-bit k-mers ->
+    (..., 4) int64 counts of codes A, C, G, T (kmerutil.h:93-135)."""
+    mask = i64(kmer_mask_bits(k))
+    out = []
+    for c0 in _NUC_CMP:
+        x0 = kmer ^ c0
+        out.append(popcount64_plain(x0 & (shr(x0, 1) & 0x5555555555555555)
+                                    & mask))
+    return torch.stack(out, dim=-1)
+
+
+def nuccount(kmer: torch.Tensor, k: int) -> torch.Tensor:
+    """KS4's nuccount entry (``csrc/bitmix.cu``): see ``nuccount_plain``,
+    which serves CPU tensors."""
+    if not 1 <= k <= 32:
+        raise ValueError(f"k={k}: a packed 2-bit k-mer has 1 <= k <= 32")
+    if kmer.device.type == "cpu":
+        return nuccount_plain(kmer, k)
+    if kmer.device.type != "cuda":
+        raise ValueError(f"nuccount: no kernel for device {kmer.device}")
+    kernels.check(kmer, "kmer", torch.int64, kmer.device)
+    out = torch.empty(kmer.shape + (4,), dtype=torch.int64,
+                      device=kmer.device)
+    if kmer.numel():
+        kernels.launch("bk_nuccount", kmer.device, kmer.data_ptr(),
+                       kmer.numel(), kmer_mask_bits(k), out.data_ptr())
+        nuccount.launches += 1
+    return out
+
+
+nuccount.launches = 0

@@ -1,18 +1,20 @@
 """64-bit mixers on torch ``int64`` tensors: splitmix64 (the table's
-bucket hash) and frev64 (the Lex minimizer score).
+bucket hash), frev64 (the Lex minimizer score), wang_hash (the
+HyperLogLog's hash) and khash_int64_hash (klib's).
 
 Counterpart of ``bonsai_tpu/core/hashes.py`` (``rotl64`` :34, ``frev64``
-:39, ``splitmix64`` :84); u64 bits are carried in int64 (see
-``core/bitops.py``): multiplications wrap mod 2^64 on both, right shifts
-are made logical.  The other mixers of that module (wang_hash, khash)
-serve sketches and formats that are not ported yet.
+:39, ``wang_hash`` :58, ``khash_int64_hash`` :75, ``splitmix64`` :84);
+u64 bits are carried in int64 (see ``core/bitops.py``): multiplications
+wrap mod 2^64 on both, right shifts are made logical.  ``wang_hash`` and
+``khash_int64_hash`` are wrappers of the CUDA kernel KS4
+(``csrc/bitmix.cu``); their plain torch versions serve CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bitops import i64, shr
+from .bitops import bitmix, i64, shr
 
 _SM_ADD = i64(0x9E3779B97F4A7C15)
 _SM_M1 = i64(0xBF58476D1CE4E5B9)
@@ -40,3 +42,33 @@ def splitmix64(x: torch.Tensor) -> torch.Tensor:
     x = (x ^ shr(x, 30)) * _SM_M1
     x = (x ^ shr(x, 27)) * _SM_M2
     return x ^ shr(x, 31)
+
+
+def wang_hash_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch KS4 ``wang_hash``: Thomas Wang's 64-bit mix
+    (hash.h:32-41) of int64-held u64 values."""
+    x = ~x + (x << 21)
+    x = x ^ shr(x, 24)
+    x = x * 265
+    x = x ^ shr(x, 14)
+    x = x * 21
+    x = x ^ shr(x, 28)
+    return x + (x << 31)
+
+
+def khash_int64_hash_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch KS4 ``khash_int64_hash``: klib's int64 hash truncated
+    to u32 (khash64.h:425), in the low half of an int64."""
+    return (shr(x, 33) ^ x ^ (x << 11)) & 0xFFFFFFFF
+
+
+def wang_hash(x: torch.Tensor) -> torch.Tensor:
+    """KS4 (``csrc/bitmix.cu``): see ``wang_hash_plain``, which serves CPU
+    tensors."""
+    return bitmix(x, "wang_hash", wang_hash_plain)
+
+
+def khash_int64_hash(x: torch.Tensor) -> torch.Tensor:
+    """KS4 (``csrc/bitmix.cu``): see ``khash_int64_hash_plain``, which
+    serves CPU tensors."""
+    return bitmix(x, "khash_int64_hash", khash_int64_hash_plain)

@@ -1,0 +1,118 @@
+// KS4 bitmix: one elementwise pass over int64-held u64 values, with a mode
+// for each of wang_hash, khash_int64_hash and popcount64, and a nuccount
+// entry that writes the four base counts of a packed 2-bit k-mer.
+//
+// Replaces bonsai_tpu/core/hashes.py wang_hash (:58), khash_int64_hash
+// (:75) and bonsai_tpu/core/bitops.py popcount64 (:60), nuccount (:69):
+// jnp elementwise functions that XLA lowers to paired 32-bit VPU ops.
+//
+// What bounds it on an H100: bytes.  A value is read once and 8 B (or
+// four 8-B counts) written once; the mixes are a dozen integer operations
+// and __popcll one.  A thread takes 4 values of a grid-stride loop, so
+// loads are coalesced and a block has several in flight.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "bitmix.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPerThread = 4;
+
+enum Mode { kWang = 0, kKhash = 1, kPopcount = 2 };
+
+template <int kMode>
+__device__ __forceinline__ uint64_t mix(uint64_t x) {
+  if (kMode == kWang) return bk::wang_hash(x);
+  if (kMode == kKhash) return bk::khash_int64_hash(x);
+  return (uint64_t)__popcll(x);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    bitmix(const uint64_t* __restrict__ in, int64_t n,
+           uint64_t* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t base = (int64_t)blockIdx.x * kThreads * kPerThread +
+                      threadIdx.x;
+       base < n; base += stride * kPerThread) {
+    uint64_t v[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const int64_t i = base + (int64_t)r * kThreads;
+      v[r] = i < n ? in[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const int64_t i = base + (int64_t)r * kThreads;
+      if (i < n) out[i] = mix<kMode>(v[r]);
+    }
+  }
+}
+
+// Counts of codes A, C, G, T (0..3) among the k 2-bit codes of each
+// k-mer (bitops.nuccount): code c matches where both bits of x ^ cmp[c]
+// are set, counted with one popcount a code.
+__global__ void __launch_bounds__(kThreads)
+    nuccount(const uint64_t* __restrict__ in, int64_t n, uint64_t mask,
+             int64_t* __restrict__ out) {
+  const uint64_t cmp[4] = {~0ull, 0xAAAAAAAAAAAAAAAAull,
+                           0x5555555555555555ull, 0ull};
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const uint64_t x = in[i];
+    int64_t c[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint64_t x0 = x ^ cmp[b];
+      c[b] = __popcll(x0 & ((x0 >> 1) & 0x5555555555555555ull) & mask);
+    }
+    longlong2* o = (longlong2*)(out + 4 * i);  // 32-B aligned rows
+    o[0] = make_longlong2(c[0], c[1]);
+    o[1] = make_longlong2(c[2], c[3]);
+  }
+}
+
+unsigned grid(int64_t n, int64_t per) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t want = (n + kThreads * per - 1) / (kThreads * per);
+  const int64_t cap = (int64_t)sms * 16;
+  return (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+}  // namespace
+
+// in (n,) int64-held u64 -> out (n,) int64: mode 0 wang_hash, 1
+// khash_int64_hash (its u32 in the low half), 2 popcount64.
+extern "C" int bk_bitmix(const void* in, int64_t n, int mode, void* out,
+                         void* stream) {
+  if (n < 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned g = grid(n, kPerThread);
+  const uint64_t* i = (const uint64_t*)in;
+  uint64_t* o = (uint64_t*)out;
+  if (mode == kWang)
+    bitmix<kWang><<<g, kThreads, 0, s>>>(i, n, o);
+  else if (mode == kKhash)
+    bitmix<kKhash><<<g, kThreads, 0, s>>>(i, n, o);
+  else
+    bitmix<kPopcount><<<g, kThreads, 0, s>>>(i, n, o);
+  return (int)cudaGetLastError();
+}
+
+// kmers (n,) int64-held u64, the k-mer's bit mask -> out (n, 4) int64
+// counts of A, C, G, T; out 32-B aligned.
+extern "C" int bk_nuccount(const void* kmers, int64_t n, uint64_t mask,
+                           void* out, void* stream) {
+  if (n < 0 || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  nuccount<<<grid(n, 1), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)kmers, n, mask, (int64_t*)out);
+  return (int)cudaGetLastError();
+}

@@ -40,6 +40,13 @@
 // Tile ids come from a counter, not blockIdx, and the status words, their
 // relaxed polling and the back-off are lookback.cuh's (shared with KB3), so
 // a chunk holds fewer than 2^30 keys; global offsets are 64-bit.
+//
+// KS3 sort_count (bk_sort_count) shares steps 1-4 and replaces step 5 with
+// a run-length step.  It replaces bonsai_tpu/sketch/shs.py count_hashes
+// (:48-57): np.sort, a drop of adjacent duplicates and np.diff of the run
+// starts, counts saturated at 0xFFFF.  dedup_runs also writes the sorted
+// index of each distinct key, and run_lengths turns two neighbours of
+// those into a run's length, a u16 saturated at 0xFFFF.
 
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
@@ -224,13 +231,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 // Thread t holds keys base + r * kThreads + t, r < kPerLane: loads and
 // stores are coalesced.  Distinct keys are written in (r, warp, lane)
-// order, which is index order.
+// order, which is index order.  STARTS: each distinct key's index in the
+// sorted keys goes to starts (sort_count).
+template <bool STARTS>
 __global__ void __launch_bounds__(kThreads)
     dedup_runs(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                const int32_t* __restrict__ ctrl,
                const int64_t* __restrict__ m_ptr,
                uint32_t* __restrict__ tile_ctr, uint32_t* status,
-               uint64_t* __restrict__ out, int64_t* __restrict__ n_out) {
+               uint64_t* __restrict__ out, int64_t* __restrict__ n_out,
+               uint32_t* __restrict__ starts) {
   using Scan = cub::BlockScan<int32_t, kThreads>;
   constexpr int kGroups = kPerLane * kWarps;  // (r, warp) groups of 32
   static_assert(kGroups <= kThreads, "one group count a thread");
@@ -279,9 +289,26 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned lt = (1u << lane) - 1;
 #pragma unroll
   for (int r = 0; r < kPerLane; ++r)
-    if (bal[r] >> lane & 1)
-      out[before + s_grp[r * kWarps + w] + __popc(bal[r] & lt)] = key[r];
+    if (bal[r] >> lane & 1) {
+      const int64_t o = before + s_grp[r * kWarps + w] + __popc(bal[r] & lt);
+      out[o] = key[r];
+      if (STARTS) starts[o] = (uint32_t)(base + r * kThreads + t);
+    }
   if (t == 0 && base + kTile >= m) *n_out = before + kept;
+}
+
+// sort_count: the length of run j, from its start and the next run's (or
+// the m sorted keys), saturated at 0xFFFF.
+__global__ void run_lengths(const uint32_t* __restrict__ starts,
+                            const int64_t* __restrict__ n_ptr,
+                            const int64_t* __restrict__ m_ptr,
+                            uint16_t* __restrict__ counts) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n = *n_ptr;
+  if (j >= n) return;
+  const int64_t end = j + 1 < n ? (int64_t)starts[j + 1] : *m_ptr;
+  const int64_t len = end - (int64_t)starts[j];
+  counts[j] = (uint16_t)(len < 0xFFFF ? len : 0xFFFF);
 }
 
 // A block of 256 threads covers 2048 slots: thread t the 8 pad bytes from
@@ -311,7 +338,8 @@ __global__ void fill_pads(uint64_t* __restrict__ keys,
 
 // Scratch: a region cleared on every call (histograms, the last-block
 // counter, a tile counter per kernel, status words), then the digit bases,
-// m, the pass control words and the two key buffers.
+// m, the pass control words, the two key buffers and, for sort_count, the
+// run starts.
 struct Buffers {
   uint32_t* zero;
   int64_t zero_words;
@@ -320,12 +348,13 @@ struct Buffers {
   int32_t* ctrl;
   uint64_t* a;
   uint64_t* b;
+  uint32_t* starts;
   int64_t used;
 };
 
 int64_t tiles_of(int64_t E) { return (E + kTile - 1) / kTile; }
 
-Buffers carve(char* p, int64_t E) {
+Buffers carve(char* p, int64_t E, bool starts = false) {
   const int64_t ntiles = tiles_of(E);
   bk::Carve c{p};
   Buffers b;
@@ -337,11 +366,47 @@ Buffers carve(char* p, int64_t E) {
   b.ctrl = c.take<int32_t>(kPasses + 1);
   b.a = c.take<uint64_t>(E);
   b.b = c.take<uint64_t>(E);
+  b.starts = starts ? c.take<uint32_t>(E) : nullptr;
   b.used = c.used;
   return b;
 }
 
 unsigned blocks(int64_t n, int t = 256) { return (unsigned)((n + t - 1) / t); }
+
+// Steps 1-4 on E > 0 keys: the sorted distinct emitted keys into out,
+// their count into n, and with b.starts each one's sorted index.
+cudaError_t sort_dedup(const void* keys, const void* emitted, int64_t E,
+                       const Buffers& b, uint64_t* out, int64_t* n,
+                       cudaStream_t s) {
+  const int64_t ntiles = tiles_of(E);
+  uint32_t* hist = b.zero;
+  uint32_t* done = hist + kPasses * kBins;
+  uint32_t* tile_ctr = done + 1;  // one per pass, then dedup_runs'
+  uint32_t* status = tile_ctr + kPasses + 1;
+  uint32_t* dedup_status = status + (int64_t)kPasses * kBins * ntiles;
+  const cudaError_t e = cudaMemsetAsync(b.zero, 0, b.zero_words * 4, s);
+  if (e != cudaSuccess) return e;
+  const int64_t hist_blocks = (ntiles + kHistTiles - 1) / kHistTiles;
+  digit_hist<<<(unsigned)hist_blocks, kThreads, 0, s>>>(
+      (const uint64_t*)keys, (const uint8_t*)emitted, E, hist, done,
+      b.digit_base, b.m, b.ctrl);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    auto* kern = pass ? onesweep_pass<false> : onesweep_pass<true>;
+    kern<<<(unsigned)ntiles, kThreads, 0, s>>>(
+        pass, (const uint64_t*)keys, (const uint8_t*)emitted, E, b.a, b.b,
+        b.m, b.ctrl, b.digit_base, tile_ctr + pass,
+        status + (int64_t)pass * kBins * ntiles);
+  }
+  if (b.starts)
+    dedup_runs<true><<<(unsigned)ntiles, kThreads, 0, s>>>(
+        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, out, n,
+        b.starts);
+  else
+    dedup_runs<false><<<(unsigned)ntiles, kThreads, 0, s>>>(
+        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, out, n,
+        nullptr);
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -360,35 +425,36 @@ extern "C" int bk_sort_unique(const void* keys, const void* emitted,
       (uintptr_t)out_pad % 8)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Buffers b = carve((char*)scratch, E);
   uint64_t* ok = (uint64_t*)out_keys;
   int64_t* n = (int64_t*)n_out;
-  if (E > 0) {
-    const int64_t ntiles = tiles_of(E);
-    uint32_t* hist = b.zero;
-    uint32_t* done = hist + kPasses * kBins;
-    uint32_t* tile_ctr = done + 1;  // one per pass, then dedup_runs'
-    uint32_t* status = tile_ctr + kPasses + 1;
-    uint32_t* dedup_status = status + (int64_t)kPasses * kBins * ntiles;
-    cudaError_t e = cudaMemsetAsync(b.zero, 0, b.zero_words * 4, s);
-    if (e != cudaSuccess) return (int)e;
-    const int64_t hist_blocks = (ntiles + kHistTiles - 1) / kHistTiles;
-    digit_hist<<<(unsigned)hist_blocks, kThreads, 0, s>>>(
-        (const uint64_t*)keys, (const uint8_t*)emitted, E, hist, done,
-        b.digit_base, b.m, b.ctrl);
-    for (int pass = 0; pass < kPasses; ++pass) {
-      auto* kern = pass ? onesweep_pass<false> : onesweep_pass<true>;
-      kern<<<(unsigned)ntiles, kThreads, 0, s>>>(
-          pass, (const uint64_t*)keys, (const uint8_t*)emitted, E, b.a, b.b,
-          b.m, b.ctrl, b.digit_base, tile_ctr + pass,
-          status + (int64_t)pass * kBins * ntiles);
-    }
-    dedup_runs<<<(unsigned)ntiles, kThreads, 0, s>>>(
-        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, ok, n);
-  } else {
-    const cudaError_t e = cudaMemsetAsync(n, 0, sizeof(int64_t), s);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e =
+      E > 0 ? sort_dedup(keys, emitted, E, carve((char*)scratch, E), ok, n, s)
+            : cudaMemsetAsync(n, 0, sizeof(int64_t), s);
+  if (e != cudaSuccess) return (int)e;
   fill_pads<<<blocks(cap, 2048), 256, 0, s>>>(ok, (uint8_t*)out_pad, n, cap);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int64_t bk_sort_count_scratch(int64_t E) {
+  return carve(nullptr, E, true).used;
+}
+
+// KS3: keys (E,) int64-held u64, emitted (E,) bool -> the n distinct
+// emitted keys in unsigned order in out_keys[:n] (E,) int64, each one's
+// count of copies saturated at 0xFFFF in out_counts[:n] (E,) u16, n in
+// n_out (int64 scalar); E < 2^30.
+extern "C" int bk_sort_count(const void* keys, const void* emitted, int64_t E,
+                             void* out_keys, void* out_counts, void* n_out,
+                             void* scratch, void* stream) {
+  if (E < 0 || E >= bk::kMaxCount) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int64_t* n = (int64_t*)n_out;
+  if (E == 0) return (int)cudaMemsetAsync(n, 0, sizeof(int64_t), s);
+  const Buffers b = carve((char*)scratch, E, true);
+  const cudaError_t e =
+      sort_dedup(keys, emitted, E, b, (uint64_t*)out_keys, n, s);
+  if (e != cudaSuccess) return (int)e;
+  run_lengths<<<blocks(E), 256, 0, s>>>(b.starts, n, b.m,
+                                        (uint16_t*)out_counts);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,11 @@ kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``
 and ``compacted_minimizers``, ``core/rolling.py`` ``cyclic_hashes``,
 ``db/table.py`` ``lookup_scores``,
-``db/build_device.py`` ``sort_unique`` and ``merge_fold``, and
+``db/build_device.py`` ``sort_unique`` and ``merge_fold``,
+``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` and
+``core/bitops.py`` ``popcount64`` and ``nuccount`` (one elementwise
+kernel), ``sketch/hll.py`` ``hll_fill``, ``sketch/setsketch.py``
+``csetsketch_update``, ``sketch/shs.py`` ``sort_count``, and
 ``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
 version serves CPU tensors only, and a CUDA tensor goes to the kernel or
 raises.
@@ -88,6 +92,17 @@ _SIGS = {
     # out keys, pad, node, orig, cnt, n_out, scratch, stream
     "bk_merge_fold": [P, P, P, P, P, I64, P, P, P, P, P, I64, P, I32, I32, P,
                       P, P, I32, I32, P, P, P, P, P, P, P, P],
+    # keys, emitted, E, out_keys, out_counts, n_out, scratch, stream
+    "bk_sort_count": [P, P, I64, P, P, P, P, P],
+    # in, n, mode (0 wang_hash, 1 khash_int64_hash, 2 popcount64), out,
+    # stream
+    "bk_bitmix": [P, I64, I32, P, P],
+    # kmers, n, mask, out (n, 4), stream
+    "bk_nuccount": [P, I64, U64, P, P],
+    # keys, n, p, wang, registers, stream
+    "bk_hll_fill": [P, I64, I32, I32, P, P],
+    # values, n, chunk, m, registers, ids, idcounts, scratch, stream
+    "bk_csetsketch_update": [P, I64, I64, I64, P, P, P, P, P],
     # tbl, idx, R, Q, C, out, stream
     "bk_row_gather": [P, P, I64, I64, I64, P, P],
     # tab, idx, R, Ct, Q, Ci, axis, out, stream
@@ -95,7 +110,8 @@ _SIGS = {
 }
 # host functions: bytes of device scratch for the sizes of a call
 _SCRATCH = {"bk_sort_unique_scratch": 1, "bk_merge_fold_scratch": 1,
-            "bk_compacted_minimizers_gen_scratch": 3}
+            "bk_compacted_minimizers_gen_scratch": 3,
+            "bk_sort_count_scratch": 1, "bk_csetsketch_update_scratch": 3}
 
 
 def _sources():

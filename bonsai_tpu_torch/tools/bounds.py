@@ -222,3 +222,40 @@ def bound_merge_fold(a, b, na, nb, tax, out):
     return bound(9 * (a.cap + b.cap) + 12 * (na + nb) + nbytes(*tax.values())
                  + nbytes(out.keys, out.pad, out.node, out.orig, out.cnt,
                           out.n))
+
+
+def bound_bitmix(x, out):
+    """KS4: each value read once and its result written once (8 B, or
+    nuccount's four 8-B counts); a dozen int32 operations a value at
+    most, far below the bytes."""
+    return bound(nbytes(x, out), 24 * x.numel())
+
+
+def bound_hll_fill(keys, p: int, wang: bool):
+    """KS1: 8 B a key in, the 2^p u32 registers read and written once; a
+    key's wang_hash (7 steps of u64 shifts, adds, xors and multiplies,
+    ~30 int32 ops) and its index, rho and compare (~12)."""
+    return bound(nbytes(keys) + 8 * (1 << p),
+                 keys.numel() * ((30 if wang else 0) + 12))
+
+
+# an arrival of KS2: two splitmix finalizers of 3 xor-shifts and 2 u64
+# multiplies each, the counter's multiply-add and the u64 modulus (about
+# 60 int32 ops); CUDA's double log (about 20 FP64 ops: reduction and a
+# polynomial), the divide, the two adds of the time and the conversion
+# (about 25 FP64 ops)
+CSS_INT32_OPS, CSS_FP64_OPS = 60, 25
+
+
+def bound_csetsketch(values, m: int, arrivals: int):
+    """KS2: the values in, the m f64 registers read and written once; per
+    arrival evaluated (the plain version's count, the JAX package's
+    rounds of 16) CSS_INT32_OPS and CSS_FP64_OPS."""
+    return bound(nbytes(values) + 16 * m, CSS_INT32_OPS * arrivals,
+                 CSS_FP64_OPS * arrivals)
+
+
+def bound_sort_count(keys, emitted, out):
+    """KS3: as KB2, the keys and flags in, the distinct keys and their
+    u16 counts out."""
+    return bound(nbytes(keys, emitted, *out))

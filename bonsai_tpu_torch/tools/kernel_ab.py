@@ -28,10 +28,15 @@ and KB4 -k 31 -w 40 (canonical) and -k 13 -w 29 under the Shannon score,
 and on the forward frame 0 of GENOME's first record as protein
 (``synthetic.translate``): KB1 PROTEIN20 k = 7 unwindowed, PROTEIN_6
 -k 12 -S 1x11 -w 30 Shannon, KB4 PROTEIN_14 -k 10 -w 24 and PROTEIN20
--k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical and 200.  KB1, KB4,
-KB5 and KR1 are timed by replaying a CUDA graph of 100 captured calls
-between two events (``gather_bench.graph_ms``), KB3 by CUDA events around
-100 back-to-back calls.  A case whose entry point the parent's library
+-k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical and 200.  Then the
+sketch kernels at the shapes of ``chip_smoke.py``'s phase 9e on GENOME's
+first record: KS1 (p = 14, wang_hash) and KS4 (wang_hash, nuccount) on
+its canonical 31-mers, KS2 (m = 4096, -S -s and default, a new sketch a
+call) on the same stream, KS3 on its k = 31 rolling-hash stream.  KB1,
+KB4, KB5, KR1, KS1 and KS4 are timed by replaying a CUDA graph of 100
+captured calls between two events (``gather_bench.graph_ms``), KB3, KS2
+(which syncs with the host) and KS3 (whose wrapper reads the distinct
+count) by CUDA events around 100 back-to-back calls.  A case whose entry point the parent's library
 lacks is skipped, and says so.
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
@@ -94,7 +99,8 @@ SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
 BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
-                 "lookup_scores", "rolling")
+                 "lookup_scores", "rolling", "sort_unique", "hll", "setsketch",
+                 "bitmix")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 CLASSIFY_BATCH = 8192
 # KB1's and KB4's one entry point each
@@ -259,7 +265,53 @@ def build_cases(genome: str, nodes: str, dev):
 
     cases.append(("merge_fold 2^22 + 2^22, 3M valid each, sum_counts", fold,
                   time_ms))
-    return cases + api_cases(seq, dev)
+    return cases + api_cases(seq, dev) + sketch_cases(seq, dev)
+
+
+def sketch_cases(seq: bytes, dev):
+    """(name, call, timer, entry point) of KS1-KS4 at chip_smoke.py's phase
+    9e shapes on ``seq`` (one genome's first record): its canonical
+    31-mers (KB1's emissions) for KS1 (p = 14, hashed), KS2 (m = 4096, a
+    new sketch a call, -S -s and default) and KS4, its k = 31 rolling-hash
+    stream for KS3."""
+    from ..core import bitops, hashes
+    from ..core.rolling import RollingEncoder
+    from ..sketch import hll
+    from ..sketch.setsketch import CSetSketch
+    from ..sketch.shs import sort_count
+
+    codes = torch.from_numpy(fastx.encode_contig(seq, DNA4.lut)[None, :]).to(
+        dev)
+    ln = torch.tensor([codes.shape[1]], dtype=torch.int32, device=dev)
+    em = enc.minimizers(codes, ln, 31, 1, True)
+    kmers = em.values[0][em.mask[0]]
+    vals, invalid = RollingEncoder(31).hashes(codes)
+    hv, hok = vals[0], ~invalid[0]
+    regs = torch.zeros(1 << 14, dtype=torch.int32, device=dev)
+
+    def fill():
+        regs.zero_()
+        hll.hll_fill(kmers, regs, 14, True)
+        return [regs]
+
+    def sketch(save):
+        s = CSetSketch(4096, save, save, device=dev)
+        s.update(kmers)
+        return [s.regs] + ([s._ids, s._idcounts] if save else [])
+
+    return [
+        ("hll_fill p=14 wang_hash", fill, graph_ms, "bk_hll_fill"),
+        ("csetsketch_update m=4096 -S -s", lambda: sketch(True), time_ms,
+         "bk_csetsketch_update"),
+        ("csetsketch_update m=4096", lambda: sketch(False), time_ms,
+         "bk_csetsketch_update"),
+        ("sort_count k=31 hash stream", lambda: sort_count(hv, hok),
+         time_ms, "bk_sort_count"),
+        ("bitmix wang_hash", lambda: [hashes.wang_hash(kmers)], graph_ms,
+         "bk_bitmix"),
+        ("nuccount k=31", lambda: [bitops.nuccount(kmers, 31)], graph_ms,
+         "bk_nuccount"),
+    ]
 
 
 def api_cases(seq: bytes, dev):

@@ -112,6 +112,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                  past 127, a real U64_MAX), KR1 at k = 1, 63, 64, 65, 1000;
                  then each timed by CUDA-graph replay at the K-12 shape (a
                  protein frame for the radix rows), with its bound
+ 9e. sketches    after phase 9d, the sketch front-ends through
+                 bonsai_tpu_torch on the card, against the JAX package's
+                 values: kmercnt's counts (MultiKCounter, KR1 and KS3) of
+                 the 5 ec genomes at -k 17,21,25,29,31 (canonical and not)
+                 and --nthash -k 21,31: the sha256 of every .shs content
+                 and of the .bin at k = 31, the counts of every k summing
+                 to the windows without an N; kmercnt -k 31 -C --shs-only
+                 through the CLI; rolling-multk (text) and
+                 rolling-multk-sketch -z 1024 (cardinalities); setsketch
+                 -k 31 -z 4096 -S -s, -c -k 31 -z 4096 -S and -k 40 -z
+                 4096 -S -s of each genome and their union (KB1 or KR1,
+                 then KS2): ids, idcounts and n_updates equal, the
+                 cardinalities within 1e-9; distmat -k 31 exact and --hll
+                 14 (KS1; each pair's union estimated alone); cmpshs of the
+                 k = 31 .shs; KS4 (wang_hash, khash_int64_hash,
+                 popcount64, nuccount, gccount) on the K-12 31-mers; KS1-KS4
+                 launched; then each against its plain version on CPU
+                 copies (exact, but KS2's registers within 2 ulp, the count
+                 that differ printed): KS1 at p = 4, 14, 16, 17, 20 on both
+                 paths with keys whose h << p is 0 and U64_MAX, KS2 at m =
+                 1, 64, 4096 in each mode on an empty update, one element,
+                 copies across chunks and all copies of one k-mer over a
+                 chunk of 2^16 + 1, and on the K-12 stream, KS3 with runs
+                 past 65,535, bit 63 set, E = 0 and 1, KS4 at k = 1, 31, 32;
+                 then each timed at the K-12 shape with its bound, KS3
+                 beside torch.unique(return_counts=True)
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -302,6 +328,255 @@ API_PROTEIN = [
     ("PROTEIN_3BIT -k 22", "PROTEIN_3BIT", dict(k=22)),
 ]
 
+# Phase 9e, the sketch front-ends: the JAX package's values on the CPU
+# (JAX_PLATFORMS=cpu, numpy 2.0.2), from the repository root, with EC the
+# sorted tests/data/ec/*.fna.gz and run() bonsai_tpu.cli.main in an empty
+# directory on the absolute EC paths.  SKETCH_SHS: for each kmercnt mode
+# of SKETCH_MODES, the sha256 over EC in order of each genome's .shs
+# content (u64 count, sorted keys: the bytes write_shs gzips) from
+# bonsai_tpu.sketch.shs.MultiKCounter(ks, canon=, nthash=).add_file(g)
+# .counts(), by k, and of the .bin content at k = 31 (u64 count, keys, u16
+# counts).
+SKETCH_MODES = [  # (kmercnt flags, ks, canonical, ntHash)
+    ("-k 17,21,25,29,31", (17, 21, 25, 29, 31), False, False),
+    ("-k 17,21,25,29,31 -C", (17, 21, 25, 29, 31), True, False),
+    ("-k 21,31 --nthash", (21, 31), False, True),
+]
+SKETCH_SHS = {
+    "-k 17,21,25,29,31 .17.shs":
+        "ee629ed35da550679cb0d2fe6638b65e667a0b6bb8fb2fc798f2fc00bf674b56",
+    "-k 17,21,25,29,31 .21.shs":
+        "89e1116f4e32c1011ac7598f7cd0578b48d06594f55b55c69ffba40bdb28bf48",
+    "-k 17,21,25,29,31 .25.shs":
+        "ebd0c40a726a359498841ed5b1d197a437779fcfd47ee3795e0ebe85d13d3845",
+    "-k 17,21,25,29,31 .29.shs":
+        "cdb9c4cf6973ac0fb544612bf2d9e1d4d117f724afe9bc65b01a4d41b4e48061",
+    "-k 17,21,25,29,31 .31.shs":
+        "5c7faef339bfa0ec2dd2cdcffbab09cee3104f96efad654670fdc26e924d120c",
+    "-k 17,21,25,29,31 .31.bin":
+        "98c4ef4729f7d9e53babbfe9a360c9057aa09bf0617740c0b9d4b76aeb07f684",
+    "-k 17,21,25,29,31 -C .17.shs":
+        "c2bacea6b73a2795ce71927afc991dfd2899f1f5d98a072cc62cbafec19d1f83",
+    "-k 17,21,25,29,31 -C .21.shs":
+        "27846d86ac9f7b4309ce23feab553e606dd1d424059ae2e7d47f4768d1fb2d55",
+    "-k 17,21,25,29,31 -C .25.shs":
+        "9cbeb6b96bceec34f89d8909b9f2280af3f174c8a703bd4282033cd58894216b",
+    "-k 17,21,25,29,31 -C .29.shs":
+        "969e38d19b74a719fd9af4dff2d9156adfc959194c1aba1579b09a79af7245cb",
+    "-k 17,21,25,29,31 -C .31.shs":
+        "08635dbdf1caf6a85575defec04ac7958192e65339e970a64c66dfc932b4fe95",
+    "-k 17,21,25,29,31 -C .31.bin":
+        "d229d0e2e6bf2eee02f1a09d0dfe3f801621673bf2de7a11ed0da8d681652908",
+    "-k 21,31 --nthash .21.shs":
+        "2ae49775746d1c616587fa6b94d5699be522814c62e82436dc63bbadebab7efe",
+    "-k 21,31 --nthash .31.shs":
+        "28172dcfec25b3014924893e7a4b0c0ddffac78dede0bcd5cd63f4753e73f8c3",
+    "-k 21,31 --nthash .31.bin":
+        "b2208539fe8b7ac0f241876c36884dea0f713712dd14ea36f5c584671e408ed7",
+}
+# kmercnt -k 31 -C alone seeds its hash with the ladder's first seed pair:
+# the same sha256 over EC of MultiKCounter([31], canon=True)'s .shs
+SKETCH_SHS_K31 = (
+    "b2c9431573f85c52617c1c32ea0bb7c117ccd7fc8c9b3fb3b74832c25e1ae4d1")
+# run(["setsketch", *EC, *FLAGS.split(), "-B", "-o", "union.ss"]): for
+# each genome's .ss (<basename>.<k>.4096.ss) and the union's, read with
+# bonsai_tpu.sketch.setsketch.CSetSketch.read: (n_updates, sha256 of
+# ids().tobytes(), of idcounts().tobytes() or None, of the registers'
+# bytes, cardinality())
+SETSKETCH_MAIN = "-k 31 -z 4096 -S -s"
+SKETCH_SETSKETCH = {
+    "-k 31 -z 4096 -S -s": [
+        (4641622,
+         "5be48f85ba6fc9da69f2142cbef2beb7e4115b498d06a88252058d7bba7b502e",
+         "f5b9fc0150b342538d5d2088892c161c2621ccd4f9a1ac767a9de5c38f4a49de",
+         "bd30422fe352cdfa4816babcfc53f54fe14c6aa8f4ecb50f556337d0cf136d67",
+         4727880.3168891445),
+        (5225084,
+         "f72d8c3ee92fc78a52efa293e0009def11ca95d8367380a9e6a0d07995d71d04",
+         "eea50101bcc640b711c7fbdd1772ce68865829042316e526e0ccc45228f25092",
+         "9ed1936977a3f3bd67591b5b7b817b7d430cb226ea97eeda0caea2cadeb4693d",
+         5140996.951982915),
+        (5594387,
+         "9f452d0a9b5c1d5300ee406750f18ced2c68d5b6410f2f9de4275ee5eea3d403",
+         "96d0149562c78d57fa59a4ed4bb9f8714155c864c773165f63dac0d9af5df277",
+         "2e11095199366e4e702853ebe56cdbbe7d3f36a0e95323a86eb11ddf0d58a6ee",
+         5365429.261315836),
+        (4558917,
+         "0acb4e936789fe499790a714a89827ebd27aa7d3021c459f71c1d41c73c5c8cd",
+         "af1bb2560cd82b012dea9479f00243ed9a388d331624ceeb85cc7d23ed25f3a7",
+         "8b4e57858795d87f01111d849f1b6830be0ad11cdb56bd84c2abd641b31c4786",
+         4583412.799409365),
+        (4646302,
+         "9ba6b07d2cd16e52049cb82c4e7cc732ffe92c6b6f71b727c9afdacb6ed37be8",
+         "de8b1f2da9bcdf05b470d713c341a668c9a5c0a10008611459ac572eda2ab704",
+         "6bb4aaa840df2cee4a0940c41fde192dfbd61e7b4a805007769e14332dcf5325",
+         4730424.212084219),
+        (24666312,
+         "7ed274a36c27dbcd292411687acde4ebe3b0c37c9afe707d648ceb1495ea34aa",
+         "cf660397d0a767fd8f2fd964dba8203f424c2f793ac2a9c9dd3946361703f3d3",
+         "234a5cd3e185752dc27372f83fbf96e5731054ad835695b2a1935b0477d9d0f9",
+         10413379.746570053),
+    ],
+    "-c -k 31 -z 4096 -S": [
+        (4641622,
+         "6593e2b1175c9dfed8da145bd15223ca3c7489bf9b6b6e91424e9f6d0b701c38",
+         None,
+         "bf8dda932dfc77df0658e060fe0b9c60f51c6c0bbd1ed7b3b510f4f5cc723a13",
+         4629316.438179271),
+        (5225084,
+         "592d7d8e85a173502619d62e7fd7705c158b5ac6c620779546d99e243f93c78a",
+         None,
+         "5ba4ab10aa4fc9d457ecbbed43a343b83360a652ad4cb020bacb44afa6ce432c",
+         5155891.807377332),
+        (5594387,
+         "79b44846850616ee673a6118d660f822b2a6a53dd533e984b712604f6b53a7ae",
+         None,
+         "25b961d22d72eb11453946ef95a2cf27c757d80278ddb71d748da8d67fe63776",
+         5484892.928202714),
+        (4558917,
+         "c59e985ade56ba688e200744099f7884f2d19462839a778697371fa4bcc3c785",
+         None,
+         "048e97495d29e5cf600d18bdb43fee02bae4bb8ddad8ca8d54f66d8cbff494b8",
+         4600096.225437393),
+        (4646302,
+         "c2417a75410f6d5025f2a72d3c8065b1e28ccd1e68557ffb995a899bd4a56a71",
+         None,
+         "e6946c0cf9b20145329f6e26453f9b9894e5afb33f3c4522bd5f12904a9e94e1",
+         4584614.213340168),
+        (24666312,
+         "1c30b8c4986f90a5ccd7fa00b501da58ee1d2f27ba297ca0430abd4d8c89f260",
+         None,
+         "7b949271f19f658b717b65705c4f34cb3458cd66eb63fae2254c0b8ba880d686",
+         11511772.371924669),
+    ],
+    "-k 40 -z 4096 -S -s": [
+        (4641613,
+         "e5aeb7ce2f378f48c9e10a1073c30d52ef407d217a0556a6f1b492d11bf6c4f5",
+         "76f2a8b467085ca3af4ed12b1bad832b1631ef60b47cee244de9519aa1daa581",
+         "613b50d02b1a4eb754a677bd090498a6721c61d9ec70ecab01f04d0c732ccb3a",
+         4561230.065707411),
+        (5223612,
+         "a22182766a06d1182c57ab5bffdcabfb786b425339dbc087faf6df55ab9b05ab",
+         "d3917e38ae9d75a87a4e586c12fcc4fe9514638c88b7de893ee48bac8efc1baf",
+         "04b3910098f74f4cdeccc571f05d2f6e98937edc1da8d7b53bf5a08854236a83",
+         5114999.541785166),
+        (5594360,
+         "fb92bf558e5da27fc113ce1b1eb4073962726e0358bbe68aeef2f873fc25bcf2",
+         "df4bc3f2891e4cf406228a5b33876c326d27fd3de9f64122ff8cc2dee5717bf9",
+         "5b3dfd8f0b3b6ae423be0a189fdb3856e3abe3c83ef8970197e3f71d5ca1fa1b",
+         5424327.025444028),
+        (4558908,
+         "8e94fad0f54706ec322873fa4e35a261b4c803b15180278100d36ef7550e7225",
+         "90533c8692d94c6ae83dc14d27e0dcca02fea834a58d48d0c54165f46408309b",
+         "7396270012b8a084285b391d72f46a876d97ff530b000affbcd539774be974c2",
+         4453907.308878879),
+        (4646293,
+         "fdc6843654285dcc9816004f03310a514b9d19ed3c4c42d0f48c078dce54300f",
+         "1011b6430ecc453c9373ef35b20105e88894f83a973b7bd1fc45a254baeb176d",
+         "6fa2cd32ca1fc94fa6bca0d4a47d0482f552f112a13ef89390ca861bec074325",
+         4571055.354585414),
+        (24664786,
+         "7e995c57b16b8abf9ffd0ac35e9945f52c0663ed52f608f734803c620a1bdfa5",
+         "bf00595d04ff564eadce2dacfed1f1b1028121958eb5b670901ada55c357da91",
+         "dc4fc2a340ec5c3488e21620ab94138f94b7363642917e5b0e7066cc643cc618",
+         11903650.449157802),
+    ],
+}
+# run(["distmat", *EC, "-k", "31", "-o", "dm"]): sha256 of
+# np.load("dm.npy").tobytes() and of dm.tsv; --hll 14 as each pair's
+# HyperLogLog(14).union_estimate gives it (the hll matrix: the jaccard
+# estimates of the JAX CLI's formula, float64, over the sketches of
+# bonsai_tpu.db.build.genome_kmer_set(g, Spacer(31, 31), True) filled by
+# addh; "hll npy": the sha256 of its float32 bytes) and the JAX CLI's
+# run(["distmat", *EC, "-k", "31", "-o", "dmh", "--hll", "14"]) matrix
+# (np.load("dmh.npy"), float32: merged in place past j = i + 1)
+SKETCH_DISTMAT = {
+    "npy": "70c1940572c9d32b64c277f60b41917f902f5635b58e618029e44de3636f848f",
+    "tsv": "a31b2bb6df0657427727718399f296bff6e75ac2814e680191c08b16d55895e4",
+    "hll npy": "3f29bc172339c91c282a85f5e3333edd4976c7df5671e00e6557f2c7dd7329e0",
+    "hll": [
+        [1.0, 0.2725325504966615, 0.377864710259722, 0.6447175852607362,
+         0.9979163829416042],
+        [0.2725325504966615, 1.0, 0.2561061530513593, 0.27233823224633835,
+         0.2730136555992211],
+        [0.377864710259722, 0.2561061530513593, 1.0, 0.3636118442411039,
+         0.37854831876816786],
+        [0.6447175852607362, 0.27233823224633835, 0.3636118442411039, 1.0,
+         0.6451928864404319],
+        [0.9979163829416042, 0.2730136555992211, 0.37854831876816786,
+         0.6451928864404319, 1.0],
+    ],
+    "hll JAX CLI": [
+        [1.0, 0.27253255248069763, 0.012216858565807343, 0.0, 0.0],
+        [0.27253255248069763, 1.0, 0.2561061382293701, 0.0, 0.0],
+        [0.012216858565807343, 0.2561061382293701, 1.0, 0.3636118471622467,
+         0.25065919756889343],
+        [0.0, 0.0, 0.3636118471622467, 1.0, 0.6451928615570068],
+        [0.0, 0.0, 0.25065919756889343, 0.6451928615570068, 1.0],
+    ],
+}
+# run(["cmpshs", *NAMES]) in a directory that holds NAMES, the
+# <basename>.31.shs of each EC genome written by write_shs(MultiKCounter(
+# [31], canon=True).sets()[0]): sha256 of stdout
+SKETCH_CMPSHS = "30f35f73a02caa25ae017f2da0a44a8cf3a6f088e74931cd18c3dc2d16d9b653"
+# KS4 on the K-12 canonical 31-mers (genome_kmer_set(EC_GENOME, Spacer(31,
+# 31), True), SKETCH_K12_KMERS of them): sha256 of the bytes of
+# bonsai_tpu.core.hashes.wang_hash, khash_int64_hash,
+# bonsai_tpu.core.bitops.popcount64, and bonsai_tpu.util.nuccount,
+# gccount, kmer_entropy at k = 31
+SKETCH_BITMIX = {
+    "wang_hash":
+        "8c35f786bad9bbaaf04a777e968b43e4c166e0896734563f3fbb3b3544fe703e",
+    "khash_int64_hash":
+        "5fcfd50dab3461430df14466fea68e546313ed412c326e1f9d498612c66c9f4b",
+    "popcount64":
+        "be45c3de75d9cc449cab810c9c433d33fbc6627903beb30e4768ad27aba69355",
+    "nuccount":
+        "3a4d275f55bc1ae47f8766cc800f69104d0bb60721956d6a25837893a6ddc34a",
+    "gccount":
+        "8393d95bb82410e6fa81ceda3b5791cf1667cdd6d84ba25254388fe1f75e105c",
+    "kmer_entropy":
+        "54d9035c6e3b46c8f1e6a595a7ae018d28cafec4d26a4a9fd112f8bb6437651e",
+}
+SKETCH_K12_KMERS = 4554269
+# run(["rolling-multk", *EC]) and run(["rolling-multk-sketch", *EC, "-z",
+# "1024"]): sha256 of stdout with EC's directory cut from each path, and
+# the second's cardinalities at full precision, in its order: per genome
+# and k, CSetSketch(1024) updated with MultiKCounter(ks).sets()[k]
+SKETCH_ROLLING = {
+    "rolling-multk":
+        "b9badf7e132a2c1f2f90e618858bfe019fe123c8fc3685c5dae8a7e3f7fc9a67",
+    "rolling-multk-sketch text":
+        "734a2241ad61a77beb825d6bb9263d2cbe49e12ff2cb9b61775ccee5330717e1",
+}
+SKETCH_ROLLING_CARDS = [
+    4648208.858854608,
+    4460571.689242506,
+    4593036.347497373,
+    4323321.9643374365,
+    4784726.872918068,
+    5319055.3013883345,
+    4937107.674235418,
+    5152624.737206378,
+    5176667.415864505,
+    5031286.157569116,
+    5424514.9819536805,
+    5278501.317654016,
+    5353870.829242158,
+    5468831.528073519,
+    5335974.311709376,
+    4677844.230066695,
+    4327956.1303931745,
+    4521951.649775854,
+    4393705.523307537,
+    4474310.96844034,
+    4681808.110663155,
+    4448130.549473611,
+    4569399.281669311,
+    4341651.807644334,
+    4658728.609468935,
+]
+
 
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -355,6 +630,16 @@ KERNELS = {
         "bonsai_tpu/core/encoder.py:118"),
     "cyclic_hashes": ("bonsai_tpu_torch/csrc/rolling.cu",
                       "bonsai_tpu/core/rolling.py:91"),
+    "hll_fill": ("bonsai_tpu_torch/csrc/hll.cu",
+                 "bonsai_tpu/sketch/hll.py:37"),
+    "csetsketch_update": ("bonsai_tpu_torch/csrc/setsketch.cu",
+                          "bonsai_tpu/sketch/setsketch.py:86"),
+    "sort_count": ("bonsai_tpu_torch/csrc/sort_unique.cu",
+                   "bonsai_tpu/sketch/shs.py:48"),
+    "bitmix": ("bonsai_tpu_torch/csrc/bitmix.cu",
+               "bonsai_tpu/core/hashes.py:58"),
+    "nuccount": ("bonsai_tpu_torch/csrc/bitmix.cu",
+                 "bonsai_tpu/core/bitops.py:69"),
 }
 # the rows of the hash-scored phase 2 (phase 9c)
 HASH_ROWS = ("minimizers_hash", "minimizers_spaced_hash",
@@ -2299,6 +2584,520 @@ def phase_api(dev, chk):
     return launches, times, bounds, bases / secs["-k 31 -w 40 entropy"] / 1e6
 
 
+def _cli(argv, cwd):
+    """(stdout, stderr) of the port's CLI on ``argv``, run in ``cwd``;
+    fails the phase on a non-zero exit."""
+    import contextlib
+
+    from bonsai_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(old)
+    require(rc == 0, f"{argv[0]}: exit {rc}: {err.getvalue()[-400:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def _sha(b: bytes) -> str:
+    return hashlib.sha256(b).hexdigest()
+
+
+def _shs_bytes(keys):
+    """The bytes that write_shs gzips: u64 count, sorted keys."""
+    import numpy as np
+
+    return np.uint64(keys.size).tobytes() + keys.tobytes()
+
+
+def _valid_windows(path, ks):
+    """{k: the windows of k bases without an N} over every contig."""
+    import numpy as np
+
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.io import fastx
+
+    out = dict.fromkeys(ks, 0)
+    for _, seq, _ in fastx.read_fastx(path):
+        bad = np.concatenate([[0], np.cumsum(
+            fastx.encode_contig(seq, DNA4.lut) < 0)])
+        for k in ks:
+            if bad.size > k:
+                out[k] += int((bad[k:] == bad[:-k]).sum())
+    return out
+
+
+def _ulps(got, want):
+    """(registers that differ, the most ulp apart) of two f64 arrays of
+    non-negative values (+inf allowed)."""
+    import numpy as np
+
+    a, b = got.view(np.int64), want.view(np.int64)
+    d = np.abs(a - b)
+    return int((d != 0).sum()), int(d.max()) if d.size else 0
+
+
+def phase_sketch(dev, chk):
+    """9e. The sketch front-ends on the card: kmercnt's counts,
+    rolling-multk, rolling-multk-sketch, setsketch, distmat and cmpshs
+    against the JAX package's values, KS4 on the K-12 31-mers; then KS1-KS4
+    against their plain versions, timings and bounds."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bonsai_tpu_torch import util
+    from bonsai_tpu_torch.core import bitops, hashes, rolling
+    from bonsai_tpu_torch.core.bitops import as_keys
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db.build import genome_kmer_set
+    from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
+
+    ec = sorted(os.path.join(DATA, "ec", f) for f in os.listdir(
+        os.path.join(DATA, "ec")) if f.endswith(".fna.gz"))
+    ecdir = os.path.join(DATA, "ec") + os.sep
+    names = [os.path.basename(p) for p in ec]
+    # cleared at the end of part 1, or at exit
+    tmp_dir = tempfile.TemporaryDirectory(prefix="sketch.",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_dir.name
+    t0 = time.perf_counter()
+    windows = {p: _valid_windows(p, (17, 21, 25, 29, 31)) for p in ec}
+    say(f"# sketch: windows without an N counted on the host in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 1. the main path, counted: every subcommand through the port
+    wrappers = [hll.hll_fill, ss.csetsketch_update, shs.sort_count,
+                bitops.bitmix, bitops.nuccount]
+    # KR1 and KB2 run here too; their rows keep the counts of phases 9d
+    # and 9, and this path's are required and printed
+    shared = [rolling.cyclic_hashes, bd.sort_unique]
+    reset_counts(wrappers + shared)
+    secs, busy = {}, {}
+
+    def timed(key, fn, prof=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if prof:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as pr:
+                out = fn()
+                torch.cuda.synchronize()
+            busy[key] = _device_busy(pr)[0]
+        else:
+            out = fn()
+            torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t
+        return out
+
+    kmer_prof = None  # the run under the profiler: K-12, canonical ladder
+    for mode, ks, canon, nt in SKETCH_MODES:
+        hs = {k: hashlib.sha256() for k in ks}
+        hb = hashlib.sha256()
+        for p in ec:
+            def count(p=p):
+                ctr = shs.MultiKCounter(ks, canon=canon, nthash=nt, device=dev)
+                ctr.add_file(p)
+                return ctr.counts()
+
+            key = f"kmercnt {mode} {os.path.basename(p)}"
+            if p == EC_GENOME and canon:
+                kmer_prof = key
+            res = timed(key, count, prof=key == kmer_prof)
+            for k, (keys, counts) in zip(ks, res):
+                hs[k].update(_shs_bytes(keys))
+                if k == 31:
+                    hb.update(_shs_bytes(keys) + counts.tobytes())
+                n = int(counts.sum(dtype=np.int64))
+                require(n == windows[p][k], f"kmercnt {mode} {p} k={k}: the "
+                        f"counts sum to {n}, the windows are {windows[p][k]}")
+        got = {f"{mode} .{k}.shs": hs[k].hexdigest() for k in ks}
+        got[f"{mode} .31.bin"] = hb.hexdigest()
+        for key, g in got.items():
+            require(g == SKETCH_SHS[key], f"kmercnt {key} differs from the "
+                    "JAX package's")
+        say(f"# sketch: kmercnt {mode}: {len(got)} sha256s (.shs by k, .31.bin)"
+            f" match; counts sum to the windows at every k; "
+            f"{sum(secs[f'kmercnt {mode} {n}'] for n in names):.2f}s")
+    h = hashlib.sha256()
+    for p, name in zip(ec, names):
+        timed(f"kmercnt CLI {name}", lambda p=p, name=name: _cli(
+            ["kmercnt", p, "-k", "31", "-C", "--shs-only", "-o",
+             os.path.join(tmp, name), "--device", dev.type], tmp))
+        h.update(_shs_bytes(shs.read_shs(os.path.join(tmp, f"{name}.31.shs"))))
+    require(h.hexdigest() == SKETCH_SHS_K31,
+            "kmercnt -k 31 -C (CLI) .shs differ from the JAX package's")
+    say(f"# sketch: kmercnt -k 31 -C --shs-only CLI: 5 .shs match, "
+        f"{sum(secs[f'kmercnt CLI {n}'] for n in names):.2f}s (gzip "
+        f"included)")
+
+    out, _ = timed("rolling-multk", lambda: _cli(
+        ["rolling-multk", *ec, "--device", dev.type], tmp))
+    require(_sha(out.replace(ecdir, "").encode()) == SKETCH_ROLLING[
+        "rolling-multk"], f"rolling-multk's text differs: {out[:300]}")
+    out, _ = timed("rolling-multk-sketch", lambda: _cli(
+        ["rolling-multk-sketch", *ec, "-z", "1024", "--device", dev.type], tmp))
+    cards = [float(line.rsplit("~", 1)[1]) for line in out.splitlines()]
+    require(len(cards) == len(SKETCH_ROLLING_CARDS) and all(
+        abs(c - w) <= 0.05 + 1e-9 * w for c, w in zip(
+            cards, SKETCH_ROLLING_CARDS)), "rolling-multk-sketch's "
+            f"cardinalities differ: {cards} vs {SKETCH_ROLLING_CARDS}")
+    same_text = _sha(out.replace(ecdir, "").encode()) == SKETCH_ROLLING[
+        "rolling-multk-sketch text"]
+    say(f"# sketch: rolling-multk text matches ({secs['rolling-multk']:.2f}s);"
+        f" rolling-multk-sketch -z 1024: 25 cardinalities within 0.05 of "
+        f"the JAX package's, text {'identical' if same_text else 'DIFFERS'} "
+        f"({secs['rolling-multk-sketch']:.2f}s)")
+
+    ident = 0
+    for flags, rows in SKETCH_SETSKETCH.items():
+        d = tempfile.mkdtemp(dir=tmp)
+        timed(f"setsketch {flags}", lambda flags=flags, d=d: _cli(
+            ["setsketch", *ec, *flags.split(), "-B", "-o", "union.ss",
+             "--device", dev.type], d), prof=flags == SETSKETCH_MAIN)
+        k = flags.split()[flags.split().index("-k") + 1]
+        line = []
+        for name, (n, ids, idc, regs, card) in zip(names + ["union"], rows):
+            f = "union.ss" if name == "union" else f"{name}.{k}.4096.ss"
+            s = ss.CSetSketch.read(os.path.join(d, f), device="cpu")
+            require(s.n_updates == n, f"setsketch {flags} {name}: n_updates "
+                    f"{s.n_updates}, the JAX package's {n}")
+            require(_sha(s.ids().tobytes()) == ids,
+                    f"setsketch {flags} {name}: ids differ")
+            require(idc is None or _sha(s.idcounts().tobytes()) == idc,
+                    f"setsketch {flags} {name}: idcounts differ")
+            c = s.cardinality()
+            require(abs(c - card) <= 1e-9 * card, f"setsketch {flags} "
+                    f"{name}: cardinality {c!r}, the JAX package's {card!r}")
+            ident += _sha(s.registers.tobytes()) == regs
+            line.append(f"{c:.6f} ({card:.6f})")
+        say(f"# sketch: setsketch {flags}: ids, idcounts, n_updates match "
+            f"for 5 genomes and the union; cardinality (JAX's): "
+            f"{', '.join(line)}; {secs[f'setsketch {flags}']:.2f}s")
+    say(f"# sketch: setsketch: {ident} of {3 * 6} sketches' registers "
+        f"bit-identical to the JAX package's")
+
+    timed("distmat", lambda: _cli(["distmat", *ec, "-k", "31", "-o", "dm",
+                                   "--device", dev.type], tmp))
+    require(_sha(np.load(os.path.join(tmp, "dm.npy")).tobytes())
+            == SKETCH_DISTMAT["npy"], "distmat's matrix differs")
+    with open(os.path.join(tmp, "dm.tsv"), "rb") as fh:
+        require(_sha(fh.read()) == SKETCH_DISTMAT["tsv"],
+                "distmat's .tsv differs")
+    timed("distmat --hll 14", lambda: _cli(
+        ["distmat", *ec, "-k", "31", "-o", "dmh", "--hll", "14", "--device",
+         dev.type], tmp), prof=True)
+    got = np.load(os.path.join(tmp, "dmh.npy"))
+    want = np.array(SKETCH_DISTMAT["hll"], dtype=np.float32)
+    require(_sha(got.tobytes()) == SKETCH_DISTMAT["hll npy"]
+            and np.array_equal(got, want), "distmat --hll 14 differs from "
+            f"each pair's union_estimate: {got} vs {want}")
+    jcli = np.array(SKETCH_DISTMAT["hll JAX CLI"], dtype=np.float32)
+    n = len(ec)
+    near = [(i, j) for i in range(n) for j in range(i, min(i + 2, n))]
+    require(all(got[i, j] == jcli[i, j] for i, j in near),
+            "distmat --hll 14 differs from the JAX CLI where it merges "
+            "nothing in place")
+    far = sum(got[i, j] != jcli[i, j] for i in range(n)
+              for j in range(i + 2, n))
+    say(f"# sketch: distmat -k 31 matrix and .tsv match "
+        f"({secs['distmat']:.2f}s); --hll 14 equals union_estimate of each "
+        f"pair, and the JAX CLI on the diagonal and j = i + 1; {far} of "
+        f"{(n - 1) * (n - 2) // 2} entries j > i + 1 differ from the JAX "
+        f"CLI's merged-in-place ones ({secs['distmat --hll 14']:.2f}s)")
+
+    out, _ = timed("cmpshs", lambda: _cli(
+        ["cmpshs", *[f"{name}.31.shs" for name in names], "--device",
+         dev.type], tmp))
+    require(_sha(out.encode()) == SKETCH_CMPSHS, f"cmpshs differs: {out}")
+    say(f"# sketch: cmpshs of the 5 k=31 .shs matches "
+        f"({secs['cmpshs']:.2f}s)")
+    tmp_dir.cleanup()
+
+    km = genome_kmer_set(EC_GENOME, Spacer(31, 31), True)
+    require(km.size == SKETCH_K12_KMERS, f"K-12: {km.size} 31-mers")
+    t = as_keys(km, dev)
+    got = {
+        "wang_hash": hashes.wang_hash(t), "khash_int64_hash":
+        hashes.khash_int64_hash(t), "popcount64": bitops.popcount64(t),
+        "nuccount": util.nuccount(t, 31), "gccount": util.gccount(t, 31),
+        "kmer_entropy": util.kmer_entropy(t, 31)}
+    got = {k: _sha(v.cpu().numpy().tobytes()) for k, v in got.items()}
+    for key in ("wang_hash", "khash_int64_hash", "popcount64", "nuccount",
+                "gccount", "kmer_entropy"):
+        require(got[key] == SKETCH_BITMIX[key], f"{key} of the K-12 31-mers "
+                "differs from the JAX package's")
+    say(f"# sketch: K-12 {km.size} 31-mers: wang_hash, khash_int64_hash, "
+        f"popcount64, nuccount, gccount, kmer_entropy match")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    also = read_counts(shared)
+    say(f"# sketch: kernel launches {launches}, and of KR1 and KB2 {also}")
+    for name, c in {**launches, **also}.items():
+        require(c > 0, f"kernel {name} never launched by the sketches")
+    per = {
+        "kmercnt": sum(secs[f"kmercnt {SKETCH_MODES[0][0]} {n}"]
+                       for n in names) / len(ec),
+        "setsketch": secs[f"setsketch {SETSKETCH_MAIN}"] / len(ec),
+        "distmat --hll 14": secs["distmat --hll 14"] / len(ec),
+    }
+    for key in busy:
+        say(f"# sketch: {key}: {secs[key]:.3f}s, card busy "
+            f"{busy[key] / 1e3:.1f} ms ({busy[key] / 1e4 / secs[key]:.2f}%)")
+    say(f"# sketch: wall seconds a genome: {per}")
+
+    # 2. the kernels against their plain versions
+    t1 = time.perf_counter()
+    stream = sketch_kernels(dev, chk, t)
+    say(f"# sketch: the kernels against their plain versions in "
+        f"{time.perf_counter() - t1:.1f}s")
+
+    # 3. timings at the shape of one ec genome (K-12), and bounds
+    t1 = time.perf_counter()
+    times, bounds, library = sketch_numbers(dev, t, *stream)
+    say(f"# sketch: timings in {time.perf_counter() - t1:.1f}s")
+    return launches, times, bounds, library, per
+
+
+def _hll_keys(rng, keys, p):
+    """keys, with keys whose h << p is 0 (their top p bits only), 0 and
+    U64_MAX."""
+    import numpy as np
+    import torch
+
+    top = (rng.integers(0, 1 << p, size=64).astype(np.uint64)
+           << np.uint64(64 - p))
+    extra = np.concatenate([top, np.array([0, 2**64 - 1], np.uint64)])
+    return torch.cat([keys, torch.from_numpy(extra.view(np.int64))])
+
+
+def _css_same(chk, what, got, want):
+    """KS2: registers within 2 ulp, ids, idcounts and n_updates exact."""
+    import numpy as np
+
+    nd, mx = _ulps(got.registers, want.registers)
+    require(mx <= 2, f"csetsketch_update {what}: {nd} registers differ, "
+            f"up to {mx} ulp")
+    require(got.n_updates == want.n_updates, f"csetsketch_update {what}: "
+            "n_updates differ")
+    if got.save_kmers and want.save_kmers:
+        require(np.array_equal(got.ids(), want.ids()),
+                f"csetsketch_update {what}: ids differ")
+    if got.save_kmer_counts and want.save_kmer_counts:
+        require(np.array_equal(got.idcounts(), want.idcounts()),
+                f"csetsketch_update {what}: idcounts differ")
+    fin = np.isfinite(want.registers)
+    err = float(np.abs(got.registers[fin] - want.registers[fin]).max(
+        initial=0.0))
+    chk.max_err["csetsketch_update"] = max(chk.max_err["csetsketch_update"],
+                                           err)
+    chk.cases["csetsketch_update"] += 1
+    return nd, mx
+
+
+def _css_guarded(chk, dev, v, save, m=4096):
+    """One KS2 launch on ``v`` into a new sketch, its scratch followed by
+    2 MiB of a guard pattern that must come back unchanged; the result
+    against the plain version's."""
+    import torch
+
+    from bonsai_tpu_torch import kernels
+    from bonsai_tpu_torch.sketch import setsketch as ss
+
+    n = v.numel()
+    used = kernels.get_lib().bk_csetsketch_update_scratch(n, ss.CHUNK, m)
+    buf = torch.full((used + (2 << 20),), 0xA5, dtype=torch.uint8,
+                     device=dev)
+    got = ss.CSetSketch(m, save, save, device=dev)
+    want = ss.CSetSketch(m, save, save, device="cpu")
+    dv = v.to(dev)
+    kernels.launch("bk_csetsketch_update", dev, dv.data_ptr(), n, ss.CHUNK,
+                   m, got.regs.data_ptr(), kernels.ptr(got._ids),
+                   kernels.ptr(got._idcounts), buf.data_ptr())
+    torch.cuda.synchronize()
+    got.n_updates = n
+    want.update(v)
+    bad = int((buf[used:] != 0xA5).sum())
+    require(bad == 0, f"csetsketch_update of {n} values wrote {bad} bytes "
+            "past its scratch")
+    _css_same(chk, f"{n} values, guarded scratch", got, want)
+
+
+def sketch_kernels(dev, chk, km):
+    """KS1-KS4 against their plain versions on CPU copies, with the edge
+    cases; returns the K-12 inputs of the timings: the k-mer stream of
+    setsketch -k 31 (KB1's emissions, in order) and the k = 31 hash
+    stream of MultiKCounter (values, valid)."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import bitops, hashes
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.core.encoder import BatchEncoder
+    from bonsai_tpu_torch.core.rolling import RollingEncoder
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.io import fastx
+    from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
+
+    rng = np.random.default_rng(SEED + 9)
+    kc = km.cpu()
+    edge = torch.from_numpy(np.array(
+        [0, 2**64 - 1, 2**63, 2**63 - 1], np.uint64).view(np.int64))
+    # KS4
+    for name, fn, plain in (
+        ("bitmix", hashes.wang_hash, hashes.wang_hash_plain),
+        ("bitmix", hashes.khash_int64_hash, hashes.khash_int64_hash_plain),
+        ("bitmix", bitops.popcount64, bitops.popcount64_plain),
+    ):
+        for x in (kc, edge, edge[:1], kc[:0], kc[:1001].reshape(7, 143)):
+            chk.same(name, [fn(x.to(dev))], [plain(x)], fn.__name__)
+    for k in (1, 31, 32):
+        x = torch.cat([kc[:200003], edge]) & bitops.i64(
+            bitops.kmer_mask_bits(k))
+        chk.same("nuccount", [bitops.nuccount(x.to(dev), k)],
+                 [bitops.nuccount_plain(x, k)], f"k={k}")
+    # KS1: the K-12 31-mers at p = 14 hashed (distmat --hll 14), then
+    # p = 4, 14, 16 (shared-memory path) and 17, 20 (global atomics) over a
+    # slice with the edge keys
+    regs = torch.zeros(1 << 14, dtype=torch.int32)
+    dregs = regs.to(dev)
+    hll.hll_fill(km, dregs, 14, True)
+    hll.hll_fill_plain(kc, regs, 14, True)
+    chk.same("hll_fill", [dregs], [regs], "K-12 p=14")
+    for p in (4, 14, 16, 17, 20):
+        x = _hll_keys(rng, kc[: 1 << 19], p)
+        for wang in (False, True):
+            regs = torch.zeros(1 << p, dtype=torch.int32)
+            dregs = regs.to(dev)
+            for _ in range(2):
+                hll.hll_fill(x.to(dev), dregs, p, wang)
+                hll.hll_fill_plain(x, regs, p, wang)
+            chk.same("hll_fill", [dregs], [regs], f"p={p} wang={wang}")
+    # KS3: the K-12 k = 31 hash stream, then runs past 65,535, bit 63,
+    # E = 0 and 1, twice in a row
+    k12 = next(iter(fastx.read_fastx(EC_GENOME)))[1]
+    codes = torch.from_numpy(fastx.encode_contig(k12, DNA4.lut)[None, :])
+    vals, invalid = RollingEncoder(31).hashes(codes.to(dev))
+    hv, hok = vals[0], ~invalid[0]
+    chk.same("sort_count", shs.sort_count(hv, hok),
+             shs.sort_count_plain(hv.cpu(), hok.cpu()), "K-12 k=31")
+    sat = torch.cat([torch.full((70000,), 7), torch.full((65535,), -1),
+                     torch.full((65536,), -(1 << 63)), kc[:1000]])
+    for x in (sat, kc[:300000] | -(1 << 63), kc[:0], kc[:1], edge):
+        x = x[torch.from_numpy(rng.permutation(x.numel()))]
+        em = torch.ones(x.numel(), dtype=torch.bool)
+        for _ in range(2):
+            chk.same("sort_count", shs.sort_count(x.to(dev), em.to(dev)),
+                     shs.sort_count_plain(x, em), f"{x.numel()} keys")
+    # KS2: the K-12 k-mer stream of setsketch -k 31 at m = 4096, -S -s and
+    # default, against the plain -S -s (the registers do not depend on the
+    # mode); then m = 1, 64, 4096 on an empty update, one element, all
+    # copies of one k-mer over a chunk of 2^16 + 1 and copies across chunks
+    em = BatchEncoder(Spacer(31, 31), True).emissions(
+        codes.to(dev), torch.tensor([codes.shape[1]], dtype=torch.int32,
+                                    device=dev))
+    kstream = em.values[0][em.mask[0]]
+    want = ss.CSetSketch(4096, True, True, device="cpu")
+    want.update(kstream.cpu())
+    report = []
+    for save in (True, False):
+        got = ss.CSetSketch(4096, save, save, device=dev)
+        got.update(kstream)
+        report.append(_css_same(chk, f"K-12 -S -s={save}", got, want))
+    one = torch.full(((1 << 16) + 1,), 0x1234567890ABCDEF)
+    for m in (1, 64, 4096):
+        for save, cnt in ((False, False), (True, False), (True, True)):
+            got = ss.CSetSketch(m, save, cnt, device=dev)
+            want = ss.CSetSketch(m, save, cnt, device="cpu")
+            # the copies of one k-mer after the mixed update: against the
+            # registers of one element alone, they run ~2,000 rounds
+            for v in (kc[:0], kc[:1], torch.cat([kc[:70000],
+                                                 kc[:5].repeat(20000)]), one):
+                got.update(v.to(dev))
+                want.update(v)
+                report.append(_css_same(chk, f"m={m} {v.numel()} values",
+                                        got, want))
+    # KS2 writes nothing past the scratch its size function gives: a guard
+    # after it, on updates of fewer values than a chunk and of more
+    for n in (1, 3000, (1 << 16) + 1):
+        for save in (False, True):
+            _css_guarded(chk, dev, kc[:n], save)
+    say(f"# sketch: KS2 registers against the plain version: K-12 -S -s "
+        f"{report[0][0]} of 4096 differ (up to {report[0][1]} ulp), default "
+        f"{report[1][0]} (up to {report[1][1]}); edge cases at most "
+        f"{max(r[0] for r in report[2:])} registers, "
+        f"{max(r[1] for r in report[2:])} ulp")
+    return kstream, hv, hok
+
+
+def sketch_numbers(dev, km, kstream, hv, hok):
+    """KS1-KS4 and their plain versions timed at the K-12 shape, with
+    bounds; KS3 beside torch.unique(return_counts=True)."""
+    import torch
+
+    from bonsai_tpu_torch.core import bitops, hashes
+    from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
+    from bonsai_tpu_torch.tools.bounds import (bound_bitmix, bound_csetsketch,
+                                               bound_hll_fill,
+                                               bound_sort_count, bound_text)
+
+    times, bounds, library = {}, {}, {}
+    n = km.numel()
+    bounds["bitmix"] = bound_bitmix(km, hashes.wang_hash(km))
+    times["bitmix"] = time_pair("bitmix", f"wang_hash, K-12 {n} 31-mers",
+                                lambda: hashes.wang_hash(km),
+                                lambda: hashes.wang_hash_plain(km),
+                                bounds["bitmix"], graph=True)
+    bounds["nuccount"] = bound_bitmix(km, bitops.nuccount(km, 31))
+    times["nuccount"] = time_pair("nuccount", f"K-12 {n} 31-mers",
+                                  lambda: bitops.nuccount(km, 31),
+                                  lambda: bitops.nuccount_plain(km, 31),
+                                  bounds["nuccount"], graph=True)
+    regs = torch.zeros(1 << 14, dtype=torch.int32, device=dev)
+    bounds["hll_fill"] = bound_hll_fill(km, 14, True)
+    times["hll_fill"] = time_pair(
+        "hll_fill", f"K-12 {n} 31-mers, p=14, wang_hash",
+        lambda: hll.hll_fill(km, regs, 14, True),
+        lambda: hll.hll_fill_plain(km, regs, 14, True), bounds["hll_fill"],
+        graph=True)
+    bounds["sort_count"] = bound_sort_count(hv, hok, shs.sort_count(hv, hok))
+    times["sort_count"] = time_pair(
+        "sort_count", f"K-12 k=31 hash stream, {int(hok.sum())} of "
+        f"{hv.numel()} windows", lambda: shs.sort_count(hv, hok),
+        lambda: shs.sort_count_plain(hv, hok), bounds["sort_count"])
+    library["sort_count"] = time_ms(
+        lambda: torch.unique(hv, sorted=True, return_counts=True), iters=20)
+    say(f"# time torch.unique(return_counts=True) of the same {hv.numel()} "
+        f"hashes (no mask, signed order): {library['sort_count']:.4f} ms")
+
+    def sketch(save):
+        s = ss.CSetSketch(4096, save, save, device=dev)
+        s.update(kstream)
+
+    ss.csetsketch_update_plain.arrivals = 0
+    p1 = time_ms(lambda: ss.csetsketch_update_plain(
+        kstream, torch.full((4096,), float("inf"), dtype=torch.float64,
+                            device=dev), None, None), iters=1, warm=0)
+    arrivals = ss.csetsketch_update_plain.arrivals
+    bounds["csetsketch_update"] = bound_csetsketch(kstream, 4096, arrivals)
+    k1 = time_ms(lambda: sketch(True), iters=5, warm=1)
+    k0 = time_ms(lambda: sketch(False), iters=5, warm=1)
+    k2 = time_ms(lambda: sketch(True), iters=5, warm=1)
+    times["csetsketch_update"] = ((k1 + k2) / 2, p1, (k1 + k2) / 2)
+    say(f"# time csetsketch_update K-12 setsketch -k 31 stream ({kstream.numel()}"
+        f" values, m=4096), events around calls with a new sketch: -S -s "
+        f"{k1:.4f}, {k2:.4f} ms, default {k0:.4f} ms; plain torch on the "
+        f"card (default) {p1:.4f} ms; {arrivals} arrivals evaluated "
+        f"({arrivals / kstream.numel():.2f} a value); "
+        f"{bound_text(bounds['csetsketch_update'])}")
+    return times, bounds, library
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -2537,6 +3336,10 @@ def main() -> int:
         "9d Python API", phase_api, dev, chk)
     times.update(api_times)
     bounds.update(api_bounds)
+    sketch_launches, sketch_times, sketch_bounds, sketch_library, per = phase(
+        "9e sketches", phase_sketch, dev, chk)
+    times.update(sketch_times)
+    bounds.update(sketch_bounds)
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -2546,6 +3349,7 @@ def main() -> int:
                                           phase_gather_numbers, dev)
     bounds.update(gather_bounds)
     library.update(gather_library)
+    library.update(sketch_library)
     times["row_gather"] = (gres["row_gather"]["ms"],
                            gres["row_gather"]["plain_ms"],
                            gres["row_gather"]["ms"])
@@ -2556,6 +3360,7 @@ def main() -> int:
     launches.update(gather_launches)
     launches.update(hash_launches)
     launches.update(api_launches)
+    launches.update(sketch_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -2570,7 +3375,8 @@ def main() -> int:
         f"(first), {build_nums['again']['secs']:.3f}s (again), host build "
         f"{host_secs:.3f}s; ec -k 25 -w 37 -t phase 2 "
         f"{hash_nums[EC_PHASE2[0][0]]['secs']:.3f}s; API get_kmers -k 31 -w 40 "
-        f"entropy over the ec corpus {api_mbps:.2f} Mbases/s; total "
+        f"entropy over the ec corpus {api_mbps:.2f} Mbases/s; sketches, wall "
+        f"seconds a genome: { {k: round(v, 3) for k, v in per.items()} }; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -29,10 +29,18 @@ after selection or not, every other alphabet's fold in KB1 and KB4 under
 every score, KR1) the same rows with codes of each alphabet, bytes past
 127, a fold of 66 bits to a real U64_MAX, and for KR1 k = 1 to 1000 on
 rows of two tiles, an all-N row, N runs longer than k, P = 1 and 20
-characters.  Tolerance: exact equality, since all of it is integer work
-(the entropy-file score's one double divide is IEEE-rounded on both
-sides; the Shannon score's doubles are the same table's terms added in
-the same order, then one add and one divide).
+characters; for the sketches, KS4's mixes on 0, U64_MAX and bit 63 and
+nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
+20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
+runs past 65,535, keys with bit 63 set and E = 0 and 1, KS2 at m = 1, 64
+and 4096 in each mode on empty and one-element updates, all copies of one
+k-mer over a chunk of 2^16 + 1 and copies across chunks, and KS2 on a
+scratch of its stated size with a guard after it.  Tolerance: exact equality, since all of it is
+integer work (the entropy-file score's one double divide is IEEE-rounded
+on both sides; the Shannon score's doubles are the same table's terms
+added in the same order, then one add and one divide), but for KS2's
+registers: within 2 ulp, as CUDA's double log is not numpy's (its ids,
+idcounts and n_updates are exact).
 """
 
 import os
@@ -43,14 +51,19 @@ import numpy as np
 import pytest
 import torch
 
+from bonsai_tpu_torch import kernels
 from bonsai_tpu_torch.classify import pipeline as pl
 from bonsai_tpu_torch.classify import resolve as res
+from bonsai_tpu_torch.core import bitops, hashes
 from bonsai_tpu_torch.core import encoder as enc
 from bonsai_tpu_torch.core import rolling
 from bonsai_tpu_torch.core.alphabet import InputType, nper64, radix_of
 from bonsai_tpu_torch.db import build_device as bd
 from bonsai_tpu_torch.db.table import (KmerTable, ProbeArrays, ScoreMap,
                                        lookup_scores)
+from bonsai_tpu_torch.sketch import hll
+from bonsai_tpu_torch.sketch import setsketch as ss
+from bonsai_tpu_torch.sketch import shs
 from bonsai_tpu_torch.taxonomy.tree import TaxTree
 from bonsai_tpu_torch.tools import gather_bench as gb
 
@@ -1446,3 +1459,135 @@ def test_gen_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError, match="8.4b"):
         enc.minimizers(c, ln, 7, 10, False, "hash", tuple(range(7)),
                        it=InputType.PROTEIN20)
+
+
+# -- the sketches: KS1-KS4 -----------------------------------------------------
+
+def _u64s(rng, n):
+    v = rng.integers(0, 2**64, size=n, dtype=np.uint64)
+    v[:4] = [0, 2**64 - 1, 2**63, 2**63 - 1][: min(n, 4)]
+    return torch.from_numpy(v.view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1023, 1025, 300001])
+def test_bitmix_kernel_matches_plain(cuda, n):
+    x = _u64s(np.random.default_rng(n), n)
+    for fn, plain in ((hashes.wang_hash, hashes.wang_hash_plain),
+                      (hashes.khash_int64_hash, hashes.khash_int64_hash_plain),
+                      (bitops.popcount64, bitops.popcount64_plain)):
+        _same([fn(x.to(cuda))], [plain(x)])
+    _same([hashes.wang_hash(x[: n // 2 * 2].reshape(-1, 2).to(cuda))],
+          [hashes.wang_hash_plain(x[: n // 2 * 2].reshape(-1, 2))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32])
+def test_nuccount_kernel_matches_plain(cuda, k):
+    x = _u64s(np.random.default_rng(k), 100003) & bitops.i64(
+        bitops.kmer_mask_bits(k))
+    _same([bitops.nuccount(x.to(cuda), k)], [bitops.nuccount_plain(x, k)])
+    before = bitops.nuccount.launches
+    assert bitops.nuccount(x[:0].to(cuda), k).shape == (0, 4)
+    assert bitops.nuccount.launches == before
+
+
+def _hll_keys(rng, p, n):
+    x = _u64s(rng, n)
+    # keys whose h << p is 0 (only their top p bits set), unhashed
+    top = torch.from_numpy((rng.integers(0, 1 << p, size=64).astype(np.uint64)
+                            << np.uint64(64 - p)).view(np.int64))
+    return torch.cat([x, top])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 14, 16, 17, 20])  # shared: p <= 16
+@pytest.mark.parametrize("wang", [False, True])
+def test_hll_fill_kernel_matches_plain(cuda, p, wang):
+    rng = np.random.default_rng(p)
+    regs = torch.zeros(1 << p, dtype=torch.int32)
+    dregs = regs.to(cuda)
+    for n in (0, 1, 200003):  # three calls raise the same registers
+        keys = _hll_keys(rng, p, n)
+        hll.hll_fill_plain(keys, regs, p, wang)
+        hll.hll_fill(keys.to(cuda), dregs, p, wang)
+        _same([dregs], [regs])
+    assert int(regs.max()) <= 64 - p + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "saturated", "bit63", "empty",
+                                  "one", "masked"])
+def test_sort_count_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(7)
+    x = {
+        "random": _u64s(rng, 300000).repeat(3),
+        "saturated": torch.cat([torch.full((70000,), 7), torch.full(
+            (65535,), -1), torch.full((65536,), -(1 << 63)),
+            _u64s(rng, 1000)]),
+        "bit63": (_u64s(rng, 50000) | -(1 << 63)).repeat(2),
+        "empty": torch.zeros(0, dtype=torch.int64),
+        "one": torch.tensor([-1]),
+        "masked": _u64s(rng, 200000),
+    }[case]
+    x = x[torch.from_numpy(rng.permutation(x.numel()))]
+    em = torch.ones(x.numel(), dtype=torch.bool)
+    if case == "masked":
+        em = torch.from_numpy(rng.random(x.numel()) < 0.3)
+    for _ in range(2):  # twice on one stream
+        _same(shs.sort_count(x.to(cuda), em.to(cuda)),
+              shs.sort_count_plain(x, em))
+
+
+def _css_inputs(rng, m):
+    v = _u64s(rng, 3000)
+    return [v.repeat(2), torch.zeros(0, dtype=torch.int64), v[:1],
+            torch.full(((1 << 16) + 1,), 0x1234567890ABCDEF),
+            torch.cat([_u64s(rng, 70000), v[:5].repeat(20000)])]
+
+
+def _same_sketch(got, want):
+    np.testing.assert_array_max_ulp(got.registers, want.registers, maxulp=2)
+    assert got.n_updates == want.n_updates
+    if want.save_kmers:
+        np.testing.assert_array_equal(got.ids(), want.ids())
+    if want.save_kmer_counts:
+        np.testing.assert_array_equal(got.idcounts(), want.idcounts())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 4096])
+@pytest.mark.parametrize("mode", ["default", "-S", "-S -s"])
+def test_csetsketch_kernel_matches_plain(cuda, m, mode):
+    rng = np.random.default_rng(m)
+    save, counts = "-S" in mode, "-s" in mode
+    got = ss.CSetSketch(m, save, counts, device=cuda)
+    want = ss.CSetSketch(m, save, counts, device="cpu")
+    for v in _css_inputs(rng, m):
+        got.update(v.to(cuda))
+        want.update(v)
+        _same_sketch(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3000, (1 << 16) + 1])
+@pytest.mark.parametrize("save", [False, True])
+def test_csetsketch_kernel_writes_only_its_scratch(cuda, n, save):
+    """KS2 on a scratch of the size bk_csetsketch_update_scratch gives,
+    followed by a guard: the guard comes back unchanged."""
+    m = 4096
+    v = _u64s(np.random.default_rng(n), n)
+    used = kernels.get_lib().bk_csetsketch_update_scratch(n, ss.CHUNK, m)
+    buf = torch.full((used + (2 << 20),), 0xA5, dtype=torch.uint8,
+                     device=cuda)
+    got = ss.CSetSketch(m, save, save, device=cuda)
+    want = ss.CSetSketch(m, save, save, device="cpu")
+    dv = v.to(cuda)
+    kernels.launch("bk_csetsketch_update", cuda, dv.data_ptr(), n, ss.CHUNK,
+                   m, got.regs.data_ptr(), kernels.ptr(got._ids),
+                   kernels.ptr(got._idcounts), buf.data_ptr())
+    torch.cuda.synchronize()
+    got.n_updates = n
+    want.update(v)
+    assert int((buf[used:] != 0xA5).sum()) == 0
+    _same_sketch(got, want)
