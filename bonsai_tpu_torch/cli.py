@@ -6,11 +6,13 @@ subcommands, bin/bonsai.cpp) for the ported slice:
 
   build OUT GENOMES... -k K [-w W] [-S SPACING] [-e] -T nodes.dmp
         -M nameidmap [-C] [-z] [-F paths] [-t|-f --phase1-db P1]
-        [--device-build] [--device cuda|cpu]
+        [--shards N|auto | --bonsai-format] [--device-build]
+        [--device cuda|cpu]
   prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-S SPACING] [-C]
         [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
            [-c CHUNK] [--profile] [--device cuda|cpu]
+  probe-image DB nodes.dmp OUT_DIR
   kmercnt GENOMES... [-k KS] [-o PREFIX] [-C] [--shs-only|--bin-only]
           [--nthash] [--device cuda|cpu]
   rolling-multk GENOMES... [-k KS] [-C] [--device cuda|cpu]
@@ -22,15 +24,20 @@ subcommands, bin/bonsai.cpp) for the ported slice:
           [--device cuda|cpu]
   cmpshs SHS... [-m METRIC] [-o OUT] [--device cuda|cpu]
 
-``classify``, the ``--device-build`` builds and the sketch front-ends run
-on ``--device`` (default cuda, which must be present; cpu runs the
-kernels' plain torch versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
+``classify``, the ``--device-build`` builds, the shard owners of
+``build --shards`` and the sketch front-ends run on ``--device`` (default
+cuda, which must be present; cpu runs the kernels' plain torch
+versions).  ``build`` takes spaced seeds (``-S``), entropy-file scores
 (``-e``), uncanonical windows (``-C -w``) and the hash-scored phase 2
 (``-t|-f --phase1-db P1``: minimizers ordered by the phase-1 map that
-``prebuild -t|-f`` wrote); ``classify`` reads a BTPU1
-database file or a probe-image directory, of a contiguous or a spaced
-seed, and reads plain, .gz, .xz, .bz2 and .zst FASTA/FASTQ.  ``-z``
-gzips the BTPU1 file whatever its name, as the reference does.  The
+``prebuild -t|-f`` wrote), and writes a BTPU1 file, a sharded directory
+(``--shards N``, or ``auto``: the fewest shards that keep each one's
+slots within 128 MiB; it takes precedence) or the reference binary's
+khash image (``--bonsai-format``); ``classify`` reads any of them, a
+probe-image directory (``probe-image`` writes one from a BTPU1 or khash
+database), of a contiguous or a spaced seed, and reads plain, .gz, .xz,
+.bz2 and .zst FASTA/FASTQ.  ``-z`` gzips the database whatever its name,
+as the reference does.  The
 sketch front-ends (``kmercnt``, ``rolling-multk``, ``rolling-multk-sketch``,
 ``setsketch``, ``distmat``, ``cmpshs``) print and write what the JAX
 package's do, but for two of its faults: its ``MultiKCounter`` counts the
@@ -39,10 +46,11 @@ each window counts once, ``sketch/shs.py``), and its ``distmat --hll``
 merges its sketches in place, so that an entry (i, j) with j > i + 1
 estimates the union of sketches i..j (here each pair's union comes from
 the two sketches alone, ``HyperLogLog.union_estimate``).  Options of
-``bonsai_tpu`` that are not ported (other file formats, sharded output,
-k > 32 in the build), its other subcommands, and inputs that the port
-refuses (a database or phase-1 map that is not BTPU1) exit 2 with the
-ROADMAP item that holds them.
+``bonsai_tpu`` that are not ported (k > 32 in the build; the multi-GPU
+``classify --db-shards``, ``--route`` and ``--distributed``; per-rank
+images of a sharded directory, ``probe-image --db-ranks``) and its other
+subcommands exit 2 with the ROADMAP item that holds them; so does a
+database that is neither BTPU1 nor a khash image (naming neither).
 """
 
 from __future__ import annotations
@@ -72,6 +80,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall times to stderr")
     _device_arg(p)
+    # not ported: each exits 2 (_unported)
+    p.add_argument("--db-shards", type=int, default=0)
+    p.add_argument("--route", default=None)
+    p.add_argument("--distributed", action="store_true")
 
     p = sub.add_parser("build", aliases=["p2", "phase2"],
                        help="build the classify database")
@@ -95,10 +107,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="phase 2, as -t (the phase-1 map decides the order)")
     p.add_argument("--phase1-db", default=None,
                    help="the phase-1 map of -t/-f (prebuild -t|-f)")
+    p.add_argument("--bonsai-format", action="store_true",
+                   help="write the reference binary's khash image")
+    p.add_argument("--shards", type=_shard_count, default=0, metavar="N|auto",
+                   help="write OUT_PATH as a directory of N hash-prefix "
+                        "shard files + manifest; auto: the fewest that "
+                        "keep each shard's slots within 128 MiB")
     _device_args(p)
-    # not ported: each exits non-zero (_unported)
-    p.add_argument("--bonsai-format", action="store_true")
-    p.add_argument("--shards", default="0")
 
     p = sub.add_parser("prebuild", aliases=["p1", "phase1"],
                        help="build a phase-1 score map")
@@ -114,6 +129,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-S", "--spacing", default="",
                    help="spaced seed: k-1 gaps, e.g. 0x16,1x4")
     _device_args(p)
+
+    p = sub.add_parser("probe-image",
+                       help="write a classify-ready probe image of a "
+                            "database for a taxonomy")
+    p.add_argument("db")
+    p.add_argument("tax_path")
+    p.add_argument("out_dir", nargs="?", default=None)
+    p.add_argument("--db-ranks", type=int, default=0,
+                   help="not ported: per-rank images of a sharded "
+                        "directory")
+    p.set_defaults(run=_cmd_probe_image)
     _sketch_parsers(sub)
     for name, (aliases, item) in UNPORTED_COMMANDS.items():
         sub.add_parser(name, aliases=aliases,
@@ -224,8 +250,7 @@ UNPORTED_COMMANDS = {
     "stdin2ss": ([], "12"), "genome2multiset": ([], "12"),
     "fahist": ([], "12"), "kmeridx": ([], "12"),
     "setsketchroller": ([], "12"), "errexp": ([], "12"),
-    "metatree": ([], "12"), "probe-image": ([], "10"),
-    "merge-parts": ([], "11"),
+    "metatree": ([], "12"), "merge-parts": ([], "11"),
 }
 
 
@@ -236,22 +261,37 @@ def _device_args(p) -> None:
     _device_arg(p)
 
 
+MULTI_GPU = "ROADMAP queue A, item 11"
 _UNPORTED = {
-    "bonsai_format": "the reference khash format (--bonsai-format): ROADMAP "
-                     "queue A, item 10",
-    "shards": "sharded database directories (--shards): ROADMAP queue A, "
-              "item 10",
+    "db_shards": f"the sharded classifier (classify --db-shards): {MULTI_GPU}",
+    "route": f"the sharded classifier's routes (classify --route): "
+             f"{MULTI_GPU}",
+    "distributed": f"multi-host classify (classify --distributed): "
+                   f"{MULTI_GPU}",
 }
 
 
 def _unported(args, names) -> str | None:
     """The message for a given option of bonsai_tpu that the port lacks."""
     for name in names:
-        if getattr(args, name) not in ("", "0", False, None):
+        if getattr(args, name) not in ("", "0", 0, False, None):
             return f"not ported: {_UNPORTED[name]}"
-    if args.k > 32:
-        return "not ported: 128-bit k-mers (k > 32): ROADMAP queue A, item 8.6"
+    if getattr(args, "k", 0) > 32:
+        return ("not ported: a build of k > 32 (the JAX package's encoder "
+                "takes k <= 32; core/encode128.py packs 128-bit k-mers but "
+                "no build reaches it): ROADMAP queue A, item 8.6")
     return None
+
+
+def _shard_count(value: str):
+    """--shards: 0 (none), "auto" (None, decided from the k-mer count) or
+    a count >= 1."""
+    if value == "auto":
+        return None
+    n = int(value)
+    if n < 0:
+        raise argparse.ArgumentTypeError("a count >= 0 or auto")
+    return n
 
 
 def _paths(args) -> List[str]:
@@ -274,21 +314,25 @@ def main(argv=None) -> int:
         return 2
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
-    if hasattr(args, "run"):  # a sketch front-end
-        return args.run(args)
     build = args.cmd in ("build", "p2", "phase2")
-    if args.cmd != "classify":
-        msg = _unported(args, _UNPORTED if build else ())
+    if not hasattr(args, "run"):
+        msg = _unported(args, _UNPORTED if args.cmd == "classify" else ())
         if msg is not None:
             print(msg, file=sys.stderr)
             return 2
+    from .db.formats import NotADatabase
+
     try:
+        if hasattr(args, "run"):  # probe-image, a sketch front-end
+            return args.run(args)
         if args.cmd == "classify":
             return _cmd_classify(args)
         return _cmd_build(args) if build else _cmd_prebuild(args)
-    except NotImplementedError as e:  # a discipline, database or input
-        # (load_database names item 10 for a file that is not BTPU1)
+    except NotImplementedError as e:  # a discipline or an input
         print(f"not ported: {e}", file=sys.stderr)
+        return 2
+    except NotADatabase as e:
+        print(f"error: {e}", file=sys.stderr)
         return 2
 
 
@@ -303,8 +347,10 @@ def _cmd_classify(args) -> int:
     if formats.is_probe_image(args.db):
         clf = Classifier.from_probe_image(args.db, tree, **emit)
     else:
-        clf = Classifier(formats.load_database(args.db), tree,
-                         canonicalize=not args.no_canon, **emit)
+        db = (formats.load_database_sharded(args.db)
+              if formats.is_sharded_dir(args.db)
+              else formats.load_database(args.db))
+        clf = Classifier(db, tree, canonicalize=not args.no_canon, **emit)
     out = open(args.out, "w") if args.out else sys.stdout
     try:
         clf.process_dataset(args.reads, out, mate_path=args.mate,
@@ -319,13 +365,19 @@ def _cmd_classify(args) -> int:
 
 def _cmd_build(args) -> int:
     from .core.spacer import Spacer, parse_spacing
-    from .db.formats import Database, load_database, save_database
+    from .db.formats import (Database, load_database, recommended_shards,
+                             save_database, save_database_sharded,
+                             write_bonsai_database)
     from .taxonomy.tree import TaxTree
 
     paths = _paths(args)
     if not paths:
         print("no input genomes", file=sys.stderr)
         return 1
+    if args.shards != 0:  # the owners run on --device
+        from .db.build_device import as_device
+
+        as_device(args.device)
     k = args.k
     w = max(args.w, k)
     gaps = parse_spacing(args.spacing, k)
@@ -363,8 +415,41 @@ def _cmd_build(args) -> int:
             table = lca_map(paths, tree, args.seq2tax, sp, canon, scheme)
     db = Database(table=table, k=k, w=w, gaps=gaps, canonicalize=canon,
                   scheme=scheme)
-    save_database(db, args.out_path, compress="gz" if args.gzip else None)
+    compress = "gz" if args.gzip else None
+    n_shards = args.shards
+    if n_shards is None:
+        n_shards = recommended_shards(table.n)
+        print(f"--shards auto -> {n_shards}", file=sys.stderr)
+    if n_shards:  # shards take precedence over --bonsai-format
+        save_database_sharded(db, args.out_path, n_shards, compress,
+                              device=args.device)
+    elif args.bonsai_format:
+        write_bonsai_database(db, args.out_path, compress=args.gzip)
+    else:
+        save_database(db, args.out_path, compress=compress)
     print(f"wrote {len(table)} kmers to {args.out_path}", file=sys.stderr)
+    return 0
+
+
+def _cmd_probe_image(args) -> int:
+    """A classify-ready probe image of a BTPU1 or khash database
+    (``bonsai_tpu/cli.py`` ``_cmd_probe_image``); per-rank images of a
+    sharded directory are item 11's."""
+    from .db.formats import is_sharded_dir, load_database, save_probe_image
+    from .taxonomy.tree import TaxTree
+
+    if args.db_ranks or is_sharded_dir(args.db):
+        print("not ported: per-rank probe images of a sharded directory "
+              f"(bake_rank_images, --db-ranks): {MULTI_GPU}", file=sys.stderr)
+        return 2
+    if not args.out_dir:
+        print("probe-image of a .btpu file needs OUT_DIR", file=sys.stderr)
+        return 2
+    tree = TaxTree.from_nodes_dmp(args.tax_path)
+    db = load_database(args.db)
+    save_probe_image(args.out_dir, db, tree)
+    print(f"wrote probe image for {db.table.n} kmers to {args.out_dir}",
+          file=sys.stderr)
     return 0
 
 

@@ -393,6 +393,63 @@ compacted_minimizers.launches = 0
 compacted_minimizers.variants = {}
 
 
+def compacted_stream_plain(values: torch.Tensor, valid: torch.Tensor,
+                           W: int) -> Emissions:
+    """Plain torch KB4 stream: a given (B, P) stream of int64-held u64
+    values with (B, P) validity flags (rolling hashes of any k) -> (B, E)
+    emissions of the compacted discipline, scored by frev64 of the value,
+    E = 1 + max(P - W + 1, 0), column 0 the trailing partial window, as
+    ``compacted_minimizers_plain``."""
+    if values.dim() != 2 or values.shape[-1] < 1:
+        raise ValueError(f"values: shape {tuple(values.shape)}, expected "
+                         "(B, P) with P >= 1")
+    out_k, out_v, tail_k, tail_v = _compacted(frev64(values), values, valid,
+                                              W)
+    tail_k = torch.where(tail_v, tail_k, U64_MAX)
+    return Emissions(torch.cat([tail_k[:, None], out_k], dim=-1),
+                     torch.cat([tail_v[:, None], out_v], dim=-1))
+
+
+def compacted_stream(values: torch.Tensor, valid: torch.Tensor,
+                     W: int) -> Emissions:
+    """KB4's stream source (``csrc/compacted_minimizers.cu``
+    ``bk_compacted_stream``): see ``compacted_stream_plain``, which serves
+    CPU tensors.  values (B, P) int64, valid (B, P) bool, 1 <= W <= 8192;
+    the window launch is KB4's, with the lex score."""
+    if values.device.type == "cpu":
+        return compacted_stream_plain(values, valid, W)
+    if values.device.type != "cuda":
+        raise ValueError(
+            f"compacted_stream: no kernel for device {values.device}")
+    dev = values.device
+    if values.dim() != 2 or values.shape[-1] < 1:
+        raise ValueError(f"values: shape {tuple(values.shape)}, expected "
+                         "(B, P) with P >= 1")
+    B, P = values.shape
+    kernels.check(values, "values", torch.int64, dev)
+    kernels.check(valid, "valid", torch.bool, dev, (B, P))
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"window of {W} values: the kernel takes 1..{MAX_W}")
+    if B > 65535:
+        raise ValueError(f"{B} rows: the kernel's grid takes at most 65535")
+    if P >= 1 << 30:
+        raise ValueError(f"{P} values a row: the kernel takes < 2^30")
+    E = 1 + max(P - W + 1, 0)
+    keys = torch.empty((B, E), dtype=torch.int64, device=dev)
+    emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
+    if B:
+        scratch = kernels.scratch("bk_compacted_minimizers_gen", (B, P, 0),
+                                  dev)
+        kernels.launch("bk_compacted_stream", dev, values.data_ptr(),
+                       valid.data_ptr(), B, P, W, keys.data_ptr(),
+                       emitted.data_ptr(), scratch.data_ptr())
+        compacted_stream.launches += 1
+    return Emissions(keys, emitted)
+
+
+compacted_stream.launches = 0
+
+
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported (ROADMAP queue A, "
                                f"item {item})")

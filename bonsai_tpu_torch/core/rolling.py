@@ -22,8 +22,9 @@ package computes it), which serves CPU tensors.
 The character tables (``character_table``: the wyrand stream of
 rollinghash's CharacterHash), ntHash's seeds and std::mt19937_64 (the
 seeds of RollingHasherSet) are host Python, copied from that module.
-Windowed rolling minimizers (``RollingEncoder.emissions``) are not
-ported (ROADMAP queue A, item 12).
+``RollingEncoder.emissions`` windows the hashes as the compacted
+discipline does: KR1's values, scored by frev64 of the value, through
+KB4's stream source (``core/encoder.py`` ``compacted_stream``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 from .. import kernels
 from .bitops import SIGN, shr
 from .encode import position_validity
+from .encoder import Emissions, compacted_stream
 
 U64_MAX = (1 << 64) - 1
 
@@ -204,10 +206,20 @@ class RollingEncoder:
         """(values (B, P), invalid) — canonical if self.canon."""
         return cyclic_hashes(codes, self.k, *self.tables(codes.device))
 
-    def emissions(self, codes, lengths):
-        raise NotImplementedError(
-            "windowed rolling minimizers (RollingEncoder.emissions) are not "
-            "ported (ROADMAP queue A, item 12)")
+    def emissions(self, codes: torch.Tensor,
+                  lengths: torch.Tensor) -> Emissions:
+        """(values, mask) of each row (``RollingEncoder.emissions`` of the
+        JAX package): unwindowed, every window's hash, valid where it lies
+        inside the row's length and holds no ambiguous code; with a
+        window of w > k bases, W = w - k + 1 hashes, the compacted
+        discipline over the valid hashes scored by frev64 (the trailing
+        partial window in column 0, U64_MAX there when not emitted).
+        W <= 8192 on the card."""
+        vals, invalid = self.hashes(codes)
+        valid = position_validity(lengths, vals.shape[-1], self.k) & ~invalid
+        if self.w <= 0:
+            return Emissions(vals, valid)
+        return compacted_stream(vals, valid, self.w - self.k + 1)
 
 
 class MultiKRollingEncoder:

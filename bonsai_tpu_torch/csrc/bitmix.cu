@@ -1,39 +1,48 @@
 // KS4 bitmix: one elementwise pass over int64-held u64 values, with a mode
 // for each of wang_hash, khash_int64_hash and popcount64, and a nuccount
-// entry that writes the four base counts of a packed 2-bit k-mer.
+// entry that writes the four base counts of a packed 2-bit k-mer.  KS5 is
+// its owner mode (entry bk_shard_owner): the hash-prefix shard of a key,
+// ((splitmix64(key) >> 32) * ndb) >> 32 as an int32, with probe.cuh's
+// splitmix64.
 //
 // Replaces bonsai_tpu/core/hashes.py wang_hash (:58), khash_int64_hash
-// (:75) and bonsai_tpu/core/bitops.py popcount64 (:60), nuccount (:69):
-// jnp elementwise functions that XLA lowers to paired 32-bit VPU ops.
+// (:75), bonsai_tpu/core/bitops.py popcount64 (:60), nuccount (:69) and
+// bonsai_tpu/db/table.py shard_owner (:413): jnp elementwise functions
+// that XLA lowers to paired 32-bit VPU ops.
 //
 // What bounds it on an H100: bytes.  A value is read once and 8 B (or
-// four 8-B counts) written once; the mixes are a dozen integer operations
-// and __popcll one.  A thread takes 4 values of a grid-stride loop, so
-// loads are coalesced and a block has several in flight.
+// four 8-B counts, or a 4-B owner) written once; the mixes are a dozen
+// integer operations and __popcll one.  A thread takes 4 values of a
+// grid-stride loop, so loads are coalesced and a block has several in
+// flight.  The owner's product wraps mod 2^64 as the u64 one does; below
+// ndb = 2^32 it never wraps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "bitmix.cuh"
+#include "probe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 
-enum Mode { kWang = 0, kKhash = 1, kPopcount = 2 };
+enum Mode { kWang = 0, kKhash = 1, kPopcount = 2, kOwner = 3 };
 
 template <int kMode>
-__device__ __forceinline__ uint64_t mix(uint64_t x) {
+__device__ __forceinline__ uint64_t mix(uint64_t x, uint64_t ndb) {
   if (kMode == kWang) return bk::wang_hash(x);
   if (kMode == kKhash) return bk::khash_int64_hash(x);
+  if (kMode == kOwner) return ((bk::splitmix64(x) >> 32) * ndb) >> 32;
   return (uint64_t)__popcll(x);
 }
 
-template <int kMode>
+// out[i] = mix(in[i]) as an Out (u64, or the owner's int32)
+template <int kMode, typename Out>
 __global__ void __launch_bounds__(kThreads)
-    bitmix(const uint64_t* __restrict__ in, int64_t n,
-           uint64_t* __restrict__ out) {
+    bitmix(const uint64_t* __restrict__ in, int64_t n, uint64_t ndb,
+           Out* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t base = (int64_t)blockIdx.x * kThreads * kPerThread +
                       threadIdx.x;
@@ -47,7 +56,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kPerThread; ++r) {
       const int64_t i = base + (int64_t)r * kThreads;
-      if (i < n) out[i] = mix<kMode>(v[r]);
+      if (i < n) out[i] = (Out)mix<kMode>(v[r], ndb);
     }
   }
 }
@@ -98,11 +107,23 @@ extern "C" int bk_bitmix(const void* in, int64_t n, int mode, void* out,
   const uint64_t* i = (const uint64_t*)in;
   uint64_t* o = (uint64_t*)out;
   if (mode == kWang)
-    bitmix<kWang><<<g, kThreads, 0, s>>>(i, n, o);
+    bitmix<kWang><<<g, kThreads, 0, s>>>(i, n, 0, o);
   else if (mode == kKhash)
-    bitmix<kKhash><<<g, kThreads, 0, s>>>(i, n, o);
+    bitmix<kKhash><<<g, kThreads, 0, s>>>(i, n, 0, o);
   else
-    bitmix<kPopcount><<<g, kThreads, 0, s>>>(i, n, o);
+    bitmix<kPopcount><<<g, kThreads, 0, s>>>(i, n, 0, o);
+  return (int)cudaGetLastError();
+}
+
+// KS5: keys (n,) int64-held u64 -> out (n,) int32 owners in [0, ndb),
+// 1 <= ndb < 2^31.
+extern "C" int bk_shard_owner(const void* keys, int64_t n, int64_t ndb,
+                              void* out, void* stream) {
+  if (n < 0 || ndb < 1 || ndb >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  bitmix<kOwner><<<grid(n, kPerThread), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)keys, n, (uint64_t)ndb, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

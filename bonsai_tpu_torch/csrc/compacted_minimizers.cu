@@ -64,6 +64,16 @@
 // A row is one 4M-base chunk of a genome in the device build and a read
 // in the tests: rows of any length and any count up to the grid's 65535
 // work, since the compaction is row-wide across tiles.
+//
+// The stream source (entry bk_compacted_stream) compacts a given (B, P)
+// stream of u64 values with their validity flags instead of rolling
+// k-mers from codes, so k is unbounded: the windowed rolling minimizers
+// of bonsai_tpu/core/rolling.py RollingEncoder.emissions (:174-195), whose
+// values are the cyclic hashes of KR1 (rolling.cu).  Its compaction
+// stages each tile's values and flags by coalesced loads, then places
+// the valid ones as above; the window launch is the lex one (frev64 of
+// the value).  It reads 9 B a position and writes 9 B a slot, the stream
+// 8 B a valid value both ways.
 
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
@@ -233,6 +243,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the stream source: a tile's valid values of a given stream, compacted
+// as compact_kernel compacts its k-mers
+__global__ void __launch_bounds__(kThreads)
+    compact_stream_kernel(const uint64_t* __restrict__ values,
+                          const bool* __restrict__ valid, int64_t P,
+                          int64_t T, uint32_t* __restrict__ tile_ctr,
+                          uint32_t* status, uint64_t* __restrict__ stream,
+                          int64_t* __restrict__ n_valid) {
+  using Scan = cub::BlockScan<int32_t, kThreads>;
+  __shared__ uint64_t s_km[kTile];
+  __shared__ __align__(16) uint8_t s_f[kTile];  // the valid flags
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ uint32_t s_tile, s_before;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_tile = atomicAdd(tile_ctr, 1u);
+  __syncthreads();
+  const int64_t row = s_tile / T;
+  const int64_t tile = s_tile - row * T;
+  const int64_t p0 = tile * kTile;
+  const int n = (int)min((int64_t)kTile, P - p0);
+  const uint64_t* vrow = values + row * P + p0;
+  const bool* frow = valid + row * P + p0;
+  for (int p = tid; p < kTile; p += kThreads) {
+    const bool in = p < n;
+    s_km[p] = in ? vrow[p] : 0;
+    s_f[p] = in && frow[p];
+  }
+  __syncthreads();
+  const int r0 = tid * kRun;
+  uint32_t ok = 0;
+  {
+    const uint4 f = *(const uint4*)(s_f + r0);  // kRun = 16 flags
+    const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int r = 0; r < kRun; ++r)
+      ok |= (uint32_t)((w[r >> 2] >> (8 * (r & 3))) & 1) << r;
+  }
+  uint64_t km[kRun];
+#pragma unroll
+  for (int r = 0; r < kRun; ++r) km[r] = s_km[r0 + r];
+  int32_t off, cnt;
+  Scan(tmp).ExclusiveSum(__popc(ok), off, cnt);
+  __syncthreads();  // every thread holds its values before any moves
+#pragma unroll
+  for (int r = 0; r < kRun; ++r)
+    if (ok >> r & 1) s_km[off++] = km[r];
+  if (tid == 0) {
+    bk::publish(status + row * T, tile, 1, (uint32_t)cnt);
+    s_before = bk::look_back(status + row * T, tile, 1, (uint32_t)cnt);
+  }
+  __syncthreads();
+  const int64_t before = s_before;
+  uint64_t* out = stream + row * P + before;
+  for (int j = tid; j < cnt; j += kThreads) out[j] = s_km[j];
+  if (tid == 0 && tile == T - 1) n_valid[row] = before + cnt;
+}
+
 // -- 2. window minima -----------------------------------------------------------
 
 // kStored reads the scores from ``sstream`` and, with ``canon``,
@@ -397,6 +464,26 @@ Buffers carve(char* p, int64_t B, int64_t L, bool scored = false) {
   return b;
 }
 
+// the window launch over a compacted stream of P positions a row
+template <int kWin>
+int window(const Buffers& b, int64_t B, int64_t P, int W, int entropy,
+           double denom, const bk::ProbeTable& tbl, void* keys, void* emitted,
+           int canon, int k, cudaStream_t s) {
+  const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
+  const int smem = window_smem(W);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_kernel<kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
+  window_kernel<kWin><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
+      b.stream, b.n_valid, P, W, E, entropy, denom, tbl, (int64_t*)keys,
+      (bool*)emitted, b.sstream, canon, k);
+  return (int)cudaGetLastError();
+}
+
 template <bool kGen, int kWin>
 int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
         int W, int entropy, double denom, const bk::ProbeTable& tbl,
@@ -415,19 +502,8 @@ int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
   compact_kernel<kGen, kScored><<<(unsigned)(B * T), kThreads, 0, s>>>(
       (const int8_t*)codes, (const int32_t*)lengths, L, k, P, T, b.tile_ctr,
       b.status, b.stream, b.n_valid, b.sstream, fold, sh);
-  const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
-  const int smem = window_smem(W);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(window_kernel<kWin>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
-  window_kernel<kWin><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
-      b.stream, b.n_valid, P, W, E, entropy, denom, tbl, (int64_t*)keys,
-      (bool*)emitted, b.sstream, canon, k);
-  return (int)cudaGetLastError();
+  return window<kWin>(b, B, P, W, entropy, denom, tbl, keys, emitted, canon,
+                      k, s);
 }
 
 }  // namespace
@@ -437,6 +513,29 @@ int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
 extern "C" int64_t bk_compacted_minimizers_gen_scratch(int64_t B, int64_t L,
                                                        int64_t scored) {
   return carve(nullptr, B, L, scored != 0).used;
+}
+
+// The stream source: values (B, P) int64-held u64, valid (B, P) bool ->
+// keys (B, E) int64-held u64, emitted (B, E) bool, E = 1 + max(P - W + 1,
+// 0), scored by frev64 of the value; 1 <= W <= 8192, 1 <= P < 2^30, B <=
+// 65535.  Scratch from bk_compacted_minimizers_gen_scratch(B, P, 0).
+extern "C" int bk_compacted_stream(const void* values, const void* valid,
+                                   int64_t B, int64_t P, int W, void* keys,
+                                   void* emitted, void* scratch,
+                                   void* stream) {
+  if (B <= 0 || B > 65535 || P < 1 || P >= bk::kMaxCount || W < 1 ||
+      W > 8192)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Buffers b = carve((char*)scratch, B, P);
+  cudaError_t e = cudaMemsetAsync(b.status, 0, b.zero_bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t T = tiles_of(P);
+  compact_stream_kernel<<<(unsigned)(B * T), kThreads, 0, s>>>(
+      (const uint64_t*)values, (const bool*)valid, P, T, b.tile_ctr,
+      b.status, b.stream, b.n_valid);
+  return window<kLexFile>(b, B, P, W, 0, 0.0, bk::ProbeTable{}, keys,
+                          emitted, 0, 0, s);
 }
 
 // The one entry point.  codes (B, L) int8, lengths (B,) int32 -> keys

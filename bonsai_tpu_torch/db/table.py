@@ -20,20 +20,26 @@ the device the slot and value arrays are int64 tensors holding u64 bits.
 (``build -t/-f --phase1-db``): each k-mer's packed phase-1 value, probed
 by KB5 ``lookup_scores`` (``csrc/lookup_scores.cu``) on the card and by
 ``lookup_scores_plain`` on CPU tensors.
+
+``shard_owner`` is the hash-prefix shard of a key, which partitions a
+sharded database directory (``HashShardedTable``, ``db/formats.py``): KS5
+(``csrc/bitmix.cu``, entry ``bk_shard_owner``) on the card,
+``shard_owner_plain`` on CPU tensors and ``shard_owner_np`` on host
+arrays.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..core import hashes
-from ..core.bitops import SIGN, i64, shr
+from ..core.bitops import SIGN, as_keys, i64, shr
 
 SLOTS = 4
 BSALT = 0xA24BAED4963EE407
@@ -350,3 +356,98 @@ class ScoreMap:
             return np.where(found, val.astype(np.uint64),
                             np.uint64((1 << 64) - 1))
         return lookup_scores(kmers, self.arrays(kmers.device))
+
+
+# -- KS5: the hash-prefix shard owner of a key --------------------------------
+
+def _check_ndb(ndb: int) -> int:
+    ndb = int(ndb)
+    if not 1 <= ndb < 1 << 31:
+        raise ValueError(f"ndb={ndb}: the owner is an int32 in [0, ndb), "
+                         "1 <= ndb < 2^31")
+    return ndb
+
+
+def shard_owner_np(kmers, ndb: int) -> np.ndarray:
+    """Host numpy ``shard_owner``: u64 keys -> int32 owners."""
+    h = splitmix64_np(kmers)
+    u = np.uint64
+    return (((h >> u(32)) * u(_check_ndb(ndb))) >> u(32)).astype(np.int32)
+
+
+def shard_owner_plain(kmers: torch.Tensor, ndb: int) -> torch.Tensor:
+    """Plain torch KS5: int64-held u64 keys of any shape -> int32 owners
+    ((splitmix64(key) >> 32) * ndb) >> 32, both shifts logical (the
+    product wraps mod 2^64 as the u64 one does)."""
+    h = hashes.splitmix64(kmers)
+    return shr(shr(h, 32) * _check_ndb(ndb), 32).to(torch.int32)
+
+
+def shard_owner(kmers, ndb: int):
+    """Hash-prefix shard owner of each key, in [0, ndb) (``shard_owner``
+    of ``bonsai_tpu/db/table.py``: a fixed-point range partition of
+    splitmix64's top 32 bits, disjoint from the low bucket bits).  A
+    numpy array goes to ``shard_owner_np``, a CPU tensor to
+    ``shard_owner_plain`` and a CUDA tensor to KS5 (``csrc/bitmix.cu``
+    ``bk_shard_owner``: 8 B in and 4 B out a key)."""
+    if isinstance(kmers, np.ndarray):
+        return shard_owner_np(kmers, ndb)
+    if kmers.device.type == "cpu":
+        return shard_owner_plain(kmers, ndb)
+    if kmers.device.type != "cuda":
+        raise ValueError(f"shard_owner: no kernel for device {kmers.device}")
+    ndb = _check_ndb(ndb)
+    kernels.check(kmers, "kmers", torch.int64, kmers.device)
+    out = torch.empty(kmers.shape, dtype=torch.int32, device=kmers.device)
+    if kmers.numel():
+        kernels.launch("bk_shard_owner", kmers.device, kmers.data_ptr(),
+                       kmers.numel(), ndb, out.data_ptr())
+        shard_owner.launches += 1
+    return out
+
+
+shard_owner.launches = 0
+
+
+def owners_of(keys: np.ndarray, ndb: int, device) -> np.ndarray:
+    """int32 owners of host u64 keys, computed on ``device`` (KS5 on the
+    card, its plain version on the CPU)."""
+    return shard_owner(as_keys(keys, device), ndb).cpu().numpy()
+
+
+def owner_parts(owner: np.ndarray, ndb: int) -> List[np.ndarray]:
+    """The indices of each owner's keys, ascending: one stable argsort
+    instead of ndb scans of the owner array."""
+    order = np.argsort(owner, kind="stable")
+    bounds = np.searchsorted(owner[order],
+                             np.arange(ndb + 1, dtype=owner.dtype))
+    return [order[bounds[s]:bounds[s + 1]] for s in range(ndb)]
+
+
+class HashShardedTable:
+    """ndb independent quotient-cuckoo sub-tables partitioned by hash
+    prefix (``HashShardedTable`` of ``bonsai_tpu/db/table.py``, its
+    constructor): every key lives on shard ``shard_owner(key, ndb)``, and
+    every shard is placed at one common bucket count ``nb``, negotiated
+    by placing them all again at the grown ``nb`` whenever one needs
+    more.  ``parts[s]`` are the indices of shard s's keys in the table's
+    sorted keys (so each shard's keys stay sorted).  The owners are
+    computed on ``device``.  A placed shard is dropped once its bucket
+    count is read: the writers need only ``parts`` and ``nb``."""
+
+    def __init__(self, table: KmerTable, ndb: int, device="cuda"):
+        if ndb < 1:
+            raise ValueError("ndb must be >= 1")
+        self.ndb = ndb
+        keys, vals = table.keys_sorted, table.vals_sorted
+        self.parts: List[np.ndarray] = owner_parts(
+            owners_of(keys, ndb, device), ndb)
+        nmax = max(max((p.size for p in self.parts), default=0), 1)
+        nb = max(_next_pow2(int(np.ceil(nmax / (SLOTS * MAX_LOAD)))), 4)
+        while True:
+            got = max(KmerTable(keys[p], vals[p], min_nb=nb).nb
+                      for p in self.parts)
+            if got == nb:
+                break
+            nb = got  # a shard needed growth: place all at the same nb
+        self.nb = nb

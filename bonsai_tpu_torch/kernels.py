@@ -13,9 +13,10 @@ wrapper allocates.
 
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
-``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``
-and ``compacted_minimizers``, ``core/rolling.py`` ``cyclic_hashes``,
-``db/table.py`` ``lookup_scores``,
+``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
+``compacted_minimizers`` and ``compacted_stream``, ``core/rolling.py``
+``cyclic_hashes``, ``core/encode128.py`` ``pack_kmers128`` and ``rc128``,
+``db/table.py`` ``lookup_scores`` and ``shard_owner``,
 ``db/build_device.py`` ``sort_unique`` and ``merge_fold``,
 ``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` and
 ``core/bitops.py`` ``popcount64`` and ``nuccount`` (one elementwise
@@ -97,6 +98,14 @@ _SIGS = {
     # in, n, mode (0 wang_hash, 1 khash_int64_hash, 2 popcount64), out,
     # stream
     "bk_bitmix": [P, I64, I32, P, P],
+    # keys, n, ndb, owners (int32), stream
+    "bk_shard_owner": [P, I64, I64, P, P],
+    # codes, B, L, k, canon, hi, lo, invalid, stream
+    "bk_pack_kmers128": [P, I64, I64, I32, I32, P, P, P, P],
+    # hi, lo, n, k, mode (0 rc, 1 canonical), out_hi, out_lo, stream
+    "bk_rc128": [P, P, I64, I32, I32, P, P, P],
+    # values, valid, B, P, W, keys, emitted, scratch, stream
+    "bk_compacted_stream": [P, P, I64, I64, I32, P, P, P, P],
     # kmers, n, mask, out (n, 4), stream
     "bk_nuccount": [P, I64, U64, P, P],
     # keys, n, p, wang, registers, stream

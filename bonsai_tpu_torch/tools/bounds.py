@@ -259,3 +259,36 @@ def bound_sort_count(keys, emitted, out):
     """KS3: as KB2, the keys and flags in, the distinct keys and their
     u16 counts out."""
     return bound(nbytes(keys, emitted, *out))
+
+
+def bound_shard_owner(keys, out):
+    """KS5: 8 B a key in and its 4-B owner out; splitmix64 (3 xor-shifts,
+    2 u64 multiplies, an add: ~20 int32 ops) and the owner's shift,
+    multiply and shift (~6)."""
+    return bound(nbytes(keys, out), 26 * keys.numel())
+
+
+def bound_pack_kmers128(codes, out, canon: bool):
+    """K128 pack: 1 B of codes a position in, two 8-B lanes and a flag
+    out; per position the rolled 128-bit k-mer (two u64 shifts, an or,
+    a carry and a mask: ~10 int32 ops) and its flags (~4), and with
+    ``canon`` the rc of both lanes (5 swap steps of 4 u64 ops and the
+    stitch, ~50 int32 ops) and the 128-bit compare (~8)."""
+    return bound(nbytes(codes, *out), out[0].numel() * (14 + (58 if canon
+                                                              else 0)))
+
+
+def bound_rc128(pairs, out, canon: bool):
+    """K128 rc / canonical: 16 B a pair in and 16 B out; the rc of both
+    lanes (~50 int32 ops) and with ``canon`` the compare (~8)."""
+    return bound(nbytes(*pairs, *out), pairs[0].numel() * (58 if canon
+                                                           else 50))
+
+
+def bound_compacted_stream(values, valid, em, W):
+    """KB4's stream source: 9 B a position in and 9 B a slot out (the
+    compacted stream the design writes and reads back is not the
+    function's); per position its flag (2 ops) and with W > 1 frev64
+    (~12) and about three (score, value) compares (24)."""
+    return bound(nbytes(values, valid, *em),
+                 values.numel() * (2 + (36 if W > 1 else 0)))

@@ -138,6 +138,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                  past 65,535, bit 63 set, E = 0 and 1, KS4 at k = 1, 31, 32;
                  then each timed at the K-12 shape with its bound, KS3
                  beside torch.unique(return_counts=True)
+ 9f. formats     after phase 9e, the database formats and the encoders'
+                 tail through bonsai_tpu_torch on the card, against the
+                 JAX package's values: build --shards 4, --shards auto (->
+                 1) and --bonsai-format of the ec k=31 database through
+                 the port's CLI (KS5 places the shards), the sha256 of
+                 every shard file, manifest.json, uniq_vals.npy and of the
+                 khash file = the JAX CLI's (EC_DB_CMD); classify of the
+                 HiSeq set against the sharded directory (a merged load),
+                 the khash file and a probe-image of the .btpu file (the
+                 golden sha256); KS5's owners of the ec keys at ndb = 1,
+                 3, 4, 65536; K128's pack, rc, canonical and canonical
+                 pack of K-12 at k = 33, 40, 55, 64; RollingEncoder
+                 .emissions of K-12 at k = 31 w = 40 canonical and k = 64
+                 w = 100 (KR1, then KB4's stream source); KS5, K128 and
+                 KB4's stream source launched (and K1-K3, KR1); the wall
+                 seconds of each build, the sharded save, the khash
+                 write and read, the merged load and each classify; then
+                 each new kernel against its plain version on CPU copies
+                 (bit 63 set in either lane, 0 and U64_MAX keys, an all-N
+                 row, P = 1, Ns at run and tile edges, codes past 3,
+                 W = 1, 37 and 8192, rows shorter than the window, an
+                 all-invalid row, 0 < n_valid < W) and each timed by
+                 CUDA-graph replay at the ec keys or K-12, with its bound
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -154,8 +177,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before the last is the kernels JSON (launches on the main paths,
 exactness, kernel, plain, bound and library times, and the share
 bound / kernel time; ``ms`` is graph-replayed
-for K1-K3, KB1, KB4, KB5 and G2, ``event_ms`` the event timing; KB1, KB4
-and K1 have a row for each instantiation); each phase prints its wall
+for K1-K3, KB1, KB4, KB5, G2, KS5 and K128, ``event_ms`` the event
+timing; KB1, KB4 and K1 have a row for each instantiation); each phase prints its wall
 seconds as it ends ("# phase ...") and all of them before the kernels
 line; the last line is {"ok": true, "device": {...}}.  Without a card,
 or outside a checkout,
@@ -578,6 +601,83 @@ SKETCH_ROLLING_CARDS = [
 ]
 
 
+# Phase 9f, database formats: the ec k=31 database (EC_DB below) as the JAX
+# package's CLI writes it, from the repository root, with EC the 5 genomes
+# of the golden manifest's "kraken" entry in its order and G =
+# tests/data/golden (JAX_PLATFORMS=cpu, numpy 2.0.2):
+#   python -m bonsai_tpu build OUT EC -k 31 -T G/ec_nodes.dmp -M
+#     G/ec_nameidmap.txt FLAGS
+# FLAGS -> {file of the directory OUT: sha256}; --bonsai-format: the file's
+EC_DB_CMD = ("python -m bonsai_tpu build OUT <ec genomes> -k 31 -T "
+             "tests/data/golden/ec_nodes.dmp -M tests/data/golden/"
+             "ec_nameidmap.txt FLAGS")
+FORMAT_SHARDS = {
+    "--shards 4": {
+        "manifest.json":
+            "7c0f550123b9398619c5f8b6b8b7348875a8b4e2c83711ebe89db758e0c48c77",
+        "shard-00000.btpu":
+            "e26d6aa8d0032369dbe2615fdc2d7daae9da31f8c6ef9491b4bc8b3105ad1a14",
+        "shard-00001.btpu":
+            "f2cbac1a785eae48531680e8cfec95a1d0bab74d78b8058e28714d26940a5f11",
+        "shard-00002.btpu":
+            "1b055ebacbda82f5086f3654671c697e9db144ee7c03b9112eb622f1a487de9a",
+        "shard-00003.btpu":
+            "611cdd436cac9892fae307df436cd6566b0e7a96da218c309a092d89b3d033a2",
+        "uniq_vals.npy":
+            "d0a599e002c4de0bfb4320e36092b10810e28780272ebdbfe75a11dff093efb7",
+    },
+    "--shards auto": {  # "--shards auto -> 1"; its shard is the .btpu file
+        "manifest.json":
+            "26863d4ed35aa41377f2313b4e286c0432a890d82a39d774f6beb1b48fa2597b",
+        "shard-00000.btpu":
+            "a885bcd5136698e8b6de5656332db5d19af5eb89111685f348947b80c56af6fb",
+        "uniq_vals.npy":
+            "d0a599e002c4de0bfb4320e36092b10810e28780272ebdbfe75a11dff093efb7",
+    },
+}
+FORMAT_KHASH = \
+    "ce6fbf79cf4bef6cd3d1b272df9a52983b0e48e5e24dac0b31ba23406ded1c39"
+# sha256 of bonsai_tpu.db.table.shard_owner(keys, ndb).tobytes() (int32)
+# over the keys of that database (bonsai_tpu.db.formats
+# .read_database_arrays of its .btpu file)
+FORMAT_OWNERS = {
+    1: "84e14896c79276e5c8bd589525dced8097987e1a849cd36d91f39eab75d33f82",
+    3: "53e5326547c96b2ac38cda8d210beedaeea62180aac2591617b70c6437e7bd46",
+    4: "9fe167ab9c158ba743f402616162808aab8f0784faefa8051b2fd0cd9a4ccbcb",
+    65536: "8886c37e260f72feb37f618d90120583a3510d6449ba89d499af4aaf1459ab99",
+}
+# 128-bit k-mers of K-12 (CODES = bonsai_tpu.io.fastx.encode_contig(the
+# first record of EC_GENOME, DNA4.lut)[None, :]): sha256 of the bytes of
+# (hi, lo, invalid) = bonsai_tpu.core.encode128.pack_kmers128(CODES, k), of
+# reverse_complement128(hi, lo, k) and of (canonical128(hi, lo, k),
+# invalid), each array's bytes in turn
+K128_DIGESTS = {
+    33: ("770fc43d43d4cc765d60d0931dcc084c12629849c2f38f9d2b71aa64ca72e798",
+         "d0e493dbf301de547f0c00743ecbd73b49cd3daa634eadacedf3103ab5909419",
+         "4c08f5b519f644b443f8fc0698de7e4de0797c069891d94cd6ff4611df7f8f77"),
+    40: ("2d6a051427613c897ce031a54eab40444b6232cb56f2eca3e06becc13ae24b82",
+         "2398902a2c3053eec0a5f688459cb95b1beee08b8b76368169c521fae2523c1d",
+         "ae24de3fcabe40cdaca658f2b7977fcf8b8cadf6ffe741b6aaab9f4e67f9da40"),
+    55: ("ea99a703259a11adfcc661d3a86f513e558be4f132d7b44b0b806c71fcbf7801",
+         "4e6733623fafe416134c84b65acedd7b6cb41c4029036e3683f89580da75cc83",
+         "76158eee8603239bc124f6c5ad27335041d073b84077ec80d4f7008014241949"),
+    64: ("058c511612f10f041c76abdec53070ff40f93a57236e4508a8ba8dfb5720e96f",
+         "4fe006db151e43770256b8af09a3e6abc20e44ffbb1c457a7469c9fa57cc56b7",
+         "576120cd0ed649aa2900613c84d722e33d7e516f3f458395146efec4e07e935b"),
+}
+# windowed rolling minimizers of K-12: (values, mask) = bonsai_tpu.core
+# .rolling.RollingEncoder(k, canon, w).emissions(CODES, [len]), sha256 of
+# the bytes of values[mask] then mask, and the emitted count
+EMISSION_DIGESTS = {
+    (31, 40, True): (
+        "5e24a52f8010df9f61c3bb57b29e5cae33a35c0c6878496c8bce59d2a580d076",
+        4641613),
+    (64, 100, False): (
+        "48ac09049edb645fdcabb0722dca2699935567e88162c1f82735564a100a98c0",
+        4641553),
+}
+
+
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "encode_probe": ("bonsai_tpu_torch/csrc/encode_probe.cu",
@@ -640,6 +740,16 @@ KERNELS = {
                "bonsai_tpu/core/hashes.py:58"),
     "nuccount": ("bonsai_tpu_torch/csrc/bitmix.cu",
                  "bonsai_tpu/core/bitops.py:69"),
+    "shard_owner": ("bonsai_tpu_torch/csrc/bitmix.cu",
+                    "bonsai_tpu/db/table.py:413"),
+    "pack_kmers128": ("bonsai_tpu_torch/csrc/encode128.cu",
+                      "bonsai_tpu/core/encode128.py:25"),
+    "reverse_complement128": ("bonsai_tpu_torch/csrc/encode128.cu",
+                              "bonsai_tpu/core/encode128.py:72"),
+    "canonical128": ("bonsai_tpu_torch/csrc/encode128.cu",
+                     "bonsai_tpu/core/encode128.py:92"),
+    "compacted_stream": ("bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+                         "bonsai_tpu/core/rolling.py:174"),
 }
 # the rows of the hash-scored phase 2 (phase 9c)
 HASH_ROWS = ("minimizers_hash", "minimizers_spaced_hash",
@@ -669,6 +779,8 @@ VARIANTS = {
                                            ("radix shannon",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
     "encode_probe_spaced": ("encode_probe", ("spaced",)),
+    "reverse_complement128": ("rc128", ("rc",)),
+    "canonical128": ("rc128", ("canonical",)),
 }
 
 
@@ -3098,6 +3210,344 @@ def sketch_numbers(dev, km, kstream, hv, hok):
     return times, bounds, library
 
 
+def _timing_calls(mod, names, secs):
+    """Wrap ``mod``'s functions ``names`` so that each call's wall seconds
+    add to ``secs[name]``; returns the originals, for ``_restore``."""
+    orig = {n: getattr(mod, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        return timed
+
+    for n, fn in orig.items():
+        setattr(mod, n, wrap(n, fn))
+    return orig
+
+
+def _restore(mod, orig):
+    for n, fn in orig.items():
+        setattr(mod, n, fn)
+
+
+def _dir_digests(d):
+    return {f: _sha(open(os.path.join(d, f), "rb").read())
+            for f in sorted(os.listdir(d))}
+
+
+def _k12_codes():
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.io import fastx
+
+    k12 = next(iter(fastx.read_fastx(EC_GENOME)))[1]
+    return fastx.encode_contig(k12, DNA4.lut)[None, :]
+
+
+def _tsha(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_formats(dev, chk, kk, db):
+    """9f. Database formats on the card: build --shards 4 and auto and
+    --bonsai-format of the ec k=31 database through the port's CLI (KS5
+    places the shards), each file's sha256 = the JAX CLI's; classify of
+    the sharded directory, of the khash file and of a probe image of the
+    .btpu file, each the golden HiSeq sha256; KS5 at the ec keys; K128 and
+    the windowed rolling minimizers (KR1, KB4's stream source) of K-12
+    against the JAX package's values; then the kernels against their plain
+    versions and their timings."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.core import encode128 as e128
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core import rolling
+    from bonsai_tpu_torch.core.bitops import as_keys
+    from bonsai_tpu_torch.db import formats, table
+
+    genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+    nodes = os.path.join(GOLD, kk["nodes"])
+    hiseq = os.path.join(DATA, kk["sets"]["HiSeq"]["reads"])
+    want_hiseq = kk["sets"]["HiSeq"]["sha256"]
+    base = ["-k", "31", "-T", nodes, "-M", os.path.join(GOLD, kk["nameid"])]
+    tmp_dir = tempfile.TemporaryDirectory(prefix="formats.",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_dir.name
+    say(f"# formats: constants pinned from the JAX CLI: {EC_DB_CMD}")
+
+    # 1. the main path, counted
+    wrappers = [table.shard_owner, e128.pack_kmers128, e128.rc128,
+                enc.compacted_stream]
+    shared = [pl.encode_probe, rs.resolve, pl.step_outputs,
+              rolling.cyclic_hashes]
+    reset_counts(wrappers + shared)
+    secs = {}
+    orig = _timing_calls(formats, ["save_database_sharded",
+                                   "write_bonsai_database",
+                                   "load_database_sharded",
+                                   "read_bonsai_database"], secs)
+    try:
+        for flags, want in FORMAT_SHARDS.items():
+            out = os.path.join(tmp, flags.split()[1])
+            t = time.perf_counter()
+            _, err = _cli(["build", out, *genomes, *base, *flags.split()], tmp)
+            secs[f"build {flags}"] = time.perf_counter() - t
+            if flags.endswith("auto"):
+                require("--shards auto -> 1" in err, f"--shards auto: {err}")
+            got = _dir_digests(out)
+            require(got == want, f"build {flags}: {got} differs from the JAX "
+                    f"CLI's {want}")
+            say(f"# formats: build {flags}: {len(got)} files match the JAX "
+                f"CLI's ({secs[f'build {flags}']:.2f}s, the sharded save "
+                f"{secs.pop('save_database_sharded'):.2f}s of it)")
+        kh = os.path.join(tmp, "ec.bonsai")
+        t = time.perf_counter()
+        _cli(["build", kh, *genomes, *base, "--bonsai-format"], tmp)
+        secs["build --bonsai-format"] = time.perf_counter() - t
+        require(_sha(open(kh, "rb").read()) == FORMAT_KHASH,
+                "build --bonsai-format differs from the JAX CLI's")
+        say(f"# formats: build --bonsai-format: {os.path.getsize(kh)} bytes "
+            f"match the JAX CLI's ({secs['build --bonsai-format']:.2f}s, the "
+            f"khash write {secs['write_bonsai_database']:.2f}s of it)")
+        btpu = os.path.join(tmp, "auto", "shard-00000.btpu")
+        img = os.path.join(tmp, "img")
+        t = time.perf_counter()
+        _cli(["probe-image", btpu, nodes, img], tmp)
+        secs["probe-image"] = time.perf_counter() - t
+        for name, path in (("sharded directory (4)", os.path.join(tmp, "4")),
+                           ("khash file", kh), ("probe image", img)):
+            outp = os.path.join(tmp, "hiseq.out")
+            t = time.perf_counter()
+            _cli(["classify", path, nodes, hiseq, "-a", "-o", outp], tmp)
+            secs[f"classify {name}"] = time.perf_counter() - t
+            got = _sha(open(outp, "rb").read())
+            require(got == want_hiseq, f"HiSeq against the {name} differs "
+                    "from the golden")
+            say(f"# formats: classify HiSeq against the {name}: sha256 "
+                f"matches ({secs[f'classify {name}']:.2f}s)")
+        say(f"# formats: merged load of the 4 shards "
+            f"{secs['load_database_sharded']:.2f}s, khash read "
+            f"{secs['read_bonsai_database']:.2f}s, probe-image "
+            f"{secs['probe-image']:.2f}s")
+    finally:
+        _restore(formats, orig)
+        tmp_dir.cleanup()
+
+    keys = as_keys(db.table.keys_sorted, dev)
+    for ndb, want in FORMAT_OWNERS.items():
+        got = _tsha(table.shard_owner(keys, ndb))
+        require(got == want, f"KS5 at ndb={ndb} differs from the JAX package")
+    say(f"# formats: KS5 owners of the {keys.numel()} ec keys at ndb = "
+        f"{sorted(FORMAT_OWNERS)} match the JAX package's")
+    codes = torch.from_numpy(_k12_codes()).to(dev)
+    t = time.perf_counter()
+    for k, (wp, wr, wc) in K128_DIGESTS.items():
+        hi, lo, inv = e128.pack_kmers128(codes, k)
+        require(_tsha(hi, lo, inv) == wp, f"K128 pack at k={k} differs")
+        require(_tsha(*e128.reverse_complement128(hi, lo, k)) == wr,
+                f"K128 rc at k={k} differs")
+        require(_tsha(*e128.canonical128(hi, lo, k), inv) == wc,
+                f"K128 canonical at k={k} differs")
+        require(_tsha(*e128.pack_kmers128(codes, k, canon=True)) == wc,
+                f"K128 canonical pack at k={k} differs")
+    torch.cuda.synchronize()
+    say(f"# formats: K128 on K-12 ({codes.shape[1]} bases) at k = "
+        f"{sorted(K128_DIGESTS)}: pack, rc, canonical and the canonical pack "
+        f"match the JAX package's ({time.perf_counter() - t:.2f}s)")
+    lengths = torch.tensor([codes.shape[1]], dtype=torch.int32, device=dev)
+    for (k, w, canon), (want, n) in EMISSION_DIGESTS.items():
+        t = time.perf_counter()
+        v, m = rolling.RollingEncoder(k, canon, w).emissions(codes, lengths)
+        got = _tsha(v[m], m)
+        require(got == want and int(m.sum()) == n,
+                f"emissions k={k} w={w} differ from the JAX package's")
+        say(f"# formats: RollingEncoder({k}, canon={canon}, w={w}).emissions "
+            f"of K-12: {n} emitted, sha256 matches "
+            f"({time.perf_counter() - t:.3f}s)")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    also = read_counts(shared)
+    also.pop("encode_probe_spaced")  # no spaced seed here
+    say(f"# formats: kernel launches {launches}, and of K1-K3 and KR1 {also}")
+    for name, c in {**launches, **also}.items():
+        require(c > 0, f"kernel {name} never launched by the formats' path")
+
+    # 2. the kernels against their plain versions
+    t = time.perf_counter()
+    format_kernels(dev, chk, keys, codes)
+    say(f"# formats: the kernels against their plain versions in "
+        f"{time.perf_counter() - t:.1f}s")
+
+    # 3. timings at the ec keys and K-12, and bounds
+    t = time.perf_counter()
+    times, bounds = format_numbers(dev, keys, codes)
+    say(f"# formats: timings in {time.perf_counter() - t:.1f}s")
+    return launches, times, bounds, secs
+
+
+def format_kernels(dev, chk, keys, codes):
+    """KS5, K128 and KB4's stream source against their plain versions on
+    CPU copies, exactly: KS5 on every ec key, K128 on the whole of K-12
+    at k = 64; keys with bit 63 set, 0 and U64_MAX; an all-N row,
+    P = 1, Ns at tile and run edges, codes past 3; pairs with bit 63 in
+    either lane; W = 1, 37 and 8192, rows shorter than the window, an
+    all-invalid row, 0 < n_valid < W."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encode128 as e128
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core import rolling
+    from bonsai_tpu_torch.core.encode import position_validity
+    from bonsai_tpu_torch.db import table
+
+    rng = np.random.default_rng(SEED + 11)
+    edge = torch.from_numpy(np.array([0, 2**64 - 1, 2**63, 2**63 - 1],
+                                     np.uint64).view(np.int64))
+    # KS5 and rc/canonical run a grid-stride loop over at most sms * 16
+    # blocks, so the whole of the main path's inputs go through the
+    # later passes: every ec key, and every K-12 pair at k = 64.
+    kall = keys.cpu()
+    for ndb in (4, 65536):
+        chk.same("shard_owner", [table.shard_owner(keys, ndb)],
+                 [table.shard_owner_plain(kall, ndb)],
+                 f"all {kall.numel()} ec keys ndb={ndb}")
+    call = codes.cpu()
+    for canon in (False, True):
+        chk.same("pack_kmers128", e128.pack_kmers128(codes, 64, canon),
+                 e128.pack_kmers128_plain(call, 64, canon),
+                 f"K-12 k=64 canon={canon}")
+    hi, lo, _ = e128.pack_kmers128(codes, 64)
+    hc, lc = hi.cpu(), lo.cpu()
+    for name, fn, plain in (
+            ("reverse_complement128", e128.reverse_complement128,
+             e128.reverse_complement128_plain),
+            ("canonical128", e128.canonical128, e128.canonical128_plain)):
+        chk.same(name, fn(hi, lo, 64), plain(hc, lc, 64),
+                 f"all {hc.numel()} K-12 pairs k=64")
+    kc = keys[: 1 << 20].cpu()
+    for ndb in (1, 3, 4, 65536, 2**31 - 1):
+        for x in (kc, edge, kc[:0], kc[:1], kc[:1001].reshape(7, 143)):
+            chk.same("shard_owner", [table.shard_owner(x.to(dev), ndb)],
+                     [table.shard_owner_plain(x, ndb)], f"ndb={ndb}")
+    c = codes[:, : 1 << 20].cpu().numpy().copy()
+    rows = np.repeat(c[:, :3 * 4096 + 111], 6, axis=0)
+    rows[1, :] = -1
+    rows[2, 15::16] = -1
+    rows[3, 4095:4097] = -1
+    rows[4, 300:500] = -1
+    rows[5, rng.integers(0, rows.shape[1], 30)] = rng.integers(
+        4, 128, 30).astype(np.int8)
+    for k in (33, 40, 55, 64):
+        for canon in (False, True):
+            for x in (c, rows, rows[:, :k], rows[:2, : 4096 + k - 1]):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+                chk.same("pack_kmers128",
+                         e128.pack_kmers128(x.to(dev), k, canon),
+                         e128.pack_kmers128_plain(x, k, canon),
+                         f"k={k} canon={canon} {tuple(x.shape)}")
+        hi = torch.cat([edge, edge.flip(0), kc[:200000]])
+        lo = torch.cat([edge.flip(0), edge, kc[200000:400000]])
+        for name, fn, plain in (
+                ("reverse_complement128", e128.reverse_complement128,
+                 e128.reverse_complement128_plain),
+                ("canonical128", e128.canonical128, e128.canonical128_plain)):
+            for h, l in ((hi, lo), (hi[:1], lo[:1]), (hi[:0], lo[:0])):
+                chk.same(name, fn(h.to(dev), l.to(dev), k), plain(h, l, k),
+                         f"k={k} {h.numel()} pairs")
+    renc = rolling.RollingEncoder(64, False, 100)
+    x = torch.from_numpy(np.ascontiguousarray(c))
+    v, inv = rolling.cyclic_hashes_plain(x, 64, *renc.tables("cpu"))
+    ok = position_validity(torch.tensor([x.shape[1]]), v.shape[1], 64) & ~inv
+    vals = torch.cat([v[:, :30000]] * 5)
+    flags = torch.cat([ok[:, :30000]] * 5)
+    vals[0, :5] = torch.cat([edge, edge[:1]])
+    flags[1] = False
+    flags[2] = False
+    for W in (1, 37, 8192):
+        f = flags.clone()
+        f[2, 50:50 + max(W // 2, 1)] = True
+        for a, b in ((vals, f), (vals[:, : W // 2 + 1], f[:, : W // 2 + 1]),
+                     (vals[:, :1], f[:, :1]), (v, ok)):
+            a, b = a.contiguous(), b.contiguous()
+            chk.same("compacted_stream",
+                     enc.compacted_stream(a.to(dev), b.to(dev), W),
+                     enc.compacted_stream_plain(a, b, W),
+                     f"W={W} {tuple(a.shape)}")
+
+
+def format_numbers(dev, keys, codes):
+    """KS5 at the ec keys (ndb = 4), K128 pack, rc and canonical at K-12
+    (k = 64) and KB4's stream source at K-12 (k = 64, w = 100), each with
+    its plain version, by CUDA-graph replay, with bounds."""
+    import torch
+
+    from bonsai_tpu_torch.core import encode128 as e128
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core import rolling
+    from bonsai_tpu_torch.core.encode import position_validity
+    from bonsai_tpu_torch.db import table
+    from bonsai_tpu_torch.tools.bounds import (bound_compacted_stream,
+                                               bound_pack_kmers128,
+                                               bound_rc128, bound_shard_owner,
+                                               bound_text)
+
+    times, bounds = {}, {}
+    n = keys.numel()
+    bounds["shard_owner"] = bound_shard_owner(keys,
+                                              table.shard_owner(keys, 4))
+    times["shard_owner"] = time_pair(
+        "shard_owner", f"{n} ec keys, ndb=4",
+        lambda: table.shard_owner(keys, 4),
+        lambda: table.shard_owner_plain(keys, 4), bounds["shard_owner"],
+        graph=True)
+    P = codes.shape[1] - 63
+    for canon in (True, False):  # the uncanonical pack is reported
+        out = e128.pack_kmers128(codes, 64, canon)
+        bounds["pack_kmers128"] = bound_pack_kmers128(codes, out, canon)
+        times["pack_kmers128"] = time_pair(
+            "pack_kmers128", f"K-12 {codes.shape[1]} bases k=64 "
+            f"canon={canon}", lambda: e128.pack_kmers128(codes, 64, canon),
+            lambda: e128.pack_kmers128_plain(codes, 64, canon),
+            bounds["pack_kmers128"], graph=True)
+    hi, lo, inv = e128.pack_kmers128(codes, 64)
+    for name, fn, plain, canon in (
+            ("reverse_complement128", e128.reverse_complement128,
+             e128.reverse_complement128_plain, False),
+            ("canonical128", e128.canonical128, e128.canonical128_plain,
+             True)):
+        bounds[name] = bound_rc128((hi, lo), fn(hi, lo, 64), canon)
+        times[name] = time_pair(
+            name, f"K-12 {P} pairs k=64", lambda: fn(hi, lo, 64),
+            lambda: plain(hi, lo, 64), bounds[name], graph=True)
+    renc = rolling.RollingEncoder(64, False, 100)
+    v, invalid = renc.hashes(codes)
+    ok = position_validity(torch.tensor([codes.shape[1]], device=dev),
+                           v.shape[1], 64) & ~invalid
+    bounds["compacted_stream"] = bound_compacted_stream(
+        v, ok, enc.compacted_stream(v, ok, 37), 37)
+    times["compacted_stream"] = time_pair(
+        "compacted_stream", f"K-12 k=64 hash stream {v.shape[1]} values, "
+        "W=37", lambda: enc.compacted_stream(v, ok, 37),
+        lambda: enc.compacted_stream_plain(v, ok, 37),
+        bounds["compacted_stream"], graph=True)
+    for name in ("shard_owner", "pack_kmers128", "reverse_complement128",
+                 "canonical128", "compacted_stream"):
+        say(f"# formats: {name} {times[name][0]:.4f} ms, "
+            f"{bound_text(bounds[name])}, share "
+            f"{bounds[name][0] / times[name][0]:.3f}")
+    return times, bounds
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -3340,6 +3790,11 @@ def main() -> int:
         "9e sketches", phase_sketch, dev, chk)
     times.update(sketch_times)
     bounds.update(sketch_bounds)
+    format_launches, format_times, format_bounds, format_secs = phase(
+        "9f formats", phase_formats, dev, chk, kk, db)
+    times.update(format_times)
+    bounds.update(format_bounds)
+    del db
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -3361,6 +3816,7 @@ def main() -> int:
     launches.update(hash_launches)
     launches.update(api_launches)
     launches.update(sketch_launches)
+    launches.update(format_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -3376,7 +3832,9 @@ def main() -> int:
         f"{host_secs:.3f}s; ec -k 25 -w 37 -t phase 2 "
         f"{hash_nums[EC_PHASE2[0][0]]['secs']:.3f}s; API get_kmers -k 31 -w 40 "
         f"entropy over the ec corpus {api_mbps:.2f} Mbases/s; sketches, wall "
-        f"seconds a genome: { {k: round(v, 3) for k, v in per.items()} }; total "
+        f"seconds a genome: { {k: round(v, 3) for k, v in per.items()} }; "
+        f"formats, wall seconds: "
+        f"{ {k: round(v, 3) for k, v in format_secs.items()} }; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -430,17 +430,23 @@ def test_partial_window_of_a_non_final_chunk_is_dropped(trees, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["-t", "--phase1-db", GENOMES[0]],
-                                   ["--bonsai-format"], ["--shards", "2"],
+                                   ["--bonsai-format", "-k", "40"],
+                                   ["--shards", "2", "-k", "33"],
                                    ["-S", "0x16,1x4", "-k", "40"],
-                                   ["--bonsai-format", "-z"], ["-k", "33"]])
+                                   ["--bonsai-format", "-z", "-k", "64"],
+                                   ["-k", "33"]])
 def test_cli_refuses_what_is_not_ported(extra, tmp_path, capsys):
-    """A --phase1-db that is not BTPU1 would reach the JAX package's
-    reference khash importer (queue A item 10), which is not ported."""
+    """A build of k > 32 (with any output format, sharded or khash) exits
+    2 naming its ROADMAP item; a --phase1-db that is neither BTPU1 nor a
+    reference khash image (a FASTA file) exits 2 saying so, before any
+    build."""
     argv = ["build", str(tmp_path / "x.btpu"), GENOMES[0], "-T",
             os.path.join(GOLD, "nodes.dmp"), "-M",
             os.path.join(GOLD, "nameidmap.txt"), *extra]
     assert cli.main(argv) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    want = ("neither a BTPU1 file nor a reference khash"
+            if "--phase1-db" in extra else "ROADMAP queue A, item 8.6")
+    assert want in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x.btpu")
 
 

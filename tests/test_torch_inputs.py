@@ -125,6 +125,8 @@ def _k33_db(lex_db, path):
 
 @pytest.mark.parametrize("which", ["not BTPU1", "k > 32"])
 def test_classify_refused_database_exits_2(lex_db, tmp_path, capsys, which):
+    """A file that is neither BTPU1 nor a reference khash image is no
+    database; a k > 32 database is not ported (item 8.6)."""
     db = str(tmp_path / "refused.db")
     if which == "not BTPU1":
         open(db, "wb").write(b"not a database\n")
@@ -133,7 +135,11 @@ def test_classify_refused_database_exits_2(lex_db, tmp_path, capsys, which):
     rc = cli.main(["classify", db, NODES, os.path.join(GOLD, "reads.fa"),
                    "--device", "cpu", "-o", str(tmp_path / "out")])
     assert rc == 2
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if which == "not BTPU1":
+        assert "neither a BTPU1 file nor a reference khash" in err
+    else:
+        assert "not ported" in err and "8.6" in err
 
 
 @pytest.mark.parametrize("name", ["lex.btpu", "lex.btpu.gz"])

@@ -35,7 +35,13 @@ nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
 runs past 65,535, keys with bit 63 set and E = 0 and 1, KS2 at m = 1, 64
 and 4096 in each mode on empty and one-element updates, all copies of one
 k-mer over a chunk of 2^16 + 1 and copies across chunks, and KS2 on a
-scratch of its stated size with a guard after it.  Tolerance: exact equality, since all of it is
+scratch of its stated size with a guard after it; for the formats and the
+encoders' tail, KS5 at ndb = 1 to 2^31 - 1 on keys with bit 63 set, K128's
+pack at k = 33 to 64 (canonical or not) on rows of two tiles, an all-N
+row, Ns at run and tile edges, codes past 3 and P = 1, its rc and
+canonical on pairs with bit 63 in either lane, and KB4's stream source at
+W = 1 to 8192 on rows shorter than the window, an all-invalid row and
+0 < n_valid < W.  Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
 added in the same order, then one add and one divide), but for KS2's
@@ -1591,3 +1597,121 @@ def test_csetsketch_kernel_writes_only_its_scratch(cuda, n, save):
     want.update(v)
     assert int((buf[used:] != 0xA5).sum()) == 0
     _same_sketch(got, want)
+
+
+# -- the formats and the encoders' tail: KS5, K128, KB4's stream source --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndb", [1, 3, 4, 65536, 2**31 - 1])
+@pytest.mark.parametrize("n", [0, 1, 1025, 300001, 5000011])
+def test_shard_owner_kernel_matches_plain(cuda, ndb, n):
+    from bonsai_tpu_torch.db import table as tbl
+
+    x = _u64s(np.random.default_rng(n + ndb), n)
+    _same([tbl.shard_owner(x.to(cuda), ndb)], [tbl.shard_owner_plain(x, ndb)])
+    _same([tbl.shard_owner(x.reshape(-1, 1).to(cuda), ndb)],
+          [tbl.shard_owner_plain(x.reshape(-1, 1), ndb)])
+    with pytest.raises(ValueError, match="ndb"):
+        tbl.shard_owner(x.to(cuda), 0)
+
+
+def _codes128(rng, B, L, n_prob=0.03):
+    codes = rng.integers(0, 4, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < n_prob] = -1
+    return codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 40, 55, 64])
+@pytest.mark.parametrize("canon", [False, True])
+def test_pack_kmers128_kernel_matches_plain(cuda, k, canon):
+    """Rows of two tiles and a ragged one, an all-N row, Ns at the ends of
+    a thread's run and of a tile, N runs longer than k, P = 1, codes past
+    3 (packed again from their codes) and a row of one tile exactly."""
+    from bonsai_tpu_torch.core import encode128 as e
+
+    rng = np.random.default_rng(k + canon)
+    codes = _codes128(rng, 6, 2 * 4096 + 300)
+    codes[1, :] = -1
+    codes[2, 15::16] = -1  # the last window start of each thread's run
+    codes[3, 4095:4097] = -1
+    codes[4, 500:700] = -1
+    codes[5, rng.integers(0, codes.shape[1], 40)] = rng.integers(
+        4, 128, 40).astype(np.int8)
+    for c in (codes, codes[:, : k], codes[:2, : 4096 + k - 1],
+              codes[:, 3:1000].copy()):
+        c = torch.from_numpy(np.ascontiguousarray(c))
+        _same(e.pack_kmers128(c.to(cuda), k, canon),
+              e.pack_kmers128_plain(c, k, canon))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 40, 55, 64])
+def test_rc128_kernel_matches_plain(cuda, k):
+    from bonsai_tpu_torch.core import encode128 as e
+
+    rng = np.random.default_rng(k + 64)
+    # past one pass of the grid-stride loop (sms * 16 blocks of 256)
+    hi, lo = _u64s(rng, 1200007), _u64s(rng, 1200007)
+    hi[:4] = torch.tensor([-(1 << 63), 0, -1, (1 << 63) - 1])
+    for fn, plain in ((e.reverse_complement128, e.reverse_complement128_plain),
+                      (e.canonical128, e.canonical128_plain)):
+        for h, l in ((hi, lo), (hi[:1], lo[:1]), (hi[:0], lo[:0]),
+                     (hi[:1000].reshape(10, 100), lo[:1000].reshape(10, 100))):
+            _same(fn(h.to(cuda), l.to(cuda), k), plain(h, l, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 37, 8192])
+def test_compacted_stream_kernel_matches_plain(cuda, W):
+    """Rows of several tiles, rows shorter than the window, an all-invalid
+    row, a row whose valid values number 0 < n < W, values with bit 63
+    set and U64_MAX, P = 1; then the rolling emissions of k = 64 and
+    w = 100 on a long row against the plain path."""
+    rng = np.random.default_rng(W)
+    B, P = 6, 3 * 4096 + 77
+    vals = _u64s(rng, B * P).reshape(B, P)
+    vals[0, :5] = -1
+    valid = torch.from_numpy(rng.random((B, P)) < 0.9)
+    valid[1] = False
+    valid[2] = False
+    valid[2, 100:100 + max(W // 2, 1)] = True
+    for v, ok in ((vals, valid), (vals[:, :W // 2 + 1], valid[:, :W // 2 + 1]),
+                  (vals[:, :1], valid[:, :1])):
+        v, ok = v.contiguous(), ok.contiguous()
+        _same(enc.compacted_stream(v.to(cuda), ok.to(cuda), W),
+              enc.compacted_stream_plain(v, ok, W))
+    codes = torch.from_numpy(_codes128(rng, 2, 20000))
+    lengths = torch.tensor([20000, 15000], dtype=torch.int32)
+    renc = rolling.RollingEncoder(64, False, 100)
+    got = renc.emissions(codes.to(cuda), lengths.to(cuda))
+    want = enc.compacted_stream_plain(*_valid_hashes(renc, codes, lengths),
+                                      37)
+    _same(got, want)
+
+
+def _valid_hashes(renc, codes, lengths):
+    from bonsai_tpu_torch.core.encode import position_validity
+
+    v, inv = rolling.cyclic_hashes_plain(codes, renc.k,
+                                         *renc.tables("cpu"))
+    return v, position_validity(lengths, v.shape[1], renc.k) & ~inv
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    from bonsai_tpu_torch.core import encode128 as e
+
+    c = torch.zeros((1, 100), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="32 < k <= 64"):
+        e.pack_kmers128(c, 32)
+    with pytest.raises(ValueError, match="32 < k <= 64"):
+        e.pack_kmers128(c, 65)
+    with pytest.raises(ValueError, match="k=64 > length 40"):
+        e.pack_kmers128(c[:, :40].contiguous(), 64)
+    v = torch.zeros((1, 100), dtype=torch.int64, device=cuda)
+    ok = torch.ones((1, 100), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        enc.compacted_stream(v, ok, 8193)
+    with pytest.raises(TypeError, match="dtype"):
+        enc.compacted_stream(v, ok.to(torch.int8), 10)

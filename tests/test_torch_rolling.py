@@ -91,8 +91,6 @@ def test_canon_needs_four_characters():
         rolling.RollingEncoder(7, canon=True, n_chars=20)
     with pytest.raises(ValueError, match="DNA-only"):
         rolling.RollingEncoder(7, nthash=True, n_chars=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rolling.RollingEncoder(7, window=20).emissions(None, None)
 
 
 @pytest.mark.parametrize("canon,nthash", [(False, False), (True, False),
@@ -150,3 +148,68 @@ def test_dna_lut_codes_hash_as_jax():
     v, inv = rolling.RollingEncoder(13, True).hashes(torch.from_numpy(codes))
     np.testing.assert_array_equal(u64(v), jv)
     np.testing.assert_array_equal(inv.numpy(), jinv)
+
+
+# -- RollingEncoder.emissions: KR1, then KB4's stream source --------------------
+
+def _emissions_equal(got, want):
+    """The masks equal, and the values where they are emitted (column 0
+    holds U64_MAX in the port where its tail is not emitted; the JAX
+    package leaves the minimum of every pushed hash there)."""
+    v, m = got
+    jv, jm = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(m.numpy(), jm)
+    np.testing.assert_array_equal(u64(v)[jm], jv[jm])
+    assert (u64(v[:, :1])[~jm[:, :1]] == np.uint64(2**64 - 1)).all()
+
+
+@pytest.mark.parametrize("k,w", [(7, -1), (21, 40), (31, 40), (40, 60),
+                                 (64, 100), (65, 66)])
+@pytest.mark.parametrize("canon", [False, True])
+def test_emissions_match_jax(k, w, canon):
+    """Unwindowed and windowed (W = w - k + 1, up to 37), canonical and
+    not, k past 32; rows shorter than the window, rows cut short by
+    their lengths, N runs, an all-N row."""
+    rng = np.random.default_rng(k * 7 + w + canon)
+    codes = _codes(rng, 5, 400)
+    codes[2, :] = -1
+    lengths = np.array([400, 90, 400, k + 3, 250], np.int32)
+    want = jroll.RollingEncoder(k, canon, w).emissions(codes, lengths)
+    got = rolling.RollingEncoder(k, canon, w).emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    if w <= k:
+        for g, j in zip(got, want):
+            np.testing.assert_array_equal(g.numpy().view(
+                np.uint64 if g.dtype == torch.int64 else bool), j)
+    else:
+        _emissions_equal(got, want)
+
+
+@pytest.mark.parametrize("k,w", [(5, 12), (9, 9), (12, 300)])
+def test_emissions_twenty_characters_match_jax(k, w):
+    """A protein alphabet (n_chars = 20, never canonical), windowed and
+    not; at w = 300 every row is shorter than its window."""
+    rng = np.random.default_rng(k + w)
+    codes = _codes(rng, 3, 260, n_chars=20)
+    lengths = np.array([260, 200, 30], np.int32)
+    want = jroll.RollingEncoder(k, window=w, n_chars=20).emissions(
+        codes, lengths)
+    got = rolling.RollingEncoder(k, window=w, n_chars=20).emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    if w <= k:
+        np.testing.assert_array_equal(u64(got[0]), want[0])
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+    else:
+        _emissions_equal(got, want)
+
+
+def test_emissions_wide_window_on_the_cpu():
+    """A window past the kernel's 8192 values runs in the plain version
+    (the card's kernel refuses it)."""
+    rng = np.random.default_rng(3)
+    codes = _codes(rng, 2, 9000, n_prob=0.0)
+    lengths = np.array([9000, 8500], np.int32)
+    want = jroll.RollingEncoder(21, True, 8300).emissions(codes, lengths)
+    got = rolling.RollingEncoder(21, True, 8300).emissions(
+        torch.from_numpy(codes), torch.from_numpy(lengths))
+    _emissions_equal(got, want)

@@ -9,11 +9,13 @@ held within 2 ulp (``assert_array_max_ulp``): on the card their ``log``
 is CUDA's; here, torch's and numpy's agree, and the test states the
 tolerance the port keeps.  ids, idcounts and n_updates are exact.
 
-Two faults of the JAX package that the port does not copy have a test
+Three faults of the JAX package that the port does not copy have a test
 each that the port passes and the JAX package fails: its
 ``MultiKCounter`` counts the windows of a chunk overlap again for the
-smaller ks (``test_counts_sum_to_the_windows_across_chunks``); the
-distmat one is in ``test_torch_sketch_cli.py``.
+smaller ks (``test_counts_sum_to_the_windows_across_chunks``) and raises
+on a contig shorter than the largest k
+(``test_a_contig_shorter_than_the_largest_k_counts_the_ks_that_fit``);
+the distmat one is in ``test_torch_sketch_cli.py``.
 """
 
 import functools
@@ -287,6 +289,46 @@ def test_counts_sum_to_the_windows_across_chunks(monkeypatch):
         np.testing.assert_array_equal(c1, c3)
         boundaries = (20000 - 1) // 3000
         assert int(c2.sum()) == _windows(path, k) + boundaries * (31 - k)
+
+
+def test_a_contig_shorter_than_the_largest_k_counts_the_ks_that_fit(
+        tmp_path):
+    """A 7-base contig among longer ones: the port counts its windows for
+    k = 5 and skips it for k = 21 and 40 ("still emit for the k's that
+    fit", bonsai_tpu/sketch/shs.py:76-78); the JAX package raises on it
+    (buzhash's ValueError, bonsai_tpu/core/rolling.py:100-101)."""
+    ks = [5, 21, 40]
+    recs = open(GOLDEN[2]).read()
+    without = tmp_path / "without.fa"
+    without.write_text(recs)
+    with_short = tmp_path / "with.fa"
+    with_short.write_text(recs + ">short\nACGTACG\n" + open(GOLDEN[0]).read())
+    ours = shs.MultiKCounter(ks, device="cpu")
+    ours.add_file(str(with_short))
+    for k, (_, c) in zip(ks, ours.counts()):
+        assert int(c.sum()) == _windows(str(with_short), k)
+    assert _windows(str(with_short), 5) == _windows(str(without), 5) + 3 + \
+        _windows(GOLDEN[0], 5)
+    both = shs.MultiKCounter(ks, device="cpu")
+    both.add_file(str(without))
+    both.add_file(GOLDEN[0])
+    for k, (k1, c1), (k2, c2) in zip(ks[1:], ours.counts()[1:],
+                                     both.counts()[1:]):
+        np.testing.assert_array_equal(k1, k2)
+        np.testing.assert_array_equal(c1, c2)
+    theirs = jshs.MultiKCounter(ks)
+    theirs.add_file(str(without))  # no short contig: the JAX counts agree
+    for (k1, c1), (k2, c2) in zip(_counts(ks, without), theirs.counts()):
+        np.testing.assert_array_equal(k1, k2)
+        np.testing.assert_array_equal(c1, c2)
+    with pytest.raises(ValueError, match="k=21 > length 7"):
+        jshs.MultiKCounter(ks).add_file(str(with_short))
+
+
+def _counts(ks, path):
+    ctr = shs.MultiKCounter(ks, device="cpu")
+    ctr.add_file(str(path))
+    return ctr.counts()
 
 
 def test_shs_and_bin_files_cross_between_packages(tmp_path):

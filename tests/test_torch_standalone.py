@@ -43,11 +43,13 @@ for b in fastx.batch_reads(sys.argv[1], DNA4.lut, batch_size=7):
     h.update(b"".join(b.names) + b"".join(b.seqs))
     h.update(b.codes.tobytes() + b.lengths.tobytes())
 from bonsai_tpu_torch import api
+_FORMATS_SRC
 seq = b"ACGTTGCAAGGCTTAACGNNACGTACGGATCCATGCAAGT" * 3
 kmers = api.get_kmers(seq, k=13, w=29, scheme="entropy", device="cpu")
 hashes = api.rolling_hashes(seq, 21, True, device="cpu")
 print(json.dumps({
     "api": [kmers.tolist(), hashes.tolist()],
+    "formats": _formats(sys.argv[2]),
     "package": os.path.dirname(bonsai_tpu_torch.__file__),
     "modules": names,
     "src_dir": native.SRC_DIR,
@@ -58,6 +60,32 @@ print(json.dumps({
     "phix": h.hexdigest(),
 }))
 """
+
+# the formats of the port in a directory: a sharded directory and a khash
+# image of a small table, and 128-bit k-mers; the sha256 of what they
+# write and pack
+_FORMATS = """
+def _formats(out):
+    import numpy as np, torch
+    from bonsai_tpu_torch.core import encode128
+    from bonsai_tpu_torch.db import formats, table
+    keys = np.arange(1, 4001, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    keys = np.unique(keys)
+    db = formats.Database(table=table.KmerTable(keys, (keys % np.uint64(7))
+                                                .astype(np.uint32)),
+                          k=31, w=31, gaps=[0] * 30)
+    formats.save_database_sharded(db, os.path.join(out, "sh"), 3,
+                                  device="cpu")
+    formats.write_bonsai_database(db, os.path.join(out, "kh.db"))
+    h = hashlib.sha256()
+    for f in sorted(os.listdir(os.path.join(out, "sh"))) + ["../kh.db"]:
+        h.update(open(os.path.join(out, "sh", f), "rb").read())
+    codes = torch.arange(300, dtype=torch.int8).remainder(4)[None, :]
+    for t in encode128.pack_kmers128(codes, 50, canon=True):
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+"""
+_CHILD = _CHILD.replace("_FORMATS_SRC", _FORMATS)
 
 
 def _digest(path):
@@ -77,7 +105,10 @@ def copy_run(tmp_path_factory):
     shutil.copytree(os.path.join(ROOT, "bonsai_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _CHILD, PHIX], cwd=top,
+    out = top / "formats"
+    out.mkdir()
+    proc = subprocess.run([sys.executable, "-c", _CHILD, PHIX, str(out)],
+                          cwd=top,
                           env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     return str(top), json.loads(proc.stdout.strip().splitlines()[-1])
@@ -89,7 +120,18 @@ def test_copy_imports_every_module_without_jax(copy_run):
     assert rep["loaded"] == []
     assert {"bonsai_tpu_torch.native", "bonsai_tpu_torch.kernels",
             "bonsai_tpu_torch.db.build_device", "bonsai_tpu_torch.api",
-            "bonsai_tpu_torch.core.rolling"} <= set(rep["modules"])
+            "bonsai_tpu_torch.core.rolling", "bonsai_tpu_torch.db.formats",
+            "bonsai_tpu_torch.db.diskarray",
+            "bonsai_tpu_torch.core.encode128"} <= set(rep["modules"])
+
+
+def test_copy_writes_the_formats_without_jax(copy_run, tmp_path):
+    """The copy's sharded directory, khash image and 128-bit k-mers are
+    the repository port's, byte for byte."""
+    _, rep = copy_run
+    ns = {}
+    exec("import hashlib, os\n" + _FORMATS, ns)
+    assert rep["formats"] == ns["_formats"](str(tmp_path))
 
 
 def test_copy_runs_the_api_without_jax(copy_run):
