@@ -138,20 +138,8 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
     return hit, em.mask, cidx, oidx
 
 
-def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
-                 arr: ProbeArrays, want_idx: bool, positions=None):
-    """K1 (``csrc/encode_probe.cu``): see ``encode_probe_plain``, which
-    serves CPU tensors.  pcodes (B, w16) int32, nmask (B, nmw) int32 or
-    None, lengths (B,) int32; outputs (B, P) with P = lproc - c + 1, c the
-    seed's span (k when ``positions`` is None).  A spaced seed runs the
-    kernel's second entry point (counted in ``encode_probe.variants``)."""
-    if positions is not None and canon:
-        raise ValueError("a spaced seed is never canonicalized")
-    if pcodes.device.type == "cpu":
-        return encode_probe_plain(pcodes, nmask, lengths, lproc, k, canon,
-                                  arr, want_idx, positions)
-    if pcodes.device.type != "cuda":
-        raise ValueError(f"encode_probe: no kernel for device {pcodes.device}")
+def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
+    """Check K1's inputs on the card; (nmw, P, the host offsets or None)."""
     dev = pcodes.device
     B, w16 = pcodes.shape
     kernels.check(pcodes, "pcodes", torch.int32, dev)
@@ -173,14 +161,47 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         if nmask.shape[0] != B or nmw * 32 < lproc:
             raise ValueError(f"nmask shape {tuple(nmask.shape)} does not "
                              f"cover ({B}, {lproc})")
-    arr.check(dev)
-    P = max(lproc - c + 1, 0)
+    pos = None if positions is None else (ctypes.c_int32 * 32)(
+        *(int(x) for x in positions))
+    return nmw, max(lproc - c + 1, 0), pos
+
+
+def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
+                 arr: ProbeArrays, want_idx: bool, positions=None):
+    """K1 (``csrc/encode_probe.cu``): see ``encode_probe_plain``, which
+    serves CPU tensors.  pcodes (B, w16) int32, nmask (B, nmw) int32 or
+    None, lengths (B,) int32; outputs (B, P) with P = lproc - c + 1, c the
+    seed's span (k when ``positions`` is None).  A spaced seed runs the
+    kernel's second entry point, and an image of a row range (a psum-route
+    rank's, ``ProbeArrays.rows``) its bucket-range instantiation, contiguous
+    or spaced (counted in ``encode_probe.variants``)."""
+    if positions is not None and canon:
+        raise ValueError("a spaced seed is never canonicalized")
+    if pcodes.device.type == "cpu":
+        return encode_probe_plain(pcodes, nmask, lengths, lproc, k, canon,
+                                  arr, want_idx, positions)
+    if pcodes.device.type != "cuda":
+        raise ValueError(f"encode_probe: no kernel for device {pcodes.device}")
+    dev = pcodes.device
+    B, w16 = pcodes.shape
+    nmw, P, pos = _k1_args(pcodes, nmask, lengths, lproc, k, positions)
+    arr.check(dev, ranged=True)
     hit = torch.empty((B, P), dtype=torch.bool, device=dev)
     valid = torch.empty((B, P), dtype=torch.bool, device=dev)
     cidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     oidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     if B * P:
-        if positions is None:
+        if arr.rows:
+            kernels.launch(
+                "bk_encode_probe_range", dev, pcodes.data_ptr(), w16,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                int(canon), int(pos is not None), pos, arr.slots.data_ptr(),
+                arr.lgnb, arr.vbits, arr.vals.data_ptr(), arr.vals.numel(),
+                int(arr.inline), int(want_idx), arr.row0, arr.rows,
+                hit.data_ptr(), valid.data_ptr(), cidx.data_ptr(),
+                oidx.data_ptr(),
+            )
+        elif positions is None:
             kernels.launch(
                 "bk_encode_probe", dev, pcodes.data_ptr(), w16,
                 kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
@@ -192,22 +213,65 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         else:
             kernels.launch(
                 "bk_encode_probe_spaced", dev, pcodes.data_ptr(), w16,
-                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
-                (ctypes.c_int32 * 32)(*(int(x) for x in positions)),
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k, pos,
                 arr.slots.data_ptr(), arr.lgnb, arr.vbits,
                 arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
                 int(want_idx), hit.data_ptr(), valid.data_ptr(),
                 cidx.data_ptr(), oidx.data_ptr(),
             )
         variant = "contiguous" if positions is None else "spaced"
-        encode_probe.launches += 1
-        encode_probe.variants[variant] = encode_probe.variants.get(variant,
-                                                                   0) + 1
+        if arr.rows:
+            variant = "range" if positions is None else "spaced range"
+        _count(variant)
     return hit, valid, cidx, oidx
+
+
+def _count(variant: str) -> None:
+    encode_probe.launches += 1
+    encode_probe.variants[variant] = encode_probe.variants.get(variant, 0) + 1
 
 
 encode_probe.launches = 0
 encode_probe.variants = {}
+
+
+def encode_only_plain(pcodes, nmask, lengths, lproc: int, k: int,
+                      canon: bool, positions=None):
+    """Plain torch of K1's encode-only instantiation: unpack_2bit -> lproc
+    slice -> emissions at W = 1 -> (kmers int64, 0 where not valid;
+    valid)."""
+    codes = unpack_2bit(pcodes, nmask)[:, :lproc]
+    em = minimizers_plain(codes, lengths, k, 1, canon, positions=positions)
+    return torch.where(em.mask, em.values, 0), em.mask
+
+
+def encode_only(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
+                positions=None):
+    """K1's encode-only instantiation (``csrc/encode_probe.cu``
+    ``bk_encode_only``, the a2a route's encode, no table): see
+    ``encode_only_plain``, which serves CPU tensors; inputs as
+    ``encode_probe``'s, outputs (B, P) kmers int64 and valid bool.
+    Counted in ``encode_probe``'s launches as "encode" or "spaced
+    encode"."""
+    if positions is not None and canon:
+        raise ValueError("a spaced seed is never canonicalized")
+    if pcodes.device.type == "cpu":
+        return encode_only_plain(pcodes, nmask, lengths, lproc, k, canon,
+                                 positions)
+    if pcodes.device.type != "cuda":
+        raise ValueError(f"encode_only: no kernel for device {pcodes.device}")
+    dev = pcodes.device
+    B, w16 = pcodes.shape
+    nmw, P, pos = _k1_args(pcodes, nmask, lengths, lproc, k, positions)
+    kmers = torch.empty((B, P), dtype=torch.int64, device=dev)
+    valid = torch.empty((B, P), dtype=torch.bool, device=dev)
+    if B * P:
+        kernels.launch("bk_encode_only", dev, pcodes.data_ptr(), w16,
+                       kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                       int(canon), int(pos is not None), pos,
+                       kmers.data_ptr(), valid.data_ptr())
+        _count("encode" if positions is None else "spaced encode")
+    return kmers, valid
 
 
 # -- K3: step outputs ------------------------------------------------------------
@@ -440,19 +504,23 @@ class Classifier:
         self.n_unclassified = 0
 
     # -- one batch -----------------------------------------------------------
-    def _prepare_batch(self, batch: fastx.ReadBatch, paired: bool = False):
+    def _prepare_batch(self, batch: fastx.ReadBatch, paired: bool = False,
+                       lproc: Optional[int] = None):
         """Host half: 2-bit pack the batch through the host C++ packer
         into (pinned, on CUDA) host tensors.  The processing width lproc
         is the batch's true max read length rounded to Lp/16 granularity
-        (>= 8), so the probe runs at P = lproc - k + 1 positions."""
-        n = len(batch.names)
+        (>= 8), so the probe runs at P = lproc - k + 1 positions (or the
+        ``lproc`` given, the sharded classifier's raw step: the codes'
+        width)."""
+        n = len(batch.codes)
         if paired and n % 2:
             raise ValueError("a paired batch holds whole mate pairs")
         L = batch.codes.shape[1]
         Lp = (L + 31) & ~31
         maxlen = int(batch.lengths.max()) if n else 0
         g = max(8, Lp >> 4)
-        lproc = min(Lp, max(-(-maxlen // g) * g, 8))
+        if lproc is None:
+            lproc = min(Lp, max(-(-maxlen // g) * g, 8))
         w16 = (lproc + 15) // 16
         nmw = (w16 + 1) // 2
         codes = np.ascontiguousarray(batch.codes, dtype=np.int8)
@@ -526,9 +594,12 @@ class Classifier:
 
     def _finish_arrays(self, batch: fastx.ReadBatch, cm: np.ndarray,
                        fetch_full, lproc: int, maxr: int, paired: bool = False,
-                       force_full: bool = False) -> BatchResult:
+                       force_full: bool = False,
+                       allow_bump: bool = True) -> BatchResult:
         """Decode a compact matrix (+ the full one, fetched lazily on run
-        overflow) into a BatchResult."""
+        overflow) into a BatchResult.  ``allow_bump=False`` keeps
+        max_runs (the sharded classifier's per-rank output, where every
+        process must run the same steps)."""
         n = len(batch.names)
         R = n // 2 if paired else n
         P = max(lproc - self.sp.c + 1, 0)
@@ -577,7 +648,7 @@ class Classifier:
             rv = uniq[np.minimum(rv, np.uint32(uniq.size - 1))]
         taxa = hit = run_vals = run_lens = None
         overflowed = bool(n_runs.size and int(n_runs.max()) > maxr)
-        if overflowed and not force_full:
+        if overflowed and not force_full and allow_bump:
             # run-rich data: after a few full-matrix fallbacks, double the
             # compact run capacity
             self._overflow_batches += 1

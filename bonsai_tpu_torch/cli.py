@@ -12,7 +12,10 @@ subcommands, bin/bonsai.cpp) for the ported slice:
         [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
            [-c CHUNK] [--profile] [--device cuda|cpu]
-  probe-image DB nodes.dmp OUT_DIR
+           [--db-shards N [--route auto|a2a|psum]] [--distributed]
+  probe-image DB nodes.dmp OUT_DIR | probe-image SHARDED_DIR nodes.dmp
+           [--db-ranks N]
+  merge-parts PARTS_DIR [-o OUT]
   kmercnt GENOMES... [-k KS] [-o PREFIX] [-C] [--shs-only|--bin-only]
           [--nthash] [--device cuda|cpu]
   rolling-multk GENOMES... [-k KS] [-C] [--device cuda|cpu]
@@ -45,12 +48,21 @@ windows of a long contig's chunk overlaps again for the smaller ks (here
 each window counts once, ``sketch/shs.py``), and its ``distmat --hll``
 merges its sketches in place, so that an entry (i, j) with j > i + 1
 estimates the union of sketches i..j (here each pair's union comes from
-the two sketches alone, ``HyperLogLog.union_estimate``).  Options of
-``bonsai_tpu`` that are not ported (k > 32 in the build; the multi-GPU
-``classify --db-shards``, ``--route`` and ``--distributed``; per-rank
-images of a sharded directory, ``probe-image --db-ranks``) and its other
-subcommands exit 2 with the ROADMAP item that holds them; so does a
-database that is neither BTPU1 nor a khash image (naming neither).
+the two sketches alone, ``HyperLogLog.union_estimate``).
+
+``classify --db-shards N`` runs the sharded classifier
+(``parallel/sharded.py``) over N database ranks: on CUDA one rank a card
+(N must divide the cards), on the CPU N ranks in this process; a sharded
+directory with ``--db-shards`` loads a rank at a time
+(``from_sharded_dir``), without it merges.  ``--distributed`` joins the
+process group from torchrun's environment (one rank a process); a run of
+several processes writes per-rank parts to ``-o DIR``, which
+``merge-parts DIR`` joins into the one-process stream.  ``probe-image``
+of a sharded directory bakes per-rank images for ``--db-ranks`` ranks.
+The option of ``bonsai_tpu`` that is not ported (k > 32 in the build)
+and its other subcommands exit 2 with the ROADMAP item that holds them;
+so does a database that is neither BTPU1 nor a khash image (naming
+neither).
 """
 
 from __future__ import annotations
@@ -80,10 +92,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall times to stderr")
     _device_arg(p)
-    # not ported: each exits 2 (_unported)
-    p.add_argument("--db-shards", type=int, default=0)
-    p.add_argument("--route", default=None)
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--db-shards", type=int, default=0,
+                   help="shard the table over N database ranks "
+                        "(0 = the one-device classifier)")
+    p.add_argument("--route", default="auto", choices=["auto", "a2a", "psum"],
+                   help="sharded probe: a2a = all_to_all routed (default "
+                        "where N > 1), psum = row ranges merged by a sum")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from torchrun's "
+                        "environment first (one rank a process)")
 
     p = sub.add_parser("build", aliases=["p2", "phase2"],
                        help="build the classify database")
@@ -137,9 +154,18 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("tax_path")
     p.add_argument("out_dir", nargs="?", default=None)
     p.add_argument("--db-ranks", type=int, default=0,
-                   help="not ported: per-rank images of a sharded "
-                        "directory")
+                   help="sharded directories: bake per-rank images for "
+                        "this many db ranks (0 = one a shard file), "
+                        "inside the directory")
     p.set_defaults(run=_cmd_probe_image)
+
+    p = sub.add_parser("merge-parts",
+                       help="join the per-rank parts of a multi-process "
+                            "classify --distributed -o DIR into the "
+                            "one-process stream")
+    p.add_argument("parts_dir")
+    p.add_argument("-o", "--out", default=None, help="default: stdout")
+    p.set_defaults(run=_cmd_merge_parts)
     _sketch_parsers(sub)
     for name, (aliases, item) in UNPORTED_COMMANDS.items():
         sub.add_parser(name, aliases=aliases,
@@ -250,7 +276,7 @@ UNPORTED_COMMANDS = {
     "stdin2ss": ([], "12"), "genome2multiset": ([], "12"),
     "fahist": ([], "12"), "kmeridx": ([], "12"),
     "setsketchroller": ([], "12"), "errexp": ([], "12"),
-    "metatree": ([], "12"), "merge-parts": ([], "11"),
+    "metatree": ([], "12"),
 }
 
 
@@ -261,21 +287,8 @@ def _device_args(p) -> None:
     _device_arg(p)
 
 
-MULTI_GPU = "ROADMAP queue A, item 11"
-_UNPORTED = {
-    "db_shards": f"the sharded classifier (classify --db-shards): {MULTI_GPU}",
-    "route": f"the sharded classifier's routes (classify --route): "
-             f"{MULTI_GPU}",
-    "distributed": f"multi-host classify (classify --distributed): "
-                   f"{MULTI_GPU}",
-}
-
-
-def _unported(args, names) -> str | None:
+def _unported(args) -> str | None:
     """The message for a given option of bonsai_tpu that the port lacks."""
-    for name in names:
-        if getattr(args, name) not in ("", "0", 0, False, None):
-            return f"not ported: {_UNPORTED[name]}"
     if getattr(args, "k", 0) > 32:
         return ("not ported: a build of k > 32 (the JAX package's encoder "
                 "takes k <= 32; core/encode128.py packs 128-bit k-mers but "
@@ -316,7 +329,7 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
     build = args.cmd in ("build", "p2", "phase2")
     if not hasattr(args, "run"):
-        msg = _unported(args, _UNPORTED if args.cmd == "classify" else ())
+        msg = _unported(args)
         if msg is not None:
             print(msg, file=sys.stderr)
             return 2
@@ -342,6 +355,16 @@ def _cmd_classify(args) -> int:
     from .taxonomy.tree import TaxTree
 
     tree = TaxTree.from_nodes_dmp(args.tax_path)
+    if args.distributed:
+        from .parallel.mesh import init_distributed
+
+        try:
+            init_distributed(args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if args.db_shards:
+        return _classify_sharded(args, tree)
     emit = dict(emit_all=args.emit_all, emit_kraken=args.kraken,
                 emit_fastq=args.fastq, device=args.device)
     if formats.is_probe_image(args.db):
@@ -360,6 +383,69 @@ def _cmd_classify(args) -> int:
             out.close()
     print(f"classified: {clf.n_classified}  unclassified: {clf.n_unclassified}",
           file=sys.stderr)
+    return 0
+
+
+def _classify_sharded(args, tree) -> int:
+    """classify --db-shards N (``bonsai_tpu/cli.py`` :392-452): a sharded
+    directory loads a rank at a time, any other database whole; a run of
+    several processes writes per-rank parts to -o DIR."""
+    from .db import formats
+    from .parallel.mesh import default_mesh
+    from .parallel.sharded import ShardedClassifier
+
+    try:
+        mesh = default_mesh(db_shards=args.db_shards, device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    emit = dict(canonicalize=not args.no_canon, emit_all=args.emit_all,
+                emit_kraken=args.kraken, emit_fastq=args.fastq)
+    if formats.is_probe_image(args.db):
+        print("error: --db-shards takes a database or a sharded directory, "
+              "not a probe image", file=sys.stderr)
+        return 2
+    if formats.is_sharded_dir(args.db):
+        clf = ShardedClassifier.from_sharded_dir(args.db, tree, mesh, **emit)
+    else:
+        clf = ShardedClassifier(formats.load_database(args.db), tree, mesh,
+                                route=args.route, **emit)
+    if mesh.process_count > 1:
+        if not args.out:
+            print("--distributed multi-process classify needs -o DIR",
+                  file=sys.stderr)
+            return 2
+        n = clf.process_dataset_distributed(args.reads, args.out,
+                                            mate_path=args.mate,
+                                            batch_size=args.chunk_size)
+        pid = mesh.process_index
+        print(f"[proc {pid}] wrote {n} rows to {args.out}/part-{pid:05d}.tsv "
+              f"(classified: {clf.n_classified}  unclassified: "
+              f"{clf.n_unclassified})", file=sys.stderr)
+        return 0
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        clf.process_dataset(args.reads, out, mate_path=args.mate,
+                            batch_size=args.chunk_size, profile=args.profile)
+    finally:
+        if args.out:
+            out.close()
+    print(f"classified: {clf.n_classified}  unclassified: {clf.n_unclassified}",
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_merge_parts(args) -> int:
+    """The one-process stream of a multi-process classify's parts."""
+    from .parallel.sharded import merge_distributed_output
+
+    out = open(args.out, "w", encoding="utf-8") if args.out else sys.stdout
+    try:
+        n = merge_distributed_output(args.parts_dir, out)
+    finally:
+        if args.out:
+            out.close()
+    print(f"merged {n} bytes from {args.parts_dir}", file=sys.stderr)
     return 0
 
 
@@ -432,20 +518,22 @@ def _cmd_build(args) -> int:
 
 
 def _cmd_probe_image(args) -> int:
-    """A classify-ready probe image of a BTPU1 or khash database
-    (``bonsai_tpu/cli.py`` ``_cmd_probe_image``); per-rank images of a
-    sharded directory are item 11's."""
+    """A classify-ready probe image of a BTPU1 or khash database, or the
+    per-rank images of a sharded directory (``bonsai_tpu/cli.py``
+    ``_cmd_probe_image``)."""
     from .db.formats import is_sharded_dir, load_database, save_probe_image
     from .taxonomy.tree import TaxTree
 
-    if args.db_ranks or is_sharded_dir(args.db):
-        print("not ported: per-rank probe images of a sharded directory "
-              f"(bake_rank_images, --db-ranks): {MULTI_GPU}", file=sys.stderr)
-        return 2
+    tree = TaxTree.from_nodes_dmp(args.tax_path)
+    if is_sharded_dir(args.db):
+        from .parallel.sharded import bake_rank_images
+
+        out = bake_rank_images(args.db, tree, args.db_ranks)
+        print(f"baked per-rank images under {out}", file=sys.stderr)
+        return 0
     if not args.out_dir:
         print("probe-image of a .btpu file needs OUT_DIR", file=sys.stderr)
         return 2
-    tree = TaxTree.from_nodes_dmp(args.tax_path)
     db = load_database(args.db)
     save_probe_image(args.out_dir, db, tree)
     print(f"wrote probe image for {db.table.n} kmers to {args.out_dir}",

@@ -141,14 +141,18 @@ def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
                      W: int, canon: bool, scheme: str = "lex",
                      positions: Optional[Sequence[int]] = None,
                      score_map: Optional[ScoreMap] = None,
-                     it: InputType = DNA) -> Emissions:
+                     it: InputType = DNA,
+                     zero_invalid: bool = False) -> Emissions:
     """Plain torch KB1: (B, L) int8 codes (-1 = ambiguous or pad), (B,)
     lengths -> (B, E) emissions, E = L - c - W + 2 with c the seed's span.
     ``positions`` (the k offsets of a spaced seed, ``Spacer.positions``)
     makes the spaced discipline, which takes no ``canon``; otherwise W = 1
     is the unwindowed discipline and W > 1 needs ``canon`` (DNA only).
     The scheme ``hash`` scores through ``score_map``; ``entropy`` takes a
-    spaced seed (contiguous seeds are ``compacted_minimizers``')."""
+    spaced seed (contiguous seeds are ``compacted_minimizers``').
+    ``zero_invalid`` (a contiguous DNA seed at W = 1: the
+    sequence-parallel encode) gives 0 as the value where nothing is
+    emitted."""
     c = _span(k, positions)
     if W == 1:  # a window of one seed: no score decides anything
         scheme = "lex"
@@ -163,7 +167,10 @@ def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     n_push = torch.clamp(lengths.to(torch.int64) - (c - 1), min=0)
     if positions is None and W == 1:
         valid = encode.position_validity(lengths, P, k) & ~invalid
-        return Emissions(canonical(kmers, k) if canon else kmers, valid)
+        values = canonical(kmers, k) if canon else kmers
+        if zero_invalid:
+            values = torch.where(valid, values, 0)
+        return Emissions(values, valid)
     if positions is None:
         if not canon or scheme == "entropy":
             raise ValueError("uncanonical contiguous windows and the scheme "
@@ -235,7 +242,7 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
                canon: bool, scheme: str = "lex",
                positions: Optional[Sequence[int]] = None,
                score_map: Optional[ScoreMap] = None,
-               it: InputType = DNA) -> Emissions:
+               it: InputType = DNA, zero_invalid: bool = False) -> Emissions:
     """KB1 (``csrc/minimizers.cu``): see ``minimizers_plain``, which serves
     CPU tensors.  codes (B, L) int8, lengths (B,) int32 -> values (B, E)
     int64 and an ``emitted`` mask (B, E) bool; a value is never a
@@ -243,11 +250,15 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
     entry point picks its instantiation from the seed, the fold and the
     score: the hash score probes the phase-1 image of ``score_map`` on the
     codes' device, and the other input types run their unwindowed seeds
-    as a spaced seed of positions 0..k-1.  Counted by instantiation in
-    ``minimizers.variants``."""
+    as a spaced seed of positions 0..k-1; ``zero_invalid`` (a contiguous
+    DNA seed at W = 1) is the sequence-parallel encode's instantiation,
+    which writes 0 as the value where nothing is emitted.  Counted by
+    instantiation in ``minimizers.variants``."""
+    if zero_invalid and (W != 1 or positions is not None or it != DNA):
+        raise ValueError("zero_invalid takes a contiguous DNA seed at W = 1")
     if codes.device.type == "cpu":
         return minimizers_plain(codes, lengths, k, W, canon, scheme, positions,
-                                score_map, it)
+                                score_map, it, zero_invalid)
     if codes.device.type != "cuda":
         raise ValueError(f"minimizers: no kernel for device {codes.device}")
     dev = codes.device
@@ -286,12 +297,15 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
         positions or (range(k) if it != DNA else ()))))
     kernels.launch("bk_minimizers_gen", dev, codes.data_ptr(),
                    lengths.data_ptr(), B, L, k, W, int(canon), int(spaced),
-                   pos, c, int(not spaced),
+                   pos, c,
+                   int(not spaced) if it != DNA else int(zero_invalid),
                    *_gen_args(k, it, scheme, dev, score_map, FILE_EPS),
                    keys.data_ptr(), emitted.data_ptr())
     suffix = "" if scheme == "lex" else " " + VARIANT[scheme]
     if it != DNA or spaced:
         variant = ("radix" if it != DNA else "spaced") + suffix
+    elif zero_invalid:
+        variant = "sequence-parallel"
     else:
         variant = "lex" if scheme == "lex" else (
             "hash" if scheme == "hash" else "contiguous" + suffix)

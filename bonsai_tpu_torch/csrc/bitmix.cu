@@ -16,6 +16,12 @@
 // grid-stride loop, so loads are coalesced and a block has several in
 // flight.  The owner's product wraps mod 2^64 as the u64 one does; below
 // ndb = 2^32 it never wraps.
+//
+// Its key-range mode (entry bk_key_range) is the rank filter of the
+// sharded LCA fold (bonsai_tpu/db/build_device.py ShardedLCAFold._fn,
+// :581-590): flag = pad == 0 and lo <= key and (key < hi, or key <= hi on
+// the last rank), an unsigned compare of int64-held u64 keys; 8 B and 1 B
+// in, 1 B out a key, in the same loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,6 +91,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// flag[i] = pad[i] == 0 && lo <= keys[i] && (keys[i] < hi || (last &&
+// keys[i] <= hi)), unsigned
+__global__ void __launch_bounds__(kThreads)
+    key_range(const uint64_t* __restrict__ keys,
+              const uint8_t* __restrict__ pad, int64_t n, uint64_t lo,
+              uint64_t hi, int last, bool* __restrict__ flag) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t base = (int64_t)blockIdx.x * kThreads * kPerThread +
+                      threadIdx.x;
+       base < n; base += stride * kPerThread) {
+    uint64_t v[kPerThread];
+    uint8_t p[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const int64_t i = base + (int64_t)r * kThreads;
+      v[r] = i < n ? keys[i] : 0;
+      p[r] = i < n ? pad[i] : 1;
+    }
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) {
+      const int64_t i = base + (int64_t)r * kThreads;
+      if (i < n)
+        flag[i] = p[r] == 0 && v[r] >= lo &&
+                  (v[r] < hi || (last && v[r] <= hi));
+    }
+  }
+}
+
 unsigned grid(int64_t n, int64_t per) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -135,5 +169,18 @@ extern "C" int bk_nuccount(const void* kmers, int64_t n, uint64_t mask,
   if (n == 0) return (int)cudaSuccess;
   nuccount<<<grid(n, 1), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)kmers, n, mask, (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// keys (n,) int64-held u64, pad (n,) uint8, the rank's range [lo, hi)
+// (hi inclusive with ``last``) -> flag (n,) bool.
+extern "C" int bk_key_range(const void* keys, const void* pad, int64_t n,
+                            uint64_t lo, uint64_t hi, int last, void* flag,
+                            void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  key_range<<<grid(n, kPerThread), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)keys, (const uint8_t*)pad, n, lo, hi, last,
+      (bool*)flag);
   return (int)cudaGetLastError();
 }

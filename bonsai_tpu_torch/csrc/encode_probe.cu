@@ -47,6 +47,19 @@
 // pass by value in the kernel's parameters and are staged in shared
 // memory; the contiguous instantiation reads none of them, so it is the
 // kernel it was before the template.
+//
+// Two more instantiations serve the sharded classifier
+// (bonsai_tpu_torch/parallel/sharded.py):
+//   encode-only (entry bk_encode_only): the a2a route's encode
+//          (sharded.py:405-407: unpack_2bit + BatchEncoder.emissions at
+//          W = 1), no table: kmers = the k-mer where the position is
+//          valid and 0 elsewhere, and valid; the rank's queries then go
+//          to KD1 (route.cu);
+//   bucket-range (entry bk_encode_probe_range): the psum route's
+//          probe_local (sharded.py:466-501): the rank holds rows
+//          [row0, row0 + rows) of the one global table, a bucket outside
+//          them misses, and the flat value position is the local one
+//          (local bucket * 4 + lane).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,7 +93,9 @@ __device__ __forceinline__ uint64_t window96(uint32_t w0, uint32_t w1,
   return (lo >> s) | (((uint64_t)w2 << 32) << (32 - s));
 }
 
-template <bool kSpaced>
+enum Mode { kProbe = 0, kRange = 1, kEncode = 2 };
+
+template <bool kSpaced, int kMode>
 __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint32_t* __restrict__ pcodes, int64_t w16,
     const uint32_t* __restrict__ nmask, int64_t nmw,
@@ -89,7 +104,8 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint64_t* __restrict__ vals, int64_t n_vals, int is_inline,
     int want_idx, bool* __restrict__ hit, bool* __restrict__ valid,
     int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx,
-    bk::Spacing sp) {
+    bk::Spacing sp, int64_t row0, int64_t rows,
+    int64_t* __restrict__ kmers_out) {
   const bk::Spacing* ss = nullptr;
   if constexpr (kSpaced) {
     __shared__ bk::Spacing s_sp;
@@ -164,6 +180,11 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
   }
 
+  if constexpr (kMode == kEncode) {
+    kmers_out[i] = v ? (int64_t)kmer : 0;
+    valid[i] = v;
+    return;
+  }
   bool found = false;
   uint32_t sel = 0;   // u32 value index (inline) or bucket*4+lane (flat)
   uint64_t pos = 0;   // 64-bit flat slot position of the match
@@ -177,7 +198,11 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     // the first bucket whose row matches; within it the sums over the
     // matching lanes, as the plain version takes them
     for (int ch = 0; ch < 2 && !found; ++ch) {
-      const uint64_t bk = ch ? b1 ^ (splitmix64(q ^ kBSalt) & bmask) : b1;
+      uint64_t bk = ch ? b1 ^ (splitmix64(q ^ kBSalt) & bmask) : b1;
+      if constexpr (kMode == kRange) {
+        bk -= (uint64_t)row0;  // the local row; a foreign bucket misses
+        if (bk >= (uint64_t)rows) continue;
+      }
       const uint64_t e = ch ? (e1 | (1ULL << 62)) : e1;
       const ulonglong2 lo = slots[2 * bk];
       const ulonglong2 hi = slots[2 * bk + 1];
@@ -210,21 +235,23 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
   oidx[i] = h ? (want_idx ? sel : (uint32_t)(val >> 32)) : 0u;
 }
 
-template <bool kSpaced>
+template <bool kSpaced, int kMode = kProbe>
 int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
            const void* lengths, int64_t B, int64_t P, int k, int canon,
            const void* slots, int lgnb, int vbits, const void* vals,
            int64_t n_vals, int is_inline, int want_idx, void* hit,
            void* valid, void* cidx, void* oidx, const bk::Spacing& sp,
-           void* stream) {
+           void* stream, int64_t row0 = 0, int64_t rows = 0,
+           void* kmers = nullptr) {
   const int64_t n = B * P;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
-  encode_probe_kernel<kSpaced>
+  encode_probe_kernel<kSpaced, kMode>
       <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
           (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots,
           lgnb, vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx,
-          (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp);
+          (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp,
+          row0, rows, (int64_t*)kmers);
   return (int)cudaGetLastError();
 }
 
@@ -253,4 +280,47 @@ extern "C" int bk_encode_probe_spaced(
                       lgnb, vbits, vals, n_vals, is_inline, want_idx, hit,
                       valid, cidx, oidx, bk::make_spacing(positions, k),
                       stream);
+}
+
+// The a2a route's encode: kmers (B, P) int64 (0 where not valid), valid
+// (B, P) bool; contiguous (canonical with ``canon``) or, with ``spaced``,
+// the k offsets ``positions`` (a host array, as bk_encode_probe_spaced).
+extern "C" int bk_encode_only(const void* pcodes, int64_t w16,
+                              const void* nmask, int64_t nmw,
+                              const void* lengths, int64_t B, int64_t P,
+                              int k, int canon, int spaced,
+                              const int32_t* positions, void* kmers,
+                              void* valid, void* stream) {
+  if (spaced)
+    return launch<true, kEncode>(
+        pcodes, w16, nmask, nmw, lengths, B, P, k, 0, nullptr, 0, 0,
+        nullptr, 0, 0, 0, nullptr, valid, nullptr, nullptr,
+        bk::make_spacing(positions, k), stream, 0, 0, kmers);
+  return launch<false, kEncode>(pcodes, w16, nmask, nmw, lengths, B, P, k,
+                                canon, nullptr, 0, 0, nullptr, 0, 0, 0,
+                                nullptr, valid, nullptr, nullptr,
+                                bk::Spacing{}, stream, 0, 0, kmers);
+}
+
+// The psum route's probe of rows [row0, row0 + rows) of the global table:
+// ``slots`` (rows, 4) and, flat, ``vals`` (rows, 4) are the rank's rows;
+// inline vals the global unique values.  Otherwise as bk_encode_probe
+// (and bk_encode_probe_spaced with ``spaced``).
+extern "C" int bk_encode_probe_range(
+    const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
+    const void* lengths, int64_t B, int64_t P, int k, int canon, int spaced,
+    const int32_t* positions, const void* slots, int lgnb, int vbits,
+    const void* vals, int64_t n_vals, int is_inline, int want_idx,
+    int64_t row0, int64_t rows, void* hit, void* valid, void* cidx,
+    void* oidx, void* stream) {
+  if (row0 < 0 || rows < 1) return (int)cudaErrorInvalidValue;
+  if (spaced)
+    return launch<true, kRange>(
+        pcodes, w16, nmask, nmw, lengths, B, P, k, 0, slots, lgnb, vbits,
+        vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
+        bk::make_spacing(positions, k), stream, row0, rows);
+  return launch<false, kRange>(pcodes, w16, nmask, nmw, lengths, B, P, k,
+                               canon, slots, lgnb, vbits, vals, n_vals,
+                               is_inline, want_idx, hit, valid, cidx, oidx,
+                               bk::Spacing{}, stream, row0, rows);
 }

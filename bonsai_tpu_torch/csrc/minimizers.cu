@@ -15,7 +15,9 @@
 // minimize.sliding_min / positional_minimizers (:41,65).  Per slot j of row b, with c the seed's
 // span (k when contiguous) and n_push = max(len - (c - 1), 0):
 //   contiguous, W = 1: value = canonical or raw k-mer at j (an N reads as
-//          code 0), emitted = j < n_push and the window holds no N;
+//          code 0), emitted = j < n_push and the window holds no N; the
+//          sequence-parallel encode's instantiation writes 0 as the
+//          value where nothing is emitted;
 //   contiguous, W > 1 (canonical): every position pushes ck = N window ?
 //          0 : canonical k-mer, scored frev64(ck), entropy-file(ck) or
 //          hash(ck), its phase-1 value or U64_MAX (ck = 0 is probed too:
@@ -244,6 +246,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else if (p0 < p1) {
+    const int64_t n_push0 = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
     const uint32_t* w32 = (const uint32_t*)s_code;
     int ci = shift + p0;  // byte of the next code in s_code
     uint32_t word = w32[ci >> 2] >> (8 * (ci & 3));
@@ -268,7 +271,10 @@ __global__ void __launch_bounds__(kThreads)
         s_val[sx(p0 + r)] = ck;
         s_score[sx(p0 + r)] = score_of<kScore>(ck, denom, tbl);
       } else {
-        s_val[sx(p0 + r)] = v;
+        // with ``unwindowed`` set, a contiguous seed writes 0 as the value
+        // of a slot that emits nothing (the sequence-parallel encode)
+        s_val[sx(p0 + r)] =
+            unwindowed && (n_in || j0 + p0 + r >= n_push0) ? 0 : v;
         bad |= (uint32_t)n_in << r;
       }
     }
@@ -398,8 +404,12 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
 // ``fold`` 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask
 // ``lim``, 2 multiply-add by ``radix`` with the modulus ``lim``: another
 // alphabet, never canonical, whose contiguous seeds pass 0..k-1 with
-// ``unwindowed`` at W = 1.  ``score`` 0 lex, 1 entropy-file (quotient by
-// ``denom``), 2 hash (DNA: the phase-1 image, slots (nb, 4), lgnb, vbits,
+// ``unwindowed`` at W = 1; a contiguous DNA seed at W = 1 with
+// ``unwindowed`` set writes 0 as the value of each slot that emits
+// nothing (the sequence-parallel encode of bonsai_tpu_torch/parallel/
+// sharded.py, as sharded_encode_contig, bonsai_tpu/parallel/
+// sharded.py:1283-1285, writes it).  ``score`` 0 lex, 1 entropy-file
+// (quotient by ``denom``), 2 hash (DNA: the phase-1 image, slots (nb, 4), lgnb, vbits,
 // vals, n_vals, inline, as db/table.py ProbeArrays.args), 3 Shannon
 // (spaced seeds; ``terms``: k + 1 doubles on the card, ``R`` codes in the
 // alphabet, ``eps``).
@@ -426,7 +436,8 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
 #define BK(kSpaced, kScore, kGen)                                            \
   return launch<kSpaced, kScore, kGen>(                                      \
       codes, lengths, B, L, k, W, kSpaced ? 0 : canon, kSpaced ? span : k,   \
-      sp, denom, t, keys, emitted, s, f, sh, kGen ? unwindowed : 0)
+      sp, denom, t, keys, emitted, s, f, sh,                                 \
+      kGen || !kSpaced ? unwindowed : 0)
   if (gen) {
     switch (score) {
       case kLex: BK(true, kLex, true);

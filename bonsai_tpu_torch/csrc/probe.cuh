@@ -1,7 +1,7 @@
 // The quotient-cuckoo probe as a device function: KB5 lookup_scores
 // (lookup_scores.cu) and the score::Hash instantiations of KB1
 // (minimizers.cu) and KB4 (compacted_minimizers.cu) probe the phase-1
-// table with it.
+// table with it, and KD1's route_probe (route.cu) a rank's sub-table.
 //
 // It is probe_slots_device of bonsai_tpu/db/table.py:370-406 (with
 // splitmix64, core/hashes.py:84, and KmerTable._split, :101), written as
@@ -48,9 +48,12 @@ __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
   return x ^ (x >> 31);
 }
 
-// true and the packed value of ``kmer`` where the image holds it
+// true and the packed value of ``kmer`` where the image holds it; with
+// ``sel_out``, also the u32 value index (inline) or the u32 flat slot
+// position (flat) of the match (probe_slots' want_idx)
 __device__ __forceinline__ bool probe(const ProbeTable& t, uint64_t kmer,
-                                      uint64_t* val) {
+                                      uint64_t* val,
+                                      uint32_t* sel_out = nullptr) {
   const uint64_t h = splitmix64(kmer);
   const uint64_t bmask = (1ULL << t.lgnb) - 1;
   const uint64_t b1 = h & bmask;
@@ -78,6 +81,7 @@ __device__ __forceinline__ bool probe(const ProbeTable& t, uint64_t kmer,
     int64_t idx = t.is_inline ? (int64_t)sel : (int64_t)pos;
     if (idx > t.n_vals - 1) idx = t.n_vals - 1;
     *val = t.vals[idx];
+    if (sel_out) *sel_out = t.is_inline ? sel : (uint32_t)pos;
   }
   return found;
 }

@@ -33,8 +33,14 @@ on "cpu" their plain torch versions (``sort_unique_plain``,
 ``merge_fold_plain``, ``minimizers_plain``,
 ``compacted_minimizers_plain``).  The phase-1 maps score lex, as the JAX
 package's do; ``device_minimized_map`` (phase 2) scores each k-mer by its
-phase-1 value, probed inside KB1 and KB4.  ``ShardedLCAFold`` and
-``sharded_lca_map`` are not ported yet (ROADMAP queue A, items 9 and 11).
+phase-1 value, probed inside KB1 and KB4.
+
+``ShardedLCAFold`` and ``sharded_lca_map`` fold over the ``db`` ranks of
+a mesh (``parallel/mesh.py``): rank s owns the key range [splitter[s -
+1], splitter[s]) (the last rank's upper end inclusive), and each chunk of
+the stream goes to every rank, where ``key_range`` (the key-range mode
+of ``csrc/bitmix.cu``) flags the rank's keys, KB2 sorts and dedups them
+and KB3 merges them into the rank's state of a fixed capacity.
 """
 
 from __future__ import annotations
@@ -44,10 +50,13 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+import itertools
+import os
+
 from .. import kernels
 from ..classify.resolve import lca_device
 from ..core.alphabet import DNA4
-from ..core.bitops import SIGN
+from ..core.bitops import SIGN, i64
 from ..core.encoder import BatchEncoder
 from ..core.spacer import Spacer
 from ..io import fastx
@@ -470,3 +479,208 @@ def device_minimized_map(paths: Sequence[str], phase1: KmerTable,
     return KmerTable(*phase2_content(keys.cpu().numpy().view(np.uint64),
                                      phase1,
                                      scores.cpu().numpy().view(np.uint64)))
+
+
+# -- the key-range filter of the sharded fold ---------------------------------
+
+def key_range_plain(keys: torch.Tensor, pad: torch.Tensor, lo: int, hi: int,
+                    last: bool) -> torch.Tensor:
+    """Plain torch ``key_range``: pad == 0 and lo <= key and (key < hi, or
+    key <= hi where ``last``), unsigned; lo, hi u64 as Python ints."""
+    k = keys ^ SIGN
+    lo_s, hi_s = i64(lo) ^ SIGN, i64(hi) ^ SIGN
+    upper = (k <= hi_s) if last else (k < hi_s)
+    return (pad == 0) & (k >= lo_s) & upper
+
+
+def key_range(keys: torch.Tensor, pad: torch.Tensor, lo: int, hi: int,
+              last: bool) -> torch.Tensor:
+    """The key-range mode of ``csrc/bitmix.cu`` (``bk_key_range``, the
+    rank filter of ``ShardedLCAFold``): see ``key_range_plain``, which
+    serves CPU tensors.  keys (n,) int64, pad (n,) uint8 -> (n,) bool."""
+    if not (0 <= lo < 1 << 64 and 0 <= hi < 1 << 64):
+        raise ValueError(f"key range [{lo}, {hi}]: u64 bounds expected")
+    if keys.device.type == "cpu":
+        return key_range_plain(keys, pad, lo, hi, last)
+    if keys.device.type != "cuda":
+        raise ValueError(f"key_range: no kernel for device {keys.device}")
+    dev = keys.device
+    n = keys.numel()
+    kernels.check(keys, "keys", torch.int64, dev, (n,))
+    kernels.check(pad, "pad", torch.uint8, dev, (n,))
+    flag = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        kernels.launch("bk_key_range", dev, keys.data_ptr(), pad.data_ptr(),
+                       n, lo, hi, int(last), flag.data_ptr())
+        key_range.launches += 1
+    return flag
+
+
+key_range.launches = 0
+
+
+# -- the sharded fold ----------------------------------------------------------
+
+class ShardedLCAFold:
+    """The LCA fold over the ``db`` axis of a mesh
+    (``bonsai_tpu/db/build_device.py`` ``ShardedLCAFold``): each rank owns
+    a key range and folds the stream's keys in it into its own state of
+    ``cap`` entries, so the ranks exchange nothing; the result is the
+    ranges' concatenation in rank order, content-identical to
+    ``db/build.lca_map``.  ``splitters`` (ndb - 1 ascending u64) default
+    to an even split of the 64-bit key space.  A chunk that would take a
+    rank past ``cap`` raises and leaves every state as it was before the
+    chunk."""
+
+    def __init__(self, tree: TaxTree, mesh, cap: int, splitters=None):
+        self.tree = tree
+        self.mesh = mesh
+        self.ndb = mesh.shape["db"]
+        self.cap = int(cap)
+        if splitters is None:
+            step = (1 << 64) // self.ndb
+            splitters = [step * i for i in range(1, self.ndb)]
+        spl = [int(x) for x in np.asarray(splitters, dtype=np.uint64)]
+        if len(spl) != self.ndb - 1:
+            raise ValueError(f"{len(spl)} splitters for {self.ndb} ranks")
+        self._bounds = {}
+        for s in range(self.ndb):
+            lo = 0 if s == 0 else spl[s - 1]
+            hi = spl[s] if s < self.ndb - 1 else (1 << 64) - 1
+            self._bounds[s] = (lo, hi, s == self.ndb - 1)
+        self._tax = {}
+        self.states = {}
+        for r in mesh.local_ranks:
+            dev = mesh.device(r)
+            if dev not in self._tax:
+                self._tax[dev] = _tree_device(tree, dev)
+            self.states[r] = State.empty(dev, self.cap)
+
+    def add_chunk(self, keys: torch.Tensor, pad: torch.Tensor, node: int,
+                  orig: int) -> None:
+        """Fold one chunk of the stream, (E,) int64 keys and uint8 pads
+        (the same on every rank), with its genome's compact node and
+        taxid, into every rank's range."""
+        new = {}
+        for r, st in self.states.items():
+            dev = st.keys.device
+            tax, root1 = self._tax[dev]
+            k, p = keys.to(dev), pad.to(dev)
+            lo, hi, last = self._bounds[self.mesh.index(r, "db")]
+            dk, dp, dn = sort_unique(k, key_range(k, p, lo, hi, last))
+            chunk = State.from_sorted_keys(dk, dp, dn, node, orig)
+            new[r] = merge_fold(st, chunk, tax, root1, sum_counts=False)
+        nv = {r: int(out.n) for r, out in new.items()}
+        if any(v > self.cap for v in nv.values()):
+            raise RuntimeError(f"shard capacity {self.cap} exceeded: per-rank "
+                               f"valid={nv}; re-run with a larger cap")
+        c = self.cap
+        for r, out in new.items():
+            self.states[r] = State(out.keys[:c], out.pad[:c], out.node[:c],
+                                   out.orig[:c], out.cnt[:c], out.n)
+
+    def finish(self):
+        """Host (keys u64, taxa u32): every rank's valid entries, the
+        ranges in rank order (sorted and distinct)."""
+        ks, ts = {}, {}
+        for r, st in self.states.items():
+            s = self.mesh.index(r, "db")
+            if s in ks:
+                continue
+            n = int(st.n)
+            ks[s] = st.keys[:n].cpu().numpy().view(np.uint64)
+            ts[s] = st.orig[:n].cpu().numpy().view(np.uint32)
+        if self.mesh.distributed and self.mesh.process_count > 1:
+            import torch.distributed as dist
+
+            got = [None] * self.mesh.process_count
+            dist.all_gather_object(got, (ks, ts))
+            for k_, t_ in got:
+                ks.update(k_)
+                ts.update(t_)
+        order = range(self.ndb)
+        return (np.concatenate([ks[s] for s in order]),
+                np.concatenate([ts[s] for s in order]).astype(np.uint32))
+
+
+def sharded_lca_map(paths: Sequence[str], tree: TaxTree,
+                    name_map: Dict[str, int] | str, sp: Spacer, mesh,
+                    canonicalize: bool = True, scheme: str = "lex",
+                    block: int = 1 << 22, cap: int | None = None) -> KmerTable:
+    """The classify database folded over a mesh's ``db`` ranks
+    (``bonsai_tpu/db/build_device.py`` ``sharded_lca_map``),
+    content-identical to ``db/build.lca_map``.  The stream is encoded on
+    the mesh's first device, chunk by chunk as ``device_lca_map``'s; the
+    key-range splitters are the quantiles of the keys of the first 16
+    chunks (an even split of [0, 4^k) where they degenerate), and ``cap``
+    (default: an estimate from the input's bytes) bounds each rank."""
+    if isinstance(name_map, str):
+        name_map = parse_nameid_map(name_map)
+    enc = BatchEncoder(sp, canonicalize, scheme)
+    _check(sp, canonicalize, scheme, None)
+    ndb = mesh.shape["db"]
+    dev = mesh.device(mesh.local_ranks[0])
+    drop0 = drops_partial_window(sp, enc)
+    if cap is None:
+        total = sum(os.path.getsize(p) for p in paths)
+        # ~1 distinct k-mer a base at most, 2x for gzip, 1.5 margin
+        est = total * (3 if any(p.endswith(".gz") for p in paths) else 1)
+        cap = _pow2(int(est * 1.5 / ndb) + (1 << 12))
+
+    def chunks():
+        halo = sp.w - 1
+        for p in paths:
+            taxid = taxid_for_path(p, name_map)
+            node = _node_of(tree, taxid)
+            for _, seq, _ in fastx.read_fastx(p):
+                if len(seq) < sp.c:
+                    continue
+                start = 0
+                while start < len(seq):
+                    end = min(start + block + halo, len(seq))
+                    is_last = end >= len(seq)
+                    codes = torch.from_numpy(
+                        fastx.encode_contig(seq[start:end], DNA4.lut))
+                    em = enc.emissions(
+                        codes[None, :].to(dev),
+                        torch.tensor([end - start], dtype=torch.int32,
+                                     device=dev))
+                    mask = em.mask[0]
+                    if drop0 and not is_last:  # not a real contig end
+                        mask = mask.clone()
+                        mask[0] = False
+                    yield (torch.where(mask, em.values[0], -1),
+                           (~mask).to(torch.uint8), node,
+                           int(taxid) & 0xFFFFFFFF)
+                    if is_last:
+                        break
+                    start += block
+
+    stream = chunks()
+    # balanced splitters from the key quantiles of up to 16 leading chunks
+    # (k-mer keys fill [0, 4^k) and skew toward canonical minima)
+    head, sample = [], []
+    for item in stream:
+        head.append(item)
+        sample.append(item[0][item[1] == 0].cpu().numpy().view(np.uint64))
+        if len(head) >= 16:
+            break
+    if not head:
+        return KmerTable(np.zeros(0, np.uint64), np.zeros(0, np.uint32))
+    fk = np.concatenate(sample)
+    splitters = None
+    if fk.size >= ndb:
+        qs = np.quantile(fk.astype(np.float64), np.arange(1, ndb) / ndb)
+        qs = np.minimum(qs, np.nextafter(2.0**64, 0.0))
+        splitters = np.unique(qs.astype(np.uint64))
+        if splitters.size < ndb - 1:  # degenerate: an even split
+            splitters = None
+    if splitters is None and 2 * sp.k < 64:
+        dom = np.uint64(1) << np.uint64(2 * sp.k)
+        splitters = (np.arange(1, ndb, dtype=np.uint64) * dom) // np.uint64(
+            ndb)
+    fold = ShardedLCAFold(tree, mesh, cap, splitters=splitters)
+    for keys, pad, node, orig in itertools.chain(head, stream):
+        fold.add_chunk(keys, pad, node, orig)
+    keys, taxa = fold.finish()
+    return KmerTable(keys, taxa)

@@ -154,9 +154,14 @@ def tree_digest(tree) -> str:
 def packed_values(table: KmerTable, tree) -> np.ndarray:
     """The classifier's payload per key: original taxid << 32 | compact
     tree index, so that one probe yields both."""
-    compact_vals = tree.compact(table.vals_sorted, missing_ok=True)
+    return payload(table.vals_sorted, tree)
+
+
+def payload(vals: np.ndarray, tree) -> np.ndarray:
+    """``packed_values`` of u32 taxids ``vals``."""
+    compact_vals = tree.compact(vals, missing_ok=True)
     return (
-        table.vals_sorted.astype(np.uint64) << np.uint64(32)
+        np.asarray(vals).astype(np.uint64) << np.uint64(32)
     ) | compact_vals.astype(np.uint32).astype(np.uint64)
 
 

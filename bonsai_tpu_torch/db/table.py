@@ -139,25 +139,36 @@ class KmerTable:
         on the host."""
         if vals_aligned is None and self._np_arrays is not None:
             return self._np_arrays
-        v64 = np.asarray(
-            self.vals_sorted if vals_aligned is None else vals_aligned
-        ).astype(np.uint64)
-        uniq = unique_u64(v64) if self.n else np.zeros(1, np.uint64)
-        inline = uniq.size <= (1 << self.vbits)
+        out = self.encode_slots(
+            self.vals_sorted if vals_aligned is None else vals_aligned)
+        if vals_aligned is None:
+            self._np_arrays = out
+        return out
+
+    def encode_slots(self, vals_aligned: np.ndarray,
+                     uniq: Optional[np.ndarray] = None,
+                     allow_inline: bool = True):
+        """``arrays_np`` of ``vals_aligned`` (``KmerTable._encode_slots``
+        of the JAX package): ``uniq`` is a shared sorted unique-values
+        array (every shard of a sharded table encodes against one, so
+        that a value index means the same on every rank), and
+        ``allow_inline=False`` forces the flat value array."""
+        v64 = np.asarray(vals_aligned).astype(np.uint64)
+        if uniq is None:
+            uniq = unique_u64(v64) if self.n else np.zeros(1, np.uint64)
+        if uniq.size == 0:
+            uniq = np.zeros(1, np.uint64)
+        inline = allow_inline and uniq.size <= (1 << self.vbits)
         words = np.zeros(self.nb * SLOTS, dtype=np.uint64)
         if inline:
             validx = np.searchsorted(uniq, v64[self._own]).astype(np.uint64)
             words[self._occ] = self._word | validx
-            out = (words.reshape(self.nb, SLOTS), uniq, True)
-        else:
-            words[self._occ] = self._word
-            flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
-            flat[self._occ] = v64[self._own]
-            out = (words.reshape(self.nb, SLOTS), flat.reshape(self.nb, SLOTS),
-                   False)
-        if vals_aligned is None:
-            self._np_arrays = out
-        return out
+            return words.reshape(self.nb, SLOTS), uniq, True
+        words[self._occ] = self._word
+        flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
+        flat[self._occ] = v64[self._own]
+        return (words.reshape(self.nb, SLOTS), flat.reshape(self.nb, SLOTS),
+                False)
 
     def probe_np(self, queries: np.ndarray, arrays=None):
         """Host probe of u64 queries -> (vals in the table's dtype, found)."""
@@ -203,16 +214,23 @@ def probe_np(queries, slots, vals, inline, lgnb, vbits, dtype=np.uint64):
 @dataclass
 class ProbeArrays:
     """A slot image on a device: ``slots`` (nb, 4) and ``vals`` ((u,)
-    inline or (nb, 4) flat) are int64 tensors holding u64 bits."""
+    inline or (nb, 4) flat) are int64 tensors holding u64 bits.  With
+    ``rows`` > 0 it holds only rows [row0, row0 + rows) of a table of
+    2^lgnb rows (a psum-route rank's range, ``parallel/sharded.py``):
+    ``slots`` and flat ``vals`` are (rows, 4), a bucket outside the range
+    misses, and a flat position is local."""
 
     slots: torch.Tensor
     vals: torch.Tensor
     inline: bool
     lgnb: int
     vbits: int
+    row0: int = 0
+    rows: int = 0
 
     @classmethod
-    def from_numpy(cls, slots, vals, inline, lgnb, vbits, device):
+    def from_numpy(cls, slots, vals, inline, lgnb, vbits, device,
+                   row0: int = 0, rows: int = 0):
         def up(a, chunk=1 << 23):
             # row chunks: a memory-mapped probe image uploads without a
             # whole host copy
@@ -226,13 +244,19 @@ class ProbeArrays:
         slots = np.asarray(slots)
         if slots.ndim != 2 or slots.shape[1] != SLOTS:
             raise ValueError(f"slots must be (nb, {SLOTS}), got {slots.shape}")
-        if slots.shape[0] != 1 << lgnb:
-            raise ValueError(f"slots has {slots.shape[0]} rows, lgnb={lgnb}")
-        return cls(up(slots), up(vals), bool(inline), int(lgnb), int(vbits))
+        if slots.shape[0] != (rows or 1 << lgnb):
+            raise ValueError(f"slots has {slots.shape[0]} rows, lgnb={lgnb}, "
+                             f"range of {rows}")
+        return cls(up(slots), up(vals), bool(inline), int(lgnb), int(vbits),
+                   int(row0), int(rows))
 
-    def check(self, device) -> None:
-        """Raise unless the image is one a kernel on ``device`` can probe."""
-        nb = 1 << self.lgnb
+    def check(self, device, ranged: bool = False) -> None:
+        """Raise unless the image is one a kernel on ``device`` can probe
+        (a row range only where ``ranged``)."""
+        if self.rows and not ranged:
+            raise ValueError("a row range of a table: only the psum route's "
+                             "probe takes it")
+        nb = self.rows or 1 << self.lgnb
         kernels.check(self.slots, "slots", torch.int64, device, (nb, SLOTS))
         kernels.check(self.vals, "vals", torch.int64, device)
         if self.slots.data_ptr() % 16:
@@ -272,7 +296,13 @@ def probe_slots(queries: torch.Tensor, arr: ProbeArrays,
     sel = torch.zeros(queries.shape, dtype=torch.int64, device=queries.device)
     pos = torch.zeros_like(sel)  # 64-bit flat position of the match
     for b, e in ((b1, base), (b2, base | (1 << 62))):
-        row = arr.slots[b]
+        if arr.rows:  # a rank's range: local rows, foreign buckets miss
+            b = b - arr.row0
+            mine = (b >= 0) & (b < arr.rows)
+            b = b.clamp(0, arr.rows - 1)
+            row = torch.where(mine[..., None], arr.slots[b], 0)
+        else:
+            row = arr.slots[b]
         m = (row & ~vmask) == e[..., None]
         hit = m.any(-1)
         first = hit & ~found
@@ -433,21 +463,49 @@ class HashShardedTable:
     more.  ``parts[s]`` are the indices of shard s's keys in the table's
     sorted keys (so each shard's keys stay sorted).  The owners are
     computed on ``device``.  A placed shard is dropped once its bucket
-    count is read: the writers need only ``parts`` and ``nb``."""
+    count is read (the writers need only ``parts`` and ``nb``); a caller
+    that needs the placed shards (the classifier) takes each one from
+    ``on_placed(s, shard, part)``, called for every shard placed at the
+    round's ``nb``: a later round, after a growth, calls it again for
+    every shard, so the last call for each ``s`` is the one at the agreed
+    ``nb``.  ``arrays_np`` places the shards again."""
 
-    def __init__(self, table: KmerTable, ndb: int, device="cuda"):
+    def __init__(self, table: KmerTable, ndb: int, device="cuda",
+                 on_placed=None):
         if ndb < 1:
             raise ValueError("ndb must be >= 1")
         self.ndb = ndb
+        self.table = table
         keys, vals = table.keys_sorted, table.vals_sorted
         self.parts: List[np.ndarray] = owner_parts(
             owners_of(keys, ndb, device), ndb)
         nmax = max(max((p.size for p in self.parts), default=0), 1)
         nb = max(_next_pow2(int(np.ceil(nmax / (SLOTS * MAX_LOAD)))), 4)
         while True:
-            got = max(KmerTable(keys[p], vals[p], min_nb=nb).nb
-                      for p in self.parts)
+            got = nb
+            for s, p in enumerate(self.parts):
+                shard = KmerTable(keys[p], vals[p], min_nb=nb)
+                got = max(got, shard.nb)
+                if on_placed is not None and shard.nb == nb:
+                    on_placed(s, shard, p)
+                del shard  # one placed shard held at a time
             if got == nb:
                 break
             nb = got  # a shard needed growth: place all at the same nb
         self.nb = nb
+        self.lgnb = int(nb).bit_length() - 1
+        self.vbits = max(self.lgnb - 2, 0)
+
+    def arrays_np(self, vals_aligned: np.ndarray):
+        """(slots (ndb, nb, 4) u64, vals, inline) for values aligned to the
+        table's keys (``HashShardedTable.arrays_np`` of the JAX package):
+        in inline mode ``vals`` is the one global unique-values array,
+        otherwise the stacked (ndb, nb, 4) flat value arrays."""
+        v64 = np.asarray(vals_aligned).astype(np.uint64)
+        uniq = unique_u64(v64) if v64.size else np.zeros(1, np.uint64)
+        keys, vals = self.table.keys_sorted, self.table.vals_sorted
+        got = [KmerTable(keys[p], vals[p], min_nb=self.nb).encode_slots(
+            v64[p], uniq=uniq) for p in self.parts]
+        inline = got[0][2]
+        vals = uniq if inline else np.stack([g[1] for g in got])
+        return np.stack([g[0] for g in got]), vals, inline

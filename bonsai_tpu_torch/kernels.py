@@ -13,11 +13,15 @@ wrapper allocates.
 
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
+``encode_only`` (K1's two instantiations of the sharded classifier: the
+bucket range is ``encode_probe`` of a ranged image),
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
 ``compacted_minimizers`` and ``compacted_stream``, ``core/rolling.py``
 ``cyclic_hashes``, ``core/encode128.py`` ``pack_kmers128`` and ``rc128``,
 ``db/table.py`` ``lookup_scores`` and ``shard_owner``,
-``db/build_device.py`` ``sort_unique`` and ``merge_fold``,
+``db/build_device.py`` ``sort_unique``, ``merge_fold`` and
+``key_range``, ``parallel/route.py`` ``route_frame``, ``route_probe`` and
+``route_collect`` (KD1),
 ``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` and
 ``core/bitops.py`` ``popcount64`` and ``nuccount`` (one elementwise
 kernel), ``sketch/hll.py`` ``hll_fill``, ``sketch/setsketch.py``
@@ -66,6 +70,25 @@ _SIGS = {
     # head_words, compact, cols, full, stream
     "bk_step_outputs": [P, P, P, P, P, I64, I64, I32, I32, I32, I32, I32, P,
                         I64, P, P],
+    # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, spaced,
+    # positions (host int32[32]), kmers, valid, stream
+    "bk_encode_only": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P, P, P,
+                       P],
+    # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, spaced, positions,
+    # slots, lgnb, vbits, vals, n_vals, inline, want_idx, row0, rows, hit,
+    # valid, cidx, oidx, stream
+    "bk_encode_probe_range": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P,
+                              P, I32, I32, P, I64, I32, I32, I64, I64, P, P,
+                              P, P, P],
+    # kq, done, Q, ndb, cap, send, slotq, scratch, stream
+    "bk_route_frame": [P, P, I64, I64, I64, P, P, P, P],
+    # recv, n, slots, lgnb, vbits, vals, n_vals, inline, want_idx, resp,
+    # stream
+    "bk_route_probe": [P, I64, P, I32, I32, P, I64, I32, I32, P, P],
+    # back, slotq, Q, dump, done, hit, cidx, oidx, pending, stream
+    "bk_route_collect": [P, P, I64, I64, P, P, P, P, P, P],
+    # keys, pad, n, lo, hi, last, flag, stream
+    "bk_key_range": [P, P, I64, U64, U64, I32, P, P],
     # codes, lengths, B, L, k, W, canon, spaced, positions (host
     # int32[32]), span, unwindowed, then the fold (kind, bits, radix, lim),
     # the score (kind, denom), the phase-1 image (slots, lgnb, vbits, vals,
@@ -120,7 +143,8 @@ _SIGS = {
 # host functions: bytes of device scratch for the sizes of a call
 _SCRATCH = {"bk_sort_unique_scratch": 1, "bk_merge_fold_scratch": 1,
             "bk_compacted_minimizers_gen_scratch": 3,
-            "bk_sort_count_scratch": 1, "bk_csetsketch_update_scratch": 3}
+            "bk_sort_count_scratch": 1, "bk_csetsketch_update_scratch": 3,
+            "bk_route_frame_scratch": 2}
 
 
 def _sources():

@@ -292,3 +292,60 @@ def bound_compacted_stream(values, valid, em, W):
     (~12) and about three (score, value) compares (24)."""
     return bound(nbytes(values, valid, *em),
                  values.numel() * (2 + (36 if W > 1 else 0)))
+
+
+def bound_route_frame(kq, done, out):
+    """KD1 frame: 8 B and a flag a query in, its 4-B row out, the frame's
+    8-B rows out; each pending query's owner (splitmix64 and the owner's
+    multiply, ~26 int32 ops, as KS5)."""
+    pending = int((~done).sum())
+    return bound(nbytes(kq, done, *out), 26 * pending)
+
+
+def bound_route_probe(recv, arr, resp):
+    """KD1 probe: 8 B a received key in, 8 B out, the slot rows and values
+    of ``probe_rows``; two splitmix64 hashes (~40 int32 ops) a key."""
+    probes = probe_rows(recv, arr)
+    return bound(nbytes(recv, resp) + probe_bytes(probes), 40 * probes[0])
+
+
+def bound_route_collect(slotq, done, routed: int):
+    """KD1 collect: each query's 4-B row and its done flag read and the
+    flag written; for each of the ``routed`` queries sent this round, its
+    8-B response read and hit, cidx, oidx (9 B) written."""
+    return bound(nbytes(slotq) + 2 * nbytes(done) + 17 * routed)
+
+
+def bound_key_range(keys, pad, flag):
+    """The key-range pass: 8 B and a pad byte in, a flag out a key; two
+    unsigned 64-bit compares (~6 int32 ops)."""
+    return bound(nbytes(keys, pad, flag), 6 * keys.numel())
+
+
+def range_rows(queries, arr) -> int:
+    """The slot rows K1's bucket-range instantiation must read for these
+    (valid) queries: a query whose first bucket lies in the rank's rows
+    reads it; one that finds no match there and whose second bucket lies
+    in them reads that too."""
+    from ..core.bitops import SIGN
+    from ..core.hashes import splitmix64
+    from ..db.table import split
+
+    h = splitmix64(queries)
+    b1, q, b2 = split(h, arr.lgnb)
+    vmask = (1 << arr.vbits) - 1
+    l1, l2 = b1 - arr.row0, b2 - arr.row0
+    in1 = (l1 >= 0) & (l1 < arr.rows)
+    in2 = (l2 >= 0) & (l2 < arr.rows)
+    row = arr.slots[l1.clamp(0, arr.rows - 1)]
+    hit1 = in1 & ((row & ~vmask) == (SIGN | (q << arr.vbits))[..., None]
+                  ).any(-1)
+    return int(in1.sum()) + int((in2 & ~hit1).sum())
+
+
+def bound_encode_probe_range(inputs, vals, out, queries, arr):
+    """K1's bucket-range instantiation: the packed reads, the rank's slot
+    rows (``range_rows``), the values, the outputs; two splitmix64 hashes
+    (~40 int32 ops) a valid position."""
+    return bound(nbytes(*inputs, vals) + 32 * range_rows(queries, arr)
+                 + nbytes(*out), 40 * int(out[1].sum()))

@@ -161,6 +161,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                  W = 1, 37 and 8192, rows shorter than the window, an
                  all-invalid row, 0 < n_valid < W) and each timed by
                  CUDA-graph replay at the ec keys or K-12, with its bound
+ 9g. sharded     after phase 9f, the sharded classifier and build on the
+                 card, its ranks in this one process sharing the card (so no
+                 rate here is a multi-GPU rate): a2a at (dp, db) = (1, 4),
+                 (2, 2) and psum at (1, 4) over the ec k=31 database (the
+                 HiSeq, MiSeq and ec_k12 sha256s of phase 5), the HiSeq
+                 stream x 20 through a2a (1, 4) with the card's busy share,
+                 a2a at cf 0.05 (rounds > 1, sha256 unchanged),
+                 process_dataset_distributed + merge-parts, classify
+                 --db-shards 1 through the CLI (psum, one rank) and
+                 --db-shards 4 refused with the JAX CLI's divisibility
+                 message, the paired golden through both routes at (1, 2),
+                 phase 9f's --shards 4 directory a rank at a time (db 4,
+                 db 2), probe-image --db-ranks 4 and its images, a shard
+                 rewritten in place (stale images ignored),
+                 sharded_lca_map of the ec corpus at db 4
+                 (kraken.db_digest; peak device memory), and
+                 sharded_encode_contig of K-12 at sp 4 (= the unsharded
+                 encode); KD1 (route_frame, route_probe, route_collect),
+                 K1's encode-only and bucket-range instantiations, the
+                 key-range mode and KB1's sequence-parallel instantiation
+                 launched; then each against its plain version on CPU
+                 copies (the first a2a round of a HiSeq batch, every query
+                 to one owner, ndb = 3, Q < ndb, 4M queries, taxids past
+                 2^31, inline and flat values, each psum rank, U64_MAX and
+                 the splitters among 5M keys) and each timed by
+                 CUDA-graph replay at the main path's shapes, with bounds
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -177,7 +203,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The line before the last is the kernels JSON (launches on the main paths,
 exactness, kernel, plain, bound and library times, and the share
 bound / kernel time; ``ms`` is graph-replayed
-for K1-K3, KB1, KB4, KB5, G2, KS5 and K128, ``event_ms`` the event
+for K1-K3, KB1, KB4, KB5, G2, KS5, K128 and phase 9g's kernels,
+``event_ms`` the event
 timing; KB1, KB4 and K1 have a row for each instantiation); each phase prints its wall
 seconds as it ends ("# phase ...") and all of them before the kernels
 line; the last line is {"ok": true, "device": {...}}.  Without a card,
@@ -192,6 +219,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -750,7 +778,24 @@ KERNELS = {
                      "bonsai_tpu/core/encode128.py:92"),
     "compacted_stream": ("bonsai_tpu_torch/csrc/compacted_minimizers.cu",
                          "bonsai_tpu/core/rolling.py:174"),
+    "route_frame": ("bonsai_tpu_torch/csrc/route.cu",
+                    "bonsai_tpu/parallel/sharded.py:288"),
+    "route_probe": ("bonsai_tpu_torch/csrc/route.cu",
+                    "bonsai_tpu/parallel/sharded.py:356"),
+    "route_collect": ("bonsai_tpu_torch/csrc/route.cu",
+                      "bonsai_tpu/parallel/sharded.py:378"),
+    "encode_only": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                    "bonsai_tpu/parallel/sharded.py:405"),
+    "encode_probe_range": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                           "bonsai_tpu/parallel/sharded.py:466"),
+    "minimizers_sp": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                      "bonsai_tpu/parallel/sharded.py:1255"),
+    "key_range": ("bonsai_tpu_torch/csrc/bitmix.cu",
+                  "bonsai_tpu/db/build_device.py:568"),
 }
+# the rows of the sharded classifier and build (phase 9g): instantiations
+# of shared wrappers that only phase 9g launches
+SHARDED_ROWS = ("encode_only", "encode_probe_range", "minimizers_sp")
 # the rows of the hash-scored phase 2 (phase 9c)
 HASH_ROWS = ("minimizers_hash", "minimizers_spaced_hash",
              "compacted_minimizers_hash", "lookup_scores")
@@ -779,6 +824,9 @@ VARIANTS = {
                                            ("radix shannon",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
     "encode_probe_spaced": ("encode_probe", ("spaced",)),
+    "encode_only": ("encode_probe", ("encode", "spaced encode")),
+    "encode_probe_range": ("encode_probe", ("range", "spaced range")),
+    "minimizers_sp": ("minimizers", ("sequence-parallel",)),
     "reverse_complement128": ("rc128", ("rc",)),
     "canonical128": ("rc128", ("canonical",)),
 }
@@ -791,11 +839,13 @@ def reset_counts(wrappers):
             w.variants = {}
 
 
-def read_counts(wrappers):
-    """{kernel row: launches} of these wrappers since ``reset_counts``."""
+def read_counts(wrappers, sharded: bool = False):
+    """{kernel row: launches} of these wrappers since ``reset_counts``
+    (the rows of phase 9g where ``sharded``)."""
     out = {}
     for w in wrappers:
-        rows = [r for r, (fn, _) in VARIANTS.items() if fn == w.__name__]
+        rows = [r for r, (fn, _) in VARIANTS.items() if fn == w.__name__
+                and (sharded or r not in SHARDED_ROWS)]
         for r in rows:
             out[r] = sum(w.variants.get(v, 0) for v in VARIANTS[r][1])
         if not rows:
@@ -3338,6 +3388,10 @@ def phase_formats(dev, chk, kk, db):
             f"{secs['load_database_sharded']:.2f}s, khash read "
             f"{secs['read_bonsai_database']:.2f}s, probe-image "
             f"{secs['probe-image']:.2f}s")
+        # phase 9g classifies the --shards 4 directory a rank at a time
+        shards4 = os.path.join(ROOT, "build", "sharded-ec4")
+        shutil.rmtree(shards4, ignore_errors=True)
+        shutil.move(os.path.join(tmp, "4"), shards4)
     finally:
         _restore(formats, orig)
         tmp_dir.cleanup()
@@ -3391,7 +3445,7 @@ def phase_formats(dev, chk, kk, db):
     t = time.perf_counter()
     times, bounds = format_numbers(dev, keys, codes)
     say(f"# formats: timings in {time.perf_counter() - t:.1f}s")
-    return launches, times, bounds, secs
+    return launches, times, bounds, secs, shards4
 
 
 def format_kernels(dev, chk, keys, codes):
@@ -3548,6 +3602,547 @@ def format_numbers(dev, keys, codes):
     return times, bounds
 
 
+def _sha_run(clf, path, mate=None, batch=8192):
+    out = io.StringIO()
+    clf.process_dataset(path, out, mate_path=mate, batch_size=batch)
+    return _sha(out.getvalue().encode())
+
+
+def phase_sharded(dev, chk, kk, db, tree, shards4):
+    """9g. The sharded classifier and the sharded build on the card, with
+    in-process ranks sharing it: a2a at (dp, db) = (1, 4) and (2, 2) and
+    psum at (1, 4) over the ec k=31 database (the HiSeq, MiSeq and ec_k12
+    golden sha256s), classify --db-shards 1 through the CLI (psum, one
+    rank) and --db-shards 4 refused with the JAX CLI's message, the
+    paired golden through both routes at db 2, a2a at cf 0.05 (rounds >
+    1), phase 9f's --shards 4 directory a rank at a time (db 4 and 2),
+    probe-image --db-ranks 4 and its images, a shard rewritten in place
+    (stale images ignored), per-rank output joined by merge-parts,
+    sharded_lca_map of the ec corpus at db 4 (kraken.db_digest) and the
+    sequence-parallel encode of K-12 at sp 4; then each new kernel
+    against its plain version and its timing."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db import formats
+    from bonsai_tpu_torch.db.build import content_digest
+    from bonsai_tpu_torch.parallel import route as rt
+    from bonsai_tpu_torch.parallel import sharded as sh
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+
+    sets = {w: (os.path.join(DATA, kk["sets"][w]["reads"]),
+                kk["sets"][w]["sha256"]) for w in ("HiSeq", "MiSeq", "ec_k12")}
+    hiseq, want_hiseq = sets["HiSeq"]
+    nodes = os.path.join(GOLD, kk["nodes"])
+    secs = {}
+    wrappers = [rt.route_frame, rt.route_probe, rt.route_collect,
+                pl.encode_probe, enc.minimizers, bd.key_range]
+    shared = [rs.resolve, pl.step_outputs, bd.sort_unique, bd.merge_fold]
+    tmp_dir = tempfile.TemporaryDirectory(prefix="sharded.",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_dir.name
+
+    def mesh(dp, n):
+        return make_mesh({"dp": dp, "db": n}, [dev])
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t
+        return out
+
+    # 1. the main path, counted
+    reset_counts(wrappers + shared)
+    try:
+        clfs = {}
+        for route, dp, n in (("a2a", 1, 4), ("a2a", 2, 2), ("psum", 1, 4)):
+            tag = f"{route} ({dp}, {n})"
+            clfs[tag] = clf = timed(f"construct {tag}", lambda: (
+                sh.ShardedClassifier(db, tree, mesh(dp, n), route=route,
+                                     emit_all=True)))
+            for which, (path, want) in sets.items():
+                got = timed(f"{which} {tag}", lambda: _sha_run(clf, path))
+                require(got == want, f"{which} through {tag} differs from "
+                        "the golden")
+            say(f"# sharded: {tag}: HiSeq, MiSeq, ec_k12 sha256 match "
+                f"(construct {secs[f'construct {tag}']:.2f}s, HiSeq "
+                f"{secs[f'HiSeq {tag}']:.2f}s"
+                f"{f', {clf.last_rounds} round(s)' if route == 'a2a' else ''})")
+        # the stream: HiSeq x 20 through a2a (1, 4), as phase 6's
+        a14 = clfs["a2a (1, 4)"]
+        secs["stream reads/s a2a (1, 4)"], secs["busy % a2a (1, 4)"] = \
+            _sharded_stream(a14, hiseq)
+        # overflow rounds: a2a (1, 4) at cf 0.05
+        a14.capacity_factor = 0.05
+        b = _batch(hiseq, 8192, DNA4.lut)
+        a14.classify_batch(b)
+        rounds = a14.last_rounds
+        got = timed("HiSeq a2a cf 0.05", lambda: _sha_run(a14, hiseq))
+        require(rounds > 1 and got == want_hiseq,
+                f"a2a at cf 0.05: {rounds} rounds, sha256 "
+                f"{'matches' if got == want_hiseq else 'differs'}")
+        a14.capacity_factor = 1.05
+        say(f"# sharded: a2a (1, 4) at cf 0.05: {rounds} rounds on an 8192-"
+            f"read HiSeq batch; HiSeq sha256 matches "
+            f"({secs['HiSeq a2a cf 0.05']:.2f}s)")
+        # per-rank output, joined by merge-parts
+        parts = os.path.join(tmp, "parts")
+        timed("distributed a2a (1, 4)", lambda: a14.process_dataset_distributed(
+            hiseq, parts, batch_size=8192))
+        merged = os.path.join(tmp, "merged.tsv")
+        _cli(["merge-parts", parts, "-o", merged], tmp)
+        require(_sha(open(merged, "rb").read()) == want_hiseq,
+                "merge-parts of the per-rank output differs from the golden")
+        say(f"# sharded: process_dataset_distributed (a2a (1, 4), one part) + "
+            f"merge-parts: HiSeq sha256 matches")
+        del clfs, a14
+        # the CLI: --db-shards 1 (psum, one rank); --db-shards 4 refused
+        btpu = os.path.join(tmp, "ec.btpu")
+        formats.save_database(db, btpu)
+        outp = os.path.join(tmp, "cli.tsv")
+        timed("CLI --db-shards 1", lambda: _cli(
+            ["classify", btpu, nodes, hiseq, "-a", "--db-shards", "1", "-o",
+             outp, "--device", str(dev)], tmp))
+        require(_sha(open(outp, "rb").read()) == want_hiseq,
+                "classify --db-shards 1 differs from the golden")
+        err = io.StringIO()
+        import contextlib
+
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["classify", btpu, nodes, hiseq, "--db-shards",
+                           "4", "--device", str(dev)])
+        n_cards = torch.cuda.device_count()
+        want_err = f"{n_cards} devices not divisible by db_shards=4"
+        require(n_cards % 4 == 0 or (rc == 1 and want_err in err.getvalue()),
+                f"--db-shards 4 on {n_cards} card(s): exit {rc}, "
+                f"{err.getvalue()[-200:]}")
+        say(f"# sharded: CLI --db-shards 1: HiSeq sha256 matches "
+            f"({secs['CLI --db-shards 1']:.2f}s); --db-shards 4 on "
+            f"{n_cards} card(s): exit {rc}, '{want_err}'")
+        # the paired golden through both routes at db 2 (lex_k25)
+        m = json.load(open(os.path.join(GOLD, "manifest.json")))
+        cfg = next(c for c in m["configs"] if c["name"] == m["classify"]["db"])
+        lex = os.path.join(tmp, "lex.btpu")
+        _cli(["build", lex, *(os.path.join(GOLD, f) for f in (
+            "g_phix.fa", "g_phixmut.fa", "g_rand.fa")), *cfg["flags"], "-T",
+            os.path.join(GOLD, "nodes.dmp"), "-M",
+            os.path.join(GOLD, "nameidmap.txt")], tmp)
+        ldb = formats.load_database(lex)
+        from bonsai_tpu_torch.taxonomy.tree import TaxTree
+
+        ltree = TaxTree.from_nodes_dmp(os.path.join(GOLD, "nodes.dmp"))
+        with gzip.open(os.path.join(GOLD, "classify_pe.tsv.gz"), "rb") as fh:
+            want_pe = _sha(fh.read())
+        for route in ("a2a", "psum"):
+            clf = sh.ShardedClassifier(ldb, ltree, mesh(1, 2), route=route,
+                                       emit_all=True)
+            got = _sha_run(clf, os.path.join(GOLD, "mate1.fa"),
+                           os.path.join(GOLD, "mate2.fa"))
+            require(got == want_pe, f"paired golden through {route} (1, 2) "
+                    "differs")
+        say("# sharded: paired golden through a2a and psum at (1, 2) matches")
+        # phase 9f's --shards 4 directory, a rank at a time
+        for n in (4, 2):
+            clf = timed(f"from_sharded_dir db {n}", lambda: (
+                sh.ShardedClassifier.from_sharded_dir(shards4, tree,
+                                                      mesh(1, n),
+                                                      emit_all=True)))
+            require(not clf._rank_images_used, "images before any were baked")
+            require(_sha_run(clf, hiseq) == want_hiseq,
+                    f"the --shards 4 directory at db {n} differs")
+        timed("probe-image --db-ranks 4", lambda: _cli(
+            ["probe-image", shards4, nodes, "--db-ranks", "4"], tmp))
+        clf = timed("from_sharded_dir db 4 images", lambda: (
+            sh.ShardedClassifier.from_sharded_dir(shards4, tree, mesh(1, 4),
+                                                  emit_all=True)))
+        require(clf._rank_images_used, "the baked rank images were not used")
+        require(_sha_run(clf, hiseq) == want_hiseq,
+                "the rank images' HiSeq text differs")
+        shard = os.path.join(shards4, "shard-00001.btpu")
+        data = open(shard, "rb").read()
+        time.sleep(0.01)
+        with open(shard, "wb") as fh:  # rebuilt in place
+            fh.write(data)
+        clf = sh.ShardedClassifier.from_sharded_dir(shards4, tree, mesh(1, 4),
+                                                    emit_all=True)
+        require(not clf._rank_images_used,
+                "images of a shard rewritten in place were used")
+        require(_sha_run(clf, hiseq) == want_hiseq,
+                "the rewritten directory's HiSeq text differs")
+        del clf
+        say(f"# sharded: --shards 4 directory at db 4 "
+            f"({secs['from_sharded_dir db 4']:.2f}s to load) and db 2 "
+            f"({secs['from_sharded_dir db 2']:.2f}s), probe-image --db-ranks "
+            f"4 ({secs['probe-image --db-ranks 4']:.2f}s), loaded from the "
+            f"images in {secs['from_sharded_dir db 4 images']:.2f}s: HiSeq "
+            "sha256 matches; a shard rewritten in place: images ignored")
+        # the sharded build: the ec corpus at db 4
+        genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+        torch.cuda.reset_peak_memory_stats()
+        table = timed("sharded_lca_map", lambda: bd.sharded_lca_map(
+            genomes, tree, os.path.join(GOLD, kk["nameid"]),
+            Spacer(kk["k"], kk["k"]), mesh(1, 4)))
+        peak = torch.cuda.max_memory_allocated()
+        got = content_digest(table)
+        require(got == kk["db_digest"], "sharded_lca_map of the ec corpus "
+                "differs from kraken.db_digest")
+        say(f"# sharded: sharded_lca_map of the ec corpus at db 4: "
+            f"{table.n} k-mers, digest matches kraken.db_digest "
+            f"({secs['sharded_lca_map']:.2f}s with the table's placement; "
+            f"peak device memory {peak / 2**20:.1f} MiB)")
+        del table
+        # the sequence-parallel encode of K-12 at sp 4
+        codes = torch.from_numpy(_k12_codes()).to(dev)
+        L = codes.shape[1]
+        ln = torch.tensor([L], dtype=torch.int32, device=dev)
+        for canon in (True, False):
+            kms, ok = timed(f"sp encode canon={canon}", lambda: (
+                sh.sharded_encode_contig(codes, 31, make_mesh({"sp": 4},
+                                                              [dev]), canon)))
+            em = enc.minimizers(codes, ln, 31, 1, canon)
+            P = em.values.shape[1]
+            require(torch.equal(ok[:, :P], em.mask) and not bool(ok[:, P:].any())
+                    and torch.equal(kms[:, :P], torch.where(em.mask, em.values,
+                                                            0)),
+                    f"sequence-parallel encode canon={canon} differs")
+        say(f"# sharded: sharded_encode_contig of K-12 ({L} bases) at sp 4, "
+            "canonical and not: equal to the unsharded encode")
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers, sharded=True)
+        for r in ("encode_probe", "encode_probe_spaced", "minimizers",
+                  "minimizers_spaced", "minimizers_entropy", *HASH_ROWS,
+                  *API_ROWS):
+            launches.pop(r, None)  # other phases' rows of these wrappers
+        also = read_counts(shared)
+        say(f"# sharded: kernel launches {launches}, and of K2, K3, KB2, KB3 "
+            f"{also}")
+        for name, c in launches.items():
+            require(c > 0, f"kernel {name} never launched by phase 9g's path")
+    finally:
+        tmp_dir.cleanup()
+        shutil.rmtree(shards4, ignore_errors=True)
+
+    # 2. the kernels against their plain versions
+    t = time.perf_counter()
+    inputs = sharded_kernels(dev, chk, db, tree, hiseq, codes)
+    say(f"# sharded: the kernels against their plain versions in "
+        f"{time.perf_counter() - t:.1f}s")
+    # 3. timings at the main path's shapes, and bounds
+    t = time.perf_counter()
+    times, bounds = sharded_numbers(dev, inputs)
+    say(f"# sharded: timings in {time.perf_counter() - t:.1f}s")
+    return launches, times, bounds, secs
+
+
+def _sharded_stream(clf, hiseq):
+    """(reads/s of 20 HiSeq passes in one process_dataset, the card's busy
+    share of one pass from a profiler trace) through ``clf``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(ROOT, "build", "hiseq_x20_sharded.fa")
+    with open(hiseq, "rb") as fh:
+        data = fh.read()
+    with open(path, "wb") as fh:
+        for _ in range(20):
+            fh.write(data)
+    sink = open(os.devnull, "w")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            clf.process_dataset(hiseq, sink, batch_size=8192)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(getattr(e, "self_device_time_total", 0)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+        t0 = time.perf_counter()
+        clf.process_dataset(path, sink, batch_size=8192, profile=True)
+        secs = time.perf_counter() - t0
+    finally:
+        sink.close()
+        os.unlink(path)
+    rps = 200000 / secs
+    share = 100 * busy / wall_us
+    say(f"# sharded: stream through a2a (1, 4), four ranks on this one card "
+        f"(no multi-GPU rate): 200000 HiSeq reads in {secs:.3f}s = "
+        f"{rps:.6g} reads/s; stages "
+        f"{ {k: round(v, 3) for k, v in clf.stage_seconds.items()} }; one "
+        f"pass: wall {wall_us / 1e3:.3f} ms, card busy {busy / 1e3:.3f} ms "
+        f"({'not measured' if not busy else f'{share:.2f}%'})")
+    return rps, share if busy else float("nan")
+
+
+def _first_round(clf, prep):
+    """Rank 0's inputs and outputs of each KD1 launch of the a2a route's
+    first round on an 8192-read batch: the classifier's own round
+    (``ShardedClassifier._a2a_round``), with the state it started from."""
+    ups = clf._uploads(prep)
+    st, cap = clf._a2a_start(ups, prep[3])
+    s0 = st[0]
+    before = [s0[x].clone() for x in ("done", "hit", "cidx", "oidx")]
+    _, got = clf._a2a_round(st, cap, False)
+    return dict(enc=(*ups[0], prep[3]), cap=cap, kq=s0["kq"],
+                done=before[0], valid=s0["valid"], send=got["frame"][0][0],
+                slotq=got["frame"][0][1], recv=got["recv"][0],
+                arr=clf._arr[0], resp=got["resp"][0], back=got["back"][0],
+                recvs=got["recv"], arrs=dict(clf._arr),
+                state=before, after=[s0[x] for x in ("done", "hit", "cidx",
+                                                     "oidx")],
+                left=got["left"][0])
+
+
+def sharded_kernels(dev, chk, db, tree, hiseq, k12):
+    """KD1, K1's encode-only and bucket-range instantiations, the
+    key-range mode and KB1's sequence-parallel instantiation against their
+    plain versions on CPU copies, exactly: at the main path's shapes (the
+    first a2a round of an 8192-read HiSeq batch at (1, 4), a psum rank's
+    rows, a chunk of the ec stream, a K-12 block and its halo), and every
+    query to one owner, ndb = 3, Q < ndb, 4M queries (many waves of the
+    frame's look-back), keys at U64_MAX and at the splitters past one
+    grid pass, a taxid of at least 2^31 in the response word, dictionary
+    and flat values.  Returns the main path's inputs for the timings."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db.table import KmerTable, ProbeArrays
+    from bonsai_tpu_torch.parallel import route as rt
+    from bonsai_tpu_torch.parallel import sharded as sh
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 12)
+    clf = sh.ShardedClassifier(db, tree, make_mesh({"dp": 1, "db": 4}, [dev]))
+    prep = clf._prepare_batch(_batch(hiseq, 8192, DNA4.lut))
+    r1 = _first_round(clf, prep)
+    # the frame: the main path's, one owner, ndb = 3, Q < ndb, 4M queries
+    chk.same("route_frame", [r1["send"], r1["slotq"]],
+             rt.route_frame_plain(r1["kq"].cpu(), r1["done"].cpu(), 4,
+                                  r1["cap"]), "HiSeq first round, rank 0")
+    kq = r1["kq"].cpu()
+    one = kq[rt.shard_owner_plain(kq, 4) == 2].contiguous()
+    big = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, 4_000_000))
+    for x, ndb, cap, what in ((one, 4, 700, "every query to one owner"),
+                              (kq, 3, 40000, "ndb = 3"),
+                              (kq[:2], 4, 1, "Q < ndb"),
+                              (big, 4, 1_050_000, "4M queries")):
+        d = torch.from_numpy(rng.random(x.numel()) < 0.2)
+        chk.same("route_frame", rt.route_frame(x.to(dev), d.to(dev), ndb, cap),
+                 rt.route_frame_plain(x, d, ndb, cap), what)
+    # the probe: the main path's received frame, then a table of taxids
+    # past 2^31, inline and flat, value index and taxid out
+    arr_c = ProbeArrays(r1["arr"].slots.cpu(), r1["arr"].vals.cpu(),
+                        r1["arr"].inline, r1["arr"].lgnb, r1["arr"].vbits)
+    for wi in (False, True):
+        chk.same("route_probe", [rt.route_probe(r1["recv"], r1["arr"], wi)],
+                 [rt.route_probe_plain(r1["recv"].cpu(), arr_c, wi)],
+                 f"HiSeq received frame want_idx={wi}")
+    keys = np.unique(rng.integers(0, 2**64, 300000, dtype=np.uint64))
+    vals = (rng.integers(2**31, 2**32, keys.size).astype(np.uint64)
+            << np.uint64(32)) | rng.integers(0, 2**31, keys.size).astype(
+                np.uint64)
+    t = KmerTable(keys, vals)
+    q = torch.from_numpy(np.concatenate([keys[::2], rng.integers(
+        0, 2**64, 150000, dtype=np.uint64)]).view(np.int64))
+    for inline in (True, False):
+        s_, v_, i_ = t.encode_slots(vals[:1].repeat(keys.size) if inline
+                                    else vals, allow_inline=inline)
+        a = ProbeArrays.from_numpy(s_, v_, i_, t.lgnb, t.vbits, dev)
+        c = ProbeArrays.from_numpy(s_, v_, i_, t.lgnb, t.vbits, "cpu")
+        for wi in (False, True):
+            got = rt.route_probe(q.to(dev), a, wi)
+            chk.same("route_probe", [got], [rt.route_probe_plain(q, c, wi)],
+                     f"taxids >= 2^31 inline={inline} want_idx={wi}")
+            require(wi or bool((got.cpu() < 0).any()),
+                    "no response word carried a taxid >= 2^31")
+    # the collect: the main path's returned frame, from the state the
+    # round started from
+    st_c = [x.cpu().clone() for x in r1["state"]]
+    n2 = rt.route_collect_plain(r1["back"].cpu(), r1["slotq"].cpu(), *st_c)
+    chk.same("route_collect", r1["after"] + [r1["left"]], st_c + [n2],
+             "HiSeq first round, rank 0")
+    # K1: encode-only on rank 0's reads; the bucket range on each psum rank
+    e_in = r1["enc"]
+    chk.same("encode_only", pl.encode_only(*e_in, clf.k, clf.canon),
+             pl.encode_only_plain(*(None if x is None else x.cpu()
+                                    for x in e_in[:3]), e_in[3], clf.k,
+                                  clf.canon), "HiSeq 2048 reads")
+    del clf
+    ps = sh.ShardedClassifier(db, tree, make_mesh({"dp": 1, "db": 4}, [dev]),
+                              route="psum")
+    pc, nm, ln, lproc = prep
+    up = [None if x is None else x.to(dev) for x in (pc, nm, ln)]
+    for r in range(4):
+        a = ps._arr[r]
+        ac = ProbeArrays(a.slots.cpu(), a.vals.cpu(), a.inline, a.lgnb,
+                         a.vbits, a.row0, a.rows)
+        for wi in (False, True):
+            chk.same("encode_probe_range",
+                     pl.encode_probe(*up, lproc, 31, True, a, wi),
+                     pl.encode_probe_plain(pc, nm, ln, lproc, 31, True, ac,
+                                           wi), f"psum rank {r} want_idx={wi}")
+    range_arr = ps._arr[0]
+    del ps
+    # the key range: an ec stream chunk's keys and 5M random keys with
+    # U64_MAX and the splitters in them, past one grid pass
+    codes, lengths = _ec_chunk(31)
+    em = enc.minimizers(torch.from_numpy(codes).to(dev),
+                        torch.from_numpy(lengths).to(dev), 31, 1, True)
+    ck = torch.where(em.mask[0], em.values[0], -1)
+    cp = (~em.mask[0]).to(torch.uint8)
+    spl = [1 << 60, 1 << 61, 3 << 60]
+    rk = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, 5_000_000))
+    rk[:6] = torch.tensor([-1, 1 << 60, 1 << 61, 3 << 60, 0, -2])
+    rp = torch.from_numpy((rng.random(rk.numel()) < 0.1).astype(np.uint8))
+    for x, p, what in ((ck, cp, "ec chunk"), (rk.to(dev), rp.to(dev),
+                                              "5M keys")):
+        for s in range(4):
+            lo = 0 if s == 0 else spl[s - 1]
+            hi = spl[s] if s < 3 else (1 << 64) - 1
+            chk.same("key_range", [bd.key_range(x, p, lo, hi, s == 3)],
+                     [bd.key_range_plain(x.cpu(), p.cpu(), lo, hi, s == 3)],
+                     f"{what} rank {s}")
+    # KB1's sequence-parallel instantiation: K-12's last block with its
+    # (invalid) halo, and its first with the real one
+    L = k12.shape[1] // 4
+    blocks = [torch.cat([k12[:, :L], k12[:, L:L + 30]], 1),
+              torch.cat([k12[:, 3 * L:], torch.full_like(k12[:, :30], -1)],
+                        1)]
+    for b in blocks:
+        b = b.contiguous()
+        ln1 = torch.tensor([b.shape[1]], dtype=torch.int32)
+        for canon in (True, False):
+            got = enc.minimizers(b, ln1.to(dev), 31, 1, canon,
+                                 zero_invalid=True)
+            want = enc.minimizers_plain(b.cpu(), ln1, 31, 1, canon,
+                                        zero_invalid=True)
+            chk.same("minimizers_sp", [got.values, got.mask],
+                     [want.values, want.mask],
+                     f"K-12 block {b.shape[1]} codes canon={canon}")
+    torch.cuda.synchronize()
+    say(f"# sharded: kernels equal to their plain versions: "
+        f"{ {n: chk.cases[n] for n in ('route_frame', 'route_probe', 'route_collect', 'encode_only', 'encode_probe_range', 'key_range', 'minimizers_sp')} } cases")
+    return dict(r1=r1, up=up, prep=prep, range_arr=range_arr, chunk=(ck, cp),
+                spl=spl, block=blocks[0].contiguous())
+
+
+def sharded_numbers(dev, inp):
+    """KD1's three launches, K1's encode-only and bucket-range
+    instantiations, the key-range pass and KB1's sequence-parallel
+    instantiation, each with its plain version, by CUDA-graph replay at
+    the main path's shapes, with bounds; no one PyTorch call computes any
+    of these functions (library none)."""
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.parallel import route as rt
+    from bonsai_tpu_torch.tools.bounds import (bound_encode_probe_range,
+                                               bound_key_range,
+                                               bound_minimizers, bound,
+                                               bound_route_collect,
+                                               bound_route_frame,
+                                               bound_route_probe, bound_text,
+                                               nbytes)
+
+    times, bounds = {}, {}
+    r1 = inp["r1"]
+    kq, done, cap = r1["kq"], r1["done"], r1["cap"]
+    bounds["route_frame"] = bound_route_frame(
+        kq, done, rt.route_frame(kq, done, 4, cap))
+    times["route_frame"] = time_pair(
+        "route_frame", f"{kq.numel()} queries, ndb=4, cap={cap}",
+        lambda: rt.route_frame(kq, done, 4, cap),
+        lambda: rt.route_frame_plain(kq, done, 4, cap),
+        bounds["route_frame"], graph=True)
+    # the round's four probes in turn, each rank's received frame against
+    # its sub-table, as the route runs them: one sub-table probed alone
+    # keeps its rows in the 50 MB L2 between replays
+    recvs, arrs = r1["recvs"], r1["arrs"]
+    bounds["route_probe"] = _mean_bound([bound_route_probe(
+        recvs[r], arrs[r], rt.route_probe(recvs[r], arrs[r], False))
+        for r in sorted(recvs)])
+    times["route_probe"] = time_pair(
+        "route_probe", f"{[recvs[r].numel() for r in sorted(recvs)]} "
+        f"received keys, 4 sub-tables of {arrs[0].slots.shape[0]} rows in "
+        "turn", _turns([lambda r=r: rt.route_probe(recvs[r], arrs[r], False)
+                        for r in sorted(recvs)]),
+        _turns([lambda r=r: rt.route_probe_plain(recvs[r], arrs[r], False)
+                for r in sorted(recvs)]),
+        bounds["route_probe"], graph=True)
+    back, slotq = r1["back"], r1["slotq"]
+    routed = int((slotq < back.numel()).sum())
+    state = [x.clone() for x in r1["state"]]
+    bounds["route_collect"] = bound_route_collect(slotq, state[0], routed)
+    times["route_collect"] = time_pair(
+        "route_collect", f"{slotq.numel()} queries, {routed} routed",
+        lambda: rt.route_collect(back, slotq, *state),
+        lambda: rt.route_collect_plain(back, slotq, *state),
+        bounds["route_collect"], graph=True)
+    e_in = r1["enc"]
+    out = pl.encode_only(*e_in, 31, True)
+    bounds["encode_only"] = bound(nbytes(*e_in[:3], *out))
+    times["encode_only"] = time_pair(
+        "encode_only", f"{e_in[0].shape[0]} HiSeq reads, P={out[0].shape[1]}",
+        lambda: pl.encode_only(*e_in, 31, True),
+        lambda: pl.encode_only_plain(*e_in, 31, True), bounds["encode_only"],
+        graph=True)
+    up, lproc, a = inp["up"], inp["prep"][3], inp["range_arr"]
+    out = pl.encode_probe(*up, lproc, 31, True, a, True)
+    kmers, valid = pl.encode_only(*up, lproc, 31, True)
+    bounds["encode_probe_range"] = bound_encode_probe_range(
+        up, a.vals, out, kmers[valid], a)
+    times["encode_probe_range"] = time_pair(
+        "encode_probe_range", f"8192 HiSeq reads, rows {a.row0}..."
+        f"{a.row0 + a.rows} of {1 << a.lgnb}",
+        lambda: pl.encode_probe(*up, lproc, 31, True, a, True),
+        lambda: pl.encode_probe_plain(*up, lproc, 31, True, a, True),
+        bounds["encode_probe_range"], graph=True)
+    ck, cp = inp["chunk"]
+    lo, hi = inp["spl"][0], inp["spl"][1]
+    bounds["key_range"] = bound_key_range(ck, cp, bd.key_range(ck, cp, lo, hi,
+                                                                False))
+    # four copies of the chunk in turn: 4 x 42 MB exceed the 50 MB L2, so
+    # each call reads its chunk from HBM, as the bound counts it (one chunk
+    # replayed alone stays in L2)
+    copies = [(ck.clone(), cp.clone()) for _ in range(4)]
+    times["key_range"] = time_pair(
+        "key_range", f"ec chunk of {ck.numel()} keys, rank 1, 4 copies in "
+        "turn", _turns([lambda k=k, p=p: bd.key_range(k, p, lo, hi, False)
+                        for k, p in copies]),
+        _turns([lambda k=k, p=p: bd.key_range_plain(k, p, lo, hi, False)
+                for k, p in copies]),
+        bounds["key_range"], graph=True)
+    b = inp["block"].to(dev)
+    ln = torch.tensor([b.shape[1]], dtype=torch.int32, device=dev)
+    bounds["minimizers_sp"] = bound_minimizers(
+        b, ln, enc.minimizers(b, ln, 31, 1, True, zero_invalid=True), 1)
+    times["minimizers_sp"] = time_pair(
+        "minimizers_sp", f"K-12 block + halo, {b.shape[1]} codes, k=31",
+        lambda: enc.minimizers(b, ln, 31, 1, True, zero_invalid=True),
+        lambda: enc.minimizers_plain(b, ln, 31, 1, True, zero_invalid=True),
+        bounds["minimizers_sp"], graph=True)
+    for name in times:
+        say(f"# sharded: {name} {times[name][0]:.4f} ms, "
+            f"{bound_text(bounds[name])}, share "
+            f"{bounds[name][0] / times[name][0]:.3f}")
+    return times, bounds
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -3590,6 +4185,22 @@ def phase_gather_numbers(dev):
         f"gather at G2's {name} {library['take_along'] * 1e3:.3f} us under "
         f"graph replay (bound {bounds['take_along'][0] * 1e3:.3f} us)")
     return bounds, library
+
+
+def _turns(calls):
+    """One callable that makes the next of ``calls`` each time, in turn."""
+    import itertools
+
+    nxt = itertools.cycle(calls)
+    return lambda: next(nxt)()
+
+
+def _mean_bound(bs):
+    """The bound of one call on average over calls made in turn, from
+    each call's ``bound``."""
+    tb = sum(b[2] for b in bs) / len(bs)
+    to = sum(b[3] for b in bs) / len(bs)
+    return (max(tb, to), "bytes" if tb >= to else "operations", tb, to)
 
 
 def time_pair(name, tag, kern, plain, bnd, graph=False):
@@ -3790,10 +4401,14 @@ def main() -> int:
         "9e sketches", phase_sketch, dev, chk)
     times.update(sketch_times)
     bounds.update(sketch_bounds)
-    format_launches, format_times, format_bounds, format_secs = phase(
-        "9f formats", phase_formats, dev, chk, kk, db)
+    format_launches, format_times, format_bounds, format_secs, shards4 = \
+        phase("9f formats", phase_formats, dev, chk, kk, db)
     times.update(format_times)
     bounds.update(format_bounds)
+    sharded_launches, sharded_times, sharded_bounds, sharded_nums = phase(
+        "9g sharded", phase_sharded, dev, chk, kk, db, tree, shards4)
+    times.update(sharded_times)
+    bounds.update(sharded_bounds)
     del db
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
@@ -3817,6 +4432,7 @@ def main() -> int:
     launches.update(api_launches)
     launches.update(sketch_launches)
     launches.update(format_launches)
+    launches.update(sharded_launches)
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -3834,7 +4450,10 @@ def main() -> int:
         f"entropy over the ec corpus {api_mbps:.2f} Mbases/s; sketches, wall "
         f"seconds a genome: { {k: round(v, 3) for k, v in per.items()} }; "
         f"formats, wall seconds: "
-        f"{ {k: round(v, 3) for k, v in format_secs.items()} }; total "
+        f"{ {k: round(v, 3) for k, v in format_secs.items()} }; sharded "
+        f"(ranks sharing this one card: no multi-GPU rate): "
+        f"{ {k: round(v, 3) for k, v in sharded_nums.items()} }, the "
+        f"one-device stream {rps:.6g} reads/s; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -339,13 +339,47 @@ def test_cli_classify_of_each_format_matches_jax(cli_runs, db):
     ["probe-image", "{d}/sh2", NODES],
     ["probe-image", "{d}/lex.btpu", NODES, "{d}/x", "--db-ranks", "2"],
 ])
-def test_cli_multi_gpu_options_exit_2_naming_item_11(cli_runs, argv, capsys):
-    d = str(cli_runs["torch"])
-    assert cli.main([a.format(d=d) for a in argv] + ["--device", "cpu"]
-                    if argv[0] == "classify" else
-                    [a.format(d=d) for a in argv]) == 2
-    assert "ROADMAP queue A, item 11" in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(d, "x"))
+def test_cli_multi_gpu_options_exit_2_naming_item_11(cli_runs, argv, capsys,
+                                                      tmp_path):
+    """The multi-GPU options that the port refused while ROADMAP queue A
+    item 11 was open now run as the JAX CLI's do: --db-shards 2 (the
+    sharded directory a rank at a time) and --route a2a (no --db-shards:
+    the one-device classifier) give the JAX CLI's text; --distributed
+    outside torchrun's environment exits 2 naming what is missing;
+    probe-image bakes per-rank images of a sharded directory, and of a
+    BTPU1 file writes its probe image (--db-ranks ignored, as there)."""
+    d = str(tmp_path)
+    for name in ("sh2", "lex.btpu"):  # copies: the module's files stay
+        src = cli_runs["torch"] / name
+        if src.is_dir():
+            os.makedirs(os.path.join(d, name))
+            for f in os.listdir(src):
+                with open(src / f, "rb") as a, open(os.path.join(d, name, f),
+                                                   "wb") as b:
+                    b.write(a.read())
+        else:
+            with open(src, "rb") as a, open(os.path.join(d, name), "wb") as b:
+                b.write(a.read())
+    args = [a.format(d=d) for a in argv]
+    if argv[0] == "probe-image":
+        assert cli.main(args) == 0
+        if "--db-ranks" in argv:
+            assert _files(tmp_path / "x") == _files(cli_runs["jax"] / "img")
+        else:
+            assert any(f.startswith("rankimg-db2-")
+                       for f in os.listdir(os.path.join(d, "sh2")))
+        return
+    args[args.index("reads")] = os.path.join(GOLD, "reads.fa")
+    out = os.path.join(d, "out.tsv")
+    rc = cli.main(args + ["-a", "-o", out, "--device", "cpu"])
+    if "--distributed" in argv:
+        assert rc == 2
+        assert "torchrun" in capsys.readouterr().err
+        assert not os.path.exists(out)
+        return
+    assert rc == 0
+    with open(out, "rb") as fh:
+        assert fh.read() == (cli_runs["jax"] / "sh2.out").read_bytes()
 
 
 def test_cli_probe_image_needs_an_out_dir(cli_runs, capsys):

@@ -1715,3 +1715,225 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         enc.compacted_stream(v, ok, 8193)
     with pytest.raises(TypeError, match="dtype"):
         enc.compacted_stream(v, ok.to(torch.int8), 10)
+
+
+# -- the sharded classifier and the sharded build: KD1, K1's encode-only
+#    and bucket-range instantiations, the key-range mode, KB1's
+#    sequence-parallel instantiation -------------------------------------------
+
+def _table_images(rng, n=200000, flat=False):
+    """A table of n random keys with 50 x 40 packed values (some taxids
+    past 2^31), as the image (inline, or flat) on the CPU and its keys."""
+    keys = np.unique(rng.integers(0, 2**64, n, dtype=np.uint64))
+    vals = (rng.integers(0, 50, keys.size).astype(np.uint64) << np.uint64(32)
+            ) | rng.integers(0, 40, keys.size).astype(np.uint64)
+    vals[:5] |= np.uint64(0xF0000000) << np.uint64(32)  # taxids >= 2^31
+    t = KmerTable(keys, vals)
+    return t, t.encode_slots(vals, allow_inline=not flat), keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,ndb,cf", [
+    (145408, 4, 1.05), (4_000_000, 4, 1.05), (1000, 3, 0.05), (3, 4, 1.05),
+    (0, 2, 1.0), (50000, 1024, 1.0), (70000, 1, 1.0)])
+def test_route_frame_kernel_matches_plain(cuda, Q, ndb, cf):
+    """KD1's frame: stable owner order, capacity overflow (cf 0.05), Q <
+    ndb, an empty batch, 1024 owners, and 4M queries (many waves of the
+    look-back)."""
+    from bonsai_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(Q + ndb)
+    kq = _u64s(rng, Q)
+    done = torch.from_numpy(rng.random(Q) < 0.3)
+    cap = max(int(np.ceil(Q / ndb * cf)), 1)
+    _same(rt.route_frame(kq.to(cuda), done.to(cuda), ndb, cap),
+          rt.route_frame_plain(kq, done, ndb, cap))
+    # every query to one owner
+    one = kq[rt.shard_owner_plain(kq, ndb) == 0][:5000].contiguous()
+    d0 = torch.zeros(one.numel(), dtype=torch.bool)
+    _same(rt.route_frame(one.to(cuda), d0.to(cuda), ndb, 100),
+          rt.route_frame_plain(one, d0, ndb, 100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("want_idx", [False, True])
+def test_route_probe_kernel_matches_plain(cuda, flat, want_idx):
+    from bonsai_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(7 + flat)
+    t, (s, v, inline), keys = _table_images(rng, flat=flat)
+    q = torch.from_numpy(np.concatenate([
+        keys[:100000], rng.integers(0, 2**64, 100000, dtype=np.uint64),
+        np.array([0, 2**64 - 1], np.uint64)]).view(np.int64))
+    a = ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, cuda)
+    c = ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, "cpu")
+    got = rt.route_probe(q.to(cuda), a, want_idx)
+    want = rt.route_probe_plain(q, c, want_idx)
+    _same([got], [want])
+    assert bool((want[:100000] >> 31 & 1).all())  # stored keys found
+
+
+@pytest.mark.cuda
+def test_route_collect_kernel_matches_plain(cuda):
+    from bonsai_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(11)
+    for Q, dump in ((100000, 120000), (1, 4), (0, 4), (600001, 600000)):
+        slotq = torch.from_numpy(rng.integers(0, dump + 1, Q).astype(np.int32))
+        back = _u64s(rng, dump)
+        state = [torch.from_numpy(rng.random(Q) < .5),
+                 torch.from_numpy(rng.random(Q) < .5),
+                 _i32(rng.integers(0, 9, Q).astype(np.int32)),
+                 _i32(rng.integers(0, 9, Q).astype(np.int32))]
+        on = [x.to(cuda) for x in state]
+        off = [x.clone() for x in state]
+        n1 = rt.route_collect(back.to(cuda), slotq.to(cuda), *on)
+        n2 = rt.route_collect_plain(back, slotq, *off)
+        _same(on + [n1], off + [n2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("ndb", [1, 3, 4])
+def test_encode_probe_range_kernel_matches_plain(cuda, flat, ndb):
+    """K1's bucket-range instantiation on each rank's rows, contiguous
+    (canonical or not) and spaced, value index or taxid out."""
+    rng = np.random.default_rng(ndb + 10 * flat)
+    t, (s, v, inline), _ = _table_images(rng, flat=flat)
+    rps = (t.nb + ndb - 1) // ndb
+    codes = rng.integers(0, 4, (64, 150)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.02] = -1
+    pc, nm = _pack(codes)
+    ln = torch.from_numpy(rng.integers(0, 151, 64).astype(np.int32))
+    pos = (0, 1, 2, 3, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+           20, 21, 25)
+    for r in range(ndb):
+        lo, hi = r * rps, min((r + 1) * rps, t.nb)
+        z = np.zeros((rps - (hi - lo), 4), np.uint64)
+        sl = np.concatenate([s[lo:hi], z])
+        fv = v if inline else np.concatenate([v[lo:hi], z])
+        a = ProbeArrays.from_numpy(sl, fv, inline, t.lgnb, t.vbits, cuda, lo,
+                                   rps)
+        c = ProbeArrays.from_numpy(sl, fv, inline, t.lgnb, t.vbits, "cpu", lo,
+                                   rps)
+        for k, canon, p in ((31, True, None), (31, False, None),
+                            (21, False, pos)):
+            for want_idx in (False, True):
+                _same(pl.encode_probe(pc.to(cuda), nm.to(cuda), ln.to(cuda),
+                                      150, k, canon, a, want_idx, p),
+                      pl.encode_probe_plain(pc, nm, ln, 150, k, canon, c,
+                                            want_idx, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 21, 31, 32])
+def test_encode_only_kernel_matches_plain(cuda, k):
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (300, 200)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.03] = -1
+    codes[7, :] = 3  # k = 32: the all-T k-mer is U64_MAX, uncanonical
+    pc, nm = _pack(codes)
+    ln = torch.from_numpy(rng.integers(0, 201, 300).astype(np.int32))
+    ln[7] = 200
+    for canon in (True, False):
+        _same(pl.encode_only(pc.to(cuda), nm.to(cuda), ln.to(cuda), 200, k,
+                             canon),
+              pl.encode_only_plain(pc, nm, ln, 200, k, canon))
+    if k == 21:
+        pos = (0, 1, 2, 3, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+               19, 20, 21, 25)
+        _same(pl.encode_only(pc.to(cuda), nm.to(cuda), ln.to(cuda), 200, k,
+                             False, pos),
+              pl.encode_only_plain(pc, nm, ln, 200, k, False, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1000, 5_000_011])
+def test_key_range_kernel_matches_plain(cuda, n):
+    """Past one pass of the grid-stride loop; U64_MAX keys, keys at the
+    splitters, pads; the last rank's inclusive upper end."""
+    rng = np.random.default_rng(n)
+    keys = _u64s(rng, n)
+    pad = torch.from_numpy((rng.random(n) < 0.1).astype(np.uint8))
+    spl = [2**62, 2**63 + 5]
+    if n >= 6:
+        keys[:3] = -1
+        keys[3:6] = torch.tensor([2**62, -(2**63) + 5, 0])
+    for lo, hi, last in ((0, spl[0], False), (spl[0], spl[1], False),
+                         (spl[1], 2**64 - 1, True), (0, 2**64 - 1, True)):
+        _same([bd.key_range(keys.to(cuda), pad.to(cuda), lo, hi, last)],
+              [bd.key_range_plain(keys, pad, lo, hi, last)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("canon", [False, True])
+def test_minimizers_sequence_parallel_kernel_matches_plain(cuda, canon):
+    """KB1 at W = 1 writing 0 where nothing is emitted: Ns, rows shorter
+    than their codes, a row shorter than k."""
+    rng = np.random.default_rng(3 + canon)
+    codes = torch.from_numpy(rng.integers(-1, 4, (3, 9000)).astype(np.int8))
+    lens = torch.tensor([9000, 5000, 20], dtype=torch.int32)
+    for k in (17, 31):
+        a = enc.minimizers(codes.to(cuda), lens.to(cuda), k, 1, canon,
+                           zero_invalid=True)
+        b = enc.minimizers_plain(codes, lens, k, 1, canon, zero_invalid=True)
+        _same([a.values, a.mask], [b.values, b.mask])
+        assert not bool((b.values[~b.mask] != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dp,db", [("a2a", 1, 4), ("a2a", 2, 2),
+                                         ("a2a", 1, 3), ("psum", 1, 4),
+                                         ("psum", 2, 2)])
+def test_sharded_classifier_on_the_card_matches_one_device(cuda, route, dp,
+                                                           db):
+    """In-process ranks on one card: the raw step and the compact text
+    equal the one-device classifier's on the card, at cf 1.05 and 0.05
+    (several rounds)."""
+    from bonsai_tpu_torch.classify import output as out_mod
+    from bonsai_tpu_torch.db.formats import Database
+    from bonsai_tpu_torch.io import fastx
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+    from bonsai_tpu_torch.parallel.sharded import ShardedClassifier
+
+    rng = np.random.default_rng(dp * 10 + db)
+    genome = rng.integers(0, 4, 20000).astype(np.int8)
+    starts = rng.integers(0, 19800, 96)
+    codes = np.stack([genome[s:s + 120] for s in starts])
+    codes[rng.random(codes.shape) < 0.01] = -1
+    codes[:48] = rng.integers(0, 4, (48, 120)).astype(np.int8)
+    lengths = rng.integers(20, 121, 96).astype(np.int32)
+    codes[np.arange(120)[None, :] >= lengths[:, None]] = -1
+    em = enc.minimizers_plain(torch.from_numpy(genome[None]),
+                              torch.tensor([20000], dtype=torch.int32), 21,
+                              1, True)
+    keys = np.unique(em.values[em.mask].numpy().view(np.uint64))
+    keys = keys[rng.random(keys.size) < 0.7]
+    tree = TaxTree({1: 0, 2: 1, 3: 1, 11: 2, 12: 2, 13: 3})
+    taxa = rng.choice([2, 3, 11, 12, 13], keys.size).astype(np.uint32)
+    db_ = Database(table=KmerTable(keys, taxa), k=21, w=21, gaps=[0] * 20)
+    one = pl.Classifier(db_, tree, emit_all=True, device=cuda)
+    batch = fastx.ReadBatch(names=[f"r{i}".encode() for i in range(96)],
+                            seqs=[b"A" * int(n) for n in lengths],
+                            codes=codes, lengths=lengths,
+                            quals=[None] * 96)
+    want = one.classify_batch(batch, full=True)
+    want_txt = out_mod.format_batch(one.classify_batch(batch), 21,
+                                    emit_all=True)
+    for cf in (1.05, 0.05):
+        sc = ShardedClassifier(db_, tree, make_mesh({"dp": dp, "db": db},
+                                                    [cuda]),
+                               route=route, capacity_factor=cf,
+                               emit_all=True)
+        taxon, taxa_, hit, n_missing, n_kmers, n_kmers1 = sc.step(codes,
+                                                                 lengths)
+        assert np.array_equal(taxon, want.taxon)
+        assert np.array_equal(hit[:, :want.hit_mask.shape[1]], want.hit_mask)
+        assert np.array_equal(n_missing, want.n_missing)
+        assert np.array_equal(n_kmers, want.n_kmers)
+        got_txt = out_mod.format_batch(sc.classify_batch(batch), 21,
+                                       emit_all=True)
+        assert got_txt == want_txt
+        if route == "a2a" and cf < 1:
+            assert sc.last_rounds > 1

@@ -47,8 +47,10 @@ _FORMATS_SRC
 seq = b"ACGTTGCAAGGCTTAACGNNACGTACGGATCCATGCAAGT" * 3
 kmers = api.get_kmers(seq, k=13, w=29, scheme="entropy", device="cpu")
 hashes = api.rolling_hashes(seq, 21, True, device="cpu")
+_SHARDED_SRC
 print(json.dumps({
     "api": [kmers.tolist(), hashes.tolist()],
+    "sharded": _sharded(),
     "formats": _formats(sys.argv[2]),
     "package": os.path.dirname(bonsai_tpu_torch.__file__),
     "modules": names,
@@ -85,7 +87,33 @@ def _formats(out):
         h.update(t.numpy().tobytes())
     return h.hexdigest()
 """
-_CHILD = _CHILD.replace("_FORMATS_SRC", _FORMATS)
+# the sharded classifier over in-process ranks on the CPU, both routes,
+# and the sharded build: the taxa it gives and the digest of the table
+_SHARDED = """
+def _sharded():
+    import numpy as np
+    from bonsai_tpu_torch.db import build_device, formats, table
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+    from bonsai_tpu_torch.parallel.sharded import ShardedClassifier
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 3000).astype(np.int8)
+    reads = np.stack([genome[s:s + 90] for s in range(0, 2880, 90)])
+    keys = np.unique(np.array([int("".join("%d" % c for c in genome[i:i + 21]),
+                                   4) for i in range(0, 2980, 3)], np.uint64))
+    tree = TaxTree({1: 0, 2: 1, 11: 2, 12: 2})
+    db = formats.Database(table=table.KmerTable(
+        keys, np.where(keys % np.uint64(2) == 0, 11, 12).astype(np.uint32)),
+        k=21, w=21, gaps=[0] * 20, canonicalize=False)
+    out = []
+    for route in ("a2a", "psum"):
+        sc = ShardedClassifier(db, tree, make_mesh({"dp": 2, "db": 2}, ["cpu"]),
+                               canonicalize=False, route=route)
+        out.append(sc.step(reads, np.full(32, 90, np.int32))[0].tolist())
+    return out
+"""
+_CHILD = _CHILD.replace("_FORMATS_SRC", _FORMATS).replace("_SHARDED_SRC",
+                                                          _SHARDED)
 
 
 def _digest(path):
@@ -122,7 +150,22 @@ def test_copy_imports_every_module_without_jax(copy_run):
             "bonsai_tpu_torch.db.build_device", "bonsai_tpu_torch.api",
             "bonsai_tpu_torch.core.rolling", "bonsai_tpu_torch.db.formats",
             "bonsai_tpu_torch.db.diskarray",
-            "bonsai_tpu_torch.core.encode128"} <= set(rep["modules"])
+            "bonsai_tpu_torch.core.encode128",
+            "bonsai_tpu_torch.parallel.mesh", "bonsai_tpu_torch.parallel.route",
+            "bonsai_tpu_torch.parallel.sharded",
+            "bonsai_tpu_torch.tools.dist_smoke"} <= set(rep["modules"])
+
+
+def test_copy_runs_the_sharded_classifier_without_jax(copy_run):
+    """Both routes over in-process ranks on the CPU in the copy give what
+    they give in the repository, and classify the reads cut from the
+    database's genome."""
+    _, rep = copy_run
+    ns = {}
+    exec(_SHARDED, ns)
+    assert rep["sharded"] == ns["_sharded"]()
+    assert rep["sharded"][0] == rep["sharded"][1]
+    assert all(t in (2, 11, 12) for t in rep["sharded"][0])
 
 
 def test_copy_writes_the_formats_without_jax(copy_run, tmp_path):
