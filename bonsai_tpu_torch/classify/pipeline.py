@@ -11,7 +11,10 @@ runs three hand-written CUDA kernels, each beside its plain torch version:
 
 The host parses, 2-bit packs and uploads a batch, fetches the compact
 matrix (the full one only when a read has more hit runs than the compact
-capacity) and writes Kraken text.  In ``process_dataset`` a producer
+capacity) and writes Kraken text.  In-read Ns reach K1 through one of
+three channels, chosen a batch as the JAX package chooses
+(``n_channel``): none, a sorted list of their flat positions (sparse), or
+a bit mask of the batch (mask).  In ``process_dataset`` a producer
 thread parses and packs, the main thread uploads and launches, and a
 writer thread fetches and formats, so host and device work overlap.
 
@@ -31,7 +34,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +53,8 @@ from .resolve import resolve
 
 M32 = 0xFFFFFFFF
 PIPELINE_DEPTH = 4  # batches queued between the pipeline's threads
+# the sparse-N list's sentinel: past every flat position it may list
+N_SENTINEL = 0x7FFFFFFF
 
 
 def as_i32(x: torch.Tensor) -> torch.Tensor:
@@ -120,16 +125,33 @@ def unpack_2bit(pcodes: torch.Tensor, nmask: Optional[torch.Tensor] = None):
     return torch.where(nm, -1, c).to(torch.int8)
 
 
+def unpack_n(pcodes, nmask, lproc: int, nidx=None):
+    """(B, lproc) int8 codes of packed reads with their in-read Ns at -1:
+    from the N bit mask ``nmask``, or from ``nidx``, int32-held u32 flat
+    positions row * lproc + col (the JAX sparse channel's scatter of -1,
+    ``mode="drop"``: an entry past the batch, the sentinel among them, is
+    dropped), or none."""
+    codes = unpack_2bit(pcodes, nmask)[:, :lproc]
+    if nidx is None:
+        return codes
+    # one slot past the codes takes the dropped entries: no host sync
+    n = codes.numel()
+    flat = torch.cat([codes.reshape(-1), codes.new_zeros(1)])
+    flat.index_fill_(0, as_u32(nidx).clamp(max=n), -1)
+    return flat[:n].view(codes.shape)
+
+
 def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
                        canon: bool, arr: ProbeArrays, want_idx: bool,
-                       positions=None):
-    """Plain torch K1: unpack_2bit -> lproc slice -> emissions at W = 1
+                       positions=None, nidx=None):
+    """Plain torch K1: unpack_2bit -> lproc slice (-> the sparse list's Ns,
+    ``nidx``, in place of ``nmask``'s: ``unpack_n``) -> emissions at W = 1
     (unwindowed, or spaced at the k offsets ``positions``) -> probe_slots
     -> (hit, valid, cidx int32, oidx int32).  cidx is the compact taxonomy
     index (low half of the packed value); oidx the dictionary index
     (``want_idx``) or the original taxid (high half); both are 0 where
     there is no hit."""
-    codes = unpack_2bit(pcodes, nmask)[:, :lproc]
+    codes = unpack_n(pcodes, nmask, lproc, nidx)
     em = minimizers_plain(codes, lengths, k, 1, canon, positions=positions)
     packed, found, sel = probe_slots(em.values, arr, want_idx=True)
     hit = em.mask & found
@@ -167,31 +189,58 @@ def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
 
 
 def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
-                 arr: ProbeArrays, want_idx: bool, positions=None):
+                 arr: ProbeArrays, want_idx: bool, positions=None,
+                 nidx=None):
     """K1 (``csrc/encode_probe.cu``): see ``encode_probe_plain``, which
     serves CPU tensors.  pcodes (B, w16) int32, nmask (B, nmw) int32 or
     None, lengths (B,) int32; outputs (B, P) with P = lproc - c + 1, c the
     seed's span (k when ``positions`` is None).  A spaced seed runs the
     kernel's second entry point, and an image of a row range (a psum-route
     rank's, ``ProbeArrays.rows``) its bucket-range instantiation, contiguous
-    or spaced (counted in ``encode_probe.variants``)."""
+    or spaced.  ``nidx`` (cap,) int32, the sparse channel's flat N
+    positions sorted ascending and padded with ``N_SENTINEL``, replaces
+    ``nmask`` in the sparse instantiation, contiguous or spaced, of a whole
+    table; it takes B * lproc <= ``N_SENTINEL``.  Each launch is counted
+    in ``encode_probe.variants``."""
     if positions is not None and canon:
         raise ValueError("a spaced seed is never canonicalized")
+    if nidx is not None and nmask is not None:
+        raise ValueError("encode_probe: an N mask or a sparse list, not both")
     if pcodes.device.type == "cpu":
         return encode_probe_plain(pcodes, nmask, lengths, lproc, k, canon,
-                                  arr, want_idx, positions)
+                                  arr, want_idx, positions, nidx)
     if pcodes.device.type != "cuda":
         raise ValueError(f"encode_probe: no kernel for device {pcodes.device}")
     dev = pcodes.device
     B, w16 = pcodes.shape
     nmw, P, pos = _k1_args(pcodes, nmask, lengths, lproc, k, positions)
     arr.check(dev, ranged=True)
+    if nidx is not None:
+        kernels.check(nidx, "nidx", torch.int32, dev)
+        if nidx.dim() != 1:
+            raise ValueError(f"nidx: shape {tuple(nidx.shape)}, a list "
+                             "expected")
+        if B * lproc > N_SENTINEL:
+            raise ValueError(f"nidx: B * lproc = {B * lproc} flat positions "
+                             "reach the sentinel; ship the N mask")
+        if arr.rows:
+            raise ValueError("nidx: the bucket-range instantiation takes the "
+                             "N mask")
     hit = torch.empty((B, P), dtype=torch.bool, device=dev)
     valid = torch.empty((B, P), dtype=torch.bool, device=dev)
     cidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     oidx = torch.empty((B, P), dtype=torch.int32, device=dev)
     if B * P:
-        if arr.rows:
+        if nidx is not None:
+            kernels.launch(
+                "bk_encode_probe_sparse", dev, pcodes.data_ptr(), w16,
+                nidx.data_ptr(), nidx.numel(), lengths.data_ptr(), B, P, k,
+                int(canon), int(pos is not None), pos, arr.slots.data_ptr(),
+                arr.lgnb, arr.vbits, arr.vals.data_ptr(), arr.vals.numel(),
+                int(arr.inline), int(want_idx), hit.data_ptr(),
+                valid.data_ptr(), cidx.data_ptr(), oidx.data_ptr(),
+            )
+        elif arr.rows:
             kernels.launch(
                 "bk_encode_probe_range", dev, pcodes.data_ptr(), w16,
                 kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
@@ -222,6 +271,8 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         variant = "contiguous" if positions is None else "spaced"
         if arr.rows:
             variant = "range" if positions is None else "spaced range"
+        elif nidx is not None:
+            variant = "sparse" if positions is None else "spaced sparse"
         _count(variant)
     return hit, valid, cidx, oidx
 
@@ -409,6 +460,56 @@ step_outputs.launches = 0
 
 # -- the classifier -----------------------------------------------------------------
 
+def bucket_rows(n: int, mult: int = 1) -> int:
+    """The JAX package's padded batch: n rounded up to a power of two of
+    at least 256 (``_bucket_batch``), then to a multiple of ``mult`` (the
+    paired or mesh multiple)."""
+    b = 256
+    while b < n:
+        b <<= 1
+    return -(-b // mult) * mult
+
+
+def sparse_cap(rows: int) -> int:
+    """The longest sparse-N list a batch of ``rows`` padded rows ships."""
+    return max(64, rows // 32)
+
+
+def n_channel(n_inread: int, cap: int, rows: int, lproc: int,
+              sparse_ok: bool = True, limit: int = N_SENTINEL) -> str:
+    """The channel of a batch's in-read Ns, as the JAX ``_prepare_batch``
+    picks it: "none" without one, "sparse" for at most ``cap`` of them
+    where the classifier takes the list (``sparse_ok``), else "mask".  A
+    batch of ``rows`` x ``lproc`` flat positions past ``limit`` takes the
+    mask: there a position could equal the sentinel, which the JAX
+    package does not guard against."""
+    if n_inread == 0:
+        return "none"
+    if sparse_ok and n_inread <= cap and rows * lproc <= limit:
+        return "sparse"
+    return "mask"
+
+
+class Prep(NamedTuple):
+    """A batch packed on the host (pinned on CUDA): the 2-bit words, the
+    N channel's array (the mask, the sparse list or None) and its name,
+    the lengths, and the processing width."""
+
+    pcodes: torch.Tensor
+    naux: Optional[torch.Tensor]
+    lengths: torch.Tensor
+    lproc: int
+    channel: str
+
+    @property
+    def nmask(self) -> Optional[torch.Tensor]:
+        return self.naux if self.channel == "mask" else None
+
+    @property
+    def nidx(self) -> Optional[torch.Tensor]:
+        return self.naux if self.channel == "sparse" else None
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -504,14 +605,22 @@ class Classifier:
         self.n_unclassified = 0
 
     # -- one batch -----------------------------------------------------------
+    def _sparse_n_ok(self) -> bool:
+        """Whether a batch may ship its in-read Ns as the sparse list of
+        batch-global flat positions (the sharded classifier, whose ranks
+        take blocks of rows, overrides this)."""
+        return True
+
     def _prepare_batch(self, batch: fastx.ReadBatch, paired: bool = False,
-                       lproc: Optional[int] = None):
+                       lproc: Optional[int] = None) -> Prep:
         """Host half: 2-bit pack the batch through the host C++ packer
-        into (pinned, on CUDA) host tensors.  The processing width lproc
-        is the batch's true max read length rounded to Lp/16 granularity
-        (>= 8), so the probe runs at P = lproc - k + 1 positions (or the
-        ``lproc`` given, the sharded classifier's raw step: the codes'
-        width)."""
+        into (pinned, on CUDA) host tensors, with the N channel of
+        ``n_channel``: the sparse list holds at most ``sparse_cap`` of the
+        JAX package's padded rows (``bucket_rows``).  The processing width
+        lproc is the batch's true max read length rounded to Lp/16
+        granularity (>= 8), so the probe runs at P = lproc - k + 1
+        positions (or the ``lproc`` given, the sharded classifier's raw
+        step: the codes' width)."""
         n = len(batch.codes)
         if paired and n % 2:
             raise ValueError("a paired batch holds whole mate pairs")
@@ -523,29 +632,37 @@ class Classifier:
             lproc = min(Lp, max(-(-maxlen // g) * g, 8))
         w16 = (lproc + 15) // 16
         nmw = (w16 + 1) // 2
+        rows = bucket_rows(n, self._batch_multiple(paired))
+        cap = sparse_cap(rows)
         codes = np.ascontiguousarray(batch.codes, dtype=np.int8)
         lengths = np.ascontiguousarray(batch.lengths, dtype=np.int32)
         pcodes = np.empty((n, w16), dtype=np.uint32)
         nmask = np.empty((n, nmw), dtype=np.uint32)
-        nidx = np.empty(1, dtype=np.uint32)  # the sparse-N list is unused
+        nidx = np.empty(cap, dtype=np.uint32)
         n_inread = get_lib().btpu_pack_batch(
             codes.ctypes.data, n, L, lengths.ctypes.data, n, w16, lproc,
-            pcodes.ctypes.data, nmask.ctypes.data, nmw, nidx.ctypes.data, 0,
+            pcodes.ctypes.data, nmask.ctypes.data, nmw, nidx.ctypes.data, cap,
         )
+        channel = n_channel(n_inread, cap, rows, lproc, self._sparse_n_ok())
         pin = self.device.type == "cuda"
 
         def host(a):
             t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
             return t.pin_memory() if pin else t
 
-        # the N bitmask ships only when some read holds an ambiguous base
-        return (host(pcodes), host(nmask) if n_inread else None,
-                host(lengths), lproc)
+        naux = {"none": None, "sparse": nidx, "mask": nmask}[channel]
+        return Prep(host(pcodes), None if naux is None else host(naux),
+                    host(lengths), lproc, channel)
 
-    def _dispatch_prepared(self, prep, paired: bool = False):
+    def _batch_multiple(self, paired: bool) -> int:
+        """The row multiple of the JAX package's padded batch (the sharded
+        classifier's: its ranks')."""
+        return 2 if paired else 1
+
+    def _dispatch_prepared(self, prep: Prep, paired: bool = False):
         """Device half: upload, run K1 -> K2 -> K3 on the current stream,
         and start the copy of the compact matrix to pinned host memory."""
-        pcodes, nmask, lengths, lproc = prep
+        lproc = prep.lproc
         dev = self.device
         maxr = self.max_runs
         dict_size = None if self._uniq_host is None else len(self._uniq_host)
@@ -554,9 +671,9 @@ class Classifier:
             return None if t is None else t.to(dev, non_blocking=True)
 
         hit, valid, cidx, oidx = encode_probe(
-            up(pcodes), up(nmask), up(lengths), lproc, self.k, self.canon,
-            self.arr, want_idx=dict_size is not None,
-            positions=self.positions,
+            up(prep.pcodes), up(prep.nmask), up(prep.lengths), lproc, self.k,
+            self.canon, self.arr, want_idx=dict_size is not None,
+            positions=self.positions, nidx=up(prep.nidx),
         )
         valid1 = valid.sum(dim=-1, dtype=torch.int32)
         if paired:

@@ -12,7 +12,7 @@ carried in an ``int64`` tensor with the same bits:
 
 ``popcount64`` and ``nuccount`` (bitops.py:60,69 there) are wrappers of
 the CUDA kernel KS4 (``csrc/bitmix.cu``, one elementwise pass, which
-``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` share through
+``core/hashes.py``'s mixes, inverse mixes and rotates share through
 ``bitmix``); their plain torch versions serve CPU tensors.
 """
 
@@ -85,12 +85,13 @@ def kmer_mask_bits(k: int) -> int:
 
 
 # KS4's modes (csrc/bitmix.cu)
-BITMIX_MODES = {"wang_hash": 0, "khash_int64_hash": 1, "popcount64": 2}
+BITMIX_MODES = {"wang_hash": 0, "khash_int64_hash": 1, "popcount64": 2,
+                "frev64_inv": 4, "wang_hash_inv": 5, "rotl": 6}
 
 
-def bitmix(x: torch.Tensor, mode: str, plain) -> torch.Tensor:
+def bitmix(x: torch.Tensor, mode: str, plain, param: int = 0) -> torch.Tensor:
     """KS4 in ``mode`` on an int64 tensor of any shape, or ``plain(x)`` for
-    a CPU tensor."""
+    a CPU tensor; ``param`` is the rotate's r (0 <= r < 64)."""
     if x.device.type == "cpu":
         return plain(x)
     if x.device.type != "cuda":
@@ -98,8 +99,12 @@ def bitmix(x: torch.Tensor, mode: str, plain) -> torch.Tensor:
     kernels.check(x, "x", torch.int64, x.device)
     out = torch.empty_like(x)
     if x.numel():
-        kernels.launch("bk_bitmix", x.device, x.data_ptr(), x.numel(),
-                       BITMIX_MODES[mode], out.data_ptr())
+        if mode == "rotl":  # the one mode with a parameter: its own entry
+            kernels.launch("bk_rotl", x.device, x.data_ptr(), x.numel(),
+                           param, out.data_ptr())
+        else:
+            kernels.launch("bk_bitmix", x.device, x.data_ptr(), x.numel(),
+                           BITMIX_MODES[mode], out.data_ptr())
         bitmix.launches += 1
         bitmix.variants[mode] = bitmix.variants.get(mode, 0) + 1
     return out

@@ -1,18 +1,23 @@
 // KS4 bitmix: one elementwise pass over int64-held u64 values, with a mode
-// for each of wang_hash, khash_int64_hash and popcount64, and a nuccount
-// entry that writes the four base counts of a packed 2-bit k-mer.  KS5 is
-// its owner mode (entry bk_shard_owner): the hash-prefix shard of a key,
-// ((splitmix64(key) >> 32) * ndb) >> 32 as an int32, with probe.cuh's
-// splitmix64.
+// for each of wang_hash, khash_int64_hash, popcount64, the inverse mixes
+// frev64_inv and wang_hash_inv, and a left rotate by a parameter r (entry
+// bk_rotl), and a nuccount entry that writes the four base counts of a
+// packed 2-bit k-mer.  KS5 is its owner mode (entry bk_shard_owner): the
+// hash-prefix shard of a key, ((splitmix64(key) >> 32) * ndb) >> 32 as an
+// int32, with probe.cuh's splitmix64.
 //
 // Replaces bonsai_tpu/core/hashes.py wang_hash (:58), khash_int64_hash
-// (:75), bonsai_tpu/core/bitops.py popcount64 (:60), nuccount (:69) and
-// bonsai_tpu/db/table.py shard_owner (:413): jnp elementwise functions
-// that XLA lowers to paired 32-bit VPU ops.
+// (:75), frev64_inv (:48), wang_hash_inv (:96), lrot and rrot (:123,128;
+// both the rotate mode), bonsai_tpu/core/bitops.py popcount64 (:60),
+// nuccount (:69) and bonsai_tpu/db/table.py shard_owner (:413): jnp (or
+// dual numpy/jnp) elementwise functions that XLA lowers to paired 32-bit
+// VPU ops.
 //
 // What bounds it on an H100: bytes.  A value is read once and 8 B (or
 // four 8-B counts, or a 4-B owner) written once; the mixes are a dozen
-// integer operations and __popcll one.  A thread takes 4 values of a
+// integer operations and __popcll one (the inverse of wang_hash two
+// dozen).  A shift of a u64 by 64 is undefined in C++, so the rotate by
+// r = 0 returns the value as it is.  A thread takes 4 values of a
 // grid-stride loop, so loads are coalesced and a block has several in
 // flight.  The owner's product wraps mod 2^64 as the u64 one does; below
 // ndb = 2^32 it never wraps.
@@ -34,20 +39,57 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 
-enum Mode { kWang = 0, kKhash = 1, kPopcount = 2, kOwner = 3 };
+enum Mode {
+  kWang = 0, kKhash = 1, kPopcount = 2, kOwner = 3, kFrevInv = 4,
+  kWangInv = 5, kRotl = 6
+};
 
+// The inverse of frev64 (hashes.py:39-55): xor, rotate right by 31,
+// multiply by the inverse of 0x9A98567ED20C127D mod 2^64, xor.
+__device__ __forceinline__ uint64_t frev64_inv(uint64_t x) {
+  x ^= 0x691A9D706391077Aull;
+  x = (x >> 31) | (x << 33);
+  x *= 0x7462E4A5CD5B76D5ull;
+  return x ^ 0x533F8C2151B20F97ull;
+}
+
+// The inverse of wang_hash: irving_inv_hash (hash.h:94-120;
+// hashes.py:96-120), wrapping arithmetic on u64.
+__device__ __forceinline__ uint64_t wang_hash_inv(uint64_t key) {
+  uint64_t tmp = key - (key << 31);
+  key = key - (tmp << 31);
+  tmp = key ^ (key >> 28);
+  key = key ^ (tmp >> 28);
+  key *= 14933078535860113213ull;
+  tmp = key ^ (key >> 14);
+  tmp = key ^ (tmp >> 14);
+  tmp = key ^ (tmp >> 14);
+  key = key ^ (tmp >> 14);
+  key *= 15244667743933553977ull;
+  tmp = key ^ (key >> 24);
+  key = key ^ (tmp >> 24);
+  tmp = ~key;
+  tmp = ~(key - (tmp << 21));
+  tmp = ~(key - (tmp << 21));
+  return ~(key - (tmp << 21));
+}
+
+// p: the owner mode's ndb, or the rotate's r (0 <= r < 64)
 template <int kMode>
-__device__ __forceinline__ uint64_t mix(uint64_t x, uint64_t ndb) {
+__device__ __forceinline__ uint64_t mix(uint64_t x, uint64_t p) {
   if (kMode == kWang) return bk::wang_hash(x);
   if (kMode == kKhash) return bk::khash_int64_hash(x);
-  if (kMode == kOwner) return ((bk::splitmix64(x) >> 32) * ndb) >> 32;
+  if (kMode == kOwner) return ((bk::splitmix64(x) >> 32) * p) >> 32;
+  if (kMode == kFrevInv) return frev64_inv(x);
+  if (kMode == kWangInv) return wang_hash_inv(x);
+  if (kMode == kRotl) return p ? (x << p) | (x >> (64 - p)) : x;
   return (uint64_t)__popcll(x);
 }
 
 // out[i] = mix(in[i]) as an Out (u64, or the owner's int32)
 template <int kMode, typename Out>
 __global__ void __launch_bounds__(kThreads)
-    bitmix(const uint64_t* __restrict__ in, int64_t n, uint64_t ndb,
+    bitmix(const uint64_t* __restrict__ in, int64_t n, uint64_t p,
            Out* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t base = (int64_t)blockIdx.x * kThreads * kPerThread +
@@ -62,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kPerThread; ++r) {
       const int64_t i = base + (int64_t)r * kThreads;
-      if (i < n) out[i] = (Out)mix<kMode>(v[r], ndb);
+      if (i < n) out[i] = (Out)mix<kMode>(v[r], p);
     }
   }
 }
@@ -131,21 +173,39 @@ unsigned grid(int64_t n, int64_t per) {
 }  // namespace
 
 // in (n,) int64-held u64 -> out (n,) int64: mode 0 wang_hash, 1
-// khash_int64_hash (its u32 in the low half), 2 popcount64.
+// khash_int64_hash (its u32 in the low half), 2 popcount64, 4 frev64_inv,
+// 5 wang_hash_inv.
 extern "C" int bk_bitmix(const void* in, int64_t n, int mode, void* out,
                          void* stream) {
-  if (n < 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (n < 0 || mode < 0 || mode > kWangInv || mode == kOwner)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   const unsigned g = grid(n, kPerThread);
   const uint64_t* i = (const uint64_t*)in;
   uint64_t* o = (uint64_t*)out;
-  if (mode == kWang)
-    bitmix<kWang><<<g, kThreads, 0, s>>>(i, n, 0, o);
-  else if (mode == kKhash)
-    bitmix<kKhash><<<g, kThreads, 0, s>>>(i, n, 0, o);
-  else
-    bitmix<kPopcount><<<g, kThreads, 0, s>>>(i, n, 0, o);
+  switch (mode) {
+    case kWang: bitmix<kWang><<<g, kThreads, 0, s>>>(i, n, 0, o); break;
+    case kKhash: bitmix<kKhash><<<g, kThreads, 0, s>>>(i, n, 0, o); break;
+    case kPopcount:
+      bitmix<kPopcount><<<g, kThreads, 0, s>>>(i, n, 0, o);
+      break;
+    case kFrevInv:
+      bitmix<kFrevInv><<<g, kThreads, 0, s>>>(i, n, 0, o);
+      break;
+    default: bitmix<kWangInv><<<g, kThreads, 0, s>>>(i, n, 0, o);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The rotate mode (6): in (n,) int64-held u64 rotated left by r, 0 <= r <
+// 64 -> out (n,) int64.
+extern "C" int bk_rotl(const void* in, int64_t n, int r, void* out,
+                       void* stream) {
+  if (n < 0 || r < 0 || r > 63) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  bitmix<kRotl><<<grid(n, kPerThread), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)in, n, (uint64_t)r, (uint64_t*)out);
   return (int)cudaGetLastError();
 }
 

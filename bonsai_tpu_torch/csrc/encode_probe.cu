@@ -48,6 +48,26 @@
 // memory; the contiguous instantiation reads none of them, so it is the
 // kernel it was before the template.
 //
+// The sparse instantiation (entry bk_encode_probe_sparse, contiguous or
+// spaced) takes the JAX step's sparse-N channel (pipeline.py:508-520):
+// no N mask, but a list of the batch's in-read Ns as flat positions
+// row * lproc + col, sorted ascending and padded with 0x7FFFFFFF, which
+// the JAX step scatters as -1 into the unpacked codes (an entry past the
+// batch dropped).  Here the codes never exist: a block turns its first
+// and last (read, position) into flat bounds [lo, hi) (hi = the last
+// window's end), finds the entries inside by a search of the whole block
+// (a round a thread samples one entry: 1-2 rounds for a list of a few
+// hundred), and stages them in shared memory (past kStage of them the
+// block reads them where they are).  Usually there are none, and a
+// thread tests nothing.  Else a thread searches the staged entries for
+// the first at or past its window's start f; the position is invalid if
+// one lies in [f, f + c) and, for a spaced seed, on one of its offsets
+// (an N on a gap does not count).  The list strides by lproc, the
+// threads by P = lproc - c + 1; an N past a read's length is never
+// listed, and validity there comes from the lengths as before.  The
+// list's entries are below B * lproc <= 0x7FFFFFFF (the wrapper checks),
+// so the sentinel lies past every block's bounds.
+
 // Two more instantiations serve the sharded classifier
 // (bonsai_tpu_torch/parallel/sharded.py):
 //   encode-only (entry bk_encode_only): the a2a route's encode
@@ -69,6 +89,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kStage = 256;  // sparse-N entries a block stages
 constexpr uint64_t kBSalt = 0xA24BAED4963EE407ULL;
 
 __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
@@ -93,7 +114,49 @@ __device__ __forceinline__ uint64_t window96(uint32_t w0, uint32_t w1,
   return (lo >> s) | (((uint64_t)w2 << 32) << (32 - s));
 }
 
-enum Mode { kProbe = 0, kRange = 1, kEncode = 2 };
+enum Mode { kProbe = 0, kRange = 1, kEncode = 2, kSparse = 3 };
+
+// The first index of the sorted a[lo, hi) whose entry is >= key (hi if
+// none), the whole block together: a round, thread t samples entry
+// lo + t * step, and the count below key narrows the range kThreads-fold.
+// Every thread of the block calls it with the same arguments.
+__device__ __forceinline__ int64_t block_lower_bound(const uint32_t* a,
+                                                     int64_t lo, int64_t hi,
+                                                     uint64_t key) {
+  while (lo < hi) {
+    const int64_t step = (hi - lo + kThreads - 1) / kThreads;
+    const int64_t j = lo + (int64_t)threadIdx.x * step;
+    const int below = __syncthreads_count(j < hi && __ldg(a + j) < key);
+    if (below == 0) return lo;
+    const int64_t top = lo + (int64_t)below * step;
+    lo = top - step + 1;
+    hi = top < hi ? top : hi;
+  }
+  return lo;
+}
+
+// Whether a listed N falls in the window [f, f + c) of a position, on one
+// of the seed's offsets for a spaced seed (ss non-null); list[0, m) sorted.
+__device__ __forceinline__ bool listed_n(const uint32_t* list, int m,
+                                         uint64_t f, int c,
+                                         const bk::Spacing* ss) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] < f) lo = mid + 1; else hi = mid;
+  }
+  for (int j = lo; j < m && list[j] < f + c; ++j) {
+    if (ss == nullptr) return true;
+    const int d = (int)(list[j] - f);
+    if (ss->span <= 32) {
+      if ((ss->nbits_lo >> d) & 1) return true;
+    } else {
+      for (int t = 0; t < ss->k; ++t)
+        if (ss->pos[t] == d) return true;
+    }
+  }
+  return false;
+}
 
 template <bool kSpaced, int kMode>
 __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
@@ -105,13 +168,38 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     int want_idx, bool* __restrict__ hit, bool* __restrict__ valid,
     int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx,
     bk::Spacing sp, int64_t row0, int64_t rows,
-    int64_t* __restrict__ kmers_out) {
+    int64_t* __restrict__ kmers_out, const uint32_t* __restrict__ nidx,
+    int64_t n_nidx) {
   const bk::Spacing* ss = nullptr;
   if constexpr (kSpaced) {
     __shared__ bk::Spacing s_sp;
     bk::stage_spacing(sp, &s_sp, threadIdx.x);
     __syncthreads();
     ss = &s_sp;
+  }
+  // the sparse list's entries inside the block's flat bounds
+  const uint32_t* list = nullptr;
+  int n_list = 0;
+  if constexpr (kMode == kSparse) {
+    __shared__ uint32_t s_list[kStage];
+    const int c = kSpaced ? sp.span : k;
+    const int64_t lproc = P + c - 1;
+    const int64_t i0 = (int64_t)blockIdx.x * kThreads;
+    const int64_t i1 = (i0 + kThreads < n ? i0 + kThreads : n) - 1;
+    const int64_t b0 = i0 / P, b1 = i1 / P;
+    const uint64_t lo = (uint64_t)(b0 * lproc + (i0 - b0 * P));
+    const uint64_t hi = (uint64_t)(b1 * lproc + (i1 - b1 * P) + c);
+    const int64_t s0 = block_lower_bound(nidx, 0, n_nidx, lo);
+    const int64_t m = block_lower_bound(nidx, s0, n_nidx, hi) - s0;
+    if (m > 0 && m <= kStage) {
+      for (int j = threadIdx.x; j < m; j += kThreads)
+        s_list[j] = __ldg(nidx + s0 + j);
+      __syncthreads();
+      list = s_list;
+    } else if (m > kStage) {
+      list = nidx + s0;
+    }
+    n_list = (int)m;
   }
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
@@ -179,6 +267,13 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     // in-length validity: a read shorter than k has no valid position
     v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
   }
+  if constexpr (kMode == kSparse) {
+    if (v && n_list > 0) {
+      const int64_t c = kSpaced ? ss->span : k;
+      v = !listed_n(list, n_list, (uint64_t)(b * (P + c - 1) + p), (int)c,
+                    ss);
+    }
+  }
 
   if constexpr (kMode == kEncode) {
     kmers_out[i] = v ? (int64_t)kmer : 0;
@@ -242,7 +337,8 @@ int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
            int64_t n_vals, int is_inline, int want_idx, void* hit,
            void* valid, void* cidx, void* oidx, const bk::Spacing& sp,
            void* stream, int64_t row0 = 0, int64_t rows = 0,
-           void* kmers = nullptr) {
+           void* kmers = nullptr, const void* nidx = nullptr,
+           int64_t n_nidx = 0) {
   const int64_t n = B * P;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   encode_probe_kernel<kSpaced, kMode>
@@ -251,7 +347,7 @@ int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
           (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots,
           lgnb, vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx,
           (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp,
-          row0, rows, (int64_t*)kmers);
+          row0, rows, (int64_t*)kmers, (const uint32_t*)nidx, n_nidx);
   return (int)cudaGetLastError();
 }
 
@@ -323,4 +419,29 @@ extern "C" int bk_encode_probe_range(
                                canon, slots, lgnb, vbits, vals, n_vals,
                                is_inline, want_idx, hit, valid, cidx, oidx,
                                bk::Spacing{}, stream, row0, rows);
+}
+
+// The sparse-N channel: ``nidx`` (n_nidx,) u32 flat positions row * lproc
+// + col of the in-read Ns, sorted ascending, padded with 0x7FFFFFFF, in
+// place of the N mask; B * lproc <= 0x7FFFFFFF.  Otherwise as
+// bk_encode_probe (and bk_encode_probe_spaced with ``spaced``).
+extern "C" int bk_encode_probe_sparse(
+    const void* pcodes, int64_t w16, const void* nidx, int64_t n_nidx,
+    const void* lengths, int64_t B, int64_t P, int k, int canon, int spaced,
+    const int32_t* positions, const void* slots, int lgnb, int vbits,
+    const void* vals, int64_t n_vals, int is_inline, int want_idx, void* hit,
+    void* valid, void* cidx, void* oidx, void* stream) {
+  const int64_t c = spaced ? positions[k - 1] + 1 : k;
+  if (n_nidx < 0 || B * (P + c - 1) > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  if (spaced)
+    return launch<true, kSparse>(
+        pcodes, w16, nullptr, 0, lengths, B, P, k, 0, slots, lgnb, vbits,
+        vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
+        bk::make_spacing(positions, k), stream, 0, 0, nullptr, nidx, n_nidx);
+  return launch<false, kSparse>(pcodes, w16, nullptr, 0, lengths, B, P, k,
+                                canon, slots, lgnb, vbits, vals, n_vals,
+                                is_inline, want_idx, hit, valid, cidx, oidx,
+                                bk::Spacing{}, stream, 0, 0, nullptr, nidx,
+                                n_nidx);
 }

@@ -14,7 +14,8 @@ wrapper allocates.
 The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``encode_only`` (K1's two instantiations of the sharded classifier: the
-bucket range is ``encode_probe`` of a ranged image),
+bucket range is ``encode_probe`` of a ranged image; the sparse-N channel
+is ``encode_probe`` with a list),
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
 ``compacted_minimizers`` and ``compacted_stream``, ``core/rolling.py``
 ``cyclic_hashes``, ``core/encode128.py`` ``pack_kmers128`` and ``rc128``,
@@ -22,7 +23,8 @@ bucket range is ``encode_probe`` of a ranged image),
 ``db/build_device.py`` ``sort_unique``, ``merge_fold`` and
 ``key_range``, ``parallel/route.py`` ``route_frame``, ``route_probe`` and
 ``route_collect`` (KD1),
-``core/hashes.py`` ``wang_hash`` and ``khash_int64_hash`` and
+``core/hashes.py`` ``wang_hash``, ``khash_int64_hash``,
+``frev64_inv``, ``wang_hash_inv`` and ``rotl`` and
 ``core/bitops.py`` ``popcount64`` and ``nuccount`` (one elementwise
 kernel), ``sketch/hll.py`` ``hll_fill``, ``sketch/setsketch.py``
 ``csetsketch_update``, ``sketch/shs.py`` ``sort_count``, and
@@ -63,6 +65,11 @@ _SIGS = {
     # inline, want_idx, hit, valid, cidx, oidx, stream
     "bk_encode_probe_spaced": [P, I64, P, I64, P, I64, I64, I32, P, P, I32,
                                I32, P, I64, I32, I32, P, P, P, P, P],
+    # the sparse-N channel: pcodes, w16, nidx, n_nidx, lengths, B, P, k,
+    # canon, spaced, positions (host int32[32] or null), slots, lgnb,
+    # vbits, vals, n_vals, inline, want_idx, hit, valid, cidx, oidx, stream
+    "bk_encode_probe_sparse": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P,
+                               P, I32, I32, P, I64, I32, I32, P, P, P, P, P],
     # cidx, hit, R, W, tin, tout, depth, parent, lift, levels, n, tax_ids,
     # taxon, dedup, stream
     "bk_resolve": [P, P, I64, I64, P, P, P, P, P, I32, I32, P, P, I32, P],
@@ -118,9 +125,11 @@ _SIGS = {
                       P, P, I32, I32, P, P, P, P, P, P, P, P],
     # keys, emitted, E, out_keys, out_counts, n_out, scratch, stream
     "bk_sort_count": [P, P, I64, P, P, P, P, P],
-    # in, n, mode (0 wang_hash, 1 khash_int64_hash, 2 popcount64), out,
-    # stream
+    # in, n, mode (0 wang_hash, 1 khash_int64_hash, 2 popcount64, 4
+    # frev64_inv, 5 wang_hash_inv), out, stream
     "bk_bitmix": [P, I64, I32, P, P],
+    # in, n, r, out, stream
+    "bk_rotl": [P, I64, I32, P, P],
     # keys, n, ndb, owners (int32), stream
     "bk_shard_owner": [P, I64, I64, P, P],
     # codes, B, L, k, canon, hi, lo, invalid, stream

@@ -196,6 +196,12 @@ class ShardedClassifier(Classifier):
         ranks = self.ndp * self.ndb if self._a2a else self.ndp
         return ranks * 2 if paired else ranks
 
+    def _sparse_n_ok(self) -> bool:
+        """Never the sparse-N list: its flat positions are batch-global,
+        and the ranks take blocks of the batch's rows (the JAX package's
+        ShardedClassifier._sparse_n_ok)."""
+        return False
+
     def _block(self, r: int) -> int:
         """The block of the batch's rows that rank r holds."""
         if self._a2a:
@@ -212,7 +218,7 @@ class ShardedClassifier(Classifier):
         """Every local rank's step on its block of the packed batch ->
         {rank: (taxon, oidx, hit, valid, valid1)} (compact=False) or
         {rank: (compact, full)}."""
-        lproc = prep[3]
+        lproc = prep.lproc
         want_idx = compact and self._uniq_host is not None
         ups = self._uploads(prep)
         if self._a2a:
@@ -245,7 +251,9 @@ class ShardedClassifier(Classifier):
     def _uploads(self, prep):
         """Each local rank's block of the packed batch on its device ->
         {rank: (codes, nmask, lengths)}."""
-        pcodes, nmask, lengths, _ = prep
+        if prep.channel == "sparse":
+            raise ValueError("the sharded classifier takes the N mask")
+        pcodes, nmask, lengths = prep.pcodes, prep.nmask, prep.lengths
         bs = pcodes.shape[0] // self._batch_multiple(False)
         ups = {}
         for r in self.mesh.local_ranks:
@@ -401,7 +409,7 @@ class ShardedClassifier(Classifier):
                     events.append(ev)
         else:
             host = torch.cat(compacts)
-        return host, events, fulls, prep[3], maxr
+        return host, events, fulls, prep.lproc, maxr
 
     def _dispatch_batch(self, batch: fastx.ReadBatch, paired: bool = False):
         return self._dispatch_prepared(self._prepare_batch(batch, paired),
@@ -449,7 +457,7 @@ class ShardedClassifier(Classifier):
                 out = self._core(prep, is_paired, compact=True, maxr=maxr)
                 n = len(batch.names)
                 R = n // 2 if is_paired else n
-                per = prep[0].shape[0] // self._batch_multiple(False)
+                per = prep.pcodes.shape[0] // self._batch_multiple(False)
                 per = per // 2 if is_paired else per
                 pieces = []
                 for r in sorted(out, key=self._block):
@@ -466,7 +474,7 @@ class ShardedClassifier(Classifier):
                         sub, cm,
                         lambda f=full_t, m=r1 - r0: f[:m].cpu().numpy().view(
                             np.uint32),
-                        prep[3], maxr, is_paired, allow_bump=False)
+                        prep.lproc, maxr, is_paired, allow_bump=False)
                     text = out_mod.format_batch(
                         res, self.sp.c, emit_all=self.emit_all,
                         emit_kraken=self.emit_kraken,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.bitops import SIGN, as_keys
+from ..db.build_device import as_device
 
 
 def _set(a) -> torch.Tensor:
@@ -76,10 +77,11 @@ def pairwise_matrix(sets: Sequence, metric: str = "jaccard") -> np.ndarray:
 
 class Counter:
     """Hash multiset with histogram printing (count::Counter<T>,
-    counter.h:76+), on the values' device."""
+    counter.h:76+), on ``device``: "cuda" (the default; raises without a
+    card) or "cpu"."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = as_device(device)
         self._keys = torch.empty(0, dtype=torch.int64, device=self.device)
         self._counts = torch.empty(0, dtype=torch.int64, device=self.device)
 

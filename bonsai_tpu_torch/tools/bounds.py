@@ -56,11 +56,14 @@ def spaced_runs(positions) -> int:
 
 
 def bound_encode_probe(inputs, vals, out, runs: int = 0):
-    """K1: the packed reads, a 32-B slot row per ``k1_rows`` row, the
-    values, the outputs; two splitmix64 hashes (~40 int32 ops) per valid
-    position, and for a spaced seed of ``runs`` runs of consecutive
-    offsets its fold out of the position's window (a u64 shift, mask and
-    or a run, 4 int32 ops at the least) at every position."""
+    """K1: the packed reads (``inputs``: words, the N mask or, for the
+    sparse-N instantiation, the list of cap x 4 B, lengths), a 32-B slot
+    row per ``k1_rows`` row, the values, the outputs; two splitmix64
+    hashes (~40 int32 ops) per valid position, and for a spaced seed of
+    ``runs`` runs of consecutive offsets its fold out of the position's
+    window (a u64 shift, mask and or a run, 4 int32 ops at the least) at
+    every position.  The sparse list's block-wide search is a few
+    operations a block, under the probes' hashes."""
     return bound(nbytes(*inputs, vals) + 32 * k1_rows(out) + nbytes(*out),
                  40 * int(out[1].sum()) + 4 * runs * out[1].numel())
 

@@ -46,6 +46,11 @@ K1 ``encode_probe``, K2 ``resolve`` and K3 ``step_outputs`` on the first
 8192 reads of READS against the k = 31 database of the GENOMEs, built on
 the host (NAMEID maps their sequence names to taxids), in dictionary
 mode as ``classify`` runs them; the outputs of one kernel feed the next.
+K1 runs the batch in the mask channel, and in the sparse-N channel (a
+list of its in-read Ns; skipped for a parent without
+``bk_encode_probe_sparse``); after the parent cases the tree's sparse
+and mask instantiations are checked equal and timed against each other
+in turns.
 K1's spaced instantiation runs the same batch against the GENOMEs'
 -k 21 -S 0x16,1x4 database, built on the card.
 K1 runs twice more where its probes hit: the same batch on a table of
@@ -435,10 +440,11 @@ def resolve_cases(clf, a1, own, genome: str, dev, say=print):
     dtax = tree.device_arrays(dev)
     dn = int(np.unique(dc[dh]).size)
     dc, dh = torch.from_numpy(dc).to(dev), torch.from_numpy(dh).to(dev)
-    pc, nm, ln, lproc = clf._prepare_batch(long_reads(genome, DNA4.lut, rng))
-    lh, _, lc, _ = pl.encode_probe(pc.to(dev), None if nm is None else
-                                   nm.to(dev), ln.to(dev), lproc, clf.k,
-                                   clf.canon, clf.arr, True)
+    prep = _mask_only(clf)._prepare_batch(long_reads(genome, DNA4.lut, rng))
+    pc, nm, ln = (None if t is None else t.to(dev)
+                  for t in (prep.pcodes, prep.nmask, prep.lengths))
+    lh, _, lc, _ = pl.encode_probe(pc, nm, ln, prep.lproc, clf.k, clf.canon,
+                                   clf.arr, True)
     for what, c, h, t in (("ec batch, every position hit", cidx, hit, clf.tax),
                           ("deep tree", dc, dh, dtax),
                           ("long reads", lc, lh, clf.tax)):
@@ -463,9 +469,57 @@ def yardstick_ms(dev) -> float:
     return graph_ms(lambda: t.add_(1))
 
 
+def _mask_only(clf):
+    """``clf`` with ``_sparse_n_ok`` False: the same arrays, and a batch
+    with an in-read N ships the N mask."""
+    import copy
+
+    m = copy.copy(clf)
+    m._sparse_n_ok = lambda: False
+    return m
+
+
+def sparse_inputs(clf, batch, dev):
+    """K1's inputs for ``batch`` in the mask channel and in the sparse
+    one: (mask args, sparse args, the sparse list), on ``dev``."""
+    out = []
+    for prep in (_mask_only(clf)._prepare_batch(batch),
+                 clf._prepare_batch(batch)):
+        pc, nm, ln = (None if t is None else t.to(dev)
+                      for t in (prep.pcodes, prep.nmask, prep.lengths))
+        out.append(((pc, nm, ln, prep.lproc, clf.k, clf.canon, clf.arr,
+                     True), None if prep.nidx is None else prep.nidx.to(dev)))
+    (a1, _), (a1s, nidx) = out
+    if nidx is None:
+        raise ValueError("the batch does not take the sparse channel")
+    return a1, a1s, nidx
+
+
+def sparse_vs_mask(a1, a1s, nidx, say=print) -> dict:
+    """K1's sparse instantiation against its mask instantiation on the
+    same batch, in this process: the same output, then graph-replayed in
+    turns mask, sparse, sparse, mask."""
+    from ..classify import pipeline as pl
+
+    def mask():
+        return pl.encode_probe(*a1)
+
+    def sparse():
+        return pl.encode_probe(*a1s, nidx=nidx)
+
+    if not all(torch.equal(a, b) for a, b in zip(mask(), sparse())):
+        raise AssertionError("K1 sparse and K1 mask differ")
+    t = [graph_ms(f, ITERS) for f in (mask, sparse, sparse, mask)]
+    say(f"# encode_probe mask {t[0]:.4f} ms, sparse {t[1]:.4f} ms, sparse "
+        f"{t[2]:.4f} ms, mask {t[3]:.4f} ms (graph_ms; same output): sparse "
+        f"/ mask {(t[1] + t[2]) / (t[0] + t[3]):.4f}")
+    return {"mask_ms": [t[0], t[3]], "sparse_ms": [t[1], t[2]]}
+
+
 def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     """(name, call, timer) of K1, K2 and K3 on one HiSeq-sized batch, each
-    fed by the tree's own kernels' outputs."""
+    fed by the tree's own kernels' outputs, and K1's inputs in both N
+    channels (``sparse_inputs``)."""
     from ..classify import pipeline as pl
     from ..classify import resolve as rs
     from ..core.spacer import Spacer
@@ -478,11 +532,9 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     clf = pl.Classifier(db, tree, emit_all=True, device=dev)
     batch = next(iter(fastx.batch_reads(reads, DNA4.lut,
                                         batch_size=CLASSIFY_BATCH)))
-    pc, nm, ln, lproc = clf._prepare_batch(batch)
-    pc, ln = pc.to(dev), ln.to(dev)
-    nm = None if nm is None else nm.to(dev)
+    a1, a1n, nidx = sparse_inputs(clf, batch, dev)
+    pc, nm, ln, lproc = a1[:4]
     ds = len(clf._uniq_host)
-    a1 = (pc, nm, ln, lproc, clf.k, clf.canon, clf.arr, True)
     hit, valid, cidx, oidx = pl.encode_probe(*a1)
     valid1 = valid.sum(-1, dtype=torch.int32)
     taxon = rs.resolve(cidx, hit, clf.tax, clf._n_distinct)
@@ -504,6 +556,9 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     a1s = (pc, nm, ln, lproc, 21, False, sclf.arr, True, sclf.positions)
     return [
         (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
+        (f"encode_probe sparse {shape}",
+         lambda: pl.encode_probe(*a1n, nidx=nidx), graph_ms,
+         "bk_encode_probe_sparse"),
         (f"encode_probe -k 21 -S 0x16,1x4 B={hit.shape[0]}, P={lproc - 24}",
          lambda: pl.encode_probe(*a1s), graph_ms, "bk_encode_probe_spaced"),
         *probe_mix_cases(a1, own, rng, dev),
@@ -513,7 +568,7 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
         (f"step_outputs {shape}, maxr={clf.max_runs}",
          lambda: pl.step_outputs(taxon, oidx, hit, valid, valid1,
                                  clf.max_runs, ds), graph_ms),
-    ]
+    ], (a1, a1n, nidx)
 
 
 def _device_ms(fn, calls=5):
@@ -587,8 +642,9 @@ def main(argv=None) -> int:
     print(f"# {card}; torch {torch.__version__}")
     dev = torch.device("cuda", 0)
     if classify:
-        cases = classify_cases(*args[1:4], args[4:], dev)
+        cases, k1_in = classify_cases(*args[1:4], args[4:], dev)
         res = run(args[0], cases, CLASSIFY_SOURCES)
+        res["sparse_vs_mask"] = sparse_vs_mask(*k1_in)
         res["yardstick_ms"] = yardstick_ms(dev)
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
               f"graph replay: {res['yardstick_ms']:.4f} ms")

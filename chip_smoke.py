@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  HiSeq batches of 8192 reads against the ec k=31 table,
                  in-read Ns, reads shorter than k, paired rows, long reads
                  (P > 1024: resolve's block-per-read kernel), run-overflow
-                 rows and every compact layout for step_outputs; resolve
+                 rows and every compact layout for step_outputs; K1 in
+                 each batch's N channel, and where it is the sparse list
+                 also against K1's mask instantiation on the same reads
+                 (HiSeq 8192, paired, and with a list exactly cap = 256
+                 long, Ns at column 0, len - 1 and word edges); resolve
                  also on a taxonomy with a parent cycle under both tie
                  rules, on a 2^21-node taxonomy with lineages 25-40 deep
                  (tools/synthetic.py), and at 0, 1, 2 and one-taxon
@@ -20,13 +24,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. database    the ec k=31 database built by the port on the host; its
                  content digest must equal the golden manifest's; upload
   5. classify    Classifier.process_dataset on the HiSeq, MiSeq and
-                 ec_k12 sets: sha256 of the Kraken text must equal the
-                 manifest's; K1-K3 launched; paired golden through the CLI
+                 ec_k12 sets in batches of 8192 and of the CLI's 4096:
+                 sha256 of the Kraken text must equal the manifest's, and
+                 each batch's N channel (none, sparse, mask; printed) the
+                 JAX package's (SET_CHANNELS); K1 (mask or none, and
+                 sparse), K2, K3 launched; paired golden through the CLI
                  on the lex_k25 database
-  6. numbers     HiSeq stream reads/s, K1-K3 and plain-version times by
-                 CUDA-graph replay of captured calls, with the event
-                 timing of back-to-back wrapper calls beside them; K2
-                 again on the deep tree's rows; after phase 10, K1's
+  6. numbers     K1 (mask, and sparse), K2, K3 and plain-version times
+                 by CUDA-graph replay of captured calls, with the event
+                 timing of back-to-back wrapper calls beside them, K1 mask
+                 and sparse again in turns; the upload bytes a read of
+                 each N channel; K2 again on the deep tree's rows; the
+                 HiSeq stream's reads/s through the classifier (sparse)
+                 and through the same arrays with _sparse_n_ok False
+                 (mask), in turns sparse, mask, mask, sparse; after phase 10, K1's
                  slot rows at G1's random 32-B row rate (a yardstick,
                  not a bound: K1 reads its rows faster than G1)
   7. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
@@ -64,12 +75,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  KB1 (each instantiation), KB2-KB4 launched; seconds,
                  k-mers/s against the host build, peak device memory,
                  device busy share
- 5b. spaced classify  after phase 9, K1's spaced instantiation against its
-                 plain version on HiSeq batches against the spaced ec
-                 database of phase 9 (in-read Ns, short reads, pairs), then
-                 Classifier.process_dataset of the HiSeq set against it:
-                 sha256 of the Kraken text = the JAX Classifier's; K1
-                 (spaced) launched; K1 spaced and plain timed
+ 5b. spaced classify  after phase 9, K1's spaced instantiations (mask or
+                 none, and sparse) against their plain versions on HiSeq
+                 batches against the spaced ec database of phase 9
+                 (in-read Ns, short reads, pairs; sparse also against the
+                 mask instantiation), then Classifier.process_dataset of
+                 the HiSeq set against it: sha256 of the Kraken text = the
+                 JAX Classifier's, its batches in the JAX package's N
+                 channels (sparse); K1 (spaced sparse) launched; K1
+                 spaced and plain timed
  9c. hash-scored phase 2  after phase 5b: the ec phase-1 maps (-k 25 -t,
                  -k 25 -f, -C -k 25 -t, -k 21 -S 0x16,1x4 -t) built on the
                  card (digests = the JAX package's); KB5 lookup_scores and
@@ -127,15 +141,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                  cardinalities within 1e-9; distmat -k 31 exact and --hll
                  14 (KS1; each pair's union estimated alone); cmpshs of the
                  k = 31 .shs; KS4 (wang_hash, khash_int64_hash,
-                 popcount64, nuccount, gccount) on the K-12 31-mers; KS1-KS4
-                 launched; then each against its plain version on CPU
+                 popcount64, nuccount, gccount, and the library functions
+                 frev64_inv, wang_hash_inv, lrot 31, rrot 17) on the K-12
+                 31-mers (sha256 = the JAX package's); KS1-KS4, each KS4
+                 mode, launched; then each against its plain version on CPU
                  copies (exact, but KS2's registers within 2 ulp, the count
                  that differ printed): KS1 at p = 4, 14, 16, 17, 20 on both
                  paths with keys whose h << p is 0 and U64_MAX, KS2 at m =
                  1, 64, 4096 in each mode on an empty update, one element,
                  copies across chunks and all copies of one k-mer over a
                  chunk of 2^16 + 1, and on the K-12 stream, KS3 with runs
-                 past 65,535, bit 63 set, E = 0 and 1, KS4 at k = 1, 31, 32;
+                 past 65,535, bit 63 set, E = 0 and 1, KS4 at k = 1, 31, 32,
+                 its inverse mixes on the edges and through round trips,
+                 its rotate at r = 0, 1, 31, 32, 63 (lrot 64, rrot 65);
                  then each timed at the K-12 shape with its bound, KS3
                  beside torch.unique(return_counts=True)
  9f. formats     after phase 9e, the database formats and the encoders'
@@ -258,6 +276,17 @@ EC_DISCIPLINES = [
 # .process_dataset(HiSeq_accuracy.fa, out, batch_size=8192)
 HISEQ_SPACED_SHA256 = (
     "a12369f482cfbc432bf4beccf6d2784edddcd02ef8fae7e8944dad2eb76b97b5")
+# The in-read N channel of each batch of the kraken sets, as the JAX
+# package's Classifier picks it on the CPU: [Classifier._prepare_batch(b)
+# [4] for b in bonsai_tpu.io.fastx.batch_reads(<set's reads>, DNA4.lut,
+# batch_size=B)] at B = 8192 (phases 5, 5b and 6) and at the CLI's -c 4096
+SET_CHANNELS = {
+    8192: {"HiSeq": ["sparse", "sparse"], "MiSeq": ["mask", "sparse"],
+           "ec_k12": ["sparse", "sparse"]},
+    4096: {"HiSeq": ["sparse", "none", "sparse"],
+           "MiSeq": ["mask", "mask", "sparse"],
+           "ec_k12": ["sparse", "mask", "sparse"]},
+}
 # Content digests of the golden genomes' databases that no golden holds,
 # as the JAX package's CLI builds them (python -m bonsai_tpu build OUT
 # g_phix.fa g_phixmut.fa g_rand.fa FLAGS -T nodes.dmp -M nameidmap.txt;
@@ -590,6 +619,19 @@ SKETCH_BITMIX = {
         "54d9035c6e3b46c8f1e6a595a7ae018d28cafec4d26a4a9fd112f8bb6437651e",
 }
 SKETCH_K12_KMERS = 4554269
+# KS4's inverse mixes and rotates on the same K-12 31-mers: sha256 of the
+# bytes of bonsai_tpu.core.hashes.frev64_inv, wang_hash_inv, lrot(x, 31)
+# and rrot(x, 17) on the CPU
+SKETCH_INVERSES = {
+    "frev64_inv":
+        "8dc994f05edd2fd9e37221bbae7ff01f31f12e431cb3eeccb0f74e479a0a9942",
+    "wang_hash_inv":
+        "0df9f65fc261d6deec1fae961fea4eb324c819b766d98943e27d084032731dff",
+    "lrot 31":
+        "a08a98b7c4a32d8aabde527bf2ee6b23aaeb5b5defb9fe6ed72a12cf094bf62f",
+    "rrot 17":
+        "a1eaaa43eac71c7c897b3fa42bee2dd18fd112645aa1da05c932aa4d612ef614",
+}
 # run(["rolling-multk", *EC]) and run(["rolling-multk-sketch", *EC, "-z",
 # "1024"]): sha256 of stdout with EC's directory cut from each path, and
 # the second's cardinalities at full precision, in its order: per genome
@@ -792,6 +834,14 @@ KERNELS = {
                       "bonsai_tpu/parallel/sharded.py:1255"),
     "key_range": ("bonsai_tpu_torch/csrc/bitmix.cu",
                   "bonsai_tpu/db/build_device.py:568"),
+    "encode_probe_sparse": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                            "bonsai_tpu/classify/pipeline.py:508"),
+    "frev64_inv": ("bonsai_tpu_torch/csrc/bitmix.cu",
+                   "bonsai_tpu/core/hashes.py:48"),
+    "wang_hash_inv": ("bonsai_tpu_torch/csrc/bitmix.cu",
+                      "bonsai_tpu/core/hashes.py:96"),
+    "rotl": ("bonsai_tpu_torch/csrc/bitmix.cu",
+             "bonsai_tpu/core/hashes.py:123"),
 }
 # the rows of the sharded classifier and build (phase 9g): instantiations
 # of shared wrappers that only phase 9g launches
@@ -823,12 +873,17 @@ VARIANTS = {
     "compacted_minimizers_radix_shannon": ("compacted_minimizers",
                                            ("radix shannon",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
-    "encode_probe_spaced": ("encode_probe", ("spaced",)),
+    "encode_probe_sparse": ("encode_probe", ("sparse",)),
+    "encode_probe_spaced": ("encode_probe", ("spaced", "spaced sparse")),
     "encode_only": ("encode_probe", ("encode", "spaced encode")),
     "encode_probe_range": ("encode_probe", ("range", "spaced range")),
     "minimizers_sp": ("minimizers", ("sequence-parallel",)),
     "reverse_complement128": ("rc128", ("rc",)),
     "canonical128": ("rc128", ("canonical",)),
+    "bitmix": ("bitmix", ("wang_hash", "khash_int64_hash", "popcount64")),
+    "frev64_inv": ("bitmix", ("frev64_inv",)),
+    "wang_hash_inv": ("bitmix", ("wang_hash_inv",)),
+    "rotl": ("bitmix", ("rotl",)),
 }
 
 
@@ -934,6 +989,50 @@ def _cpu(t):
     return None if t is None else t.cpu()
 
 
+def _to(t, dev):
+    return None if t is None else t.to(dev)
+
+
+def _mask_only(clf):
+    """``clf`` with its hook ``_sparse_n_ok`` returning False (as the
+    sharded classifier's does): the same arrays, the N mask whenever a
+    batch holds an in-read N."""
+    import copy
+
+    class MaskOnly(type(clf)):
+        def _sparse_n_ok(self):
+            return False
+
+    m = copy.copy(clf)
+    m.__class__ = MaskOnly
+    return m
+
+
+def _channels(clf, fn):
+    """fn(), with the N channel of each batch that ``clf`` packed in it,
+    in order: (fn's result, the channels)."""
+    seen = []
+    prepare = clf._prepare_batch
+
+    def spy(*args, **kw):
+        prep = prepare(*args, **kw)
+        seen.append(prep.channel)
+        return prep
+
+    clf._prepare_batch = spy
+    try:
+        return fn(), seen
+    finally:
+        del clf._prepare_batch
+
+
+def _k1_prep(prep, dev):
+    """(pcodes, nmask, lengths) of a prep on ``dev`` (None for CPU), and
+    its sparse list: K1's inputs."""
+    t = (lambda x: x) if dev is None else (lambda x: _to(x, dev))
+    return (t(prep.pcodes), t(prep.nmask), t(prep.lengths)), t(prep.nidx)
+
+
 def phase_kernels(dev, clf, lut, deep):
     """K1, K2, K3 on the card vs their plain versions on CPU copies."""
     import numpy as np
@@ -951,14 +1050,25 @@ def phase_kernels(dev, clf, lut, deep):
     dict_size = len(clf._uniq_host)
 
     def k1(batch, tag, paired=False):
-        pc, nm, ln, lproc = clf._prepare_batch(batch, paired)
-        args = (lproc, clf.k, clf.canon)
-        got = pl.encode_probe(pc.to(dev), None if nm is None else nm.to(dev),
-                              ln.to(dev), *args, clf.arr, True)
-        want = pl.encode_probe_plain(_cpu(pc), _cpu(nm), _cpu(ln), *args,
-                                     arr_cpu, True)
-        chk.same("encode_probe", got, want, tag)
-        return got
+        """K1 in the batch's channel against its plain version; a sparse
+        batch also against K1's mask instantiation on the same reads."""
+        prep = clf._prepare_batch(batch, paired)
+        args = (prep.lproc, clf.k, clf.canon)
+        (pc, nm, ln), nidx = _k1_prep(prep, dev)
+        got = pl.encode_probe(pc, nm, ln, *args, clf.arr, True, nidx=nidx)
+        (pc, nm, ln), nidx = _k1_prep(prep, None)
+        want = pl.encode_probe_plain(pc, nm, ln, *args, arr_cpu, True,
+                                     nidx=nidx)
+        sparse = prep.channel == "sparse"
+        name = "encode_probe_sparse" if sparse else "encode_probe"
+        chk.same(name, got, want, f"{tag} ({prep.channel})")
+        if sparse:
+            mp = _mask_only(clf)._prepare_batch(batch, paired)
+            require(mp.channel == "mask", f"{tag}: the mask channel")
+            (pc, nm, ln), _ = _k1_prep(mp, dev)
+            chk.same(name, got, [m.cpu() for m in pl.encode_probe(
+                pc, nm, ln, *args, clf.arr, True)], f"{tag}: = K1 mask")
+        return got, prep.channel
 
     def k2_k3(k1_out, tag, paired=False, maxr=8, dsizes=(dict_size,)):
         hit, valid, cidx, oidx = k1_out
@@ -980,8 +1090,27 @@ def phase_kernels(dev, clf, lut, deep):
 
     hiseq = os.path.join(DATA, "kraken_benchmarks", "HiSeq_accuracy.fa")
     b = _batch(hiseq, 8192, lut)
-    out = k1(b, "HiSeq 8192")
+    out, channel = k1(b, "HiSeq 8192")
+    require(channel == "sparse", f"HiSeq 8192 took {channel}")
     k2_k3(out, "HiSeq 8192", dsizes=(dict_size, 200, 4000, None))
+    # the sparse list exactly cap = 256 long (no sentinel), its Ns at
+    # column 0, at len - 1 and at 16- and 32-base word edges
+    codes, lengths = b.codes.copy(), b.lengths.copy()
+    inread = np.arange(codes.shape[1])[None, :] < lengths[:, None]
+    codes[(codes < 0) & inread] = 1
+    pick = [r * codes.shape[1] + c for r, c in (
+        (0, 0), (1, int(lengths[1]) - 1), (2, 15), (2, 16), (3, 31), (3, 32))]
+    pick += list(np.random.default_rng(SEED + 13).choice(
+        np.setdiff1d(np.flatnonzero(inread), pick), 256 - len(pick),
+        replace=False))
+    codes.reshape(-1)[pick] = -1
+    b3 = type(b)(names=b.names, seqs=b.seqs, codes=codes, lengths=lengths,
+                 quals=b.quals)
+    require(int((clf._prepare_batch(b3).nidx.numpy().view(np.uint32)
+                 != pl.N_SENTINEL).sum()) == 256, "the list is not cap long")
+    out, channel = k1(b3, "HiSeq 8192, 256 Ns")
+    require(channel == "sparse", f"HiSeq 8192 with 256 Ns took {channel}")
+    k2_k3(out, "HiSeq 8192, 256 Ns")
     # reads shorter than k, and extra in-read Ns
     codes = b.codes.copy()
     lengths = b.lengths.copy()
@@ -992,22 +1121,22 @@ def phase_kernels(dev, clf, lut, deep):
     codes[rows, rng.integers(0, 101, rows.size)] = -1
     b2 = type(b)(names=b.names, seqs=b.seqs, codes=codes, lengths=lengths,
                  quals=b.quals)
-    out = k1(b2, "HiSeq short+N")
+    out, _ = k1(b2, "HiSeq short+N")
     require(bool((out[1].sum(-1)[torch.from_numpy(short).to(dev)] == 0).all()),
             "a read shorter than k has a valid position")
     k2_k3(out, "HiSeq short+N")
     # paired rows (mates 2i, 2i+1), W = 2P
-    out = k1(b, "HiSeq paired", paired=True)
+    out, _ = k1(b, "HiSeq paired", paired=True)
     k2_k3(out, "HiSeq paired", paired=True, dsizes=(dict_size, None))
     # MiSeq: longer reads, W > 255 in pairs
     miseq = os.path.join(DATA, "kraken_benchmarks", "MiSeq_accuracy.fa")
-    out = k1(_batch(miseq, 4096, lut), "MiSeq 4096", paired=True)
+    out, _ = k1(_batch(miseq, 4096, lut), "MiSeq 4096", paired=True)
     k2_k3(out, "MiSeq paired", paired=True, dsizes=(dict_size, None))
     # long reads, P > 1024: resolve's block-per-read kernel (and the
     # dedup/blockwise branches of its plain version)
     from bonsai_tpu_torch.tools.synthetic import long_reads
 
-    out = k1(long_reads(EC_GENOME, lut, rng), "long reads")
+    out, _ = k1(long_reads(EC_GENOME, lut, rng), "long reads")
     require(out[0].shape[1] > 1024, "long-read batch has P <= 1024")
     k2_k3(out, "long reads", dsizes=(dict_size, None))
     # run overflow (n_runs > maxr) and the wide layout (W >= 2^15)
@@ -1120,17 +1249,25 @@ def phase_main_path(clf, kk, dev):
 
     wrappers = [pl.encode_probe, rs.resolve, pl.step_outputs]
     reset_counts(wrappers)
-    for which in ("HiSeq", "MiSeq", "ec_k12"):
-        s = kk["sets"][which]
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        clf.process_dataset(os.path.join(DATA, s["reads"]), out,
-                            batch_size=8192)
-        got = hashlib.sha256(out.getvalue().encode()).hexdigest()
-        say(f"# main path: {which}: {out.getvalue().count(chr(10))} lines in "
-            f"{time.perf_counter() - t0:.2f}s, sha256 "
-            f"{'matches' if got == s['sha256'] else 'DIFFERS'}")
-        require(got == s["sha256"], f"{which}: output differs from the golden")
+    for bs in (8192, 4096):  # the stream's batch, then the CLI's -c
+        for which in ("HiSeq", "MiSeq", "ec_k12"):
+            s = kk["sets"][which]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            _, channels = _channels(clf, lambda: clf.process_dataset(
+                os.path.join(DATA, s["reads"]), out, batch_size=bs))
+            got = hashlib.sha256(out.getvalue().encode()).hexdigest()
+            say(f"# main path: {which}, batches of {bs}: "
+                f"{out.getvalue().count(chr(10))} lines in "
+                f"{time.perf_counter() - t0:.2f}s, sha256 "
+                f"{'matches' if got == s['sha256'] else 'DIFFERS'}; N "
+                f"channels {channels} (the JAX package's "
+                f"{SET_CHANNELS[bs][which]})")
+            require(got == s["sha256"],
+                    f"{which}: output differs from the golden")
+            require(channels == SET_CHANNELS[bs][which],
+                    f"{which}: N channels {channels}, the JAX package's "
+                    f"{SET_CHANNELS[bs][which]}")
     # paired golden through the CLI: build lex_k25 with the port, classify
     m = json.load(open(os.path.join(GOLD, "manifest.json")))
     cfg = next(c for c in m["configs"] if c["name"] == m["classify"]["db"])
@@ -1248,6 +1385,8 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     from bonsai_tpu_torch.classify import pipeline as pl
     from bonsai_tpu_torch.classify import resolve as rs
     from bonsai_tpu_torch.core.alphabet import DNA4
+    from functools import partial
+
     from bonsai_tpu_torch.tools.bounds import (bound, bound_encode_probe,
                                                bound_resolve, bound_text,
                                                k1_rows, nbytes)
@@ -1255,19 +1394,40 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     from bonsai_tpu_torch.tools.synthetic import deep_rows
 
     b = _batch(hiseq_path, 8192, DNA4.lut)
-    pc, nm, ln, lproc = clf._prepare_batch(b)
-    pc, ln = pc.to(dev), ln.to(dev)
-    nm = None if nm is None else nm.to(dev)
+    # the batch in the mask channel (K1's mask instantiation, the
+    # encode_probe row) and in its own, the sparse one
+    mprep = _mask_only(clf)._prepare_batch(b)
+    sprep = clf._prepare_batch(b)
+    require((mprep.channel, sprep.channel) == ("mask", "sparse"),
+            f"HiSeq 8192 channels {mprep.channel}, {sprep.channel}")
+    n_reads = len(b.names)
+    up = {ch: nbytes(p.pcodes, p.naux, p.lengths) / n_reads
+          for ch, p in (("mask", mprep), ("sparse", sprep))}
+    up["none"] = nbytes(sprep.pcodes, sprep.lengths) / n_reads
+    say(f"# upload: HiSeq 8192 reads (lproc {sprep.lproc}), bytes a read by "
+        f"channel: {up}; the sparse list holds "
+        f"{int((sprep.nidx.numpy().view(np.uint32) != pl.N_SENTINEL).sum())}"
+        f" of its {sprep.nidx.numel()} entries")
+    (pc, nm, ln), _ = _k1_prep(mprep, dev)
+    lproc = mprep.lproc
     ds = len(clf._uniq_host)
     a1 = (pc, nm, ln, lproc, clf.k, clf.canon, clf.arr, True)
+    (spc, _, sln), nidx = _k1_prep(sprep, dev)
+    a1s = (spc, None, sln, sprep.lproc, clf.k, clf.canon, clf.arr, True)
     hit, valid, cidx, oidx = pl.encode_probe(*a1)
     valid1 = valid.sum(-1, dtype=torch.int32)
     taxon = rs.resolve(cidx, hit, clf.tax, clf._n_distinct)
     a2 = (cidx, hit, clf.tax, clf._n_distinct)
     a3 = (taxon, oidx, hit, valid, valid1, clf.max_runs, ds)
+    sparse_out = pl.encode_probe(*a1s, nidx=nidx)
+    require(all(torch.equal(x, y) for x, y in zip(
+        sparse_out, (hit, valid, cidx, oidx))), "K1 sparse differs from K1 "
+        "mask on the HiSeq batch")
     bounds = {
         "encode_probe": bound_encode_probe((pc, nm, ln), clf.arr.vals,
                                            (hit, valid, cidx, oidx)),
+        "encode_probe_sparse": bound_encode_probe(
+            (spc, nidx, sln), clf.arr.vals, sparse_out),
         "resolve": bound_resolve(cidx, hit, clf.tax),
         "step_outputs": bound(nbytes(*a3[:5], *pl.step_outputs(*a3))),
     }
@@ -1280,6 +1440,8 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     times = {}
     for name, kern, plain, args in (
         ("encode_probe", pl.encode_probe, pl.encode_probe_plain, a1),
+        ("encode_probe_sparse", partial(pl.encode_probe, nidx=nidx),
+         partial(pl.encode_probe_plain, nidx=nidx), a1s),
         ("resolve", rs.resolve, rs.resolve_plain, a2),
         ("resolve deep", rs.resolve, rs.resolve_plain, a2d),
         ("step_outputs", pl.step_outputs, pl.build_step_outputs, a3),
@@ -1297,6 +1459,14 @@ def phase_numbers(dev, clf, hiseq_path, deep):
             f"replay: kernel {k1:.4f}, {k2:.4f} ms, plain torch on the card "
             f"{p1:.4f}, {p2:.4f} ms; events around back-to-back wrapper calls "
             f"{ev:.4f} ms; {bound_text(bounds[name])}")
+    # K1 mask against K1 sparse on the same batch, in turns
+    ab = [graph_ms(lambda: pl.encode_probe(*a1)),
+          graph_ms(lambda: pl.encode_probe(*a1s, nidx=nidx)),
+          graph_ms(lambda: pl.encode_probe(*a1s, nidx=nidx)),
+          graph_ms(lambda: pl.encode_probe(*a1))]
+    say(f"# time K1 on the HiSeq batch, CUDA-graph replay in turns: mask "
+        f"{ab[0]:.4f}, sparse {ab[1]:.4f}, sparse {ab[2]:.4f}, mask "
+        f"{ab[3]:.4f} ms: sparse / mask {(ab[1] + ab[2]) / (ab[0] + ab[3]):.4f}")
     # device busy share over one HiSeq pass, from a profiler trace
     from torch.profiler import ProfilerActivity, profile
 
@@ -1325,21 +1495,42 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     with open(path, "wb") as fh:
         for _ in range(20):
             fh.write(data)
-    clf.process_dataset(hiseq_path, sink, batch_size=8192)  # warm pass
+    # the stream through the classifier (its batches sparse) and through
+    # the same arrays with _sparse_n_ok False (the N mask), in turns
+    mclf = _mask_only(clf)
+    for c in (clf, mclf):
+        c.process_dataset(hiseq_path, sink, batch_size=8192)  # warm pass
     torch.cuda.synchronize()
     wrappers = (pl.encode_probe, rs.resolve, pl.step_outputs)
-    before = [w.launches for w in wrappers]
-    t0 = time.perf_counter()
-    clf.process_dataset(path, sink, batch_size=8192, profile=True)
-    secs = time.perf_counter() - t0
-    per_stream = {w.__name__: w.launches - n for w, n in zip(wrappers, before)}
+    rates = {"sparse": [], "mask": []}
+    for ch, c in (("sparse", clf), ("mask", mclf), ("mask", mclf),
+                  ("sparse", clf)):
+        before = [w.launches for w in wrappers]
+        variants = dict(pl.encode_probe.variants)
+        t0 = time.perf_counter()
+        c.process_dataset(path, sink, batch_size=8192, profile=True)
+        secs = time.perf_counter() - t0
+        per_stream = {w.__name__: w.launches - n
+                      for w, n in zip(wrappers, before)}
+        k1v = {v: n - variants.get(v, 0)
+               for v, n in pl.encode_probe.variants.items()
+               if n > variants.get(v, 0)}
+        rates[ch].append(200000 / secs)
+        say(f"# stream ({ch} channel): 200000 HiSeq reads (batch 8192, "
+            f"emit-all text to /dev/null) in {secs:.3f}s = "
+            f"{200000 / secs:.6g} reads/s; stages "
+            f"{ {k: round(v, 3) for k, v in c.stage_seconds.items()} }; "
+            f"kernel launches {per_stream}, K1 {k1v}")
+        # a batch without an in-read N takes K1's contiguous "none"
+        want = "sparse" if ch == "sparse" else "contiguous"
+        require(want in k1v and set(k1v) <= {want, "contiguous"},
+                f"the {ch} stream ran K1 {k1v}")
     sink.close()
     os.unlink(path)
-    rps = 200000 / secs
-    say(f"# stream: 200000 HiSeq reads (batch 8192, emit-all text to "
-        f"/dev/null) in {secs:.3f}s = {rps:.6g} reads/s; stages "
-        f"{ {k: round(v, 3) for k, v in clf.stage_seconds.items()} }; kernel "
-        f"launches {per_stream}")
+    rps = sum(rates["sparse"]) / 2
+    say(f"# stream: sparse channel {rates['sparse']}, mask channel "
+        f"{rates['mask']} reads/s (in turns sparse, mask, mask, sparse): "
+        f"sparse / mask {rps / (sum(rates['mask']) / 2):.4f}")
     return times, bounds, rps, k1_rows((hit, valid))
 
 
@@ -1967,16 +2158,28 @@ def phase_spaced_classify(dev, chk, kk, table, hiseq):
     rng = np.random.default_rng(SEED + 8)
 
     def k1(batch, tag, paired=False):
-        pc, nm, ln, lproc = clf._prepare_batch(batch, paired)
-        args = (lproc, clf.k, clf.canon)
-        got = pl.encode_probe(pc.to(dev), None if nm is None else nm.to(dev),
-                              ln.to(dev), *args, clf.arr, True, clf.positions)
+        """K1 spaced in the batch's channel against its plain version; a
+        sparse batch also against the mask instantiation on the same
+        reads."""
+        prep = clf._prepare_batch(batch, paired)
+        args = (prep.lproc, clf.k, clf.canon)
+        (pc, nm, ln), nidx = _k1_prep(prep, dev)
+        got = pl.encode_probe(pc, nm, ln, *args, clf.arr, True,
+                              clf.positions, nidx=nidx)
+        (pc, nm, ln), nidx = _k1_prep(prep, None)
         chk.same("encode_probe_spaced", got, pl.encode_probe_plain(
-            _cpu(pc), _cpu(nm), _cpu(ln), *args, arr_cpu, True,
-            clf.positions), tag)
+            pc, nm, ln, *args, arr_cpu, True, clf.positions, nidx=nidx),
+            f"{tag} ({prep.channel})")
+        if prep.channel == "sparse":
+            (pc, nm, ln), _ = _k1_prep(
+                _mask_only(clf)._prepare_batch(batch, paired), dev)
+            chk.same("encode_probe_spaced", got, [m.cpu() for m in
+                     pl.encode_probe(pc, nm, ln, *args, clf.arr, True,
+                                     clf.positions)], f"{tag}: = K1 mask")
+        return prep.channel
 
     b = _batch(hiseq, 8192, DNA4.lut)
-    k1(b, "HiSeq 8192")
+    require(k1(b, "HiSeq 8192") == "sparse", "HiSeq 8192 is not sparse")
     k1(b, "HiSeq paired", paired=True)
     codes, lengths = b.codes.copy(), b.lengths.copy()
     short = rng.choice(len(lengths), 512, replace=False)
@@ -1991,7 +2194,8 @@ def phase_spaced_classify(dev, chk, kk, table, hiseq):
     reset_counts(wrappers)
     out = io.StringIO()
     t0 = time.perf_counter()
-    clf.process_dataset(hiseq, out, batch_size=8192)
+    _, channels = _channels(clf, lambda: clf.process_dataset(
+        hiseq, out, batch_size=8192))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = hashlib.sha256(out.getvalue().encode()).hexdigest()
@@ -1999,16 +2203,23 @@ def phase_spaced_classify(dev, chk, kk, table, hiseq):
     say(f"# spaced classify: HiSeq against the ec -k 21 -S {SPACING21} "
         f"database: {out.getvalue().count(chr(10))} lines in {secs:.3f}s, "
         f"sha256 {'matches' if got == HISEQ_SPACED_SHA256 else 'DIFFERS'} "
-        f"the JAX Classifier's; kernel launches {launches}")
+        f"the JAX Classifier's; N channels {channels} (the JAX package's "
+        f"{SET_CHANNELS[8192]['HiSeq']}); kernel launches {launches}, K1 "
+        f"{pl.encode_probe.variants}")
     require(got == HISEQ_SPACED_SHA256,
             "HiSeq against the spaced database differs from the JAX package")
-    require(launches["encode_probe_spaced"] > 0 and
-            launches["encode_probe"] == 0, "K1's spaced kernel was not the "
-            "one launched on the spaced path")
-    # K1 spaced and its plain version, CUDA-graph replay and events
-    pc, nm, ln, lproc = clf._prepare_batch(b)
-    a1 = (pc.to(dev), None if nm is None else nm.to(dev), ln.to(dev), lproc,
-          clf.k, clf.canon, clf.arr, True, clf.positions)
+    require(channels == SET_CHANNELS[8192]["HiSeq"],
+            f"spaced classify took N channels {channels}")
+    require(pl.encode_probe.variants.get("spaced sparse", 0) > 0 and
+            launches["encode_probe"] == 0 and
+            launches["encode_probe_sparse"] == 0, "K1's spaced sparse "
+            "kernel was not the one launched on the spaced path")
+    # K1 spaced and its plain version, CUDA-graph replay and events: the
+    # batch in the mask channel, the encode_probe_spaced row
+    mp = _mask_only(clf)._prepare_batch(b)
+    (pc, nm, ln), _ = _k1_prep(mp, dev)
+    a1 = (pc, nm, ln, mp.lproc, clf.k, clf.canon, clf.arr, True,
+          clf.positions)
     res = pl.encode_probe(*a1)
     bnd = bound_encode_probe(a1[:3], clf.arr.vals, res,
                              runs=spaced_runs(clf.positions))
@@ -2994,8 +3205,18 @@ def phase_sketch(dev, chk):
                 "gccount", "kmer_entropy"):
         require(got[key] == SKETCH_BITMIX[key], f"{key} of the K-12 31-mers "
                 "differs from the JAX package's")
+    # the inverse mixes and the rotates (library functions: no path of
+    # either package calls them)
+    inv = {"frev64_inv": hashes.frev64_inv(t),
+           "wang_hash_inv": hashes.wang_hash_inv(t),
+           "lrot 31": hashes.lrot(t, 31), "rrot 17": hashes.rrot(t, 17)}
+    inv = {k: _sha(v.cpu().numpy().tobytes()) for k, v in inv.items()}
+    for key, want in SKETCH_INVERSES.items():
+        require(inv[key] == want, f"{key} of the K-12 31-mers differs from "
+                "the JAX package's")
     say(f"# sketch: K-12 {km.size} 31-mers: wang_hash, khash_int64_hash, "
-        f"popcount64, nuccount, gccount, kmer_entropy match")
+        f"popcount64, nuccount, gccount, kmer_entropy, frev64_inv, "
+        f"wang_hash_inv, lrot 31 and rrot 17 match")
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
     also = read_counts(shared)
@@ -3115,9 +3336,23 @@ def sketch_kernels(dev, chk, km):
         ("bitmix", hashes.wang_hash, hashes.wang_hash_plain),
         ("bitmix", hashes.khash_int64_hash, hashes.khash_int64_hash_plain),
         ("bitmix", bitops.popcount64, bitops.popcount64_plain),
+        ("frev64_inv", hashes.frev64_inv, hashes.frev64_inv_plain),
+        ("wang_hash_inv", hashes.wang_hash_inv, hashes.wang_hash_inv_plain),
     ):
         for x in (kc, edge, edge[:1], kc[:0], kc[:1001].reshape(7, 143)):
             chk.same(name, [fn(x.to(dev))], [plain(x)], fn.__name__)
+    for r in (0, 1, 31, 32, 63):
+        for x in (kc, edge, kc[:1001].reshape(7, 143)):
+            chk.same("rotl", [hashes.rotl(x.to(dev), r)],
+                     [hashes.rotl_plain(x, r)], f"r={r}")
+    for fn, r, want in ((hashes.lrot, 64, lambda x: x),
+                        (hashes.rrot, 65, lambda x: hashes.rrot(x, 1)),
+                        (hashes.rrot, 17, lambda x: hashes.rrot(x, 17))):
+        chk.same("rotl", [fn(kc.to(dev), r)], [want(kc)],
+                 f"{fn.__name__} {r}")
+    for fwd, inv in ((hashes.frev64, hashes.frev64_inv),
+                     (hashes.wang_hash, hashes.wang_hash_inv)):
+        chk.same(inv.__name__, [inv(fwd(km))], [kc], "round trip")
     for k in (1, 31, 32):
         x = torch.cat([kc[:200003], edge]) & bitops.i64(
             bitops.kmer_mask_bits(k))
@@ -3215,6 +3450,16 @@ def sketch_numbers(dev, km, kstream, hv, hok):
                                 lambda: hashes.wang_hash(km),
                                 lambda: hashes.wang_hash_plain(km),
                                 bounds["bitmix"], graph=True)
+    for name, fn, plain in (
+            ("frev64_inv", hashes.frev64_inv, hashes.frev64_inv_plain),
+            ("wang_hash_inv", hashes.wang_hash_inv,
+             hashes.wang_hash_inv_plain),
+            ("rotl", lambda x: hashes.rotl(x, 31),
+             lambda x: hashes.rotl_plain(x, 31))):
+        bounds[name] = bound_bitmix(km, fn(km))
+        times[name] = time_pair(name, f"K-12 {n} 31-mers",
+                                lambda: fn(km), lambda: plain(km),
+                                bounds[name], graph=True)
     bounds["nuccount"] = bound_bitmix(km, bitops.nuccount(km, 31))
     times["nuccount"] = time_pair("nuccount", f"K-12 {n} 31-mers",
                                   lambda: bitops.nuccount(km, 31),
@@ -3817,7 +4062,8 @@ def phase_sharded(dev, chk, kk, db, tree, shards4):
             "canonical and not: equal to the unsharded encode")
         torch.cuda.synchronize()
         launches = read_counts(wrappers, sharded=True)
-        for r in ("encode_probe", "encode_probe_spaced", "minimizers",
+        for r in ("encode_probe", "encode_probe_spaced",
+                  "encode_probe_sparse", "minimizers",
                   "minimizers_spaced", "minimizers_entropy", *HASH_ROWS,
                   *API_ROWS):
             launches.pop(r, None)  # other phases' rows of these wrappers
@@ -3983,7 +4229,7 @@ def sharded_kernels(dev, chk, db, tree, hiseq, k12):
     del clf
     ps = sh.ShardedClassifier(db, tree, make_mesh({"dp": 1, "db": 4}, [dev]),
                               route="psum")
-    pc, nm, ln, lproc = prep
+    pc, nm, ln, lproc = prep.pcodes, prep.nmask, prep.lengths, prep.lproc
     up = [None if x is None else x.to(dev) for x in (pc, nm, ln)]
     for r in range(4):
         a = ps._arr[r]

@@ -10,7 +10,10 @@ imports jax, hence:
 Inputs come from a numpy seed, at small shapes that still reach each
 kernel's edge cases: for the classify kernels k = 32, in-read Ns, reads
 shorter than k, flat-mode tables, P > 1024, run overflow, every compact
-layout; for the build kernels windows of 1 to 32 k-mers, P < W, keys
+layout, and K1's sparse-N channel (contiguous and spaced) against both
+its plain version and the mask channel, with Ns at column 0, at len - 1
+and at word edges, lists exactly as long as their Ns, padded, empty, with
+entries past the batch, and a block's list past what it stages; for the build kernels windows of 1 to 32 k-mers, P < W, keys
 with bit 63 set and real U64_MAX keys, Ns at the ends of KB1's thread
 runs and tiles, all-pad chunks, KB3 pairs across tile edges and whole
 tiles of pairs, empty states, every lca() corner case and both
@@ -29,8 +32,8 @@ after selection or not, every other alphabet's fold in KB1 and KB4 under
 every score, KR1) the same rows with codes of each alphabet, bytes past
 127, a fold of 66 bits to a real U64_MAX, and for KR1 k = 1 to 1000 on
 rows of two tiles, an all-N row, N runs longer than k, P = 1 and 20
-characters; for the sketches, KS4's mixes on 0, U64_MAX and bit 63 and
-nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
+characters; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
+U64_MAX and bit 63 and nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
 20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
 runs past 65,535, keys with bit 63 set and E = 0 and 1, KS2 at m = 1, 64
 and 4096 in each mode on empty and one-element updates, all copies of one
@@ -1089,6 +1092,150 @@ def test_encode_probe_spaced_kernel_matches_plain(cuda, k, mode):
         assert want[0].any() and (~want[0] & want[1]).any()
 
 
+def _nlist(codes, lengths, lproc, pad=0, extra=()):
+    """The sparse-N list of the reads: the flat positions row * lproc +
+    col of their in-read Ns, sorted, then ``extra`` entries, padded with
+    ``pad`` sentinels (0: a list exactly as long as its Ns)."""
+    r, c = np.nonzero((codes < 0) & (np.arange(codes.shape[1])[None, :]
+                                     < lengths[:, None]))
+    flat = np.concatenate([(r * lproc + c).astype(np.uint32),
+                           np.asarray(extra, np.uint32),
+                           np.full(pad, pl.N_SENTINEL, np.uint32)])
+    return _i32(flat)
+
+
+def _sparse_case(rng, c, B=256, L=150):
+    """Reads with a few in-read Ns where the sparse channel puts them: at
+    column 0, at len - 1, at 16- and 32-base word edges, two in one
+    window, on a spaced seed's gaps and offsets alike."""
+    codes, lengths = _reads(rng, B, L, c)
+    inread = np.arange(L)[None, :] < lengths[:, None]
+    codes[(codes < 0) & inread] = 1
+    lengths[:6] = L
+    codes[:6] = rng.integers(0, 4, (6, L))
+    for row, cols in enumerate(((0,), (L - 1,), (15, 16), (31, 32),
+                                (63, 64), (40, 41, 42))):
+        codes[row, list(cols)] = -1
+    more = rng.choice(np.flatnonzero(inread[6:]), 40, replace=False)
+    codes[6:].reshape(-1)[more] = -1
+    codes[~inread] = -1
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,spaced", [(21, False), (31, False), (32, False),
+                                      (21, True), (31, True), (32, True)])
+def test_encode_probe_sparse_kernel_matches_plain_and_mask(cuda, k, spaced):
+    """K1's sparse instantiation against its plain version and against
+    K1's mask instantiation on the same reads, with a list exactly as long
+    as its Ns, one padded with sentinels and entries past the batch (the
+    JAX scatter drops them), and the empty list."""
+    pos = _positions(k) if spaced else None
+    c = pos[-1] + 1 if spaced else k
+    rng = np.random.default_rng(100 + k + spaced)
+    codes, lengths = _sparse_case(rng, c)
+    B, lproc = codes.shape[0], 160
+    cl, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    em = enc.minimizers(cl, ln, k, 1, not spaced, "lex", pos)
+    kmers = em.values[em.mask].numpy().view(np.uint64)
+    keys = np.unique(np.concatenate([
+        rng.choice(kmers, kmers.size // 2),
+        rng.integers(0, 2**64, 3000, dtype=np.uint64)]))
+    arrs = [_inline_arrays(keys, np.random.default_rng(k), d)
+            for d in ("cpu", cuda)]
+    pc, nm = _pack(codes)
+    for canon in ((False,) if spaced else (True, False)):
+        args = (lproc, k, canon)
+        kw = dict(positions=pos)
+        mask = pl.encode_probe(pc.to(cuda), nm.to(cuda), ln.to(cuda), *args,
+                               arrs[1], True, **kw)
+        for nidx in (_nlist(codes, lengths, lproc),
+                     _nlist(codes, lengths, lproc, 37,
+                            (B * lproc, B * lproc + 5))):
+            want = pl.encode_probe(pc, None, ln, *args, arrs[0], True,
+                                   nidx=nidx, **kw)
+            variant = "spaced sparse" if spaced else "sparse"
+            before = pl.encode_probe.variants.get(variant, 0)
+            got = pl.encode_probe(pc.to(cuda), None, ln.to(cuda), *args,
+                                  arrs[1], True, nidx=nidx.to(cuda), **kw)
+            assert pl.encode_probe.variants[variant] == before + 1
+            _same(got, want)
+            _same(got, [m.cpu() for m in mask])
+            assert want[0].any() and (~want[0] & want[1]).any()
+        # no N listed: every in-length window valid but the all-T ones
+        empty = torch.full((64,), pl.N_SENTINEL, dtype=torch.int32)
+        for nidx in (empty, empty[:0]):
+            _same(pl.encode_probe(pc.to(cuda), None, ln.to(cuda), *args,
+                                  arrs[1], True, nidx=nidx.to(cuda), **kw),
+                  pl.encode_probe(pc, None, ln, *args, arrs[0], True,
+                                  nidx=nidx, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spaced", [False, True])
+def test_encode_probe_sparse_kernel_many_ns_in_a_block(cuda, spaced):
+    """Short reads, so a block of 128 positions spans many reads, and
+    whole reads of Ns: a block's list past the 256 entries it stages is
+    read where it lies."""
+    k = 21
+    pos = _positions(k) if spaced else None
+    c = pos[-1] + 1 if spaced else k
+    lproc = c + 7  # P = 8 positions a read
+    rng = np.random.default_rng(7 + spaced)
+    B = 512
+    codes = rng.integers(0, 4, (B, lproc)).astype(np.int8)
+    lengths = rng.integers(c - 2, lproc + 1, B).astype(np.int32)
+    codes[20:60] = -1  # 40 reads of Ns: over a thousand entries in a block
+    codes[rng.random((B, lproc)) < 0.03] = -1
+    codes[np.arange(lproc)[None, :] >= lengths[:, None]] = -1
+    keys = np.unique(rng.integers(0, 4 ** k, 5000, dtype=np.uint64))
+    arrs = [_inline_arrays(keys, np.random.default_rng(1), d)
+            for d in ("cpu", cuda)]
+    pc, nm = _pack(codes)
+    ln = torch.from_numpy(lengths)
+    nidx = _nlist(codes, lengths, lproc)
+    assert nidx.numel() > 1000
+    args = (lproc, k, not spaced)
+    want = pl.encode_probe(pc, None, ln, *args, arrs[0], True, positions=pos,
+                           nidx=nidx)
+    got = pl.encode_probe(pc.to(cuda), None, ln.to(cuda), *args, arrs[1],
+                          True, positions=pos, nidx=nidx.to(cuda))
+    _same(got, want)
+    _same(got, pl.encode_probe(pc, nm, ln, *args, arrs[0], True,
+                               positions=pos))
+    assert not want[1][20:60].any() and want[1].any()
+
+
+@pytest.mark.cuda
+def test_encode_probe_sparse_refuses_what_the_kernel_does_not_take(cuda):
+    table = KmerTable(np.arange(1, 100, dtype=np.uint64),
+                      np.ones(99, dtype=np.uint64))
+    arr = ProbeArrays.from_numpy(*table.arrays_np(), table.lgnb, table.vbits,
+                                 cuda)
+    pc = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    ln = torch.full((4,), 100, dtype=torch.int32, device=cuda)
+    nidx = torch.full((64,), pl.N_SENTINEL, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="not both"):
+        pl.encode_probe(pc, pc[:, :4], ln, 128, 31, True, arr, True,
+                        nidx=nidx)
+    with pytest.raises(ValueError, match="a list"):
+        pl.encode_probe(pc, None, ln, 128, 31, True, arr, True,
+                        nidx=nidx.view(8, 8))
+    with pytest.raises(TypeError):
+        pl.encode_probe(pc, None, ln, 128, 31, True, arr, True,
+                        nidx=nidx.to(torch.int64))
+    # 2^24 reads of 128 bases: flat positions reach the sentinel
+    big = torch.zeros((1 << 24, 8), dtype=torch.int32, device=cuda)
+    bln = torch.zeros(1 << 24, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sentinel"):
+        pl.encode_probe(big, None, bln, 128, 31, True, arr, True, nidx=nidx)
+    del big, bln
+    ranged = ProbeArrays(arr.slots, arr.vals, arr.inline, arr.lgnb,
+                         arr.vbits, 0, arr.slots.shape[0])
+    with pytest.raises(ValueError, match="bucket-range"):
+        pl.encode_probe(pc, None, ln, 128, 31, True, ranged, True, nidx=nidx)
+
+
 @pytest.mark.cuda
 def test_minimizers_spaced_kernel_refuses_what_it_does_not_take(cuda):
     """A tile whose span and window do not fit in shared memory, offsets
@@ -1485,6 +1632,32 @@ def test_bitmix_kernel_matches_plain(cuda, n):
         _same([fn(x.to(cuda))], [plain(x)])
     _same([hashes.wang_hash(x[: n // 2 * 2].reshape(-1, 2).to(cuda))],
           [hashes.wang_hash_plain(x[: n // 2 * 2].reshape(-1, 2))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1025, 1 << 22])
+def test_bitmix_inverse_and_rotate_modes_match_plain(cuda, n):
+    """KS4's frev64_inv, wang_hash_inv and rotl modes on 2^22 values and
+    the edges 0, U64_MAX and bit 63, r in {0, 1, 31, 32, 63} and lrot 64,
+    rrot 65; the round trips on the card."""
+    x = _u64s(np.random.default_rng(n + 3), n)
+    d = x.to(cuda)
+    for fn, plain, mode in (
+            (hashes.frev64_inv, hashes.frev64_inv_plain, "frev64_inv"),
+            (hashes.wang_hash_inv, hashes.wang_hash_inv_plain,
+             "wang_hash_inv")):
+        before = bitops.bitmix.variants.get(mode, 0)
+        _same([fn(d)], [plain(x)])
+        assert bitops.bitmix.variants.get(mode, 0) == before + (n > 0)
+    for r in (0, 1, 31, 32, 63):
+        _same([hashes.rotl(d, r)], [hashes.rotl_plain(x, r)])
+        _same([hashes.rrot(d, r)], [hashes.rrot(x, r)])
+    _same([hashes.lrot(d, 64)], [x])
+    _same([hashes.rrot(d, 65)], [hashes.rrot(x, 1)])
+    _same([hashes.frev64_inv(hashes.frev64(d))], [x])
+    _same([hashes.wang_hash_inv(hashes.wang_hash(d))], [x])
+    with pytest.raises(ValueError):
+        hashes.rotl(d, 64)
 
 
 @pytest.mark.cuda

@@ -371,6 +371,15 @@ def test_pairwise_matrix_matches_jax(metric):
                                   got)
 
 
+def test_counter_defaults_to_the_card(monkeypatch):
+    """With no card and no device argument the Counter raises; it never
+    runs on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare.Counter()
+    assert compare.Counter(device="cpu").device.type == "cpu"
+
+
 def test_set_functions_and_counter_match_jax():
     a, b, c, e = _sets()
     for x, y in ((a, b), (b, c), (a, e), (c, a)):
@@ -379,7 +388,7 @@ def test_set_functions_and_counter_match_jax():
         assert compare.union_size(x, y) == jcompare.union_size(x, y)
         assert compare.jaccard_index(x, y) == jcompare.jaccard_index(x, y)
         assert compare.containment(x, y) == jcompare.containment(x, y)
-    ours, theirs = compare.Counter(), jcompare.Counter()
+    ours, theirs = compare.Counter(device="cpu"), jcompare.Counter()
     rng = _rng(7)
     for v in (_u64(rng, 50).repeat(3), a[:40], a[:40] | np.uint64(1 << 63)):
         ours.add(v)
