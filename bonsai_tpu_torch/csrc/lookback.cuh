@@ -1,5 +1,6 @@
 // Decoupled look-back over per-tile counts, and the scratch carver, shared
-// by the build kernels KB2 (sort_unique.cu) and KB3 (merge_fold.cu).
+// by the build kernels KB2 (sort_unique.cu) and KB3 (merge_fold.cu); KS3
+// (sort_unique.cu) uses the status words with a warp-wide walk.
 //
 // A tile's status word is 2 flag bits (aggregate, inclusive prefix) and a
 // 30-bit count, so one call counts fewer than 2^30 entries.  A word carries

@@ -41,13 +41,6 @@
 // relaxed polling and the back-off are lookback.cuh's (shared with KB3), so
 // a chunk holds fewer than 2^30 keys; global offsets are 64-bit.
 //
-// KS3 sort_count (bk_sort_count) shares steps 1-4 and replaces step 5 with
-// a run-length step.  It replaces bonsai_tpu/sketch/shs.py count_hashes
-// (:48-57): np.sort, a drop of adjacent duplicates and np.diff of the run
-// starts, counts saturated at 0xFFFF.  dedup_runs also writes the sorted
-// index of each distinct key, and run_lengths turns two neighbours of
-// those into a run's length, a u16 saturated at 0xFFFF.
-
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
@@ -231,16 +224,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 // Thread t holds keys base + r * kThreads + t, r < kPerLane: loads and
 // stores are coalesced.  Distinct keys are written in (r, warp, lane)
-// order, which is index order.  STARTS: each distinct key's index in the
-// sorted keys goes to starts (sort_count).
-template <bool STARTS>
+// order, which is index order.
 __global__ void __launch_bounds__(kThreads)
     dedup_runs(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                const int32_t* __restrict__ ctrl,
                const int64_t* __restrict__ m_ptr,
                uint32_t* __restrict__ tile_ctr, uint32_t* status,
-               uint64_t* __restrict__ out, int64_t* __restrict__ n_out,
-               uint32_t* __restrict__ starts) {
+               uint64_t* __restrict__ out, int64_t* __restrict__ n_out) {
   using Scan = cub::BlockScan<int32_t, kThreads>;
   constexpr int kGroups = kPerLane * kWarps;  // (r, warp) groups of 32
   static_assert(kGroups <= kThreads, "one group count a thread");
@@ -292,23 +282,8 @@ __global__ void __launch_bounds__(kThreads)
     if (bal[r] >> lane & 1) {
       const int64_t o = before + s_grp[r * kWarps + w] + __popc(bal[r] & lt);
       out[o] = key[r];
-      if (STARTS) starts[o] = (uint32_t)(base + r * kThreads + t);
     }
   if (t == 0 && base + kTile >= m) *n_out = before + kept;
-}
-
-// sort_count: the length of run j, from its start and the next run's (or
-// the m sorted keys), saturated at 0xFFFF.
-__global__ void run_lengths(const uint32_t* __restrict__ starts,
-                            const int64_t* __restrict__ n_ptr,
-                            const int64_t* __restrict__ m_ptr,
-                            uint16_t* __restrict__ counts) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n = *n_ptr;
-  if (j >= n) return;
-  const int64_t end = j + 1 < n ? (int64_t)starts[j + 1] : *m_ptr;
-  const int64_t len = end - (int64_t)starts[j];
-  counts[j] = (uint16_t)(len < 0xFFFF ? len : 0xFFFF);
 }
 
 // A block of 256 threads covers 2048 slots: thread t the 8 pad bytes from
@@ -338,8 +313,7 @@ __global__ void fill_pads(uint64_t* __restrict__ keys,
 
 // Scratch: a region cleared on every call (histograms, the last-block
 // counter, a tile counter per kernel, status words), then the digit bases,
-// m, the pass control words, the two key buffers and, for sort_count, the
-// run starts.
+// m, the pass control words and the two key buffers.
 struct Buffers {
   uint32_t* zero;
   int64_t zero_words;
@@ -348,13 +322,12 @@ struct Buffers {
   int32_t* ctrl;
   uint64_t* a;
   uint64_t* b;
-  uint32_t* starts;
   int64_t used;
 };
 
 int64_t tiles_of(int64_t E) { return (E + kTile - 1) / kTile; }
 
-Buffers carve(char* p, int64_t E, bool starts = false) {
+Buffers carve(char* p, int64_t E) {
   const int64_t ntiles = tiles_of(E);
   bk::Carve c{p};
   Buffers b;
@@ -366,7 +339,6 @@ Buffers carve(char* p, int64_t E, bool starts = false) {
   b.ctrl = c.take<int32_t>(kPasses + 1);
   b.a = c.take<uint64_t>(E);
   b.b = c.take<uint64_t>(E);
-  b.starts = starts ? c.take<uint32_t>(E) : nullptr;
   b.used = c.used;
   return b;
 }
@@ -374,7 +346,7 @@ Buffers carve(char* p, int64_t E, bool starts = false) {
 unsigned blocks(int64_t n, int t = 256) { return (unsigned)((n + t - 1) / t); }
 
 // Steps 1-4 on E > 0 keys: the sorted distinct emitted keys into out,
-// their count into n, and with b.starts each one's sorted index.
+// their count into n.
 cudaError_t sort_dedup(const void* keys, const void* emitted, int64_t E,
                        const Buffers& b, uint64_t* out, int64_t* n,
                        cudaStream_t s) {
@@ -397,14 +369,8 @@ cudaError_t sort_dedup(const void* keys, const void* emitted, int64_t E,
         b.m, b.ctrl, b.digit_base, tile_ctr + pass,
         status + (int64_t)pass * kBins * ntiles);
   }
-  if (b.starts)
-    dedup_runs<true><<<(unsigned)ntiles, kThreads, 0, s>>>(
-        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, out, n,
-        b.starts);
-  else
-    dedup_runs<false><<<(unsigned)ntiles, kThreads, 0, s>>>(
-        b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, out, n,
-        nullptr);
+  dedup_runs<<<(unsigned)ntiles, kThreads, 0, s>>>(
+      b.a, b.b, b.ctrl, b.m, tile_ctr + kPasses, dedup_status, out, n);
   return cudaSuccess;
 }
 
@@ -435,9 +401,544 @@ extern "C" int bk_sort_unique(const void* keys, const void* emitted,
   return (int)cudaGetLastError();
 }
 
-extern "C" int64_t bk_sort_count_scratch(int64_t E) {
-  return carve(nullptr, E, true).used;
+
+// ---------------------------------------------------------------------------
+// KS3 sort_count: the sorted distinct emitted keys in unsigned order and
+// each one's count of copies saturated at 0xFFFF.  Replaces
+// bonsai_tpu/sketch/shs.py count_hashes (:48-57): np.sort, a drop of
+// adjacent duplicates and np.diff of the run starts.
+//
+// Its keys are rolling hashes, close to uniform over 64 bits, so it
+// partitions them by their top b bits (2^b buckets averaging at most
+// kBucketMean keys, b from E: sort_count_plan in sketch/shs.py is the same
+// plan) and finishes each bucket in shared memory.  Three launches and a
+// memset; the keys go through device memory twice in and once out, where
+// KB2's onesweep moves them 8 times each way:
+//   1. sc_hist counts the emitted keys of each bucket (shared-memory
+//      counts, added to the device's); its last block scans them into
+//      bucket starts;
+//   2. sc_scatter moves each emitted key into its bucket's range: a block
+//      counts its 8192 keys by bucket in shared memory (a key's rank in
+//      its bucket comes from the shared atomicAdd), stages them there by
+//      bucket, reserves each bucket's run with one device atomicAdd and
+//      writes the runs out in order (from registers, a warp's 32 stores
+//      would land in 32 buckets).  The order inside a bucket is not
+//      stable: equal keys are interchangeable for a count;
+//   3. sc_finish: two blocks of 512 threads an SM take buckets in order
+//      from a counter.  A bucket of at most kCap keys whose next 11 bits
+//      split it into runs of at most kSmall keys (all but certain for
+//      hashes) goes into shared memory by those bits, each run sorted by
+//      one thread (insertion), and its runs of equal keys counted there.
+//      Any other bucket (skewed keys, a bucket past shared memory) is
+//      sorted in place by the block alone: a stable least significant
+//      digit radix sort, 8-bit digits through device memory, skipping a
+//      digit every key of the bucket shares (keys of one value skip them
+//      all); it is right at any size and slower.  Either way the block
+//      publishes the bucket's distinct count, finds its output offset by
+//      a decoupled look-back over the earlier buckets' status words
+//      (lookback.cuh's words, read by a warp), and writes the distinct
+//      keys and their u16 counts; the last bucket writes n.
+// Buckets differ in their top bits, so no run of equal keys crosses two,
+// and bucket order is unsigned order (bit 63 last).
+namespace {
+
+constexpr int kScThreads = 512;       // sc_hist and sc_scatter blocks
+constexpr int kScPerLane = 16;        // keys a scatter thread holds
+constexpr int64_t kScTile = (int64_t)kScThreads * kScPerLane;
+constexpr int64_t kScHistKeys = 2 * kScTile;  // keys a histogram block reads
+constexpr int kMaxBucketBits = 13;
+constexpr int kMaxBuckets = 1 << kMaxBucketBits;
+constexpr int64_t kBucketMean = 5120;   // planned keys a bucket at most
+constexpr int kFin = 512;              // sc_finish threads
+constexpr int kFinPerSM = 2;           // sc_finish blocks an SM
+constexpr int kCap = 10240;            // keys of a bucket in shared memory
+constexpr int kSubBits = 11;           // the split inside a bucket
+constexpr int kSubBins = 1 << kSubBits;
+constexpr int kSubPer = kSubBins / kFin;  // sub-buckets a thread sorts
+constexpr int kSmall = 32;             // largest run sorted by insertion
+constexpr int kRows = kCap / kFin;     // keys a thread holds in the counts
+constexpr int kGenPerLane = 4;         // general path: keys a thread a tile
+constexpr int kGenWarps = kFin / 32;
+constexpr int kGenTile = kFin * kGenPerLane;
+// shared memory of sc_finish: the fast path's keys, then its sub-bucket
+// offsets and cursors, which its run starts (u16) replace
+constexpr int kAuxBytes =
+    2 * kSubBins * 4 > kCap * 2 ? 2 * kSubBins * 4 : kCap * 2;
+constexpr int kFinSmem = kCap * 8 + kAuxBytes;
+static_assert(kSubPer * kFin == kSubBins, "a thread owns kSubPer bins");
+static_assert(kRows * kFin == kCap, "kCap keys in kRows rows");
+static_assert(kRows * kGenWarps <= kFin, "one row-group count a thread");
+static_assert(kMaxBuckets % kScThreads == 0, "whole bins a scan thread");
+static_assert(kCap < 65536, "run starts fit in u16");
+static_assert(8 * 256 * 4 + kGenWarps * kBins * 4 + kGenTile * 8 +
+                  2 * kBins * 4 <= kFinSmem,
+              "the general path fits in the fast path's shared memory");
+
+int bucket_bits(int64_t E) {
+  int b = 1;
+  while (b < kMaxBucketBits && (E >> b) > kBucketMean) ++b;
+  return b;
 }
+
+__global__ void __launch_bounds__(kScThreads)
+    sc_hist(const uint64_t* __restrict__ keys,
+            const uint8_t* __restrict__ emitted, int64_t E, int shift, int nb,
+            uint32_t* __restrict__ hist, uint32_t* __restrict__ done,
+            uint32_t* __restrict__ start, uint32_t* __restrict__ cursor) {
+  using Scan = cub::BlockScan<uint32_t, kScThreads>;
+  __shared__ uint32_t h[kMaxBuckets];
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  for (int j = t; j < nb; j += kScThreads) h[j] = 0;
+  __syncthreads();
+  for (int it = 0; it < 2; ++it) {
+    const int64_t base = (int64_t)blockIdx.x * kScHistKeys + it * kScTile;
+    bool e[kScPerLane];
+    uint64_t k[kScPerLane];
+#pragma unroll
+    for (int r = 0; r < kScPerLane; ++r) {  // keys and flags in one trip
+      const int64_t i = base + r * kScThreads + t;
+      e[r] = i < E && emitted[i];
+      k[r] = i < E ? keys[i] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kScPerLane; ++r)
+      if (e[r]) atomicAdd(&h[k[r] >> shift], 1u);
+  }
+  __syncthreads();
+  for (int j = t; j < nb; j += kScThreads)
+    if (h[j]) atomicAdd(&hist[j], h[j]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block: thread t scans buckets [t * per, (t + 1) * per)
+  __threadfence();
+  const int per = (nb + kScThreads - 1) / kScThreads;
+  uint32_t sum = 0;
+  for (int q = 0; q < per; ++q) {
+    const int j = t * per + q;
+    if (j < nb) sum += __ldcg(&hist[j]);
+  }
+  uint32_t first, total;
+  Scan(tmp).ExclusiveSum(sum, first, total);
+  for (int q = 0; q < per; ++q) {
+    const int j = t * per + q;
+    if (j < nb) {
+      start[j] = cursor[j] = first;
+      first += __ldcg(&hist[j]);
+    }
+  }
+  if (t == 0) start[nb] = total;
+}
+
+// Shared memory of sc_scatter: the tile staged by bucket, then a u32 a
+// bucket (its count, its offset in the tile, then its run's output index
+// less that offset, modulo 2^32).
+constexpr int kScatterSmem = (int)kScTile * 8 + kMaxBuckets * 4;
+constexpr int kScBinsPer = kMaxBuckets / kScThreads;  // bins a thread scans
+
+__global__ void __launch_bounds__(kScThreads)
+    sc_scatter(const uint64_t* __restrict__ keys,
+               const uint8_t* __restrict__ emitted, int64_t E, int shift,
+               int nb, uint32_t* __restrict__ cursor,
+               uint64_t* __restrict__ part) {
+  using Scan = cub::BlockScan<uint32_t, kScThreads>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ typename Scan::TempStorage tmp;
+  uint64_t* stage = (uint64_t*)smem;
+  uint32_t* bin = (uint32_t*)(smem + kScTile * 8);
+  const int t = threadIdx.x;
+  for (int j = t; j < nb; j += kScThreads) bin[j] = 0;
+  __syncthreads();
+  const int64_t base = (int64_t)blockIdx.x * kScTile;
+  bool e[kScPerLane];
+  uint64_t k[kScPerLane];
+  uint32_t rank[kScPerLane];
+#pragma unroll
+  for (int r = 0; r < kScPerLane; ++r) {
+    const int64_t i = base + r * kScThreads + t;
+    e[r] = i < E && emitted[i];
+    k[r] = i < E ? keys[i] : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < kScPerLane; ++r)
+    rank[r] = e[r] ? atomicAdd(&bin[k[r] >> shift], 1u) : 0;
+  __syncthreads();
+  // thread t owns buckets [t * per, (t + 1) * per): their offsets in the
+  // tile, then each one's run reserved in its bucket
+  const int per = (nb + kScThreads - 1) / kScThreads;
+  uint32_t cnt[kScBinsPer], sum = 0;
+#pragma unroll
+  for (int q = 0; q < kScBinsPer; ++q) {
+    const int j = t * per + q;
+    cnt[q] = q < per && j < nb ? bin[j] : 0;
+    sum += cnt[q];
+  }
+  uint32_t first, kept;
+  Scan(tmp).ExclusiveSum(sum, first, kept);
+#pragma unroll
+  for (int q = 0; q < kScBinsPer; ++q)
+    if (q < per && t * per + q < nb) {
+      bin[t * per + q] = first;
+      first += cnt[q];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kScPerLane; ++r)
+    if (e[r]) stage[bin[k[r] >> shift] + rank[r]] = k[r];
+  __syncthreads();  // every offset is read before it is overwritten
+#pragma unroll
+  for (int q = 0; q < kScBinsPer; ++q)
+    if (cnt[q]) {
+      const int j = t * per + q;
+      bin[j] = atomicAdd(&cursor[j], cnt[q]) - bin[j];
+    }
+  __syncthreads();
+  // out in runs of one bucket
+  for (int p = t; p < (int)kept; p += kScThreads) {
+    const uint64_t x = stage[p];
+    part[bin[x >> shift] + (uint32_t)p] = x;
+  }
+}
+
+// The general path's stable pass over one tile of n <= kGenTile keys at
+// `in`, by the 8-bit digit at `shift`: key i of digit d goes to
+// out[run[d] + (its rank among the tile's keys of digit d)], and run[d]
+// grows by the tile's count.  As onesweep_pass, with a running base in
+// place of the look-back.
+__device__ void gen_tile(const uint64_t* __restrict__ in, int n,
+                         uint64_t* __restrict__ out, int shift,
+                         int32_t (*s_cnt)[kBins], uint64_t* s_keys,
+                         uint32_t* run, int32_t* doff,
+                         typename cub::BlockScan<int, kFin>::TempStorage& tmp) {
+  using Scan = cub::BlockScan<int, kFin>;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  for (int d = lane; d < kBins; d += 32) s_cnt[w][d] = 0;
+  __syncthreads();
+  const int j0 = w * (32 * kGenPerLane) + lane;
+  uint32_t ok = 0;
+  uint64_t key[kGenPerLane];
+  int rank[kGenPerLane];
+#pragma unroll
+  for (int r = 0; r < kGenPerLane; ++r) {
+    const int j = j0 + r * 32;
+    if (j < n) ok |= 1u << r;
+    key[r] = j < n ? in[j] : 0;
+  }
+  const unsigned below = (1u << lane) - 1;
+#pragma unroll
+  for (int r = 0; r < kGenPerLane; ++r) {
+    const bool o = ok >> r & 1;
+    const int d = o ? (int)((key[r] >> shift) & 0xFF) : kBins + lane;
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+    const int leader = 31 - __clz(peers);
+    int c = 0;
+    if (o && lane == leader) {
+      c = s_cnt[w][d];
+      s_cnt[w][d] = c + __popc(peers);
+    }
+    __syncwarp();
+    rank[r] = __shfl_sync(0xFFFFFFFFu, c, leader) + __popc(peers & below);
+  }
+  __syncthreads();
+  int count = 0;
+  if (t < kBins)
+    for (int v = 0; v < kGenWarps; ++v) count += s_cnt[v][t];
+  int first, kept;
+  Scan(tmp).ExclusiveSum(count, first, kept);
+  if (t < kBins) {
+    doff[t] = (int32_t)run[t] - first;
+    run[t] += count;
+    for (int v = 0; v < kGenWarps; ++v) {
+      const int c = s_cnt[v][t];
+      s_cnt[v][t] = first;
+      first += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kGenPerLane; ++r)
+    if (ok >> r & 1) {
+      const int d = (int)((key[r] >> shift) & 0xFF);
+      s_keys[s_cnt[w][d] + rank[r]] = key[r];
+    }
+  __syncthreads();
+  for (int p = t; p < kept; p += kFin) {
+    const uint64_t k = s_keys[p];
+    out[doff[(k >> shift) & 0xFF] + p] = k;
+  }
+  __syncthreads();  // s_cnt, s_keys and doff are free for the next tile
+}
+
+// The output offset of bucket j with d distinct keys (published already),
+// from the earlier buckets' counts; the last bucket writes n.  A wave of
+// blocks publishes its counts at about the same time, so the walk back to
+// the last inclusive prefix is long: warp 0 reads 32 status words a round
+// trip (lookback.cuh's walk reads 8), and sums them once every word up to
+// the nearest prefix is published.
+__device__ __forceinline__ uint32_t place(uint32_t* status, int j, int nb,
+                                          uint32_t d, int64_t* n_out,
+                                          uint32_t* s_before) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    uint32_t sum = 0;
+    for (int hi = j - 1; hi >= 0;) {
+      const int q = hi - lane;  // lane 0 reads the nearest word
+      const uint32_t v = q >= 0 ? bk::load_relaxed(status + q) : bk::kPrefix;
+      const unsigned pre = __ballot_sync(0xFFFFFFFFu, v & bk::kPrefix);
+      const unsigned pub = __ballot_sync(0xFFFFFFFFu, v != 0);
+      const unsigned need = pre ? (2u << (__ffs(pre) - 1)) - 1 : ~0u;
+      if ((pub & need) != need) {  // a word up to the prefix is empty
+        __nanosleep(bk::kBackoffNs);
+        continue;
+      }
+      uint32_t c = need >> lane & 1 ? v & bk::kCount : 0;
+      for (int o = 16; o; o >>= 1) c += __shfl_xor_sync(0xFFFFFFFFu, c, o);
+      sum += c;
+      hi = pre ? -1 : hi - 32;
+    }
+    if (lane == 0) {
+      if (j > 0) bk::store_release(status + j, bk::kPrefix | (sum + d));
+      *s_before = sum;
+      if (j == nb - 1) *n_out = (int64_t)sum + d;
+    }
+  }
+  __syncthreads();
+  return *s_before;
+}
+
+__global__ void __launch_bounds__(kFin, kFinPerSM)
+    sc_finish(uint64_t* __restrict__ part, uint64_t* __restrict__ temp,
+              const uint32_t* __restrict__ start, int nb, int shift,
+              uint32_t* __restrict__ ticket, uint32_t* status,
+              uint64_t* __restrict__ out_keys,
+              uint16_t* __restrict__ out_counts,
+              int64_t* __restrict__ n_out) {
+  using Scan = cub::BlockScan<int, kFin>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ int s_grp[kFin];
+  __shared__ uint32_t s_ticket, s_before;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  const unsigned lt = (1u << lane) - 1;
+  uint64_t* s_keys = (uint64_t*)smem;
+  uint32_t* s_off = (uint32_t*)(smem + kCap * 8);
+  uint32_t* s_cur = s_off + kSubBins;
+  uint16_t* s_start = (uint16_t*)(smem + kCap * 8);
+  const int sub = shift - kSubBits;
+  for (;;) {
+    if (t == 0) s_ticket = atomicAdd(ticket, 1u);
+    __syncthreads();
+    const int j = (int)s_ticket;
+    __syncthreads();
+    if (j >= nb) return;
+    const int64_t lo = start[j];
+    const int S = (int)(start[j + 1] - lo);
+    const uint64_t* src = part + lo;
+    bool fast = S <= kCap;
+    if (fast && S > 0) {
+      // 1. the bucket's keys, read once into registers, counted by their
+      //    next kSubBits bits
+      for (int q = t; q < kSubBins; q += kFin) s_cur[q] = 0;
+      uint64_t kr[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int p = r * kFin + t;
+        kr[r] = p < S ? src[p] : 0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r * kFin + t < S)
+          atomicAdd(&s_cur[(kr[r] >> sub) & (kSubBins - 1)], 1u);
+      __syncthreads();
+      int c[kSubPer], sum = 0;
+      bool big = false;
+#pragma unroll
+      for (int q = 0; q < kSubPer; ++q) {
+        c[q] = (int)s_cur[kSubPer * t + q];
+        sum += c[q];
+        big |= c[q] > kSmall;
+      }
+      fast = !__syncthreads_or(big);
+      if (fast) {
+        int first;
+        Scan(tmp).ExclusiveSum(sum, first);
+#pragma unroll
+        for (int q = 0; q < kSubPer; ++q) {
+          s_off[kSubPer * t + q] = s_cur[kSubPer * t + q] = (uint32_t)first;
+          first += c[q];
+        }
+        __syncthreads();
+        // 2. into shared memory by those bits, each run sorted by a thread
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r * kFin + t < S)
+            s_keys[atomicAdd(&s_cur[(kr[r] >> sub) & (kSubBins - 1)], 1u)] =
+                kr[r];
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < kSubPer; ++q) {
+          const int a = (int)s_off[kSubPer * t + q];
+          const int b = (int)s_cur[kSubPer * t + q];
+          for (int x = a + 1; x < b; ++x) {
+            const uint64_t k = s_keys[x];
+            int y = x - 1;
+            while (y >= a && s_keys[y] > k) {
+              s_keys[y + 1] = s_keys[y];
+              --y;
+            }
+            s_keys[y + 1] = k;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    if (fast) {
+      // 3. the first key of each run, in (row, warp, lane) order, which is
+      //    index order; a run's start goes to s_start[its rank]
+      unsigned bal[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int p = r * kFin + t;
+        const bool f = p < S && (p == 0 || s_keys[p] != s_keys[p - 1]);
+        bal[r] = __ballot_sync(0xFFFFFFFFu, f);
+        if (lane == 0) s_grp[r * kGenWarps + w] = __popc(bal[r]);
+      }
+      __syncthreads();  // the sub-bucket offsets are free: s_start from here
+      int off, d;
+      Scan(tmp).ExclusiveSum(t < kRows * kGenWarps ? s_grp[t] : 0, off, d);
+      if (t == 0) publish(status, j, 1, (uint32_t)d);  // later buckets go on
+      __syncthreads();
+      if (t < kRows * kGenWarps) s_grp[t] = off;
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (bal[r] >> lane & 1)
+          s_start[s_grp[r * kGenWarps + w] + __popc(bal[r] & lt)] =
+              (uint16_t)(r * kFin + t);
+      const uint32_t before = place(status, j, nb, (uint32_t)d, n_out,
+                                   &s_before);  // its barrier orders s_start
+      for (int o = t; o < d; o += kFin) {
+        const int p = s_start[o];
+        const int q = o + 1 < d ? s_start[o + 1] : S;
+        out_keys[before + o] = s_keys[p];
+        out_counts[before + o] = (uint16_t)(q - p < 0xFFFF ? q - p : 0xFFFF);
+      }
+      __syncthreads();  // shared memory is free for the next bucket
+      continue;
+    }
+    // the general path: a stable LSD sort of [lo, lo + S) through part and
+    // temp, 8-bit digits below the bucket bits, shared digits skipped
+    uint32_t* g_hist = (uint32_t*)smem;                      // [8][256]
+    auto* g_cnt = (int32_t(*)[kBins])(smem + 8 * kBins * 4);  // [32][256]
+    uint64_t* g_keys = (uint64_t*)(smem + 8 * kBins * 4 +
+                                   kGenWarps * kBins * 4);    // [kGenTile]
+    uint32_t* g_run = (uint32_t*)(g_keys + kGenTile);         // [256]
+    int32_t* g_doff = (int32_t*)(g_run + kBins);               // [256]
+    const int ndig = (shift + 7) / 8;
+    for (int q = t; q < 8 * kBins; q += kFin) g_hist[q] = 0;
+    __syncthreads();
+    for (int p = t; p < S; p += kFin) {
+      const uint64_t k = src[p];
+      for (int d = 0; d < ndig; ++d)
+        atomicAdd(&g_hist[d * kBins + ((k >> (8 * d)) & 0xFF)], 1u);
+    }
+    __syncthreads();
+    uint64_t* x = part + lo;
+    uint64_t* y = temp + lo;
+    for (int d = 0; d < ndig; ++d) {
+      const uint32_t c = t < kBins ? g_hist[d * kBins + t] : 0;
+      if (__syncthreads_or(c == (uint32_t)S)) continue;  // a shared digit
+      int first;
+      Scan(tmp).ExclusiveSum((int)c, first);
+      if (t < kBins) g_run[t] = (uint32_t)first;
+      __syncthreads();
+      for (int b = 0; b < S; b += kGenTile)
+        gen_tile(x + b, S - b < kGenTile ? S - b : kGenTile, y, 8 * d, g_cnt,
+                 g_keys, g_run, g_doff, tmp);
+      uint64_t* z = x;
+      x = y;
+      y = z;
+    }
+    // runs of the sorted keys in x: count, place, then the keys with each
+    // run's start in y (as u32), then the counts from the starts
+    int d = 0;
+    for (int p = t; p < S; p += kFin) d += p == 0 || x[p] != x[p - 1];
+    int unused;
+    Scan(tmp).ExclusiveSum(d, unused, d);
+    if (t == 0) publish(status, j, 1, (uint32_t)d);
+    __syncthreads();
+    const uint32_t before = place(status, j, nb, (uint32_t)d, n_out,
+                                  &s_before);
+    uint32_t* st = (uint32_t*)y;
+    int run = 0;
+    for (int b = 0; b < S; b += kFin) {
+      const int p = b + t;
+      const uint64_t k = p < S ? x[p] : 0;
+      const int f = p < S && (p == 0 || k != x[p - 1]);
+      int o, n;
+      Scan(tmp).ExclusiveSum(f, o, n);
+      __syncthreads();
+      if (f) {
+        out_keys[before + run + o] = k;
+        st[run + o] = (uint32_t)p;
+      }
+      run += n;
+    }
+    __syncthreads();
+    for (int o = t; o < d; o += kFin) {
+      const int q = o + 1 < d ? (int)st[o + 1] : S;
+      const int len = q - (int)st[o];
+      out_counts[before + o] = (uint16_t)(len < 0xFFFF ? len : 0xFFFF);
+    }
+    __syncthreads();
+  }
+}
+
+struct ScBuffers {
+  uint32_t* zero;  // cleared on every call: hist, done, ticket, status
+  int64_t zero_words;
+  uint32_t* hist;
+  uint32_t* done;
+  uint32_t* ticket;
+  uint32_t* status;
+  uint32_t* start;
+  uint32_t* cursor;
+  uint64_t* part;
+  uint64_t* temp;
+  int64_t used;
+};
+
+ScBuffers sc_carve(char* p, int64_t E) {
+  const int64_t nb = (int64_t)1 << bucket_bits(E);
+  bk::Carve c{p};
+  ScBuffers b;
+  b.zero_words = 2 * nb + 2;
+  b.zero = c.take<uint32_t>(b.zero_words);
+  b.hist = b.zero;
+  b.done = b.hist + nb;
+  b.ticket = b.done + 1;
+  b.status = b.ticket + 1;
+  b.start = c.take<uint32_t>(nb + 1);
+  b.cursor = c.take<uint32_t>(nb);
+  b.part = c.take<uint64_t>(E);
+  b.temp = c.take<uint64_t>(E);
+  b.used = c.used;
+  return b;
+}
+
+}  // namespace
+
+extern "C" int64_t bk_sort_count_scratch(int64_t E) {
+  return sc_carve(nullptr, E).used;
+}
+
+// KS3's plan: the bucket bits of E keys (sketch/shs.py sort_count_plan).
+extern "C" int64_t bk_sort_count_bits(int64_t E) { return bucket_bits(E); }
 
 // KS3: keys (E,) int64-held u64, emitted (E,) bool -> the n distinct
 // emitted keys in unsigned order in out_keys[:n] (E,) int64, each one's
@@ -450,11 +951,31 @@ extern "C" int bk_sort_count(const void* keys, const void* emitted, int64_t E,
   const cudaStream_t s = (cudaStream_t)stream;
   int64_t* n = (int64_t*)n_out;
   if (E == 0) return (int)cudaMemsetAsync(n, 0, sizeof(int64_t), s);
-  const Buffers b = carve((char*)scratch, E, true);
-  const cudaError_t e =
-      sort_dedup(keys, emitted, E, b, (uint64_t*)out_keys, n, s);
+  const int bits = bucket_bits(E);
+  const int nb = 1 << bits, shift = 64 - bits;
+  const ScBuffers b = sc_carve((char*)scratch, E);
+  cudaError_t e = cudaMemsetAsync(b.zero, 0, b.zero_words * 4, s);
   if (e != cudaSuccess) return (int)e;
-  run_lengths<<<blocks(E), 256, 0, s>>>(b.starts, n, b.m,
-                                        (uint16_t*)out_counts);
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(sc_scatter,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kScatterSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(sc_finish,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kFinSmem)) != cudaSuccess)
+    return (int)e;
+  const auto* k = (const uint64_t*)keys;
+  const auto* em = (const uint8_t*)emitted;
+  sc_hist<<<blocks(E, (int)kScHistKeys), kScThreads, 0, s>>>(
+      k, em, E, shift, nb, b.hist, b.done, b.start, b.cursor);
+  sc_scatter<<<blocks(E, (int)kScTile), kScThreads, kScatterSmem, s>>>(
+      k, em, E, shift, nb, b.cursor, b.part);
+  sc_finish<<<nb < kFinPerSM * sms ? nb : kFinPerSM * sms, kFin, kFinSmem,
+              s>>>(
+      b.part, b.temp, b.start, nb, shift, b.ticket, b.status,
+      (uint64_t*)out_keys, (uint16_t*)out_counts, n);
   return (int)cudaGetLastError();
 }

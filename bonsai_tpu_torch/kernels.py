@@ -149,11 +149,12 @@ _SIGS = {
     # tab, idx, R, Ct, Q, Ci, axis, out, stream
     "bk_take_along": [P, P, I64, I64, I64, I64, I32, P, P],
 }
-# host functions: bytes of device scratch for the sizes of a call
+# host functions of int64 arguments: bytes of device scratch for the sizes
+# of a call, and KS3's plan (its bucket bits)
 _SCRATCH = {"bk_sort_unique_scratch": 1, "bk_merge_fold_scratch": 1,
             "bk_compacted_minimizers_gen_scratch": 3,
             "bk_sort_count_scratch": 1, "bk_csetsketch_update_scratch": 3,
-            "bk_route_frame_scratch": 2}
+            "bk_route_frame_scratch": 2, "bk_sort_count_bits": 1}
 
 
 def _sources():

@@ -10,9 +10,10 @@ on a register; a register keeps its smallest arrival time, and
 CUDA sketch, its plain torch version (the JAX package's loop, in torch)
 on a CPU one.  Both take the values in chunks of 2^16 elements and each
 element's arrivals in rounds of 16, the times t + cumsum(gaps), as that
-package does, so ids (-S), idcounts (-s) and n_updates are its own; a
-register may differ from numpy's in its last bits where the card's
-``log`` does.
+package does, so ids (-S), idcounts (-s) and n_updates are its own (of
+tied arrivals at a register, the smallest element's, as its lexsort
+keeps); a register may differ from numpy's in its last bits where the
+card's ``log`` does.
 
 The estimators, ``max``, ``min``, ``jaccard``, the packing and the
 ``BTPUCSS1`` files run on the host over the fetched registers, with the
@@ -73,7 +74,8 @@ def _update_chunk_plain(v, regs, ids, idcounts, m):
     ctr = torch.zeros(n, dtype=torch.int64, device=v.device)
     alive = torch.arange(n, device=v.device)
     while alive.numel():
-        csetsketch_update_plain.arrivals += STEPS * alive.numel()
+        live = alive.numel()
+        csetsketch_update_plain.arrivals += STEPS * live
         thresh = regs.max()
         gaps, idx = _arrivals(h[alive], ctr[alive], m)
         times = t[alive, None] + torch.cumsum(gaps, dim=1)
@@ -81,17 +83,17 @@ def _update_chunk_plain(v, regs, ids, idcounts, m):
         fi, ft = idx[ok], times[ok]
         if fi.numel():
             if ids is not None:
-                # each register's smallest arrival of the round and its
-                # element's value (copies of one value tie exactly)
+                # each register's smallest arrival of the round, and of the
+                # elements that reach it the first (lexsort's tie rule)
                 rmin = torch.full((m,), math.inf, dtype=torch.float64,
                                   device=v.device)
                 rmin.scatter_reduce_(0, fi, ft, reduce="amin")
                 fel = alive[:, None].expand_as(idx)[ok]
                 arg = ft == rmin[fi]
-                rid = torch.zeros(m, dtype=torch.int64, device=v.device)
-                rid[fi[arg]] = v[fel[arg]]
+                rarg = torch.full((m,), n, dtype=torch.int64, device=v.device)
+                rarg.scatter_reduce_(0, fi[arg], fel[arg], reduce="amin")
                 ri = torch.nonzero(torch.isfinite(rmin)).reshape(-1)
-                rt, re = rmin[ri], rid[ri]
+                rt, re = rmin[ri], v[rarg[ri]]
                 better = rt < regs[ri]
                 if idcounts is not None:
                     same = ~better & (rt == regs[ri]) & (re == ids[ri])
@@ -104,6 +106,8 @@ def _update_chunk_plain(v, regs, ids, idcounts, m):
         t[alive] = times[:, -1]
         ctr[alive] += STEPS
         alive = alive[times[:, -1] < thresh]
+        # below the threshold, and one for each element this round ends
+        csetsketch_update_plain.required += fi.numel() + live - alive.numel()
 
 
 def csetsketch_update_plain(values: torch.Tensor, regs: torch.Tensor,
@@ -118,8 +122,13 @@ def csetsketch_update_plain(values: torch.Tensor, regs: torch.Tensor,
         _update_chunk_plain(values[lo: lo + chunk], regs, ids, idcounts, m)
 
 
-# the arrivals the plain version has evaluated (KS2's bound counts them)
+# The arrivals the plain version evaluates (16 a live element a round, the
+# JAX package's schedule), and those any exact schedule must evaluate: the
+# arrivals below their round's threshold, and for each element the one
+# that ends it (its first at or past the threshold, by the monotone times).
+# KS2's bound counts the required ones.
 csetsketch_update_plain.arrivals = 0
+csetsketch_update_plain.required = 0
 
 
 def csetsketch_update(values: torch.Tensor, regs: torch.Tensor,
@@ -127,8 +136,8 @@ def csetsketch_update(values: torch.Tensor, regs: torch.Tensor,
                       idcounts: Optional[torch.Tensor],
                       chunk: int = CHUNK) -> None:
     """KS2 (``csrc/setsketch.cu``): see ``csetsketch_update_plain``, which
-    serves CPU tensors.  Syncs the stream once a call, and once a round
-    while a register is +inf or where ids are kept."""
+    serves CPU tensors.  A memset and one cooperative launch a call, which
+    never waits for the host."""
     if values.device.type == "cpu":
         return csetsketch_update_plain(values, regs, ids, idcounts, chunk)
     if values.device.type != "cuda":
@@ -139,6 +148,8 @@ def csetsketch_update(values: torch.Tensor, regs: torch.Tensor,
     n = values.numel()
     if not 0 < m < 1 << 62:
         raise ValueError(f"csetsketch_update: {m} registers")
+    if not 0 < chunk < 1 << 32:
+        raise ValueError(f"csetsketch_update: chunks of {chunk} elements")
     if idcounts is not None and ids is None:
         raise ValueError("idcounts are kept only with ids")
     kernels.check(values, "values", torch.int64, dev, (n,))

@@ -78,11 +78,30 @@ def sort_count_plain(keys: torch.Tensor, emitted: torch.Tensor):
     return u ^ SIGN, _u16(c.clamp(max=0xFFFF))
 
 
+# KS3's plan (csrc/sort_unique.cu, the constants of the same names): the
+# emitted keys go to 2^bits buckets by their top bits, bits the least in
+# [1, SC_MAX_BITS] that leaves E / 2^bits <= SC_BUCKET_MEAN; a bucket of at
+# most SC_CAP keys whose next SC_SUB_BITS bits split it into runs of at
+# most SC_SMALL keys is finished in shared memory, any other by the
+# block's radix sort through device memory.
+SC_MAX_BITS, SC_BUCKET_MEAN, SC_CAP, SC_SUB_BITS, SC_SMALL = 13, 5120, \
+    10240, 11, 32
+
+
+def sort_count_plan(E: int) -> int:
+    """The bucket bits of KS3 on E keys (``bk_sort_count_bits``)."""
+    b = 1
+    while b < SC_MAX_BITS and E >> b > SC_BUCKET_MEAN:
+        b += 1
+    return b
+
+
 def sort_count(keys: torch.Tensor, emitted: torch.Tensor):
-    """KS3 (``csrc/sort_unique.cu`` ``bk_sort_count``: KB2's onesweep radix
-    sort, then run lengths): see ``sort_count_plain``, which serves CPU
-    tensors.  keys (E,) int64, emitted (E,) bool, E < 2^30.  Reads n on
-    the host to slice the outputs."""
+    """KS3 (``csrc/sort_unique.cu`` ``bk_sort_count``: a partition by the
+    top bits, then each bucket sorted and counted by a block): see
+    ``sort_count_plain``, which serves CPU tensors.  keys (E,) int64,
+    emitted (E,) bool, E < 2^30.  Reads n on the host to slice the
+    outputs."""
     if keys.device.type == "cpu":
         return sort_count_plain(keys, emitted)
     if keys.device.type != "cuda":

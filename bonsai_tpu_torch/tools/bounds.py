@@ -252,8 +252,11 @@ CSS_INT32_OPS, CSS_FP64_OPS = 60, 25
 
 def bound_csetsketch(values, m: int, arrivals: int):
     """KS2: the values in, the m f64 registers read and written once; per
-    arrival evaluated (the plain version's count, the JAX package's
-    rounds of 16) CSS_INT32_OPS and CSS_FP64_OPS."""
+    arrival CSS_INT32_OPS and CSS_FP64_OPS.  ``arrivals``: those any exact
+    schedule evaluates (``csetsketch_update_plain.required``: below their
+    round's threshold, and the one that ends each element), not the JAX
+    package's 16 a live element a round, which a kernel that stops at an
+    element's first arrival past the threshold does not do."""
     return bound(nbytes(values) + 16 * m, CSS_INT32_OPS * arrivals,
                  CSS_FP64_OPS * arrivals)
 

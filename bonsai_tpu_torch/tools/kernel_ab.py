@@ -32,12 +32,17 @@ and on the forward frame 0 of GENOME's first record as protein
 sketch kernels at the shapes of ``chip_smoke.py``'s phase 9e on GENOME's
 first record: KS1 (p = 14, wang_hash) and KS4 (wang_hash, nuccount) on
 its canonical 31-mers, KS2 (m = 4096, -S -s and default, a new sketch a
-call) on the same stream, KS3 on its k = 31 rolling-hash stream.  KB1,
-KB4, KB5, KR1, KS1 and KS4 are timed by replaying a CUDA graph of 100
-captured calls between two events (``gather_bench.graph_ms``), KB3, KS2
-(which syncs with the host) and KS3 (whose wrapper reads the distinct
-count) by CUDA events around 100 back-to-back calls.  A case whose entry point the parent's library
-lacks is skipped, and says so.
+call and a full one, the sketch of the same stream) on the same stream,
+KS3 on its k = 31 rolling-hash stream, and KB2 on its first 4M windows'
+k = 31 W = 1 minimizers (the build's chunk).  KB1, KB4, KB5, KR1, KS1 and
+KS4 are timed by replaying a CUDA graph of 100 captured calls between two
+events (``gather_bench.graph_ms``), KB3, KB2 and KS3 (whose wrappers read
+the distinct count) and KS2 by CUDA events around 100 back-to-back
+calls.  A case whose
+entry point the parent's library lacks is skipped, and says so.  With
+``--sketch`` only these sketch cases and KB2 run:
+
+    python -m bonsai_tpu_torch.tools.kernel_ab --sketch PARENT_CSRC GENOME
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -276,9 +281,11 @@ def build_cases(genome: str, nodes: str, dev):
 def sketch_cases(seq: bytes, dev):
     """(name, call, timer, entry point) of KS1-KS4 at chip_smoke.py's phase
     9e shapes on ``seq`` (one genome's first record): its canonical
-    31-mers (KB1's emissions) for KS1 (p = 14, hashed), KS2 (m = 4096, a
-    new sketch a call, -S -s and default) and KS4, its k = 31 rolling-hash
-    stream for KS3."""
+    31-mers (KB1's emissions) for KS1 (p = 14, hashed), KS2 (m = 4096, -S
+    -s and default, a new sketch a call and a full one: the sketch of the
+    same stream, restored before each call) and KS4, its k = 31
+    rolling-hash stream for KS3; then KB2 on the k = 31 W = 1 minimizers
+    of its first 4M windows (the build's chunk)."""
     from ..core import bitops, hashes
     from ..core.rolling import RollingEncoder
     from ..sketch import hll
@@ -293,6 +300,12 @@ def sketch_cases(seq: bytes, dev):
     vals, invalid = RollingEncoder(31).hashes(codes)
     hv, hok = vals[0], ~invalid[0]
     regs = torch.zeros(1 << 14, dtype=torch.int32, device=dev)
+    span = (1 << 22) + 30
+    em4 = enc.minimizers(codes[:, :span],
+                         torch.tensor([min(span, codes.shape[1])],
+                                      dtype=torch.int32, device=dev), 31, 1,
+                         True)
+    k4, m4 = em4.values[0], em4.mask[0]
 
     def fill():
         regs.zero_()
@@ -304,14 +317,33 @@ def sketch_cases(seq: bytes, dev):
         s.update(kmers)
         return [s.regs] + ([s._ids, s._idcounts] if save else [])
 
+    def full(save):
+        s = CSetSketch(4096, save, save, device=dev)
+        s.update(kmers)
+        parts = [s.regs] + ([s._ids, s._idcounts] if save else [])
+        state = [p.clone() for p in parts]
+
+        def call():
+            for p, q in zip(parts, state):
+                p.copy_(q)
+            s.update(kmers)
+            return [p.clone() for p in parts]
+        return call
+
     return [
         ("hll_fill p=14 wang_hash", fill, graph_ms, "bk_hll_fill"),
         ("csetsketch_update m=4096 -S -s", lambda: sketch(True), time_ms,
          "bk_csetsketch_update"),
+        ("csetsketch_update m=4096 -S -s, full sketch", full(True), time_ms,
+         "bk_csetsketch_update"),
         ("csetsketch_update m=4096", lambda: sketch(False), time_ms,
+         "bk_csetsketch_update"),
+        ("csetsketch_update m=4096, full sketch", full(False), time_ms,
          "bk_csetsketch_update"),
         ("sort_count k=31 hash stream", lambda: sort_count(hv, hok),
          time_ms, "bk_sort_count"),
+        ("sort_unique k=31 W=1 4M windows", lambda: bd.sort_unique(k4, m4),
+         time_ms, "bk_sort_unique"),
         ("bitmix wang_hash", lambda: [hashes.wang_hash(kmers)], graph_ms,
          "bk_bitmix"),
         ("nuccount k=31", lambda: [bitops.nuccount(kmers, 31)], graph_ms,
@@ -620,16 +652,19 @@ def run(parent_csrc: str, cases, names, say=print) -> dict:
 
 
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
-         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab --classify "
-         "PARENT_CSRC READS NODES NAMEID GENOME...")
+         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab --sketch "
+         "PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--classify PARENT_CSRC READS NODES NAMEID GENOME...")
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    classify = bool(args) and args[0] == "--classify"
-    if classify:
+    mode = args[0] if args and args[0] in ("--classify", "--sketch") else ""
+    classify, sketch = mode == "--classify", mode == "--sketch"
+    if mode:
         args = args[1:]
-    if (classify and len(args) < 5) or (not classify and len(args) != 3):
+    if ((classify and len(args) < 5) or (sketch and len(args) != 2)
+            or (not mode and len(args) != 3)):
         print(USAGE, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -648,6 +683,9 @@ def main(argv=None) -> int:
         res["yardstick_ms"] = yardstick_ms(dev)
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
               f"graph replay: {res['yardstick_ms']:.4f} ms")
+    elif sketch:
+        seq = next(iter(fastx.read_fastx(args[1])))[1]
+        res = run(args[0], sketch_cases(seq, dev), BUILD_SOURCES)
     else:
         res = run(args[0], build_cases(*args[1:], dev), BUILD_SOURCES)
     res["card"] = card

@@ -3385,7 +3385,14 @@ def sketch_kernels(dev, chk, km):
              shs.sort_count_plain(hv.cpu(), hok.cpu()), "K-12 k=31")
     sat = torch.cat([torch.full((70000,), 7), torch.full((65535,), -1),
                      torch.full((65536,), -(1 << 63)), kc[:1000]])
-    for x in (sat, kc[:300000] | -(1 << 63), kc[:0], kc[:1], edge):
+    # past KS3's shared memory: every key in one bucket, one bucket of
+    # distinct keys past its capacity, keys below 2^20
+    one_bucket = (kc[:300000] & ((1 << 51) - 1)) | (0x5A5 << 51)
+    past_cap = torch.cat([kc[:shs.SC_CAP + 5000] & ((1 << 50) - 1),
+                          kc[-75000:]])
+    small = kc[:200000] & ((1 << 20) - 1)
+    for x in (sat, kc[:300000] | -(1 << 63), kc[:0], kc[:1], edge,
+              one_bucket, past_cap, small):
         x = x[torch.from_numpy(rng.permutation(x.numel()))]
         em = torch.ones(x.numel(), dtype=torch.bool)
         for _ in range(2):
@@ -3419,6 +3426,15 @@ def sketch_kernels(dev, chk, km):
                 want.update(v)
                 report.append(_css_same(chk, f"m={m} {v.numel()} values",
                                         got, want))
+    # a full sketch fed 10 x 2^16 + 3 values, in each mode
+    for save, cnt in ((False, False), (True, False), (True, True)):
+        got = ss.CSetSketch(4096, save, cnt, device=dev)
+        want = ss.CSetSketch(4096, save, cnt, device="cpu")
+        for v in (kc[:100000], kc[-(10 * (1 << 16) + 3):]):
+            got.update(v.to(dev))
+            want.update(v)
+        report.append(_css_same(chk, f"full sketch -S={save} -s={cnt}",
+                                got, want))
     # KS2 writes nothing past the scratch its size function gives: a guard
     # after it, on updates of fewer values than a chunk and of more
     for n in (1, 3000, (1 << 16) + 1):
@@ -3434,14 +3450,21 @@ def sketch_kernels(dev, chk, km):
 
 def sketch_numbers(dev, km, kstream, hv, hok):
     """KS1-KS4 and their plain versions timed at the K-12 shape, with
-    bounds; KS3 beside torch.unique(return_counts=True)."""
+    bounds; KS3 in turns beside torch.unique(return_counts=True) and its
+    launch alone by graph replay; KS2 in each mode on a new and on a full
+    sketch, with the arrivals its bound counts, and under the profiler."""
     import torch
 
+    from torch.profiler import ProfilerActivity, profile
+
+    from bonsai_tpu_torch import kernels
     from bonsai_tpu_torch.core import bitops, hashes
+    from bonsai_tpu_torch.core.bitops import SIGN
     from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
     from bonsai_tpu_torch.tools.bounds import (bound_bitmix, bound_csetsketch,
                                                bound_hll_fill,
                                                bound_sort_count, bound_text)
+    from bonsai_tpu_torch.tools.gather_bench import graph_ms
 
     times, bounds, library = {}, {}, {}
     n = km.numel()
@@ -3477,31 +3500,89 @@ def sketch_numbers(dev, km, kstream, hv, hok):
         "sort_count", f"K-12 k=31 hash stream, {int(hok.sum())} of "
         f"{hv.numel()} windows", lambda: shs.sort_count(hv, hok),
         lambda: shs.sort_count_plain(hv, hok), bounds["sort_count"])
-    library["sort_count"] = time_ms(
-        lambda: torch.unique(hv, sorted=True, return_counts=True), iters=20)
-    say(f"# time torch.unique(return_counts=True) of the same {hv.numel()} "
-        f"hashes (no mask, signed order): {library['sort_count']:.4f} ms")
+    # KS3 in turns, by events, each call with its host read of the count:
+    # the wrapper, bare torch.unique of the hashes (signed order, no mask:
+    # the library time), torch.unique of the flipped emitted hashes (the
+    # same function as KS3); then the bk_sort_count launch alone by graph
+    # replay (no host read)
+    calls = {"KS3": lambda: shs.sort_count(hv, hok),
+             "unique": lambda: torch.unique(hv, sorted=True,
+                                            return_counts=True),
+             "unique of the flipped emitted keys": lambda: torch.unique(
+                 hv[hok] ^ SIGN, sorted=True, return_counts=True)}
+    turns = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            turns[k].append(time_ms(calls[k], iters=50))
+    library["sort_count"] = sum(turns["unique"]) / 2
+    E = hv.numel()
+    outs = (torch.empty(E, dtype=torch.int64, device=dev),
+            torch.empty(E, dtype=torch.int16, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev),
+            kernels.scratch("bk_sort_count", E, dev))
+    alone = graph_ms(lambda: kernels.launch(
+        "bk_sort_count", dev, hv.data_ptr(), hok.data_ptr(), E,
+        *(t.data_ptr() for t in outs)))
+    say("# time KS3 in turns, events with the host read of n, ms: " +
+        "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)}"
+                  for k, v in turns.items()) +
+        f"; KS3 / unique {sum(turns['KS3']) / sum(turns['unique']):.3f}; "
+        f"the bk_sort_count launch alone, CUDA-graph replay: {alone:.4f} ms")
 
-    def sketch(save):
+    def new(save):
         s = ss.CSetSketch(4096, save, save, device=dev)
         s.update(kstream)
 
+    def full(save):
+        s = ss.CSetSketch(4096, save, save, device=dev)
+        s.update(kstream)
+        parts = [s.regs] + ([s._ids, s._idcounts] if save else [])
+        state = [q.clone() for q in parts]
+
+        def call():
+            for q, r in zip(parts, state):
+                q.copy_(r)
+            s.update(kstream)
+        return call
+
     ss.csetsketch_update_plain.arrivals = 0
+    ss.csetsketch_update_plain.required = 0
     p1 = time_ms(lambda: ss.csetsketch_update_plain(
         kstream, torch.full((4096,), float("inf"), dtype=torch.float64,
                             device=dev), None, None), iters=1, warm=0)
     arrivals = ss.csetsketch_update_plain.arrivals
-    bounds["csetsketch_update"] = bound_csetsketch(kstream, 4096, arrivals)
-    k1 = time_ms(lambda: sketch(True), iters=5, warm=1)
-    k0 = time_ms(lambda: sketch(False), iters=5, warm=1)
-    k2 = time_ms(lambda: sketch(True), iters=5, warm=1)
+    required = ss.csetsketch_update_plain.required
+    bounds["csetsketch_update"] = bound_csetsketch(kstream, 4096, required)
+    modes = {"-S -s new": lambda: new(True), "default new": lambda: new(False),
+             "-S -s full": full(True), "default full": full(False)}
+    ks2 = {k: [] for k in modes}
+    for order in (list(modes), list(modes)[::-1]):
+        for k in order:
+            ks2[k].append(time_ms(modes[k], iters=10, warm=1))
+    k1, k2 = ks2["-S -s new"]
     times["csetsketch_update"] = ((k1 + k2) / 2, p1, (k1 + k2) / 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        new(True)
+        new(False)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    coop = calls.get("cudaLaunchCooperativeKernel", 0)
+    dtoh = sum(c for k, c in calls.items() if "DtoH" in k)
+    syncs = calls.get("cudaStreamSynchronize", 0)
     say(f"# time csetsketch_update K-12 setsketch -k 31 stream ({kstream.numel()}"
-        f" values, m=4096), events around calls with a new sketch: -S -s "
-        f"{k1:.4f}, {k2:.4f} ms, default {k0:.4f} ms; plain torch on the "
-        f"card (default) {p1:.4f} ms; {arrivals} arrivals evaluated "
-        f"({arrivals / kstream.numel():.2f} a value); "
-        f"{bound_text(bounds['csetsketch_update'])}")
+        f" values, m=4096), events in turns, ms: " +
+        "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)}"
+                  for k, v in ks2.items()) +
+        f" (new: a new sketch a call; full: the sketch of the same stream, "
+        f"restored before each call); plain torch on the card (default) "
+        f"{p1:.4f} ms; arrivals: the plain version's schedule {arrivals} "
+        f"({arrivals / kstream.numel():.2f} a value), required {required} "
+        f"({required / kstream.numel():.3f} a value); bound from the "
+        f"required: {bound_text(bounds['csetsketch_update'])}")
+    say(f"# KS2 under the profiler, one -S -s and one default call on a new "
+        f"sketch: cudaLaunchCooperativeKernel {coop}, device-to-host copies "
+        f"{dtoh}, cudaStreamSynchronize {syncs}")
     return times, bounds, library
 
 

@@ -35,9 +35,14 @@ rows of two tiles, an all-N row, N runs longer than k, P = 1 and 20
 characters; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
 U64_MAX and bit 63 and nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
 20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
-runs past 65,535, keys with bit 63 set and E = 0 and 1, KS2 at m = 1, 64
-and 4096 in each mode on empty and one-element updates, all copies of one
-k-mer over a chunk of 2^16 + 1 and copies across chunks, and KS2 on a
+runs past 65,535, keys with bit 63 set, E = 0 and 1, every key in one
+bucket, a bucket past shared memory and one of exactly its capacity,
+copies that overflow a bucket's split, keys below 2^20 and lex-like
+62-bit keys, sizes at the tile edges, and its plan against
+``sort_count_plan``, KS2 at m = 1, 5, 64, 4096 and 2^16 in each mode on
+empty and one-element updates, all copies of one k-mer over a chunk of
+2^16 + 1, copies across chunks and a full sketch fed 10 x 2^16 + 3
+values, and KS2 on a
 scratch of its stated size with a guard after it; for the formats and the
 encoders' tail, KS5 at ndb = 1 to 2^31 - 1 on keys with bit 63 set, K128's
 pack at k = 33 to 64 (canonical or not) on rows of two tiles, an all-N
@@ -1694,21 +1699,54 @@ def test_hll_fill_kernel_matches_plain(cuda, p, wang):
     assert int(regs.max()) <= 64 - p + 1
 
 
+def _sort_count_keys(rng, case):
+    """The keys of a KS3 case: hash-like, skewed, or sized at an edge of
+    its plan (csrc/sort_unique.cu: buckets by the top bits, a bucket of at
+    most SC_CAP keys in shared memory, scatter tiles of 8192 keys,
+    histogram blocks of 16384)."""
+    u = lambda n: _u64s(rng, n)
+    top = -(1 << 63) | (0x5A5 << 51)  # the same top 13 bits
+    low = (1 << 51) - 1
+    cap = shs.SC_CAP
+    if case == "random":
+        return u(300000).repeat(3)
+    if case == "saturated":
+        return torch.cat([torch.full((70000,), 7), torch.full(
+            (65535,), -1), torch.full((65536,), -(1 << 63)), u(1000)])
+    if case == "bit63":
+        return (u(50000) | -(1 << 63)).repeat(2)
+    if case == "empty":
+        return torch.zeros(0, dtype=torch.int64)
+    if case == "one":
+        return torch.tensor([-1])
+    if case == "masked":
+        return u(200000)
+    if case == "one_bucket":  # every key in one bucket, past shared memory
+        return (u(300000) & low) | top
+    if case == "past_cap":  # one bucket of distinct keys past its capacity
+        return torch.cat([u(cap + 5000) & ((1 << 50) - 1), u(75000)])
+    if case in ("at_cap", "cap_plus_one"):  # E = cap: 2 buckets, 1 full
+        n = cap + (case == "cap_plus_one")
+        return torch.unique(u(n + 64) & ((1 << 63) - 1))[:n]
+    if case == "split_runs":  # runs of equal keys past a split's limit
+        return torch.cat([u(40).repeat(300), u(60000)])
+    if case == "below_2_20":
+        return torch.from_numpy(rng.integers(0, 1 << 20, 200000))
+    if case == "lex":  # 62-bit k-mers, skewed to small values
+        return torch.from_numpy(np.sort(rng.integers(
+            0, 1 << 62, 100000)) >> rng.integers(0, 20, 100000)).repeat(2)
+    n = int(case.split("=")[1])  # E at a tile edge
+    return u(n)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "saturated", "bit63", "empty",
-                                  "one", "masked"])
+@pytest.mark.parametrize("case", [
+    "random", "saturated", "bit63", "empty", "one", "masked", "one_bucket",
+    "past_cap", "at_cap", "cap_plus_one", "split_runs", "below_2_20", "lex",
+    "E=8192", "E=8193", "E=16384", "E=16385", "E=20481"])
 def test_sort_count_kernel_matches_plain(cuda, case):
     rng = np.random.default_rng(7)
-    x = {
-        "random": _u64s(rng, 300000).repeat(3),
-        "saturated": torch.cat([torch.full((70000,), 7), torch.full(
-            (65535,), -1), torch.full((65536,), -(1 << 63)),
-            _u64s(rng, 1000)]),
-        "bit63": (_u64s(rng, 50000) | -(1 << 63)).repeat(2),
-        "empty": torch.zeros(0, dtype=torch.int64),
-        "one": torch.tensor([-1]),
-        "masked": _u64s(rng, 200000),
-    }[case]
+    x = _sort_count_keys(rng, case)
     x = x[torch.from_numpy(rng.permutation(x.numel()))]
     em = torch.ones(x.numel(), dtype=torch.bool)
     if case == "masked":
@@ -1718,11 +1756,22 @@ def test_sort_count_kernel_matches_plain(cuda, case):
               shs.sort_count_plain(x, em))
 
 
+@pytest.mark.cuda
+def test_sort_count_plan_matches_kernel(cuda):
+    lib = kernels.get_lib()
+    mean = shs.SC_BUCKET_MEAN
+    for E in [0, 1, 2, 2 * mean, 2 * mean + 2, 4641622, (1 << 30) - 1] + [
+            mean << b for b in range(14)] + [(mean << b) + 1
+                                             for b in range(14)]:
+        assert lib.bk_sort_count_bits(E) == shs.sort_count_plan(E), E
+
+
 def _css_inputs(rng, m):
     v = _u64s(rng, 3000)
     return [v.repeat(2), torch.zeros(0, dtype=torch.int64), v[:1],
             torch.full(((1 << 16) + 1,), 0x1234567890ABCDEF),
-            torch.cat([_u64s(rng, 70000), v[:5].repeat(20000)])]
+            torch.cat([_u64s(rng, 70000), v[:5].repeat(20000)]),
+            _u64s(rng, 10 * (1 << 16) + 3)]  # into a full sketch
 
 
 def _same_sketch(got, want):
@@ -1735,7 +1784,7 @@ def _same_sketch(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 64, 4096])
+@pytest.mark.parametrize("m", [1, 5, 64, 4096, 1 << 16])
 @pytest.mark.parametrize("mode", ["default", "-S", "-S -s"])
 def test_csetsketch_kernel_matches_plain(cuda, m, mode):
     rng = np.random.default_rng(m)
