@@ -25,9 +25,9 @@
 // The score is frev64(kmer), the entropy-file score (scores.cuh), the
 // k-mer's value in the phase-1 image, U64_MAX where it is missing (DNA
 // only; probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501), or
-// the Shannon score of the seed's k codes with eps 1e-3 (scores.cuh);
-// with ``canon`` (DNA, Shannon) every emitted value is then replaced by
-// its canonical form.
+// the Shannon score of the seed's k codes with eps 1e-3 (scores.cuh; a
+// DNA seed's counted from its uncanonical k-mer); with ``canon`` (DNA,
+// Shannon) every emitted value is then replaced by its canonical form.
 //
 // What bounds it on an H100: the bytes, 1 B of codes a base in and 9 B a
 // slot out (~42 MB, ~0.0125 ms at 3.35 TB/s for a 4M-base chunk); the
@@ -57,10 +57,13 @@
 // One entry point picks the instantiation from its arguments.  In the
 // kGen instantiations another alphabet folds each
 // position's k codes from the staged tile (k shared loads a position, the
-// simple way); the Shannon score needs the seed's codes, which only the
-// compaction launch holds, so there it scores each valid seed (k + 1
+// simple way); their Shannon score needs the seed's codes, which only
+// the compaction launch holds, so there it scores each valid seed (k + 1
 // scans of its k codes at most, scores.cuh) and writes the scores as a
-// second stream beside the k-mers, which the window launch reads.
+// second stream beside the k-mers, which the window launch reads.  A DNA
+// seed's codes are its k-mer's 2-bit groups, so the window launch scores
+// it from the staged k-mer (four popcounts, scores.cuh
+// shannon_dna_score), as it scores lex, and no score stream exists.
 // A row is one 4M-base chunk of a genome in the device build and a read
 // in the tests: rows of any length and any count up to the grid's 65535
 // work, since the compaction is row-wide across tiles.
@@ -98,23 +101,27 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
 }
 
 // the window launch's score: lex or entropy-file (runtime ``entropy``),
-// the phase-1 score, or the score the compaction stored
-enum WindowScore { kLexFile, kHash, kStored };
+// the phase-1 score, the Shannon score of a DNA k-mer, or the score the
+// compaction stored (the Shannon score of another alphabet's seed)
+enum WindowScore { kLexFile, kHash, kShannonDna, kStored };
 
 template <int kWin>
 __device__ __forceinline__ uint64_t score_of(uint64_t kmer, int entropy,
                                              double denom,
-                                             const bk::ProbeTable& tbl) {
+                                             const bk::ProbeTable& tbl,
+                                             const bk::Shannon& sh, int k) {
   if constexpr (kWin == kHash)
     return bk::hash_score(tbl, kmer);
+  else if constexpr (kWin == kShannonDna)
+    return bk::shannon_dna_score(kmer, k, sh);
   else
     return entropy ? bk::entropy_file_score(kmer, denom) : bk::frev64(kmer);
 }
 
 // -- 1. compact ---------------------------------------------------------------
 
-// kGen: another alphabet's fold; kScored: the Shannon score of each
-// valid seed into ``sstream``
+// kGen: another alphabet's fold; kScored (kGen only): the Shannon score
+// of each valid seed into ``sstream``
 template <bool kGen, bool kScored>
 __global__ void __launch_bounds__(kThreads)
     compact_kernel(const int8_t* __restrict__ codes,
@@ -302,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- 2. window minima -----------------------------------------------------------
 
-// kStored reads the scores from ``sstream`` and, with ``canon``,
+// kStored reads the scores from ``sstream``; kShannonDna with ``canon``
 // canonicalizes each emitted value (a DNA k-mer of k bases)
 template <int kWin>
 __global__ void __launch_bounds__(kThreads)
@@ -310,7 +317,8 @@ __global__ void __launch_bounds__(kThreads)
                   const int64_t* __restrict__ n_valid, int64_t P, int W,
                   int64_t E, int entropy, double denom, bk::ProbeTable tbl,
                   int64_t* __restrict__ keys, bool* __restrict__ emitted,
-                  const uint64_t* __restrict__ sstream, int canon, int k) {
+                  const uint64_t* __restrict__ sstream, int canon, int k,
+                  bk::Shannon sh) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int npos = kTile + W - 1;
   const int nsx = sx(npos - 1) + 1;
@@ -328,7 +336,7 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kWin == kStored)
       return scrow[q];
     else
-      return score_of<kWin>(v, entropy, denom, tbl);
+      return score_of<kWin>(v, entropy, denom, tbl, sh, k);
   };
   int64_t* krow = keys + row * E;
   bool* erow = emitted + row * E;
@@ -350,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
       if (at_or_before(s, v, bs, bv)) bs = s, bv = v;
     }
     if (tid == 0) {
-      if (kWin == kStored && canon && tail) bv = bk::canonical(bv, k);
+      if (kWin == kShannonDna && canon && tail) bv = bk::canonical(bv, k);
       krow[0] = (int64_t)(tail ? bv : kSentinel);
       erow[0] = tail;
     }
@@ -424,7 +432,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = tid; s < nslot; s += kThreads) {
     uint64_t v = s_val[sx(s)];
     const bool e = j0 + s + W <= nv;
-    if (kWin == kStored && canon && e) v = bk::canonical(v, k);
+    if (kWin == kShannonDna && canon && e) v = bk::canonical(v, k);
     krow[1 + j0 + s] = (int64_t)v;
     erow[1 + j0 + s] = e;
   }
@@ -468,7 +476,7 @@ Buffers carve(char* p, int64_t B, int64_t L, bool scored = false) {
 template <int kWin>
 int window(const Buffers& b, int64_t B, int64_t P, int W, int entropy,
            double denom, const bk::ProbeTable& tbl, void* keys, void* emitted,
-           int canon, int k, cudaStream_t s) {
+           int canon, int k, const bk::Shannon& sh, cudaStream_t s) {
   const int64_t E = 1 + (P - W + 1 > 0 ? P - W + 1 : 0);
   const int smem = window_smem(W);
   if (smem > 48 * 1024) {
@@ -480,7 +488,7 @@ int window(const Buffers& b, int64_t B, int64_t P, int W, int entropy,
   const int64_t tw = E > 1 ? (E - 1 + kTile - 1) / kTile : 1;
   window_kernel<kWin><<<dim3((unsigned)tw, (unsigned)B), kThreads, smem, s>>>(
       b.stream, b.n_valid, P, W, E, entropy, denom, tbl, (int64_t*)keys,
-      (bool*)emitted, b.sstream, canon, k);
+      (bool*)emitted, b.sstream, canon, k, sh);
   return (int)cudaGetLastError();
 }
 
@@ -503,13 +511,13 @@ int run(const void* codes, const void* lengths, int64_t B, int64_t L, int k,
       (const int8_t*)codes, (const int32_t*)lengths, L, k, P, T, b.tile_ctr,
       b.status, b.stream, b.n_valid, b.sstream, fold, sh);
   return window<kWin>(b, B, P, W, entropy, denom, tbl, keys, emitted, canon,
-                      k, s);
+                      k, sh, s);
 }
 
 }  // namespace
 
 // Bytes of scratch for a call on (B, L); ``scored`` for the Shannon
-// score, whose scores go to a second stream.
+// score of another alphabet than DNA, whose scores go to a second stream.
 extern "C" int64_t bk_compacted_minimizers_gen_scratch(int64_t B, int64_t L,
                                                        int64_t scored) {
   return carve(nullptr, B, L, scored != 0).used;
@@ -535,7 +543,7 @@ extern "C" int bk_compacted_stream(const void* values, const void* valid,
       (const uint64_t*)values, (const bool*)valid, P, T, b.tile_ctr,
       b.status, b.stream, b.n_valid);
   return window<kLexFile>(b, B, P, W, 0, 0.0, bk::ProbeTable{}, keys,
-                          emitted, 0, 0, s);
+                          emitted, 0, 0, bk::Shannon{}, s);
 }
 
 // The one entry point.  codes (B, L) int8, lengths (B,) int32 -> keys
@@ -574,7 +582,7 @@ extern "C" int bk_compacted_minimizers_gen(
       BK(false, kHash);
     case 3:
       if (gen) BK(true, kStored);
-      BK(false, kStored);
+      BK(false, kShannonDna);
   }
 #undef BK
   return (int)cudaErrorInvalidValue;

@@ -72,9 +72,11 @@
 // arguments.  The hash score (DNA only) probes from inside step 2, where
 // the k-mer is: its image adds kernel arguments, not shared memory.  The
 // other alphabets fold each position's k codes from the staged tile (k
-// shared loads a position, the simple way), and the Shannon score scans
-// the seed's k codes in the tile once for each distinct code (at most
-// k + 1 scans) with the table of terms in global memory (L1).
+// shared loads a position, the simple way), and their Shannon score
+// scans the seed's k codes in the tile once for each distinct code (at
+// most k + 1 scans) with the table of terms in global memory (L1); a DNA
+// spaced seed's Shannon score counts its codes from ov's 2-bit groups
+// (four popcounts, scores.cuh shannon_dna_score), rolled or gathered.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -197,13 +199,16 @@ __global__ void __launch_bounds__(kThreads)
           kGen ? (n_in && !unwindowed ? ~0ull : v) : (n_in ? ~0ull : v & mask);
       s_val[sx(p)] = ov;
       if (W > 1) {
-        if constexpr (kScore == kShannon) {
+        if constexpr (kScore == kShannon && kGen) {
           const int8_t* cp = s_code + shift + p;
           s_score[sx(p)] =
               n_in ? bk::kInt64MinU
                    : bk::shannon_score(
                          ov, [&](int i) { return (int)cp[ss->pos[i]]; }, k,
                          sh);
+        } else if constexpr (kScore == kShannon) {  // DNA: from ov alone
+          s_score[sx(p)] =
+              n_in ? bk::kInt64MinU : bk::shannon_dna_score(ov, k, sh);
         } else {
           s_score[sx(p)] = kScore == kEntropy && n_in
                                ? bk::kInt64MinU

@@ -28,6 +28,8 @@
 // 128).  An absent code's term is an exact 0.0, which changes no partial
 // sum, so only the codes present are visited, in ascending order, each
 // into the accumulator numpy gives it: at most k codes a seed, not R.
+// A DNA seed needs no pass over its codes: shannon_dna_score counts them
+// from the k-mer.
 //
 // Fold: the k-mer of an alphabet other than DNA's 2 bits (core/encode.py
 // _pack :108-137, apply_mask :163-170): shift-or by the power-of-two
@@ -148,6 +150,30 @@ template <class Code>
 __device__ __forceinline__ uint64_t shannon_score(uint64_t kmer, Code code,
                                                   int k, const Shannon& sh) {
   const double h = shannon_h(code, k, sh);
+  return f64_to_u64_x86(
+      __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
+}
+
+// The Shannon score of a DNA seed (R = 4) from its packed k-mer alone:
+// its k 2-bit groups are its codes, so four popcounts of the k-mer's bit
+// planes count them (as KS4's nuccount, bitmix.cu), and the terms of the
+// codes present are added in ascending code order, as shannon_h adds
+// them for R < 8: the same bits, with no pass over the codes.  ``kmer``
+// holds k groups (bits past 2k are 0) and is the seed's own, uncanonical
+// k-mer: complement swaps the counts of A and T, C and G, and with them
+// the order of the additions.
+__device__ __forceinline__ uint64_t shannon_dna_score(uint64_t kmer, int k,
+                                                      const Shannon& sh) {
+  const uint64_t lo = kmer & 0x5555555555555555ull;
+  const uint64_t hi = (kmer >> 1) & 0x5555555555555555ull;
+  const int c1 = __popcll(lo & ~hi), c2 = __popcll(hi & ~lo);
+  const int c3 = __popcll(lo & hi);
+  const int c0 = k - c1 - c2 - c3;
+  double h = 0.0;
+  if (c0) h = __dadd_rn(h, __ldg(sh.terms + c0));
+  if (c1) h = __dadd_rn(h, __ldg(sh.terms + c1));
+  if (c2) h = __dadd_rn(h, __ldg(sh.terms + c2));
+  if (c3) h = __dadd_rn(h, __ldg(sh.terms + c3));
   return f64_to_u64_x86(
       __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
 }

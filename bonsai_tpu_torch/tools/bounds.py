@@ -261,6 +261,19 @@ def bound_csetsketch(values, m: int, arrivals: int):
                  CSS_FP64_OPS * arrivals)
 
 
+def css_required(values, regs) -> int:
+    """The arrivals that any exact schedule evaluates to update the f64
+    registers ``regs`` (left as they are) by ``values``:
+    ``csetsketch_update_plain.required`` of the plain version's run on a
+    copy.  From +inf registers, a new sketch; from the registers the same
+    values made, a full one."""
+    from ..sketch.setsketch import csetsketch_update_plain
+
+    before = csetsketch_update_plain.required
+    csetsketch_update_plain(values, regs.clone(), None, None)
+    return csetsketch_update_plain.required - before
+
+
 def bound_sort_count(keys, emitted, out):
     """KS3: as KB2, the keys and flags in, the distinct keys and their
     u16 counts out."""

@@ -40,9 +40,11 @@ events (``gather_bench.graph_ms``), KB3, KB2 and KS3 (whose wrappers read
 the distinct count) and KS2 by CUDA events around 100 back-to-back
 calls.  A case whose
 entry point the parent's library lacks is skipped, and says so.  With
-``--sketch`` only these sketch cases and KB2 run:
+``--sketch`` only these sketch cases and KB2 run, with ``--api`` only the
+Python API's cases (KB1, KB4 and KR1 above):
 
     python -m bonsai_tpu_torch.tools.kernel_ab --sketch PARENT_CSRC GENOME
+    python -m bonsai_tpu_torch.tools.kernel_ab --api PARENT_CSRC GENOME
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -73,6 +75,23 @@ elementwise torch pass over K3's output bytes, is timed the same way.
 From a checkout:
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify \\
+        build/parent/bonsai_tpu_torch/csrc \\
+        tests/data/kraken_benchmarks/HiSeq_accuracy.fa \\
+        tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
+        tests/data/ec/*.fna.gz
+
+With ``--route`` (the same arguments as ``--classify``) KD1's three
+launches run at ``chip_smoke.py`` phase 9g's shapes: the first a2a round
+of the first 8192 reads of READS at (1, 4) on the k = 31 database of the
+GENOMEs (the sharded classifier's own round, its four ranks sharing the
+card): rank 0's frame (ndb = 4, capacity factor 1.05), the round's four
+probes in turn, each rank's received frame against its own sub-table,
+and rank 0's collect; then the frame at 4M random queries (ndb = 4, none
+done) and rank 0's queries at ndb = 1024.  All by graph replay, each with
+its bound (``bounds``) printed first, and rank 0's frame also by events
+around back-to-back wrapper calls, which the host's enqueue can bound:
+
+    python -m bonsai_tpu_torch.tools.kernel_ab --route \\
         build/parent/bonsai_tpu_torch/csrc \\
         tests/data/kraken_benchmarks/HiSeq_accuracy.fa \\
         tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
@@ -112,12 +131,29 @@ BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
                  "lookup_scores", "rolling", "sort_unique", "hll", "setsketch",
                  "bitmix")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
+ROUTE_SOURCES = ("route",)
 CLASSIFY_BATCH = 8192
 # KB1's and KB4's one entry point each
 KB1, KB4 = "bk_minimizers_gen", "bk_compacted_minimizers_gen"
 
 
-def build_parent(csrc: str, names) -> ctypes.CDLL:
+class ParentLib:
+    """A parent's library as ``kernels`` calls it, but KB4's scratch is
+    asked with room for a score stream: a parent older than the DNA
+    Shannon score in KB4's window launch keeps a stream for it, which the
+    tree's wrapper no longer asks for (a larger scratch is harmless)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def bk_compacted_minimizers_gen_scratch(self, B, L, scored):
+        return self._lib.bk_compacted_minimizers_gen_scratch(B, L, 1)
+
+
+def build_parent(csrc: str, names) -> ParentLib:
     """The parent's ``names``.cu in one library, bound like ``kernels``."""
     os.makedirs(OUT_DIR, exist_ok=True)
     nvcc = kernels._nvcc()
@@ -147,7 +183,7 @@ def build_parent(csrc: str, names) -> ctypes.CDLL:
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int64
             getattr(lib, name).argtypes = [ctypes.c_int64] * nargs
-    return lib
+    return ParentLib(lib)
 
 
 @contextlib.contextmanager
@@ -603,6 +639,75 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     ], (a1, a1n, nidx)
 
 
+def route_cases(reads: str, nodes: str, nameid: str, genomes, dev,
+                say=print):
+    """(name, call, timer, entry point) of KD1's frame, probe and collect
+    at the first a2a round of an 8192-read batch at (1, 4), and of the
+    frame at 4M queries and at ndb = 1024; each case's bound printed."""
+    from ..core.spacer import Spacer
+    from ..db.build import lca_map
+    from ..db.formats import Database
+    from ..parallel import route as rt
+    from ..parallel import sharded as sh
+    from ..parallel.mesh import make_mesh
+    from .bounds import (bound_route_collect, bound_route_frame,
+                         bound_route_probe, bound_text)
+
+    tree = TaxTree.from_nodes_dmp(nodes)
+    table = lca_map(list(genomes), tree, nameid, Spacer(31, 31))
+    db = Database(table=table, k=31, w=31, gaps=[0] * 30)
+    clf = sh.ShardedClassifier(db, tree, make_mesh({"dp": 1, "db": 4}, [dev]))
+    batch = next(iter(fastx.batch_reads(reads, DNA4.lut,
+                                        batch_size=CLASSIFY_BATCH)))
+    prep = clf._prepare_batch(batch)
+    st, cap = clf._a2a_start(clf._uploads(prep), prep[3])
+    kq, done = st[0]["kq"], st[0]["done"].clone()
+    state = [st[0][x].clone() for x in ("done", "hit", "cidx", "oidx")]
+    _, got = clf._a2a_round(st, cap, False)
+    recvs, arrs = got["recv"], dict(clf._arr)
+    back, slotq = got["back"][0], got["frame"][0][1]
+    rng = np.random.default_rng(SEED + 3)
+    big = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, 4_000_000)).to(dev)
+    big_done = torch.zeros(big.numel(), dtype=torch.bool, device=dev)
+    big_cap = -(-big.numel() * 105 // 400)
+    wide_cap = -(-kq.numel() * 105 // (100 * 1024))
+    Q = kq.numel()
+    routed = int((slotq < back.numel()).sum())
+    frames = (("", kq, done, 4, cap),
+              (" 4M queries", big, big_done, 4, big_cap),
+              (" ndb=1024", kq, done, 1024, wide_cap))
+    for what, x, d, ndb, c in frames:
+        b = bound_route_frame(x, d, rt.route_frame(x, d, ndb, c))
+        say(f"# route_frame{what}: {x.numel()} queries, ndb={ndb}, cap={c}; "
+            f"{bound_text(b)}")
+    b = bound_route_probe(recvs[0], arrs[0],
+                          rt.route_probe(recvs[0], arrs[0], False))
+    say(f"# route_probe: {bound_text(b)} (rank 0's)")
+    say(f"# route_collect: {routed} routed; "
+        f"{bound_text(bound_route_collect(slotq, state[0], routed))}")
+
+    def probes():
+        return [rt.route_probe(recvs[r], arrs[r], False)
+                for r in sorted(recvs)]
+
+    def collect():
+        mine = [x.clone() for x in state]
+        return [rt.route_collect(back, slotq, *mine)] + mine
+
+    return [(f"route_frame{what} Q={x.numel()}, ndb={ndb}, cap={c}",
+             lambda x=x, d=d, ndb=ndb, c=c: rt.route_frame(x, d, ndb, c),
+             graph_ms, "bk_route_frame") for what, x, d, ndb, c in frames] + [
+        (f"route_frame Q={Q}, ndb=4, cap={cap}, events around back-to-back "
+         "wrapper calls (the host's enqueue shows)",
+         lambda: rt.route_frame(kq, done, 4, cap), time_ms, "bk_route_frame"),
+        (f"route_probe, the round's 4 ranks in turn "
+         f"{[recvs[r].numel() for r in sorted(recvs)]} keys", probes,
+         graph_ms, "bk_route_probe"),
+        (f"route_collect Q={Q}, {routed} routed", collect, graph_ms,
+         "bk_route_collect"),
+    ]
+
+
 def _device_ms(fn, calls=5):
     """Device milliseconds a call, by kernel name, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -652,18 +757,19 @@ def run(parent_csrc: str, cases, names, say=print) -> dict:
 
 
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
-         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab --sketch "
-         "PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--classify PARENT_CSRC READS NODES NAMEID GENOME...")
+         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--sketch|--api PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--classify|--route PARENT_CSRC READS NODES NAMEID GENOME...")
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    mode = args[0] if args and args[0] in ("--classify", "--sketch") else ""
-    classify, sketch = mode == "--classify", mode == "--sketch"
+    modes = ("--classify", "--route", "--sketch", "--api")
+    mode = args[0] if args and args[0] in modes else ""
     if mode:
         args = args[1:]
-    if ((classify and len(args) < 5) or (sketch and len(args) != 2)
+    if ((mode in ("--classify", "--route") and len(args) < 5)
+            or (mode in ("--sketch", "--api") and len(args) != 2)
             or (not mode and len(args) != 3)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -676,16 +782,20 @@ def main(argv=None) -> int:
     card = smi.stdout.strip()
     print(f"# {card}; torch {torch.__version__}")
     dev = torch.device("cuda", 0)
-    if classify:
+    if mode == "--classify":
         cases, k1_in = classify_cases(*args[1:4], args[4:], dev)
         res = run(args[0], cases, CLASSIFY_SOURCES)
         res["sparse_vs_mask"] = sparse_vs_mask(*k1_in)
         res["yardstick_ms"] = yardstick_ms(dev)
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
               f"graph replay: {res['yardstick_ms']:.4f} ms")
-    elif sketch:
+    elif mode == "--route":
+        res = run(args[0], route_cases(*args[1:4], args[4:], dev),
+                  ROUTE_SOURCES)
+    elif mode:
         seq = next(iter(fastx.read_fastx(args[1])))[1]
-        res = run(args[0], sketch_cases(seq, dev), BUILD_SOURCES)
+        cases = (sketch_cases if mode == "--sketch" else api_cases)(seq, dev)
+        res = run(args[0], cases, BUILD_SOURCES)
     else:
         res = run(args[0], build_cases(*args[1:], dev), BUILD_SOURCES)
     res["card"] = card

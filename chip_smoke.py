@@ -3463,7 +3463,8 @@ def sketch_numbers(dev, km, kstream, hv, hok):
     from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
     from bonsai_tpu_torch.tools.bounds import (bound_bitmix, bound_csetsketch,
                                                bound_hll_fill,
-                                               bound_sort_count, bound_text)
+                                               bound_sort_count, bound_text,
+                                               css_required)
     from bonsai_tpu_torch.tools.gather_bench import graph_ms
 
     times, bounds, library = {}, {}, {}
@@ -3547,12 +3548,15 @@ def sketch_numbers(dev, km, kstream, hv, hok):
 
     ss.csetsketch_update_plain.arrivals = 0
     ss.csetsketch_update_plain.required = 0
-    p1 = time_ms(lambda: ss.csetsketch_update_plain(
-        kstream, torch.full((4096,), float("inf"), dtype=torch.float64,
-                            device=dev), None, None), iters=1, warm=0)
+    regs = torch.full((4096,), float("inf"), dtype=torch.float64, device=dev)
+    p1 = time_ms(lambda: ss.csetsketch_update_plain(kstream, regs, None,
+                                                    None), iters=1, warm=0)
     arrivals = ss.csetsketch_update_plain.arrivals
     required = ss.csetsketch_update_plain.required
     bounds["csetsketch_update"] = bound_csetsketch(kstream, 4096, required)
+    # a full sketch: the same stream again into the registers it made
+    full_required = css_required(kstream, regs)
+    full_bound = bound_csetsketch(kstream, 4096, full_required)
     modes = {"-S -s new": lambda: new(True), "default new": lambda: new(False),
              "-S -s full": full(True), "default full": full(False)}
     ks2 = {k: [] for k in modes}
@@ -3570,6 +3574,7 @@ def sketch_numbers(dev, km, kstream, hv, hok):
     coop = calls.get("cudaLaunchCooperativeKernel", 0)
     dtoh = sum(c for k, c in calls.items() if "DtoH" in k)
     syncs = calls.get("cudaStreamSynchronize", 0)
+    new_bound = bounds["csetsketch_update"][0]
     say(f"# time csetsketch_update K-12 setsketch -k 31 stream ({kstream.numel()}"
         f" values, m=4096), events in turns, ms: " +
         "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)}"
@@ -3579,7 +3584,15 @@ def sketch_numbers(dev, km, kstream, hv, hok):
         f"{p1:.4f} ms; arrivals: the plain version's schedule {arrivals} "
         f"({arrivals / kstream.numel():.2f} a value), required {required} "
         f"({required / kstream.numel():.3f} a value); bound from the "
-        f"required: {bound_text(bounds['csetsketch_update'])}")
+        f"required: {bound_text(bounds['csetsketch_update'])}; shares "
+        f"-S -s new {new_bound / ((k1 + k2) / 2):.2%}, default new "
+        f"{new_bound / (sum(ks2['default new']) / 2):.2%}")
+    say(f"# KS2 full sketch: required {full_required} arrivals "
+        f"({full_required / kstream.numel():.3f} a value, "
+        f"csetsketch_update_plain.required from the registers the stream "
+        f"made); {bound_text(full_bound)}; shares -S -s full "
+        f"{full_bound[0] / (sum(ks2['-S -s full']) / 2):.2%}, default full "
+        f"{full_bound[0] / (sum(ks2['default full']) / 2):.2%}")
     say(f"# KS2 under the profiler, one -S -s and one default call on a new "
         f"sketch: cudaLaunchCooperativeKernel {coop}, device-to-host copies "
         f"{dtoh}, cudaStreamSynchronize {syncs}")
@@ -4396,6 +4409,20 @@ def sharded_numbers(dev, inp):
         lambda: rt.route_frame(kq, done, 4, cap),
         lambda: rt.route_frame_plain(kq, done, 4, cap),
         bounds["route_frame"], graph=True)
+    # a frame is one graph node: one cooperative launch, no memset
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.route_frame(kq, done, 4, cap)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    coop = calls.get("cudaLaunchCooperativeKernel", 0)
+    memsets = sum(c for key, c in calls.items() if "emset" in key)
+    say(f"# KD1 frame under the profiler, one call: "
+          f"cudaLaunchCooperativeKernel {coop}, memsets {memsets}")
+    require(coop == 1 and memsets == 0,
+            "KD1's frame is not one cooperative launch without a memset")
     # the round's four probes in turn, each rank's received frame against
     # its sub-table, as the route runs them: one sub-table probed alone
     # keeps its rows in the 50 MB L2 between replays

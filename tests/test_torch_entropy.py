@@ -87,6 +87,80 @@ def test_numpy_sum_is_numpy_order(n):
     np.testing.assert_array_equal(0.0 + got, a.sum(axis=-1))
 
 
+M1 = np.uint64(0x5555555555555555)
+# (k, spacing): contiguous and spaced DNA seeds, the spacings of
+# tests/test_torch_kernels.py SPACINGS among them
+COUNT_SEEDS = [(1, None), (5, None), (5, "0,3,9,1"), (21, "0x16,1x4"),
+               (31, None), (31, "0,2,0,1,3,0x10,5,0x14"), (32, None),
+               (32, "1x31")]
+
+
+def _popcount(x):
+    x = x - ((x >> np.uint64(1)) & M1)
+    x = (x & np.uint64(0x3333333333333333)) + (
+        (x >> np.uint64(2)) & np.uint64(0x3333333333333333))
+    x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    return ((x * np.uint64(0x0101010101010101)) >> np.uint64(56)).astype(
+        np.int32)
+
+
+def _kmer_counts(kmers, k):
+    """The counts of codes 0..3 in each packed DNA k-mer (u64, k 2-bit
+    groups, first base high) from four popcounts of its bit planes, as
+    the kernels count them (csrc/scores.cuh shannon_dna_score)."""
+    lo = kmers & M1
+    hi = (kmers >> np.uint64(1)) & M1
+    c1, c2, c3 = (_popcount(lo & ~hi), _popcount(hi & ~lo),
+                  _popcount(lo & hi))
+    return np.stack([k - c1 - c2 - c3, c1, c2, c3], axis=-1)
+
+
+@pytest.mark.parametrize("k,spacing", COUNT_SEEDS,
+                         ids=lambda m: str(m).replace(" ", ""))
+def test_kmer_popcounts_are_the_code_counts(k, spacing):
+    """The kernels' Shannon score of a DNA seed counts its codes from the
+    packed uncanonical k-mer: four popcounts equal JAX's
+    window_code_counts / spaced_code_counts on every valid seed, and the
+    present codes' terms added in ascending code order give
+    entropy_value's H and entropy_scores' scores, bit for bit.  Random
+    rows with Ns, rows of one code, ACGT repeated, and complement-heavy
+    rows."""
+    from bonsai_tpu_torch.core import encode
+
+    rng = np.random.default_rng(k * 7 + len(spacing or ""))
+    L = 200
+    codes = rng.integers(0, 4, (12, L)).astype(np.int8)
+    codes[:4][rng.random((4, L)) < 0.03] = -1
+    for c in range(4):
+        codes[4 + c] = c
+    codes[8] = np.tile(np.arange(4), L // 4)
+    codes[9] = rng.choice([0, 3], L)
+    codes[10] = rng.choice([1, 2], L)
+    codes[11] = np.where(rng.random(L) < 0.95, 0, 3)
+    sp = Spacer(k, k, spacing)
+    ct = torch.from_numpy(codes)
+    if spacing is None:
+        kmers, invalid = encode.pack_kmers(ct, k)
+        want = jent.window_code_counts(codes, k, 4)
+    else:
+        kmers, invalid = encode.pack_spaced_kmers(ct, sp.offsets)
+        want = jent.spaced_code_counts(codes, sp.positions, 4)
+    valid = ~invalid.numpy()
+    kmers = u64(kmers)
+    got = _kmer_counts(kmers, k)
+    np.testing.assert_array_equal(got[valid], want[valid])
+    terms = entropy.shannon_terms(k)
+    h = np.zeros(kmers.shape)
+    for c in range(4):  # ascending code order, absent codes skipped
+        h = np.where(got[..., c] > 0, h + terms[got[..., c]], h)
+    jh = jent.entropy_value(want, k)
+    np.testing.assert_array_equal(h[valid], jh[valid])
+    for eps in (entropy.WINDOWED_EPS, entropy.FILE_EPS):
+        np.testing.assert_array_equal(
+            jent.entropy_scores(kmers, h, eps)[valid],
+            jent.entropy_scores(kmers, jh, eps)[valid])
+
+
 # the modes of tests/test_encode.py:130-131,155, and the k = 31 w = 40
 # and -S 0x16,1x4 w = 40 disciplines
 MODES = [

@@ -29,9 +29,11 @@ whose k-mers phase 1 holds, P < W; for the gather microbenchmarks the
 four ``take_along_axis`` shapes and 32-B and 128-B rows; for the Python
 API's disciplines (the Shannon score of KB1 spaced and KB4, canonical
 after selection or not, every other alphabet's fold in KB1 and KB4 under
-every score, KR1) the same rows with codes of each alphabet, bytes past
-127, a fold of 66 bits to a real U64_MAX, and for KR1 k = 1 to 1000 on
-rows of two tiles, an all-N row, N runs longer than k, P = 1 and 20
+every score, KR1) the same rows with codes of each alphabet, DNA seeds of
+k = 1 and 32, of one code, of spans past 32, and palindromic and
+complement-heavy rows, bytes past 127, a fold of 66 bits to a real
+U64_MAX, and for KR1 k = 1 to 1000 on rows of two tiles, an all-N
+row, N runs longer than k, P = 1 and 20
 characters; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
 U64_MAX and bit 63 and nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
 20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
@@ -49,7 +51,10 @@ pack at k = 33 to 64 (canonical or not) on rows of two tiles, an all-N
 row, Ns at run and tile edges, codes past 3 and P = 1, its rc and
 canonical on pairs with bit 63 in either lane, and KB4's stream source at
 W = 1 to 8192 on rows shorter than the window, an all-invalid row and
-0 < n_valid < W.  Tolerance: exact equality, since all of it is
+0 < n_valid < W; for the sharded classifier, KD1's frame at 1 to 1024
+owners, Q < ndb, Q one past a tile, rounds with every query done or
+only the last pending, and calls on one scratch that is never cleared.
+Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
 added in the same order, then one add and one divide), but for KS2's
@@ -1428,14 +1433,36 @@ def _run_gen(cuda, kb, codes, lengths, k, W, scheme, it, positions=None,
     return want
 
 
+# spaced DNA seeds of the Shannon tests beside SPACINGS': one base, and
+# five bases over a span of 48 (gathered, past the rolled span of 32)
+SHANNON_SEEDS = {1: (0,), 5: (0, 9, 20, 33, 47)}
+
+
+def _shannon_rows(rng, L=300):
+    """Rows whose seeds hold one code (each count k: all A, all C, all
+    G, all T), ACGT repeated (its k-mers of k = 4j are their own reverse
+    complements), and complement-heavy rows: A/T only, C/G only, 95% A
+    with T, 95% G with C (complement swaps the counts of A and T, C and
+    G, and so the order in which the Shannon terms are added)."""
+    rows = [np.full(L, c) for c in range(4)]
+    rows.append(np.tile(np.arange(4), L // 4 + 1)[:L])
+    rows.append(rng.choice([0, 3], L))
+    rows.append(rng.choice([1, 2], L))
+    rows.append(np.where(rng.random(L) < 0.95, 0, 3))
+    rows.append(np.where(rng.random(L) < 0.95, 2, 1))
+    codes = np.stack(rows).astype(np.int8)
+    return codes, np.full(len(rows), L, np.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", sorted(SPACINGS))
+@pytest.mark.parametrize("k", sorted(SPACINGS) + sorted(SHANNON_SEEDS))
 @pytest.mark.parametrize("W", [2, 13, 16])
 def test_minimizers_spaced_shannon_kernel_matches_plain(cuda, k, W):
     """DNA spaced seeds under the Shannon score (eps 1e-4): an N seed
     scores 0x8000000000000000, the counts run over the k included
-    bases."""
-    pos = _positions(k)
+    bases; one base, spans past 32 (the gathered seeds), seeds of one
+    code and complement-heavy rows."""
+    pos = SHANNON_SEEDS.get(k) or _positions(k)
     rng = np.random.default_rng(k * 31 + W)
     codes, lengths = _discipline_rows(rng, pos[-1] + 1, W)
     before = enc.minimizers.variants.get("spaced shannon", 0)
@@ -1445,16 +1472,21 @@ def test_minimizers_spaced_shannon_kernel_matches_plain(cuda, k, W):
     assert want.mask.any()
     codes, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
     _run_gen(cuda, "kb1", codes, lengths, k, W, "entropy", InputType.DNA, pos)
+    codes, lengths = _shannon_rows(rng)
+    _run_gen(cuda, "kb1", codes, lengths, k, W, "entropy", InputType.DNA, pos)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [5, 13, 31, 32])
+@pytest.mark.parametrize("k", [1, 5, 13, 31, 32])
 @pytest.mark.parametrize("W", [1, 2, 13, 16])
 @pytest.mark.parametrize("canon", [False, True])
 def test_compacted_minimizers_shannon_kernel_matches_plain(cuda, k, W, canon):
     """DNA contiguous seeds under the Shannon score (eps 1e-3), selected
     uncanonical, the emitted values canonicalized with ``canon``; rows of
-    several tiles, a tile with no valid seed."""
+    several tiles, a tile with no valid seed; k = 1 and k = 32 (all 64
+    bits), seeds of one code, palindromic and complement-heavy rows.
+    The window launch scores each k-mer: the wrapper's scratch holds no
+    score stream (its pointer is null in the kernel)."""
     rng = np.random.default_rng(k * 37 + W + canon)
     codes, lengths = _discipline_rows(rng, k, W)
     want = _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy",
@@ -1463,6 +1495,9 @@ def test_compacted_minimizers_shannon_kernel_matches_plain(cuda, k, W, canon):
     codes, lengths = _kb1_edge_rows(rng, k, W)
     codes[4, : 2 * KB1_TILE] = -1
     lengths[4] = codes.shape[1]
+    _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy", InputType.DNA,
+             canon=canon)
+    codes, lengths = _shannon_rows(rng)
     _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy", InputType.DNA,
              canon=canon)
 
@@ -1954,14 +1989,40 @@ def _table_images(rng, n=200000, flat=False):
     return t, t.encode_slots(vals, allow_inline=not flat), keys
 
 
+FRAME_TILE = 1024  # csrc/route.cu kTile: queries a frame tile
+
+
+def _frames_on_one_scratch(cuda, cases, ndb, cap):
+    """bk_route_frame called on one scratch buffer, filled with 0xAB
+    first, for each (kq, done) of ``cases`` in turn: nothing in it needs
+    clearing between calls."""
+    from bonsai_tpu_torch.parallel import route as rt
+
+    Q = cases[0][0].numel()
+    scratch = kernels.scratch("bk_route_frame", (Q, ndb), cuda).fill_(0xAB)
+    for x, d in cases:
+        x, d = x.to(cuda), d.to(cuda)
+        send = torch.empty(ndb * cap, dtype=torch.int64, device=cuda)
+        slotq = torch.empty(Q, dtype=torch.int32, device=cuda)
+        kernels.launch("bk_route_frame", cuda, x.data_ptr(), d.data_ptr(),
+                       Q, ndb, cap, send.data_ptr(), slotq.data_ptr(),
+                       scratch.data_ptr())
+        _same([send, slotq], rt.route_frame_plain(x.cpu(), d.cpu(), ndb, cap))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,ndb,cf", [
     (145408, 4, 1.05), (4_000_000, 4, 1.05), (1000, 3, 0.05), (3, 4, 1.05),
-    (0, 2, 1.0), (50000, 1024, 1.0), (70000, 1, 1.0)])
+    (0, 2, 1.0), (50000, 1024, 1.0), (70000, 1, 1.0),
+    (37 * FRAME_TILE + 1, 4, 1.05), (100, 1024, 1.0), (200000, 1024, 1.0)])
 def test_route_frame_kernel_matches_plain(cuda, Q, ndb, cf):
     """KD1's frame: stable owner order, capacity overflow (cf 0.05), Q <
-    ndb, an empty batch, 1024 owners, and 4M queries (many waves of the
-    look-back)."""
+    ndb, an empty batch, 1024 owners (fewer queries than owners; blocks x
+    owners past what a block sums itself, so owners' columns are
+    scanned), Q one past a multiple of the tile, and 4M queries (blocks
+    of several tiles); then rounds where every query is done (the frame
+    all padding) and where only the last query is pending, and calls on
+    one scratch that is never cleared."""
     from bonsai_tpu_torch.parallel import route as rt
 
     rng = np.random.default_rng(Q + ndb)
@@ -1975,6 +2036,18 @@ def test_route_frame_kernel_matches_plain(cuda, Q, ndb, cf):
     d0 = torch.zeros(one.numel(), dtype=torch.bool)
     _same(rt.route_frame(one.to(cuda), d0.to(cuda), ndb, 100),
           rt.route_frame_plain(one, d0, ndb, 100))
+    if Q == 0:
+        return
+    # every query done; only the last one pending
+    all_done = torch.ones(Q, dtype=torch.bool)
+    last = all_done.clone()
+    last[-1] = False
+    for d in (all_done, last):
+        got = rt.route_frame(kq.to(cuda), d.to(cuda), ndb, cap)
+        _same(got, rt.route_frame_plain(kq, d, ndb, cap))
+    assert bool((got[0] != -1).sum() == (1 if kq[-1] != -1 else 0))
+    _frames_on_one_scratch(cuda, [(kq, done), (kq, last), (kq, done)],
+                                ndb, cap)
 
 
 @pytest.mark.cuda
