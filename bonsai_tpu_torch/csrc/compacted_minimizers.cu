@@ -50,7 +50,9 @@
 //      stream's kTile + W - 1 positions with their scores (computed here,
 //      so the stream carries k-mers only; a position past n_valid is the
 //      sentinel and is never scored, so the hash score probes real seeds
-//      alone), and takes each thread's kRun
+//      alone, kProbeBatch of a thread's at once with probe.cuh
+//      hash_scores, so that a thread keeps that many rows in flight), and
+//      takes each thread's kRun
 //      window minima from blocks of W positions (van Herk / Gil-Werman,
 //      as KB1); the first block of a row also takes the tail, one warp
 //      reducing at most W - 1 seeds.
@@ -92,6 +94,7 @@ constexpr int kThreads = 256;
 constexpr int kRun = 16;                // positions (slots) a thread owns
 constexpr int kTile = kThreads * kRun;  // positions (slots) a block owns
 constexpr uint64_t kSentinel = ~0ull;
+constexpr int kProbeBatch = 4;  // seeds a thread probes at once (hash)
 
 __device__ __host__ __forceinline__ int sx(int p) { return p + (p >> 4); }
 
@@ -365,16 +368,40 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (j0 >= ew) return;  // P < W: the tail only
 
-  // stage stream positions [j0, j0 + npos) with their scores
-  for (int p = tid; p < npos; p += kThreads) {
-    const int64_t q = j0 + p;
-    uint64_t v = kSentinel, s = kSentinel;
-    if (q < nv) {
-      v = srow[q];
-      s = score(q, v);
+  // stage stream positions [j0, j0 + npos) with their scores; the hash
+  // score probes kProbeBatch positions a thread at once, kThreads apart
+  if constexpr (kWin == kHash) {
+    const int64_t nseed = min((int64_t)npos, nv - j0);  // positions < nv
+    for (int b = 0; b < npos; b += kThreads * kProbeBatch) {
+      const int n = (int)max(
+          min((int64_t)kProbeBatch,
+              (nseed - b - tid + kThreads - 1) / kThreads),
+          (int64_t)0);
+      uint64_t v[kProbeBatch], s[kProbeBatch];
+#pragma unroll
+      for (int u = 0; u < kProbeBatch; ++u)
+        v[u] = u < n ? srow[j0 + b + u * kThreads + tid] : kSentinel;
+      bk::hash_scores(tbl, v, s, n);
+#pragma unroll
+      for (int u = 0; u < kProbeBatch; ++u) {
+        const int p = b + u * kThreads + tid;
+        if (p < npos) {
+          s_val[sx(p)] = v[u];
+          s_score[sx(p)] = s[u];
+        }
+      }
     }
-    s_val[sx(p)] = v;
-    s_score[sx(p)] = s;
+  } else {
+    for (int p = tid; p < npos; p += kThreads) {
+      const int64_t q = j0 + p;
+      uint64_t v = kSentinel, s = kSentinel;
+      if (q < nv) {
+        v = srow[q];
+        s = score(q, v);
+      }
+      s_val[sx(p)] = v;
+      s_score[sx(p)] = s;
+    }
   }
   __syncthreads();
 
@@ -586,4 +613,17 @@ extern "C" int bk_compacted_minimizers_gen(
   }
 #undef BK
   return (int)cudaErrorInvalidValue;
+}
+
+// The blocks of bk_compacted_minimizers_gen's hash window launch for a
+// window of W that one SM holds at once, or minus a CUDA error.
+extern "C" int bk_compacted_minimizers_hash_blocks_per_sm(int W) {
+  const int smem = window_smem(W);
+  const void* f = (const void*)window_kernel<kHash>;
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, f, kThreads, smem);
+  return e == cudaSuccess ? n : -(int)e;
 }

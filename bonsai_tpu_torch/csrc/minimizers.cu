@@ -50,7 +50,9 @@
 // loads and shifts a position for a spaced seed, and a double divide for
 // the entropy-file score), and with W > 1 a few compares a slot; the hash
 // score adds a phase-1 probe a position, one or two random 32-B rows
-// (probe.cuh), which then bound it.  The
+// (probe.cuh), which then bound it: the card serves random rows at a
+// rate well below its bytes' bound, and only as many as are in flight.
+// The
 // design: a block of 256 threads owns kTile = 4096 slots of a row and
 // stages their codes, with the (c - 1) + (W - 1) halo, in shared memory by
 // 16-B vector loads.  A contiguous thread builds the k-mer of the first
@@ -69,10 +71,17 @@
 // (contiguous | spaced) and the score (frev64 | entropy-file | hash) are
 // template parameters, so the contiguous lex instantiation is the kernel
 // it was before them; one entry point picks the instantiation from its
-// arguments.  The hash score (DNA only) probes from inside step 2, where
-// the k-mer is: its image adds kernel arguments, not shared memory.  The
-// other alphabets fold each position's k codes from the staged tile (k
-// shared loads a position, the simple way), and their Shannon score
+// arguments.  The hash score (DNA only) probes inside the roll, batched
+// (RollProbe): each kProbeBatch k-mers of a thread's run go out together
+// (probe.cuh ProbeBatch: every first row loaded before any compare), and
+// their rows arrive while the thread rolls its next kProbeBatch positions,
+// where a probe a position kept one dependent chain (hash, row, compare,
+// value) in flight and a step of batched probes after the roll left the
+// roll and the probes one after the other (PERF.md, row 6).  The image
+// adds kernel arguments, not shared memory; the rows in flight take
+// registers (2 blocks a SM at kProbeBatch = 4).  The other alphabets fold
+// each position's k codes from the staged tile (k shared loads a
+// position, the simple way), and their Shannon score
 // scans the seed's k codes in the tile once for each distinct code (at
 // most k + 1 scans) with the table of terms in global memory (L1); a DNA
 // spaced seed's Shannon score counts its codes from ov's 2-bit groups
@@ -90,6 +99,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRun = 16;                // slots a thread owns
 constexpr int kTile = kThreads * kRun;  // slots a block owns
+constexpr int kProbeBatch = 4;          // k-mers a thread probes at once
 
 // Shared index of tile position p: one spare word every 16, so that the
 // threads of a warp, 16 positions apart, fall in distinct banks.
@@ -112,19 +122,67 @@ __device__ __host__ __forceinline__ Layout layout(int span, int W) {
   return l;
 }
 
-// the score of a pushed k-mer or ov, by kind
+// the score of a pushed k-mer or ov, by kind (kHash: RollProbe)
 enum Score { kLex, kEntropy, kHash, kShannon };
 
 template <int kScore>
-__device__ __forceinline__ uint64_t score_of(uint64_t v, double denom,
-                                             const bk::ProbeTable& tbl) {
-  if constexpr (kScore == kHash)
-    return bk::hash_score(tbl, v);
-  else if constexpr (kScore == kEntropy)
+__device__ __forceinline__ uint64_t score_of(uint64_t v, double denom) {
+  if constexpr (kScore == kEntropy)
     return bk::entropy_file_score(v, denom);
   else
     return bk::frev64(v);
 }
+
+// The hash score inside the roll: a thread's k-mers, pushed at ascending
+// positions, go out kProbeBatch at a time as one ProbeBatch, whose rows
+// the roll of the next kProbeBatch positions hides; its scores then land
+// in s_score.  An N window's 0 and an N seed's U64_MAX are probed too.
+struct RollProbe {
+  bk::ProbeBatch<kProbeBatch> pend;  // the batch in flight
+  uint64_t km[kProbeBatch];          // the k-mers pushed since, newest last
+  int nk = 0;                        // how many
+  int at = -1;                       // position of pend's first lane, or -1
+
+  __device__ __forceinline__ void flush(const bk::ProbeTable& t,
+                                        uint64_t* s_score) {
+    if (at < 0) return;
+    uint64_t sc[kProbeBatch];
+    pend.finish(t, sc);
+#pragma unroll
+    for (int u = 0; u < kProbeBatch; ++u)
+      if (u < pend.n) s_score[sx(at + u)] = sc[u];
+    at = -1;
+  }
+
+  __device__ __forceinline__ void shift_in(uint64_t v) {
+#pragma unroll
+    for (int u = 0; u + 1 < kProbeBatch; ++u) km[u] = km[u + 1];
+    km[kProbeBatch - 1] = v;
+  }
+
+  __device__ __forceinline__ void push(const bk::ProbeTable& t,
+                                       uint64_t* s_score, int p, uint64_t v) {
+    shift_in(v);
+    if (++nk == kProbeBatch) {
+      flush(t, s_score);
+      pend.issue(t, km, kProbeBatch);
+      at = p - (kProbeBatch - 1);
+      nk = 0;
+    }
+  }
+
+  // after the last push, at position ``end`` - 1
+  __device__ __forceinline__ void finish(const bk::ProbeTable& t,
+                                         uint64_t* s_score, int end) {
+    flush(t, s_score);
+    if (nk) {  // the last nk k-mers down to lanes 0..nk-1
+      for (int s = nk; s < kProbeBatch; ++s) shift_in(0);
+      pend.issue(t, km, nk);
+      at = end - nk;
+      flush(t, s_score);
+    }
+  }
+};
 
 // (score, value) pair b orders at or before the best so far
 __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
@@ -191,6 +249,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint64_t mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
   const int top = 2 * k - 2;
   uint32_t bad = 0;  // W = 1: bit r, slot p0 + r emits nothing
+  [[maybe_unused]] RollProbe rp;  // kHash, W > 1
   if constexpr (kSpaced) {
     // the spaced k-mer (or U64_MAX) of position p, and its score; a kGen
     // k-mer comes folded and masked
@@ -209,10 +268,12 @@ __global__ void __launch_bounds__(kThreads)
         } else if constexpr (kScore == kShannon) {  // DNA: from ov alone
           s_score[sx(p)] =
               n_in ? bk::kInt64MinU : bk::shannon_dna_score(ov, k, sh);
+        } else if constexpr (kScore == kHash) {
+          rp.push(tbl, s_score, p, ov);
         } else {
           s_score[sx(p)] = kScore == kEntropy && n_in
                                ? bk::kInt64MinU
-                               : score_of<kScore>(ov, denom, tbl);
+                               : score_of<kScore>(ov, denom);
         }
       } else {
         bad |= (uint32_t)(kGen && unwindowed ? n_in : ov == ~0ull)
@@ -250,6 +311,8 @@ __global__ void __launch_bounds__(kThreads)
         push(p, kGen ? bk::fold_finish(fold, v) : v, n_in);
       }
     }
+    if constexpr (kScore == kHash)
+      if (W > 1) rp.finish(tbl, s_score, p1);
   } else if (p0 < p1) {
     const int64_t n_push0 = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
     const uint32_t* w32 = (const uint32_t*)s_code;
@@ -274,7 +337,10 @@ __global__ void __launch_bounds__(kThreads)
       if (W > 1) {
         const uint64_t ck = n_in ? 0 : v;
         s_val[sx(p0 + r)] = ck;
-        s_score[sx(p0 + r)] = score_of<kScore>(ck, denom, tbl);
+        if constexpr (kScore == kHash)
+          rp.push(tbl, s_score, p0 + r, ck);
+        else
+          s_score[sx(p0 + r)] = score_of<kScore>(ck, denom);
       } else {
         // with ``unwindowed`` set, a contiguous seed writes 0 as the value
         // of a slot that emits nothing (the sequence-parallel encode)
@@ -283,6 +349,8 @@ __global__ void __launch_bounds__(kThreads)
         bad |= (uint32_t)n_in << r;
       }
     }
+    if constexpr (kScore == kHash)
+      if (W > 1) rp.finish(tbl, s_score, p1);
   }
   __syncthreads();
 
@@ -465,4 +533,20 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
   }
 #undef BK
   return (int)cudaErrorInvalidValue;
+}
+
+// The blocks of bk_minimizers_gen's hash instantiation (DNA, contiguous
+// or ``spaced``) for a seed of span ``span`` and a window of W that one SM
+// holds at once, or minus a CUDA error.
+extern "C" int bk_minimizers_hash_blocks_per_sm(int spaced, int span, int W) {
+  const Layout l = layout(span, W);
+  const void* f = spaced ? (const void*)minimizers_kernel<true, kHash, false>
+                         : (const void*)minimizers_kernel<false, kHash, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, f, kThreads,
+                                                      l.bytes);
+  return e == cudaSuccess ? n : -(int)e;
 }

@@ -116,6 +116,9 @@ _SIGS = {
     # kmers, n, the phase-1 image (slots, lgnb, vbits, vals, n_vals,
     # inline), out, stream
     "bk_lookup_scores": [P, I64, P, I32, I32, P, I64, I32, P, P],
+    # the hash instantiations' blocks a SM: spaced, span, W (KB1); W (KB4)
+    "bk_minimizers_hash_blocks_per_sm": [I32, I32, I32],
+    "bk_compacted_minimizers_hash_blocks_per_sm": [I32],
     # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream
     "bk_sort_unique": [P, P, I64, I64, P, P, P, P, P],
     # keys, pad, node, orig, cnt, cap (state a), the same for state b,

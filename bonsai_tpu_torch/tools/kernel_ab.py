@@ -97,6 +97,22 @@ around back-to-back wrapper calls, which the host's enqueue can bound:
         tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
         tests/data/ec/*.fna.gz
 
+With ``--hash`` only the hash-scored phase 2's kernels run, at the
+default mode's shapes and maps: KB1 -k 25 -w 37 -t (W = 13) and -k 21 -S
+0x16,1x4 -w 40 -t (W = 16), KB4 -C -k 25 -w 37 -t and KB5 (2^22 k-mers,
+half stored), each by graph replay with its slot rows
+(``bounds.probe_rows``) and G rows/s beside its time.  The change is the
+tree's build of their sources, and each library's blocks a SM (the
+entry points ``bk_*_hash_blocks_per_sm``, appended to a copy of a source
+that lacks them) and ptxas's registers and spills are printed first.
+Each EDIT names an edited copy of the parent's sources (``HASH_EDITS``,
+several joined by '+'), timed in the same turns: a design experiment
+(the probe or the value read taken out, another batch size); an edit
+that changes the output is timed but not checked:
+
+    python -m bonsai_tpu_torch.tools.kernel_ab --hash PARENT_CSRC GENOME \\
+        [EDIT...]
+
 Each prints one line per case, then the results as one JSON object, and
 needs a CUDA card.
 """
@@ -107,8 +123,11 @@ import contextlib
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -132,9 +151,72 @@ BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
                  "bitmix")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 ROUTE_SOURCES = ("route",)
+HASH_SOURCES = ("minimizers", "compacted_minimizers", "lookup_scores")
 CLASSIFY_BATCH = 8192
 # KB1's and KB4's one entry point each
 KB1, KB4 = "bk_minimizers_gen", "bk_compacted_minimizers_gen"
+# --hash's edited copies of the parent's sources, for design experiments:
+# name -> (whether the output stays the parent's, substitutions (file, old
+# text, new text)).  A copy takes each substitution whose old text its file
+# holds, and must take one.
+HASH_EDITS = {
+    # the hash score a constant (0, or U64_MAX in a batch): the roll and
+    # the window, no probe
+    "no-probe": (False, (
+        ("probe.cuh",
+         "  uint64_t v = 0;\n  return probe(t, kmer, &v) ? v : ~0ULL;",
+         "  return 0;"),
+        ("probe.cuh", "    n = n_;\n", "    n = 0;\n"),
+    )),
+    # the slot rows read, the value not: its index stands in for it
+    "no-value": (False, (
+        ("probe.cuh", "*val = t.vals[idx];", "*val = (uint64_t)idx;"),
+        ("probe.cuh", "out[u] = t.vals[idx];", "out[u] = (uint64_t)idx;"),
+    )),
+    # another number of k-mers a thread probes at once
+    **{f"U{u}": (True, tuple((f, "kProbeBatch = 4;", f"kProbeBatch = {u};")
+                             for f in ("minimizers.cu",
+                                       "compacted_minimizers.cu")))
+       for u in (1, 2, 6, 8)},
+    # KB1's window minima skipped: the roll, the probes and the output
+    "no-window": (False, (("minimizers.cu", "  if (W > 1) {\n    uint16_t suf",
+                           "  if (false) {\n    uint16_t suf"),)),
+    # KB5 with 4 k-mers a thread, probed together (ProbeBatch)
+    "kb5-x4": (True, (("lookup_scores.cu",
+                       "  const int64_t i = (int64_t)blockIdx.x * kThreads "
+                       "+ threadIdx.x;\n  if (i >= n) return;\n"
+                       "  out[i] = bk::hash_score(t, kmers[i]);",
+                       "  const int64_t i0 = (int64_t)blockIdx.x * kThreads"
+                       " * 4 + threadIdx.x;\n  uint64_t km[4], sc[4];\n"
+                       "  int m = 0;\n#pragma unroll\n"
+                       "  for (int u = 0; u < 4; ++u) {\n"
+                       "    const bool in = i0 + u * kThreads < n;\n"
+                       "    km[u] = in ? kmers[i0 + u * kThreads] : 0;\n"
+                       "    m += in;\n  }\n"
+                       "  bk::hash_scores(t, km, sc, m);\n#pragma unroll\n"
+                       "  for (int u = 0; u < 4; ++u)\n"
+                       "    if (u < m) out[i0 + u * kThreads] = sc[u];"),)),
+    # the hash instantiations held to 3 blocks a SM (at most 85 registers)
+    "lb3": (True, tuple((f, f"__launch_bounds__(kThreads)\n    {kern}(",
+                         f"__launch_bounds__(kThreads, 3)\n    {kern}(")
+                        for f, kern in (("minimizers.cu", "minimizers_kernel"),
+                                        ("compacted_minimizers.cu",
+                                         "window_kernel")))),
+}
+
+# the hash instantiations' blocks a SM: (label, entry point, arguments)
+OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
+              (0, 25, 13)),
+             ("KB1 spaced hash W=16", "bk_minimizers_hash_blocks_per_sm",
+              (1, 25, 16)),
+             ("KB4 hash window W=13",
+              "bk_compacted_minimizers_hash_blocks_per_sm", (13,)))
+# the kernels whose registers and spills --hash prints (ptxas -v), by a
+# part of their mangled names
+PTXAS = (("KB1 hash", "minimizers_kernelILb0ELi2ELb0E"),
+         ("KB1 spaced hash", "minimizers_kernelILb1ELi2ELb0E"),
+         ("KB4 hash window", "window_kernelILi1E"),
+         ("KB5", "lookup_scores_kernel"))
 
 
 class ParentLib:
@@ -153,25 +235,93 @@ class ParentLib:
         return self._lib.bk_compacted_minimizers_gen_scratch(B, L, 1)
 
 
-def build_parent(csrc: str, names) -> ParentLib:
-    """The parent's ``names``.cu in one library, bound like ``kernels``."""
+def _edit_parts(edit: str):
+    """The HASH_EDITS names of ``edit`` (several joined by '+')."""
+    parts = edit.split("+")
+    if not all(p in HASH_EDITS for p in parts):
+        raise ValueError(f"edit {edit}: one of {', '.join(HASH_EDITS)}, or "
+                         "several joined by '+'")
+    return parts
+
+
+def keeps_output(edit: str) -> bool:
+    return all(HASH_EDITS[p][0] for p in _edit_parts(edit))
+
+
+def edited_copy(csrc: str, tag: str, edit=None) -> str:
+    """A copy of ``csrc`` under OUT_DIR/``tag`` with the substitutions of
+    each HASH_EDITS part of ``edit`` made, and the tree's hash occupancy
+    queries (``OCCUPANCY``) appended to a source that lacks them."""
+    out = os.path.join(OUT_DIR, f"src_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, out)
+    for part in _edit_parts(edit) if edit else ():
+        taken = 0
+        for f, old, new in HASH_EDITS[part][1]:
+            path = os.path.join(out, f)
+            text = open(path).read() if os.path.exists(path) else ""
+            if old in text:
+                open(path, "w").write(text.replace(old, new))
+                taken += 1
+        if not taken:
+            raise ValueError(f"edit {part}: none of its texts is in {csrc}")
+    for f in ("minimizers.cu", "compacted_minimizers.cu"):
+        path = os.path.join(out, f)
+        text = open(path).read()
+        if "_hash_blocks_per_sm" not in text:
+            own = open(os.path.join(kernels.CSRC, f)).read()
+            query = re.search(r'extern "C" int bk_\w+_hash_blocks_per_sm\(.*?'
+                              r'\n}\n', own, re.S)
+            open(path, "w").write(text + "\n" + query.group(0))
+    return out
+
+
+def _ptxas(err: str) -> dict:
+    """ptxas -v's registers and spill stores of each kernel in ``err``."""
+    out, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(stack=int(m.group(1)),
+                                            spill_stores=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def build_parent(csrc: str, names, tag: str = "parent", edit=None,
+                 info: bool = False) -> ParentLib:
+    """The ``names``.cu of ``csrc`` in one library (its files named by
+    ``tag``), bound like ``kernels``.  With ``edit`` or ``info``, of an
+    ``edited_copy``, with ptxas's registers and spills of the kernels of
+    ``PTXAS`` kept in the library's ``ptxas``."""
     os.makedirs(OUT_DIR, exist_ok=True)
+    if edit or info:
+        csrc = edited_copy(csrc, tag, edit)
     nvcc = kernels._nvcc()
     objs, procs = [], []
     for name in names:
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
             continue  # a kernel the parent does not have
-        obj = os.path.join(OUT_DIR, f"parent_{name}.o")
+        obj = os.path.join(OUT_DIR, f"{tag}_{name}.o")
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc, *kernels.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             *(["-Xptxas", "-v"] if info else []),
              "-c", "-o", obj, os.path.join(csrc, f"{name}.cu")],
             stderr=subprocess.PIPE, text=True))
+    regs = {}
     for p in procs:
         _, err = p.communicate(timeout=600)
         if p.returncode:
-            raise RuntimeError(f"parent kernel build failed:\n{err}")
-    lib_path = os.path.join(OUT_DIR, "libparent.so")
+            raise RuntimeError(f"{tag} kernel build failed:\n{err}")
+        regs.update(_ptxas(err))
+    lib_path = os.path.join(OUT_DIR, f"lib{tag}.so")
     subprocess.run([nvcc, *kernels.ARCH, "-shared", "-o", lib_path, *objs],
                    check=True, timeout=300)
     lib = ctypes.CDLL(lib_path)
@@ -183,7 +333,10 @@ def build_parent(csrc: str, names) -> ParentLib:
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_int64
             getattr(lib, name).argtypes = [ctypes.c_int64] * nargs
-    return ParentLib(lib)
+    out = ParentLib(lib)
+    out.ptxas = {label: next((v for k, v in regs.items() if part in k), None)
+                 for label, part in PTXAS}
+    return out
 
 
 @contextlib.contextmanager
@@ -225,54 +378,46 @@ def _phase1_like(seeds, rng):
                             dtype=np.uint64)])), rng)
 
 
-def build_cases(genome: str, nodes: str, dev):
-    """(name, call, timer[, entry point]) of KB1 at W = 1 and 10 and at
-    the seed disciplines' shapes, of KB4, KB5 and KB3."""
+def _chunk(seq: bytes, span: int, W: int, dev):
+    """The build's chunk of ``seq`` for a seed of span ``span`` and a
+    window of W: its first 4M windows' codes and length, on ``dev``."""
+    codes = fastx.encode_contig(seq[: (1 << 22) + span - 1 + W - 1], DNA4.lut)
+    return (torch.from_numpy(codes[None, :]).to(dev),
+            torch.tensor([codes.size], dtype=torch.int32, device=dev))
+
+
+def hash_cases(seq: bytes, dev, rng):
+    """(name, call, timer, entry point, slot rows) of the hash-scored phase
+    2's kernels on ``seq``'s build chunk: KB1 -k 21 -S 0x16,1x4 -w 40 -t
+    (W = 16) and -k 25 -w 37 -t (W = 13), KB5 on 2^22 k-mers (half stored
+    in the latter's map) and KB4 -C -k 25 -w 37 -t (W = 13), each map a
+    ``_phase1_like`` map of the chunk's own seeds; ``bounds.probe_rows``'
+    slot rows of each."""
     from ..core.spacer import Spacer
     from ..db.table import lookup_scores
+    from .bounds import hash_queries, probe_rows
 
-    seq = next(iter(fastx.read_fastx(genome)))[1]
-    cases = []
-    rng = np.random.default_rng(SEED)
-
-    def chunk(span, W):
-        codes = fastx.encode_contig(seq[: (1 << 22) + span - 1 + W - 1],
-                                    DNA4.lut)
-        return (torch.from_numpy(codes[None, :]).to(dev),
-                torch.tensor([codes.size], dtype=torch.int32, device=dev))
-
-    def own(c, ln, k, canon, pos=None):
-        em = enc.minimizers(c, ln, k, 1, canon, "lex", pos)
-        return _phase1_like(em.values[em.mask].cpu().numpy().view(np.uint64),
+    def own(c, ln, k, canon, pos=None):  # canon None: KB4's -C seeds
+        em = enc.minimizers(c, ln, k, 1, bool(canon), "lex", pos)
+        smap = _phase1_like(em.values[em.mask].cpu().numpy().view(np.uint64),
                             rng)
+        return smap, probe_rows(hash_queries(c, ln, k, canon, pos),
+                                smap.arrays(dev))[1]
 
-    for W in (1, 10):
-        c, ln = chunk(31, W)
-        cases.append((f"minimizers k=31 W={W}",
-                      lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
-                      graph_ms, KB1))
     pos = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
-    c, ln = chunk(25, 1)
-    cases.append(("minimizers -k 21 -S 0x16,1x4 W=1",
-                  lambda c=c, ln=ln: enc.minimizers(c, ln, 21, 1, False, "lex",
-                                                    pos),
-                  graph_ms, KB1))
-    c, ln = chunk(25, 16)
-    smap = own(c, ln, 21, False, pos)
+    cases = []
+    c, ln = _chunk(seq, 25, 16, dev)
+    smap, rows = own(c, ln, 21, False, pos)
     cases.append(("minimizers -k 21 -S 0x16,1x4 -w 40 -t W=16",
                   lambda c=c, ln=ln, smap=smap: enc.minimizers(
                       c, ln, 21, 16, False, "hash", pos, smap),
-                  graph_ms, KB1))
-    c, ln = chunk(25, 13)
-    cases.append(("minimizers -k 25 -w 37 -e W=13",
-                  lambda c=c, ln=ln: enc.minimizers(c, ln, 25, 13, True,
-                                                    "entropy-file"),
-                  graph_ms, KB1))
-    smap = own(c, ln, 25, True)
+                  graph_ms, KB1, rows))
+    c, ln = _chunk(seq, 25, 13, dev)
+    smap, rows = own(c, ln, 25, True)
     cases.append(("minimizers -k 25 -w 37 -t W=13",
                   lambda c=c, ln=ln, smap=smap: enc.minimizers(
                       c, ln, 25, 13, True, "hash", score_map=smap),
-                  graph_ms, KB1))
+                  graph_ms, KB1, rows))
     arr = smap.arrays(dev)
     keys = smap.table.keys_sorted
     q = torch.from_numpy(np.concatenate([
@@ -281,17 +426,46 @@ def build_cases(genome: str, nodes: str, dev):
     ).to(dev)
     cases.append(("lookup_scores 2^22 k-mers, half stored",
                   lambda: [lookup_scores(q, arr)], graph_ms,
-                  "bk_lookup_scores"))
+                  "bk_lookup_scores", probe_rows(q, arr)[1]))
+    smap, rows = own(c, ln, 25, None)
+    cases.append(("compacted_minimizers -C -k 25 -w 37 -t W=13",
+                  lambda c=c, ln=ln, smap=smap: enc.compacted_minimizers(
+                      c, ln, 25, 13, "hash", smap),
+                  graph_ms, KB4, rows))
+    return cases
+
+
+def build_cases(genome: str, nodes: str, dev):
+    """(name, call, timer[, entry point[, slot rows]]) of KB1 at W = 1 and
+    10 and at the seed disciplines' shapes, of KB4, the hash cases
+    (``hash_cases``) and KB3."""
+    from ..core.spacer import Spacer
+
+    seq = next(iter(fastx.read_fastx(genome)))[1]
+    cases = []
+    rng = np.random.default_rng(SEED)
+    for W in (1, 10):
+        c, ln = _chunk(seq, 31, W, dev)
+        cases.append((f"minimizers k=31 W={W}",
+                      lambda c=c, ln=ln, W=W: enc.minimizers(c, ln, 31, W, True),
+                      graph_ms, KB1))
+    pos = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
+    c, ln = _chunk(seq, 25, 1, dev)
+    cases.append(("minimizers -k 21 -S 0x16,1x4 W=1",
+                  lambda c=c, ln=ln: enc.minimizers(c, ln, 21, 1, False, "lex",
+                                                    pos),
+                  graph_ms, KB1))
+    c, ln = _chunk(seq, 25, 13, dev)
+    cases.append(("minimizers -k 25 -w 37 -e W=13",
+                  lambda c=c, ln=ln: enc.minimizers(c, ln, 25, 13, True,
+                                                    "entropy-file"),
+                  graph_ms, KB1))
     cases.append(("compacted_minimizers -C -k 25 -w 37 -e W=13",
                   lambda c=c, ln=ln: enc.compacted_minimizers(
                       c, ln, 25, 13, "entropy-file"),
                   graph_ms, KB4))
-    smap = own(c, ln, 25, False)
-    cases.append(("compacted_minimizers -C -k 25 -w 37 -t W=13",
-                  lambda c=c, ln=ln, smap=smap: enc.compacted_minimizers(
-                      c, ln, 25, 13, "hash", smap),
-                  graph_ms, KB4))
-    c, ln = chunk(31, 10)
+    cases += hash_cases(seq, dev, rng)
+    c, ln = _chunk(seq, 31, 10, dev)
     cases.append(("compacted_minimizers -C -k 31 -w 40 W=10",
                   lambda c=c, ln=ln: enc.compacted_minimizers(c, ln, 31, 10),
                   graph_ms, KB4))
@@ -728,48 +902,86 @@ def _device_ms(fn, calls=5):
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def run(parent_csrc: str, cases, names, say=print) -> dict:
-    """Check and time each (name, call, timer[, entry point]) of ``cases``
-    against the parent's build of the sources ``names``."""
-    lib = build_parent(parent_csrc, names)
+def run(libs: dict, cases, say=print) -> dict:
+    """Check and time each (name, call, timer[, entry point[, slot rows]])
+    of ``cases`` on the tree's kernels (the change) against ``libs``: the
+    parent's build, then any edited copies of it (``HASH_EDITS`` names).
+    The change's output must equal the parent's, and an edit's that keeps
+    the output; in turns parent, change, each copy, then backwards; with
+    slot rows, each time's row rate beside it."""
     res = {"cases": {}, "profile": {}, "skipped": []}
-    for name, change, timer, *entry in cases:
-        if entry and not hasattr(lib, entry[0]):
-            say(f"# {name}: skipped, the parent has no {entry[0]}")
+    for name, change, timer, *extra in cases:
+        entry, rows = (list(extra) + [None, None])[:2]
+        if entry and not hasattr(libs["parent"], entry):
+            say(f"# {name}: skipped, the parent has no {entry}")
             res["skipped"].append(name)
             continue
-        parent = on(lib, change)
-        got, want = change(), parent()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{name}: parent and change differ")
-        p1 = timer(parent, ITERS)
-        c1 = timer(change, ITERS)
-        c2 = timer(change, ITERS)
-        p2 = timer(parent, ITERS)
-        res["cases"][name] = {"parent_ms": [p1, p2], "change_ms": [c1, c2],
-                              "timer": timer.__name__}
-        say(f"# {name}: parent {p1:.4f} ms, change {c1:.4f} ms, change "
-            f"{c2:.4f} ms, parent {p2:.4f} ms ({timer.__name__}; same output)")
-        res["profile"][name] = {"parent": _device_ms(parent),
-                                "change": _device_ms(change)}
+        calls = {"parent": on(libs["parent"], change), "change": change,
+                 **{e: on(lib, change) for e, lib in libs.items()
+                    if e != "parent"}}
+        got = change()
+        checked = [label for label in calls if label == "parent" or (
+            label != "change" and keeps_output(label))]
+        for label in checked:
+            if not all(torch.equal(g, w) for g, w in zip(got, calls[label]())):
+                raise AssertionError(f"{name}: {label} and change differ")
+        order = list(calls)
+        times = {label: [] for label in order}
+        for label in order + order[::-1]:
+            times[label].append(timer(calls[label], ITERS))
+        res["cases"][name] = {f"{label}_ms": t for label, t in times.items()}
+        res["cases"][name]["timer"] = timer.__name__
+        text = ", ".join(f"{label} {t[0]:.4f}, {t[1]:.4f} ms"
+                         for label, t in times.items())
+        say(f"# {name}: {text} ({timer.__name__}, in turns "
+            f"{', '.join(order + order[::-1])}; output of "
+            f"{', '.join(checked)} = change's)")
+        if rows:
+            res["cases"][name]["slot_rows"] = rows
+            rate = ", ".join(f"{label} {rows / (sum(t) / 2) / 1e6:.2f}"
+                             for label, t in times.items())
+            say(f"#   {rows} slot rows (bounds.probe_rows): G rows/s {rate}")
+        res["profile"][name] = {label: _device_ms(call)
+                                for label, call in calls.items()}
         say(f"#   by kernel, ms a call: {res['profile'][name]}")
     return res
+
+
+def build_hash_libs(parent_csrc: str, edits, say=print) -> dict:
+    """``--hash``'s libraries, built together: the parent's, the tree's
+    (the change) and an edited copy of the parent's for each of
+    ``edits``, each with the hash occupancy queries; their blocks a SM
+    and ptxas's registers and spills printed."""
+    jobs = {"parent": (parent_csrc, None), "change": (kernels.CSRC, None),
+            **{e: (parent_csrc, e) for e in edits}}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {label: pool.submit(build_parent, csrc, HASH_SOURCES, label,
+                                   edit, True)
+                for label, (csrc, edit) in jobs.items()}
+        libs = {label: f.result() for label, f in futs.items()}
+    for label, lib in libs.items():
+        occ = {what: getattr(lib, fn)(*a) for what, fn, a in OCCUPANCY}
+        say(f"# {label}: blocks a SM {occ}; ptxas {lib.ptxas}")
+    return libs
 
 
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
          "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--sketch|--api PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--classify|--route PARENT_CSRC READS NODES NAMEID GENOME...")
+         "--hash PARENT_CSRC GENOME [EDIT...]\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--classify|--route PARENT_CSRC READS NODES NAMEID GENOME...\n"
+         f"EDIT: one of {', '.join(HASH_EDITS)}, or several joined by '+'")
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    modes = ("--classify", "--route", "--sketch", "--api")
+    modes = ("--classify", "--route", "--sketch", "--api", "--hash")
     mode = args[0] if args and args[0] in modes else ""
     if mode:
         args = args[1:]
     if ((mode in ("--classify", "--route") and len(args) < 5)
             or (mode in ("--sketch", "--api") and len(args) != 2)
+            or (mode == "--hash" and len(args) < 2)
             or (not mode and len(args) != 3)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -784,20 +996,30 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if mode == "--classify":
         cases, k1_in = classify_cases(*args[1:4], args[4:], dev)
-        res = run(args[0], cases, CLASSIFY_SOURCES)
+        res = run({"parent": build_parent(args[0], CLASSIFY_SOURCES)}, cases)
         res["sparse_vs_mask"] = sparse_vs_mask(*k1_in)
         res["yardstick_ms"] = yardstick_ms(dev)
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
               f"graph replay: {res['yardstick_ms']:.4f} ms")
     elif mode == "--route":
-        res = run(args[0], route_cases(*args[1:4], args[4:], dev),
-                  ROUTE_SOURCES)
+        res = run({"parent": build_parent(args[0], ROUTE_SOURCES)},
+                  route_cases(*args[1:4], args[4:], dev))
+    elif mode == "--hash":
+        for edit in args[2:]:
+            _edit_parts(edit)
+        # the change is the tree's build of HASH_SOURCES, which holds every
+        # entry point these cases call
+        libs = build_hash_libs(args[0], args[2:])
+        kernels._lib = libs.pop("change")
+        seq = next(iter(fastx.read_fastx(args[1])))[1]
+        res = run(libs, hash_cases(seq, dev, np.random.default_rng(SEED)))
     elif mode:
         seq = next(iter(fastx.read_fastx(args[1])))[1]
         cases = (sketch_cases if mode == "--sketch" else api_cases)(seq, dev)
-        res = run(args[0], cases, BUILD_SOURCES)
+        res = run({"parent": build_parent(args[0], BUILD_SOURCES)}, cases)
     else:
-        res = run(args[0], build_cases(*args[1:], dev), BUILD_SOURCES)
+        res = run({"parent": build_parent(args[0], BUILD_SOURCES)},
+                  build_cases(*args[1:], dev))
     res["card"] = card
     print(json.dumps(res))
     return 0

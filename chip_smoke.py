@@ -104,7 +104,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  KB1 hash and spaced hash, KB4 hash launched; HiSeq
                  against the ec -k 25 -w 37 -t database (sha256 = the JAX
                  Classifier's); the four kernels and their plain versions
-                 timed by CUDA-graph replay at those shapes, with bounds
+                 timed by CUDA-graph replay at those shapes, with bounds,
+                 and each hash instantiation's slot rows a ms (G rows/s,
+                 beside KB5's on the same kind of map) and blocks a SM
  9d. Python API  after phase 9c: the Shannon terms made on this host
                  (sha256 = the JAX package's host's); through
                  bonsai_tpu_torch.api on the card, each sha256 = the JAX
@@ -2386,7 +2388,7 @@ def phase_hash(dev, chk, kk, hiseq):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch import cli, kernels
     from bonsai_tpu_torch.classify import pipeline as pl
     from bonsai_tpu_torch.core import encoder as enc
     from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
@@ -2576,6 +2578,16 @@ def phase_hash(dev, chk, kk, hiseq):
             f"({probes[1] / probes[0]:.3f} a probe), {probes[2]} found")
         times[name] = time_pair(name, f"ec chunk {codes.shape[1]} bases {tag}",
                                 kern, plain, bounds[name], graph=True)
+        lib = kernels.get_lib()
+        blocks = (lib.bk_compacted_minimizers_hash_blocks_per_sm(W)
+                  if canon is None else
+                  lib.bk_minimizers_hash_blocks_per_sm(int(pos is not None),
+                                                       pos[-1] + 1 if pos
+                                                       else k, W))
+        say(f"# hash: {name}: {probes[1]} slot rows in {times[name][0]:.4f} "
+            f"ms, {probes[1] / times[name][0] / 1e6:.2f} G rows/s (KB5's "
+            f"pattern is the yardstick: lookup_scores below); {blocks} "
+            "blocks a SM")
     arr = maps["-k 25 -w 37 -t"].arrays(dev)
     rng = np.random.default_rng(SEED + 10)
     keys = maps["-k 25 -w 37 -t"].table.keys_sorted

@@ -207,3 +207,44 @@ def test_encoder_entropy_matches_jit():
     np.testing.assert_array_equal(em.mask.numpy(), mask)
     np.testing.assert_array_equal(u64(em.values)[mask],
                                   np.asarray(j_vals)[mask])
+
+
+@pytest.mark.parametrize("disc", ["kb4", "kb1 spaced"])
+def test_the_order_of_the_dna_shannon_adds_decides_these_rows(disc):
+    """The rows of ``tests/shannon_order.py``: -k 31 -w 40 canonical
+    (KB4) and -k 21 -S 0x16,1x4 -w 40 (KB1 spaced).  On each, the JAX
+    package's entropy_value moves some seed's H by exactly one ulp (and
+    none by more than two) when G's term is added before C's, and a window
+    minimum changes with it:
+    the port's plain encoder, equal to the JAX BatchEncoder there, emits
+    another minimizer than it emits in that order.  The card tests hold
+    KB4 and KB1 spaced to the plain version on the same rows."""
+    import shannon_order as so
+
+    if disc == "kb4":
+        codes, lengths = so.kb4_rows()
+        k, spacer = 31, (31, 40, "")
+        counts = jent.window_code_counts(codes, k, 4)
+    else:
+        codes, lengths = so.kb1_spaced_rows()
+        k, spacer = 21, (21, 40, so.SPACING21)
+        counts = jent.spaced_code_counts(codes, so.positions21(), 4)
+    h = jent.entropy_value(counts, k)
+    h_swapped = jent.entropy_value(counts[..., so.SWAP], k)
+    ulps = np.abs(h - h_swapped) / np.spacing(np.abs(h))
+    assert set(np.unique(ulps)) <= {0.0, 1.0, 2.0}
+    assert (ulps == 1).any(-1).all()
+    canon = disc == "kb4"
+    jem = JEncoder(JSpacer(*spacer), canon, "entropy").emissions(codes,
+                                                                 lengths)
+    enc = BatchEncoder(Spacer(*spacer), canon, "entropy")
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lengths)
+    em = enc.emissions(ct, lt)
+    mask = np.asarray(jem.mask)
+    np.testing.assert_array_equal(em.mask.numpy(), mask)
+    np.testing.assert_array_equal(u64(em.values)[mask],
+                                  np.asarray(jem.values)[mask])
+    with so.swapped_order():
+        other = enc.emissions(ct, lt)
+    differs = (em.values != other.values) & (em.mask | other.mask)
+    assert (differs | (em.mask != other.mask)).any(-1).all()

@@ -1397,6 +1397,77 @@ def test_compacted_minimizers_hash_kernel_short_rows_twice(cuda):
                                           "hash", smap))
 
 
+def _high_load_map(rng, keys, mode, n=31_000):
+    """A phase-1 map of ``keys`` (fewer than n), 0 and U64_MAX, padded
+    with random keys to n: 2^13 buckets 95% full, so that many keys sit in
+    their second bucket."""
+    keys = np.unique(np.concatenate([np.asarray(keys, np.uint64),
+                                     np.array([0, U64_MAX], np.uint64)]))
+    pad = np.setdiff1d(rng.integers(1, 2**64 - 1, n, dtype=np.uint64), keys)
+    keys = np.unique(np.concatenate([keys, pad[: n - keys.size]]))
+    v = (np.arange(keys.size, dtype=np.uint64) if mode == "flat" else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v,
+                      load_factor=0.97)
+    assert table.nb == 1 << 13 and table.arrays_np()[2] == (mode == "inline")
+    return ScoreMap(table)
+
+
+def _batch_rows(rng, c, W):
+    """``_kb1_edge_rows`` (tile edges, runs of positions that are no
+    multiple of a probe batch), three rows of 1, 2 and 3 seeds (fewer than
+    a batch) and a row all N across two tiles."""
+    codes, lengths = _kb1_edge_rows(rng, c, W)
+    L = codes.shape[1]
+    short = rng.integers(0, 4, (3, L)).astype(np.int8)
+    short_len = c + np.arange(3, dtype=np.int32)
+    short[np.arange(L)[None, :] >= short_len[:, None]] = -1
+    codes = np.concatenate([codes, short, np.full((1, L), -1, np.int8)])
+    return codes, np.concatenate([lengths, short_len, [L]]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+@pytest.mark.parametrize("W", [2, 5, 16])
+@pytest.mark.parametrize("disc", ["kb1", "kb1 spaced", "kb4"])
+def test_hash_kernels_probe_batches(cuda, disc, W, mode):
+    """The batched probe of KB1's and KB4's hash instantiations against
+    the plain version, exactly: ``_batch_rows`` (an all-N tile probes 0,
+    or U64_MAX spaced, both stored) against a map 95% full that holds half
+    their seeds; then against a map that lacks every seed, where every
+    score is U64_MAX.  KB4 runs both calls back to back."""
+    from bonsai_tpu_torch.db.table import lookup_scores_plain
+    from bonsai_tpu_torch.tools.bounds import hash_queries, probe_rows
+
+    k, pos = (21, _positions(21)) if disc == "kb1 spaced" else (25, None)
+    c = pos[-1] + 1 if pos else k
+    canon = {"kb1": True, "kb1 spaced": False, "kb4": None}[disc]
+    rng = np.random.default_rng(W * 31 + len(disc) + len(mode))
+    codes, lengths = _batch_rows(rng, c, W)
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lengths)
+    q = hash_queries(ct, lt, k, canon, pos)
+    seeds = np.unique(q.numpy().view(np.uint64))
+    full = _high_load_map(rng, rng.choice(seeds, seeds.size // 2,
+                                          replace=False), mode)
+    probes, rows, _ = probe_rows(q, full.arrays(torch.device("cpu")))
+    assert rows > 1.2 * probes  # a fifth of the probes read a second row
+    lacking = _score_map(rng, rng.integers(1, 2**64 - 1, 5000,
+                                           dtype=np.uint64), mode)
+    assert (lookup_scores_plain(q, lacking.arrays(torch.device("cpu")))
+            == -1).all()
+    if disc == "kb4":
+        want = [_run_kb4(cuda, codes, lengths, k, W, "hash", m)
+                for m in (full, lacking)]
+        assert want[0].mask[:, 0].any() and want[0].mask[:, 1:].any()
+        got = [enc.compacted_minimizers(ct.to(cuda), lt.to(cuda), k, W,
+                                        "hash", m) for m in (full, lacking)]
+        for g, w in zip(got, want):
+            _same(g, w)
+    else:
+        for m in (full, lacking):
+            _run_kb1(cuda, codes, lengths, k, W, canon, "hash", pos, m)
+
+
 @pytest.mark.cuda
 def test_hash_kernels_need_a_score_map(cuda):
     c = torch.zeros((1, 200), dtype=torch.int8, device=cuda)
@@ -1500,6 +1571,34 @@ def test_compacted_minimizers_shannon_kernel_matches_plain(cuda, k, W, canon):
     codes, lengths = _shannon_rows(rng)
     _run_gen(cuda, "kb4", codes, lengths, k, W, "entropy", InputType.DNA,
              canon=canon)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disc", ["kb4", "kb1 spaced"])
+def test_dna_shannon_kernels_keep_the_order_of_the_adds(cuda, disc):
+    """KB4 -k 31 -w 40 canonical and KB1 -k 21 -S 0x16,1x4 -w 40 emit the
+    plain version's minimizers on the rows of ``tests/shannon_order.py``,
+    where adding G's term before C's would emit others
+    (``tests/test_torch_entropy.py`` shows both against the JAX
+    package)."""
+    import shannon_order as so
+
+    if disc == "kb4":
+        (codes, lengths), call, kern = so.kb4_rows(), so.kb4_call, \
+            enc.compacted_minimizers
+    else:
+        (codes, lengths), call, kern = so.kb1_spaced_rows(), \
+            so.kb1_spaced_call, enc.minimizers
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = call(ct, lt)
+    with so.swapped_order():
+        other = call(ct, lt)
+    assert ((want.values != other.values) | (want.mask != other.mask)).any(
+        -1).all()
+    before = kern.launches
+    got = call(ct.to(cuda), lt.to(cuda))
+    assert kern.launches == before + 1
+    _same(got, want)
 
 
 RADIX_TYPES = [t for t in InputType if t != InputType.DNA]
