@@ -29,7 +29,13 @@
 // Both kernels stop with __trap() on an index outside the table, as
 // torch.gather's device-side assert does: the launch fails and the CUDA
 // context is lost, and the next synchronising call reports it.
+//
+// bk_empty_launch replaces no TPU kernel: it is a yardstick, the floor of
+// a launch by graph replay, an empty kernel of some blocks of 256
+// threads, or a cooperative one whose blocks meet at one grid barrier (the
+// fixed cost of KD1's frame and collect, csrc/route.cu).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -97,6 +103,10 @@ void take(bool vec, dim3 grid, cudaStream_t s, const uint32_t* tab,
     take_kernel<AXIS, false><<<grid, block, 0, s>>>(tab, idx, R, Ct, Q, Ci, out);
 }
 
+__global__ void empty_kernel() {}
+
+__global__ void barrier_kernel() { cooperative_groups::this_grid().sync(); }
+
 }  // namespace
 
 // tbl (R, C) u32 with C % 4 == 0, idx (Q,) int32 in [0, R) -> out (Q, C)
@@ -134,4 +144,21 @@ extern "C" int bk_take_along(const void* tab, const void* idx, int64_t R,
   else
     take<1>(vec, grid, s, t, ix, R, Ct, Q, Ci, o);
   return (int)cudaGetLastError();
+}
+
+// An empty launch of ``blocks`` blocks of 256 threads, or with ``coop`` a
+// cooperative one (at most the blocks resident together) whose blocks
+// meet at one grid barrier.
+extern "C" int bk_empty_launch(int64_t blocks, int coop, void* stream) {
+  if (blocks < 1 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!coop) {
+    empty_kernel<<<(unsigned)blocks, 256, 0, s>>>();
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)barrier_kernel, dim3((unsigned)blocks), dim3(256), nullptr,
+      0, s);
+  cudaGetLastError();  // a refused launch leaves no error for the next
+  return (int)e;
 }

@@ -36,12 +36,25 @@
 //          sub-table (probe.cuh), and the response word
 //          (val & ~U32 | found << 31 | val & LOW31), or with want_idx
 //          (dictionary mode) (sel << 32 | found << 31 | val & LOW31);
-//          0 where the key is missing.
+//          0 where the key is missing.  Its time is the card's rate of
+//          random 32-B slot rows (most received keys miss, and read both
+//          of their rows): loading both rows at once, more keys a thread
+//          or the U64_MAX rows probed once a block gained nothing there
+//          (PERF.md, row 19c), and the second row stays unread where the
+//          first holds the key.  Blocks of 128 threads: a later
+//          round's small frame reaches more SMs than with 256.
 //   bk_route_collect: for each query sent this round, its response from
 //          the returned frame: done, hit = found, cidx = the compact
 //          index (low 31 bits), oidx = the high word; and the count of
 //          queries still pending (one 8-B word, read on the host once a
-//          round, as the JAX while_loop's condition reads its psum).
+//          round, as the JAX while_loop's condition reads its psum).  One
+//          launch, nothing else (no memset): a thread takes groups of 4
+//          queries (16-B loads of slotq, 4-B of done, and 16-B and 4-B
+//          stores where all 4 were sent, when the tensors are so
+//          aligned); a block adds (1 << 40 | its count of pending
+//          queries) to a tally, one atomic a block of 1024 queries, and
+//          the block whose add finds every other block in the tally
+//          writes the count and resets the tally.
 //
 // What bounds them on an H100: bytes.  frame reads 8 B and a flag and
 // writes 4 B a query and 8 B a frame row; probe reads 8 B, one or two
@@ -68,6 +81,11 @@ constexpr int kRounds = 4;                     // queries a thread a tile
 constexpr int kTile = kThreads * kRounds;      // queries a frame tile
 constexpr int kDirect = 16384;  // blocks x owners a block sums itself
 constexpr int64_t kPadRows = 16384;  // frame rows a block pads, at most
+constexpr int kProbeThreads = 128;   // a probe block's threads
+constexpr int kCollectQ = 4;         // queries a collect thread, 4 a group
+constexpr int kGroups = kCollectQ / 4;
+constexpr int64_t kCollectBlocks = 4096;  // collect's blocks, at most
+constexpr int kTallyShift = 40;      // collect's tally: blocks << 40 | count
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
 __device__ __forceinline__ int owner_of(uint64_t key, uint64_t ndb) {
@@ -249,11 +267,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kProbeThreads)
     probe_kernel(const uint64_t* __restrict__ recv, int64_t n,
                  bk::ProbeTable t, int want_idx, uint64_t* __restrict__ resp) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+  const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kProbeThreads + threadIdx.x; i < n;
        i += stride) {
     uint64_t val = 0;
     uint32_t sel = 0;
@@ -266,47 +284,129 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One query's update from its response word w: hit, cidx, oidx.
+__device__ __forceinline__ void answer(uint64_t w, uint8_t* hit, int32_t* cidx,
+                                       int32_t* oidx) {
+  *hit = (w >> 31) & 1;
+  *cidx = (int32_t)(w & 0x7FFFFFFFull);
+  *oidx = (int32_t)(uint32_t)(w >> 32);
+}
+
+// collect's tally of this call: the blocks done (<< kTallyShift) and
+// their queries still pending, added by one atomic a block.  The last
+// block writes the count and resets the tally, so it is 0 between calls
+// (which run one after another, on one stream).
+__device__ unsigned long long g_tally = 0;
+
+// kVec: slotq, cidx and oidx 16-B aligned, done and hit 4-B aligned.  A
+// thread takes kGroups groups of 4 queries a pass, a warp's groups
+// contiguous.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     collect_kernel(const uint64_t* __restrict__ back,
                    const int32_t* __restrict__ slotq, int64_t Q, int64_t dump,
-                   bool* __restrict__ done, bool* __restrict__ hit,
+                   uint8_t* __restrict__ done, uint8_t* __restrict__ hit,
                    int32_t* __restrict__ cidx, int32_t* __restrict__ oidx,
-                   unsigned long long* pending) {
-  __shared__ unsigned s_cnt[kThreads / 32];
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  unsigned cnt = 0;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < Q;
-       i += stride) {
-    const int64_t s = slotq[i];
-    bool d = done[i];
-    if (s < dump) {
-      const uint64_t w = back[s];
-      hit[i] = (w >> 31) & 1;
-      cidx[i] = (int32_t)(w & 0x7FFFFFFFull);
-      oidx[i] = (int32_t)(uint32_t)(w >> 32);
-      done[i] = d = true;
+                   unsigned long long* __restrict__ pending) {
+  __shared__ uint32_t s_cnt[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t span = (int64_t)kThreads * kCollectQ;
+  uint32_t left = 0;  // this thread's queries not done after the update
+  for (int64_t b0 = (int64_t)blockIdx.x * span; b0 < Q;
+       b0 += (int64_t)gridDim.x * span) {
+    int32_t s[kGroups][4];
+    uint32_t d[kGroups];  // the 4 done flags, a byte each
+    uint64_t w[kGroups][4];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int64_t i = b0 + 4 * ((int64_t)g * kThreads + threadIdx.x);
+      if (kVec && i + 4 <= Q) {
+        const int4 v = *(const int4*)(slotq + i);
+        s[g][0] = v.x, s[g][1] = v.y, s[g][2] = v.z, s[g][3] = v.w;
+        d[g] = *(const uint32_t*)(done + i);
+      } else {
+        d[g] = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = i + e < Q;  // a lane past Q: not sent, done
+          s[g][e] = in ? slotq[i + e] : (int32_t)dump;
+          d[g] |= (uint32_t)(in ? done[i + e] : 1) << (8 * e);
+        }
+      }
     }
-    cnt += !d;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[g][e] = s[g][e] < dump ? back[s[g][e]] : 0;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int64_t i = b0 + 4 * ((int64_t)g * kThreads + threadIdx.x);
+      uint32_t sent = 0, dn = d[g];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (s[g][e] < dump) sent |= 1u << e, dn |= 1u << (8 * e);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) left += ((dn >> (8 * e)) & 0xFF) == 0;
+      if (!sent) continue;
+      if (kVec && i + 4 <= Q) {
+        *(uint32_t*)(done + i) = dn;
+        if (sent == 0xF) {
+          uint32_t h = 0;
+          int32_t c[4], o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            uint8_t b;
+            answer(w[g][e], &b, &c[e], &o[e]);
+            h |= (uint32_t)b << (8 * e);
+          }
+          *(uint32_t*)(hit + i) = h;
+          *(int4*)(cidx + i) = make_int4(c[0], c[1], c[2], c[3]);
+          *(int4*)(oidx + i) = make_int4(o[0], o[1], o[2], o[3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!(sent >> e & 1)) continue;
+        if (!kVec || i + 4 > Q) done[i + e] = 1;
+        answer(w[g][e], hit + i + e, cidx + i + e, oidx + i + e);
+      }
+    }
   }
-  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
-  if ((threadIdx.x & 31) == 0) s_cnt[threadIdx.x >> 5] = cnt;
+  left = __reduce_add_sync(kAll, left);
+  if (lane == 0) s_cnt[warp] = left;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long sum = 0;
-    for (int w = 0; w < kThreads / 32; ++w) sum += s_cnt[w];
-    if (sum) atomicAdd(pending, sum);
+    for (int x = 0; x < kWarps; ++x) sum += s_cnt[x];
+    const unsigned long long old =
+        atomicAdd(&g_tally, (1ull << kTallyShift) | sum);
+    if ((old >> kTallyShift) == gridDim.x - 1) {  // the last block
+      *pending = (old & ((1ull << kTallyShift) - 1)) + sum;
+      g_tally = 0;
+    }
   }
 }
 
 size_t frame_smem(int64_t ndb) { return (size_t)(kWarps + 2) * ndb * 4; }
 
-unsigned grid(int64_t n) {
+// A probe's blocks for n keys: at most 32 of kProbeThreads an SM, each
+// thread a stride past that.
+unsigned probe_grid(int64_t n) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * 16;
+  const int64_t want = (n + kProbeThreads - 1) / kProbeThreads;
+  const int64_t cap = (int64_t)sms * 32;
   return (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// collect's blocks for Q queries: a block of kThreads * kCollectQ, at most
+// kCollectBlocks (a block takes more a pass past that)
+int64_t collect_blocks(int64_t Q) {
+  const int64_t want = (Q + kThreads * kCollectQ - 1) / (kThreads * kCollectQ);
+  return want < 1 ? 1 : want < kCollectBlocks ? want : kCollectBlocks;
 }
 
 // Blocks of the frame kernel resident on the card together (at ndb's
@@ -381,25 +481,36 @@ extern "C" int bk_route_probe(const void* recv, int64_t n, const void* slots,
   if (n == 0) return (int)cudaSuccess;
   const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
                          n_vals, lgnb, vbits, is_inline};
-  probe_kernel<<<grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+  probe_kernel<<<probe_grid(n), kProbeThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)recv, n, t, want_idx, (uint64_t*)resp);
   return (int)cudaGetLastError();
 }
 
 // back (dump,) int64 returned frame, slotq (Q,) int32 -> done, hit (Q,)
 // bool, cidx, oidx (Q,) int32 updated where slotq < dump; pending (an
-// int64 scalar) = the queries not done after the update.
+// int64 scalar) = the queries not done after the update; Q < 2^40.  One
+// launch, nothing else.
 extern "C" int bk_route_collect(const void* back, const void* slotq,
                                 int64_t Q, int64_t dump, void* done,
                                 void* hit, void* cidx, void* oidx,
                                 void* pending, void* stream) {
-  if (Q < 0 || dump < 1) return (int)cudaErrorInvalidValue;
+  if (Q < 0 || Q >= (1ll << kTallyShift) || dump < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)slotq % 16 == 0 && (uintptr_t)cidx % 16 == 0 &&
+                   (uintptr_t)oidx % 16 == 0 && (uintptr_t)done % 4 == 0 &&
+                   (uintptr_t)hit % 4 == 0;
+  const dim3 grid((unsigned)collect_blocks(Q));
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = cudaMemsetAsync(pending, 0, 8, s);
-  if (e != cudaSuccess || Q == 0) return (int)e;
-  collect_kernel<<<grid(Q), kThreads, 0, s>>>(
-      (const uint64_t*)back, (const int32_t*)slotq, Q, dump, (bool*)done,
-      (bool*)hit, (int32_t*)cidx, (int32_t*)oidx,
-      (unsigned long long*)pending);
+  const uint64_t* b = (const uint64_t*)back;
+  const int32_t* sq = (const int32_t*)slotq;
+  uint8_t *d = (uint8_t*)done, *h = (uint8_t*)hit;
+  int32_t *c = (int32_t*)cidx, *o = (int32_t*)oidx;
+  unsigned long long* p = (unsigned long long*)pending;
+  if (vec)
+    collect_kernel<true><<<grid, kThreads, 0, s>>>(b, sq, Q, dump, d, h, c, o,
+                                                   p);
+  else
+    collect_kernel<false><<<grid, kThreads, 0, s>>>(b, sq, Q, dump, d, h, c,
+                                                    o, p);
   return (int)cudaGetLastError();
 }

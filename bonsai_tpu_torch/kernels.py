@@ -28,7 +28,8 @@ is ``encode_probe`` with a list),
 ``core/bitops.py`` ``popcount64`` and ``nuccount`` (one elementwise
 kernel), ``sketch/hll.py`` ``hll_fill``, ``sketch/setsketch.py``
 ``csetsketch_update``, ``sketch/shs.py`` ``sort_count``, and
-``tools/gather_bench.py`` ``row_gather`` and ``take_along``.  The plain
+``tools/gather_bench.py`` ``row_gather`` and ``take_along`` (and the
+yardstick ``empty_launch``, which has no plain version).  The plain
 version serves CPU tensors only, and a CUDA tensor goes to the kernel or
 raises.
 """
@@ -151,6 +152,8 @@ _SIGS = {
     "bk_row_gather": [P, P, I64, I64, I64, P, P],
     # tab, idx, R, Ct, Q, Ci, axis, out, stream
     "bk_take_along": [P, P, I64, I64, I64, I64, I32, P, P],
+    # blocks, cooperative (one grid barrier), stream
+    "bk_empty_launch": [I64, I32, P],
 }
 # host functions of int64 arguments: bytes of device scratch for the sizes
 # of a call, and KS3's plan (its bucket bits)

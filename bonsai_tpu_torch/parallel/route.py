@@ -106,9 +106,10 @@ def route_probe_plain(recv: torch.Tensor, arr: ProbeArrays,
 
 def route_probe(recv: torch.Tensor, arr: ProbeArrays,
                 want_idx: bool) -> torch.Tensor:
-    """KD1 probe (``csrc/route.cu`` ``bk_route_probe``, the probe of
-    ``csrc/probe.cuh``): see ``route_probe_plain``, which serves CPU
-    tensors.  recv (n,) int64 against a whole sub-table's image."""
+    """KD1 probe (``csrc/route.cu`` ``bk_route_probe``: both candidate
+    rows of a key loaded at once, compared as ``csrc/probe.cuh`` probes):
+    see ``route_probe_plain``, which serves CPU tensors.  recv (n,) int64
+    against a whole sub-table's image."""
     if recv.device.type == "cpu":
         return route_probe_plain(recv, arr, want_idx)
     if recv.device.type != "cuda":
@@ -150,7 +151,9 @@ def route_collect(back, slotq, done, hit, cidx, oidx) -> torch.Tensor:
     """KD1 collect (``csrc/route.cu`` ``bk_route_collect``): see
     ``route_collect_plain``, which serves CPU tensors.  back (dump,)
     int64, slotq (Q,) int32; done, hit (Q,) bool and cidx, oidx (Q,)
-    int32 updated in place; the pending count stays on the card."""
+    int32 updated in place (views at any offset); the pending count
+    stays on the card.  One launch, no memset: the blocks add their counts
+    to a tally on the card, whose last block writes the pending word."""
     if back.device.type == "cpu":
         return route_collect_plain(back, slotq, done, hit, cidx, oidx)
     if back.device.type != "cuda":

@@ -162,22 +162,41 @@ def bound_cyclic_hashes(codes, out, canon: bool):
     return bound(nbytes(codes, *out), out[0].numel() * (36 if canon else 16))
 
 
+def _first_found(q, arr):
+    """(whether each of the queries ``q`` sits in its first bucket, whether
+    the image holds it)."""
+    from ..core.bitops import SIGN
+    from ..core.hashes import splitmix64
+    from ..db.table import probe_slots, split
+
+    b1, quo, _ = split(splitmix64(q), arr.lgnb)
+    vmask = (1 << arr.vbits) - 1
+    first = ((arr.slots[b1] & ~vmask) ==
+             (SIGN | (quo << arr.vbits))[:, None]).any(-1)
+    return first, probe_slots(q, arr)[1]
+
+
 def probe_rows(queries, arr):
     """(probes, 32-B slot rows, values) that probing ``queries`` in the
     slot image ``arr`` must read: one row where a query sits in its first
     bucket, two for any other query (the second row is read only then),
     and a value for each query found."""
-    from ..core.bitops import SIGN
-    from ..core.hashes import splitmix64
-    from ..db.table import probe_slots, split
-
     q = queries.reshape(-1)
-    b1, quo, _ = split(splitmix64(q), arr.lgnb)
-    vmask = (1 << arr.vbits) - 1
-    first = ((arr.slots[b1] & ~vmask) ==
-             (SIGN | (quo << arr.vbits))[:, None]).any(-1)
-    found = probe_slots(q, arr)[1]
+    first, found = _first_found(q, arr)
     return q.numel(), 2 * q.numel() - int(first.sum()), int(found.sum())
+
+
+def probe_split(queries, arr) -> dict:
+    """A received frame's keys by how their probe ends: the U64_MAX rows
+    (``pads``: the frame's unused rows, and any real query of that key),
+    and of the others those found in their first bucket (``row1``), in
+    their second (``row2``) and ``missing``."""
+    q = queries.reshape(-1)
+    first, found = _first_found(q, arr)
+    pad = q == -1
+    return {"pads": int(pad.sum()), "row1": int((~pad & first).sum()),
+            "row2": int((~pad & found & ~first).sum()),
+            "missing": int((~pad & ~found).sum())}
 
 
 def probe_bytes(probes) -> int:

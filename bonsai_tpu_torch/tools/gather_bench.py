@@ -111,6 +111,14 @@ def take_along(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
 take_along.launches = 0
 
 
+def empty_launch(blocks: int, coop: bool, device) -> None:
+    """A yardstick, no kernel of a path (``csrc/gather_bench.cu``
+    ``bk_empty_launch``): an empty launch of ``blocks`` blocks of 256
+    threads, or with ``coop`` a cooperative one whose blocks meet at one
+    grid barrier.  Timed by ``graph_ms``, the floor of such a launch."""
+    kernels.launch("bk_empty_launch", torch.device(device), blocks, int(coop))
+
+
 def f_case(device, seed: int = 0):
     """Variant F's inputs: a (2^21, 32) u32 table and 2^19 random rows."""
     g = torch.Generator(device=device).manual_seed(seed)

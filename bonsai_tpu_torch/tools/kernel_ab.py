@@ -80,22 +80,39 @@ From a checkout:
         tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
         tests/data/ec/*.fna.gz
 
-With ``--route`` (the same arguments as ``--classify``) KD1's three
-launches run at ``chip_smoke.py`` phase 9g's shapes: the first a2a round
-of the first 8192 reads of READS at (1, 4) on the k = 31 database of the
-GENOMEs (the sharded classifier's own round, its four ranks sharing the
-card): rank 0's frame (ndb = 4, capacity factor 1.05), the round's four
-probes in turn, each rank's received frame against its own sub-table,
-and rank 0's collect; then the frame at 4M random queries (ndb = 4, none
-done) and rank 0's queries at ndb = 1024.  All by graph replay, each with
-its bound (``bounds``) printed first, and rank 0's frame also by events
-around back-to-back wrapper calls, which the host's enqueue can bound:
+With ``--route`` (the same arguments as ``--classify``, then any
+``-e EDIT``) KD1's three launches run at ``chip_smoke.py`` phase 9g's
+shapes: the first a2a round of the first 8192 reads of READS at (1, 4)
+on the k = 31 database of the GENOMEs (the sharded classifier's own
+round, its four ranks sharing the card): rank 0's frame (ndb = 4,
+capacity factor 1.05), the round's four probes in turn, each rank's
+received frame against its own sub-table, rank 0's probe alone (its
+sub-table's rows stay in L2 between replays) and rank 0's collect; the
+probe and collect of two later rounds (``later_rounds``: the second
+round at capacity factor 0.05, and a frame of nearly all U64_MAX pad
+rows); then the frame at 4M random queries (ndb = 4, none done) and rank
+0's queries at ndb = 1024.  All by graph replay, each with its bound
+(``bounds``) and each probe's split of its keys (``bounds.probe_split``)
+printed first, and rank 0's frame also by events around back-to-back
+wrapper calls, which the host's enqueue can bound.  A collect call is
+the collect alone on a state cloned once (it updates the state in
+place, the same bytes each call); its outputs are checked from that
+state.  Last, the floors of those launches (``gather_bench.empty_launch``
+by graph replay: empty at the probe's and collect's grids, and a
+cooperative one with a grid barrier at collect's).  Each EDIT names an edited copy of
+PARENT_CSRC (``ROUTE_EDITS``, several joined by '+': the probe reading
+row 1 only, design (a) loading both candidate rows at once and, on it,
+more keys a thread or the pad rows probed once a block, fixed block
+sizes, other queries a collect thread, the cooperative collect), timed
+in the same turns;
+pass the tree's own ``bonsai_tpu_torch/csrc`` as the parent to sweep
+the tree's design:
 
     python -m bonsai_tpu_torch.tools.kernel_ab --route \\
         build/parent/bonsai_tpu_torch/csrc \\
         tests/data/kraken_benchmarks/HiSeq_accuracy.fa \\
         tests/data/golden/ec_nodes.dmp tests/data/golden/ec_nameidmap.txt \\
-        tests/data/ec/*.fna.gz
+        tests/data/ec/*.fna.gz [-e EDIT]...
 
 With ``--hash`` only the hash-scored phase 2's kernels run, at the
 default mode's shapes and maps: KB1 -k 25 -w 37 -t (W = 13) and -k 21 -S
@@ -204,6 +221,214 @@ HASH_EDITS = {
                                          "window_kernel")))),
 }
 
+# --route's design (a): a probe that loads both candidate rows of a key
+# before comparing either (one random trip where probe.cuh's probe makes
+# two on a miss; row 1 still decides where it holds the key), one pass of
+# kDualKeys keys a thread
+DUAL_PROBE = r"""constexpr int kDualThreads = 256;  // a probe block's threads
+constexpr int kDualKeys = 1;  // received keys a probe thread
+
+// A received key's two candidate rows, both loaded at once: the second
+// bucket is b1 ^ splitmix64(q ^ salt), a function of the key alone.
+""" + r"""struct DualRows {
+  ulonglong2 row[4];  // row 1's 16-B halves, then row 2's
+  uint64_t b1, b2, e;  // the buckets; row 1's slot tag (row 2 adds bit 62)
+};
+
+__device__ __forceinline__ void issue(const bk::ProbeTable& t, uint64_t key,
+                                      DualRows& d) {
+  const uint64_t bmask = (1ULL << t.lgnb) - 1;
+  const uint64_t h = bk::splitmix64(key);
+  const uint64_t q = h >> t.lgnb;
+  d.b1 = h & bmask;
+  d.b2 = d.b1 ^ (bk::splitmix64(q ^ bk::kBucketSalt) & bmask);
+  d.e = (1ULL << 63) | (q << t.vbits);
+  d.row[0] = t.slots[2 * d.b1];
+  d.row[1] = t.slots[2 * d.b1 + 1];
+  d.row[2] = t.slots[2 * d.b2];
+  d.row[3] = t.slots[2 * d.b2 + 1];
+}
+
+// Whether the key is in the image and, where it is, the value index of
+// probe: row 1 decides where it holds a match, else row 2; the matching
+// lanes' fields (inline, summed in 32 bits) or flat slot positions
+// (64-bit) summed, clamped to the value array.  *sel is the u32 of the
+// sum, probe's sel_out.
+__device__ __forceinline__ bool locate(const bk::ProbeTable& t,
+                                       const DualRows& d, int64_t* idx,
+                                       uint32_t* sel) {
+  uint64_t acc = 0;
+  bool found = bk::match_row(t, d.row[0], d.row[1], d.e, d.b1, acc);
+  if (!found)
+    found = bk::match_row(t, d.row[2], d.row[3], d.e | (1ULL << 62), d.b2,
+                          acc);
+  *sel = (uint32_t)acc;
+  int64_t i = t.is_inline ? (int64_t)(uint32_t)acc : (int64_t)acc;
+  *idx = i > t.n_vals - 1 ? t.n_vals - 1 : i;
+  return found;
+}
+
+// kDualKeys keys a thread, a block's kDualThreads apart; one pass
+__global__ void __launch_bounds__(kDualThreads)
+    probe_kernel(const uint64_t* __restrict__ recv, int64_t n,
+                 bk::ProbeTable t, int want_idx, uint64_t* __restrict__ resp) {
+  const int64_t i0 =
+      (int64_t)blockIdx.x * (kDualThreads * kDualKeys) + threadIdx.x;
+  DualRows d[kDualKeys];
+#pragma unroll
+  for (int u = 0; u < kDualKeys; ++u) {
+    const int64_t i = i0 + u * kDualThreads;
+    if (i < n) issue(t, recv[i], d[u]);
+  }
+  int64_t idx[kDualKeys];
+  uint32_t sel[kDualKeys];
+  bool found[kDualKeys];
+#pragma unroll
+  for (int u = 0; u < kDualKeys; ++u)
+    found[u] = i0 + u * kDualThreads < n && locate(t, d[u], &idx[u], &sel[u]);
+#pragma unroll
+  for (int u = 0; u < kDualKeys; ++u) {
+    const int64_t i = i0 + u * kDualThreads;
+    if (i >= n) break;
+    uint64_t w = 0;
+    if (found[u]) {
+      const uint64_t val = t.vals[idx[u]];
+      w = (want_idx ? (uint64_t)sel[u] << 32 : val & ~0xFFFFFFFFull) |
+          (1ull << 31) | (val & 0x7FFFFFFFull);
+    }
+    resp[i] = w;
+  }
+}
+
+"""
+# the serial probe kernel's head (probe.cuh's probe a thread) at blocks
+# of t threads
+PROBE_HEAD = ("__launch_bounds__({t})\n    probe_kernel(const uint64_t* "
+              "__restrict__ recv, int64_t n,\n                 bk::ProbeTable"
+              " t, int want_idx, uint64_t* __restrict__ resp) {{\n  const "
+              "int64_t stride = (int64_t)gridDim.x * {t};\n  for (int64_t i ="
+              " (int64_t)blockIdx.x * {t} + threadIdx.x; i < n;")
+DUAL_LAUNCH = ("  constexpr int64_t span = kDualThreads * kDualKeys;\n"
+               "  probe_kernel<<<(unsigned)((n + span - 1) / span), "
+               "kDualThreads, 0,\n                 (cudaStream_t)stream>>>("
+               "(const uint64_t*)recv, n, t,\n"
+               "                                         want_idx, "
+               "(uint64_t*)resp);")
+# a cooperative collect (coop): the blocks' counts in a device array, a
+# grid barrier, block 0's sum
+COOP_SUM = """    g_cnt[blockIdx.x] = sum;
+  }
+  cg::this_grid().sync();
+  if (blockIdx.x == 0 && warp == 0) {
+    unsigned long long sum = 0;
+    for (int r = lane; r < (int)gridDim.x; r += 32) sum += __ldcg(g_cnt + r);
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) sum += __shfl_xor_sync(kAll, sum, x);
+    if (lane == 0) *pending = sum;
+  }
+}
+"""
+COOP_LAUNCH = """  void* args[] = {&b, &sq, &Q, &dump, &d, &h, &c, &o, &p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      vec ? (const void*)collect_kernel<true>
+          : (const void*)collect_kernel<false>,
+      grid, dim3(kThreads), args, 0, s);
+  cudaGetLastError();
+  return (int)e;
+"""
+# --route's edited copies, as HASH_EDITS; their texts are those of the
+# serial probe at blocks of kThreads (an earlier revision's route.cu and
+# probe.cuh: row1, dual, pt*) or the tree's (row1, dual, pt*, coop, cq*,
+# no-vec), so pass either as the parent;
+# "dual" makes design (a), and keys2, keys4, pad-once and pt* edit it
+# further ("dual+keys2")
+ROUTE_EDITS = {
+    # the probe reads row 1 only, a key missing there is missing: inexact
+    "row1": (False, (
+        ("probe.cuh", "for (int ch = 0; ch < 2 && !found; ++ch)",
+         "for (int ch = 0; ch < 1 && !found; ++ch)"),
+        ("route.cu", "  d.row[2] = t.slots[2 * d.b2];\n"
+         "  d.row[3] = t.slots[2 * d.b2 + 1];\n",
+         "  d.row[2] = d.row[3] = make_ulonglong2(0, 0);\n"),
+    )),
+    # design (a), DUAL_PROBE: the serial probe renamed and left unused
+    "dual": (True, (
+        ("route.cu", "    probe_kernel(const uint64_t* __restrict__ recv",
+         "    probe_kernel_serial(const uint64_t* __restrict__ recv"),
+        ("route.cu", "size_t frame_smem(int64_t ndb)",
+         DUAL_PROBE + "size_t frame_smem(int64_t ndb)"),
+        *(("route.cu", f"  probe_kernel<<<{g}, {t}, 0, (cudaStream_t)stream>>>("
+           "\n      (const uint64_t*)recv, n, t, want_idx, (uint64_t*)resp);",
+           DUAL_LAUNCH) for g, t in (("grid(n)", "kThreads"),
+                                     ("probe_grid(n)", "kProbeThreads"))),
+    )),
+    # received keys a thread of design (a), all rows in flight together
+    **{f"keys{k}": (True, (("route.cu", "kDualKeys = 1;",
+                            f"kDualKeys = {k};"),)) for k in (2, 4)},
+    # a probe block's threads, fixed: the parent's (256), design (a)'s
+    # (256) or the tree's (128)
+    **{f"pt{t}": (True, (
+        ("route.cu", PROBE_HEAD.format(t="kThreads"), PROBE_HEAD.format(t=t)),
+        ("route.cu", "  probe_kernel<<<grid(n), kThreads, 0,",
+         f"  probe_kernel<<<grid({grid}), {t}, 0,"),
+        ("route.cu", "kDualThreads = 256;", f"kDualThreads = {t};"),
+        ("route.cu", "kProbeThreads = 128;", f"kProbeThreads = {t};"),
+    )) for t, grid in ((32, "8 * n"), (64, "4 * n"), (128, "2 * n"),
+                       (256, "n"), (512, "(n + 1) / 2"))},
+    # queries a collect thread
+    **{f"cq{q}": (True, (("route.cu", "kCollectQ = 4;",
+                          f"kCollectQ = {q};"),)) for q in (8, 16)},
+    # collect's scalar loads and stores, whatever the alignment
+    "no-vec": (True, (("route.cu", "  const bool vec = (uintptr_t)slotq",
+                       "  const bool vec = false && (uintptr_t)slotq"),)),
+    # collect as one cooperative launch whose blocks meet at a grid
+    # barrier, block 0 summing their counts (COOP_SUM; up to the blocks
+    # resident at once: 9g's shapes)
+    "coop": (True, (
+        ("route.cu", "__device__ unsigned long long g_tally = 0;\n",
+         "__device__ unsigned long long g_cnt[kCollectBlocks];\n"),
+        ("route.cu", "    const unsigned long long old =\n"
+         "        atomicAdd(&g_tally, (1ull << kTallyShift) | sum);\n"
+         "    if ((old >> kTallyShift) == gridDim.x - 1) {  // the last block\n"
+         "      *pending = (old & ((1ull << kTallyShift) - 1)) + sum;\n"
+         "      g_tally = 0;\n    }\n  }\n}\n", COOP_SUM),
+        ("route.cu", "  if (vec)\n    collect_kernel<true><<<grid, kThreads, 0,"
+         " s>>>(b, sq, Q, dump, d, h, c, o,\n"
+         "                                                   p);\n  else\n"
+         "    collect_kernel<false><<<grid, kThreads, 0, s>>>(b, sq, Q, dump,"
+         " d, h, c,\n                                                    o, p);"
+         "\n  return (int)cudaGetLastError();\n", COOP_LAUNCH),
+    )),
+    # design (b) on design (a): the U64_MAX rows priced once a block:
+    # thread 0 probes U64_MAX while the others' rows are in flight, and a
+    # thread whose key is U64_MAX stores that word from shared memory
+    "pad-once": (True, (
+        ("route.cu", "  DualRows d[kDualKeys];\n#pragma unroll\n"
+         "  for (int u = 0; u < kDualKeys; ++u) {\n"
+         "    const int64_t i = i0 + u * kDualThreads;\n"
+         "    if (i < n) issue(t, recv[i], d[u]);\n  }\n",
+         "  __shared__ uint64_t s_pad;\n  DualRows d[kDualKeys];\n"
+         "  bool pad[kDualKeys];\n#pragma unroll\n"
+         "  for (int u = 0; u < kDualKeys; ++u) {\n"
+         "    const int64_t i = i0 + u * kDualThreads;\n"
+         "    const uint64_t key = i < n ? recv[i] : ~0ull;\n"
+         "    pad[u] = key == ~0ull;\n    if (!pad[u]) issue(t, key, d[u]);\n"
+         "  }\n  if (threadIdx.x == 0) {\n    DualRows p;\n"
+         "    issue(t, ~0ull, p);\n    int64_t x;\n    uint32_t sl;\n"
+         "    const bool f = locate(t, p, &x, &sl);\n"
+         "    const uint64_t val = f ? t.vals[x] : 0;\n"
+         "    s_pad = f ? (want_idx ? (uint64_t)sl << 32\n"
+         "                          : val & ~0xFFFFFFFFull) |\n"
+         "                    (1ull << 31) | (val & 0x7FFFFFFFull)\n"
+         "              : 0;\n  }\n  __syncthreads();\n"),
+        ("route.cu", "    found[u] = i0 + u * kDualThreads < n && locate(",
+         "    found[u] = i0 + u * kDualThreads < n && !pad[u] && locate("),
+        ("route.cu", "    resp[i] = w;\n  }\n}\n\nsize_t frame_smem",
+         "    resp[i] = pad[u] ? s_pad : w;\n  }\n}\n\nsize_t frame_smem"),
+    )),
+}
+EDITS = {**HASH_EDITS, **ROUTE_EDITS}
+
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
               (0, 25, 13)),
@@ -236,28 +461,28 @@ class ParentLib:
 
 
 def _edit_parts(edit: str):
-    """The HASH_EDITS names of ``edit`` (several joined by '+')."""
+    """The EDITS names of ``edit`` (several joined by '+')."""
     parts = edit.split("+")
-    if not all(p in HASH_EDITS for p in parts):
-        raise ValueError(f"edit {edit}: one of {', '.join(HASH_EDITS)}, or "
+    if not all(p in EDITS for p in parts):
+        raise ValueError(f"edit {edit}: one of {', '.join(EDITS)}, or "
                          "several joined by '+'")
     return parts
 
 
 def keeps_output(edit: str) -> bool:
-    return all(HASH_EDITS[p][0] for p in _edit_parts(edit))
+    return all(EDITS[p][0] for p in _edit_parts(edit))
 
 
 def edited_copy(csrc: str, tag: str, edit=None) -> str:
     """A copy of ``csrc`` under OUT_DIR/``tag`` with the substitutions of
-    each HASH_EDITS part of ``edit`` made, and the tree's hash occupancy
+    each EDITS part of ``edit`` made, and the tree's hash occupancy
     queries (``OCCUPANCY``) appended to a source that lacks them."""
     out = os.path.join(OUT_DIR, f"src_{tag}")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     for part in _edit_parts(edit) if edit else ():
         taken = 0
-        for f, old, new in HASH_EDITS[part][1]:
+        for f, old, new in EDITS[part][1]:
             path = os.path.join(out, f)
             text = open(path).read() if os.path.exists(path) else ""
             if old in text:
@@ -813,11 +1038,55 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     ], (a1, a1n, nidx)
 
 
+STATE = ("done", "hit", "cidx", "oidx")
+
+
+def round_io(clf, st, cap) -> dict:
+    """One a2a round of ``clf`` from its state ``st`` (updated in place):
+    rank 0's queries, the state it started from (cloned) and after, its
+    frame, returned frame and pending count; every rank's received frame
+    and sub-table."""
+    before = [st[0][x].clone() for x in STATE]
+    _, got = clf._a2a_round(st, cap, False)
+    return dict(kq=st[0]["kq"], done=before[0], state=before, cap=cap,
+                after=[st[0][x] for x in STATE], send=got["frame"][0][0],
+                slotq=got["frame"][0][1], back=got["back"][0],
+                left=got["left"][0], recvs=got["recv"], resp=got["resp"],
+                arrs=dict(clf._arr))
+
+
+def later_rounds(clf, prep, keep: int = 64) -> dict:
+    """Two later a2a rounds of the batch ``prep``, each as ``round_io``:
+    "cf 0.05 round 2", the second round at capacity factor 0.05 (every
+    frame row a query while an owner has more than cap pending); and
+    "pads", at ``clf``'s own factor after the first round, with the last
+    ``keep`` valid queries of each rank pending again: a frame of nearly
+    all U64_MAX rows, as after a batch that overflowed its cap a little."""
+    cf = clf.capacity_factor
+    clf.capacity_factor = 0.05
+    try:
+        st, cap = clf._a2a_start(clf._uploads(prep), prep[3])
+        clf._a2a_round(st, cap, False)
+        out = {"cf 0.05 round 2": round_io(clf, st, cap)}
+    finally:
+        clf.capacity_factor = cf
+    st, cap = clf._a2a_start(clf._uploads(prep), prep[3])
+    clf._a2a_round(st, cap, False)
+    for r in st.values():
+        r["done"][r["valid"].view(-1).nonzero()[-keep:, 0]] = False
+    out["pads"] = round_io(clf, st, cap)
+    return out
+
+
 def route_cases(reads: str, nodes: str, nameid: str, genomes, dev,
                 say=print):
-    """(name, call, timer, entry point) of KD1's frame, probe and collect
-    at the first a2a round of an 8192-read batch at (1, 4), and of the
-    frame at 4M queries and at ndb = 1024; each case's bound printed."""
+    """(name, call, timer, entry point, None, fresh) of KD1's frame, probe
+    and collect at the first a2a round of an 8192-read batch at (1, 4)
+    and at two later rounds (``later_rounds``), and of the frame at 4M
+    queries and at ndb = 1024; each case's bound, and each probe's split
+    (``bounds.probe_split``), printed.  A collect case's call is the
+    collect alone, on a state cloned once (the same bytes every call),
+    and ``fresh`` restores that state before a checked call."""
     from ..core.spacer import Spacer
     from ..db.build import lca_map
     from ..db.formats import Database
@@ -825,7 +1094,7 @@ def route_cases(reads: str, nodes: str, nameid: str, genomes, dev,
     from ..parallel import sharded as sh
     from ..parallel.mesh import make_mesh
     from .bounds import (bound_route_collect, bound_route_frame,
-                         bound_route_probe, bound_text)
+                         bound_route_probe, bound_text, probe_split)
 
     tree = TaxTree.from_nodes_dmp(nodes)
     table = lca_map(list(genomes), tree, nameid, Spacer(31, 31))
@@ -835,18 +1104,17 @@ def route_cases(reads: str, nodes: str, nameid: str, genomes, dev,
                                         batch_size=CLASSIFY_BATCH)))
     prep = clf._prepare_batch(batch)
     st, cap = clf._a2a_start(clf._uploads(prep), prep[3])
-    kq, done = st[0]["kq"], st[0]["done"].clone()
-    state = [st[0][x].clone() for x in ("done", "hit", "cidx", "oidx")]
-    _, got = clf._a2a_round(st, cap, False)
-    recvs, arrs = got["recv"], dict(clf._arr)
-    back, slotq = got["back"][0], got["frame"][0][1]
+    rounds = {"first round": round_io(clf, st, cap),
+              **{f"later round, {k}": v
+                 for k, v in later_rounds(clf, prep).items()}}
+    r1 = rounds["first round"]
+    kq, done = r1["kq"], r1["done"]
     rng = np.random.default_rng(SEED + 3)
     big = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, 4_000_000)).to(dev)
     big_done = torch.zeros(big.numel(), dtype=torch.bool, device=dev)
     big_cap = -(-big.numel() * 105 // 400)
     wide_cap = -(-kq.numel() * 105 // (100 * 1024))
     Q = kq.numel()
-    routed = int((slotq < back.numel()).sum())
     frames = (("", kq, done, 4, cap),
               (" 4M queries", big, big_done, 4, big_cap),
               (" ndb=1024", kq, done, 1024, wide_cap))
@@ -854,32 +1122,69 @@ def route_cases(reads: str, nodes: str, nameid: str, genomes, dev,
         b = bound_route_frame(x, d, rt.route_frame(x, d, ndb, c))
         say(f"# route_frame{what}: {x.numel()} queries, ndb={ndb}, cap={c}; "
             f"{bound_text(b)}")
-    b = bound_route_probe(recvs[0], arrs[0],
-                          rt.route_probe(recvs[0], arrs[0], False))
-    say(f"# route_probe: {bound_text(b)} (rank 0's)")
-    say(f"# route_collect: {routed} routed; "
-        f"{bound_text(bound_route_collect(slotq, state[0], routed))}")
+    cases = [(f"route_frame{what} Q={x.numel()}, ndb={ndb}, cap={c}",
+              lambda x=x, d=d, ndb=ndb, c=c: rt.route_frame(x, d, ndb, c),
+              graph_ms, "bk_route_frame") for what, x, d, ndb, c in frames]
+    cases.append((f"route_frame Q={Q}, ndb=4, cap={cap}, events around "
+                  "back-to-back wrapper calls (the host's enqueue shows)",
+                  lambda: rt.route_frame(kq, done, 4, cap), time_ms,
+                  "bk_route_frame"))
+    for tag, r in rounds.items():
+        recvs, arrs, back, slotq = r["recvs"], r["arrs"], r["back"], r["slotq"]
+        for k in sorted(recvs):
+            b = bound_route_probe(recvs[k], arrs[k],
+                                  rt.route_probe(recvs[k], arrs[k], False))
+            say(f"# route_probe, {tag}, rank {k}: {recvs[k].numel()} keys "
+                f"(cap {r['cap']}), {probe_split(recvs[k], arrs[k])}; "
+                f"{bound_text(b)}")
+        routed = int((slotq < back.numel()).sum())
+        mine = [x.clone() for x in r["state"]]
+        say(f"# route_collect, {tag}: {slotq.numel()} queries, {routed} "
+            f"routed; "
+            f"{bound_text(bound_route_collect(slotq, r['state'][0], routed))}")
 
-    def probes():
-        return [rt.route_probe(recvs[r], arrs[r], False)
-                for r in sorted(recvs)]
+        def probes(recvs=recvs, arrs=arrs):
+            return [rt.route_probe(recvs[k], arrs[k], False)
+                    for k in sorted(recvs)]
 
-    def collect():
-        mine = [x.clone() for x in state]
-        return [rt.route_collect(back, slotq, *mine)] + mine
+        def collect(back=back, slotq=slotq, mine=mine):
+            return [rt.route_collect(back, slotq, *mine)] + mine
 
-    return [(f"route_frame{what} Q={x.numel()}, ndb={ndb}, cap={c}",
-             lambda x=x, d=d, ndb=ndb, c=c: rt.route_frame(x, d, ndb, c),
-             graph_ms, "bk_route_frame") for what, x, d, ndb, c in frames] + [
-        (f"route_frame Q={Q}, ndb=4, cap={cap}, events around back-to-back "
-         "wrapper calls (the host's enqueue shows)",
-         lambda: rt.route_frame(kq, done, 4, cap), time_ms, "bk_route_frame"),
-        (f"route_probe, the round's 4 ranks in turn "
-         f"{[recvs[r].numel() for r in sorted(recvs)]} keys", probes,
-         graph_ms, "bk_route_probe"),
-        (f"route_collect Q={Q}, {routed} routed", collect, graph_ms,
-         "bk_route_collect"),
-    ]
+        def fresh(mine=mine, state=r["state"]):
+            for m, x in zip(mine, state):
+                m.copy_(x)
+
+        cases.append((f"route_probe, {tag}, the 4 ranks in turn "
+                      f"{[recvs[k].numel() for k in sorted(recvs)]} keys",
+                      probes, graph_ms, "bk_route_probe"))
+        if tag == "first round":
+            cases.append(("route_probe, first round, rank 0 alone (its "
+                          "sub-table's rows stay in L2)",
+                          lambda: [rt.route_probe(recvs[0], arrs[0], False)],
+                          graph_ms, "bk_route_probe"))
+        cases.append((f"route_collect, {tag}, Q={Q}, {routed} routed",
+                      collect, graph_ms, "bk_route_collect", None, fresh))
+    return cases, rounds
+
+
+def floors(rounds, dev, say=print) -> dict:
+    """Graph-replayed ms of empty launches (``gather_bench.empty_launch``)
+    at the probe's and collect's grids of the first round, and of a
+    cooperative one at collect's grid with one grid barrier: the floors
+    of those launches."""
+    from .gather_bench import empty_launch
+
+    r1 = rounds["first round"]
+    n = r1["recvs"][0].numel()
+    probe_blocks = -(-n // 256)
+    collect_blocks = -(-r1["slotq"].numel() // 1024)
+    out = {f"empty, {b} blocks": graph_ms(
+        lambda b=b: empty_launch(b, False, dev), ITERS)
+        for b in (1, collect_blocks, probe_blocks)}
+    out[f"cooperative with a grid barrier, {collect_blocks} blocks"] = (
+        graph_ms(lambda: empty_launch(collect_blocks, True, dev), ITERS))
+    say(f"# launch floors (graph replay, ms a launch): {out}")
+    return out
 
 
 def _device_ms(fn, calls=5):
@@ -903,15 +1208,18 @@ def _device_ms(fn, calls=5):
 
 
 def run(libs: dict, cases, say=print) -> dict:
-    """Check and time each (name, call, timer[, entry point[, slot rows]])
-    of ``cases`` on the tree's kernels (the change) against ``libs``: the
-    parent's build, then any edited copies of it (``HASH_EDITS`` names).
-    The change's output must equal the parent's, and an edit's that keeps
-    the output; in turns parent, change, each copy, then backwards; with
-    slot rows, each time's row rate beside it."""
+    """Check and time each (name, call, timer[, entry point[, slot
+    rows[, fresh]]]) of ``cases`` on the tree's kernels (the change)
+    against ``libs``: the parent's build, then any edited copies of it
+    (``EDITS`` names).  The change's output must equal the parent's, and
+    an edit's that keeps the output, each call after ``fresh()`` where a
+    case has one (a call that updates its inputs); in turns parent,
+    change, each copy, then backwards; with slot rows, each time's row
+    rate beside it."""
     res = {"cases": {}, "profile": {}, "skipped": []}
     for name, change, timer, *extra in cases:
-        entry, rows = (list(extra) + [None, None])[:2]
+        entry, rows, fresh = (list(extra) + [None] * 3)[:3]
+        fresh = fresh or (lambda: None)
         if entry and not hasattr(libs["parent"], entry):
             say(f"# {name}: skipped, the parent has no {entry}")
             res["skipped"].append(name)
@@ -919,10 +1227,12 @@ def run(libs: dict, cases, say=print) -> dict:
         calls = {"parent": on(libs["parent"], change), "change": change,
                  **{e: on(lib, change) for e, lib in libs.items()
                     if e != "parent"}}
-        got = change()
+        fresh()
+        got = [g.clone() for g in change()]
         checked = [label for label in calls if label == "parent" or (
             label != "change" and keeps_output(label))]
         for label in checked:
+            fresh()
             if not all(torch.equal(g, w) for g, w in zip(got, calls[label]())):
                 raise AssertionError(f"{name}: {label} and change differ")
         order = list(calls)
@@ -947,21 +1257,25 @@ def run(libs: dict, cases, say=print) -> dict:
     return res
 
 
-def build_hash_libs(parent_csrc: str, edits, say=print) -> dict:
-    """``--hash``'s libraries, built together: the parent's, the tree's
-    (the change) and an edited copy of the parent's for each of
-    ``edits``, each with the hash occupancy queries; their blocks a SM
-    and ptxas's registers and spills printed."""
-    jobs = {"parent": (parent_csrc, None), "change": (kernels.CSRC, None),
+def build_libs(parent_csrc: str, names, edits, change=False,
+               say=print) -> dict:
+    """Libraries of ``names``.cu, built together: the parent's, an edited
+    copy of the parent's for each of ``edits`` and, with ``change``, the
+    tree's; with ``change`` (``--hash``) each with the hash occupancy
+    queries, their blocks a SM and ptxas's registers and spills
+    printed."""
+    jobs = {"parent": (parent_csrc, None),
+            **({"change": (kernels.CSRC, None)} if change else {}),
             **{e: (parent_csrc, e) for e in edits}}
     with ThreadPoolExecutor(len(jobs)) as pool:
-        futs = {label: pool.submit(build_parent, csrc, HASH_SOURCES, label,
-                                   edit, True)
+        futs = {label: pool.submit(build_parent, csrc, names, label, edit,
+                                   change)
                 for label, (csrc, edit) in jobs.items()}
         libs = {label: f.result() for label, f in futs.items()}
     for label, lib in libs.items():
-        occ = {what: getattr(lib, fn)(*a) for what, fn, a in OCCUPANCY}
-        say(f"# {label}: blocks a SM {occ}; ptxas {lib.ptxas}")
+        if change:
+            occ = {what: getattr(lib, fn)(*a) for what, fn, a in OCCUPANCY}
+            say(f"# {label}: blocks a SM {occ}; ptxas {lib.ptxas}")
     return libs
 
 
@@ -969,8 +1283,10 @@ USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
          "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--sketch|--api PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--hash PARENT_CSRC GENOME [EDIT...]\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--classify|--route PARENT_CSRC READS NODES NAMEID GENOME...\n"
-         f"EDIT: one of {', '.join(HASH_EDITS)}, or several joined by '+'")
+         "--classify PARENT_CSRC READS NODES NAMEID GENOME...\n"
+         "       python -m bonsai_tpu_torch.tools.kernel_ab --route "
+         "PARENT_CSRC READS NODES NAMEID GENOME... [-e EDIT]...\n"
+         f"EDIT: one of {', '.join(EDITS)}, or several joined by '+'")
 
 
 def main(argv=None) -> int:
@@ -979,6 +1295,11 @@ def main(argv=None) -> int:
     mode = args[0] if args and args[0] in modes else ""
     if mode:
         args = args[1:]
+    edits = [e for a, e in zip(args, args[1:]) if a == "-e"]
+    if mode == "--route" and edits:
+        args = args[:args.index("-e")]
+    for edit in (args[2:] if mode == "--hash" else edits):
+        _edit_parts(edit)
     if ((mode in ("--classify", "--route") and len(args) < 5)
             or (mode in ("--sketch", "--api") and len(args) != 2)
             or (mode == "--hash" and len(args) < 2)
@@ -1002,14 +1323,13 @@ def main(argv=None) -> int:
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "
               f"graph replay: {res['yardstick_ms']:.4f} ms")
     elif mode == "--route":
-        res = run({"parent": build_parent(args[0], ROUTE_SOURCES)},
-                  route_cases(*args[1:4], args[4:], dev))
+        cases, rounds = route_cases(*args[1:4], args[4:], dev)
+        res = run(build_libs(args[0], ROUTE_SOURCES, edits), cases)
+        res["floors"] = floors(rounds, dev)
     elif mode == "--hash":
-        for edit in args[2:]:
-            _edit_parts(edit)
         # the change is the tree's build of HASH_SOURCES, which holds every
         # entry point these cases call
-        libs = build_hash_libs(args[0], args[2:])
+        libs = build_libs(args[0], HASH_SOURCES, args[2:], change=True)
         kernels._lib = libs.pop("change")
         seq = next(iter(fastx.read_fastx(args[1])))[1]
         res = run(libs, hash_cases(seq, dev, np.random.default_rng(SEED)))

@@ -201,12 +201,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  encode); KD1 (route_frame, route_probe, route_collect),
                  K1's encode-only and bucket-range instantiations, the
                  key-range mode and KB1's sequence-parallel instantiation
-                 launched; then each against its plain version on CPU
-                 copies (the first a2a round of a HiSeq batch, every query
-                 to one owner, ndb = 3, Q < ndb, 4M queries, taxids past
-                 2^31, inline and flat values, each psum rank, U64_MAX and
-                 the splitters among 5M keys) and each timed by
-                 CUDA-graph replay at the main path's shapes, with bounds
+                 launched, KD1 probe's launches split into first and later
+                 a2a rounds; then each against its plain version on CPU
+                 copies (the first a2a round of a HiSeq batch and two
+                 later ones, every query to one owner, ndb = 3, Q < ndb,
+                 4M queries, taxids past 2^31, inline and flat values,
+                 each psum rank, U64_MAX and the splitters among 5M keys)
+                 and each timed by CUDA-graph replay at the main path's
+                 shapes, with bounds; KD1's frame (cooperative) and
+                 collect each one launch without a memset (profiler), KD1's
+                 probe and collect of the later rounds timed, and the
+                 floor of an empty launch
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -4010,8 +4015,20 @@ def phase_sharded(dev, chk, kk, db, tree, shards4):
         secs[key] = time.perf_counter() - t
         return out
 
-    # 1. the main path, counted
+    # 1. the main path, counted; KD1 probe's launches split by round (a
+    # batch's first round of the a2a route, or a later one)
     reset_counts(wrappers + shared)
+    split = {"first": 0, "later": 0}
+    a2a_round = sh.ShardedClassifier._a2a_round
+
+    def counted_round(self, st, cap, want_idx):
+        n = rt.route_probe.launches
+        out = a2a_round(self, st, cap, want_idx)
+        split["later" if self.last_rounds else "first"] += (
+            rt.route_probe.launches - n)
+        return out
+
+    sh.ShardedClassifier._a2a_round = counted_round
     try:
         clfs = {}
         for route, dp, n in (("a2a", 1, 4), ("a2a", 2, 2), ("psum", 1, 4)):
@@ -4175,10 +4192,14 @@ def phase_sharded(dev, chk, kk, db, tree, shards4):
             launches.pop(r, None)  # other phases' rows of these wrappers
         also = read_counts(shared)
         say(f"# sharded: kernel launches {launches}, and of K2, K3, KB2, KB3 "
-            f"{also}")
+            f"{also}; KD1 probe's {launches['route_probe']} launches by "
+            f"round: first {split['first']}, later {split['later']}")
+        require(split["first"] + split["later"] == launches["route_probe"],
+                "KD1 probe launched outside an a2a round")
         for name, c in launches.items():
             require(c > 0, f"kernel {name} never launched by phase 9g's path")
     finally:
+        sh.ShardedClassifier._a2a_round = a2a_round
         tmp_dir.cleanup()
         shutil.rmtree(shards4, ignore_errors=True)
 
@@ -4275,6 +4296,7 @@ def sharded_kernels(dev, chk, db, tree, hiseq, k12):
     from bonsai_tpu_torch.parallel import route as rt
     from bonsai_tpu_torch.parallel import sharded as sh
     from bonsai_tpu_torch.parallel.mesh import make_mesh
+    from bonsai_tpu_torch.tools.kernel_ab import later_rounds
 
     rng = np.random.default_rng(SEED + 12)
     clf = sh.ShardedClassifier(db, tree, make_mesh({"dp": 1, "db": 4}, [dev]))
@@ -4326,6 +4348,21 @@ def sharded_kernels(dev, chk, db, tree, hiseq, k12):
     n2 = rt.route_collect_plain(r1["back"].cpu(), r1["slotq"].cpu(), *st_c)
     chk.same("route_collect", r1["after"] + [r1["left"]], st_c + [n2],
              "HiSeq first round, rank 0")
+    # two later rounds (kernel_ab.later_rounds): every rank's probe, rank
+    # 0's collect
+    later = later_rounds(clf, prep)
+    for tag, r in later.items():
+        for k in sorted(r["recvs"]):
+            a = r["arrs"][k]
+            a_c = ProbeArrays(a.slots.cpu(), a.vals.cpu(), a.inline, a.lgnb,
+                              a.vbits)
+            chk.same("route_probe", [r["resp"][k]],
+                     [rt.route_probe_plain(r["recvs"][k].cpu(), a_c, False)],
+                     f"HiSeq later round ({tag}), rank {k}")
+        st_c = [x.cpu().clone() for x in r["state"]]
+        n2 = rt.route_collect_plain(r["back"].cpu(), r["slotq"].cpu(), *st_c)
+        chk.same("route_collect", r["after"] + [r["left"]], st_c + [n2],
+                 f"HiSeq later round ({tag}), rank 0")
     # K1: encode-only on rank 0's reads; the bucket range on each psum rank
     e_in = r1["enc"]
     chk.same("encode_only", pl.encode_only(*e_in, clf.k, clf.canon),
@@ -4387,8 +4424,8 @@ def sharded_kernels(dev, chk, db, tree, hiseq, k12):
     torch.cuda.synchronize()
     say(f"# sharded: kernels equal to their plain versions: "
         f"{ {n: chk.cases[n] for n in ('route_frame', 'route_probe', 'route_collect', 'encode_only', 'encode_probe_range', 'key_range', 'minimizers_sp')} } cases")
-    return dict(r1=r1, up=up, prep=prep, range_arr=range_arr, chunk=(ck, cp),
-                spl=spl, block=blocks[0].contiguous())
+    return dict(r1=r1, later=later, up=up, prep=prep, range_arr=range_arr,
+                chunk=(ck, cp), spl=spl, block=blocks[0].contiguous())
 
 
 def sharded_numbers(dev, inp):
@@ -4409,7 +4446,8 @@ def sharded_numbers(dev, inp):
                                                bound_route_collect,
                                                bound_route_frame,
                                                bound_route_probe, bound_text,
-                                               nbytes)
+                                               nbytes, probe_split)
+    from bonsai_tpu_torch.tools.gather_bench import empty_launch, graph_ms
 
     times, bounds = {}, {}
     r1 = inp["r1"]
@@ -4459,6 +4497,46 @@ def sharded_numbers(dev, inp):
         lambda: rt.route_collect(back, slotq, *state),
         lambda: rt.route_collect_plain(back, slotq, *state),
         bounds["route_collect"], graph=True)
+    # a collect is one graph node too: one launch, no memset
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.route_collect(back, slotq, *state)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    n_launch = sum(c for key, c in calls.items() if key.startswith(
+        "cudaLaunch"))
+    memsets = sum(c for key, c in calls.items() if "emset" in key)
+    say(f"# KD1 collect under the profiler, one call: launches {n_launch}, "
+        f"memsets {memsets}")
+    require(n_launch == 1 and memsets == 0,
+            "KD1's collect is not one launch without a memset")
+    # the later rounds (kernel_ab.later_rounds): probe and collect alone
+    for tag, r in inp["later"].items():
+        rv, ar = r["recvs"], r["arrs"]
+        pb = _mean_bound([bound_route_probe(rv[k], ar[k], r["resp"][k])
+                          for k in sorted(rv)])
+        pt = graph_ms(_turns([lambda k=k: rt.route_probe(rv[k], ar[k], False)
+                              for k in sorted(rv)]))
+        st = [x.clone() for x in r["state"]]
+        n_r = int((r["slotq"] < r["back"].numel()).sum())
+        cb = bound_route_collect(r["slotq"], st[0], n_r)
+        ct = graph_ms(lambda: rt.route_collect(r["back"], r["slotq"], *st))
+        say(f"# KD1 later round ({tag}), graph replay: probe {pt:.4f} ms "
+            f"({[rv[k].numel() for k in sorted(rv)]} keys in turn, rank 0 "
+            f"{probe_split(rv[0], ar[0])}; {bound_text(pb)}), collect "
+            f"{ct:.4f} ms ({n_r} of {r['slotq'].numel()} routed; "
+            f"{bound_text(cb)})")
+    # the floor of a launch: empty ones at the probe's and collect's grids,
+    # and a cooperative one with one grid barrier
+    pblocks = -(-recvs[0].numel() // 256)
+    cblocks = -(-slotq.numel() // 1024)
+    fl = {f"empty {b} blocks": graph_ms(lambda b=b: empty_launch(b, False,
+                                                                 dev))
+          for b in (1, cblocks, pblocks)}
+    fl[f"cooperative {cblocks} blocks, a grid barrier"] = graph_ms(
+        lambda: empty_launch(cblocks, True, dev))
+    say(f"# KD1 launch floors, graph replay, ms a launch: "
+        f"{ {k: round(v, 4) for k, v in fl.items()} }")
     e_in = r1["enc"]
     out = pl.encode_only(*e_in, 31, True)
     bounds["encode_only"] = bound(nbytes(*e_in[:3], *out))

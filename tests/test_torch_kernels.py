@@ -53,7 +53,12 @@ canonical on pairs with bit 63 in either lane, and KB4's stream source at
 W = 1 to 8192 on rows shorter than the window, an all-invalid row and
 0 < n_valid < W; for the sharded classifier, KD1's frame at 1 to 1024
 owners, Q < ndb, Q one past a tile, rounds with every query done or
-only the last pending, and calls on one scratch that is never cleared.
+only the last pending, and calls on one scratch that is never cleared;
+KD1's probe on frames with U64_MAX pad runs (against a table that
+stores U64_MAX and one that does not), n of 1, 3, 5 and a block's keys
++- 1, and pads only; KD1's collect at a thread's and a block's queries
++- 1, on views at an odd offset, and calls and graph replays on one
+pending word that is never cleared.
 Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
@@ -896,6 +901,20 @@ def test_take_along_kernel_ragged(cuda, axis, R, Ct, Q, Ci):
     idx = torch.from_numpy(rng.integers(0, hi, (Q, Ci)).astype(np.int32))
     got = gb.take_along(tab.to(cuda), idx.to(cuda), axis)
     _same([got], [gb.take_along(tab, idx, axis)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coop", [False, True])
+def test_empty_launch_yardstick(cuda, coop):
+    """The launch floor's yardstick launches (cooperative: every block at
+    one grid barrier) and its graph replay gives a time; blocks past what
+    the card holds at once are refused in cooperative mode."""
+    gb.empty_launch(148, coop, cuda)
+    torch.cuda.synchronize()
+    assert gb.graph_ms(lambda: gb.empty_launch(148, coop, cuda), 10) > 0
+    if coop:
+        with pytest.raises(RuntimeError, match="bk_empty_launch"):
+            gb.empty_launch(1 << 20, True, cuda)
 
 
 _BAD_GATHER = """
@@ -2077,10 +2096,13 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
 #    and bucket-range instantiations, the key-range mode, KB1's
 #    sequence-parallel instantiation -------------------------------------------
 
-def _table_images(rng, n=200000, flat=False):
-    """A table of n random keys with 50 x 40 packed values (some taxids
-    past 2^31), as the image (inline, or flat) on the CPU and its keys."""
-    keys = np.unique(rng.integers(0, 2**64, n, dtype=np.uint64))
+def _table_images(rng, n=200000, flat=False, with_max=False):
+    """A table of n random keys (and U64_MAX ``with_max``) with 50 x 40
+    packed values (some taxids past 2^31), as the image (inline, or flat)
+    on the CPU and its keys."""
+    keys = rng.integers(0, 2**64, n, dtype=np.uint64)
+    keys = np.unique(np.append(keys, np.uint64(2**64 - 1)) if with_max
+                     else keys[keys != np.uint64(2**64 - 1)])
     vals = (rng.integers(0, 50, keys.size).astype(np.uint64) << np.uint64(32)
             ) | rng.integers(0, 40, keys.size).astype(np.uint64)
     vals[:5] |= np.uint64(0xF0000000) << np.uint64(32)  # taxids >= 2^31
@@ -2149,10 +2171,21 @@ def test_route_frame_kernel_matches_plain(cuda, Q, ndb, cf):
                                 ndb, cap)
 
 
+PROBE_BLOCK = 256  # csrc/route.cu kThreads: a probe block's threads, at most
+COLLECT_WIDTH = 4  # csrc/route.cu kCollectQ: queries a collect thread
+COLLECT_BLOCK = 256 * COLLECT_WIDTH  # queries a collect block a pass
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flat", [False, True])
 @pytest.mark.parametrize("want_idx", [False, True])
 def test_route_probe_kernel_matches_plain(cuda, flat, want_idx):
+    """KD1's probe: stored and random keys, also at the sizes where the
+    launch's block size changes (256 a block from one block an SM, and
+    9g's later rounds); then a2a frames with runs of U64_MAX pad rows,
+    against a table that stores U64_MAX (a real query can be that key)
+    and one that does not, cut to n = 1, 3, 5 and a probe block's keys -
+    1, + 0, + 1, and a frame of pads only."""
     from bonsai_tpu_torch.parallel import route as rt
 
     rng = np.random.default_rng(7 + flat)
@@ -2166,25 +2199,116 @@ def test_route_probe_kernel_matches_plain(cuda, flat, want_idx):
     want = rt.route_probe_plain(q, c, want_idx)
     _same([got], [want])
     assert bool((want[:100000] >> 31 & 1).all())  # stored keys found
+    # where the launch's block size changes: 256 a block from one per SM
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (256 * sms - 1, 256 * sms, 64 * sms + 1, 7580):
+        x = q[-m:].contiguous()  # random keys first, U64_MAX last
+        _same([rt.route_probe(x.to(cuda), a, want_idx)],
+              [rt.route_probe_plain(x, c, want_idx)])
+    pad = np.uint64(2**64 - 1)
+    for with_max in (False, True):
+        t, (s, v, inline), keys = _table_images(rng, 50000, flat, with_max)
+        a = ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, cuda)
+        c = ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, "cpu")
+        frame = np.concatenate([
+            [pad, keys[0], pad], keys[1:2000], np.full(3000, pad),
+            rng.integers(0, 2**64, 1000, dtype=np.uint64), [pad],
+            keys[2000:2100], np.full(777, pad)]).view(np.int64)
+        frame = torch.from_numpy(frame)
+        cases = [frame, torch.full((10000,), -1, dtype=torch.int64)] + [
+            frame[:m] for m in (1, 3, 5, PROBE_BLOCK - 1, PROBE_BLOCK,
+                                PROBE_BLOCK + 1)]
+        for x in cases:
+            x = x.contiguous()
+            got = rt.route_probe(x.to(cuda), a, want_idx)
+            want = rt.route_probe_plain(x, c, want_idx)
+            _same([got], [want])
+            pads = want[x == -1]
+            assert bool((pads >> 31 & 1).all() if with_max
+                        else (pads == 0).all())
+
+
+def _collect_state(rng, Q):
+    """done, hit (bool) and cidx, oidx (int32) of Q queries at random."""
+    return [torch.from_numpy(rng.random(Q) < .5),
+            torch.from_numpy(rng.random(Q) < .5),
+            _i32(rng.integers(0, 9, Q).astype(np.int32)),
+            _i32(rng.integers(0, 9, Q).astype(np.int32))]
 
 
 @pytest.mark.cuda
 def test_route_collect_kernel_matches_plain(cuda):
+    """KD1's collect at Q of a thread's and a block's queries - 1, + 0,
+    + 1, an empty batch and several passes of the grid, on contiguous
+    tensors and on views at an odd offset (x[1:]: the scalar loads and
+    stores)."""
     from bonsai_tpu_torch.parallel import route as rt
 
     rng = np.random.default_rng(11)
-    for Q, dump in ((100000, 120000), (1, 4), (0, 4), (600001, 600000)):
+    W, B = COLLECT_WIDTH, COLLECT_BLOCK
+    for Q, dump in ((100000, 120000), (1, 4), (0, 4), (600001, 600000),
+                    (W - 1, 8), (W, 8), (W + 1, 8), (B - 1, 900),
+                    (B, 900), (B + 1, 900), (5_000_003, 4_000_000)):
+        for view in (False, True):
+            slotq = torch.from_numpy(
+                rng.integers(0, dump + 1, Q + view).astype(np.int32))
+            back = _u64s(rng, dump)
+            state = _collect_state(rng, Q + view)
+            on = [x.to(cuda) for x in state]
+            off = [x.clone() for x in state]
+            sq, o, f = ((slotq[1:], [x[1:] for x in on],
+                         [x[1:] for x in off]) if view
+                        else (slotq, on, off))
+            n1 = rt.route_collect(back.to(cuda), sq.to(cuda), *o)
+            n2 = rt.route_collect_plain(back, sq, *f)
+            _same(on + [n1], off + [n2])
+
+
+@pytest.mark.cuda
+def test_route_collect_on_one_pending_buffer(cuda):
+    """bk_route_collect called three times on one pending word, filled
+    with 0xAB first, each call with its own state; then a CUDA graph of
+    one call replayed three times, a new state copied in before each: the
+    count is right every time (the tally the blocks share is back at 0
+    after each call)."""
+    from bonsai_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(12)
+    Q, dump = 151552, 159132
+    pending = torch.empty((), dtype=torch.int64, device=cuda)
+    pending.reshape(1).view(torch.uint8).fill_(0xAB)
+
+    def call(back, slotq, st):
+        kernels.launch("bk_route_collect", cuda, back.data_ptr(),
+                       slotq.data_ptr(), Q, dump, *(x.data_ptr() for x in st),
+                       pending.data_ptr())
+
+    def inputs():
         slotq = torch.from_numpy(rng.integers(0, dump + 1, Q).astype(np.int32))
-        back = _u64s(rng, dump)
-        state = [torch.from_numpy(rng.random(Q) < .5),
-                 torch.from_numpy(rng.random(Q) < .5),
-                 _i32(rng.integers(0, 9, Q).astype(np.int32)),
-                 _i32(rng.integers(0, 9, Q).astype(np.int32))]
+        return _u64s(rng, dump), slotq, _collect_state(rng, Q)
+
+    for _ in range(3):
+        back, slotq, state = inputs()
         on = [x.to(cuda) for x in state]
-        off = [x.clone() for x in state]
-        n1 = rt.route_collect(back.to(cuda), slotq.to(cuda), *on)
-        n2 = rt.route_collect_plain(back, slotq, *off)
-        _same(on + [n1], off + [n2])
+        call(back.to(cuda), slotq.to(cuda), on)
+        n2 = rt.route_collect_plain(back, slotq, *state)
+        _same(on + [pending], state + [n2])
+    back, slotq, state = inputs()
+    g_in = [back.to(cuda), slotq.to(cuda)] + [x.to(cuda) for x in state]
+    call(*g_in[:2], g_in[2:])  # warm up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        call(*g_in[:2], g_in[2:])
+    for _ in range(3):
+        back, slotq, state = inputs()
+        for dst, src in zip(g_in, [back, slotq] + state):
+            dst.copy_(src)
+        pending.reshape(1).view(torch.uint8).fill_(0xAB)
+        g.replay()
+        torch.cuda.synchronize()
+        n2 = rt.route_collect_plain(back, slotq, *state)
+        _same(g_in[2:] + [pending], state + [n2])
 
 
 @pytest.mark.cuda

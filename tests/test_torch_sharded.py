@@ -8,7 +8,8 @@ over six taxa.  The port's ranks share the CPU in one process; the JAX
 references are made once a module.  Covered: the a2a route at (dp, db) =
 (1, 2), (2, 2), (1, 4), (2, 3) and the psum route at (2, 2), (1, 4) (the
 raw 6-tuple), the Kraken text of ``process_dataset``, paired reads,
-capacity overflow (cf 0.05, several rounds), ``gather_rows_per_step``,
+capacity overflow (cf 0.05, several rounds), queries equal to the
+frame's U64_MAX pad key, stored or not, ``gather_rows_per_step``,
 ``from_sharded_dir`` at group 1 and 2 and its merge fall-through, the
 dictionary layout, ``bake_rank_images`` (the .npy files equal the JAX
 package's) and its fingerprint (stale images ignored, where the JAX
@@ -433,6 +434,58 @@ def test_fuzz_against_jax(trial):
         assert np.array_equal(got[2], want.hit_mask)
         assert np.array_equal(got[3], want.n_missing)
         assert np.array_equal(got[4], want.n_kmers)
+
+
+@pytest.mark.parametrize("dp,db", [(1, 2), (1, 4)])
+@pytest.mark.parametrize("stored", [True, False])
+def test_a_query_equal_to_the_pad_key_matches_jax(dp, db, stored):
+    """The a2a frame pads its unused rows with U64_MAX, and a real query
+    can be that key: at k = 32 without canonicalization the all-T 32-mer
+    packs to it.  Reads with runs of 32 T's and more, a database that
+    stores that k-mer (or lacks it), capacity factor 0.05 (several
+    rounds): the raw step equals the JAX ShardedClassifier's, and the
+    all-T positions hit exactly where the database stores the k-mer."""
+    from bonsai_tpu.core.encoder import BatchEncoder
+    from bonsai_tpu.core.spacer import Spacer
+
+    k = 32
+    rng = np.random.default_rng(32)
+    reads = [random_dna(rng, int(rng.integers(10, 40)), 0.02)
+             + b"T" * int(rng.integers(32, 60))
+             + random_dna(rng, int(rng.integers(10, 40)), 0.02)
+             for _ in range(24)] + [random_dna(rng, 90, 0.02)
+                                    for _ in range(8)]
+    L = max(len(r) for r in reads)
+    codes = np.full((len(reads), L), -1, dtype=np.int8)
+    lengths = np.array([len(r) for r in reads], dtype=np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = DNA4.lut[np.frombuffer(r, dtype=np.uint8)]
+    em = BatchEncoder(Spacer(k, k), False, "lex").emissions(codes, lengths)
+    vals, mask = np.asarray(em.values), np.asarray(em.mask)
+    all_t = mask & (vals == np.uint64(2**64 - 1))
+    assert all_t.sum() >= 24 * 1
+    pool = np.unique(vals[mask])
+    keys = pool[(rng.random(len(pool)) < 0.5) & (pool != np.uint64(2**64 - 1))]
+    if stored:
+        keys = np.append(keys, np.uint64(2**64 - 1))
+    keys = np.sort(keys)
+    taxa = rng.choice([1, 2, 3, 11, 12, 13], size=len(keys)).astype(np.uint32)
+    jdb, tdb = _dbs(keys, taxa, k)
+    jsc = jsharded.ShardedClassifier(jdb, JTree(TAXONOMY),
+                                     jmesh({"dp": dp, "db": db}),
+                                     canonicalize=False, route="a2a",
+                                     capacity_factor=0.05)
+    want = [np.asarray(x) for x in jsc.step(codes, lengths)]
+    sc = sharded.ShardedClassifier(tdb, TaxTree(TAXONOMY),
+                                   make_mesh({"dp": dp, "db": db}, ["cpu"]),
+                                   canonicalize=False, route="a2a",
+                                   capacity_factor=0.05)
+    got = sc.step(codes, lengths)
+    _check_step(got, want)
+    assert sc.last_rounds > 1
+    hit = got[2]
+    assert hit.shape == all_t.shape
+    assert bool(hit[all_t].all()) if stored else not bool(hit[all_t].any())
 
 
 def test_tiny_and_empty_batches(ref):
