@@ -389,9 +389,7 @@ def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     E = 1 + max(P - W + 1, 0)
     keys = torch.empty((B, E), dtype=torch.int64, device=dev)
     emitted = torch.empty((B, E), dtype=torch.bool, device=dev)
-    scratch = kernels.scratch("bk_compacted_minimizers_gen",
-                              (B, L, int(scheme == "entropy" and it != DNA)),
-                              dev)
+    scratch = kernels.scratch("bk_compacted_minimizers_gen", (B, L, 0), dev)
     kernels.launch("bk_compacted_minimizers_gen", dev, codes.data_ptr(),
                    lengths.data_ptr(), B, L, k, W,
                    *_gen_args(k, it, scheme, dev, score_map, WINDOWED_EPS),

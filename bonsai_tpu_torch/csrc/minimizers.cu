@@ -82,8 +82,9 @@
 // registers (2 blocks a SM at kProbeBatch = 4).  The other alphabets fold
 // each position's k codes from the staged tile (k shared loads a
 // position, the simple way), and their Shannon score
-// scans the seed's k codes in the tile once for each distinct code (at
-// most k + 1 scans) with the table of terms in global memory (L1); a DNA
+// counts those k codes as they are folded (scores.cuh CodeCounts, the
+// terms in shared memory; PROTEIN's 256 codes: a scan of the k codes for
+// each distinct one, shannon_h); a DNA
 // spaced seed's Shannon score counts its codes from ov's 2-bit groups
 // (four popcounts, scores.cuh shannon_dna_score), rolled or gathered.
 
@@ -192,8 +193,10 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
 
 // span = k for a contiguous seed; sp, denom, tbl, fold, sh and
 // unwindowed are read only by the spaced, entropy-file, hash, other
-// alphabets' (kGen: always spaced) and Shannon instantiations
-template <bool kSpaced, int kScore, bool kGen = false>
+// alphabets' (kGen: always spaced) and Shannon instantiations; kNR is the
+// registers of the Shannon score's code counts (scores.cuh CodeCounts) of
+// another alphabet, 0 for its passes (R = 256)
+template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0>
 __global__ void __launch_bounds__(kThreads)
     minimizers_kernel(const int8_t* __restrict__ codes,
                       const int32_t* __restrict__ lengths, int64_t L, int k,
@@ -252,13 +255,27 @@ __global__ void __launch_bounds__(kThreads)
   [[maybe_unused]] RollProbe rp;  // kHash, W > 1
   if constexpr (kSpaced) {
     // the spaced k-mer (or U64_MAX) of position p, and its score; a kGen
-    // k-mer comes folded and masked
-    auto push = [&](int p, uint64_t v, bool n_in) {
+    // k-mer comes folded and masked, with its seed's code counts ``cc``
+    // (kNR > 0)
+    using Counts = bk::CodeCounts<(kNR > 0 ? kNR : 1)>;
+    [[maybe_unused]] const bk::CountLayout cl = bk::count_layout(k, sh.R);
+    [[maybe_unused]] const double* terms = sh.terms;
+    if constexpr (kScore == kShannon && kGen && kNR > 0) {
+      __shared__ double s_terms[33];  // k + 1 <= 33 terms
+      for (int i = tid; i <= k; i += kThreads) s_terms[i] = sh.terms[i];
+      __syncthreads();
+      terms = s_terms;
+    }
+    auto push = [&](int p, uint64_t v, bool n_in, const Counts& cc) {
       const uint64_t ov =
           kGen ? (n_in && !unwindowed ? ~0ull : v) : (n_in ? ~0ull : v & mask);
       s_val[sx(p)] = ov;
       if (W > 1) {
-        if constexpr (kScore == kShannon && kGen) {
+        if constexpr (kScore == kShannon && kGen && kNR > 0) {
+          s_score[sx(p)] = n_in ? bk::kInt64MinU
+                                : bk::shannon_quotient(ov, cc.h(cl, terms),
+                                                       sh);
+        } else if constexpr (kScore == kShannon && kGen) {
           const int8_t* cp = s_code + shift + p;
           s_score[sx(p)] =
               n_in ? bk::kInt64MinU
@@ -296,19 +313,22 @@ __global__ void __launch_bounds__(kThreads)
         nwin = (nwin << 1) | (uint32_t)(c < 0);
         const int r = i - (span - 1);
         if (r >= 0)
-          push(p0 + r, bk::fold_runs(win, *ss), (nwin & ss->nbits_hi) != 0);
+          push(p0 + r, bk::fold_runs(win, *ss), (nwin & ss->nbits_hi) != 0,
+               Counts());
       }
     } else {
       for (int p = p0; p < p1; ++p) {  // gather each position's k codes
         const int8_t* cp = s_code + shift + p;
         uint64_t v = 0;
         bool n_in = false;
+        Counts cc;  // counted once a seed
         for (int i = 0; i < k; ++i) {
           const int c = cp[ss->pos[i]];
           n_in |= c < 0;
           v = kGen ? bk::fold_step(fold, v, c) : (v << 2) | (uint64_t)(c & 3);
+          if constexpr (kScore == kShannon && kGen && kNR > 0) cc.add(cl, c);
         }
-        push(p, kGen ? bk::fold_finish(fold, v) : v, n_in);
+        push(p, kGen ? bk::fold_finish(fold, v) : v, n_in, cc);
       }
     }
     if constexpr (kScore == kHash)
@@ -442,7 +462,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSpaced, int kScore, bool kGen = false>
+template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0>
 int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
            int k, int W, int canon, int span, const bk::Spacing& sp,
            double denom, const bk::ProbeTable& tbl,
@@ -453,12 +473,12 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
   const Layout l = layout(span, W);
   if (l.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        minimizers_kernel<kSpaced, kScore, kGen>,
+        minimizers_kernel<kSpaced, kScore, kGen, kNR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  minimizers_kernel<kSpaced, kScore, kGen>
+  minimizers_kernel<kSpaced, kScore, kGen, kNR>
       <<<grid, kThreads, l.bytes, stream>>>(
           (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
           (int64_t*)keys, (bool*)emitted, span, sp, denom, tbl, fold, sh,
@@ -506,8 +526,8 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
   if (gen && (canon || score == kHash)) return (int)cudaErrorInvalidValue;
   const bk::Spacing sp =
       spaced || gen ? bk::make_spacing(positions, k) : bk::Spacing{};
-#define BK(kSpaced, kScore, kGen)                                            \
-  return launch<kSpaced, kScore, kGen>(                                      \
+#define BK(kSpaced, kScore, kGen, ...)                                       \
+  return launch<kSpaced, kScore, kGen, ##__VA_ARGS__>(                       \
       codes, lengths, B, L, k, W, kSpaced ? 0 : canon, kSpaced ? span : k,   \
       sp, denom, t, keys, emitted, s, f, sh,                                 \
       kGen || !kSpaced ? unwindowed : 0)
@@ -515,7 +535,12 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
     switch (score) {
       case kLex: BK(true, kLex, true);
       case kEntropy: BK(true, kEntropy, true);
-      case kShannon: BK(true, kShannon, true);
+      case kShannon:
+        switch (bk::count_regs(k, R)) {
+          case 1: BK(true, kShannon, true, 1);
+          case 2: BK(true, kShannon, true, 2);
+        }
+        BK(true, kShannon, true);
     }
   } else if (spaced) {
     switch (score) {

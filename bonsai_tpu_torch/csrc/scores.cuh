@@ -26,10 +26,11 @@
 // combined as ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 + r7)), then the
 // codes past the last multiple of 8 in order; R = 256 as two halves of
 // 128).  An absent code's term is an exact 0.0, which changes no partial
-// sum, so only the codes present are visited, in ascending order, each
-// into the accumulator numpy gives it: at most k codes a seed, not R.
-// A DNA seed needs no pass over its codes: shannon_dna_score counts them
-// from the k-mer.
+// sum.  The counts: a DNA seed's from the k-mer (four popcounts,
+// shannon_dna_score); an alphabet of at most ~40 codes counts its k codes
+// once into packed fields (CodeCounts) and adds every code's term in a
+// fixed tree; PROTEIN (R = 256) visits the codes present in ascending
+// order, each found by a pass over the k codes (shannon_h).
 //
 // Fold: the k-mer of an alphabet other than DNA's 2 bits (core/encode.py
 // _pack :108-137, apply_mask :163-170): shift-or by the power-of-two
@@ -90,7 +91,8 @@ __device__ __forceinline__ uint64_t fold_finish(const Fold& f, uint64_t v) {
 }
 
 // The Shannon score's table and constants: terms[c] = p ln p of a count
-// c = 0..k, R codes in the alphabet, eps added to H.
+// c = 0..k (in global or shared memory), R codes in the alphabet, eps
+// added to H.
 struct Shannon {
   const double* terms;
   int R;
@@ -109,7 +111,8 @@ __device__ __forceinline__ void add_at(double* r, int j, double t) {
 }
 
 // H of the k codes code(0..k-1), all >= 0: each pass finds the least code
-// above the last one and its count (at most k + 1 passes of k codes)
+// above the last one and its count (at most k + 1 passes of k codes); the
+// form of PROTEIN's 256 codes, too many for CodeCounts
 template <class Code>
 __device__ __forceinline__ double shannon_h(Code code, int k,
                                             const Shannon& sh) {
@@ -128,7 +131,7 @@ __device__ __forceinline__ double shannon_h(Code code, int k,
       }
     }
     if (cnt == 0) break;
-    const double t = __ldg(sh.terms + cnt);
+    const double t = sh.terms[cnt];
     if (R < 8) {
       res = __dadd_rn(res, t);
     } else if (m < m8) {
@@ -146,12 +149,109 @@ __device__ __forceinline__ double shannon_h(Code code, int k,
   return __dadd_rn(sum8(a), sum8(b));
 }
 
+// The counting form: a seed's code counts as packed fields of b =
+// ceil(log2(k + 1)) bits, fpr = 64 / b fields a u64, code c in register
+// c / fpr at bit (c % fpr) * b, kNR registers (count_regs): counting a
+// code adds 1 at its field, one shared load of the code and no pass over
+// the others.  H then takes every code's term, terms[count], in numpy's
+// pairwise order over the R codes as a fixed tree: an absent code's term
+// is +0.0, which changes no partial sum (a term is <= 0 and never -0.0),
+// so this is shannon_h's sum, bit for bit, with no branch on the counts.
+// Codes outside [0, R) are not counted, as core/entropy.py counts them.
+struct CountLayout {
+  int b, fpr, R;
+  uint32_t inv_fpr;  // (x * inv_fpr) >> 16 is x / fpr for x < 256
+  uint64_t fmask;    // one field's bits
+};
+
+__device__ __forceinline__ CountLayout count_layout(int k, int R) {
+  CountLayout l;
+  l.b = 32 - __clz(k);
+  l.fpr = 64 / l.b;
+  l.R = R;
+  l.inv_fpr = (65536 + l.fpr - 1) / l.fpr;
+  l.fmask = (1ull << l.b) - 1;
+  return l;
+}
+
+// registers of the counting form for a seed of k codes of an alphabet of
+// R, or 0 for shannon_h's passes (host side: the entry points pick the
+// instantiation); one or two cover every alphabet of at most 32 codes at
+// the largest k its fold takes
+inline int count_regs(int k, int R) {
+  int b = 0;
+  while ((1 << b) <= k) ++b;
+  const int regs = (R + 64 / b - 1) / (64 / b);
+  return regs <= 1 ? 1 : regs <= 2 ? 2 : 0;
+}
+
+template <int kNR>
+struct CodeCounts {
+  uint64_t f[kNR];
+
+  __device__ __forceinline__ CodeCounts() {
+#pragma unroll
+    for (int g = 0; g < kNR; ++g) f[g] = 0;
+  }
+
+  __device__ __forceinline__ int reg(const CountLayout& l, int c) const {
+    return kNR == 1 ? 0 : (int)(((unsigned)c * l.inv_fpr) >> 16);
+  }
+
+  // one more of code c (nothing outside [0, R))
+  __device__ __forceinline__ void add(const CountLayout& l, int c) {
+    if ((unsigned)c >= (unsigned)l.R) return;
+    const int g = reg(l, c);
+    const uint64_t one = 1ull << ((c - g * l.fpr) * l.b);
+#pragma unroll
+    for (int i = 0; i < kNR; ++i)
+      if (i == g) f[i] += one;
+  }
+
+  __device__ __forceinline__ int count(const CountLayout& l, int c) const {
+    const int g = reg(l, c);
+    uint64_t x = f[0];
+#pragma unroll
+    for (int i = 1; i < kNR; ++i)
+      if (i == g) x = f[i];
+    return (int)((x >> ((c - g * l.fpr) * l.b)) & l.fmask);
+  }
+
+  // H with the k + 1 terms ``terms`` (shared memory or global)
+  __device__ __forceinline__ double h(const CountLayout& l,
+                                      const double* terms) const {
+    const int R = l.R;
+    if (R < 8) {
+      double res = 0.0;
+      for (int c = 0; c < R; ++c) res = __dadd_rn(res, terms[count(l, c)]);
+      return res;
+    }
+    const int m8 = R - R % 8;  // R <= 64 here
+    double r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[j] = terms[count(l, j)];
+    for (int c0 = 8; c0 < m8; c0 += 8) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        r[j] = __dadd_rn(r[j], terms[count(l, c0 + j)]);
+    }
+    double res = sum8(r);
+    for (int c = m8; c < R; ++c) res = __dadd_rn(res, terms[count(l, c)]);
+    return res;
+  }
+};
+
+// u64(kmer / (H + eps)), x86 conversion
+__device__ __forceinline__ uint64_t shannon_quotient(uint64_t kmer, double h,
+                                                     const Shannon& sh) {
+  return f64_to_u64_x86(
+      __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
+}
+
 template <class Code>
 __device__ __forceinline__ uint64_t shannon_score(uint64_t kmer, Code code,
                                                   int k, const Shannon& sh) {
-  const double h = shannon_h(code, k, sh);
-  return f64_to_u64_x86(
-      __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
+  return shannon_quotient(kmer, shannon_h(code, k, sh), sh);
 }
 
 // The Shannon score of a DNA seed (R = 4) from its packed k-mer alone:
@@ -170,12 +270,11 @@ __device__ __forceinline__ uint64_t shannon_dna_score(uint64_t kmer, int k,
   const int c3 = __popcll(lo & hi);
   const int c0 = k - c1 - c2 - c3;
   double h = 0.0;
-  if (c0) h = __dadd_rn(h, __ldg(sh.terms + c0));
-  if (c1) h = __dadd_rn(h, __ldg(sh.terms + c1));
-  if (c2) h = __dadd_rn(h, __ldg(sh.terms + c2));
-  if (c3) h = __dadd_rn(h, __ldg(sh.terms + c3));
-  return f64_to_u64_x86(
-      __ddiv_rn(__ull2double_rn(kmer), __dadd_rn(h, sh.eps)));
+  if (c0) h = __dadd_rn(h, sh.terms[c0]);
+  if (c1) h = __dadd_rn(h, sh.terms[c1]);
+  if (c2) h = __dadd_rn(h, sh.terms[c2]);
+  if (c3) h = __dadd_rn(h, sh.terms[c3]);
+  return shannon_quotient(kmer, h, sh);
 }
 
 // min(kmer, reverse complement) of a 2-bit DNA k-mer (bitops.canonical,

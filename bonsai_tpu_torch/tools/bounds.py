@@ -121,8 +121,7 @@ def bound_minimizers(codes, lengths, em, W, runs: int = 0,
 
 def bound_compacted_minimizers(codes, lengths, em, W, entropy: bool = False,
                                probes=None, fp64: int = 0):
-    """KB4: codes in, keys and flags out (the compacted stream the design
-    writes and reads back is not the function's); per position a rolled
+    """KB4: codes in, keys and flags out; per position a rolled
     u64 k-mer and its valid flag (8 ops) and with W > 1 a score and about
     three compares (24 more), the score an FP64 divide under ``entropy``,
     or under ``hash`` the phase-1 probes of the valid seeds, ``probes``,
@@ -324,9 +323,8 @@ def bound_rc128(pairs, out, canon: bool):
 
 
 def bound_compacted_stream(values, valid, em, W):
-    """KB4's stream source: 9 B a position in and 9 B a slot out (the
-    compacted stream the design writes and reads back is not the
-    function's); per position its flag (2 ops) and with W > 1 frev64
+    """KB4's stream source: 9 B a position in and 9 B a slot out; per
+    position its flag (2 ops) and with W > 1 frev64
     (~12) and about three (score, value) compares (24)."""
     return bound(nbytes(values, valid, *em),
                  values.numel() * (2 + (36 if W > 1 else 0)))

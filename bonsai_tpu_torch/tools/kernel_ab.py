@@ -218,7 +218,10 @@ HASH_EDITS = {
                          f"__launch_bounds__(kThreads, 3)\n    {kern}(")
                         for f, kern in (("minimizers.cu", "minimizers_kernel"),
                                         ("compacted_minimizers.cu",
-                                         "window_kernel")))),
+                                         "window_kernel"))) + (
+        ("compacted_minimizers.cu",
+         "__launch_bounds__(kThreads) window_kernel(Args a)",
+         "__launch_bounds__(kThreads, 3) window_kernel(Args a)"),)),
 }
 
 # --route's design (a): a probe that loads both candidate rows of a key
@@ -427,7 +430,16 @@ ROUTE_EDITS = {
          "    resp[i] = pad[u] ? s_pad : w;\n  }\n}\n\nsize_t frame_smem"),
     )),
 }
-EDITS = {**HASH_EDITS, **ROUTE_EDITS}
+# the default and --api modes' edited copies of KB4 (compacted_minimizers.cu),
+# as HASH_EDITS: the places a thread of the scoring pass (lex,
+# entropy-file, DNA Shannon) unrolls
+KB4_EDITS = {
+    f"score-u{u}": (True, (("compacted_minimizers.cu",
+                            "#pragma unroll 4\n      for (int pl = base",
+                            f"#pragma unroll {u}\n      for (int pl = base"),))
+    for u in (1, 2, 8)
+}
+EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS}
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
@@ -437,11 +449,13 @@ OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
              ("KB4 hash window W=13",
               "bk_compacted_minimizers_hash_blocks_per_sm", (13,)))
 # the kernels whose registers and spills --hash prints (ptxas -v), by a
-# part of their mangled names
-PTXAS = (("KB1 hash", "minimizers_kernelILb0ELi2ELb0E"),
-         ("KB1 spaced hash", "minimizers_kernelILb1ELi2ELb0E"),
-         ("KB4 hash window", "window_kernelILi1E"),
-         ("KB5", "lookup_scores_kernel"))
+# part of their mangled names (KB4's hash window: the count-and-window
+# design's, or the earlier compaction design's)
+PTXAS = (("KB1 hash", ("minimizers_kernelILb0ELi2ELb0E",)),
+         ("KB1 spaced hash", ("minimizers_kernelILb1ELi2ELb0E",)),
+         ("KB4 hash window", ("window_kernelILi0ELi1ELi0E",
+                              "window_kernelILi1E")),
+         ("KB5", ("lookup_scores_kernel",)))
 
 
 class ParentLib:
@@ -559,8 +573,9 @@ def build_parent(csrc: str, names, tag: str = "parent", edit=None,
             getattr(lib, name).restype = ctypes.c_int64
             getattr(lib, name).argtypes = [ctypes.c_int64] * nargs
     out = ParentLib(lib)
-    out.ptxas = {label: next((v for k, v in regs.items() if part in k), None)
-                 for label, part in PTXAS}
+    out.ptxas = {label: next((v for k, v in regs.items()
+                              if any(p in k for p in parts)), None)
+                 for label, parts in PTXAS}
     return out
 
 
@@ -791,6 +806,7 @@ def api_cases(seq: bytes, dev):
     of KB1 and KB4 and of KR1 on ``seq``'s first 4M bases (a row) or its
     forward frame 0 as protein."""
     from ..core.alphabet import InputType, alphabet_of
+    from ..core.encode import position_validity
     from ..core.rolling import RollingEncoder
     from ..core.spacer import Spacer
     from .synthetic import translate
@@ -838,6 +854,14 @@ def api_cases(seq: bytes, dev):
         cases.append((f"cyclic_hashes k={k}{' canonical' if canon else ''}",
                       lambda renc=renc: renc.hashes(dna[0]), graph_ms,
                       "bk_cyclic_hashes"))
+    # KB4's stream source at chip_smoke.py phase 9f's shape: the record's
+    # k = 64 hash stream, w = 100 (W = 37)
+    rec = row(seq)
+    v, invalid = RollingEncoder(64, False, 100).hashes(rec[0])
+    ok = position_validity(rec[1], v.shape[1], 64) & ~invalid
+    cases.append((f"compacted_stream k=64 hash stream {v.shape[1]} values "
+                  "W=37", lambda: enc.compacted_stream(v, ok, 37), graph_ms,
+                  "bk_compacted_stream"))
     return cases
 
 
@@ -1280,8 +1304,9 @@ def build_libs(parent_csrc: str, names, edits, change=False,
 
 
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
-         "NODES\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--sketch|--api PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "NODES [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--sketch PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--api PARENT_CSRC GENOME [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--hash PARENT_CSRC GENOME [EDIT...]\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--classify PARENT_CSRC READS NODES NAMEID GENOME...\n"
          "       python -m bonsai_tpu_torch.tools.kernel_ab --route "
@@ -1296,7 +1321,7 @@ def main(argv=None) -> int:
     if mode:
         args = args[1:]
     edits = [e for a, e in zip(args, args[1:]) if a == "-e"]
-    if mode == "--route" and edits:
+    if mode in ("--route", "--api", "") and edits:
         args = args[:args.index("-e")]
     for edit in (args[2:] if mode == "--hash" else edits):
         _edit_parts(edit)
@@ -1336,9 +1361,9 @@ def main(argv=None) -> int:
     elif mode:
         seq = next(iter(fastx.read_fastx(args[1])))[1]
         cases = (sketch_cases if mode == "--sketch" else api_cases)(seq, dev)
-        res = run({"parent": build_parent(args[0], BUILD_SOURCES)}, cases)
+        res = run(build_libs(args[0], BUILD_SOURCES, edits), cases)
     else:
-        res = run({"parent": build_parent(args[0], BUILD_SOURCES)},
+        res = run(build_libs(args[0], BUILD_SOURCES, edits),
                   build_cases(*args[1:], dev))
     res["card"] = card
     print(json.dumps(res))

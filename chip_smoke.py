@@ -1889,6 +1889,77 @@ def _discipline_rows(rng, c, W, L=300, B=48):
     return codes, lengths
 
 
+KB4_TILE = 4096  # csrc/compacted_minimizers.cu: seed positions a tile
+HALO_WS = (13, 4097, 8192)  # KB4's halo inside a tile, and past one
+# the -C -w build's peak max_memory_allocated with the earlier KB4 design,
+# whose compaction launch wrote the compacted stream to device memory and
+# its window launch read it back (this script's phase 9 on an NVIDIA H100
+# 80GB HBM3 at 700 W, before the count-and-window design)
+PARENT_CW_PEAK_MIB = 511.9
+
+
+def _halo_rows(rng, k, W):
+    """Rows of six KB4 tiles for its forward halo (the W - 1 valid seeds
+    past a tile): 2% Ns; an N run of more than two tiles right after tile
+    0; no valid seed in tiles 0, 3 and 5; n_valid = W - 1, W and W + 1,
+    the seeds in runs in tiles 0, 2 and 4; no N at all."""
+    import numpy as np
+
+    T = KB4_TILE
+    L = 6 * T + k - 1 + 37
+    codes = rng.integers(0, 4, (7, L)).astype(np.int8)
+    codes[0][rng.random(L) < 0.02] = -1
+    codes[1, T: 3 * T + 1000] = -1
+    codes[2, : T] = -1
+    codes[2, 3 * T: 4 * T] = -1
+    codes[2, 5 * T:] = -1
+    for row, n in ((3, W - 1), (4, W), (5, W + 1)):
+        codes[row] = -1
+        for i, m in enumerate((n // 3, n // 3, n - 2 * (n // 3))):
+            if m:
+                codes[row, 2 * i * T: 2 * i * T + m + k - 1] = rng.integers(
+                    0, 4, m + k - 1)
+    return codes, np.full(7, L, np.int32)
+
+
+def _shannon_order():
+    """tests/shannon_order.py: the rows on which the order of the Shannon
+    score's additions decides a window's minimizer."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "shannon_order", os.path.join(ROOT, "tests", "shannon_order.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kb4_launch_split(dev):
+    """KB4's launches under the profiler on the ec chunk of the -C -k 31
+    -w 40 build: its count and window launches, no memset and no other
+    launch; the device ms of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bonsai_tpu_torch.core import encoder as enc
+
+    c, ln = (t.to(dev) for t in (torch.from_numpy(x) for x in _ec_chunk(40)))
+    enc.compacted_minimizers(c, ln, 31, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            enc.compacted_minimizers(c, ln, 31, 10)
+        torch.cuda.synchronize()
+    _, ev = _device_busy(prof)
+    split = {key[:48]: us / 1e3 / 5 for key, us in ev}
+    say(f"# KB4 by launch (profiler, ec chunk -C -k 31 -w 40, ms a call): "
+        f"{split}")
+    names = " ".join(split)
+    require("count_kernel" in names and "window_kernel" in names
+            and len(split) == 2, f"KB4's launches: {split}")
+
+
 def _short_rows(rng, B, L):
     """B rows of at most L bases, 5% Ns: rows shorter than k and P < W."""
     import numpy as np
@@ -1981,6 +2052,13 @@ def discipline_kernels(dev, chk):
         chk.same("compacted_minimizers", g, enc.compacted_minimizers_plain(
             torch.from_numpy(c), torch.from_numpy(n), 31, 10),
             "two calls in a row")
+    # KB4's forward halo: across and past tiles, over tiles with no valid
+    # seed and N runs of two tiles, n_valid = W - 1, W, W + 1
+    for W in HALO_WS:
+        for k, scheme in ((31, "lex"), (25, "entropy-file")):
+            kb4(*_halo_rows(rng, k, W), k, W, scheme,
+                f"halo rows k={k} W={W} {scheme}")
+    kb4_launch_split(dev)
 
 
 def _device_busy(prof):
@@ -2052,11 +2130,14 @@ def phase_device_build(dev, kk, host_secs):
         t3 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated()
         got = content_digest(table)
+        parent = (f" (with KB4's compacted stream in device memory, the "
+                  f"earlier design: {PARENT_CW_PEAK_MIB} MiB)"
+                  if flags.startswith("-C") else "")
         say(f"# device build: ec {flags}: {table.n} k-mers in {t3 - t0:.3f}s "
             f"= {table.n / (t3 - t0):.6g} k-mers/s (first run): genomes -> "
             f"states {t1 - t0:.3f}s, tree fold + fetch {t2 - t1:.3f}s, table "
             f"placement (host) {t3 - t2:.3f}s; peak device memory "
-            f"{peak / 2**20:.1f} MiB; digest "
+            f"{peak / 2**20:.1f} MiB{parent}; digest "
             f"{'matches' if got == want else 'DIFFERS'} the JAX package's")
         require(got == want, f"ec {flags} device build differs")
         nums[flags] = {"secs": t3 - t0, "n": table.n, "peak": peak}
@@ -2761,6 +2842,33 @@ def api_kernels(dev, chk, k12, frames):
     codes[1, 100] = -1
     kb1(codes, np.array([200, 180], np.int32), 22, 1, "lex",
         InputType.PROTEIN_3BIT, None, "22 residues of code 7: U64_MAX")
+    # KB4's forward halo (rows of six tiles) in its Shannon and radix
+    # instantiations
+    for W in HALO_WS:
+        for it, k, scheme, canon in (
+                (InputType.DNA, 31, "entropy", False),
+                (InputType.DNA, 13, "entropy", True),
+                (InputType.PROTEIN_14, 10, "lex", False),
+                (InputType.PROTEIN20, 7, "entropy", False),
+                (InputType.PROTEIN20, 14, "entropy", False),
+                (InputType.PROTEIN, 5, "entropy", False)):
+            codes, lengths = _halo_rows(rng, k, W)
+            if it != InputType.DNA:
+                codes = _radix_codes(rng, codes, it)
+            kb4(codes, lengths, k, W, scheme, it, canon,
+                f"halo rows {it.name} k={k} W={W} {scheme} canon={canon}")
+    # the rows on which another order of the radix Shannon score's adds
+    # emits another minimizer (tests/shannon_order.py), on KB4 and KB1
+    so = _shannon_order()
+    for name in so.RADIX:
+        k, it = so.RADIX[name][0], InputType[name]
+        codes, lengths = so.radix_rows(name, "kb4")
+        kb4(codes, lengths, k, 2, "entropy", it, False,
+            f"{name} k={k} rows whose minimizer the order of the adds decides")
+        codes, lengths = so.radix_rows(name, "kb1")
+        kb1(codes, lengths, k, 2, "entropy", it, so.radix_positions(k),
+            f"{name} k={k} spaced rows whose minimizer the order of the adds "
+            "decides")
     # KR1
     c = torch.from_numpy(fastx.encode_contig(k12[:1_000_000], DNA4.lut)[None])
     for k, canon in ((31, True), (64, True), (200, False)):
@@ -3893,6 +4001,20 @@ def format_kernels(dev, chk, keys, codes):
                      enc.compacted_stream(a.to(dev), b.to(dev), W),
                      enc.compacted_stream_plain(a, b, W),
                      f"W={W} {tuple(a.shape)}")
+    # the forward halo: the validity of KB4's halo rows (k = 31)
+    from bonsai_tpu_torch.core.alphabet import InputType
+
+    rng = np.random.default_rng(SEED + 23)
+    for W in HALO_WS:
+        codes, _ = _halo_rows(rng, 31, W)
+        _, invalid = enc._pack(torch.from_numpy(codes), 31, None,
+                               InputType.DNA)
+        b = (~invalid).contiguous()
+        a = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, tuple(b.shape),
+                                          dtype=np.int64))
+        chk.same("compacted_stream",
+                 enc.compacted_stream(a.to(dev), b.to(dev), W),
+                 enc.compacted_stream_plain(a, b, W), f"halo rows W={W}")
 
 
 def format_numbers(dev, keys, codes):

@@ -248,3 +248,56 @@ def test_the_order_of_the_dna_shannon_adds_decides_these_rows(disc):
         other = enc.emissions(ct, lt)
     differs = (em.values != other.values) & (em.mask | other.mask)
     assert (differs | (em.mask != other.mask)).any(-1).all()
+
+
+@pytest.mark.parametrize("name", ["PROTEIN20", "PROTEIN_6"])
+@pytest.mark.parametrize("disc", ["kb4", "kb1 spaced"])
+def test_the_order_of_the_radix_shannon_adds_decides_these_rows(name, disc):
+    """The rows of ``tests/shannon_order.py`` ``radix_rows``: PROTEIN20
+    at k = 14 (numpy's eight accumulators for codes 0..15, then 16..19)
+    and PROTEIN_6 at k = 24 (in code order), one window of W = 2 a row,
+    contiguous (KB4) or the spaced seed of every other code (KB1).  On
+    each row the JAX package's entropy_value gives some seed another H
+    when the terms are added in another order (PROTEIN20's in code order,
+    PROTEIN_6's with codes 1 and 2 exchanged), and the port's plain
+    encoder, equal to the JAX BatchEncoder there, emits another minimizer
+    in that order.  The card tests hold KB4 and KB1 to the plain version
+    on the same rows."""
+    import shannon_order as so
+    from bonsai_tpu.core.alphabet import InputType as JInputType
+
+    kernel = disc.split()[0]
+    codes, lengths = so.radix_rows(name, kernel)
+    k = so.RADIX[name][0]
+    it = JInputType[name]
+    R = 20 if name == "PROTEIN20" else 6
+    if kernel == "kb4":
+        spacer = (k, k + 1, "")
+        counts = jent.window_code_counts(codes, k, R)
+    else:
+        spacer = (k, 2 * k, f"1x{k - 1}")
+        counts = jent.spaced_code_counts(codes, so.radix_positions(k), R)
+    terms = entropy.shannon_terms(k)
+    h = jent.entropy_value(counts, k)
+    if name == "PROTEIN20":  # in code order
+        h_other = np.zeros(h.shape)
+        for c in range(R):
+            h_other = h_other + terms[counts[..., c]]
+    else:
+        h_other = jent.entropy_value(counts[..., [0, 2, 1, 3, 4, 5]], k)
+    valid = (counts.sum(-1) == k)
+    assert ((h != h_other) & valid).any(-1).all()
+    jem = JEncoder(JSpacer(*spacer), False, "entropy",
+                   input_type=it).emissions(codes, lengths)
+    enc = BatchEncoder(Spacer(*spacer), False, "entropy", input_type=it)
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lengths)
+    em = enc.emissions(ct, lt)
+    mask = np.asarray(jem.mask)
+    assert mask.any(-1).all()
+    np.testing.assert_array_equal(em.mask.numpy(), mask)
+    np.testing.assert_array_equal(u64(em.values)[mask],
+                                  np.asarray(jem.values)[mask])
+    with so.radix_other_order(name):
+        other = enc.emissions(ct, lt)
+    differs = (em.values != other.values) & (em.mask | other.mask)
+    assert (differs | (em.mask != other.mask)).any(-1).all()

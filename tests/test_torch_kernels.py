@@ -1684,6 +1684,124 @@ def test_radix_kernels_keep_a_real_u64_max(cuda):
     assert not want.mask.any()
 
 
+KB4_TILE = 4096  # csrc/compacted_minimizers.cu: seed positions a tile
+
+
+def _halo_rows(rng, k, W):
+    """Rows of six KB4 tiles for its forward halo (the W - 1 valid seeds
+    past a tile): 2% Ns; an N run of more than two tiles right after tile
+    0, so that tile 0's halo skips whole tiles; no valid seed in tiles 0,
+    3 and 5 (the start, the middle and the end of the row); n_valid = W -
+    1, W and W + 1, the seeds in runs in tiles 0, 2 and 4; no N at all."""
+    T = KB4_TILE
+    L = 6 * T + k - 1 + 37
+    codes = rng.integers(0, 4, (7, L)).astype(np.int8)
+    codes[0][rng.random(L) < 0.02] = -1
+    codes[1, T: 3 * T + 1000] = -1
+    codes[2, : T] = -1
+    codes[2, 3 * T: 4 * T] = -1
+    codes[2, 5 * T:] = -1
+    for row, n in ((3, W - 1), (4, W), (5, W + 1)):
+        codes[row] = -1
+        for i, m in enumerate((n // 3, n // 3, n - 2 * (n // 3))):
+            if m:
+                codes[row, 2 * i * T: 2 * i * T + m + k - 1] = rng.integers(
+                    0, 4, m + k - 1)
+    return codes, np.full(7, L, np.int32)
+
+
+def _check_halo_counts(want, W):
+    """Rows 3-5 of ``_halo_rows``: n_valid = W - 1 emits the tail alone,
+    W the first window alone, W + 1 the first two."""
+    m = want.mask
+    assert m[3, 0] and not m[3, 1:].any()
+    assert m[4, 1] and not m[4, 0] and not m[4, 2:].any()
+    assert m[5, 1:3].all() and not m[5, 0] and not m[5, 3:].any()
+
+
+# (scheme, input type, k, canon) of each KB4 instantiation: lex,
+# entropy-file, hash, DNA Shannon (uncanonical and canonical), radix lex
+# (multiply-add), radix Shannon (one register of counts, two, and
+# PROTEIN's passes)
+HALO_KINDS = {
+    "lex": ("lex", InputType.DNA, 31, False),
+    "entropy-file": ("entropy-file", InputType.DNA, 25, False),
+    "hash": ("hash", InputType.DNA, 25, False),
+    "shannon": ("entropy", InputType.DNA, 31, False),
+    "shannon-canon": ("entropy", InputType.DNA, 13, True),
+    "radix-lex": ("lex", InputType.PROTEIN_14, 10, False),
+    "radix-shannon": ("entropy", InputType.PROTEIN20, 7, False),
+    "radix-shannon-2reg": ("entropy", InputType.PROTEIN20, 14, False),
+    "radix-shannon-passes": ("entropy", InputType.PROTEIN, 5, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [13, 4097, 8192])
+@pytest.mark.parametrize("kind", sorted(HALO_KINDS))
+def test_compacted_minimizers_kernel_forward_halo(cuda, kind, W):
+    """Every KB4 instantiation on ``_halo_rows``: halos longer than a
+    tile (W = 4097, 8192) and within one (W = 13), halos that skip whole
+    tiles, tiles with no valid seed, n_valid = W - 1, W, W + 1."""
+    scheme, it, k, canon = HALO_KINDS[kind]
+    rng = np.random.default_rng(W + k + len(kind))
+    codes, lengths = _halo_rows(rng, k, W)
+    smap = None
+    if it != InputType.DNA:
+        codes = _radix_codes(rng, codes, it)
+    if scheme == "hash":
+        em = enc.minimizers(torch.from_numpy(codes), torch.from_numpy(lengths),
+                            k, 1, False)
+        smap = _score_map(rng, em.values[em.mask].numpy().view(np.uint64)[::2],
+                          "inline")
+    want = _run_gen(cuda, "kb4", codes, lengths, k, W, scheme, it,
+                    score_map=smap, canon=canon)
+    if it != InputType.PROTEIN:  # bytes past 127 add ambiguous codes
+        _check_halo_counts(want, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [13, 4097, 8192])
+def test_compacted_stream_kernel_forward_halo(cuda, W):
+    """KB4's stream source on the validity of ``_halo_rows`` (k = 31):
+    random values, halos across and past tiles, n_valid = W - 1, W, W + 1."""
+    rng = np.random.default_rng(W)
+    codes, lengths = _halo_rows(rng, 31, W)
+    kmers, invalid = enc._pack(torch.from_numpy(codes), 31, None,
+                               InputType.DNA)
+    valid = (~invalid).contiguous()
+    vals = _u64s(rng, valid.numel()).reshape(valid.shape)
+    want = enc.compacted_stream_plain(vals, valid, W)
+    _check_halo_counts(want, W)
+    _same(enc.compacted_stream(vals.to(cuda), valid.to(cuda), W), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["PROTEIN20", "PROTEIN_6"])
+@pytest.mark.parametrize("kb", ["kb4", "kb1"])
+def test_radix_shannon_kernels_keep_the_order_of_the_adds(cuda, name, kb):
+    """KB4 (contiguous) and KB1 (every other code) of PROTEIN20 at k = 14
+    and PROTEIN_6 at k = 24 emit the plain version's minimizers on the
+    rows of ``tests/shannon_order.py`` ``radix_rows``, where another order
+    of the terms' additions would emit others (``tests/test_torch_
+    entropy.py`` shows both against the JAX package)."""
+    import shannon_order as so
+
+    codes, lengths = so.radix_rows(name, kb)
+    call = (so.radix_kb4_call if kb == "kb4" else so.radix_kb1_call)(name)
+    ct, lt = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = call(ct, lt)
+    with so.radix_other_order(name):
+        other = call(ct, lt)
+    assert ((want.values != other.values) | (want.mask != other.mask)).any(
+        -1).all()
+    kern = enc.compacted_minimizers if kb == "kb4" else enc.minimizers
+    before = kern.launches
+    got = call(ct.to(cuda), lt.to(cuda))
+    assert kern.launches == before + 1
+    _same(got, want)
+
+
 def _rolling_rows(rng, L, n_chars=4):
     """Rows with 3% Ns, Ns at thread-run and tile edges, an N run longer
     than most k, an all-N row and a row of one code."""
