@@ -23,7 +23,10 @@ unwindowed and canonical by default; against a database built with a
 spaced seed (``-S``), that seed at W = 1, never canonical (the encoder's
 spaced branch).  The seed's span c sets the positions a read has,
 P = lproc - c + 1, and the output's ``A:`` counts.  u32 values (taxids,
-output words) travel in int32 tensors with the same bits.
+output words) travel in int32 tensors with the same bits.  A batch whose
+longest read fits in 16 bits ships its lengths as ``torch.uint16``, 2 B a
+read, as the JAX package ships them (pipeline.py:667-668); K1 reads
+either width.
 """
 
 from __future__ import annotations
@@ -141,6 +144,13 @@ def unpack_n(pcodes, nmask, lproc: int, nidx=None):
     return flat[:n].view(codes.shape)
 
 
+def widen_lengths(lengths: torch.Tensor) -> torch.Tensor:
+    """K1's lengths, int32 or u16 (``torch.uint16``), as int32 (the JAX
+    ``slice_cast``, pipeline.py:496-501): the one place the plain versions
+    widen them, unsigned."""
+    return lengths if lengths.dtype == torch.int32 else lengths.to(torch.int32)
+
+
 def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
                        canon: bool, arr: ProbeArrays, want_idx: bool,
                        positions=None, nidx=None):
@@ -152,7 +162,8 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
     (``want_idx``) or the original taxid (high half); both are 0 where
     there is no hit."""
     codes = unpack_n(pcodes, nmask, lproc, nidx)
-    em = minimizers_plain(codes, lengths, k, 1, canon, positions=positions)
+    em = minimizers_plain(codes, widen_lengths(lengths), k, 1, canon,
+                          positions=positions)
     packed, found, sel = probe_slots(em.values, arr, want_idx=True)
     hit = em.mask & found
     cidx = as_i32(torch.where(hit, packed, 0))
@@ -161,11 +172,15 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
 
 
 def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
-    """Check K1's inputs on the card; (nmw, P, the host offsets or None)."""
+    """Check K1's inputs on the card; (nmw, P, the host offsets or None,
+    1 where the lengths are u16)."""
     dev = pcodes.device
     B, w16 = pcodes.shape
     kernels.check(pcodes, "pcodes", torch.int32, dev)
-    kernels.check(lengths, "lengths", torch.int32, dev, (B,))
+    if lengths.dtype not in (torch.int32, torch.uint16):
+        raise TypeError(f"lengths: dtype {lengths.dtype}, expected int32 or "
+                        "uint16")
+    kernels.check(lengths, "lengths", lengths.dtype, dev, (B,))
     if not 1 <= k <= 32:
         raise ValueError(f"k={k}: the kernel takes 1 <= k <= 32")
     if positions is not None and (
@@ -185,7 +200,7 @@ def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
                              f"cover ({B}, {lproc})")
     pos = None if positions is None else (ctypes.c_int32 * 32)(
         *(int(x) for x in positions))
-    return nmw, max(lproc - c + 1, 0), pos
+    return nmw, max(lproc - c + 1, 0), pos, int(lengths.dtype == torch.uint16)
 
 
 def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
@@ -193,15 +208,15 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
                  nidx=None):
     """K1 (``csrc/encode_probe.cu``): see ``encode_probe_plain``, which
     serves CPU tensors.  pcodes (B, w16) int32, nmask (B, nmw) int32 or
-    None, lengths (B,) int32; outputs (B, P) with P = lproc - c + 1, c the
-    seed's span (k when ``positions`` is None).  A spaced seed runs the
-    kernel's second entry point, and an image of a row range (a psum-route
-    rank's, ``ProbeArrays.rows``) its bucket-range instantiation, contiguous
-    or spaced.  ``nidx`` (cap,) int32, the sparse channel's flat N
-    positions sorted ascending and padded with ``N_SENTINEL``, replaces
-    ``nmask`` in the sparse instantiation, contiguous or spaced, of a whole
-    table; it takes B * lproc <= ``N_SENTINEL``.  Each launch is counted
-    in ``encode_probe.variants``."""
+    None, lengths (B,) int32 or uint16; outputs (B, P) with P = lproc - c
+    + 1, c the seed's span (k when ``positions`` is None).  A spaced seed
+    runs the kernel's second entry point, and an image of a row range (a
+    psum-route rank's, ``ProbeArrays.rows``) its bucket-range
+    instantiation, contiguous or spaced.  ``nidx`` (cap,) int32, the
+    sparse channel's flat N positions sorted ascending and padded with
+    ``N_SENTINEL``, replaces ``nmask`` in the sparse instantiation,
+    contiguous or spaced, of a whole table; it takes B * lproc <=
+    ``N_SENTINEL``.  Each launch is counted in ``encode_probe.variants``."""
     if positions is not None and canon:
         raise ValueError("a spaced seed is never canonicalized")
     if nidx is not None and nmask is not None:
@@ -213,7 +228,8 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         raise ValueError(f"encode_probe: no kernel for device {pcodes.device}")
     dev = pcodes.device
     B, w16 = pcodes.shape
-    nmw, P, pos = _k1_args(pcodes, nmask, lengths, lproc, k, positions)
+    nmw, P, pos, len16 = _k1_args(pcodes, nmask, lengths, lproc, k,
+                                  positions)
     arr.check(dev, ranged=True)
     if nidx is not None:
         kernels.check(nidx, "nidx", torch.int32, dev)
@@ -234,16 +250,17 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         if nidx is not None:
             kernels.launch(
                 "bk_encode_probe_sparse", dev, pcodes.data_ptr(), w16,
-                nidx.data_ptr(), nidx.numel(), lengths.data_ptr(), B, P, k,
-                int(canon), int(pos is not None), pos, arr.slots.data_ptr(),
-                arr.lgnb, arr.vbits, arr.vals.data_ptr(), arr.vals.numel(),
-                int(arr.inline), int(want_idx), hit.data_ptr(),
-                valid.data_ptr(), cidx.data_ptr(), oidx.data_ptr(),
+                nidx.data_ptr(), nidx.numel(), lengths.data_ptr(), len16, B,
+                P, k, int(canon), int(pos is not None), pos,
+                arr.slots.data_ptr(), arr.lgnb, arr.vbits,
+                arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
+                int(want_idx), hit.data_ptr(), valid.data_ptr(),
+                cidx.data_ptr(), oidx.data_ptr(),
             )
         elif arr.rows:
             kernels.launch(
                 "bk_encode_probe_range", dev, pcodes.data_ptr(), w16,
-                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), len16, B, P, k,
                 int(canon), int(pos is not None), pos, arr.slots.data_ptr(),
                 arr.lgnb, arr.vbits, arr.vals.data_ptr(), arr.vals.numel(),
                 int(arr.inline), int(want_idx), arr.row0, arr.rows,
@@ -253,7 +270,7 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         elif positions is None:
             kernels.launch(
                 "bk_encode_probe", dev, pcodes.data_ptr(), w16,
-                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), len16, B, P, k,
                 int(canon), arr.slots.data_ptr(), arr.lgnb, arr.vbits,
                 arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
                 int(want_idx), hit.data_ptr(), valid.data_ptr(),
@@ -262,7 +279,8 @@ def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         else:
             kernels.launch(
                 "bk_encode_probe_spaced", dev, pcodes.data_ptr(), w16,
-                kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k, pos,
+                kernels.ptr(nmask), nmw, lengths.data_ptr(), len16, B, P, k,
+                pos,
                 arr.slots.data_ptr(), arr.lgnb, arr.vbits,
                 arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
                 int(want_idx), hit.data_ptr(), valid.data_ptr(),
@@ -292,7 +310,8 @@ def encode_only_plain(pcodes, nmask, lengths, lproc: int, k: int,
     slice -> emissions at W = 1 -> (kmers int64, 0 where not valid;
     valid)."""
     codes = unpack_2bit(pcodes, nmask)[:, :lproc]
-    em = minimizers_plain(codes, lengths, k, 1, canon, positions=positions)
+    em = minimizers_plain(codes, widen_lengths(lengths), k, 1, canon,
+                          positions=positions)
     return torch.where(em.mask, em.values, 0), em.mask
 
 
@@ -313,13 +332,14 @@ def encode_only(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
         raise ValueError(f"encode_only: no kernel for device {pcodes.device}")
     dev = pcodes.device
     B, w16 = pcodes.shape
-    nmw, P, pos = _k1_args(pcodes, nmask, lengths, lproc, k, positions)
+    nmw, P, pos, len16 = _k1_args(pcodes, nmask, lengths, lproc, k,
+                                  positions)
     kmers = torch.empty((B, P), dtype=torch.int64, device=dev)
     valid = torch.empty((B, P), dtype=torch.bool, device=dev)
     if B * P:
         kernels.launch("bk_encode_only", dev, pcodes.data_ptr(), w16,
-                       kernels.ptr(nmask), nmw, lengths.data_ptr(), B, P, k,
-                       int(canon), int(pos is not None), pos,
+                       kernels.ptr(nmask), nmw, lengths.data_ptr(), len16, B,
+                       P, k, int(canon), int(pos is not None), pos,
                        kmers.data_ptr(), valid.data_ptr())
         _count("encode" if positions is None else "spaced encode")
     return kmers, valid
@@ -493,7 +513,8 @@ def n_channel(n_inread: int, cap: int, rows: int, lproc: int,
 class Prep(NamedTuple):
     """A batch packed on the host (pinned on CUDA): the 2-bit words, the
     N channel's array (the mask, the sparse list or None) and its name,
-    the lengths, and the processing width."""
+    the lengths (uint16, or int32 past 0xFFFF), and the processing
+    width."""
 
     pcodes: torch.Tensor
     naux: Optional[torch.Tensor]
@@ -620,7 +641,8 @@ class Classifier:
         lproc is the batch's true max read length rounded to Lp/16
         granularity (>= 8), so the probe runs at P = lproc - k + 1
         positions (or the ``lproc`` given, the sharded classifier's raw
-        step: the codes' width)."""
+        step: the codes' width).  The lengths ship as u16 where the longest
+        read is at most 0xFFFF bases (the JAX rule), else as int32."""
         n = len(batch.codes)
         if paired and n % 2:
             raise ValueError("a paired batch holds whole mate pairs")
@@ -651,6 +673,8 @@ class Classifier:
             return t.pin_memory() if pin else t
 
         naux = {"none": None, "sparse": nidx, "mask": nmask}[channel]
+        if maxlen <= 0xFFFF:  # 2 B a read (pipeline.py:667-668)
+            lengths = lengths.astype(np.uint16)
         return Prep(host(pcodes), None if naux is None else host(naux),
                     host(lengths), lproc, channel)
 

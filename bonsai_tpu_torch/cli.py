@@ -26,6 +26,16 @@ subcommands, bin/bonsai.cpp) for the ported slice:
   distmat GENOMES... -k K -o PREFIX [--metric M] [--hll P] [-C]
           [--device cuda|cpu]
   cmpshs SHS... [-m METRIC] [-o OUT] [--device cuda|cpu]
+  css2ss IN OUT [-b BITS] [--device cuda|cpu]
+  shs2sketch IN OUT [-z SIZE] [-b BITS] [--device cuda|cpu]
+  stdin2ss [IN] [-S SIZE] [-a A] [-b B] [-H] [-o OUT] [--device cuda|cpu]
+  setsketchroller KMERS... [-F paths] [-k K] [-o OUT] [-b]
+          [--device cuda|cpu]
+  genome2multiset GENOME [-k K] [-o PREFIX] [-C] [--device cuda|cpu]
+  errexp [-l STEP] [--set-sizes LOG2S] [--sketch-sizes LOG2S]
+         [--device cuda|cpu]
+  ssi-build SKETCHES... -o OUT [-r REGS] [-k K] [--device cuda|cpu]
+  ssi-screen INDEX QUERIES... [-n TOPN] [-r REGS] [--device cuda|cpu]
 
 ``classify``, the ``--device-build`` builds, the shard owners of
 ``build --shards`` and the sketch front-ends run on ``--device`` (default
@@ -42,7 +52,10 @@ database), of a contiguous or a spaced seed, and reads plain, .gz, .xz,
 .bz2 and .zst FASTA/FASTQ.  ``-z`` gzips the database whatever its name,
 as the reference does.  The
 sketch front-ends (``kmercnt``, ``rolling-multk``, ``rolling-multk-sketch``,
-``setsketch``, ``distmat``, ``cmpshs``) print and write what the JAX
+``setsketch``, ``distmat``, ``cmpshs``) and sketch tools (``css2ss``,
+``shs2sketch``, ``stdin2ss``, ``setsketchroller``, ``genome2multiset``,
+``errexp``, ``ssi-build``/``setsketchindexer``,
+``ssi-screen``/``setsketchscreener``) print and write what the JAX
 package's do, but for two of its faults: its ``MultiKCounter`` counts the
 windows of a long contig's chunk overlaps again for the smaller ks (here
 each window counts once, ``sketch/shs.py``), and its ``distmat --hll``
@@ -264,19 +277,95 @@ def _sketch_parsers(sub) -> None:
     p.add_argument("-o", "--out-prefix", default=None)
     _device_arg(p)
     p.set_defaults(run=_cmd_rolling_multk_sketch)
+    _sketch_tool_parsers(sub)
+
+
+def _sketch_tool_parsers(sub) -> None:
+    """The sketch tools' parsers (bonsai_tpu/cli.py:190-281)."""
+    p = sub.add_parser("css2ss",
+                       help="continuous -> packed setsketch (bin/css2ss.cpp)")
+    p.add_argument("inp")
+    p.add_argument("out")
+    p.add_argument("-b", "--bits", type=int, default=16)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_css2ss)
+
+    p = sub.add_parser("shs2sketch", help="sorted-hash-set dump -> setsketch "
+                                          "(bin/shs2sketch.cpp)")
+    p.add_argument("inp")
+    p.add_argument("out")
+    p.add_argument("-z", "--sketch-size", type=int, default=4096)
+    p.add_argument("-b", "--bits", type=int, default=16)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_shs2sketch)
+
+    p = sub.add_parser("ssi-build", aliases=["setsketchindexer"],
+                       help="build an LSH index over packed setsketches "
+                            "(bin/setsketchindexer.cpp)")
+    p.add_argument("sketches", nargs="+")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-r", "--regs-per-hash", type=int, default=4)
+    p.add_argument("-k", type=int, default=0)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_ssi_build)
+
+    p = sub.add_parser("ssi-screen", aliases=["setsketchscreener"],
+                       help="screen query sketches against an LSH index "
+                            "(bin/setsketchscreener.cpp)")
+    p.add_argument("index")
+    p.add_argument("queries", nargs="+")
+    p.add_argument("-n", "--topn", type=int, default=10)
+    p.add_argument("-r", "--regs-per-hash", type=int, default=4)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_ssi_screen)
+
+    p = sub.add_parser("genome2multiset", help="genome -> kmer multiset .bin "
+                                               "dump (bin/genome2multiset.cpp)")
+    p.add_argument("path")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-o", "--out-prefix", default=None)
+    p.add_argument("-C", "--canon", action="store_true")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_genome2multiset)
+
+    p = sub.add_parser("stdin2ss", help="raw u64 stream -> packed setsketch "
+                                        "(bin/stdin2ss.cpp)")
+    p.add_argument("inp", nargs="?", default=None, help="default: stdin")
+    p.add_argument("-S", "--sketch-size", type=int, default=1000)
+    p.add_argument("-a", type=float, default=-1.0)
+    p.add_argument("-b", type=float, default=-1.0)
+    p.add_argument("-H", "--use-short", action="store_true",
+                   help="16-bit registers instead of 8-bit")
+    p.add_argument("-o", "--out", default=None)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_stdin2ss)
+
+    p = sub.add_parser("setsketchroller",
+                       help="build an inverted kmer->samples db from .kmers "
+                            "dumps (bin/setsketchroller.cpp)")
+    p.add_argument("kmer_files", nargs="*")
+    p.add_argument("-F", "--paths-file", default=None)
+    p.add_argument("-k", type=int, default=0)
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("-b", "--trim-folder", action="store_true")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_setsketchroller)
+
+    p = sub.add_parser("errexp",
+                       help="sketch accuracy experiment: HLL vs CSetSketch "
+                            "jaccard error (bin/errexp.cpp)")
+    p.add_argument("-l", "--linspace", type=float, default=0.1)
+    p.add_argument("--set-sizes", default="16,18,20")
+    p.add_argument("--sketch-sizes", default="8,10,12")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_errexp)
 
 
 # the subcommands of bonsai_tpu that the port lacks: name -> (aliases,
 # the ROADMAP queue A item that holds it)
 UNPORTED_COMMANDS = {
     "hist": ([], "12"), "lca": ([], "12"), "taxmap": ([], "12"),
-    "css2ss": ([], "12"), "shs2sketch": ([], "12"),
-    "ssi-build": (["setsketchindexer"], "12"),
-    "ssi-screen": (["setsketchscreener"], "12"),
-    "stdin2ss": ([], "12"), "genome2multiset": ([], "12"),
-    "fahist": ([], "12"), "kmeridx": ([], "12"),
-    "setsketchroller": ([], "12"), "errexp": ([], "12"),
-    "metatree": ([], "12"),
+    "fahist": ([], "12"), "kmeridx": ([], "12"), "metatree": ([], "12"),
 }
 
 
@@ -780,4 +869,203 @@ def _cmd_rolling_multk_sketch(args) -> int:
             print(f"{path}\tk={k}\tcard~{cs.cardinality():.1f}")
             if args.out_prefix:
                 cs.write(f"{args.out_prefix}.{k}.css")
+    return 0
+
+
+# -- sketch tools (bonsai_tpu/cli.py:844-1065) ---------------------------------
+
+def _cmd_css2ss(args) -> int:
+    from .db.build_device import as_device
+    from .sketch.setsketch import CSetSketch
+
+    cs = CSetSketch.read(args.inp, device=as_device(args.device))
+    b, a = cs.optimal_parameters(qmax=(1 << args.bits) - 1)
+    cs.to_packed(b, a, args.bits).write(args.out)
+    print(f"packed {cs.m} registers (a={a:.6g} b={b:.6g})", file=sys.stderr)
+    return 0
+
+
+def _cmd_shs2sketch(args) -> int:
+    from .db.build_device import as_device
+    from .sketch.setsketch import CSetSketch
+    from .sketch.shs import read_shs
+
+    cs = CSetSketch(args.sketch_size, device=as_device(args.device))
+    cs.update(read_shs(args.inp))
+    b, a = cs.optimal_parameters(qmax=(1 << args.bits) - 1)
+    cs.to_packed(b, a, args.bits).write(args.out)
+    return 0
+
+
+def _load_packed_sketches(paths, bits: int = 16, ab=None, device="cuda"):
+    """Packed (.ss) sketches as they are, continuous ones packed with one
+    global (a, b) over all of them, so that register values compare
+    across samples (LSH grouping) -> (sketches, (b, a) or None)."""
+    from .sketch.setsketch import CSetSketch, SetSketch
+
+    loaded = []
+    for p in paths:
+        try:
+            loaded.append(SetSketch.read(p))
+        except ValueError:
+            loaded.append(CSetSketch.read(p, device=device))
+    cont = [s for s in loaded if isinstance(s, CSetSketch)]
+    if not cont:
+        return loaded, None
+    if ab is not None:
+        b, a = ab
+    else:
+        maxv = max(s.max() for s in cont)
+        minv = min(s.min() for s in cont if s.min() > 0)
+        b, a = cont[0].optimal_parameters(maxv, minv, (1 << bits) - 1)
+    return [s.to_packed(b, a, bits) if isinstance(s, CSetSketch) else s
+            for s in loaded], (b, a)
+
+
+def _cmd_ssi_build(args) -> int:
+    import json
+
+    from .db.build_device import as_device
+    from .sketch.ssi import SetSketchIndex
+
+    sketches, packed = _load_packed_sketches(args.sketches,
+                                            device=as_device(args.device))
+    if packed:
+        print(f"packed continuous inputs with global a={packed[1]:.6g} "
+              f"b={packed[0]:.6g}", file=sys.stderr)
+        with open(args.out + ".params", "w") as fh:
+            json.dump({"b": packed[0], "a": packed[1], "bits": 16}, fh)
+    idx = SetSketchIndex(k=args.k, regs_per_hash=args.regs_per_hash)
+    for s in sketches:
+        idx.add(s.registers)
+    idx.write(args.out)
+    print(f"indexed {idx.n_samples} sketches, {len(idx.map)} keys",
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_ssi_screen(args) -> int:
+    import json
+    import os
+
+    from .db.build_device import as_device
+    from .sketch.ssi import SetSketchIndex
+
+    dev = as_device(args.device)
+    idx = SetSketchIndex.read(args.index, regs_per_hash=args.regs_per_hash)
+    ab = None
+    if os.path.exists(args.index + ".params"):
+        with open(args.index + ".params") as fh:
+            d = json.load(fh)
+        ab = (d["b"], d["a"])
+    sketches, _ = _load_packed_sketches(args.queries, ab=ab, device=dev)
+    for p, s in zip(args.queries, sketches):
+        hits = idx.topk(s.registers, args.topn)
+        row = "\t".join(f"{sid}:{c}" for sid, c in hits)
+        print(f"{p}\t{row}")
+    return 0
+
+
+def _cmd_genome2multiset(args) -> int:
+    from .db.build_device import as_device
+    from .sketch import shs as shs_mod
+
+    dev = as_device(args.device)
+    written = shs_mod.dump_maps(args.out_prefix or args.path, [args.k],
+                                args.path, canon=args.canon,
+                                flag=shs_mod.WRITE_KVMAP, device=dev)
+    print("\n".join(written), file=sys.stderr)
+    return 0
+
+
+def _cmd_stdin2ss(args) -> int:
+    """stdin2ss (bin/stdin2ss.cpp): 16-byte records, the first u64 of each
+    sketched into a b-bit packed SetSketch."""
+    import numpy as np
+
+    from .db.build_device import as_device
+    from .sketch.setsketch import CSetSketch
+
+    dev = as_device(args.device)
+    if args.inp:
+        with open(args.inp, "rb") as fh:
+            raw = fh.read()
+    else:
+        raw = sys.stdin.buffer.read()
+    vals = np.frombuffer(raw[: len(raw) // 16 * 16], dtype=np.uint64)[0::2]
+    cs = CSetSketch(args.sketch_size, device=dev)
+    cs.update(vals)
+    bits = 16 if args.use_short else 8
+    if args.a > 0 and args.b > 0:
+        b, a = args.b, args.a
+    else:
+        b, a = cs.optimal_parameters(qmax=(1 << bits) - 1)
+    cs.to_packed(b, a, bits).write(args.out or "/dev/stdout")
+    print(f"processed {vals.size} total", file=sys.stderr)
+    return 0
+
+
+def _cmd_setsketchroller(args) -> int:
+    """setsketchroller (bin/setsketchroller.cpp): an inverted kmer ->
+    sample index over the .u64.kmers dumps of ``setsketch -S``; host
+    work."""
+    import os
+
+    import numpy as np
+
+    from .db.build_device import as_device
+    from .sketch.ssi import SetSketchIndex
+
+    as_device(args.device)
+    paths = list(args.kmer_files)
+    if args.paths_file:
+        with open(args.paths_file) as fh:
+            paths += [line.strip() for line in fh if line.strip()]
+    if not paths:
+        print("no input .kmers files", file=sys.stderr)
+        return 1
+    idx = SetSketchIndex(k=args.k)
+    for sid, p in enumerate(paths):
+        for km in np.unique(np.fromfile(p, dtype=np.uint64)):
+            idx.map.setdefault(int(km), []).append(sid)
+        idx.n_samples = sid + 1
+    idx.write(args.out or "/dev/stdout")
+    for sid, p in enumerate(paths):
+        print(f"{sid}\t{os.path.basename(p) if args.trim_folder else p}",
+              file=sys.stderr)
+    return 0
+
+
+def _cmd_errexp(args) -> int:
+    """errexp (bin/errexp.cpp): the Jaccard estimates of HyperLogLog (KS1)
+    and CSetSketch (KS2) against the truth, over set and sketch sizes."""
+    import numpy as np
+
+    from .db.build_device import as_device
+    from .sketch.hll import HyperLogLog
+    from .sketch.setsketch import CSetSketch
+
+    dev = as_device(args.device)
+    rng = np.random.default_rng(0)
+    set_sizes = [1 << int(x) for x in args.set_sizes.split(",")]
+    sketch_p = [int(x) for x in args.sketch_sizes.split(",")]
+    jaccards = np.arange(args.linspace, 1.0, args.linspace)
+    print("#setsize\tsketch\tm\ttrue_j\thll_j\tcss_j")
+    for n in set_sizes:
+        base = rng.integers(0, 1 << 62, 2 * n, dtype=np.uint64)
+        for j in jaccards:
+            # two sets of n with expected Jaccard j: s elements shared
+            s = int(round(2 * j / (1 + j) * n))
+            a = base[:n]
+            b = np.concatenate([base[:s], base[n:2 * n - s]])
+            for p in sketch_p:
+                h1, h2 = HyperLogLog(p, dev), HyperLogLog(p, dev)
+                h1.addh(a)
+                h2.addh(b)
+                c1, c2 = CSetSketch(1 << p, device=dev), CSetSketch(
+                    1 << p, device=dev)
+                c1.update(a)
+                c2.update(b)
+                print(f"{n}\thll/css\t{1 << p}\t{j:.3f}\t"
+                      f"{h1.jaccard(h2):.4f}\t{c1.jaccard(c2):.4f}")
     return 0

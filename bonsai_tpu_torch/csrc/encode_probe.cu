@@ -68,6 +68,13 @@
 // list's entries are below B * lproc <= 0x7FFFFFFF (the wrapper checks),
 // so the sentinel lies past every block's bounds.
 
+// The lengths come as int32 or, where a batch's longest read fits in 16
+// bits, as u16 (the JAX step's u16 lengths, pipeline.py:496-501,667-668):
+// every entry point takes ``len16`` beside the pointer, one argument of
+// the launch, so a thread's one load of its read's length takes the width
+// the batch shipped, widened through uint16_t, never a signed 16-bit
+// value (a length of 32,768-65,535 stays positive).
+
 // Two more instantiations serve the sharded classifier
 // (bonsai_tpu_torch/parallel/sharded.py):
 //   encode-only (entry bk_encode_only): the a2a route's encode
@@ -116,6 +123,13 @@ __device__ __forceinline__ uint64_t window96(uint32_t w0, uint32_t w1,
 
 enum Mode { kProbe = 0, kRange = 1, kEncode = 2, kSparse = 3 };
 
+// read b's length: u16 where len16, else int32
+__device__ __forceinline__ int64_t read_length(const void* lengths,
+                                               int len16, int64_t b) {
+  if (len16) return (int64_t)(uint32_t)__ldg((const uint16_t*)lengths + b);
+  return (int64_t)__ldg((const int32_t*)lengths + b);
+}
+
 // The first index of the sorted a[lo, hi) whose entry is >= key (hi if
 // none), the whole block together: a round, thread t samples entry
 // lo + t * step, and the count below key narrows the range kThreads-fold.
@@ -162,8 +176,8 @@ template <bool kSpaced, int kMode>
 __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint32_t* __restrict__ pcodes, int64_t w16,
     const uint32_t* __restrict__ nmask, int64_t nmw,
-    const int32_t* __restrict__ lengths, int64_t n, int64_t P, int k,
-    int canon, const ulonglong2* __restrict__ slots, int lgnb, int vbits,
+    const void* __restrict__ lengths, int len16, int64_t n, int64_t P,
+    int k, int canon, const ulonglong2* __restrict__ slots, int lgnb, int vbits,
     const uint64_t* __restrict__ vals, int64_t n_vals, int is_inline,
     int want_idx, bool* __restrict__ hit, bool* __restrict__ valid,
     int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx,
@@ -242,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
       }
     }
     v = !bad && kmer != ~0ULL &&
-        p < (int64_t)__ldg(lengths + b) - (span - 1);
+        p < read_length(lengths, len16, b) - (span - 1);
   } else {
     // bases p .. p + 31, base p in the low bits
     const int64_t c = p >> 4;
@@ -265,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
       bad = (((((uint64_t)m1 << 32) | m0) >> (p & 31)) & nbits) != 0;
     }
     // in-length validity: a read shorter than k has no valid position
-    v = !bad && p < (int64_t)__ldg(lengths + b) - (k - 1);
+    v = !bad && p < read_length(lengths, len16, b) - (k - 1);
   }
   if constexpr (kMode == kSparse) {
     if (v && n_list > 0) {
@@ -332,7 +346,8 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
 
 template <bool kSpaced, int kMode = kProbe>
 int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
-           const void* lengths, int64_t B, int64_t P, int k, int canon,
+           const void* lengths, int len16, int64_t B, int64_t P, int k,
+           int canon,
            const void* slots, int lgnb, int vbits, const void* vals,
            int64_t n_vals, int is_inline, int want_idx, void* hit,
            void* valid, void* cidx, void* oidx, const bk::Spacing& sp,
@@ -344,7 +359,7 @@ int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
   encode_probe_kernel<kSpaced, kMode>
       <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
-          (const int32_t*)lengths, n, P, k, canon, (const ulonglong2*)slots,
+          lengths, len16, n, P, k, canon, (const ulonglong2*)slots,
           lgnb, vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx,
           (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp,
           row0, rows, (int64_t*)kmers, (const uint32_t*)nidx, n_nidx);
@@ -355,26 +370,27 @@ int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
 
 extern "C" int bk_encode_probe(
     const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
-    const void* lengths, int64_t B, int64_t P, int k, int canon,
+    const void* lengths, int len16, int64_t B, int64_t P, int k, int canon,
     const void* slots, int lgnb, int vbits, const void* vals, int64_t n_vals,
     int is_inline, int want_idx, void* hit, void* valid, void* cidx,
     void* oidx, void* stream) {
-  return launch<false>(pcodes, w16, nmask, nmw, lengths, B, P, k, canon,
-                       slots, lgnb, vbits, vals, n_vals, is_inline, want_idx,
-                       hit, valid, cidx, oidx, bk::Spacing{}, stream);
+  return launch<false>(pcodes, w16, nmask, nmw, lengths, len16, B, P, k,
+                       canon, slots, lgnb, vbits, vals, n_vals, is_inline,
+                       want_idx, hit, valid, cidx, oidx, bk::Spacing{},
+                       stream);
 }
 
 // A spaced seed of k offsets ``positions`` (a host array, positions[0] =
 // 0); P = lproc - positions[k - 1], uncanonical.
 extern "C" int bk_encode_probe_spaced(
     const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
-    const void* lengths, int64_t B, int64_t P, int k,
+    const void* lengths, int len16, int64_t B, int64_t P, int k,
     const int32_t* positions, const void* slots, int lgnb, int vbits,
     const void* vals, int64_t n_vals, int is_inline, int want_idx, void* hit,
     void* valid, void* cidx, void* oidx, void* stream) {
-  return launch<true>(pcodes, w16, nmask, nmw, lengths, B, P, k, 0, slots,
-                      lgnb, vbits, vals, n_vals, is_inline, want_idx, hit,
-                      valid, cidx, oidx, bk::make_spacing(positions, k),
+  return launch<true>(pcodes, w16, nmask, nmw, lengths, len16, B, P, k, 0,
+                      slots, lgnb, vbits, vals, n_vals, is_inline, want_idx,
+                      hit, valid, cidx, oidx, bk::make_spacing(positions, k),
                       stream);
 }
 
@@ -383,17 +399,17 @@ extern "C" int bk_encode_probe_spaced(
 // the k offsets ``positions`` (a host array, as bk_encode_probe_spaced).
 extern "C" int bk_encode_only(const void* pcodes, int64_t w16,
                               const void* nmask, int64_t nmw,
-                              const void* lengths, int64_t B, int64_t P,
-                              int k, int canon, int spaced,
+                              const void* lengths, int len16, int64_t B,
+                              int64_t P, int k, int canon, int spaced,
                               const int32_t* positions, void* kmers,
                               void* valid, void* stream) {
   if (spaced)
     return launch<true, kEncode>(
-        pcodes, w16, nmask, nmw, lengths, B, P, k, 0, nullptr, 0, 0,
+        pcodes, w16, nmask, nmw, lengths, len16, B, P, k, 0, nullptr, 0, 0,
         nullptr, 0, 0, 0, nullptr, valid, nullptr, nullptr,
         bk::make_spacing(positions, k), stream, 0, 0, kmers);
-  return launch<false, kEncode>(pcodes, w16, nmask, nmw, lengths, B, P, k,
-                                canon, nullptr, 0, 0, nullptr, 0, 0, 0,
+  return launch<false, kEncode>(pcodes, w16, nmask, nmw, lengths, len16, B,
+                                P, k, canon, nullptr, 0, 0, nullptr, 0, 0, 0,
                                 nullptr, valid, nullptr, nullptr,
                                 bk::Spacing{}, stream, 0, 0, kmers);
 }
@@ -404,19 +420,19 @@ extern "C" int bk_encode_only(const void* pcodes, int64_t w16,
 // (and bk_encode_probe_spaced with ``spaced``).
 extern "C" int bk_encode_probe_range(
     const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
-    const void* lengths, int64_t B, int64_t P, int k, int canon, int spaced,
-    const int32_t* positions, const void* slots, int lgnb, int vbits,
-    const void* vals, int64_t n_vals, int is_inline, int want_idx,
+    const void* lengths, int len16, int64_t B, int64_t P, int k, int canon,
+    int spaced, const int32_t* positions, const void* slots, int lgnb,
+    int vbits, const void* vals, int64_t n_vals, int is_inline, int want_idx,
     int64_t row0, int64_t rows, void* hit, void* valid, void* cidx,
     void* oidx, void* stream) {
   if (row0 < 0 || rows < 1) return (int)cudaErrorInvalidValue;
   if (spaced)
     return launch<true, kRange>(
-        pcodes, w16, nmask, nmw, lengths, B, P, k, 0, slots, lgnb, vbits,
-        vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
+        pcodes, w16, nmask, nmw, lengths, len16, B, P, k, 0, slots, lgnb,
+        vbits, vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
         bk::make_spacing(positions, k), stream, row0, rows);
-  return launch<false, kRange>(pcodes, w16, nmask, nmw, lengths, B, P, k,
-                               canon, slots, lgnb, vbits, vals, n_vals,
+  return launch<false, kRange>(pcodes, w16, nmask, nmw, lengths, len16, B, P,
+                               k, canon, slots, lgnb, vbits, vals, n_vals,
                                is_inline, want_idx, hit, valid, cidx, oidx,
                                bk::Spacing{}, stream, row0, rows);
 }
@@ -427,20 +443,20 @@ extern "C" int bk_encode_probe_range(
 // bk_encode_probe (and bk_encode_probe_spaced with ``spaced``).
 extern "C" int bk_encode_probe_sparse(
     const void* pcodes, int64_t w16, const void* nidx, int64_t n_nidx,
-    const void* lengths, int64_t B, int64_t P, int k, int canon, int spaced,
-    const int32_t* positions, const void* slots, int lgnb, int vbits,
-    const void* vals, int64_t n_vals, int is_inline, int want_idx, void* hit,
-    void* valid, void* cidx, void* oidx, void* stream) {
+    const void* lengths, int len16, int64_t B, int64_t P, int k, int canon,
+    int spaced, const int32_t* positions, const void* slots, int lgnb,
+    int vbits, const void* vals, int64_t n_vals, int is_inline, int want_idx,
+    void* hit, void* valid, void* cidx, void* oidx, void* stream) {
   const int64_t c = spaced ? positions[k - 1] + 1 : k;
   if (n_nidx < 0 || B * (P + c - 1) > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
   if (spaced)
     return launch<true, kSparse>(
-        pcodes, w16, nullptr, 0, lengths, B, P, k, 0, slots, lgnb, vbits,
-        vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
+        pcodes, w16, nullptr, 0, lengths, len16, B, P, k, 0, slots, lgnb,
+        vbits, vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
         bk::make_spacing(positions, k), stream, 0, 0, nullptr, nidx, n_nidx);
-  return launch<false, kSparse>(pcodes, w16, nullptr, 0, lengths, B, P, k,
-                                canon, slots, lgnb, vbits, vals, n_vals,
+  return launch<false, kSparse>(pcodes, w16, nullptr, 0, lengths, len16, B, P,
+                                k, canon, slots, lgnb, vbits, vals, n_vals,
                                 is_inline, want_idx, hit, valid, cidx, oidx,
                                 bk::Spacing{}, stream, 0, 0, nullptr, nidx,
                                 n_nidx);

@@ -1,17 +1,24 @@
 """Database builds on the host: the classify map (kmer -> LCA taxid), the
 two phase-1 maps and the hash-scored phase 2.
 
-Counterpart of ``bonsai_tpu/db/build.py`` for DNA seeds with k <= 32
-and the schemes lex, entropy-file (``build -e``) and hash (``build
--t|-f --phase1-db``):
+Counterpart of ``bonsai_tpu/db/build.py`` for seeds with k <= 32 of
+every input type and the schemes lex, entropy-file (``build -e``) and
+hash (``build -t|-f --phase1-db``):
 
-* ``lca_map``, contiguous and unwindowed: each genome's distinct
-  (canonical) k-mers come from the host C++ ``btpu_canon_kmer_set``;
-* ``lca_map``, every other discipline (``-w``, ``-C -w``, ``-S``,
-  ``-e``): the plain torch encoder (``core/encoder.py``) runs on
-  halo-overlapped chunks of each contig, as ``_contig_sets`` does
-  (build.py:134-169), the trailing partial window of a non-final chunk
-  dropped where the uncanonical windowed discipline makes one;
+* ``genome_kmer_set``, contiguous and unwindowed DNA: each genome's
+  distinct (canonical) k-mers come from the host C++
+  ``btpu_canon_kmer_set``;
+* every other discipline (``-w``, ``-C -w``, ``-S``, ``-e``, another
+  input type), and every discipline with ``use_device``: the encoder
+  (``core/encoder.py``) runs on halo-overlapped chunks of ``block``
+  windows of each contig, as ``_contig_sets`` does (build.py:134-169),
+  the trailing partial window of a non-final chunk dropped where the
+  uncanonical windowed discipline makes one; on the CPU its plain torch
+  versions, with ``use_device`` on ``device`` (KB1, or KB4 for ``-C
+  -w``, on the card);
+* ``lca_map`` through ``IncrementalLCABuilder``, a streaming fold that a
+  checkpoint (the JAX package's ``.npz`` of keys, taxa and the genomes
+  done) resumes, in either package;
 * ``taxdepth_map`` (TDencode(depth, lca)) and ``ftct_map``
   ((n_genomes << 32) | lca), lex scores (build.py:594,620);
 * ``minimized_map`` (build.py:644): the genomes' minimizers under the
@@ -20,9 +27,10 @@ and the schemes lex, entropy-file (``build -e``) and hash (``build
 
 Genomes fold in with the shared k-way merge ``btpu_merge_fold_stats``,
 which emits per-key Euler-interval extrema (and the group size) that map
-to the LCA on the host.  LCA folding is associative and commutative, so
-the content is the JAX package's bit for bit.  The device build of the
-same maps is ``db/build_device.py``.
+to the LCA on the host; ``lca_fold_pairs`` folds unsorted (key, taxid)
+pairs by a sort and per-run extrema.  LCA folding is associative and
+commutative, so the content is the JAX package's bit for bit.  The
+device build of the same maps is ``db/build_device.py``.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.alphabet import DNA4
+from ..core.alphabet import InputType, alphabet_of
 from ..core.encoder import BatchEncoder
 from ..core.spacer import Spacer
 from ..io import fastx
@@ -47,6 +55,7 @@ from .table import KmerTable, ScoreMap, unique_u64
 
 TAX_T_MAX = 0xFFFFFFFF
 U64_MAX = (1 << 64) - 1
+DNA = InputType.DNA
 
 
 def TDencode(depth, taxid):
@@ -66,37 +75,52 @@ BLOCK = 1 << 22  # windows per chunk of the windowed encoder (the JAX default)
 
 
 def _check(sp: Spacer, canonicalize: bool, scheme: str = "lex",
-           score_map: ScoreMap | None = None) -> None:
+           score_map: ScoreMap | None = None,
+           input_type: InputType = DNA) -> None:
     if not 1 <= sp.k <= 32:
         raise ValueError(f"k={sp.k}: the build supports 1 <= k <= 32")
     # the encoder raises for every discipline that is not ported
-    BatchEncoder(sp, canonicalize, scheme, score_map=score_map)
+    BatchEncoder(sp, canonicalize, scheme, input_type, score_map)
 
 
 def genome_kmer_set(path: str, sp: Spacer, canonicalize: bool = True,
-                    scheme: str = "lex",
-                    score_map: ScoreMap | None = None) -> np.ndarray:
+                    scheme: str = "lex", input_type: InputType = DNA,
+                    score_map: ScoreMap | None = None,
+                    use_device: bool = False, block: int = BLOCK,
+                    device="cuda") -> np.ndarray:
     """Sorted distinct emitted (canonical) k-mers or minimizers of one
-    genome (fill_set_genome, feature_min.h:67-82)."""
-    _check(sp, canonicalize, scheme, score_map)
-    lib = get_lib()
-    lut = np.ascontiguousarray(DNA4.lut, dtype=np.int8)
-    # only the contiguous unwindowed discipline takes the host C++ path
+    genome (fill_set_genome, feature_min.h:67-82; build.py:70-102).
+    ``input_type`` picks the alphabet's table.  Contiguous unwindowed DNA
+    takes the host C++ path unless ``use_device``; otherwise each contig
+    goes through the encoder in chunks of ``block`` windows, on CPU
+    tensors, or with ``use_device`` on ``device`` ("cuda", the default,
+    raises without a card; "cpu" runs the plain versions)."""
+    _check(sp, canonicalize, scheme, score_map, input_type)
+    it = InputType(input_type)
+    dev = None
+    if use_device:
+        from .build_device import as_device
+
+        dev = as_device(device)
+    lut = np.ascontiguousarray(alphabet_of(it).lut, dtype=np.int8)
+    # only contiguous unwindowed DNA takes the host C++ path
     # (_native_kmer_fn, build.py:105-131)
-    native = sp.unspaced() and sp.unwindowed()
-    enc = None if native else BatchEncoder(sp, canonicalize, scheme,
-                                           score_map=score_map)
+    native = (not use_device and sp.unspaced() and sp.unwindowed()
+              and it == DNA)
+    enc = None if native else BatchEncoder(sp, canonicalize, scheme, it,
+                                           score_map)
     pieces = []
     for _, seq, _ in fastx.read_fastx(path):
         if len(seq) < sp.c:
             continue
         if enc is not None:
-            pieces.extend(_contig_sets(enc, seq, lut, sp, BLOCK))
+            pieces.extend(_contig_sets(enc, seq, lut, sp, block, dev))
             continue
         buf = np.frombuffer(seq, dtype=np.uint8)
         out = np.empty(len(seq), dtype=np.uint64)
-        m = lib.btpu_canon_kmer_set(buf.ctypes.data, len(seq), lut.ctypes.data,
-                                    sp.k, int(canonicalize), out.ctypes.data)
+        m = get_lib().btpu_canon_kmer_set(buf.ctypes.data, len(seq),
+                                          lut.ctypes.data, sp.k,
+                                          int(canonicalize), out.ctypes.data)
         if m < 0:
             raise ValueError("btpu_canon_kmer_set failed")
         pieces.append(out[:m])
@@ -114,9 +138,10 @@ def drops_partial_window(sp: Spacer, enc: BatchEncoder) -> bool:
 
 
 def _contig_sets(enc: BatchEncoder, seq: bytes, lut, sp: Spacer,
-                 block: int) -> List[np.ndarray]:
-    """Emissions of one contig through the plain encoder, in chunks of
-    ``block`` windows that overlap by a w - 1 base halo."""
+                 block: int, device=None) -> List[np.ndarray]:
+    """Emissions of one contig through the encoder, in chunks of
+    ``block`` windows that overlap by a w - 1 base halo, on CPU tensors
+    or on ``device``."""
     out = []
     halo = sp.w - 1
     start = 0
@@ -124,13 +149,15 @@ def _contig_sets(enc: BatchEncoder, seq: bytes, lut, sp: Spacer,
         end = min(start + block + halo, len(seq))
         is_last = end >= len(seq)
         codes = torch.from_numpy(fastx.encode_contig(seq[start:end], lut))
-        em = enc.emissions(codes[None, :],
-                           torch.tensor([end - start], dtype=torch.int32))
+        lengths = torch.tensor([end - start], dtype=torch.int32)
+        if device is not None:
+            codes, lengths = codes.to(device), lengths.to(device)
+        em = enc.emissions(codes[None, :], lengths)
         mask = em.mask
         if not is_last and drops_partial_window(sp, enc):
             mask = mask.clone()
             mask[:, 0] = False
-        out.append(em.values[mask].numpy().view(np.uint64))
+        out.append(em.values[mask].cpu().numpy().view(np.uint64))
         if is_last:
             break
         start += block
@@ -236,12 +263,73 @@ def lca_fold_runs(acc_keys: np.ndarray, acc_taxa: np.ndarray,
     return out_keys[:m].copy(), taxa
 
 
+def lca_fold_pairs(keys: np.ndarray, taxa: np.ndarray, tree: TaxTree):
+    """Fold duplicate keys of unsorted (key, taxid) pairs to the LCA of
+    their taxids (build.py:347-428): sort by key, then each run's set-LCA
+    from its Euler-interval extrema, LCA(S) = LCA(argmin tin, argmax tin).
+    0 is the identity, a taxid missing from the tree poisons the run to
+    0xFFFFFFFF unless every non-zero member is that same taxid, and
+    disjoint roots give 1 (util.h:634-663).  Returns sorted distinct
+    (keys, taxa)."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    taxa = np.asarray(taxa, dtype=np.uint32)
+    if keys.size == 0:
+        return keys.copy(), taxa.copy()
+    k = np.array(keys, copy=True)
+    t = np.array(taxa, copy=True)
+    get_lib().btpu_radix_sort_kv(k.ctypes.data, t.ctypes.data, k.size)
+    first = np.empty(k.size, dtype=bool)
+    first[0] = True
+    first[1:] = k[1:] != k[:-1]
+    starts = np.flatnonzero(first)
+    if starts.size == k.size:  # every key distinct
+        return k, t
+    # the taxa take few values (one a genome): compact those, not every
+    # element
+    ut = unique_u64(t).astype(np.uint32)
+    cu = tree.compact(ut, missing_ok=True)
+    inv = np.searchsorted(ut, t)
+    n = tree.tin.shape[0]
+    BIG = np.int32(2 * n + 4)
+    tins = np.where(cu != 0, tree.tin[cu], BIG).astype(np.int32)[inv]
+    tmin = np.minimum.reduceat(tins, starts)
+    tmax = np.maximum.reduceat(np.where(tins == BIG, np.int32(-2), tins),
+                               starts)
+    nz = t != 0
+    miss = nz & (cu[inv] == 0)
+    n_miss = np.add.reduceat(miss.astype(np.int64), starts)
+    n_nz = np.add.reduceat(nz.astype(np.int64), starts)
+    mmin = np.minimum.reduceat(np.where(miss, t, np.uint32(TAX_T_MAX)), starts)
+    mmax = np.maximum.reduceat(np.where(miss, t, np.uint32(0)), starts)
+    return k[starts], _fold_stats_to_taxa(tree, tmin, tmax, n_miss, n_nz,
+                                          mmin, mmax)
+
+
+def _on_stream(stream, fn, *args, **kw):
+    """fn(*args, **kw) with ``stream`` current (None: as it is)."""
+    if stream is None:
+        return fn(*args, **kw)
+    with torch.cuda.stream(stream):
+        return fn(*args, **kw)
+
+
 def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
                  name_map: Dict[str, int], scheme: str = "lex",
-                 score_map: ScoreMap | None = None):
+                 score_map: ScoreMap | None = None,
+                 input_type: InputType = DNA, use_device: bool = False,
+                 block: int = BLOCK, device="cuda"):
     """Yield (kset, taxid) per genome in order; the k-mer extraction
     releases the GIL, so a few genomes run at a time in threads, at most
-    2 * workers in flight."""
+    2 * workers in flight.  With ``use_device`` on a card the threads
+    share it and launch on the caller's current stream, one stream: each
+    kernel call takes its own scratch from the caching allocator."""
+    stream = None
+    if use_device:
+        from .build_device import as_device
+
+        dev = as_device(device)
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
     workers = min(4, max(len(paths), 1), os.cpu_count() or 1)
     with cf.ThreadPoolExecutor(workers) as pool:
         todo = deque(paths)
@@ -249,60 +337,145 @@ def _genome_sets(paths: Sequence[str], sp: Spacer, canonicalize: bool,
         while todo or inflight:
             while todo and len(inflight) < 2 * workers:
                 p = todo.popleft()
-                inflight.append(
-                    (p, pool.submit(genome_kmer_set, p, sp, canonicalize,
-                                    scheme, score_map))
-                )
+                inflight.append((p, pool.submit(
+                    _on_stream, stream, genome_kmer_set, p, sp, canonicalize,
+                    scheme, input_type, score_map, use_device, block,
+                    device)))
             p, fut = inflight.popleft()
             yield fut.result(), taxid_for_path(p, name_map)
 
 
+class IncrementalLCABuilder:
+    """A streaming, checkpointable fold of genomes' k-mer sets into the
+    classify map (build.py:451-531).  LCA folding is associative and
+    commutative, so the running state (sorted keys and their folded taxa)
+    and the list of genomes done are a whole checkpoint: genomes fold in
+    every ``fold_every``, a checkpoint follows every
+    ``checkpoint_every_folds`` folds, and one given an existing
+    ``checkpoint_path`` resumes from it.  The file is the JAX package's:
+    ``np.savez`` of keys (u64), taxa (u32) and done (the paths as bytes),
+    written to ``<path>.tmp.npz`` and moved onto the path, so either
+    package resumes the other's."""
+
+    def __init__(self, tree: TaxTree, checkpoint_path: str | None = None,
+                 fold_every: int = FOLD_EVERY,
+                 checkpoint_every_folds: int = 1):
+        self.tree = tree
+        self.checkpoint_path = checkpoint_path
+        self.fold_every = fold_every
+        self.checkpoint_every_folds = checkpoint_every_folds
+        self._folds_since_ckpt = 0
+        self.keys = np.zeros(0, np.uint64)
+        self.taxa = np.zeros(0, np.uint32)
+        self.done: List[str] = []
+        self._buf: List[Tuple[np.ndarray, int]] = []
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            with np.load(checkpoint_path, allow_pickle=False) as z:
+                self.keys = z["keys"]
+                self.taxa = z["taxa"]
+                self.done = [p.decode() for p in z["done"]]
+
+    def pending(self, paths: Sequence[str]) -> List[str]:
+        """The paths not folded in yet, in order."""
+        done = set(self.done)
+        return [p for p in paths if p not in done]
+
+    def add_genome(self, path: str, taxid: int, kset: np.ndarray) -> None:
+        self._buf.append((kset, int(taxid)))
+        self.done.append(path)
+        if len(self._buf) >= self.fold_every:
+            self.fold()
+            self._folds_since_ckpt += 1
+            if (self.checkpoint_path is not None
+                    and self._folds_since_ckpt >= self.checkpoint_every_folds):
+                self.save_checkpoint()
+                self._folds_since_ckpt = 0
+
+    def fold(self) -> None:
+        if self._buf:
+            self.keys, self.taxa = lca_fold_runs(self.keys, self.taxa,
+                                                 self._buf, self.tree)
+            self._buf = []
+
+    def save_checkpoint(self) -> None:
+        self.fold()
+        tmp = self.checkpoint_path + ".tmp.npz"
+        np.savez(tmp[: -len(".npz")], keys=self.keys, taxa=self.taxa,
+                 done=np.array([p.encode() for p in self.done]))
+        os.replace(tmp, self.checkpoint_path)
+
+    def finish(self) -> KmerTable:
+        return KmerTable(*self.finish_arrays())
+
+    def finish_arrays(self):
+        """(sorted keys, taxa) without placing the probe table (the scale
+        path: the sharded savers place a table a shard)."""
+        self.fold()
+        return self.keys, self.taxa.astype(np.uint32)
+
+
 def lca_map(paths: Sequence[str], tree: TaxTree,
             name_map: Dict[str, int] | str, sp: Spacer,
-            canonicalize: bool = True, scheme: str = "lex") -> KmerTable:
+            canonicalize: bool = True, scheme: str = "lex",
+            input_type: InputType = DNA, use_device: bool = False,
+            checkpoint_path: str | None = None, block: int = BLOCK,
+            as_arrays: bool = False, checkpoint_every_folds: int = 1,
+            device="cuda"):
     """Classify database: kmer -> LCA of the taxids of the genomes that
-    hold it (feature_min.h:178-183,205-228)."""
-    _check(sp, canonicalize, scheme)
+    hold it (feature_min.h:178-183,205-228; build.py:534-591), folded by
+    an ``IncrementalLCABuilder``: with ``checkpoint_path`` the build
+    checkpoints as it goes, resumes the genomes a checkpoint lacks, and
+    saves the whole state at the end.  ``as_arrays`` returns the sorted
+    (keys, taxa) without placing the table.  ``input_type``,
+    ``use_device``, ``block`` and ``device`` are ``genome_kmer_set``'s."""
+    _check(sp, canonicalize, scheme, None, input_type)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
-    keys = np.zeros(0, np.uint64)
-    taxa = np.zeros(0, np.uint32)
-    buf: List[Tuple[np.ndarray, int]] = []
-    for run in _genome_sets(paths, sp, canonicalize, name_map, scheme):
-        buf.append(run)
-        if len(buf) >= FOLD_EVERY:
-            keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
-            buf = []
-    if buf:
-        keys, taxa = lca_fold_runs(keys, taxa, buf, tree)
-    return KmerTable(keys, taxa.astype(np.uint32))
+    fold = IncrementalLCABuilder(
+        tree, checkpoint_path, checkpoint_every_folds=checkpoint_every_folds)
+    pending = fold.pending(list(paths))
+    sets = _genome_sets(pending, sp, canonicalize, name_map, scheme,
+                        input_type=input_type, use_device=use_device,
+                        block=block, device=device)
+    for p, (kset, taxid) in zip(pending, sets):
+        fold.add_genome(p, taxid, kset)
+    if checkpoint_path is not None:
+        fold.save_checkpoint()
+    return fold.finish_arrays() if as_arrays else fold.finish()
 
 
-def _phase1_fold(paths, tree, name_map, sp, canonicalize, want_counts):
+def _phase1_fold(paths, tree, name_map, sp, canonicalize, want_counts,
+                 input_type, use_device, device):
     """The phase-1 fold, lex scores as in the JAX package (build.py:607)."""
-    _check(sp, canonicalize)
+    _check(sp, canonicalize, input_type=input_type)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
-    runs = list(_genome_sets(paths, sp, canonicalize, name_map))
+    runs = list(_genome_sets(paths, sp, canonicalize, name_map,
+                             input_type=input_type, use_device=use_device,
+                             device=device))
     return lca_fold_runs(np.zeros(0, np.uint64), np.zeros(0, np.uint32), runs,
                          tree, want_counts=want_counts)
 
 
 def taxdepth_map(paths: Sequence[str], tree: TaxTree,
                  name_map: Dict[str, int] | str, sp: Spacer,
-                 canonicalize: bool = True) -> KmerTable:
+                 canonicalize: bool = True, input_type: InputType = DNA,
+                 use_device: bool = False, device="cuda") -> KmerTable:
     """Phase-1 map: kmer -> TDencode(depth, lca taxid); a poisoned
     (0xFFFFFFFF) fold packs as 1 (feature_min.h:198-203,230-250)."""
-    k, v = _phase1_fold(paths, tree, name_map, sp, canonicalize, False)
+    k, v = _phase1_fold(paths, tree, name_map, sp, canonicalize, False,
+                        input_type, use_device, device)
     return KmerTable(k, taxdepth_values(tree, v))
 
 
 def ftct_map(paths: Sequence[str], tree: TaxTree,
              name_map: Dict[str, int] | str, sp: Spacer,
-             canonicalize: bool = True) -> KmerTable:
+             canonicalize: bool = True, input_type: InputType = DNA,
+             use_device: bool = False, device="cuda") -> KmerTable:
     """Phase-1 feature-count map: kmer -> (n_genomes << 32) | lca taxid
     (feature_min.h:192-197,251-265, as intended)."""
-    k, v, counts = _phase1_fold(paths, tree, name_map, sp, canonicalize, True)
+    k, v, counts = _phase1_fold(paths, tree, name_map, sp, canonicalize, True,
+                                input_type, use_device, device)
     return KmerTable(k, ftct_values(v, counts))
 
 

@@ -57,20 +57,22 @@ _lib = None
 P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 U64 = ctypes.c_uint64
 _SIGS = {
-    # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, slots, lgnb, vbits,
-    # vals, n_vals, inline, want_idx, hit, valid, cidx, oidx, stream
-    "bk_encode_probe": [P, I64, P, I64, P, I64, I64, I32, I32, P, I32, I32,
-                        P, I64, I32, I32, P, P, P, P, P],
-    # the same with a spaced seed: pcodes, w16, nmask, nmw, lengths, B, P,
-    # k, positions (host int32[32]), slots, lgnb, vbits, vals, n_vals,
+    # pcodes, w16, nmask, nmw, lengths, len16 (1: the lengths are u16, 0:
+    # int32), B, P, k, canon, slots, lgnb, vbits, vals, n_vals, inline,
+    # want_idx, hit, valid, cidx, oidx, stream
+    "bk_encode_probe": [P, I64, P, I64, P, I32, I64, I64, I32, I32, P, I32,
+                        I32, P, I64, I32, I32, P, P, P, P, P],
+    # the same with a spaced seed: pcodes, w16, nmask, nmw, lengths, len16,
+    # B, P, k, positions (host int32[32]), slots, lgnb, vbits, vals, n_vals,
     # inline, want_idx, hit, valid, cidx, oidx, stream
-    "bk_encode_probe_spaced": [P, I64, P, I64, P, I64, I64, I32, P, P, I32,
-                               I32, P, I64, I32, I32, P, P, P, P, P],
-    # the sparse-N channel: pcodes, w16, nidx, n_nidx, lengths, B, P, k,
-    # canon, spaced, positions (host int32[32] or null), slots, lgnb,
+    "bk_encode_probe_spaced": [P, I64, P, I64, P, I32, I64, I64, I32, P, P,
+                               I32, I32, P, I64, I32, I32, P, P, P, P, P],
+    # the sparse-N channel: pcodes, w16, nidx, n_nidx, lengths, len16, B, P,
+    # k, canon, spaced, positions (host int32[32] or null), slots, lgnb,
     # vbits, vals, n_vals, inline, want_idx, hit, valid, cidx, oidx, stream
-    "bk_encode_probe_sparse": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P,
-                               P, I32, I32, P, I64, I32, I32, P, P, P, P, P],
+    "bk_encode_probe_sparse": [P, I64, P, I64, P, I32, I64, I64, I32, I32,
+                               I32, P, P, I32, I32, P, I64, I32, I32, P, P, P,
+                               P, P],
     # cidx, hit, R, W, tin, tout, depth, parent, lift, levels, n, tax_ids,
     # taxon, dedup, stream
     "bk_resolve": [P, P, I64, I64, P, P, P, P, P, I32, I32, P, P, I32, P],
@@ -78,16 +80,16 @@ _SIGS = {
     # head_words, compact, cols, full, stream
     "bk_step_outputs": [P, P, P, P, P, I64, I64, I32, I32, I32, I32, I32, P,
                         I64, P, P],
-    # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, spaced,
+    # pcodes, w16, nmask, nmw, lengths, len16, B, P, k, canon, spaced,
     # positions (host int32[32]), kmers, valid, stream
-    "bk_encode_only": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P, P, P,
-                       P],
-    # pcodes, w16, nmask, nmw, lengths, B, P, k, canon, spaced, positions,
-    # slots, lgnb, vbits, vals, n_vals, inline, want_idx, row0, rows, hit,
-    # valid, cidx, oidx, stream
-    "bk_encode_probe_range": [P, I64, P, I64, P, I64, I64, I32, I32, I32, P,
-                              P, I32, I32, P, I64, I32, I32, I64, I64, P, P,
-                              P, P, P],
+    "bk_encode_only": [P, I64, P, I64, P, I32, I64, I64, I32, I32, I32, P, P,
+                       P, P],
+    # pcodes, w16, nmask, nmw, lengths, len16, B, P, k, canon, spaced,
+    # positions, slots, lgnb, vbits, vals, n_vals, inline, want_idx, row0,
+    # rows, hit, valid, cidx, oidx, stream
+    "bk_encode_probe_range": [P, I64, P, I64, P, I32, I64, I64, I32, I32, I32,
+                              P, P, I32, I32, P, I64, I32, I32, I64, I64, P,
+                              P, P, P, P],
     # kq, done, Q, ndb, cap, send, slotq, scratch, stream
     "bk_route_frame": [P, P, I64, I64, I64, P, P, P, P],
     # recv, n, slots, lgnb, vbits, vals, n_vals, inline, want_idx, resp,

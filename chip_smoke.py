@@ -20,7 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  also on a taxonomy with a parent cycle under both tie
                  rules, on a 2^21-node taxonomy with lineages 25-40 deep
                  (tools/synthetic.py), and at 0, 1, 2 and one-taxon
-                 hits a row
+                 hits a row; K1 on reads of 40,000 and 65,535 bases (the
+                 batch ships u16 lengths) and of 70,000 (int32), in the
+                 sparse and mask channels, also against the kernel on the
+                 same lengths as int32
   4. database    the ec k=31 database built by the port on the host; its
                  content digest must equal the golden manifest's; upload
   5. classify    Classifier.process_dataset on the HiSeq, MiSeq and
@@ -37,7 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  each N channel; K2 again on the deep tree's rows; the
                  HiSeq stream's reads/s through the classifier (sparse)
                  and through the same arrays with _sparse_n_ok False
-                 (mask), in turns sparse, mask, mask, sparse; after phase 10, K1's
+                 (mask), in turns sparse, mask, mask, sparse; K1 mask on
+                 the batch's u16 lengths against the same lengths as int32
+                 (u16, int32, int32, u16, twice); after phase 10, K1's
                  slot rows at G1's random 32-B row rate (a yardstick,
                  not a bound: K1 reads its rows faster than G1)
   7. scale       a 2^26-key table (1 GiB of slots) probed by K1, checked
@@ -212,6 +217,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                  collect each one launch without a memset (profiler), KD1's
                  probe and collect of the later rounds timed, and the
                  floor of an empty launch
+ 9h. build extras and sketch tools  after phase 9g: lca_map(use_device=
+                 True) of the ec genomes at k = 31 (KB1; content sha256 =
+                 the manifest's db_digest; wall seconds beside the host's
+                 of phase 4, peak device memory), the same build
+                 checkpointed after 2 genomes and resumed as_arrays (the
+                 digest again); genome_kmer_set(use_device=True) against
+                 the host's for K-12 lex -k 31, -C -k 31 -w 40, -k 21 -S
+                 0x16,1x4 and its frame 0 as PROTEIN20 -k 7 -w 20 (KB1,
+                 KB4); then on K-12's kmercnt -k 31 and setsketch -k 31 -z
+                 4096 -S -s, made on the card, the sketch tools through the
+                 port's CLI: css2ss -b 16 and -b 8, shs2sketch, stdin2ss,
+                 setsketchroller, genome2multiset -C, errexp, ssi-build,
+                 ssi-screen, each output's sha256 = the JAX CLI's
+                 (TOOLS_JAX); a file packed from KS2's registers must be
+                 the plain packing of the card's own registers, and where
+                 it differs from the JAX CLI's, the plain versions' must
+                 equal it and each packed register that differs must lie
+                 within 2 ulp of a step (counted and printed, with the
+                 ulp between the (a, b)); KB1, KB4, KS1, KS2 launched
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -754,6 +778,70 @@ EMISSION_DIGESTS = {
         4641553),
 }
 
+# Phase 9h, the sketch tools on K-12: the JAX package's CLI, in an empty
+# directory (JAX_PLATFORMS=cpu, numpy 2.0.2), with K12 = EC_GENOME:
+#   python -m bonsai_tpu kmercnt K12 -k 31 -o k12
+#   python -m bonsai_tpu setsketch K12 -k 31 -z 4096 -S -s -B -o union.ss
+#   (k12.stream: the keys and counts of k12.31.bin, bonsai_tpu.sketch.shs
+#   .read_bin, as u64 pairs), then each TOOLS_CMDS line; its output file
+#   (after gunzip for .bin) or its stdout -> sha256; a packed sketch also
+#   -> the sha256 of its registers (the bytes past its 40-B header) and
+#   its (a, b); setsketchroller and css2ss also the stderr's sha256
+TOOLS_K12 = os.path.basename(EC_GENOME) + ".31.4096.ss"
+TOOLS_CMDS = {  # name -> (argv, what it writes: a file, or "stdout")
+    "css2ss -b 16": (["css2ss", TOOLS_K12, "c16.pss"], "c16.pss"),
+    "css2ss -b 8": (["css2ss", TOOLS_K12, "c8.pss", "-b", "8"], "c8.pss"),
+    "shs2sketch -z 4096": (["shs2sketch", "k12.31.shs", "s.pss", "-z",
+                            "4096"], "s.pss"),
+    "stdin2ss": (["stdin2ss", "k12.stream", "-o", "t.pss"], "t.pss"),
+    "setsketchroller": ([
+        "setsketchroller", os.path.basename(EC_GENOME) + ".31.4096.u64.kmers",
+        "-o", "roll.idx", "-k", "31"], "roll.idx"),
+    "genome2multiset -C": (["genome2multiset", EC_GENOME, "-k", "31", "-C",
+                            "-o", "g2m"], "g2m.31.bin"),
+    "errexp": (["errexp", "-l", "0.25", "--set-sizes", "12,16",
+                "--sketch-sizes", "8,12"], "stdout"),
+    "ssi-build": (["ssi-build", TOOLS_K12, "union.ss", "s.pss", "-o",
+                   "idx.ssi"], "idx.ssi"),
+    "ssi-screen": (["ssi-screen", "idx.ssi", TOOLS_K12, "union.ss", "s.pss",
+                    "c16.pss"], "stdout"),
+}
+TOOLS_JAX = {
+    "css2ss -b 16": dict(
+        sha="0d3004a4152472ddd056047b121fd1536613ef7d26bd4477be0c5031415cfa64",
+        regs="8085d7439fcfbc3033c36e9d6eddd16c826973ed653ae4a9fc0f91be78f9b504",
+        a=638175.8713055853, b=1.0001703103076258,
+        stderr=(
+            "fc4f5051f5bb32e088bd58bf548472f90d5753b9c0409f5f5f730ef32f156b85")),
+    "css2ss -b 8": dict(
+        sha="4d2808ac5f2b5cf76bd7b0f75b9b30f72627133d276b017881143ad153ebf712",
+        regs="2a56f2035e402058ca1039f99dc4d3d98095253d6f67f31470ce05d261faad00",
+        a=638175.8713055853, b=1.044917211654795,
+        stderr=(
+            "8a2e692b720691bd7a6b71d928eb2492977fad7455d89b121f90e7af399bdf46")),
+    "shs2sketch -z 4096": dict(
+        sha="bc481b87b9e186a302d9c872bded011a1560693ca6e58da85698fd9f7ec5d87b",
+        regs="3b7736d7bbff541ae03167004f5a78e83baaf8bed5c82eb372b9775e35e7f3d6",
+        a=486950.1308519898, b=1.0001486305971408),
+    "stdin2ss": dict(
+        sha="2182e20581d5bc7fb6e39fa4580cdacc1d5a90822f50c4d6bd73a07816d76958",
+        regs="29eb0e57a63ac078a6d09502b6ec5cafb79c724f4d473b82a2facce323c37813",
+        a=729390.2677162562, b=1.031694972187101),
+    "setsketchroller": dict(
+        sha="46377127321d331d681e622ae8bf5a551572da9a8d3c1c6c858f18970b7be1a5",
+        stderr=(
+            "05da2afd2b7717bb9cf2beca7c315c5fade9d454aa4ef9a06e6b22ad5a9ca630")),
+    "genome2multiset -C": dict(
+        sha="10b72c4415a468c934c47bbe4d6e571c6b1bb93cf380ddd095f443b8e1cb03c5"),
+    "errexp": dict(
+        sha="95b63a3fa673ef33c509df7ec619e48e3506fa7a0ed7955a4eef2ee2955e3da7"),
+    "ssi-build": dict(
+        sha="cbb67010c9ffd7de39cd8becd87c1f8bf6c44b275638b7d2232b8f39a906f7ba",
+        a=638175.8713055853, b=1.0001703103076258),
+    "ssi-screen": dict(
+        sha="620ac444e2fd037c4d4a16c86e2d5fff25045a85d48753dfc181161dd5cdefd5"),
+}
+
 
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -1040,6 +1128,67 @@ def _k1_prep(prep, dev):
     return (t(prep.pcodes), t(prep.nmask), t(prep.lengths)), t(prep.nidx)
 
 
+def long_read_k1(dev, chk, clf):
+    """K1 on batches with reads of 40,000 and 65,535 bases (the batch
+    ships u16 lengths) and of 70,000 (int32), in the batch's N channel and
+    the mask, against its plain version on CPU copies, and the kernel on
+    the u16 lengths against the same lengths as int32."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.core.alphabet import DNA4
+    from bonsai_tpu_torch.db.table import ProbeArrays
+    from bonsai_tpu_torch.io import fastx
+
+    seq = next(iter(fastx.read_fastx(EC_GENOME)))[1]
+    rng = np.random.default_rng(SEED + 19)
+    arr_cpu = ProbeArrays(clf.arr.slots.cpu(), clf.arr.vals.cpu(),
+                          clf.arr.inline, clf.arr.lgnb, clf.arr.vbits)
+    for lens, width in (((40_000, 65_535, 300), torch.uint16),
+                        ((70_000, 40_000, 300), torch.int32)):
+        seqs = []
+        for n in lens:
+            st = int(rng.integers(0, len(seq) - n))
+            s = bytearray(seq[st:st + n])
+            for j in rng.integers(0, n, n // 50):
+                s[j] = b"ACGT"[rng.integers(0, 4)]
+            for j in rng.integers(0, n, 2):
+                s[j] = ord("N")
+            seqs.append(bytes(s))
+        L = fastx.bucket_len(max(lens))
+        codes = np.full((len(lens), L), -1, dtype=np.int8)
+        for i, s in enumerate(seqs):
+            codes[i, :len(s)] = DNA4.lut[np.frombuffer(s, dtype=np.uint8)]
+        b = fastx.ReadBatch(names=[b"r"] * len(lens), seqs=seqs, codes=codes,
+                            lengths=np.array(lens, dtype=np.int32),
+                            quals=[None] * len(lens))
+        for c in (clf, _mask_only(clf)):
+            prep = c._prepare_batch(b)
+            require(prep.lengths.dtype == width, f"reads of {lens}: lengths "
+                    f"shipped as {prep.lengths.dtype}, not {width}")
+            args = (prep.lproc, clf.k, clf.canon)
+            (pc, nm, ln), nidx = _k1_prep(prep, dev)
+            got = pl.encode_probe(pc, nm, ln, *args, clf.arr, True, nidx=nidx)
+            (cpc, cnm, cln), cnidx = _k1_prep(prep, None)
+            want = pl.encode_probe_plain(cpc, cnm, cln, *args, arr_cpu, True,
+                                         nidx=cnidx)
+            name = ("encode_probe_sparse" if prep.channel == "sparse" else
+                    "encode_probe")
+            tag = f"reads of {lens} bases ({prep.channel}, {width})"
+            chk.same(name, got, want, tag)
+            chk.same(name, got, [t.cpu() for t in pl.encode_probe(
+                pc, nm, ln.to(torch.int32), *args, clf.arr, True,
+                nidx=nidx)], f"{tag}: = the lengths as int32")
+            v = got[1].cpu()
+            require(bool(v[0].any()) and int(torch.nonzero(v[0])[-1]) > 32_767,
+                    f"{tag}: no valid position past 32,767")
+            require(bool(got[0].any()), f"{tag}: no hit")
+    say("# kernels: K1 on reads of 40,000 and 65,535 bases (u16 lengths) and "
+        "70,000 (int32), sparse and mask channels, equal to the plain "
+        "version and to the kernel on int32 lengths")
+
+
 def phase_kernels(dev, clf, lut, deep):
     """K1, K2, K3 on the card vs their plain versions on CPU copies."""
     import numpy as np
@@ -1146,6 +1295,7 @@ def phase_kernels(dev, clf, lut, deep):
     out, _ = k1(long_reads(EC_GENOME, lut, rng), "long reads")
     require(out[0].shape[1] > 1024, "long-read batch has P <= 1024")
     k2_k3(out, "long reads", dsizes=(dict_size, None))
+    long_read_k1(dev, chk, clf)
     # run overflow (n_runs > maxr) and the wide layout (W >= 2^15)
     for R, W in ((256, 200), (4, 1 << 15)):
         hit = torch.from_numpy(rng.random((R, W)) < 0.7).to(dev)
@@ -1411,8 +1561,12 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     up = {ch: nbytes(p.pcodes, p.naux, p.lengths) / n_reads
           for ch, p in (("mask", mprep), ("sparse", sprep))}
     up["none"] = nbytes(sprep.pcodes, sprep.lengths) / n_reads
+    require(sprep.lengths.dtype == mprep.lengths.dtype == torch.uint16,
+            f"HiSeq 8192 lengths shipped as {sprep.lengths.dtype}")
     say(f"# upload: HiSeq 8192 reads (lproc {sprep.lproc}), bytes a read by "
-        f"channel: {up}; the sparse list holds "
+        f"channel, the lengths {str(sprep.lengths.dtype)[6:]} "
+        f"({sprep.lengths.element_size()} B a read; 4 B as int32): {up}; "
+        f"the sparse list holds "
         f"{int((sprep.nidx.numpy().view(np.uint32) != pl.N_SENTINEL).sum())}"
         f" of its {sprep.nidx.numel()} entries")
     (pc, nm, ln), _ = _k1_prep(mprep, dev)
@@ -1474,6 +1628,24 @@ def phase_numbers(dev, clf, hiseq_path, deep):
     say(f"# time K1 on the HiSeq batch, CUDA-graph replay in turns: mask "
         f"{ab[0]:.4f}, sparse {ab[1]:.4f}, sparse {ab[2]:.4f}, mask "
         f"{ab[3]:.4f} ms: sparse / mask {(ab[1] + ab[2]) / (ab[0] + ab[3]):.4f}")
+    # K1 mask on the batch's u16 lengths against the same lengths as int32
+    a1w = (pc, nm, ln.to(torch.int32), *a1[3:])
+    require(all(torch.equal(x, y) for x, y in zip(
+        pl.encode_probe(*a1w), (hit, valid, cidx, oidx))),
+        "K1 on int32 lengths differs from K1 on u16 lengths")
+    uw = []
+    for _ in range(2):
+        uw += [graph_ms(lambda: pl.encode_probe(*a1)),
+               graph_ms(lambda: pl.encode_probe(*a1w)),
+               graph_ms(lambda: pl.encode_probe(*a1w)),
+               graph_ms(lambda: pl.encode_probe(*a1))]
+    u16 = [uw[i] for i in (0, 3, 4, 7)]
+    i32 = [uw[i] for i in (1, 2, 5, 6)]
+    say(f"# time K1 mask on the HiSeq batch, lengths u16 against int32, "
+        f"CUDA-graph replay in turns (u16, int32, int32, u16) x 2: "
+        f"{', '.join(f'{x:.4f}' for x in uw)} ms: u16 / int32 "
+        f"{sum(u16) / sum(i32):.4f} (spread of each: u16 "
+        f"{min(u16):.4f}-{max(u16):.4f}, int32 {min(i32):.4f}-{max(i32):.4f})")
     # device busy share over one HiSeq pass, from a profiler trace
     from torch.profiler import ProfilerActivity, profile
 
@@ -4709,6 +4881,278 @@ def sharded_numbers(dev, inp):
     return times, bounds
 
 
+def _packed_bytes(cs, bits):
+    """The bytes css2ss / shs2sketch / stdin2ss write for the CSetSketch
+    ``cs``: its registers packed with its own optimal (a, b)."""
+    b, a = cs.optimal_parameters(qmax=(1 << bits) - 1)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "x.pss")
+        cs.to_packed(b, a, bits).write(path)
+        with open(path, "rb") as fh:
+            return fh.read()
+
+
+def _packed_parts(data: bytes):
+    """(b, a, bits, registers) of a packed SetSketch file's bytes."""
+    import struct
+
+    import numpy as np
+
+    m, b, a, bits = struct.unpack("<QddQ", data[8:40])
+    dt = np.uint8 if bits <= 8 else np.uint16 if bits <= 16 else np.uint32
+    return b, a, bits, np.frombuffer(data[40:], dtype=dt)
+
+
+def _ulps_apart(x: float, y: float) -> int:
+    import numpy as np
+
+    return int(abs(int(np.float64(x).view(np.int64))
+                   - int(np.float64(y).view(np.int64))))
+
+
+def _near_steps(regs, b, a, bits):
+    """Whether each continuous register lies within 2 ulp of a step of the
+    (b, a, bits) packing: packed 2 ulp below and 2 ulp above, it differs."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.sketch.setsketch import CSetSketch
+
+    def pack(r):
+        cs = CSetSketch(r.size, device="cpu")
+        cs.regs = torch.from_numpy(np.ascontiguousarray(r))
+        return cs.to_packed(b, a, bits).registers
+
+    lo = np.nextafter(np.nextafter(regs, 0), 0)
+    hi = np.nextafter(np.nextafter(regs, np.inf), np.inf)
+    return pack(lo) != pack(hi)
+
+
+def _against_jax_packing(key, card, jax_regs, card_cont, jax_cont, params):
+    """The packed registers of the card (``card``: file bytes) against the
+    JAX package's (``jax_regs``) -> (registers that differ, how many ulp
+    apart a and b are).  Each that differs must have a continuous value
+    (the card's ``card_cont`` or the JAX package's ``jax_cont``) within 2
+    ulp of a step of the card's or the JAX package's (b, a) (``params``:
+    the JAX (b, a, bits)): KS2's registers are within 2 ulp of numpy's."""
+    import numpy as np
+
+    b, a, bits, regs = _packed_parts(card)
+    jb, ja, jbits = params
+    diff = np.flatnonzero(regs != jax_regs)
+    if diff.size:
+        near = np.zeros(diff.size, dtype=bool)
+        for cont in (card_cont[diff], jax_cont[diff]):
+            for pb, pa in ((b, a), (jb, ja)):
+                near |= _near_steps(cont, pb, pa, bits)
+        require(bool(near.all()), f"9h {key}: {int((~near).sum())} packed "
+                f"registers differ from the JAX package's away from a step")
+    return int(diff.size), (_ulps_apart(a, ja), _ulps_apart(b, jb))
+
+
+def phase_build_extras(dev, kk, host_secs, card):
+    """9h. The incremental, checkpointed and on-card LCA build
+    (``lca_map(use_device=True)``, a build resumed from its checkpoint,
+    ``as_arrays``, ``genome_kmer_set(use_device=True)`` against the host)
+    and the sketch tools on K-12 against the JAX CLI's outputs."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch.core import encoder
+    from bonsai_tpu_torch.core.alphabet import InputType
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
+    from bonsai_tpu_torch.db import build
+    from bonsai_tpu_torch.io import fastx
+    from bonsai_tpu_torch.sketch import hll, setsketch as ss, shs
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.synthetic import translate
+
+    wrappers = [encoder.minimizers, encoder.compacted_minimizers,
+                hll.hll_fill, ss.csetsketch_update]
+    reset_counts(wrappers)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="extras.",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_dir.name
+    genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    nameid = os.path.join(GOLD, kk["nameid"])
+    sp = Spacer(kk["k"], kk["k"])
+
+    # 1. lca_map on the card (KB1), a build resumed from a checkpoint of
+    # its first two genomes, as_arrays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = build.lca_map(genomes, tree, nameid, sp, use_device=True,
+                          device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    digest = build.content_digest(table)
+    require(digest == kk["db_digest"], "lca_map(use_device=True) of the ec "
+            "genomes differs from the manifest's db_digest")
+    ck = os.path.join(tmp, "ec.ckpt.npz")
+    t0 = time.perf_counter()
+    build.lca_map(genomes[:2], tree, nameid, sp, use_device=True, device=dev,
+                  checkpoint_path=ck)
+    part = time.perf_counter() - t0
+    with np.load(ck) as z:
+        require([p.decode() for p in z["done"]] == genomes[:2],
+                "the checkpoint does not list the first two genomes")
+    t0 = time.perf_counter()
+    keys, taxa = build.lca_map(genomes, tree, nameid, sp, use_device=True,
+                               device=dev, checkpoint_path=ck, as_arrays=True,
+                               checkpoint_every_folds=2)
+    rest = time.perf_counter() - t0
+    resumed = _sha(keys.astype("<u8").tobytes()
+                   + taxa.astype("<u8").tobytes())
+    require(resumed == kk["db_digest"], "the resumed build (as_arrays) "
+            "differs from the manifest's db_digest")
+    with np.load(ck) as z:
+        require([p.decode() for p in z["done"]] == genomes,
+                "the resumed checkpoint does not list every genome")
+    say(f"# build extras ({card}): lca_map(use_device=True) of the ec k=31 "
+        f"genomes {secs:.3f}s wall (the host's lca_map: {host_secs:.3f}s, "
+        f"phase 4), content sha256 = db_digest, peak device memory "
+        f"{peak / 2**20:.1f} MiB; checkpointed after 2 genomes "
+        f"({part:.3f}s) and resumed as arrays ({rest:.3f}s): sha256 = "
+        f"db_digest")
+    del table, keys, taxa
+
+    # 2. genome_kmer_set on the card against the host
+    prot = os.path.join(tmp, "k12_frame0.fa")
+    k12 = next(iter(fastx.read_fastx(EC_GENOME)))[1]
+    with open(prot, "wb") as fh:
+        fh.write(b">k12_frame0\n" + translate(k12, 0) + b"\n")
+    cases = [
+        ("lex -k 31", EC_GENOME, Spacer(31, 31), True, InputType.DNA),
+        ("-C -k 31 -w 40", EC_GENOME, Spacer(31, 40), False, InputType.DNA),
+        ("-k 21 -S 0x16,1x4", EC_GENOME,
+         Spacer(21, 21, parse_spacing("0x16,1x4", 21)), False, InputType.DNA),
+        ("PROTEIN20 -k 7 -w 20", prot, Spacer(7, 20), False,
+         InputType.PROTEIN20),
+    ]
+    line = []
+    for name, path, s, canon, it in cases:
+        t0 = time.perf_counter()
+        got = build.genome_kmer_set(path, s, canon, input_type=it,
+                                    use_device=True, device=dev)
+        td = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = build.genome_kmer_set(path, s, canon, input_type=it)
+        th = time.perf_counter() - t0
+        require(got.size > 0 and np.array_equal(got, want),
+                f"genome_kmer_set(use_device=True) {name} differs from the "
+                "host's")
+        line.append(f"{name} {got.size} ({td:.2f}s / {th:.2f}s)")
+    say(f"# build extras: genome_kmer_set(use_device=True) = the host's: "
+        f"{'; '.join(line)} (card / host seconds)")
+
+    # 3. the sketch tools on K-12 through the port's CLI on the card
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    _cli(["kmercnt", EC_GENOME, "-k", "31", "-o", "k12", "--device",
+          dev.type], d)
+    _cli(["setsketch", EC_GENOME, "-k", "31", "-z", "4096", "-S", "-s", "-B",
+          "-o", "union.ss", "--device", dev.type], d)
+    bk, bc = shs.read_bin(os.path.join(d, "k12.31.bin"))
+    rec = np.empty(2 * bk.size, dtype=np.uint64)
+    rec[0::2], rec[1::2] = bk, bc
+    rec.tofile(os.path.join(d, "k12.stream"))
+    outs, secs_t = {}, {}
+    for key, (argv, what) in TOOLS_CMDS.items():
+        t1 = time.perf_counter()
+        out, err = _cli(argv + ["--device", dev.type], d)
+        secs_t[key] = time.perf_counter() - t1
+        if what == "stdout":
+            data = out.encode()
+        else:
+            opener = gzip.open if what.endswith(".bin") else open
+            with opener(os.path.join(d, what), "rb") as fh:
+                data = fh.read()
+        outs[key] = (data, err)
+    # the continuous registers behind each packed file, on the card and on
+    # the CPU (the plain versions, equal to the JAX package's)
+    stream = rec[0::2]
+    hashes = shs.read_shs(os.path.join(d, "k12.31.shs"))
+
+    def sketch(key, device):
+        if key.startswith("css2ss"):
+            if device == "cpu":  # the setsketch of the CPU's plain versions
+                c = os.path.join(tmp, "cpu")
+                os.makedirs(c, exist_ok=True)
+                if not os.path.exists(os.path.join(c, TOOLS_K12)):
+                    _cli(["setsketch", EC_GENOME, "-k", "31", "-z", "4096",
+                          "-S", "-s", "-B", "-o", "union.ss", "--device",
+                          "cpu"], c)
+                return ss.CSetSketch.read(os.path.join(c, TOOLS_K12),
+                                          device="cpu")
+            return ss.CSetSketch.read(os.path.join(d, TOOLS_K12), device=dev)
+        cs = ss.CSetSketch(4096 if key.startswith("shs2sketch") else 1000,
+                           device=device)
+        cs.update(hashes if key.startswith("shs2sketch") else stream)
+        return cs
+
+    same, moved = [], {}
+    for key, (argv, what) in TOOLS_CMDS.items():
+        data, err = outs[key]
+        ref = TOOLS_JAX[key]
+        if "stderr" in ref:
+            require(_sha(err.encode()) == ref["stderr"],
+                    f"9h {key}: stderr differs from the JAX CLI's: {err}")
+        if "regs" in ref:  # a packed sketch of KS2's registers
+            bits = _packed_parts(data)[2]
+            cont = sketch(key, dev)
+            require(_packed_bytes(cont, bits) == data, f"9h {key}: the file "
+                    "is not the packing of the card's own registers")
+            if _sha(data) != ref["sha"]:
+                plain = sketch(key, "cpu")
+                pdata = _packed_bytes(plain, bits)
+                require(_sha(pdata) == ref["sha"], f"9h {key}: the plain "
+                        "versions' file differs from the JAX CLI's")
+                moved[key] = _against_jax_packing(
+                    key, data, _packed_parts(pdata)[3], cont.registers,
+                    plain.registers, (ref["b"], ref["a"], bits))
+                continue
+        elif key == "ssi-build":
+            with open(os.path.join(d, "idx.ssi.params")) as fh:
+                prm = json.load(fh)
+            moved["ssi-build .params"] = (0, (_ulps_apart(prm["a"], ref["a"]),
+                                              _ulps_apart(prm["b"], ref["b"])))
+        if _sha(data) != ref["sha"]:
+            # the index and the screen follow the packed registers of
+            # their inputs: they may differ only where css2ss's do
+            require(key in ("ssi-build", "ssi-screen") and any(
+                moved.get(k, (0,))[0] for k in ("css2ss -b 16",
+                                                 "shs2sketch -z 4096")),
+                f"9h {key}: output differs from the JAX CLI's")
+            moved[key] = (None, None)
+            continue
+        same.append(key)
+    for key, (n, ulps) in moved.items():
+        require(n is None or ulps is None or max(ulps) <= 8,
+                f"9h {key}: (a, b) {ulps} ulp from the JAX package's")
+    say(f"# build extras: sketch tools on K-12 "
+        f"({time.perf_counter() - t0:.2f}s with kmercnt and setsketch): "
+        f"sha256 = the JAX CLI's for {same}; "
+        f"packed from KS2's registers, (registers that differ, each within 2 "
+        f"ulp of a step; (a, b) ulp from the JAX package's): {moved}; "
+        f"seconds {({k: round(v, 3) for k, v in secs_t.items()})}")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(wrappers).items() if v}
+    say(f"# build extras: kernel launches {launches}")
+    for name in ("minimizers", "minimizers_spaced", "compacted_minimizers",
+                 "compacted_minimizers_radix", "hll_fill",
+                 "csetsketch_update"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched in phase 9h")
+    tmp_dir.cleanup()
+    return {"lca_map device s": secs, "lca_map host s": host_secs,
+            "lca_map device peak MiB": peak / 2**20}
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -4976,6 +5420,8 @@ def main() -> int:
     times.update(sharded_times)
     bounds.update(sharded_bounds)
     del db
+    extras = phase("9h build extras and sketch tools", phase_build_extras,
+                   dev, kk, host_secs, card)
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -5019,7 +5465,8 @@ def main() -> int:
         f"{ {k: round(v, 3) for k, v in format_secs.items()} }; sharded "
         f"(ranks sharing this one card: no multi-GPU rate): "
         f"{ {k: round(v, 3) for k, v in sharded_nums.items()} }, the "
-        f"one-device stream {rps:.6g} reads/s; total "
+        f"one-device stream {rps:.6g} reads/s; build extras "
+        f"{ {k: round(v, 3) for k, v in extras.items()} }; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -1265,6 +1265,90 @@ def test_encode_probe_sparse_refuses_what_the_kernel_does_not_take(cuda):
         pl.encode_probe(pc, None, ln, 128, 31, True, ranged, True, nidx=nidx)
 
 
+def _u16_rows(rng, c):
+    """Eight reads in a width of 65,536 with lengths past 32,767 (65,535,
+    65,534, 40,000, 32,768, 32,767), one of 300 and two shorter than the
+    seed's span c; a few in-read Ns, among them at 32,767 and 32,768."""
+    L = 65_536
+    lengths = np.array([65_535, 65_534, 40_000, 32_768, 32_767, 300, c - 1,
+                        0], dtype=np.int32)
+    codes = rng.integers(0, 4, (8, L)).astype(np.int8)
+    codes[0, [5, 32_767, 32_768, 65_000]] = -1
+    codes[2, [39_999]] = -1
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return codes, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["mask", "none", "uncanonical", "sparse",
+                                 "spaced", "spaced sparse", "range",
+                                 "spaced range", "encode", "spaced encode"])
+def test_encode_probe_kernel_reads_u16_lengths(cuda, how):
+    """Every K1 instantiation on u16 lengths of 32,767-65,535 against its
+    plain version, against the kernel on the same lengths as int32, and
+    (mask) replayed from a captured CUDA graph."""
+    k = 21
+    pos = _positions(k) if how.startswith("spaced") else None
+    c = pos[-1] + 1 if pos else k
+    rng = np.random.default_rng(65_535 + len(how))
+    codes, lengths = _u16_rows(rng, c)
+    lproc = 65_535
+    canon = pos is None and how != "uncanonical"
+    cl = torch.from_numpy(codes)
+    em = enc.minimizers(cl, torch.from_numpy(lengths), k, 1, canon, "lex", pos)
+    kmers = em.values[em.mask].numpy().view(np.uint64)
+    keys = np.unique(np.concatenate([
+        rng.choice(kmers, kmers.size // 2),
+        rng.integers(0, 2**64, 3000, dtype=np.uint64)]))
+    cpu_arr = _inline_arrays(keys, np.random.default_rng(k), "cpu")
+    if "range" in how:  # a psum rank's rows: the second quarter
+        rows = cpu_arr.slots.shape[0] // 4
+        cpu_arr = ProbeArrays(cpu_arr.slots[rows:2 * rows].contiguous(),
+                              cpu_arr.vals, cpu_arr.inline, cpu_arr.lgnb,
+                              cpu_arr.vbits, rows, rows)
+    dev_arr = ProbeArrays(cpu_arr.slots.to(cuda), cpu_arr.vals.to(cuda),
+                          cpu_arr.inline, cpu_arr.lgnb, cpu_arr.vbits,
+                          cpu_arr.row0, cpu_arr.rows)
+    pc, nm = _pack(codes)
+    nm = None if how in ("none", "encode") else nm
+    nidx = None
+    if "sparse" in how:
+        nm, nidx = None, _nlist(codes, lengths, lproc, 11)
+    u16 = torch.from_numpy(lengths.astype(np.uint16))
+    i32 = torch.from_numpy(lengths)
+
+    def run(dev, ln):
+        on = (lambda t: None if t is None else t.to(dev))
+        arr = dev_arr if dev != "cpu" else cpu_arr
+        if "encode" in how:
+            return pl.encode_only(on(pc), on(nm), on(ln), lproc, k, canon, pos)
+        return pl.encode_probe(on(pc), on(nm), on(ln), lproc, k, canon, arr,
+                               True, pos, nidx=on(nidx))
+
+    want = run("cpu", u16)
+    _same(want, run("cpu", i32))
+    got = run(cuda, u16)
+    _same(got, want)
+    _same(run(cuda, i32), want)
+    valid = want[1]
+    masked = nm is not None or nidx is not None  # row 2 ends in an N
+    for r in range(5):  # the last window of each long read is its own
+        v = np.flatnonzero(valid[r].numpy())
+        assert int(v[-1]) == int(lengths[r]) - c - (r == 2 and masked), r
+    assert not valid[6:].any()
+    if how == "mask":  # a graph captured on the u16 lengths, replayed
+        ins = [t.to(cuda) for t in (pc, nm, u16)]
+        run_g = (lambda: pl.encode_probe(*ins, lproc, k, canon, dev_arr, True))
+        run_g()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = run_g()
+        g.replay()
+        torch.cuda.synchronize()
+        _same(out, want)
+
+
 @pytest.mark.cuda
 def test_minimizers_spaced_kernel_refuses_what_it_does_not_take(cuda):
     """A tile whose span and window do not fit in shared memory, offsets
@@ -2573,3 +2657,64 @@ def test_sharded_classifier_on_the_card_matches_one_device(cuda, route, dp,
         assert got_txt == want_txt
         if route == "a2a" and cf < 1:
             assert sc.last_rounds > 1
+
+
+# -- the on-card LCA build's k-mer sets (db/build.py use_device) --------------
+
+GOLDEN_GENOMES = [os.path.join(os.path.dirname(__file__), "data", "golden", f)
+                  for f in ("g_phix.fa", "g_phixmut.fa", "g_rand.fa")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["lex", "-C -w", "-S", "PROTEIN20",
+                                 "PROTEIN20 -w"])
+@pytest.mark.parametrize("block", [1 << 22, 777])
+def test_genome_kmer_set_on_the_card_equals_the_host(cuda, tmp_path, how,
+                                                     block):
+    """genome_kmer_set(use_device=True) (KB1, or KB4 for -C -w and another
+    alphabet's windows) equals the host's set, the contigs whole and in
+    chunks of 777 windows; and lca_map on the card the host's table."""
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
+    from bonsai_tpu_torch.db import build
+    from bonsai_tpu_torch.io import fastx
+    from bonsai_tpu_torch.tools.synthetic import translate
+
+    it = InputType.PROTEIN20 if how.startswith("PROTEIN") else InputType.DNA
+    sp, canon = {
+        "lex": (Spacer(31, 31), True),
+        "-C -w": (Spacer(31, 40), False),
+        "-S": (Spacer(21, 21, parse_spacing("0x16,1x4", 21)), False),
+        "PROTEIN20": (Spacer(7, 7), False),
+        "PROTEIN20 -w": (Spacer(7, 20), False),
+    }[how]
+    paths = GOLDEN_GENOMES
+    if it != InputType.DNA:
+        paths = []
+        for g in GOLDEN_GENOMES:
+            seq = b"".join(s for _, s, _ in fastx.read_fastx(g))
+            p = tmp_path / (os.path.basename(g) + ".faa")
+            p.write_bytes(b"".join(b">f%d\n%s\n" % (f, translate(seq, f))
+                                   for f in range(3)))
+            paths.append(str(p))
+    before = (enc.minimizers.launches, enc.compacted_minimizers.launches)
+    for path in paths:
+        got = build.genome_kmer_set(path, sp, canon, input_type=it,
+                                    use_device=True, block=block,
+                                    device=cuda)
+        want = build.genome_kmer_set(path, sp, canon, input_type=it,
+                                     block=block)
+        assert got.size and np.array_equal(got, want), path
+    after = (enc.minimizers.launches, enc.compacted_minimizers.launches)
+    assert after != before  # the kernels ran
+    if how in ("lex", "-C -w") and block == 777:
+        from bonsai_tpu_torch.taxonomy.ncbi import accession_from_header
+
+        tree = TaxTree({1: 0, 2: 1, 11: 2, 12: 2, 13: 1})
+        names = {accession_from_header(fastx.first_header(g)): 11 + i
+                 for i, g in enumerate(GOLDEN_GENOMES)}
+        got = build.lca_map(GOLDEN_GENOMES, tree, names, sp, canon,
+                            use_device=True, device=cuda, block=block)
+        want = build.lca_map(GOLDEN_GENOMES, tree, names, sp, canon,
+                             block=block)
+        assert np.array_equal(got.keys_sorted, want.keys_sorted)
+        assert np.array_equal(got.vals_sorted, want.vals_sorted)
