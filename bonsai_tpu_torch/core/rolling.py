@@ -14,7 +14,10 @@ an ambiguous code (-1) hashes as code 0 on both strands and makes the
 window invalid; a code at or past the table's length reads 0 on both
 strands (the JAX package's numpy path raises there, its jnp path clamps;
 no entry point reaches it).  ``cyclic_hashes`` is the wrapper of the CUDA kernel KR1
-(``csrc/rolling.cu``), which rolls both:
+(``csrc/rolling.cu``), which takes each thread's first window from prefix
+XORs (with Q(m) = rotr_{m mod 64}(T[c_m]) and EQ its exclusive prefix XOR,
+h_i = rotl_{(i+k-1) mod 64}(EQ(i+k) ^ EQ(i)), and likewise r_i), so that a
+window costs the same at any k, then rolls the run's others:
 h' = rotl1(h) ^ rotl_{k mod 64}(T[out]) ^ T[in]; ``cyclic_hashes_plain``
 is its plain torch version (the XOR-fold of k static slices, as the JAX
 package computes it), which serves CPU tensors.
@@ -40,6 +43,7 @@ from .encode import position_validity
 from .encoder import Emissions, compacted_stream
 
 U64_MAX = (1 << 64) - 1
+KR1_RUN, KR1_TILE = 16, 4096  # csrc/rolling.cu: windows a thread, a block
 
 
 # -- wyrand (public wyhash v4 recipe; vendored aesctr/wy.h is an empty

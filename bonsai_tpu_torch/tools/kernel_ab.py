@@ -28,7 +28,9 @@ and KB4 -k 31 -w 40 (canonical) and -k 13 -w 29 under the Shannon score,
 and on the forward frame 0 of GENOME's first record as protein
 (``synthetic.translate``): KB1 PROTEIN20 k = 7 unwindowed, PROTEIN_6
 -k 12 -S 1x11 -w 30 Shannon, KB4 PROTEIN_14 -k 10 -w 24 and PROTEIN20
--k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical and 200.  Then the
+-k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical, 200 and 4097 (past
+its tile), and at kmercnt's chunk, the first 2^20 bases, at k = 17 and
+31 canonical.  Then the
 sketch kernels at the shapes of ``chip_smoke.py``'s phase 9e on GENOME's
 first record: KS1 (p = 14, wang_hash) and KS4 (wang_hash, nuccount) on
 its canonical 31-mers, KS2 (m = 4096, -S -s and default, a new sketch a
@@ -124,11 +126,17 @@ entry points ``bk_*_hash_blocks_per_sm``, appended to a copy of a source
 that lacks them) and ptxas's registers and spills are printed first.
 Each EDIT names an edited copy of the parent's sources (``HASH_EDITS``,
 several joined by '+'), timed in the same turns: a design experiment
-(the probe or the value read taken out, another batch size); an edit
-that changes the output is timed but not checked:
+(the probe or the value read taken out, another batch size, KB5 slice
+by slice: ``kb5-sliced``, ``SLICED_KB5``); an edit that changes the
+output is timed but not checked.  With ``--fold``, KB5 also runs on the
+-k 25 -t phase-1 map of the GENOMEs after it, built on the card (NAMEID
+maps their sequence names to taxids of NODES): at the folded keys of the
+-k 25 -w 37 -t phase-2 device build, as ``chip_smoke.py`` phase 9c
+scores them, and at 2^16 to 2^22 k-mers half stored:
 
     python -m bonsai_tpu_torch.tools.kernel_ab --hash PARENT_CSRC GENOME \\
-        [EDIT...]
+        [EDIT...] [--fold tests/data/golden/ec_nodes.dmp \\
+        tests/data/golden/ec_nameidmap.txt tests/data/ec/*.fna.gz]
 
 Each prints one line per case, then the results as one JSON object, and
 needs a CUDA card.
@@ -172,6 +180,284 @@ HASH_SOURCES = ("minimizers", "compacted_minimizers", "lookup_scores")
 CLASSIFY_BATCH = 8192
 # KB1's and KB4's one entry point each
 KB1, KB4 = "bk_minimizers_gen", "bk_compacted_minimizers_gen"
+# --hash's design of KB5 slice by slice (the edit kb5-sliced, measured and
+# not kept: PERF.md "PR 20"): the image's rows cut into S = 2^ls slices of
+# at most 16 MiB (slot rows, and flat values at the same row indices), and
+# the k-mers probed in that order so that the resident blocks read one or
+# two slices, which stay in L2.  A memset of the counters, then
+#   1. count_kernel: each k-mer's first bucket's slice counted (warp-
+#      aggregated shared atomics, one device atomic a slice a block);
+#   2. scatter_kernel: a tile's (h, index) staged by slice in shared memory,
+#      each slice's run reserved with one device atomic and written in
+#      order; the second buckets' slices counted (each slice's room in the
+#      miss list);
+#   3. probe1_kernel: the first rows in slice order, the score written at
+#      the k-mer's index; a miss appended to its second bucket's slice of
+#      the miss list (warp-aggregated device atomics);
+#   4. probe2_kernel: the second rows of the miss list (places past a
+#      slice's misses idle), the score or U64_MAX.
+# Its scratch (24 B a k-mer) is taken with cudaMallocAsync on the stream.
+SLICED_KB5 = r"""constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr int kSliceBytesLog2 = 24;  // 16 MiB a slice
+constexpr int kMaxSlicesLog2 = 8;
+constexpr int kMaxSlices = 1 << kMaxSlicesLog2;
+constexpr int kPerThread = 8;  // k-mers a thread of steps 1 and 2
+constexpr int kTile = kThreads * kPerThread;
+using Scan = cub::BlockScan<uint32_t, kThreads>;
+
+// log2 of the slices of an image, 0 where it has one
+int slices_log2(int lgnb, int is_inline) {
+  const int row_log2 = is_inline ? 5 : 6;  // slot row, and flat values
+  const int ls = lgnb + row_log2 - kSliceBytesLog2;
+  return ls <= 0 ? 0 : ls < kMaxSlicesLog2 ? ls : kMaxSlicesLog2;
+}
+
+// The scratch of the sliced path: per slice the first buckets' counts and
+// cursors and the second buckets' counts and cursors (u32), then the
+// slice-ordered list (h, index) and the miss list (h, index).
+struct Scratch {
+  uint32_t *cnt1, *cur1, *cnt2, *cur2;
+  uint64_t *h1, *h2;
+  uint32_t *i1, *i2;
+};
+
+constexpr int64_t kHead = 16 * kMaxSlices;  // the counters, 16-B aligned
+
+int64_t scratch_bytes(int64_t n) { return kHead + 24 * n; }
+
+Scratch carve(void* base, int64_t n) {
+  char* p = (char*)base;
+  uint32_t* c = (uint32_t*)p;
+  Scratch s{c, c + kMaxSlices, c + 2 * kMaxSlices, c + 3 * kMaxSlices};
+  s.h1 = (uint64_t*)(p + kHead);
+  s.h2 = s.h1 + n;
+  s.i1 = (uint32_t*)(s.h2 + n);
+  s.i2 = s.i1 + n;
+  return s;
+}
+
+__device__ __forceinline__ void buckets(const bk::ProbeTable& t, uint64_t h,
+                                        uint64_t* b1, uint64_t* b2) {
+  const uint64_t bmask = (1ULL << t.lgnb) - 1;
+  *b1 = h & bmask;
+  *b2 = *b1 ^ (bk::splitmix64((h >> t.lgnb) ^ bk::kBucketSalt) & bmask);
+}
+
+// one shared (or device) atomic a group of lanes adding to the same
+// counter: each active lane gets its rank among the earlier lanes of its
+// group plus the counter's value before the group's add
+__device__ __forceinline__ uint32_t aggregated_add(uint32_t* ctr,
+                                                   unsigned active,
+                                                   int key) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(active, key);
+  const int leader = __ffs(peers) - 1;
+  uint32_t base = 0;
+  if (lane == leader) base = atomicAdd(ctr, (uint32_t)__popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1));
+}
+
+// step 1: the first buckets' slices counted
+__global__ void __launch_bounds__(kThreads)
+    count_kernel(const uint64_t* __restrict__ kmers, int64_t n,
+                 bk::ProbeTable t, int shift, int S,
+                 uint32_t* __restrict__ cnt1) {
+  __shared__ uint32_t s_cnt[kMaxSlices];
+  for (int s = threadIdx.x; s < S; s += kThreads) s_cnt[s] = 0;
+  __syncthreads();
+  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int64_t i = base + u * kThreads;
+    const bool in = i < n;
+    const unsigned active = __ballot_sync(kAll, in);
+    if (in) {
+      const uint64_t b1 = bk::splitmix64(kmers[i]) & ((1ULL << t.lgnb) - 1);
+      const int s = (int)(b1 >> shift);
+      aggregated_add(&s_cnt[s], active, s);
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < S; s += kThreads)
+    if (s_cnt[s]) atomicAdd(&cnt1[s], s_cnt[s]);
+}
+
+// the exclusive prefix sums of cnt[0..S) into start[0..S] (start[S], the
+// total), by the block
+__device__ __forceinline__ void slice_starts(const uint32_t* cnt, int S,
+                                             uint32_t* start,
+                                             Scan::TempStorage& tmp) {
+  const int s = threadIdx.x;
+  uint32_t v = s < S ? __ldcg(cnt + s) : 0, first, total;
+  Scan(tmp).ExclusiveSum(v, first, total);
+  if (s < S) start[s] = first;
+  if (s == 0) start[S] = total;
+  __syncthreads();
+}
+
+// step 2: (h, index) of a tile into first-slice order, by runs; the second
+// buckets' slices counted
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const uint64_t* __restrict__ kmers, int64_t n,
+                   bk::ProbeTable t, int shift, int S, Scratch sc) {
+  __shared__ Scan::TempStorage tmp;
+  __shared__ uint32_t s_start[kMaxSlices + 1];
+  __shared__ uint32_t s_cnt[kMaxSlices], s_cnt2[kMaxSlices];
+  __shared__ uint32_t s_off[kMaxSlices], s_out[kMaxSlices];
+  __shared__ uint64_t s_h[kTile];
+  __shared__ uint32_t s_i[kTile];
+  __shared__ uint8_t s_sl[kTile];
+  const int tid = threadIdx.x;
+  for (int s = tid; s < S; s += kThreads) s_cnt[s] = s_cnt2[s] = 0;
+  slice_starts(sc.cnt1, S, s_start, tmp);  // its barrier orders the zeros
+  const int64_t tile0 = (int64_t)blockIdx.x * kTile;
+  uint64_t h[kPerThread];
+  uint32_t rank[kPerThread];
+  int sl[kPerThread];
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int64_t i = tile0 + u * kThreads + tid;
+    const bool in = i < n;
+    const unsigned active = __ballot_sync(kAll, in);
+    if (in) {
+      uint64_t b1, b2;
+      h[u] = bk::splitmix64(kmers[i]);
+      buckets(t, h[u], &b1, &b2);
+      sl[u] = (int)(b1 >> shift);
+      rank[u] = aggregated_add(&s_cnt[sl[u]], active, sl[u]);
+      const int s2 = (int)(b2 >> shift);
+      aggregated_add(&s_cnt2[s2], active, s2);
+    }
+  }
+  __syncthreads();
+  {  // each slice's place in the tile and its run in the list
+    const int s = tid;
+    const uint32_t c = s < S ? s_cnt[s] : 0;
+    uint32_t first, total;
+    Scan(tmp).ExclusiveSum(c, first, total);
+    if (s < S) {
+      s_off[s] = first;
+      // the run's first list index less its first tile place (mod 2^32)
+      if (c) s_out[s] = s_start[s] + atomicAdd(&sc.cur1[s], c) - first;
+      if (s_cnt2[s]) atomicAdd(&sc.cnt2[s], s_cnt2[s]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    if (tile0 + u * kThreads + tid < n) {
+      const uint32_t p = s_off[sl[u]] + rank[u];
+      s_h[p] = h[u];
+      s_i[p] = (uint32_t)(tile0 + u * kThreads + tid);
+      s_sl[p] = (uint8_t)sl[u];
+    }
+  }
+  __syncthreads();
+  const int m = (int)min((int64_t)kTile, n - tile0);
+  for (int p = tid; p < m; p += kThreads) {
+    const uint32_t g = s_out[s_sl[p]] + p;
+    sc.h1[g] = s_h[p];
+    sc.i1[g] = s_i[p];
+  }
+}
+
+// the score of a match in a row (as probe.cuh's probe reads the value)
+__device__ __forceinline__ uint64_t value_of(const bk::ProbeTable& t,
+                                             uint64_t acc) {
+  int64_t idx = t.is_inline ? (int64_t)(uint32_t)acc : (int64_t)acc;
+  if (idx > t.n_vals - 1) idx = t.n_vals - 1;
+  return t.vals[idx];
+}
+
+// step 3: the first rows, slice by slice; misses into the miss list by
+// their second bucket's slice
+__global__ void __launch_bounds__(kThreads)
+    probe1_kernel(int64_t n, bk::ProbeTable t, int shift, int S, Scratch sc,
+                  uint64_t* __restrict__ out) {
+  __shared__ Scan::TempStorage tmp;
+  __shared__ uint32_t s_start[kMaxSlices + 1];
+  slice_starts(sc.cnt2, S, s_start, tmp);
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  bool miss = false;
+  uint64_t h = 0, b1 = 0, b2 = 0;
+  uint32_t idx = 0;
+  if (p < n) {
+    h = __ldcs(sc.h1 + p);
+    idx = __ldcs(sc.i1 + p);
+    buckets(t, h, &b1, &b2);
+    const ulonglong2 lo = t.slots[2 * b1], hi = t.slots[2 * b1 + 1];
+    uint64_t acc = 0;
+    const uint64_t e = (1ULL << 63) | ((h >> t.lgnb) << t.vbits);
+    if (bk::match_row(t, lo, hi, e, b1, acc))
+      out[idx] = value_of(t, acc);
+    else
+      miss = true;
+  }
+  const unsigned active = __ballot_sync(kAll, miss);
+  if (miss) {
+    const int s2 = (int)(b2 >> shift);
+    const uint32_t g = s_start[s2] +
+                       aggregated_add(&sc.cur2[s2], active, s2);
+    __stcs(sc.h2 + g, h);
+    __stcs(sc.i2 + g, idx);
+  }
+}
+
+// step 4: the second rows of the misses, slice by slice
+__global__ void __launch_bounds__(kThreads)
+    probe2_kernel(int64_t n, bk::ProbeTable t, int S, Scratch sc,
+                  uint64_t* __restrict__ out) {
+  __shared__ Scan::TempStorage tmp;
+  __shared__ uint32_t s_start[kMaxSlices + 1];
+  slice_starts(sc.cnt2, S, s_start, tmp);
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  int lo = 0, hi = S;  // the slice whose room holds p: start <= p
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (s_start[mid] <= (uint32_t)p) lo = mid; else hi = mid;
+  }
+  if ((uint32_t)p - s_start[lo] >= __ldcg(sc.cur2 + lo)) return;
+  const uint64_t h = __ldcs(sc.h2 + p);
+  const uint32_t idx = __ldcs(sc.i2 + p);
+  uint64_t b1, b2;
+  buckets(t, h, &b1, &b2);
+  const ulonglong2 r0 = t.slots[2 * b2], r1 = t.slots[2 * b2 + 1];
+  uint64_t acc = 0;
+  const uint64_t e = (3ULL << 62) | ((h >> t.lgnb) << t.vbits);
+  out[idx] = bk::match_row(t, r0, r1, e, b2, acc) ? value_of(t, acc) : ~0ULL;
+}
+
+unsigned blocks(int64_t n, int64_t per) {
+  return (unsigned)((n + per - 1) / per);
+}
+
+// the sliced path on ``st`` for an image past one slice (its scratch taken
+// and given back on the stream), or -1 for the direct kernel
+int sliced_lookup(const bk::ProbeTable& t, const uint64_t* km, int64_t n,
+                  uint64_t* o, cudaStream_t st) {
+  const int ls = slices_log2(t.lgnb, t.is_inline);
+  if (!ls || n >= ((int64_t)1 << 32)) return -1;
+  void* scratch = nullptr;
+  cudaError_t e = cudaMallocAsync(&scratch, scratch_bytes(n), st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, kHead, st);
+  if (e != cudaSuccess) return (int)e;
+  const int S = 1 << ls, shift = t.lgnb - ls;
+  const Scratch sc = carve(scratch, n);
+  count_kernel<<<blocks(n, kTile), kThreads, 0, st>>>(km, n, t, shift, S,
+                                                      sc.cnt1);
+  scatter_kernel<<<blocks(n, kTile), kThreads, 0, st>>>(km, n, t, shift, S,
+                                                        sc);
+  probe1_kernel<<<blocks(n, kThreads), kThreads, 0, st>>>(n, t, shift, S, sc,
+                                                          o);
+  probe2_kernel<<<blocks(n, kThreads), kThreads, 0, st>>>(n, t, S, sc, o);
+  e = cudaFreeAsync(scratch, st);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+"""
+
 # --hash's edited copies of the parent's sources, for design experiments:
 # name -> (whether the output stays the parent's, substitutions (file, old
 # text, new text)).  A copy takes each substitution whose old text its file
@@ -213,6 +499,18 @@ HASH_EDITS = {
                        "  bk::hash_scores(t, km, sc, m);\n#pragma unroll\n"
                        "  for (int u = 0; u < 4; ++u)\n"
                        "    if (u < m) out[i0 + u * kThreads] = sc[u];"),)),
+    # KB5 slice by slice (SLICED_KB5) for an image past one 16 MiB slice
+    "kb5-sliced": (True, (
+        ("lookup_scores.cu", '#include "probe.cuh"\n',
+         '#include <cub/block/block_scan.cuh>\n\n#include "probe.cuh"\n'),
+        ("lookup_scores.cu", "}  // namespace\n", SLICED_KB5 +
+         "}  // namespace\n"),
+        ("lookup_scores.cu", "  const int64_t blocks = (n + kThreads - 1) / "
+         "kThreads;\n", "  const int sl = sliced_lookup(t, (const uint64_t*)"
+         "kmers, n,\n                               (uint64_t*)out, "
+         "(cudaStream_t)stream);\n  if (sl >= 0) return sl;\n"
+         "  const int64_t blocks = (n + kThreads - 1) / kThreads;\n"),
+    )),
     # the hash instantiations held to 3 blocks a SM (at most 85 registers)
     "lb3": (True, tuple((f, f"__launch_bounds__(kThreads)\n    {kern}(",
                          f"__launch_bounds__(kThreads, 3)\n    {kern}(")
@@ -439,7 +737,16 @@ KB4_EDITS = {
                             f"#pragma unroll {u}\n      for (int pl = base"),))
     for u in (1, 2, 8)
 }
-EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS}
+# the --api mode's edited copies of KR1 (rolling.cu): its blocks held to
+# 3 or 4 a SM (at most 85 or 64 registers a thread)
+KR1_EDITS = {
+    f"kr1-lb{b}": (True, (("rolling.cu",
+                           "__launch_bounds__(kThreads)\n    cyclic_kernel(",
+                           f"__launch_bounds__(kThreads, {b})\n"
+                           "    cyclic_kernel("),))
+    for b in (3, 4)
+}
+EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS}
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
@@ -675,6 +982,43 @@ def hash_cases(seq: bytes, dev, rng):
     return cases
 
 
+def fold_cases(nodes: str, nameid: str, genomes, dev, rng):
+    """(name, call, timer, entry point, slot rows) of KB5 on the -k 25 -t
+    phase-1 map of ``genomes`` built on the card (``prebuild
+    --device-build``'s; NAMEID maps their sequence names to taxids of
+    NODES): the folded keys of its -k 25 -w 37 -t phase-2 device build
+    (``chip_smoke.py`` phase 9c's), then 2^16 to 2^22 k-mers, half
+    stored."""
+    from ..core.spacer import Spacer
+    from ..db.table import ScoreMap, lookup_scores
+    from .bounds import probe_rows
+
+    tree = TaxTree.from_nodes_dmp(nodes)
+    p1 = bd.device_taxdepth_map(genomes, tree, nameid, Spacer(25, 25), True,
+                                device=dev)
+    smap = ScoreMap(p1)
+    arr = smap.arrays(dev)
+    states, tax, root1 = bd._device_gather(genomes, tree, nameid,
+                                           Spacer(25, 37), True, 1 << 22,
+                                           dev, "hash", smap)
+    st = bd._tree_fold(states, tax, root1)
+    folded = st.keys[: int(st.n)].clone()
+    del states, st
+    cases = [(f"lookup_scores the -k 25 -w 37 -t build's {folded.numel()} "
+              f"folded keys, the ec -k 25 -t map (2^{p1.lgnb} rows)",
+              lambda: [lookup_scores(folded, arr)], graph_ms,
+              "bk_lookup_scores", probe_rows(folded, arr)[1])]
+    for lg in (16, 18, 20, 21, 22):
+        q = torch.from_numpy(np.concatenate([
+            rng.choice(p1.keys_sorted, 1 << (lg - 1)),
+            rng.integers(0, 2**64, 1 << (lg - 1), dtype=np.uint64)]).view(
+                np.int64)).to(dev)
+        cases.append((f"lookup_scores 2^{lg} k-mers, half stored, the ec "
+                      "-k 25 -t map", lambda q=q: [lookup_scores(q, arr)],
+                      graph_ms, "bk_lookup_scores", probe_rows(q, arr)[1]))
+    return cases
+
+
 def build_cases(genome: str, nodes: str, dev):
     """(name, call, timer[, entry point[, slot rows]]) of KB1 at W = 1 and
     10 and at the seed disciplines' shapes, of KB4, the hash cases
@@ -807,7 +1151,7 @@ def api_cases(seq: bytes, dev):
     forward frame 0 as protein."""
     from ..core.alphabet import InputType, alphabet_of
     from ..core.encode import position_validity
-    from ..core.rolling import RollingEncoder
+    from ..core.rolling import KR1_TILE, RollingEncoder
     from ..core.spacer import Spacer
     from .synthetic import translate
 
@@ -849,11 +1193,19 @@ def api_cases(seq: bytes, dev):
                                           it=InputType.PROTEIN20),
          graph_ms, KB4),
     ]
-    for k, canon in ((31, True), (64, True), (200, False)):
+    for k, canon in ((31, True), (64, True), (200, False),
+                     (KR1_TILE + 1, False)):
         renc = RollingEncoder(k, canon)
         cases.append((f"cyclic_hashes k={k}{' canonical' if canon else ''}",
                       lambda renc=renc: renc.hashes(dna[0]), graph_ms,
                       "bk_cyclic_hashes"))
+    # kmercnt's chunk (sketch/shs.py MultiKCounter): one row of 2^20 bases
+    chunk = dna[0][:, : 1 << 20].contiguous()
+    for k in (17, 31):
+        renc = RollingEncoder(k, True)
+        cases.append((f"cyclic_hashes kmercnt chunk 2^20 bases k={k} "
+                      "canonical", lambda renc=renc: renc.hashes(chunk),
+                      graph_ms, "bk_cyclic_hashes"))
     # KB4's stream source at chip_smoke.py phase 9f's shape: the record's
     # k = 64 hash stream, w = 100 (W = 37)
     rec = row(seq)
@@ -1307,7 +1659,8 @@ USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
          "NODES [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--sketch PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--api PARENT_CSRC GENOME [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--hash PARENT_CSRC GENOME [EDIT...]\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--hash PARENT_CSRC GENOME [EDIT...] [--fold NODES NAMEID GENOME...]\n"
+         "       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--classify PARENT_CSRC READS NODES NAMEID GENOME...\n"
          "       python -m bonsai_tpu_torch.tools.kernel_ab --route "
          "PARENT_CSRC READS NODES NAMEID GENOME... [-e EDIT]...\n"
@@ -1323,11 +1676,15 @@ def main(argv=None) -> int:
     edits = [e for a, e in zip(args, args[1:]) if a == "-e"]
     if mode in ("--route", "--api", "") and edits:
         args = args[:args.index("-e")]
+    fold = []
+    if mode == "--hash" and "--fold" in args:
+        fold = args[args.index("--fold") + 1:]
+        args = args[:args.index("--fold")]
     for edit in (args[2:] if mode == "--hash" else edits):
         _edit_parts(edit)
     if ((mode in ("--classify", "--route") and len(args) < 5)
             or (mode in ("--sketch", "--api") and len(args) != 2)
-            or (mode == "--hash" and len(args) < 2)
+            or (mode == "--hash" and (len(args) < 2 or 0 < len(fold) < 3))
             or (not mode and len(args) != 3)):
         print(USAGE, file=sys.stderr)
         return 2
@@ -1354,10 +1711,17 @@ def main(argv=None) -> int:
     elif mode == "--hash":
         # the change is the tree's build of HASH_SOURCES, which holds every
         # entry point these cases call
-        libs = build_libs(args[0], HASH_SOURCES, args[2:], change=True)
+        # (--fold's build also runs KB2 and KB3)
+        libs = build_libs(args[0], HASH_SOURCES + (
+            ("sort_unique", "merge_fold") if fold else ()), args[2:],
+            change=True)
         kernels._lib = libs.pop("change")
         seq = next(iter(fastx.read_fastx(args[1])))[1]
-        res = run(libs, hash_cases(seq, dev, np.random.default_rng(SEED)))
+        rng = np.random.default_rng(SEED)
+        cases = hash_cases(seq, dev, rng)
+        if fold:
+            cases += fold_cases(fold[0], fold[1], fold[2:], dev, rng)
+        res = run(libs, cases)
     elif mode:
         seq = next(iter(fastx.read_fastx(args[1])))[1]
         cases = (sketch_cases if mode == "--sketch" else api_cases)(seq, dev)

@@ -93,9 +93,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  -k 25 -f, -C -k 25 -t, -k 21 -S 0x16,1x4 -t) built on the
                  card (digests = the JAX package's); KB5 lookup_scores and
                  KB1's and KB4's score::Hash instantiations against their
-                 plain versions on CPU copies, exact: 2^22 k-mers half
-                 present (0 and U64_MAX among them) on the -t map and on a
-                 flat image, 4M-base ec chunks at the builds' shapes
+                 plain versions on CPU copies, exact: 2^22, 2^16 and 1
+                 k-mers half present (0 and U64_MAX among them) on the -t
+                 map and on a flat image, 4M-base ec chunks at the builds'
+                 shapes
                  (-w 37 -t, -S -w 40 -t, -C -w 37 -t), rows with in-read
                  Ns, a poly-A run, rows shorter than k, P < W, rows phase 1
                  lacks, Ns at tile edges, k = 32 spaced with U64_MAX
@@ -109,7 +110,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  KB1 hash and spaced hash, KB4 hash launched; HiSeq
                  against the ec -k 25 -w 37 -t database (sha256 = the JAX
                  Classifier's); the four kernels and their plain versions
-                 timed by CUDA-graph replay at those shapes, with bounds,
+                 timed by CUDA-graph replay at those shapes (KB5 also at
+                 the -k 25 -w 37 -t build's folded keys), with bounds,
                  and each hash instantiation's slot rows a ms (G rows/s,
                  beside KB5's on the same kind of map) and blocks a SM
  9d. Python API  after phase 9c: the Shannon terms made on this host
@@ -130,9 +132,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  slices at those shapes, rows of every kind and alphabet
                  (Ns at tile edges, N runs longer than the span, all-N rows,
                  rows shorter than the span, 0 < n_valid < W tails, bytes
-                 past 127, a real U64_MAX), KR1 at k = 1, 63, 64, 65, 1000;
-                 then each timed by CUDA-graph replay at the K-12 shape (a
-                 protein frame for the radix rows), with its bound
+                 past 127, a real U64_MAX), KR1 at k = 1, 63, 64, 65,
+                 1000, 4096, 4097 and on kmercnt's chunk (K-12's first 2^20
+                 bases, k = 17 and 31 canonical); then each timed by
+                 CUDA-graph replay at the K-12 shape (a protein frame for
+                 the radix rows; KR1 also on kmercnt's chunk), with its
+                 bound
  9e. sketches    after phase 9d, the sketch front-ends through
                  bonsai_tpu_torch on the card, against the JAX package's
                  values: kmercnt's counts (MultiKCounter, KR1 and KS3) of
@@ -2579,10 +2584,11 @@ def hash_kernels(dev, chk, maps):
                                          dtype=np.uint64),
                             np.array([0, 2**64 - 1], np.uint64)])
         qt = torch.from_numpy(q.view(np.int64))
-        got = lookup_scores(qt.to(dev), smap.arrays(dev))
-        chk.same("lookup_scores", [got],
-                 [lookup_scores_plain(qt, smap.arrays("cpu"))],
-                 f"2^22 k-mers, half stored, {tag}")
+        for m in (q.size, 1 << 16, 1):
+            got = lookup_scores(qt[:m].to(dev), smap.arrays(dev))
+            chk.same("lookup_scores", [got],
+                     [lookup_scores_plain(qt[:m], smap.arrays("cpu"))],
+                     f"{m} k-mers, half stored, {tag}")
     # KB1, canonical: ec chunks, then rows of every kind against maps of
     # their own seeds (0 stored), inline and flat
     for smap, tag in ((td, "-k 25 -t map"), (flat, "flat image")):
@@ -2725,6 +2731,7 @@ def phase_hash(dev, chk, kk, hiseq):
         kh = keys.cpu().numpy().view(np.uint64)
         sh = scores.cpu().numpy().view(np.uint64)
         t3 = time.perf_counter()
+    folded = keys.clone()  # KB5 is timed at them below
     del states, st, keys, scores
     keys, vals = phase2_content(kh, p1, sh)
     t4 = time.perf_counter()
@@ -2858,6 +2865,12 @@ def phase_hash(dev, chk, kk, hiseq):
         "lookup_scores", "2^22 k-mers, half stored, the ec -k 25 -t map",
         lambda: lookup_scores(qt, arr), lambda: lookup_scores_plain(qt, arr),
         bounds["lookup_scores"], graph=True)
+    time_pair("lookup_scores", f"the ec {flags} build's {folded.numel()} "
+              "folded keys, its phase-1 map",
+              lambda: lookup_scores(folded, arr),
+              lambda: lookup_scores_plain(folded, arr),
+              bound_lookup_scores(folded, arr, lookup_scores(folded, arr)),
+              graph=True)
     del flat, maps
     return launches, times, bounds, nums
 
@@ -3057,6 +3070,18 @@ def api_kernels(dev, chk, k12, frames):
         short = codes[:2, :k].contiguous()  # P = 1
         chk.same("cyclic_hashes", renc.hashes(short.to(dev)),
                  renc.hashes(short), f"P = 1, k={k}")
+    # KR1's prefix scan past its tile (the span between its staged ranges
+    # read apart), and kmercnt's chunk: one row of 2^20 bases
+    for k in (rolling.KR1_TILE, rolling.KR1_TILE + 1):
+        codes = torch.from_numpy(_rolling_rows(rng, 2 * KB1_TILE + 37 + k))
+        renc = rolling.RollingEncoder(k, True)
+        chk.same("cyclic_hashes", renc.hashes(codes.to(dev)),
+                 renc.hashes(codes), f"rows k={k} canon=True")
+    c = torch.from_numpy(fastx.encode_contig(k12[: 1 << 20], DNA4.lut)[None])
+    for k in (17, 31):
+        renc = rolling.RollingEncoder(k, True)
+        chk.same("cyclic_hashes", renc.hashes(c.to(dev)), renc.hashes(c),
+                 f"kmercnt's chunk, K-12's first 2^20 bases k={k}")
     codes = torch.from_numpy(_rolling_rows(rng, 9000, 20))
     renc = rolling.RollingEncoder(21, n_chars=20)
     chk.same("cyclic_hashes", renc.hashes(codes.to(dev)), renc.hashes(codes),
@@ -3242,13 +3267,18 @@ def phase_api(dev, chk):
         lambda: rolling.cyclic_hashes_plain(dna[0], 31,
                                             *renc.tables(dev)),
         bounds["cyclic_hashes"], graph=True)
-    for k, canon in ((64, True), (200, False)):
+    chunk = dna[0][:, : 1 << 20].contiguous()  # kmercnt's chunk
+    for row, tag, k, canon in (
+        (dna[0], "K-12", 64, True), (dna[0], "K-12", 200, False),
+        (chunk, "kmercnt chunk 2^20 bases", 17, True),
+        (chunk, "kmercnt chunk 2^20 bases", 31, True),
+    ):
         r2 = rolling.RollingEncoder(k, canon)
-        time_pair("cyclic_hashes", f"K-12 k={k}{' canonical' if canon else ''}",
-                  lambda r2=r2: r2.hashes(dna[0]),
-                  lambda r2=r2, k=k: rolling.cyclic_hashes_plain(
-                      dna[0], k, *r2.tables(dev)),
-                  bound_cyclic_hashes(dna[0], r2.hashes(dna[0]), canon),
+        time_pair("cyclic_hashes", f"{tag} k={k}{' canonical' if canon else ''}",
+                  lambda r2=r2, row=row: r2.hashes(row),
+                  lambda r2=r2, k=k, row=row: rolling.cyclic_hashes_plain(
+                      row, k, *r2.tables(dev)),
+                  bound_cyclic_hashes(row, r2.hashes(row), canon),
                   graph=True)
     say(f"# api: timings in {time.perf_counter() - t0:.1f}s")
     return launches, times, bounds, bases / secs["-k 31 -w 40 entropy"] / 1e6

@@ -32,9 +32,12 @@ after selection or not, every other alphabet's fold in KB1 and KB4 under
 every score, KR1) the same rows with codes of each alphabet, DNA seeds of
 k = 1 and 32, of one code, of spans past 32, and palindromic and
 complement-heavy rows, bytes past 127, a fold of 66 bits to a real
-U64_MAX, and for KR1 k = 1 to 1000 on rows of two tiles, an all-N
-row, N runs longer than k, P = 1 and 20
-characters; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
+U64_MAX, and for KR1 k = 1 to 3 x its tile + 5 on rows of two tiles
+(P at the tile's edges, Ns at run, tile and halo edges), an all-N row, N
+runs longer than k, P = 1, 20 characters and kmercnt's 2^20-base row;
+for KB5 also 64 MiB images (inline and flat), every k-mer's first bucket
+in a quarter of the rows and the misses' second buckets outside it, and
+a CUDA-graph replay; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
 U64_MAX and bit 63 and nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
 20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
 runs past 65,535, keys with bit 63 set, E = 0 and 1, every key in one
@@ -1420,6 +1423,104 @@ def test_lookup_scores_kernel_matches_plain(cuda, mode):
           [want[:-3].view(400, 200)])
 
 
+def _large_map(rng, mode):
+    """A phase-1 map of random keys, 0 and U64_MAX in an image of 64 MiB:
+    2^21 rows inline, 2^20 flat (with its values; more keys than its
+    18-bit index field holds): the size that the sliced design of
+    ``tools/kernel_ab.py`` (``kb5-sliced``) cuts into 4 slices."""
+    lgnb = 21 if mode == "inline" else 20
+    keys = np.unique(np.concatenate([
+        rng.integers(0, 2**64, 200_000 if mode == "inline" else 400_000,
+                     dtype=np.uint64),
+        np.array([0, U64_MAX], np.uint64)]))
+    v = (np.arange(keys.size, dtype=np.uint64) if mode == "flat" else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    table = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v,
+                      min_nb=1 << lgnb)
+    assert table.lgnb == lgnb and table.arrays_np()[2] == (mode == "inline")
+    return ScoreMap(table)
+
+
+def _kb5_buckets(q, lgnb):
+    """The first and second buckets of u64 k-mers ``q``."""
+    from bonsai_tpu_torch.db.table import BSALT, splitmix64_np
+
+    h = splitmix64_np(q)
+    mask = np.uint64((1 << lgnb) - 1)
+    b1 = h & mask
+    return b1, b1 ^ (splitmix64_np((h >> np.uint64(lgnb)) ^ np.uint64(BSALT))
+                     & mask)
+
+
+def _kb5_same(cuda, smap, q):
+    """KB5 on u64 k-mers ``q`` equal to its plain version, one launch."""
+    qt = torch.from_numpy(q.view(np.int64))
+    want = smap.lookup_scores(qt)
+    before = lookup_scores.launches
+    got = lookup_scores(qt.to(cuda), smap.arrays(cuda))
+    assert lookup_scores.launches == before + 1
+    _same([got], [want])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+def test_lookup_scores_kernel_large_image(cuda, mode):
+    """A 64 MiB image: 2^(lgnb - 1) k-mers half stored, 0, U64_MAX and
+    repeats; every k-mer's first bucket in the image's first quarter and
+    every missing one's second bucket outside it; n = 1; a (rows, cols)
+    batch."""
+    rng = np.random.default_rng(71 + (mode == "flat"))
+    smap = _large_map(rng, mode)
+    lgnb = smap.table.lgnb
+    stored = smap.table.keys_sorted
+    nq = 1 << (lgnb - 1)
+    q = np.concatenate([rng.choice(stored, nq // 2),
+                        rng.integers(0, 2**64, nq // 2 - 5, dtype=np.uint64),
+                        np.array([0, U64_MAX, 1, 0, U64_MAX], np.uint64)])
+    want = _kb5_same(cuda, smap, q)
+    assert (want[-5:].numpy().view(np.uint64) != U64_MAX).sum() == 4
+    shift = np.uint64(lgnb - 2)
+    b1, _ = _kb5_buckets(stored, lgnb)
+    cand = rng.integers(0, 2**64, 4 * nq, dtype=np.uint64)
+    c1, c2 = _kb5_buckets(cand, lgnb)
+    lacking = cand[((c1 >> shift) == 0) & ((c2 >> shift) != 0)]
+    want = _kb5_same(cuda, smap, np.concatenate([stored[(b1 >> shift) == 0],
+                                                 lacking]))
+    assert (want[-lacking.size:].numpy().view(np.uint64) == U64_MAX).all()
+    _kb5_same(cuda, smap, stored[:1])
+    qt = torch.from_numpy(q[: (q.size // 64) * 64].view(np.int64))
+    got = lookup_scores(qt.view(-1, 64).to(cuda), smap.arrays(cuda))
+    _same([got], [smap.lookup_scores(qt).view(-1, 64)])
+
+
+@pytest.mark.cuda
+def test_lookup_scores_kernel_in_a_cuda_graph(cuda):
+    """KB5 captured in a CUDA graph, as ``chip_smoke.py`` and
+    ``kernel_ab`` time it, and replayed: equal to the eager call, twice."""
+    rng = np.random.default_rng(75)
+    smap = _large_map(rng, "inline")
+    arr = smap.arrays(cuda)
+    n = 1 << (smap.table.lgnb - 1)
+    q = np.concatenate([rng.choice(smap.table.keys_sorted, n // 2),
+                        rng.integers(0, 2**64, n // 2, dtype=np.uint64)])
+    qt = torch.from_numpy(q.view(np.int64)).to(cuda)
+    eager = lookup_scores(qt, arr)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        lookup_scores(qt, arr)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lookup_scores(qt, arr)
+    for _ in range(2):
+        out.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize(cuda)
+        assert torch.equal(out, eager)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["inline", "flat"])
 @pytest.mark.parametrize("W", [2, 13, 16])
@@ -1919,6 +2020,49 @@ def test_cyclic_hashes_kernel_matches_plain(cuda, k, mode):
           renc.hashes(c[:2, :k + 40].contiguous()))
     _same(renc.hashes(c[:2, :k].contiguous().to(cuda)),
           renc.hashes(c[:2, :k].contiguous()))
+
+
+KR1_RUN, KR1_TILE = rolling.KR1_RUN, rolling.KR1_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, KR1_TILE - 1, KR1_TILE, KR1_TILE + 1,
+                               3 * KR1_TILE + 5])
+@pytest.mark.parametrize("mode", ["forward", "canon"])
+def test_cyclic_hashes_kernel_tile_edges(cuda, k, mode):
+    """KR1's prefix scan at k within, at and past its tile (the span
+    between its staged ranges read apart), three rows whose windows end
+    inside, at and past a tile, Ns at run, tile and halo edges."""
+    rng = np.random.default_rng(k * 5 + len(mode))
+    renc = rolling.RollingEncoder(k, mode == "canon")
+    for P in (1, KR1_TILE - 1, KR1_TILE, KR1_TILE + 1,
+              2 * KR1_TILE + KR1_RUN + 3):
+        L = P + k - 1
+        codes = rng.integers(0, 4, (3, L)).astype(np.int8)
+        codes[rng.random(codes.shape) < 0.01] = -1
+        for p in (0, KR1_RUN - 1, KR1_RUN, KR1_TILE - 1, KR1_TILE,
+                  KR1_TILE + KR1_RUN, k - 1, k, KR1_TILE + k - 1,
+                  KR1_TILE + k):
+            if p < L:
+                codes[1, p] = -1
+        codes[2] = 3
+        c = torch.from_numpy(codes)
+        _same(renc.hashes(c.to(cuda)), renc.hashes(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [17, 31])
+def test_cyclic_hashes_kernel_kmercnt_row(cuda, k):
+    """kmercnt's chunk (sketch/shs.py MultiKCounter): one row of 2^20
+    bases, canonical."""
+    rng = np.random.default_rng(k + 1000)
+    codes = rng.integers(0, 4, (1, 1 << 20)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.001] = -1
+    renc = rolling.RollingEncoder(k, True)
+    c = torch.from_numpy(codes)
+    before = rolling.cyclic_hashes.launches
+    _same(renc.hashes(c.to(cuda)), renc.hashes(c))
+    assert rolling.cyclic_hashes.launches == before + 1
 
 
 @pytest.mark.cuda
