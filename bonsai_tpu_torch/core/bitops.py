@@ -40,12 +40,16 @@ def i64(c: int) -> int:
 
 def as_keys(values, device) -> torch.Tensor:
     """u64 values (numpy, a sequence or an int64 tensor) as a contiguous
-    int64 tensor on ``device``."""
+    int64 tensor on ``device``.  A writable contiguous array is shared, not
+    copied; a read-only one (``np.frombuffer``) is copied, since
+    ``torch.from_numpy`` warns on it."""
     if isinstance(values, torch.Tensor):
         if values.dtype != torch.int64:
             raise TypeError(f"values: dtype {values.dtype}, expected int64")
         return values.reshape(-1).contiguous().to(device)
     a = np.ascontiguousarray(np.asarray(values, dtype=np.uint64).ravel())
+    if not a.flags.writeable:
+        a = a.copy()
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 

@@ -19,7 +19,8 @@
 // dozen).  A shift of a u64 by 64 is undefined in C++, so the rotate by
 // r = 0 returns the value as it is.  A thread takes 4 values of a
 // grid-stride loop, so loads are coalesced and a block has several in
-// flight.  The owner's product wraps mod 2^64 as the u64 one does; below
+// flight (nuccount: a lane pair 4 k-mers, a lane a 16-B half of each
+// row).  The owner's product wraps mod 2^64 as the u64 one does; below
 // ndb = 2^32 it never wraps.
 //
 // Its key-range mode (entry bk_key_range) is the rank filter of the
@@ -111,25 +112,42 @@ __global__ void __launch_bounds__(kThreads)
 
 // Counts of codes A, C, G, T (0..3) among the k 2-bit codes of each
 // k-mer (bitops.nuccount): code c matches where both bits of x ^ cmp[c]
-// are set, counted with one popcount a code.
+// are set, counted with one popcount a code.  Two lanes a k-mer: the even
+// lane counts A and C, the odd one G and T, and each writes its 16-B half
+// of the k-mer's 32-B row, so that one warp store covers 512 contiguous
+// bytes (16 rows) in whole sectors.  Both lanes load the k-mer (one 128-B
+// request a warp); kPer k-mers of a lane pair are loaded before any is
+// counted.  The rows are written once and not read again here: streaming
+// stores (__stcs), measured 0.2-1.7% faster on an H100 (PERF.md row 18).
 __global__ void __launch_bounds__(kThreads)
     nuccount(const uint64_t* __restrict__ in, int64_t n, uint64_t mask,
              int64_t* __restrict__ out) {
-  const uint64_t cmp[4] = {~0ull, 0xAAAAAAAAAAAAAAAAull,
-                           0x5555555555555555ull, 0ull};
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const uint64_t x = in[i];
-    int64_t c[4];
+  constexpr int kRows = kThreads / 2;  // k-mers a block a step
+  constexpr int kPer = kPerThread;     // k-mers a lane pair a turn
+  const int half = threadIdx.x & 1;
+  const uint64_t c0 = half ? 0x5555555555555555ull : ~0ull;  // G : A
+  const uint64_t c1 = half ? 0ull : 0xAAAAAAAAAAAAAAAAull;   // T : C
+  const int64_t stride = (int64_t)gridDim.x * kRows * kPer;
+  for (int64_t base = (int64_t)blockIdx.x * kRows * kPer +
+                      (threadIdx.x >> 1);
+       base < n; base += stride) {
+    uint64_t v[kPer];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const uint64_t x0 = x ^ cmp[b];
-      c[b] = __popcll(x0 & ((x0 >> 1) & 0x5555555555555555ull) & mask);
+    for (int r = 0; r < kPer; ++r) {
+      const int64_t i = base + (int64_t)r * kRows;
+      v[r] = i < n ? in[i] : 0;
     }
-    longlong2* o = (longlong2*)(out + 4 * i);  // 32-B aligned rows
-    o[0] = make_longlong2(c[0], c[1]);
-    o[1] = make_longlong2(c[2], c[3]);
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int64_t i = base + (int64_t)r * kRows;
+      if (i < n) {
+        const uint64_t x0 = v[r] ^ c0, x1 = v[r] ^ c1;
+        const longlong2 c = make_longlong2(
+            __popcll(x0 & ((x0 >> 1) & 0x5555555555555555ull) & mask),
+            __popcll(x1 & ((x1 >> 1) & 0x5555555555555555ull) & mask));
+        __stcs((longlong2*)(out + 4 * i) + half, c);  // 32-B aligned rows
+      }
+    }
   }
 }
 
@@ -227,7 +245,7 @@ extern "C" int bk_nuccount(const void* kmers, int64_t n, uint64_t mask,
                            void* out, void* stream) {
   if (n < 0 || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  nuccount<<<grid(n, 1), kThreads, 0, (cudaStream_t)stream>>>(
+  nuccount<<<grid(n, kPerThread / 2), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)kmers, n, mask, (int64_t*)out);
   return (int)cudaGetLastError();
 }

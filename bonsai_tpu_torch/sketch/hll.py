@@ -28,7 +28,8 @@ from ..core.bitops import as_keys, shr
 from ..core.hashes import wang_hash_plain
 from ..db.build_device import as_device
 
-MAX_SHARED_P = 16  # KS1 keeps a block's registers in shared memory up to here
+MAX_SHARED_P = 15  # KS1 keeps a u32 copy a block in shared memory up to here
+GLOBAL_BELOW = 32  # from GLOBAL_BELOW x 2^p keys (csrc/hll.cu kGlobalBelow)
 
 
 def _bitlen(w: torch.Tensor) -> torch.Tensor:
@@ -59,9 +60,10 @@ def hll_fill_plain(keys: torch.Tensor, regs: torch.Tensor, p: int,
 def hll_fill(keys: torch.Tensor, regs: torch.Tensor, p: int,
              wang: bool) -> None:
     """KS1 (``csrc/hll.cu``): see ``hll_fill_plain``, which serves CPU
-    tensors.  The kernel keeps a block's registers in shared memory for
-    p <= MAX_SHARED_P and takes atomics on the card's registers past
-    that."""
+    tensors.  For p <= MAX_SHARED_P and at least GLOBAL_BELOW x 2^p keys,
+    each block raises a u32 copy of the registers in shared memory and
+    flushes it; otherwise atomics on the card's registers.  ``keys`` may
+    start at any 8-B offset (a slice)."""
     if keys.device.type == "cpu":
         return hll_fill_plain(keys, regs, p, wang)
     if keys.device.type != "cuda":
@@ -71,6 +73,9 @@ def hll_fill(keys: torch.Tensor, regs: torch.Tensor, p: int,
     dev = keys.device
     kernels.check(keys, "keys", torch.int64, dev, (keys.numel(),))
     kernels.check(regs, "regs", torch.int32, dev, (1 << p,))
+    if regs.data_ptr() % 16:
+        raise ValueError("regs: the kernel flushes 16-B words, so it takes "
+                         "16-B aligned registers")
     if keys.numel():
         kernels.launch("bk_hll_fill", dev, keys.data_ptr(), keys.numel(), p,
                        int(wang), regs.data_ptr())

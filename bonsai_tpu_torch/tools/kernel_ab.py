@@ -32,20 +32,30 @@ and on the forward frame 0 of GENOME's first record as protein
 its tile), and at kmercnt's chunk, the first 2^20 bases, at k = 17 and
 31 canonical.  Then the
 sketch kernels at the shapes of ``chip_smoke.py``'s phase 9e on GENOME's
-first record: KS1 (p = 14, wang_hash) and KS4 (wang_hash, nuccount) on
-its canonical 31-mers, KS2 (m = 4096, -S -s and default, a new sketch a
-call and a full one, the sketch of the same stream) on the same stream,
-KS3 on its k = 31 rolling-hash stream, and KB2 on its first 4M windows'
-k = 31 W = 1 minimizers (the build's chunk).  KB1, KB4, KB5, KR1, KS1 and
-KS4 are timed by replaying a CUDA graph of 100 captured calls between two
-events (``gather_bench.graph_ms``), KB3, KB2 and KS3 (whose wrappers read
-the distinct count) and KS2 by CUDA events around 100 back-to-back
-calls.  A case whose
+first record: KS1 (hashed, a new sketch a call, at p = 14, 16, 17, 20, 12
+and 15, and its first 4, 16 and 64 x 2^p at p = 8, 12 and 14) and KS4
+(wang_hash, nuccount, nuccount at an 8-B offset; KS5 at ndb = 4 and the
+key-range mode as its controls) on its canonical 31-mers, KS1 at
+errexp's sets (2^16 keys at p = 12, 2^12 at p = 8) and a GenomeChunker
+chunk (2^20 31-mers, p = 16), KS2 (m = 4096, -S -s and default, a new
+sketch a call and a full one, the sketch of the same stream) on the same
+stream, KS3 on its k = 31 rolling-hash stream, and KB2 on its first 4M
+windows' k = 31 W = 1 minimizers (the build's chunk); then, as a
+yardstick of KS1's register raise alone, torch's ``scatter_reduce_``
+(amax) of the precomputed index and rho at p = 14 and 16.  KB1, KB4, KB5,
+KR1, KS1, KS4 and KS5 are timed by replaying a CUDA graph of 100
+captured calls between two events (``gather_bench.graph_ms``), KB3, KB2
+and KS3 (whose wrappers read the distinct count) and KS2 by CUDA events
+around 100 back-to-back calls.  A case whose
 entry point the parent's library lacks is skipped, and says so.  With
-``--sketch`` only these sketch cases and KB2 run, with ``--api`` only the
-Python API's cases (KB1, KB4 and KR1 above):
+``--sketch`` only these sketch cases and KB2 run (``-k NAME``: only the
+cases whose name holds a NAME; only their sources are built; each ``-e
+EDIT`` an edited copy of PARENT_CSRC, ``SKETCH_EDITS``, timed in the same
+turns), with ``--api``
+only the Python API's cases (KB1, KB4 and KR1 above):
 
-    python -m bonsai_tpu_torch.tools.kernel_ab --sketch PARENT_CSRC GENOME
+    python -m bonsai_tpu_torch.tools.kernel_ab --sketch PARENT_CSRC GENOME \\
+        [-k NAME] [-e EDIT]...
     python -m bonsai_tpu_torch.tools.kernel_ab --api PARENT_CSRC GENOME
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
@@ -175,6 +185,12 @@ BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
                  "lookup_scores", "rolling", "sort_unique", "hll", "setsketch",
                  "bitmix")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
+# the source of each --sketch case's entry point
+SKETCH_SOURCES = {
+    "bk_hll_fill": "hll", "bk_csetsketch_update": "setsketch",
+    "bk_sort_count": "sort_unique", "bk_sort_unique": "sort_unique",
+    "bk_bitmix": "bitmix", "bk_shard_owner": "bitmix",
+    "bk_key_range": "bitmix", "bk_nuccount": "bitmix"}
 ROUTE_SOURCES = ("route",)
 HASH_SOURCES = ("minimizers", "compacted_minimizers", "lookup_scores")
 CLASSIFY_BATCH = 8192
@@ -746,7 +762,131 @@ KR1_EDITS = {
                            "    cyclic_kernel("),))
     for b in (3, 4)
 }
-EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS}
+# --sketch's thread-block-cluster design of KS1 (the edit ks1-c8, measured
+# and not kept: PERF.md row 21): a cluster of 8 blocks (sm_90) splits one
+# u32 copy of the registers, a block's slice 2^(p - 3) in its shared
+# memory; a key's raise is an atomicMax on its register's block through
+# distributed shared memory (map_shared_rank); the cluster syncs after the
+# zeroing and before each block flushes its own slice.  As many clusters
+# as the card holds at once (cudaOccupancyMaxActiveClusters), fewer where
+# n < 2^p x that; for 5 <= p <= 18 and n >= kGlobalBelow x 2^p, launched
+# with cudaLaunchKernelEx and a cluster dimension, before the tree's paths.
+CLUSTER_KS1 = r"""namespace cg = cooperative_groups;
+
+template <bool kWang>
+__global__ void __launch_bounds__(kSharedThreads)
+    hll_fill_cluster(const uint64_t* __restrict__ keys, int64_t n, int p,
+                     uint32_t* __restrict__ regs) {
+  extern __shared__ uint4 s4[];
+  uint32_t* s = (uint32_t*)s4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int slice_bits = p - 3, words = 1 << (slice_bits - 2);
+  for (int i = threadIdx.x; i < words; i += kSharedThreads)
+    s4[i] = make_uint4(0, 0, 0, 0);
+  cluster.sync();
+  for_each_key<kSharedThreads, kPairs>(keys, n, [&](uint64_t key) {
+    uint32_t idx, rho;
+    index_rho<kWang>(key, p, &idx, &rho);
+    atomicMax(cluster.map_shared_rank(
+                  s + (idx & ((1u << slice_bits) - 1)), idx >> slice_bits),
+              rho);
+  });
+  cluster.sync();
+  uint32_t* mine = regs + ((size_t)cluster.block_rank() << slice_bits);
+  const uint4* g4 = (const uint4*)mine;
+  for (int i = threadIdx.x; i < words; i += kSharedThreads) {
+    const uint4 v = s4[i];
+    if (v.x | v.y | v.z | v.w) raise4(mine + 4 * i, v, __ldcg(g4 + i));
+  }
+}
+
+// -1 where the design does not take p or n, else the CUDA error
+template <bool kWang>
+int fill_cluster(const uint64_t* keys, int64_t n, int p, uint32_t* regs,
+                 cudaStream_t s) {
+  constexpr int kCluster = 8;
+  if (p < 5 || p > 18 || n < ((int64_t)kGlobalBelow << p)) return -1;
+  const auto kernel = hll_fill_cluster<kWang>;
+  // host calls once (a p), made before any graph captures a launch
+  static bool ready;
+  static int active[19];
+  cudaError_t e = cudaSuccess;
+  if (!ready) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 4 << 15);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kSharedThreads);
+  cfg.dynamicSmemBytes = (size_t)4 << (p - 3);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!active[p]) {
+    e = cudaOccupancyMaxActiveClusters(&active[p], kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (active[p] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int64_t copies = (n + (1ll << p) - 1) >> p;
+  cfg.gridDim = dim3((unsigned)((copies < active[p] ? copies : active[p]) *
+                                kCluster));
+  return (int)cudaLaunchKernelEx(&cfg, kernel, keys, n, p, regs);
+}
+
+"""
+# the --sketch mode's edited copies.  Of a parent's KS1 that raises byte
+# registers by compare-and-swap, a block a ~2 x 2^p keys:
+# ks1-grid, a grid from the card (4 blocks of 512 a SM).  Of the tree's
+# KS1 (hll.cu): ks1-c8, the thread-block-cluster design (CLUSTER_KS1);
+# the shared path's blocks of 512 threads, its registers capped for 2
+# blocks a SM (ks1-lb2); the global path's 1 key pair a thread a turn,
+# blocks of 512, 16 blocks a SM; the size switch (ks1-global: the global
+# path at every n; ks1-shared: a copy a block wherever it fits).  Of the
+# tree's KS4 nuccount (bitmix.cu): plain stores in place of streaming ones
+# (ks4-st), 2 or 8 k-mers a lane pair.
+SKETCH_EDITS = {
+    "ks1-grid": (True, (("hll.cu",
+                         "int64_t g = (n + 2 * m - 1) / (2 * m);",
+                         "int64_t g = sms * 4;"),)),
+    "ks1-c8": (True, (
+        ("hll.cu", "#include <cstdint>\n",
+         "#include <cooperative_groups.h>\n#include <cstdint>\n"),
+        ("hll.cu", "}  // namespace\n", CLUSTER_KS1 + "}  // namespace\n"),
+        ("hll.cu", "  return (int)(wang ? fill<true>(k, n, p, r, s) : "
+         "fill<false>(k, n, p, r, s));\n",
+         "  const int cl = wang ? fill_cluster<true>(k, n, p, r, s)\n"
+         "                      : fill_cluster<false>(k, n, p, r, s);\n"
+         "  if (cl >= 0) return cl;\n"
+         "  return (int)(wang ? fill<true>(k, n, p, r, s) : "
+         "fill<false>(k, n, p, r, s));\n"),
+    )),
+    "ks1-st512": (True, (("hll.cu", "kSharedThreads = 1024;",
+                          "kSharedThreads = 512;"),)),
+    "ks1-lb2": (True, (("hll.cu", "__launch_bounds__(kSharedThreads)",
+                        "__launch_bounds__(kSharedThreads, 2)"),)),
+    "ks1-gp1": (True, (("hll.cu", "kGlobalPairs = 2;", "kGlobalPairs = 1;"),)),
+    "ks1-gt512": (True, (("hll.cu", "kThreads = 256;", "kThreads = 512;"),)),
+    "ks1-gb16": (True, (("hll.cu", "kGlobalBlocksPerSm = 8;",
+                         "kGlobalBlocksPerSm = 16;"),)),
+    "ks1-global": (True, (("hll.cu", "kGlobalBelow = 32;",
+                           "kGlobalBelow = 1 << 30;"),)),
+    "ks1-shared": (True, (("hll.cu", "kGlobalBelow = 32;",
+                           "kGlobalBelow = 0;"),)),
+    "ks4-st": (True, (("bitmix.cu",
+                       "__stcs((longlong2*)(out + 4 * i) + half, c);",
+                       "*((longlong2*)(out + 4 * i) + half) = c;"),)),
+    **{f"ks4-u{u}": (True, (("bitmix.cu", "constexpr int kPer = kPerThread;",
+                             f"constexpr int kPer = {u};"),)) for u in (2, 8)},
+}
+EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS,
+         **SKETCH_EDITS}
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
@@ -1072,16 +1212,32 @@ def build_cases(genome: str, nodes: str, dev):
     return cases + api_cases(seq, dev) + sketch_cases(seq, dev)
 
 
+def _errexp_keys(n: int, dev):
+    """errexp's first set of ``n`` keys (cli.py errexp: numpy's integers
+    below 2^62 from seed 0), as ``addh`` uploads them."""
+    from ..core.bitops import as_keys
+
+    rng = np.random.default_rng(0)
+    return as_keys(rng.integers(0, 1 << 62, 2 * n, dtype=np.uint64)[:n], dev)
+
+
 def sketch_cases(seq: bytes, dev):
     """(name, call, timer, entry point) of KS1-KS4 at chip_smoke.py's phase
     9e shapes on ``seq`` (one genome's first record): its canonical
-    31-mers (KB1's emissions) for KS1 (p = 14, hashed), KS2 (m = 4096, -S
-    -s and default, a new sketch a call and a full one: the sketch of the
-    same stream, restored before each call) and KS4, its k = 31
-    rolling-hash stream for KS3; then KB2 on the k = 31 W = 1 minimizers
-    of its first 4M windows (the build's chunk)."""
+    31-mers (KB1's emissions) for KS1 (hashed, a new sketch a call: the
+    registers' memset and the fill; p = 14 as distmat --hll 14, 16, 17,
+    20, 12 and 15, and the first 4, 16 and 64 x 2^p at p = 8, 12 and 14),
+    KS2 (m = 4096, -S -s and default, a new sketch a call and a full
+    one: the sketch of the same stream, restored before each call) and
+    KS4 (nuccount also on the slice at an 8-B offset), KS5 at ndb = 4 and
+    the key-range mode on them (KS4's controls); KS1 at errexp's sets
+    (2^16 keys at p = 12, 2^12 at p = 8) and at a GenomeChunker chunk
+    (the first 2^20 31-mers, p = 16); its k = 31 rolling-hash stream for
+    KS3; then KB2 on the k = 31 W = 1 minimizers of its first 4M windows
+    (the build's chunk)."""
     from ..core import bitops, hashes
     from ..core.rolling import RollingEncoder
+    from ..db.table import shard_owner
     from ..sketch import hll
     from ..sketch.setsketch import CSetSketch
     from ..sketch.shs import sort_count
@@ -1093,18 +1249,23 @@ def sketch_cases(seq: bytes, dev):
     kmers = em.values[0][em.mask[0]]
     vals, invalid = RollingEncoder(31).hashes(codes)
     hv, hok = vals[0], ~invalid[0]
-    regs = torch.zeros(1 << 14, dtype=torch.int32, device=dev)
     span = (1 << 22) + 30
     em4 = enc.minimizers(codes[:, :span],
                          torch.tensor([min(span, codes.shape[1])],
                                       dtype=torch.int32, device=dev), 31, 1,
                          True)
     k4, m4 = em4.values[0], em4.mask[0]
+    pad = (kmers & 7 == 0).to(torch.uint8)
+    lo, hi = 1 << 61, 3 << 61
 
-    def fill():
-        regs.zero_()
-        hll.hll_fill(kmers, regs, 14, True)
-        return [regs]
+    def fill(keys, p):
+        regs = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+
+        def call():
+            regs.zero_()
+            hll.hll_fill(keys, regs, p, True)
+            return [regs]
+        return call
 
     def sketch(save):
         s = CSetSketch(4096, save, save, device=dev)
@@ -1124,8 +1285,22 @@ def sketch_cases(seq: bytes, dev):
             return [p.clone() for p in parts]
         return call
 
-    return [
-        ("hll_fill p=14 wang_hash", fill, graph_ms, "bk_hll_fill"),
+    ks1 = [(f"hll_fill p={p} wang_hash", fill(kmers, p), graph_ms,
+            "bk_hll_fill") for p in (14, 16, 17, 20, 12, 15)]
+    # n = 4, 16 and 64 x 2^p: the two paths' crossover (kGlobalBelow)
+    ks1 += [(f"hll_fill 2^{b} keys p={p} wang_hash",
+             fill(kmers[: 1 << b].clone(), p), graph_ms, "bk_hll_fill")
+            for p, b in ((8, 10), (8, 14), (12, 14), (12, 18), (14, 16),
+                         (14, 18), (14, 20))]
+    ks1 += [
+        ("hll_fill errexp 2^16 keys p=12 wang_hash",
+         fill(_errexp_keys(1 << 16, dev), 12), graph_ms, "bk_hll_fill"),
+        ("hll_fill errexp 2^12 keys p=8 wang_hash",
+         fill(_errexp_keys(1 << 12, dev), 8), graph_ms, "bk_hll_fill"),
+        ("hll_fill GenomeChunker 2^20 keys p=16 wang_hash",
+         fill(kmers[: 1 << 20].clone(), 16), graph_ms, "bk_hll_fill"),
+    ]
+    return ks1 + [
         ("csetsketch_update m=4096 -S -s", lambda: sketch(True), time_ms,
          "bk_csetsketch_update"),
         ("csetsketch_update m=4096 -S -s, full sketch", full(True), time_ms,
@@ -1140,9 +1315,47 @@ def sketch_cases(seq: bytes, dev):
          time_ms, "bk_sort_unique"),
         ("bitmix wang_hash", lambda: [hashes.wang_hash(kmers)], graph_ms,
          "bk_bitmix"),
+        ("shard_owner ndb=4", lambda: [shard_owner(kmers, 4)], graph_ms,
+         "bk_shard_owner"),
+        ("key_range", lambda: [bd.key_range(kmers, pad, lo, hi, False)],
+         graph_ms, "bk_key_range"),
         ("nuccount k=31", lambda: [bitops.nuccount(kmers, 31)], graph_ms,
          "bk_nuccount"),
+        ("nuccount k=31, 8-B offset", lambda: [bitops.nuccount(kmers[1:], 31)],
+         graph_ms, "bk_nuccount"),
     ]
+
+
+def hll_yardstick(seq: bytes, dev, say=print) -> dict:
+    """The register raise alone through torch, as a yardstick of KS1 (not
+    its library call: it leaves out the hash, the index and rho): the
+    registers' memset and ``scatter_reduce_(amax)`` of K-12's canonical
+    31-mers' precomputed index and rho, at p = 14 and 16, graph replay."""
+    from ..core.bitops import shr
+    from ..core.hashes import wang_hash
+    from ..sketch.hll import _bitlen
+
+    codes = torch.from_numpy(fastx.encode_contig(seq, DNA4.lut)[None, :]).to(
+        dev)
+    ln = torch.tensor([codes.shape[1]], dtype=torch.int32, device=dev)
+    em = enc.minimizers(codes, ln, 31, 1, True)
+    h = wang_hash(em.values[0][em.mask[0]])
+    out = {}
+    for p in (14, 16):
+        q = 64 - p
+        idx, w = shr(h, q), h << p
+        rho = torch.where(w == 0, q + 1, 65 - _bitlen(w)).to(torch.int32)
+        regs = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+
+        def call(regs=regs, idx=idx, rho=rho):
+            regs.zero_()
+            regs.scatter_reduce_(0, idx, rho, reduce="amax")
+
+        out[f"p={p}"] = [graph_ms(call, ITERS) for _ in range(2)]
+    say(f"# yardstick (not a library call of KS1): memset + scatter_reduce_ "
+        f"amax of {h.numel()} precomputed (index, rho), graph replay, ms: "
+        f"{out}")
+    return out
 
 
 def api_cases(seq: bytes, dev):
@@ -1657,7 +1870,7 @@ def build_libs(parent_csrc: str, names, edits, change=False,
 
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
          "NODES [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--sketch PARENT_CSRC GENOME\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--sketch PARENT_CSRC GENOME [-k NAME] [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--api PARENT_CSRC GENOME [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--hash PARENT_CSRC GENOME [EDIT...] [--fold NODES NAMEID GENOME...]\n"
          "       python -m bonsai_tpu_torch.tools.kernel_ab "
@@ -1674,7 +1887,10 @@ def main(argv=None) -> int:
     if mode:
         args = args[1:]
     edits = [e for a, e in zip(args, args[1:]) if a == "-e"]
-    if mode in ("--route", "--api", "") and edits:
+    only = [e for a, e in zip(args, args[1:]) if a == "-k"]
+    while mode == "--sketch" and "-k" in args:
+        args = args[:args.index("-k")] + args[args.index("-k") + 2:]
+    if mode in ("--route", "--api", "--sketch", "") and edits:
         args = args[:args.index("-e")]
     fold = []
     if mode == "--hash" and "--fold" in args:
@@ -1725,7 +1941,13 @@ def main(argv=None) -> int:
     elif mode:
         seq = next(iter(fastx.read_fastx(args[1])))[1]
         cases = (sketch_cases if mode == "--sketch" else api_cases)(seq, dev)
-        res = run(build_libs(args[0], BUILD_SOURCES, edits), cases)
+        if only:
+            cases = [c for c in cases if any(o in c[0] for o in only)]
+        names = (sorted({SKETCH_SOURCES[c[3]] for c in cases})
+                 if mode == "--sketch" else BUILD_SOURCES)
+        res = run(build_libs(args[0], names, edits), cases)
+        if mode == "--sketch" and any("hll" in c[0] for c in cases):
+            res["hll_yardstick_ms"] = hll_yardstick(seq, dev)
     else:
         res = run(build_libs(args[0], BUILD_SOURCES, edits),
                   build_cases(*args[1:], dev))

@@ -158,15 +158,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                  31-mers (sha256 = the JAX package's); KS1-KS4, each KS4
                  mode, launched; then each against its plain version on CPU
                  copies (exact, but KS2's registers within 2 ulp, the count
-                 that differ printed): KS1 at p = 4, 14, 16, 17, 20 on both
-                 paths with keys whose h << p is 0 and U64_MAX, KS2 at m =
+                 that differ printed): KS1 on the K-12 31-mers at p = 14
+                 and 16, errexp's sets (2^12 and 2^16 keys) at p = 8 and
+                 12, and at p = 4, 14, 16, 17, 20 on both paths (a copy a
+                 block in shared memory, global atomics) with keys whose
+                 h << p is 0 and U64_MAX, nuccount also at an 8-B
+                 offset, KS2 at m =
                  1, 64, 4096 in each mode on an empty update, one element,
                  copies across chunks and all copies of one k-mer over a
                  chunk of 2^16 + 1, and on the K-12 stream, KS3 with runs
                  past 65,535, bit 63 set, E = 0 and 1, KS4 at k = 1, 31, 32,
                  its inverse mixes on the edges and through round trips,
                  its rotate at r = 0, 1, 31, 32, 63 (lrot 64, rrot 65);
-                 then each timed at the K-12 shape with its bound, KS3
+                 then each timed at the K-12 shape with its bound (KS1
+                 at p = 14 and 16, nuccount also at an 8-B offset), KS3
                  beside torch.unique(return_counts=True)
  9f. formats     after phase 9e, the database formats and the encoders'
                  tail through bonsai_tpu_torch on the card, against the
@@ -3685,14 +3690,28 @@ def sketch_kernels(dev, chk, km):
             bitops.kmer_mask_bits(k))
         chk.same("nuccount", [bitops.nuccount(x.to(dev), k)],
                  [bitops.nuccount_plain(x, k)], f"k={k}")
-    # KS1: the K-12 31-mers at p = 14 hashed (distmat --hll 14), then
-    # p = 4, 14, 16 (shared-memory path) and 17, 20 (global atomics) over a
-    # slice with the edge keys
-    regs = torch.zeros(1 << 14, dtype=torch.int32)
-    dregs = regs.to(dev)
-    hll.hll_fill(km, dregs, 14, True)
-    hll.hll_fill_plain(kc, regs, 14, True)
-    chk.same("hll_fill", [dregs], [regs], "K-12 p=14")
+        chk.same("nuccount", [bitops.nuccount(x.to(dev)[1:], k)],
+                 [bitops.nuccount_plain(x[1:], k)], f"k={k}, 8-B offset")
+    # KS1: the K-12 31-mers hashed at p = 14 (distmat --hll 14) and 16
+    # (GenomeChunker's p), errexp's sets (2^12 and 2^16 keys, cli.py errexp)
+    # at p = 8 and 12, then p = 4, 14 (a copy a block in shared memory)
+    # and 16, 17, 20 (global atomics) over a slice with the edge keys
+    for p in (14, 16):
+        regs = torch.zeros(1 << p, dtype=torch.int32)
+        dregs = regs.to(dev)
+        hll.hll_fill(km, dregs, p, True)
+        hll.hll_fill_plain(kc, regs, p, True)
+        chk.same("hll_fill", [dregs], [regs], f"K-12 p={p}")
+    base = np.random.default_rng(0).integers(0, 1 << 62, 2 << 16,
+                                             dtype=np.uint64)
+    for n in (1 << 12, 1 << 16):
+        for p in (8, 12):
+            x = torch.from_numpy(base[:n].view(np.int64))
+            regs = torch.zeros(1 << p, dtype=torch.int32)
+            dregs = regs.to(dev)
+            hll.hll_fill(x.to(dev), dregs, p, True)
+            hll.hll_fill_plain(x, regs, p, True)
+            chk.same("hll_fill", [dregs], [regs], f"errexp {n} keys p={p}")
     for p in (4, 14, 16, 17, 20):
         x = _hll_keys(rng, kc[: 1 << 19], p)
         for wang in (False, True):
@@ -3816,13 +3835,21 @@ def sketch_numbers(dev, km, kstream, hv, hok):
                                   lambda: bitops.nuccount(km, 31),
                                   lambda: bitops.nuccount_plain(km, 31),
                                   bounds["nuccount"], graph=True)
-    regs = torch.zeros(1 << 14, dtype=torch.int32, device=dev)
-    bounds["hll_fill"] = bound_hll_fill(km, 14, True)
-    times["hll_fill"] = time_pair(
-        "hll_fill", f"K-12 {n} 31-mers, p=14, wang_hash",
-        lambda: hll.hll_fill(km, regs, 14, True),
-        lambda: hll.hll_fill_plain(km, regs, 14, True), bounds["hll_fill"],
-        graph=True)
+    times["nuccount, 8-B offset"] = time_pair(
+        "nuccount", f"K-12 {n - 1} 31-mers at an 8-B offset",
+        lambda: bitops.nuccount(km[1:], 31),
+        lambda: bitops.nuccount_plain(km[1:], 31),
+        bound_bitmix(km[1:], bitops.nuccount(km[1:], 31)), graph=True)
+    # KS1 at p = 14 (the kernels line) and 16, the registers raised again
+    # each call (the kernel alone: a new sketch adds a memset)
+    for p, key in ((16, "hll_fill p=16"), (14, "hll_fill")):
+        regs = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+        bounds[key] = bound_hll_fill(km, p, True)
+        times[key] = time_pair(
+            "hll_fill", f"K-12 {n} 31-mers, p={p}, wang_hash",
+            lambda: hll.hll_fill(km, regs, p, True),
+            lambda: hll.hll_fill_plain(km, regs, p, True), bounds[key],
+            graph=True)
     bounds["sort_count"] = bound_sort_count(hv, hok, shs.sort_count(hv, hok))
     times["sort_count"] = time_pair(
         "sort_count", f"K-12 k=31 hash stream, {int(hok.sum())} of "

@@ -38,8 +38,12 @@ runs longer than k, P = 1, 20 characters and kmercnt's 2^20-base row;
 for KB5 also 64 MiB images (inline and flat), every k-mer's first bucket
 in a quarter of the rows and the misses' second buckets outside it, and
 a CUDA-graph replay; for the sketches, KS4's mixes, inverse mixes and rotates on 0,
-U64_MAX and bit 63 and nuccount at k = 1, 31, 32, KS1 at p = 4, 14, 16 (shared memory) and 17,
-20 (global atomics) with keys whose h << p is 0 and U64_MAX, KS3 with
+U64_MAX and bit 63 and nuccount at k = 1, 31, 32 on 1-5 k-mers and
+slices at an 8-B offset, KS1 at p = 4 to 15 (a u32 copy a block in
+shared memory, past its size switch) and 16, 17, 20 (global atomics)
+with keys whose h << p is 0 and U64_MAX, n = 0 to 2^20 and at its size
+switch, keys aimed at the edges of every 32nd of the registers, every
+key to one register, slices at an 8-B offset and registers off 16 B, KS3 with
 runs past 65,535, keys with bit 63 set, E = 0 and 1, every key in one
 bucket, a bucket past shared memory and one of exactly its capacity,
 copies that overflow a bucket's split, keys below 2^20 and lex-like
@@ -2175,6 +2179,21 @@ def test_nuccount_kernel_matches_plain(cuda, k):
     assert bitops.nuccount.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 32])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 100003])
+def test_nuccount_kernel_sizes_and_offset(cuda, k, n):
+    """Two lanes a k-mer, 4 k-mers a lane pair: n below, at and past a lane
+    pair's and a block's k-mers, on a tensor and on its slice at an 8-B
+    offset; k-mers with bits past the mask (the mask drops them)."""
+    x = _u64s(np.random.default_rng(n + k), n + 1)
+    d = x.to(cuda)
+    before = bitops.nuccount.launches
+    _same([bitops.nuccount(d[:n], k)], [bitops.nuccount_plain(x[:n], k)])
+    _same([bitops.nuccount(d[1:], k)], [bitops.nuccount_plain(x[1:], k)])
+    assert bitops.nuccount.launches == before + 2
+
+
 def _hll_keys(rng, p, n):
     x = _u64s(rng, n)
     # keys whose h << p is 0 (only their top p bits set), unhashed
@@ -2183,19 +2202,84 @@ def _hll_keys(rng, p, n):
     return torch.cat([x, top])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("p", [4, 14, 16, 17, 20])  # shared: p <= 16
-@pytest.mark.parametrize("wang", [False, True])
-def test_hll_fill_kernel_matches_plain(cuda, p, wang):
-    rng = np.random.default_rng(p)
+def _hll_same(cuda, p, wang, batches):
+    """KS1 on each batch in turn into one set of registers (each call
+    raises what the one before left) against the plain version; every
+    nonempty batch is one launch."""
     regs = torch.zeros(1 << p, dtype=torch.int32)
     dregs = regs.to(cuda)
-    for n in (0, 1, 200003):  # three calls raise the same registers
-        keys = _hll_keys(rng, p, n)
+    before = hll.hll_fill.launches
+    for keys in batches:
         hll.hll_fill_plain(keys, regs, p, wang)
         hll.hll_fill(keys.to(cuda), dregs, p, wang)
         _same([dregs], [regs])
+    assert hll.hll_fill.launches == before + sum(b.numel() > 0
+                                                  for b in batches)
     assert int(regs.max()) <= 64 - p + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 8, 12, 14, 15, 16, 17, 20])  # copies: <= 15
+@pytest.mark.parametrize("wang", [False, True])
+def test_hll_fill_kernel_matches_plain(cuda, p, wang):
+    rng = np.random.default_rng(p)
+    # n = 0, 1, errexp's 2^12 and 2^16, 200003: five calls raise the same
+    # registers
+    _hll_same(cuda, p, wang, [_hll_keys(rng, p, n)
+                              for n in (0, 1, 4096, 65536, 200003)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 8, 12, 14, 15, 16, 17, 20])
+def test_hll_fill_kernel_size_switch_and_offsets(cuda, p):
+    """n at the size switch (GLOBAL_BELOW x 2^p keys, +- 1, where the
+    shared path takes p; 2^p past it), 2^20 keys, a slice at an 8-B
+    offset of odd and even length (the 16-B pairs' head and tail keys),
+    and unhashed keys aimed at the first and last register of every 32nd
+    of the registers (the slices of a cluster of up to 32 blocks)."""
+    rng = np.random.default_rng(p + 100)
+    m = 1 << p
+    at = hll.GLOBAL_BELOW * m if p <= hll.MAX_SHARED_P else m
+    x = _u64s(rng, max(at + 2, 1 << 20) + 2)
+    batches = [x[:at - 1], x[at - 1:2 * at - 1], x[:at + 1], x[: 1 << 20],
+               x[1:4098], x[1:4097], x[1:2], x[1:3]]
+    step = max(m >> 5, 1)
+    regs = np.unique(np.concatenate([np.arange(0, m, step),
+                                     np.arange(step - 1, m, step)]))
+    low = rng.integers(0, 1 << (64 - p), size=regs.size, dtype=np.uint64)
+    aimed = (regs.astype(np.uint64) << np.uint64(64 - p)) | low
+    batches.append(torch.from_numpy(aimed.view(np.int64)))
+    for wang in (False, True):
+        _hll_same(cuda, p, wang, batches)
+
+
+@pytest.mark.cuda
+def test_hll_fill_refuses_registers_off_16_bytes(cuda):
+    """The kernel flushes 16-B words of registers: a view 4 B in is
+    refused, and nothing launches."""
+    regs = torch.zeros((1 << 8) + 4, dtype=torch.int32, device=cuda)
+    keys = torch.arange(1000, dtype=torch.int64, device=cuda)
+    before = hll.hll_fill.launches
+    with pytest.raises(ValueError):
+        hll.hll_fill(keys, regs[1:1 + (1 << 8)], 8, True)
+    assert hll.hll_fill.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 12, 16, 20])
+def test_hll_fill_kernel_one_register(cuda, p):
+    """Every key to one register (all the atomics of a launch on one
+    address), 2^20 unhashed keys with the same top p bits and every rho,
+    three calls; then the first and the last register."""
+    rng = np.random.default_rng(p + 200)
+    q = 64 - p
+    n = 1 << 20
+    for reg in (5 % (1 << p), 0, (1 << p) - 1):
+        low = rng.integers(0, 1 << q, size=n, dtype=np.uint64)
+        low >>= rng.integers(0, q + 1, size=low.size).astype(np.uint64)
+        keys = torch.from_numpy(
+            ((np.uint64(reg) << np.uint64(q)) | low).view(np.int64))
+        _hll_same(cuda, p, False, [keys, keys[: n // 2], keys[1:]])
 
 
 def _sort_count_keys(rng, case):

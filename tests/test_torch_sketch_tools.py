@@ -22,6 +22,9 @@ import contextlib
 import gzip
 import io
 import os
+import subprocess
+import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -33,10 +36,12 @@ from bonsai_tpu.sketch import setsketch as jss
 from bonsai_tpu.sketch import ssi as jssi
 
 from bonsai_tpu_torch import cli
+from bonsai_tpu_torch.core.bitops import as_keys
 from bonsai_tpu_torch.core.spacer import Spacer
 from bonsai_tpu_torch.sketch import gchunk, ssi
 
-DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "tests", "data")
 GOLDEN = [os.path.join(DATA, "golden", f)
           for f in ("g_phix.fa", "g_phixmut.fa", "g_rand.fa")]
 
@@ -128,6 +133,53 @@ def test_shs2sketch_matches_jax(tmp_path, inputs, flags):
                                    ["-S", "64", "-a", "1e-3", "-b", "1.01"]])
 def test_stdin2ss_matches_jax(tmp_path, inputs, flags):
     _same_run(tmp_path, ["stdin2ss", inputs["stream"], "-o", "s.ss", *flags])
+
+
+@pytest.mark.parametrize("records", [0, 1])
+def test_stdin2ss_subprocess_stderr_matches_jax(tmp_path, records):
+    """stdin2ss of 0 or 1 16-byte record through each CLI as a subprocess
+    (where nothing captures a warning): equal stderr and .ss bytes.  A
+    read-only view of 0 or 1 values once reached torch.from_numpy uncopied,
+    and torch warned on stderr."""
+    stream = tmp_path / "stream.bin"
+    stream.write_bytes(np.random.default_rng(7).integers(
+        0, 2**64, 2 * records, dtype=np.uint64).tobytes())
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get("PYTHONPATH", "")
+                             .split(os.pathsep) if p]))
+    runs = {}
+    for pkg, extra in (("bonsai_tpu", []),
+                       ("bonsai_tpu_torch", ["--device", "cpu"])):
+        d = tmp_path / pkg
+        d.mkdir()
+        proc = subprocess.run(
+            [sys.executable, "-m", pkg, "stdin2ss", str(stream), "-o", "x.ss",
+             *extra], cwd=d, env=env, capture_output=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        runs[pkg] = (proc.stdout, proc.stderr, (d / "x.ss").read_bytes())
+    assert runs["bonsai_tpu_torch"] == runs["bonsai_tpu"]
+    assert runs["bonsai_tpu"][1] == f"processed {records} total\n".encode()
+
+
+def test_as_keys_of_a_read_only_array_does_not_warn():
+    raw = np.arange(3, dtype=np.uint64).tobytes()
+    for view in (np.frombuffer(raw, dtype=np.uint64)[0::2][:1],
+                 np.frombuffer(raw, dtype=np.uint64)[:0],
+                 np.frombuffer(raw, dtype=np.uint64)):
+        assert not view.flags.writeable
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = as_keys(view, "cpu")
+        assert got.tolist() == view.astype(np.int64).tolist()
+
+
+def test_as_keys_shares_a_writable_array():
+    a = np.arange(5, dtype=np.uint64)
+    t = as_keys(a, "cpu")
+    assert t.data_ptr() == a.ctypes.data
+    a[2] = 41
+    assert int(t[2]) == 41
 
 
 def test_setsketchroller_matches_jax(tmp_path, inputs):
