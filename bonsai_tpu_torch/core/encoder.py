@@ -198,7 +198,7 @@ def kb1_smem_bytes(span: int, W: int) -> int:
     npos = 4096 + W - 1
     nsx = (npos - 1) + ((npos - 1) >> 4) + 1
     code_off = (nsx * 8 * (2 if W > 1 else 1) + 15) // 16 * 16
-    return code_off + (npos + span - 1 + 30) // 16 * 16 + 512
+    return code_off + (npos + span - 1 + 34) // 16 * 16 + 512
 
 
 def _check_args(name, codes, lengths, k, W, scheme, it):
@@ -249,11 +249,13 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
     sentinel (at k = 32 a real k-mer can be U64_MAX).  The kernel's one
     entry point picks its instantiation from the seed, the fold and the
     score: the hash score probes the phase-1 image of ``score_map`` on the
-    codes' device, and the other input types run their unwindowed seeds
-    as a spaced seed of positions 0..k-1; ``zero_invalid`` (a contiguous
-    DNA seed at W = 1) is the sequence-parallel encode's instantiation,
-    which writes 0 as the value where nothing is emitted.  Counted by
-    instantiation in ``minimizers.variants``."""
+    codes' device, and the other input types roll the fold of their
+    unwindowed seeds ("radix rolled"; the positions 0..k-1 and the
+    unwindowed flag still go to the entry point, which earlier kernels
+    read); ``zero_invalid`` (a contiguous DNA seed at W = 1) is the
+    sequence-parallel encode's instantiation, which writes 0 as the value
+    where nothing is emitted.  Counted by instantiation in
+    ``minimizers.variants``."""
     if zero_invalid and (W != 1 or positions is not None or it != DNA):
         raise ValueError("zero_invalid takes a contiguous DNA seed at W = 1")
     if codes.device.type == "cpu":
@@ -302,7 +304,9 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
                    *_gen_args(k, it, scheme, dev, score_map, FILE_EPS),
                    keys.data_ptr(), emitted.data_ptr())
     suffix = "" if scheme == "lex" else " " + VARIANT[scheme]
-    if it != DNA or spaced:
+    if it != DNA and not spaced:
+        variant = "radix rolled"
+    elif it != DNA or spaced:
         variant = ("radix" if it != DNA else "spaced") + suffix
     elif zero_invalid:
         variant = "sequence-parallel"

@@ -137,7 +137,6 @@ struct Args {
   double denom;
   bk::ProbeTable tbl;
   bk::Fold fold;
-  uint64_t rpow;  // radix^(k - 1) mod 2^64 (kFoldMulAdd)
   bk::Shannon sh;
   int canon;
   int64_t* keys;
@@ -327,14 +326,10 @@ __device__ int codes_round(const Args& a, int64_t row, int64_t q, int S,
       const int c = (int8_t)(word & 0xFF);
       word >>= 8;
       const uint64_t u = c < 0 ? 0 : c;
-      if constexpr (kSrc == kDna) {
+      if constexpr (kSrc == kDna)
         v = ((v << 2) | u) & mask;
-      } else if (a.fold.kind == bk::kFoldShift) {
-        v = ((v << a.fold.bits) | u) & a.fold.lim;
-      } else {  // less the outgoing code's radix^(k - 1), then one more
-        if (i >= k) v -= (uint64_t)max((int)cp[i - k], 0) * a.rpow;
-        v = v * a.fold.radix + u;
-      }
+      else
+        v = bk::fold_roll(a.fold, v, u, i >= k ? max((int)cp[i - k], 0) : 0);
       const int r = i - (k - 1);
       if (r < 0 || !(ok >> r & 1)) continue;
       const int place = at++;
@@ -726,9 +721,7 @@ extern "C" int bk_compacted_minimizers_gen(
   a.denom = denom;
   a.tbl = bk::ProbeTable{(const ulonglong2*)slots, (const uint64_t*)vals,
                          n_vals, lgnb, vbits, is_inline};
-  a.fold = bk::Fold{fold, bits, radix, lim};
-  a.rpow = 1;
-  for (int i = 1; i < k; ++i) a.rpow *= radix;
+  a.fold = bk::Fold{fold, bits, radix, lim, bk::fold_rpow(radix, k)};
   a.sh = bk::Shannon{(const double*)terms, R, eps};
   a.canon = canon;
   a.keys = (int64_t*)keys;

@@ -36,11 +36,10 @@
 //   another alphabet (the kGen instantiations, core/encode.py :108-137,
 //          :163-170): the spaced discipline with the alphabet's fold
 //          (scores.cuh: shift-or and mask, or multiply-add and modulus,
-//          an ambiguous code folding as 0); its unwindowed contiguous
-//          seeds run as a spaced seed of positions 0..k-1 with
-//          ``unwindowed`` set: value = the k-mer, emitted = j < n_push and
-//          the seed holds no ambiguous code (PROTEIN_3BIT's k = 22 fold
-//          of 66 bits can be a real U64_MAX).
+//          an ambiguous code folding as 0); its contiguous seeds, at W = 1
+//          only: value = the k-mer, emitted = j < n_push and the seed
+//          holds no ambiguous code (PROTEIN_3BIT's k = 22 fold of 66 bits
+//          can be a real U64_MAX).
 // The first base sits in the k-mer's high bits; all compares are unsigned
 // over 64 bits; a value is never a sentinel (the emitted flag says it).
 //
@@ -79,9 +78,17 @@
 // value) in flight and a step of batched probes after the roll left the
 // roll and the probes one after the other (PERF.md, row 6).  The image
 // adds kernel arguments, not shared memory; the rows in flight take
-// registers (2 blocks a SM at kProbeBatch = 4).  The other alphabets fold
-// each position's k codes from the staged tile (k shared loads a
-// position, the simple way), and their Shannon score
+// registers (2 blocks a SM at kProbeBatch = 4).  Another alphabet's
+// contiguous seed rolls its fold, one code a position (scores.cuh
+// fold_roll: the mask kept, or the outgoing code times radix^(k - 1), from
+// the host, subtracted first; the last ambiguous code's index says which
+// seeds hold one), where folding k codes a position made k dependent
+// shared loads and k 64-bit multiply-adds: a thread folds its run's first
+// k - 1 codes, then rolls its kRun seeds in an unrolled loop on the codes
+// coming in and going out, read as words at their own byte offset
+// (codes4), with the fold's kind an instantiation of its own (kFold).
+// Its spaced seeds fold each position's k codes from the
+// staged tile (k shared loads a position), and their Shannon score
 // counts those k codes as they are folded (scores.cuh CodeCounts, the
 // terms in shared memory; PROTEIN's 256 codes: a scan of the k codes for
 // each distinct one, shannon_h); a DNA
@@ -119,8 +126,16 @@ __device__ __host__ __forceinline__ Layout layout(int span, int W) {
   l.npos = kTile + W - 1;
   l.nsx = sx(l.npos - 1) + 1;
   l.code_off = (l.nsx * 8 * (W > 1 ? 2 : 1) + 15) / 16 * 16;
-  l.bytes = l.code_off + (l.npos + span - 1 + 30) / 16 * 16;
+  // the codes, the 16-B staging's shift and rounding, and the word past
+  // the last code that a run's codes4 reads (its bytes unused)
+  l.bytes = l.code_off + (l.npos + span - 1 + 34) / 16 * 16;
   return l;
+}
+
+// the u32 of the 4 staged codes from byte ``b`` of the staged tile (the
+// first in its low byte)
+__device__ __forceinline__ uint32_t codes4(const uint32_t* w32, int b) {
+  return __funnelshift_r(w32[b >> 2], w32[(b >> 2) + 1], 8 * (b & 3));
 }
 
 // the score of a pushed k-mer or ov, by kind (kHash: RollProbe)
@@ -193,10 +208,12 @@ __device__ __forceinline__ bool at_or_before(uint64_t s, uint64_t v,
 
 // span = k for a contiguous seed; sp, denom, tbl, fold, sh and
 // unwindowed are read only by the spaced, entropy-file, hash, other
-// alphabets' (kGen: always spaced) and Shannon instantiations; kNR is the
-// registers of the Shannon score's code counts (scores.cuh CodeCounts) of
-// another alphabet, 0 for its passes (R = 256)
-template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0>
+// alphabets' (kGen; contiguous: W = 1, the rolled fold), Shannon and
+// sequence-parallel instantiations; kNR is the registers of the Shannon
+// score's code counts (scores.cuh CodeCounts) of another alphabet, 0 for
+// its passes (R = 256); kFold the rolled fold's kind (scores.cuh FoldKind)
+template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0,
+          int kFold = 0>
 __global__ void __launch_bounds__(kThreads)
     minimizers_kernel(const int8_t* __restrict__ codes,
                       const int32_t* __restrict__ lengths, int64_t L, int k,
@@ -267,8 +284,7 @@ __global__ void __launch_bounds__(kThreads)
       terms = s_terms;
     }
     auto push = [&](int p, uint64_t v, bool n_in, const Counts& cc) {
-      const uint64_t ov =
-          kGen ? (n_in && !unwindowed ? ~0ull : v) : (n_in ? ~0ull : v & mask);
+      const uint64_t ov = n_in ? ~0ull : kGen ? v : v & mask;
       s_val[sx(p)] = ov;
       if (W > 1) {
         if constexpr (kScore == kShannon && kGen && kNR > 0) {
@@ -293,8 +309,7 @@ __global__ void __launch_bounds__(kThreads)
                                : score_of<kScore>(ov, denom);
         }
       } else {
-        bad |= (uint32_t)(kGen && unwindowed ? n_in : ov == ~0ull)
-               << (p - p0);
+        bad |= (uint32_t)(ov == ~0ull) << (p - p0);
       }
     };
     if (!kGen && span <= 32) {
@@ -333,6 +348,35 @@ __global__ void __launch_bounds__(kThreads)
     }
     if constexpr (kScore == kHash)
       if (W > 1) rp.finish(tbl, s_score, p1);
+  } else if constexpr (kGen) {
+    // W = 1, so p1 = p0 + kRun: the run's first k - 1 codes folded, then
+    // each seed r takes code k - 1 + r in and, past the first, r - 1 out
+    const uint32_t* w32 = (const uint32_t*)s_code;
+    const int b = shift + p0;  // byte of the run's first code in s_code
+    uint64_t v = 0;
+    int last_n = -1;  // run index of the last ambiguous code read
+    for (int i = 0; i < k - 1; ++i) {
+      const int c = s_code[b + i];
+      if (c < 0) last_n = i;
+      v = bk::fold_roll<kFold>(fold, v, (uint64_t)max(c, 0), 0);
+    }
+    uint32_t in[kRun / 4], out[kRun / 4];
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      in[q] = codes4(w32, b + k - 1 + 4 * q);
+      out[q] = codes4(w32, b + 4 * q);
+    }
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      const int c = (int8_t)(in[r >> 2] >> (8 * (r & 3)));
+      const int o =
+          r ? (int8_t)(out[(r - 1) >> 2] >> (8 * ((r - 1) & 3))) : 0;
+      if (c < 0) last_n = k - 1 + r;
+      v = bk::fold_roll<kFold>(fold, v, (uint64_t)max(c, 0),
+                               (uint64_t)max(o, 0));
+      s_val[sx(p0 + r)] = bk::fold_finish<kFold>(fold, v);
+      bad |= (uint32_t)(last_n >= r) << r;
+    }
   } else if (p0 < p1) {
     const int64_t n_push0 = max((int64_t)lengths[row] - (k - 1), (int64_t)0);
     const uint32_t* w32 = (const uint32_t*)s_code;
@@ -382,7 +426,7 @@ __global__ void __launch_bounds__(kThreads)
   //    j + r + W - 1.  Two scans of about W + kRun positions, the same
   //    steps in every lane.
   const int j = tid * kRun;
-  if (W > 1) {
+  if ((kSpaced || !kGen) && W > 1) {
     uint16_t suf[kRun];  // position of the suffix minimum from j + r
     {
       uint64_t bs = 0, bv = 0;
@@ -462,7 +506,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0>
+template <bool kSpaced, int kScore, bool kGen = false, int kNR = 0,
+          int kFold = 0>
 int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
            int k, int W, int canon, int span, const bk::Spacing& sp,
            double denom, const bk::ProbeTable& tbl,
@@ -473,12 +518,12 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
   const Layout l = layout(span, W);
   if (l.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        minimizers_kernel<kSpaced, kScore, kGen, kNR>,
+        minimizers_kernel<kSpaced, kScore, kGen, kNR, kFold>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  minimizers_kernel<kSpaced, kScore, kGen, kNR>
+  minimizers_kernel<kSpaced, kScore, kGen, kNR, kFold>
       <<<grid, kThreads, l.bytes, stream>>>(
           (const int8_t*)codes, (const int32_t*)lengths, L, k, W, canon, E,
           (int64_t*)keys, (bool*)emitted, span, sp, denom, tbl, fold, sh,
@@ -496,8 +541,9 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
 // otherwise it is contiguous (span = k), canonical with ``canon`` (DNA).
 // ``fold`` 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask
 // ``lim``, 2 multiply-add by ``radix`` with the modulus ``lim``: another
-// alphabet, never canonical, whose contiguous seeds pass 0..k-1 with
-// ``unwindowed`` at W = 1; a contiguous DNA seed at W = 1 with
+// alphabet, never canonical, whose contiguous seeds (the rolled fold,
+// W = 1 only) pass 0..k-1 and ``unwindowed``, which that fold does not
+// read; a contiguous DNA seed at W = 1 with
 // ``unwindowed`` set writes 0 as the value of each slot that emits
 // nothing (the sequence-parallel encode of bonsai_tpu_torch/parallel/
 // sharded.py, as sharded_encode_contig, bonsai_tpu/parallel/
@@ -519,19 +565,22 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
                                  void* stream) {
   const bk::ProbeTable t{(const ulonglong2*)slots, (const uint64_t*)vals,
                          n_vals, lgnb, vbits, is_inline};
-  const bk::Fold f{fold, bits, radix, lim};
+  const bk::Fold f{fold, bits, radix, lim, bk::fold_rpow(radix, k)};
   const bk::Shannon sh{(const double*)terms, R, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool gen = fold != bk::kFoldDna;
   if (gen && (canon || score == kHash)) return (int)cudaErrorInvalidValue;
   const bk::Spacing sp =
-      spaced || gen ? bk::make_spacing(positions, k) : bk::Spacing{};
+      spaced ? bk::make_spacing(positions, k) : bk::Spacing{};
 #define BK(kSpaced, kScore, kGen, ...)                                       \
   return launch<kSpaced, kScore, kGen, ##__VA_ARGS__>(                       \
       codes, lengths, B, L, k, W, kSpaced ? 0 : canon, kSpaced ? span : k,   \
-      sp, denom, t, keys, emitted, s, f, sh,                                 \
-      kGen || !kSpaced ? unwindowed : 0)
-  if (gen) {
+      sp, denom, t, keys, emitted, s, f, sh, kSpaced ? 0 : unwindowed)
+  if (gen && !spaced) {  // the rolled fold of a contiguous seed
+    if (W != 1 || !unwindowed) return (int)cudaErrorInvalidValue;
+    if (fold == bk::kFoldShift) BK(false, kLex, true, 0, bk::kFoldShift);
+    BK(false, kLex, true, 0, bk::kFoldMulAdd);
+  } else if (gen) {
     switch (score) {
       case kLex: BK(true, kLex, true);
       case kEntropy: BK(true, kEntropy, true);

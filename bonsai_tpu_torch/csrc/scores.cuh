@@ -36,6 +36,10 @@
 // _pack :108-137, apply_mask :163-170): shift-or by the power-of-two
 // radix's bits and a bit mask, or multiply-add by the radix and the
 // modulus radix**k, both modulo 2^64.  An ambiguous code (< 0) folds as 0.
+// A contiguous seed rolls its fold one code a position (fold_roll): the
+// mask kept at each step, or the outgoing code times radix^(k - 1)
+// subtracted before the multiply-add, exact modulo 2^64, so fold_finish of
+// the rolled value is the fold of the last k codes.
 // Everything sits in an anonymous namespace, so each source that
 // includes this header owns its copy.
 
@@ -77,7 +81,15 @@ struct Fold {
   int bits;       // kFoldShift
   uint64_t radix; // kFoldMulAdd
   uint64_t lim;   // the mask (kFoldShift) or the modulus (kFoldMulAdd)
+  uint64_t rpow;  // radix^(k - 1) mod 2^64 (kFoldMulAdd, fold_roll)
 };
+
+// radix^(k - 1) mod 2^64, on the host
+inline uint64_t fold_rpow(uint64_t radix, int k) {
+  uint64_t r = 1;
+  for (int i = 1; i < k; ++i) r *= radix;
+  return r;
+}
 
 __device__ __forceinline__ uint64_t fold_step(const Fold& f, uint64_t v,
                                               int c) {
@@ -85,8 +97,22 @@ __device__ __forceinline__ uint64_t fold_step(const Fold& f, uint64_t v,
   return f.kind == kFoldShift ? (v << f.bits) | u : v * f.radix + u;
 }
 
+// one step of a contiguous seed's rolled fold: code c comes in and, once
+// k codes are in, code ``out`` (k places before c) goes; both >= 0 (an
+// ambiguous code passed as 0), ``out`` 0 before the seed is full.  kKind
+// is the fold's kind where the caller's instantiation knows it, else -1.
+// A radix is below 2^32 (at most 256), so its multiply is 64 x 32 bits.
+template <int kKind = -1>
+__device__ __forceinline__ uint64_t fold_roll(const Fold& f, uint64_t v,
+                                              uint64_t c, uint64_t out) {
+  if ((kKind < 0 ? f.kind : kKind) == kFoldShift)
+    return ((v << f.bits) | c) & f.lim;
+  return (v - out * f.rpow) * (uint64_t)(uint32_t)f.radix + c;
+}
+
+template <int kKind = -1>
 __device__ __forceinline__ uint64_t fold_finish(const Fold& f, uint64_t v) {
-  if (f.kind == kFoldShift) return v & f.lim;
+  if ((kKind < 0 ? f.kind : kKind) == kFoldShift) return v & f.lim;
   return v >= f.lim ? v % f.lim : v;
 }
 

@@ -122,6 +122,8 @@ _SIGS = {
     # the hash instantiations' blocks a SM: spaced, span, W (KB1); W (KB4)
     "bk_minimizers_hash_blocks_per_sm": [I32, I32, I32],
     "bk_compacted_minimizers_hash_blocks_per_sm": [I32],
+    # K128's pack: its blocks a SM
+    "bk_pack_kmers128_blocks_per_sm": [],
     # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream
     "bk_sort_unique": [P, P, I64, I64, P, P, P, P, P],
     # keys, pad, node, orig, cnt, cap (state a), the same for state b,

@@ -26,11 +26,14 @@ inline: the ec -k 25 -t map's size).  Then the Python API's kernels at
 the shapes of ``chip_smoke.py``'s phase 9d: KB1 -k 21 -S 0x16,1x4 -w 40
 and KB4 -k 31 -w 40 (canonical) and -k 13 -w 29 under the Shannon score,
 and on the forward frame 0 of GENOME's first record as protein
-(``synthetic.translate``): KB1 PROTEIN20 k = 7 unwindowed, PROTEIN_6
+(``synthetic.translate``): KB1 unwindowed (its rolled fold) PROTEIN20
+at k = 7 and 14, PROTEIN at k = 8, PROTEIN_3BIT at k = 22, PROTEIN_6
 -k 12 -S 1x11 -w 30 Shannon, KB4 PROTEIN_14 -k 10 -w 24 and PROTEIN20
 -k 7 -w 20 Shannon; KR1 at k = 31 and 64 canonical, 200 and 4097 (past
 its tile), and at kmercnt's chunk, the first 2^20 bases, at k = 17 and
-31 canonical.  Then the
+31 canonical; KB4's stream source (k = 64, W = 37) and K128's pack and
+canonical pack of the whole record at k = 33, 40, 55 and 64 (phase
+9f's).  Then the
 sketch kernels at the shapes of ``chip_smoke.py``'s phase 9e on GENOME's
 first record: KS1 (hashed, a new sketch a call, at p = 14, 16, 17, 20, 12
 and 15, and its first 4, 16 and 64 x 2^p at p = 8, 12 and 14) and KS4
@@ -52,11 +55,15 @@ entry point the parent's library lacks is skipped, and says so.  With
 cases whose name holds a NAME; only their sources are built; each ``-e
 EDIT`` an edited copy of PARENT_CSRC, ``SKETCH_EDITS``, timed in the same
 turns), with ``--api``
-only the Python API's cases (KB1, KB4 and KR1 above):
+only the Python API's cases (KB1, KB4, KR1 and K128 above; ``-k NAME``
+and ``-e EDIT`` as with ``--sketch``, its edits ``KB4_EDITS``,
+``KR1_EDITS`` and ``K128_EDITS``: pass the tree's ``csrc`` as
+PARENT_CSRC to take a step of K128's design back out):
 
     python -m bonsai_tpu_torch.tools.kernel_ab --sketch PARENT_CSRC GENOME \\
         [-k NAME] [-e EDIT]...
-    python -m bonsai_tpu_torch.tools.kernel_ab --api PARENT_CSRC GENOME
+    python -m bonsai_tpu_torch.tools.kernel_ab --api PARENT_CSRC GENOME \\
+        [-k NAME] [-e EDIT]...
 
     python -m bonsai_tpu_torch.tools.kernel_ab --classify PARENT_CSRC \\
         READS NODES NAMEID GENOME...
@@ -183,7 +190,7 @@ ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
 OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
 BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
                  "lookup_scores", "rolling", "sort_unique", "hll", "setsketch",
-                 "bitmix")
+                 "bitmix", "encode128")
 CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
 # the source of each --sketch case's entry point
 SKETCH_SOURCES = {
@@ -753,6 +760,71 @@ KB4_EDITS = {
                             f"#pragma unroll {u}\n      for (int pl = base"),))
     for u in (1, 2, 8)
 }
+# the default and --api modes' edited copies of K128's pack (encode128.cu),
+# each a step of its design taken back out (pass the tree's csrc as the
+# parent): k128-warmup, the first window rolled from its k codes one at a
+# time; k128-rc, the reverse complement taken by rc128 at every window in
+# place of the rolled one; k128-scalar, a lane and a flag a position a
+# store; k128-st, plain stores in place of streaming ones; k128-t256 and
+# k128-t64, tiles of 4096 and 1024 positions (blocks of 256 and 64);
+# k128-run32, 32 windows a thread in blocks of 64
+K128_EDITS = {
+    "k128-warmup": (True, (("encode128.cu",
+                            "  first_window(w32, b0, k, &hi, &lo, &last_n, "
+                            "&last_big);\n",
+                            "  hi = lo = 0, last_n = last_big = -1;\n"
+                            "  for (int i = 0; i < k; ++i) {\n"
+                            "    const int c = s_code[b0 + i];\n"
+                            "    if (c < 0) last_n = i;\n"
+                            "    if (c > 3) last_big = i;\n"
+                            "    hi = ((hi << 2) | (lo >> 62)) & hmask;\n"
+                            "    lo = (lo << 2) | (uint64_t)(c < 0 ? 0 : c & 3);"
+                            "\n  }\n"),)),
+    "k128-rc": (True, (("encode128.cu",
+                        "    const bool take_rc = kCanon && ",
+                        "    if (kCanon) rc128(hi, lo, k_hi, &rhi, &rlo);\n"
+                        "    const bool take_rc = kCanon && "),)),
+    "k128-scalar": (True, (
+        ("encode128.cu", "  if (r0 + kRun <= npos && ((uintptr_t)erow & 15) "
+         "== 0) {", "  if (false) {"),
+        ("encode128.cu", "  const int head = (int)(((uintptr_t)hrow >> 3) & "
+         "1);", "  const int head = 0;\n  for (int p = tid; p < npos; p += "
+         "kThreads) {\n    hrow[p] = (int64_t)s_hi[sx(p)];\n    lrow[p] = "
+         "(int64_t)s_lo[sx(p)];\n  }\n  if (true) return;"),
+    )),
+    "k128-st": (True, (
+        ("encode128.cu", "__stcs((ulonglong2*)(hrow + p), make_ulonglong2("
+         "s_hi[x], s_hi[y]));", "*(ulonglong2*)(hrow + p) = make_ulonglong2("
+         "s_hi[x], s_hi[y]);"),
+        ("encode128.cu", "__stcs((ulonglong2*)(lrow + p), make_ulonglong2("
+         "s_lo[x], s_lo[y]));", "*(ulonglong2*)(lrow + p) = make_ulonglong2("
+         "s_lo[x], s_lo[y]);"),
+        ("encode128.cu", "__stcs((uint4*)erow + q, make_uint4(f[0], f[1], "
+         "f[2], f[3]));", "((uint4*)erow)[q] = make_uint4(f[0], f[1], f[2], "
+         "f[3]);"),
+    )),
+    **{f"k128-t{t}": (True, (("encode128.cu", "constexpr int kThreads = 128;",
+                              f"constexpr int kThreads = {t};"),))
+       for t in (256, 64)},
+    "k128-run32": (True, (
+        ("encode128.cu", "constexpr int kThreads = 128;",
+         "constexpr int kThreads = 64;"),
+        ("encode128.cu", "constexpr int kRun = 16;", "constexpr int kRun = 32;"),
+    )),
+}
+# the default and --api modes' edited copies of KB1 (minimizers.cu):
+# kb1-stcs, its keys and flags by streaming stores
+KB1_EDITS = {
+    "kb1-stcs": (True, (
+        ("minimizers.cu", "        *(ulonglong2*)(krow + s0) =\n"
+         "            make_ulonglong2(s_val[sx(s0)], s_val[sx(s0 + 1)]);",
+         "        __stcs((ulonglong2*)(krow + s0),\n"
+         "            make_ulonglong2(s_val[sx(s0)], s_val[sx(s0 + 1)]));"),
+        ("minimizers.cu", "    *(uint4*)erow = make_uint4(f[0], f[1], f[2], "
+         "f[3]);", "    __stcs((uint4*)erow, make_uint4(f[0], f[1], f[2], "
+         "f[3]));"),
+    )),
+}
 # the --api mode's edited copies of KR1 (rolling.cu): its blocks held to
 # 3 or 4 a SM (at most 85 or 64 registers a thread)
 KR1_EDITS = {
@@ -886,7 +958,7 @@ SKETCH_EDITS = {
                              f"constexpr int kPer = {u};"),)) for u in (2, 8)},
 }
 EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS,
-         **SKETCH_EDITS}
+         **K128_EDITS, **KB1_EDITS, **SKETCH_EDITS}
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
@@ -1364,6 +1436,7 @@ def api_cases(seq: bytes, dev):
     forward frame 0 as protein."""
     from ..core.alphabet import InputType, alphabet_of
     from ..core.encode import position_validity
+    from ..core.encode128 import pack_kmers128
     from ..core.rolling import KR1_TILE, RollingEncoder
     from ..core.spacer import Spacer
     from .synthetic import translate
@@ -1375,7 +1448,8 @@ def api_cases(seq: bytes, dev):
 
     dna = row(seq[: 1 << 22])
     prot = {it: row(translate(seq, 0), it) for it in (
-        InputType.PROTEIN20, InputType.PROTEIN_14, InputType.PROTEIN_6)}
+        InputType.PROTEIN20, InputType.PROTEIN_14, InputType.PROTEIN_6,
+        InputType.PROTEIN, InputType.PROTEIN_3BIT)}
     pos21 = tuple(int(p) for p in Spacer(21, 21, "0x16,1x4").positions)
     pos12 = tuple(int(p) for p in Spacer(12, 12, "1x11").positions)
     p20, p14, p6 = (prot[t] for t in (InputType.PROTEIN20,
@@ -1394,6 +1468,11 @@ def api_cases(seq: bytes, dev):
         ("minimizers PROTEIN20 k=7 W=1",
          lambda: enc.minimizers(*p20, 7, 1, False, it=InputType.PROTEIN20),
          graph_ms, KB1),
+        *((f"minimizers {it.name} k={k} W=1",
+           lambda it=it, k=k: enc.minimizers(*prot[it], k, 1, False, it=it),
+           graph_ms, KB1)
+          for it, k in ((InputType.PROTEIN20, 14), (InputType.PROTEIN, 8),
+                        (InputType.PROTEIN_3BIT, 22))),
         ("minimizers PROTEIN_6 -k 12 -S 1x11 -w 30 entropy W=8",
          lambda: enc.minimizers(*p6, 12, 8, False, "entropy", pos12,
                                 it=InputType.PROTEIN_6), graph_ms, KB1),
@@ -1427,6 +1506,15 @@ def api_cases(seq: bytes, dev):
     cases.append((f"compacted_stream k=64 hash stream {v.shape[1]} values "
                   "W=37", lambda: enc.compacted_stream(v, ok, 37), graph_ms,
                   "bk_compacted_stream"))
+    # K128's pack and canonical pack at chip_smoke.py phase 9f's shapes:
+    # the whole record at k = 33, 40, 55 and 64
+    for k in (33, 40, 55, 64):
+        for canon in (False, True):
+            cases.append((f"pack_kmers128{' canonical' if canon else ''} "
+                          f"k={k} {rec[0].shape[1]} bases",
+                          lambda k=k, canon=canon: pack_kmers128(
+                              rec[0], k, canon), graph_ms,
+                          "bk_pack_kmers128"))
     return cases
 
 
@@ -1871,7 +1959,7 @@ def build_libs(parent_csrc: str, names, edits, change=False,
 USAGE = ("usage: python -m bonsai_tpu_torch.tools.kernel_ab PARENT_CSRC GENOME "
          "NODES [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--sketch PARENT_CSRC GENOME [-k NAME] [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
-         "--api PARENT_CSRC GENOME [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
+         "--api PARENT_CSRC GENOME [-k NAME] [-e EDIT]...\n       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--hash PARENT_CSRC GENOME [EDIT...] [--fold NODES NAMEID GENOME...]\n"
          "       python -m bonsai_tpu_torch.tools.kernel_ab "
          "--classify PARENT_CSRC READS NODES NAMEID GENOME...\n"
@@ -1888,7 +1976,7 @@ def main(argv=None) -> int:
         args = args[1:]
     edits = [e for a, e in zip(args, args[1:]) if a == "-e"]
     only = [e for a, e in zip(args, args[1:]) if a == "-k"]
-    while mode == "--sketch" and "-k" in args:
+    while mode in ("--sketch", "--api") and "-k" in args:
         args = args[:args.index("-k")] + args[args.index("-k") + 2:]
     if mode in ("--route", "--api", "--sketch", "") and edits:
         args = args[:args.index("-e")]

@@ -136,8 +136,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  1000, 4096, 4097 and on kmercnt's chunk (K-12's first 2^20
                  bases, k = 17 and 31 canonical); then each timed by
                  CUDA-graph replay at the K-12 shape (a protein frame for
-                 the radix rows; KR1 also on kmercnt's chunk), with its
-                 bound
+                 the radix rows, KB1's rolled fold at PROTEIN20 -k 7 and
+                 -k 14; KR1 also on kmercnt's chunk), with its bound
  9e. sketches    after phase 9d, the sketch front-ends through
                  bonsai_tpu_torch on the card, against the JAX package's
                  values: kmercnt's counts (MultiKCounter, KR1 and KS3) of
@@ -196,6 +196,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  W = 1, 37 and 8192, rows shorter than the window, an
                  all-invalid row, 0 < n_valid < W) and each timed by
                  CUDA-graph replay at the ec keys or K-12, with its bound
+                 (K128's pack and canonical pack at each k; its blocks a
+                 SM printed)
  9g. sharded     after phase 9f, the sharded classifier and build on the
                  card, its ranks in this one process sharing the card (so no
                  rate here is a multi-GPU rate): a2a at (dp, db) = (1, 4),
@@ -970,7 +972,8 @@ VARIANTS = {
     "compacted_minimizers": ("compacted_minimizers", ("lex", "entropy-file")),
     "compacted_minimizers_hash": ("compacted_minimizers", ("hash",)),
     "minimizers_spaced_shannon": ("minimizers", ("spaced shannon",)),
-    "minimizers_radix": ("minimizers", ("radix", "radix entropy-file")),
+    "minimizers_radix": ("minimizers", ("radix rolled", "radix",
+                                        "radix entropy-file")),
     "minimizers_radix_shannon": ("minimizers", ("radix shannon",)),
     "compacted_minimizers_shannon": ("compacted_minimizers", ("shannon",)),
     "compacted_minimizers_radix": ("compacted_minimizers", (
@@ -3264,6 +3267,15 @@ def phase_api(dev, chk):
         times[name] = time_pair(name, tag, lambda: kern(c, ln),
                                 lambda: plain(c, ln), bounds[name],
                                 graph=True)
+    # KB1's rolled fold at the largest k of the frame's -k 7 row's type
+    time_pair("minimizers_radix", "frame 0 PROTEIN20 -k 14 (W = 1)",
+              lambda: enc.minimizers(*p20, 14, 1, False,
+                                     it=InputType.PROTEIN20),
+              lambda: enc.minimizers_plain(*p20, 14, 1, False,
+                                           it=InputType.PROTEIN20),
+              bound_minimizers(*p20, enc.minimizers(
+                  *p20, 14, 1, False, it=InputType.PROTEIN20), 1),
+              graph=True)
     renc = rolling.RollingEncoder(31, True)
     bounds["cyclic_hashes"] = bound_cyclic_hashes(dna[0], renc.hashes(dna[0]),
                                                   True)
@@ -4252,6 +4264,7 @@ def format_numbers(dev, keys, codes):
     its plain version, by CUDA-graph replay, with bounds."""
     import torch
 
+    from bonsai_tpu_torch import kernels
     from bonsai_tpu_torch.core import encode128 as e128
     from bonsai_tpu_torch.core import encoder as enc
     from bonsai_tpu_torch.core import rolling
@@ -4272,14 +4285,21 @@ def format_numbers(dev, keys, codes):
         lambda: table.shard_owner_plain(keys, 4), bounds["shard_owner"],
         graph=True)
     P = codes.shape[1] - 63
-    for canon in (True, False):  # the uncanonical pack is reported
-        out = e128.pack_kmers128(codes, 64, canon)
-        bounds["pack_kmers128"] = bound_pack_kmers128(codes, out, canon)
-        times["pack_kmers128"] = time_pair(
-            "pack_kmers128", f"K-12 {codes.shape[1]} bases k=64 "
-            f"canon={canon}", lambda: e128.pack_kmers128(codes, 64, canon),
-            lambda: e128.pack_kmers128_plain(codes, 64, canon),
-            bounds["pack_kmers128"], graph=True)
+    # the pack and the canonical pack at each k; the uncanonical pack at
+    # k = 64, timed last, is reported
+    for k in sorted(K128_DIGESTS):
+        for canon in (True, False):
+            out = e128.pack_kmers128(codes, k, canon)
+            bounds["pack_kmers128"] = bound_pack_kmers128(codes, out, canon)
+            times["pack_kmers128"] = time_pair(
+                "pack_kmers128", f"K-12 {codes.shape[1]} bases k={k} "
+                f"canon={canon}",
+                lambda k=k, canon=canon: e128.pack_kmers128(codes, k, canon),
+                lambda k=k, canon=canon: e128.pack_kmers128_plain(codes, k,
+                                                                  canon),
+                bounds["pack_kmers128"], graph=True)
+    say(f"# formats: pack_kmers128 blocks a SM "
+        f"{kernels.get_lib().bk_pack_kmers128_blocks_per_sm()}")
     hi, lo, inv = e128.pack_kmers128(codes, 64)
     for name, fn, plain, canon in (
             ("reverse_complement128", e128.reverse_complement128,

@@ -1858,6 +1858,24 @@ def test_radix_kernels_match_plain(cuda, it, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("it", RADIX_TYPES, ids=lambda t: t.name)
+def test_radix_rolled_fold_kernel_matches_plain(cuda, it):
+    """KB1's rolled fold of a contiguous seed (W = 1), at every k from 1 to
+    the type's largest, on rows that cross a thread's run and a tile, with
+    an ambiguous code going out of a roll (a run's first and 15th codes);
+    each launch counted as "radix rolled"."""
+    for k in range(1, nper64(it) + 1):
+        rng = np.random.default_rng(int(it) * 97 + k)
+        codes4, lengths = _kb1_edge_rows(rng, k, 1)
+        codes4[3, 2 * KB1_RUN + 14] = -1
+        codes = _radix_codes(rng, codes4, it)
+        before = enc.minimizers.variants.get("radix rolled", 0)
+        want = _run_gen(cuda, "kb1", codes, lengths, k, 1, "lex", it)
+        assert enc.minimizers.variants["radix rolled"] == before + 1
+        assert want.mask.any() and not want.mask.all()
+
+
+@pytest.mark.cuda
 def test_radix_kernels_keep_a_real_u64_max(cuda):
     """PROTEIN_3BIT at k = 22 folds 66 bits: 22 residues of code 7 are
     U64_MAX, emitted unwindowed (a valid seed) and dropped as a spaced
@@ -2420,6 +2438,9 @@ def test_shard_owner_kernel_matches_plain(cuda, ndb, n):
         tbl.shard_owner(x.to(cuda), 0)
 
 
+K128_TILE = 2048  # csrc/encode128.cu kTile: the pack's positions a block
+
+
 def _codes128(rng, B, L, n_prob=0.03):
     codes = rng.integers(0, 4, (B, L)).astype(np.int8)
     codes[rng.random((B, L)) < n_prob] = -1
@@ -2430,9 +2451,13 @@ def _codes128(rng, B, L, n_prob=0.03):
 @pytest.mark.parametrize("k", [33, 40, 55, 64])
 @pytest.mark.parametrize("canon", [False, True])
 def test_pack_kmers128_kernel_matches_plain(cuda, k, canon):
-    """Rows of two tiles and a ragged one, an all-N row, Ns at the ends of
-    a thread's run and of a tile, N runs longer than k, P = 1, codes past
-    3 (packed again from their codes) and a row of one tile exactly."""
+    """Rows of four tiles and a ragged one, an all-N row, Ns at the ends
+    of a thread's run and of a tile, N runs longer than k, P = 1, codes
+    past 3 (packed again from their codes; in the canonical pack, the rc
+    formula), rows of one and two tiles exactly, rows whose P is odd
+    (every other row starts its lanes off 16 B, and each ends inside a
+    16-B pair), and rows that start 3 bytes past 16 B (``codes[:,
+    3:1000]`` in place)."""
     from bonsai_tpu_torch.core import encode128 as e
 
     rng = np.random.default_rng(k + canon)
@@ -2440,14 +2465,26 @@ def test_pack_kmers128_kernel_matches_plain(cuda, k, canon):
     codes[1, :] = -1
     codes[2, 15::16] = -1  # the last window start of each thread's run
     codes[3, 4095:4097] = -1
+    codes[3, K128_TILE - 1:K128_TILE + 1] = -1
     codes[4, 500:700] = -1
     codes[5, rng.integers(0, codes.shape[1], 40)] = rng.integers(
         4, 128, 40).astype(np.int8)
-    for c in (codes, codes[:, : k], codes[:2, : 4096 + k - 1],
-              codes[:, 3:1000].copy()):
+    codes[5, [0, 16, K128_TILE + 3]] = [4, 127, 64]  # in a run's first window
+    before = e.pack_kmers128.launches
+    for c in (codes, codes[:, : k], codes[:2, : K128_TILE + k - 1],
+              codes[:2, : 4096 + k - 1], codes[:, 3:1000].copy(),
+              codes[:5, : 1001 + k - 1]):
         c = torch.from_numpy(np.ascontiguousarray(c))
         _same(e.pack_kmers128(c.to(cuda), k, canon),
               e.pack_kmers128_plain(c, k, canon))
+    # codes[:, 3:1000] laid out from 3 bytes past a 16-B boundary
+    c = torch.from_numpy(np.ascontiguousarray(codes[:, 3:1000]))
+    flat = torch.empty(3 + c.numel(), dtype=torch.int8, device=cuda)
+    flat[3:] = c.reshape(-1).to(cuda)
+    view = flat[3:].view(c.shape)
+    assert view.data_ptr() % 16 == 3
+    _same(e.pack_kmers128(view, k, canon), e.pack_kmers128_plain(c, k, canon))
+    assert e.pack_kmers128.launches == before + 7
 
 
 @pytest.mark.cuda
