@@ -1,5 +1,5 @@
 """Command line of the PyTorch/CUDA port: ``build``, ``prebuild``,
-``classify`` and the sketch front-ends.
+``classify``, the sketch front-ends and the index and taxonomy tools.
 
 Flags follow ``bonsai_tpu/cli.py`` (and the reference ``bonsai``
 subcommands, bin/bonsai.cpp) for the ported slice:
@@ -36,6 +36,13 @@ subcommands, bin/bonsai.cpp) for the ported slice:
          [--device cuda|cpu]
   ssi-build SKETCHES... -o OUT [-r REGS] [-k K] [--device cuda|cpu]
   ssi-screen INDEX QUERIES... [-n TOPN] [-r REGS] [--device cuda|cpu]
+  hist DB [OUT] [--device cuda|cpu]
+  lca nodes.dmp TAXIDS...
+  taxmap NAMEIDMAP OUT
+  fahist GENOMES... [-o OUT]
+  kmeridx GENOME [-k K] -o OUT [--device cuda|cpu]
+  metatree nodes.dmp NAMEIDMAP GENOMES... [-k K] [-F paths] [-L TAXID]...
+           [-n NELEM] [-o OUT] [-C] [--device cuda|cpu]
 
 ``classify``, the ``--device-build`` builds, the shard owners of
 ``build --shards`` and the sketch front-ends run on ``--device`` (default
@@ -72,10 +79,15 @@ process group from torchrun's environment (one rank a process); a run of
 several processes writes per-rank parts to ``-o DIR``, which
 ``merge-parts DIR`` joins into the one-process stream.  ``probe-image``
 of a sharded directory bakes per-rank images for ``--db-ranks`` ranks.
+The index and taxonomy tools print and write what the JAX package's
+do: ``hist`` counts a database's values on ``--device``, ``kmeridx``
+(``db/kmeridx.py``) encodes with KB1 and sorts on ``--device`` and writes
+the JAX writer's bytes (gzipped), ``metatree`` (``metatree/``) builds
+its k-mer sets with KB1 and its bit patterns on ``--device``; ``lca``,
+``taxmap`` and ``fahist`` parse text on the host.
 The option of ``bonsai_tpu`` that is not ported (k > 32 in the build)
-and its other subcommands exit 2 with the ROADMAP item that holds them;
-so does a database that is neither BTPU1 nor a khash image (naming
-neither).
+exits 2 with the ROADMAP item that holds it; so does a database that is
+neither BTPU1 nor a khash image (naming neither).
 """
 
 from __future__ import annotations
@@ -180,10 +192,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--out", default=None, help="default: stdout")
     p.set_defaults(run=_cmd_merge_parts)
     _sketch_parsers(sub)
-    for name, (aliases, item) in UNPORTED_COMMANDS.items():
-        sub.add_parser(name, aliases=aliases,
-                       help=f"not ported (ROADMAP queue A, item {item})"
-                       ).set_defaults(unported=(name, item))
+    _index_parsers(sub)
     return ap
 
 
@@ -361,12 +370,54 @@ def _sketch_tool_parsers(sub) -> None:
     p.set_defaults(run=_cmd_errexp)
 
 
-# the subcommands of bonsai_tpu that the port lacks: name -> (aliases,
-# the ROADMAP queue A item that holds it)
-UNPORTED_COMMANDS = {
-    "hist": ([], "12"), "lca": ([], "12"), "taxmap": ([], "12"),
-    "fahist": ([], "12"), "kmeridx": ([], "12"), "metatree": ([], "12"),
-}
+def _index_parsers(sub) -> None:
+    p = sub.add_parser("hist",
+                       help="taxid -> kmer-count histogram of a database")
+    p.add_argument("db")
+    p.add_argument("out", nargs="?", default=None)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_hist)
+
+    p = sub.add_parser("lca", help="LCA of taxids")
+    p.add_argument("tax_path")
+    p.add_argument("taxids", nargs="+", type=int)
+    p.set_defaults(run=_cmd_lca)
+
+    p = sub.add_parser("taxmap", help="build + save a name->taxid map")
+    p.add_argument("nameidmap")
+    p.add_argument("out")
+    p.set_defaults(run=_cmd_taxmap)
+
+    p = sub.add_parser("fahist",
+                       help="sequence-length histogram (bin/fahist.cpp)")
+    p.add_argument("paths", nargs="+")
+    p.add_argument("-o", "--out", default=None)
+    p.set_defaults(run=_cmd_fahist)
+
+    p = sub.add_parser("kmeridx",
+                       help="build a positional kmer index (bin/kmeridx.cpp)")
+    p.add_argument("path")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-o", "--out", required=True)
+    _device_arg(p)
+    p.set_defaults(run=_cmd_kmeridx)
+
+    p = sub.add_parser("metatree",
+                       help="data-driven taxonomy restructuring "
+                            "(bin/bonsai.cpp:410-518)")
+    p.add_argument("tax_path", help="nodes.dmp")
+    p.add_argument("nameidmap")
+    p.add_argument("paths", nargs="*")
+    p.add_argument("-k", type=int, default=31)
+    p.add_argument("-F", "--paths-file", default=None)
+    p.add_argument("-L", "--accept-lca", type=int, action="append",
+                   default=[])
+    p.add_argument("-n", "--nelem", type=int, default=0,
+                   help="nodes to emit (default roundup64(|tax|)-|tax|)")
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("-C", "--no-canon", action="store_true")
+    _device_arg(p)
+    p.set_defaults(run=_cmd_metatree)
 
 
 def _device_args(p) -> None:
@@ -409,11 +460,6 @@ def main(argv=None) -> int:
     if args.cmd is None:
         ap.print_help()
         return 1
-    if getattr(args, "unported", None):
-        name, item = args.unported
-        print(f"not ported: the subcommand {name} (ROADMAP queue A, item "
-              f"{item})", file=sys.stderr)
-        return 2
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
     build = args.cmd in ("build", "p2", "phase2")
@@ -425,7 +471,7 @@ def main(argv=None) -> int:
     from .db.formats import NotADatabase
 
     try:
-        if hasattr(args, "run"):  # probe-image, a sketch front-end
+        if hasattr(args, "run"):  # probe-image, a tool
             return args.run(args)
         if args.cmd == "classify":
             return _cmd_classify(args)
@@ -1068,4 +1114,159 @@ def _cmd_errexp(args) -> int:
                 c2.update(b)
                 print(f"{n}\thll/css\t{1 << p}\t{j:.3f}\t"
                       f"{h1.jaccard(h2):.4f}\t{c1.jaccard(c2):.4f}")
+    return 0
+
+
+# -- index and taxonomy tools (bonsai_tpu/cli.py:629-675,950-974,1066-1125) ---
+
+def _cmd_hist(args) -> int:
+    """Histogram of k-mers per taxid (bin/bonsai.cpp:351-374): the
+    distinct values counted on the device, in a stable order of their
+    counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from .core.bitops import SIGN
+    from .db.build_device import as_device
+    from .db.formats import (import_bonsai_database, load_database,
+                             load_database_sharded)
+
+    dev = as_device(args.device)
+    if os.path.isdir(args.db):
+        db = load_database_sharded(args.db)
+    else:
+        try:
+            db = load_database(args.db)
+        except ValueError:
+            db = import_bonsai_database(args.db)
+    vals = np.ascontiguousarray(db.table.vals_sorted)
+    flip = SIGN if vals.dtype == np.uint64 else 0  # unsigned order
+    v = torch.from_numpy(vals.astype(np.uint64).view(np.int64)).to(dev) ^ flip
+    uniq, counts = torch.unique(v, sorted=True, return_counts=True)
+    _, order = torch.sort(counts, stable=True)
+    uniq = ((uniq[order] ^ flip).cpu().numpy().view(np.uint64)
+            .astype(vals.dtype))
+    counts = counts[order].cpu().numpy()
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        out.write("Name\tCount\n")
+        out.write("".join(f"{v}\t{c}\n" for v, c in zip(uniq, counts)))
+    finally:
+        if args.out:
+            out.close()
+    return 0
+
+
+def _cmd_lca(args) -> int:
+    from .taxonomy.tree import TaxTree
+
+    tree = TaxTree.from_nodes_dmp(args.tax_path)
+    acc = args.taxids[0]
+    for t in args.taxids[1:]:
+        acc = tree.lca(acc, t)
+    print(acc)
+    return 0
+
+
+def _cmd_taxmap(args) -> int:
+    import json
+
+    from .taxonomy.ncbi import parse_nameid_map
+
+    nm = parse_nameid_map(args.nameidmap)
+    with open(args.out, "w") as fh:
+        json.dump(nm, fh)
+    print(f"wrote {len(nm)} names", file=sys.stderr)
+    return 0
+
+
+def _cmd_fahist(args) -> int:
+    """fahist (bin/fahist.cpp): each file's sequence lengths and their
+    counts; host work."""
+    from collections import Counter
+
+    from .io import fastx
+
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        for path in args.paths:
+            hist = Counter(len(seq) for _, seq, _ in fastx.read_fastx(path))
+            out.write(f"#{path}\n")
+            for length in sorted(hist):
+                out.write(f"{length}\t{hist[length]}\n")
+    finally:
+        if args.out:
+            out.close()
+    return 0
+
+
+def _cmd_kmeridx(args) -> int:
+    from .db.kmeridx import KmerIdx
+
+    idx = KmerIdx(args.k, args.path, device=args.device)
+    idx.write(args.out)
+    print(f"indexed {len(idx)} distinct {args.k}-mers", file=sys.stderr)
+    return 0
+
+
+def _cmd_metatree(args) -> int:
+    """metatree_main (bin/bonsai.cpp:410-518): group the genomes' taxa by
+    parent, score the shared k-mer bit patterns of each group on the
+    device, emit the best candidate new taxonomy nodes."""
+    from .core.spacer import Spacer
+    from .db.build_device import as_device
+    from .metatree.flextree import FMEmitter
+    from .metatree.tx import _taxid_of_path
+    from .taxonomy.ncbi import parse_nameid_map
+    from .taxonomy.tree import TaxTree
+
+    dev = as_device(args.device)
+    tree = TaxTree.from_nodes_dmp(args.tax_path)
+    name_map = parse_nameid_map(args.nameidmap)
+    sp = Spacer(args.k, args.k)
+
+    # filter genomes by accepted LCAs (accepted_pass, bin/bonsai.cpp:404)
+    tax_to_paths = {}
+    for p in _paths(args):
+        tid = _taxid_of_path(p, name_map)
+        if tid is None:
+            continue
+        if args.accept_lca and not any(
+            tree.lca(lca, tid) == lca for lca in args.accept_lca
+        ):
+            continue
+        tax_to_paths.setdefault(tid, []).append(p)
+    if not tax_to_paths:
+        print("no genomes mapped to taxa", file=sys.stderr)
+        return 1
+
+    # tax2desc map: each taxon also sees its descendants' genomes
+    # (tax2desc_genome_map, util.h:1023)
+    desc_map = {t: list(ps) for t, ps in tax_to_paths.items()}
+    for t, ps in tax_to_paths.items():
+        tid = t
+        while True:
+            parent = tree.parent_map.get(tid, 0)
+            if parent == 0:
+                break
+            desc_map.setdefault(parent, []).extend(ps)
+            tid = parent
+
+    fme = FMEmitter(tree, desc_map, canonicalize=not args.no_canon,
+                    to_add=args.nelem, device=dev)
+    # group leaf taxa by parent, one subtree per parent group
+    groups = {}
+    for t in tax_to_paths:
+        groups.setdefault(tree.parent_map.get(t, 0), []).append(t)
+    for parent, taxes in sorted(groups.items()):
+        fme.process_subtree(parent, sorted(taxes), sp)
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        emitted = fme.run_collapse(max(tree.parent_map), out)
+    finally:
+        if args.out:
+            out.close()
+    print(f"emitted {len(emitted)} candidate nodes", file=sys.stderr)
     return 0

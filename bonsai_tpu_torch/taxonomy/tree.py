@@ -10,13 +10,15 @@ numpy, identical array for array to the JAX package's tree:
   * ``lift``     (levels, N) binary-lifting ancestor table
 
 ``device_arrays(device)`` hands these to the classify kernels as torch
-tensors.  The metatree helpers of the JAX tree (invert, descendants,
-resolve_tree_host) are not ported yet.
+tensors.  The host queries (``lca``, ``lca_pairs``, ``lca_reduce``,
+``resolve_tree_host``, ``node_depth``, ``is_ancestor``) keep the
+reference's lca() contract, and ``invert``/``descendants`` serve the
+metatree tools.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
@@ -47,6 +49,14 @@ class TaxTree:
         self._build_lift()
 
     # -- compact index mapping -------------------------------------------
+    def _compact_scalar(self, tid: int) -> int:
+        if tid == 0:
+            return 0
+        i = int(np.searchsorted(self.tax_ids, tid))
+        if i >= len(self.tax_ids) or self.tax_ids[i] != tid:
+            raise KeyError(f"taxid {tid} not in taxonomy")
+        return i + 1
+
     def compact(self, taxids, missing_ok: bool = False) -> np.ndarray:
         """uint32 taxids -> compact indices; unknown ids -> 0 when
         missing_ok, else raise."""
@@ -58,6 +68,10 @@ class TaxTree:
             bad = t[~(found | (t == 0))]
             raise KeyError(f"taxids not in taxonomy: {bad[:10]}")
         return np.where(found, i_c + 1, 0).astype(np.int32)
+
+    def original(self, compact_idx) -> np.ndarray:
+        """Compact indices -> original uint32 taxids (0 for index 0)."""
+        return self.tax_ids_compact()[np.asarray(compact_idx, dtype=np.int64)]
 
     def depth_of(self, taxids) -> np.ndarray:
         """node_depth of each taxid; 0 for a taxid absent from the tree."""
@@ -142,6 +156,103 @@ class TaxTree:
         res = np.where(a0 == 0, b0, res)
         res = np.where(b0 == 0, np.where(a0 == 0, 0, a0), res)
         return res
+
+    def node_depth(self, taxid: int) -> int:
+        return int(self.depth[self._compact_scalar(taxid)])
+
+    def is_ancestor(self, anc, desc) -> np.ndarray:
+        a = self.compact(anc, missing_ok=True)
+        d = self.compact(desc, missing_ok=True)
+        return (self.tin[a] <= self.tin[d]) & (self.tin[d] <= self.tout[a])
+
+    def lca(self, a: int, b: int) -> int:
+        """Reference-exact pairwise LCA on original taxids (util.h:634-663):
+        lca(a,a)=a, lca(x,0)=x, missing taxid -> 0xFFFFFFFF, disjoint -> 1."""
+        if a == b:
+            return a
+        if b == 0:
+            return a
+        if a == 0:
+            return b
+        try:
+            ca = self._compact_scalar(a)
+            cb = self._compact_scalar(b)
+        except KeyError:
+            return TAX_MISSING
+        r = int(self._lca_compact(np.array([ca]), np.array([cb]))[0])
+        return int(self.original([r])[0]) if r else 1
+
+    def lca_pairs(self, a, b) -> np.ndarray:
+        """Vectorized LCA over original-taxid arrays with the scalar's
+        precedence: a == b, then the 0 identities, then a missing taxid
+        (TAX_MISSING), then disjoint roots (1)."""
+        a = np.asarray(a, dtype=np.uint32)
+        b = np.asarray(b, dtype=np.uint32)
+        ca = self.compact(a, missing_ok=True)
+        cb = self.compact(b, missing_ok=True)
+        r = self._lca_compact(ca, cb)
+        out = self.original(r)
+        out = np.where((r == 0) & (ca != 0) & (cb != 0), 1, out)  # disjoint
+        out = np.where(((ca == 0) & (a != 0)) | ((cb == 0) & (b != 0)),
+                       TAX_MISSING, out)
+        out = np.where(a == 0, b, out)
+        out = np.where(b == 0, a, out)
+        out = np.where(a == b, a, out)
+        return out.astype(np.uint32)
+
+    def lca_reduce(self, taxids: Iterable[int]) -> int:
+        """Fold LCA over a collection (resolve_tree's tie handling); 0 for
+        none."""
+        it = iter(taxids)
+        acc = next(it, 0)
+        for t in it:
+            acc = self.lca(acc, t)
+        return acc
+
+    def resolve_tree_host(self, hit_counts: Dict[int, int]) -> int:
+        """Reference-exact resolve_tree (util.h:831-869): argmax over
+        leaf-to-root path weights; ties -> LCA of the tied taxa."""
+        max_taxa = []
+        max_taxon, max_score = 0, 0
+        for taxon in hit_counts:
+            node, score = taxon, 0
+            while node:
+                score += hit_counts.get(node, 0)
+                node = self.parent_map.get(node)
+                if node is None:
+                    break
+            if score > max_score:
+                max_taxa = []
+                max_score = score
+                max_taxon = taxon
+            elif score == max_score:
+                if not max_taxa:
+                    max_taxa.append(max_taxon)
+                if taxon not in max_taxa:
+                    max_taxa.append(taxon)
+        return self.lca_reduce(max_taxa) if max_taxa else max_taxon
+
+    # -- inversion (metatree) ---------------------------------------------
+    def invert(self) -> Dict[int, list]:
+        """{parent: [children]} in the parent map's order."""
+        inv: Dict[int, list] = {}
+        for tid, p in self.parent_map.items():
+            inv.setdefault(p, []).append(tid)
+        return inv
+
+    def descendants(self, taxid: int) -> list:
+        """Every descendant of ``taxid``, in the JAX package's order (a
+        depth-first walk from the end of each child list)."""
+        inv = self.invert()
+        out, stack = [], [taxid]
+        while stack:
+            for ch in inv.get(stack.pop(), ()):
+                out.append(ch)
+                stack.append(ch)
+        return out
+
+    def __len__(self) -> int:
+        return len(self.parent_map)
 
     # -- device arrays ---------------------------------------------------
     def device_arrays(self, device) -> Dict[str, torch.Tensor]:

@@ -248,6 +248,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  equal it and each packed register that differs must lie
                  within 2 ulp of a step (counted and printed, with the
                  ulp between the (a, b)); KB1, KB4, KS1, KS2 launched
+ 9i. index and taxonomy tools  after phase 9h, through the port's CLI on
+                 the card in an empty directory: hist of phase 4's ec k=31
+                 database, lca (ec_nodes.dmp: 11 12 13, and 11 99 with 99
+                 absent), taxmap, fahist of the ec genomes and phix.fa,
+                 kmeridx of K-12 at -k 31 and -k 32 (KB1, the stable sort
+                 on the card; the file gunzipped), metatree of the ec
+                 genomes -k 31 -n 16 and with -C (KB1, the bit matrix on
+                 the card; its peak device memory): each output's sha256
+                 and stderr = the JAX CLI's (INDEX_JAX, with the commands
+                 that made them); KB1's launches join its rows
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -853,6 +863,64 @@ TOOLS_JAX = {
     "ssi-screen": dict(
         sha="620ac444e2fd037c4d4a16c86e2d5fff25045a85d48753dfc181161dd5cdefd5"),
 }
+
+# Phase 9i, the index and taxonomy tools: the JAX package's CLI, in an empty
+# directory (JAX_PLATFORMS=cpu, numpy 2.0.2), with G = tests/data/golden, EC
+# the 5 genomes of the golden manifest's "kraken" entry in its order and K12
+# = EC_GENOME, at their absolute paths:
+#   python -m bonsai_tpu build ec.btpu EC -k 31 -T G/ec_nodes.dmp -M
+#     G/ec_nameidmap.txt                         (EC_DB_CMD without FLAGS)
+# then each line of index_cmds (fahist on links in that directory named as
+# the files); its stdout, or its output file (gunzipped for .kidx) -> sha256,
+# beside its stderr
+INDEX_JAX = {
+    "hist": ("572e86f76be012180ee283e0b7bea49d8f3cb9f9a01b57a14b599e1d0eccea91",
+             ""),
+    "lca 11 12 13": (
+        "53c234e5e8472b6ac51c1ae1cab3fe06fad053beb8ebfd8977b010655bfdd3c3", ""),
+    "lca 11 99": (
+        "e65633bae2c4b3af83a315c42cf4acd12e7510275a1b6370fcbf9f51de1b2045", ""),
+    "taxmap": (
+        "01fd6ad3f707c7816d3f5dffe0744df3e3bde66d2e1f38b678ac066994c96332",
+        "wrote 5 names\n"),
+    "fahist": (
+        "9150ec12ec63c7e9ada2e43f7fb43767ff6b2a97fae638fdc3d164b5868eb615", ""),
+    "kmeridx -k 31": (
+        "bc92db473dff459141cb20246a61a4d45f19e74d8cefd096f6916c3300482a06",
+        "indexed 4570839 distinct 31-mers\n"),
+    "kmeridx -k 32": (
+        "2ab9b584e92692024d672289c3b40a6a6cd32c88da0100af7caa6536cd0bf11e",
+        "indexed 4571471 distinct 32-mers\n"),
+    "metatree -k 31 -n 16": (
+        "3623790c4e2dc7af78f088255c9730ce8a88c3ad70c650de8d5e4a24ff30db93",
+        "emitted 9 candidate nodes\n"),
+    "metatree -k 31 -n 16 -C": (
+        "bc9f7ae071a8873c0489d10960968830f4a37b701c613721ccd8a4d63257e2bd",
+        "emitted 9 candidate nodes\n"),
+}
+
+
+def index_cmds(kk):
+    """name -> (argv, what it writes: a file, or "stdout"); the port's CLI
+    gets --device cuda where the subcommand takes it."""
+    genomes = [os.path.join(DATA, "ec", g) for g in kk["genomes"]]
+    nodes = os.path.join(GOLD, kk["nodes"])
+    nameid = os.path.join(GOLD, kk["nameid"])
+    fa = [os.path.basename(p) for p in genomes] + ["phix.fa"]
+    mt = ["metatree", nodes, nameid, *genomes, "-k", "31", "-n", "16"]
+    return {
+        "hist": (["hist", "ec.btpu"], "stdout"),
+        "lca 11 12 13": (["lca", nodes, "11", "12", "13"], "stdout"),
+        "lca 11 99": (["lca", nodes, "11", "99"], "stdout"),
+        "taxmap": (["taxmap", nameid, "names.json"], "names.json"),
+        "fahist": (["fahist", *fa], "stdout"),
+        "kmeridx -k 31": (["kmeridx", EC_GENOME, "-k", "31", "-o",
+                           "k12.31.kidx"], "k12.31.kidx"),
+        "kmeridx -k 32": (["kmeridx", EC_GENOME, "-k", "32", "-o",
+                           "k12.32.kidx"], "k12.32.kidx"),
+        "metatree -k 31 -n 16": (mt, "stdout"),
+        "metatree -k 31 -n 16 -C": (mt + ["-C"], "stdout"),
+    }
 
 
 # name -> (source, the TPU kernel it replaces)
@@ -5230,6 +5298,65 @@ def phase_build_extras(dev, kk, host_secs, card):
             "lca_map device peak MiB": peak / 2**20}
 
 
+def phase_index_tools(dev, kk, db, card):
+    """9i. The index and taxonomy tools through the port's CLI on the card:
+    hist of phase 4's ec k=31 database, lca, taxmap, fahist, kmeridx of
+    K-12 at k = 31 and 32 (KB1, the stable sort on the card) and metatree
+    of the ec genomes (KB1, the bit matrix on the card), each output's
+    sha256 = the JAX CLI's (INDEX_JAX)."""
+    import torch
+
+    from bonsai_tpu_torch.core import encoder
+    from bonsai_tpu_torch.db import formats
+
+    wrappers = [encoder.minimizers]
+    reset_counts(wrappers)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="index.",
+                                          dir=os.path.join(ROOT, "build"))
+    d = tmp_dir.name
+    formats.save_database(db, os.path.join(d, "ec.btpu"))
+    for g in kk["genomes"]:
+        os.symlink(os.path.join(DATA, "ec", g), os.path.join(d, g))
+    os.symlink(os.path.join(DATA, "phix.fa"), os.path.join(d, "phix.fa"))
+    secs, peak, top = {}, None, {}
+    for key, (argv, what) in index_cmds(kk).items():
+        if argv[0] in ("hist", "kmeridx", "metatree"):
+            argv = argv + ["--device", dev.type]
+        if key == "metatree -k 31 -n 16":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, err = _cli(argv, d)
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        if key == "metatree -k 31 -n 16":
+            peak = torch.cuda.max_memory_allocated()
+        if what == "stdout":
+            data = out.encode()
+        else:
+            opener = gzip.open if what.endswith(".kidx") else open
+            with opener(os.path.join(d, what), "rb") as fh:
+                data = fh.read()
+        want_sha, want_err = INDEX_JAX[key]
+        require(err == want_err, f"9i {key}: stderr {err!r}, the JAX CLI's "
+                f"{want_err!r}")
+        require(_sha(data) == want_sha, f"9i {key}: output differs from the "
+                "JAX CLI's")
+        if argv[0] == "metatree":  # its first emitted node
+            top[key] = data.decode().splitlines()[1]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(wrappers).items() if v}
+    say(f"# index tools ({card}): sha256 = the JAX CLI's for "
+        f"{list(secs)}; first nodes {top}; seconds "
+        f"{ {k: round(v, 3) for k, v in secs.items()} }; the ec metatree "
+        f"run's peak device memory {peak / 2**20:.1f} MiB")
+    say(f"# index tools: kernel launches {launches}")
+    require(launches.get("minimizers", 0) > 0,
+            "kernel minimizers never launched in phase 9i")
+    tmp_dir.cleanup()
+    return launches, secs, peak / 2**20
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -5496,9 +5623,11 @@ def main() -> int:
         "9g sharded", phase_sharded, dev, chk, kk, db, tree, shards4)
     times.update(sharded_times)
     bounds.update(sharded_bounds)
-    del db
     extras = phase("9h build extras and sketch tools", phase_build_extras,
                    dev, kk, host_secs, card)
+    index_launches, index_secs, index_peak = phase(
+        "9i index and taxonomy tools", phase_index_tools, dev, kk, db, card)
+    del db
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -5522,6 +5651,8 @@ def main() -> int:
     launches.update(sketch_launches)
     launches.update(format_launches)
     launches.update(sharded_launches)
+    for name, n in index_launches.items():  # KB1's rows, from phase 9i too
+        launches[name] += n
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -5543,7 +5674,9 @@ def main() -> int:
         f"(ranks sharing this one card: no multi-GPU rate): "
         f"{ {k: round(v, 3) for k, v in sharded_nums.items()} }, the "
         f"one-device stream {rps:.6g} reads/s; build extras "
-        f"{ {k: round(v, 3) for k, v in extras.items()} }; total "
+        f"{ {k: round(v, 3) for k, v in extras.items()} }; index tools, wall "
+        f"seconds: { {k: round(v, 3) for k, v in index_secs.items()} }, the "
+        f"ec metatree's peak {index_peak:.1f} MiB; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -65,7 +65,11 @@ KD1's probe on frames with U64_MAX pad runs (against a table that
 stores U64_MAX and one that does not), n of 1, 3, 5 and a block's keys
 +- 1, and pads only; KD1's collect at a thread's and a block's queries
 +- 1, on views at an odd offset, and calls and graph replays on one
-pending word that is never cleared.
+pending word that is never cleared; for the index tools, KmerIdx at k =
+32 (KB1 and the stable sort on the card) whole and in chunks of 97
+windows, with a second add_seq after finalize and its file, and
+bitmap_patterns and pairwise_veccmp at T = 3 and 70, each against the
+CPU.
 Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
@@ -2983,3 +2987,83 @@ def test_genome_kmer_set_on_the_card_equals_the_host(cuda, tmp_path, how,
                              block=block)
         assert np.array_equal(got.keys_sorted, want.keys_sorted)
         assert np.array_equal(got.vals_sorted, want.vals_sorted)
+
+
+# -- index and taxonomy tools --------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1 << 22, 97])
+def test_kmeridx_on_the_card_equals_the_cpu(cuda, tmp_path, monkeypatch,
+                                            block):
+    """KmerIdx at k = 32 (keys with bit 63 set) on the card (KB1, the
+    stable sort) equals KB1's plain version on the CPU: the golden
+    genomes, whole and in chunks of 97 windows, a second add_seq after
+    finalize, and the written file's bytes after gunzip."""
+    import gzip
+
+    from bonsai_tpu_torch.db import kmeridx
+    from bonsai_tpu_torch.io import fastx
+
+    monkeypatch.setattr(kmeridx, "BLOCK", block)
+    rng = np.random.default_rng(32)
+    contigs = [(n, s) for g in GOLDEN_GENOMES
+               for n, s, _ in fastx.read_fastx(g)]
+    seq = bytearray(rng.choice(np.frombuffer(b"ACGTN", np.uint8), 3000))
+    contigs += [(b"rand", bytes(seq)), (b"short", b"ACGT"), (b"empty", b"")]
+    idx = []
+    before = enc.minimizers.launches
+    for i, dev in enumerate((cuda, "cpu")):
+        x = kmeridx.KmerIdx(32, device=dev)
+        for name, s in contigs[:-2]:
+            x.add_seq(name, s)
+        x.finalize()
+        for name, s in contigs[-2:] + contigs[:1]:
+            x.add_seq(name, s)
+        x.write(str(tmp_path / f"{i}.kidx"))
+        idx.append(x)
+    assert enc.minimizers.launches > before
+    got, want = idx
+    assert (want.keys >> np.uint64(63)).any() and len(want) > 0
+    for a in ("keys", "offsets", "positions"):
+        assert np.array_equal(getattr(got, a), getattr(want, a)), a
+    files = [gzip.open(tmp_path / f"{i}.kidx").read() for i in range(2)]
+    assert files[0] == files[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [3, 70])
+def test_bitmap_patterns_on_the_card_equal_the_cpu(cuda, T):
+    """bitmap_patterns and pairwise_veccmp on the card equal the CPU's on
+    the same sets (keys with bit 63 set, an owner on bit 63 where T > 63),
+    and KmerGenomeSets of the golden genomes at k = 32 (KB1) equals the
+    CPU's."""
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.metatree import bitsets
+
+    rng = np.random.default_rng(T)
+    pool = rng.choice(1 << 62, 4000, replace=False).astype(np.uint64)
+    pool[::3] |= np.uint64(1 << 63)
+    pats = rng.random((12, T)) < 0.5
+    which = rng.integers(0, 12, pool.size)
+    sets = [np.sort(pool[pats[which, t]]) for t in range(T)]
+    out = []
+    for dev in (cuda, "cpu"):
+        kgs = bitsets.KmerGenomeSets({}, Spacer(32, 32), device=dev)
+        kgs.taxes, kgs.sets = list(range(T)), sets
+        p, c = bitsets.bitmap_patterns(kgs)
+        out.append((p, c, *bitsets.pairwise_veccmp(p, dev)))
+    assert out[0][0].shape[0] > 2
+    if T > 63:
+        assert (out[0][0][:, 0] >> np.uint64(63)).any()
+    for g, w in zip(*out):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    t2p = {11 + i: [g] for i, g in enumerate(GOLDEN_GENOMES)}
+    before = enc.minimizers.launches
+    got = bitsets.KmerGenomeSets(t2p, Spacer(32, 32), True, device=cuda)
+    assert enc.minimizers.launches > before
+    want = bitsets.KmerGenomeSets(t2p, Spacer(32, 32), True, device="cpu")
+    for g, w in zip(got.sets, want.sets):
+        assert g.size and np.array_equal(g, w)
+    for g, w in zip(bitsets.bitmap_patterns(got),
+                    bitsets.bitmap_patterns(want)):
+        assert np.array_equal(g, w)

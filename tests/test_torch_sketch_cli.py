@@ -157,9 +157,12 @@ def test_cmpshs_matches_jax(tmp_path, metric):
 
 
 # item 12a, ported: css2ss, shs2sketch, stdin2ss, setsketchroller,
-# genome2multiset, errexp, ssi-build and ssi-screen (and their aliases)
+# genome2multiset, errexp, ssi-build and ssi-screen (and their aliases);
+# items 12b and 12c: hist, kmeridx and metatree, which run on the device,
+# and lca, taxmap and fahist, host text work
 SKETCH_TOOLS = {"css2ss", "shs2sketch", "ssi-build", "setsketchscreener",
                 "stdin2ss", "genome2multiset", "setsketchroller", "errexp"}
+DEVICE_TOOLS = {"hist", "kmeridx", "metatree"}
 
 
 @pytest.mark.parametrize("argv", [
@@ -169,12 +172,17 @@ SKETCH_TOOLS = {"css2ss", "shs2sketch", "ssi-build", "setsketchscreener",
     ["fahist", "a"], ["kmeridx", "a", "-o", "b"], ["setsketchroller"],
     ["errexp", "-l", "0.2"], ["metatree", "a", "b"],
 ])
-def test_other_item_12_subcommands_exit_2(tmp_path, argv, capsys):
-    """The subcommands of item 12 still unported exit 2 naming it; the
-    sketch tools of item 12a are ported (``test_torch_sketch_tools.py``)
-    and refused no more: on the default device they ask for the card,
-    and ssi-build without its -o fails argparse's check."""
-    if argv[0] in SKETCH_TOOLS:
+def test_item_12_subcommands_ask_for_the_card_or_their_inputs(
+        tmp_path, monkeypatch, argv, capsys):
+    """Every subcommand of item 12 is ported (``test_torch_sketch_tools.py``,
+    ``test_torch_index_tools.py``, ``test_torch_metatree.py``) and none is
+    refused naming ROADMAP: on the default device the sketch tools, hist,
+    kmeridx and metatree ask for the card before they read an input (ssi-
+    build without its -o fails argparse's check), and lca, taxmap and
+    fahist, which take no device, fail only on their missing input
+    files."""
+    monkeypatch.chdir(tmp_path)  # no input file of these names
+    if argv[0] in SKETCH_TOOLS | DEVICE_TOOLS:
         with pytest.raises((RuntimeError, SystemExit)) as e:
             cli.main(argv)
         err = capsys.readouterr().err
@@ -184,5 +192,7 @@ def test_other_item_12_subcommands_exit_2(tmp_path, argv, capsys):
         else:
             assert "no CUDA device" in str(e.value)
         return
-    assert cli.main(argv) == 2
-    assert "ROADMAP queue A, item 12" in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError) as e:
+        cli.main(argv)
+    assert e.value.filename == argv[1]
+    assert "ROADMAP" not in capsys.readouterr().err
