@@ -41,6 +41,21 @@ def _runs(taxa: np.ndarray) -> List[str]:
     return parts
 
 
+def format_read(name: str, taxon: int, length: int, missing: int,
+                ambig: int, hit_taxa: np.ndarray) -> str:
+    """One Kraken record of a read, in Python (output.py:46): the host
+    C++ formatter writes the same bytes for a batch."""
+    cols = ["C" if taxon else "U", name, str(taxon), str(length)]
+    if missing:
+        cols.append(f"M:{missing}")
+    if ambig:
+        cols.append(f"A:{ambig}")
+    if taxon:
+        cols.extend(_runs(hit_taxa))
+        return "\t".join(cols) + "\n"
+    return "\t".join(cols) + "\t0:0\n"
+
+
 def ambig_count(res, i: int, comb_size: int) -> int:
     """The reference's ambiguous-position count (classifier.h:232-240) in
     u32 wrap-around.  Paired: after mate 1, l1 - c + 1 - valid1; mate 2

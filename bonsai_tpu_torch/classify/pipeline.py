@@ -625,6 +625,23 @@ class Classifier:
         self.n_classified = 0
         self.n_unclassified = 0
 
+    @staticmethod
+    def pack_codes(codes: np.ndarray, with_nmask: bool = True):
+        """(B, L) int8 codes (L % 32 == 0) -> (packed (B, L/16) u32 of
+        2-bit codes, nmask (B, L/32) u32 of ambiguity bits, or None
+        without ``with_nmask``), in numpy (pipeline.py:570); the upload
+        packs through the host C++ packer."""
+        B, L = codes.shape
+        v = np.where(codes < 0, 0, codes).astype(np.uint32).reshape(
+            B, L // 16, 16)
+        packed = np.bitwise_or.reduce(
+            v << (np.arange(16, dtype=np.uint32) * 2), axis=-1)
+        if not with_nmask:
+            return packed, None
+        nb = (codes < 0).astype(np.uint32).reshape(B, L // 32, 32)
+        return packed, np.bitwise_or.reduce(
+            nb << np.arange(32, dtype=np.uint32), axis=-1)
+
     # -- one batch -----------------------------------------------------------
     def _sparse_n_ok(self) -> bool:
         """Whether a batch may ship its in-read Ns as the sparse list of

@@ -2,12 +2,13 @@
 
 Counterpart of ``bonsai_tpu/core/encode.py`` (``pack_kmers``,
 ``pack_spaced_kmers`` and ``_pack`` :50-137, ``position_validity``,
-``apply_mask`` :163-170): the codes at a seed's k included positions fold
-high-first, so the first character lands in the highest used bits
-(encoder.h:547), and a seed holding an ambiguous code (-1, folded as 0)
-is invalid.  A power-of-two radix folds with shift-or (DNA 2 bits,
-PROTEIN 8, PROTEIN_3BIT 3, DNA2 and DNAC 1) and is masked to its bits;
-any other radix (PROTEIN20, PROTEIN_14, PROTEIN_6) folds with
+``apply_mask`` :163-170, ``codes_from_bytes`` :38,
+``overflow_to_canonical_zero`` :154): the codes at a seed's k included
+positions fold high-first, so the first character lands in the highest
+used bits (encoder.h:547), and a seed holding an ambiguous code (-1,
+folded as 0) is invalid.  A power-of-two radix folds with shift-or (DNA
+2 bits, PROTEIN 8, PROTEIN_3BIT 3, DNA2 and DNAC 1) and is masked to its
+bits; any other radix (PROTEIN20, PROTEIN_14, PROTEIN_6) folds with
 multiply-add and takes the modulus radix**k.  Both folds wrap modulo
 2^64 as the JAX package's uint64 arithmetic does: PROTEIN_3BIT at k = 22
 folds 66 bits, and the top bits of the first residue fall off.
@@ -18,9 +19,24 @@ from __future__ import annotations
 import torch
 
 from .alphabet import InputType, bits_of, kmer_mask, radix_of
-from .bitops import SIGN, i64
+from .bitops import SIGN, canonical, i64
 
 U64 = 1 << 64
+
+
+def codes_from_bytes(seq_u8: torch.Tensor, lut) -> torch.Tensor:
+    """(..., L) uint8 bytes -> int8 codes (-1 ambiguous) by the alphabet
+    table ``lut``, on the bytes' device (encode.py:38)."""
+    lut = torch.as_tensor(lut, dtype=torch.int8, device=seq_u8.device)
+    return lut[seq_u8.to(torch.int64)]
+
+
+def overflow_to_canonical_zero(kmers: torch.Tensor, invalid: torch.Tensor,
+                               k: int) -> torch.Tensor:
+    """The canonical k-mer, or 0 where ``invalid``: a seed holding an N
+    becomes ENCODE_OVERFLOW, whose canonical form is 0 (encode.py:154;
+    encoder.h:622-628, kmerutil.h:83-90)."""
+    return torch.where(invalid, 0, canonical(kmers, k))
 
 
 def pack_kmers(codes: torch.Tensor, k: int, it: InputType = InputType.DNA):

@@ -42,10 +42,12 @@ probe the phase-1 image from inside the kernel under ``hash``
 (``csrc/probe.cuh``) and score ``entropy`` where the seed's codes are
 (``csrc/scores.cuh``).  ``minimizers_plain`` and
 ``compacted_minimizers_plain`` are their plain torch versions, which
-serve CPU tensors.  Unwindowed seeds take no score.  k > 32 (item 8.6)
-and the scheme ``hash`` of another input type than DNA (item 8.4b, which
-no entry point reaches) raise ``NotImplementedError`` with their ROADMAP
-queue A item.
+serve CPU tensors.  Unwindowed seeds take no score.  Under ``hash`` a
+k-mer of another input type is probed as its alphabet folds it (the
+shift-or's mask, or the multiply-add's modulus, applied), the value a
+phase-1 map of that input type holds (``minimized_map(input_type=)``).
+k > 32 (item 8.6) raises ``NotImplementedError`` with its ROADMAP queue A
+item.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -114,15 +117,6 @@ def _score_map(score_map: Optional[ScoreMap]) -> ScoreMap:
     return score_map
 
 
-def _check_scheme(scheme: str, it: InputType) -> None:
-    """Refuse the scheme ``hash`` of another input type than DNA, which no
-    entry point reaches (the API takes no phase-1 map, ``build`` no input
-    type)."""
-    if scheme == "hash" and it != DNA:
-        raise _unported(f"the scheme 'hash' of input type "
-                        f"{InputType(it).name}", "8.4b")
-
-
 def _span(k: int, positions: Optional[Sequence[int]]) -> int:
     return k if positions is None else int(positions[-1]) + 1
 
@@ -156,7 +150,6 @@ def minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     c = _span(k, positions)
     if W == 1:  # a window of one seed: no score decides anything
         scheme = "lex"
-    _check_scheme(scheme, it)
     if canon and it != DNA:
         raise ValueError(f"input type {InputType(it).name} is never "
                          "canonicalized")
@@ -268,7 +261,6 @@ def minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, W: int,
     _check_args("minimizers", codes, lengths, k, W, scheme, it)
     if W == 1:  # a window of one seed: no score decides anything
         scheme = "lex"
-    _check_scheme(scheme, it)
     if canon and it != DNA:
         raise ValueError(f"input type {it.name} is never canonicalized")
     B, L = codes.shape
@@ -338,7 +330,6 @@ def compacted_minimizers_plain(codes: torch.Tensor, lengths: torch.Tensor,
     iff j + W <= n_valid.  The scheme ``hash`` scores through
     ``score_map``; ``entropy`` takes eps = 1e-3, and with ``canon`` (DNA)
     canonicalizes each emitted value after the selection."""
-    _check_scheme(scheme, it)
     if canon and (scheme != "entropy" or it != DNA):
         raise ValueError("only the scheme entropy of DNA canonicalizes "
                          "after an uncanonical selection")
@@ -378,7 +369,6 @@ def compacted_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     dev = codes.device
     it = InputType(it)
     _check_args("compacted_minimizers", codes, lengths, k, W, scheme, it)
-    _check_scheme(scheme, it)
     if canon and (scheme != "entropy" or it != DNA):
         raise ValueError("only the scheme entropy of DNA canonicalizes "
                          "after an uncanonical selection")
@@ -483,8 +473,6 @@ class BatchEncoder:
             raise _unported(f"k={spacer.k} (128-bit k-mers)", "8.6")
         self.it = InputType(input_type)
         encode.check_k(self.it, spacer.k)
-        if not spacer.unwindowed():
-            _check_scheme(scheme, self.it)
         self.sp = spacer
         self.scheme = scheme
         self.score_map = score_map  # the phase-1 map of the scheme 'hash'
@@ -508,3 +496,10 @@ class BatchEncoder:
         return compacted_minimizers(codes, lengths, sp.k, sp.window_kmers,
                                     self.scheme, self.score_map, it,
                                     self.canon)
+
+    def emitted_set(self, codes: torch.Tensor,
+                    lengths: torch.Tensor) -> np.ndarray:
+        """Distinct emitted values of a batch: host numpy u64, sorted
+        (encoder.py:223)."""
+        em = self.emissions(codes, lengths)
+        return np.unique(em.values[em.mask].cpu().numpy().view(np.uint64))

@@ -23,8 +23,10 @@
 //   column 1 + j, j < P - W + 1: the minimum of stream positions
 //          [j, j + W - 1], emitted iff j + W <= n_valid.
 // The score is frev64(kmer), the entropy-file score (scores.cuh), the
-// k-mer's value in the phase-1 image, U64_MAX where it is missing (DNA
-// only; probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501), or
+// k-mer's value in the phase-1 image, U64_MAX where it is missing
+// (probe.cuh; ScoreMap.lookup_scores, bonsai_tpu/db/table.py:501; another
+// alphabet's k-mer is probed as its fold leaves it: `minimized_map(...,
+// input_type=)`, bonsai_tpu/db/build.py:644), or
 // the Shannon score of the seed's k codes with eps 1e-3 (scores.cuh; a
 // DNA seed's counted from its uncanonical k-mer); with ``canon`` (DNA,
 // Shannon) every emitted value is then replaced by its canonical form.
@@ -69,7 +71,9 @@
 // One entry point picks the instantiation from its arguments.  In the
 // kGen instantiations another alphabet's k-mer is rolled (shift-or and
 // mask, or multiply-add less the outgoing code times radix^(k-1), both
-// modulo 2^64, then apply_mask), and its Shannon score counts the seed's
+// modulo 2^64, then apply_mask: fold_finish, which the shared stream
+// holds, so that the hash score probes exactly that value), and its
+// Shannon score counts the seed's
 // staged codes once into packed fields (scores.cuh CodeCounts; PROTEIN's
 // 256 codes take shannon_h's passes).  A DNA seed's Shannon score counts
 // its codes from the k-mer (four popcounts, scores.cuh
@@ -692,9 +696,10 @@ extern "C" int bk_compacted_stream(const void* values, const void* valid,
 // P = L - k + 1 >= 1; 1 <= k <= 32, 1 <= W <= 8192, P < 2^30, B <= 65535.
 // ``fold`` 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask
 // ``lim``, 2 multiply-add by ``radix`` with the modulus ``lim``; ``score``
-// 0 lex, 1 entropy-file (quotient by ``denom``), 2 hash (DNA: each valid
-// seed scored by its value in the phase-1 image, slots (nb, 4), lgnb,
-// vbits, vals, n_vals, inline, as db/table.py ProbeArrays.args), 3
+// 0 lex, 1 entropy-file (quotient by ``denom``), 2 hash (each valid seed,
+// as its alphabet folds it, scored by its value in the phase-1 image,
+// slots (nb, 4), lgnb, vbits, vals, n_vals, inline, as db/table.py
+// ProbeArrays.args), 3
 // Shannon (``terms``: k + 1 doubles on the card, ``R`` codes in the
 // alphabet, ``eps``), which alone takes ``canon`` (DNA: each emitted
 // value canonicalized).  Scratch from bk_compacted_minimizers_gen_scratch.
@@ -707,8 +712,7 @@ extern "C" int bk_compacted_minimizers_gen(
   const int64_t P = L - k + 1;
   const bool gen = fold != bk::kFoldDna;
   if (B <= 0 || B > 65535 || P <= 0 || P >= bk::kMaxCount || k < 1 ||
-      k > 32 || W < 1 || W > 8192 || (canon && (gen || score != 3)) ||
-      (gen && score == 2))
+      k > 32 || W < 1 || W > 8192 || (canon && (gen || score != 3)))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.codes = (const int8_t*)codes;
@@ -733,6 +737,7 @@ extern "C" int bk_compacted_minimizers_gen(
       if (gen) return run<kGen, kLexFile>(a, B, scratch, s);
       return run<kDna, kLexFile>(a, B, scratch, s);
     case 2:
+      if (gen) return run<kGen, kHash>(a, B, scratch, s);
       return run<kDna, kHash>(a, B, scratch, s);
     case 3:
       if (!gen) return run<kDna, kShannonDna>(a, B, scratch, s);
@@ -745,11 +750,13 @@ extern "C" int bk_compacted_minimizers_gen(
   return (int)cudaErrorInvalidValue;
 }
 
-// The blocks of bk_compacted_minimizers_gen's hash window launch for a
-// window of W that one SM holds at once, or minus a CUDA error.
-extern "C" int bk_compacted_minimizers_hash_blocks_per_sm(int W) {
+// The blocks of bk_compacted_minimizers_gen's hash window launch (DNA, or
+// with ``gen`` another alphabet) for a window of W that one SM holds at
+// once, or minus a CUDA error.
+extern "C" int bk_compacted_minimizers_hash_blocks_per_sm(int W, int gen) {
   const int smem = window_smem(W, true);
-  const void* f = (const void*)window_kernel<kDna, kHash, 0>;
+  const void* f = gen ? (const void*)window_kernel<kGen, kHash, 0>
+                      : (const void*)window_kernel<kDna, kHash, 0>;
   cudaError_t e = cudaFuncSetAttribute(
       f, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int n = 0;

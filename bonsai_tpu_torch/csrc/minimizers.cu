@@ -36,7 +36,10 @@
 //   another alphabet (the kGen instantiations, core/encode.py :108-137,
 //          :163-170): the spaced discipline with the alphabet's fold
 //          (scores.cuh: shift-or and mask, or multiply-add and modulus,
-//          an ambiguous code folding as 0); its contiguous seeds, at W = 1
+//          an ambiguous code folding as 0), every score but Shannon's of
+//          DNA (the hash score probes the folded value: a spaced -t|-f
+//          phase 2 of that alphabet, bonsai_tpu/db/build.py:644); its
+//          contiguous seeds, at W = 1
 //          only: value = the k-mer, emitted = j < n_push and the seed
 //          holds no ambiguous code (PROTEIN_3BIT's k = 22 fold of 66 bits
 //          can be a real U64_MAX).
@@ -70,7 +73,7 @@
 // (contiguous | spaced) and the score (frev64 | entropy-file | hash) are
 // template parameters, so the contiguous lex instantiation is the kernel
 // it was before them; one entry point picks the instantiation from its
-// arguments.  The hash score (DNA only) probes inside the roll, batched
+// arguments.  The hash score probes inside the roll, batched
 // (RollProbe): each kProbeBatch k-mers of a thread's run go out together
 // (probe.cuh ProbeBatch: every first row loaded before any compare), and
 // their rows arrive while the thread rolls its next kProbeBatch positions,
@@ -79,6 +82,12 @@
 // roll and the probes one after the other (PERF.md, row 6).  The image
 // adds kernel arguments, not shared memory; the rows in flight take
 // registers (2 blocks a SM at kProbeBatch = 4).  Another alphabet's
+// spaced seed under the hash score (kGen, kHash) pushes each position's
+// folded k-mer, fold_finish applied (the mask or the modulus: the value a
+// phase-1 map of that alphabet holds), or U64_MAX for a seed with an
+// ambiguous code, into the same RollProbe; its positions are gathered,
+// not rolled, so the batch's rows arrive while the thread gathers the
+// next kProbeBatch seeds' k codes.  Another alphabet's
 // contiguous seed rolls its fold, one code a position (scores.cuh
 // fold_roll: the mask kept, or the outgoing code times radix^(k - 1), from
 // the host, subtracted first; the last ambiguous code's index says which
@@ -541,15 +550,16 @@ int launch(const void* codes, const void* lengths, int64_t B, int64_t L,
 // otherwise it is contiguous (span = k), canonical with ``canon`` (DNA).
 // ``fold`` 0 is DNA's 2-bit code, 1 shift-or by ``bits`` with the mask
 // ``lim``, 2 multiply-add by ``radix`` with the modulus ``lim``: another
-// alphabet, never canonical, whose contiguous seeds (the rolled fold,
+// alphabet, never canonical, whose spaced seeds take every score, whose
+// contiguous seeds (the rolled fold,
 // W = 1 only) pass 0..k-1 and ``unwindowed``, which that fold does not
 // read; a contiguous DNA seed at W = 1 with
 // ``unwindowed`` set writes 0 as the value of each slot that emits
 // nothing (the sequence-parallel encode of bonsai_tpu_torch/parallel/
 // sharded.py, as sharded_encode_contig, bonsai_tpu/parallel/
 // sharded.py:1283-1285, writes it).  ``score`` 0 lex, 1 entropy-file
-// (quotient by ``denom``), 2 hash (DNA: the phase-1 image, slots (nb, 4), lgnb, vbits,
-// vals, n_vals, inline, as db/table.py ProbeArrays.args), 3 Shannon
+// (quotient by ``denom``), 2 hash (the phase-1 image, slots (nb, 4), lgnb,
+// vbits, vals, n_vals, inline, as db/table.py ProbeArrays.args), 3 Shannon
 // (spaced seeds; ``terms``: k + 1 doubles on the card, ``R`` codes in the
 // alphabet, ``eps``).
 extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
@@ -569,7 +579,7 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
   const bk::Shannon sh{(const double*)terms, R, eps};
   const cudaStream_t s = (cudaStream_t)stream;
   const bool gen = fold != bk::kFoldDna;
-  if (gen && (canon || score == kHash)) return (int)cudaErrorInvalidValue;
+  if (gen && canon) return (int)cudaErrorInvalidValue;
   const bk::Spacing sp =
       spaced ? bk::make_spacing(positions, k) : bk::Spacing{};
 #define BK(kSpaced, kScore, kGen, ...)                                       \
@@ -584,6 +594,7 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
     switch (score) {
       case kLex: BK(true, kLex, true);
       case kEntropy: BK(true, kEntropy, true);
+      case kHash: BK(true, kHash, true);
       case kShannon:
         switch (bk::count_regs(k, R)) {
           case 1: BK(true, kShannon, true, 1);
@@ -610,12 +621,16 @@ extern "C" int bk_minimizers_gen(const void* codes, const void* lengths,
 }
 
 // The blocks of bk_minimizers_gen's hash instantiation (DNA, contiguous
-// or ``spaced``) for a seed of span ``span`` and a window of W that one SM
-// holds at once, or minus a CUDA error.
-extern "C" int bk_minimizers_hash_blocks_per_sm(int spaced, int span, int W) {
+// or ``spaced``; with ``gen``, another alphabet's spaced seed) for a seed
+// of span ``span`` and a window of W that one SM holds at once, or minus
+// a CUDA error.
+extern "C" int bk_minimizers_hash_blocks_per_sm(int spaced, int span, int W,
+                                                int gen) {
   const Layout l = layout(span, W);
-  const void* f = spaced ? (const void*)minimizers_kernel<true, kHash, false>
-                         : (const void*)minimizers_kernel<false, kHash, false>;
+  const void* f =
+      gen      ? (const void*)minimizers_kernel<true, kHash, true>
+      : spaced ? (const void*)minimizers_kernel<true, kHash, false>
+               : (const void*)minimizers_kernel<false, kHash, false>;
   cudaError_t e = cudaFuncSetAttribute(
       f, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
   int n = 0;

@@ -23,7 +23,8 @@ hash (``build -t|-f --phase1-db``):
   ((n_genomes << 32) | lca), lex scores (build.py:594,620);
 * ``minimized_map`` (build.py:644): the genomes' minimizers under the
   phase-1 map's score::Hash order, each kept with the low 32 bits
-  (the taxid) of its phase-1 value.
+  (the taxid) of its phase-1 value; of any input type, whose phase-1
+  map scores its folded k-mers.
 
 Genomes fold in with the shared k-way merge ``btpu_merge_fold_stats``,
 which emits per-key Euler-interval extrema (and the group size) that map
@@ -64,10 +65,33 @@ def TDencode(depth, taxid):
             ) | np.asarray(taxid, dtype=np.uint64)
 
 
+def TDdepth(v):
+    """The depth of a tax-depth value (build.py:46)."""
+    return TAX_T_MAX - (np.asarray(v, dtype=np.uint64) >> np.uint64(32)
+                        ).astype(np.uint32)
+
+
+def TDtax(v):
+    """The taxid of a tax-depth value (build.py:50)."""
+    return (np.asarray(v, dtype=np.uint64) & np.uint64(TAX_T_MAX)
+            ).astype(np.uint32)
+
+
 def FMencode(count, taxid):
     """Feature-count value: (count << 32) | taxid."""
     return (np.asarray(count, dtype=np.uint64) << np.uint64(32)
             ) | np.asarray(taxid, dtype=np.uint64)
+
+
+def FMcount(v):
+    """The genome count of a feature-count value (build.py:60)."""
+    return (np.asarray(v, dtype=np.uint64) >> np.uint64(32)).astype(np.uint32)
+
+
+def FMtax(v):
+    """The taxid of a feature-count value (build.py:64)."""
+    return (np.asarray(v, dtype=np.uint64) & np.uint64(TAX_T_MAX)
+            ).astype(np.uint32)
 
 
 FOLD_EVERY = 8  # genomes buffered between folds (bounds host memory)
@@ -515,17 +539,22 @@ def phase2_content(keys: np.ndarray, phase1: KmerTable,
 
 def minimized_map(paths: Sequence[str], phase1: KmerTable, tree: TaxTree,
                   name_map: Dict[str, int] | str, sp: Spacer,
-                  canonicalize: bool = True) -> KmerTable:
+                  canonicalize: bool = True, input_type: InputType = DNA,
+                  use_device: bool = False, device="cuda") -> KmerTable:
     """Phase 2 from phase 1: the genomes' minimizers under the score::Hash
     order of ``phase1`` (each k-mer scored by its phase-1 value), kept
-    with the taxid of their phase-1 value (feature_min.h:185-190,267-281).
-    ``tree`` is not read; it keeps the JAX signature."""
+    with the taxid of their phase-1 value (feature_min.h:185-190,267-281;
+    build.py:644-668).  ``input_type`` is the genomes' and the phase-1
+    map's (another alphabet's k-mers are scored as its fold leaves them);
+    ``use_device`` and ``device`` are ``genome_kmer_set``'s.  ``tree`` is
+    not read; it keeps the JAX signature."""
     smap = ScoreMap(phase1)
-    _check(sp, canonicalize, "hash", smap)
+    _check(sp, canonicalize, "hash", smap, input_type)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
-    sets = [kset for kset, _ in _genome_sets(paths, sp, canonicalize,
-                                              name_map, "hash", smap)]
+    sets = [kset for kset, _ in _genome_sets(
+        paths, sp, canonicalize, name_map, "hash", smap, input_type,
+        use_device, device=device)]
     keys = np.concatenate(sets) if sets else np.zeros(0, np.uint64)
     return KmerTable(*phase2_content(keys, phase1))
 

@@ -1,8 +1,11 @@
 """Database build on the card: the sort-based deterministic LCA fold.
 
 Counterpart of ``bonsai_tpu/db/build_device.py`` for the disciplines the
-port's encoder takes (DNA, k <= 32: contiguous unwindowed, canonical or
-uncanonical windowed, spaced; lex, entropy-file or phase-1 hash scores).
+port's encoder takes (k <= 32 of every input type: contiguous unwindowed,
+canonical (DNA) or uncanonical windowed, spaced; lex, entropy-file or
+phase-1 hash scores).  Each function takes the JAX ``input_type``: the
+genomes are encoded with that alphabet's table (``alphabet_of(it).lut``)
+and folded as its k-mers fold.
 LCA merging is associative and commutative, so a build is a fold of
 per-genome distinct-minimizer sets:
 
@@ -55,7 +58,7 @@ import os
 
 from .. import kernels
 from ..classify.resolve import lca_device
-from ..core.alphabet import DNA4
+from ..core.alphabet import InputType, alphabet_of
 from ..core.bitops import SIGN, i64
 from ..core.encoder import BatchEncoder
 from ..core.spacer import Spacer
@@ -317,9 +320,11 @@ def _tree_device(tree: TaxTree, device):
 def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
                   node: int, tax, root1: int, block: int, device) -> State:
     """One genome -> its folded state (distinct emitted minimizers with the
-    genome's taxid).  Contigs shorter than the seed span are skipped."""
+    genome's taxid), encoded by the table of the encoder's input type.
+    Contigs shorter than the seed span are skipped."""
     halo = sp.w - 1
     drop0 = drops_partial_window(sp, enc)
+    lut = _lut(enc.it)
     acc = State.empty(device)
     for _, seq, _ in fastx.read_fastx(path):
         if len(seq) < sp.c:
@@ -328,8 +333,7 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
         while start < len(seq):
             end = min(start + block + halo, len(seq))
             is_last = end >= len(seq)
-            codes = torch.from_numpy(fastx.encode_contig(seq[start:end],
-                                                         DNA4.lut))
+            codes = torch.from_numpy(fastx.encode_contig(seq[start:end], lut))
             # The trim reads the previous merge's n on the host one chunk
             # late, as the JAX package does: the card runs that merge
             # while the host parses and encodes this chunk.
@@ -399,14 +403,20 @@ def device_fold_runs(runs: Sequence[Tuple[np.ndarray, int]], tree: TaxTree,
     return _finish_fold(states, tax, root1, want_counts)
 
 
+def _lut(it: InputType) -> np.ndarray:
+    """The alphabet table of the input type ``it`` (build_device.py:424)."""
+    return np.ascontiguousarray(alphabet_of(InputType(it)).lut, np.int8)
+
+
 def _device_gather(paths: Sequence[str], tree: TaxTree, name_map,
                    sp: Spacer, canonicalize: bool, block: int, device,
-                   scheme: str = "lex", score_map: ScoreMap | None = None):
-    _check(sp, canonicalize, scheme, score_map)
+                   scheme: str = "lex", score_map: ScoreMap | None = None,
+                   input_type: InputType = InputType.DNA):
+    _check(sp, canonicalize, scheme, score_map, input_type)
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
     dev = as_device(device)
-    enc = BatchEncoder(sp, canonicalize, scheme, score_map=score_map)
+    enc = BatchEncoder(sp, canonicalize, scheme, input_type, score_map)
     tax, root1 = _tree_device(tree, dev)
     states = []
     for p in paths:
@@ -420,6 +430,7 @@ def _device_gather(paths: Sequence[str], tree: TaxTree, name_map,
 def device_lca_map(paths: Sequence[str], tree: TaxTree,
                    name_map: Dict[str, int] | str, sp: Spacer,
                    canonicalize: bool = True, scheme: str = "lex",
+                   input_type: InputType = InputType.DNA,
                    block: int = 1 << 22, device="cuda") -> KmerTable:
     """Classify database built on the card; content-identical to
     ``db/build.lca_map`` (feature_min.h:178-183,205-228).  As in the JAX
@@ -427,31 +438,36 @@ def device_lca_map(paths: Sequence[str], tree: TaxTree,
     the host build only at equal ``block``: a window that straddles a
     chunk edge next to an N can select another minimizer."""
     states, tax, root1 = _device_gather(paths, tree, name_map, sp,
-                                        canonicalize, block, device, scheme)
+                                        canonicalize, block, device, scheme,
+                                        input_type=input_type)
     keys, taxa = _finish_fold(states, tax, root1, want_counts=False)
     return KmerTable(keys, taxa)
 
 
 def device_taxdepth_map(paths: Sequence[str], tree: TaxTree,
                         name_map: Dict[str, int] | str, sp: Spacer,
-                        canonicalize: bool = True, block: int = 1 << 22,
-                        device="cuda") -> KmerTable:
+                        canonicalize: bool = True,
+                        input_type: InputType = InputType.DNA,
+                        block: int = 1 << 22, device="cuda") -> KmerTable:
     """Phase-1 tax-depth map on the card: kmer -> TDencode(depth, lca)
     (feature_min.h:198-203,230-250)."""
     states, tax, root1 = _device_gather(paths, tree, name_map, sp,
-                                        canonicalize, block, device)
+                                        canonicalize, block, device,
+                                        input_type=input_type)
     keys, taxa = _finish_fold(states, tax, root1, want_counts=False)
     return KmerTable(keys, taxdepth_values(tree, taxa))
 
 
 def device_ftct_map(paths: Sequence[str], tree: TaxTree,
                     name_map: Dict[str, int] | str, sp: Spacer,
-                    canonicalize: bool = True, block: int = 1 << 22,
-                    device="cuda") -> KmerTable:
+                    canonicalize: bool = True,
+                    input_type: InputType = InputType.DNA,
+                    block: int = 1 << 22, device="cuda") -> KmerTable:
     """Phase-1 feature-count map on the card: kmer -> (n_genomes << 32) |
     lca (feature_min.h:192-197,251-265, as intended)."""
     states, tax, root1 = _device_gather(paths, tree, name_map, sp,
-                                        canonicalize, block, device)
+                                        canonicalize, block, device,
+                                        input_type=input_type)
     keys, taxa, counts = _finish_fold(states, tax, root1, want_counts=True)
     return KmerTable(keys, ftct_values(taxa, counts))
 
@@ -459,6 +475,7 @@ def device_ftct_map(paths: Sequence[str], tree: TaxTree,
 def device_minimized_map(paths: Sequence[str], phase1: KmerTable,
                          tree: TaxTree, name_map: Dict[str, int] | str,
                          sp: Spacer, canonicalize: bool = True,
+                         input_type: InputType = InputType.DNA,
                          block: int = 1 << 22, device="cuda") -> KmerTable:
     """Phase 2 on the card (build_device.py:758-784): the genomes'
     minimizers under the score::Hash order of ``phase1`` (its probe image
@@ -466,11 +483,13 @@ def device_minimized_map(paths: Sequence[str], phase1: KmerTable,
     the JAX function folds them (the LCAs are then dropped); the folded
     keys, sorted and distinct, are scored by KB5 ``lookup_scores`` before
     they leave the card, and ``db/build.phase2_content`` keeps those that
-    phase 1 holds.  Content-identical to ``db/build.minimized_map``."""
+    phase 1 holds.  ``input_type`` is the genomes' and the phase-1 map's
+    (KB5 takes folded keys of any alphabet).  Content-identical to
+    ``db/build.minimized_map``."""
     smap = ScoreMap(phase1)
     states, tax, root1 = _device_gather(paths, tree, name_map, sp,
                                         canonicalize, block, device, "hash",
-                                        smap)
+                                        smap, input_type)
     if not states:
         return KmerTable(*phase2_content(np.zeros(0, np.uint64), phase1))
     st = _tree_fold(states, tax, root1)
@@ -606,18 +625,23 @@ class ShardedLCAFold:
 def sharded_lca_map(paths: Sequence[str], tree: TaxTree,
                     name_map: Dict[str, int] | str, sp: Spacer, mesh,
                     canonicalize: bool = True, scheme: str = "lex",
+                    input_type: InputType = InputType.DNA,
                     block: int = 1 << 22, cap: int | None = None) -> KmerTable:
     """The classify database folded over a mesh's ``db`` ranks
     (``bonsai_tpu/db/build_device.py`` ``sharded_lca_map``),
     content-identical to ``db/build.lca_map``.  The stream is encoded on
     the mesh's first device, chunk by chunk as ``device_lca_map``'s; the
     key-range splitters are the quantiles of the keys of the first 16
-    chunks (an even split of [0, 4^k) where they degenerate), and ``cap``
-    (default: an estimate from the input's bytes) bounds each rank."""
+    chunks (an even split of [0, 4^k) where they degenerate, as the JAX
+    rule has it for every input type: content does not depend on the
+    splitters), and ``cap`` (default: an estimate from the input's bytes)
+    bounds each rank.  ``input_type`` is the genomes' (its alphabet's
+    table, build_device.py:675)."""
     if isinstance(name_map, str):
         name_map = parse_nameid_map(name_map)
-    enc = BatchEncoder(sp, canonicalize, scheme)
-    _check(sp, canonicalize, scheme, None)
+    _check(sp, canonicalize, scheme, None, input_type)
+    enc = BatchEncoder(sp, canonicalize, scheme, input_type)
+    lut = _lut(input_type)
     ndb = mesh.shape["db"]
     dev = mesh.device(mesh.local_ranks[0])
     drop0 = drops_partial_window(sp, enc)
@@ -640,7 +664,7 @@ def sharded_lca_map(paths: Sequence[str], tree: TaxTree,
                     end = min(start + block + halo, len(seq))
                     is_last = end >= len(seq)
                     codes = torch.from_numpy(
-                        fastx.encode_contig(seq[start:end], DNA4.lut))
+                        fastx.encode_contig(seq[start:end], lut))
                     em = enc.emissions(
                         codes[None, :].to(dev),
                         torch.tensor([end - start], dtype=torch.int32,

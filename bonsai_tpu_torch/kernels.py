@@ -119,9 +119,10 @@ _SIGS = {
     # kmers, n, the phase-1 image (slots, lgnb, vbits, vals, n_vals,
     # inline), out, stream
     "bk_lookup_scores": [P, I64, P, I32, I32, P, I64, I32, P, P],
-    # the hash instantiations' blocks a SM: spaced, span, W (KB1); W (KB4)
-    "bk_minimizers_hash_blocks_per_sm": [I32, I32, I32],
-    "bk_compacted_minimizers_hash_blocks_per_sm": [I32],
+    # the hash instantiations' blocks a SM: spaced, span, W, gen (KB1; gen:
+    # another alphabet's spaced seed); W, gen (KB4)
+    "bk_minimizers_hash_blocks_per_sm": [I32, I32, I32, I32],
+    "bk_compacted_minimizers_hash_blocks_per_sm": [I32, I32],
     # K128's pack: its blocks a SM
     "bk_pack_kmers128_blocks_per_sm": [],
     # keys, emitted, E, cap, out_keys, out_pad, n_out, scratch, stream

@@ -211,23 +211,25 @@ def bound_lookup_scores(kmers, arr, out):
     return bound(nbytes(kmers, out) + probe_bytes(probes), 40 * probes[0])
 
 
-def hash_queries(codes, lengths, k, canon, positions=None):
+def hash_queries(codes, lengths, k, canon, positions=None, it=None):
     """The k-mers a windowed discipline of the scheme ``hash`` must probe:
     the canonical k-mer (0 for an N window) or the spaced one (U64_MAX for
     an N seed) of each position below max(len - (c - 1), 0), or with
-    ``canon`` None (the uncanonical ``-C -w``) each valid seed."""
+    ``canon`` None (the uncanonical ``-C -w``) each valid seed; of DNA, or
+    of the input type ``it`` (its fold)."""
     from ..core import encode
     from ..core.alphabet import InputType
     from ..core.bitops import canonical
 
+    it = InputType.DNA if it is None else InputType(it)
     if positions is None:
-        kmers, invalid = encode.pack_kmers(codes, k)
+        kmers, invalid = encode.pack_kmers(codes, k, it)
         c = k
     else:
         offsets = [int(b) - int(a) for a, b in zip(positions, positions[1:])]
-        kmers, invalid = encode.pack_spaced_kmers(codes, offsets)
+        kmers, invalid = encode.pack_spaced_kmers(codes, offsets, it)
         c = int(positions[-1]) + 1
-    kmers = encode.apply_mask(kmers, k, InputType.DNA)
+    kmers = encode.apply_mask(kmers, k, it)
     P = kmers.shape[-1]
     pushed = encode.position_validity(lengths, P, c)
     if canon is None:

@@ -136,11 +136,15 @@ the tree's design:
 With ``--hash`` only the hash-scored phase 2's kernels run, at the
 default mode's shapes and maps: KB1 -k 25 -w 37 -t (W = 13) and -k 21 -S
 0x16,1x4 -w 40 -t (W = 16), KB4 -C -k 25 -w 37 -t and KB5 (2^22 k-mers,
-half stored), each by graph replay with its slot rows
-(``bounds.probe_rows``) and G rows/s beside its time.  The change is the
-tree's build of their sources, and each library's blocks a SM (the
-entry points ``bk_*_hash_blocks_per_sm``, appended to a copy of a source
-that lacks them) and ptxas's registers and spills are printed first.
+half stored), and on the genome's frame 0 translated the other
+alphabets' instantiations, KB1 PROTEIN_6 -k 12 -S 1x11 -w 30 -t (W = 8)
+and KB4 PROTEIN20 -k 7 -w 20 -t (W = 14), each by graph replay with its
+slot rows (``bounds.probe_rows``) and G rows/s beside its time.  The
+change is the tree's build of their sources, and each library's blocks a
+SM (the entry points ``bk_*_hash_blocks_per_sm``, the tree's appended to
+a copy of a source that lacks them or put in place of a parent's that
+takes other arguments) and ptxas's registers and spills are printed
+first.
 Each EDIT names an edited copy of the parent's sources (``HASH_EDITS``,
 several joined by '+'), timed in the same turns: a design experiment
 (the probe or the value read taken out, another batch size, KB5 slice
@@ -183,7 +187,7 @@ from ..io import fastx
 from ..taxonomy.tree import TaxTree
 from .bounds import resolve_bound_text
 from .gather_bench import graph_ms, time_ms
-from .synthetic import deep_rows, deep_tree, long_reads
+from .synthetic import deep_rows, deep_tree, long_reads, translate
 
 SEED = 20261016
 ITERS = 100  # calls a timing: a few ms of device time even at 30 us a call
@@ -962,18 +966,24 @@ EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS,
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
-              (0, 25, 13)),
+              (0, 25, 13, 0)),
              ("KB1 spaced hash W=16", "bk_minimizers_hash_blocks_per_sm",
-              (1, 25, 16)),
+              (1, 25, 16, 0)),
+             ("KB1 radix spaced hash W=8", "bk_minimizers_hash_blocks_per_sm",
+              (1, 23, 8, 1)),
              ("KB4 hash window W=13",
-              "bk_compacted_minimizers_hash_blocks_per_sm", (13,)))
+              "bk_compacted_minimizers_hash_blocks_per_sm", (13, 0)),
+             ("KB4 radix hash window W=14",
+              "bk_compacted_minimizers_hash_blocks_per_sm", (14, 1)))
 # the kernels whose registers and spills --hash prints (ptxas -v), by a
 # part of their mangled names (KB4's hash window: the count-and-window
 # design's, or the earlier compaction design's)
 PTXAS = (("KB1 hash", ("minimizers_kernelILb0ELi2ELb0E",)),
          ("KB1 spaced hash", ("minimizers_kernelILb1ELi2ELb0E",)),
+         ("KB1 radix spaced hash", ("minimizers_kernelILb1ELi2ELb1E",)),
          ("KB4 hash window", ("window_kernelILi0ELi1ELi0E",
                               "window_kernelILi1E")),
+         ("KB4 radix hash window", ("window_kernelILi1ELi1ELi0E",)),
          ("KB5", ("lookup_scores_kernel",)))
 
 
@@ -1009,7 +1019,8 @@ def keeps_output(edit: str) -> bool:
 def edited_copy(csrc: str, tag: str, edit=None) -> str:
     """A copy of ``csrc`` under OUT_DIR/``tag`` with the substitutions of
     each EDITS part of ``edit`` made, and the tree's hash occupancy
-    queries (``OCCUPANCY``) appended to a source that lacks them."""
+    queries (``OCCUPANCY``) appended to a source that lacks them, or put
+    in place of a parent's whose arguments differ."""
     out = os.path.join(OUT_DIR, f"src_{tag}")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
@@ -1026,11 +1037,14 @@ def edited_copy(csrc: str, tag: str, edit=None) -> str:
     for f in ("minimizers.cu", "compacted_minimizers.cu"):
         path = os.path.join(out, f)
         text = open(path).read()
-        if "_hash_blocks_per_sm" not in text:
-            own = open(os.path.join(kernels.CSRC, f)).read()
-            query = re.search(r'extern "C" int bk_\w+_hash_blocks_per_sm\(.*?'
-                              r'\n}\n', own, re.S)
-            open(path, "w").write(text + "\n" + query.group(0))
+        pattern = r'extern "C" int bk_\w+_hash_blocks_per_sm\(.*?\n}\n'
+        own = re.search(pattern, open(os.path.join(kernels.CSRC, f)).read(),
+                        re.S).group(0)
+        theirs = re.search(pattern, text, re.S)
+        if theirs is None:
+            open(path, "w").write(text + "\n" + own)
+        elif theirs.group(0) != own:
+            open(path, "w").write(text.replace(theirs.group(0), own))
     return out
 
 
@@ -1149,9 +1163,12 @@ def hash_cases(seq: bytes, dev, rng):
     """(name, call, timer, entry point, slot rows) of the hash-scored phase
     2's kernels on ``seq``'s build chunk: KB1 -k 21 -S 0x16,1x4 -w 40 -t
     (W = 16) and -k 25 -w 37 -t (W = 13), KB5 on 2^22 k-mers (half stored
-    in the latter's map) and KB4 -C -k 25 -w 37 -t (W = 13), each map a
-    ``_phase1_like`` map of the chunk's own seeds; ``bounds.probe_rows``'
-    slot rows of each."""
+    in the latter's map) and KB4 -C -k 25 -w 37 -t (W = 13), then on its
+    frame 0 translated the other alphabets' instantiations: KB1 PROTEIN_6
+    -k 12 -S 1x11 -w 30 (W = 8) and KB4 PROTEIN20 -k 7 -w 20 (W = 14);
+    each map a ``_phase1_like`` map of the chunk's own seeds;
+    ``bounds.probe_rows``' slot rows of each."""
+    from ..core.alphabet import InputType
     from ..core.spacer import Spacer
     from ..db.table import lookup_scores
     from .bounds import hash_queries, probe_rows
@@ -1191,7 +1208,48 @@ def hash_cases(seq: bytes, dev, rng):
                   lambda c=c, ln=ln, smap=smap: enc.compacted_minimizers(
                       c, ln, 25, 13, "hash", smap),
                   graph_ms, KB4, rows))
+    # another alphabet: frame 0 of the sequence translated, as chip_smoke.py
+    # phase 9j's builds (PROTEIN_6 -k 12 -S 1x11 -w 30, PROTEIN20 -k 7 -w 20)
+    for it, k, spacing, w in ((InputType.PROTEIN_6, 12, "1x11", 30),
+                              (InputType.PROTEIN20, 7, "", 20)):
+        sp = Spacer(k, w, spacing)
+        spos = tuple(int(p) for p in sp.positions) if spacing else None
+        c, ln = _frame_chunk(seq, it, sp.c, sp.window_kmers, dev)
+        em = enc.minimizers(c, ln, k, 1, False, "lex", spos, it=it)
+        smap = _phase1_like(em.values[em.mask].cpu().numpy().view(np.uint64),
+                            rng)
+        rows = probe_rows(hash_queries(c, ln, k, False if spos else None,
+                                       spos, it), smap.arrays(dev))[1]
+        W = sp.window_kmers
+        if spos:
+            cases.append((f"minimizers {it.name} -k {k} -S {spacing} -w {w} "
+                          f"-t W={W}",
+                          lambda c=c, ln=ln, smap=smap, it=it, k=k, W=W,
+                          spos=spos: enc.minimizers(c, ln, k, W, False,
+                                                    "hash", spos, smap, it),
+                          graph_ms, KB1, rows))
+        else:
+            cases.append((f"compacted_minimizers {it.name} -k {k} -w {w} -t "
+                          f"W={W}",
+                          lambda c=c, ln=ln, smap=smap, it=it, k=k, W=W:
+                          enc.compacted_minimizers(c, ln, k, W, "hash", smap,
+                                                   it),
+                          graph_ms, KB4, rows))
     return cases
+
+
+def _frame_chunk(seq: bytes, it, span: int, W: int, dev):
+    """The build's chunk of frame 0 of ``seq`` translated, in the codes of
+    the input type ``it``, for a seed of span ``span`` and a window of W:
+    its first 4M windows' codes (all of them where the frame is shorter)
+    and length, on ``dev``."""
+    from ..core.alphabet import alphabet_of
+
+    aa = translate(seq, 0)[: (1 << 22) + span - 1 + W - 1]
+    codes = np.ascontiguousarray(alphabet_of(it).lut, np.int8)[
+        np.frombuffer(aa, np.uint8)]
+    return (torch.from_numpy(codes[None, :]).to(dev),
+            torch.tensor([codes.size], dtype=torch.int32, device=dev))
 
 
 def fold_cases(nodes: str, nameid: str, genomes, dev, rng):

@@ -1,8 +1,9 @@
 """Synthetic inputs for K2 ``resolve`` where the ec batch does not reach:
 a taxonomy of NCBI's size and depth (``deep_tree``), rows over it whose
 reads each walk a real LCA (``deep_rows``), and long reads (P > 1024,
-``long_reads``); and protein for the Python API's alphabets, the forward
-reading frames of a genome (``translate``).  ``chip_smoke.py``,
+``long_reads``); and protein for the Python API's alphabets and the
+other-alphabet builds, the forward reading frames of a genome
+(``translate``, ``write_frames``).  ``chip_smoke.py``,
 ``kernel_ab`` and the tests make them from a numpy seed or the repo's
 genomes.
 """
@@ -137,3 +138,21 @@ def translate(seq: bytes, frame: int) -> bytes:
     code = np.frombuffer(CODE, np.uint8)
     aa = code[(c[:, 0] * 16 + c[:, 1] * 4 + c[:, 2]) % 64]
     return np.where((c < 0).any(1), ord("X"), aa).astype(np.uint8).tobytes()
+
+
+def write_frames(genome: str, out: str, width: int = 80) -> str:
+    """The three forward reading frames of every record of ``genome``,
+    translated (``translate``), as the FASTA file ``out``, lines of
+    ``width`` residues: record ``<name> frame <f>`` for each record name
+    and f = 0, 1, 2, in that order, so that the file's first accession is
+    the genome's and a nameidmap of the genomes resolves it.  Returns
+    ``out``."""
+    with open(out, "wb") as fh:
+        for name, seq, _ in fastx.read_fastx(genome):
+            for f in range(3):
+                aa = translate(seq, f)
+                fh.write(b">%s frame %d\n" % (name, f))
+                fh.write(b"\n".join(aa[i : i + width]
+                                    for i in range(0, len(aa), width)))
+                fh.write(b"\n")
+    return out

@@ -258,6 +258,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the card; its peak device memory): each output's sha256
                  and stderr = the JAX CLI's (INDEX_JAX, with the commands
                  that made them); KB1's launches join its rows
+ 9j. other alphabets  after phase 9i: the 5 ec genomes' forward frames
+                 translated (one FASTA a genome, tools/synthetic
+                 write_frames), built on the card: PROTEIN20 -k 7 -t and
+                 from it -w 20 (KB4 radix hash), PROTEIN_14 -k 10 -t and
+                 -w 24, PROTEIN_6 -k 12 -S 1x11 -t and -w 30 (KB1 radix
+                 hash), sharded_lca_map PROTEIN20 -k 7 at db 4 (each
+                 content digest and size = the JAX package's host build,
+                 ALPHABET_JAX, with the command that made them; wall
+                 seconds, peak device memory); KB1 radix, radix hash,
+                 KB4 radix hash, KB5, KB2, KB3 and the key range
+                 launched; then the two hash instantiations against their
+                 plain versions (K-12's frame 0 by the 9j maps, rows of
+                 every alphabet, PROTEIN_3BIT's real U64_MAX at k = 22,
+                 KB4's halo rows), timed by CUDA-graph replay with their
+                 bounds and blocks a SM
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -900,6 +915,52 @@ INDEX_JAX = {
 }
 
 
+# Phase 9j, other alphabets through the build: each of the 5 genomes of the
+# golden manifest's "kraken" entry as one FASTA of its three forward frames
+# translated (bonsai_tpu_torch.tools.synthetic.write_frames; ~24.7M
+# residues), built on the card in this order: name -> (input type, k, w,
+# spacing, the phase-1 map that scores it: None for a phase-1 -t map, "lca"
+# for the classify map, here sharded_lca_map over 4 db ranks of the one
+# card).  The digests and sizes are the JAX package's host builds of the
+# same files, printed by
+#   JAX_PLATFORMS=cpu python tests/alphabet_build_jax.py
+# (numpy 2.0.2; its BUILDS are these)
+ALPHABET_BUILDS = {
+    "PROTEIN20 -k 7 -t": ("PROTEIN20", 7, 7, "", None),
+    "PROTEIN20 -k 7 -w 20": ("PROTEIN20", 7, 20, "", "PROTEIN20 -k 7 -t"),
+    "PROTEIN_14 -k 10 -t": ("PROTEIN_14", 10, 10, "", None),
+    "PROTEIN_14 -k 10 -w 24": ("PROTEIN_14", 10, 24, "",
+                               "PROTEIN_14 -k 10 -t"),
+    "PROTEIN_6 -k 12 -S 1x11 -t": ("PROTEIN_6", 12, 23, "1x11", None),
+    "PROTEIN_6 -k 12 -S 1x11 -w 30": ("PROTEIN_6", 12, 30, "1x11",
+                                      "PROTEIN_6 -k 12 -S 1x11 -t"),
+    "PROTEIN20 -k 7 lca": ("PROTEIN20", 7, 7, "", "lca"),
+}
+ALPHABET_JAX = {  # name -> (content digest, k-mers)
+    "PROTEIN20 -k 7 -t": (
+        "2395c4ff85c1a39109eba44fbdae5a8de8cd2bab515565cdfd412a36df37eee4",
+        7109605),
+    "PROTEIN20 -k 7 -w 20": (
+        "b5624baaa537398d6386a53aee52b15ec310c2a36cc85926ff4714a7d490a05d",
+        1338157),
+    "PROTEIN_14 -k 10 -t": (
+        "5bd13d45593b4046b2a9ae42702111cd2af0ec1949bfda9eccdfea259d71af2c",
+        6796415),
+    "PROTEIN_14 -k 10 -w 24": (
+        "9602733ef349dcdcea01b382982af4c46b56071979b54f7a478a426cf314c73b",
+        1192303),
+    "PROTEIN_6 -k 12 -S 1x11 -t": (
+        "ba08ac1befe1be6e425dd23df038f5c866249acd748b3938a5ed5e8301d8815b",
+        5988938),
+    "PROTEIN_6 -k 12 -S 1x11 -w 30": (
+        "c7f13964f426b81f1dd25d5e9efc871483002a21359da6bedcedf27792990c15",
+        2206049),
+    "PROTEIN20 -k 7 lca": (
+        "4dbd7d3527dc196ed3b69cb57521041eee08335d38c57c456d33ace4e295470d",
+        7109605),
+}
+
+
 def index_cmds(kk):
     """name -> (argv, what it writes: a file, or "stdout"); the port's CLI
     gets --device cuda where the subcommand takes it."""
@@ -1017,6 +1078,11 @@ KERNELS = {
                       "bonsai_tpu/core/hashes.py:96"),
     "rotl": ("bonsai_tpu_torch/csrc/bitmix.cu",
              "bonsai_tpu/core/hashes.py:123"),
+    "minimizers_radix_hash": ("bonsai_tpu_torch/csrc/minimizers.cu",
+                              "bonsai_tpu/core/encoder.py:189"),
+    "compacted_minimizers_radix_hash": (
+        "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
+        "bonsai_tpu/core/encoder.py:206"),
 }
 # the rows of the sharded classifier and build (phase 9g): instantiations
 # of shared wrappers that only phase 9g launches
@@ -1029,6 +1095,8 @@ API_ROWS = ("minimizers_spaced_shannon", "minimizers_radix",
             "minimizers_radix_shannon", "compacted_minimizers_shannon",
             "compacted_minimizers_radix", "compacted_minimizers_radix_shannon",
             "cyclic_hashes")
+# the rows of other alphabets through the build (phase 9j)
+ALPHABET_ROWS = ("minimizers_radix_hash", "compacted_minimizers_radix_hash")
 # the variants of one wrapper's launch counts (its ``variants`` dict) that
 # each kernel row counts
 VARIANTS = {
@@ -1048,6 +1116,9 @@ VARIANTS = {
         "radix lex", "radix entropy-file")),
     "compacted_minimizers_radix_shannon": ("compacted_minimizers",
                                            ("radix shannon",)),
+    "minimizers_radix_hash": ("minimizers", ("radix hash",)),
+    "compacted_minimizers_radix_hash": ("compacted_minimizers",
+                                        ("radix hash",)),
     "encode_probe": ("encode_probe", ("contiguous",)),
     "encode_probe_sparse": ("encode_probe", ("sparse",)),
     "encode_probe_spaced": ("encode_probe", ("spaced", "spaced sparse")),
@@ -2463,7 +2534,7 @@ def phase_device_build(dev, kk, host_secs):
             require(got == want, f"{what}: device build differs")
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
-    for r in HASH_ROWS + API_ROWS:  # phase 9c's and 9d's
+    for r in HASH_ROWS + API_ROWS + ALPHABET_ROWS:  # 9c's, 9d's and 9j's
         launches.pop(r, None)
     say(f"# device build: kernel launches {launches}")
     for name, n in launches.items():
@@ -2577,10 +2648,10 @@ def phase_spaced_classify(dev, chk, kk, table, hiseq):
             ((t1 + t2) / 2, (p1 + p2) / 2, ev), bnd)
 
 
-def _rows_map(rng, codes, lengths, k, canon, pos, mode):
+def _rows_map(rng, codes, lengths, k, canon, pos, mode, it=0):
     """A phase-1 map of half the seeds of rows ``codes`` (the last two rows
-    left out), 0 and U64_MAX: 6 packed values (inline) or one a key
-    (flat)."""
+    left out; codes of the input type ``it``, DNA by default), 0 and
+    U64_MAX: 6 packed values (inline) or one a key (flat)."""
     import numpy as np
     import torch
 
@@ -2589,7 +2660,7 @@ def _rows_map(rng, codes, lengths, k, canon, pos, mode):
 
     em = enc.minimizers_plain(torch.from_numpy(codes[:-2]),
                               torch.from_numpy(lengths[:-2]), k, 1, canon,
-                              positions=pos)
+                              positions=pos, it=it)
     seeds = np.unique(em.values[em.mask].numpy().view(np.uint64))
     keys = np.unique(np.concatenate([
         rng.choice(seeds, seeds.size // 2, replace=False),
@@ -2920,11 +2991,11 @@ def phase_hash(dev, chk, kk, hiseq):
         times[name] = time_pair(name, f"ec chunk {codes.shape[1]} bases {tag}",
                                 kern, plain, bounds[name], graph=True)
         lib = kernels.get_lib()
-        blocks = (lib.bk_compacted_minimizers_hash_blocks_per_sm(W)
+        blocks = (lib.bk_compacted_minimizers_hash_blocks_per_sm(W, 0)
                   if canon is None else
                   lib.bk_minimizers_hash_blocks_per_sm(int(pos is not None),
                                                        pos[-1] + 1 if pos
-                                                       else k, W))
+                                                       else k, W, 0))
         say(f"# hash: {name}: {probes[1]} slot rows in {times[name][0]:.4f} "
             f"ms, {probes[1] / times[name][0] / 1e6:.2f} G rows/s (KB5's "
             f"pattern is the yardstick: lookup_scores below); {blocks} "
@@ -4627,7 +4698,7 @@ def phase_sharded(dev, chk, kk, db, tree, shards4):
         for r in ("encode_probe", "encode_probe_spaced",
                   "encode_probe_sparse", "minimizers",
                   "minimizers_spaced", "minimizers_entropy", *HASH_ROWS,
-                  *API_ROWS):
+                  *API_ROWS, *ALPHABET_ROWS):
             launches.pop(r, None)  # other phases' rows of these wrappers
         also = read_counts(shared)
         say(f"# sharded: kernel launches {launches}, and of K2, K3, KB2, KB3 "
@@ -5357,6 +5428,250 @@ def phase_index_tools(dev, kk, db, card):
     return launches, secs, peak / 2**20
 
 
+def _frame_codes(path, it):
+    """The first record of ``path`` (a genome's frame 0 translated) as
+    (1, L) codes of the input type ``it`` and its length."""
+    import numpy as np
+
+    from bonsai_tpu_torch.core.alphabet import alphabet_of
+    from bonsai_tpu_torch.io import fastx
+
+    seq = next(iter(fastx.read_fastx(path)))[1]
+    codes = fastx.encode_contig(seq, np.ascontiguousarray(
+        alphabet_of(it).lut, np.int8))[None, :]
+    return codes, np.array([codes.shape[1]], dtype=np.int32)
+
+
+def alphabet_kernels(dev, chk, maps, frame):
+    """KB1's and KB4's hash instantiations of the other alphabets on the
+    card against their plain versions on CPU copies, exact: K-12's frame 0
+    (``frame``) scored by 9j's phase-1 maps, then rows of every type
+    (Ns, N runs, rows shorter than the span, 0 < n_valid < W, a row of the
+    largest code: PROTEIN_3BIT's k = 22 fold is then U64_MAX, a real
+    k-mer), KB1 also at thread-run and tile edges and KB4 on its halo
+    rows, each against a map of half its own seeds (0 and U64_MAX stored),
+    inline and flat."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core.alphabet import InputType, nper64
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def kb1(codes, lengths, k, W, pos, smap, it, tag):
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.minimizers(c.to(dev), ln.to(dev), k, W, False, "hash", pos,
+                             smap, it)
+        chk.same("minimizers_radix_hash", got, enc.minimizers_plain(
+            c, ln, k, W, False, "hash", pos, smap, it), tag)
+        return got
+
+    def kb4(codes, lengths, k, W, smap, it, tag):
+        c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+        got = enc.compacted_minimizers(c.to(dev), ln.to(dev), k, W, "hash",
+                                       smap, it)
+        chk.same("compacted_minimizers_radix_hash", got,
+                 enc.compacted_minimizers_plain(c, ln, k, W, "hash", smap,
+                                                it), tag)
+        return got
+
+    pos6 = _positions(12, "1x11")
+    em = kb1(*_frame_codes(frame, InputType.PROTEIN_6), 12, 8, pos6,
+             maps["PROTEIN_6 -k 12 -S 1x11 -t"], InputType.PROTEIN_6,
+             "K-12 frame 0 PROTEIN_6 -k 12 -S 1x11 W=8, its 9j map")
+    n1 = int(em.mask.sum())
+    for name, it, k, W in (("PROTEIN20 -k 7 -t", InputType.PROTEIN20, 7, 14),
+                           ("PROTEIN_14 -k 10 -t", InputType.PROTEIN_14, 10,
+                            15)):
+        em = kb4(*_frame_codes(frame, it), k, W, maps[name], it,
+                 f"K-12 frame 0 {it.name} -k {k} W={W}, its 9j map")
+    say(f"# alphabets: K-12 frame 0: KB1 PROTEIN_6 {n1} minimizers, KB4 "
+        f"PROTEIN_14 {int(em.mask.sum())}, exact")
+    for it in (InputType.PROTEIN, InputType.PROTEIN20, InputType.PROTEIN_3BIT,
+               InputType.PROTEIN_14, InputType.PROTEIN_6):
+        ks = [min(nper64(it), 7)] + ([22] if it == InputType.PROTEIN_3BIT
+                                     else [])
+        for k in ks:
+            pos = tuple(range(0, 2 * k - 1, 2))  # every other position
+            for mode in ("inline", "flat"):
+                for W in (2, 13):
+                    dna, lengths = _discipline_rows(rng, pos[-1] + 1, W)
+                    codes = _radix_codes(rng, dna, it)
+                    smap = _rows_map(rng, codes, lengths, k, False, pos, mode,
+                                     it)
+                    tag = f"{it.name} k={k} W={W} {mode}"
+                    kb1(codes, lengths, k, W, pos, smap, it, f"rows -S {tag}")
+                    dna, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
+                    kb1(_radix_codes(rng, dna, it), lengths, k, W, pos, smap,
+                        it, f"run and tile edges -S {tag}")
+                    dna, lengths = _discipline_rows(rng, k, W)
+                    codes = _radix_codes(rng, dna, it)
+                    smap = _rows_map(rng, codes, lengths, k, False, None,
+                                     mode, it)
+                    kb4(codes, lengths, k, W, smap, it, f"rows {tag}")
+                dna, lengths = _halo_rows(rng, k, 13)
+                kb4(_radix_codes(rng, dna, it), lengths, k, 13, smap, it,
+                    f"halo rows {it.name} k={k} W=13 {mode}")
+    dna, lengths = _short_rows(rng, 3000, 45)
+    codes = _radix_codes(rng, dna, InputType.PROTEIN20)
+    smap = _rows_map(rng, codes, lengths, 7, False, None, "inline",
+                     InputType.PROTEIN20)
+    kb4(codes, lengths, 7, 13, smap, InputType.PROTEIN20, "3000 rows of 45")
+    kb4(codes, lengths, 7, 40, smap, InputType.PROTEIN20,
+        "3000 rows of 45, P < W")
+    say(f"# alphabets: kernels equal to their plain versions: "
+        f"{ {n: chk.cases[n] for n in ALPHABET_ROWS} } cases")
+
+
+def phase_alphabets(dev, chk, kk):
+    """9j. Other alphabets through the build, on the card: the ec genomes'
+    forward frames translated, a PROTEIN20 -k 7 phase-1 map (KB1 radix
+    rolled, KB2, KB3) and from it the -w 20 phase 2 (KB4 radix hash,
+    multiply-add fold; KB5), PROTEIN_14 -k 10 -w 24 on its own phase-1 map
+    (KB4 radix hash), PROTEIN_6 -k 12 -S 1x11 -w 30 on a spaced phase-1 map
+    of the same seed (KB1 radix and radix hash), sharded_lca_map at
+    PROTEIN20 -k 7 over 4 db ranks of the one card (the key range, KB2,
+    KB3 a rank); each content digest the JAX package's (ALPHABET_JAX).
+    Then the two new instantiations against their plain versions and
+    timed at the builds' shapes."""
+    import torch
+
+    from bonsai_tpu_torch import kernels
+    from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.core.alphabet import InputType
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db.build import content_digest
+    from bonsai_tpu_torch.db.table import ScoreMap, lookup_scores
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.bounds import (bound_compacted_minimizers,
+                                               bound_minimizers, hash_queries,
+                                               probe_rows, spaced_runs)
+    from bonsai_tpu_torch.tools.synthetic import write_frames
+
+    t_all = time.perf_counter()
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    nameid = os.path.join(GOLD, kk["nameid"])
+    tmp_dir = tempfile.TemporaryDirectory(prefix="alphabets.",
+                                          dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    frames = [write_frames(os.path.join(DATA, "ec", g),
+                           os.path.join(tmp_dir.name,
+                                        g.split(".fna")[0] + ".faa"))
+              for g in kk["genomes"]]
+    say(f"# alphabets: 5 genomes' forward frames translated in "
+        f"{time.perf_counter() - t0:.3f}s")
+    # 1. the builds, the counts from 0 before the first and read after the
+    #    last
+    wrappers = [enc.minimizers, enc.compacted_minimizers, lookup_scores,
+                bd.sort_unique, bd.merge_fold, bd.key_range]
+    reset_counts(wrappers)
+    tables, secs, peak = {}, {}, 0
+    for name, (it, k, w, spacing, by) in ALPHABET_BUILDS.items():
+        sp = Spacer(k, w, parse_spacing(spacing, k))
+        it = InputType[it]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if by is None:
+            table = bd.device_taxdepth_map(frames, tree, nameid, sp, True, it,
+                                           device=dev)
+        elif by == "lca":
+            table = bd.sharded_lca_map(frames, tree, nameid, sp,
+                                       make_mesh({"dp": 1, "db": 4}, [dev]),
+                                       True, "lex", it)
+        else:
+            table = bd.device_minimized_map(frames, tables[by], tree, nameid,
+                                            sp, True, it, device=dev)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        p = torch.cuda.max_memory_allocated()
+        peak = max(peak, p)
+        got, (want, n) = content_digest(table), ALPHABET_JAX[name]
+        say(f"# alphabets: {name}{' (sharded, db 4)' if by == 'lca' else ''}"
+            f" --device-build: {table.n} k-mers in {secs[name]:.3f}s, peak "
+            f"device memory {p / 2**20:.1f} MiB; digest "
+            f"{'matches' if got == want else 'DIFFERS'} the JAX package's")
+        require(got == want and table.n == n, f"9j {name}: the device build "
+                "differs from the JAX package's")
+        tables[name] = table
+    torch.cuda.synchronize()
+    counts = read_counts(wrappers)
+    say(f"# alphabets: kernel launches {counts}")
+    for r in ("minimizers_radix", *ALPHABET_ROWS, "lookup_scores",
+              "sort_unique", "merge_fold", "key_range"):
+        require(counts[r] > 0, f"kernel {r} never launched in phase 9j")
+    maps = {n: ScoreMap(t) for n, t in tables.items()
+            if ALPHABET_BUILDS[n][4] is None}
+    del tables
+    # 2. the two new instantiations against their plain versions
+    alphabet_kernels(dev, chk, maps, frames[0])
+    # 3. their times at the builds' shapes: K-12's frame 0 (1,547,217
+    #    residues, one chunk) and its 9j map
+    times, bounds = {}, {}
+    lib = kernels.get_lib()
+    for name, it, k, w, spacing, key in (
+        ("minimizers_radix_hash", InputType.PROTEIN_6, 12, 30, "1x11",
+         "PROTEIN_6 -k 12 -S 1x11 -t"),
+        ("compacted_minimizers_radix_hash", InputType.PROTEIN20, 7, 20, "",
+         "PROTEIN20 -k 7 -t"),
+    ):
+        sp = Spacer(k, w, parse_spacing(spacing, k))
+        W = sp.window_kmers
+        pos = tuple(int(x) for x in sp.positions) if spacing else None
+        codes, lengths = _frame_codes(frames[0], it)
+        c = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        smap = maps[key]
+        if pos is None:
+            def kern(c=c, ln=ln, k=k, W=W, smap=smap, it=it):
+                return enc.compacted_minimizers(c, ln, k, W, "hash", smap, it)
+
+            def plain(c=c, ln=ln, k=k, W=W, smap=smap, it=it):
+                return enc.compacted_minimizers_plain(c, ln, k, W, "hash",
+                                                      smap, it)
+        else:
+            def kern(c=c, ln=ln, k=k, W=W, pos=pos, smap=smap, it=it):
+                return enc.minimizers(c, ln, k, W, False, "hash", pos, smap,
+                                      it)
+
+            def plain(c=c, ln=ln, k=k, W=W, pos=pos, smap=smap, it=it):
+                return enc.minimizers_plain(c, ln, k, W, False, "hash", pos,
+                                            smap, it)
+        probes = probe_rows(hash_queries(c, ln, k, False if pos else None,
+                                         pos, it), smap.arrays(dev))
+        em = kern()
+        bounds[name] = (bound_compacted_minimizers(c, ln, em, W,
+                                                   probes=probes)
+                        if pos is None else
+                        bound_minimizers(c, ln, em, W, probes=probes,
+                                         runs=spaced_runs(pos)))
+        tag = (f"K-12 frame 0, {codes.shape[1]} residues, {it.name} -k {k}"
+               f"{' -S ' + spacing if spacing else ''} -w {w} -t (W = {W})")
+        times[name] = time_pair(name, tag, kern, plain, bounds[name],
+                                graph=True)
+        blocks = (lib.bk_compacted_minimizers_hash_blocks_per_sm(W, 1)
+                  if pos is None else
+                  lib.bk_minimizers_hash_blocks_per_sm(1, pos[-1] + 1, W, 1))
+        say(f"# alphabets: {name}: {probes[0]} probes read {probes[1]} slot "
+            f"rows ({probes[1] / probes[0]:.3f} a probe), {probes[2]} found; "
+            f"{probes[1] / times[name][0] / 1e6:.2f} G rows/s; {blocks} "
+            "blocks a SM")
+    del maps
+    tmp_dir.cleanup()
+    torch.cuda.synchronize()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    wall = time.perf_counter() - t_all
+    say(f"# alphabets: phase 9j wall {wall:.1f}s, peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    launches = {r: counts[r] for r in (
+        "minimizers_radix", *ALPHABET_ROWS, "lookup_scores", "sort_unique",
+        "merge_fold", "key_range")}
+    return launches, times, bounds, secs, peak / 2**20
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -5628,6 +5943,10 @@ def main() -> int:
     index_launches, index_secs, index_peak = phase(
         "9i index and taxonomy tools", phase_index_tools, dev, kk, db, card)
     del db
+    alpha_launches, alpha_times, alpha_bounds, alpha_secs, alpha_peak = phase(
+        "9j other alphabets", phase_alphabets, dev, chk, kk)
+    times.update(alpha_times)
+    bounds.update(alpha_bounds)
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -5653,6 +5972,8 @@ def main() -> int:
     launches.update(sharded_launches)
     for name, n in index_launches.items():  # KB1's rows, from phase 9i too
         launches[name] += n
+    for name, n in alpha_launches.items():  # and the rows of phase 9j
+        launches[name] = launches.get(name, 0) + n
     # K1's slot rows at G1's random 32-B row rate from a table of the ec
     # table's size (128 MiB): a yardstick, not a bound, since K1 reads its
     # rows faster than G1 does (why is not measured)
@@ -5676,7 +5997,9 @@ def main() -> int:
         f"one-device stream {rps:.6g} reads/s; build extras "
         f"{ {k: round(v, 3) for k, v in extras.items()} }; index tools, wall "
         f"seconds: { {k: round(v, 3) for k, v in index_secs.items()} }, the "
-        f"ec metatree's peak {index_peak:.1f} MiB; total "
+        f"ec metatree's peak {index_peak:.1f} MiB; other alphabets, wall "
+        f"seconds: { {k: round(v, 3) for k, v in alpha_secs.items()} }, "
+        f"9j's peak {alpha_peak:.1f} MiB; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

@@ -1839,7 +1839,7 @@ def test_radix_kernels_match_plain(cuda, it, which):
     """Every other alphabet's fold (shift-or and mask, multiply-add and
     modulus) in KB1 (unwindowed contiguous; spaced at W = 1 and 13) and
     KB4 (W = 1 and 13), under lex, entropy-file and Shannon (the scheme
-    hash of these types is refused)."""
+    hash of these types: ``test_radix_hash_kernels_match_plain``)."""
     n = nper64(it)
     k = {"one": 1, "mid": (n + 1) // 2, "nper64": n}[which]
     rng = np.random.default_rng(int(it) * 41 + k)
@@ -1895,6 +1895,94 @@ def test_radix_kernels_keep_a_real_u64_max(cuda):
     assert not want.mask.any()
 
 
+def _radix_map(rng, codes, lengths, k, positions, it, mode):
+    """A phase-1 map of half the seeds of ``codes`` of the type ``it``
+    (contiguous, or spaced at ``positions``; the last two rows left out,
+    so their seeds are missing), and of 0 and U64_MAX."""
+    em = enc.minimizers(torch.from_numpy(codes[:-2]),
+                        torch.from_numpy(lengths[:-2]), k, 1, False, "lex",
+                        positions, it=it)
+    seeds = np.unique(em.values[em.mask].numpy().view(np.uint64))
+    keep = rng.choice(seeds, seeds.size // 2, replace=False)
+    return _score_map(
+        rng, np.concatenate([keep, np.array([0, U64_MAX], np.uint64)]), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["inline", "flat"])
+@pytest.mark.parametrize("W", [2, 13, 16])
+@pytest.mark.parametrize("which", ["mid", "nper64"])
+@pytest.mark.parametrize("it", RADIX_TYPES, ids=lambda t: t.name)
+def test_radix_hash_kernels_match_plain(cuda, it, which, W, mode):
+    """The scheme hash of every other alphabet: KB1's spaced instantiation
+    (every other character) and KB4's windowed one, each k-mer probed as
+    its fold leaves it (the mask or the modulus applied), against maps of
+    half their own seeds; rows with ambiguous codes, a row of the largest
+    code (PROTEIN_3BIT at k = 22: a real U64_MAX, probed and, spaced,
+    dropped), thread-run and tile edges (KB1) and KB4's halo rows; each
+    launch counted as "radix hash"."""
+    n = nper64(it)
+    k = {"mid": (n + 1) // 2, "nper64": n}[which]
+    rng = np.random.default_rng(int(it) * 53 + k * 7 + W)
+    pos = tuple(range(0, 2 * k - 1, 2))
+    codes4, lengths = _discipline_rows(rng, pos[-1] + 1, W)
+    codes = _radix_codes(rng, codes4, it)
+    smap = _radix_map(rng, codes, lengths, k, pos, it, mode)
+    before = enc.minimizers.variants.get("radix hash", 0)
+    want = _run_gen(cuda, "kb1", codes, lengths, k, W, "hash", it, pos, smap)
+    assert enc.minimizers.variants["radix hash"] == before + 1
+    assert want.mask.any()
+    codes4, lengths = _kb1_edge_rows(rng, pos[-1] + 1, W)
+    _run_gen(cuda, "kb1", _radix_codes(rng, codes4, it), lengths, k, W,
+             "hash", it, pos, smap)
+    codes4, lengths = _discipline_rows(rng, k, W)
+    codes = _radix_codes(rng, codes4, it)
+    smap = _radix_map(rng, codes, lengths, k, None, it, mode)
+    before = enc.compacted_minimizers.variants.get("radix hash", 0)
+    want = _run_gen(cuda, "kb4", codes, lengths, k, W, "hash", it,
+                    score_map=smap)
+    assert enc.compacted_minimizers.variants["radix hash"] == before + 1
+    assert want.mask[:, 1:].any()
+    codes4, lengths = _halo_rows(rng, k, W)
+    want = _run_gen(cuda, "kb4", _radix_codes(rng, codes4, it), lengths, k,
+                    W, "hash", it, score_map=smap)
+    if it != InputType.PROTEIN:  # bytes past 127 add ambiguous codes
+        _check_halo_counts(want, W)
+
+
+@pytest.mark.cuda
+def test_radix_hash_kernels_probe_a_real_u64_max(cuda):
+    """PROTEIN_3BIT at k = 22: a run of code 7 folds to U64_MAX, which
+    phase 1 stores; KB4 scores it by its stored value and emits it, KB1
+    spaced probes it and drops the emission, as the plain versions do."""
+    it = InputType.PROTEIN_3BIT
+    rng = np.random.default_rng(22)
+    codes = rng.integers(0, 7, (3, 400)).astype(np.int8)
+    codes[:, 100:160] = 7
+    codes[2, 130] = -1
+    lengths = np.array([400, 350, 400], np.int32)
+    smap = _score_map(rng, np.array([0, U64_MAX], np.uint64), "inline")
+    want = _run_gen(cuda, "kb4", codes, lengths, 22, 9, "hash", it,
+                    score_map=smap)
+    assert (want.values[want.mask] == -1).any()
+    want = _run_gen(cuda, "kb1", codes, lengths, 22, 9, "hash", it,
+                    tuple(range(0, 43, 2)), smap)
+    assert want.mask.any() and not (want.values[want.mask] == -1).any()
+
+
+@pytest.mark.cuda
+def test_radix_hash_instantiations_fit_an_sm(cuda):
+    """The blocks a SM of the two new hash instantiations at phase 9j's
+    shapes (KB1 PROTEIN_6 -k 12 -S 1x11 -w 30: span 23, W = 8; KB4
+    PROTEIN20 -k 7 -w 20: W = 14) and at the largest window: at least one,
+    no CUDA error."""
+    lib = kernels.get_lib()
+    for W in (8, 8192 - 22):
+        assert lib.bk_minimizers_hash_blocks_per_sm(1, 23, W, 1) >= 1
+    for W in (14, 8192):
+        assert lib.bk_compacted_minimizers_hash_blocks_per_sm(W, 1) >= 1
+
+
 KB4_TILE = 4096  # csrc/compacted_minimizers.cu: seed positions a tile
 
 
@@ -1944,6 +2032,8 @@ HALO_KINDS = {
     "radix-shannon": ("entropy", InputType.PROTEIN20, 7, False),
     "radix-shannon-2reg": ("entropy", InputType.PROTEIN20, 14, False),
     "radix-shannon-passes": ("entropy", InputType.PROTEIN, 5, False),
+    "radix-hash": ("hash", InputType.PROTEIN20, 7, False),
+    "radix-hash-shift": ("hash", InputType.PROTEIN_3BIT, 22, False),
 }
 
 
@@ -1962,7 +2052,7 @@ def test_compacted_minimizers_kernel_forward_halo(cuda, kind, W):
         codes = _radix_codes(rng, codes, it)
     if scheme == "hash":
         em = enc.minimizers(torch.from_numpy(codes), torch.from_numpy(lengths),
-                            k, 1, False)
+                            k, 1, False, it=it)
         smap = _score_map(rng, em.values[em.mask].numpy().view(np.uint64)[::2],
                           "inline")
     want = _run_gen(cuda, "kb4", codes, lengths, k, W, scheme, it,
@@ -2136,10 +2226,10 @@ def test_gen_kernels_refuse_what_they_do_not_take(cuda):
         enc.compacted_minimizers(c, ln, 15, 10, it=InputType.PROTEIN20)
     with pytest.raises(ValueError, match="canonicalizes"):
         enc.compacted_minimizers(c, ln, 21, 10, "lex", canon=True)
-    with pytest.raises(NotImplementedError, match="8.4b"):
+    with pytest.raises(ValueError, match="score_map"):
         enc.compacted_minimizers(c, ln, 7, 10, "hash",
                                  it=InputType.PROTEIN20)
-    with pytest.raises(NotImplementedError, match="8.4b"):
+    with pytest.raises(ValueError, match="score_map"):
         enc.minimizers(c, ln, 7, 10, False, "hash", tuple(range(7)),
                        it=InputType.PROTEIN20)
 

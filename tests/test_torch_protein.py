@@ -130,24 +130,44 @@ def test_refused_pairs(it, k):
 @pytest.mark.parametrize("it", [t for t in TYPES if t != InputType.DNA],
                          ids=lambda t: t.name)
 def test_hash_scheme_of_other_types_is_refused(it):
-    """The scheme hash of another input type than DNA, which no entry
-    point of the JAX package reaches (its API takes no phase-1 map, its
-    ``build`` no input type), is refused with its ROADMAP item before any
-    launch; unwindowed seeds take no score and still run."""
+    """The scheme hash of another input type than DNA is refused only
+    without a phase-1 map (the ValueError of a windowed seed, before any
+    launch): with one, carried across from the JAX ``KmerTable``, the
+    spaced (KB1) and windowed (KB4) seeds emit the JAX encoder's
+    minimizers; unwindowed seeds take no score and run as under lex."""
+    from bonsai_tpu.db.table import KmerTable as JTable
+    from bonsai_tpu.db.table import ScoreMap as JScoreMap
+
     from bonsai_tpu_torch.core import encoder as enc
+    from bonsai_tpu_torch.db.table import KmerTable, ScoreMap
 
     rng = np.random.default_rng(int(it))
     codes, lengths = _row(rng, it, 60)
     c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
-    with pytest.raises(NotImplementedError, match="8.4b"):
-        BatchEncoder(Spacer(5, 9), False, "hash", it)
-    with pytest.raises(NotImplementedError, match="8.4b"):
-        BatchEncoder(Spacer(5, 13, "1x4"), False, "hash", it)
-    with pytest.raises(NotImplementedError, match="8.4b"):
+    with pytest.raises(ValueError, match="score_map"):
+        BatchEncoder(Spacer(5, 9), False, "hash", it).emissions(c, ln)
+    with pytest.raises(ValueError, match="score_map"):
+        BatchEncoder(Spacer(5, 13, "1x4"), False, "hash", it).emissions(c, ln)
+    with pytest.raises(ValueError, match="score_map"):
         enc.compacted_minimizers_plain(c, ln, 5, 5, "hash", it=it)
-    with pytest.raises(NotImplementedError, match="8.4b"):
+    with pytest.raises(ValueError, match="score_map"):
         enc.minimizers_plain(c, ln, 5, 5, False, "hash", (0, 2, 4, 6, 8),
                              it=it)
+    for w, spacing in ((9, None), (13, "1x4")):
+        seeds = BatchEncoder(Spacer(5, 5 if spacing is None else 9, spacing),
+                             False, "lex", it).emissions(c, ln)
+        keys = np.unique(seeds.values[seeds.mask].numpy().view(np.uint64))
+        jt = JTable(keys[::2], np.arange(keys[::2].size, dtype=np.uint64))
+        smap = ScoreMap(KmerTable(jt.keys_sorted, jt.vals_sorted,
+                                  min_nb=jt.nb))
+        jem = JEncoder(JSpacer(5, w, spacing), False, "hash", it,
+                       JScoreMap(jt)).emissions(codes, lengths)
+        em = BatchEncoder(Spacer(5, w, spacing), False, "hash", it,
+                          smap).emissions(c, ln)
+        mask = np.asarray(jem.mask)
+        np.testing.assert_array_equal(em.mask.numpy(), mask)
+        np.testing.assert_array_equal(u64(em.values)[mask],
+                                      np.asarray(jem.values)[mask])
     got = BatchEncoder(Spacer(5, 5), False, "hash", it).emissions(c, ln)
     want = BatchEncoder(Spacer(5, 5), False, "lex", it).emissions(c, ln)
     assert torch.equal(got.values, want.values)
