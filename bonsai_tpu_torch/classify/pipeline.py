@@ -5,6 +5,8 @@ runs three hand-written CUDA kernels, each beside its plain torch version:
 
   K1 ``encode_probe``  (B, lproc/16) 2-bit words -> per (read, position)
                        hit, valid, compact taxon index, output value
+                       (``encode_probe_radix``: (B, lproc) int8 codes of
+                       another input type, its alphabet's fold)
   K2 ``resolve``       (classify/resolve.py) per read -> original taxid
   K3 ``step_outputs``  per read -> compact run-length matrix + full
                        positional matrix
@@ -27,6 +29,15 @@ output words) travel in int32 tensors with the same bits.  A batch whose
 longest read fits in 16 bits ships its lengths as ``torch.uint16``, 2 B a
 read, as the JAX package ships them (pipeline.py:667-668); K1 reads
 either width.
+
+Reads of an input type other than DNA (``input_type``: the protein
+alphabets, DNA2, DNAC) upload as int8 codes, one byte a code (the channel
+"codes"), and K1's radix instantiations fold them as the JAX step on int8
+codes does (``_make_step``, pipeline.py:404-463).  The JAX single-chip
+path packs every alphabet into 2 bits (``pack_codes``), which loses the
+bits of any code past 3: its taxa are wrong for every alphabet of more
+than four codes (ROADMAP, "Faults of the JAX package that the port does
+not copy"); the port computes what the JAX step on codes computes.
 """
 
 from __future__ import annotations
@@ -43,9 +54,10 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core.alphabet import DNA4
+from ..core import encode
+from ..core.alphabet import InputType, alphabet_of
 from ..core.bitops import shr
-from ..core.encoder import minimizers_plain
+from ..core.encoder import fold_args, minimizers_plain
 from ..core.spacer import Spacer
 from ..db import formats
 from ..db.table import ProbeArrays, probe_slots, unique_u64
@@ -164,11 +176,36 @@ def encode_probe_plain(pcodes, nmask, lengths, lproc: int, k: int,
     codes = unpack_n(pcodes, nmask, lproc, nidx)
     em = minimizers_plain(codes, widen_lengths(lengths), k, 1, canon,
                           positions=positions)
-    packed, found, sel = probe_slots(em.values, arr, want_idx=True)
-    hit = em.mask & found
+    return _probe_outputs(em.values, em.mask, arr, want_idx)
+
+
+def _probe_outputs(kmers, valid, arr: ProbeArrays, want_idx: bool):
+    """K1's four outputs of the k-mers ``kmers`` valid at ``valid``: (hit,
+    valid, cidx, oidx)."""
+    packed, found, sel = probe_slots(kmers, arr, want_idx=True)
+    hit = valid & found
     cidx = as_i32(torch.where(hit, packed, 0))
     oidx = as_i32(torch.where(hit, sel if want_idx else shr(packed, 32), 0))
-    return hit, em.mask, cidx, oidx
+    return hit, valid, cidx, oidx
+
+
+def _seed_args(lengths, B: int, k: int, positions):
+    """Check K1's lengths (int32 or u16, (B,)) and a spaced seed's offsets
+    -> (the seed's span c, the host offsets or None, 1 where the lengths
+    are u16)."""
+    if lengths.dtype not in (torch.int32, torch.uint16):
+        raise TypeError(f"lengths: dtype {lengths.dtype}, expected int32 or "
+                        "uint16")
+    kernels.check(lengths, "lengths", lengths.dtype, lengths.device, (B,))
+    if positions is not None and (
+            len(positions) != k or int(positions[0]) != 0
+            or any(y <= x for x, y in zip(positions, positions[1:]))):
+        raise ValueError(f"positions {list(positions)}: k={k} increasing "
+                         "offsets from 0 expected")
+    c = k if positions is None else int(positions[-1]) + 1
+    pos = None if positions is None else (ctypes.c_int32 * 32)(
+        *(int(x) for x in positions))
+    return c, pos, int(lengths.dtype == torch.uint16)
 
 
 def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
@@ -177,18 +214,11 @@ def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
     dev = pcodes.device
     B, w16 = pcodes.shape
     kernels.check(pcodes, "pcodes", torch.int32, dev)
-    if lengths.dtype not in (torch.int32, torch.uint16):
-        raise TypeError(f"lengths: dtype {lengths.dtype}, expected int32 or "
-                        "uint16")
-    kernels.check(lengths, "lengths", lengths.dtype, dev, (B,))
+    if lengths.device != dev:
+        raise ValueError(f"lengths: on {lengths.device}, expected {dev}")
     if not 1 <= k <= 32:
         raise ValueError(f"k={k}: the kernel takes 1 <= k <= 32")
-    if positions is not None and (
-            len(positions) != k or int(positions[0]) != 0
-            or any(y <= x for x, y in zip(positions, positions[1:]))):
-        raise ValueError(f"positions {list(positions)}: k={k} increasing "
-                         "offsets from 0 expected")
-    c = k if positions is None else int(positions[-1]) + 1
+    c, pos, len16 = _seed_args(lengths, B, k, positions)
     if lproc > w16 * 16:
         raise ValueError(f"lproc={lproc} exceeds the {w16 * 16} packed codes")
     nmw = 0
@@ -198,9 +228,7 @@ def _k1_args(pcodes, nmask, lengths, lproc: int, k: int, positions):
         if nmask.shape[0] != B or nmw * 32 < lproc:
             raise ValueError(f"nmask shape {tuple(nmask.shape)} does not "
                              f"cover ({B}, {lproc})")
-    pos = None if positions is None else (ctypes.c_int32 * 32)(
-        *(int(x) for x in positions))
-    return nmw, max(lproc - c + 1, 0), pos, int(lengths.dtype == torch.uint16)
+    return nmw, max(lproc - c + 1, 0), pos, len16
 
 
 def encode_probe(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
@@ -342,6 +370,123 @@ def encode_only(pcodes, nmask, lengths, lproc: int, k: int, canon: bool,
                        P, k, int(canon), int(pos is not None), pos,
                        kmers.data_ptr(), valid.data_ptr())
         _count("encode" if positions is None else "spaced encode")
+    return kmers, valid
+
+
+# -- K1's radix instantiations: another input type's int8 codes -------------------
+
+def encode_probe_radix_plain(codes, lengths, k: int, it: InputType,
+                             arr: ProbeArrays, want_idx: bool,
+                             positions=None):
+    """Plain torch of K1's radix instantiations: (B, L) int8 codes of the
+    input type ``it`` (-1 ambiguous or padding) -> emissions at W = 1
+    (the JAX step's encode, ``BatchEncoder.emissions``: the alphabet's
+    fold of the seed's k codes, contiguous or at the offsets
+    ``positions``; a seed past the read or holding an ambiguous code is
+    invalid, and so is a spaced seed's U64_MAX) -> probe_slots -> (hit,
+    valid, cidx int32, oidx int32), as ``encode_probe_plain``; P = L - c +
+    1."""
+    em = minimizers_plain(codes, widen_lengths(lengths), k, 1, False,
+                          positions=positions, it=it)
+    return _probe_outputs(em.values, em.mask, arr, want_idx)
+
+
+def encode_only_radix_plain(codes, lengths, k: int, it: InputType,
+                            positions=None):
+    """Plain torch of K1's radix encode-only instantiation: (kmers int64,
+    0 where not valid; valid)."""
+    em = minimizers_plain(codes, widen_lengths(lengths), k, 1, False,
+                          positions=positions, it=it)
+    return torch.where(em.mask, em.values, 0), em.mask
+
+
+def _radix_args(codes, lengths, k: int, canon: bool, it: InputType,
+                positions):
+    """Check the radix wrappers' inputs (on any device); (P, the host
+    offsets or None, 1 where the lengths are u16)."""
+    it = InputType(it)
+    if it == InputType.DNA:
+        raise ValueError("DNA reads take the 2-bit words: encode_probe")
+    if canon:
+        raise ValueError(f"input type {it.name} is never canonicalized")
+    if codes.dim() != 2:
+        raise ValueError(f"codes: shape {tuple(codes.shape)}, expected (B, L)")
+    B, L = codes.shape
+    kernels.check(codes, "codes", torch.int8, codes.device)
+    if lengths.device != codes.device:
+        raise ValueError(f"lengths: on {lengths.device}, expected "
+                         f"{codes.device}")
+    encode.check_k(it, k)
+    c, pos, len16 = _seed_args(lengths, B, k, positions)
+    return max(L - c + 1, 0), pos, len16
+
+
+def encode_probe_radix(codes, lengths, k: int, canon: bool, it: InputType,
+                       arr: ProbeArrays, want_idx: bool, positions=None):
+    """K1's radix instantiations (``csrc/encode_probe.cu``
+    ``bk_encode_probe_radix``, and ``bk_encode_probe_radix_range`` for an
+    image of a row range): see ``encode_probe_radix_plain``, which serves
+    CPU tensors.  codes (B, L) int8 of the input type ``it`` (not DNA),
+    lengths (B,) int32 or uint16; outputs (B, P), P = L - c + 1.  ``canon``
+    must be False: only DNA is canonicalized.  Counted in
+    ``encode_probe``'s launches as "radix", "spaced radix", "radix range"
+    or "spaced radix range"."""
+    P, pos, len16 = _radix_args(codes, lengths, k, canon, it, positions)
+    if codes.device.type == "cpu":
+        return encode_probe_radix_plain(codes, lengths, k, it, arr, want_idx,
+                                        positions)
+    if codes.device.type != "cuda":
+        raise ValueError(f"encode_probe_radix: no kernel for device "
+                         f"{codes.device}")
+    dev = codes.device
+    B, L = codes.shape
+    arr.check(dev, ranged=True)
+    hit = torch.empty((B, P), dtype=torch.bool, device=dev)
+    valid = torch.empty((B, P), dtype=torch.bool, device=dev)
+    cidx = torch.empty((B, P), dtype=torch.int32, device=dev)
+    oidx = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if B * P:
+        head = (codes.data_ptr(), L, lengths.data_ptr(), len16, B, P, k,
+                int(pos is not None), pos, *fold_args(it, k),
+                arr.slots.data_ptr(), arr.lgnb, arr.vbits,
+                arr.vals.data_ptr(), arr.vals.numel(), int(arr.inline),
+                int(want_idx))
+        tail = (hit.data_ptr(), valid.data_ptr(), cidx.data_ptr(),
+                oidx.data_ptr())
+        if arr.rows:
+            kernels.launch("bk_encode_probe_radix_range", dev, *head,
+                           arr.row0, arr.rows, *tail)
+        else:
+            kernels.launch("bk_encode_probe_radix", dev, *head, *tail)
+        variant = "radix range" if arr.rows else "radix"
+        _count(variant if pos is None else "spaced " + variant)
+    return hit, valid, cidx, oidx
+
+
+def encode_only_radix(codes, lengths, k: int, canon: bool, it: InputType,
+                      positions=None):
+    """K1's radix encode-only instantiation (``bk_encode_only_radix``, the
+    a2a route's encode of another input type): see
+    ``encode_only_radix_plain``, which serves CPU tensors; inputs as
+    ``encode_probe_radix``'s, outputs (B, P) kmers int64 and valid bool.
+    Counted in ``encode_probe``'s launches as "radix encode" or "spaced
+    radix encode"."""
+    P, pos, len16 = _radix_args(codes, lengths, k, canon, it, positions)
+    if codes.device.type == "cpu":
+        return encode_only_radix_plain(codes, lengths, k, it, positions)
+    if codes.device.type != "cuda":
+        raise ValueError(f"encode_only_radix: no kernel for device "
+                         f"{codes.device}")
+    dev = codes.device
+    B, L = codes.shape
+    kmers = torch.empty((B, P), dtype=torch.int64, device=dev)
+    valid = torch.empty((B, P), dtype=torch.bool, device=dev)
+    if B * P:
+        kernels.launch("bk_encode_only_radix", dev, codes.data_ptr(), L,
+                       lengths.data_ptr(), len16, B, P, k,
+                       int(pos is not None), pos, *fold_args(it, k),
+                       kmers.data_ptr(), valid.data_ptr())
+        _count("radix encode" if pos is None else "spaced radix encode")
     return kmers, valid
 
 
@@ -514,7 +659,9 @@ class Prep(NamedTuple):
     """A batch packed on the host (pinned on CUDA): the 2-bit words, the
     N channel's array (the mask, the sparse list or None) and its name,
     the lengths (uint16, or int32 past 0xFFFF), and the processing
-    width."""
+    width.  In the channel "codes" (an input type other than DNA)
+    ``pcodes`` holds the (n, lproc) int8 codes, one byte a code, -1 for
+    an ambiguous code or padding, and there is no N array."""
 
     pcodes: torch.Tensor
     naux: Optional[torch.Tensor]
@@ -542,24 +689,36 @@ def _device(device) -> torch.device:
 
 class Classifier:
     """Classify reads against a database on one device (``device``:
-    "cuda" runs the kernels, "cpu" their plain torch versions)."""
+    "cuda" runs the kernels, "cpu" their plain torch versions).  Reads of
+    ``input_type`` are coded by its alphabet; a type other than DNA is
+    never canonical and ships its reads as int8 codes (the "codes"
+    channel, K1's radix instantiations).  ``trim_table`` frees the
+    database's host layout once its image is on the device
+    (``KmerTable.trim``; it is rebuilt on its next use)."""
+
+    it = InputType.DNA  # the reads' input type (``_set_seed``)
 
     def __init__(self, db: formats.Database, tree, canonicalize: bool = True,
                  emit_all: bool = False, emit_kraken: bool = True,
-                 emit_fastq: bool = False, device="cuda", max_runs: int = 8):
+                 emit_fastq: bool = False,
+                 input_type: InputType = InputType.DNA,
+                 trim_table: bool = True, device="cuda", max_runs: int = 8):
         table = db.table
         slots, vals, inline = table.arrays_np(formats.packed_values(table, tree))
         n_distinct = int(unique_u64(
             tree.compact(table.vals_sorted, missing_ok=True)).size)
         self._setup(slots, vals, inline, table.lgnb, table.vbits, n_distinct,
                     db.k, canonicalize, tree, emit_all, emit_kraken,
-                    emit_fastq, device, max_runs, db.gaps)
+                    emit_fastq, device, max_runs, db.gaps, input_type)
+        if trim_table:
+            table.trim()
 
     @classmethod
     def from_arrays(cls, slots, vals, inline: bool, lgnb: int, vbits: int,
                     n_distinct: int, k: int, tree, canonicalize: bool = True,
                     emit_all: bool = False, emit_kraken: bool = True,
-                    emit_fastq: bool = False, device="cuda",
+                    emit_fastq: bool = False,
+                    input_type: InputType = InputType.DNA, device="cuda",
                     max_runs: int = 8, gaps=None):
         """A classifier over a slot image held as numpy arrays: the
         ``_arrays``, ``_n_distinct`` and tree of a JAX ``Classifier``, or a
@@ -567,12 +726,13 @@ class Classifier:
         self = cls.__new__(cls)
         self._setup(slots, vals, inline, lgnb, vbits, n_distinct, k,
                     canonicalize, tree, emit_all, emit_kraken, emit_fastq,
-                    device, max_runs, gaps)
+                    device, max_runs, gaps, input_type)
         return self
 
     @classmethod
     def from_probe_image(cls, image_path: str, tree, emit_all: bool = False,
                          emit_kraken: bool = True, emit_fastq: bool = False,
+                         input_type: InputType = InputType.DNA,
                          device="cuda", max_runs: int = 8):
         """From a saved probe image (``db/formats.py``): the slot words
         upload straight from the memory map, with no placement."""
@@ -585,29 +745,18 @@ class Classifier:
         return cls.from_arrays(
             img.slots, img.vals, img.inline, img.lgnb, img.vbits,
             img.n_distinct, img.k, tree, img.canonicalize, emit_all,
-            emit_kraken, emit_fastq, device, max_runs, img.gaps,
+            emit_kraken, emit_fastq, input_type, device, max_runs, img.gaps,
         )
 
     def _setup(self, slots, vals, inline, lgnb, vbits, n_distinct, k,
                canonicalize, tree, emit_all, emit_kraken, emit_fastq,
-               device, max_runs, gaps=None):
+               device, max_runs, gaps=None, input_type=InputType.DNA):
         self.device = _device(device)
-        if int(k) > 32:
-            raise NotImplementedError(
-                f"k={k} (128-bit k-mers) is not ported (ROADMAP queue A, "
-                "item 8.6)")
-        # classify always uses w = k (bin/bonsai.cpp:152); a spaced seed
-        # cannot canonicalize (encoder.h:148-150)
-        self.sp = Spacer(int(k), int(k), list(gaps) if gaps else None)
-        self.k = self.sp.k
-        self.canon = bool(canonicalize) and self.sp.unspaced()
-        self.positions = (None if self.sp.unspaced() else
-                          tuple(int(p) for p in self.sp.positions))
+        self._set_seed(k, gaps, canonicalize, input_type)
         self.tree = tree
         self.emit_all = emit_all
         self.emit_kraken = emit_kraken
         self.emit_fastq = emit_fastq
-        self.lut = DNA4.lut
         self.arr = ProbeArrays.from_numpy(slots, vals, inline, lgnb, vbits,
                                           self.device)
         # dictionary mode: with an inline table of <= 2^16 distinct values
@@ -624,6 +773,27 @@ class Classifier:
         self._overflow_bump_after = 3
         self.n_classified = 0
         self.n_unclassified = 0
+
+    def _set_seed(self, k, gaps, canonicalize, input_type) -> None:
+        """The seed and the reads' alphabet: classify always uses w = k
+        (bin/bonsai.cpp:152); a spaced seed cannot canonicalize
+        (encoder.h:148-150), and only DNA ever does (encoder.h:419), so
+        ``canonicalize`` is dropped for another input type, as the JAX
+        encoder drops it (core/encoder.py:99)."""
+        if int(k) > 32:
+            raise NotImplementedError(
+                f"k={k} (128-bit k-mers) is not ported (ROADMAP queue A, "
+                "item 8.6)")
+        self.it = InputType(input_type)
+        self.sp = Spacer(int(k), int(k), list(gaps) if gaps else None)
+        self.k = self.sp.k
+        if self.it != InputType.DNA:
+            encode.check_k(self.it, self.k)
+        self.canon = (bool(canonicalize) and self.sp.unspaced()
+                      and self.it == InputType.DNA)
+        self.positions = (None if self.sp.unspaced() else
+                          tuple(int(p) for p in self.sp.positions))
+        self.lut = alphabet_of(self.it).lut
 
     @staticmethod
     def pack_codes(codes: np.ndarray, with_nmask: bool = True):
@@ -659,7 +829,10 @@ class Classifier:
         granularity (>= 8), so the probe runs at P = lproc - k + 1
         positions (or the ``lproc`` given, the sharded classifier's raw
         step: the codes' width).  The lengths ship as u16 where the longest
-        read is at most 0xFFFF bases (the JAX rule), else as int32."""
+        read is at most 0xFFFF bases (the JAX rule), else as int32.  An
+        input type other than DNA ships its (n, lproc) int8 codes instead,
+        -1 past each read, in the channel "codes" (no N channel: the -1
+        byte carries the ambiguity)."""
         n = len(batch.codes)
         if paired and n % 2:
             raise ValueError("a paired batch holds whole mate pairs")
@@ -669,29 +842,36 @@ class Classifier:
         g = max(8, Lp >> 4)
         if lproc is None:
             lproc = min(Lp, max(-(-maxlen // g) * g, 8))
-        w16 = (lproc + 15) // 16
-        nmw = (w16 + 1) // 2
-        rows = bucket_rows(n, self._batch_multiple(paired))
-        cap = sparse_cap(rows)
-        codes = np.ascontiguousarray(batch.codes, dtype=np.int8)
-        lengths = np.ascontiguousarray(batch.lengths, dtype=np.int32)
-        pcodes = np.empty((n, w16), dtype=np.uint32)
-        nmask = np.empty((n, nmw), dtype=np.uint32)
-        nidx = np.empty(cap, dtype=np.uint32)
-        n_inread = get_lib().btpu_pack_batch(
-            codes.ctypes.data, n, L, lengths.ctypes.data, n, w16, lproc,
-            pcodes.ctypes.data, nmask.ctypes.data, nmw, nidx.ctypes.data, cap,
-        )
-        channel = n_channel(n_inread, cap, rows, lproc, self._sparse_n_ok())
         pin = self.device.type == "cuda"
 
         def host(a):
             t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
             return t.pin_memory() if pin else t
 
-        naux = {"none": None, "sparse": nidx, "mask": nmask}[channel]
+        lengths = np.ascontiguousarray(batch.lengths, dtype=np.int32)
         if maxlen <= 0xFFFF:  # 2 B a read (pipeline.py:667-668)
             lengths = lengths.astype(np.uint16)
+        if self.it != InputType.DNA:
+            # one byte a code; the -1 byte carries the ambiguity
+            codes = np.full((n, lproc), -1, dtype=np.int8)
+            w = min(L, lproc)
+            codes[:, :w] = batch.codes[:, :w]
+            return Prep(host(codes), None, host(lengths), lproc, "codes")
+        w16 = (lproc + 15) // 16
+        nmw = (w16 + 1) // 2
+        rows = bucket_rows(n, self._batch_multiple(paired))
+        cap = sparse_cap(rows)
+        codes = np.ascontiguousarray(batch.codes, dtype=np.int8)
+        len32 = np.ascontiguousarray(batch.lengths, dtype=np.int32)
+        pcodes = np.empty((n, w16), dtype=np.uint32)
+        nmask = np.empty((n, nmw), dtype=np.uint32)
+        nidx = np.empty(cap, dtype=np.uint32)
+        n_inread = get_lib().btpu_pack_batch(
+            codes.ctypes.data, n, L, len32.ctypes.data, n, w16, lproc,
+            pcodes.ctypes.data, nmask.ctypes.data, nmw, nidx.ctypes.data, cap,
+        )
+        channel = n_channel(n_inread, cap, rows, lproc, self._sparse_n_ok())
+        naux = {"none": None, "sparse": nidx, "mask": nmask}[channel]
         return Prep(host(pcodes), None if naux is None else host(naux),
                     host(lengths), lproc, channel)
 
@@ -711,11 +891,17 @@ class Classifier:
         def up(t):
             return None if t is None else t.to(dev, non_blocking=True)
 
-        hit, valid, cidx, oidx = encode_probe(
-            up(prep.pcodes), up(prep.nmask), up(prep.lengths), lproc, self.k,
-            self.canon, self.arr, want_idx=dict_size is not None,
-            positions=self.positions, nidx=up(prep.nidx),
-        )
+        if prep.channel == "codes":
+            hit, valid, cidx, oidx = encode_probe_radix(
+                up(prep.pcodes), up(prep.lengths), self.k, False, self.it,
+                self.arr, want_idx=dict_size is not None,
+                positions=self.positions)
+        else:
+            hit, valid, cidx, oidx = encode_probe(
+                up(prep.pcodes), up(prep.nmask), up(prep.lengths), lproc,
+                self.k, self.canon, self.arr, want_idx=dict_size is not None,
+                positions=self.positions, nidx=up(prep.nidx),
+            )
         valid1 = valid.sum(dim=-1, dtype=torch.int32)
         if paired:
             # mates (2i, 2i+1) merge into one row of width 2P
@@ -725,7 +911,10 @@ class Classifier:
             cidx = cidx.view(B // 2, 2 * P)
             oidx = oidx.view(B // 2, 2 * P)
             valid1 = valid1[0::2].contiguous()
-        taxon = resolve(cidx, hit, self.tax, self._n_distinct)
+        if hit.shape[1]:
+            taxon = resolve(cidx, hit, self.tax, self._n_distinct)
+        else:  # no position (every read shorter than the seed's span)
+            taxon = torch.zeros(hit.shape[0], dtype=torch.int32, device=dev)
         compact, full = step_outputs(taxon, oidx, hit, valid, valid1, maxr,
                                      dict_size)
         done = None

@@ -494,7 +494,7 @@ def _cmd_classify(args) -> int:
         from .parallel.mesh import init_distributed
 
         try:
-            init_distributed(args.device)
+            init_distributed(device=args.device)
         except RuntimeError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

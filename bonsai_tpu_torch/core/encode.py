@@ -2,7 +2,7 @@
 
 Counterpart of ``bonsai_tpu/core/encode.py`` (``pack_kmers``,
 ``pack_spaced_kmers`` and ``_pack`` :50-137, ``position_validity``,
-``apply_mask`` :163-170, ``codes_from_bytes`` :38,
+``apply_mask`` :163-170, ``codes_from_bytes`` :38, ``canonicalize`` :149,
 ``overflow_to_canonical_zero`` :154): the codes at a seed's k included
 positions fold high-first, so the first character lands in the highest
 used bits (encoder.h:547), and a seed holding an ambiguous code (-1,
@@ -29,6 +29,11 @@ def codes_from_bytes(seq_u8: torch.Tensor, lut) -> torch.Tensor:
     table ``lut``, on the bytes' device (encode.py:38)."""
     lut = torch.as_tensor(lut, dtype=torch.int8, device=seq_u8.device)
     return lut[seq_u8.to(torch.int64)]
+
+
+# min(kmer, its reverse complement) of DNA k-mers, under the JAX
+# package's name (encode.py:149, kmerutil.h:137-140)
+canonicalize = canonical
 
 
 def overflow_to_canonical_zero(kmers: torch.Tensor, invalid: torch.Tensor,

@@ -210,16 +210,22 @@ def _check_args(name, codes, lengths, k, W, scheme, it):
     encode.check_k(it, k)
 
 
+def fold_args(it: InputType, k: int):
+    """(kind, bits, radix, lim) of the fold of input type ``it`` at k, as
+    the entry points of KB1, KB4 and K1's radix instantiations take it
+    (``csrc/scores.cuh`` Fold)."""
+    bits = bits_of(it)
+    if it == DNA:
+        return FOLD_DNA, 2, 4, kmer_mask(it, k)
+    if bits:
+        return FOLD_SHIFT, bits, 1 << bits, kmer_mask(it, k)
+    return FOLD_MULADD, 0, radix_of(it), kmer_mask(it, k)
+
+
 def _gen_args(k: int, it: InputType, scheme: str, dev, score_map, eps):
     """The fold, score, phase-1 image and Shannon arguments that KB1's
     and KB4's entry points take after the seed's."""
-    bits = bits_of(it)
-    if it == DNA:
-        fold = (FOLD_DNA, 2, 4, kmer_mask(it, k))
-    elif bits:
-        fold = (FOLD_SHIFT, bits, 1 << bits, kmer_mask(it, k))
-    else:
-        fold = (FOLD_MULADD, 0, radix_of(it), kmer_mask(it, k))
+    fold = fold_args(it, k)
     if scheme == "hash":
         arr = _score_map(score_map).arrays(dev)
         arr.check(dev)

@@ -37,6 +37,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..core.spacer import Spacer
 from .table import (MAX_LOAD, SLOTS, HashShardedTable, KmerTable,
                     _next_pow2, owner_parts, owners_of, unique_u64)
 
@@ -59,6 +60,10 @@ class Database:
     canonicalize: bool = True
     scheme: str = "lex"
     meta: dict = field(default_factory=dict)
+
+    @property
+    def spacer(self) -> Spacer:
+        return Spacer(self.k, self.w, self.gaps)
 
 
 def _write_native(path: str, header: dict, keys: np.ndarray,

@@ -101,6 +101,31 @@ class KmerTable:
         self._h = None  # placement done; the slot words keep q
         self._np_arrays = None  # arrays_np() of the table's own values
 
+    def trim(self) -> None:
+        """Free the placement's host arrays (each slot's owner and the
+        placed keys' slot words) and the kept ``arrays_np`` image: the
+        classifier calls it once the image is on the device.  Any later
+        use rebuilds them by the same deterministic placement at the same
+        bucket count (``KmerTable.trim`` of the JAX package)."""
+        self._occ = self._own = self._word = None
+        self._np_arrays = None
+
+    def _layout(self) -> None:
+        """Place the keys again after ``trim``."""
+        if self._occ is None:
+            self._h = splitmix64_np(self.keys_sorted)
+            if not self._place(self.nb):
+                raise RuntimeError(f"KmerTable: the placement at nb="
+                                   f"{self.nb} failed on its rebuild")
+            self._h = None
+
+    def lookup(self, key: int):
+        """The value of ``key``, or None where the table lacks it."""
+        i = int(np.searchsorted(self.keys_sorted, np.uint64(key)))
+        if i < self.n and self.keys_sorted[i] == np.uint64(key):
+            return self.vals_sorted[i]
+        return None
+
     def _place(self, nb: int, max_walk: int = 500) -> bool:
         from ..native import get_lib
 
@@ -153,6 +178,7 @@ class KmerTable:
         array (every shard of a sharded table encodes against one, so
         that a value index means the same on every rank), and
         ``allow_inline=False`` forces the flat value array."""
+        self._layout()
         v64 = np.asarray(vals_aligned).astype(np.uint64)
         if uniq is None:
             uniq = unique_u64(v64) if self.n else np.zeros(1, np.uint64)

@@ -15,7 +15,8 @@ The wrappers that call these hold the plain torch version beside each
 kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``encode_only`` (K1's two instantiations of the sharded classifier: the
 bucket range is ``encode_probe`` of a ranged image; the sparse-N channel
-is ``encode_probe`` with a list),
+is ``encode_probe`` with a list), ``encode_probe_radix`` and
+``encode_only_radix`` (K1 on another input type's int8 codes),
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
 ``compacted_minimizers`` and ``compacted_stream``, ``core/rolling.py``
 ``cyclic_hashes``, ``core/encode128.py`` ``pack_kmers128`` and ``rc128``,
@@ -90,6 +91,21 @@ _SIGS = {
     "bk_encode_probe_range": [P, I64, P, I64, P, I32, I64, I64, I32, I32, I32,
                               P, P, I32, I32, P, I64, I32, I32, I64, I64, P,
                               P, P, P, P],
+    # another input type's codes: codes, ld, lengths, len16, B, P, k,
+    # spaced, positions (host int32[32] or null), the fold (kind, bits,
+    # radix, lim), slots, lgnb, vbits, vals, n_vals, inline, want_idx, hit,
+    # valid, cidx, oidx, stream
+    "bk_encode_probe_radix": [P, I64, P, I32, I64, I64, I32, I32, P, I32, I32,
+                              U64, U64, P, I32, I32, P, I64, I32, I32, P, P,
+                              P, P, P],
+    # the same with row0, rows after want_idx
+    "bk_encode_probe_radix_range": [P, I64, P, I32, I64, I64, I32, I32, P,
+                                    I32, I32, U64, U64, P, I32, I32, P, I64,
+                                    I32, I32, I64, I64, P, P, P, P, P],
+    # codes, ld, lengths, len16, B, P, k, spaced, positions, the fold,
+    # kmers, valid, stream
+    "bk_encode_only_radix": [P, I64, P, I32, I64, I64, I32, I32, P, I32, I32,
+                             U64, U64, P, P, P],
     # kq, done, Q, ndb, cap, send, slotq, scratch, stream
     "bk_route_frame": [P, P, I64, I64, I64, P, P, P, P],
     # recv, n, slots, lgnb, vbits, vals, n_vals, inline, want_idx, resp,

@@ -72,6 +72,16 @@ def get_lib():
     return _lib
 
 
+def available() -> bool:
+    """Whether the host library builds and loads here (the JAX package's
+    ``native.available``); every host path of the port needs it."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _declare(lib) -> None:
     c = ctypes
     P, I64, I32 = c.c_void_p, c.c_int64, c.c_int32

@@ -176,8 +176,8 @@ def make_mesh(axis_sizes: Dict[str, int],
     device may repeat; default: every rank on the current card, or on the
     CPU where there is no card); once ``init_distributed`` has run with
     more than one process, the ranks are the processes, and ``devices``
-    (if given) is this process's one device (default: cuda:LOCAL_RANK,
-    or the CPU)."""
+    (if given) is this process's one device (default: its card on the
+    host, ``_local_card``, or the CPU)."""
     n = int(np.prod(list(axis_sizes.values()), dtype=np.int64))
     if _world_size() > 1:
         import torch.distributed as dist
@@ -255,34 +255,61 @@ def _world_size() -> int:
         dist.is_initialized() else 1
 
 
+def _local_card(rank: int) -> int:
+    """The card of the process of ``rank`` on its host: LOCAL_RANK where
+    torchrun set it, else ``rank`` modulo the host's cards (a coordinator
+    launch numbers a host's processes together)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    return rank % torch.cuda.device_count()
+
+
 def _my_device() -> torch.device:
-    """This process's device under torch.distributed: cuda:LOCAL_RANK on a
-    card, else the CPU."""
+    """This process's device under torch.distributed: its card on the
+    host (``_local_card``), else the CPU."""
     if torch.cuda.is_available():
-        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        import torch.distributed as dist
+
+        return torch.device("cuda", _local_card(dist.get_rank()))
     return torch.device("cpu")
 
 
-def init_distributed(device=None) -> int:
-    """Join the process group from torchrun's environment (MASTER_ADDR,
-    MASTER_PORT, WORLD_SIZE, RANK): ``nccl`` for CUDA, ``gloo`` for the
-    CPU (``device``, default: CUDA when present).  One rank a process.
-    Returns this process's rank; a second call only returns it."""
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, device=None) -> int:
+    """Join the process group (``init_distributed`` of the JAX package):
+    at ``coordinator`` ("host:port", as ``init_method="tcp://host:port"``)
+    with ``num_processes`` as the world size and ``process_id`` as this
+    process's rank where they are given, else from torchrun's environment
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  ``nccl`` for CUDA,
+    ``gloo`` for the CPU (``device``, default: CUDA when present).  One
+    rank a process, on its host's card ``_local_card(rank)``.  Returns
+    this process's rank; a second call only returns it."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return dist.get_rank()
-    missing = [v for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
-               if v not in os.environ]
-    if missing:
-        raise RuntimeError(f"--distributed: {', '.join(missing)} not set "
-                           "(launch with torchrun)")
+    if coordinator is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("a coordinator needs num_processes and "
+                             "process_id")
+        init = f"tcp://{coordinator}"
+        world, rank = int(num_processes), int(process_id)
+    else:
+        missing = [v for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                               "RANK") if v not in os.environ]
+        if missing:
+            raise RuntimeError(f"--distributed: {', '.join(missing)} not set "
+                               "(launch with torchrun)")
+        init = "env://"
+        world = int(num_processes if num_processes is not None
+                    else os.environ["WORLD_SIZE"])
+        rank = int(process_id if process_id is not None
+                   else os.environ["RANK"])
     dev = torch.device(device if device is not None else
                        ("cuda" if torch.cuda.is_available() else "cpu"))
     if dev.type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(_local_card(rank))
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            init_method="env://",
-                            world_size=int(os.environ["WORLD_SIZE"]),
-                            rank=int(os.environ["RANK"]))
+                            init_method=init, world_size=world, rank=rank)
     return dist.get_rank()

@@ -19,6 +19,11 @@ with the JAX package's two routes:
   probes the buckets in its range (K1's bucket-range instantiation) and
   one ``psum`` over ``db`` merges (compact index, output value, found).
 
+Reads of an input type other than DNA (``input_type``) go as int8 codes
+(the channel "codes" of ``Classifier._prepare_batch``) to K1's radix
+instantiations: encode-only on the a2a route, the bucket range on the
+psum route.
+
 Then each rank resolves (K2) and packs its rows (K3), and the compact
 output is the ranks' outputs in rank order, byte-identical to the
 one-device ``Classifier``'s; the host pipeline (``process_dataset``) is
@@ -47,11 +52,12 @@ import numpy as np
 import torch
 
 from ..classify import output as out_mod
-from ..classify.pipeline import Classifier, encode_only, encode_probe, step_outputs
+from ..classify.pipeline import (Classifier, encode_only, encode_only_radix,
+                                 encode_probe, encode_probe_radix,
+                                 step_outputs)
 from ..classify.resolve import resolve
-from ..core.alphabet import DNA4
+from ..core.alphabet import InputType
 from ..core.encoder import minimizers
-from ..core.spacer import Spacer
 from ..db import formats
 from ..db.table import (MAX_LOAD, SLOTS, HashShardedTable, KmerTable,
                         ProbeArrays, _next_pow2, unique_u64)
@@ -73,7 +79,8 @@ class ShardedClassifier(Classifier):
     text."""
 
     def __init__(self, db: formats.Database, tree, mesh: Mesh,
-                 canonicalize: bool = True, route: str = "auto",
+                 canonicalize: bool = True,
+                 input_type: InputType = InputType.DNA, route: str = "auto",
                  capacity_factor: float = 1.05, emit_all: bool = False,
                  emit_kraken: bool = True, emit_fastq: bool = False,
                  max_runs: int = 8):
@@ -86,7 +93,8 @@ class ShardedClassifier(Classifier):
             raise ValueError(f"unknown route {route!r}")
         self.route = route
         self._init_host(db.k, db.gaps, canonicalize, tree, capacity_factor,
-                        emit_all, emit_kraken, emit_fastq, max_runs)
+                        emit_all, emit_kraken, emit_fastq, max_runs,
+                        input_type)
         table = db.table
         packed = formats.packed_values(table, tree)
         if self._a2a:
@@ -134,23 +142,15 @@ class ShardedClassifier(Classifier):
         return self.route == "a2a" and self.ndb > 1
 
     def _init_host(self, k, gaps, canonicalize, tree, capacity_factor,
-                   emit_all, emit_kraken, emit_fastq, max_runs):
-        """The seed, the host pipeline's state (as ``Classifier._setup``)
-        and the taxonomy on each rank's device."""
-        if int(k) > 32:
-            raise NotImplementedError(
-                f"k={k} (128-bit k-mers) is not ported (ROADMAP queue A, "
-                "item 8.6)")
-        self.sp = Spacer(int(k), int(k), list(gaps) if gaps else None)
-        self.k = self.sp.k
-        self.canon = bool(canonicalize) and self.sp.unspaced()
-        self.positions = (None if self.sp.unspaced() else
-                          tuple(int(p) for p in self.sp.positions))
+                   emit_all, emit_kraken, emit_fastq, max_runs,
+                   input_type=InputType.DNA):
+        """The seed and the reads' alphabet, the host pipeline's state (as
+        ``Classifier._setup``) and the taxonomy on each rank's device."""
+        self._set_seed(k, gaps, canonicalize, input_type)
         self.tree = tree
         self.capacity_factor = float(capacity_factor)
         self.emit_all, self.emit_kraken = emit_all, emit_kraken
         self.emit_fastq = emit_fastq
-        self.lut = DNA4.lut
         self.max_runs = int(max_runs)
         self._overflow_batches = 0
         self._overflow_bump_after = 3
@@ -250,7 +250,8 @@ class ShardedClassifier(Classifier):
 
     def _uploads(self, prep):
         """Each local rank's block of the packed batch on its device ->
-        {rank: (codes, nmask, lengths)}."""
+        {rank: (codes, nmask, lengths)}: the 2-bit words, or in the
+        channel "codes" the int8 codes and no mask."""
         if prep.channel == "sparse":
             raise ValueError("the sharded classifier takes the N mask")
         pcodes, nmask, lengths = prep.pcodes, prep.nmask, prep.lengths
@@ -283,8 +284,12 @@ class ShardedClassifier(Classifier):
         queries an owner a rank takes in a round, 0 for no query)."""
         st = {}
         for r, (pc, nm, ln) in ups.items():
-            kmers, valid = encode_only(pc, nm, ln, lproc, self.k, self.canon,
-                                       self.positions)
+            if self.it != InputType.DNA:
+                kmers, valid = encode_only_radix(pc, ln, self.k, False,
+                                                 self.it, self.positions)
+            else:
+                kmers, valid = encode_only(pc, nm, ln, lproc, self.k,
+                                           self.canon, self.positions)
             Q = kmers.numel()
             dev = kmers.device
             st[r] = dict(shape=kmers.shape, valid=valid, kq=kmers.view(-1),
@@ -326,9 +331,14 @@ class ShardedClassifier(Classifier):
         hit) -> {rank: (hit, valid, cidx, oidx)}."""
         part, valid = {}, {}
         for r, (pc, nm, ln) in ups.items():
-            hit, valid[r], cidx, oidx = encode_probe(
-                pc, nm, ln, lproc, self.k, self.canon, self._arr[r], want_idx,
-                self.positions)
+            if self.it != InputType.DNA:
+                hit, valid[r], cidx, oidx = encode_probe_radix(
+                    pc, ln, self.k, False, self.it, self._arr[r], want_idx,
+                    self.positions)
+            else:
+                hit, valid[r], cidx, oidx = encode_probe(
+                    pc, nm, ln, lproc, self.k, self.canon, self._arr[r],
+                    want_idx, self.positions)
             # each key lives on one rank: the sums are that rank's values
             part[r] = torch.stack([cidx, oidx, hit.to(torch.int32)])
         tot = self.mesh.psum(part, ("db",))
@@ -505,6 +515,7 @@ class ShardedClassifier(Classifier):
     @classmethod
     def from_sharded_dir(cls, dirpath: str, tree, mesh: Mesh,
                          canonicalize: bool = True,
+                         input_type: InputType = InputType.DNA,
                          capacity_factor: float = 1.05,
                          emit_all: bool = False, emit_kraken: bool = True,
                          emit_fastq: bool = False, max_runs: int = 8):
@@ -522,7 +533,8 @@ class ShardedClassifier(Classifier):
             group = mfndb // ndb
         elif mfndb != ndb or ndb < 2:
             return cls(formats.load_database_sharded(dirpath), tree, mesh,
-                       canonicalize, capacity_factor=capacity_factor,
+                       canonicalize, input_type,
+                       capacity_factor=capacity_factor,
                        emit_all=emit_all, emit_kraken=emit_kraken,
                        emit_fastq=emit_fastq, max_runs=max_runs)
         else:
@@ -536,7 +548,7 @@ class ShardedClassifier(Classifier):
         self.route = "a2a"
         self._init_host(mf["k"], mf["gaps"], canonicalize, tree,
                         capacity_factor, emit_all, emit_kraken, emit_fastq,
-                        max_runs)
+                        max_runs, input_type)
         geo = _geometry(dirpath, mf, ndb, tree)
         self.lgnb, self.vbits = geo["lgnb"], geo["vbits"]
         img_dir = _image_dir(dirpath, ndb, tree)

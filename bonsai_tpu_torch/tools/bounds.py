@@ -55,17 +55,35 @@ def spaced_runs(positions) -> int:
     return 1 + sum(b != a + 1 for a, b in zip(positions, positions[1:]))
 
 
-def bound_encode_probe(inputs, vals, out, runs: int = 0):
+def fold_ops(out, runs: int = 0, rolled: bool = False) -> int:
+    """The int32 operations of K1's encode at every position of ``out``:
+    for a spaced seed of ``runs`` runs of consecutive offsets its fold out
+    of the position's window (a u64 shift, mask and or a run, 4 int32 ops
+    at the least; another input type's spaced seed folds each of its
+    codes, a run of one where no two offsets touch), and for another input
+    type's contiguous seed (``rolled``) a rolled fold, the incoming code's
+    u64 multiply-add and the outgoing code's (8 int32 ops at the least)."""
+    return (4 * runs + 8 * rolled) * out[1].numel()
+
+
+def bound_encode_probe(inputs, vals, out, runs: int = 0,
+                       rolled: bool = False):
     """K1: the packed reads (``inputs``: words, the N mask or, for the
-    sparse-N instantiation, the list of cap x 4 B, lengths), a 32-B slot
-    row per ``k1_rows`` row, the values, the outputs; two splitmix64
-    hashes (~40 int32 ops) per valid position, and for a spaced seed of
-    ``runs`` runs of consecutive offsets its fold out of the position's
-    window (a u64 shift, mask and or a run, 4 int32 ops at the least) at
-    every position.  The sparse list's block-wide search is a few
-    operations a block, under the probes' hashes."""
+    sparse-N instantiation, the list of cap x 4 B, lengths; for another
+    input type's radix instantiations its int8 codes, one byte a code,
+    and the lengths), a 32-B slot row per ``k1_rows`` row, the values, the
+    outputs; two splitmix64 hashes (~40 int32 ops) per valid position, and
+    the encode's ``fold_ops``.  The sparse list's block-wide search is a
+    few operations a block, under the probes' hashes."""
     return bound(nbytes(*inputs, vals) + 32 * k1_rows(out) + nbytes(*out),
-                 40 * int(out[1].sum()) + 4 * runs * out[1].numel())
+                 40 * int(out[1].sum()) + fold_ops(out, runs, rolled))
+
+
+def bound_encode_only(inputs, out, runs: int = 0, rolled: bool = False):
+    """K1's encode-only instantiation: the reads in (as
+    ``bound_encode_probe``'s), the k-mers and flags out, the encode's
+    ``fold_ops``."""
+    return bound(nbytes(*inputs, *out), fold_ops(out, runs, rolled))
 
 
 def resolve_work(cidx, hit, tax):
@@ -381,9 +399,12 @@ def range_rows(queries, arr) -> int:
     return int(in1.sum()) + int((in2 & ~hit1).sum())
 
 
-def bound_encode_probe_range(inputs, vals, out, queries, arr):
-    """K1's bucket-range instantiation: the packed reads, the rank's slot
-    rows (``range_rows``), the values, the outputs; two splitmix64 hashes
-    (~40 int32 ops) a valid position."""
+def bound_encode_probe_range(inputs, vals, out, queries, arr,
+                             runs: int = 0, rolled: bool = False):
+    """K1's bucket-range instantiation: the packed reads (or another input
+    type's codes), the rank's slot rows (``range_rows``), the values, the
+    outputs; two splitmix64 hashes (~40 int32 ops) a valid position and
+    the encode's ``fold_ops``."""
     return bound(nbytes(*inputs, vals) + 32 * range_rows(queries, arr)
-                 + nbytes(*out), 40 * int(out[1].sum()))
+                 + nbytes(*out),
+                 40 * int(out[1].sum()) + fold_ops(out, runs, rolled))

@@ -78,7 +78,11 @@ list of its in-read Ns; skipped for a parent without
 and mask instantiations are checked equal and timed against each other
 in turns.
 K1's spaced instantiation runs the same batch against the GENOMEs'
--k 21 -S 0x16,1x4 database, built on the card.
+-k 21 -S 0x16,1x4 database, built on the card.  K1's radix
+instantiation (skipped for a parent without ``bk_encode_probe_radix``)
+runs at ``chip_smoke.py`` phase 9k's shape: 8192 protein reads of 33
+residues (``synthetic.protein_reads`` of the GENOMEs' forward frames)
+against their PROTEIN20 -k 7 database, built on the card.
 K1 runs twice more where its probes hit: the same batch on a table of
 its own k-mers, and the scale probe's shape of ``chip_smoke.py`` at 2^24
 keys.  K2 runs three times more: on K1's output for that table (every
@@ -1756,6 +1760,7 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
                    k=21, w=21, gaps=gaps)
     sclf = pl.Classifier(sdb, tree, emit_all=True, device=dev)
     a1s = (pc, nm, ln, lproc, 21, False, sclf.arr, True, sclf.positions)
+    radix = radix_case(nodes, nameid, genomes, dev)
     return [
         (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
         (f"encode_probe sparse {shape}",
@@ -1763,6 +1768,7 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
          "bk_encode_probe_sparse"),
         (f"encode_probe -k 21 -S 0x16,1x4 B={hit.shape[0]}, P={lproc - 24}",
          lambda: pl.encode_probe(*a1s), graph_ms, "bk_encode_probe_spaced"),
+        radix,
         *probe_mix_cases(a1, own, rng, dev),
         (f"resolve {shape}",
          lambda: [rs.resolve(cidx, hit, clf.tax, clf._n_distinct)], graph_ms),
@@ -1771,6 +1777,47 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
          lambda: pl.step_outputs(taxon, oidx, hit, valid, valid1,
                                  clf.max_runs, ds), graph_ms),
     ], (a1, a1n, nidx)
+
+
+def radix_case(nodes: str, nameid: str, genomes, dev):
+    """(name, call, timer, entry point) of K1's radix instantiation at
+    phase 9k's shape: the first 8192 reads of its PROTEIN20 read set
+    (``synthetic.protein_reads``) of the GENOMEs' forward frames, as
+    ``Classifier(input_type=PROTEIN20)`` ships them, against the frames'
+    PROTEIN20 -k 7 database, built on the card, in dictionary mode."""
+    import tempfile
+
+    from ..classify import pipeline as pl
+    from ..core.alphabet import InputType
+    from ..core.spacer import Spacer
+    from ..db.formats import Database
+    from .synthetic import ALPHABET_READ_SETS, protein_reads, write_frames
+
+    tree = TaxTree.from_nodes_dmp(nodes)
+    it = InputType.PROTEIN20
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(OUT_DIR)) as tmp:
+        frames = [write_frames(g, os.path.join(tmp, f"{i}.faa"))
+                  for i, g in enumerate(genomes)]
+        table = bd.device_lca_map(frames, tree, nameid, Spacer(7, 7), True,
+                                  "lex", it, device=dev)
+        _, seed, _, _ = ALPHABET_READ_SETS["PROTEIN20 single"]
+        reads = protein_reads(frames, CLASSIFY_BATCH, seed)
+    clf = pl.Classifier(Database(table=table, k=7, w=7, gaps=[0] * 6), tree,
+                        input_type=it, device=dev)
+    lut = np.asarray(clf.lut, np.int8)
+    codes = np.full((len(reads), 64), -1, np.int8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = lut[np.frombuffer(r, np.uint8)]
+    batch = fastx.ReadBatch(names=[b""] * len(reads), seqs=reads, codes=codes,
+                            lengths=np.full(len(reads), 33, np.int32))
+    prep = clf._prepare_batch(batch)
+    cd, ld = prep.pcodes.to(dev), prep.lengths.to(dev)
+    want_idx = clf._uniq_host is not None
+    return (f"encode_probe_radix PROTEIN20 -k 7 B={cd.shape[0]}, "
+            f"P={cd.shape[1] - 6}",
+            lambda: pl.encode_probe_radix(cd, ld, 7, False, it, clf.arr,
+                                          want_idx), graph_ms,
+            "bk_encode_probe_radix")
 
 
 STATE = ("done", "hit", "cidx", "oidx")

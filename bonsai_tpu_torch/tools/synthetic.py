@@ -156,3 +156,67 @@ def write_frames(genome: str, out: str, width: int = 80) -> str:
                                     for i in range(0, len(aa), width)))
                 fh.write(b"\n")
     return out
+
+
+AMINO20 = b"ACDEFGHIKLMNPQRSTVWY"
+
+
+def protein_reads(frames, n: int, seed: int, length: int = 33,
+                  sub: float = 0.02, ambiguous: float = 0.01,
+                  random_share: float = 0.1, paired: bool = False):
+    """``n`` protein reads of ``length`` residues (33: the translated frame
+    of a 100-bp read) drawn from the records of the FASTA files ``frames``
+    (``write_frames``) by ``numpy.random.default_rng(seed)``: a start
+    uniform over every record's windows, then a residue in 50 (``sub``)
+    replaced by one of the 20 amino acids, one in 100 (``ambiguous``) by
+    'X'; a share ``random_share`` of the reads are random residues
+    instead.  With ``paired``, read i's mate follows it on the same record
+    after a gap of 0-30 residues (its own substitutions and 'X's), and
+    the result is (reads, mates).  Returns lists of bytes."""
+    rng = np.random.default_rng(seed)
+    recs = [np.frombuffer(s, np.uint8) for p in frames
+            for _, s, _ in fastx.read_fastx(p)]
+    span = 2 * length + 30 if paired else length
+    starts = np.array([max(r.size - span + 1, 0) for r in recs], np.int64)
+    ends = np.cumsum(starts)
+    pick = rng.integers(0, int(ends[-1]), n)
+    rec = np.searchsorted(ends, pick, side="right")
+    off = pick - (ends[rec] - starts[rec])
+    gap = rng.integers(0, 31, n) if paired else np.zeros(n, np.int64)
+    aa = np.frombuffer(AMINO20, np.uint8)
+    rand = rng.random(n) < random_share
+
+    def cut(at):
+        out = np.empty((n, length), np.uint8)
+        for r in np.unique(rec):
+            rows = np.flatnonzero(rec == r)
+            out[rows] = recs[r][at[rows, None] + np.arange(length)]
+        mut = rng.random((n, length))
+        out = np.where(mut < sub, aa[rng.integers(0, 20, (n, length))], out)
+        out = np.where(rng.random((n, length)) < ambiguous, ord("X"), out)
+        out[rand] = aa[rng.integers(0, 20, (int(rand.sum()), length))]
+        return [row.tobytes() for row in out]
+
+    reads = cut(off)
+    if not paired:
+        return reads
+    return reads, cut(off + length + gap)
+
+
+def write_reads(path: str, reads) -> str:
+    """The reads as FASTA records ``>r<i>``; returns ``path``."""
+    with open(path, "wb") as fh:
+        for i, r in enumerate(reads):
+            fh.write(b">r%d\n%s\n" % (i, r))
+    return path
+
+
+# The read sets of chip_smoke.py's phase 9k (classify of the other
+# alphabets) and of tests/alphabet_classify_jax.py, which pins their
+# Kraken text from the JAX package: name -> (reads, seed, paired, the
+# number of genomes (in the manifest's order) whose frames they come from)
+ALPHABET_READ_SETS = {
+    "PROTEIN20 single": (200_000, 20261041, False, 5),
+    "PROTEIN20 paired": (100_000, 20261042, True, 5),
+    "PROTEIN_3BIT single": (50_000, 20261043, False, 2),
+}

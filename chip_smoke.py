@@ -273,6 +273,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  every alphabet, PROTEIN_3BIT's real U64_MAX at k = 22,
                  KB4's halo rows), timed by CUDA-graph replay with their
                  bounds and blocks a SM
+ 9k. other alphabets through classify  after phase 9j: the 5 ec genomes'
+                 forward frames translated; PROTEIN20 -k 7 built on the card
+                 by device_lca_map (digest = the JAX package's); 200,000
+                 protein reads of 33 residues (tools/synthetic
+                 protein_reads: substrings of the frames, 2% substitutions,
+                 1% 'X', 10% random; each read file's sha256 = the JAX
+                 script's) through Classifier(input_type=PROTEIN20)
+                 .process_dataset (-a), as 100,000 pairs, through
+                 from_probe_image(input_type=) and ShardedClassifier psum
+                 (2, 1) and a2a (1, 2), ranks sharing this one card;
+                 PROTEIN_3BIT -k 12 -S 1x11 of 2 genomes (shift-or fold,
+                 spaced) and 50,000 reads of it: each Kraken text's sha256 =
+                 the JAX ShardedClassifier's on a 1 x 1 CPU mesh
+                 (CLASSIFY_JAX, with the command that made them); K1's
+                 radix instantiations launched, no DNA K1 launch; then each
+                 against its plain version on CPU copies (whole table, each
+                 half of the rows and all of them as a range, encode only;
+                 want_idx on and off; pairs) and timed by CUDA-graph replay
+                 at the stream's batch (8192 reads) with its bound; the
+                 PROTEIN20 stream's reads/s, the phase's wall seconds and
+                 peak device memory
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
                  at variant F's shape and 32-B rows over 16 MiB..4 GiB
                  tables, G2 at four shapes, timed by CUDA-graph replay;
@@ -961,6 +982,50 @@ ALPHABET_JAX = {  # name -> (content digest, k-mers)
 }
 
 
+# Phase 9k, classify of the other alphabets: each database is built on the
+# card by device_lca_map over the forward frames of the first ``genomes``
+# ec genomes: name -> (input type, k, spacing, genomes, the read sets of
+# bonsai_tpu_torch.tools.synthetic.ALPHABET_READ_SETS it classifies)
+CLASSIFY_DBS = {
+    "PROTEIN20 -k 7": ("PROTEIN20", 7, "", 5,
+                       ("PROTEIN20 single", "PROTEIN20 paired")),
+    "PROTEIN_3BIT -k 12 -S 1x11": ("PROTEIN_3BIT", 12, "1x11", 2,
+                                   ("PROTEIN_3BIT single",)),
+}
+# The JAX package's values of phase 9k, printed by
+#   JAX_PLATFORMS=cpu python tests/alphabet_classify_jax.py
+# (numpy 2.0.2; under a minute on one CPU core): each database's content
+# digest and k-mers (the JAX host lca_map), each read file's sha256 (made
+# by numpy's generator: a difference there is numpy's, not the port's),
+# and each run's Kraken text (-a) sha256 and lines, from the JAX
+# ShardedClassifier on a 1 x 1 CPU mesh (the JAX step on int8 codes),
+# classify_batch a batch of 8192 reads, format_batch
+CLASSIFY_JAX = {
+    "db PROTEIN20 -k 7": (
+        "4dbd7d3527dc196ed3b69cb57521041eee08335d38c57c456d33ace4e295470d",
+        7109605),
+    "db PROTEIN_3BIT -k 12 -S 1x11": (
+        "b24be7f0a8ed4bf7794ec09502cdeca95c646a356fd268244c4459c5d1b08c56",
+        4443538),
+    "reads PROTEIN20 single":
+        "dc9d5beec5c382786654d130dddc5787da31e653cf450e25421a09872130dfc7",
+    "reads PROTEIN20 paired":
+        "bc9901239f360d33c0071faae15b2cbc552ef41d9d713bd63a07cbd66795ec9d "
+        "334a2c087cb7f44b723a534d3bcbf749050e0b50df28162a76e23911e9c1c4de",
+    "reads PROTEIN_3BIT single":
+        "1efac401e201fac2fba0349c50abcf0e5888fe3ed7ab1c8c0570dcabda6b8b8c",
+    "text PROTEIN20 single": (
+        "ba921884ff614311f2af2f311259dacf0b870a2ed6f388bbfcbf4cd39b0a01a7",
+        200000),
+    "text PROTEIN20 paired": (
+        "1dfdb1ce3ec02ebd94fd189c0c5ddc801f40c67dd12c214ce3ae8d0e976de3be",
+        100000),
+    "text PROTEIN_3BIT single": (
+        "9e1963b5f972ec03747703f6b3c5715b2cdfc219bb19e1986a0c1037302cf271",
+        50000),
+}
+
+
 def index_cmds(kk):
     """name -> (argv, what it writes: a file, or "stdout"); the port's CLI
     gets --device cuda where the subcommand takes it."""
@@ -1083,6 +1148,12 @@ KERNELS = {
     "compacted_minimizers_radix_hash": (
         "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
         "bonsai_tpu/core/encoder.py:206"),
+    "encode_probe_radix": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                           "bonsai_tpu/classify/pipeline.py:404"),
+    "encode_probe_radix_range": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                                 "bonsai_tpu/parallel/sharded.py:503"),
+    "encode_only_radix": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+                          "bonsai_tpu/parallel/sharded.py:401"),
 }
 # the rows of the sharded classifier and build (phase 9g): instantiations
 # of shared wrappers that only phase 9g launches
@@ -1097,6 +1168,10 @@ API_ROWS = ("minimizers_spaced_shannon", "minimizers_radix",
             "cyclic_hashes")
 # the rows of other alphabets through the build (phase 9j)
 ALPHABET_ROWS = ("minimizers_radix_hash", "compacted_minimizers_radix_hash")
+# the rows of classify of the other alphabets (phase 9k): K1's radix
+# instantiations
+CLASSIFY_ROWS = ("encode_probe_radix", "encode_probe_radix_range",
+                 "encode_only_radix")
 # the variants of one wrapper's launch counts (its ``variants`` dict) that
 # each kernel row counts
 VARIANTS = {
@@ -1124,6 +1199,11 @@ VARIANTS = {
     "encode_probe_spaced": ("encode_probe", ("spaced", "spaced sparse")),
     "encode_only": ("encode_probe", ("encode", "spaced encode")),
     "encode_probe_range": ("encode_probe", ("range", "spaced range")),
+    "encode_probe_radix": ("encode_probe", ("radix", "spaced radix")),
+    "encode_probe_radix_range": ("encode_probe", ("radix range",
+                                                  "spaced radix range")),
+    "encode_only_radix": ("encode_probe", ("radix encode",
+                                           "spaced radix encode")),
     "minimizers_sp": ("minimizers", ("sequence-parallel",)),
     "reverse_complement128": ("rc128", ("rc",)),
     "canonical128": ("rc128", ("canonical",)),
@@ -1143,10 +1223,11 @@ def reset_counts(wrappers):
 
 def read_counts(wrappers, sharded: bool = False):
     """{kernel row: launches} of these wrappers since ``reset_counts``
-    (the rows of phase 9g where ``sharded``)."""
+    (the rows of phase 9g where ``sharded``; phase 9k reads its own)."""
     out = {}
     for w in wrappers:
         rows = [r for r, (fn, _) in VARIANTS.items() if fn == w.__name__
+                and r not in CLASSIFY_ROWS
                 and (sharded or r not in SHARDED_ROWS)]
         for r in rows:
             out[r] = sum(w.variants.get(v, 0) for v in VARIANTS[r][1])
@@ -5672,6 +5753,289 @@ def phase_alphabets(dev, chk, kk):
     return launches, times, bounds, secs, peak / 2**20
 
 
+def _radix_prep(clf, path, mate=None, n=8192):
+    """The first batch of ``n`` reads of ``path`` (with its mates) as
+    ``clf`` ships it: (batch, its int8 codes, its lengths), on the CPU."""
+    from bonsai_tpu_torch.io import fastx
+
+    batch = next(iter(fastx.batch_reads(path, clf.lut, batch_size=n,
+                                        mate_path=mate)))
+    prep = clf._prepare_batch(batch, mate is not None)
+    require(prep.channel == "codes" and prep.naux is None,
+            f"a {clf.it.name} batch ships in the channel {prep.channel}")
+    return batch, prep.pcodes, prep.lengths
+
+
+def _row_range(arr, lo, hi):
+    """Rows [lo, hi) of the slot image ``arr`` (its values too where
+    flat), as a psum rank holds them."""
+    from bonsai_tpu_torch.db.table import ProbeArrays
+
+    return ProbeArrays(arr.slots[lo:hi].contiguous(),
+                       arr.vals if arr.inline else
+                       arr.vals[lo:hi].contiguous(), arr.inline, arr.lgnb,
+                       arr.vbits, lo, hi - lo)
+
+
+def _on_cpu(arr):
+    from bonsai_tpu_torch.db.table import ProbeArrays
+
+    return ProbeArrays(arr.slots.cpu(), arr.vals.cpu(), arr.inline, arr.lgnb,
+                       arr.vbits, arr.row0, arr.rows)
+
+
+def alphabet_classify_kernels(dev, chk, clfs, paths):
+    """K1's radix instantiations on the card against their plain versions
+    on CPU copies, exact: the first 8192 reads of each read set (PROTEIN20,
+    multiply-add fold, contiguous; PROTEIN_3BIT, shift-or fold, spaced
+    1x11; the paired set's mates), want_idx on and off, on the whole
+    table, on each half of its rows (the psum route's bucket range) and on
+    all of them as one range, and encode only."""
+    from bonsai_tpu_torch.classify import pipeline as pl
+
+    for name, path, mate in (
+            ("PROTEIN20 -k 7", paths["PROTEIN20 single"][0], None),
+            ("PROTEIN20 -k 7", *paths["PROTEIN20 paired"]),
+            ("PROTEIN_3BIT -k 12 -S 1x11", paths["PROTEIN_3BIT single"][0],
+             None)):
+        clf = clfs[name]
+        _, codes, ln = _radix_prep(clf, path, mate)
+        k, it, pos = clf.k, clf.it, clf.positions
+        tag = f"{name}, 8192 {'pairs' if mate else 'reads'}"
+        cd, ld = codes.to(dev), ln.to(dev)
+        nb = clf.arr.slots.shape[0]
+        ranges = {"whole": clf.arr, "rows [0, nb/2)": _row_range(
+            clf.arr, 0, nb // 2), "rows [nb/2, nb)": _row_range(
+            clf.arr, nb // 2, nb), "rows [0, nb)": _row_range(clf.arr, 0, nb)}
+        for what, arr in ranges.items():
+            cpu_arr = _on_cpu(arr)
+            row = ("encode_probe_radix" if what == "whole"
+                   else "encode_probe_radix_range")
+            for want_idx in (False, True):
+                chk.same(row, pl.encode_probe_radix(
+                    cd, ld, k, False, it, arr, want_idx, pos),
+                    pl.encode_probe_radix_plain(codes, ln, k, it, cpu_arr,
+                                                want_idx, pos),
+                    f"{tag}, {what}, want_idx={want_idx}")
+        chk.same("encode_only_radix", pl.encode_only_radix(
+            cd, ld, k, False, it, pos), pl.encode_only_radix_plain(
+            codes, ln, k, it, pos), tag)
+    say(f"# classify alphabets: kernels equal to their plain versions: "
+        f"{ {n: chk.cases[n] for n in CLASSIFY_ROWS} } cases")
+
+
+def phase_alphabet_classify(dev, chk, kk):
+    """9k. Other alphabets through classify, on the card: the ec genomes'
+    forward frames translated, a PROTEIN20 -k 7 database (device_lca_map,
+    KB1 radix rolled) and 200,000 reads of 33 residues of them
+    (tools/synthetic.protein_reads: substrings with 2% substitutions and
+    1% 'X', 10% random) through Classifier(input_type=PROTEIN20)
+    .process_dataset single and as 100,000 pairs, a probe image
+    (from_probe_image(input_type=)), and ShardedClassifier psum (2, 1) and
+    a2a (1, 2) with their ranks on this one card; a PROTEIN_3BIT -k 12 -S
+    1x11 database of 2 genomes (the shift-or fold and a spaced seed) and
+    50,000 reads of it; each database's digest and each Kraken text's
+    sha256 the JAX package's (CLASSIFY_JAX).  K1's radix instantiations
+    launched; then each against its plain version and timed by CUDA-graph
+    replay at the stream's batch of 8192 reads, with its bound."""
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.core.alphabet import InputType
+    from bonsai_tpu_torch.core.spacer import Spacer, parse_spacing
+    from bonsai_tpu_torch.db import build_device as bd
+    from bonsai_tpu_torch.db import formats
+    from bonsai_tpu_torch.db.build import content_digest
+    from bonsai_tpu_torch.parallel import route as rt
+    from bonsai_tpu_torch.parallel import sharded as sh
+    from bonsai_tpu_torch.parallel.mesh import make_mesh
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools.bounds import (bound_encode_only,
+                                               bound_encode_probe,
+                                               bound_encode_probe_range,
+                                               spaced_runs)
+    from bonsai_tpu_torch.tools.synthetic import (ALPHABET_READ_SETS,
+                                                  protein_reads, write_frames,
+                                                  write_reads)
+
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tree = TaxTree.from_nodes_dmp(os.path.join(GOLD, kk["nodes"]))
+    nameid = os.path.join(GOLD, kk["nameid"])
+    tmp_dir = tempfile.TemporaryDirectory(prefix="classify_alphabets.",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_dir.name
+    secs = {}
+    t0 = time.perf_counter()
+    frames = [write_frames(os.path.join(DATA, "ec", g),
+                           os.path.join(tmp, g.split(".fna")[0] + ".faa"))
+              for g in kk["genomes"]]
+    # 1. the read sets: their files' sha256 = the JAX script's
+    paths = {}
+    for rset, (n, seed, paired, ng) in ALPHABET_READ_SETS.items():
+        got = protein_reads(frames[:ng], n, seed, paired=paired)
+        stem = os.path.join(tmp, rset.replace(" ", "_"))
+        paths[rset] = ([write_reads(f"{stem}.1.fa", got[0]),
+                        write_reads(f"{stem}.2.fa", got[1])] if paired else
+                       [write_reads(f"{stem}.fa", got)])
+        shas = " ".join(_sha(open(p, "rb").read()) for p in paths[rset])
+        require(shas == CLASSIFY_JAX[f"reads {rset}"], f"9k: the read set "
+                f"{rset} differs from the JAX script's (numpy's generator)")
+    secs["frames and reads"] = time.perf_counter() - t0
+    say(f"# classify alphabets: frames and read sets "
+        f"{ {r: v[0] for r, v in ALPHABET_READ_SETS.items()} } written in "
+        f"{secs['frames and reads']:.3f}s, sha256 = the JAX script's")
+    # 2. the databases on the card
+    dbs = {}
+    for name, (it, k, spacing, ng, _) in CLASSIFY_DBS.items():
+        sp = Spacer(k, 0, parse_spacing(spacing, k))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = bd.device_lca_map(frames[:ng], tree, nameid, sp, True, "lex",
+                                  InputType[it], device=dev)
+        torch.cuda.synchronize()
+        secs[f"build {name}"] = time.perf_counter() - t0
+        got, (want, n) = content_digest(table), CLASSIFY_JAX[f"db {name}"]
+        say(f"# classify alphabets: {name} device_lca_map of {ng} genomes' "
+            f"frames: {table.n} k-mers in {secs[f'build {name}']:.3f}s; "
+            f"digest {'matches' if got == want else 'DIFFERS'} the JAX "
+            "package's")
+        require(got == want and table.n == n, f"9k {name}: the device build "
+                "differs from the JAX package's")
+        dbs[name] = formats.Database(table=table, k=k, w=sp.w,
+                                     gaps=list(sp.gaps))
+    db20 = dbs["PROTEIN20 -k 7"]
+    image = os.path.join(tmp, "protein20_image")
+    formats.save_probe_image(image, db20, tree)
+    p20 = InputType.PROTEIN20
+    # 3. the main path, counted from 0: every classifier, each Kraken text
+    #    = the JAX package's
+    wrappers = [pl.encode_probe, rs.resolve, pl.step_outputs, rt.route_frame,
+                rt.route_probe, rt.route_collect]
+    reset_counts(wrappers)
+
+    def mesh(dp, n):
+        return make_mesh({"dp": dp, "db": n}, [dev])
+
+    clfs = {
+        "PROTEIN20 -k 7": pl.Classifier(db20, tree, emit_all=True,
+                                        input_type=p20, trim_table=False,
+                                        device=dev),
+        "PROTEIN_3BIT -k 12 -S 1x11": pl.Classifier(
+            dbs["PROTEIN_3BIT -k 12 -S 1x11"], tree, emit_all=True,
+            input_type=InputType.PROTEIN_3BIT, device=dev),
+    }
+    runs = [
+        ("PROTEIN20 single", "Classifier", lambda: clfs["PROTEIN20 -k 7"]),
+        ("PROTEIN20 paired", "Classifier", lambda: clfs["PROTEIN20 -k 7"]),
+        ("PROTEIN20 single", "probe image",
+         lambda: pl.Classifier.from_probe_image(image, tree, emit_all=True,
+                                                input_type=p20, device=dev)),
+        ("PROTEIN20 single", "psum (2, 1)",
+         lambda: sh.ShardedClassifier(db20, tree, mesh(2, 1), input_type=p20,
+                                      route="psum", emit_all=True)),
+        ("PROTEIN20 single", "a2a (1, 2)",
+         lambda: sh.ShardedClassifier(db20, tree, mesh(1, 2), input_type=p20,
+                                      route="a2a", emit_all=True)),
+        ("PROTEIN_3BIT single", "Classifier",
+         lambda: clfs["PROTEIN_3BIT -k 12 -S 1x11"]),
+    ]
+    for rset, what, make in runs:
+        t0 = time.perf_counter()
+        clf = make()
+        t1 = time.perf_counter()
+        got = _sha_run(clf, *paths[rset])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        secs[f"{rset} {what}"] = t2 - t1
+        want = CLASSIFY_JAX[f"text {rset}"][0]
+        say(f"# classify alphabets: {rset} through {what}: Kraken text "
+            f"sha256 {'matches' if got == want else 'DIFFERS'} the JAX "
+            f"package's ({t2 - t1:.3f}s; set-up {t1 - t0:.3f}s)")
+        require(got == want, f"9k {rset} through {what} differs from the JAX "
+                "package's")
+    torch.cuda.synchronize()
+    counts = {r: sum(pl.encode_probe.variants.get(v, 0)
+                     for v in VARIANTS[r][1]) for r in CLASSIFY_ROWS}
+    also = read_counts(wrappers[1:])
+    say(f"# classify alphabets: K1 launches by variant "
+        f"{dict(pl.encode_probe.variants)}, of K2, K3 and KD1 {also}")
+    for r, c in {**counts, **also}.items():
+        require(c > 0, f"kernel {r} never launched in phase 9k")
+    require(sum(pl.encode_probe.variants.get(v, 0) for v in (
+        "contiguous", "spaced", "sparse", "spaced sparse", "range",
+        "spaced range", "encode", "spaced encode")) == 0,
+        "9k: a batch of another input type went to DNA's K1")
+    n20 = ALPHABET_READ_SETS["PROTEIN20 single"][0]
+    rps = n20 / secs["PROTEIN20 single Classifier"]
+    # 4. the kernels against their plain versions
+    alphabet_classify_kernels(dev, chk, clfs, paths)
+    # 5. their times at the stream's batch: 8192 reads of 33 residues
+    times, bounds = {}, {}
+    c20 = clfs["PROTEIN20 -k 7"]
+    want_idx = c20._uniq_host is not None
+    psum = sh.ShardedClassifier(db20, tree, mesh(1, 1), input_type=p20,
+                                route="psum", emit_all=True)
+    for row, clf, arr in (
+            ("encode_probe_radix", c20, c20.arr),
+            ("encode_probe_radix_range", c20, psum._arr[0]),
+            ("encode_only_radix", c20, None),
+            ("spaced", clfs["PROTEIN_3BIT -k 12 -S 1x11"], None)):
+        rset = ("PROTEIN_3BIT single" if row == "spaced"
+                else "PROTEIN20 single")
+        _, codes, ln = _radix_prep(clf, paths[rset][0])
+        cd, ld = codes.to(dev), ln.to(dev)
+        k, it, pos = clf.k, clf.it, clf.positions
+        if row == "spaced":
+            arr = clf.arr
+        fold = dict(runs=spaced_runs(pos) if pos else 0, rolled=pos is None)
+        kmers, valid = pl.encode_only_radix(cd, ld, k, False, it, pos)
+        if row == "encode_only_radix":
+            def kern(cd=cd, ld=ld, k=k, it=it, pos=pos):
+                return pl.encode_only_radix(cd, ld, k, False, it, pos)
+
+            def plain(cd=cd, ld=ld, k=k, it=it, pos=pos):
+                return pl.encode_only_radix_plain(cd, ld, k, it, pos)
+            out = (kmers, valid)
+            bnd = bound_encode_only((cd, ld), out, **fold)
+        else:
+            def kern(cd=cd, ld=ld, k=k, it=it, arr=arr, pos=pos):
+                return pl.encode_probe_radix(cd, ld, k, False, it, arr,
+                                             want_idx, pos)
+
+            def plain(cd=cd, ld=ld, k=k, it=it, arr=arr, pos=pos):
+                return pl.encode_probe_radix_plain(cd, ld, k, it, arr,
+                                                   want_idx, pos)
+            out = kern()
+            bnd = (bound_encode_probe_range((cd, ld), arr.vals, out,
+                                            kmers[valid], arr, **fold)
+                   if arr.rows else
+                   bound_encode_probe((cd, ld), arr.vals, out, **fold))
+        tag = (f"{clf.it.name} -k {k}{' -S 1x11' if pos else ''}, "
+               f"{codes.shape[0]} reads x {codes.shape[1]} codes, "
+               f"{int(out[1].sum())} valid positions")
+        t = time_pair(row, tag, kern, plain, bnd, graph=True)
+        if row == "spaced":
+            say(f"# classify alphabets: K1 radix spaced (PROTEIN_3BIT, "
+                f"shift-or) {t[0]:.4f} ms against its bound {bnd[0]:.4f} ms "
+                "(its row is encode_probe_radix's, timed contiguous)")
+            continue
+        times[row], bounds[row] = t, bnd
+    del clfs, psum, dbs, db20
+    tmp_dir.cleanup()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_all
+    say(f"# classify alphabets: PROTEIN20 stream {rps:.6g} reads/s "
+        f"({n20} reads of 33 residues in "
+        f"{secs['PROTEIN20 single Classifier']:.3f}s); phase 9k wall "
+        f"{wall:.1f}s, peak device memory {peak / 2**20:.1f} MiB")
+    secs["reads/s PROTEIN20 stream"] = rps
+    return counts, times, bounds, secs, peak / 2**20
+
+
 def phase_gather(dev):
     """python -m bonsai_tpu_torch.tools.gather_bench's run, counted."""
     import torch
@@ -5947,6 +6311,11 @@ def main() -> int:
         "9j other alphabets", phase_alphabets, dev, chk, kk)
     times.update(alpha_times)
     bounds.update(alpha_bounds)
+    cls_launches, cls_times, cls_bounds, cls_secs, cls_peak = phase(
+        "9k other alphabets through classify", phase_alphabet_classify, dev,
+        chk, kk)
+    times.update(cls_times)
+    bounds.update(cls_bounds)
     gather_launches, gres = phase("10 gather", phase_gather, dev)
     build_times, build_bounds, library = phase("11 numbers",
                                                phase_build_numbers, dev, kk)
@@ -5970,6 +6339,7 @@ def main() -> int:
     launches.update(sketch_launches)
     launches.update(format_launches)
     launches.update(sharded_launches)
+    launches.update(cls_launches)
     for name, n in index_launches.items():  # KB1's rows, from phase 9i too
         launches[name] += n
     for name, n in alpha_launches.items():  # and the rows of phase 9j
@@ -5999,7 +6369,10 @@ def main() -> int:
         f"seconds: { {k: round(v, 3) for k, v in index_secs.items()} }, the "
         f"ec metatree's peak {index_peak:.1f} MiB; other alphabets, wall "
         f"seconds: { {k: round(v, 3) for k, v in alpha_secs.items()} }, "
-        f"9j's peak {alpha_peak:.1f} MiB; total "
+        f"9j's peak {alpha_peak:.1f} MiB; classify alphabets: PROTEIN20 "
+        f"stream {cls_secs['reads/s PROTEIN20 stream']:.6g} reads/s, wall "
+        f"seconds { {k: round(v, 3) for k, v in cls_secs.items()} }, 9k's "
+        f"peak {cls_peak:.1f} MiB; total "
         f"{time.perf_counter() - t_all:.1f}s")
     say(f"# phases, wall seconds: "
         f"{ {n: round(t, 1) for n, t in PHASE_SECS.items()} }")

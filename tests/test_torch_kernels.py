@@ -3157,3 +3157,115 @@ def test_bitmap_patterns_on_the_card_equal_the_cpu(cuda, T):
     for g, w in zip(bitsets.bitmap_patterns(got),
                     bitsets.bitmap_patterns(want)):
         assert np.array_equal(g, w)
+
+
+# -- K1's radix instantiations: another input type's int8 codes --------------
+
+# (input type, k): shift-or folds (PROTEIN at its 8 bits, PROTEIN_3BIT at
+# k = 22, whose 66-bit fold keeps 64, DNA2 at k = 32) and multiply-add
+# folds (PROTEIN20, PROTEIN_14, PROTEIN_6 at their largest k)
+RADIX_K1 = [(InputType.PROTEIN, 8), (InputType.PROTEIN_3BIT, 22),
+            (InputType.DNA2, 32), (InputType.PROTEIN20, 7),
+            (InputType.PROTEIN_14, 16), (InputType.PROTEIN_6, 24)]
+
+
+def _radix_reads(rng, it, B, L, c):
+    """(B, L) int8 codes of ``it`` (2% ambiguous, -1 past each length; a
+    row of the largest code, which folds to U64_MAX for PROTEIN_3BIT at
+    k = 22 and DNA2 at k = 32) and int32 lengths (some shorter than c)."""
+    top = min(radix_of(it), 128)
+    codes = rng.integers(0, top, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = -1
+    codes[3] = top - 1
+    lengths = rng.integers(c, L + 1, B).astype(np.int32)
+    lengths[3] = L
+    lengths[rng.choice(np.arange(4, B), B // 8, replace=False)] = \
+        rng.integers(0, c, B // 8)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return torch.from_numpy(codes), torch.from_numpy(lengths)
+
+
+def _radix_tables(rng, kmers, valid, flat):
+    """A table of half the valid k-mers and random keys (U64_MAX among
+    them), 6 packed values (inline) or one a key (flat)."""
+    seen = np.unique(kmers[valid].numpy().view(np.uint64))
+    keys = np.unique(np.concatenate([
+        rng.choice(seen, seen.size // 2, replace=False),
+        rng.integers(0, 2**64, 2000, dtype=np.uint64),
+        np.array([2**64 - 1], np.uint64)]))
+    v = (np.arange(keys.size, dtype=np.uint64) if flat else
+         rng.integers(0, 6, keys.size).astype(np.uint64))
+    t = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32)) | v)
+    return t, t.encode_slots(t.vals_sorted, allow_inline=not flat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("spaced", [False, True])
+@pytest.mark.parametrize("it,k", RADIX_K1,
+                         ids=[f"{t.name}-{k}" for t, k in RADIX_K1])
+def test_encode_probe_radix_kernel_matches_plain(cuda, it, k, spaced, flat):
+    """K1's radix instantiations, whole table, each rank's bucket range
+    (ndb = 3) and encode only, contiguous and spaced (every other code),
+    want_idx on and off, int32 and u16 lengths."""
+    rng = np.random.default_rng(int(it) * 100 + k + 7 * spaced + flat)
+    pos = tuple(range(0, 2 * k - 1, 2)) if spaced else None
+    c = 2 * k - 1 if spaced else k
+    codes, ln = _radix_reads(rng, it, 200, c + 90, c)
+    kmers, valid = pl.encode_only_radix_plain(codes, ln, k, it, pos)
+    assert valid.any() and not valid.all()
+    _same(pl.encode_only_radix(codes.to(cuda), ln.to(cuda), k, False, it,
+                               pos), (kmers, valid))
+    t, (s, v, inline) = _radix_tables(rng, kmers, valid, flat)
+    assert inline != flat
+    whole = [ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, d)
+             for d in ("cpu", cuda)]
+    rps = (t.nb + 2) // 3
+    ranges = []
+    for r in range(3):
+        lo, hi = r * rps, min((r + 1) * rps, t.nb)
+        z = np.zeros((rps - (hi - lo), 4), np.uint64)
+        sl = np.concatenate([s[lo:hi], z])
+        fv = v if inline else np.concatenate([v[lo:hi], z])
+        ranges.append([ProbeArrays.from_numpy(sl, fv, inline, t.lgnb,
+                                              t.vbits, d, lo, rps)
+                       for d in ("cpu", cuda)])
+    for lengths in (ln, ln.to(torch.uint16)):
+        for want_idx in (False, True):
+            for cpu_arr, dev_arr in [whole] + ranges:
+                want = pl.encode_probe_radix_plain(codes, lengths, k, it,
+                                                   cpu_arr, want_idx, pos)
+                before = pl.encode_probe.launches
+                got = pl.encode_probe_radix(codes.to(cuda), lengths.to(cuda),
+                                            k, False, it, dev_arr, want_idx,
+                                            pos)
+                assert pl.encode_probe.launches == before + 1
+                _same(got, want)
+            assert want[0].any()
+    variants = pl.encode_probe.variants
+    tag = "spaced " if spaced else ""
+    for v in ("radix", "radix range", "radix encode"):
+        assert variants.get(tag + v, 0) > 0
+
+
+@pytest.mark.cuda
+def test_encode_probe_radix_refuses_what_the_kernel_does_not_take(cuda):
+    codes, ln = _radix_reads(np.random.default_rng(1), InputType.PROTEIN20,
+                             8, 40, 7)
+    t, (s, v, inline) = _radix_tables(np.random.default_rng(2),
+                                      *pl.encode_only_radix_plain(
+                                          codes, ln, 7, InputType.PROTEIN20),
+                                      False)
+    arr = ProbeArrays.from_numpy(s, v, inline, t.lgnb, t.vbits, cuda)
+    c, n = codes.to(cuda), ln.to(cuda)
+    with pytest.raises(TypeError, match="codes"):
+        pl.encode_probe_radix(c.to(torch.int32), n, 7, False,
+                              InputType.PROTEIN20, arr, False)
+    with pytest.raises(ValueError, match="k=15"):
+        pl.encode_probe_radix(c, n, 15, False, InputType.PROTEIN20, arr,
+                              False)
+    with pytest.raises(ValueError, match="never canonicalized"):
+        pl.encode_only_radix(c, n, 4, True, InputType.PROTEIN20,
+                             (0, 2, 4, 6))
+    with pytest.raises(ValueError, match="2-bit words"):
+        pl.encode_probe_radix(c, n, 7, False, InputType.DNA, arr, False)
