@@ -423,7 +423,7 @@ def _radix_args(codes, lengths, k: int, canon: bool, it: InputType,
 
 def encode_probe_radix(codes, lengths, k: int, canon: bool, it: InputType,
                        arr: ProbeArrays, want_idx: bool, positions=None):
-    """K1's radix instantiations (``csrc/encode_probe.cu``
+    """K1's radix instantiations (``csrc/encode_probe_radix.cu``
     ``bk_encode_probe_radix``, and ``bk_encode_probe_radix_range`` for an
     image of a row range): see ``encode_probe_radix_plain``, which serves
     CPU tensors.  codes (B, L) int8 of the input type ``it`` (not DNA),

@@ -88,29 +88,12 @@
 //          them misses, and the flat value position is the local one
 //          (local bucket * 4 + lane).
 
-// The radix instantiations (entries bk_encode_probe_radix,
-// bk_encode_probe_radix_range and bk_encode_only_radix, each contiguous or
-// spaced) take the reads of an input type other than DNA: the JAX step on
-// int8 codes (pipeline.py:404-463, _make_step), whose encode is
-// BatchEncoder.emissions at W = 1 with the other alphabets' fold
-// (core/encode.py _pack :108-137, apply_mask :163-170).  The reads arrive
-// as a row of int8 codes a read, ``ld`` bytes apart, -1 for an ambiguous
-// code or padding: no N mask and no sparse list, the -1 byte carries the
-// ambiguity.  A thread folds its position's k codes (scores.cuh Fold): a
-// contiguous seed rolls the fold over them (fold_roll, nothing going out),
-// a spaced seed folds the codes at its k offsets (fold_step), and both end
-// with fold_finish (the mask or the modulus).  A position is valid iff it
-// lies inside the read (p < len - c + 1) and none of its k codes is
-// ambiguous, and for a spaced seed iff its k-mer is not U64_MAX, as DNA's
-// (the classifier's spaced seed is the encoder's windowed spaced branch at
-// W = 1, core/encoder.py:189-204: PROTEIN_3BIT's k = 22 fold of a run of
-// its last code is U64_MAX).  The probe, want_idx and the four outputs are
-// K1's; never canonical.
+// The reads of another input type (int8 codes) take K1's radix kernel,
+// encode_probe_radix.cu, which shares nothing of this file's template.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "scores.cuh"
 #include "spacing.cuh"
 
 namespace {
@@ -192,9 +175,7 @@ __device__ __forceinline__ bool listed_n(const uint32_t* list, int m,
   return false;
 }
 
-// kRadix: ``pcodes`` holds int8 codes of another input type, rows ``w16``
-// bytes apart, folded by ``fold``; ``nmask`` and the sparse list unused.
-template <bool kSpaced, int kMode, bool kRadix = false>
+template <bool kSpaced, int kMode>
 __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     const uint32_t* __restrict__ pcodes, int64_t w16,
     const uint32_t* __restrict__ nmask, int64_t nmw,
@@ -205,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
     int32_t* __restrict__ cidx, uint32_t* __restrict__ oidx,
     bk::Spacing sp, int64_t row0, int64_t rows,
     int64_t* __restrict__ kmers_out, const uint32_t* __restrict__ nidx,
-    int64_t n_nidx, bk::Fold fold) {
+    int64_t n_nidx) {
   const bk::Spacing* ss = nullptr;
   if constexpr (kSpaced) {
     __shared__ bk::Spacing s_sp;
@@ -244,23 +225,7 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
   const uint32_t* pw = pcodes + b * w16;
   uint64_t kmer = 0;
   bool v;
-  if constexpr (kRadix) {
-    // the k codes at p + pos[j] (spaced) or p + j, all below the row's
-    // ld >= P + c - 1 bytes
-    const int8_t* row = (const int8_t*)pcodes + b * w16 + p;
-    const int c = kSpaced ? ss->span : k;
-    uint64_t f = 0;
-    bool bad = false;
-    for (int j = 0; j < k; ++j) {
-      const int code = __ldg(row + (kSpaced ? ss->pos[j] : j));
-      bad |= code < 0;
-      f = kSpaced ? bk::fold_step(fold, f, code)
-                  : bk::fold_roll(fold, f, (uint64_t)(code < 0 ? 0 : code), 0);
-    }
-    kmer = bk::fold_finish(fold, f);
-    v = !bad && !(kSpaced && kmer == ~0ULL) &&
-        p < read_length(lengths, len16, b) - (c - 1);
-  } else if constexpr (kSpaced) {
+  if constexpr (kSpaced) {
     // the k 2-bit fields at p + pos[j] (all below lproc <= 16 * w16) and
     // their N bits
     const int span = ss->span;
@@ -382,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) encode_probe_kernel(
   oidx[i] = h ? (want_idx ? sel : (uint32_t)(val >> 32)) : 0u;
 }
 
-template <bool kSpaced, int kMode = kProbe, bool kRadix = false>
+template <bool kSpaced, int kMode = kProbe>
 int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
            const void* lengths, int len16, int64_t B, int64_t P, int k,
            int canon,
@@ -391,54 +356,17 @@ int launch(const void* pcodes, int64_t w16, const void* nmask, int64_t nmw,
            void* valid, void* cidx, void* oidx, const bk::Spacing& sp,
            void* stream, int64_t row0 = 0, int64_t rows = 0,
            void* kmers = nullptr, const void* nidx = nullptr,
-           int64_t n_nidx = 0, const bk::Fold& fold = bk::Fold{}) {
+           int64_t n_nidx = 0) {
   const int64_t n = B * P;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
-  encode_probe_kernel<kSpaced, kMode, kRadix>
+  encode_probe_kernel<kSpaced, kMode>
       <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)pcodes, w16, (const uint32_t*)nmask, nmw,
           lengths, len16, n, P, k, canon, (const ulonglong2*)slots,
           lgnb, vbits, (const uint64_t*)vals, n_vals, is_inline, want_idx,
           (bool*)hit, (bool*)valid, (int32_t*)cidx, (uint32_t*)oidx, sp,
-          row0, rows, (int64_t*)kmers, (const uint32_t*)nidx, n_nidx, fold);
+          row0, rows, (int64_t*)kmers, (const uint32_t*)nidx, n_nidx);
   return (int)cudaGetLastError();
-}
-
-// Another input type's fold (scores.cuh FoldKind: 1 shift-or, 2
-// multiply-add; DNA's 2-bit words take the entries above), or an error.
-bool radix_fold(int kind, int bits, uint64_t radix, uint64_t lim, int k,
-                bk::Fold* f) {
-  if (kind != bk::kFoldShift && kind != bk::kFoldMulAdd) return false;
-  if (k < 1 || k > bk::kMaxK) return false;
-  *f = bk::Fold{kind, bits, radix, lim, bk::fold_rpow(radix, k)};
-  return true;
-}
-
-// The radix instantiations of one mode, contiguous or spaced.
-template <int kMode>
-int launch_radix(const void* codes, int64_t ld, const void* lengths,
-                 int len16, int64_t B, int64_t P, int k, int spaced,
-                 const int32_t* positions, int fold, int bits,
-                 uint64_t radix, uint64_t lim, const void* slots, int lgnb,
-                 int vbits, const void* vals, int64_t n_vals, int is_inline,
-                 int want_idx, int64_t row0, int64_t rows, void* hit,
-                 void* valid, void* cidx, void* oidx, void* kmers,
-                 void* stream) {
-  bk::Fold f;
-  if (!radix_fold(fold, bits, radix, lim, k, &f))
-    return (int)cudaErrorInvalidValue;
-  const int64_t c = spaced ? positions[k - 1] + 1 : k;
-  if (ld < P + c - 1) return (int)cudaErrorInvalidValue;
-  if (spaced)
-    return launch<true, kMode, true>(
-        codes, ld, nullptr, 0, lengths, len16, B, P, k, 0, slots, lgnb, vbits,
-        vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
-        bk::make_spacing(positions, k), stream, row0, rows, kmers, nullptr, 0,
-        f);
-  return launch<false, kMode, true>(
-      codes, ld, nullptr, 0, lengths, len16, B, P, k, 0, slots, lgnb, vbits,
-      vals, n_vals, is_inline, want_idx, hit, valid, cidx, oidx,
-      bk::Spacing{}, stream, row0, rows, kmers, nullptr, 0, f);
 }
 
 }  // namespace
@@ -535,52 +463,4 @@ extern "C" int bk_encode_probe_sparse(
                                 is_inline, want_idx, hit, valid, cidx, oidx,
                                 bk::Spacing{}, stream, 0, 0, nullptr, nidx,
                                 n_nidx);
-}
-
-// Another input type's reads: ``codes`` (B, ld) int8, -1 ambiguous or
-// padding, P <= ld - c + 1 positions a read; the fold (kind 1 shift-or by
-// ``bits`` under the mask ``lim``, kind 2 multiply-add by ``radix`` modulo
-// ``lim``); contiguous, or with ``spaced`` the k offsets ``positions`` (a
-// host array); never canonical.  Otherwise as bk_encode_probe.
-extern "C" int bk_encode_probe_radix(
-    const void* codes, int64_t ld, const void* lengths, int len16, int64_t B,
-    int64_t P, int k, int spaced, const int32_t* positions, int fold,
-    int bits, uint64_t radix, uint64_t lim, const void* slots, int lgnb,
-    int vbits, const void* vals, int64_t n_vals, int is_inline, int want_idx,
-    void* hit, void* valid, void* cidx, void* oidx, void* stream) {
-  return launch_radix<kProbe>(codes, ld, lengths, len16, B, P, k, spaced,
-                              positions, fold, bits, radix, lim, slots, lgnb,
-                              vbits, vals, n_vals, is_inline, want_idx, 0, 0,
-                              hit, valid, cidx, oidx, nullptr, stream);
-}
-
-// The psum route's probe of rows [row0, row0 + rows) (as
-// bk_encode_probe_range) on another input type's codes (as
-// bk_encode_probe_radix).
-extern "C" int bk_encode_probe_radix_range(
-    const void* codes, int64_t ld, const void* lengths, int len16, int64_t B,
-    int64_t P, int k, int spaced, const int32_t* positions, int fold,
-    int bits, uint64_t radix, uint64_t lim, const void* slots, int lgnb,
-    int vbits, const void* vals, int64_t n_vals, int is_inline, int want_idx,
-    int64_t row0, int64_t rows, void* hit, void* valid, void* cidx,
-    void* oidx, void* stream) {
-  if (row0 < 0 || rows < 1) return (int)cudaErrorInvalidValue;
-  return launch_radix<kRange>(codes, ld, lengths, len16, B, P, k, spaced,
-                              positions, fold, bits, radix, lim, slots, lgnb,
-                              vbits, vals, n_vals, is_inline, want_idx, row0,
-                              rows, hit, valid, cidx, oidx, nullptr, stream);
-}
-
-// The a2a route's encode (as bk_encode_only) of another input type's
-// codes (as bk_encode_probe_radix): kmers (B, P) int64, 0 where not valid,
-// and valid (B, P) bool.
-extern "C" int bk_encode_only_radix(
-    const void* codes, int64_t ld, const void* lengths, int len16, int64_t B,
-    int64_t P, int k, int spaced, const int32_t* positions, int fold,
-    int bits, uint64_t radix, uint64_t lim, void* kmers, void* valid,
-    void* stream) {
-  return launch_radix<kEncode>(codes, ld, lengths, len16, B, P, k, spaced,
-                               positions, fold, bits, radix, lim, nullptr, 0,
-                               0, nullptr, 0, 0, 0, 0, 0, nullptr, valid,
-                               nullptr, nullptr, kmers, stream);
 }

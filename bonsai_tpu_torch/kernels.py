@@ -16,7 +16,8 @@ kernel: ``classify/pipeline.py`` ``encode_probe`` and ``step_outputs``,
 ``encode_only`` (K1's two instantiations of the sharded classifier: the
 bucket range is ``encode_probe`` of a ranged image; the sparse-N channel
 is ``encode_probe`` with a list), ``encode_probe_radix`` and
-``encode_only_radix`` (K1 on another input type's int8 codes),
+``encode_only_radix`` (K1 radix, ``csrc/encode_probe_radix.cu``, on
+another input type's int8 codes),
 ``classify/resolve.py`` ``resolve``, ``core/encoder.py`` ``minimizers``,
 ``compacted_minimizers`` and ``compacted_stream``, ``core/rolling.py``
 ``cyclic_hashes``, ``core/encode128.py`` ``pack_kmers128`` and ``rc128``,
@@ -106,6 +107,10 @@ _SIGS = {
     # kmers, valid, stream
     "bk_encode_only_radix": [P, I64, P, I32, I64, I64, I32, I32, P, I32, I32,
                              U64, U64, P, P, P],
+    # K1 radix's build: mode (0 whole table, 1 range, 2 encode only),
+    # spaced, fold kind, out int32[6] (registers, local bytes, shared bytes,
+    # blocks a SM, positions a thread, threads a block)
+    "bk_encode_probe_radix_attrs": [I32, I32, I32, P],
     # kq, done, Q, ndb, cap, send, slotq, scratch, stream
     "bk_route_frame": [P, P, I64, I64, I64, P, P, P, P],
     # recv, n, slots, lgnb, vbits, vals, n_vals, inline, want_idx, resp,

@@ -55,35 +55,68 @@ def spaced_runs(positions) -> int:
     return 1 + sum(b != a + 1 for a, b in zip(positions, positions[1:]))
 
 
-def fold_ops(out, runs: int = 0, rolled: bool = False) -> int:
-    """The int32 operations of K1's encode at every position of ``out``:
-    for a spaced seed of ``runs`` runs of consecutive offsets its fold out
-    of the position's window (a u64 shift, mask and or a run, 4 int32 ops
-    at the least; another input type's spaced seed folds each of its
-    codes, a run of one where no two offsets touch), and for another input
-    type's contiguous seed (``rolled``) a rolled fold, the incoming code's
-    u64 multiply-add and the outgoing code's (8 int32 ops at the least)."""
-    return (4 * runs + 8 * rolled) * out[1].numel()
+def fold_ops(out, runs: int = 0, rolled: bool = False,
+             positions=None) -> int:
+    """The int32 operations of K1's encode at every position of ``out``
+    (at ``positions`` of them where given): for a spaced seed of ``runs``
+    runs of consecutive offsets its fold out of the position's window (a
+    u64 shift, mask and or a run, 4 int32 ops at the least; another input
+    type's spaced seed folds each of its codes, a run of one where no two
+    offsets touch), and for another input type's contiguous seed
+    (``rolled``) a rolled fold, the incoming code's u64 multiply-add and
+    the outgoing code's (8 int32 ops at the least)."""
+    n = out[1].numel() if positions is None else positions
+    return (4 * runs + 8 * rolled) * n
+
+
+def in_read(inputs, out, c: int):
+    """K1 over the reads' own positions, not the padded (B, P) grid: the
+    positions p < len - (c - 1) of each read, and the bytes of the reads'
+    own codes.  ``inputs`` is (codes (B, L) int8, lengths): another input
+    type's reads, one byte a code.  -> (positions, bytes of the inputs,
+    bytes of the outputs at those positions)."""
+    codes, lengths = inputs
+    B, L = codes.shape
+    P = out[1].shape[1]
+    ln = lengths.to(torch.int64)
+    n = int((ln - (c - 1)).clamp(0, P).sum())
+    code_bytes = int(ln.clamp(0, L).sum())
+    per = sum(t.element_size() for t in out)
+    return n, code_bytes + nbytes(lengths), n * per
+
+
+def _k1_io(inputs, out, runs, rolled, inread):
+    """(bytes in and out, fold ops) of K1's encode: over the padded grid,
+    or with ``inread`` (the seed's span c) over the reads' own positions
+    (``in_read``)."""
+    if inread is None:
+        return nbytes(*inputs, *out), fold_ops(out, runs, rolled)
+    n, nin, nout = in_read(inputs, out, inread)
+    return nin + nout, fold_ops(out, runs, rolled, n)
 
 
 def bound_encode_probe(inputs, vals, out, runs: int = 0,
-                       rolled: bool = False):
+                       rolled: bool = False, inread=None):
     """K1: the packed reads (``inputs``: words, the N mask or, for the
     sparse-N instantiation, the list of cap x 4 B, lengths; for another
     input type's radix instantiations its int8 codes, one byte a code,
     and the lengths), a 32-B slot row per ``k1_rows`` row, the values, the
     outputs; two splitmix64 hashes (~40 int32 ops) per valid position, and
     the encode's ``fold_ops``.  The sparse list's block-wide search is a
-    few operations a block, under the probes' hashes."""
-    return bound(nbytes(*inputs, vals) + 32 * k1_rows(out) + nbytes(*out),
-                 40 * int(out[1].sum()) + fold_ops(out, runs, rolled))
+    few operations a block, under the probes' hashes.  With ``inread``
+    (the seed's span; the radix instantiations' inputs) the codes and the
+    outputs count at the reads' own positions only (``in_read``)."""
+    io, ops = _k1_io(inputs, out, runs, rolled, inread)
+    return bound(io + nbytes(vals) + 32 * k1_rows(out),
+                 40 * int(out[1].sum()) + ops)
 
 
-def bound_encode_only(inputs, out, runs: int = 0, rolled: bool = False):
+def bound_encode_only(inputs, out, runs: int = 0, rolled: bool = False,
+                      inread=None):
     """K1's encode-only instantiation: the reads in (as
     ``bound_encode_probe``'s), the k-mers and flags out, the encode's
-    ``fold_ops``."""
-    return bound(nbytes(*inputs, *out), fold_ops(out, runs, rolled))
+    ``fold_ops``; ``inread`` as ``bound_encode_probe``'s."""
+    return bound(*_k1_io(inputs, out, runs, rolled, inread))
 
 
 def resolve_work(cidx, hit, tax):
@@ -400,11 +433,12 @@ def range_rows(queries, arr) -> int:
 
 
 def bound_encode_probe_range(inputs, vals, out, queries, arr,
-                             runs: int = 0, rolled: bool = False):
+                             runs: int = 0, rolled: bool = False,
+                             inread=None):
     """K1's bucket-range instantiation: the packed reads (or another input
     type's codes), the rank's slot rows (``range_rows``), the values, the
     outputs; two splitmix64 hashes (~40 int32 ops) a valid position and
-    the encode's ``fold_ops``."""
-    return bound(nbytes(*inputs, vals) + 32 * range_rows(queries, arr)
-                 + nbytes(*out),
-                 40 * int(out[1].sum()) + fold_ops(out, runs, rolled))
+    the encode's ``fold_ops``; ``inread`` as ``bound_encode_probe``'s."""
+    io, ops = _k1_io(inputs, out, runs, rolled, inread)
+    return bound(io + nbytes(vals) + 32 * range_rows(queries, arr),
+                 40 * int(out[1].sum()) + ops)

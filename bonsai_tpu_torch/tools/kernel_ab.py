@@ -199,7 +199,8 @@ OUT_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "kernel_ab")
 BUILD_SOURCES = ("merge_fold", "minimizers", "compacted_minimizers",
                  "lookup_scores", "rolling", "sort_unique", "hll", "setsketch",
                  "bitmix", "encode128")
-CLASSIFY_SOURCES = ("encode_probe", "resolve", "step_outputs")
+CLASSIFY_SOURCES = ("encode_probe", "encode_probe_radix", "resolve",
+                    "step_outputs")
 # the source of each --sketch case's entry point
 SKETCH_SOURCES = {
     "bk_hll_fill": "hll", "bk_csetsketch_update": "setsketch",
@@ -965,8 +966,287 @@ SKETCH_EDITS = {
     **{f"ks4-u{u}": (True, (("bitmix.cu", "constexpr int kPer = kPerThread;",
                              f"constexpr int kPer = {u};"),)) for u in (2, 8)},
 }
+# --classify's design of K1 radix's probe by lane pairs (the edit k1r-pair):
+# a pair of lanes reads each of its 2 kR slot rows with one 16-B load a
+# lane (lane 2j the row's low half, 2j + 1 its high half), so that a
+# warp's load touches 16 rows, each one 32-B sector, where a lane's own
+# two loads touch 32 rows twice; each lane matches its two slots and the
+# pair adds the halves' sums by shuffles; every lane stays to the end (a
+# lane past the positions takes the last one's read, and no position).
+PAIR_K1R = r"""  // the run's probes by lane pairs
+  const uint64_t bmask = (1ULL << a.lgnb) - 1;
+  const uint64_t base = kMode == kRange ? (uint64_t)a.row0 : 0;
+  const uint64_t vmask = (1ULL << a.vbits) - 1;
+  const int half = threadIdx.x & 1;
+  const uint32_t okp = __shfl_xor_sync(~0u, ok, 1);
+  uint64_t h[kR], hp[kR], acc[kR];
+  uint32_t found = 0;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    h[r] = splitmix64(km[r]);
+    hp[r] = __shfl_xor_sync(~0u, h[r], 1);
+    acc[r] = 0;
+  }
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    const uint32_t foundp = __shfl_xor_sync(~0u, found, 1);
+    ulonglong2 part[kR][2];
+    uint64_t bks[kR][2];
+    uint32_t loaded = 0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const bool mine = s == half;
+        const uint64_t hh = mine ? h[r] : hp[r];
+        const bool want = (((mine ? ok & ~found : okp & ~foundp) >> r) & 1);
+        uint64_t b = hh & bmask;
+        if (ch) b ^= splitmix64((hh >> a.lgnb) ^ kBSalt) & bmask;
+        b -= base;
+        bks[r][s] = b;
+        if (want && (kMode != kRange || b < (uint64_t)a.rows)) {
+          part[r][s] = a.slots[2 * b + half];
+          loaded |= 1u << (2 * r + s);
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const bool mine = s == half;
+        const uint64_t hh = mine ? h[r] : hp[r];
+        const uint64_t e = (ch ? 3ULL << 62 : 1ULL << 63) |
+                           ((hh >> a.lgnb) << a.vbits);
+        uint64_t pa = 0;
+        int pf = 0;
+        if (loaded >> (2 * r + s) & 1) {
+          const uint64_t w[2] = {part[r][s].x, part[r][s].y};
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+            if ((w[t] & ~vmask) == e) {
+              pf = 1;
+              pa += a.is_inline ? (w[t] & vmask)
+                                : bks[r][s] * 4 + 2 * half + t;
+            }
+        }
+        pa += __shfl_xor_sync(~0u, pa, 1);
+        pf |= __shfl_xor_sync(~0u, pf, 1);
+        if (mine && pf) {
+          found |= 1u << r;
+          acc[r] += pa;
+        }
+      }
+  }
+"""
+
+
+def _cut(first: str, past: str):
+    """An edit's old text given by its ends: the text of the edited file
+    from ``first`` up to ``past`` (or '' where ``first`` is not in it)."""
+    def cut(text: str) -> str:
+        i = text.find(first)
+        return text[i:text.index(past, i)] if i >= 0 else ""
+    return cut
+
+
+# --classify's staging of K1 radix's codes (the edit k1r-staged): a block
+# stages the one byte range of its positions' codes in shared memory by
+# 16-B loads from the aligned byte at or below its start (-1 outside the
+# tensor), while each thread finds its first position and reads its
+# read's length, then a barrier; past kStageBytes the block reads its
+# codes where they are.
+STAGED_K1R = r"""
+constexpr int kStageBytes = 4096;  // staged codes a block, at most
+
+// The codes of a block staged in shared memory from byte ``gs``.
+struct Staged {
+  const int8_t* s;
+  int64_t gs;
+  __device__ __forceinline__ int byte(int64_t g) const { return s[g - gs]; }
+  __device__ __forceinline__ uint32_t word(int64_t g) const {
+    const int o = (int)(g - gs);
+    const uint32_t* w = (const uint32_t*)s;
+    return __funnelshift_r(w[o >> 2], w[(o >> 2) + 1], 8 * (o & 3));
+  }
+};
+
+template <int kMode, bool kSpaced, int kFold>
+__global__ void __launch_bounds__(kThreads)
+    radix_kernel(Args a, bk::Spacing sp) {
+  // the staged codes, and room for the word read past the last of them
+  __shared__ __align__(16) int8_t s_code[kStageBytes + 16];
+  constexpr int kR = kRun<kSpaced>, kTile = kThreads * kR;
+  const int tid = threadIdx.x;
+  const bk::Spacing* ss = nullptr;
+  if constexpr (kSpaced) {
+    __shared__ bk::Spacing s_sp;
+    bk::stage_spacing(sp, &s_sp, tid);
+    ss = &s_sp;
+  }
+  // the block's positions [i0, i1] and their codes' bytes [g0, g1)
+  const int64_t i0 = (int64_t)blockIdx.x * kTile;
+  const int64_t i1 = (i0 + kTile < a.n ? i0 + kTile : a.n) - 1;
+  int64_t b0, p0, b1, p1;
+  divmod(i0, a.P, &b0, &p0);
+  divmod(i1, a.P, &b1, &p1);
+  const int64_t g0 = b0 * a.ld + p0;
+  const int64_t g1 = b1 * a.ld + p1 + a.c;
+  const int shift = (int)(((uintptr_t)a.codes + (uintptr_t)g0) & 15);
+  const int64_t gs = g0 - shift;  // byte of s_code[0]
+  const bool staged = shift + (g1 - g0) <= kStageBytes;
+  // this thread's first position and its read's end, while the block's
+  // codes arrive
+  const int64_t i = i0 + (int64_t)kR * tid;
+  int64_t b = 0, p = 0, end = 0;
+  if (i < a.n) {
+    divmod(p0 + (int64_t)kR * tid, a.P, &b, &p);
+    b += b0;
+    end = read_length(a, b) - (a.c - 1);
+  }
+  if (staged) {
+    const int nchunk = (int)((shift + (g1 - g0) + 15) >> 4);
+    for (int q = tid; q < nchunk; q += kThreads) {
+      const int64_t lo = gs + 16 * q;
+      union {
+        int4 v;
+        int8_t b[16];
+      } u;
+      if (lo >= 0 && lo + 16 <= a.total) {
+        u.v = __ldg((const int4*)(a.codes + lo));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          u.b[e] = lo + e >= 0 && lo + e < a.total ? a.codes[lo + e]
+                                                   : (int8_t)-1;
+      }
+      *(int4*)(s_code + 16 * q) = u.v;
+    }
+  }
+  __syncthreads();
+  if (i >= a.n) return;
+  if (staged)
+    run<kMode, kSpaced, kFold>(a, ss, i, b, p, end, Staged{s_code, gs});
+  else
+    run<kMode, kSpaced, kFold>(a, ss, i, b, p, end,
+                               Codes{a.codes, a.total});
+}
+
+"""
+
+
+# --classify's design steps of K1's radix kernel (csrc/encode_probe_radix.cu),
+# edits of a copy of the tree's csrc: another run length of a contiguous
+# seed (k1r-r1, -r2, -r4, -r8) or of a spaced one (k1r-s1, -s2, -s4), another
+# block size (k1r-t64, -t128, -t256), both rows at once (k1r-both), the
+# rows read by lane pairs (k1r-pair, PAIR_K1R), the slot rows read past L1
+# (k1r-cg), the codes staged a block in shared memory (k1r-staged,
+# STAGED_K1R), and knock-outs
+K1R_EDITS = {
+    **{f"k1r-r{r}": (True, (("encode_probe_radix.cu",
+                             "constexpr int kRunContiguous = ",
+                             f"constexpr int kRunContiguous = {r}; // "),))
+       for r in (1, 2, 4, 8)},
+    **{f"k1r-s{r}": (True, (("encode_probe_radix.cu",
+                             "constexpr int kRunSpaced = ",
+                             f"constexpr int kRunSpaced = {r}; // "),))
+       for r in (1, 2, 4)},
+    **{f"k1r-t{t}": (True, (("encode_probe_radix.cu",
+                             "constexpr int kThreads = ",
+                             f"constexpr int kThreads = {t}; // "),))
+       for t in (64, 128, 256)},
+    # both candidate rows of every valid lane loaded before any compare
+    "k1r-both": (True, (
+        ("encode_probe_radix.cu",
+         "  ulonglong2 lo[kR], hi[kR];\n  uint32_t loaded = 0, found = 0;",
+         "  ulonglong2 lo[kR], hi[kR], lo2[kR], hi2[kR];\n"
+         "  uint64_t bk2[kR];\n"
+         "  uint32_t loaded = 0, found = 0, loaded2 = 0;"),
+        ("encode_probe_radix.cu",
+         "      loaded |= 1u << r;\n    }\n  }\n#pragma unroll\n"
+         "  for (int r = 0; r < kR; ++r)\n    if ((loaded >> r & 1) &&\n"
+         "        match_row(a, lo[r], hi[r],\n"
+         "                  (1ULL << 63)",
+         "      loaded |= 1u << r;\n    }\n"
+         "    bk2[r] = ((h[r] & bmask) ^ (splitmix64((h[r] >> a.lgnb) ^ "
+         "kBSalt) & bmask)) - base;\n"
+         "    if ((ok >> r & 1) && (kMode != kRange || bk2[r] < "
+         "(uint64_t)a.rows)) {\n"
+         "      lo2[r] = a.slots[2 * bk2[r]];\n"
+         "      hi2[r] = a.slots[2 * bk2[r] + 1];\n"
+         "      loaded2 |= 1u << r;\n    }\n  }\n#pragma unroll\n"
+         "  for (int r = 0; r < kR; ++r)\n    if ((loaded >> r & 1) &&\n"
+         "        match_row(a, lo[r], hi[r],\n"
+         "                  (1ULL << 63)"),
+        ("encode_probe_radix.cu",
+         "  loaded = 0;\n#pragma unroll\n  for (int r = 0; r < kR; ++r) {\n"
+         "    if ((ok & ~found) >> r & 1) {",
+         "  loaded = loaded2 & ~found;\n#pragma unroll\n"
+         "  for (int r = 0; r < kR; ++r) {\n"
+         "    bk[r] = bk2[r];\n    lo[r] = lo2[r];\n    hi[r] = hi2[r];\n"
+         "  }\n#pragma unroll\n  for (int r = 0; r < 0; ++r) {\n"
+         "    if ((ok & ~found) >> r & 1) {"))),
+    # knock-outs, timed and not checked: a contiguous seed's fresh fold of
+    # one word (k1r-x-fold), no length read (k1r-x-len), one 16-B half of
+    # each slot row read (k1r-x-hi), no second rows (k1r-x-row2), no value
+    # read (k1r-x-val)
+    "k1r-x-fold": (False, (("encode_probe_radix.cu",
+                            "  for (int j = 0; j < a.k; j += 4) {",
+                            "  for (int j = 0; j < 1; j += 4) {"),)),
+    "k1r-x-len": (False, (("encode_probe_radix.cu",
+                           "p, read_length(a, b) - (a.c - 1),",
+                           "p, a.P,"),
+                          ("encode_probe_radix.cu",
+                           "if (r > 0 && fresh) end = read_length(a, b) - "
+                           "(a.c - 1);",
+                           "if (r > 0 && fresh) end = a.P;"))),
+    "k1r-x-hi": (False, (("encode_probe_radix.cu",
+                          "      hi[r] = a.slots[2 * bk[r] + 1];",
+                          "      hi[r] = lo[r];"),
+                         ("encode_probe_radix.cu",
+                          "        hi[r] = a.slots[2 * bk[r] + 1];",
+                          "        hi[r] = lo[r];"))),
+    "k1r-x-row2": (False, (("encode_probe_radix.cu",
+                            "    if ((ok & ~found) >> r & 1) {",
+                            "    if (false) {"),)),
+    "k1r-x-val": (False, (("encode_probe_radix.cu",
+                           "      val[r] = a.vals[idx];",
+                           "      val[r] = (uint64_t)idx;"),)),
+    "k1r-pair": (True, (
+        ("encode_probe_radix.cu",
+         "  if (i >= a.n) return;\n  int64_t b, p;\n"
+         "  divmod(i, a.P, &b, &p);",
+         "  int64_t b, p;\n  divmod(i < a.n ? i : a.n - 1, a.P, &b, &p);"),
+        ("encode_probe_radix.cu", _cut(
+            "  // the run's probes together", "  uint64_t val[kR];"),
+         PAIR_K1R))),
+    "k1r-cg": (True, (("encode_probe_radix.cu",
+                       "      lo[r] = a.slots[2 * bk[r]];\n"
+                       "      hi[r] = a.slots[2 * bk[r] + 1];",
+                       "      lo[r] = __ldcg(a.slots + 2 * bk[r]);\n"
+                       "      hi[r] = __ldcg(a.slots + 2 * bk[r] + 1);"),
+                      ("encode_probe_radix.cu",
+                       "        lo[r] = a.slots[2 * bk[r]];\n"
+                       "        hi[r] = a.slots[2 * bk[r] + 1];",
+                       "        lo[r] = __ldcg(a.slots + 2 * bk[r]);\n"
+                       "        hi[r] = __ldcg(a.slots + 2 * bk[r] + 1);"))),
+    "k1r-staged": (True, (
+        ("encode_probe_radix.cu",
+         "template <int kFold>\n__device__ __forceinline__ uint64_t "
+         "fold_fresh(",
+         "template <int kFold, class Codes>\n__device__ __forceinline__ "
+         "uint64_t fold_fresh("),
+        ("encode_probe_radix.cu",
+         "template <int kMode, bool kSpaced, int kFold>\n__device__ "
+         "__forceinline__ void run(",
+         "template <int kMode, bool kSpaced, int kFold, class Codes>\n"
+         "__device__ __forceinline__ void run("),
+        ("encode_probe_radix.cu", _cut(
+            "template <int kMode, bool kSpaced, int kFold>\n__global__",
+            "template <int kMode, bool kSpaced, int kFold>\nint launch("),
+         STAGED_K1R))),
+}
 EDITS = {**HASH_EDITS, **ROUTE_EDITS, **KB4_EDITS, **KR1_EDITS,
-         **K128_EDITS, **KB1_EDITS, **SKETCH_EDITS}
+         **K128_EDITS, **KB1_EDITS, **SKETCH_EDITS, **K1R_EDITS}
 
 # the hash instantiations' blocks a SM: (label, entry point, arguments)
 OCCUPANCY = (("KB1 hash W=13", "bk_minimizers_hash_blocks_per_sm",
@@ -1033,7 +1313,9 @@ def edited_copy(csrc: str, tag: str, edit=None) -> str:
         for f, old, new in EDITS[part][1]:
             path = os.path.join(out, f)
             text = open(path).read() if os.path.exists(path) else ""
-            if old in text:
+            if callable(old):
+                old = old(text)
+            if old and old in text:
                 open(path, "w").write(text.replace(old, new))
                 taken += 1
         if not taken:
@@ -1110,6 +1392,7 @@ def build_parent(csrc: str, names, tag: str = "parent", edit=None,
             getattr(lib, name).restype = ctypes.c_int64
             getattr(lib, name).argtypes = [ctypes.c_int64] * nargs
     out = ParentLib(lib)
+    out.ptxas_all = regs
     out.ptxas = {label: next((v for k, v in regs.items()
                               if any(p in k for p in parts)), None)
                  for label, parts in PTXAS}
@@ -1724,8 +2007,9 @@ def sparse_vs_mask(a1, a1s, nidx, say=print) -> dict:
 
 def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
     """(name, call, timer) of K1, K2 and K3 on one HiSeq-sized batch, each
-    fed by the tree's own kernels' outputs, and K1's inputs in both N
-    channels (``sparse_inputs``)."""
+    fed by the tree's own kernels' outputs, and K1 radix's (``radix_cases``);
+    K1's inputs in both N channels (``sparse_inputs``); the radix cases'
+    bounds."""
     from ..classify import pipeline as pl
     from ..classify import resolve as rs
     from ..core.spacer import Spacer
@@ -1760,7 +2044,7 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
                    k=21, w=21, gaps=gaps)
     sclf = pl.Classifier(sdb, tree, emit_all=True, device=dev)
     a1s = (pc, nm, ln, lproc, 21, False, sclf.arr, True, sclf.positions)
-    radix = radix_case(nodes, nameid, genomes, dev)
+    radix, radix_bounds = radix_cases(nodes, nameid, genomes, dev)
     return [
         (f"encode_probe {shape}", lambda: pl.encode_probe(*a1), graph_ms),
         (f"encode_probe sparse {shape}",
@@ -1768,7 +2052,7 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
          "bk_encode_probe_sparse"),
         (f"encode_probe -k 21 -S 0x16,1x4 B={hit.shape[0]}, P={lproc - 24}",
          lambda: pl.encode_probe(*a1s), graph_ms, "bk_encode_probe_spaced"),
-        radix,
+        *radix,
         *probe_mix_cases(a1, own, rng, dev),
         (f"resolve {shape}",
          lambda: [rs.resolve(cidx, hit, clf.tax, clf._n_distinct)], graph_ms),
@@ -1776,48 +2060,179 @@ def classify_cases(reads: str, nodes: str, nameid: str, genomes, dev):
         (f"step_outputs {shape}, maxr={clf.max_runs}",
          lambda: pl.step_outputs(taxon, oidx, hit, valid, valid1,
                                  clf.max_runs, ds), graph_ms),
-    ], (a1, a1n, nidx)
+    ], (a1, a1n, nidx), radix_bounds
 
 
-def radix_case(nodes: str, nameid: str, genomes, dev):
-    """(name, call, timer, entry point) of K1's radix instantiation at
-    phase 9k's shape: the first 8192 reads of its PROTEIN20 read set
-    (``synthetic.protein_reads``) of the GENOMEs' forward frames, as
-    ``Classifier(input_type=PROTEIN20)`` ships them, against the frames'
-    PROTEIN20 -k 7 database, built on the card, in dictionary mode."""
-    import tempfile
-
-    from ..classify import pipeline as pl
-    from ..core.alphabet import InputType
-    from ..core.spacer import Spacer
-    from ..db.formats import Database
-    from .synthetic import ALPHABET_READ_SETS, protein_reads, write_frames
-
-    tree = TaxTree.from_nodes_dmp(nodes)
-    it = InputType.PROTEIN20
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(OUT_DIR)) as tmp:
-        frames = [write_frames(g, os.path.join(tmp, f"{i}.faa"))
-                  for i, g in enumerate(genomes)]
-        table = bd.device_lca_map(frames, tree, nameid, Spacer(7, 7), True,
-                                  "lex", it, device=dev)
-        _, seed, _, _ = ALPHABET_READ_SETS["PROTEIN20 single"]
-        reads = protein_reads(frames, CLASSIFY_BATCH, seed)
-    clf = pl.Classifier(Database(table=table, k=7, w=7, gaps=[0] * 6), tree,
-                        input_type=it, device=dev)
+def _radix_batch(clf, reads, dev):
+    """``reads`` as ``clf`` ships them: (int8 codes, lengths) on ``dev``."""
     lut = np.asarray(clf.lut, np.int8)
     codes = np.full((len(reads), 64), -1, np.int8)
     for i, r in enumerate(reads):
         codes[i, : len(r)] = lut[np.frombuffer(r, np.uint8)]
     batch = fastx.ReadBatch(names=[b""] * len(reads), seqs=reads, codes=codes,
-                            lengths=np.full(len(reads), 33, np.int32))
+                            lengths=np.array([len(r) for r in reads],
+                                             np.int32))
     prep = clf._prepare_batch(batch)
-    cd, ld = prep.pcodes.to(dev), prep.lengths.to(dev)
-    want_idx = clf._uniq_host is not None
-    return (f"encode_probe_radix PROTEIN20 -k 7 B={cd.shape[0]}, "
-            f"P={cd.shape[1] - 6}",
-            lambda: pl.encode_probe_radix(cd, ld, 7, False, it, clf.arr,
-                                          want_idx), graph_ms,
-            "bk_encode_probe_radix")
+    return prep.pcodes.to(dev), prep.lengths.to(dev)
+
+
+def radix_cases(nodes: str, nameid: str, genomes, dev, say=print):
+    """([(name, call, timer, entry point, slot rows)], {name: bounds}) of
+    K1's radix instantiations at phase 9k's shapes: the first 8192 reads of its
+    PROTEIN20 read set (``synthetic.protein_reads`` of the GENOMEs'
+    forward frames), as ``Classifier(input_type=PROTEIN20)`` ships them,
+    against the frames' PROTEIN20 -k 7 database, built on the card, in
+    dictionary mode: the whole table, the bucket range of psum (1, 1)'s
+    rank, encode only; and the first 8192 reads of its PROTEIN_3BIT set
+    against the first two GENOMEs' PROTEIN_3BIT -k 12 -S 1x11 database
+    (spaced, shift-or), built on the card as 9k builds it.  Each case's
+    two bounds (``bounds``: over the padded grid and over the reads' own
+    positions, ``in_read``) are printed and returned; then the launch
+    floors at the batch's grid."""
+    import tempfile
+
+    from ..classify import pipeline as pl
+    from ..core.alphabet import InputType
+    from ..core.spacer import Spacer, parse_spacing
+    from ..db.formats import Database
+    from ..parallel import sharded as sh
+    from ..parallel.mesh import make_mesh
+    from .bounds import (bound_encode_only, bound_encode_probe,
+                         bound_encode_probe_range, bound_text, k1_rows,
+                         range_rows, spaced_runs)
+    from .synthetic import ALPHABET_READ_SETS, protein_reads, write_frames
+
+    tree = TaxTree.from_nodes_dmp(nodes)
+    p20, p3 = InputType.PROTEIN20, InputType.PROTEIN_3BIT
+    gaps = parse_spacing("1x11", 12)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(OUT_DIR)) as tmp:
+        frames = [write_frames(g, os.path.join(tmp, f"{i}.faa"))
+                  for i, g in enumerate(genomes)]
+        t20 = bd.device_lca_map(frames, tree, nameid, Spacer(7, 7), True,
+                                "lex", p20, device=dev)
+        t3 = bd.device_lca_map(frames[:2], tree, nameid,
+                               Spacer(12, 0, gaps), True, "lex", p3,
+                               device=dev)
+        n, seed, _, _ = ALPHABET_READ_SETS["PROTEIN20 single"]
+        r20 = protein_reads(frames, n, seed)[:CLASSIFY_BATCH]
+        n, seed, _, ng = ALPHABET_READ_SETS["PROTEIN_3BIT single"]
+        r3 = protein_reads(frames[:ng], n, seed)[:CLASSIFY_BATCH]
+    db20 = Database(table=t20, k=7, w=7, gaps=[0] * 6)
+    c20 = pl.Classifier(db20, tree, input_type=p20, device=dev)
+    c3 = pl.Classifier(Database(table=t3, k=12, w=23, gaps=list(gaps)),
+                       tree, input_type=p3, device=dev)
+    psum = sh.ShardedClassifier(db20, tree, make_mesh({"dp": 1, "db": 1},
+                                                      [dev]),
+                                input_type=p20, route="psum")
+    cd, ld = _radix_batch(c20, r20, dev)
+    sd, sl = _radix_batch(c3, r3, dev)
+    want_idx = c20._uniq_host is not None
+    pos = c3.positions
+    shape = f"B={cd.shape[0]}, P={cd.shape[1] - 6}"
+    kmers, valid = pl.encode_only_radix(cd, ld, 7, False, p20)
+    rolled = dict(rolled=True)
+    spaced = dict(runs=spaced_runs(pos))
+    cases, bounds = [], {}
+
+    def probe(arr):
+        return lambda: pl.encode_probe_radix(cd, ld, 7, False, p20, arr,
+                                             want_idx)
+
+    def sprobe():
+        return pl.encode_probe_radix(sd, sl, 12, False, p3, c3.arr,
+                                     c3._uniq_host is not None, pos)
+
+    def only():
+        return pl.encode_only_radix(cd, ld, 7, False, p20)
+
+    rarr = psum._arr[0]
+    for name, call, entry, bnd in (
+            (f"encode_probe_radix PROTEIN20 -k 7 {shape}", probe(c20.arr),
+             "bk_encode_probe_radix",
+             lambda out, **kw: bound_encode_probe(
+                 (cd, ld), c20.arr.vals, out, **rolled, **kw)),
+            (f"encode_probe_radix_range PROTEIN20 -k 7 psum (1, 1) {shape}",
+             probe(rarr), "bk_encode_probe_radix_range",
+             lambda out, **kw: bound_encode_probe_range(
+                 (cd, ld), rarr.vals, out, kmers[valid], rarr, **rolled,
+                 **kw)),
+            (f"encode_only_radix PROTEIN20 -k 7 {shape}", only,
+             "bk_encode_only_radix",
+             lambda out, **kw: bound_encode_only((cd, ld), out, **rolled,
+                                                 **kw)),
+            (f"encode_probe_radix PROTEIN_3BIT -k 12 -S 1x11 "
+             f"B={sd.shape[0]}, P={sd.shape[1] - 22}", sprobe,
+             "bk_encode_probe_radix",
+             lambda out, **kw: bound_encode_probe(
+                 (sd, sl), c3.arr.vals, out, **spaced, **kw))):
+        out = call()
+        c = 23 if "-S" in name else 7
+        bounds[name] = (bnd(out), bnd(out, inread=c))
+        rows = (0 if "encode_only" in name else
+                range_rows(kmers[valid], rarr) if "range" in name else
+                k1_rows(out))
+        say(f"# {name}: {int(out[1].sum())} valid positions, {rows} slot "
+            f"rows; padded grid {bound_text(bounds[name][0])}; reads' own "
+            f"positions {bound_text(bounds[name][1])}")
+        cases.append((name, call, graph_ms, entry, rows or None))
+    from .gather_bench import empty_launch
+
+    n = cd.shape[0] * (cd.shape[1] - 6)
+    floor = {f"empty, {b} blocks of 256": graph_ms(
+        lambda b=b: empty_launch(b, False, dev), ITERS)
+        for b in (1, -(-n // 1024), -(-n // 256))}
+    say(f"# launch floors at the radix grid ({n} positions; graph replay, "
+        f"ms a launch): {floor}")
+    return cases, bounds
+
+
+def radix_shares(res, bounds, say=print) -> dict:
+    """Each radix case's shares (bound / time) of ``res``, from its
+    ``bounds`` (``radix_cases``): over the padded grid and over the reads'
+    own positions, for each revision."""
+    out = {}
+    for name, (grid, own) in bounds.items():
+        case = res["cases"].get(name)
+        if case is None:
+            continue
+        out[name] = {label[:-3]: [grid[0] / (sum(t) / 2),
+                                  own[0] / (sum(t) / 2)]
+                     for label, t in case.items() if label.endswith("_ms")}
+        text = ", ".join(f"{lb} {g:.1%}, {o:.1%}"
+                         for lb, (g, o) in out[name].items())
+        say(f"# {name}: share (padded grid, reads' own positions) {text}")
+    return out
+
+
+def radix_ptxas(libs, say=print) -> dict:
+    """ptxas's registers and spill stores of K1's radix kernels in each
+    library (the template instantiations of ``radix_kernel``, or of a
+    parent's shared ``encode_probe_kernel`` with its radix flag set), and
+    the tree's own: each instantiation's registers, local bytes and
+    blocks a SM from the card (``bk_encode_probe_radix_attrs``)."""
+    out = {}
+    for label, lib in libs.items():
+        out[label] = {k: v for k, v in lib.ptxas_all.items()
+                      if "radix_kernel" in k or re.search(
+                          r"encode_probe_kernelILb[01]ELi[0-9]ELb1E", k)}
+        say(f"# {label}: ptxas of K1 radix {out[label]}")
+    buf = (ctypes.c_int * 6)()
+    attrs = {}
+    for mode, what in enumerate(("whole", "range", "encode")):
+        for spaced in (0, 1):
+            for fold, kind in ((1, "shift"), (2, "muladd")):
+                err = kernels.get_lib().bk_encode_probe_radix_attrs(
+                    mode, spaced, fold, buf)
+                if err:
+                    raise RuntimeError(f"bk_encode_probe_radix_attrs: {err}")
+                attrs[f"{what} {'spaced' if spaced else 'contiguous'} "
+                      f"{kind}"] = dict(zip(
+                          ("registers", "local_bytes", "shared_bytes",
+                           "blocks_per_sm", "run", "threads"),
+                          list(buf)))
+    out["tree"] = attrs
+    say(f"# tree: K1 radix instantiations {attrs}")
+    return out
 
 
 STATE = ("done", "hit", "cidx", "oidx")
@@ -2040,18 +2455,18 @@ def run(libs: dict, cases, say=print) -> dict:
 
 
 def build_libs(parent_csrc: str, names, edits, change=False,
-               say=print) -> dict:
+               say=print, info=False) -> dict:
     """Libraries of ``names``.cu, built together: the parent's, an edited
     copy of the parent's for each of ``edits`` and, with ``change``, the
     tree's; with ``change`` (``--hash``) each with the hash occupancy
     queries, their blocks a SM and ptxas's registers and spills
-    printed."""
+    printed; with ``info``, ptxas's numbers kept (``build_parent``)."""
     jobs = {"parent": (parent_csrc, None),
             **({"change": (kernels.CSRC, None)} if change else {}),
             **{e: (parent_csrc, e) for e in edits}}
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {label: pool.submit(build_parent, csrc, names, label, edit,
-                                   change)
+                                   change or info)
                 for label, (csrc, edit) in jobs.items()}
         libs = {label: f.result() for label, f in futs.items()}
     for label, lib in libs.items():
@@ -2083,7 +2498,7 @@ def main(argv=None) -> int:
     only = [e for a, e in zip(args, args[1:]) if a == "-k"]
     while mode in ("--sketch", "--api") and "-k" in args:
         args = args[:args.index("-k")] + args[args.index("-k") + 2:]
-    if mode in ("--route", "--api", "--sketch", "") and edits:
+    if mode in ("--classify", "--route", "--api", "--sketch", "") and edits:
         args = args[:args.index("-e")]
     fold = []
     if mode == "--hash" and "--fold" in args:
@@ -2107,8 +2522,12 @@ def main(argv=None) -> int:
     print(f"# {card}; torch {torch.__version__}")
     dev = torch.device("cuda", 0)
     if mode == "--classify":
-        cases, k1_in = classify_cases(*args[1:4], args[4:], dev)
-        res = run({"parent": build_parent(args[0], CLASSIFY_SOURCES)}, cases)
+        cases, k1_in, radix_bounds = classify_cases(*args[1:4], args[4:],
+                                                    dev)
+        libs = build_libs(args[0], CLASSIFY_SOURCES, edits, info=True)
+        res = run(libs, cases)
+        res["radix_shares"] = radix_shares(res, radix_bounds)
+        res["radix_ptxas"] = radix_ptxas(libs)
         res["sparse_vs_mask"] = sparse_vs_mask(*k1_in)
         res["yardstick_ms"] = yardstick_ms(dev)
         print(f"# yardstick: add_ over an int32 ({CLASSIFY_BATCH}, 81) matrix, "

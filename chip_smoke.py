@@ -290,8 +290,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  radix instantiations launched, no DNA K1 launch; then each
                  against its plain version on CPU copies (whole table, each
                  half of the rows and all of them as a range, encode only;
-                 want_idx on and off; pairs) and timed by CUDA-graph replay
-                 at the stream's batch (8192 reads) with its bound; the
+                 want_idx on and off; pairs), and at P = 1, three reads of
+                 70,000 codes and reads of one position under a spaced
+                 span of 63 (radix_shape_kernels); timed by CUDA-graph replay at the
+                 stream's batch (8192 reads) with both bounds (the padded
+                 grid and the reads' own positions), G rows/s, launches
+                 and each instantiation's registers and blocks a SM; the
                  PROTEIN20 stream's reads/s, the phase's wall seconds and
                  peak device memory
  10. gather      python -m bonsai_tpu_torch.tools.gather_bench's run: G1
@@ -1148,11 +1152,12 @@ KERNELS = {
     "compacted_minimizers_radix_hash": (
         "bonsai_tpu_torch/csrc/compacted_minimizers.cu",
         "bonsai_tpu/core/encoder.py:206"),
-    "encode_probe_radix": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+    "encode_probe_radix": ("bonsai_tpu_torch/csrc/encode_probe_radix.cu",
                            "bonsai_tpu/classify/pipeline.py:404"),
-    "encode_probe_radix_range": ("bonsai_tpu_torch/csrc/encode_probe.cu",
-                                 "bonsai_tpu/parallel/sharded.py:503"),
-    "encode_only_radix": ("bonsai_tpu_torch/csrc/encode_probe.cu",
+    "encode_probe_radix_range": (
+        "bonsai_tpu_torch/csrc/encode_probe_radix.cu",
+        "bonsai_tpu/parallel/sharded.py:503"),
+    "encode_only_radix": ("bonsai_tpu_torch/csrc/encode_probe_radix.cu",
                           "bonsai_tpu/parallel/sharded.py:401"),
 }
 # the rows of the sharded classifier and build (phase 9g): instantiations
@@ -5820,8 +5825,120 @@ def alphabet_classify_kernels(dev, chk, clfs, paths):
         chk.same("encode_only_radix", pl.encode_only_radix(
             cd, ld, k, False, it, pos), pl.encode_only_radix_plain(
             codes, ln, k, it, pos), tag)
+    radix_shape_kernels(dev, chk)
     say(f"# classify alphabets: kernels equal to their plain versions: "
         f"{ {n: chk.cases[n] for n in CLASSIFY_ROWS} } cases")
+
+
+def _radix_shape(rng, it, shape, c):
+    """(codes (B, L) int8 of ``it``, 2% ambiguous, -1 past each length;
+    int32 lengths) at a shape of ``radix_shape_kernels``."""
+    import numpy as np
+    import torch
+
+    from bonsai_tpu_torch.core.alphabet import radix_of
+
+    B, L = {"P = 1": (600, c), "70,000 codes": (3, 70_000),
+            "span 63": (700, c)}[shape]
+    top = min(radix_of(it), 128)
+    codes = rng.integers(0, top, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = -1
+    if shape == "70,000 codes":
+        lengths = np.array([L, L - 10, 65_600], np.int32)
+    else:
+        lengths = np.full(B, L, np.int32)
+        lengths[rng.choice(B, B // 8, replace=False)] = rng.integers(
+            0, c, B // 8)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return torch.from_numpy(codes), torch.from_numpy(lengths)
+
+
+def radix_shape_kernels(dev, chk):
+    """K1's radix instantiations against their plain versions, exact, at
+    the shapes their design turns on (tests/test_torch_kernels.py
+    RADIX_SHAPES): one position a read (600 reads, L = c: a thread's run
+    over two reads), three reads of 70,000 codes (int32 lengths), and 700
+    reads of one position under a spaced span of 63; PROTEIN20 -k 7
+    (multiply-add) and PROTEIN_3BIT -k 12 (shift-or), contiguous and
+    spaced (every other code, or spread over the span of 63); encode only, a table of half the valid k-mers and random keys
+    whole (inline and flat) and by thirds of its rows (the psum route's
+    bucket ranges), want_idx on and off."""
+    import numpy as np
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.core.alphabet import InputType
+    from bonsai_tpu_torch.db.table import KmerTable, ProbeArrays
+
+    rng = np.random.default_rng(SEED + 26)
+    for it, k in ((InputType.PROTEIN20, 7), (InputType.PROTEIN_3BIT, 12)):
+        for shape in ("P = 1", "70,000 codes", "span 63"):
+            for spaced in ((True,) if shape == "span 63" else (False, True)):
+                c = 63 if shape == "span 63" else 2 * k - 1 if spaced else k
+                pos = (tuple(int(x) for x in np.round(np.linspace(0, c - 1,
+                                                                  k)))
+                       if spaced else None)
+                codes, ln = _radix_shape(rng, it, shape, c)
+                cd, ld = codes.to(dev), ln.to(dev)
+                tag = (f"{it.name} -k {k} {'spaced' if spaced else ''} "
+                       f"span {c}, {shape}")
+                kmers, valid = pl.encode_only_radix_plain(codes, ln, k, it,
+                                                          pos)
+                require(bool(valid.any()), f"{tag}: no valid position")
+                chk.same("encode_only_radix", pl.encode_only_radix(
+                    cd, ld, k, False, it, pos), (kmers, valid), tag)
+                seen = np.unique(kmers[valid].numpy().view(np.uint64))
+                keys = np.unique(np.concatenate([
+                    rng.choice(seen, seen.size // 2, replace=False),
+                    rng.integers(0, 2**64, 2000, dtype=np.uint64)]))
+                for flat in (False, True):
+                    v = (np.arange(keys.size, dtype=np.uint64) if flat else
+                         rng.integers(0, 6, keys.size).astype(np.uint64))
+                    t = KmerTable(keys, ((v + np.uint64(7)) << np.uint64(32))
+                                  | v)
+                    sl, vl, inline = t.encode_slots(t.vals_sorted,
+                                                    allow_inline=not flat)
+                    arrs = [("whole", ProbeArrays.from_numpy(
+                        sl, vl, inline, t.lgnb, t.vbits, d)) for d in
+                        ("cpu", dev)]
+                    rps = (t.nb + 2) // 3
+                    pairs = [("encode_probe_radix", *arrs)]
+                    for r in range(3):
+                        lo, hi = r * rps, min((r + 1) * rps, t.nb)
+                        z = np.zeros((rps - (hi - lo), 4), np.uint64)
+                        rs = np.concatenate([sl[lo:hi], z])
+                        rv = vl if inline else np.concatenate([vl[lo:hi], z])
+                        pairs.append(("encode_probe_radix_range", *[
+                            (f"rows [{lo}, {hi})", ProbeArrays.from_numpy(
+                                rs, rv, inline, t.lgnb, t.vbits, d, lo, rps))
+                            for d in ("cpu", dev)]))
+                    for row, (what, cpu_arr), (_, dev_arr) in pairs:
+                        for want_idx in (False, True):
+                            chk.same(row, pl.encode_probe_radix(
+                                cd, ld, k, False, it, dev_arr, want_idx,
+                                pos), pl.encode_probe_radix_plain(
+                                codes, ln, k, it, cpu_arr, want_idx, pos),
+                                f"{tag}, {'flat' if flat else 'inline'} "
+                                f"{what}, want_idx={want_idx}")
+    say(f"# classify alphabets: K1 radix at P = 1, 70,000-code reads and a "
+        f"span of 63 equal to plain: "
+        f"{ {n: chk.cases[n] for n in CLASSIFY_ROWS} } cases so far")
+
+
+def radix_attrs(mode: int, spaced: bool, fold: int) -> dict:
+    """The build of one K1 radix instantiation on this card
+    (``bk_encode_probe_radix_attrs``): mode 0 whole table, 1 bucket
+    range, 2 encode only; fold 1 shift-or, 2 multiply-add."""
+    import ctypes
+
+    from bonsai_tpu_torch import kernels
+
+    buf = (ctypes.c_int * 6)()
+    err = kernels.get_lib().bk_encode_probe_radix_attrs(mode, int(spaced),
+                                                        fold, buf)
+    require(err == 0, f"bk_encode_probe_radix_attrs: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "run", "threads"),
+                    list(buf)))
 
 
 def phase_alphabet_classify(dev, chk, kk):
@@ -5851,9 +5968,11 @@ def phase_alphabet_classify(dev, chk, kk):
     from bonsai_tpu_torch.parallel import sharded as sh
     from bonsai_tpu_torch.parallel.mesh import make_mesh
     from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.core.encoder import fold_args
     from bonsai_tpu_torch.tools.bounds import (bound_encode_only,
                                                bound_encode_probe,
                                                bound_encode_probe_range,
+                                               k1_rows, range_rows,
                                                spaced_runs)
     from bonsai_tpu_torch.tools.synthetic import (ALPHABET_READ_SETS,
                                                   protein_reads, write_frames,
@@ -5959,6 +6078,7 @@ def phase_alphabet_classify(dev, chk, kk):
     torch.cuda.synchronize()
     counts = {r: sum(pl.encode_probe.variants.get(v, 0)
                      for v in VARIANTS[r][1]) for r in CLASSIFY_ROWS}
+    main_variants = dict(pl.encode_probe.variants)
     also = read_counts(wrappers[1:])
     say(f"# classify alphabets: K1 launches by variant "
         f"{dict(pl.encode_probe.variants)}, of K2, K3 and KD1 {also}")
@@ -5991,6 +6111,7 @@ def phase_alphabet_classify(dev, chk, kk):
         if row == "spaced":
             arr = clf.arr
         fold = dict(runs=spaced_runs(pos) if pos else 0, rolled=pos is None)
+        own = dict(fold, inread=pos[-1] + 1 if pos else k)
         kmers, valid = pl.encode_only_radix(cd, ld, k, False, it, pos)
         if row == "encode_only_radix":
             def kern(cd=cd, ld=ld, k=k, it=it, pos=pos):
@@ -6000,6 +6121,8 @@ def phase_alphabet_classify(dev, chk, kk):
                 return pl.encode_only_radix_plain(cd, ld, k, it, pos)
             out = (kmers, valid)
             bnd = bound_encode_only((cd, ld), out, **fold)
+            bnd_own = bound_encode_only((cd, ld), out, **own)
+            rows = 0
         else:
             def kern(cd=cd, ld=ld, k=k, it=it, arr=arr, pos=pos):
                 return pl.encode_probe_radix(cd, ld, k, False, it, arr,
@@ -6009,18 +6132,31 @@ def phase_alphabet_classify(dev, chk, kk):
                 return pl.encode_probe_radix_plain(cd, ld, k, it, arr,
                                                    want_idx, pos)
             out = kern()
-            bnd = (bound_encode_probe_range((cd, ld), arr.vals, out,
-                                            kmers[valid], arr, **fold)
-                   if arr.rows else
-                   bound_encode_probe((cd, ld), arr.vals, out, **fold))
+            bnd, bnd_own = ((bound_encode_probe_range(
+                (cd, ld), arr.vals, out, kmers[valid], arr, **f)
+                if arr.rows else bound_encode_probe((cd, ld), arr.vals, out,
+                                                    **f)) for f in (fold, own))
+            rows = (range_rows(kmers[valid], arr) if arr.rows
+                    else k1_rows(out))
         tag = (f"{clf.it.name} -k {k}{' -S 1x11' if pos else ''}, "
                f"{codes.shape[0]} reads x {codes.shape[1]} codes, "
                f"{int(out[1].sum())} valid positions")
         t = time_pair(row, tag, kern, plain, bnd, graph=True)
+        mode = {"encode_probe_radix_range": 1,
+                "encode_only_radix": 2}.get(row, 0)
+        attrs = radix_attrs(mode, pos is not None, fold_args(it, k)[0])
+        variant = {"encode_probe_radix": "radix", "spaced": "spaced radix",
+                   "encode_probe_radix_range": "radix range",
+                   "encode_only_radix": "radix encode"}[row]
+        say(f"# classify alphabets: K1 {variant} ({it.name} -k {k}): "
+            f"{t[0]:.4f} ms, share {bnd[0] / t[0]:.1%} of the padded grid's "
+            f"bound {bnd[0]:.4f} ms, {bnd_own[0] / t[0]:.1%} of the reads' "
+            f"own positions' {bnd_own[0]:.4f} ms"
+            + (f", {rows} slot rows at {rows / t[0] / 1e6:.2f} G rows/s"
+               if rows else "")
+            + f"; {main_variants.get(variant, 0)} launches on 9k's path; "
+            f"{attrs}")
         if row == "spaced":
-            say(f"# classify alphabets: K1 radix spaced (PROTEIN_3BIT, "
-                f"shift-or) {t[0]:.4f} ms against its bound {bnd[0]:.4f} ms "
-                "(its row is encode_probe_radix's, timed contiguous)")
             continue
         times[row], bounds[row] = t, bnd
     del clfs, psum, dbs, db20

@@ -69,7 +69,10 @@ pending word that is never cleared; for the index tools, KmerIdx at k =
 32 (KB1 and the stable sort on the card) whole and in chunks of 97
 windows, with a second add_seq after finalize and its file, and
 bitmap_patterns and pairwise_veccmp at T = 3 and 70, each against the
-CPU.
+CPU; for K1's radix kernel, every mode at 200 reads, at the stream's
+8192 reads, at P = 1 (a contiguous run over two reads),
+on three reads of 70,000 codes (int32 lengths) and on reads of one
+position under a spaced span of 63.
 Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
@@ -3199,19 +3202,11 @@ def _radix_tables(rng, kmers, valid, flat):
     return t, t.encode_slots(t.vals_sorted, allow_inline=not flat)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("flat", [False, True])
-@pytest.mark.parametrize("spaced", [False, True])
-@pytest.mark.parametrize("it,k", RADIX_K1,
-                         ids=[f"{t.name}-{k}" for t, k in RADIX_K1])
-def test_encode_probe_radix_kernel_matches_plain(cuda, it, k, spaced, flat):
-    """K1's radix instantiations, whole table, each rank's bucket range
-    (ndb = 3) and encode only, contiguous and spaced (every other code),
-    want_idx on and off, int32 and u16 lengths."""
-    rng = np.random.default_rng(int(it) * 100 + k + 7 * spaced + flat)
-    pos = tuple(range(0, 2 * k - 1, 2)) if spaced else None
-    c = 2 * k - 1 if spaced else k
-    codes, ln = _radix_reads(rng, it, 200, c + 90, c)
+def _radix_check(cuda, rng, it, k, pos, codes, ln, flat):
+    """K1's radix instantiations on (codes, ln) against their plain
+    versions: encode only, then the whole table and each rank's bucket
+    range (ndb = 3) of a table of half the valid k-mers, want_idx on and
+    off, the int32 lengths and, where they fit, u16."""
     kmers, valid = pl.encode_only_radix_plain(codes, ln, k, it, pos)
     assert valid.any() and not valid.all()
     _same(pl.encode_only_radix(codes.to(cuda), ln.to(cuda), k, False, it,
@@ -3230,7 +3225,8 @@ def test_encode_probe_radix_kernel_matches_plain(cuda, it, k, spaced, flat):
         ranges.append([ProbeArrays.from_numpy(sl, fv, inline, t.lgnb,
                                               t.vbits, d, lo, rps)
                        for d in ("cpu", cuda)])
-    for lengths in (ln, ln.to(torch.uint16)):
+    lens = (ln, ln.to(torch.uint16)) if int(ln.max()) < 1 << 16 else (ln,)
+    for lengths in lens:
         for want_idx in (False, True):
             for cpu_arr, dev_arr in [whole] + ranges:
                 want = pl.encode_probe_radix_plain(codes, lengths, k, it,
@@ -3243,9 +3239,80 @@ def test_encode_probe_radix_kernel_matches_plain(cuda, it, k, spaced, flat):
                 _same(got, want)
             assert want[0].any()
     variants = pl.encode_probe.variants
-    tag = "spaced " if spaced else ""
+    tag = "spaced " if pos is not None else ""
     for v in ("radix", "radix range", "radix encode"):
         assert variants.get(tag + v, 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("spaced", [False, True])
+@pytest.mark.parametrize("it,k", RADIX_K1,
+                         ids=[f"{t.name}-{k}" for t, k in RADIX_K1])
+def test_encode_probe_radix_kernel_matches_plain(cuda, it, k, spaced, flat):
+    """K1's radix instantiations, whole table, each rank's bucket range
+    (ndb = 3) and encode only, contiguous and spaced (every other code),
+    want_idx on and off, int32 and u16 lengths."""
+    rng = np.random.default_rng(int(it) * 100 + k + 7 * spaced + flat)
+    pos = tuple(range(0, 2 * k - 1, 2)) if spaced else None
+    c = 2 * k - 1 if spaced else k
+    codes, ln = _radix_reads(rng, it, 200, c + 90, c)
+    _radix_check(cuda, rng, it, k, pos, codes, ln, flat)
+
+
+def _span_positions(k, span):
+    """k offsets spread over ``span`` codes, the first and the last
+    included."""
+    return tuple(int(x) for x in np.round(np.linspace(0, span - 1, k)))
+
+
+def _long_reads(rng, it, B, L):
+    """(B, L) codes of ``it`` (2% ambiguous) and int32 lengths at and
+    near L, past u16."""
+    top = min(radix_of(it), 128)
+    codes = rng.integers(0, top, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.02] = -1
+    lengths = np.array([L, L - 10, 65_600][:B], np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = -1
+    return torch.from_numpy(codes), torch.from_numpy(lengths)
+
+
+# the shapes the kernel's design turns on: the stream's batch (8192 reads,
+# P = 34 at c = 7), one position a read (L = c: a contiguous run over two
+# reads, several blocks), three reads of 70,000 codes (int32
+# lengths), and reads of one position under a spaced span of 63
+RADIX_SHAPES = [(shape, it, k, spaced, flat)
+                for shape in ("stream", "P=1", "70000", "span 63")
+                for it, k in RADIX_K1
+                for spaced in ((True,) if shape == "span 63" else
+                               (False, True))
+                for flat in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,it,k,spaced,flat", RADIX_SHAPES,
+    ids=[f"{sh}-{t.name}-{k}-{'spaced' if sp else 'contiguous'}-"
+         f"{'flat' if f else 'inline'}" for sh, t, k, sp, f in RADIX_SHAPES])
+def test_encode_probe_radix_kernel_matches_plain_at_shapes(cuda, shape, it, k,
+                                                           spaced, flat):
+    """K1's radix instantiations, every mode, at the shapes of
+    ``RADIX_SHAPES`` (spaced: every other code, or over a span of 63)."""
+    rng = np.random.default_rng(int(it) * 100 + k + 7 * spaced + flat
+                                + 1000 * RADIX_SHAPES.index(
+                                    (shape, it, k, spaced, flat)))
+    c = 63 if shape == "span 63" else 2 * k - 1 if spaced else k
+    pos = (_span_positions(k, c) if shape == "span 63" else
+           tuple(range(0, c, 2)) if spaced else None)
+    if shape == "stream":
+        codes, ln = _radix_reads(rng, it, 8192, c + 33, c)
+    elif shape == "P=1":
+        codes, ln = _radix_reads(rng, it, 600, c, c)
+    elif shape == "70000":
+        codes, ln = _long_reads(rng, it, 3, 70_000)
+    else:
+        codes, ln = _radix_reads(rng, it, 700, c, c)
+    _radix_check(cuda, rng, it, k, pos, codes, ln, flat)
 
 
 @pytest.mark.cuda
