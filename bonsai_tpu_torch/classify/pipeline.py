@@ -52,6 +52,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
 from ..core import encode
@@ -1071,7 +1072,11 @@ class Classifier:
         parses and packs, the main thread uploads and launches (up to
         ``PIPELINE_DEPTH`` batches in flight), a writer thread fetches and
         formats; output keeps input order.  ``profile`` prints per-stage seconds to
-        stderr (kept in ``self.stage_seconds``)."""
+        stderr (kept in ``self.stage_seconds``).  Each batch's stages are
+        also ``record_function`` ranges of those names, over the spans
+        whose seconds ``profile`` sums, in the thread that runs them: a
+        ``torch.profiler`` trace of every thread (``cli.py``
+        ``--trace-dir``) sets them beside the card's work."""
         is_paired = mate_path is not None
         if is_paired and batch_size % 2:
             batch_size += 1  # pairs must not straddle batches
@@ -1094,9 +1099,10 @@ class Classifier:
                 for batch in it:
                     if stop.is_set():
                         break
-                    t0 = t()
-                    prep = self._prepare_batch(batch, is_paired)
-                    stats["parse"] += t() - t0
+                    with record_function("parse"):
+                        t0 = t()
+                        prep = self._prepare_batch(batch, is_paired)
+                        stats["parse"] += t() - t0
                     pq.put((batch, prep))
             except BaseException as e:  # re-raised by the main thread
                 perr.append(e)
@@ -1130,9 +1136,10 @@ class Classifier:
                     raise err[0]
                 batch, prep = item
                 n_reads += len(batch.names)
-                t0 = t()
-                out = self._dispatch_prepared(prep, is_paired)
-                stats["dispatch"] += t() - t0
+                with record_function("dispatch"):
+                    t0 = t()
+                    out = self._dispatch_prepared(prep, is_paired)
+                    stats["dispatch"] += t() - t0
                 q.put((batch, out))
         finally:
             stop.set()
@@ -1154,12 +1161,14 @@ class Classifier:
 
     def _write_result(self, out_fh, batch, out, is_paired):
         stats = self.stage_seconds
-        t0 = time.perf_counter()
-        res = self._finish_batch(batch, out, is_paired)
-        t1 = time.perf_counter()
-        out_fh.write(out_mod.format_batch(
-            res, self.sp.c, emit_all=self.emit_all, emit_kraken=self.emit_kraken,
-            emit_fastq=self.emit_fastq,
-        ))
-        stats["materialize"] += t1 - t0
-        stats["format"] += time.perf_counter() - t1
+        with record_function("materialize"):
+            t0 = time.perf_counter()
+            res = self._finish_batch(batch, out, is_paired)
+            stats["materialize"] += time.perf_counter() - t0
+        with record_function("format"):
+            t0 = time.perf_counter()
+            out_fh.write(out_mod.format_batch(
+                res, self.sp.c, emit_all=self.emit_all,
+                emit_kraken=self.emit_kraken, emit_fastq=self.emit_fastq,
+            ))
+            stats["format"] += time.perf_counter() - t0

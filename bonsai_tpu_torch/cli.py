@@ -10,8 +10,9 @@ subcommands, bin/bonsai.cpp) for the ported slice:
         [--device cuda|cpu]
   prebuild NAMEIDMAP nodes.dmp OUT GENOMES... -k K [-S SPACING] [-C]
         [-t|-f] [-F paths] [--device-build] [--device cuda|cpu]
+  -v|--version
   classify DB nodes.dmp READS [MATE] [-a] [-f] [-k|-K] [-C] [-o OUT]
-           [-c CHUNK] [--profile] [--device cuda|cpu]
+           [-c CHUNK] [--profile] [--trace-dir DIR] [--device cuda|cpu]
            [--db-shards N [--route auto|a2a|psum]] [--distributed]
   probe-image DB nodes.dmp OUT_DIR | probe-image SHARDED_DIR nodes.dmp
            [--db-ranks N]
@@ -70,6 +71,13 @@ merges its sketches in place, so that an entry (i, j) with j > i + 1
 estimates the union of sketches i..j (here each pair's union comes from
 the two sketches alone, ``HyperLogLog.union_estimate``).
 
+``classify --trace-dir DIR`` runs the one-device classifier under
+``torch.profiler`` (every thread of the pipeline, and on a card its
+kernels and copies) and writes the trace to DIR as one
+``*.pt.trace.json`` (PyTorch's TensorBoard layout, where the JAX CLI
+writes ``jax.profiler``'s); with ``--db-shards`` it writes nothing, as
+in the JAX CLI.  ``-v`` prints ``bonsai-tpu|`` and the version.
+
 ``classify --db-shards N`` runs the sharded classifier
 (``parallel/sharded.py``) over N database ranks: on CUDA one rank a card
 (N must divide the cards), on the CPU N ranks in this process; a sharded
@@ -93,12 +101,14 @@ neither BTPU1 nor a khash image (naming neither).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from typing import List
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="bonsai-tpu-torch")
+    ap.add_argument("-v", "--version", action="store_true")
     sub = ap.add_subparsers(dest="cmd")
 
     p = sub.add_parser("classify", help="classify reads against a database")
@@ -116,6 +126,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-C", "--no-canon", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall times to stderr")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace of the run here")
     _device_arg(p)
     p.add_argument("--db-shards", type=int, default=0,
                    help="shard the table over N database ranks "
@@ -457,6 +469,11 @@ def _paths(args) -> List[str]:
 def main(argv=None) -> int:
     ap = _parser()
     args, extra = ap.parse_known_args(argv)
+    if args.version:
+        from . import __version__
+
+        print(f"bonsai-tpu|{__version__}")
+        return 0
     if args.cmd is None:
         ap.print_help()
         return 1
@@ -500,6 +517,11 @@ def _cmd_classify(args) -> int:
             return 2
     if args.db_shards:
         return _classify_sharded(args, tree)
+    trace = contextlib.nullcontext()
+    if args.trace_dir:
+        trace = _trace(args.trace_dir, args.device)
+        if trace is None:
+            return 2
     emit = dict(emit_all=args.emit_all, emit_kraken=args.kraken,
                 emit_fastq=args.fastq, device=args.device)
     if formats.is_probe_image(args.db):
@@ -511,14 +533,43 @@ def _cmd_classify(args) -> int:
         clf = Classifier(db, tree, canonicalize=not args.no_canon, **emit)
     out = open(args.out, "w") if args.out else sys.stdout
     try:
-        clf.process_dataset(args.reads, out, mate_path=args.mate,
-                            batch_size=args.chunk_size, profile=args.profile)
+        with trace:
+            clf.process_dataset(args.reads, out, mate_path=args.mate,
+                                batch_size=args.chunk_size,
+                                profile=args.profile)
     finally:
         if args.out:
             out.close()
     print(f"classified: {clf.n_classified}  unclassified: {clf.n_unclassified}",
           file=sys.stderr)
     return 0
+
+
+def _trace(trace_dir: str, device: str):
+    """classify --trace-dir (``bonsai_tpu/cli.py`` :470-480, which wraps
+    the run in ``jax.profiler.trace``): a ``torch.profiler`` run of every
+    thread, the CPU's ranges and, on a card, its kernels and copies,
+    written to ``trace_dir`` (made if missing) as one ``*.pt.trace.json``
+    when it ends.  None, with the reason on stderr, where this torch
+    cannot trace the threads the run starts: a trace of the main thread
+    alone would lack the producer's and the writer's stages."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    try:
+        threads = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError) as e:
+        print(f"error: --trace-dir: torch {torch.__version__} cannot trace "
+              f"every thread (_ExperimentalConfig(profile_all_threads=True): "
+              f"{e})", file=sys.stderr)
+        return None
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, experimental_config=threads,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def _classify_sharded(args, tree) -> int:

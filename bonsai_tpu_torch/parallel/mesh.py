@@ -173,11 +173,11 @@ def make_mesh(axis_sizes: Dict[str, int],
               devices: Optional[Sequence] = None) -> Mesh:
     """A mesh of ``axis_sizes`` (ordered: the rank numbering is row-major
     over them).  In process, ``devices`` gives each rank's device (a
-    device may repeat; default: every rank on the current card, or on the
-    CPU where there is no card); once ``init_distributed`` has run with
-    more than one process, the ranks are the processes, and ``devices``
-    (if given) is this process's one device (default: its card on the
-    host, ``_local_card``, or the CPU)."""
+    device may repeat; default: every rank on the current card, which must
+    be present: a caller that wants the CPU names it, ``["cpu"]``); once
+    ``init_distributed`` has run with more than one process, the ranks
+    are the processes, and ``devices`` (if given) is this process's one
+    device (default: its card on the host, ``_local_card``)."""
     n = int(np.prod(list(axis_sizes.values()), dtype=np.int64))
     if _world_size() > 1:
         import torch.distributed as dist
@@ -194,7 +194,7 @@ def make_mesh(axis_sizes: Dict[str, int],
         devs = [dev] * n  # only this rank's entry is used
         return Mesh(axis_sizes, devs, distributed=True)
     if devices is None:
-        devices = ["cuda" if torch.cuda.is_available() else "cpu"]
+        devices = ["cuda"]
     devs = [_norm(d) for d in devices]
     if len(devs) == 1:
         devs = devs * n
@@ -223,9 +223,7 @@ def default_mesh(n_devices: Optional[int] = None, db_shards: int = 1,
                          [_my_device() if dev.type == "cuda" else dev])
     dev = torch.device(device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for, but CUDA is not "
-                               "available")
+        _cuda_present()
         n = n_devices or torch.cuda.device_count()
         if n % db_shards:
             raise ValueError(f"{n} devices not divisible by db_shards={db_shards}")
@@ -237,13 +235,17 @@ def default_mesh(n_devices: Optional[int] = None, db_shards: int = 1,
     return make_mesh({"dp": n // db_shards, "db": db_shards}, [dev])
 
 
+def _cuda_present() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for, but CUDA is not "
+                           "available")
+
+
 def _norm(device) -> torch.device:
     """``device`` with the current card's index where CUDA names none."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for, but CUDA is not "
-                               "available")
+        _cuda_present()
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
@@ -266,23 +268,23 @@ def _local_card(rank: int) -> int:
 
 def _my_device() -> torch.device:
     """This process's device under torch.distributed: its card on the
-    host (``_local_card``), else the CPU."""
-    if torch.cuda.is_available():
-        import torch.distributed as dist
+    host (``_local_card``), which must be present."""
+    import torch.distributed as dist
 
-        return torch.device("cuda", _local_card(dist.get_rank()))
-    return torch.device("cpu")
+    _cuda_present()
+    return torch.device("cuda", _local_card(dist.get_rank()))
 
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None, device=None) -> int:
+                     process_id: Optional[int] = None,
+                     device="cuda") -> int:
     """Join the process group (``init_distributed`` of the JAX package):
     at ``coordinator`` ("host:port", as ``init_method="tcp://host:port"``)
     with ``num_processes`` as the world size and ``process_id`` as this
     process's rank where they are given, else from torchrun's environment
-    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  ``nccl`` for CUDA,
-    ``gloo`` for the CPU (``device``, default: CUDA when present).  One
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).  ``nccl`` for
+    ``device`` "cuda" (which must be present), ``gloo`` for "cpu".  One
     rank a process, on its host's card ``_local_card(rank)``.  Returns
     this process's rank; a second call only returns it."""
     import torch.distributed as dist
@@ -306,9 +308,9 @@ def init_distributed(coordinator: Optional[str] = None,
                     else os.environ["WORLD_SIZE"])
         rank = int(process_id if process_id is not None
                    else os.environ["RANK"])
-    dev = torch.device(device if device is not None else
-                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    dev = torch.device(device)
     if dev.type == "cuda":
+        _cuda_present()
         torch.cuda.set_device(_local_card(rank))
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=init, world_size=world, rank=rank)

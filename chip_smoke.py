@@ -33,6 +33,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                  JAX package's (SET_CHANNELS); K1 (mask or none, and
                  sparse), K2, K3 launched; paired golden through the CLI
                  on the lex_k25 database
+ 5c. CLI trace   the port's CLI classify of the HiSeq set (-a -c 8192
+                 --profile --trace-dir) against phase 4's database as a
+                 probe image: the text's sha256 = the golden's; the
+                 torch.profiler trace's K1 (the N channels' instantiation),
+                 K2 and K3 events = the wrappers' launches of that run,
+                 the stage ranges parse, dispatch and format on three
+                 threads (materialize on format's); each kernel's events
+                 and microseconds, the H2D and D2H copies, the
+                 device-busy share of the traced span, its three longest
+                 idle gaps with the stage ranges over them, each stage's
+                 range time beside --profile's seconds, a range's cost
+                 with no profiler; its launches stay out of the kernels
+                 line (tools/trace_summary.py reads the trace)
   6. numbers     K1 (mask, and sparse), K2, K3 and plain-version times
                  by CUDA-graph replay of captured calls, with the event
                  timing of back-to-back wrapper calls beside them, K1 mask
@@ -1693,6 +1706,112 @@ def phase_main_path(clf, kk, dev):
     return launches
 
 
+# the K1 variant (its wrapper's count, tools/trace_summary K1_VARIANTS) of
+# each N channel of SET_CHANNELS
+CHANNEL_K1 = {"sparse": "sparse", "mask": "contiguous", "none": "contiguous"}
+
+
+def phase_cli_trace(dev, kk, db, tree, card):
+    """5c. The port's CLI classify of the HiSeq set with --profile and
+    --trace-dir on the card (phase 4's database as a probe image under
+    build/): the text's sha256 = the golden's; the trace's K1 (the
+    instantiations of the set's N channels, SET_CHANNELS), K2 and K3
+    events = the wrappers' launch counts of the run; the four stage
+    ranges, parse, dispatch and format on three threads.  Prints each
+    kernel's events and microseconds, the copies, the device-busy share,
+    the three longest idle gaps with the stage ranges over them, and each
+    stage's range time beside --profile's seconds.  Its launches stay out
+    of the kernels line."""
+    import re
+    from collections import Counter
+
+    import torch
+
+    from bonsai_tpu_torch.classify import pipeline as pl
+    from bonsai_tpu_torch.classify import resolve as rs
+    from bonsai_tpu_torch.db import formats
+    from bonsai_tpu_torch.tools import trace_summary as ts
+
+    n = 20000  # a stage range's cost with no profiler running
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with torch.profiler.record_function("parse"):
+            pass
+    range_us = (time.perf_counter() - t0) / n * 1e6
+    tmp_dir = tempfile.TemporaryDirectory(prefix="trace.",
+                                          dir=os.path.join(ROOT, "build"))
+    d = tmp_dir.name
+    img, tdir = os.path.join(d, "ec_img"), os.path.join(d, "trace")
+    formats.save_probe_image(img, db, tree)
+    s = kk["sets"]["HiSeq"]
+    wrappers = [pl.encode_probe, rs.resolve, pl.step_outputs]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    _, err = _cli(["classify", img, os.path.join(GOLD, kk["nodes"]),
+                   os.path.join(DATA, s["reads"]), "-a", "-c", "8192",
+                   "--profile", "--trace-dir", tdir, "-o", "hiseq.tsv",
+                   "--device", str(dev)], d)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(os.path.join(d, "hiseq.tsv"), "rb") as fh:
+        got = _sha(fh.read())
+    require(got == s["sha256"], "5c: HiSeq text through the CLI with "
+            "--trace-dir differs from the golden")
+    counted = {f"encode_probe {v}": c
+               for v, c in pl.encode_probe.variants.items()}
+    counted.update(resolve=rs.resolve.launches,
+                   step_outputs=pl.step_outputs.launches)
+    files = os.listdir(tdir)
+    require(len(files) == 1, f"5c: {files} in the trace directory")
+    events = ts.load(tdir)
+    summ = ts.summary(events)
+    traced = {k: v[0] for k, v in summ["classify_kernels"].items()}
+    k1 = Counter(f"encode_probe {CHANNEL_K1[c]}"
+                 for c in SET_CHANNELS[8192]["HiSeq"])
+    say(f"# CLI trace ({card}): {files[0]}, "
+        f"{os.path.getsize(os.path.join(tdir, files[0]))} bytes, "
+        f"{len(events)} events; the run {secs:.3f}s with the database load "
+        "and the trace's export (traced: no rate)")
+    say(f"# CLI trace: K1-K3 events {traced}, the wrappers' launches "
+        f"{counted}, the N channels' K1 {dict(k1)}")
+    require(traced == counted, f"5c: the trace's K1-K3 events {traced}, the "
+            f"wrappers' launches {counted}")
+    require(all(counted.get(r, 0) == c for r, c in k1.items())
+            and counted["resolve"] > 0 and counted["step_outputs"] > 0,
+            f"5c: launches {counted}, the N channels' K1 {dict(k1)}")
+    say("# CLI trace: kernels (events, us): " + "; ".join(
+        f"{name[:60]} {c} {us:.1f}" for name, (c, us) in sorted(
+            summ["kernels"].items(), key=lambda kv: -kv[1][1])))
+    say("# CLI trace: copies (copies, bytes, us): "
+        + "; ".join(f"{k} {c} {b} {us:.1f}"
+                    for k, (c, b, us) in summ["copies"].items()))
+    say(f"# CLI trace ({card}): device busy {summ['device_busy_us']:.1f} us "
+        f"of the traced span {summ['span_us']:.1f} us = "
+        f"{100 * summ['device_busy_share']:.3f}% (kernels, copies, memsets)")
+    for g in summ["idle_gaps"]:
+        say(f"# CLI trace: idle gap at +{g['at_us']:.1f} us, "
+            f"{g['us']:.1f} us; stage ranges over it (us) "
+            f"{ {k: round(v, 1) for k, v in g['host'].items()} }")
+    prof = next((ln for ln in err.splitlines()
+                 if ln.startswith("# profile:")), "")
+    secs_of = dict(re.findall(r"(\w+)=([\d.]+)s", prof))
+    stages = summ["stages"]
+    say("# CLI trace: stage ranges (thread: ranges, us) beside --profile's "
+        "seconds: " + "; ".join(
+            f"{st} {rows} = {sum(r[1] for r in rows.values()):.1f} us, "
+            f"--profile {secs_of.get(st)}s" for st, rows in stages.items()))
+    say(f"# CLI trace: a record_function range with no profiler running: "
+        f"{range_us:.3f} us (host, mean of {n})")
+    require(all(stages[st] for st in ts.STAGES) and prof,
+            f"5c: stage ranges {stages}, --profile line {prof!r}")
+    tids = [set(stages[st]) for st in ("parse", "dispatch", "format")]
+    require(all(len(t) == 1 for t in tids) and len(set.union(*tids)) == 3
+            and set(stages["materialize"]) == tids[2],
+            f"5c: stage threads {stages}")
+    require(summ["device_busy_us"] > 0, "5c: no device activity traced")
+    tmp_dir.cleanup()
+
+
 def phase_scale(dev, lgn=26):
     """K1 against a MiniKraken-class table: 2^lgn keys, 6 values."""
     import numpy as np
@@ -1894,13 +2013,7 @@ def phase_numbers(dev, clf, hiseq_path, deep):
         clf.process_dataset(hiseq_path, sink, batch_size=8192)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-
-    dev_ev = [(e.key, getattr(e, "self_device_time_total", 0))
-              for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA]
-    dev_ev = sorted((e for e in dev_ev if e[1] > 0), key=lambda e: -e[1])
-    busy = sum(us for _, us in dev_ev)
+    busy, dev_ev = _device_busy(prof)
     say(f"# trace: one HiSeq pass (10000 reads): wall {wall_us / 1e3:.3f} ms, "
         f"device busy {busy / 1e3:.3f} ms "
         f"({'not measured' if not busy else f'{100 * busy / wall_us:.2f}%'}); "
@@ -2472,12 +2585,15 @@ def discipline_kernels(dev, chk):
 
 
 def _device_busy(prof):
-    """(device-busy microseconds, top kernels) of a profiler trace."""
+    """(device-busy microseconds, top kernels) of a profiler trace.  The
+    spans a ``record_function`` range leaves on the device's timeline
+    (``process_dataset``'s stages) are not the device's work."""
     from torch.autograd import DeviceType
 
     ev = [(e.key, getattr(e, "self_device_time_total", 0))
           for e in prof.key_averages()
-          if getattr(e, "device_type", None) == DeviceType.CUDA]
+          if getattr(e, "device_type", None) == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
     ev = sorted((e for e in ev if e[1] > 0), key=lambda e: -e[1])
     return sum(us for _, us in ev), ev
 
@@ -4815,7 +4931,6 @@ def _sharded_stream(clf, hiseq):
     """(reads/s of 20 HiSeq passes in one process_dataset, the card's busy
     share of one pass from a profiler trace) through ``clf``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(ROOT, "build", "hiseq_x20_sharded.fa")
@@ -4832,9 +4947,7 @@ def _sharded_stream(clf, hiseq):
             clf.process_dataset(hiseq, sink, batch_size=8192)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        busy = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+        busy = _device_busy(prof)[0]
         t0 = time.perf_counter()
         clf.process_dataset(path, sink, batch_size=8192, profile=True)
         secs = time.perf_counter() - t0
@@ -6402,6 +6515,7 @@ def main() -> int:
         f"card as {clf.arr.slots.numel() * 8 / 2**20:.0f} MiB of slots")
     require(digest == kk["db_digest"], "ec database content differs")
     launches = phase("5 classify", phase_main_path, clf, kk, dev)
+    phase("5c CLI trace", phase_cli_trace, dev, kk, db, tree, card)
     hiseq = os.path.join(DATA, kk["sets"]["HiSeq"]["reads"])
     times, bounds, rps, rows = phase("6 numbers", phase_numbers, dev, clf,
                                      hiseq, deep)

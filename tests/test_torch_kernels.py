@@ -72,7 +72,8 @@ bitmap_patterns and pairwise_veccmp at T = 3 and 70, each against the
 CPU; for K1's radix kernel, every mode at 200 reads, at the stream's
 8192 reads, at P = 1 (a contiguous run over two reads),
 on three reads of 70,000 codes (int32 lengths) and on reads of one
-position under a spaced span of 63.
+position under a spaced span of 63; and the CLI's classify --trace-dir,
+whose trace must hold as many K1-K3 events as the wrappers counted.
 Tolerance: exact equality, since all of it is
 integer work (the entropy-file score's one double divide is IEEE-rounded
 on both sides; the Shannon score's doubles are the same table's terms
@@ -3336,3 +3337,55 @@ def test_encode_probe_radix_refuses_what_the_kernel_does_not_take(cuda):
                              (0, 2, 4, 6))
     with pytest.raises(ValueError, match="2-bit words"):
         pl.encode_probe_radix(c, n, 7, False, InputType.DNA, arr, False)
+
+
+# -- classify --trace-dir ------------------------------------------------------
+
+@pytest.mark.cuda
+def test_classify_trace_dir_counts_the_kernels(cuda, tmp_path):
+    """The CLI's classify of the HiSeq set against the ec k=31 database
+    with --trace-dir: the Kraken text is the golden's, the trace's K1
+    (by instantiation), K2 and K3 events equal the wrappers' launch
+    counts, and the stage ranges run on three threads."""
+    import hashlib
+    import json
+
+    from bonsai_tpu_torch import cli
+    from bonsai_tpu_torch.core.spacer import Spacer
+    from bonsai_tpu_torch.db import build, formats
+    from bonsai_tpu_torch.taxonomy.tree import TaxTree
+    from bonsai_tpu_torch.tools import trace_summary
+
+    data = os.path.join(os.path.dirname(__file__), "data")
+    gold = os.path.join(data, "golden")
+    kk = json.load(open(os.path.join(gold, "manifest.json")))["kraken"]
+    nodes = os.path.join(gold, kk["nodes"])
+    tree = TaxTree.from_nodes_dmp(nodes)
+    table = build.lca_map([os.path.join(data, "ec", g) for g in kk["genomes"]],
+                          tree, os.path.join(gold, kk["nameid"]),
+                          Spacer(kk["k"], kk["k"]))
+    img = str(tmp_path / "ec_img")
+    formats.save_probe_image(img, formats.Database(
+        table=table, k=kk["k"], w=kk["k"], gaps=[0] * (kk["k"] - 1)), tree)
+    wrappers = (pl.encode_probe, res.resolve, pl.step_outputs)
+    for w in wrappers:
+        w.launches = 0
+    pl.encode_probe.variants = {}
+    out, tdir = str(tmp_path / "out.tsv"), str(tmp_path / "trace")
+    s = kk["sets"]["HiSeq"]
+    assert cli.main(["classify", img, nodes, os.path.join(data, s["reads"]),
+                     "-a", "-c", "8192", "--trace-dir", tdir,
+                     "-o", out]) == 0
+    torch.cuda.synchronize()
+    with open(out, "rb") as fh:
+        assert hashlib.sha256(fh.read()).hexdigest() == s["sha256"]
+    events = trace_summary.load(tdir)
+    want = {f"encode_probe {v}": n for v, n in pl.encode_probe.variants.items()}
+    want.update(resolve=res.resolve.launches,
+                step_outputs=pl.step_outputs.launches)
+    assert want["encode_probe sparse"] == 2 and want["resolve"] == 2
+    got = {k: v[0] for k, v in trace_summary.classify_kernels(events).items()}
+    assert got == want
+    threads = trace_summary.stage_threads(events)
+    assert len({t for s in ("parse", "dispatch", "format")
+                for t in threads[s]}) == 3

@@ -537,10 +537,14 @@ def test_mesh_collectives_and_errors():
 
 
 def test_mesh_defaults_to_the_card_where_there_is_one():
-    # entry points run on the card unless the caller asks for the CPU
-    mesh = make_mesh({"dp": 1, "db": 2})
-    want = "cuda" if torch.cuda.is_available() else "cpu"
-    assert [mesh.device(r).type for r in range(2)] == [want, want]
+    # entry points run on the card unless the caller asks for the CPU:
+    # without a card the default mesh raises, it never falls back
+    if torch.cuda.is_available():
+        mesh = make_mesh({"dp": 1, "db": 2})
+        assert [mesh.device(r).type for r in range(2)] == ["cuda", "cuda"]
+    else:
+        with pytest.raises(RuntimeError, match="'cuda'.*not available"):
+            make_mesh({"dp": 1, "db": 2})
     assert make_mesh({"db": 2}, ["cpu"]).device(1) == torch.device("cpu")
 
 

@@ -89,6 +89,121 @@ def test_classify_cli_matches_jax_and_golden(gz, lex_db, tmp_path):
     assert got == open(jout, "rb").read()
 
 
+@pytest.mark.parametrize("flag", ["-v", "--version"])
+def test_version_matches_jax(flag, capsys):
+    from bonsai_tpu.cli import main as jmain
+
+    rc = cli.main([flag])
+    got = capsys.readouterr().out
+    assert (rc, got) == (0, "bonsai-tpu|0.1.0\n")
+    assert (jmain([flag]), capsys.readouterr().out) == (rc, got)
+
+
+@pytest.mark.parametrize("gz", ["classify_se.tsv.gz", "classify_pe.tsv.gz"])
+def test_classify_trace_dir_traces_every_thread(gz, lex_db, tmp_path,
+                                                capsys):
+    """--trace-dir writes one torch.profiler trace into a directory it
+    makes, holding each stage's ranges in the thread that runs it; the
+    text is the golden's, and --profile still prints its line."""
+    from bonsai_tpu_torch.tools import trace_summary
+
+    path, _ = lex_db
+    extra = _args(MANIFEST["classify"]["outputs"][gz])
+    reads = [a for a in extra if not a.startswith("-")]
+    flags = [a for a in extra if a.startswith("-")]
+    out, tdir = str(tmp_path / "torch.out"), str(tmp_path / "t" / "trace")
+    assert cli.main(["classify", path, NODES, *reads, *flags, "--device",
+                     "cpu", "--profile", "--trace-dir", tdir, "-o", out]) == 0
+    assert "# profile: " in capsys.readouterr().err
+    with gzip.open(os.path.join(GOLD, gz), "rb") as fh:
+        assert open(out, "rb").read() == fh.read()
+    assert len(os.listdir(tdir)) == 1
+    threads = {s: set(rows) for s, rows in trace_summary.stage_threads(
+        trace_summary.load(tdir)).items()}
+    assert all(len(t) == 1 for t in threads.values()), threads
+    assert threads["materialize"] == threads["format"]
+    assert len(threads["parse"] | threads["dispatch"] | threads["format"]) \
+        == 3
+
+
+def test_trace_dir_leaves_the_sharded_path_untraced(lex_db, tmp_path):
+    """As in the JAX CLI, --db-shards runs without the trace."""
+    path, _ = lex_db
+    extra = _args(MANIFEST["classify"]["outputs"]["classify_se.tsv.gz"])
+    out, tdir = str(tmp_path / "torch.out"), str(tmp_path / "trace")
+    assert cli.main(["classify", path, NODES, *extra, "--db-shards", "2",
+                     "--device", "cpu", "--trace-dir", tdir, "-o", out]) == 0
+    with gzip.open(os.path.join(GOLD, "classify_se.tsv.gz"), "rb") as fh:
+        assert open(out, "rb").read() == fh.read()
+    assert not os.path.exists(tdir)
+
+
+def test_trace_dir_refuses_a_torch_that_cannot_trace_threads(
+        lex_db, tmp_path, monkeypatch, capsys):
+    """Where the profiler has no profile_all_threads, --trace-dir exits 2
+    rather than write a trace of the main thread alone."""
+    def no_threads(**kw):
+        raise TypeError("__init__(): incompatible constructor arguments")
+
+    monkeypatch.setattr(torch._C._profiler, "_ExperimentalConfig",
+                        no_threads)
+    path, _ = lex_db
+    tdir = str(tmp_path / "trace")
+    assert cli.main(["classify", path, NODES, os.path.join(GOLD, "reads.fa"),
+                     "--device", "cpu", "--trace-dir", tdir,
+                     "-o", str(tmp_path / "out")]) == 2
+    assert "cannot trace every thread" in capsys.readouterr().err
+    assert not os.path.exists(tdir)
+
+
+def _ev(cat, name, ts, dur, tid=7, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "pid": 0, "tid": tid, "args": args}
+
+
+def test_trace_summary_sums_a_card_trace():
+    """The sums of a hand-made trace: K1-K3 by variant, copies by
+    direction, the device's busy union and its idle gaps with the stage
+    ranges over them."""
+    from bonsai_tpu_torch.tools import trace_summary as ts
+
+    k1 = ("void (anonymous namespace)::encode_probe_kernel<{}, {}>"
+          "(unsigned int const*, long)")
+    events = [
+        _ev("Trace", "PyTorch Profiler (0)", 0, 100),
+        _ev("user_annotation", "parse", 0, 30, tid=1),
+        _ev("user_annotation", "dispatch", 30, 20, tid=2),
+        _ev("user_annotation", "format", 60, 40, tid=3),
+        _ev("kernel", k1.format("false", 3), 35, 5),
+        _ev("kernel", k1.format("false", 0), 38, 4),  # overlaps the first
+        _ev("kernel", k1.format("true", 1), 44, 1),
+        _ev("kernel", k1.format("false", 3), 45, 1),
+        _ev("kernel", "void (anonymous namespace)::resolve_warp(int const*)",
+            46, 2),
+        _ev("kernel", "void (anonymous namespace)::resolve_block(int const*)",
+            48, 1),
+        _ev("kernel", "void (anonymous namespace)::step_outputs_kernel"
+            "<unsigned int>(unsigned int const*)", 55, 5),
+        _ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 32, 2, bytes=64),
+        _ev("gpu_memcpy", "Memcpy DtoH (Device -> Pinned)", 60, 5, bytes=8),
+        _ev("gpu_memset", "Memset (Device)", 90, 20),  # cut at the span
+    ]
+    s = ts.summary(events)
+    assert s["classify_kernels"] == {
+        "encode_probe sparse": [2, 6], "encode_probe contiguous": [1, 4],
+        "encode_probe spaced range": [1, 1], "resolve": [2, 3],
+        "step_outputs": [1, 5]}
+    assert s["copies"] == {"HtoD": [1, 64, 2], "DtoH": [1, 8, 5]}
+    # busy: [32, 34) [35, 42) [44, 49) [55, 65) [90, 100)
+    assert s["span_us"] == 100 and s["device_busy_us"] == 34
+    assert [(g["at_us"], g["us"]) for g in s["idle_gaps"]] == [
+        (0, 32), (65, 25), (49, 6)]
+    assert s["idle_gaps"][0]["host"] == {"parse@1": 30, "dispatch@2": 2}
+    assert s["idle_gaps"][1]["host"] == {"format@3": 25}
+    assert s["stages"]["parse"] == {"1": [1, 30]}
+    assert s["kernels"]["encode_probe_kernel<false, 3>"] == [2, 6]
+
+
 def test_run_overflow_falls_back_to_the_full_matrix(lex_db):
     """max_runs=1: reads with more hit runs decode from the positional
     matrix, and the run capacity doubles after a few such batches."""

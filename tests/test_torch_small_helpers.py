@@ -291,6 +291,41 @@ def test_init_distributed_takes_a_coordinator(tmp_path):
     assert lines[1].startswith("ValueError") and "num_processes" in lines[1]
 
 
+def test_init_distributed_without_a_card_raises():
+    """Without CUDA, init_distributed with a coordinator and no device
+    raises rather than joining a gloo group on the CPU, and so do the
+    mesh's defaults (in a process of its own: a process group is
+    global)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import torch\n"
+        "import torch.distributed as d\n"
+        "from bonsai_tpu_torch.parallel import mesh\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "for f in (lambda: mesh.init_distributed("
+        f"'localhost:{_free_port()}', 1, 0), mesh._my_device,\n"
+        "          lambda: mesh.make_mesh({'db': 2})):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        print(type(e).__name__, e)\n"
+        "print('joined', d.is_initialized())\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert len(lines) == 4, out.stdout
+    for line in lines[:3]:
+        assert line.startswith("RuntimeError") and "'cuda'" in line, line
+    assert lines[3] == "joined False"
+
+
 @pytest.mark.parametrize("local_rank,cards,rank,want", [
     (None, 2, 1, 1), (None, 4, 6, 2), (None, 1, 3, 0), ("1", 4, 5, 1),
     ("0", 2, 1, 0)])
