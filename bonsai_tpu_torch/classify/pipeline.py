@@ -52,7 +52,6 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import kernels
 from ..core import encode
@@ -64,6 +63,7 @@ from ..db import formats
 from ..db.table import ProbeArrays, probe_slots, unique_u64
 from ..io import fastx
 from ..native import get_lib
+from ..util import CLASSIFY_SPANS, STAGES, span
 from . import output as out_mod
 from .resolve import resolve
 
@@ -698,6 +698,10 @@ class Classifier:
     (``KmerTable.trim``; it is rebuilt on its next use)."""
 
     it = InputType.DNA  # the reads' input type (``_set_seed``)
+    # {span: [wall_s, cpu_s, count]} of the last ``process_dataset`` call
+    # (None before the first), and its four stages' wall seconds
+    span_seconds: Optional[dict] = None
+    stage_seconds: Optional[dict] = None
 
     def __init__(self, db: formats.Database, tree, canonicalize: bool = True,
                  emit_all: bool = False, emit_kraken: bool = True,
@@ -931,8 +935,9 @@ class Classifier:
     def _finish_batch(self, batch: fastx.ReadBatch, out, paired: bool = False,
                       force_full: bool = False) -> BatchResult:
         compact, done, full, lproc, maxr = out
-        if done is not None:
-            done.synchronize()
+        with span("device_wait", self.span_seconds):
+            if done is not None:
+                done.synchronize()
         R = len(batch.names) // 2 if paired else len(batch.names)
         cm = compact.numpy().view(np.uint32)[:R]
         return self._finish_arrays(
@@ -1005,25 +1010,9 @@ class Classifier:
                 self.max_runs *= 2
                 self._overflow_batches = 0
         if force_full or overflowed:
-            hb = (W + 31) // 32
-            fm = fetch_full()
-            taxa = fm[:, 4 + hb :]
-            shifts = np.arange(32, dtype=np.uint32)
-            hit = (((fm[:, 4 : 4 + hb, None] >> shifts) & np.uint32(1))
-                   .astype(bool).reshape(R, hb * 32)[:, :W])
-            # trim the length-padding columns (always misses) to the
-            # batch's read width
-            Pt = max(batch.codes.shape[1] - self.sp.c + 1, 0)
-            if Pt < P:
-                if paired:
-                    taxa = np.concatenate([taxa[:, :Pt], taxa[:, P : P + Pt]], 1)
-                    hit = np.concatenate([hit[:, :Pt], hit[:, P : P + Pt]], 1)
-                else:
-                    taxa, hit = taxa[:, :Pt], hit[:, :Pt]
-            if uniq is not None:
-                taxa = np.where(
-                    hit, uniq[np.minimum(taxa, np.uint32(uniq.size - 1))], 0
-                ).astype(np.uint32)
+            with span("full_fetch", self.span_seconds):
+                taxa, hit = self._full_matrix(batch, fetch_full(), W, P,
+                                              paired)
         else:
             run_vals, run_lens = rv, rl
             n_runs = n_runs.astype(np.int32)
@@ -1044,6 +1033,30 @@ class Classifier:
             )
         return BatchResult(names=batch.names, seqs=batch.seqs,
                            quals=batch.quals, lengths=batch.lengths, **common)
+
+    def _full_matrix(self, batch: fastx.ReadBatch, fm: np.ndarray, W: int,
+                     P: int, paired: bool):
+        """(taxa, hit) of the positional matrix ``fm`` (R, 4 + hb + W)."""
+        hb = (W + 31) // 32
+        taxa = fm[:, 4 + hb :]
+        shifts = np.arange(32, dtype=np.uint32)
+        hit = (((fm[:, 4 : 4 + hb, None] >> shifts) & np.uint32(1))
+               .astype(bool).reshape(fm.shape[0], hb * 32)[:, :W])
+        # trim the length-padding columns (always misses) to the batch's
+        # read width
+        Pt = max(batch.codes.shape[1] - self.sp.c + 1, 0)
+        if Pt < P:
+            if paired:
+                taxa = np.concatenate([taxa[:, :Pt], taxa[:, P : P + Pt]], 1)
+                hit = np.concatenate([hit[:, :Pt], hit[:, P : P + Pt]], 1)
+            else:
+                taxa, hit = taxa[:, :Pt], hit[:, :Pt]
+        uniq = self._uniq_host
+        if uniq is not None:
+            taxa = np.where(
+                hit, uniq[np.minimum(taxa, np.uint32(uniq.size - 1))], 0
+            ).astype(np.uint32)
+        return taxa, hit
 
     def classify_batch(self, batch: fastx.ReadBatch, paired: bool = False,
                        full: bool = False) -> BatchResult:
@@ -1069,23 +1082,26 @@ class Classifier:
                         batch_size: int = 4096, profile: bool = False):
         """Classify a FASTA/FASTQ file (optionally paired) and write text
         output (process_dataset, classifier.h:296-337).  A producer thread
-        parses and packs, the main thread uploads and launches (up to
+        reads and packs, the main thread uploads and launches (up to
         ``PIPELINE_DEPTH`` batches in flight), a writer thread fetches and
-        formats; output keeps input order.  ``profile`` prints per-stage seconds to
-        stderr (kept in ``self.stage_seconds``).  Each batch's stages are
-        also ``record_function`` ranges of those names, over the spans
-        whose seconds ``profile`` sums, in the thread that runs them: a
+        formats; output keeps input order.  Every phase of a batch is a
+        ``util.span`` in the thread that runs it, accumulated into
+        ``self.span_seconds`` ({span: [wall_s, cpu_s, count]}, reset a
+        call): the producer's ``read`` (the file's next batch) and
+        ``parse`` (``_prepare_batch``), the main thread's ``dispatch``,
+        the writer's ``materialize`` (with ``device_wait`` and
+        ``full_fetch`` inside it) and ``format``, each blocking queue call
+        (``producer_blocked``, ``dispatch_starved``, ``dispatch_blocked``,
+        ``writer_starved``) and the whole call (``pass``).  Each batch has
+        one ``parse`` and one ``format``, in input order.  A
         ``torch.profiler`` trace of every thread (``cli.py``
-        ``--trace-dir``) sets them beside the card's work."""
+        ``--trace-dir``) sets them beside the card's work.  ``profile``
+        prints them to stderr."""
         is_paired = mate_path is not None
         if is_paired and batch_size % 2:
             batch_size += 1  # pairs must not straddle batches
-        self.stage_seconds = stats = {
-            "parse": 0.0, "dispatch": 0.0, "materialize": 0.0, "format": 0.0,
-        }
+        self.span_seconds = acc = {s: [0.0, 0.0, 0] for s in CLASSIFY_SPANS}
         t = time.perf_counter
-        it = iter(fastx.batch_reads(path, self.lut, batch_size=batch_size,
-                                    mate_path=mate_path))
         n_reads = 0
         t_all = t()
         q: queue.Queue = queue.Queue(maxsize=PIPELINE_DEPTH)
@@ -1096,23 +1112,29 @@ class Classifier:
 
         def producer():
             try:
-                for batch in it:
-                    if stop.is_set():
+                it = iter(fastx.batch_reads(path, self.lut,
+                                            batch_size=batch_size,
+                                            mate_path=mate_path))
+                while not stop.is_set():
+                    with span("read", acc):  # the last finds the file's end
+                        batch = next(it, None)
+                    if batch is None:
                         break
-                    with record_function("parse"):
-                        t0 = t()
+                    with span("parse", acc):
                         prep = self._prepare_batch(batch, is_paired)
-                        stats["parse"] += t() - t0
-                    pq.put((batch, prep))
+                    with span("producer_blocked", acc):
+                        pq.put((batch, prep))
             except BaseException as e:  # re-raised by the main thread
                 perr.append(e)
             finally:
-                pq.put(None)
+                with span("producer_blocked", acc):
+                    pq.put(None)
 
         def writer():
             try:
                 while True:
-                    item = q.get()
+                    with span("writer_starved", acc):
+                        item = q.get()
                     if item is None:
                         return
                     self._write_result(out_fh, *item, is_paired)
@@ -1121,54 +1143,63 @@ class Classifier:
                 while q.get() is not None:  # drain so the main thread ends
                     pass
 
-        pt = threading.Thread(target=producer, daemon=True)
-        wt = threading.Thread(target=writer, daemon=True)
-        pt.start()
-        wt.start()
-        producer_done = False
-        try:
-            while True:
-                item = pq.get()
-                if item is None:
-                    producer_done = True
-                    break
-                if err:
-                    raise err[0]
-                batch, prep = item
-                n_reads += len(batch.names)
-                with record_function("dispatch"):
-                    t0 = t()
-                    out = self._dispatch_prepared(prep, is_paired)
-                    stats["dispatch"] += t() - t0
-                q.put((batch, out))
-        finally:
-            stop.set()
-            while not producer_done:  # unblock and retire the producer
-                producer_done = pq.get() is None
-            pt.join()
-            q.put(None)
-            wt.join()
+        with span("pass", acc):
+            pt = threading.Thread(target=producer, daemon=True)
+            wt = threading.Thread(target=writer, daemon=True)
+            pt.start()
+            wt.start()
+            producer_done = False
+            try:
+                while True:
+                    with span("dispatch_starved", acc):
+                        item = pq.get()
+                    if item is None:
+                        producer_done = True
+                        break
+                    if err:
+                        raise err[0]
+                    batch, prep = item
+                    n_reads += len(batch.names)
+                    with span("dispatch", acc):
+                        out = self._dispatch_prepared(prep, is_paired)
+                        # free the batch's host buffers with their upload:
+                        # the free can leave the thread off the CPU for up
+                        # to a millisecond, which fell between two spans
+                        item = prep = None
+                    with span("dispatch_blocked", acc):
+                        q.put((batch, out))
+            finally:
+                stop.set()
+                while not producer_done:  # unblock and retire the producer
+                    producer_done = pq.get() is None
+                pt.join()
+                with span("dispatch_blocked", acc):  # the writer's last
+                    q.put(None)
+                    wt.join()
+                # {stage: wall seconds}, the view the benchmark reads
+                self.stage_seconds = {s: acc[s][0] for s in STAGES}
         if err:
             raise err[0]
         if perr:
             raise perr[0]
         if profile:
             total = t() - t_all
-            parts = "  ".join(f"{k}={v:.3f}s" for k, v in stats.items())
+            parts = "  ".join(f"{k}={v:.3f}s"
+                              for k, v in self.stage_seconds.items())
             print(f"# profile: {n_reads} reads in {total:.3f}s "
                   f"({n_reads / max(total, 1e-9):,.0f} reads/s)  {parts}",
                   file=sys.stderr)
+            for name, (wall, cpu, n) in acc.items():
+                print(f"# span {name}: wall {wall:.3f}s cpu {cpu:.3f}s "
+                      f"({100 * cpu / max(wall, 1e-9):.0f}%) count {n}",
+                      file=sys.stderr)
 
     def _write_result(self, out_fh, batch, out, is_paired):
-        stats = self.stage_seconds
-        with record_function("materialize"):
-            t0 = time.perf_counter()
+        acc = self.span_seconds
+        with span("materialize", acc):
             res = self._finish_batch(batch, out, is_paired)
-            stats["materialize"] += time.perf_counter() - t0
-        with record_function("format"):
-            t0 = time.perf_counter()
+        with span("format", acc):
             out_fh.write(out_mod.format_batch(
                 res, self.sp.c, emit_all=self.emit_all,
                 emit_kraken=self.emit_kraken, emit_fastq=self.emit_fastq,
             ))
-            stats["format"] += time.perf_counter() - t0

@@ -125,7 +125,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-f", "--fastq", action="store_true")
     p.add_argument("-C", "--no-canon", action="store_true")
     p.add_argument("--profile", action="store_true",
-                   help="print per-stage wall times to stderr")
+                   help="print per-stage wall times, and each span's wall "
+                        "and CPU seconds and count (CPU below wall: off "
+                        "the CPU, on the GIL or I/O), to stderr")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the run here")
     _device_arg(p)

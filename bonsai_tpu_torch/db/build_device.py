@@ -65,6 +65,7 @@ from ..core.spacer import Spacer
 from ..io import fastx
 from ..taxonomy.ncbi import parse_nameid_map, taxid_for_path
 from ..taxonomy.tree import TAX_MISSING, TaxTree
+from ..util import span
 from .build import (_check, drops_partial_window, ftct_values, phase2_content,
                     taxdepth_values)
 from .table import KmerTable, ScoreMap
@@ -326,31 +327,42 @@ def _genome_state(path: str, sp: Spacer, enc: BatchEncoder, taxid: int,
     drop0 = drops_partial_window(sp, enc)
     lut = _lut(enc.it)
     acc = State.empty(device)
-    for _, seq, _ in fastx.read_fastx(path):
+    records = iter(fastx.read_fastx(path))
+    while True:
+        with span("genome_read"):
+            rec = next(records, None)
+        if rec is None:
+            break
+        seq = rec[1]
         if len(seq) < sp.c:
             continue
         start = 0
         while start < len(seq):
             end = min(start + block + halo, len(seq))
             is_last = end >= len(seq)
-            codes = torch.from_numpy(fastx.encode_contig(seq[start:end], lut))
-            # The trim reads the previous merge's n on the host one chunk
-            # late, as the JAX package does: the card runs that merge
-            # while the host parses and encodes this chunk.
-            acc = acc.trimmed()
-            lengths = torch.tensor([end - start], dtype=torch.int32)
-            em = enc.emissions(codes[None, :].to(device), lengths.to(device))
-            mask = em.mask[0]
-            if drop0 and not is_last:  # not a real contig end
-                mask = mask.clone()
-                mask[0] = False
-            dk, dp, dn = sort_unique(em.values[0], mask)
-            st = State.from_sorted_keys(dk, dp, dn, node, taxid)
-            acc = merge_fold(acc, st, tax, root1, sum_counts=False)
+            with span("genome_read"):
+                codes = torch.from_numpy(
+                    fastx.encode_contig(seq[start:end], lut))
+            with span("fold"):
+                # The trim reads the previous merge's n on the host one
+                # chunk late, as the JAX package does: the card runs that
+                # merge while the host parses and encodes this chunk.
+                acc = acc.trimmed()
+                lengths = torch.tensor([end - start], dtype=torch.int32)
+                em = enc.emissions(codes[None, :].to(device),
+                                   lengths.to(device))
+                mask = em.mask[0]
+                if drop0 and not is_last:  # not a real contig end
+                    mask = mask.clone()
+                    mask[0] = False
+                dk, dp, dn = sort_unique(em.values[0], mask)
+                st = State.from_sorted_keys(dk, dp, dn, node, taxid)
+                acc = merge_fold(acc, st, tax, root1, sum_counts=False)
             if is_last:
                 break
             start += block
-    return acc.trimmed()
+    with span("fold"):
+        return acc.trimmed()
 
 
 def _tree_fold(states: List[State], tax, root1: int) -> State:
@@ -371,13 +383,15 @@ def _finish_fold(states: List[State], tax, root1: int, want_counts: bool):
     if not states:
         out = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
         return out + ((np.zeros(0, np.int64),) if want_counts else ())
-    st = _tree_fold(states, tax, root1)
-    n = int(st.n)  # fetch the valid prefix only
-    out = (st.keys[:n].cpu().numpy().view(np.uint64),
-           st.orig[:n].cpu().numpy().view(np.uint32))
-    if want_counts:
-        out += (st.cnt[:n].cpu().numpy().view(np.uint32).astype(np.int64),)
-    return out
+    with span("fold_fetch"):
+        st = _tree_fold(states, tax, root1)
+        n = int(st.n)  # fetch the valid prefix only
+        out = (st.keys[:n].cpu().numpy().view(np.uint64),
+               st.orig[:n].cpu().numpy().view(np.uint32))
+        if want_counts:
+            out += (st.cnt[:n].cpu().numpy().view(np.uint32).astype(
+                np.int64),)
+        return out
 
 
 def device_fold_runs(runs: Sequence[Tuple[np.ndarray, int]], tree: TaxTree,

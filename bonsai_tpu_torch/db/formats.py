@@ -38,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.spacer import Spacer
+from ..util import span
 from .table import (MAX_LOAD, SLOTS, HashShardedTable, KmerTable,
                     _next_pow2, owner_parts, owners_of, unique_u64)
 
@@ -164,10 +165,11 @@ def packed_values(table: KmerTable, tree) -> np.ndarray:
 
 def payload(vals: np.ndarray, tree) -> np.ndarray:
     """``packed_values`` of u32 taxids ``vals``."""
-    compact_vals = tree.compact(vals, missing_ok=True)
-    return (
-        np.asarray(vals).astype(np.uint64) << np.uint64(32)
-    ) | compact_vals.astype(np.uint32).astype(np.uint64)
+    with span("payload"):
+        compact_vals = tree.compact(vals, missing_ok=True)
+        return (
+            np.asarray(vals).astype(np.uint64) << np.uint64(32)
+        ) | compact_vals.astype(np.uint32).astype(np.uint64)
 
 
 def save_probe_image(dirpath: str, db: Database, tree) -> None:

@@ -40,6 +40,7 @@ import torch
 from .. import kernels
 from ..core import hashes
 from ..core.bitops import SIGN, as_keys, i64, shr
+from ..util import span
 
 SLOTS = 4
 BSALT = 0xA24BAED4963EE407
@@ -81,25 +82,29 @@ class KmerTable:
 
     def __init__(self, keys_sorted: np.ndarray, vals_sorted: np.ndarray,
                  load_factor: float = MAX_LOAD, min_nb: int = 0):
-        keys_sorted = np.asarray(keys_sorted, dtype=np.uint64)
-        vals_sorted = np.asarray(vals_sorted)
-        if keys_sorted.ndim != 1 or keys_sorted.shape != vals_sorted.shape:
-            raise ValueError("keys/vals must be matching 1-D arrays")
-        if keys_sorted.size > 1 and not np.all(keys_sorted[1:] > keys_sorted[:-1]):
-            raise ValueError("keys must be sorted and unique")
-        self.keys_sorted = keys_sorted
-        self.vals_sorted = vals_sorted
-        self.n = int(keys_sorted.size)
-        self._h = splitmix64_np(keys_sorted)
-        nb = max(
-            _next_pow2(max(int(np.ceil(self.n / (SLOTS * load_factor))), 1)),
-            4,
-            _next_pow2(min_nb) if min_nb else 4,
-        )
-        while not self._place(nb):
-            nb <<= 1
-        self._h = None  # placement done; the slot words keep q
-        self._np_arrays = None  # arrays_np() of the table's own values
+        with span("placement"):
+            keys_sorted = np.asarray(keys_sorted, dtype=np.uint64)
+            vals_sorted = np.asarray(vals_sorted)
+            if (keys_sorted.ndim != 1
+                    or keys_sorted.shape != vals_sorted.shape):
+                raise ValueError("keys/vals must be matching 1-D arrays")
+            if keys_sorted.size > 1 and not np.all(
+                    keys_sorted[1:] > keys_sorted[:-1]):
+                raise ValueError("keys must be sorted and unique")
+            self.keys_sorted = keys_sorted
+            self.vals_sorted = vals_sorted
+            self.n = int(keys_sorted.size)
+            self._h = splitmix64_np(keys_sorted)
+            nb = max(
+                _next_pow2(max(int(np.ceil(self.n / (SLOTS * load_factor))),
+                               1)),
+                4,
+                _next_pow2(min_nb) if min_nb else 4,
+            )
+            while not self._place(nb):
+                nb <<= 1
+            self._h = None  # placement done; the slot words keep q
+            self._np_arrays = None  # arrays_np() of the table's own values
 
     def trim(self) -> None:
         """Free the placement's host arrays (each slot's owner and the
@@ -113,11 +118,12 @@ class KmerTable:
     def _layout(self) -> None:
         """Place the keys again after ``trim``."""
         if self._occ is None:
-            self._h = splitmix64_np(self.keys_sorted)
-            if not self._place(self.nb):
-                raise RuntimeError(f"KmerTable: the placement at nb="
-                                   f"{self.nb} failed on its rebuild")
-            self._h = None
+            with span("placement"):
+                self._h = splitmix64_np(self.keys_sorted)
+                if not self._place(self.nb):
+                    raise RuntimeError(f"KmerTable: the placement at nb="
+                                       f"{self.nb} failed on its rebuild")
+                self._h = None
 
     def lookup(self, key: int):
         """The value of ``key``, or None where the table lacks it."""
@@ -179,22 +185,24 @@ class KmerTable:
         that a value index means the same on every rank), and
         ``allow_inline=False`` forces the flat value array."""
         self._layout()
-        v64 = np.asarray(vals_aligned).astype(np.uint64)
-        if uniq is None:
-            uniq = unique_u64(v64) if self.n else np.zeros(1, np.uint64)
-        if uniq.size == 0:
-            uniq = np.zeros(1, np.uint64)
-        inline = allow_inline and uniq.size <= (1 << self.vbits)
-        words = np.zeros(self.nb * SLOTS, dtype=np.uint64)
-        if inline:
-            validx = np.searchsorted(uniq, v64[self._own]).astype(np.uint64)
-            words[self._occ] = self._word | validx
-            return words.reshape(self.nb, SLOTS), uniq, True
-        words[self._occ] = self._word
-        flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
-        flat[self._occ] = v64[self._own]
-        return (words.reshape(self.nb, SLOTS), flat.reshape(self.nb, SLOTS),
-                False)
+        with span("image"):
+            v64 = np.asarray(vals_aligned).astype(np.uint64)
+            if uniq is None:
+                uniq = unique_u64(v64) if self.n else np.zeros(1, np.uint64)
+            if uniq.size == 0:
+                uniq = np.zeros(1, np.uint64)
+            inline = allow_inline and uniq.size <= (1 << self.vbits)
+            words = np.zeros(self.nb * SLOTS, dtype=np.uint64)
+            if inline:
+                validx = np.searchsorted(uniq, v64[self._own]).astype(
+                    np.uint64)
+                words[self._occ] = self._word | validx
+                return words.reshape(self.nb, SLOTS), uniq, True
+            words[self._occ] = self._word
+            flat = np.zeros(self.nb * SLOTS, dtype=np.uint64)
+            flat[self._occ] = v64[self._own]
+            return (words.reshape(self.nb, SLOTS),
+                    flat.reshape(self.nb, SLOTS), False)
 
     def probe_np(self, queries: np.ndarray, arrays=None):
         """Host probe of u64 queries -> (vals in the table's dtype, found)."""

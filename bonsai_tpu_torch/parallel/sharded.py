@@ -62,6 +62,7 @@ from ..db import formats
 from ..db.table import (MAX_LOAD, SLOTS, HashShardedTable, KmerTable,
                         ProbeArrays, _next_pow2, unique_u64)
 from ..io import fastx
+from ..util import span
 from .mesh import Mesh
 from .route import route_collect, route_frame, route_probe
 
@@ -428,8 +429,9 @@ class ShardedClassifier(Classifier):
     def _finish_batch(self, batch: fastx.ReadBatch, out, paired: bool = False,
                       force_full: bool = False):
         compact, events, fulls, lproc, maxr = out
-        for ev in events:
-            ev.synchronize()
+        with span("device_wait", self.span_seconds):
+            for ev in events:
+                ev.synchronize()
         R = len(batch.names) // 2 if paired else len(batch.names)
         cm = compact.numpy().view(np.uint32)[:R]
         return self._finish_arrays(

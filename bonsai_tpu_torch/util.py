@@ -10,7 +10,8 @@ numpy's bit for bit, and returns them on the k-mers' device.  The host
 helpers ``bitvec2str``, ``Timer``, ``time_code`` and ``get_logger``
 (:67-143 there) are copies; ``time_code`` marks its block in an active
 ``torch.profiler`` trace where the JAX package marks a ``jax.profiler``
-one.
+one.  ``span`` is the port's own: the one helper that marks the
+classifier's and the build's phases (``SPANS``) in such a trace.
 """
 
 from __future__ import annotations
@@ -100,6 +101,63 @@ def time_code(msg: str, fh=None) -> Iterator[Timer]:
     with torch.profiler.record_function(msg):
         with Timer(msg, fh) as t:
             yield t
+
+
+# -- spans --------------------------------------------------------------------
+# Every span the program opens (``span``).  Classify
+# (``Classifier.process_dataset``): ``pass``, the whole call, in the main
+# thread; ``read`` and ``parse`` in the producer, ``dispatch`` in the main
+# thread, ``materialize`` (``device_wait`` and ``full_fetch`` inside it)
+# and ``format`` in the writer.  ``STAGES`` are ``stage_seconds``' keys;
+# ``WAITS`` are the blocking queue calls and the writer's wait on the
+# card.  Build: ``db/build_device.py``'s genome stream, fold and fetch,
+# ``db/table.py``'s placement and slot image, ``db/formats.py``'s payload.
+STAGES = ("parse", "dispatch", "materialize", "format")
+WAITS = ("producer_blocked", "dispatch_starved", "dispatch_blocked",
+         "writer_starved", "device_wait")
+BUILD_SPANS = ("genome_read", "fold", "fold_fetch", "placement", "image",
+               "payload")
+CLASSIFY_SPANS = ("pass", "read") + STAGES + ("full_fetch",) + WAITS
+SPANS = CLASSIFY_SPANS + BUILD_SPANS
+
+
+# the user-scope range that ``torch.profiler.record_function`` opens, entered
+# without its round trip through the operator dispatcher: a third of its
+# cost a span, and less of a thread's time left between two spans
+_range_enter = torch._C._autograd._record_function_with_args_enter
+_range_exit = torch._C._autograd._record_function_with_args_exit
+
+
+class span:
+    """``with span(name, acc):`` a range named ``name`` (one of ``SPANS``)
+    in an active ``torch.profiler`` trace: the ``user_annotation`` event
+    that ``record_function`` makes, on the profiler's clock beside the
+    card's kernels and copies.  With ``acc``, the block's wall seconds
+    (``perf_counter``), its thread's CPU seconds (``thread_time``) and one
+    count are added to ``acc[name]``, a list [wall_s, cpu_s, count]: CPU
+    below wall is time the thread spent off the CPU, waiting on the GIL, a
+    lock, the card or I/O."""
+
+    __slots__ = ("name", "acc", "_range", "_wall", "_cpu")
+
+    def __init__(self, name: str, acc: Optional[dict] = None):
+        self.name = name
+        self.acc = acc
+
+    def __enter__(self) -> "span":
+        self._range = _range_enter(self.name)
+        if self.acc is not None:
+            self._wall, self._cpu = time.perf_counter(), time.thread_time()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.acc is not None:
+            row = self.acc.setdefault(self.name, [0.0, 0.0, 0])
+            row[0] += time.perf_counter() - self._wall
+            row[1] += time.thread_time() - self._cpu
+            row[2] += 1
+        _range_exit(self._range)
+        return False
 
 
 # -- logging ----------------------------------------------------------------

@@ -1800,6 +1800,11 @@ def phase_cli_trace(dev, kk, db, tree, card):
         "seconds: " + "; ".join(
             f"{st} {rows} = {sum(r[1] for r in rows.values()):.1f} us, "
             f"--profile {secs_of.get(st)}s" for st, rows in stages.items()))
+    say("# CLI trace: each thread's life under its spans: " + "; ".join(
+        f"{tid} {100 * t['share']:.2f}% of {t['life_us']:.1f} us"
+        for tid, t in summ["threads"].items())
+        + f"; the idle time under a working span "
+        f"{100 * summ['idle_under_share']:.2f}%")
     say(f"# CLI trace: a record_function range with no profiler running: "
         f"{range_us:.3f} us (host, mean of {n})")
     require(all(stages[st] for st in ts.STAGES) and prof,
