@@ -2,8 +2,10 @@
 
 Counterpart of ``bonsai_tpu/classify/output.py``, byte for byte
 (classifier.h:112-129,339-412).  Kraken records go through the host C++
-formatter (``kraken_out.cpp``); the ``-f`` FASTQ re-emission is formatted
-here.
+formatter (``kraken_out.cpp``), which reads the batch's names from a
+``Strings``' arena and offsets in place; names given as a list are joined
+into one first, under the span ``name_join``.  The ``-f`` FASTQ
+re-emission is formatted here.
 
 kraken record:
     C|U \\t name \\t taxon \\t len \\t [M:missing \\t] [A:ambig \\t] runs\\n
@@ -21,7 +23,9 @@ from typing import List
 
 import numpy as np
 
+from ..io.fastx import Strings
 from ..native import get_lib
+from ..util import span
 
 TAX_AMBIG = 0xFFFFFFFF
 
@@ -77,15 +81,21 @@ def _u32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.uint32)
 
 
-def _format_kraken(res, comb_size: int, emit_all: bool) -> str:
-    """Kraken text of a batch through the host C++ formatter."""
+def _format_kraken(res, comb_size: int, emit_all: bool, acc=None) -> str:
+    """Kraken text of a batch through the host C++ formatter.  Names that
+    are not ``Strings`` are joined into an arena first, in the span
+    ``name_join`` (accumulated into ``acc``, as ``util.span`` does)."""
     lib = get_lib()
-    n = len(res.names)
+    names = res.names
+    n = len(names)
     if n == 0:
         return ""
-    names_arena = b"".join(res.names)
-    name_offs = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum([len(x) for x in res.names], out=name_offs[1:])
+    if not isinstance(names, Strings):
+        with span("name_join", acc):
+            names = Strings.of(names)
+    name_offs = np.ascontiguousarray(names.offs, dtype=np.int64)
+    names_arena = names.arena.ctypes.data
+    name_bytes = int(name_offs[-1] - name_offs[0])
     lengths = _i32(res.lengths)
     lengths2 = _i32(res.lengths2) if res.paired else None
     l2_ptr = lengths2.ctypes.data if lengths2 is not None else None
@@ -98,7 +108,7 @@ def _format_kraken(res, comb_size: int, emit_all: bool) -> str:
         run_lens = _u32(res.run_lens)
         n_runs = _i32(res.n_runs)
         maxr = run_vals.shape[1] if run_vals.ndim == 2 else 0
-        cap = len(names_arena) + n * 80 + int(n_runs.sum()) * 25 + 1024
+        cap = name_bytes + n * 80 + int(n_runs.sum()) * 25 + 1024
 
         def call(out, cap):
             return lib.btpu_format_kraken_runs(
@@ -113,7 +123,7 @@ def _format_kraken(res, comb_size: int, emit_all: bool) -> str:
         taxa = _u32(res.taxa)
         hm = np.ascontiguousarray(res.hit_mask, dtype=np.uint8)
         P = taxa.shape[1] if taxa.ndim == 2 else 0
-        cap = len(names_arena) + n * 80 + int(hm.sum()) * 14 + 1024
+        cap = name_bytes + n * 80 + int(hm.sum()) * 14 + 1024
 
         def call(out, cap):
             return lib.btpu_format_kraken(
@@ -132,10 +142,12 @@ def _format_kraken(res, comb_size: int, emit_all: bool) -> str:
 
 
 def format_batch(res, comb_size: int, emit_all: bool = False,
-                 emit_kraken: bool = True, emit_fastq: bool = False) -> str:
-    """res: classify.pipeline.BatchResult (one row per read or mate pair)."""
+                 emit_kraken: bool = True, emit_fastq: bool = False,
+                 acc=None) -> str:
+    """res: classify.pipeline.BatchResult (one row per read or mate pair).
+    ``acc``: the spans' accumulator (``Classifier.span_seconds``)."""
     if emit_kraken and not emit_fastq:
-        return _format_kraken(res, comb_size, emit_all)
+        return _format_kraken(res, comb_size, emit_all, acc)
     if not emit_fastq:
         return ""
     return _format_fastq(res, comb_size, emit_all, emit_kraken)
@@ -145,18 +157,20 @@ def _format_fastq(res, comb_size: int, emit_all: bool,
                   emit_kraken: bool) -> str:
     """FASTQ re-emission with the classification in the header comment."""
     out: List[str] = []
-    for i in range(len(res.names)):
+    # as lists once: a ``Strings`` read item by item costs ~8x its tolist
+    names = list(res.names)
+    mates = [(list(res.seqs), res.quals and list(res.quals))]
+    if res.paired:
+        mates.append((list(res.seqs2), res.quals2 and list(res.quals2)))
+    for i in range(len(names)):
         taxon = int(res.taxon[i])
         if not (emit_all or taxon):
             continue
-        name = res.names[i].decode("utf-8", "replace")
+        name = names[i].decode("utf-8", "replace")
         comment = _fastq_comment(
             taxon, int(res.lengths[i]), int(res.n_missing[i]),
             ambig_count(res, i, comb_size), res.hit_taxa(i), emit_kraken,
         )
-        mates = [(res.seqs, res.quals)]
-        if res.paired:
-            mates.append((res.seqs2, res.quals2))
         for seqs, quals in mates:
             q = quals[i] if quals and quals[i] else seqs[i]
             out.append(f"{name} {comment}\n")

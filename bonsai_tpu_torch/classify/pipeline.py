@@ -48,7 +48,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,9 +91,9 @@ class BatchResult:
     come either as full positional ``taxa`` + ``hit_mask`` matrices, or as
     compact ``run_vals``/``run_lens``/``n_runs``."""
 
-    names: List[bytes]
-    seqs: List[bytes]
-    quals: List[Optional[bytes]]
+    names: Sequence[bytes]  # a list, or the batch's ``fastx.Strings``
+    seqs: Sequence[bytes]
+    quals: Sequence[Optional[bytes]]
     lengths: np.ndarray  # (R,) mate-1 lengths
     taxon: np.ndarray  # (R,) original taxids, 0 = unclassified
     taxa: Optional[np.ndarray]  # (R, W) hit taxids, or None (compact)
@@ -105,8 +105,8 @@ class BatchResult:
     run_lens: Optional[np.ndarray] = None  # (R, MAXR) run lengths
     n_runs: Optional[np.ndarray] = None  # (R,) run counts (<= MAXR here)
     lengths2: Optional[np.ndarray] = None
-    seqs2: Optional[List[bytes]] = None
-    quals2: Optional[List[Optional[bytes]]] = None
+    seqs2: Optional[Sequence[bytes]] = None
+    quals2: Optional[Sequence[Optional[bytes]]] = None
 
     @property
     def paired(self) -> bool:
@@ -1090,7 +1090,9 @@ class Classifier:
         call): the producer's ``read`` (the file's next batch) and
         ``parse`` (``_prepare_batch``), the main thread's ``dispatch``,
         the writer's ``materialize`` (with ``device_wait`` and
-        ``full_fetch`` inside it) and ``format``, each blocking queue call
+        ``full_fetch`` inside it) and ``format`` (with ``name_join``
+        inside it where the batch's names are a list: paired input),
+        each blocking queue call
         (``producer_blocked``, ``dispatch_starved``, ``dispatch_blocked``,
         ``writer_starved``) and the whole call (``pass``).  Each batch has
         one ``parse`` and one ``format``, in input order.  A
@@ -1202,4 +1204,5 @@ class Classifier:
             out_fh.write(out_mod.format_batch(
                 res, self.sp.c, emit_all=self.emit_all,
                 emit_kraken=self.emit_kraken, emit_fastq=self.emit_fastq,
+                acc=acc,
             ))

@@ -8,6 +8,13 @@ decompressors for .xz, .bz2 and .zst (the zstd binary where it is on the
 path, else the zstandard module), as the reference reads them
 (encoder.h:510-530).  Read length pads to a multiple of 32 so that the
 2-bit upload (16 codes per u32 word) tiles exactly.
+
+A batch from the C++ parser holds its names, sequences and (FASTQ)
+qualities as ``Strings``: one byte arena and its prefix offsets each, as
+the parser filled them, so that no per-read Python object is made
+between the parser and the C++ Kraken formatter, which reads the names'
+arena in place.  Every other batch holds lists of ``bytes``; a consumer
+indexes, slices and iterates both alike.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import lzma
 import shutil
 import subprocess
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -132,13 +139,77 @@ def trim_readno(name: bytes) -> bytes:
     return name
 
 
+class Strings(Sequence[bytes]):
+    """A read-only sequence of ``bytes`` held as one uint8 ``arena`` and
+    its ``n + 1`` int64 prefix ``offs``: item i is
+    ``arena[offs[i]:offs[i + 1]]``, and ``offs[0]`` need not be 0 (a slice
+    is a view of its parent's offsets).  ``[i]`` gives ``bytes``; a slice
+    of step 1 gives a ``Strings`` over the same arena, any other step a
+    list; it equals a list, or another ``Strings``, of the same bytes."""
+
+    __slots__ = ("arena", "offs")
+
+    def __init__(self, arena: np.ndarray, offs: np.ndarray):
+        self.arena = arena
+        self.offs = offs
+
+    @classmethod
+    def of(cls, items) -> "Strings":
+        """The arena and offsets of an iterable of ``bytes``."""
+        items = list(items)
+        offs = np.zeros(len(items) + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in items], out=offs[1:])
+        return cls(np.frombuffer(b"".join(items), dtype=np.uint8), offs)
+
+    def __len__(self) -> int:
+        return len(self.offs) - 1
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            start, stop, step = i.indices(len(self))
+            if step != 1:
+                return self.tolist()[i]
+            return Strings(self.arena, self.offs[start : max(start, stop) + 1])
+        n = len(self)
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise IndexError("Strings index out of range")
+        return self.arena[self.offs[i] : self.offs[i + 1]].tobytes()
+
+    def tolist(self) -> List[bytes]:
+        """The items as a list of ``bytes``: one copy of the arena, one
+        slice an item."""
+        o = (self.offs - self.offs[0]).tolist()
+        buf = self.arena[self.offs[0] : self.offs[-1]].tobytes()
+        return [buf[a:b] for a, b in zip(o, o[1:])]
+
+    def __iter__(self):
+        return iter(self.tolist())
+
+    def __eq__(self, other):
+        if isinstance(other, Strings):
+            other = other.tolist()
+        if isinstance(other, list):
+            return self.tolist() == other
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return f"Strings({self.tolist()!r})"
+
+
 @dataclass
 class ReadBatch:
-    names: List[bytes]
-    seqs: List[bytes]
+    """B reads (mates alternating when paired).  ``names``, ``seqs`` and
+    ``quals`` are lists of ``bytes``, or ``Strings`` where the C++ parser
+    made the batch (``quals`` is then ``Strings`` for FASTQ and a list of
+    None for FASTA, as the record reader gives)."""
+
+    names: Sequence[bytes]
+    seqs: Sequence[bytes]
     codes: np.ndarray  # (B, L) int8, -1 pad/ambiguous
     lengths: np.ndarray  # (B,) int32
-    quals: Optional[List[Optional[bytes]]] = None
+    quals: Optional[Sequence[Optional[bytes]]] = None
 
 
 def bucket_len(n: int, min_len: int = 64) -> int:

@@ -1,15 +1,18 @@
 """ctypes wrapper over the port's C++ FASTA/FASTQ batch parser
-(``native/src/fastx.cpp``): parsing, LUT encoding and pad-fill of a batch
-in one C++ pass.  Same wrapper as ``bonsai_tpu/native/fastx.py``.
+(``native/src/fastx.cpp``): parsing, the names' trim (the header up to its
+first space or tab, then a '/<digit>' mate suffix off), LUT encoding and
+pad-fill of a batch in one C++ pass.  The batch's names, sequences and
+qualities leave it as ``io.fastx.Strings`` over the arenas it filled: no
+Python object a read.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
 
 import numpy as np
 
+from ..io.fastx import Strings
 from . import get_lib
 
 
@@ -34,7 +37,8 @@ class NativeFastxReader:
 
     def next_batch(self, max_reads: int, lut: np.ndarray, bucket_len):
         """Parse up to max_reads records.  Returns None at EOF, else
-        (names, seqs, quals, codes, lengths)."""
+        (names, seqs, quals, codes, lengths): names and seqs ``Strings``,
+        quals ``Strings`` for FASTQ and a list of None for FASTA."""
         lib, h = self.lib, self.h
         n = lib.btpu_next_batch(h, max_reads)
         if n < 0:
@@ -79,23 +83,8 @@ class NativeFastxReader:
             L,
             lengths.ctypes.data,
         )
-        nbytes = names_arena.tobytes()
-        sbytes = seqs_arena.tobytes()
-        qbytes = quals_arena.tobytes() if has_qual.value else b""
-        from ..io.fastx import trim_readno
-
-        names: List[bytes] = [
-            trim_readno(nbytes[name_offs[i] : name_offs[i + 1]])
-            for i in range(n)
-        ]
-        seqs: List[bytes] = [sbytes[seq_offs[i] : seq_offs[i + 1]] for i in range(n)]
-        if has_qual.value:
-            quals: List[Optional[bytes]] = [
-                qbytes[qual_offs[i] : qual_offs[i] + lengths[i]]
-                if qual_offs[i] >= 0
-                else None
-                for i in range(n)
-            ]
-        else:
-            quals = [None] * n
+        names = Strings(names_arena, name_offs)
+        seqs = Strings(seqs_arena, seq_offs)
+        quals = (Strings(quals_arena, qual_offs) if has_qual.value
+                 else [None] * n)
         return names, seqs, quals, codes, lengths

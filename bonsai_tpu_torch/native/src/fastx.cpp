@@ -1,4 +1,5 @@
-// Copied unchanged from bonsai_tpu/native/src/fastx.cpp.
+// The port's copy of bonsai_tpu/native/src/fastx.cpp, which also trims a
+// '/<digit>' mate suffix off each name (trim_readno below).
 // Native FASTA/FASTQ batch reader + 2-bit encoder.
 //
 // TPU-native replacement for the reference's kseq/bseq input layer
@@ -91,6 +92,14 @@ void trim_name(std::string &s) {
   if (cut != std::string::npos) s.resize(cut);
 }
 
+void trim_readno(std::string &s) {
+  // a '/<digit>' mate suffix off a name longer than 2 bytes
+  // (kseq_declare.h trim_readno; io/fastx.py trim_readno)
+  size_t n = s.size();
+  if (n > 2 && s[n - 2] == '/' && s[n - 1] >= '0' && s[n - 1] <= '9')
+    s.resize(n - 2);
+}
+
 }  // namespace
 
 extern "C" {
@@ -156,6 +165,7 @@ int64_t btpu_next_batch(void *h, int64_t max_reads) {
       name.assign(line, 1, std::string::npos);
     }
     trim_name(name);
+    trim_readno(name);
 
     Record rec;
     rec.name_off = r->names.size();

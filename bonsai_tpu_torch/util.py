@@ -108,7 +108,11 @@ def time_code(msg: str, fh=None) -> Iterator[Timer]:
 # (``Classifier.process_dataset``): ``pass``, the whole call, in the main
 # thread; ``read`` and ``parse`` in the producer, ``dispatch`` in the main
 # thread, ``materialize`` (``device_wait`` and ``full_fetch`` inside it)
-# and ``format`` in the writer.  ``STAGES`` are ``stage_seconds``' keys;
+# and ``format`` in the writer.  ``name_join``, inside ``format``, joins a
+# batch's names into the formatter's arena where they came as a list and
+# not as the C++ parser's ``io.fastx.Strings``: its count is the batches
+# that missed the arena (paired input, whose mates are interleaved
+# lists).  ``STAGES`` are ``stage_seconds``' keys;
 # ``WAITS`` are the blocking queue calls and the writer's wait on the
 # card.  Build: ``db/build_device.py``'s genome stream, fold and fetch,
 # ``db/table.py``'s placement and slot image, ``db/formats.py``'s payload.
@@ -117,7 +121,8 @@ WAITS = ("producer_blocked", "dispatch_starved", "dispatch_blocked",
          "writer_starved", "device_wait")
 BUILD_SPANS = ("genome_read", "fold", "fold_fetch", "placement", "image",
                "payload")
-CLASSIFY_SPANS = ("pass", "read") + STAGES + ("full_fetch",) + WAITS
+CLASSIFY_SPANS = (("pass", "read") + STAGES + ("full_fetch", "name_join")
+                  + WAITS)
 SPANS = CLASSIFY_SPANS + BUILD_SPANS
 
 
